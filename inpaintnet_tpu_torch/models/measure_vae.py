@@ -1,0 +1,249 @@
+"""MeasureVAE at inference: bidirectional-GRU encoder and hierarchical
+beat/tick decoder (``inpaintnet_tpu/models/measure_vae.py``).
+
+The modules hold their parameters under the reference's ``state_dict``
+names and shapes (``convert.py``); the functional methods take the nested
+(in, out) parameters that ``params()`` returns, like the JAX package's
+``apply(params, ...)``. No teacher-forced or training path.
+
+Quirk kept for parity: ReLU on the output logits, so logits are
+non-negative and all-zero rows (ties broken to token 0) are common.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from inpaintnet_tpu_torch.models.convert import measure_vae_leaves, to_functional
+from inpaintnet_tpu_torch.ops.decode_kernel import decode_sampling as decode_sampling_kernel
+from inpaintnet_tpu_torch.ops.distributions import DiagNormal
+from inpaintnet_tpu_torch.ops.encoder_kernel import encoder_hn
+from inpaintnet_tpu_torch.ops.gru import gru_apply, gru_gates, gru_init
+from inpaintnet_tpu_torch.ops.kernel_common import kernel_supports_hidden
+from inpaintnet_tpu_torch.ops.linear import (
+    embedding_apply,
+    embedding_init,
+    linear_apply,
+    linear_init,
+    mlp_selu_apply,
+    mlp_selu_init,
+)
+from inpaintnet_tpu_torch.ops.sampling import sample_argmax
+
+NUM_BEATS_PER_MEASURE = 4
+NUM_TICKS_PER_MEASURE = 24
+TICKS_PER_BEAT = NUM_TICKS_PER_MEASURE // NUM_BEATS_PER_MEASURE
+
+
+class GRUWeights(nn.Module):
+    """Parameters of a (bi)GRU stack under ``torch.nn.GRU``'s names and
+    shapes (``weight_ih_l{k}[_reverse]`` (3H, in), ...). A container only:
+    the recurrence is ``ops.gru`` or a kernel, never cuDNN."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int,
+                 bidirectional: bool = False, device=None):
+        super().__init__()
+        num_dirs = 2 if bidirectional else 1
+        for layer in range(num_layers):
+            in_dim = input_size if layer == 0 else hidden_size * num_dirs
+            for d in range(num_dirs):
+                sfx = f"_l{layer}" + ("_reverse" if d == 1 else "")
+                for name, shape in ((f"weight_ih{sfx}", (3 * hidden_size, in_dim)),
+                                    (f"weight_hh{sfx}", (3 * hidden_size, hidden_size)),
+                                    (f"bias_ih{sfx}", (3 * hidden_size,)),
+                                    (f"bias_hh{sfx}", (3 * hidden_size,))):
+                    self.register_parameter(
+                        name, nn.Parameter(torch.empty(shape, device=device)))
+
+
+def _linear(in_dim, out_dim, device, act):
+    return nn.Sequential(nn.Linear(in_dim, out_dim, device=device), act)
+
+
+def _mlp_selu(in_dim, hidden_dim, out_dim, device):
+    return nn.Sequential(nn.Linear(in_dim, hidden_dim, device=device), nn.SELU(),
+                         nn.Linear(hidden_dim, out_dim, device=device))
+
+
+class Encoder(nn.Module):
+    """q(z | measure): embedding -> 2-layer bi-GRU -> concat of all final
+    hiddens -> Linear/SELU/Linear mean and log-std heads."""
+
+    def __init__(self, note_embedding_dim: int, rnn_hidden_size: int, num_layers: int,
+                 num_notes: int, z_dim: int, device=None):
+        super().__init__()
+        self.note_embedding_dim = note_embedding_dim
+        self.rnn_hidden_size = rnn_hidden_size
+        self.num_layers = num_layers
+        self.num_notes = num_notes
+        self.z_dim = z_dim
+        hid_cat = rnn_hidden_size * 2 * num_layers
+        self.note_embedding_layer = nn.Embedding(num_notes, note_embedding_dim, device=device)
+        self.lstm = GRUWeights(note_embedding_dim, rnn_hidden_size, num_layers, True, device)
+        self.linear_mean = _mlp_selu(hid_cat, 2 * rnn_hidden_size, z_dim, device)
+        self.linear_log_std = _mlp_selu(hid_cat, 2 * rnn_hidden_size, z_dim, device)
+
+    def init_params(self, rng: np.random.Generator) -> dict:
+        hid_cat = self.rnn_hidden_size * 2 * self.num_layers
+        return {
+            "embedding": embedding_init(rng, self.num_notes, self.note_embedding_dim),
+            "gru": gru_init(rng, self.note_embedding_dim, self.rnn_hidden_size,
+                            self.num_layers, True),
+            "mean_head": mlp_selu_init(rng, hid_cat, 2 * self.rnn_hidden_size, self.z_dim),
+            "log_std_head": mlp_selu_init(rng, hid_cat, 2 * self.rnn_hidden_size, self.z_dim),
+        }
+
+    def use_kernel(self) -> bool:
+        """K1 takes this geometry: 2 bidirectional layers (always
+        bidirectional here) and a hidden width the kernel tiles."""
+        return self.num_layers == 2 and kernel_supports_hidden(self.rnn_hidden_size)
+
+    def apply(self, params, tokens: torch.Tensor) -> DiagNormal:
+        """:param tokens: (B, 24) int tokens -> DiagNormal over z."""
+        if self.use_kernel():
+            h_n = encoder_hn(params["gru"], params["embedding"]["table"], tokens)
+        else:
+            emb = embedding_apply(params["embedding"], tokens)
+            _, h_n = gru_apply(params["gru"], emb, last_outputs=False)
+        return self._heads(params, h_n, tokens.shape[0])
+
+    def _heads(self, params, h_n: torch.Tensor, batch: int) -> DiagNormal:
+        """(L*D, B, H) torch-layout final hiddens -> (B, L*D*H) -> heads."""
+        hidden = h_n.transpose(0, 1).reshape(batch, -1)
+        z_mean = mlp_selu_apply(params["mean_head"], hidden)
+        z_log_std = mlp_selu_apply(params["log_std_head"], hidden)
+        return DiagNormal(z_mean, torch.exp(z_log_std))
+
+
+class HierarchicalDecoder(nn.Module):
+    """p(measure | z): z -> 4-step beat GRU -> per beat, a 6-tick GRU."""
+
+    def __init__(self, note_embedding_dim: int, num_notes: int, z_dim: int,
+                 num_layers: int, rnn_hidden_size: int, device=None):
+        super().__init__()
+        self.note_embedding_dim = note_embedding_dim
+        self.num_notes = num_notes
+        self.z_dim = z_dim
+        self.num_layers = num_layers
+        self.rnn_hidden_size = rnn_hidden_size
+        H, L, E = rnn_hidden_size, num_layers, note_embedding_dim
+        self.note_embedding_layer = nn.Embedding(num_notes, E, device=device)
+        self.z_to_beat_rnn_input = _linear(z_dim, H * L, device, nn.SELU())
+        self.b_0 = nn.Parameter(torch.empty((1,), device=device))
+        self.rnn_beat = GRUWeights(1, H, L, False, device)
+        self.beat_emb_to_tick_rnn_hidden = _linear(H, H * L, device, nn.SELU())
+        self.beat_emb_to_tick_rnn_input = _linear(H, H, device, nn.SELU())
+        self.x_0 = nn.Parameter(torch.empty((E,), device=device))
+        self.rnn_tick = GRUWeights(E + H, H, L, False, device)
+        self.tick_emb_to_note_emb = _linear(H, num_notes, device, nn.ReLU())
+
+    def init_params(self, rng: np.random.Generator) -> dict:
+        H, L, E = self.rnn_hidden_size, self.num_layers, self.note_embedding_dim
+        return {
+            "embedding": embedding_init(rng, self.num_notes, E),
+            "z_to_beat_hidden": linear_init(rng, self.z_dim, H * L),
+            "b_0": np.zeros((1,), np.float32),
+            "beat_gru": gru_init(rng, 1, H, L),
+            "beat_to_tick_hidden": linear_init(rng, H, H * L),
+            "beat_to_tick_input": linear_init(rng, H, H),
+            "x_0": np.zeros((E,), np.float32),
+            "tick_gru": gru_init(rng, E + H, H, L),
+            "head": linear_init(rng, H, self.num_notes),
+        }
+
+    def _beat_outputs(self, params, z: torch.Tensor) -> torch.Tensor:
+        """z -> beat-GRU outputs (B, 4, H)."""
+        batch = z.shape[0]
+        h0 = torch.selu(linear_apply(params["z_to_beat_hidden"], z))
+        h0 = h0.reshape(batch, self.num_layers, -1).transpose(0, 1)
+        beat_in = params["b_0"].expand(batch, NUM_BEATS_PER_MEASURE, 1)
+        beat_out, _ = gru_apply(params["beat_gru"], beat_in, h0.contiguous())
+        return beat_out
+
+    def _tick_h0(self, params, beat_vec: torch.Tensor) -> torch.Tensor:
+        """Per-beat tick-GRU init hidden: (N, H) -> (L, N, H)."""
+        h0 = torch.selu(linear_apply(params["beat_to_tick_hidden"], beat_vec))
+        return h0.reshape(beat_vec.shape[0], self.num_layers, -1).transpose(0, 1)
+
+    def _logits(self, params, tick_out: torch.Tensor) -> torch.Tensor:
+        # ReLU on logits: the reference's quirk, kept
+        return torch.relu(linear_apply(params["head"], tick_out))
+
+    def use_kernel(self) -> bool:
+        """K2 takes this geometry: 2 tick-GRU layers (the decode here is
+        always argmax inference) and a hidden width the kernel tiles."""
+        return self.num_layers == 2 and kernel_supports_hidden(self.rnn_hidden_size)
+
+    def decode_sampling(self, params, z: torch.Tensor):
+        """Argmax decode of one measure per latent.
+
+        :return: (logits (B, 24, V), samples (B, 24) int32)
+        """
+        batch = z.shape[0]
+        beat_out = self._beat_outputs(params, z)
+        tick_ctx = torch.selu(linear_apply(params["beat_to_tick_input"], beat_out))
+        h_inits = self._tick_h0(
+            params, beat_out.reshape(batch * NUM_BEATS_PER_MEASURE, -1)
+        ).reshape(self.num_layers, batch, NUM_BEATS_PER_MEASURE, -1)
+        if self.use_kernel():
+            return decode_sampling_kernel(params, tick_ctx.contiguous(), h_inits.contiguous())
+        return self._decode_scan(params, tick_ctx, h_inits)
+
+    def _decode_scan(self, params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
+        """The 24-tick decode as a plain loop in the parameters' dtype (the
+        JAX package's XLA scan): layer 0's token and beat-context input
+        projections are hoisted out of the loop."""
+        batch = tick_ctx.shape[0]
+        E = self.note_embedding_dim
+        p0 = params["tick_gru"][0][0]
+        token_xw = params["embedding"]["table"] @ p0["w_ih"][:E]  # (V, 3H)
+        ctx_xw = tick_ctx @ p0["w_ih"][E:] + p0["b_ih"]  # (B, 4, 3H)
+        prev_xw = (params["x_0"] @ p0["w_ih"][:E]).expand(batch, -1)
+        logits, samples = [], []
+        for t in range(NUM_TICKS_PER_MEASURE):
+            beat = t // TICKS_PER_BEAT
+            if t % TICKS_PER_BEAT == 0:
+                h = list(h_inits[:, :, beat])
+            xw = prev_xw + ctx_xw[:, beat]
+            inp = None
+            for layer in range(self.num_layers):
+                p = params["tick_gru"][layer][0]
+                if layer > 0:
+                    xw = inp @ p["w_ih"] + p["b_ih"]
+                h[layer] = gru_gates(p, h[layer], xw)
+                inp = h[layer]
+            lg = self._logits(params, inp)
+            s = sample_argmax(lg)
+            prev_xw = token_xw[s]
+            logits.append(lg)
+            samples.append(s)
+        return torch.stack(logits, dim=1), torch.stack(samples, dim=1).to(torch.int32)
+
+
+class MeasureVAE(nn.Module):
+    """Container of the encoder and decoder (inference only)."""
+
+    def __init__(self, dataset, note_embedding_dim: int = 10, num_encoder_layers: int = 2,
+                 encoder_hidden_size: int = 512, latent_space_dim: int = 256,
+                 num_decoder_layers: int = 2, decoder_hidden_size: int = 512, device=None):
+        super().__init__()
+        self.num_notes = len(dataset.note2index_dicts[0])
+        self.latent_space_dim = latent_space_dim
+        self.encoder = Encoder(note_embedding_dim, encoder_hidden_size, num_encoder_layers,
+                               self.num_notes, latent_space_dim, device)
+        self.decoder = HierarchicalDecoder(note_embedding_dim, self.num_notes,
+                                           latent_space_dim, num_decoder_layers,
+                                           decoder_hidden_size, device)
+
+    def init_params(self, rng: np.random.Generator) -> dict:
+        """Random parameters in the JAX package's layout, as numpy."""
+        return {"encoder": self.encoder.init_params(rng),
+                "decoder": self.decoder.init_params(rng)}
+
+    def leaves(self):
+        return measure_vae_leaves(self.encoder.num_layers, self.decoder.num_layers)
+
+    def params(self) -> dict:
+        """The nested (in, out) parameters the functional methods take."""
+        return to_functional(self.state_dict(), self.leaves())

@@ -1,0 +1,109 @@
+"""GRU recurrences as eager PyTorch loops (``inpaintnet_tpu/ops/gru.py``).
+
+Same parameter layout as the JAX package, per stack:
+    [layer][direction] -> {"w_ih": (in, 3H), "w_hh": (H, 3H),
+                           "b_ih": (3H,),    "b_hh": (3H,)}
+with torch's [r, z, n] gate order, and ``h_n`` in torch layout
+``(num_layers * num_dirs, B, H)``, directions fastest.
+
+Masks: a step whose mask is 0 keeps h and emits the held h, so a padded
+sequence ends on the hidden of its last valid step, and an all-zero mask
+(the serving engine's "no future context") leaves ``h0``. cuDNN's packed
+sequences cannot express either (they emit zeros at pad steps and take no
+all-empty sequence), so this is a loop, not ``nn.GRU``.
+
+This is inference only: no dropout, no training route.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from inpaintnet_tpu_torch.ops.linear import xavier_normal
+
+
+def gru_cell_init(rng: np.random.Generator, input_size: int, hidden_size: int) -> dict:
+    return {
+        "w_ih": xavier_normal(rng, (input_size, 3 * hidden_size)),
+        "w_hh": xavier_normal(rng, (hidden_size, 3 * hidden_size)),
+        "b_ih": np.zeros((3 * hidden_size,), np.float32),
+        "b_hh": np.zeros((3 * hidden_size,), np.float32),
+    }
+
+
+def gru_init(rng: np.random.Generator, input_size: int, hidden_size: int,
+             num_layers: int, bidirectional: bool = False) -> list:
+    """Init a (possibly bidirectional) multi-layer GRU stack as numpy."""
+    num_dirs = 2 if bidirectional else 1
+    return [
+        [gru_cell_init(rng, input_size if layer == 0 else hidden_size * num_dirs,
+                       hidden_size)
+         for _ in range(num_dirs)]
+        for layer in range(num_layers)
+    ]
+
+
+def gru_gates(params, h: torch.Tensor, xw: torch.Tensor) -> torch.Tensor:
+    """One step's gate math given ``xw = x @ W_ih + b_ih``, in the tensors'
+    own dtype (the JAX package's XLA scan does the same)."""
+    hidden = h.shape[-1]
+    hw = h @ params["w_hh"] + params["b_hh"]
+    r = torch.sigmoid(xw[..., :hidden] + hw[..., :hidden])
+    z = torch.sigmoid(xw[..., hidden : 2 * hidden] + hw[..., hidden : 2 * hidden])
+    n = torch.tanh(xw[..., 2 * hidden :] + r * hw[..., 2 * hidden :])
+    return (1.0 - z) * n + z * h
+
+
+def gru_layer_apply(params, x: torch.Tensor, h0: torch.Tensor, *, reverse: bool = False,
+                    mask: Optional[torch.Tensor] = None, want_ys: bool = True):
+    """Single-direction GRU over a sequence.
+
+    :param x: (B, T, in); h0: (B, H)
+    :param reverse: run t = T-1 .. 0 (outputs stay in original order)
+    :param mask: optional (B, T); steps with mask == 0 keep h
+    :return: (outputs (B, T, H) or None, h_last (B, H))
+    """
+    seq_len = x.shape[1]
+    xw = x @ params["w_ih"] + params["b_ih"]  # one product for all T
+    keep = None if mask is None else (mask > 0)[..., None]
+    h = h0
+    ys = [None] * seq_len
+    for t in (range(seq_len - 1, -1, -1) if reverse else range(seq_len)):
+        h_new = gru_gates(params, h, xw[:, t])
+        h = h_new if keep is None else torch.where(keep[:, t], h_new, h)
+        ys[t] = h
+    if not want_ys:
+        return None, h
+    return torch.stack(ys, dim=1), h
+
+
+def gru_apply(params, x: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
+              mask: Optional[torch.Tensor] = None, last_outputs: bool = True):
+    """Multi-layer (bi)GRU over a sequence.
+
+    :param params: nested list from ``gru_init`` (as tensors)
+    :param x: (B, T, in)
+    :param h0: (num_layers * num_dirs, B, H) or None for zeros
+    :param mask: optional (B, T) validity mask
+    :param last_outputs: False skips the last layer's per-step outputs
+        (callers that read only ``h_n``); ``outputs`` is then None
+    :return: (outputs (B, T, H * num_dirs) or None, h_n (L * D, B, H))
+    """
+    num_layers, num_dirs = len(params), len(params[0])
+    hidden = params[0][0]["w_hh"].shape[0]
+    if h0 is None:
+        h0 = x.new_zeros((num_layers * num_dirs, x.shape[0], hidden))
+    out = x
+    h_n = []
+    for layer in range(num_layers):
+        want_ys = last_outputs or layer < num_layers - 1
+        outs = []
+        for d in range(num_dirs):
+            o, h_last = gru_layer_apply(params[layer][d], out, h0[layer * num_dirs + d],
+                                        reverse=(d == 1), mask=mask, want_ys=want_ys)
+            outs.append(o)
+            h_n.append(h_last)
+        out = torch.cat(outs, dim=-1) if want_ys else None
+    return out, torch.stack(h_n, dim=0)

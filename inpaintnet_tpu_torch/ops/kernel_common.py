@@ -1,0 +1,159 @@
+"""Shared pieces for the hand-written CUDA kernels.
+
+- ``round_up`` and ``gru_gates_f32``: the [r, z, n] torch-order GRU gate
+  math in f32 (one copy for every plain version; the CUDA copy is
+  ``csrc/gru_common.cuh gru_gate``).
+- The build: ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
+  with a plain C interface, at first use, keyed on the hash of the sources,
+  into ``build/inpaintnet_tpu_torch/`` at the repository root. It is loaded
+  with ``ctypes``.
+- ``pack_mma_b``: the weight layout the bf16 kernels read.
+- ``check_cuda_tensor``: the wrappers' argument checks.
+
+Nothing here imports or builds anything at import time: this module is
+imported on machines without ``nvcc`` or a GPU, where only the plain
+versions run.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "inpaintnet_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+# dtype codes of the C entry points
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def gru_gates_f32(xw, hw, h_prev, hidden: int):
+    """Torch-order [r, z, n] GRU gate math in f32, with the products (and
+    their biases) precomputed by the caller."""
+    r = torch.sigmoid(xw[:, :hidden] + hw[:, :hidden])
+    z = torch.sigmoid(xw[:, hidden : 2 * hidden] + hw[:, hidden : 2 * hidden])
+    n = torch.tanh(xw[:, 2 * hidden :] + r * hw[:, 2 * hidden :])
+    return (1.0 - z) * n + z * h_prev
+
+
+def kernel_supports_hidden(hidden: int) -> bool:
+    """Hidden widths the GRU kernels take: whole 64-unit chunks, and a row
+    tile that fits one block's shared memory (up to the flagship's 512)."""
+    return hidden % 64 == 0 and hidden <= 512
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def sources_hash() -> str:
+    h = hashlib.sha256()
+    for path in _sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the CUDA "
+                       "kernels cannot be built")
+
+
+def build_kernels(verbose: bool = False) -> Path:
+    """Compile ``csrc/*.cu`` into ``libkernels_<hash>.so`` unless a library
+    of the same sources exists. Returns its path; raises on a failed build."""
+    lib = BUILD_DIR / f"libkernels_{sources_hash()}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if verbose and (res.stdout or res.stderr):
+            print(res.stdout + res.stderr, flush=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_kernels() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with every entry
+    point's ``argtypes`` set (an unset one would pass pointers as 32-bit
+    ints)."""
+    lib = ctypes.CDLL(str(build_kernels()))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.inpaint_encoder_hn.argtypes = [i32] + [ptr] * 15 + [i32] * 4 + [ptr]
+    lib.inpaint_encoder_hn.restype = i32
+    lib.inpaint_decode_sampling.argtypes = [i32] + [ptr] * 13 + [i32] * 4 + [ptr]
+    lib.inpaint_decode_sampling.restype = i32
+    return lib
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` from a C entry point: a refused
+    launch never runs, and a later synchronise would not report it."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def stream_ptr() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check_cuda_tensor(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: the kernels take raw pointers and trust all four."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def pack_mma_b(w: torch.Tensor) -> torch.Tensor:
+    """Reorder a (K, N) bf16 weight into the ``mma.sync m16n8k16`` B-fragment
+    order the kernels load (``gru_common.cuh Gemm``): for each 8-column tile
+    and 16-row k-tile, lane ``l = 4 * r + q`` holds
+    ``w[k0 + 2q + {0, 1, 8, 9}, n0 + r]`` as four contiguous values.
+    f32 weights stay (K, N): the f32 route reads them as they are."""
+    if w.dtype != torch.bfloat16:
+        return w.contiguous()
+    K, N = w.shape
+    if K % 16 or N % 8:
+        raise ValueError(f"pack_mma_b: shape {(K, N)} needs K % 16 == 0 and N % 8 == 0")
+    # k = kt*16 + half*8 + q*2 + p ; n = nt*8 + r  ->  (nt, kt, r, q, half, p)
+    return w.reshape(K // 16, 2, 4, 2, N // 8, 8).permute(4, 0, 5, 2, 1, 3).contiguous()
