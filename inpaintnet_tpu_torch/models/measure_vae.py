@@ -17,8 +17,9 @@ from torch import nn
 
 from inpaintnet_tpu_torch.models.convert import measure_vae_leaves, to_functional
 from inpaintnet_tpu_torch.ops.decode_kernel import decode_sampling as decode_sampling_kernel
+from inpaintnet_tpu_torch.ops.decode_kernel import decode_sampling_int8
 from inpaintnet_tpu_torch.ops.distributions import DiagNormal
-from inpaintnet_tpu_torch.ops.encoder_kernel import encoder_hn
+from inpaintnet_tpu_torch.ops.encoder_kernel import encoder_hn, encoder_hn_int8
 from inpaintnet_tpu_torch.ops.gru import gru_apply, gru_gates, gru_init
 from inpaintnet_tpu_torch.ops.kernel_common import kernel_supports_hidden
 from inpaintnet_tpu_torch.ops.linear import (
@@ -29,6 +30,7 @@ from inpaintnet_tpu_torch.ops.linear import (
     mlp_selu_apply,
     mlp_selu_init,
 )
+from inpaintnet_tpu_torch.ops.quantize import check_quant
 from inpaintnet_tpu_torch.ops.sampling import sample_argmax
 
 NUM_BEATS_PER_MEASURE = 4
@@ -95,14 +97,19 @@ class Encoder(nn.Module):
         }
 
     def use_kernel(self) -> bool:
-        """K1 takes this geometry: 2 bidirectional layers (always
-        bidirectional here) and a hidden width the kernel tiles."""
+        """K1 and K3 take this geometry: 2 bidirectional layers (always
+        bidirectional here) and a hidden width the kernels tile."""
         return self.num_layers == 2 and kernel_supports_hidden(self.rnn_hidden_size)
 
-    def apply(self, params, tokens: torch.Tensor) -> DiagNormal:
-        """:param tokens: (B, 24) int tokens -> DiagNormal over z."""
+    def apply(self, params, tokens: torch.Tensor, quant: str = "none") -> DiagNormal:
+        """:param tokens: (B, 24) int tokens -> DiagNormal over z.
+        :param quant: "int8" runs K3 where a kernel takes the geometry (and
+            the plain scan in the parameter dtype elsewhere, as the JAX
+            package does when its kernel gate is closed)"""
+        check_quant(quant)
         if self.use_kernel():
-            h_n = encoder_hn(params["gru"], params["embedding"]["table"], tokens)
+            kernel = encoder_hn_int8 if quant == "int8" else encoder_hn
+            h_n = kernel(params["gru"], params["embedding"]["table"], tokens)
         else:
             emb = embedding_apply(params["embedding"], tokens)
             _, h_n = gru_apply(params["gru"], emb, last_outputs=False)
@@ -171,15 +178,18 @@ class HierarchicalDecoder(nn.Module):
         return torch.relu(linear_apply(params["head"], tick_out))
 
     def use_kernel(self) -> bool:
-        """K2 takes this geometry: 2 tick-GRU layers (the decode here is
-        always argmax inference) and a hidden width the kernel tiles."""
+        """K2 and K4 take this geometry: 2 tick-GRU layers (the decode here
+        is always argmax inference) and a hidden width the kernels tile."""
         return self.num_layers == 2 and kernel_supports_hidden(self.rnn_hidden_size)
 
-    def decode_sampling(self, params, z: torch.Tensor):
+    def decode_sampling(self, params, z: torch.Tensor, quant: str = "none"):
         """Argmax decode of one measure per latent.
 
+        :param quant: "int8" runs K4 where a kernel takes the geometry (the
+            plain scan elsewhere)
         :return: (logits (B, 24, V), samples (B, 24) int32)
         """
+        check_quant(quant)
         batch = z.shape[0]
         beat_out = self._beat_outputs(params, z)
         tick_ctx = torch.selu(linear_apply(params["beat_to_tick_input"], beat_out))
@@ -187,7 +197,8 @@ class HierarchicalDecoder(nn.Module):
             params, beat_out.reshape(batch * NUM_BEATS_PER_MEASURE, -1)
         ).reshape(self.num_layers, batch, NUM_BEATS_PER_MEASURE, -1)
         if self.use_kernel():
-            return decode_sampling_kernel(params, tick_ctx.contiguous(), h_inits.contiguous())
+            kernel = decode_sampling_int8 if quant == "int8" else decode_sampling_kernel
+            return kernel(params, tick_ctx.contiguous(), h_inits.contiguous())
         return self._decode_scan(params, tick_ctx, h_inits)
 
     def _decode_scan(self, params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):

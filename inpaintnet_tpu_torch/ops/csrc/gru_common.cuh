@@ -1,6 +1,8 @@
 // Shared device pieces of the hand-written GRU kernels (encoder_gru.cu,
-// decode_sampling.cu): the block-level "three gates at once" product, the
-// [r, z, n] gate math, and the dtype traits.
+// decode_sampling.cu and their int8 twins encoder_gru_int8.cu,
+// decode_sampling_int8.cu): the block-level "three gates at once" products
+// (bf16/f32 and int8), the [r, z, n] gate math, the int8 (de)quantization,
+// and the dtype traits.
 //
 // Thread layout every kernel here uses: 256 threads = 8 warps. A block owns
 // MT m-tiles of 16 batch rows (TILE_M = 16 * MT rows) and walks the hidden
@@ -44,13 +46,17 @@ __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf
 
 // h' = (1 - z) * n + z * h with r = sigmoid(xr + hr), z = sigmoid(xz + hz),
 // n = tanh(xn + r * hn): torch's GRU, every input already in f32 and every
-// bias already added (ops/pallas_common.py gru_gates_f32).
+// bias already added (kernel_common.gru_gates_f32). Every multiply and add
+// is rounded on its own (__fmul_rn / __fadd_rn are never contracted into an
+// FMA), in the order of the plain versions' separate tensor ops, so a
+// kernel and its plain version differ only by their sums' order and the
+// exp/tanh ulps.
 __device__ __forceinline__ float gru_gate(float xr, float hr, float xz, float hz,
                                           float xn, float hn, float h) {
-  const float r = sigmoid_f(xr + hr);
-  const float z = sigmoid_f(xz + hz);
-  const float n = tanhf(xn + r * hn);
-  return (1.0f - z) * n + z * h;
+  const float r = sigmoid_f(__fadd_rn(xr, hr));
+  const float z = sigmoid_f(__fadd_rn(xz, hz));
+  const float n = tanhf(__fadd_rn(xn, __fmul_rn(r, hn)));
+  return __fadd_rn(__fmul_rn(__fsub_rn(1.0f, z), n), __fmul_rn(z, h));
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -62,14 +68,14 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int NG, int MT>
-__device__ __forceinline__ void zero_acc(float (&acc)[NG][MT][4]) {
+template <typename A, int NG, int MT>
+__device__ __forceinline__ void zero_acc(A (&acc)[NG][MT][4]) {
 #pragma unroll
   for (int g = 0; g < NG; ++g)
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[g][m][i] = 0.0f;
+      for (int i = 0; i < 4; ++i) acc[g][m][i] = A(0);
 }
 
 // acc[G] += A (TILE_M x K, smem, row stride lda) @ W[:, 8-column tile nt[G]]
@@ -138,6 +144,74 @@ template <int NG> struct Gemm<float, 1, NG> {
     }
   }
 };
+
+// ---------------------------------------------------------------------------
+// int8 pieces (encoder_gru_int8.cu, decode_sampling_int8.cu)
+// ---------------------------------------------------------------------------
+
+// Row padding of an int8 hidden tile in smem, bytes: 16 keeps uint4 stores
+// aligned, and with H a multiple of 64 the row stride is 4 banks off a
+// multiple of 32 banks, so the 8 rows x 4 lanes of an A-fragment load hit
+// 32 distinct banks.
+constexpr int kPadS8 = 16;
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[G] += A (16*MT x K int8, smem, row stride lda bytes) @ W[:, 8-column
+// tile nt[G]] in exact int32, for NG column tiles at once. K is a multiple
+// of 32. W is fragment-packed by the host (kernel_common.pack_mma_b_s8):
+// for n-tile nt and k-tile kt the 32 lanes' B fragments are 256 contiguous
+// bytes, one 8-byte load per lane. The accumulator layout is the f32 one
+// (acc_row / acc_col below).
+template <int MT, int NG>
+__device__ __forceinline__ void gemm_s8(int (&acc)[NG][MT][4], const int8_t* A, int lda, int K,
+                                        const void* W, const int (&nt)[NG]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int KT = K / 32;
+  const uint2* P = reinterpret_cast<const uint2*>(W);
+  const uint2* p[NG];
+#pragma unroll
+  for (int G = 0; G < NG; ++G) p[G] = P + (size_t)nt[G] * KT * 32 + lane;
+  for (int kt = 0; kt < KT; ++kt) {
+    uint2 b[NG];
+#pragma unroll
+    for (int G = 0; G < NG; ++G) b[G] = __ldg(p[G] + kt * 32);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int8_t* base = A + (16 * m + g) * lda + kt * 32 + 4 * q;
+      uint32_t a[4];
+      a[0] = *reinterpret_cast<const uint32_t*>(base);
+      a[1] = *reinterpret_cast<const uint32_t*>(base + 8 * lda);
+      a[2] = *reinterpret_cast<const uint32_t*>(base + 16);
+      a[3] = *reinterpret_cast<const uint32_t*>(base + 8 * lda + 16);
+#pragma unroll
+      for (int G = 0; G < NG; ++G) mma_s8(acc[G][m], a, b[G].x, b[G].y);
+    }
+  }
+}
+
+// (acc * s) [* dq] + b, each step rounded as gru_gate's: the dequantization
+// of an int32 product (ops/quantize.py)
+__device__ __forceinline__ float dequant(int acc, float s, float b) {
+  return __fadd_rn(__fmul_rn((float)acc, s), b);
+}
+__device__ __forceinline__ float dequant(int acc, float s, float dq, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn((float)acc, s), dq), b);
+}
+
+// clip(round_half_even(h * qscale), -127, 127)
+__device__ __forceinline__ int8_t quant_h(float h, float qscale) {
+  const int v = __float2int_rn(__fmul_rn(h, qscale));
+  return (int8_t)min(max(v, -127), 127);
+}
 
 // Row and column (within the warp's 8-wide n-tile) of accumulator element
 // (m, i), see the layout note at the top.

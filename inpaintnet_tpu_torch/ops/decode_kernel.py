@@ -12,8 +12,14 @@ logits are returned in the parameter dtype.
 
 The products around the loop (token table, tick-0 input, beat-context
 projection) are computed outside the kernel by ``decode_inputs``, as the
-TPU kernel's are. The wrapper runs the plain version for CPU tensors only;
-for CUDA tensors it launches the kernel or raises.
+TPU kernel's are.
+
+``decode_sampling_int8`` (K4, ``csrc/decode_sampling_int8.cu``) is the int8
+serving twin (``decode_sampling_pallas_int8``), with
+``decode_sampling_int8_reference`` as its plain version.
+
+The wrappers run the plain versions for CPU tensors only; for CUDA tensors
+they launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -27,9 +33,11 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     kernel_supports_hidden,
     load_kernels,
     pack_mma_b,
+    pack_mma_b_s8,
     round_up,
     stream_ptr,
 )
+from inpaintnet_tpu_torch.ops.quantize import dequantize_h, quantize_cols_int8, quantize_h_int8
 
 NUM_TICKS = 24
 TICKS_PER_BEAT = 6
@@ -91,6 +99,32 @@ def decode_sampling_reference(params, tick_ctx: torch.Tensor, h_inits: torch.Ten
     return torch.stack(logits, dim=1), torch.stack(samples, dim=1).to(torch.int32)
 
 
+def _check_decode_args(name: str, params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
+    """The K2/K4 wrappers' checks of what the kernels take. -> (batch,
+    hidden, vocab, parameter dtype, device); raises ValueError otherwise."""
+    if len(params["tick_gru"]) != 2:
+        raise ValueError(f"{name}: takes a 2-layer tick GRU")
+    p0, p1 = params["tick_gru"][0][0], params["tick_gru"][1][0]
+    device, dtype = tick_ctx.device, p0["w_hh"].dtype
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"{name}: no kernel for dtype {dtype}")
+    batch, num_beats, hidden = tick_ctx.shape
+    if num_beats != NUM_TICKS // TICKS_PER_BEAT or not kernel_supports_hidden(hidden):
+        raise ValueError(f"{name}: no kernel for (beats, hidden) {(num_beats, hidden)}")
+    check_cuda_tensor("tick_ctx", tick_ctx, (batch, num_beats, hidden), dtype, device)
+    check_cuda_tensor("h_inits", h_inits, (2, batch, num_beats, hidden), dtype, device)
+    for tag, w in (("tick_gru0.w_hh", p0["w_hh"]), ("tick_gru1.w_ih", p1["w_ih"]),
+                   ("tick_gru1.w_hh", p1["w_hh"])):
+        check_cuda_tensor(tag, w, (hidden, 3 * hidden), dtype, device)
+    for tag, b in (("tick_gru0.b_hh", p0["b_hh"]), ("tick_gru1.b_ih", p1["b_ih"]),
+                   ("tick_gru1.b_hh", p1["b_hh"])):
+        check_cuda_tensor(tag, b, (3 * hidden,), dtype, device)
+    vocab = params["head"]["w"].shape[1]
+    check_cuda_tensor("head.w", params["head"]["w"], (hidden, vocab), dtype, device)
+    check_cuda_tensor("head.b", params["head"]["b"], (vocab,), dtype, device)
+    return batch, hidden, vocab, dtype, device
+
+
 def decode_sampling(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
     """K2: argmax decode of one measure per row.
 
@@ -103,27 +137,9 @@ def decode_sampling(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
         return decode_sampling_reference(params, tick_ctx, h_inits)
     if tick_ctx.device.type != "cuda":
         raise ValueError(f"decode_sampling: no kernel for device {tick_ctx.device}")
-    if len(params["tick_gru"]) != 2:
-        raise ValueError("decode_sampling: takes a 2-layer tick GRU")
+    batch, hidden, vocab, dtype, device = _check_decode_args("decode_sampling", params,
+                                                             tick_ctx, h_inits)
     p0, p1 = params["tick_gru"][0][0], params["tick_gru"][1][0]
-    device, dtype = tick_ctx.device, p0["w_hh"].dtype
-    if dtype not in DTYPE_CODES:
-        raise ValueError(f"decode_sampling: no kernel for dtype {dtype}")
-    batch, num_beats, hidden = tick_ctx.shape
-    if num_beats != NUM_TICKS // TICKS_PER_BEAT or not kernel_supports_hidden(hidden):
-        raise ValueError(f"decode_sampling: no kernel for (beats, hidden) "
-                         f"{(num_beats, hidden)}")
-    check_cuda_tensor("tick_ctx", tick_ctx, (batch, num_beats, hidden), dtype, device)
-    check_cuda_tensor("h_inits", h_inits, (2, batch, num_beats, hidden), dtype, device)
-    for name, w in (("tick_gru0.w_hh", p0["w_hh"]), ("tick_gru1.w_ih", p1["w_ih"]),
-                    ("tick_gru1.w_hh", p1["w_hh"])):
-        check_cuda_tensor(name, w, (hidden, 3 * hidden), dtype, device)
-    for name, b in (("tick_gru0.b_hh", p0["b_hh"]), ("tick_gru1.b_ih", p1["b_ih"]),
-                    ("tick_gru1.b_hh", p1["b_hh"])):
-        check_cuda_tensor(name, b, (3 * hidden,), dtype, device)
-    vocab = params["head"]["w"].shape[1]
-    check_cuda_tensor("head.w", params["head"]["w"], (hidden, vocab), dtype, device)
-    check_cuda_tensor("head.b", params["head"]["b"], (vocab,), dtype, device)
 
     ins = decode_inputs(params, tick_ctx, h_inits)
     vocab_pad = round_up(vocab, 8)
@@ -148,3 +164,129 @@ def decode_sampling(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
 
 
 decode_sampling.launches = 0  # kernel launches, for proving a run went through K2
+
+
+# --------------------------------------------------------------------------- #
+# K4: the int8 twin of K2
+# --------------------------------------------------------------------------- #
+def decode_int8_operands(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor) -> dict:
+    """K4's operands, computed per call outside the kernel as the TPU
+    kernel's are (``decode_pallas.py:474-508``):
+
+    - ``q`` (B,) f32: each row's hidden scale ``127 / bound`` with
+      ``bound = max(1, max|h_inits[:, row]|)`` over both layers and all four
+      beats. The bound is per row, never over the batch, so a row's tokens
+      depend on its own inputs only (solo == coalesced, bit for bit);
+    - ``hi0``/``hi1`` (4, B, H) int8: the beat-major init hiddens quantized
+      at their row's ``q``;
+    - ``ctx_xw`` (4, B, 3H), ``x0_xw`` (3H,): as K2's, in the parameter dtype;
+    - ``tok_q`` (V, 3H) int8: the token table ``emb @ W_ih0[:E]`` taken in
+      f32 and quantized;
+    - ``whh0_q``, ``wih1_q``, ``whh1_q`` (H, 3H), ``head_q`` (H, V) int8;
+    - ``scales`` (4, 3H) f32: the column scales of W_hh0, W_ih1, W_hh1 and
+      the token table; ``head_s`` (V,) f32;
+    - ``bias`` (3, 3H) f32: b_hh0, b_ih1, b_hh1; ``head_b`` (V,) f32.
+    """
+    p0, p1 = params["tick_gru"][0][0], params["tick_gru"][1][0]
+    emb = params["embedding"]["table"]
+    ins = decode_inputs(params, tick_ctx, h_inits)
+    bound = torch.clamp_min(h_inits.float().abs().amax(dim=(0, 2, 3)), 1.0)
+    # a true division: ``127.0 / bound`` would be ``reciprocal(bound) * 127``
+    q = torch.div(bound.new_tensor(127.0), bound)
+    out = {"q": q, "ctx_xw": ins["ctx_xw"], "x0_xw": ins["x0_xw"],
+           "hi0": quantize_h_int8(ins["hi0"], q[None, :, None]),
+           "hi1": quantize_h_int8(ins["hi1"], q[None, :, None])}
+    scales = []
+    for name, w in (("whh0_q", p0["w_hh"]), ("wih1_q", p1["w_ih"]), ("whh1_q", p1["w_hh"]),
+                    ("tok_q", emb.float() @ p0["w_ih"][:emb.shape[1]].float())):
+        out[name], s = quantize_cols_int8(w)
+        scales.append(s[0])
+    out["scales"] = torch.stack(scales)
+    out["head_q"], s_head = quantize_cols_int8(params["head"]["w"])
+    out["head_s"] = s_head[0]
+    out["bias"] = torch.stack([p0["b_hh"], p1["b_ih"], p1["b_hh"]]).float()
+    out["head_b"] = params["head"]["b"].float()
+    return out
+
+
+def fed_back_xw(ops: dict, tok: torch.Tensor, dtype) -> torch.Tensor:
+    """K4's fed-back token projection ``tok_q[tok] * s_tok`` in f32, rounded
+    to the parameter dtype (the TPU kernel keeps it in scratch of that
+    dtype), as f32."""
+    return (ops["tok_q"][tok].float() * ops["scales"][3]).to(dtype).float()
+
+
+def decode_sampling_int8_reference(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
+    """Plain version of K4. Per tick: every product int8 x int8 summed
+    exactly (int8 values held in f32, TF32 off), dequantized as
+    ``(acc * column scale) * (1 / q[row])`` plus the f32 bias; the gates in
+    f32; both carries stored as ``round(h * q[row])`` in int8. The logits
+    are ``relu(acc * head_s * dq + head_b)`` in f32, the argmax takes the
+    first index among equal maxima, and the fed-back token's projection is
+    ``tok_q[token] * s_tok`` rounded to the parameter dtype (the TPU
+    kernel's scratch dtype) before the next tick adds ``ctx_xw``.
+
+    :return: (logits (B, 24, V) in the parameter dtype, samples (B, 24) int32)
+    """
+    dtype = params["tick_gru"][0][0]["w_hh"].dtype
+    hidden = tick_ctx.shape[2]
+    ops = decode_int8_operands(params, tick_ctx, h_inits)
+    q = ops["q"][:, None]
+    dq = 1.0 / q
+    s, b = ops["scales"], ops["bias"]
+    whh0, wih1, whh1, head = (ops[k].float() for k in ("whh0_q", "wih1_q", "whh1_q", "head_q"))
+    prev = ops["x0_xw"].float().expand(tick_ctx.shape[0], -1)
+    logits, samples = [], []
+    for t in range(NUM_TICKS):
+        beat = t // TICKS_PER_BEAT
+        if t % TICKS_PER_BEAT == 0:
+            h0_q, h1_q = ops["hi0"][beat], ops["hi1"][beat]
+        xw0 = prev + ops["ctx_xw"][beat].float()
+        hw0 = (h0_q.float() @ whh0) * s[0] * dq + b[0]
+        h0_q = quantize_h_int8(gru_gates_f32(xw0, hw0, dequantize_h(h0_q, q), hidden), q)
+        xw1 = (h0_q.float() @ wih1) * s[1] * dq + b[1]
+        hw1 = (h1_q.float() @ whh1) * s[2] * dq + b[2]
+        h1_q = quantize_h_int8(gru_gates_f32(xw1, hw1, dequantize_h(h1_q, q), hidden), q)
+        lg = torch.relu((h1_q.float() @ head) * ops["head_s"] * dq + ops["head_b"])
+        tok = torch.argmax(lg, dim=-1)  # first index among equal maxima
+        prev = fed_back_xw(ops, tok, dtype)
+        logits.append(lg.to(dtype))
+        samples.append(tok)
+    return torch.stack(logits, dim=1), torch.stack(samples, dim=1).to(torch.int32)
+
+
+def decode_sampling_int8(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
+    """K4: ``decode_sampling`` with int8 products (``csrc/decode_sampling_int8.cu``;
+    it replaces ``inpaintnet_tpu/ops/decode_pallas.py
+    decode_sampling_pallas_int8``). Same arguments and results as
+    :func:`decode_sampling`; the numerics are
+    :func:`decode_sampling_int8_reference`'s."""
+    if tick_ctx.device.type == "cpu":
+        return decode_sampling_int8_reference(params, tick_ctx, h_inits)
+    if tick_ctx.device.type != "cuda":
+        raise ValueError(f"decode_sampling_int8: no kernel for device {tick_ctx.device}")
+    batch, hidden, vocab, dtype, device = _check_decode_args("decode_sampling_int8", params,
+                                                             tick_ctx, h_inits)
+    ops = decode_int8_operands(params, tick_ctx, h_inits)
+    vocab_pad = round_up(vocab, 8)
+    pad = (0, vocab_pad - vocab)
+    head_s, head_b = (torch.nn.functional.pad(ops[k], pad) for k in ("head_s", "head_b"))
+    whh0, wih1, whh1, head_w = (
+        pack_mma_b_s8(w) for w in (ops["whh0_q"], ops["wih1_q"], ops["whh1_q"],
+                                   torch.nn.functional.pad(ops["head_q"], pad)))
+    logits = torch.empty((batch, NUM_TICKS, vocab), dtype=dtype, device=device)
+    samples = torch.empty((batch, NUM_TICKS), dtype=torch.int32, device=device)
+
+    err = load_kernels().inpaint_decode_sampling_int8(
+        DTYPE_CODES[dtype], ops["ctx_xw"].data_ptr(), ops["hi0"].data_ptr(),
+        ops["hi1"].data_ptr(), ops["q"].data_ptr(), ops["tok_q"].data_ptr(),
+        ops["x0_xw"].data_ptr(), whh0.data_ptr(), wih1.data_ptr(), whh1.data_ptr(),
+        ops["scales"].data_ptr(), ops["bias"].data_ptr(), head_w.data_ptr(),
+        head_s.data_ptr(), head_b.data_ptr(), logits.data_ptr(), samples.data_ptr(),
+        batch, hidden, vocab, vocab_pad, stream_ptr())
+    check_launch(err, "decode_sampling_int8")
+    decode_sampling_int8.launches += 1
+    return logits, samples
+
+
+decode_sampling_int8.launches = 0  # kernel launches, for proving a run went through K4

@@ -1,7 +1,9 @@
-"""Diagonal normal for the VAE latent (``inpaintnet_tpu/ops/distributions.py``)."""
+"""Diagonal normal for the VAE latent (``inpaintnet_tpu/ops/distributions.py``)
+and the per-row noise of the serving engine's coalesced batches."""
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import math
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -19,3 +21,52 @@ class DiagNormal(NamedTuple):
             eps = torch.randn(self.loc.shape, generator=generator,
                               device=self.loc.device, dtype=self.loc.dtype)
         return self.loc + self.scale * eps.to(self.loc.dtype)
+
+
+def _u64(c: int) -> int:
+    """A 64-bit constant as the int64 holding the same bits."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def _srl(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of the 64 bits an int64 tensor holds."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def splitmix64(x: torch.Tensor) -> torch.Tensor:
+    """The splitmix64 finalizer on int64 tensors read as uint64 bits: int64
+    addition and multiplication wrap modulo 2^64 on every device, so the
+    bits equal the uint64 hash (``serve._splitmix64`` in numpy)."""
+    x = x + _u64(0x9E3779B97F4A7C15)
+    x = (x ^ _srl(x, 30)) * _u64(0xBF58476D1CE4E5B9)
+    x = (x ^ _srl(x, 27)) * _u64(0x94D049BB133111EB)
+    return x ^ _srl(x, 31)
+
+
+def row_bits(row_keys: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, n) int64 random bits: element i of row b is
+    ``splitmix64(splitmix64(key_b) ^ i)`` with ``key_b = k0 << 32 | k1``, a
+    pure function of ``row_keys[b]`` and ``i``.
+
+    :param row_keys: (B, 2) integer tensor of uint32 values
+    """
+    keys = row_keys.long()
+    key64 = (keys[:, 0] << 32) | keys[:, 1]
+    idx = torch.arange(n, device=row_keys.device, dtype=torch.int64)
+    return splitmix64(splitmix64(key64)[:, None] ^ idx[None, :])
+
+
+def row_normal(row_keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """(B, *shape) f32 standard normal noise in one vectorised pass, row ``b``
+    drawn from ``row_keys[b]`` alone: Box-Muller on two 23-bit uniforms cut
+    from each element's 64 hash bits (:func:`row_bits`), in f32. This is
+    the port's counterpart of ``jax.random.normal`` under per-row threefry
+    keys; the streams differ, the contract (a row's noise depends on its
+    key and nothing else) is the same."""
+    n = math.prod(shape)
+    bits = row_bits(row_keys, n)
+    scale = 2.0 ** -23
+    u1 = (_srl(bits, 41).float() + 0.5) * scale  # (0, 1): the log stays finite
+    u2 = ((bits >> 9) & ((1 << 23) - 1)).float() * scale
+    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+    return z.reshape(row_keys.shape[0], *shape)

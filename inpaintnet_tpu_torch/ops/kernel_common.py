@@ -3,11 +3,13 @@
 - ``round_up`` and ``gru_gates_f32``: the [r, z, n] torch-order GRU gate
   math in f32 (one copy for every plain version; the CUDA copy is
   ``csrc/gru_common.cuh gru_gate``).
-- The build: ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
-  with a plain C interface, at first use, keyed on the hash of the sources,
-  into ``build/inpaintnet_tpu_torch/`` at the repository root. It is loaded
+- The build: ``nvcc`` compiles every ``csrc/*.cu`` (one process per source,
+  in parallel) and links them into one shared library with a plain C
+  interface, at first use, keyed on the hash of the sources, into
+  ``build/inpaintnet_tpu_torch/`` at the repository root. It is loaded
   with ``ctypes``.
-- ``pack_mma_b``: the weight layout the bf16 kernels read.
+- ``pack_mma_b`` and ``pack_mma_b_s8``: the weight layouts the bf16 and the
+  int8 kernels read.
 - ``check_cuda_tensor``: the wrappers' argument checks.
 
 Nothing here imports or builds anything at import time: this module is
@@ -30,8 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "inpaintnet_tpu_torch"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 # dtype codes of the C entry points
@@ -52,8 +53,10 @@ def gru_gates_f32(xw, hw, h_prev, hidden: int):
 
 
 def kernel_supports_hidden(hidden: int) -> bool:
-    """Hidden widths the GRU kernels take: whole 64-unit chunks, and a row
-    tile that fits one block's shared memory (up to the flagship's 512)."""
+    """Hidden widths the GRU kernels take, bf16/f32 (K1, K2) and int8 (K3,
+    K4) alike: whole 64-unit chunks (so every product depth is a multiple
+    of the int8 ``mma`` depth of 32, and the bf16 one of 16), and a row tile
+    that fits one block's shared memory (up to the flagship's 512)."""
     return hidden % 64 == 0 and hidden <= 512
 
 
@@ -82,27 +85,36 @@ def _nvcc() -> str:
                        "kernels cannot be built")
 
 
+def _run_all(cmds, verbose: bool) -> None:
+    """Run the commands at once, wait for all of them, and raise on the
+    first that failed (printing every output when ``verbose``)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if verbose and out:
+            print(out, flush=True)
+        if p.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed ({p.returncode}):\n{out}")
+
+
 def build_kernels(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into ``libkernels_<hash>.so`` unless a library
-    of the same sources exists. Returns its path; raises on a failed build."""
+    of the same sources exists: one ``nvcc -c`` per source, all started
+    together, then one link. Returns its path; raises on a failed build."""
     lib = BUILD_DIR / f"libkernels_{sources_hash()}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if verbose and (res.stdout or res.stderr):
-            print(res.stdout + res.stderr, flush=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in sorted(CSRC.glob("*.cu"))]
+        _run_all([[nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c",
+                   "-o", obj, str(src)]
+                  for src, obj in zip(sorted(CSRC.glob("*.cu")), objs)], verbose)
+        so = str(Path(tmp) / lib.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]], verbose)
+        os.replace(so, lib)
     return lib
 
 
@@ -117,6 +129,10 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_encoder_hn.restype = i32
     lib.inpaint_decode_sampling.argtypes = [i32] + [ptr] * 13 + [i32] * 4 + [ptr]
     lib.inpaint_decode_sampling.restype = i32
+    lib.inpaint_encoder_hn_int8.argtypes = [i32] + [ptr] * 15 + [i32] * 4 + [ptr]
+    lib.inpaint_encoder_hn_int8.restype = i32
+    lib.inpaint_decode_sampling_int8.argtypes = [i32] + [ptr] * 16 + [i32] * 4 + [ptr]
+    lib.inpaint_decode_sampling_int8.restype = i32
     return lib
 
 
@@ -142,6 +158,21 @@ def check_cuda_tensor(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def pack_mma_b_s8(w: torch.Tensor) -> torch.Tensor:
+    """Reorder a (K, N) int8 weight into the ``mma.sync m16n8k32`` s8
+    B-fragment order the int8 kernels load (``gru_common.cuh GemmS8``): for
+    each 8-column tile and 32-row k-tile, lane ``l = 4 * r + q`` holds
+    ``w[k0 + 4q + {0..3}, n0 + r]`` then ``w[k0 + 16 + 4q + {0..3}, n0 + r]``
+    as eight contiguous bytes."""
+    if w.dtype != torch.int8:
+        raise ValueError(f"pack_mma_b_s8: takes int8, got {w.dtype}")
+    K, N = w.shape
+    if K % 32 or N % 8:
+        raise ValueError(f"pack_mma_b_s8: shape {(K, N)} needs K % 32 == 0 and N % 8 == 0")
+    # k = kt*32 + half*16 + q*4 + p ; n = nt*8 + r  ->  (nt, kt, r, q, half, p)
+    return w.reshape(K // 32, 2, 4, 4, N // 8, 8).permute(4, 0, 5, 2, 1, 3).contiguous()
 
 
 def pack_mma_b(w: torch.Tensor) -> torch.Tensor:

@@ -5,16 +5,21 @@ future contexts in ``n_bars`` buffers with validity masks, the target span
 in ``max_target`` rows, batch padded up to the smallest bucket that fits.
 Batches above the largest bucket run in bucket-size chunks.
 
-    engine = InpaintingEngine(latent_rnn_model, device="cuda")
+    engine = InpaintingEngine(latent_rnn_model, dtype="int8", device="cuda")
     out = engine.inpaint(tokens_b_m_24, start_measure=8, num_measures=2)
+    outs = engine.inpaint_hetero([{"tokens": t, "start_measure": 8,
+                                   "num_measures": 2, "seed": 7}, ...])
 
-Not ported yet (ROADMAP queue 1 items 6-7): ``inpaint_hetero``,
-``inpaint_variations``, ``interpolate``, ``inpaint_ticks``, ``dtype="int8"``
-and CUDA-graph buckets.
+``inpaintnet_tpu.server.InpaintingServer`` (numpy only) serves this engine
+over HTTP as it serves the JAX package's: it reads ``_quant``,
+``MAX_INTERP``, ``_compiled`` and the model geometry named there.
+
+Not ported yet: the autoregressive ``inpaint_variations`` branch (ROADMAP
+queue 1 item 8) and CUDA-graph buckets.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +27,9 @@ import torch
 from inpaintnet_tpu_torch.models.base import cast_params
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+SERVE_DTYPES = (*DTYPES, "int8")
+
+_M64 = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
 def pick_bucket(buckets: Sequence[int], rows: int) -> int:
@@ -30,25 +38,53 @@ def pick_bucket(buckets: Sequence[int], rows: int) -> int:
 
 
 def chunk_seed(seed: int, index: int) -> int:
-    """Seed of chunk ``index`` of a request split at the largest bucket: a
-    hash of (seed, index), so it does not collide with another request's
-    plain seed the way ``seed + index`` would."""
+    """Seed of chunk ``index`` of a request split at the largest bucket (and
+    of variation ``index`` of ``inpaint_variations``): a hash of (seed,
+    index), so it does not collide with another request's plain seed the
+    way ``seed + index`` would."""
     state = np.random.SeedSequence(entropy=seed, spawn_key=(index,)).generate_state(2)
     return int(state[0]) << 32 | int(state[1])
 
 
+def _splitmix64(x: np.ndarray) -> np.ndarray:
+    """Vectorized splitmix64 finalizer (full-avalanche 64-bit hash)."""
+    x = (x + np.uint64(0x9E3779B97F4A7C15)) & _M64
+    x = ((x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)) & _M64
+    x = ((x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)) & _M64
+    return x ^ (x >> np.uint64(31))
+
+
+def derive_row_keys(seed: int, n: int) -> np.ndarray:
+    """Per-row keys of :meth:`InpaintingEngine.inpaint_hetero`: a double
+    splitmix64 hash of (request seed, row index) -> (n, 2) uint32. Depends
+    only on (seed, row within the request): the coalescing contract. The
+    same keys as the JAX package's ``serve.derive_row_keys``."""
+    with np.errstate(over="ignore"):
+        s = np.uint64(seed & 0xFFFFFFFFFFFFFFFF)
+        base = _splitmix64(np.full(n, s, np.uint64))
+        j = np.arange(n, dtype=np.uint64)
+        h = _splitmix64(base ^ ((j * np.uint64(0xD2B74407B1CE6E93) + np.uint64(1)) & _M64))
+    return np.stack([(h >> np.uint64(32)).astype(np.uint32),
+                     (h & np.uint64(0xFFFFFFFF)).astype(np.uint32)], axis=1)
+
+
 class InpaintingEngine:
+    # max interpolation points per request: rows pad to one (64, z) decode
+    # (the decode is row-independent, so the padding is exact)
+    MAX_INTERP = 62
+
     def __init__(self, model, batch_buckets: Sequence[int] = (1, 8, 64, 512),
                  dtype: str = "bfloat16", n_bars: int = 16, device=None, seed: int = 0):
         """:param model: a ``LatentRNN`` (its parameters are copied, in
             ``dtype``, to ``device``)
-        :param dtype: serving numeric, "float32" or "bfloat16"
+        :param dtype: serving numeric, "float32", "bfloat16", or "int8"
+            (bf16 master parameters and the int8 kernels K3/K4)
         :param device: where the engine runs; defaults to the model's device
         """
-        if dtype == "int8":
-            raise NotImplementedError("int8 serving is not ported yet (ROADMAP queue 1 item 7)")
-        if dtype not in DTYPES:
-            raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {dtype!r}")
+        if dtype not in SERVE_DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(SERVE_DTYPES)}, got {dtype!r}")
+        self._quant = "int8" if dtype == "int8" else "none"
+        param_dtype = DTYPES["bfloat16" if dtype == "int8" else dtype]
         self.model = model
         self.n_bars = n_bars
         self.max_target = model.max_target
@@ -58,16 +94,27 @@ class InpaintingEngine:
         self.seed = seed
         self.device = torch.device(device) if device is not None else next(
             model.parameters()).device
-        self._params = cast_params(model.params(), self.device, DTYPES[dtype])
-        self._vae_params = cast_params(model.vae_model.params(), self.device, DTYPES[dtype])
+        self._params = cast_params(model.params(), self.device, param_dtype)
+        self._vae_params = cast_params(model.vae_model.params(), self.device, param_dtype)
+        # the (method, bucket) keys each serving method has run, for the HTTP
+        # server's /healthz; a dict, which list() copies atomically
+        self._compiled: Dict[object, bool] = {}
 
-    def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
-        """Run a dummy 1-measure request per bucket (default: all), so the
-        first real request pays neither the kernel build nor first-call
-        set-up."""
+    def warmup(self, buckets: Optional[Sequence[int]] = None, variations: bool = True,
+               hetero: bool = False) -> None:
+        """Run a dummy 1-measure request per bucket (default: all) through
+        ``inpaint``, ``inpaint_variations`` (unless ``variations=False``)
+        and ``inpaint_hetero`` (with ``hetero=True``), so the first real
+        request pays neither the kernel build nor first-call set-up."""
         for bucket in (buckets if buckets is not None else self.batch_buckets):
             tokens = np.zeros((bucket, self.n_bars, self.msl), np.int32)
             self.inpaint(tokens, start_measure=1, num_measures=1, seed=0)
+            if variations:
+                self.inpaint_variations(tokens, start_measure=1, num_measures=1,
+                                        num_variations=1, seed=0)
+            if hetero:
+                self.inpaint_hetero([{"tokens": tokens, "start_measure": 1,
+                                      "num_measures": 1, "seed": 0}])
 
     def _validate_request(self, tokens: np.ndarray, start_measure: int, num_measures: int):
         """-> (b, m, n_past, n_future); raises ValueError on a bad request."""
@@ -94,19 +141,48 @@ class InpaintingEngine:
         b, m, n_past, n_future = self._validate_request(tokens, start_measure, num_measures)
         if b > bucket:
             raise ValueError(f"batch {b} exceeds bucket {bucket}")
+        arrays = self._empty_batch(bucket)
+        self._fill_rows(arrays, slice(0, b), tokens, num_measures, m, n_past, n_future)
+        return arrays
+
+    def _empty_batch(self, bucket: int):
         nb, msl = self.n_bars, self.msl
-        past = np.zeros((bucket, nb, msl), np.int32)
-        future = np.zeros((bucket, nb, msl), np.int32)
-        past[:b, :n_past] = tokens[:, :n_past]
+        return (np.zeros((bucket, nb, msl), np.int32), np.zeros((bucket, nb), np.float32),
+                np.zeros((bucket, nb, msl), np.int32), np.zeros((bucket, nb), np.float32),
+                np.zeros((bucket, self.max_target), np.float32))
+
+    @staticmethod
+    def _fill_rows(arrays, rows: slice, tokens, num_measures: int, m: int, n_past: int,
+                   n_future: int) -> None:
+        past, pm, future, fm, tm = arrays
+        past[rows, :n_past] = tokens[:, :n_past]
         if n_future:
-            future[:b, :n_future] = tokens[:, m - n_future:]
-        pm = np.zeros((bucket, nb), np.float32)
-        fm = np.zeros((bucket, nb), np.float32)
-        tm = np.zeros((bucket, self.max_target), np.float32)
-        pm[:, :n_past] = 1
-        fm[:, :n_future] = 1
-        tm[:, :num_measures] = 1
-        return past, pm, future, fm, tm
+            future[rows, :n_future] = tokens[:, m - n_future:]
+        pm[rows, :n_past] = 1
+        fm[rows, :n_future] = 1
+        tm[rows, :num_measures] = 1
+
+    def _to_device(self, arrays):
+        return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+
+    def _run(self, arrays, **draw) -> np.ndarray:
+        """One padded batch through the model -> (bucket, max_target, msl)
+        samples on the host. ``draw``: ``generator=`` or ``row_keys=``."""
+        past, pm, future, fm, tm = self._to_device(arrays)
+        with torch.inference_mode():
+            _, samples, _ = self.model.apply(
+                self._params, self._vae_params, past, future, None, past_mask=pm,
+                future_mask=fm, target_mask=tm, quant=self._quant, **draw)
+            return samples.cpu().numpy()
+
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _resolve_seed(self, seed: Optional[int]) -> int:
+        seed = self.seed if seed is None else seed
+        if seed < 0:
+            raise ValueError("seed must be non-negative")
+        return seed
 
     def inpaint(self, tokens: np.ndarray, start_measure: int, num_measures: int,
                 seed: Optional[int] = None) -> np.ndarray:
@@ -121,9 +197,7 @@ class InpaintingEngine:
         :return: (B, M, msl) tokens with the span replaced
         """
         tokens = np.asarray(tokens)
-        seed = self.seed if seed is None else seed
-        if seed < 0:
-            raise ValueError("seed must be non-negative")
+        seed = self._resolve_seed(seed)
         b = tokens.shape[0]
         largest = self.batch_buckets[-1]
         if b > largest:
@@ -134,13 +208,149 @@ class InpaintingEngine:
             ])
         bucket = pick_bucket(self.batch_buckets, b)
         arrays = self._pack_request(tokens, start_measure, num_measures, bucket)
-        past, pm, future, fm, tm = (torch.from_numpy(a).to(self.device) for a in arrays)
-        generator = torch.Generator(device=self.device).manual_seed(seed)
-        with torch.inference_mode():
-            _, samples, _ = self.model.apply(
-                self._params, self._vae_params, past, future, None,
-                past_mask=pm, future_mask=fm, target_mask=tm, generator=generator)
-            samples = samples.cpu().numpy()
+        samples = self._run(arrays, generator=self._generator(seed))
+        self._compiled[bucket] = True
         out = tokens.copy()
         out[:, start_measure:start_measure + num_measures] = samples[:b, :num_measures]
         return out
+
+    def inpaint_hetero(self, requests: Sequence[dict], bucket: Optional[int] = None) -> list:
+        """One device batch serving several independent requests with
+        (possibly) different spans: the dynamic-batching primitive behind
+        ``inpaintnet_tpu.server.InpaintingServer``'s request coalescing.
+
+        Each row draws its noise from a key derived from (its request's
+        seed, its row within the request) (:func:`derive_row_keys`), and
+        every kernel computes each row from that row's inputs alone (int8
+        included: K4's hidden bound is per row), so a request gets the SAME
+        tokens whether it runs solo or coalesced with others, at a given
+        bucket.
+
+        :param requests: dicts with ``tokens`` (b, M, msl),
+            ``start_measure``, ``num_measures`` and an optional ``seed``
+            (default: the engine's)
+        :param bucket: run at this bucket instead of the smallest that fits
+            (the server's ``pin_bucket``)
+        :return: one (b, M, msl) output per request, only its span replaced
+        """
+        if not requests:
+            return []
+        norm, rows = [], 0
+        for r in requests:
+            tokens = np.asarray(r["tokens"])
+            start, num = r["start_measure"], r["num_measures"]
+            b, m, n_past, n_future = self._validate_request(tokens, start, num)
+            seed = self.seed if r.get("seed") is None else r["seed"]
+            norm.append((tokens, start, num, seed, b, m, n_past, n_future))
+            rows += b
+        cap = self.batch_buckets[-1] if bucket is None else bucket
+        if rows > cap:
+            raise ValueError(
+                f"{rows} total rows exceed the "
+                f"{'largest bucket' if bucket is None else 'pinned bucket'} ({cap}); "
+                "split the request set")
+        if bucket is None:
+            bucket = pick_bucket(self.batch_buckets, rows)
+        arrays = self._empty_batch(bucket)
+        row_keys = np.zeros((bucket, 2), np.int64)
+        lo = 0
+        for tokens, start, num, seed, b, m, n_past, n_future in norm:
+            self._fill_rows(arrays, slice(lo, lo + b), tokens, num, m, n_past, n_future)
+            row_keys[lo:lo + b] = derive_row_keys(seed, b)
+            lo += b
+        samples = self._run(arrays, row_keys=torch.from_numpy(row_keys).to(self.device))
+        self._compiled[("hetero", bucket)] = True
+        outs, lo = [], 0
+        for tokens, start, num, seed, b, m, n_past, n_future in norm:
+            out = tokens.copy()
+            out[:, start:start + num] = samples[lo:lo + b, :num]
+            outs.append(out)
+            lo += b
+        return outs
+
+    def inpaint_variations(self, tokens: np.ndarray, start_measure: int, num_measures: int,
+                           num_variations: int, seed: Optional[int] = None) -> np.ndarray:
+        """``num_variations`` stochastic re-inpaintings of the SAME context,
+        with the frozen encoder run ONCE: the variations differ only in the
+        context rsample, so the cached posteriors are drawn again for each.
+        Variation ``i`` draws from seed ``chunk_seed(seed, i)``.
+
+        :return: (num_variations, B, M, msl) tokens
+        """
+        tokens = np.asarray(tokens)
+        seed = self._resolve_seed(seed)
+        if num_variations < 1:
+            raise ValueError("num_variations must be at least 1")
+        b = tokens.shape[0]
+        largest = self.batch_buckets[-1]
+        if b > largest:
+            return np.concatenate([
+                self.inpaint_variations(tokens[lo:lo + largest], start_measure, num_measures,
+                                        num_variations, seed=chunk_seed(seed, i))
+                for i, lo in enumerate(range(0, b, largest))
+            ], axis=1)
+        bucket = pick_bucket(self.batch_buckets, b)
+        past, pm, future, fm, tm = self._to_device(
+            self._pack_request(tokens, start_measure, num_measures, bucket))
+        outs = []
+        with torch.inference_mode():
+            past_dist, future_dist = self.model.encode_context_dists(
+                self._vae_params, past, future, self._quant)
+            for i in range(num_variations):
+                _, samples, _ = self.model.generate_from_context_dists(
+                    self._params, self._vae_params, past_dist, future_dist, past_mask=pm,
+                    future_mask=fm, target_mask=tm,
+                    generator=self._generator(chunk_seed(seed, i)), quant=self._quant)
+                out = tokens.copy()
+                out[:, start_measure:start_measure + num_measures] = (
+                    samples.cpu().numpy()[:b, :num_measures])
+                outs.append(out)
+        self._compiled[("variations", bucket)] = True
+        return np.stack(outs)
+
+    def interpolate(self, measure_a: np.ndarray, measure_b: np.ndarray,
+                    num_points: int) -> np.ndarray:
+        """Latent interpolation between two measures: encode both to their
+        posterior MEANS, decode ``num_points`` evenly spaced interpolants
+        plus both endpoints with the frozen VAE (argmax: deterministic).
+
+        :param measure_a/measure_b: (msl,) int tokens
+        :return: (num_points + 2, msl) int32 tokens, a -> b
+        """
+        if not 1 <= num_points <= self.MAX_INTERP:
+            raise ValueError(f"num_points must lie in [1, {self.MAX_INTERP}]")
+        pair = np.stack([np.asarray(measure_a).reshape(self.msl),
+                         np.asarray(measure_b).reshape(self.msl)])
+        if not np.issubdtype(pair.dtype, np.integer) or pair.min() < 0 \
+                or pair.max() >= self.vocab:
+            raise ValueError(f"measures must be integer tokens in [0, {self.vocab})")
+        n = num_points + 2
+        # pad to one fixed row count; the pad rows decode and are sliced away
+        alphas = np.zeros((self.MAX_INTERP + 2,), np.float32)
+        alphas[:n] = np.arange(n, dtype=np.float32) / (n - 1)
+        vae = self.model.vae_model
+        with torch.inference_mode():
+            dist = vae.encoder.apply(self._vae_params["encoder"],
+                                     torch.from_numpy(pair.astype(np.int32)).to(self.device),
+                                     self._quant)
+            a = torch.from_numpy(alphas).to(self.device)[:, None]
+            z1, z2 = dist.loc[0].float(), dist.loc[1].float()
+            # mixed in f32 as the JAX package's promotion does, then fed to
+            # the decoder in the parameter dtype
+            zs = (z1[None, :] * (1 - a) + z2[None, :] * a).to(dist.loc.dtype)
+            _, samples = vae.decoder.decode_sampling(self._vae_params["decoder"], zs,
+                                                     self._quant)
+            out = samples.cpu().numpy()
+        self._compiled["interp"] = True
+        return out[:n].astype(np.int32)
+
+    def inpaint_ticks(self, tensor_score: np.ndarray, time_index_range_ticks: Tuple[int, int],
+                      seed: Optional[int] = None) -> np.ndarray:
+        """Tick-range form of :meth:`inpaint`: (1, L) tokens and a
+        measure-aligned [a, b) tick range -> (1, L) tokens."""
+        a, b = time_index_range_ticks
+        if a % self.msl or b % self.msl:
+            raise ValueError(f"the tick range must be measure-aligned (multiples of {self.msl})")
+        tokens = np.asarray(tensor_score).reshape(1, -1, self.msl)
+        out = self.inpaint(tokens, a // self.msl, (b - a) // self.msl, seed=seed)
+        return out.reshape(1, -1)

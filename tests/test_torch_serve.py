@@ -135,18 +135,24 @@ def test_engine_validates_requests(port_model, tokens, start, num, match):
 
 
 def test_engine_rejects_unported_dtypes(port_model):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        InpaintingEngine(port_model, dtype="int8")
+    """int8 is served (bf16 masters, the int8 kernels); float16 is not."""
+    engine = InpaintingEngine(port_model, batch_buckets=(4,), dtype="int8")
+    assert engine._quant == "int8"
+    assert engine._vae_params["encoder"]["embedding"]["table"].dtype == torch.bfloat16
+    assert InpaintingEngine(port_model, dtype="bfloat16")._quant == "none"
     with pytest.raises(ValueError, match="dtype"):
         InpaintingEngine(port_model, dtype="float16")
 
 
 def test_port_never_imports_jax():
-    """In a fresh interpreter: import every module of the port, serve a
-    request on the CPU, and find no JAX loaded and no kernel launched."""
+    """In a fresh interpreter: import every module of the port, serve
+    requests on the CPU (f32 ``inpaint``, int8 ``inpaint`` and
+    ``inpaint_hetero``), and find no JAX loaded and no kernel launched."""
     code = textwrap.dedent("""
         import pkgutil, sys, importlib
         import numpy as np
+        import torch
+        torch.set_num_threads(1)  # beside other test processes
         import inpaintnet_tpu_torch
         for m in pkgutil.walk_packages(inpaintnet_tpu_torch.__path__, "inpaintnet_tpu_torch."):
             importlib.import_module(m.name)
@@ -156,10 +162,15 @@ def test_port_never_imports_jax():
         model = build_flagship(hidden=64, z_dim=8, seed=0)[2]
         tokens = np.zeros((2, 16, 24), np.int32)
         InpaintingEngine(model, batch_buckets=(2,), dtype="float32").inpaint(tokens, 6, 4)
+        int8 = InpaintingEngine(model, batch_buckets=(2,), dtype="int8")
+        int8.inpaint(tokens, 6, 4)
+        int8.inpaint_hetero([{"tokens": tokens[:1], "start_measure": 6, "num_measures": 4}])
         assert not [m for m in sys.modules if m in ("jax", "inpaintnet_tpu")
                     or m.startswith(("jax.", "inpaintnet_tpu."))]
         assert encoder_kernel.encoder_hn.launches == 0
         assert decode_kernel.decode_sampling.launches == 0
+        assert encoder_kernel.encoder_hn_int8.launches == 0
+        assert decode_kernel.decode_sampling_int8.launches == 0
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
