@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training main paths once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,30 +10,46 @@ Phases, each raising on failure:
    and power limit;
 2. build: compiles the CUDA kernels (``inpaintnet_tpu_torch/ops/csrc``)
    with nvcc for sm_90a, one nvcc per source, in parallel;
-3. each kernel against its plain PyTorch version on the card, at the
-   shapes the engine gives them for a batch of 2048 requests: K1
+3. each serving kernel against its plain PyTorch version on the card, at
+   the shapes the engine gives them for a batch of 2048 requests: K1
    ``encoder_hn`` and K2 ``decode_sampling`` in f32 and bf16, K3
    ``encoder_hn_int8`` and K4 ``decode_sampling_int8`` on bf16 masters
    (bit-equal; each of their two traps, planted in the plain versions,
-   must break that bound);
-4. the main path on the card against the same model on the CPU (plain
-   versions) on a small input, f32 masters: unquantized, and int8, whose
-   bounds the unquantized path must fail;
-5. the bf16 engine (flagship geometry, random weights from seed 0) serves
+   must break that bound); K1's function through cuDNN's ``torch.nn.GRU``
+   is timed beside it (the port never calls it);
+4. the training kernels K5 ``gru_fwd_seq`` and K6 ``gru_bwd_seq`` against
+   their plain versions at the VAE encoder's shape (24 steps, 4,096 rows,
+   H 512, both directions) and the tick GRU's (6 steps, 16,384 rows), in
+   f32 and bf16; a K5 carry rounded to bf16 and a K6 product on bf16 dhw,
+   planted in the plain versions, must break the bounds;
+5. the serving main path on the card against the same model on the CPU
+   (plain versions) on a small input, f32 masters: unquantized, and int8,
+   whose bounds the unquantized path must fail;
+6. the bf16 engine (flagship geometry, random weights from seed 0) serves
    three requests, checked; K1 and K2 must have launched;
-6. the int8 engine serves the same three requests, checked; K3 and K4 must
+7. the int8 engine serves the same three requests, checked; K3 and K4 must
    have launched; the share of span tokens on which int8 and bf16 agree is
    printed (random weights set no limit on it);
-7. HTTP: ``inpaintnet_tpu.server.InpaintingServer`` (the shared numpy-only
-   front end; no JAX) in front of the int8 engine, dynamic batching pinned
+8. HTTP: ``inpaintnet_tpu_torch.server.InpaintingServer`` (the port's
+   numpy-only front end) in front of the int8 engine, dynamic batching pinned
    to bucket 64: 16 concurrent clients' ``/v1/inpaint`` responses must
    equal the engine's solo ``inpaint_hetero``, variation 0 of
    ``/v1/inpaint_variations`` the seeded ``/v1/inpaint``, and
    ``/v1/inpaint_ticks``, ``/v1/interpolate`` and ``/healthz`` must answer;
    K3 and K4 must have launched;
-8. times: measures/s at batch 2048 (6 past / 4 target / 6 future) and the
+9. a VAE train step on the card (K5/K6) against the same step on the CPU
+   (plain versions), small geometry, f32, the same dropout masks and noise,
+   for each teacher-forcing coin: loss, gradients and post-Adam parameters;
+10. the full-width VAE trainer (vocab 60, embedding 10, GRUs of hidden 512,
+   z 256, 256 windows x 16 bars = 4,096 measure rows a step) takes steps in
+   f32 and in bf16 compute, both coin branches; K5 and K6 must launch 8
+   times a teacher-forced step and 6 times a sampling one; the loss must be
+   finite and the parameters must move; ms per step, measures per second
+   and peak memory are printed, and ``torch.profiler``'s split of one step
+   of each branch by kernel, with the device's idle share;
+11. times: measures/s at batch 2048 (6 past / 4 target / 6 future) and the
    p50/p90 of a batch-1 request for each engine, and each kernel beside its
-   plain version.
+   plain version and its bound.
 
 Prints one JSON line of kernels, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
@@ -81,6 +98,36 @@ BOUNDS_INT8 = {"hn": 0.0, "tokens": 1.0, "logits": 0.0}
 # unquantized path on the card against the CPU's int8 (the control, which
 # must fail both bounds in every run): median 4.6e-4, max 3.8e-3.
 Z_MEDIAN_INT8, Z_MAX_INT8 = 1e-4, 2e-3
+# K5/K6 against their plain versions on the card, as the (max, mean) over
+# the outputs of |kernel - plain| / (1 + |plain|) (absolute below 1,
+# relative above: the products' sums grow with H). f32: both accumulate in
+# true f32, only the summation order differs (seen 1.0e-6 / 7.4e-8 at the
+# encoder's shape, NVIDIA H100 80GB HBM3, 700 W). bf16: the outputs are
+# stored in bf16, so an f32 last bit may flip one output's rounding (one
+# ulp, 3.9e-3 of the value; 1e-2 allows two), and a flip in K5's bf16 copy
+# of the carry moves that row's later products a little, so a row's flips
+# cascade: seen max 2.6e-3, mean 1.1e-5 at the encoder's shape. The
+# planted faults move every output a little and the mean catches them.
+TRAIN_BOUNDS = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 5e-5)}
+# The full-width VAE step: 256 windows of 16 bars, K5/K6 launches a step by
+# branch (teacher-forced: encoder 4 + beat GRU 2 + tick GRU 2; sampling:
+# encoder 4 + beat GRU 2, the tick loop is eager).
+TRAIN_WINDOWS = 256
+TRAIN_LAUNCHES = {True: 8, False: 6}
+# A train step on the card against the CPU, f32, the same masks and noise.
+# Loss: the relative error of two f32 sums in another order (seen 1.2e-7 on
+# an NVIDIA H100 80GB HBM3, 700 W). Gradients: |card - cpu| / (1 + |cpu|),
+# sums over a few thousand terms in another order (seen 2.8e-9).
+# Parameters after one or two Adam steps of lr 1e-3: an update is
+# lr * m / (sqrt(v) + eps), so a gradient element that rounding noise
+# dominates (its true value near 0) may move by up to lr on one device and
+# not the other: the max allows two such steps (seen 2.0e-6), the mean that
+# they are rare (seen 6.5e-10).
+TRAIN_REF = {"loss": 1e-5, "grad": 1e-5, "param_max": 2e-3, "param_mean": 1e-6}
+# Published dense peaks of an H100 SXM at 700 W (NVIDIA's data sheet):
+# operations per second by product type, and device-memory bytes per second.
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+PEAK_BYTES = 3.35e12
 
 
 def card_line() -> str:
@@ -103,6 +150,44 @@ def cuda_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors (nested dicts and lists too)."""
+    total = 0
+    for t in tensors:
+        if isinstance(t, dict):
+            total += nbytes(*t.values())
+        elif isinstance(t, (list, tuple)):
+            total += nbytes(*t)
+        else:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def bound_of(ops: float, kind: str, moved: int) -> dict:
+    """The least time the card could take: the larger of ``ops`` at the
+    peak rate of their ``kind`` and ``moved`` bytes (each input read once,
+    each output written once) at the memory rate."""
+    t_ops, t_bytes = ops / PEAK_OPS[kind] * 1e3, moved / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def encoder_ops(rows: int, steps: int, hidden: int) -> float:
+    """Multiply-adds x 2 of the 2-layer bidirectional encoder per call: per
+    step and direction, layer 0's recurrent (H, 3H) product (its input
+    projection is a table row) and layer 1's recurrent and (2H, 3H) input
+    products."""
+    return 2.0 * steps * rows * 2 * (hidden * 3 * hidden + 3 * hidden * 3 * hidden)
+
+
+def decode_ops(rows: int, hidden: int, vocab: int) -> float:
+    """Multiply-adds x 2 of the 24-tick 2-layer decode per call: three
+    (H, 3H) products and the (H, V) head per tick, and the per-beat
+    context projection."""
+    return 2.0 * rows * (24 * (3 * hidden * 3 * hidden + hidden * vocab)
+                         + 4 * hidden * 3 * hidden)
 
 
 def phase_device():
@@ -227,21 +312,322 @@ def phase_kernels(vae_f32, max_target: int, card: str) -> dict:
             raise RuntimeError(f"non-finite kernel output in {label}")
         if label == "int8":
             _reject_planted_faults(dec, gru, table, tokens, tick_ctx, h_inits, hn_k, lg_k, s_k)
+        library_ms = None
+        if label != "int8":
+            library_ms = cudnn_gru_ms(gru, table, tokens, hn_k, label, card)
         if names is None:
             continue
         # the serving numerics: times at these shapes (plain versions: few reps)
         enc_name, dec_name = names
+        kind = "int8" if label == "int8" else "bf16"
+        H, V = gru[0][0]["w_hh"].shape[0], dec["head"]["w"].shape[1]
         report[enc_name] = {"max_abs_err": hn_err,
                             "ms": cuda_ms(lambda: enc_k(gru, table, tokens), 5),
-                            "plain_ms": cuda_ms(lambda: enc_p(gru, table, tokens), 2)}
+                            "plain_ms": cuda_ms(lambda: enc_p(gru, table, tokens), 2),
+                            **bound_of(encoder_ops(enc_rows, 24, H), kind,
+                                    nbytes(gru, table, tokens, hn_k)),
+                            "library_ms": library_ms}
+        dec_used = {k: dec[k] for k in ("embedding", "x_0", "tick_gru", "head")}
         report[dec_name] = {"max_abs_err": lg_err,
                             "ms": cuda_ms(lambda: dec_k(dec, tick_ctx, h_inits), 5),
-                            "plain_ms": cuda_ms(lambda: dec_p(dec, tick_ctx, h_inits), 2)}
+                            "plain_ms": cuda_ms(lambda: dec_p(dec, tick_ctx, h_inits), 2),
+                            **bound_of(decode_ops(dec_rows, H, V), kind,
+                                    nbytes(dec_used, tick_ctx, h_inits, lg_k, s_k)),
+                            "library_ms": None}
         for k in names:
             v = report[k]
-            print(f"[time] {k} {label}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms "
-                  f"| {card}", flush=True)
+            print(f"[time] {k} {label}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
+                  f"bound {v['bound_ms']:.3f} ms ({v['bound_by']}) | {card}", flush=True)
     return report
+
+
+def cudnn_gru_ms(gru, table, tokens, hn_k, label: str, card: str) -> float:
+    """K1's function through one PyTorch call, timed as a yardstick only
+    (the port never calls it): cuDNN's ``torch.nn.GRU(E, H, 2,
+    bidirectional=True)`` holding the same weights, over the embedded
+    tokens, returns the same h_n. In f32 (no TF32) it must agree with K1."""
+    hidden, emb = gru[0][0]["w_hh"].shape[0], table.shape[1]
+    net = torch.nn.GRU(emb, hidden, 2, batch_first=True, bidirectional=True).to(
+        device=tokens.device, dtype=table.dtype).eval()
+    with torch.no_grad():
+        for layer in range(2):
+            for d in range(2):
+                sfx, p = f"_l{layer}" + ("_reverse" if d else ""), gru[layer][d]
+                for name, w in (("weight_ih", p["w_ih"].t()), ("weight_hh", p["w_hh"].t()),
+                                ("bias_ih", p["b_ih"]), ("bias_hh", p["b_hh"])):
+                    getattr(net, name + sfx).copy_(w)
+        net.flatten_parameters()  # one contiguous weight buffer, as cuDNN wants it
+        x = table[tokens.long()]
+        err = (net(x)[1].float() - hn_k.float()).abs().max().item()
+        ms = cuda_ms(lambda: net(x), 3)
+    print(f"[time] encoder_hn {label}: cuDNN torch.nn.GRU {ms:.3f} ms (h_n max_abs_err against "
+          f"K1 {err:.3e}) | {card}", flush=True)
+    if label == "float32" and err > 1e-4:
+        raise RuntimeError("cuDNN's GRU is not K1's function: the yardstick would be wrong")
+    return ms
+
+
+def _train_kernel_case(seed: int, batch: int, steps: int, hidden: int, dtype, zero_h0: bool):
+    """K5's inputs made on the card from a seed (xw at the scale of a layer
+    input's projection, W_hh at Xavier's), and K6's cotangents."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device="cuda")).to(dtype)
+
+    w_hh = randn(hidden, 3 * hidden, scale=(2.0 / (4 * hidden)) ** 0.5)
+    fwd = (w_hh, randn(3 * hidden, scale=0.1), randn(batch, steps, 3 * hidden, scale=0.5),
+           randn(batch, hidden, scale=0.0 if zero_h0 else 0.5))
+    return fwd, randn(steps, batch, hidden)
+
+
+def _train_kernel_errs(got, want):
+    """(max, mean) of |got - plain| / (1 + |plain|) over the outputs, and
+    the plain max absolute error."""
+    d = [(a.float() - b.float()).abs() for a, b in zip(got, want)]
+    rel = [x / (1.0 + b.float().abs()) for x, b in zip(d, want)]
+    return (max(x.max().item() for x in rel), max(x.mean().item() for x in rel),
+            max(x.max().item() for x in d))
+
+
+def _run_k5_k6(fwd, dys, reverse: bool, gk):
+    """K5, then K6 on K5's gates with h_{t-1} built as the autograd
+    Function builds it. -> (K5 outputs, K6 outputs, h_{t-1})."""
+    out = gk.gru_fwd_seq(*fwd, reverse=reverse)
+    ys, h0 = out[0], fwd[3]
+    hprev = torch.cat([ys[1:], h0[None]]) if reverse else torch.cat([h0[None], ys[:-1]])
+    return out, gk.gru_bwd_seq(fwd[0], dys, *out[1:], hprev, reverse=reverse), hprev
+
+
+def _k5_k6_bounds(steps: int, batch: int, hidden: int, dtype, fwd, out, grads, dys, hprev):
+    """K5's and K6's bounds at these shapes. K5: the (H, 3H) recurrent
+    product per step and row, at the product type's rate (bf16 tensor cores,
+    or f32); bytes: xw, h0, W_hh, b_hh in, five (steps, B, H) out. K6: the
+    (3H, H) product per step and row, in f32 in every dtype; bytes: six
+    (steps, B, H) in, da and dhw (steps, B, 3H) and dh0 out."""
+    ops = 2.0 * steps * batch * hidden * 3 * hidden
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    return (bound_of(ops, kind, nbytes(fwd, out)),
+            bound_of(ops, "f32", nbytes(fwd[0], dys, out[1:], hprev, grads)))
+
+
+def _reject_train_faults(fwd, dys, out_k, grads_k, hprev, dtype, gk):
+    """A K5 carry rounded to bf16 every step, and a K6 product on dhw
+    rounded to bf16, planted in the plain versions, must break the bounds."""
+    carry, product = gk.fwd_carry, gk.bwd_product
+    gk.fwd_carry = lambda h: h.to(torch.bfloat16).float()
+    gk.bwd_product = lambda dhw, w_t: dhw.to(torch.bfloat16).float() @ w_t
+    try:
+        out_p = gk.gru_fwd_seq_reference(*fwd)
+        grads_p = gk.gru_bwd_seq_reference(fwd[0], dys, *out_k[1:], hprev)
+    finally:
+        gk.fwd_carry, gk.bwd_product = carry, product
+    torch.cuda.synchronize()
+    e_fwd, e_bwd = _train_kernel_errs(out_k, out_p), _train_kernel_errs(grads_k, grads_p)
+    max_b, mean_b = TRAIN_BOUNDS[dtype]
+    print(f"[kernels] planted faults {dtype}: K5 carry rounded to bf16 max/mean "
+          f"{e_fwd[0]:.3e}/{e_fwd[1]:.3e}; K6 product on bf16 dhw {e_bwd[0]:.3e}/{e_bwd[1]:.3e}",
+          flush=True)
+    for e in (e_fwd, e_bwd):
+        if e[0] <= max_b and e[1] <= mean_b:
+            raise RuntimeError(f"a planted K5/K6 fault passes the {dtype} bounds")
+
+
+def phase_train_kernels(card: str) -> dict:
+    """K5 and K6 against their plain versions at the VAE's shapes: the
+    encoder's (24 steps, 4,096 rows, both directions, h0 zero) and the tick
+    GRU's (6 steps, 16,384 rows = 4,096 x 4 beats), H 512, f32 and bf16.
+    The planted faults and the times at the encoder's shape, forward
+    direction. -> report entries of the bf16 encoder case."""
+    from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
+
+    hidden, rows = 512, TRAIN_WINDOWS * N_BARS
+    cases = [("encoder", 24, rows, False, True), ("encoder", 24, rows, True, True),
+             ("tick", 6, rows * 4, False, False)]
+    report = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, steps, batch, reverse, zero_h0 in cases:
+            fwd, dys = _train_kernel_case(steps + reverse, batch, steps, hidden, dtype, zero_h0)
+            out_k, grads_k, hprev = _run_k5_k6(fwd, dys, reverse, gk)
+            out_p = gk.gru_fwd_seq_reference(*fwd, reverse=reverse)
+            # K6's plain version on the kernel's gates: the same inputs as K6
+            grads_p = gk.gru_bwd_seq_reference(fwd[0], dys, *out_k[1:], hprev, reverse=reverse)
+            torch.cuda.synchronize()
+            e_fwd, e_bwd = _train_kernel_errs(out_k, out_p), _train_kernel_errs(grads_k, grads_p)
+            max_b, mean_b = TRAIN_BOUNDS[dtype]
+            print(f"[kernels] {dtype} {label} steps {steps} rows {batch} reverse {reverse}: "
+                  f"gru_fwd_seq max/mean {e_fwd[0]:.3e}/{e_fwd[1]:.3e} (abs {e_fwd[2]:.3e}), "
+                  f"gru_bwd_seq {e_bwd[0]:.3e}/{e_bwd[1]:.3e} (abs {e_bwd[2]:.3e}) "
+                  f"(bounds {max_b:.0e}/{mean_b:.0e})", flush=True)
+            for e in (e_fwd, e_bwd):
+                if not (e[0] <= max_b and e[1] <= mean_b):
+                    raise RuntimeError(f"K5/K6 disagree with their plain versions: {dtype} {label}")
+            if not all(bool(torch.isfinite(t.float()).all()) for t in (*out_k, *grads_k)):
+                raise RuntimeError(f"non-finite K5/K6 output: {dtype} {label}")
+            if reverse:
+                continue
+            if label == "encoder":
+                _reject_train_faults(fwd, dys, out_k, grads_k, hprev, dtype, gk)
+            b_fwd, b_bwd = _k5_k6_bounds(steps, batch, hidden, dtype, fwd, out_k, grads_k,
+                                         dys, hprev)
+            times = {
+                "gru_fwd_seq": (cuda_ms(lambda: gk.gru_fwd_seq(*fwd), 5),
+                                cuda_ms(lambda: gk.gru_fwd_seq_reference(*fwd), 2), b_fwd, e_fwd),
+                "gru_bwd_seq": (cuda_ms(lambda: gk.gru_bwd_seq(fwd[0], dys, *out_k[1:], hprev), 5),
+                                cuda_ms(lambda: gk.gru_bwd_seq_reference(fwd[0], dys, *out_k[1:],
+                                                                         hprev), 2), b_bwd, e_bwd),
+            }
+            for name, (ms, plain_ms, b, e) in times.items():
+                print(f"[time] {name} {dtype} {label} steps {steps} rows {batch}: kernel "
+                      f"{ms:.3f} ms, plain {plain_ms:.3f} ms (kernel/plain {ms / plain_ms:.2f}x), "
+                      f"bound {b['bound_ms']:.3f} ms ({b['bound_by']}) | {card}", flush=True)
+                if dtype == torch.bfloat16 and label == "encoder":
+                    report[name] = {"max_abs_err": e[2], "ms": ms, "plain_ms": plain_ms, **b,
+                                    "library_ms": None}
+    return report
+
+
+def phase_train_reference(card: str):
+    """One VAE train step on the card (K5, K6) against the same step on the
+    CPU (plain versions), f32, small geometry (vocab 60, E 10, H 64, z 16, 2
+    layers, dropout 0.5/0.5, 8 windows x 2 bars), the same initial
+    parameters, dropout masks (one seeded CPU generator per trainer: masks
+    drawn on the CPU, moved to the card) and injected rsample noise; one step
+    with each teacher-forcing coin, in turn. Loss, every gradient and the
+    parameters after each Adam step are compared."""
+    from inpaintnet_tpu_torch.models.base import iter_leaves
+    from inpaintnet_tpu_torch.models.measure_vae import MeasureVAE
+    from inpaintnet_tpu_torch.models.presets import VocabOnlyDataset
+    from inpaintnet_tpu_torch.train.data import ArrayDataset
+    from inpaintnet_tpu_torch.train.vae_trainer import VAETrainer
+
+    rng = np.random.default_rng(6)
+    windows = rng.integers(0, VOCAB, (8, 1, 2 * 24)).astype(np.int32)
+    data = ArrayDataset((windows,), n_bars=2)
+    vocab = VocabOnlyDataset(VOCAB)
+
+    def trainer(device):
+        model = MeasureVAE(vocab, note_embedding_dim=10, encoder_hidden_size=64,
+                           latent_space_dim=16, decoder_hidden_size=64, device="cpu", seed=1)
+        tr = VAETrainer(data, model, lr=1e-3, device=device)
+        tr.generator = torch.Generator().manual_seed(3)
+        return tr
+
+    card_tr, cpu_tr = trainer("cuda"), trainer("cpu")
+    for coin in (True, False):
+        eps = torch.from_numpy(rng.standard_normal((16, 16)).astype(np.float32))
+        out = {}
+        for name, tr in (("card", card_tr), ("cpu", cpu_tr)):
+            loss, _ = tr.train_step(tr.process_batch_data((windows,)), eps=eps.to(tr.device),
+                                    coin=coin)
+            leaves = [p for _, p in iter_leaves(tr.params)]
+            out[name] = (loss.item(), [p.grad.cpu() for p in leaves],
+                         [p.detach().cpu() for p in leaves])
+        (l_c, g_c, p_c), (l_p, g_p, p_p) = out["card"], out["cpu"]
+        loss_err = abs(l_c - l_p) / abs(l_p)
+        g_err = max(((a - b).abs() / (1.0 + b.abs())).max().item() for a, b in zip(g_c, g_p))
+        p_diff = torch.cat([(a - b).abs().flatten() for a, b in zip(p_c, p_p)])
+        print(f"[train-ref] coin {coin}: loss card {l_c:.7f} cpu {l_p:.7f} rel err {loss_err:.3e} "
+              f"(bound {TRAIN_REF['loss']:.0e}); gradients max |d|/(1+|g|) {g_err:.3e} (bound "
+              f"{TRAIN_REF['grad']:.0e}); post-Adam params max {p_diff.max().item():.3e} "
+              f"(bound {TRAIN_REF['param_max']:.0e}), mean {p_diff.mean().item():.3e} "
+              f"(bound {TRAIN_REF['param_mean']:.0e}) | {card}", flush=True)
+        if not (loss_err <= TRAIN_REF["loss"] and g_err <= TRAIN_REF["grad"]
+                and p_diff.max().item() <= TRAIN_REF["param_max"]
+                and p_diff.mean().item() <= TRAIN_REF["param_mean"]):
+            raise RuntimeError(f"the train step on the card disagrees with the CPU (coin {coin})")
+
+
+def _profile_step(step) -> tuple:
+    """``torch.profiler``'s device time of one ``step()``. -> (device ms,
+    device launches, [(kernel, ms, launches)] by time, longest first)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            rows.append((e.key, (e.self_cuda_time_total if us is None else us) / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), sum(r[2] for r in rows), rows
+
+
+def phase_trainer(card: str) -> dict:
+    """The full-width VAE trainer takes 8 steps in f32 and 8 in bf16 compute
+    (coins alternating, teacher-forced first); per step K5 and K6 must
+    launch as ``TRAIN_LAUNCHES`` says, the loss must be finite, and the
+    parameters must have moved. Steps 0-1 warm up; ms per step is the mean
+    of the two branches' medians over steps 2-5 (the coin is fair); steps
+    6-7, one a branch, run under ``torch.profiler``, which prints the
+    device time and launches a step, the idle share (1 - device time / the
+    branch's median wall) and the kernels taking the most device time.
+    -> {kernel: launches}."""
+    from inpaintnet_tpu_torch.models.base import iter_leaves
+    from inpaintnet_tpu_torch.models.measure_vae import MeasureVAE
+    from inpaintnet_tpu_torch.models.presets import VocabOnlyDataset
+    from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
+    from inpaintnet_tpu_torch.train.data import ArrayDataset
+    from inpaintnet_tpu_torch.train.vae_trainer import VAETrainer
+
+    model = MeasureVAE(VocabOnlyDataset(VOCAB), device="cuda", seed=0)
+    windows = np.random.default_rng(7).integers(
+        0, VOCAB, (TRAIN_WINDOWS, 1, N_BARS * 24)).astype(np.int32)
+    data = ArrayDataset((windows,), N_BARS)
+    rows = TRAIN_WINDOWS * N_BARS
+    kernels = (gk.gru_fwd_seq, gk.gru_bwd_seq)
+
+    def drive():
+        for compute in (None, "bfloat16"):
+            tr = VAETrainer(data, model, lr=1e-4, device="cuda", compute_dtype=compute)
+            start = [p.detach().clone() for _, p in iter_leaves(tr.params)]
+            batch = tr.process_batch_data((windows,))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times, profiles = {True: [], False: []}, {}
+            for i, coin in enumerate((True, False) * 4):
+                before = [k.launches for k in kernels]
+                if i >= 6:
+                    out = []
+                    profiles[coin] = _profile_step(
+                        lambda: out.append(tr.train_step(batch, coin=coin)[0]))
+                    loss = out[0].item()
+                else:
+                    t0 = time.perf_counter()
+                    loss, _ = tr.train_step(batch, coin=coin)
+                    loss = loss.item()  # waits for the step
+                    times[coin].append((time.perf_counter() - t0) * 1e3)
+                got = [k.launches - b for k, b in zip(kernels, before)]
+                if got != [TRAIN_LAUNCHES[coin]] * 2 or not np.isfinite(loss):
+                    raise RuntimeError(f"train step {i} (coin {coin}): K5/K6 launches {got}, "
+                                       f"expected {TRAIN_LAUNCHES[coin]} each; loss {loss}")
+            peak = torch.cuda.max_memory_allocated()
+            moved = sum((p.detach() - s).abs().sum().item()
+                        for (_, p), s in zip(iter_leaves(tr.params), start))
+            if not moved > 0:
+                raise RuntimeError("the parameters did not move")
+            walls = {c: float(np.median(times[c][1:])) for c in (True, False)}
+            ms = (walls[True] + walls[False]) / 2
+            label = compute or "float32"
+            print(f"[trainer] {label} compute: {rows} measure rows a step; "
+                  f"{ms:.2f} ms/step (teacher-forced {walls[True]:.2f}, sampling "
+                  f"{walls[False]:.2f}), {rows / (ms / 1e3):.1f} measures/s, peak memory "
+                  f"{peak / 2**30:.2f} GiB, last loss {loss:.5f}, K5/K6 launches a step "
+                  f"{TRAIN_LAUNCHES} | {card}", flush=True)
+            for coin, (device_ms, count, kernel_rows) in profiles.items():
+                branch = "teacher-forced" if coin else "sampling"
+                print(f"[profile] {label} {branch}: device {device_ms:.2f} ms/step, {count} "
+                      f"launches/step, idle share {1 - device_ms / walls[coin]:.3f} (of the "
+                      f"unprofiled median wall {walls[coin]:.2f} ms) | {card}", flush=True)
+                for name, k_ms, k_count in kernel_rows[:12]:
+                    print(f"[profile]   {k_ms:9.3f} ms {k_count:6d}x  {name[:110]}", flush=True)
+            del tr, batch, start
+            torch.cuda.empty_cache()
+
+    _, launches = _launches_during(kernels, drive)
+    print(f"[trainer] K5/K6 launches in the trainer's steps: {launches}", flush=True)
+    return launches
 
 
 def _request(rng, batch: int, n_past: int, n_target: int, n_future: int):
@@ -395,7 +781,7 @@ def _http(port: int, method: str, path: str, payload=None) -> dict:
 def phase_http(engine, card: str) -> dict:
     """The shared HTTP front end over the int8 engine, dynamic batching
     pinned to bucket 64: concurrent responses must equal solo hetero calls."""
-    from inpaintnet_tpu.server import InpaintingServer  # numpy only, no JAX
+    from inpaintnet_tpu_torch.server import InpaintingServer
     from inpaintnet_tpu_torch.ops.distributions import row_bits
 
     keys = torch.from_numpy(np.random.default_rng(4).integers(0, 2**32, (64, 2)))
@@ -482,12 +868,16 @@ def main() -> int:
 
     _, vae, model = build_flagship(seed=0, device="cuda", dtype=torch.float32)
     report = phase_kernels(vae, model.max_target, card)
+    report.update(phase_train_kernels(card))
     phase_reference(model)
     _, launches, span_bf16 = phase_engine(model, "bfloat16", card)
     engine8, launches8, span_int8 = phase_engine(model, "int8", card)
     print(f"[engine] int8 and bf16 agree on {(span_int8 == span_bf16).mean():.4f} of the "
           f"batch-{BATCH} span tokens (random weights: printed, no limit)", flush=True)
     launches_http = phase_http(engine8, card)
+    del engine8
+    phase_train_reference(card)
+    launches_train = phase_trainer(card)
     sources = {
         "encoder_hn": ("encoder_gru.cu", "inpaintnet_tpu/ops/encoder_pallas.py:147", launches),
         "decode_sampling": ("decode_sampling.cu", "inpaintnet_tpu/ops/decode_pallas.py:216",
@@ -496,6 +886,10 @@ def main() -> int:
                             launches8),
         "decode_sampling_int8": ("decode_sampling_int8.cu",
                                  "inpaintnet_tpu/ops/decode_pallas.py:451", launches8),
+        "gru_fwd_seq": ("gru_fwd_seq.cu", "inpaintnet_tpu/ops/gru_bwd_pallas.py:104",
+                        launches_train),
+        "gru_bwd_seq": ("gru_bwd_seq.cu", "inpaintnet_tpu/ops/gru_bwd_pallas.py:161",
+                        launches_train),
     }
     kernels = [{"name": name, "route": "cuda",
                 "source": f"inpaintnet_tpu_torch/ops/csrc/{src}", "replaces": replaces,

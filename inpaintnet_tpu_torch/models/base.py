@@ -1,16 +1,47 @@
-"""Checkpoints of the JAX package, read without JAX, and the casting of
-nested parameters.
+"""Checkpoints in the JAX package's layout, and the casting of nested
+parameters.
 
 ``inpaintnet_tpu/models/base.py`` saves a model's parameter pytree as an
 ``.npz`` whose keys are the ``/``-joined pytree paths (dict keys, and list
-indices as digits, e.g. ``encoder/gru/0/1/w_ih``). ``load_jax_checkpoint``
-rebuilds the nested dicts and lists of numpy arrays, which
-``convert.from_jax_params`` takes.
+indices as digits, e.g. ``encoder/gru/0/1/w_ih``) and whose arrays are the
+(in, out) leaves. ``flatten_params`` and ``unflatten_params`` convert the
+port's nested parameters to and from that layout, so a checkpoint either
+package writes loads in the other; ``load_jax_checkpoint`` reads one into
+nested numpy arrays, which ``convert.from_jax_params`` takes.
+``CheckpointedModel`` gives a model ``save``, ``save_checkpoint`` and
+``load`` at a path named by its ``repr``, as the JAX package's ``Model``.
 """
 from __future__ import annotations
 
+import os
+import re
+from typing import Dict, Optional
+
 import numpy as np
 import torch
+
+
+def iter_leaves(tree, prefix: str = ""):
+    """``(path, leaf)`` of nested dicts and lists, depth first, paths
+    ``/``-joined (list indices as digits)."""
+    if not isinstance(tree, (dict, list, tuple)):
+        yield prefix, tree
+        return
+    for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+        yield from iter_leaves(v, f"{prefix}/{k}" if prefix else str(k))
+
+
+def to_numpy(leaf) -> np.ndarray:
+    """A tensor copied to the CPU as numpy (bf16 as f32, which numpy lacks)."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(leaf)
+
+
+def flatten_params(tree) -> Dict[str, np.ndarray]:
+    """Nested dicts and lists of tensors (or arrays) -> ``{"a/0/b": array}``."""
+    return {k: to_numpy(v) for k, v in iter_leaves(tree)}
 
 
 def unflatten_params(flat) -> dict:
@@ -50,3 +81,40 @@ def cast_params(tree, device, dtype: torch.dtype):
     if isinstance(tree, list):
         return [cast_params(v, device, dtype) for v in tree]
     return tree.to(device=device, dtype=dtype).contiguous()
+
+
+def npz_path(path: str) -> str:
+    """``np.savez`` appends ``.npz`` when absent; so does every load here."""
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+class CheckpointedModel:
+    """Config-addressed parameter checkpoints (the JAX package's ``Model``).
+
+    A subclass supplies ``params()`` (nested (in, out) parameters) and
+    ``set_params(nested)``; the file is ``<checkpoint_dir>/<repr>.npz`` in
+    the layout of :func:`flatten_params`."""
+
+    def __init__(self, checkpoint_dir: Optional[str] = None):
+        self.checkpoint_dir = checkpoint_dir or os.path.join(os.getcwd(), "checkpoints")
+
+    @property
+    def filepath(self) -> str:
+        safe = re.sub(r"[^A-Za-z0-9_.,()\[\]'=-]", "_", repr(self))
+        return os.path.join(self.checkpoint_dir, safe + ".npz")
+
+    def save(self, path: Optional[str] = None) -> None:
+        path = npz_path(path or self.filepath)
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez(path, **flatten_params(self.params()))
+        print(f"Model {self!r} saved")
+
+    def save_checkpoint(self, epoch_num: int) -> None:
+        self.save(f"{self.filepath[:-4]}_{epoch_num}.npz")
+
+    def load(self, path: Optional[str] = None):
+        """Read a checkpoint of either package into the model (strict)."""
+        path = npz_path(path or self.filepath)
+        self.set_params(load_jax_checkpoint(path))
+        print(f"Model {self!r} loaded")
+        return self

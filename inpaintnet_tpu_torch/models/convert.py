@@ -12,7 +12,8 @@ the port.
 - ``from_jax_params``: the JAX package's parameters (nested dicts and
   lists of numpy arrays) -> a ``state_dict`` for ``LatentRNN``.
 - ``to_functional``: a module's ``state_dict`` -> the nested (in, out)
-  parameters the port's functional code (and its kernels) takes.
+  parameters the port's functional code (and its kernels) takes;
+  ``from_functional`` is its inverse.
 """
 from __future__ import annotations
 
@@ -122,3 +123,12 @@ def to_functional(state_dict: Mapping[str, torch.Tensor], leaves: List[Leaf]):
         node[path[-1]] = t.t().contiguous() if transpose else t
     return nest_lists(root)
 
+
+def from_functional(params, leaves: List[Leaf]) -> Dict[str, torch.Tensor]:
+    """Nested (in, out) parameters (tensors or numpy arrays) -> a
+    ``state_dict`` keyed as ``leaves`` says, detached."""
+    sd = {}
+    for path, key, transpose in leaves:
+        t = torch.as_tensor(_get(params, path)).detach()
+        sd[key] = t.t() if transpose else t
+    return sd

@@ -1,26 +1,45 @@
-"""MeasureVAE at inference: bidirectional-GRU encoder and hierarchical
-beat/tick decoder (``inpaintnet_tpu/models/measure_vae.py``).
+"""MeasureVAE: bidirectional-GRU encoder and hierarchical beat/tick decoder
+(``inpaintnet_tpu/models/measure_vae.py``), at inference and in training.
 
 The modules hold their parameters under the reference's ``state_dict``
 names and shapes (``convert.py``); the functional methods take the nested
 (in, out) parameters that ``params()`` returns, like the JAX package's
-``apply(params, ...)``. No teacher-forced or training path.
+``apply(params, ...)``, so a trainer differentiates through whatever
+parameters it passes.
+
+Training (``train=True``) takes other routes than inference: every GRU
+without a mask runs the trainfast autograd Function (K5 and K6 on the
+card), never the serving kernels K1-K4; dropout acts between GRU layers,
+its masks drawn from an explicit ``torch.Generator``; the decoder flips one
+teacher-forcing coin per batch (p = 0.5). The teacher-forced decode folds
+the 4 beats into the batch, (B * 4, 6, E + H) with per-beat ``h0``, where
+the JAX package vmaps over them: the same function, with dropout masks of
+the same distribution but other bits.
 
 Quirk kept for parity: ReLU on the output logits, so logits are
 non-negative and all-zero rows (ties broken to token 0) are common.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 from torch import nn
 
-from inpaintnet_tpu_torch.models.convert import measure_vae_leaves, to_functional
+from inpaintnet_tpu_torch.models.base import CheckpointedModel
+from inpaintnet_tpu_torch.models.convert import from_functional, measure_vae_leaves, to_functional
 from inpaintnet_tpu_torch.ops.decode_kernel import decode_sampling as decode_sampling_kernel
 from inpaintnet_tpu_torch.ops.decode_kernel import decode_sampling_int8
 from inpaintnet_tpu_torch.ops.distributions import DiagNormal
 from inpaintnet_tpu_torch.ops.encoder_kernel import encoder_hn, encoder_hn_int8
-from inpaintnet_tpu_torch.ops.gru import gru_apply, gru_gates, gru_init
+from inpaintnet_tpu_torch.ops.gru import (
+    apply_dropout,
+    dropout_keep,
+    gru_apply,
+    gru_gates,
+    gru_init,
+)
 from inpaintnet_tpu_torch.ops.kernel_common import kernel_supports_hidden
 from inpaintnet_tpu_torch.ops.linear import (
     embedding_apply,
@@ -73,18 +92,23 @@ class Encoder(nn.Module):
     hiddens -> Linear/SELU/Linear mean and log-std heads."""
 
     def __init__(self, note_embedding_dim: int, rnn_hidden_size: int, num_layers: int,
-                 num_notes: int, z_dim: int, device=None):
+                 num_notes: int, z_dim: int, device=None, dropout: float = 0.0):
         super().__init__()
         self.note_embedding_dim = note_embedding_dim
         self.rnn_hidden_size = rnn_hidden_size
         self.num_layers = num_layers
         self.num_notes = num_notes
         self.z_dim = z_dim
+        self.dropout = dropout
         hid_cat = rnn_hidden_size * 2 * num_layers
         self.note_embedding_layer = nn.Embedding(num_notes, note_embedding_dim, device=device)
         self.lstm = GRUWeights(note_embedding_dim, rnn_hidden_size, num_layers, True, device)
         self.linear_mean = _mlp_selu(hid_cat, 2 * rnn_hidden_size, z_dim, device)
         self.linear_log_std = _mlp_selu(hid_cat, 2 * rnn_hidden_size, z_dim, device)
+
+    def __repr__(self):
+        return (f"Encoder({self.note_embedding_dim},GRU,{self.num_layers},"
+                f"{self.rnn_hidden_size},{self.dropout},True,{self.z_dim},)")
 
     def init_params(self, rng: np.random.Generator) -> dict:
         hid_cat = self.rnn_hidden_size * 2 * self.num_layers
@@ -101,13 +125,22 @@ class Encoder(nn.Module):
         bidirectional here) and a hidden width the kernels tile."""
         return self.num_layers == 2 and kernel_supports_hidden(self.rnn_hidden_size)
 
-    def apply(self, params, tokens: torch.Tensor, quant: str = "none") -> DiagNormal:
+    def apply(self, params, tokens: torch.Tensor, quant: str = "none", *, train: bool = False,
+              generator: Optional[torch.Generator] = None,
+              dropout_masks=None) -> DiagNormal:
         """:param tokens: (B, 24) int tokens -> DiagNormal over z.
         :param quant: "int8" runs K3 where a kernel takes the geometry (and
             the plain scan in the parameter dtype elsewhere, as the JAX
-            package does when its kernel gate is closed)"""
+            package does when its kernel gate is closed)
+        :param train: the training route: the trainfast GRU layers with
+            dropout between them (``generator`` draws the keep mask, or
+            ``dropout_masks`` gives it), never K1 or K3"""
         check_quant(quant)
-        if self.use_kernel():
+        if train:
+            emb = embedding_apply(params["embedding"], tokens)
+            _, h_n = gru_apply(params["gru"], emb, last_outputs=False, dropout=self.dropout,
+                               train=True, dropout_masks=dropout_masks, generator=generator)
+        elif self.use_kernel():
             kernel = encoder_hn_int8 if quant == "int8" else encoder_hn
             h_n = kernel(params["gru"], params["embedding"]["table"], tokens)
         else:
@@ -126,14 +159,17 @@ class Encoder(nn.Module):
 class HierarchicalDecoder(nn.Module):
     """p(measure | z): z -> 4-step beat GRU -> per beat, a 6-tick GRU."""
 
+    teacher_forcing_prob = 0.5  # one coin per training batch (decoder.py:374-376)
+
     def __init__(self, note_embedding_dim: int, num_notes: int, z_dim: int,
-                 num_layers: int, rnn_hidden_size: int, device=None):
+                 num_layers: int, rnn_hidden_size: int, device=None, dropout: float = 0.0):
         super().__init__()
         self.note_embedding_dim = note_embedding_dim
         self.num_notes = num_notes
         self.z_dim = z_dim
         self.num_layers = num_layers
         self.rnn_hidden_size = rnn_hidden_size
+        self.dropout = dropout
         H, L, E = rnn_hidden_size, num_layers, note_embedding_dim
         self.note_embedding_layer = nn.Embedding(num_notes, E, device=device)
         self.z_to_beat_rnn_input = _linear(z_dim, H * L, device, nn.SELU())
@@ -144,6 +180,10 @@ class HierarchicalDecoder(nn.Module):
         self.x_0 = nn.Parameter(torch.empty((E,), device=device))
         self.rnn_tick = GRUWeights(E + H, H, L, False, device)
         self.tick_emb_to_note_emb = _linear(H, num_notes, device, nn.ReLU())
+
+    def __repr__(self):
+        return (f"HierarchicalDecoder{self.note_embedding_dim},GRU,{self.num_layers},"
+                f"{self.rnn_hidden_size},{self.dropout},)")
 
     def init_params(self, rng: np.random.Generator) -> dict:
         H, L, E = self.rnn_hidden_size, self.num_layers, self.note_embedding_dim
@@ -159,13 +199,16 @@ class HierarchicalDecoder(nn.Module):
             "head": linear_init(rng, H, self.num_notes),
         }
 
-    def _beat_outputs(self, params, z: torch.Tensor) -> torch.Tensor:
-        """z -> beat-GRU outputs (B, 4, H)."""
+    def _beat_outputs(self, params, z: torch.Tensor, *, train: bool = False,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """z -> beat-GRU outputs (B, 4, H); in training with dropout between
+        the beat GRU's layers."""
         batch = z.shape[0]
         h0 = torch.selu(linear_apply(params["z_to_beat_hidden"], z))
         h0 = h0.reshape(batch, self.num_layers, -1).transpose(0, 1)
         beat_in = params["b_0"].expand(batch, NUM_BEATS_PER_MEASURE, 1)
-        beat_out, _ = gru_apply(params["beat_gru"], beat_in, h0.contiguous())
+        beat_out, _ = gru_apply(params["beat_gru"], beat_in, h0.contiguous(),
+                                dropout=self.dropout, train=train, generator=generator)
         return beat_out
 
     def _tick_h0(self, params, beat_vec: torch.Tensor) -> torch.Tensor:
@@ -182,29 +225,60 @@ class HierarchicalDecoder(nn.Module):
         is always argmax inference) and a hidden width the kernels tile."""
         return self.num_layers == 2 and kernel_supports_hidden(self.rnn_hidden_size)
 
-    def decode_sampling(self, params, z: torch.Tensor, quant: str = "none"):
+    def decode_teacher_forced(self, params, z: torch.Tensor, tokens: torch.Tensor, *,
+                              train: bool = True, generator: Optional[torch.Generator] = None):
+        """All 4 beats decoded at once on ground-truth inputs: the beats
+        fold into the batch, (B * 4, 6, E + H), each with its own ``h0``.
+
+        :param tokens: (B, 24) int ground truth
+        :return: (logits (B, 24, V), samples (B, 24))
+        """
+        batch = z.shape[0]
+        H = self.rnn_hidden_size
+        beat_out = self._beat_outputs(params, z, train=train, generator=generator)
+        emb = embedding_apply(params["embedding"], tokens)  # (B, 24, E)
+        x0 = params["x_0"].expand(batch, 1, emb.shape[-1])
+        emb_in = torch.cat([x0, emb[:, :-1]], dim=1)  # inputs shifted by one tick
+        tick_ctx = torch.selu(linear_apply(params["beat_to_tick_input"], beat_out))  # (B, 4, H)
+        xs = torch.cat([
+            emb_in.reshape(batch, NUM_BEATS_PER_MEASURE, TICKS_PER_BEAT, -1),
+            tick_ctx[:, :, None].expand(batch, NUM_BEATS_PER_MEASURE, TICKS_PER_BEAT, H),
+        ], dim=-1).reshape(batch * NUM_BEATS_PER_MEASURE, TICKS_PER_BEAT, -1)
+        h0s = self._tick_h0(params, beat_out.reshape(batch * NUM_BEATS_PER_MEASURE, -1))
+        tick_out, _ = gru_apply(params["tick_gru"], xs, h0s, dropout=self.dropout,
+                                train=train, generator=generator)
+        logits = self._logits(params, tick_out).reshape(batch, NUM_TICKS_PER_MEASURE, -1)
+        return logits, sample_argmax(logits)
+
+    def decode_sampling(self, params, z: torch.Tensor, quant: str = "none", *,
+                        train: bool = False, generator: Optional[torch.Generator] = None):
         """Argmax decode of one measure per latent.
 
         :param quant: "int8" runs K4 where a kernel takes the geometry (the
             plain scan elsewhere)
+        :param train: the training route: dropout in the beat GRU and on
+            the tick GRU's layer-0 output at every tick, through the eager
+            loop (autograd differentiates it), never K2 or K4
         :return: (logits (B, 24, V), samples (B, 24) int32)
         """
         check_quant(quant)
         batch = z.shape[0]
-        beat_out = self._beat_outputs(params, z)
+        beat_out = self._beat_outputs(params, z, train=train, generator=generator)
         tick_ctx = torch.selu(linear_apply(params["beat_to_tick_input"], beat_out))
         h_inits = self._tick_h0(
             params, beat_out.reshape(batch * NUM_BEATS_PER_MEASURE, -1)
         ).reshape(self.num_layers, batch, NUM_BEATS_PER_MEASURE, -1)
-        if self.use_kernel():
+        if not train and self.use_kernel():
             kernel = decode_sampling_int8 if quant == "int8" else decode_sampling_kernel
             return kernel(params, tick_ctx.contiguous(), h_inits.contiguous())
-        return self._decode_scan(params, tick_ctx, h_inits)
+        return self._decode_scan(params, tick_ctx, h_inits, train=train, generator=generator)
 
-    def _decode_scan(self, params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
+    def _decode_scan(self, params, tick_ctx: torch.Tensor, h_inits: torch.Tensor, *,
+                     train: bool = False, generator: Optional[torch.Generator] = None):
         """The 24-tick decode as a plain loop in the parameters' dtype (the
         JAX package's XLA scan): layer 0's token and beat-context input
-        projections are hoisted out of the loop."""
+        projections are hoisted out of the loop. In training, a fresh keep
+        mask drops the input of every layer above 0 at every tick."""
         batch = tick_ctx.shape[0]
         E = self.note_embedding_dim
         p0 = params["tick_gru"][0][0]
@@ -224,6 +298,9 @@ class HierarchicalDecoder(nn.Module):
                     xw = inp @ p["w_ih"] + p["b_ih"]
                 h[layer] = gru_gates(p, h[layer], xw)
                 inp = h[layer]
+                if train and self.dropout > 0.0 and layer < self.num_layers - 1:
+                    keep = dropout_keep(inp.shape, self.dropout, generator, inp.device)
+                    inp = apply_dropout(inp, keep, self.dropout)
             lg = self._logits(params, inp)
             s = sample_argmax(lg)
             prev_xw = token_xw[s]
@@ -231,21 +308,51 @@ class HierarchicalDecoder(nn.Module):
             samples.append(s)
         return torch.stack(logits, dim=1), torch.stack(samples, dim=1).to(torch.int32)
 
+    def apply(self, params, z: torch.Tensor, tokens: torch.Tensor, *, train: bool,
+              coin: Optional[bool] = None, generator: Optional[torch.Generator] = None,
+              coin_generator: Optional[torch.Generator] = None):
+        """The reference's forward: in training, one teacher-forcing coin
+        for the whole batch (True: :meth:`decode_teacher_forced`, else
+        :meth:`decode_sampling`), drawn on the host from ``coin_generator``
+        (a CPU generator, so branching waits for no device) unless given;
+        out of training, the argmax sampling decode."""
+        if not train:
+            return self.decode_sampling(params, z)
+        if coin is None:
+            coin = bool(torch.rand((), generator=coin_generator) < self.teacher_forcing_prob)
+        if coin:
+            return self.decode_teacher_forced(params, z, tokens, train=True, generator=generator)
+        return self.decode_sampling(params, z, train=True, generator=generator)
 
-class MeasureVAE(nn.Module):
-    """Container of the encoder and decoder (inference only)."""
+
+class MeasureVAE(CheckpointedModel, nn.Module):
+    """Encoder and decoder, their reparameterised forward, and checkpoints
+    in the JAX package's ``.npz`` layout.
+
+    Made on any device but ``meta``, it holds the random parameters that
+    ``init_params(numpy.random.default_rng(seed))`` draws. It lives on the
+    card unless ``device`` says otherwise."""
 
     def __init__(self, dataset, note_embedding_dim: int = 10, num_encoder_layers: int = 2,
                  encoder_hidden_size: int = 512, latent_space_dim: int = 256,
-                 num_decoder_layers: int = 2, decoder_hidden_size: int = 512, device=None):
-        super().__init__()
+                 num_decoder_layers: int = 2, decoder_hidden_size: int = 512, device="cuda",
+                 encoder_dropout_prob: float = 0.5, decoder_dropout_prob: float = 0.5,
+                 checkpoint_dir: Optional[str] = None, seed: int = 0):
+        nn.Module.__init__(self)
+        CheckpointedModel.__init__(self, checkpoint_dir)
+        self.dataset_repr = repr(dataset)
         self.num_notes = len(dataset.note2index_dicts[0])
         self.latent_space_dim = latent_space_dim
         self.encoder = Encoder(note_embedding_dim, encoder_hidden_size, num_encoder_layers,
-                               self.num_notes, latent_space_dim, device)
+                               self.num_notes, latent_space_dim, device, encoder_dropout_prob)
         self.decoder = HierarchicalDecoder(note_embedding_dim, self.num_notes,
                                            latent_space_dim, num_decoder_layers,
-                                           decoder_hidden_size, device)
+                                           decoder_hidden_size, device, decoder_dropout_prob)
+        if str(device) != "meta":
+            self.set_params(self.init_params(np.random.default_rng(seed)))
+
+    def __repr__(self):
+        return f"MeasureVAE({self.dataset_repr},{self.encoder!r},{self.decoder!r},)"
 
     def init_params(self, rng: np.random.Generator) -> dict:
         """Random parameters in the JAX package's layout, as numpy."""
@@ -258,3 +365,33 @@ class MeasureVAE(nn.Module):
     def params(self) -> dict:
         """The nested (in, out) parameters the functional methods take."""
         return to_functional(self.state_dict(), self.leaves())
+
+    def set_params(self, params) -> None:
+        """Copy nested (in, out) parameters (tensors or numpy) into the
+        module, strictly."""
+        self.load_state_dict(from_functional(params, self.leaves()), strict=True)
+
+    def apply(self, params, tokens: torch.Tensor, *, train: bool = True,
+              generator: Optional[torch.Generator] = None,
+              coin_generator: Optional[torch.Generator] = None,
+              eps: Optional[torch.Tensor] = None, coin: Optional[bool] = None):
+        """The VAE forward (``measure_vae.py:687-706``).
+
+        :param tokens: (B, 24) int tokens
+        :param generator: draws dropout masks and the rsample noise
+        :param coin_generator: CPU generator of the teacher-forcing coin
+        :param eps: optional (B, z) rsample noise; :param coin: optional
+            teacher-forcing coin (both let a test inject the JAX package's)
+        :return: (weights (B, 24, V), samples (B, 24), z_dist, prior_dist,
+            z_tilde, z_prior)
+        """
+        if tokens.shape[1] != NUM_TICKS_PER_MEASURE:
+            raise ValueError(f"tokens: {tokens.shape[1]} ticks, expected {NUM_TICKS_PER_MEASURE}")
+        z_dist = self.encoder.apply(params["encoder"], tokens, train=train, generator=generator)
+        z_tilde = z_dist.rsample(generator, eps)
+        prior_dist = DiagNormal(torch.zeros_like(z_dist.loc), torch.ones_like(z_dist.scale))
+        z_prior = prior_dist.sample(generator)
+        weights, samples = self.decoder.apply(params["decoder"], z_tilde, tokens, train=train,
+                                              coin=coin, generator=generator,
+                                              coin_generator=coin_generator)
+        return weights, samples, z_dist, prior_dist, z_tilde, z_prior

@@ -23,7 +23,7 @@ class VocabOnlyDataset:
 
 
 def build_latent_rnn(dataset, *, emb: int, hidden: int, z_dim: int, layers: int,
-                     vae_params_np, latent_params_np, device="cpu",
+                     vae_params_np, latent_params_np, device="cuda",
                      dtype: torch.dtype = torch.float32):
     """A MeasureVAE + LatentRNN of the given geometry holding the given
     JAX-layout numpy parameters (random, or the JAX package's), on
@@ -43,7 +43,7 @@ def build_latent_rnn(dataset, *, emb: int, hidden: int, z_dim: int, layers: int,
 
 
 def build_flagship(vocab_size: int = 60, hidden: int = 512, z_dim: int = 256, emb: int = 10,
-                   layers: int = 2, seed: int = 0, device="cpu",
+                   layers: int = 2, seed: int = 0, device="cuda",
                    dtype: torch.dtype = torch.float32, dataset=None):
     """Full-size MeasureVAE + LatentRNN (the shipped reference config) with
     random weights drawn from ``numpy.random.default_rng(seed)``.

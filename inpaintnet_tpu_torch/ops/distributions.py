@@ -1,5 +1,6 @@
-"""Diagonal normal for the VAE latent (``inpaintnet_tpu/ops/distributions.py``)
-and the per-row noise of the serving engine's coalesced batches."""
+"""Diagonal normal for the VAE latent (``inpaintnet_tpu/ops/distributions.py``),
+its KL to the standard normal, and the per-row noise of the serving
+engine's coalesced batches."""
 from __future__ import annotations
 
 import math
@@ -8,19 +9,41 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 
+def draw(fn, shape, generator: Optional[torch.Generator], device,
+         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``fn(shape)`` (``torch.rand`` or ``torch.randn``) in ``dtype``, drawn
+    on the generator's device and moved to ``device``: the same seeded CPU
+    generator then gives the same noise to a run on the card and a run on
+    the CPU. Without a generator, draws on ``device`` from its default."""
+    if generator is None:
+        return fn(shape, device=device, dtype=dtype)
+    return fn(shape, generator=generator, device=generator.device, dtype=dtype).to(device)
+
+
 class DiagNormal(NamedTuple):
     loc: torch.Tensor
     scale: torch.Tensor
 
     def rsample(self, generator: Optional[torch.Generator] = None,
                 eps: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Reparameterised sample ``loc + scale * eps``. ``eps`` defaults to
-        standard normal noise from ``generator``; a caller may pass its own
-        (the parity tests pass the JAX package's noise)."""
+        """Reparameterised sample ``loc + scale * eps`` (pathwise gradients
+        reach loc and scale). ``eps`` defaults to standard normal noise
+        from ``generator``; a caller may pass its own (the parity tests
+        pass the JAX package's noise)."""
         if eps is None:
-            eps = torch.randn(self.loc.shape, generator=generator,
-                              device=self.loc.device, dtype=self.loc.dtype)
+            eps = draw(torch.randn, self.loc.shape, generator, self.loc.device, self.loc.dtype)
         return self.loc + self.scale * eps.to(self.loc.dtype)
+
+    def sample(self, generator: Optional[torch.Generator] = None,
+               eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """:meth:`rsample` without gradients."""
+        return self.rsample(generator, eps).detach()
+
+
+def kl_diag_normal_vs_standard(dist: DiagNormal) -> torch.Tensor:
+    """KL(N(loc, scale^2) || N(0, 1)), elementwise, in the tensors' dtype."""
+    var = dist.scale ** 2
+    return 0.5 * (var + dist.loc ** 2 - 1.0) - torch.log(dist.scale)
 
 
 def _u64(c: int) -> int:

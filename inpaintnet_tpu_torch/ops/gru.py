@@ -12,15 +12,24 @@ sequence ends on the hidden of its last valid step, and an all-zero mask
 sequences cannot express either (they emit zeros at pad steps and take no
 all-empty sequence), so this is a loop, not ``nn.GRU``.
 
-This is inference only: no dropout, no training route.
+Training (``train=True``): an unmasked layer runs through the
+minimal-residual autograd Function of ``ops/gru_trainfast.py`` (K5 and K6
+on the card), as the JAX package's trainers scope every mask-free layer
+through ``gru_layer_trainfast`` (``inpaintnet_tpu/ops/gru.py:151-160``); a
+masked layer keeps the eager loop, which autograd differentiates. Between
+layers, ``dropout`` drops each output of every non-last layer with a keep
+mask drawn from an explicit ``torch.Generator`` (or given as
+``dropout_masks``), and scales the kept ones by ``1 / (1 - p)``
+(``gru.py:411-421``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from inpaintnet_tpu_torch.ops.distributions import draw
 from inpaintnet_tpu_torch.ops.linear import xavier_normal
 
 
@@ -57,14 +66,21 @@ def gru_gates(params, h: torch.Tensor, xw: torch.Tensor) -> torch.Tensor:
 
 
 def gru_layer_apply(params, x: torch.Tensor, h0: torch.Tensor, *, reverse: bool = False,
-                    mask: Optional[torch.Tensor] = None, want_ys: bool = True):
+                    mask: Optional[torch.Tensor] = None, want_ys: bool = True,
+                    train: bool = False):
     """Single-direction GRU over a sequence.
 
     :param x: (B, T, in); h0: (B, H)
     :param reverse: run t = T-1 .. 0 (outputs stay in original order)
     :param mask: optional (B, T); steps with mask == 0 keep h
+    :param train: an unmasked layer runs the trainfast autograd Function
     :return: (outputs (B, T, H) or None, h_last (B, H))
     """
+    if train and mask is None:
+        from inpaintnet_tpu_torch.ops.gru_trainfast import gru_layer_trainfast
+
+        ys, h_last = gru_layer_trainfast(params, x, h0, reverse=reverse)
+        return (ys if want_ys else None), h_last
     seq_len = x.shape[1]
     xw = x @ params["w_ih"] + params["b_ih"]  # one product for all T
     keep = None if mask is None else (mask > 0)[..., None]
@@ -79,8 +95,23 @@ def gru_layer_apply(params, x: torch.Tensor, h0: torch.Tensor, *, reverse: bool 
     return torch.stack(ys, dim=1), h
 
 
+def dropout_keep(shape, rate: float, generator: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """A bool keep mask, each element True with probability ``1 - rate``
+    (``jax.random.bernoulli``'s ``uniform < p``)."""
+    return draw(torch.rand, shape, generator, device) < (1.0 - rate)
+
+
+def apply_dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """``where(keep, x / (1 - rate), 0)``."""
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def gru_apply(params, x: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
-              mask: Optional[torch.Tensor] = None, last_outputs: bool = True):
+              mask: Optional[torch.Tensor] = None, last_outputs: bool = True,
+              dropout: float = 0.0, train: bool = False,
+              dropout_masks: Optional[Sequence[torch.Tensor]] = None,
+              generator: Optional[torch.Generator] = None):
     """Multi-layer (bi)GRU over a sequence.
 
     :param params: nested list from ``gru_init`` (as tensors)
@@ -89,6 +120,12 @@ def gru_apply(params, x: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
     :param mask: optional (B, T) validity mask
     :param last_outputs: False skips the last layer's per-step outputs
         (callers that read only ``h_n``); ``outputs`` is then None
+    :param dropout: inter-layer dropout probability, applied in training
+        only to every layer's output but the last
+    :param train: the training route (see the module docstring)
+    :param dropout_masks: optional bool keep masks, (B, T, H * num_dirs),
+        one per non-last layer, used instead of drawing from ``generator``
+    :param generator: draws the keep masks
     :return: (outputs (B, T, H * num_dirs) or None, h_n (L * D, B, H))
     """
     num_layers, num_dirs = len(params), len(params[0])
@@ -102,8 +139,13 @@ def gru_apply(params, x: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
         outs = []
         for d in range(num_dirs):
             o, h_last = gru_layer_apply(params[layer][d], out, h0[layer * num_dirs + d],
-                                        reverse=(d == 1), mask=mask, want_ys=want_ys)
+                                        reverse=(d == 1), mask=mask, want_ys=want_ys,
+                                        train=train)
             outs.append(o)
             h_n.append(h_last)
         out = torch.cat(outs, dim=-1) if want_ys else None
+        if train and dropout > 0.0 and layer < num_layers - 1:
+            keep = (dropout_masks[layer] if dropout_masks is not None
+                    else dropout_keep(out.shape, dropout, generator, out.device))
+            out = apply_dropout(out, keep, dropout)
     return out, torch.stack(h_n, dim=0)

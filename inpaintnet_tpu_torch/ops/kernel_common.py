@@ -53,10 +53,10 @@ def gru_gates_f32(xw, hw, h_prev, hidden: int):
 
 
 def kernel_supports_hidden(hidden: int) -> bool:
-    """Hidden widths the GRU kernels take, bf16/f32 (K1, K2) and int8 (K3,
-    K4) alike: whole 64-unit chunks (so every product depth is a multiple
-    of the int8 ``mma`` depth of 32, and the bf16 one of 16), and a row tile
-    that fits one block's shared memory (up to the flagship's 512)."""
+    """Hidden widths the GRU kernels take, bf16/f32 (K1, K2, K5, K6) and
+    int8 (K3, K4) alike: whole 64-unit chunks (so every product depth is a
+    multiple of the int8 ``mma`` depth of 32, and the bf16 one of 16), and a
+    row tile that fits one block's shared memory (up to the flagship's 512)."""
     return hidden % 64 == 0 and hidden <= 512
 
 
@@ -133,6 +133,10 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_encoder_hn_int8.restype = i32
     lib.inpaint_decode_sampling_int8.argtypes = [i32] + [ptr] * 16 + [i32] * 4 + [ptr]
     lib.inpaint_decode_sampling_int8.restype = i32
+    lib.inpaint_gru_fwd_seq.argtypes = [i32] + [ptr] * 5 + [i32] * 4 + [ptr]
+    lib.inpaint_gru_fwd_seq.restype = i32
+    lib.inpaint_gru_bwd_seq.argtypes = [i32] + [ptr] * 10 + [i32] * 4 + [ptr]
+    lib.inpaint_gru_bwd_seq.restype = i32
     return lib
 
 

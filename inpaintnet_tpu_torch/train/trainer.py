@@ -1,0 +1,196 @@
+"""The trainer base class on one device (``inpaintnet_tpu/train/trainer.py``).
+
+``Trainer(dataset, model, lr, early_stopping)`` and ``train_model(batch_size,
+num_epochs, split, run_name)``: per-epoch train and validation passes, a
+JSONL metrics log, a model save every epoch, a numbered checkpoint every
+10 epochs, optional early stopping, and ``save_state``/``load_state`` of
+parameters, Adam moments and the epoch count for a true resume.
+
+Subclasses implement ``process_batch_data`` (a loader batch -> device
+tensors) and ``loss_and_metrics(params, batch_data, train, **inject)`` ->
+(scalar loss, {"accuracy": scalar}). The trainer holds f32 master
+parameters in the JAX package's nested (in, out) layout and a
+``torch.optim.Adam`` over them with optax's defaults (b1 0.9, b2 0.999,
+eps 1e-8). With ``compute_dtype="bfloat16"`` the parameters are cast inside
+the loss (activations follow); masters and Adam state stay f32.
+
+Randomness is explicit: ``generator``, a seeded ``torch.Generator`` on the
+trainer's device, draws dropout masks and rsample noise; ``coin_generator``,
+a seeded CPU generator, draws the per-batch teacher-forcing coin on the
+host. The mesh, ``shard_map`` and multi-host paths of the JAX trainer are
+not ported.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from abc import ABC, abstractmethod
+from typing import Optional
+
+import numpy as np
+import torch
+
+from inpaintnet_tpu_torch.models.base import cast_params, iter_leaves
+from inpaintnet_tpu_torch.train.checkpoints import load_train_state, save_train_state
+
+
+class EarlyStopping:
+    """Patience-5 early stopping (reference utils/trainer.py:379-413),
+    including its detail that an improvement below 1e-5 still counts
+    toward the patience."""
+
+    def __init__(self, patience: int = 5):
+        self.patience = patience
+        self.counter = 0
+        self.best_score = None
+        self.early_stop = False
+        self.val_loss_min = np.inf
+
+    def __call__(self, val_loss: float) -> None:
+        score = -val_loss
+        if self.best_score is None:
+            self.best_score = score
+        elif score <= self.best_score or score - self.best_score < 1e-5:
+            self.counter += 1
+            if self.counter >= self.patience:
+                self.early_stop = True
+        else:
+            self.best_score = score
+            self.val_loss_min = val_loss
+            self.counter = 0
+
+
+def trainable_copy(tree, device: torch.device):
+    """f32 copies of nested parameters on ``device`` that require grad."""
+    if isinstance(tree, dict):
+        return {k: trainable_copy(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [trainable_copy(v, device) for v in tree]
+    t = torch.as_tensor(tree).detach().to(device=device, dtype=torch.float32, copy=True)
+    return t.contiguous().requires_grad_(True)
+
+
+class Trainer(ABC):
+    def __init__(self, dataset, model, lr: float = 1e-4, early_stopping: bool = False,
+                 seed: int = 0, compute_dtype: Optional[str] = None, device="cuda"):
+        self.dataset = dataset
+        self.model = model
+        self.lr = lr
+        self.seed = seed
+        self.device = torch.device(device)
+        if compute_dtype not in (None, "bfloat16"):
+            raise ValueError(f"compute_dtype {compute_dtype!r}: None (f32) or 'bfloat16'")
+        self.compute_dtype = compute_dtype
+        self.params = trainable_copy(model.params(), self.device)
+        self.optimizer = torch.optim.Adam([p for _, p in iter_leaves(self.params)], lr=lr,
+                                          betas=(0.9, 0.999), eps=1e-8)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.coin_generator = torch.Generator().manual_seed(seed)
+        self.early_stopper = EarlyStopping() if early_stopping else None
+        self.epoch = 0  # completed epochs
+
+    # --- subclass surface -------------------------------------------------- #
+    @abstractmethod
+    def process_batch_data(self, batch):
+        """A loader batch -> the tensors ``loss_and_metrics`` takes."""
+
+    @abstractmethod
+    def loss_and_metrics(self, params, batch_data, train: bool, **inject):
+        """(scalar loss, {"accuracy": scalar})."""
+
+    # --- steps ------------------------------------------------------------- #
+    def compute_params(self):
+        """The parameters the loss sees: the masters, or their cast to the
+        compute dtype (differentiable, so gradients reach the masters)."""
+        if self.compute_dtype is None:
+            return self.params
+        return cast_params(self.params, self.device, getattr(torch, self.compute_dtype))
+
+    def train_step(self, batch_data, **inject):
+        """One Adam step; -> (loss, metrics) as device tensors."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = self.loss_and_metrics(self.compute_params(), batch_data, True, **inject)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach(), metrics
+
+    def eval_step(self, batch_data, **inject):
+        with torch.no_grad():
+            return self.loss_and_metrics(self.compute_params(), batch_data, False, **inject)
+
+    # --- epoch machinery ---------------------------------------------------- #
+    def loss_and_acc_on_epoch(self, data_loader, train: bool = True):
+        """Mean loss and accuracy over the loader's batches (reference
+        trainer.py:126-163); one device sync, at the end."""
+        losses, accs = [], []
+        step = self.train_step if train else self.eval_step
+        for batch in data_loader:
+            loss, metrics = step(self.process_batch_data(batch))
+            losses.append(loss)
+            accs.append(metrics["accuracy"])
+        if not losses:
+            return 0.0, 0.0
+        return torch.stack(losses).mean().item(), torch.stack(accs).mean().item()
+
+    def train_model(self, batch_size: int, num_epochs: int, split=(0.70, 0.20),
+                    run_name: Optional[str] = None, log: bool = False) -> None:
+        """``num_epochs`` more epochs, numbered on from ``self.epoch``. With
+        ``log`` or ``run_name``, each epoch's stats append to
+        ``runs/<run_name>.jsonl``."""
+        metrics_path = None
+        if log or run_name is not None:
+            os.makedirs("runs", exist_ok=True)
+            run_name = run_name or f"{type(self.model).__name__}_{int(time.time())}"
+            metrics_path = os.path.join("runs", run_name + ".jsonl")
+        train_loader, val_loader, _ = self.dataset.data_loaders(
+            batch_size=batch_size, split=split, seed=self.seed)
+        print("Num Train Batches: ", len(train_loader))
+        print("Num Valid Batches: ", len(val_loader))
+        start = self.epoch
+        for epoch_index in range(start, start + num_epochs):
+            t0 = time.time()
+            loss_train, acc_train = self.loss_and_acc_on_epoch(train_loader, train=True)
+            loss_val, acc_val = self.loss_and_acc_on_epoch(val_loader, train=False)
+            self.epoch = epoch_index + 1
+            stats = {"epoch_index": epoch_index, "num_epochs": start + num_epochs,
+                     "mean_loss_train": loss_train, "mean_accuracy_train": acc_train,
+                     "mean_loss_val": loss_val, "mean_accuracy_val": acc_val,
+                     "epoch_seconds": time.time() - t0}
+            if metrics_path:
+                with open(metrics_path, "a") as f:
+                    f.write(json.dumps(stats) + "\n")
+            self.print_epoch_stats(**stats)
+            self.model.set_params(self.params)
+            self.model.save()
+            self.save_state()
+            if epoch_index > 0 and epoch_index % 10 == 0:
+                self.model.save_checkpoint(epoch_index)
+            if self.early_stopper is not None:
+                self.early_stopper(loss_val)
+                if self.early_stopper.early_stop:
+                    print("Early Stopping")
+                    return
+
+    # --- persistence --------------------------------------------------------- #
+    @property
+    def state_path(self) -> str:
+        return self.model.filepath + ".train_state"
+
+    def save_state(self) -> None:
+        save_train_state(self.state_path, self.params, self.optimizer, self.epoch)
+
+    def load_state(self) -> int:
+        """Restore parameters, Adam state and the epoch count; the model
+        takes the parameters too. -> the epoch count."""
+        self.epoch = load_train_state(self.state_path, self.params, self.optimizer)
+        self.model.set_params(self.params)
+        return self.epoch
+
+    @staticmethod
+    def print_epoch_stats(epoch_index, num_epochs, mean_loss_train, mean_accuracy_train,
+                          mean_loss_val, mean_accuracy_val, epoch_seconds=None, **_):
+        extra = f"\t({epoch_seconds:.1f}s)" if epoch_seconds is not None else ""
+        print(f"Train Epoch: {epoch_index + 1}/{num_epochs}{extra}")
+        print(f"\tTrain Loss: {mean_loss_train}\tTrain Accuracy: {mean_accuracy_train * 100} %")
+        print(f"\tValid Loss: {mean_loss_val}\tValid Accuracy: {mean_accuracy_val * 100} %")

@@ -1,0 +1,44 @@
+"""MeasureVAE trainer (``inpaintnet_tpu/train/vae_trainer.py``).
+
+ELBO = token cross-entropy + beta * KLD with a fixed beta of 0.001, the KLD
+in f32 whatever the compute dtype, summed over z and averaged over rows.
+Every GRU of the training forward runs the trainfast route (K5 and K6 on
+the card); evaluation runs the serving routes (K1 and K2 where the
+geometry takes them).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from inpaintnet_tpu_torch.ops.distributions import DiagNormal, kl_diag_normal_vs_standard
+from inpaintnet_tpu_torch.train.metrics import mean_accuracy, mean_crossentropy_loss
+from inpaintnet_tpu_torch.train.trainer import Trainer
+
+
+class VAETrainer(Trainer):
+    def __init__(self, dataset, model, lr: float = 1e-4, beta: float = 0.001, **kw):
+        self.beta = beta
+        super().__init__(dataset, model, lr, **kw)
+
+    def process_batch_data(self, batch) -> torch.Tensor:
+        """(B, 1, n_bars * 24) windows -> (B * n_bars, 24) int32 measures on
+        the trainer's device."""
+        score = np.asarray(batch[0])
+        score = score.reshape(score.shape[0] * self.dataset.n_bars, -1).astype(np.int32)
+        return torch.from_numpy(score).to(self.device)
+
+    def loss_and_metrics(self, params, batch_data: torch.Tensor, train: bool,
+                         eps: Optional[torch.Tensor] = None, coin: Optional[bool] = None):
+        """:param eps: optional rsample noise; :param coin: optional
+        teacher-forcing coin (a test injects the JAX package's)."""
+        weights, _, z_dist, _, _, _ = self.model.apply(
+            params, batch_data, train=train, generator=self.generator,
+            coin_generator=self.coin_generator, eps=eps, coin=coin)
+        recons = mean_crossentropy_loss(weights, batch_data)
+        kld = kl_diag_normal_vs_standard(
+            DiagNormal(z_dist.loc.float(), z_dist.scale.float())).sum(dim=1)
+        loss = recons + self.beta * kld.mean()
+        return loss, {"accuracy": mean_accuracy(weights, batch_data)}

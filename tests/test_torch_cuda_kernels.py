@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from inpaintnet_tpu_torch.ops import decode_kernel, encoder_kernel
+from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
 from inpaintnet_tpu_torch.ops.gru import gru_init
+from inpaintnet_tpu_torch.ops.gru_trainfast import gru_layer_trainfast
 from inpaintnet_tpu_torch.ops.linear import embedding_init, linear_init
 from inpaintnet_tpu_torch.ops.quantize import dequantize_h
 
@@ -188,3 +190,118 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         encoder_kernel.encoder_hn_int8(gru, table, tokens)
     with pytest.raises(ValueError, match="hidden size"):
         encoder_kernel.encoder_hn_int8(odd, table, tokens.int())
+
+
+# K5/K6 vs their plain versions on the card, as the (max, mean) over the
+# outputs of |kernel - plain| / (1 + |plain|): absolute below 1, relative
+# above, as the products' sums grow with H. f32: both accumulate in true f32
+# and differ in summation order only (seen at H 128: 1.3e-6 and 6e-7).
+# bf16: the outputs are stored in bf16, so an f32 last bit may flip one
+# output's rounding (one ulp, 3.9e-3 of the value), and such flips are rare
+# (the mean bound, as chip_smoke.py's: a flip in K5's bf16 copy of the
+# carry cascades along its row). A K5 carry rounded to bf16, or a K6
+# product on dhw rounded to bf16, moves the mean by 1e-4 or more.
+TRAIN_BOUNDS = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 5e-5)}
+
+
+def _train_case(rng, batch, hidden, seq_len, dtype, device):
+    fwd = [(0.3 * rng.standard_normal((hidden, 3 * hidden))),
+           (0.1 * rng.standard_normal(3 * hidden)),
+           rng.standard_normal((batch, seq_len, 3 * hidden)),
+           (0.5 * rng.standard_normal((batch, hidden)))]
+    dys = rng.standard_normal((seq_len, batch, hidden))
+    hprev = 0.5 * rng.standard_normal((seq_len, batch, hidden))
+    return ([torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=dtype) for a in fwd],
+            *(torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=dtype)
+              for a in (dys, hprev)))
+
+
+def _errs(a, b):
+    d = [(x.float() - y.float()).abs() / (1.0 + y.float().abs()) for x, y in zip(a, b)]
+    return max(x.max().item() for x in d), max(x.mean().item() for x in d)
+
+
+def _run_train_kernels(fwd, dys, hprev, reverse, kernel: bool):
+    f = gk.gru_fwd_seq if kernel else gk.gru_fwd_seq_reference
+    b = gk.gru_bwd_seq if kernel else gk.gru_bwd_seq_reference
+    out = f(*fwd, reverse=reverse)
+    return out, b(fwd[0], dys, *out[1:], hprev, reverse=reverse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,hidden,seq_len,reverse",
+                         [(37, 64, 24, False), (37, 64, 24, True), (5, 128, 6, False)])
+def test_train_kernels_match_plain(cuda, dtype, batch, hidden, seq_len, reverse):
+    fwd, dys, hprev = _train_case(np.random.default_rng(batch + hidden), batch, hidden,
+                                  seq_len, dtype, cuda)
+    before = (gk.gru_fwd_seq.launches, gk.gru_bwd_seq.launches)
+    out_k, grads_k = _run_train_kernels(fwd, dys, hprev, reverse, kernel=True)
+    out_p, grads_p = _run_train_kernels(fwd, dys, hprev, reverse, kernel=False)
+    torch.cuda.synchronize()
+    assert (gk.gru_fwd_seq.launches, gk.gru_bwd_seq.launches) == (before[0] + 1, before[1] + 1)
+    assert all(o.shape == (seq_len, batch, hidden) and o.dtype == dtype for o in out_k)
+    assert grads_k[0].shape == (seq_len, batch, 3 * hidden) and grads_k[2].shape == (batch, hidden)
+    max_b, mean_b = TRAIN_BOUNDS[dtype]
+    for got, want in ((out_k, out_p), (grads_k, grads_p)):
+        err_max, err_mean = _errs(got, want)
+        assert err_max <= max_b and err_mean <= mean_b, (err_max, err_mean)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_kernel_bounds_reject_planted_faults(cuda, monkeypatch, dtype):
+    fwd, dys, hprev = _train_case(np.random.default_rng(0), 37, 64, 24, dtype, cuda)
+    out_k, grads_k = _run_train_kernels(fwd, dys, hprev, False, kernel=True)
+    monkeypatch.setattr(gk, "fwd_carry", lambda h: h.to(torch.bfloat16).float())
+    out_p = gk.gru_fwd_seq_reference(*fwd)
+    monkeypatch.undo()
+    monkeypatch.setattr(gk, "bwd_product", lambda d, w_t: d.to(torch.bfloat16).float() @ w_t)
+    grads_p = gk.gru_bwd_seq_reference(fwd[0], dys, *out_k[1:], hprev)
+    torch.cuda.synchronize()
+    max_b, mean_b = TRAIN_BOUNDS[dtype]
+    for got, want in ((out_k, out_p), (grads_k, grads_p)):
+        err_max, err_mean = _errs(got, want)
+        assert err_max > max_b or err_mean > mean_b, (err_max, err_mean)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_trainfast_function_on_card_matches_cpu(cuda, reverse):
+    """The autograd Function in f32: K5 and K6 on the card against the plain
+    versions on the CPU, values and every gradient (the batched gradient
+    products run on each device: 1e-4 allows their summation orders over
+    the 24 x 37 rows)."""
+    rng = np.random.default_rng(5)
+    p = {k: v + 0.1 * rng.standard_normal(v.shape).astype(np.float32)
+         for k, v in gru_init(rng, 20, 64, 1)[0][0].items()}
+    x = rng.standard_normal((37, 24, 20)).astype(np.float32)
+    h0 = (0.5 * rng.standard_normal((37, 64))).astype(np.float32)
+    wy = rng.standard_normal((37, 24, 64)).astype(np.float32)
+
+    def run(device):
+        tp = {k: torch.from_numpy(v).to(device).requires_grad_() for k, v in p.items()}
+        tx, th0 = (torch.from_numpy(a).to(device).requires_grad_() for a in (x, h0))
+        ys, h_last = gru_layer_trainfast(tp, tx, th0, reverse=reverse)
+        loss = (ys * torch.from_numpy(wy).to(device)).sum() + h_last.sum()
+        loss.backward()
+        return [loss.detach()] + [tp[k].grad for k in sorted(tp)] + [tx.grad, th0.grad]
+
+    before = (gk.gru_fwd_seq.launches, gk.gru_bwd_seq.launches)
+    card = run(cuda)
+    torch.cuda.synchronize()
+    assert (gk.gru_fwd_seq.launches, gk.gru_bwd_seq.launches) == (before[0] + 1, before[1] + 1)
+    for got, want in zip(card, run("cpu")):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
+
+
+def test_train_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    fwd, dys, hprev = _train_case(np.random.default_rng(0), 8, 64, 4, torch.float32, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        gk.gru_fwd_seq(*(t.half() for t in fwd))
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.gru_fwd_seq(fwd[0], fwd[1], fwd[2].transpose(0, 1).contiguous().transpose(0, 1),
+                       fwd[3])
+    odd, _, _ = _train_case(np.random.default_rng(0), 8, 48, 4, torch.float32, cuda)
+    with pytest.raises(ValueError, match="hidden size"):
+        gk.gru_fwd_seq(*odd)
+    out = gk.gru_fwd_seq(*fwd)
+    with pytest.raises(ValueError, match="shape"):
+        gk.gru_bwd_seq(fwd[0], dys[:, :4].contiguous(), *out[1:], hprev)

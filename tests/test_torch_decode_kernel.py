@@ -12,6 +12,8 @@ from inpaintnet_tpu.ops.decode_pallas import decode_sampling_pallas
 from inpaintnet_tpu.ops.linear import linear_apply
 from inpaintnet_tpu_torch.ops import decode_kernel
 
+from test_torch_quantize import _one_torch_thread  # noqa: F401  (autouse fixture)
+
 ATOL = 1e-5  # f32 on both sides; only summation order differs
 
 

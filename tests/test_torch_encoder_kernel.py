@@ -13,6 +13,8 @@ from inpaintnet_tpu_torch.ops import encoder_kernel
 from inpaintnet_tpu_torch.ops.gru import gru_init
 from inpaintnet_tpu_torch.ops.linear import embedding_init
 
+from test_torch_quantize import _one_torch_thread  # noqa: F401  (autouse fixture)
+
 ATOL_F32 = 1e-5  # f32 on both sides; only summation order differs
 # bf16: both round the carry and the layer-0 outputs to bf16 every step;
 # a summation-order difference can flip one rounding, a bf16 ulp (up to

@@ -15,6 +15,8 @@ from inpaintnet_tpu.models.measure_vae import MeasureVAE as JaxMeasureVAE
 from inpaintnet_tpu.models.presets import VocabOnlyDataset as JaxVocabOnlyDataset
 from inpaintnet_tpu_torch.models.presets import VocabOnlyDataset, build_latent_rnn
 
+from test_torch_quantize import _one_torch_thread  # noqa: F401  (autouse fixture)
+
 ATOL = 1e-4  # f32 end to end: loops of matmuls in another summation order
 VOCAB, EMB, Z = 30, 8, 12
 
@@ -41,7 +43,7 @@ def _jax_models(hidden, seed=0):
 def _port(jvae, jmodel, hidden):
     vae, model = build_latent_rnn(VocabOnlyDataset(VOCAB), emb=EMB, hidden=hidden, z_dim=Z,
                                   layers=2, vae_params_np=jvae.params,
-                                  latent_params_np=jmodel.params)
+                                  latent_params_np=jmodel.params, device="cpu")
     return vae, model
 
 

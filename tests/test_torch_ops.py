@@ -13,6 +13,8 @@ from inpaintnet_tpu_torch.ops import linear as tlinear
 from inpaintnet_tpu_torch.ops.distributions import DiagNormal
 from inpaintnet_tpu_torch.ops.sampling import sample_argmax
 
+from test_torch_quantize import _one_torch_thread  # noqa: F401  (autouse fixture)
+
 ATOL = 1e-5  # f32 on both sides; only summation order differs
 
 

@@ -19,6 +19,8 @@ from inpaintnet_tpu_torch.models.convert import from_jax_params, to_functional
 from inpaintnet_tpu_torch.models.presets import VocabOnlyDataset, build_flagship, build_latent_rnn
 from inpaintnet_tpu_torch.serve import InpaintingEngine, chunk_seed, pick_bucket
 
+from test_torch_quantize import _one_torch_thread  # noqa: F401  (autouse fixture)
+
 REPO = Path(__file__).resolve().parents[1]
 VOCAB = 30
 
@@ -36,7 +38,7 @@ def jax_models():
 
 @pytest.fixture(scope="module")
 def port_model():
-    return build_flagship(vocab_size=VOCAB, hidden=16, z_dim=8, emb=6, seed=0)[2]
+    return build_flagship(vocab_size=VOCAB, hidden=16, z_dim=8, emb=6, seed=0, device="cpu")[2]
 
 
 def test_from_jax_params_matches_export_layout(jax_models):
@@ -47,7 +49,8 @@ def test_from_jax_params_matches_export_layout(jax_models):
     for k, v in ref.items():
         np.testing.assert_array_equal(sd[k].numpy(), v, err_msg=k)
     _, model = build_latent_rnn(VocabOnlyDataset(VOCAB), emb=8, hidden=16, z_dim=12, layers=2,
-                                vae_params_np=jvae.params, latent_params_np=jmodel.params)
+                                vae_params_np=jvae.params, latent_params_np=jmodel.params,
+                                device="cpu")
     assert set(model.state_dict()) == set(ref)
 
 
@@ -55,7 +58,8 @@ def test_loads_are_strict(jax_models, port_model):
     jvae, jmodel = jax_models
     sd = from_jax_params(jvae.params, jmodel.params)
     _, model = build_latent_rnn(VocabOnlyDataset(VOCAB), emb=8, hidden=16, z_dim=12, layers=2,
-                                vae_params_np=jvae.params, latent_params_np=jmodel.params)
+                                vae_params_np=jvae.params, latent_params_np=jmodel.params,
+                                device="cpu")
     missing = dict(sd)
     missing.pop("vae_model.decoder.x_0")
     with pytest.raises(RuntimeError, match="Missing key"):
@@ -159,7 +163,7 @@ def test_port_never_imports_jax():
         from inpaintnet_tpu_torch.models.presets import build_flagship
         from inpaintnet_tpu_torch.serve import InpaintingEngine
         from inpaintnet_tpu_torch.ops import encoder_kernel, decode_kernel
-        model = build_flagship(hidden=64, z_dim=8, seed=0)[2]
+        model = build_flagship(hidden=64, z_dim=8, seed=0, device="cpu")[2]
         tokens = np.zeros((2, 16, 24), np.int32)
         InpaintingEngine(model, batch_buckets=(2,), dtype="float32").inpaint(tokens, 6, 4)
         int8 = InpaintingEngine(model, batch_buckets=(2,), dtype="int8")
@@ -176,3 +180,61 @@ def test_port_never_imports_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+@pytest.mark.parametrize("entry", ["build_flagship", "build_latent_rnn", "MeasureVAE",
+                                   "Trainer", "InpaintingEngine"])
+def test_entry_points_default_to_the_card(entry):
+    """Entry points run on the card unless the caller asks for the CPU; the
+    engine follows its model's device."""
+    import inspect
+
+    from inpaintnet_tpu_torch.models.measure_vae import MeasureVAE
+    from inpaintnet_tpu_torch.train.trainer import Trainer
+
+    fn = {"build_flagship": build_flagship, "build_latent_rnn": build_latent_rnn,
+          "MeasureVAE": MeasureVAE, "Trainer": Trainer, "InpaintingEngine": InpaintingEngine}[entry]
+    default = inspect.signature(fn).parameters["device"].default
+    assert default == (None if entry == "InpaintingEngine" else "cuda")
+
+
+def _forbidden_imports(path: Path):
+    """(line, module) of every ``import``/``from`` in ``path`` naming ``jax``
+    or the JAX package ``inpaintnet_tpu`` (the exact name or a submodule;
+    ``inpaintnet_tpu_torch`` is the port and passes)."""
+    import ast
+
+    def bad(name):
+        return any(name == root or name.startswith(root + ".")
+                   for root in ("jax", "inpaintnet_tpu"))
+
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            found += [(node.lineno, a.name) for a in node.names if bad(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and bad(node.module or ""):
+            found.append((node.lineno, node.module))
+    return found
+
+
+def test_port_sources_import_no_jax():
+    """Every module of the port and ``chip_smoke.py``, parsed: no import of
+    ``jax`` or ``inpaintnet_tpu``, wherever it stands (a function body
+    included, which the fresh-interpreter test above cannot reach)."""
+    files = sorted((REPO / "inpaintnet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = {str(f.relative_to(REPO)): hits for f in files if (hits := _forbidden_imports(f))}
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("source,caught", [
+    ("import jax", True), ("import jax.numpy as jnp", True), ("from jax import lax", True),
+    ("import inpaintnet_tpu", True), ("from inpaintnet_tpu.server import X", True),
+    ("def f():\n    from inpaintnet_tpu import ops", True),
+    ("import inpaintnet_tpu_torch.ops", False), ("from inpaintnet_tpu_torch import serve", False),
+    ("import jaxlib_like", False), ("from . import gru", False),
+])
+def test_import_guard_catches_planted_imports(tmp_path, source, caught):
+    f = tmp_path / "m.py"
+    f.write_text(source + "\n")
+    assert bool(_forbidden_imports(f)) == caught

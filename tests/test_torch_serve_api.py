@@ -1,8 +1,8 @@
 """The port engine's serving API beyond ``inpaint`` (``inpaint_hetero``,
 ``inpaint_variations``, ``interpolate``, ``inpaint_ticks``, ``warmup``) in
 f32, bf16 and int8, the way ``tests/test_serve_batching.py`` checks the JAX
-engine, and the JAX package's numpy-only ``InpaintingServer`` and
-``InpaintingClient`` in front of the port's engine on localhost.
+engine, and the port's own ``InpaintingServer`` with the JAX package's
+numpy-only ``InpaintingClient`` in front of the port's engine on localhost.
 
 hidden 64 puts every dtype on the kernel route (the plain versions on the
 CPU), so int8 runs K3's and K4's numerics."""
@@ -13,10 +13,10 @@ import pytest
 import torch
 
 from inpaintnet_tpu.client import InpaintingClient, ServerError
-from inpaintnet_tpu.server import InpaintingServer
 from inpaintnet_tpu_torch.models import measure_vae
 from inpaintnet_tpu_torch.models.presets import build_flagship
 from inpaintnet_tpu_torch.serve import InpaintingEngine
+from inpaintnet_tpu_torch.server import InpaintingServer
 
 from test_torch_quantize import _one_torch_thread  # noqa: F401  (autouse fixture)
 
@@ -26,7 +26,7 @@ DTYPES = ["float32", "bfloat16", "int8"]
 
 @pytest.fixture(scope="module")
 def model():
-    return build_flagship(vocab_size=V, hidden=64, z_dim=8, emb=6, seed=0)[2]
+    return build_flagship(vocab_size=V, hidden=64, z_dim=8, emb=6, seed=0, device="cpu")[2]
 
 
 @pytest.fixture(scope="module")
