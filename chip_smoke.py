@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training main paths once on one
-NVIDIA GPU.
+"""Drive the PyTorch port's serving, training and AnticipationRNN paths
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -49,9 +49,20 @@ Phases, each raising on failure:
    of each branch by kernel, with the device's idle share;
 11. times: measures/s at batch 2048 (6 past / 4 target / 6 future) and the
    p50/p90 of a batch-1 request for each engine, and each kernel beside its
-   plain version and its bound.
+   plain version and its bound;
+12. the AnticipationRNN (flagship: 2 x 256 LSTMs, random weights from seed
+   0): K7 ``arnn_sampled_decode`` against its plain version at the engine's
+   batch-512 x 384-tick shapes in f32 and bf16, with two planted faults (a
+   c carry kept in f32 in bf16, a force mask read one tick late) that the
+   bounds must reject; the ARNN path on the card against the CPU (f32, H
+   64); the bf16 ``ARNNServingEngine`` serving batch 512 x 16 bars with a
+   4-measure span and a batch-1 request (K7 must launch), its
+   span-measures/s, batch-1 p50/p90 and a profile of each; and
+   ``/v1/arnn/inpaint`` through the HTTP server, argmax and sampled clients
+   equal to the solo ``inpaint_hetero`` at bucket 64.
 
-Prints one JSON line of kernels, the card's name and power limit, and as
+Phase 12 runs after phase 8, before the training phases. Prints one JSON
+line of the seven kernels, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
 result, when there is no usable card or any phase fails.
 """
@@ -861,6 +872,281 @@ def phase_http(engine, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The AnticipationRNN path: K7
+# ---------------------------------------------------------------------------
+ARNN_BATCH, ARNN_BARS, ARNN_SPAN, ARNN_START = 512, 16, 4, 6
+ARNN_BUCKETS = (1, 8, 64, 512)
+# K7 against its plain version on the card at the engine's batch-512 shapes
+# (384 ticks), as ``arnn_kernel.decode_agreement`` measures it: tokens equal
+# on a share of all ticks (a sampled tick may flip on an argmax near-tie, and
+# its row then decodes its own way), the max and the mean of the logits'
+# differences up to each row's first mismatch, that mismatch a near-tie
+# within the max, and never at a forced tick. The planted faults (a c carry
+# kept in f32 in bf16; a force mask read one tick late) must each break them.
+# Seen on an NVIDIA H100 80GB HBM3 (700 W), random flagship weights (their
+# logits are near-flat: std 2.7e-3): f32 tokens 1.0, logits max 1.1e-8, mean
+# 6.6e-10; bf16 tokens 0.99937, max 6.7e-5, mean 3.9e-6, tie gap 3.1e-5, 3.2%
+# of the first 8 ticks' logits changed. The faults: the late force mask
+# leaves 97.3% of the tokens equal, but 9 rows first differ at a forced tick
+# and the tie gap is 1.4e-2; the c carry in f32 changes 52% of the early
+# logits (its max and mean are those of the legitimate rounding flips,
+# which cascade over 384 ticks).
+ARNN_BOUNDS = {torch.float32: {"tokens": 0.999, "max": 1e-6, "mean": 1e-7},
+               torch.bfloat16: {"tokens": 0.995, "max": 2e-3, "mean": 1e-4, "early": 0.15}}
+# The ARNN path on the card against the CPU, f32, H 64 (K7 against its plain
+# version, the eager constraint LSTM on both): logits where the tokens agree.
+ARNN_REF = {"tokens": 0.99, "logits": 1e-4}
+
+
+def arnn_ops(rows: int, ticks: int, hidden: int, ctx: int, linear: int, vocab: int) -> float:
+    """Multiply-adds x 2 of K7 per call: per row and tick, layer 0's (C, 4H)
+    context and (H, 4H) recurrent products, layer 1's two (H, 4H) products,
+    and the head's (H, L) and (L, V) products."""
+    return 2.0 * rows * ticks * (4 * hidden * (ctx + 3 * hidden) + hidden * linear
+                                 + linear * vocab)
+
+
+def _arnn_inputs(model, params, batch: int, seed: int):
+    """K7's inputs as the engine makes them: random tokens, the span's
+    force mask, the position metadata and the constraint LSTM's outputs."""
+    dev = torch.device("cuda")
+    ticks = ARNN_BARS * 24
+    rng = np.random.default_rng(seed)
+    score = torch.from_numpy(rng.integers(0, VOCAB, (batch, ticks)).astype(np.int32)).to(dev)
+    tick = torch.arange(ticks, device=dev)
+    loc = ((tick < ARNN_START * 24) | (tick >= (ARNN_START + ARNN_SPAN) * 24)).to(torch.int32)
+    loc = loc[None].expand(batch, -1).contiguous()
+    md = np.stack([m.generate(ticks) for m in model.dataset.metadatas]
+                  + [np.zeros(ticks, np.int64)], axis=1).astype(np.int32)
+    md = torch.from_numpy(md).to(dev)[None].expand(batch, -1, -1)
+    with torch.inference_mode():
+        ctx, _ = model.output_lstm_constraints(params, model.embed_metadata(params, md, score, loc))
+    return ctx, score, loc, model._start_embedding(params, 1)
+
+
+def _agreement_line(a: dict) -> str:
+    return (f"tokens equal {a['tokens']:.6f}, logits max_abs_err {a['logits_max']:.3e}, mean "
+            f"{a['logits_mean']:.3e} where the fed-back tokens agree, tie gap "
+            f"{a['tie_gap']:.3e}, forced mismatches {a['forced_mismatches']}, early logits "
+            f"changed {a['early_changed']:.4f}")
+
+
+def phase_arnn_kernel(model, card: str) -> dict:
+    """K7 against its plain version at batch 512 x 384 ticks, flagship
+    width, f32 and bf16; the planted faults; the times (bf16 reported)."""
+    from inpaintnet_tpu_torch.models.base import cast_params
+    from inpaintnet_tpu_torch.ops import arnn_kernel as ak
+
+    report = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        params = cast_params(model.params(), "cuda", dtype)
+        args = (params, *_arnn_inputs(model, params, ARNN_BATCH, seed=8))
+        got = ak.arnn_sampled_decode(*args)
+        agree = ak.decode_agreement(got, ak.arnn_sampled_decode_reference(*args), args[3])
+        b = ARNN_BOUNDS[dtype]
+        print(f"[arnn-kernel] {dtype} rows {ARNN_BATCH} ticks {ARNN_BARS * 24}: "
+              f"{_agreement_line(agree)} (bounds {b})", flush=True)
+        if not ak.within(agree, b) or not bool(torch.isfinite(got[0].float()).all()):
+            raise RuntimeError(f"K7 disagrees with its plain version in {dtype}")
+        faults = {}
+        fm = args[3]
+        faults["force mask read one tick late"] = ak.arnn_sampled_decode_reference(
+            *args[:3], torch.cat([fm[:, :1], fm[:, :-1]], dim=1).contiguous(), args[4])
+        if dtype == torch.bfloat16:
+            carry = ak.carry_c
+            ak.carry_c = lambda c, dtype: c
+            try:
+                faults["c carry kept in f32"] = ak.arnn_sampled_decode_reference(*args)
+            finally:
+                ak.carry_c = carry
+        for name, planted in faults.items():
+            f_agree = ak.decode_agreement(got, planted, fm)
+            print(f"[arnn-kernel] planted fault {dtype}, {name}: {_agreement_line(f_agree)}",
+                  flush=True)
+            if ak.within(f_agree, b):
+                raise RuntimeError(f"a planted K7 fault passes the {dtype} bounds: {name}")
+        H, C = model.num_lstm_generation_units, model.num_lstm_constraints_units
+        ms = cuda_ms(lambda: ak.arnn_sampled_decode(*args), 5)
+        plain_ms = cuda_ms(lambda: ak.arnn_sampled_decode_reference(*args), 2)
+        used = {k: params[k] for k in ("note_embedding", "lstm_generation", "linear_1",
+                                       "linear_output_notes")}
+        bound = bound_of(arnn_ops(ARNN_BATCH, ARNN_BARS * 24, H, C, model.num_units_linear,
+                                  model.num_notes), "bf16" if dtype == torch.bfloat16 else "f32",
+                         nbytes(used, *args[1:], *got))
+        print(f"[time] arnn_sampled_decode {dtype}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}) | {card}", flush=True)
+        if dtype == torch.bfloat16:
+            report["arnn_sampled_decode"] = {"max_abs_err": agree["logits_max"], "ms": ms,
+                                             "plain_ms": plain_ms, **bound, "library_ms": None}
+            # the batch sweep: one block of 32 rows per 32-row tile, 132 SMs
+            for rows in (1, 64):
+                small = (params, *_arnn_inputs(model, params, rows, seed=8))
+                print(f"[time] arnn_sampled_decode {dtype} rows {rows}: kernel "
+                      f"{cuda_ms(lambda: ak.arnn_sampled_decode(*small), 5):.3f} ms | {card}",
+                      flush=True)
+    return report
+
+
+def phase_arnn_reference():
+    """The ARNN path on the card (K7) against the same model on the CPU
+    (plain versions), f32, H 64: the argmax inpaint and a sampled generate
+    with per-row keys (the same noise bits on both devices)."""
+    from inpaintnet_tpu_torch.models.anticipation_rnn import AnticipationRNNBaseline
+    from inpaintnet_tpu_torch.models.presets import ARNNDataset
+    from inpaintnet_tpu_torch.ops.arnn_kernel import arnn_sampled_decode
+
+    batch, ticks = 4, 8 * 24
+    rng = np.random.default_rng(9)
+    arrays = (rng.integers(0, VOCAB, (batch, ticks)).astype(np.int32),
+              np.stack([np.stack([m.generate(ticks) for m in ARNNDataset().metadatas]
+                                 + [np.zeros(ticks, np.int64)], 1)] * batch).astype(np.int32),
+              ((np.arange(ticks) < 72) | (np.arange(ticks) >= 120))[None].repeat(batch, 0)
+              .astype(np.int32))
+    keys = rng.integers(0, 2**32, (batch, 2))
+    out = {}
+    before = arnn_sampled_decode.launches
+    for dev in ("cuda", "cpu"):
+        model = AnticipationRNNBaseline(
+            ARNNDataset(), note_embedding_dim=10, metadata_embedding_dim=2,
+            num_lstm_constraints_units=64, num_lstm_generation_units=64, linear_hidden_size=64,
+            num_layers=2, unary_constraint=True, device=dev, seed=3)
+        score, md, loc = (torch.from_numpy(a).to(dev) for a in arrays)
+        with torch.inference_mode():
+            lg, tok = model.apply_inpaint(model.params(), score, md, loc)
+            _, sampled = model.generate(model.params(), score, md, loc, temperature=1.5,
+                                        row_keys=torch.from_numpy(keys).to(dev))
+        out[dev] = (lg.cpu(), tok.cpu(), sampled.cpu())
+    if arnn_sampled_decode.launches != before + 1:
+        raise RuntimeError("the ARNN inpaint on the card did not launch K7 once")
+    (lg, tok, smp), (lg_c, tok_c, smp_c) = out["cuda"], out["cpu"]
+    share = (tok == tok_c).float().mean().item()
+    err = (lg - lg_c).abs()[_first_divergence_mask(tok, tok_c)].max().item()
+    print(f"[arnn-reference] f32 H 64, card (K7) vs CPU plain: inpaint tokens equal {share:.4f} "
+          f"(bound {ARNN_REF['tokens']}), logits max_abs_err {err:.3e} (bound "
+          f"{ARNN_REF['logits']:.0e}); sampled tokens equal {(smp == smp_c).float().mean():.4f} "
+          f"(printed, no limit)", flush=True)
+    if share < ARNN_REF["tokens"] or err > ARNN_REF["logits"]:
+        raise RuntimeError("the ARNN path on the card disagrees with the CPU")
+
+
+def _arnn_request(rng, batch: int, measures: int):
+    return rng.integers(0, VOCAB, (batch, measures, 24)).astype(np.int32)
+
+
+def phase_arnn_engine(model, card: str):
+    """The bf16 ARNN engine at flagship width serves batch 512 x 16 bars with
+    a 4-measure span and a batch-1 request (checked; K7 must launch), then
+    the times and one profiled call of each. -> (engine, {kernel: launches})"""
+    from inpaintnet_tpu_torch.ops.arnn_kernel import arnn_sampled_decode
+    from inpaintnet_tpu_torch.serve_arnn import ARNNServingEngine
+
+    engine = ARNNServingEngine(model, batch_buckets=ARNN_BUCKETS, dtype="bfloat16",
+                               device="cuda")
+    engine.warmup(ARNN_BARS)
+    rng = np.random.default_rng(10)
+    big = _arnn_request(rng, ARNN_BATCH, ARNN_BARS)
+    one = _arnn_request(rng, 1, ARNN_BARS)
+    requests = [(f"batch {ARNN_BATCH}", big), ("batch 1", one)]
+
+    def serve():
+        for label, tokens in requests:
+            out = engine.inpaint(tokens, ARNN_START, ARNN_SPAN)
+            _check_response(out, tokens, ARNN_START, ARNN_SPAN)
+            if not np.array_equal(out, engine.inpaint(tokens, ARNN_START, ARNN_SPAN)):
+                raise RuntimeError(f"ARNN {label}: the argmax decode is not deterministic")
+            span = slice(ARNN_START, ARNN_START + ARNN_SPAN)
+            sampled = engine.inpaint(tokens, ARNN_START, ARNN_SPAN, seed=3, temperature=1.5)
+            _check_response(sampled, tokens, ARNN_START, ARNN_SPAN)
+            print(f"[arnn-engine] bf16 {label} x {ARNN_BARS} bars, span {ARNN_SPAN}: ok; "
+                  f"{(out[:, span] != tokens[:, span]).mean():.3f} of argmax and "
+                  f"{(sampled[:, span] != tokens[:, span]).mean():.3f} of sampled span tokens "
+                  f"differ from the input", flush=True)
+
+    _, launches = _launches_during([arnn_sampled_decode], serve)
+    print(f"[arnn-engine] K7 launches during the requests: {launches}", flush=True)
+
+    t_big = cuda_ms(lambda: engine.inpaint(big, ARNN_START, ARNN_SPAN), 5)
+    lat = [cuda_ms(lambda: engine.inpaint(one, ARNN_START, ARNN_SPAN), 1) for _ in range(20)]
+    print(f"[time] arnn engine bf16 batch {ARNN_BATCH} x {ARNN_BARS} bars, span {ARNN_SPAN}: "
+          f"{t_big:.2f} ms per call, {ARNN_BATCH * ARNN_SPAN / (t_big / 1e3):.1f} "
+          f"span-measures/s | {card}", flush=True)
+    print(f"[time] arnn engine bf16 batch 1: p50 {np.median(lat):.2f} ms (p90 "
+          f"{np.percentile(lat, 90):.2f} ms) | {card}", flush=True)
+    for label, tokens, wall in ((f"batch {ARNN_BATCH}", big, t_big),
+                                ("batch 1", one, float(np.median(lat)))):
+        device_ms, count, rows = _profile_step(
+            lambda: engine.inpaint(tokens, ARNN_START, ARNN_SPAN))
+        print(f"[profile] arnn bf16 {label}: device {device_ms:.2f} ms a call, {count} "
+              f"launches, idle share {1 - device_ms / wall:.3f} (of the unprofiled {wall:.2f} "
+              f"ms) | {card}", flush=True)
+        for name, k_ms, k_count in rows[:8]:
+            print(f"[profile]   {k_ms:9.3f} ms {k_count:6d}x  {name[:110]}", flush=True)
+    return engine, launches
+
+
+def phase_arnn_http(main_engine, engine, card: str) -> dict:
+    """The port's HTTP server with the ARNN engine, dynamic batching pinned
+    to bucket 64: concurrent ``/v1/arnn/inpaint`` clients, argmax and
+    sampled, must equal the engine's solo ``inpaint_hetero``; K7 must
+    launch."""
+    from inpaintnet_tpu_torch.ops.arnn_kernel import arnn_sampled_decode
+    from inpaintnet_tpu_torch.server import InpaintingServer
+
+    pin = 64
+    rng = np.random.default_rng(12)
+    reqs = []
+    for i in range(16):
+        m = int(rng.integers(13, ARNN_BARS + 1)) if i % 4 else 8
+        num = int(rng.integers(1, min(4, m - 1) + 1))
+        req = {"tokens": _arnn_request(rng, int(rng.integers(1, 4)), m),
+               "start_measure": int(rng.integers(1, m - num + 1)), "num_measures": num}
+        if i % 2:
+            req.update(temperature=float(rng.uniform(0.5, 2.0)), seed=2000 + i)
+        reqs.append(req)
+    server = InpaintingServer(main_engine, port=0, batching=True, pin_bucket=pin,
+                              arnn_engine=engine)
+    port = server.start()
+    try:
+        results, errors = [None] * len(reqs), []
+
+        def client(i):
+            try:
+                results[i] = np.asarray(
+                    _http(port, "POST", "/v1/arnn/inpaint", reqs[i])["tokens"])
+            except Exception as exc:  # noqa: BLE001 — re-raised below
+                errors.append(exc)
+
+        def drive():
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(len(reqs))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            if errors or any(t.is_alive() for t in threads):
+                raise RuntimeError(f"ARNN HTTP clients failed: {errors[:3]}")
+            return time.perf_counter() - t0
+
+        wall, launches = _launches_during([arnn_sampled_decode], drive)
+        health = _http(port, "GET", "/healthz")
+        for req, got in zip(reqs, results):
+            want = engine.inpaint_hetero([req], bucket=pin)[0]
+            if not np.array_equal(got, want):
+                raise RuntimeError("an /v1/arnn/inpaint response differs from the solo "
+                                   f"inpaint_hetero ({'sampled' if 'seed' in req else 'argmax'})")
+        meta = _http(port, "GET", "/v1/meta")
+        if meta["arnn"]["model"] != "AnticipationRNNBaseline":
+            raise RuntimeError(f"/v1/meta: {meta}")
+        print(f"[arnn-http] {len(reqs)} concurrent /v1/arnn/inpaint (argmax and sampled, 8 and "
+              f"13-16 bars): every response equals the solo inpaint_hetero at bucket {pin}; "
+              f"{health['arnn_batching']['calls']} coalesced device calls; {wall * 1e3:.1f} ms "
+              f"wall; launches {launches} | {card}", flush=True)
+    finally:
+        server.stop()
+    return launches
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -875,7 +1161,14 @@ def main() -> int:
     print(f"[engine] int8 and bf16 agree on {(span_int8 == span_bf16).mean():.4f} of the "
           f"batch-{BATCH} span tokens (random weights: printed, no limit)", flush=True)
     launches_http = phase_http(engine8, card)
-    del engine8
+    from inpaintnet_tpu_torch.models.presets import build_arnn
+
+    arnn = build_arnn(seed=0, device="cuda")
+    report.update(phase_arnn_kernel(arnn, card))
+    phase_arnn_reference()
+    arnn_engine, launches_arnn = phase_arnn_engine(arnn, card)
+    launches_arnn_http = phase_arnn_http(engine8, arnn_engine, card)
+    del engine8, arnn_engine
     phase_train_reference(card)
     launches_train = phase_trainer(card)
     sources = {
@@ -890,12 +1183,15 @@ def main() -> int:
                         launches_train),
         "gru_bwd_seq": ("gru_bwd_seq.cu", "inpaintnet_tpu/ops/gru_bwd_pallas.py:161",
                         launches_train),
+        "arnn_sampled_decode": ("arnn_decode.cu", "inpaintnet_tpu/ops/arnn_pallas.py:132",
+                                launches_arnn),
     }
     kernels = [{"name": name, "route": "cuda",
                 "source": f"inpaintnet_tpu_torch/ops/csrc/{src}", "replaces": replaces,
                 "launches": runs[name], **report[name]}
                for name, (src, replaces, runs) in sources.items()]
-    print(f"[launches] HTTP path: {launches_http}", flush=True)
+    print(f"[launches] HTTP path: {launches_http}; ARNN HTTP path: {launches_arnn_http}",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

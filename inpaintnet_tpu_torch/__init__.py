@@ -4,16 +4,20 @@ The JAX package stays the reference; this package mirrors its layout
 module for module and imports ``torch``, never ``jax`` nor anything of
 ``inpaintnet_tpu``:
 
-- ``ops``    — GRU loops and the training GRU layer (an autograd Function),
-  linear/embedding primitives, the diagonal normal and its KL, argmax
-  sampling, and the hand-written CUDA kernels (``ops/csrc``) with their
-  wrappers and plain versions (``encoder_kernel``, ``decode_kernel``,
-  ``gru_train_kernel``).
-- ``models`` — MeasureVAE (inference and training) and the
-  non-autoregressive LatentRNN, parameter conversion and checkpoints in
-  the JAX package's layout, presets.
-- ``serve``  — the batched inpainting engine; ``server`` its HTTP front end.
+- ``ops``    — GRU and LSTM loops and the training GRU layer (an autograd
+  Function), linear/embedding primitives, the diagonal normal and its KL,
+  argmax and categorical sampling, and the hand-written CUDA kernels
+  (``ops/csrc``) with their wrappers and plain versions
+  (``encoder_kernel``, ``decode_kernel``, ``gru_train_kernel``,
+  ``arnn_kernel``).
+- ``models`` — MeasureVAE (inference and training), the
+  non-autoregressive LatentRNN, the AnticipationRNN family (inference),
+  parameter conversion and checkpoints in the JAX package's layout,
+  presets.
+- ``serve``  — the batched inpainting engine; ``serve_arnn`` the
+  AnticipationRNN's; ``server`` the HTTP front end of both.
 - ``train``  — the single-device trainer and the MeasureVAE trainer.
+- ``eval``   — the AnticipationRNN tester; ``data`` the metadata channels.
 """
 
 __version__ = "0.1.0"

@@ -6,11 +6,12 @@ One table of leaves drives both directions. Each leaf is
 keeps (in, out) weights, the reference (and so the port's modules, whose
 parameter names and shapes follow it) keeps torch's (out, in). The keys
 are exactly what ``inpaintnet_tpu/models/torch_port.py export_latent_rnn``
-emits, so one checkpoint layout serves the reference, the JAX package and
-the port.
+and ``export_anticipation_rnn`` emit, so one checkpoint layout serves the
+reference, the JAX package and the port.
 
 - ``from_jax_params``: the JAX package's parameters (nested dicts and
-  lists of numpy arrays) -> a ``state_dict`` for ``LatentRNN``.
+  lists of numpy arrays) -> a ``state_dict`` for ``LatentRNN``;
+  ``anticipation_rnn_from_jax_params`` the same for the AnticipationRNN.
 - ``to_functional``: a module's ``state_dict`` -> the nested (in, out)
   parameters the port's functional code (and its kernels) takes;
   ``from_functional`` is its inverse.
@@ -81,10 +82,46 @@ def latent_rnn_leaves(num_layers: int) -> List[Leaf]:
     ]
 
 
+def _lstm_list(path: tuple, key: str, num_layers: int) -> List[Leaf]:
+    # the reference's per-layer one-layer nn.LSTM list: "{key}.{k}.weight_ih_l0"
+    leaves = []
+    for k in range(num_layers):
+        leaves += [
+            (path + (k, "w_ih"), f"{key}.{k}.weight_ih_l0", True),
+            (path + (k, "w_hh"), f"{key}.{k}.weight_hh_l0", True),
+            (path + (k, "b_ih"), f"{key}.{k}.bias_ih_l0", False),
+            (path + (k, "b_hh"), f"{key}.{k}.bias_hh_l0", False),
+        ]
+    return leaves
+
+
+def anticipation_rnn_leaves(num_layers: int, num_metadata: int) -> List[Leaf]:
+    """The AnticipationRNN's leaves, keyed as ``export_anticipation_rnn``
+    emits them (the reference's ``linear_ouput_notes`` [sic]);
+    ``num_metadata`` counts the metadata channels with the voice id."""
+    return [
+        (("note_embedding", "table"), "note_embeddings.0.weight", False),
+        *_lstm_list(("lstm_constraint",), "lstm_constraint", num_layers),
+        *_lstm_list(("lstm_generation",), "lstm_generation", num_layers),
+        *_linear(("linear_1",), "linear_1"),
+        *_linear(("linear_output_notes",), "linear_ouput_notes.0"),
+        *[(("metadata_embeddings", i, "table"), f"metadata_embeddings.{i}.weight", False)
+          for i in range(num_metadata)],
+    ]
+
+
 def _get(tree, path: tuple):
     for p in path:
         tree = tree[p]
     return tree
+
+
+def _float32_state_dict(trees, leaves: List[Leaf]) -> Dict[str, torch.Tensor]:
+    sd = {}
+    for path, key, transpose in leaves:
+        a = np.asarray(_get(trees, path), dtype=np.float32)
+        sd[key] = torch.from_numpy(np.array(a.T if transpose else a, order="C"))
+    return sd
 
 
 def from_jax_params(vae_params_np: Mapping, latent_params_np: Mapping) -> Dict[str, torch.Tensor]:
@@ -98,12 +135,16 @@ def from_jax_params(vae_params_np: Mapping, latent_params_np: Mapping) -> Dict[s
         + [(("latent",) + p, k, t)
            for p, k, t in latent_rnn_leaves(len(latent_params_np["context_rnn_past"]))]
     )
-    trees = {"vae": vae_params_np, "latent": latent_params_np}
-    sd = {}
-    for path, key, transpose in leaves:
-        a = np.asarray(_get(trees, path), dtype=np.float32)
-        sd[key] = torch.from_numpy(np.array(a.T if transpose else a, order="C"))
-    return sd
+    return _float32_state_dict({"vae": vae_params_np, "latent": latent_params_np}, leaves)
+
+
+def anticipation_rnn_from_jax_params(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's AnticipationRNN parameters (numpy leaves) -> a
+    float32 ``state_dict`` of the port's model, keyed like
+    ``export_anticipation_rnn(params)``."""
+    leaves = anticipation_rnn_leaves(len(params_np["lstm_constraint"]),
+                                     len(params_np["metadata_embeddings"]))
+    return _float32_state_dict(params_np, leaves)
 
 
 def to_functional(state_dict: Mapping[str, torch.Tensor], leaves: List[Leaf]):

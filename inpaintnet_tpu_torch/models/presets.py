@@ -4,6 +4,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from inpaintnet_tpu_torch.data.metadata import BeatMarkerMetadata, TickMetadata
+from inpaintnet_tpu_torch.models.anticipation_rnn import AnticipationRNNBaseline
 from inpaintnet_tpu_torch.models.convert import from_jax_params
 from inpaintnet_tpu_torch.models.latent_rnn import LatentRNN
 from inpaintnet_tpu_torch.models.measure_vae import MeasureVAE
@@ -20,6 +22,19 @@ class VocabOnlyDataset:
 
     def __repr__(self):
         return f"VocabOnlyDataset({self.name},{len(self.note2index_dicts[0])})"
+
+
+class ARNNDataset(VocabOnlyDataset):
+    """A vocabulary and the metadata channels of the folk datasets (beat
+    marker and tick, plus the voice id the model appends), for building an
+    AnticipationRNN without a corpus; 4/4 measures of 6-tick beats."""
+
+    def __init__(self, vocab_size: int = 60, name: str = "arnn"):
+        super().__init__(vocab_size, name)
+        self.metadatas = [BeatMarkerMetadata(), TickMetadata()]
+        self.num_voices = 1
+        self.subdivision = 6
+        self.num_beats_per_bar = 4
 
 
 def build_latent_rnn(dataset, *, emb: int, hidden: int, z_dim: int, layers: int,
@@ -63,3 +78,20 @@ def build_flagship(vocab_size: int = 60, hidden: int = 512, z_dim: int = 256, em
                                   vae_params_np=vae_np, latent_params_np=latent_np,
                                   device=device, dtype=dtype)
     return ds, vae, model
+
+
+def build_arnn(small: bool = False, seed: int = 0, device="cuda",
+               dtype: torch.dtype = torch.float32):
+    """The flagship AnticipationRNN (``benchmarks/common_arnn.py``,
+    ``train_arnn_baseline.py``): ``AnticipationRNNBaseline``, note embedding
+    10, metadata embedding 2, unary constraints, 2-layer constraint and
+    generation LSTMs of 256 units, linear hidden 256, vocab 60; or 2 x 16 with
+    ``small`` (CPU tests). Random weights from
+    ``numpy.random.default_rng(seed)``, on ``device`` in ``dtype``; its
+    ``dataset`` is an :class:`ARNNDataset`."""
+    h = 16 if small else 256
+    model = AnticipationRNNBaseline(
+        ARNNDataset(), note_embedding_dim=10, metadata_embedding_dim=2,
+        num_lstm_constraints_units=h, num_lstm_generation_units=h, linear_hidden_size=h,
+        num_layers=2, unary_constraint=True, device=device, seed=seed)
+    return model.to(dtype)

@@ -1,0 +1,300 @@
+// K7: the AnticipationRNN's argmax decode over all ticks of a row: per tick
+// the 2-layer generation LSTM on [previous token, constraint context], the
+// Linear -> ReLU -> Linear head, a first-index argmax over the V real
+// columns, and the force mask: where force[row, t] > 0 the ground-truth
+// token replaces the sampled one, as the output and as the feedback.
+//
+// Replaces the TPU kernel inpaintnet_tpu/ops/arnn_pallas.py
+// arnn_sampled_decode_pallas (_arnn_kernel). Same numerics: layer 0's
+// input projection is prev_xw + ctx_t @ W_ctx + b_ih0 with prev_xw a row of
+// the parameter-dtype token table (start_xw at t = 0) and the context
+// product inside the loop; products accumulate in f32, biases and gates
+// are f32, both layers' h and c are rounded to the parameter dtype after
+// every tick; the head's hidden is rounded to the parameter dtype before
+// the output product; the logits are unbounded (no ReLU) and written in
+// the parameter dtype.
+//
+// What bounds it on an H100: each tick multiplies the row tile by four
+// (K, 4H) matrices (W_ctx, W_hh0, W_ih1, W_hh1) and the two head matrices:
+// about 2.2 MB of bf16 weights at the flagship's H = C = 256, streamed from
+// L2 every tick, behind a serial chain (layer 0 -> layer 1 -> head -> argmax
+// -> feedback) over 384 ticks. As in K2 one block owns a tile of rows and
+// loops over the ticks with both layers' h and c in shared memory; the
+// feedback is a row lookup, so only the token index is kept between ticks.
+// The tick's context rows and the head's tiles share one region of shared
+// memory (they are live in different phases of a tick). Occupancy is low
+// by design of this first version: batch 512 makes 16 bf16 blocks for 132
+// SMs, and batch 1 one block.
+#include "gru_common.cuh"
+
+namespace inpaint {
+
+// torch's LSTM cell from its four gate pre-activations (biases added) and
+// the previous c, in f32, each multiply and add rounded on its own in the
+// order of the plain version's tensor ops (kernel_common.lstm_gates_f32).
+__device__ __forceinline__ void lstm_gate(const float (&gate)[4], float c, float& h_out,
+                                          float& c_out) {
+  const float i = sigmoid_f(gate[0]);
+  const float f = sigmoid_f(gate[1]);
+  const float g = tanhf(gate[2]);
+  const float o = sigmoid_f(gate[3]);
+  c_out = __fadd_rn(__fmul_rn(f, c), __fmul_rn(i, g));
+  h_out = __fmul_rn(o, tanhf(c_out));
+}
+
+template <typename T>
+struct ArnnArgs {
+  const T* ctx;        // (B, S, C) constraint-LSTM outputs
+  const int* score;    // (B, S) ground-truth tokens
+  const int* force;    // (B, S) 1 where the token is forced
+  const T* tok_tab;    // (n_tok, 4H): emb @ W_ih0[:E]
+  const T* start_xw;   // (4H,): start_emb @ W_ih0[:E], the tick-0 input
+  const void* w_ctx;   // (C, 4H) = W_ih0[E:], packed for bf16
+  const void* whh0;    // (H, 4H), packed for bf16
+  const void* wih1;    // (H, 4H), packed for bf16
+  const void* whh1;    // (H, 4H), packed for bf16
+  const T* bias;       // (4, 4H): b_ih0, b_hh0, b_ih1, b_hh1
+  const void* w_l1;    // (H, LP), zero columns past the head's width, packed for bf16
+  const T* b_l1;       // (LP,)
+  const void* w_out;   // (LP, VP), zero rows and columns past the real ones, packed
+  const T* b_out;      // (VP,)
+  T* logits;           // (B, S, V)
+  int* tokens;         // (B, S)
+  int B, S, H, C, LP, V, VP;
+};
+
+// Bytes of the region that holds the tick's context rows (layer 0) and then
+// the head's hidden tile and f32 logits (after layer 1).
+template <typename T>
+__host__ __device__ inline size_t arnn_region_bytes(int C, int LP, int VP) {
+  constexpr int TM = 16 * Traits<T>::MT, pad = Traits<T>::kPad;
+  const size_t ctx_bytes = (size_t)TM * (C + pad) * sizeof(T);
+  const size_t head_bytes = (size_t)TM * (LP + pad) * sizeof(T) + (size_t)TM * VP * sizeof(float);
+  return ctx_bytes > head_bytes ? ctx_bytes : head_bytes;
+}
+
+// rows [row0, row0 + tile_m) of a matrix whose rows lie src_stride elements
+// apart, into smem (row stride lds), zero-filling rows past rows_total;
+// width * sizeof(T) and src_stride * sizeof(T) are multiples of 16.
+template <typename T>
+__device__ __forceinline__ void load_rows_strided(T* dst, int lds, const T* src,
+                                                  size_t src_stride, int width, int row0,
+                                                  int tile_m, int rows_total) {
+  const int vec = 16 / sizeof(T);
+  const int per_row = width / vec;
+  for (int idx = threadIdx.x; idx < tile_m * per_row; idx += blockDim.x) {
+    const int r = idx / per_row, c = (idx % per_row) * vec;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (row0 + r < rows_total)
+      v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * src_stride + c);
+    *reinterpret_cast<uint4*>(dst + r * lds + c) = v;
+  }
+}
+
+// One LSTM layer for the block's rows: gates = (x-side) + (h @ W_hh + b_hh),
+// where the x-side is xin @ W_x + b_x, plus the fed-back token's row for
+// layer 0. Writes h_next (padded tile) and updates c in place (each element
+// is read and written by the same thread).
+template <typename T, bool kLayer0>
+__device__ __forceinline__ void lstm_layer(const ArnnArgs<T>& p, const T* xin, int ldx, int K,
+                                           const void* w_x, const T* b_x, const T* h_cur,
+                                           const void* w_h, const T* b_h, T* h_next, T* c,
+                                           int ldh, const int* prev) {
+  using Tr = Traits<T>;
+  constexpr int MT = Tr::MT;
+  const int H = p.H, H4 = 4 * H;
+  const int warp = threadIdx.x >> 5;
+  for (int ch = 0; ch < H / kChunk; ++ch) {
+    const int j0 = ch * kChunk + warp * 8;
+    const int nt[4] = {j0 / 8, (H + j0) / 8, (2 * H + j0) / 8, (3 * H + j0) / 8};
+    float ax[4][MT][4], ah[4][MT][4];
+    zero_acc(ax);
+    zero_acc(ah);
+    Gemm<T, MT, 4>::run(ax, xin, ldx, K, w_x, H4, nt);
+    Gemm<T, MT, 4>::run(ah, h_cur, ldh, H, w_h, H4, nt);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = acc_row(m, i);
+        const int j = j0 + acc_col(i);
+        const T* fb = nullptr;
+        if (kLayer0) fb = prev[r] < 0 ? p.start_xw : p.tok_tab + (size_t)prev[r] * H4;
+        float gate[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const int col = g * H + j;
+          float xw = ax[g][m][i];
+          if (kLayer0) xw = __fadd_rn(Tr::to_f(fb[col]), xw);
+          xw = __fadd_rn(xw, Tr::to_f(b_x[col]));
+          const float hw = __fadd_rn(ah[g][m][i], Tr::to_f(b_h[col]));
+          gate[g] = __fadd_rn(xw, hw);
+        }
+        float h_new, c_new;
+        lstm_gate(gate, Tr::to_f(c[r * H + j]), h_new, c_new);
+        h_next[r * ldh + j] = Tr::from_f(h_new);
+        c[r * H + j] = Tr::from_f(c_new);
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) arnn_decode_kernel(const ArnnArgs<T> p) {
+  using Tr = Traits<T>;
+  constexpr int MT = Tr::MT, TM = 16 * MT;
+  const int row0 = blockIdx.x * TM;
+  const int H = p.H, H4 = 4 * H, B = p.B, S = p.S, VP = p.VP;
+  const int ldh = H + Tr::kPad, ldc = p.C + Tr::kPad, ldl = p.LP + Tr::kPad;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* h0c = reinterpret_cast<T*>(smem_raw);
+  T* h0n = h0c + TM * ldh;
+  T* h1c = h0n + TM * ldh;
+  T* h1n = h1c + TM * ldh;
+  T* c0 = h1n + TM * ldh;
+  T* c1 = c0 + TM * H;
+  unsigned char* region = reinterpret_cast<unsigned char*>(c1 + TM * H);
+  T* cx = reinterpret_cast<T*>(region);    // layer 0: the tick's context rows
+  T* hid = reinterpret_cast<T*>(region);   // head: relu(h1 @ W_l1 + b_l1)
+  float* lg = reinterpret_cast<float*>(region + (size_t)TM * ldl * sizeof(T));  // f32 logits
+  int* prev = reinterpret_cast<int*>(region + arnn_region_bytes<T>(p.C, p.LP, VP));
+
+  for (int idx = threadIdx.x; idx < TM * ldh; idx += blockDim.x) {
+    h0c[idx] = Tr::from_f(0.0f);
+    h1c[idx] = Tr::from_f(0.0f);
+  }
+  for (int idx = threadIdx.x; idx < TM * H; idx += blockDim.x) {
+    c0[idx] = Tr::from_f(0.0f);
+    c1[idx] = Tr::from_f(0.0f);
+  }
+  for (int r = threadIdx.x; r < TM; r += blockDim.x) prev[r] = -1;
+  const int warp = threadIdx.x >> 5;
+
+  for (int t = 0; t < S; ++t) {
+    load_rows_strided(cx, ldc, p.ctx + (size_t)t * p.C, (size_t)S * p.C, p.C, row0, TM, B);
+    __syncthreads();
+
+    lstm_layer<T, true>(p, cx, ldc, p.C, p.w_ctx, p.bias, h0c, p.whh0, p.bias + H4, h0n, c0,
+                        ldh, prev);
+    __syncthreads();
+    lstm_layer<T, false>(p, h0n, ldh, H, p.wih1, p.bias + 2 * H4, h1c, p.whh1, p.bias + 3 * H4,
+                         h1n, c1, ldh, prev);
+    __syncthreads();
+
+    // head, first linear: relu in f32, rounded to the parameter dtype
+    for (int ntile = warp; ntile < p.LP / 8; ntile += kWarps) {
+      const int nt[1] = {ntile};
+      float acc[1][MT][4];
+      zero_acc(acc);
+      Gemm<T, MT, 1>::run(acc, h1n, ldh, H, p.w_l1, p.LP, nt);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = ntile * 8 + acc_col(i);
+          const float v = __fadd_rn(acc[0][m][i], Tr::to_f(p.b_l1[col]));
+          hid[acc_row(m, i) * ldl + col] = Tr::from_f(fmaxf(v, 0.0f));
+        }
+      }
+    }
+    __syncthreads();
+
+    // head, output linear: unbounded f32 logits
+    for (int ntile = warp; ntile < VP / 8; ntile += kWarps) {
+      const int nt[1] = {ntile};
+      float acc[1][MT][4];
+      zero_acc(acc);
+      Gemm<T, MT, 1>::run(acc, hid, ldl, p.LP, p.w_out, VP, nt);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = ntile * 8 + acc_col(i);
+          lg[acc_row(m, i) * VP + col] = __fadd_rn(acc[0][m][i], Tr::to_f(p.b_out[col]));
+        }
+      }
+    }
+    __syncthreads();
+
+    // first-index argmax over the V real columns, the force mask, outputs
+    for (int r = threadIdx.x; r < TM; r += blockDim.x) {
+      const float* row = lg + r * VP;
+      float best = row[0];
+      int tok = 0;
+      for (int v = 1; v < p.V; ++v) {
+        if (row[v] > best) {
+          best = row[v];
+          tok = v;
+        }
+      }
+      if (row0 + r < B) {
+        const size_t o = (size_t)(row0 + r) * S + t;
+        if (p.force[o] > 0) tok = p.score[o];
+        p.tokens[o] = tok;
+      }
+      prev[r] = tok;
+    }
+    for (int idx = threadIdx.x; idx < TM * p.V; idx += blockDim.x) {
+      const int r = idx / p.V, v = idx % p.V;
+      if (row0 + r < B)
+        p.logits[((size_t)(row0 + r) * S + t) * p.V + v] = Tr::from_f(lg[r * VP + v]);
+    }
+    __syncthreads();
+    T* tmp = h0c;
+    h0c = h0n;
+    h0n = tmp;
+    tmp = h1c;
+    h1c = h1n;
+    h1n = tmp;
+  }
+}
+
+template <typename T>
+static cudaError_t arnn_decode(const ArnnArgs<T>& a, cudaStream_t stream) {
+  using Tr = Traits<T>;
+  constexpr int TM = 16 * Tr::MT;
+  if (a.H % kChunk || a.C % kChunk || a.LP % 16 || a.VP % 8 || a.V > a.VP || a.V < 1)
+    return cudaErrorInvalidValue;
+  const size_t smem = (4ull * TM * (a.H + Tr::kPad) + 2ull * TM * a.H) * sizeof(T) +
+                      arnn_region_bytes<T>(a.C, a.LP, a.VP) + TM * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(arnn_decode_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  arnn_decode_kernel<T><<<(a.B + TM - 1) / TM, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace inpaint
+
+// dtype: 0 = float32, 1 = bfloat16. Tensors as documented on ArnnArgs.
+// Returns the cudaError_t of the launch (0 on success); launches on
+// `stream` and does not synchronise.
+extern "C" int inpaint_arnn_decode(int dtype, const void* ctx, const void* score,
+                                   const void* force, const void* tok_tab, const void* start_xw,
+                                   const void* w_ctx, const void* whh0, const void* wih1,
+                                   const void* whh1, const void* bias, const void* w_l1,
+                                   const void* b_l1, const void* w_out, const void* b_out,
+                                   void* logits, void* tokens, int B, int S, int H, int C,
+                                   int LP, int V, int VP, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define INPAINT_ARNN_ARGS(T)                                                                   \
+  inpaint::ArnnArgs<T> a{static_cast<const T*>(ctx),      static_cast<const int*>(score),     \
+                         static_cast<const int*>(force),  static_cast<const T*>(tok_tab),     \
+                         static_cast<const T*>(start_xw), w_ctx,                              \
+                         whh0,                            wih1,                               \
+                         whh1,                            static_cast<const T*>(bias),        \
+                         w_l1,                            static_cast<const T*>(b_l1),        \
+                         w_out,                           static_cast<const T*>(b_out),       \
+                         static_cast<T*>(logits),         static_cast<int*>(tokens),          \
+                         B, S, H, C, LP, V, VP};                                              \
+  return (int)inpaint::arnn_decode<T>(a, s);
+  if (dtype == 0) {
+    INPAINT_ARNN_ARGS(float)
+  }
+  if (dtype == 1) {
+    INPAINT_ARNN_ARGS(__nv_bfloat16)
+  }
+#undef INPAINT_ARNN_ARGS
+  return (int)cudaErrorInvalidValue;
+}

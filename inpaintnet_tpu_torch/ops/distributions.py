@@ -79,6 +79,18 @@ def row_bits(row_keys: torch.Tensor, n: int) -> torch.Tensor:
     return splitmix64(splitmix64(key64)[:, None] ^ idx[None, :])
 
 
+def _top23_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """f32 uniforms strictly inside (0, 1): the top 23 of each element's 64
+    hash bits, offset by half a step (so a log of them stays finite)."""
+    return (_srl(bits, 41).float() + 0.5) * 2.0 ** -23
+
+
+def row_uniform(row_keys: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, n) f32 uniforms in (0, 1), element i of row b a pure function of
+    ``row_keys[b]`` and ``i`` (:func:`row_bits`)."""
+    return _top23_uniform(row_bits(row_keys, n))
+
+
 def row_normal(row_keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """(B, *shape) f32 standard normal noise in one vectorised pass, row ``b``
     drawn from ``row_keys[b]`` alone: Box-Muller on two 23-bit uniforms cut
@@ -88,8 +100,7 @@ def row_normal(row_keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     key and nothing else) is the same."""
     n = math.prod(shape)
     bits = row_bits(row_keys, n)
-    scale = 2.0 ** -23
-    u1 = (_srl(bits, 41).float() + 0.5) * scale  # (0, 1): the log stays finite
-    u2 = ((bits >> 9) & ((1 << 23) - 1)).float() * scale
+    u1 = _top23_uniform(bits)
+    u2 = ((bits >> 9) & ((1 << 23) - 1)).float() * 2.0 ** -23
     z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
     return z.reshape(row_keys.shape[0], *shape)

@@ -1,8 +1,9 @@
 """Shared pieces for the hand-written CUDA kernels.
 
-- ``round_up`` and ``gru_gates_f32``: the [r, z, n] torch-order GRU gate
-  math in f32 (one copy for every plain version; the CUDA copy is
-  ``csrc/gru_common.cuh gru_gate``).
+- ``round_up``, ``gru_gates_f32`` and ``lstm_gates_f32``: the torch-order
+  [r, z, n] GRU and [i, f, g, o] LSTM gate math in f32 (one copy for every
+  plain version; the CUDA copies are ``csrc/gru_common.cuh gru_gate`` and
+  ``csrc/arnn_decode.cu lstm_gate``).
 - The build: ``nvcc`` compiles every ``csrc/*.cu`` (one process per source,
   in parallel) and links them into one shared library with a plain C
   interface, at first use, keyed on the hash of the sources, into
@@ -50,6 +51,22 @@ def gru_gates_f32(xw, hw, h_prev, hidden: int):
     z = torch.sigmoid(xw[:, hidden : 2 * hidden] + hw[:, hidden : 2 * hidden])
     n = torch.tanh(xw[:, 2 * hidden :] + r * hw[:, 2 * hidden :])
     return (1.0 - z) * n + z * h_prev
+
+
+def lstm_gates_f32(xw, hw, c_prev, hidden: int):
+    """Torch-order [i, f, g, o] LSTM gate math in f32, with the products (and
+    their biases) precomputed by the caller
+    (``inpaintnet_tpu/ops/pallas_common.py lstm_gates_f32``).
+
+    :return: (h_new, c_new)
+    """
+    gates = xw + hw
+    i = torch.sigmoid(gates[:, :hidden])
+    f = torch.sigmoid(gates[:, hidden : 2 * hidden])
+    g = torch.tanh(gates[:, 2 * hidden : 3 * hidden])
+    o = torch.sigmoid(gates[:, 3 * hidden :])
+    c_new = f * c_prev + i * g
+    return o * torch.tanh(c_new), c_new
 
 
 def kernel_supports_hidden(hidden: int) -> bool:
@@ -137,6 +154,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_gru_fwd_seq.restype = i32
     lib.inpaint_gru_bwd_seq.argtypes = [i32] + [ptr] * 10 + [i32] * 4 + [ptr]
     lib.inpaint_gru_bwd_seq.restype = i32
+    lib.inpaint_arnn_decode.argtypes = [i32] + [ptr] * 16 + [i32] * 7 + [ptr]
+    lib.inpaint_arnn_decode.restype = i32
     return lib
 
 

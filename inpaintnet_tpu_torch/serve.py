@@ -10,9 +10,9 @@ Batches above the largest bucket run in bucket-size chunks.
     outs = engine.inpaint_hetero([{"tokens": t, "start_measure": 8,
                                    "num_measures": 2, "seed": 7}, ...])
 
-``inpaintnet_tpu.server.InpaintingServer`` (numpy only) serves this engine
-over HTTP as it serves the JAX package's: it reads ``_quant``,
-``MAX_INTERP``, ``_compiled`` and the model geometry named there.
+``inpaintnet_tpu_torch.server.InpaintingServer`` (numpy only) serves this
+engine over HTTP: it reads ``_quant``, ``MAX_INTERP``, ``_compiled`` and
+the model geometry named there.
 
 Not ported yet: the autoregressive ``inpaint_variations`` branch (ROADMAP
 queue 1 item 8) and CUDA-graph buckets.
@@ -217,7 +217,7 @@ class InpaintingEngine:
     def inpaint_hetero(self, requests: Sequence[dict], bucket: Optional[int] = None) -> list:
         """One device batch serving several independent requests with
         (possibly) different spans: the dynamic-batching primitive behind
-        ``inpaintnet_tpu.server.InpaintingServer``'s request coalescing.
+        ``inpaintnet_tpu_torch.server.InpaintingServer``'s request coalescing.
 
         Each row draws its noise from a key derived from (its request's
         seed, its row within the request) (:func:`derive_row_keys`), and

@@ -6,8 +6,9 @@ standard library only, duck-typed over the engine (it reads
 ``MAX_INTERP``, ``_compiled`` and ``model.vae_model.num_notes``, and calls
 ``inpaint``, ``inpaint_hetero``, ``inpaint_variations`` and
 ``interpolate``), with the same routes, batcher and error mapping. The
-AnticipationRNN route answers 400 until a server is given an
-``arnn_engine``; the port has none yet.
+AnticipationRNN route serves an ``arnn_engine``
+(:class:`inpaintnet_tpu_torch.serve_arnn.ARNNServingEngine`) and answers
+400 on a server without one.
 
 The reference has no serving layer; the product-level contract is the
 tester generation API (latent_rnn_tester.py:131-195). This module is the
@@ -488,11 +489,13 @@ class InpaintingServer:
                  max_wait_ms: float = 5.0,
                  pin_bucket: Optional[int] = None,
                  arnn_engine=None):
-        """:param arnn_engine: optional AnticipationRNN serving engine
-        (``batch_buckets``, ``max_measures``, ``measure_buckets``,
-        ``length_bucket``, ``inpaint``, ``inpaint_hetero``) — serves the
-        reference's AnticipationRNN inpainting family at
-        ``POST /v1/arnn/inpaint`` next to the LatentRNN endpoints."""
+        """:param arnn_engine: optional AnticipationRNN serving engine,
+        :class:`inpaintnet_tpu_torch.serve_arnn.ARNNServingEngine`
+        (``batch_buckets``, ``max_measures``, ``measure_buckets``, ``msl``,
+        ``model.num_notes``, ``length_bucket``, ``inpaint``,
+        ``inpaint_hetero``) — serves the reference's AnticipationRNN
+        inpainting family at ``POST /v1/arnn/inpaint`` next to the
+        LatentRNN endpoints."""
         self.engine = engine
         self.arnn_engine = arnn_engine
         self.metrics = _Metrics()
@@ -771,14 +774,13 @@ class InpaintingServer:
         if e is None:
             raise _BadRequest(
                 "no AnticipationRNN model is loaded (start the server "
-                "with an arnn_engine / --serve_arnn)"
+                "with an arnn_engine)"
             )
         tokens, single = _get_tokens(payload, e.msl, e.model.num_notes)
         m = tokens.shape[1]
         if m > e.max_measures:
-            # ARNN programs compile per sequence length (no padding mask);
-            # an uncapped client-chosen M would force arbitrarily large
-            # scan compiles under the serving lock
+            # the cap bounds the decode one request can make the engine
+            # run under the serving lock (its length sets the tick count)
             raise _BadRequest(
                 f"tokens have {m} measures; this engine serves at most "
                 f"{e.max_measures}"

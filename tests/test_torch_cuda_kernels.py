@@ -11,11 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from inpaintnet_tpu_torch.ops import decode_kernel, encoder_kernel
+from inpaintnet_tpu_torch.ops import arnn_kernel, decode_kernel, encoder_kernel
 from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
 from inpaintnet_tpu_torch.ops.gru import gru_init
 from inpaintnet_tpu_torch.ops.gru_trainfast import gru_layer_trainfast
 from inpaintnet_tpu_torch.ops.linear import embedding_init, linear_init
+from inpaintnet_tpu_torch.ops.lstm import lstm_stack_init
 from inpaintnet_tpu_torch.ops.quantize import dequantize_h
 
 pytestmark = pytest.mark.cuda
@@ -305,3 +306,84 @@ def test_train_wrappers_reject_what_the_kernels_do_not_take(cuda):
     out = gk.gru_fwd_seq(*fwd)
     with pytest.raises(ValueError, match="shape"):
         gk.gru_bwd_seq(fwd[0], dys[:, :4].contiguous(), *out[1:], hprev)
+
+
+# K7 vs its plain version on the card (``arnn_kernel.decode_agreement``),
+# seen on an NVIDIA H100 80GB HBM3 (700 W) at these shapes. f32: both
+# accumulate in f32, in other orders (logits max 3.3e-7, mean 5e-8). bf16: an
+# f32 last bit may flip a carry's or a logit's bf16 rounding (one ulp: max
+# 2.0e-3, mean 1.4e-5), rarely (no logit of the first 8 ticks changed); a c
+# carry kept in f32 changes 31-48% of those. A token may flip only on a
+# near-tie of the logits, never at a forced tick (a force mask read one
+# tick late: tie gaps 0.56 and 0.79).
+K7_BOUNDS = {torch.float32: {"tokens": 0.99, "max": 1e-5, "mean": 1e-6},
+             torch.bfloat16: {"tokens": 0.98, "max": 1e-2, "mean": 1e-4, "early": 0.15}}
+
+
+def _arnn_case(rng, batch, hidden, ctx_dim, seq_len, vocab, linear, dtype, device):
+    emb = 10
+    params = _tree({
+        "note_embedding": embedding_init(rng, vocab + 1, emb),
+        "lstm_generation": lstm_stack_init(rng, [(emb + ctx_dim, hidden), (hidden, hidden)]),
+        "linear_1": linear_init(rng, hidden, linear),
+        "linear_output_notes": linear_init(rng, linear, vocab),
+    }, device, dtype, rng)
+    ctx = torch.from_numpy(np.tanh(rng.standard_normal((batch, seq_len, ctx_dim)))
+                           .astype(np.float32)).to(device=device, dtype=dtype)
+    score = torch.from_numpy(rng.integers(0, vocab, (batch, seq_len)).astype(np.int32)).to(device)
+    force = torch.ones((batch, seq_len), dtype=torch.int32, device=device)
+    force[:, seq_len // 3: 2 * seq_len // 3] = 0
+    start = params["note_embedding"]["table"][vocab - 1:vocab].contiguous()
+    return params, ctx, score, force, start
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,hidden,ctx_dim,vocab,linear", [(37, 64, 64, 60, 12),
+                                                               (5, 128, 64, 13, 64)])
+def test_arnn_kernel_matches_plain(cuda, dtype, batch, hidden, ctx_dim, vocab, linear):
+    args = _arnn_case(np.random.default_rng(batch), batch, hidden, ctx_dim, 72, vocab, linear,
+                      dtype, cuda)
+    before = arnn_kernel.arnn_sampled_decode.launches
+    got = arnn_kernel.arnn_sampled_decode(*args)
+    want = arnn_kernel.arnn_sampled_decode_reference(*args)
+    torch.cuda.synchronize()
+    assert arnn_kernel.arnn_sampled_decode.launches == before + 1
+    assert got[0].shape == (batch, 72, vocab) and got[0].dtype == dtype
+    assert got[1].dtype == torch.int32
+    force = args[3] > 0
+    assert torch.equal(got[1][force], args[2][force])  # forced ticks carry the ground truth
+    agree = arnn_kernel.decode_agreement(got, want, args[3])
+    assert arnn_kernel.within(agree, K7_BOUNDS[dtype]), agree
+
+
+def test_arnn_kernel_bounds_reject_planted_faults(cuda, monkeypatch):
+    """In bf16: a c carry kept in f32, and a force mask read one tick late,
+    planted in the plain version, break the bounds."""
+    args = _arnn_case(np.random.default_rng(37), 37, 64, 64, 72, 60, 12, torch.bfloat16, cuda)
+    got = arnn_kernel.arnn_sampled_decode(*args)
+    monkeypatch.setattr(arnn_kernel, "carry_c", lambda c, dtype: c)
+    carry = arnn_kernel.arnn_sampled_decode_reference(*args)
+    monkeypatch.undo()
+    force = args[3]
+    late = arnn_kernel.arnn_sampled_decode_reference(
+        *args[:3], torch.cat([force[:, :1], force[:, :-1]], dim=1), args[4])
+    for planted in (carry, late):
+        agree = arnn_kernel.decode_agreement(got, planted, force)
+        assert not arnn_kernel.within(agree, K7_BOUNDS[torch.bfloat16]), agree
+
+
+def test_arnn_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    rng = np.random.default_rng(0)
+    params, ctx, score, force, start = _arnn_case(rng, 4, 64, 64, 8, 30, 12, torch.float32,
+                                                  cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        arnn_kernel.arnn_sampled_decode(params, ctx, score.long(), force, start)
+    with pytest.raises(ValueError, match="contiguous"):
+        arnn_kernel.arnn_sampled_decode(params, ctx.transpose(0, 1).contiguous().transpose(0, 1),
+                                        score, force, start)
+    odd = _arnn_case(rng, 4, 48, 64, 8, 30, 12, torch.float32, cuda)
+    with pytest.raises(ValueError, match="hidden size"):
+        arnn_kernel.arnn_sampled_decode(*odd)
+    half = _arnn_case(rng, 4, 64, 64, 8, 30, 12, torch.float16, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        arnn_kernel.arnn_sampled_decode(*half)

@@ -183,19 +183,25 @@ def test_port_never_imports_jax():
 
 
 @pytest.mark.parametrize("entry", ["build_flagship", "build_latent_rnn", "MeasureVAE",
-                                   "Trainer", "InpaintingEngine"])
+                                   "Trainer", "InpaintingEngine", "build_arnn",
+                                   "ConstraintModelGaussianReg", "ARNNServingEngine"])
 def test_entry_points_default_to_the_card(entry):
     """Entry points run on the card unless the caller asks for the CPU; the
-    engine follows its model's device."""
+    engines follow their model's device."""
     import inspect
 
+    from inpaintnet_tpu_torch.models.anticipation_rnn import ConstraintModelGaussianReg
     from inpaintnet_tpu_torch.models.measure_vae import MeasureVAE
+    from inpaintnet_tpu_torch.models.presets import build_arnn
+    from inpaintnet_tpu_torch.serve_arnn import ARNNServingEngine
     from inpaintnet_tpu_torch.train.trainer import Trainer
 
     fn = {"build_flagship": build_flagship, "build_latent_rnn": build_latent_rnn,
-          "MeasureVAE": MeasureVAE, "Trainer": Trainer, "InpaintingEngine": InpaintingEngine}[entry]
+          "MeasureVAE": MeasureVAE, "Trainer": Trainer, "InpaintingEngine": InpaintingEngine,
+          "build_arnn": build_arnn, "ConstraintModelGaussianReg": ConstraintModelGaussianReg,
+          "ARNNServingEngine": ARNNServingEngine}[entry]
     default = inspect.signature(fn).parameters["device"].default
-    assert default == (None if entry == "InpaintingEngine" else "cuda")
+    assert default == (None if entry.endswith("Engine") else "cuda")
 
 
 def _forbidden_imports(path: Path):
