@@ -59,15 +59,36 @@ Phases, each raising on failure:
    4-measure span and a batch-1 request (K7 must launch), its
    span-measures/s, batch-1 p50/p90 and a profile of each; and
    ``/v1/arnn/inpaint`` through the HTTP server, argmax and sampled clients
-   equal to the solo ``inpaint_hetero`` at bucket 64.
+   equal to the solo ``inpaint_hetero`` at bucket 64;
+13. K8 ``gru_layer_stream`` (the generic GRU layer, which also serves the
+   TPU's K9 and K10) against its plain version at the engine's batch-2048
+   shapes (the context GRUs: 16 steps, H 512, suffix masks with all-zero
+   rows, outputs on and off; the generation GRU: 6 steps, H 1024, target
+   masks; the autoregressive step: 1 step, H 1024, at 2,048 rows and at
+   one), f32 and bf16, forward and reverse, with two planted faults (a
+   carry kept in f32 in bf16, a mask read one step late) that the bounds
+   must reject; each timed beside its plain version, its bound and cuDNN's
+   one-direction ``torch.nn.GRU`` as a yardstick;
+14. the bf16 LatentRNN engine under the ``"pallas"`` GRU route beside
+   ``"xla"``: K8 launches per call (asserted), no eager GRU step under
+   ``"pallas"``, the batch-2048 wall and the batch-1 p50 in turns, and a
+   profile of each;
+15. the autoregressive LatentRNN on the card against the CPU (f32, H 64,
+   the same injected noise), under ``"pallas"``;
+16. the autoregressive flagship engine (hidden 512, generation hidden
+   1024), bf16, under ``"pallas"``: three requests checked, K1, K2 and K8
+   launches per call asserted, measures/s at batch 2048, the batch-1 p50,
+   a profile of each, and an ``/v1/inpaint`` burst through the HTTP
+   server whose responses must equal the solo ``inpaint_hetero``.
 
-Phase 12 runs after phase 8, before the training phases. Prints one JSON
-line of the seven kernels, the card's name and power limit, and as
+Phases 12-16 run after phase 8, before the training phases. Prints one
+JSON line of the eight kernels, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
 result, when there is no usable card or any phase fails.
 """
 from __future__ import annotations
 
+import contextlib
 import http.client
 import json
 import subprocess
@@ -565,6 +586,17 @@ def _profile_step(step) -> tuple:
     return sum(r[1] for r in rows), sum(r[2] for r in rows), rows
 
 
+def _profile_line(tag: str, call, wall: float, card: str, top: int = 8) -> None:
+    """Print the device time, launches and idle share (1 - device time /
+    ``wall``, the unprofiled wall of the same call) of one ``call()``, and
+    the kernels taking the most device time."""
+    device_ms, count, rows = _profile_step(call)
+    print(f"[profile] {tag}: device {device_ms:.2f} ms a call, {count} launches, idle share "
+          f"{1 - device_ms / wall:.3f} (of the unprofiled {wall:.2f} ms) | {card}", flush=True)
+    for name, k_ms, k_count in rows[:top]:
+        print(f"[profile]   {k_ms:9.3f} ms {k_count:6d}x  {name[:110]}", flush=True)
+
+
 def phase_trainer(card: str) -> dict:
     """The full-width VAE trainer takes 8 steps in f32 and 8 in bf16 compute
     (coins alternating, teacher-forced first); per step K5 and K6 must
@@ -789,6 +821,29 @@ def _http(port: int, method: str, path: str, payload=None) -> dict:
     return json.loads(data)
 
 
+def _burst(port: int, path: str, reqs, field: str):
+    """POST every request at once, one client thread each. -> (each
+    response's ``field`` as an array, wall seconds); raises if a client
+    failed or hung."""
+    results, errors = [None] * len(reqs), []
+
+    def client(i):
+        try:
+            results[i] = np.asarray(_http(port, "POST", path, reqs[i])[field])
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            errors.append(exc)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"{path} clients failed: {errors[:3]}")
+    return results, time.perf_counter() - t0
+
+
 def phase_http(engine, card: str) -> dict:
     """The shared HTTP front end over the int8 engine, dynamic batching
     pinned to bucket 64: concurrent responses must equal solo hetero calls."""
@@ -811,26 +866,8 @@ def phase_http(engine, card: str) -> dict:
     server = InpaintingServer(engine, port=0, batching=True, pin_bucket=pin)
     port = server.start()
     try:
-        results, errors = [None] * len(reqs), []
-
-        def client(i):
-            try:
-                results[i] = np.asarray(_http(port, "POST", "/v1/inpaint", reqs[i])["tokens"])
-            except Exception as exc:  # noqa: BLE001 — re-raised below
-                errors.append(exc)
-
-        def drive():
-            t0 = time.perf_counter()
-            threads = [threading.Thread(target=client, args=(i,)) for i in range(len(reqs))]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=300)
-            if errors or any(t.is_alive() for t in threads):
-                raise RuntimeError(f"HTTP clients failed: {errors[:3]}")
-            return time.perf_counter() - t0
-
-        wall, launches = _launches_during(_kernels_of("int8"), drive)
+        (results, wall), launches = _launches_during(
+            _kernels_of("int8"), lambda: _burst(port, "/v1/inpaint", reqs, "tokens"))
         batching = _http(port, "GET", "/healthz")
         for req, got in zip(reqs, results):
             want = engine.inpaint_hetero([req], bucket=pin)[0]
@@ -1075,13 +1112,8 @@ def phase_arnn_engine(model, card: str):
           f"{np.percentile(lat, 90):.2f} ms) | {card}", flush=True)
     for label, tokens, wall in ((f"batch {ARNN_BATCH}", big, t_big),
                                 ("batch 1", one, float(np.median(lat)))):
-        device_ms, count, rows = _profile_step(
-            lambda: engine.inpaint(tokens, ARNN_START, ARNN_SPAN))
-        print(f"[profile] arnn bf16 {label}: device {device_ms:.2f} ms a call, {count} "
-              f"launches, idle share {1 - device_ms / wall:.3f} (of the unprofiled {wall:.2f} "
-              f"ms) | {card}", flush=True)
-        for name, k_ms, k_count in rows[:8]:
-            print(f"[profile]   {k_ms:9.3f} ms {k_count:6d}x  {name[:110]}", flush=True)
+        _profile_line(f"arnn bf16 {label}", lambda: engine.inpaint(tokens, ARNN_START, ARNN_SPAN),
+                      wall, card)
     return engine, launches
 
 
@@ -1108,27 +1140,8 @@ def phase_arnn_http(main_engine, engine, card: str) -> dict:
                               arnn_engine=engine)
     port = server.start()
     try:
-        results, errors = [None] * len(reqs), []
-
-        def client(i):
-            try:
-                results[i] = np.asarray(
-                    _http(port, "POST", "/v1/arnn/inpaint", reqs[i])["tokens"])
-            except Exception as exc:  # noqa: BLE001 — re-raised below
-                errors.append(exc)
-
-        def drive():
-            t0 = time.perf_counter()
-            threads = [threading.Thread(target=client, args=(i,)) for i in range(len(reqs))]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=300)
-            if errors or any(t.is_alive() for t in threads):
-                raise RuntimeError(f"ARNN HTTP clients failed: {errors[:3]}")
-            return time.perf_counter() - t0
-
-        wall, launches = _launches_during([arnn_sampled_decode], drive)
+        (results, wall), launches = _launches_during(
+            [arnn_sampled_decode], lambda: _burst(port, "/v1/arnn/inpaint", reqs, "tokens"))
         health = _http(port, "GET", "/healthz")
         for req, got in zip(reqs, results):
             want = engine.inpaint_hetero([req], bucket=pin)[0]
@@ -1147,6 +1160,413 @@ def phase_arnn_http(main_engine, engine, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# K8, the generic GRU layer, and the paths that run it: the "pallas" GRU
+# route of the LatentRNN engine, and the autoregressive LatentRNN
+# ---------------------------------------------------------------------------
+# K8 is held to ``gru_kernel.BOUNDS`` (PERF.md gives the readings).
+# (label, rows, steps, hidden, mask, outputs): the context GRUs (n_bars
+# steps, H 512; the last layer reads h_n only), the generation GRU (6
+# target steps, H 512 x 2 layers), the autoregressive generation step, and
+# the decoder's beat GRU (4 beats, H 512, unmasked, from h0 = selu(linear(z)))
+# over the engine's decode rows (max_target 6 a request), and over one
+# measure a request at each autoregressive step
+GRU_LAYER_SHAPES = [("context", BATCH, N_BARS, 512, "context", True),
+                    ("context h_n", BATCH, N_BARS, 512, "context", False),
+                    ("generation", BATCH, 6, 1024, "target", True),
+                    ("step", BATCH, 1, 1024, None, True),
+                    ("step", 1, 1, 1024, None, True),
+                    ("beat", BATCH * 6, 4, 512, None, True),
+                    ("beat", BATCH, 4, 512, None, True)]
+GRU_YARDSTICK_IN = 256  # cuDNN's input width: z, the context GRUs' and the step's layer-0 input
+
+
+def k8_launches_per_call(max_target: int, auto_reg: bool) -> int:
+    """K8 launches of one engine call under "pallas": the two context GRUs
+    (2 layers x 2 directions each), the generation GRU (2 x 2: once, or
+    once per target step when autoregressive), and the decoder's beat GRU
+    (2 layers, one direction) in each decode call."""
+    decodes = max_target if auto_reg else 1
+    return 2 * 4 + decodes * 4 + decodes * 2
+
+
+def gru_layer_ops(rows: int, steps: int, hidden: int) -> float:
+    """Multiply-adds x 2 of K8 per call: the (H, 3H) recurrent product per
+    row and step (the input projection is computed outside)."""
+    return 2.0 * steps * rows * hidden * 3 * hidden
+
+
+def _gru_layer_inputs(seed: int, rows: int, steps: int, hidden: int, dtype, mask_kind):
+    """K8's inputs made on the card from a seed: xw at a layer input's
+    projection scale, W_hh at Xavier's, and the engine's masks: "context"
+    suffix lengths 0..steps (0: the all-zero row of "no future context"),
+    "target" lengths 1..steps, or none."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device="cuda")).to(dtype)
+
+    args = [randn(rows, steps, 3 * hidden, scale=0.5),
+            randn(hidden, 3 * hidden, scale=(2.0 / (4 * hidden)) ** 0.5),
+            randn(3 * hidden, scale=0.1), randn(rows, hidden, scale=0.5)]
+    mask = None
+    if mask_kind is not None:
+        low = 0 if mask_kind == "context" else 1
+        lengths = torch.randint(low, steps + 1, (rows,), generator=g, device="cuda")
+        mask = (torch.arange(steps, device="cuda")[None] < lengths[:, None]).float()
+    return (*args, mask)
+
+
+def cudnn_gru_layer_ms(args, dtype) -> float:
+    """K8's recurrence through one PyTorch call, timed as a yardstick only
+    (the port never calls it): cuDNN's one-direction ``torch.nn.GRU(256,
+    H)`` with the same W_hh and b_hh, over the same rows and steps from the
+    same h0, unmasked, on a random x (no PyTorch call takes xw and a hold
+    mask; it also computes the input projection, which K8 is given)."""
+    xw, w_hh, b_hh, h0, _ = args
+    rows, steps, hidden = xw.shape[0], xw.shape[1], w_hh.shape[0]
+    net = torch.nn.GRU(GRU_YARDSTICK_IN, hidden, 1, batch_first=True).to(
+        device="cuda", dtype=dtype).eval()
+    with torch.no_grad():
+        net.weight_hh_l0.copy_(w_hh.t())
+        net.bias_hh_l0.copy_(b_hh)
+        net.flatten_parameters()
+        x = torch.randn((rows, steps, GRU_YARDSTICK_IN), device="cuda", dtype=dtype)
+        return cuda_ms(lambda: net(x, h0[None]), 3)
+
+
+@contextlib.contextmanager
+def _k8_tile(lk, tile):
+    """K8's bf16 route takes ``tile`` rows a block inside (None: its own
+    choice, ``gru_kernel.bf16_tile_rows``)."""
+    chosen = lk.bf16_tile_rows
+    if tile is not None:
+        lk.bf16_tile_rows = lambda *shape: tile
+    try:
+        yield
+    finally:
+        lk.bf16_tile_rows = chosen
+
+
+def phase_gru_layer_kernel(card: str) -> dict:
+    """K8 against its plain version at ``GRU_LAYER_SHAPES``, f32 and bf16
+    (both row tiles), forward and reverse; the planted faults; the times of
+    the forward direction, bf16 at each tile. -> the report entry of the
+    bf16 context shape."""
+    from inpaintnet_tpu_torch.ops import gru_kernel as lk
+
+    report = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bound = lk.BOUNDS[dtype]
+        tiles = (16, 32) if dtype == torch.bfloat16 else (None,)
+        for i, (label, rows, steps, hidden, mask_kind, outputs) in enumerate(GRU_LAYER_SHAPES):
+            args = _gru_layer_inputs(20 + i, rows, steps, hidden, dtype, mask_kind)
+            shape = f"{dtype} {label} rows {rows} steps {steps} H {hidden} outputs {outputs}"
+            plain = {rev: lk.gru_layer_reference(*args, reverse=rev, want_ys=outputs)
+                     for rev in (True, False)}
+            got = {}
+            for tile in tiles:
+                with _k8_tile(lk, tile):
+                    for reverse in (True, False):
+                        out = lk.gru_layer_stream(*args, reverse=reverse, want_ys=outputs)
+                        agree = lk.agreement(out, plain[reverse])
+                        print(f"[gru-layer] {shape} tile {tile or 16} reverse {reverse}: {agree} "
+                              f"(bound {bound})", flush=True)
+                        if not lk.within(agree, bound) or not bool(torch.isfinite(
+                                out[1].float()).all()):
+                            raise RuntimeError(f"K8 disagrees with its plain version: {shape}")
+                        if mask_kind == "context":
+                            held = args[4].sum(dim=1) == 0
+                            if not (held.any() and torch.equal(out[1][held], args[3][held])):
+                                raise RuntimeError(f"K8's all-zero rows do not return h0: {shape}")
+                        got[tile, reverse] = out, agree
+            chosen = None if dtype == torch.float32 else lk.bf16_tile_rows(
+                rows, hidden, torch.cuda.get_device_properties(0).multi_processor_count)
+            out, agree = got[chosen, False]
+            faults = {}
+            if args[4] is not None:
+                m = args[4]
+                faults["mask read one step late"] = lk.gru_layer_reference(
+                    *args[:4], torch.cat([m[:, :1], m[:, :-1]], dim=1), want_ys=outputs)
+            if dtype == torch.bfloat16 and steps > 1:
+                carry = lk.carry
+                lk.carry = lambda h, dtype: h
+                try:
+                    faults["carry kept in f32"] = lk.gru_layer_reference(*args, want_ys=outputs)
+                finally:
+                    lk.carry = carry
+            for name, planted in faults.items():
+                f_agree = lk.agreement(out, planted)
+                print(f"[gru-layer] planted fault {shape}, {name}: {f_agree}", flush=True)
+                if lk.within(f_agree, bound):
+                    raise RuntimeError(f"a planted K8 fault passes the bounds: {shape}, {name}")
+            tile_ms = {}
+            for tile in tiles:
+                with _k8_tile(lk, tile):
+                    tile_ms[tile] = cuda_ms(lambda: lk.gru_layer_stream(*args, want_ys=outputs), 5)
+            ms = tile_ms[chosen]
+            plain_ms = cuda_ms(lambda: lk.gru_layer_reference(*args, want_ys=outputs), 2)
+            library_ms = cudnn_gru_layer_ms(args, dtype)
+            moved = nbytes([a for a in args if a is not None], [o for o in out if o is not None])
+            b = bound_of(gru_layer_ops(rows, steps, hidden),
+                         "bf16" if dtype == torch.bfloat16 else "f32", moved)
+            by_tile = "" if chosen is None else " (" + ", ".join(
+                f"tile {t} {v:.3f} ms" for t, v in tile_ms.items()) + f"; chosen {chosen})"
+            print(f"[time] gru_layer_stream {shape}: kernel {ms:.3f} ms{by_tile}, plain "
+                  f"{plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); cuDNN "
+                  f"torch.nn.GRU({GRU_YARDSTICK_IN}, {hidden}) one direction, unmasked, "
+                  f"yardstick {library_ms:.3f} ms | {card}", flush=True)
+            if dtype == torch.bfloat16 and label == "context":
+                report["gru_layer_stream"] = {"max_abs_err": agree["max_abs_err"], "ms": ms,
+                                              "plain_ms": plain_ms, **b,
+                                              "library_ms": library_ms}
+    return report
+
+
+def _eager_gru_steps(fn):
+    """-> (fn(), how many eager GRU steps ``ops/gru.py``'s loop ran)."""
+    from inpaintnet_tpu_torch.ops import gru as gru_mod
+
+    real, count = gru_mod.gru_gates, [0]
+
+    def counted(*a):
+        count[0] += 1
+        return real(*a)
+
+    gru_mod.gru_gates = counted
+    try:
+        return fn(), count[0]
+    finally:
+        gru_mod.gru_gates = real
+
+
+def _route_calls(engine, requests, impl: str, auto_reg: bool):
+    """Each request once under the GRU route ``impl``, checked, with its K8
+    launches and eager GRU steps asserted. -> {label: response}"""
+    from inpaintnet_tpu_torch.ops.gru import gru_impl_scope
+    from inpaintnet_tpu_torch.ops.gru_kernel import gru_layer_stream
+
+    outs = {}
+    with gru_impl_scope(impl):
+        for label, tokens, start, num in requests:
+            before = gru_layer_stream.launches
+            out, steps = _eager_gru_steps(lambda: engine.inpaint(tokens, start, num, seed=5))
+            k8 = gru_layer_stream.launches - before
+            _check_response(out, tokens, start, num)
+            want = k8_launches_per_call(engine.max_target, auto_reg) if impl == "pallas" else 0
+            print(f"[gru-route] {impl} {label}: K8 launches {k8} (expected {want}), eager GRU "
+                  f"steps {steps}", flush=True)
+            if k8 != want or (steps == 0) != (impl == "pallas"):
+                raise RuntimeError(f"the {impl} route of {label} took the wrong GRU path")
+            outs[label] = out
+    return outs
+
+
+def phase_gru_routes(engine, card: str) -> None:
+    """The bf16 LatentRNN engine (non-autoregressive) under ``"pallas"``
+    beside ``"xla"``, one run: K8 launches per call and eager GRU steps
+    asserted; the batch-2048 (6/4/6) wall and the batch-1 p50 timed in turns
+    (xla, pallas, pallas, xla); a profile of each."""
+    from inpaintnet_tpu_torch.ops.gru import gru_impl_scope
+
+    rng = np.random.default_rng(13)
+    requests = [(f"batch {BATCH} 6/4/6", *_request(rng, BATCH, N_PAST, N_TARGET, N_FUTURE)),
+                ("batch 1 7/2/7", *_request(rng, 1, 7, 2, 7))]
+    outs = {impl: _route_calls(engine, requests, impl, False) for impl in ("xla", "pallas")}
+    big, one = requests[0][1:], requests[1][1:]
+    same = (outs["xla"][requests[0][0]] == outs["pallas"][requests[0][0]]).mean()
+    print(f"[gru-route] pallas and xla agree on {same:.4f} of the batch-{BATCH} tokens (bf16 "
+          "rounds otherwise on the two routes; random weights: printed, no limit)", flush=True)
+    walls = {"xla": ([], []), "pallas": ([], [])}
+    for impl in ("xla", "pallas", "pallas", "xla"):
+        with gru_impl_scope(impl):
+            walls[impl][0].append(cuda_ms(lambda: engine.inpaint(*big, seed=5), 3))
+            walls[impl][1].extend(cuda_ms(lambda: engine.inpaint(*one, seed=5), 1)
+                                  for _ in range(10))
+    for impl, (w_big, w_one) in walls.items():
+        t_big, p50 = float(np.median(w_big)), float(np.median(w_one))
+        print(f"[time] engine bf16 GRU route {impl}: batch {BATCH} 6/4/6 {t_big:.2f} ms per call, "
+              f"{BATCH * N_TARGET / (t_big / 1e3):.1f} measures/s; batch 1 p50 {p50:.2f} ms "
+              f"(p90 {np.percentile(w_one, 90):.2f} ms) | {card}", flush=True)
+        with gru_impl_scope(impl):
+            _profile_line(f"engine bf16 {impl} batch {BATCH}",
+                          lambda: engine.inpaint(*big, seed=5), t_big, card, top=6)
+            _profile_line(f"engine bf16 {impl} batch 1", lambda: engine.inpaint(*one, seed=5),
+                          p50, card, top=6)
+
+
+def phase_autoreg_reference(card: str) -> None:
+    """The autoregressive LatentRNN on the card (K1, K2, K8) against the
+    same model on the CPU (plain versions), f32, H 64 (generation hidden
+    128), the same injected context and re-encode noise, under
+    ``"pallas"``: z and tokens, and K8's launches."""
+    from inpaintnet_tpu_torch.models.base import cast_params
+    from inpaintnet_tpu_torch.models.presets import build_flagship
+    from inpaintnet_tpu_torch.ops.gru import gru_impl_scope
+    from inpaintnet_tpu_torch.ops.gru_kernel import gru_layer_stream
+
+    _, _, model = build_flagship(hidden=64, z_dim=16, seed=3, device="cpu", auto_reg=True)
+    rng = np.random.default_rng(14)
+    b, mt = 4, model.max_target
+    past = rng.integers(0, VOCAB, (b, N_BARS, 24)).astype(np.int32)
+    future = rng.integers(0, VOCAB, (b, N_BARS, 24)).astype(np.int32)
+    pm = (np.arange(N_BARS) < np.array([[1], [6], [16], [3]])).astype(np.float32)
+    fm = (np.arange(N_BARS) < np.array([[0], [6], [16], [9]])).astype(np.float32)
+    tm = (np.arange(mt) < N_TARGET)[None].repeat(b, 0).astype(np.float32)
+    eps = rng.standard_normal((b * 2 * N_BARS, model.z_dim)).astype(np.float32)
+    eps_steps = rng.standard_normal((mt - 1, b, model.z_dim)).astype(np.float32)
+
+    def run(dev):
+        params = cast_params(model.params(), dev, torch.float32)
+        vae_params = cast_params(model.vae_model.params(), dev, torch.float32)
+        a = [torch.from_numpy(x).to(dev) for x in (past, future, pm, fm, tm, eps, eps_steps)]
+        with torch.inference_mode(), gru_impl_scope("pallas"):
+            lg, s, z = model.apply(params, vae_params, a[0], a[1], None, past_mask=a[2],
+                                   future_mask=a[3], target_mask=a[4], eps=a[5], eps_steps=a[6])
+        return lg.cpu(), s.cpu(), z.cpu()
+
+    before = gru_layer_stream.launches
+    (lg, s, z), (_, s_cpu, z_cpu) = run("cuda"), run("cpu")
+    k8 = gru_layer_stream.launches - before
+    err, agree = (z - z_cpu).abs().max().item(), (s == s_cpu).float().mean().item()
+    print(f"[autoreg-reference] f32 H 64, card vs CPU plain: gen z max_abs_err {err:.3e} (bound "
+          f"1e-5), tokens equal {agree:.4f} (bound 1), finite {bool(torch.isfinite(lg).all())}; "
+          f"K8 launches {k8} | {card}", flush=True)
+    if not (err <= 1e-5 and agree == 1.0 and bool(torch.isfinite(lg).all())):
+        raise RuntimeError("the autoregressive path on the card disagrees with the CPU")
+    if k8 != k8_launches_per_call(mt, True):
+        raise RuntimeError(f"the autoregressive path launched K8 {k8} times")
+
+
+def phase_autoreg_engine(card: str):
+    """The autoregressive flagship engine, bf16, under ``"pallas"``: three
+    requests checked, K1/K2/K8 launches per call asserted (1 context encode
+    + max_target - 1 re-encodes, max_target decodes, and
+    ``k8_launches_per_call``), tiled variations, then the times and a profile
+    of each batch. -> (engine, {kernel: launches})"""
+    from inpaintnet_tpu_torch.models.presets import build_flagship
+    from inpaintnet_tpu_torch.ops.encoder_kernel import encoder_hn
+    from inpaintnet_tpu_torch.ops.decode_kernel import decode_sampling
+    from inpaintnet_tpu_torch.ops.gru import gru_impl_scope
+    from inpaintnet_tpu_torch.ops.gru_kernel import gru_layer_stream
+    from inpaintnet_tpu_torch.serve import InpaintingEngine
+
+    _, _, model = build_flagship(seed=0, device="cuda", auto_reg=True)
+    engine = InpaintingEngine(model, batch_buckets=BUCKETS, dtype="bfloat16", device="cuda")
+    mt = engine.max_target
+    kernels = (encoder_hn, decode_sampling, gru_layer_stream)
+    want = {"encoder_hn": mt, "decode_sampling": mt,
+            "gru_layer_stream": k8_launches_per_call(mt, True)}
+    rng = np.random.default_rng(15)
+    requests = [("batch 1, 2-measure span", *_request(rng, 1, 7, 2, 7)),
+                ("batch 8, 6/4/6", *_request(rng, 8, N_PAST, N_TARGET, N_FUTURE)),
+                (f"batch {BATCH}, 6/4/6", *_request(rng, BATCH, N_PAST, N_TARGET, N_FUTURE))]
+    with gru_impl_scope("pallas"):
+        engine.warmup()
+
+        def serve():
+            for label, tokens, start, num in requests:
+                before = [k.launches for k in kernels]
+                out = engine.inpaint(tokens, start, num, seed=11)
+                got = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
+                _check_response(out, tokens, start, num)
+                if not np.array_equal(out, engine.inpaint(tokens, start, num, seed=11)):
+                    raise RuntimeError(f"autoregressive {label}: the same seed gave other tokens")
+                if got != want:
+                    raise RuntimeError(f"autoregressive {label}: launches {got}, expected {want}")
+                print(f"[autoreg-engine] bf16 {label}: ok, launches a call {got}, "
+                      f"{(out[:, start:start + num] != tokens[:, start:start + num]).mean():.3f} "
+                      f"of span tokens differ from the input", flush=True)
+            tokens, start, num = requests[1][1:]
+            var = engine.inpaint_variations(tokens, start, num, num_variations=3, seed=2)
+            for v in var:
+                _check_response(v, tokens, start, num)
+            if len({v[:, start:start + num].tobytes() for v in var}) != 3:
+                raise RuntimeError("autoregressive variations are not distinct draws")
+
+        _, launches = _launches_during(kernels, serve)
+        print(f"[autoreg-engine] launches during the requests: {launches}", flush=True)
+        big, one = requests[2][1:], requests[0][1:]
+        t_big = cuda_ms(lambda: engine.inpaint(*big, seed=5), 3)
+        lat = [cuda_ms(lambda: engine.inpaint(*one, seed=5), 1) for _ in range(20)]
+        print(f"[time] autoreg engine bf16 pallas batch {BATCH} 6/4/6: {t_big:.2f} ms per call, "
+              f"{BATCH * N_TARGET / (t_big / 1e3):.1f} measures/s | {card}", flush=True)
+        print(f"[time] autoreg engine bf16 pallas batch 1 2-measure: p50 {np.median(lat):.2f} ms "
+              f"(p90 {np.percentile(lat, 90):.2f} ms) | {card}", flush=True)
+        _profile_line(f"autoreg bf16 batch {BATCH}", lambda: engine.inpaint(*big, seed=5),
+                      t_big, card)
+        _profile_line("autoreg bf16 batch 1", lambda: engine.inpaint(*one, seed=5),
+                      float(np.median(lat)), card)
+        _k8_tile_device_ms(engine, {f"batch {BATCH}": big, "batch 1": one}, card)
+    return engine, launches
+
+
+def _k8_tile_device_ms(engine, requests: dict, card: str) -> None:
+    """K8's device time in one call of each request (``torch.profiler``),
+    with ``gru_kernel.bf16_tile_rows`` and with 32-row tiles everywhere, in
+    turns (chosen, 32, 32, chosen): the choice held on the call's launch
+    mix. At one row both arms run the same tiles, so their spread is the
+    measurement's own."""
+    from inpaintnet_tpu_torch.ops import gru_kernel as lk
+
+    for label, req in requests.items():
+        k8 = {None: [], 32: []}
+        for tile in (None, 32, 32, None):
+            with _k8_tile(lk, tile):
+                rows = _profile_step(lambda: engine.inpaint(*req, seed=5))[2]
+            k8[tile].append(sum(ms for name, ms, _ in rows if "gru_layer_" in name))
+        print(f"[k8-tile] autoreg bf16 {label}: K8 device ms a call, bf16_tile_rows "
+              f"{[round(v, 3) for v in k8[None]]}, 32 rows everywhere "
+              f"{[round(v, 3) for v in k8[32]]} | {card}", flush=True)
+
+
+def phase_autoreg_http(engine, card: str) -> dict:
+    """The port's HTTP server over the autoregressive engine, under
+    ``"pallas"``, dynamic batching pinned to bucket 64: 16 concurrent
+    ``/v1/inpaint`` responses must equal the solo ``inpaint_hetero``, and
+    variation 0 of ``/v1/inpaint_variations`` the seeded ``/v1/inpaint``."""
+    from inpaintnet_tpu_torch.ops.encoder_kernel import encoder_hn
+    from inpaintnet_tpu_torch.ops.decode_kernel import decode_sampling
+    from inpaintnet_tpu_torch.ops.gru import gru_impl_scope
+    from inpaintnet_tpu_torch.ops.gru_kernel import gru_layer_stream
+    from inpaintnet_tpu_torch.server import InpaintingServer
+
+    pin = 64
+    rng = np.random.default_rng(16)
+    reqs = []
+    for i in range(16):
+        m = int(rng.integers(4, N_BARS + 1))
+        num = int(rng.integers(1, min(engine.max_target, m - 1) + 1))
+        reqs.append({"tokens": rng.integers(0, VOCAB, (int(rng.integers(1, 4)), m, 24)),
+                     "start_measure": int(rng.integers(1, m - num + 1)), "num_measures": num,
+                     "seed": 3000 + i})
+    with gru_impl_scope("pallas"):
+        engine.warmup(buckets=(pin,), hetero=True)
+        server = InpaintingServer(engine, port=0, batching=True, pin_bucket=pin)
+        port = server.start()
+        try:
+            (results, wall), launches = _launches_during(
+                (encoder_hn, decode_sampling, gru_layer_stream),
+                lambda: _burst(port, "/v1/inpaint", reqs, "tokens"))
+            calls = _http(port, "GET", "/healthz")["batching"]["calls"]
+            for req, got in zip(reqs, results):
+                if not np.array_equal(got, engine.inpaint_hetero([req], bucket=pin)[0]):
+                    raise RuntimeError(f"an autoregressive /v1/inpaint response differs from the "
+                                       f"solo inpaint_hetero (seed {req['seed']})")
+            one = {**reqs[0], "seed": 77}
+            var = np.asarray(_http(port, "POST", "/v1/inpaint_variations",
+                                   {**one, "num_variations": 3})["variations"])
+            if not np.array_equal(var[0], np.asarray(_http(port, "POST", "/v1/inpaint",
+                                                           one)["tokens"])):
+                raise RuntimeError("autoregressive variation 0 differs from the seeded /v1/inpaint")
+        finally:
+            server.stop()
+    print(f"[autoreg-http] {len(reqs)} concurrent /v1/inpaint: every response equals the solo "
+          f"inpaint_hetero at bucket {pin}; {calls} coalesced device calls; {wall * 1e3:.1f} ms "
+          f"wall; variation 0 == /v1/inpaint; launches {launches} | {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -1156,7 +1576,7 @@ def main() -> int:
     report = phase_kernels(vae, model.max_target, card)
     report.update(phase_train_kernels(card))
     phase_reference(model)
-    _, launches, span_bf16 = phase_engine(model, "bfloat16", card)
+    engine16, launches, span_bf16 = phase_engine(model, "bfloat16", card)
     engine8, launches8, span_int8 = phase_engine(model, "int8", card)
     print(f"[engine] int8 and bf16 agree on {(span_int8 == span_bf16).mean():.4f} of the "
           f"batch-{BATCH} span tokens (random weights: printed, no limit)", flush=True)
@@ -1169,6 +1589,14 @@ def main() -> int:
     arnn_engine, launches_arnn = phase_arnn_engine(arnn, card)
     launches_arnn_http = phase_arnn_http(engine8, arnn_engine, card)
     del engine8, arnn_engine
+    report.update(phase_gru_layer_kernel(card))
+    phase_gru_routes(engine16, card)
+    del engine16
+    phase_autoreg_reference(card)
+    ar_engine, launches_ar = phase_autoreg_engine(card)
+    launches_ar_http = phase_autoreg_http(ar_engine, card)
+    del ar_engine
+    torch.cuda.empty_cache()
     phase_train_reference(card)
     launches_train = phase_trainer(card)
     sources = {
@@ -1185,13 +1613,17 @@ def main() -> int:
                         launches_train),
         "arnn_sampled_decode": ("arnn_decode.cu", "inpaintnet_tpu/ops/arnn_pallas.py:132",
                                 launches_arnn),
+        "gru_layer_stream": ("gru_layer.cu", "inpaintnet_tpu/ops/gru_pallas.py:82", launches_ar),
     }
     kernels = [{"name": name, "route": "cuda",
                 "source": f"inpaintnet_tpu_torch/ops/csrc/{src}", "replaces": replaces,
                 "launches": runs[name], **report[name]}
                for name, (src, replaces, runs) in sources.items()]
-    print(f"[launches] HTTP path: {launches_http}; ARNN HTTP path: {launches_arnn_http}",
-          flush=True)
+    # K8's kernel also serves the two TPU kernels of the same function (K9, K10)
+    kernels[-1]["also_replaces"] = ["inpaintnet_tpu/ops/gru_pallas.py:296",
+                                    "inpaintnet_tpu/ops/gru_pallas.py:363"]
+    print(f"[launches] HTTP path: {launches_http}; ARNN HTTP path: {launches_arnn_http}; "
+          f"autoregressive HTTP path: {launches_ar_http}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

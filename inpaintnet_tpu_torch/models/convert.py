@@ -70,15 +70,17 @@ def measure_vae_leaves(enc_layers: int, dec_layers: int) -> List[Leaf]:
     ]
 
 
-def latent_rnn_leaves(num_layers: int) -> List[Leaf]:
-    """The non-autoregressive LatentRNN's own leaves (its frozen VAE sits
-    under the ``vae_model.`` prefix)."""
+def latent_rnn_leaves(num_layers: int, auto_reg: bool = False) -> List[Leaf]:
+    """A LatentRNN's own leaves (its frozen VAE sits under the
+    ``vae_model.`` prefix). An autoregressive model has no ``x_0`` (its
+    generation GRU reads z); the ablations have the same keys at other
+    widths."""
     return [
         *_gru(("context_rnn_past",), "context_rnn_past", num_layers, 2),
         *_gru(("context_rnn_future",), "context_rnn_future", num_layers, 2),
         *_gru(("generation_rnn",), "generation_rnn", num_layers, 2),
         *_linear(("generation_linear",), "generation_linear"),
-        (("x_0",), "x_0", False),
+        *([] if auto_reg else [(("x_0",), "x_0", False)]),
     ]
 
 
@@ -126,14 +128,16 @@ def _float32_state_dict(trees, leaves: List[Leaf]) -> Dict[str, torch.Tensor]:
 
 def from_jax_params(vae_params_np: Mapping, latent_params_np: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX package's MeasureVAE and LatentRNN parameters (numpy leaves)
-    -> a float32 ``state_dict`` of the port's ``LatentRNN``, keyed like
-    ``export_latent_rnn(params, vae_params)``."""
+    -> a float32 ``state_dict`` of the port's ``LatentRNN`` (or
+    ``LatentRNNAblations``), keyed like ``export_latent_rnn(params,
+    vae_params)``: autoregressive when the parameters hold no ``x_0``."""
     leaves = (
         [(("vae",) + p, f"vae_model.{k}", t)
          for p, k, t in measure_vae_leaves(len(vae_params_np["encoder"]["gru"]),
                                            len(vae_params_np["decoder"]["tick_gru"]))]
         + [(("latent",) + p, k, t)
-           for p, k, t in latent_rnn_leaves(len(latent_params_np["context_rnn_past"]))]
+           for p, k, t in latent_rnn_leaves(len(latent_params_np["context_rnn_past"]),
+                                            auto_reg="x_0" not in latent_params_np)]
     )
     return _float32_state_dict({"vae": vae_params_np, "latent": latent_params_np}, leaves)
 

@@ -1,13 +1,26 @@
-"""LatentRNN (InpaintNet), non-autoregressive inference, over a frozen
-MeasureVAE (``inpaintnet_tpu/models/latent_rnn.py``).
+"""LatentRNN (InpaintNet) inference over a frozen MeasureVAE, and its
+past-only / future-only ablations (``inpaintnet_tpu/models/latent_rnn.py``).
 
 Past and future contexts sit in fixed buffers of ``max_measures`` with
 per-row validity masks; the target in a ``max_target`` buffer. The masked
-GRU loops (``ops/gru.py``) make the padded runs equal the unpadded ones.
-The per-measure ``rsample`` of the context latents is the only random draw:
-from a ``torch.Generator``, from per-row keys (``row_keys``: each row's noise
-depends on its own key alone, the serving engine's coalescing contract), or
-given by the caller (``eps``).
+GRUs (``ops/gru.py``) make the padded runs equal the unpadded ones.
+
+Generation, at inference:
+- non-autoregressive (the shipped config): one bidirectional GRU pass over
+  a learned constant input ``x_0``, then one batched frozen decode;
+- autoregressive (``auto_reg=True``): the generation GRU's input is a z; a
+  loop over the target measures runs it one step from the carried hidden,
+  decodes that step's z, and re-encodes the sampled measure as the next
+  input, starting from the last valid past measure's z. The final
+  iteration is peeled: its re-encode would feed nothing, so it never runs.
+
+The random draws are the rsamples of the context latents and, when
+autoregressive, of each re-encode. Each comes from a ``torch.Generator``,
+from per-row keys (``row_keys``: each row's noise depends on its own key
+alone, the serving engine's coalescing contract; an autoregressive model
+splits a row's key into a context stream and a re-encode stream,
+``ops/distributions.row_split``), or from the caller (``eps``,
+``eps_steps``: the parity tests pass the JAX package's draws).
 
 ``quant`` ("none" or "int8") selects the frozen VAE's kernels: "int8" runs
 K3/K4 (``ops/encoder_kernel.py``, ``ops/decode_kernel.py``).
@@ -26,7 +39,7 @@ from inpaintnet_tpu_torch.models.measure_vae import (
     GRUWeights,
     MeasureVAE,
 )
-from inpaintnet_tpu_torch.ops.distributions import DiagNormal, row_normal
+from inpaintnet_tpu_torch.ops.distributions import DiagNormal, row_normal, row_split
 from inpaintnet_tpu_torch.ops.gru import gru_apply, gru_init
 from inpaintnet_tpu_torch.ops.linear import linear_apply, linear_init
 
@@ -34,14 +47,12 @@ from inpaintnet_tpu_torch.ops.linear import linear_apply, linear_init
 class LatentRNN(nn.Module):
     def __init__(self, vae_model: MeasureVAE, num_rnn_layers: int,
                  rnn_hidden_size: int, auto_reg: bool = False, max_target: int = 6,
-                 device=None):
+                 device="cuda"):
         super().__init__()
-        if auto_reg:
-            raise NotImplementedError(
-                "the autoregressive LatentRNN is not ported yet (ROADMAP queue 1 item 8)")
         self.vae_model = vae_model
         self.num_rnn_layers = num_rnn_layers
         self.rnn_hidden_size = rnn_hidden_size
+        self.auto_reg = auto_reg
         self.z_dim = vae_model.latent_space_dim
         self.max_target = max_target
         self.measure_seq_len = NUM_TICKS_PER_MEASURE
@@ -49,14 +60,21 @@ class LatentRNN(nn.Module):
         H, L, z = rnn_hidden_size, num_rnn_layers, self.z_dim
         self.context_rnn_past = GRUWeights(z, H, L, True, device)
         self.context_rnn_future = GRUWeights(z, H, L, True, device)
-        self.generation_rnn = GRUWeights(1, self.gen_hidden_size, L, True, device)
-        self.generation_linear = nn.Linear(4 * H, z, device=device)
-        self.x_0 = nn.Parameter(torch.empty((1, 1, 1), device=device))
+        self.generation_rnn = GRUWeights(self.gen_input_size, self.gen_hidden_size, L, True,
+                                         device)
+        self.generation_linear = nn.Linear(2 * self.gen_hidden_size, z, device=device)
+        if not auto_reg:
+            self.x_0 = nn.Parameter(torch.empty((1, 1, 1), device=device))
 
     @property
     def gen_hidden_size(self) -> int:
         # generation RNN hidden = H * num_layers
         return self.rnn_hidden_size * self.num_rnn_layers
+
+    @property
+    def gen_input_size(self) -> int:
+        # the previous measure's z when autoregressive, else the constant x_0
+        return self.z_dim if self.auto_reg else 1
 
     def _check_geometry(self):
         # The generation RNN's initial hidden is the concatenated context
@@ -69,19 +87,21 @@ class LatentRNN(nn.Module):
     def init_params(self, rng: np.random.Generator) -> dict:
         """Random parameters in the JAX package's layout, as numpy."""
         H, L, z = self.rnn_hidden_size, self.num_rnn_layers, self.z_dim
-        return {
+        params = {
             "context_rnn_past": gru_init(rng, z, H, L, True),
             "context_rnn_future": gru_init(rng, z, H, L, True),
-            "generation_rnn": gru_init(rng, 1, self.gen_hidden_size, L, True),
-            "generation_linear": linear_init(rng, 4 * H, z),
-            "x_0": rng.standard_normal((1, 1, 1)).astype(np.float32),
+            "generation_rnn": gru_init(rng, self.gen_input_size, self.gen_hidden_size, L, True),
+            "generation_linear": linear_init(rng, 2 * self.gen_hidden_size, z),
         }
+        if not self.auto_reg:
+            params["x_0"] = rng.standard_normal((1, 1, 1)).astype(np.float32)
+        return params
 
     def params(self) -> dict:
         """The LatentRNN's own nested (in, out) parameters (the VAE's come
         from ``vae_model.params()``)."""
         own = {k: v for k, v in self.state_dict().items() if not k.startswith("vae_model.")}
-        return to_functional(own, latent_rnn_leaves(self.num_rnn_layers))
+        return to_functional(own, latent_rnn_leaves(self.num_rnn_layers, self.auto_reg))
 
     # --- submodules ---------------------------------------------------------- #
     def get_z_seq(self, vae_params, measures: torch.Tensor, *,
@@ -110,8 +130,8 @@ class LatentRNN(nn.Module):
                              future_context: torch.Tensor, quant: str = "none"):
         """One frozen-encoder pass over past + future returning the
         per-measure posteriors without sampling, so a caller can draw many
-        variations from one encode (generation's only randomness is this
-        rsample: the argmax decode is deterministic).
+        variations from one encode (non-autoregressive generation's only
+        randomness is this rsample: the argmax decode is deterministic).
 
         :return: ((loc, scale) of the past, (loc, scale) of the future),
             each (B, M, z)
@@ -129,7 +149,7 @@ class LatentRNN(nn.Module):
                                     target_mask: torch.Tensor,
                                     generator: Optional[torch.Generator] = None,
                                     eps: Optional[tuple] = None, quant: str = "none"):
-        """Generation from cached context posteriors
+        """Non-autoregressive generation from cached context posteriors
         (:meth:`encode_context_dists`); distributed as :meth:`apply`.
 
         :param past_dist/future_dist: (loc, scale) pairs, (B, M, z) each
@@ -137,6 +157,9 @@ class LatentRNN(nn.Module):
             in place of draws from ``generator``
         :return: (weights, samples, gen_z) like :meth:`apply`
         """
+        if self.auto_reg:
+            raise ValueError("generate_from_context_dists serves the non-autoregressive "
+                             "config only (the autoregressive path re-encodes its samples)")
         eps_p, eps_f = eps if eps is not None else (None, None)
         zp = DiagNormal(*past_dist).rsample(generator=generator, eps=eps_p)
         zf = DiagNormal(*future_dist).rsample(generator=generator, eps=eps_f)
@@ -165,17 +188,21 @@ class LatentRNN(nn.Module):
               target_mask: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None,
               eps: Optional[torch.Tensor] = None,
+              eps_steps: Optional[torch.Tensor] = None,
               row_keys: Optional[torch.Tensor] = None,
               quant: str = "none"):
-        """Inference forward.
+        """Inference forward (the JAX package's ``apply(train=False)``).
 
         :param past_context: (B, Mp, 24) int tokens, padded; mask (B, Mp)
         :param future_context: (B, Mf, 24), padded; mask (B, Mf)
         :param target: (B, Mt, 24) or None; only its shape is read when
             ``target_mask`` is None
-        :param eps: optional (B * (Mp + Mf), z) rsample noise
-        :param row_keys: optional (B, 2) per-row keys of the rsample (see
-            :meth:`get_z_seq`)
+        :param eps: optional (B * (Mp + Mf), z) context rsample noise
+        :param eps_steps: optional (Mt - 1, B, z) noise of the
+            autoregressive re-encodes, one per step but the last
+        :param row_keys: optional (B, 2) per-row keys (see
+            :meth:`get_z_seq`); an autoregressive model splits each row's
+            key into a context stream and a per-step re-encode stream
         :param quant: "none" or "int8", the frozen VAE's kernels
         :return: (weights (B, Mt, 24, V), samples (B, Mt, 24), gen_z (B, Mt, z))
         """
@@ -189,29 +216,42 @@ class LatentRNN(nn.Module):
             if target is None:
                 raise ValueError("give target or target_mask: they set the target length")
             target_mask = past_context.new_ones((batch, target.shape[1]), dtype=torch.float32)
+        ctx_keys, scan_keys = row_keys, None
+        if row_keys is not None and self.auto_reg:
+            both = row_split(row_keys, 2)
+            ctx_keys, scan_keys = both[:, 0], both[:, 1]
 
         # One frozen-encoder pass over past + future. The target is never
-        # encoded: only the autoregressive teacher-forced branch reads its
-        # latents, so in this config that encode would be dead work.
+        # encoded: only the autoregressive teacher-forced (training) branch
+        # reads its latents, so at inference that encode would be dead work.
         z_all = self.get_z_seq(vae_params, torch.cat([past_context, future_context], dim=1),
-                               generator=generator, eps=eps, row_keys=row_keys, quant=quant)
+                               generator=generator, eps=eps, row_keys=ctx_keys, quant=quant)
         zp, zf = z_all[:, :max_past], z_all[:, max_past:]
         ctx_p = self.forward_context(params, zp, past_mask, "past")
         ctx_f = self.forward_context(params, zf, future_mask, "future")
-        return self._generate_parallel(params, vae_params,
-                                       self._combine_contexts(ctx_p, ctx_f), target_mask,
-                                       quant)
+        context = self._combine_contexts(ctx_p, ctx_f)
+        if not self.auto_reg:
+            return self._generate_parallel(params, vae_params, context, target_mask, quant)
+        # the last VALID past measure's z seeds the loop
+        last = (past_mask.sum(dim=1).long() - 1).clamp(min=0)
+        zp_last = zp.gather(1, last[:, None, None].expand(-1, 1, self.z_dim))
+        return self._generate_autoregressive(params, vae_params, context, target_mask.shape[1],
+                                             zp_last, generator=generator, eps_steps=eps_steps,
+                                             row_keys=scan_keys, quant=quant)
 
     def _decode_measures(self, vae_params, z_flat: torch.Tensor, quant: str = "none"):
         """Frozen-VAE argmax decode of (N, z) -> (logits (N,24,V), samples (N,24))."""
         return self.vae_model.decoder.decode_sampling(vae_params["decoder"], z_flat, quant)
 
     def _generate_parallel(self, params, vae_params, context: torch.Tensor,
-                           target_mask: torch.Tensor, quant: str = "none"):
-        """One bidirectional GRU pass over the target steps from a learned
-        constant input, initialised with the 2H-wide combined context."""
+                           target_mask: torch.Tensor, quant: str = "none",
+                           seed: Optional[torch.Tensor] = None):
+        """One bidirectional GRU pass over the target steps, initialised
+        with the combined context: from the learned constant input, or from
+        ``seed`` (B, Mt, z), the teacher-forced inputs of an autoregressive
+        model."""
         batch, max_t = context.shape[1], target_mask.shape[1]
-        gen_in = params["x_0"].expand(batch, max_t, 1)
+        gen_in = params["x_0"].expand(batch, max_t, 1) if seed is None else seed
         gen_out, _ = gru_apply(params["generation_rnn"], gen_in, context, mask=target_mask)
         z_out = linear_apply(params["generation_linear"], gen_out)  # (B, Mt, z)
         logits, samples = self._decode_measures(
@@ -221,3 +261,60 @@ class LatentRNN(nn.Module):
             samples.reshape(batch, max_t, self.measure_seq_len),
             z_out,
         )
+
+    def _generate_autoregressive(self, params, vae_params, context: torch.Tensor,
+                                 max_t: int, seed: torch.Tensor, *,
+                                 generator: Optional[torch.Generator] = None,
+                                 eps_steps: Optional[torch.Tensor] = None,
+                                 row_keys: Optional[torch.Tensor] = None,
+                                 quant: str = "none"):
+        """The decode -> re-encode loop over ``max_t`` target measures, the
+        final iteration peeled (no re-encode after the last decode).
+
+        :param seed: (B, 1, z) the first step's input
+        :param row_keys: optional (B, 2) re-encode stream keys: step ``i``
+            of row ``b`` draws from child ``i`` of ``row_keys[b]``
+        :return: as :meth:`apply`
+        """
+        step_keys = None if row_keys is None else row_split(row_keys, max_t)
+        hidden, gen_in = context, seed
+        logits, samples, zs = [], [], []
+        for i in range(max_t):
+            gen_out, hidden = gru_apply(params["generation_rnn"], gen_in, hidden)
+            z = linear_apply(params["generation_linear"], gen_out[:, 0])
+            lg, s = self._decode_measures(vae_params, z, quant)
+            logits.append(lg)
+            samples.append(s)
+            zs.append(z)
+            if i == max_t - 1:
+                break
+            gen_in = self.get_z_seq(
+                vae_params, s[:, None], generator=generator,
+                eps=None if eps_steps is None else eps_steps[i],
+                row_keys=None if step_keys is None else step_keys[:, i], quant=quant)
+        return torch.stack(logits, dim=1), torch.stack(samples, dim=1), torch.stack(zs, dim=1)
+
+
+class LatentRNNAblations(LatentRNN):
+    """Past-only / future-only conditioning ablation: one context feeds the
+    generation RNN, whose hidden is ``rnn_hidden_size`` (not scaled by
+    layers); ``generation_linear`` reads its 2H outputs."""
+
+    def __init__(self, vae_model: MeasureVAE, num_rnn_layers: int, rnn_hidden_size: int,
+                 auto_reg: bool = False, max_target: int = 6, device="cuda",
+                 type: str = "past"):
+        if type not in ("past", "future"):
+            raise ValueError(f"type must be 'past' or 'future', got {type!r}")
+        super().__init__(vae_model, num_rnn_layers, rnn_hidden_size, auto_reg, max_target,
+                         device)
+        self.type = type
+
+    @property
+    def gen_hidden_size(self) -> int:
+        return self.rnn_hidden_size
+
+    def _check_geometry(self):
+        pass  # one context's hidden (L*2, B, H) always matches
+
+    def _combine_contexts(self, ctx_p: torch.Tensor, ctx_f: torch.Tensor) -> torch.Tensor:
+        return ctx_p if self.type == "past" else ctx_f

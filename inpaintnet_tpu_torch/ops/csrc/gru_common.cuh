@@ -1,5 +1,5 @@
 // Shared device pieces of the hand-written GRU kernels (encoder_gru.cu,
-// decode_sampling.cu and their int8 twins encoder_gru_int8.cu,
+// decode_sampling.cu, gru_layer.cu and the int8 twins encoder_gru_int8.cu,
 // decode_sampling_int8.cu): the block-level "three gates at once" products
 // (bf16/f32 and int8), the [r, z, n] gate math, the int8 (de)quantization,
 // and the dtype traits.
@@ -90,8 +90,8 @@ __device__ __forceinline__ void zero_acc(A (&acc)[NG][MT][4]) {
 // FMAs (exact f32, no TF32).
 template <typename T, int MT, int NG> struct Gemm;
 
-template <int NG> struct Gemm<__nv_bfloat16, 2, NG> {
-  __device__ __forceinline__ static void run(float (&acc)[NG][2][4],
+template <int MT, int NG> struct Gemm<__nv_bfloat16, MT, NG> {
+  __device__ __forceinline__ static void run(float (&acc)[NG][MT][4],
                                              const __nv_bfloat16* A, int lda, int K,
                                              const void* W, int N, const int (&nt)[NG]) {
     (void)N;
@@ -107,7 +107,7 @@ template <int NG> struct Gemm<__nv_bfloat16, 2, NG> {
 #pragma unroll
       for (int G = 0; G < NG; ++G) b[G] = __ldg(p[G] + kt * 32);
 #pragma unroll
-      for (int m = 0; m < 2; ++m) {
+      for (int m = 0; m < MT; ++m) {
         const __nv_bfloat16* base = A + (16 * m + g) * lda + kt * 16 + 2 * q;
         uint32_t a[4];
         a[0] = *reinterpret_cast<const uint32_t*>(base);

@@ -1,6 +1,6 @@
 """Diagonal normal for the VAE latent (``inpaintnet_tpu/ops/distributions.py``),
-its KL to the standard normal, and the per-row noise of the serving
-engine's coalesced batches."""
+its KL to the standard normal, and the per-row noise and key splits of the
+serving engine's coalesced batches."""
 from __future__ import annotations
 
 import math
@@ -77,6 +77,28 @@ def row_bits(row_keys: torch.Tensor, n: int) -> torch.Tensor:
     key64 = (keys[:, 0] << 32) | keys[:, 1]
     idx = torch.arange(n, device=row_keys.device, dtype=torch.int64)
     return splitmix64(splitmix64(key64)[:, None] ^ idx[None, :])
+
+
+_SPLIT_TAG = _u64(0x5851F42D4C957F2D)  # sets the keys of row_split apart from row_bits' bits
+
+
+def row_split(row_keys: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, n, 2) child keys of uint32 values (in int64): child i of row b is
+    the 64-bit ``splitmix64(splitmix64(key_b ^ TAG) ^ i)``, split into its
+    high and low halves, a pure function of ``row_keys[b]`` and ``i``. The
+    port's counterpart of ``jax.vmap(jax.random.split)`` on per-row keys: it
+    gives a row independent streams (the autoregressive LatentRNN's context
+    and re-encode draws) that still depend on that row's key alone. ``TAG``
+    keeps the children apart from the noise bits :func:`row_bits` draws
+    from the same key.
+
+    :param row_keys: (B, 2) integer tensor of uint32 values
+    """
+    keys = row_keys.long()
+    key64 = (keys[:, 0] << 32) | keys[:, 1]
+    idx = torch.arange(n, device=row_keys.device, dtype=torch.int64)
+    h = splitmix64(splitmix64(key64 ^ _SPLIT_TAG)[:, None] ^ idx[None, :])
+    return torch.stack([_srl(h, 32), h & 0xFFFFFFFF], dim=-1)
 
 
 def _top23_uniform(bits: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""GRU recurrences as eager PyTorch loops (``inpaintnet_tpu/ops/gru.py``).
+"""GRU recurrences (``inpaintnet_tpu/ops/gru.py``).
 
 Same parameter layout as the JAX package, per stack:
     [layer][direction] -> {"w_ih": (in, 3H), "w_hh": (H, 3H),
@@ -10,27 +10,81 @@ Masks: a step whose mask is 0 keeps h and emits the held h, so a padded
 sequence ends on the hidden of its last valid step, and an all-zero mask
 (the serving engine's "no future context") leaves ``h0``. cuDNN's packed
 sequences cannot express either (they emit zeros at pad steps and take no
-all-empty sequence), so this is a loop, not ``nn.GRU``.
+all-empty sequence), so no route here is ``nn.GRU``.
 
-Training (``train=True``): an unmasked layer runs through the
-minimal-residual autograd Function of ``ops/gru_trainfast.py`` (K5 and K6
-on the card), as the JAX package's trainers scope every mask-free layer
-through ``gru_layer_trainfast`` (``inpaintnet_tpu/ops/gru.py:151-160``); a
-masked layer keeps the eager loop, which autograd differentiates. Between
-layers, ``dropout`` drops each output of every non-last layer with a keep
-mask drawn from an explicit ``torch.Generator`` (or given as
-``dropout_masks``), and scales the kept ones by ``1 / (1 - p)``
-(``gru.py:411-421``).
+The inference route of a layer, under the JAX package's names, so one
+``INPAINTNET_GRU_IMPL`` picks the same route in both packages (read once,
+at import; ``set_gru_impl``, ``gru_impl_scope`` or ``impl=`` override it):
+- ``"xla"`` (the default): an eager loop, the gates in the tensors' own
+  dtype (the JAX package's XLA scan);
+- ``"pallas"``: ``xw = x @ W_ih + b_ih`` as one ``torch.matmul`` outside
+  the recurrence, where the JAX package computes it
+  (``inpaintnet_tpu/ops/gru.py:193``), then K8 (``ops/gru_kernel.py
+  gru_layer_stream``: its plain version on the CPU). Its gates run in f32
+  with the carry rounded to the parameter dtype, so in bf16 it rounds
+  otherwise than ``"xla"``, as the JAX package's two routes do.
+The JAX package's ``"trainfast"`` names select its training route, which
+the port takes with ``train=True``: they leave the inference route at
+``"xla"``.
+
+Training (``train=True``, whatever the route): an unmasked layer runs
+through the minimal-residual autograd Function of ``ops/gru_trainfast.py``
+(K5 and K6 on the card), as the JAX package's trainers scope every
+mask-free layer through ``gru_layer_trainfast``
+(``inpaintnet_tpu/ops/gru.py:151-160``); a masked layer keeps the eager
+loop, which autograd differentiates. Between layers, ``dropout`` drops each
+output of every non-last layer with a keep mask drawn from an explicit
+``torch.Generator`` (or given as ``dropout_masks``), and scales the kept
+ones by ``1 / (1 - p)`` (``gru.py:411-421``).
 """
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from inpaintnet_tpu_torch.ops.distributions import draw
+from inpaintnet_tpu_torch.ops.gru_kernel import gru_layer_stream
 from inpaintnet_tpu_torch.ops.linear import xavier_normal
+
+_IMPLS = ("xla", "pallas")
+
+
+def _checked(impl: str) -> str:
+    if impl.startswith("trainfast"):
+        return "xla"
+    if impl not in _IMPLS:
+        raise ValueError(f"GRU route must be one of {_IMPLS} (or a trainfast name), got {impl!r}")
+    return impl
+
+
+_GRU_IMPL = os.environ.get("INPAINTNET_GRU_IMPL", "xla")
+
+
+def set_gru_impl(impl: str) -> None:
+    global _GRU_IMPL
+    _GRU_IMPL = _checked(impl)
+
+
+def get_gru_impl() -> str:
+    return _checked(_GRU_IMPL)
+
+
+@contextlib.contextmanager
+def gru_impl_scope(impl: Optional[str]):
+    """The inference route inside the ``with`` block (``None``: unchanged)."""
+    global _GRU_IMPL
+    if impl is None:
+        yield
+        return
+    old, _GRU_IMPL = _GRU_IMPL, _checked(impl)
+    try:
+        yield
+    finally:
+        _GRU_IMPL = old
 
 
 def gru_cell_init(rng: np.random.Generator, input_size: int, hidden_size: int) -> dict:
@@ -67,13 +121,16 @@ def gru_gates(params, h: torch.Tensor, xw: torch.Tensor) -> torch.Tensor:
 
 def gru_layer_apply(params, x: torch.Tensor, h0: torch.Tensor, *, reverse: bool = False,
                     mask: Optional[torch.Tensor] = None, want_ys: bool = True,
-                    train: bool = False):
+                    train: bool = False, impl: Optional[str] = None):
     """Single-direction GRU over a sequence.
 
     :param x: (B, T, in); h0: (B, H)
     :param reverse: run t = T-1 .. 0 (outputs stay in original order)
     :param mask: optional (B, T); steps with mask == 0 keep h
-    :param train: an unmasked layer runs the trainfast autograd Function
+    :param train: the training route (an unmasked layer runs the trainfast
+        autograd Function, a masked one the eager loop)
+    :param impl: the inference route, ``"xla"`` or ``"pallas"`` (default:
+        the global one, see the module docstring)
     :return: (outputs (B, T, H) or None, h_last (B, H))
     """
     if train and mask is None:
@@ -81,8 +138,11 @@ def gru_layer_apply(params, x: torch.Tensor, h0: torch.Tensor, *, reverse: bool 
 
         ys, h_last = gru_layer_trainfast(params, x, h0, reverse=reverse)
         return (ys if want_ys else None), h_last
-    seq_len = x.shape[1]
     xw = x @ params["w_ih"] + params["b_ih"]  # one product for all T
+    if not train and _checked(impl or _GRU_IMPL) == "pallas":
+        return gru_layer_stream(xw, params["w_hh"], params["b_hh"], h0.contiguous(), mask,
+                                reverse=reverse, want_ys=want_ys)
+    seq_len = x.shape[1]
     keep = None if mask is None else (mask > 0)[..., None]
     h = h0
     ys = [None] * seq_len
@@ -111,7 +171,7 @@ def gru_apply(params, x: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
               mask: Optional[torch.Tensor] = None, last_outputs: bool = True,
               dropout: float = 0.0, train: bool = False,
               dropout_masks: Optional[Sequence[torch.Tensor]] = None,
-              generator: Optional[torch.Generator] = None):
+              generator: Optional[torch.Generator] = None, impl: Optional[str] = None):
     """Multi-layer (bi)GRU over a sequence.
 
     :param params: nested list from ``gru_init`` (as tensors)
@@ -126,6 +186,7 @@ def gru_apply(params, x: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
     :param dropout_masks: optional bool keep masks, (B, T, H * num_dirs),
         one per non-last layer, used instead of drawing from ``generator``
     :param generator: draws the keep masks
+    :param impl: the inference route of every layer (see the module docstring)
     :return: (outputs (B, T, H * num_dirs) or None, h_n (L * D, B, H))
     """
     num_layers, num_dirs = len(params), len(params[0])
@@ -140,7 +201,7 @@ def gru_apply(params, x: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
         for d in range(num_dirs):
             o, h_last = gru_layer_apply(params[layer][d], out, h0[layer * num_dirs + d],
                                         reverse=(d == 1), mask=mask, want_ys=want_ys,
-                                        train=train)
+                                        train=train, impl=impl)
             outs.append(o)
             h_n.append(h_last)
         out = torch.cat(outs, dim=-1) if want_ys else None

@@ -1,0 +1,173 @@
+"""K8: one direction of a GRU layer over a precomputed input projection,
+with hold masks: the generic layer of the ``"pallas"`` GRU route
+(``ops/gru.py``).
+
+``gru_layer_stream`` is the CUDA kernel ``csrc/gru_layer.cu``, which
+replaces ``inpaintnet_tpu/ops/gru_pallas.py gru_layer_pallas_stream`` and the
+two TPU kernels of the same function, ``gru_layer_pallas`` (K9) and
+``gru_layer_pallas_dma`` (K10); the source says what bounds it on the card
+and how its design answers. ``gru_layer_reference`` is its plain PyTorch
+version, op for op the JAX kernel's (``_gru_stream_kernel``):
+
+- the carry h is held in the parameter dtype and rounded to it after every
+  step (:func:`carry`; K5's carry is f32);
+- ``hw = h @ W_hh`` takes h in the parameter dtype, accumulates in f32, and
+  adds ``b_hh`` in f32;
+- the gates run in f32 on ``xw`` and h upcast
+  (``kernel_common.gru_gates_f32``);
+- a step whose mask is 0 keeps h and emits the held h, so an all-zero row
+  returns ``h0``;
+- ``reverse`` runs t = T-1 .. 0; the outputs stay in time order.
+
+In bf16 the JAX package's K9 and K10 do not trace (their gate math promotes
+the carry to f32, which the kernels then store into a bf16 ref); K8 and
+this port run in bf16 and f32.
+
+:func:`agreement` holds a kernel's outputs against the plain version's: by
+the max absolute error, and in bf16 also by the share of elements that are
+not bit-equal (a carry kept in f32 moves a fifth or more of the elements by
+an ulp; a legitimate rounding flip, from another summation order, moves
+few).
+
+The wrapper runs the plain version for CPU tensors only; for CUDA tensors
+it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from inpaintnet_tpu_torch.ops.kernel_common import (
+    DTYPE_CODES,
+    check_cuda_tensor,
+    check_launch,
+    gru_gates_f32,
+    gru_layer_supports_hidden,
+    load_kernels,
+    pack_mma_b,
+    stream_ptr,
+)
+
+
+def carry(h_new: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """K8's carry from one step to the next: the f32 gate output rounded to
+    the parameter dtype (the JAX kernel's ``h_scratch`` is that dtype)."""
+    return h_new.to(dtype)
+
+
+def gru_layer_reference(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                        h0: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
+                        reverse: bool = False, want_ys: bool = True):
+    """Plain version of K8.
+
+    :param xw: (B, T, 3H) = x @ W_ih + b_ih; w_hh: (H, 3H); b_hh: (3H,);
+        h0: (B, H), all in the parameter dtype
+    :param mask: optional (B, T); a step whose mask is 0 keeps h
+    :param reverse: run t = T-1 .. 0 (outputs stay in time order)
+    :param want_ys: False returns no outputs, only the final hidden
+    :return: (outputs (B, T, H) or None, h_last (B, H)), parameter dtype
+    """
+    dtype = xw.dtype
+    seq_len, hidden = xw.shape[1], w_hh.shape[0]
+    whh, bhh = w_hh.float(), b_hh.float()
+    keep = None if mask is None else (mask > 0)[..., None]
+    h = h0
+    ys = [None] * seq_len
+    for t in (range(seq_len - 1, -1, -1) if reverse else range(seq_len)):
+        hw = h.to(dtype).float() @ whh + bhh
+        h_new = carry(gru_gates_f32(xw[:, t].float(), hw, h.float(), hidden), dtype)
+        h = h_new if keep is None else torch.where(keep[:, t], h_new, h)
+        ys[t] = h
+    if not want_ys:
+        return None, h.to(dtype)
+    return torch.stack(ys, dim=1).to(dtype), h.to(dtype)
+
+
+def bf16_tile_rows(rows: int, hidden: int, sms: int) -> int:
+    """Rows a block of K8's bf16 route owns on a card of ``sms`` SMs (the
+    f32 route's are 16): 16 where that makes more blocks (over 16 rows) and
+    32-row tiles would not fill one wave of the SMs, at H <= 512 (W_hh 1.5
+    MB); else 32. Each block streams all of W_hh from L2 every step, so
+    16-row tiles double the L2 bytes to use twice the SMs: that paid at H
+    512 and 2,048 rows, and lost at H 1024, at 12,288 rows and in a single
+    block (PERF.md gives the times of both tiles)."""
+    return 16 if hidden <= 512 and 16 < rows and -(-rows // 32) < sms else 32
+
+
+def gru_layer_stream(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                     h0: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
+                     reverse: bool = False, want_ys: bool = True):
+    """K8: arguments and result as :func:`gru_layer_reference`."""
+    if xw.device.type == "cpu":
+        return gru_layer_reference(xw, w_hh, b_hh, h0, mask, reverse=reverse, want_ys=want_ys)
+    dtype, device = xw.dtype, xw.device
+    if device.type != "cuda":
+        raise ValueError(f"gru_layer_stream: no kernel for device {device}")
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"gru_layer_stream: no kernel for dtype {dtype}")
+    hidden = w_hh.shape[0]
+    if not gru_layer_supports_hidden(hidden):
+        raise ValueError(f"gru_layer_stream: no kernel for hidden size {hidden}")
+    batch, seq_len = xw.shape[:2]
+    check_cuda_tensor("xw", xw, (batch, seq_len, 3 * hidden), dtype, device)
+    check_cuda_tensor("w_hh", w_hh, (hidden, 3 * hidden), dtype, device)
+    check_cuda_tensor("b_hh", b_hh, (3 * hidden,), dtype, device)
+    check_cuda_tensor("h0", h0, (batch, hidden), dtype, device)
+    keep = None
+    if mask is not None:
+        if tuple(mask.shape) != (batch, seq_len) or mask.device != device:
+            raise ValueError(f"mask: {tuple(mask.shape)} on {mask.device}, expected "
+                             f"{(batch, seq_len)} on {device}")
+        keep = (mask > 0).to(torch.uint8).contiguous()
+    whh = pack_mma_b(w_hh)
+    ys = torch.empty((batch, seq_len, hidden), dtype=dtype, device=device) if want_ys else None
+    hn = torch.empty((batch, hidden), dtype=dtype, device=device)
+    tile = 16
+    if dtype == torch.bfloat16:
+        tile = bf16_tile_rows(batch, hidden,
+                              torch.cuda.get_device_properties(device).multi_processor_count)
+    err = load_kernels().inpaint_gru_layer(
+        DTYPE_CODES[dtype], xw.data_ptr(), whh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
+        None if keep is None else keep.data_ptr(), None if ys is None else ys.data_ptr(),
+        hn.data_ptr(), batch, seq_len, hidden, int(reverse), tile, stream_ptr())
+    check_launch(err, "gru_layer_stream")
+    gru_layer_stream.launches += 1
+    return ys, hn
+
+
+gru_layer_stream.launches = 0  # kernel launches, for proving a run went through K8
+
+
+BF16_ULP_OF_H = 2.0 ** -8  # the bf16 ulp of |h| in [0.5, 1), the scale of a GRU state
+# K8 against its plain version, by :func:`agreement`, on the card and on the
+# CPU against the JAX kernel. f32: both sides accumulate in true f32, so only
+# the summation order differs. bf16: both take exact products of bf16
+# operands and sum them in f32; another order (another BLAS kernel, the
+# card's mma) may flip the bf16 rounding of a carry by an ulp, and the row's
+# later steps follow it. The bound allows 4 ulps of h's scale on 2% of the
+# elements; a carry kept in f32 changes a fifth or more of them (at two
+# steps or more: at one the carry cannot matter), a mask read one step late
+# moves a held row by more than 1. PERF.md gives the readings.
+BOUNDS = {torch.float32: {"max_abs_err": 1e-5},
+          torch.bfloat16: {"max_abs_err": 4 * BF16_ULP_OF_H, "share_changed": 0.02}}
+
+
+def agreement(got, want) -> dict:
+    """(ys or None, h_n) of K8 against its plain version's: the max absolute
+    error over both (a bf16 bound counts it in ``BF16_ULP_OF_H``: a flip
+    cascades onto near-zero elements, whose own ulps would count it
+    thousands of times); in bf16 also the share of elements that are not
+    bit-equal."""
+    pairs = [(g, w) for g, w in zip(got, want) if g is not None]
+    out = {"max_abs_err": max((g.float() - w.float()).abs().max().item() for g, w in pairs)}
+    if pairs[0][0].dtype == torch.bfloat16:
+        changed = sum(int((g != w).sum().item()) for g, w in pairs)
+        out["share_changed"] = changed / sum(g.numel() for g, _ in pairs)
+    return out
+
+
+def within(agree: dict, bound: dict) -> bool:
+    """Every measure of :func:`agreement` that ``bound`` names is at or
+    under its limit."""
+    return all(agree[k] <= v for k, v in bound.items())

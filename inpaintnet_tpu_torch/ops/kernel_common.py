@@ -70,11 +70,21 @@ def lstm_gates_f32(xw, hw, c_prev, hidden: int):
 
 
 def kernel_supports_hidden(hidden: int) -> bool:
-    """Hidden widths the GRU kernels take, bf16/f32 (K1, K2, K5, K6) and
-    int8 (K3, K4) alike: whole 64-unit chunks (so every product depth is a
-    multiple of the int8 ``mma`` depth of 32, and the bf16 one of 16), and a
-    row tile that fits one block's shared memory (up to the flagship's 512)."""
+    """Hidden widths K1-K6 take, bf16/f32 (K1, K2, K5, K6) and int8 (K3,
+    K4) alike: whole 64-unit chunks (so every product depth is a multiple of
+    the int8 ``mma`` depth of 32, and the bf16 one of 16), and a row tile
+    that fits one block's shared memory (up to the flagship's 512). K7 and
+    K8 have gates of their own (``arnn_kernel.arnn_kernel_supports``,
+    :func:`gru_layer_supports_hidden`)."""
     return hidden % 64 == 0 and hidden <= 512
+
+
+def gru_layer_supports_hidden(hidden: int) -> bool:
+    """Hidden widths K8 (``csrc/gru_layer.cu``) takes: whole 64-unit chunks
+    up to 1024, the LatentRNN's generation GRU (H * layers). Its shared
+    memory at 1024: 132 KB for a 32-row bf16 tile double-buffered, 160 KB
+    for the f32 route's k-major carry, both inside the 227 KB opt-in."""
+    return hidden % 64 == 0 and 0 < hidden <= 1024
 
 
 def _sources():
@@ -156,6 +166,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_gru_bwd_seq.restype = i32
     lib.inpaint_arnn_decode.argtypes = [i32] + [ptr] * 16 + [i32] * 7 + [ptr]
     lib.inpaint_arnn_decode.restype = i32
+    lib.inpaint_gru_layer.argtypes = [i32] + [ptr] * 7 + [i32] * 5 + [ptr]
+    lib.inpaint_gru_layer.restype = i32
     return lib
 
 

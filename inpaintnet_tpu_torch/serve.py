@@ -14,8 +14,13 @@ Batches above the largest bucket run in bucket-size chunks.
 engine over HTTP: it reads ``_quant``, ``MAX_INTERP``, ``_compiled`` and
 the model geometry named there.
 
-Not ported yet: the autoregressive ``inpaint_variations`` branch (ROADMAP
-queue 1 item 8) and CUDA-graph buckets.
+The model may be autoregressive (``auto_reg``): it then splits the
+engine's per-row keys and generator draws itself, and
+``inpaint_variations`` runs full passes instead of redrawing cached
+posteriors. The GRU route (``ops/gru.py``'s ``"xla"`` or ``"pallas"``) is
+the caller's: ``gru_impl_scope`` around a call, or ``INPAINTNET_GRU_IMPL``.
+
+Not ported yet: CUDA-graph buckets.
 """
 from __future__ import annotations
 
@@ -103,13 +108,15 @@ class InpaintingEngine:
     def warmup(self, buckets: Optional[Sequence[int]] = None, variations: bool = True,
                hetero: bool = False) -> None:
         """Run a dummy 1-measure request per bucket (default: all) through
-        ``inpaint``, ``inpaint_variations`` (unless ``variations=False``)
-        and ``inpaint_hetero`` (with ``hetero=True``), so the first real
-        request pays neither the kernel build nor first-call set-up."""
+        ``inpaint``, ``inpaint_variations`` (unless ``variations=False``,
+        or the model is autoregressive: its variations are ``inpaint`` and
+        ``inpaint_hetero`` calls) and ``inpaint_hetero`` (with
+        ``hetero=True``), so the first real request pays neither the kernel
+        build nor first-call set-up."""
         for bucket in (buckets if buckets is not None else self.batch_buckets):
             tokens = np.zeros((bucket, self.n_bars, self.msl), np.int32)
             self.inpaint(tokens, start_measure=1, num_measures=1, seed=0)
-            if variations:
+            if variations and not self.model.auto_reg:
                 self.inpaint_variations(tokens, start_measure=1, num_measures=1,
                                         num_variations=1, seed=0)
             if hetero:
@@ -275,6 +282,13 @@ class InpaintingEngine:
         context rsample, so the cached posteriors are drawn again for each.
         Variation ``i`` draws from seed ``chunk_seed(seed, i)``.
 
+        An autoregressive model re-encodes its own samples, so no cached
+        posterior serves it (``inpaintnet_tpu/serve.py:481-503``): when the
+        tiled rows fit the largest bucket, the variations are ONE
+        ``inpaint_hetero`` call of the request tiled ``num_variations``
+        times (per-row keys make every tiled row its own draw); otherwise
+        variation ``i`` is a full ``inpaint`` with seed ``chunk_seed(seed, i)``.
+
         :return: (num_variations, B, M, msl) tokens
         """
         tokens = np.asarray(tokens)
@@ -283,6 +297,16 @@ class InpaintingEngine:
             raise ValueError("num_variations must be at least 1")
         b = tokens.shape[0]
         largest = self.batch_buckets[-1]
+        if self.model.auto_reg:
+            if num_variations * b <= largest:
+                out = self.inpaint_hetero([{
+                    "tokens": np.tile(tokens, (num_variations, 1, 1)),
+                    "start_measure": start_measure, "num_measures": num_measures,
+                    "seed": seed}])[0]
+                return out.reshape((num_variations, b) + out.shape[1:])
+            return np.stack([self.inpaint(tokens, start_measure, num_measures,
+                                          seed=chunk_seed(seed, i))
+                             for i in range(num_variations)])
         if b > largest:
             return np.concatenate([
                 self.inpaint_variations(tokens[lo:lo + largest], start_measure, num_measures,

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from inpaintnet_tpu_torch.ops import arnn_kernel, decode_kernel, encoder_kernel
+from inpaintnet_tpu_torch.ops import gru_kernel as lk
 from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
 from inpaintnet_tpu_torch.ops.gru import gru_init
 from inpaintnet_tpu_torch.ops.gru_trainfast import gru_layer_trainfast
@@ -387,3 +388,94 @@ def test_arnn_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     half = _arnn_case(rng, 4, 64, 64, 8, 30, 12, torch.float16, cuda)
     with pytest.raises(ValueError, match="dtype"):
         arnn_kernel.arnn_sampled_decode(*half)
+
+
+# K8 vs its plain version on the card, by ``gru_kernel.agreement`` within
+# ``gru_kernel.BOUNDS`` (the readings are in PERF.md).
+
+
+def _gru_layer_case(rng, batch, steps, hidden, dtype, device, mask_kind):
+    """xw, W_hh, b_hh, h0 and a mask: suffix lengths 0..steps (0: an
+    all-zero row, the engine's "no future context"), interior zeros, or
+    none."""
+    arrays = [rng.standard_normal((batch, steps, 3 * hidden)) * 0.5,
+              rng.standard_normal((hidden, 3 * hidden)) * (2.0 / (4 * hidden)) ** 0.5,
+              rng.standard_normal(3 * hidden) * 0.1, rng.standard_normal((batch, hidden)) * 0.5]
+    args = [torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=dtype) for a in arrays]
+    mask = None
+    if mask_kind == "suffix":
+        lengths = rng.integers(0, steps + 1, batch)
+        lengths[0] = 0
+        mask = (np.arange(steps)[None] < lengths[:, None]).astype(np.float32)
+    elif mask_kind == "interior":
+        mask = (rng.random((batch, steps)) < 0.7).astype(np.float32)
+    return (*args, None if mask is None else torch.from_numpy(mask).to(device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,steps,hidden,mask,reverse,want_ys", [
+    (37, 16, 512, "suffix", False, False), (37, 16, 512, "interior", True, True),
+    (5, 6, 1024, "suffix", True, True), (1, 1, 1024, None, False, True),
+    (33, 1, 1024, None, True, False), (70, 9, 64, "suffix", False, True)])
+def test_gru_layer_kernel_matches_plain(cuda, dtype, batch, steps, hidden, mask, reverse,
+                                        want_ys):
+    args = _gru_layer_case(np.random.default_rng(batch + steps), batch, steps, hidden, dtype,
+                           cuda, mask)
+    before = lk.gru_layer_stream.launches
+    got = lk.gru_layer_stream(*args, reverse=reverse, want_ys=want_ys)
+    want = lk.gru_layer_reference(*args, reverse=reverse, want_ys=want_ys)
+    torch.cuda.synchronize()
+    assert lk.gru_layer_stream.launches == before + 1
+    assert (got[0] is None) == (not want_ys) and got[1].shape == (batch, hidden)
+    assert got[1].dtype == dtype and (got[0] is None or got[0].shape == (batch, steps, hidden))
+    agree = lk.agreement(got, want)
+    assert lk.within(agree, lk.BOUNDS[dtype]), agree
+    if mask == "suffix":  # an all-zero row returns h0 and emits it at every step
+        assert torch.equal(got[1][0], args[3][0])
+        if want_ys:
+            assert torch.equal(got[0][0], args[3][0][None].expand(steps, -1))
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("batch,steps,hidden,mask", [
+    (70, 4, 512, None), (37, 16, 512, "suffix"), (49, 6, 1024, "interior"), (1, 1, 1024, None)])
+def test_gru_layer_kernel_bf16_row_tiles_match_plain(cuda, monkeypatch, tile, batch, steps,
+                                                      hidden, mask):
+    """Both bf16 row tiles, whatever ``bf16_tile_rows`` picks, at rows that
+    fill no whole tile."""
+    monkeypatch.setattr(lk, "bf16_tile_rows", lambda *shape: tile)
+    args = _gru_layer_case(np.random.default_rng(batch * tile), batch, steps, hidden,
+                           torch.bfloat16, cuda, mask)
+    got = lk.gru_layer_stream(*args, reverse=True)
+    agree = lk.agreement(got, lk.gru_layer_reference(*args, reverse=True))
+    assert lk.within(agree, lk.BOUNDS[torch.bfloat16]), agree
+
+
+def test_gru_layer_kernel_bounds_reject_planted_faults(cuda, monkeypatch):
+    """In bf16: a carry kept in f32, and a mask read one step late, planted
+    in the plain version, break the bounds."""
+    args = _gru_layer_case(np.random.default_rng(1), 64, 6, 1024, torch.bfloat16, cuda, "suffix")
+    got = lk.gru_layer_stream(*args)
+    monkeypatch.setattr(lk, "carry", lambda h, dtype: h)
+    carry = lk.gru_layer_reference(*args)
+    monkeypatch.undo()
+    mask = args[4]
+    late = lk.gru_layer_reference(*args[:4], torch.cat([mask[:, :1], mask[:, :-1]], dim=1))
+    for planted in (carry, late):
+        agree = lk.agreement(got, planted)
+        assert not lk.within(agree, lk.BOUNDS[torch.bfloat16]), agree
+
+
+def test_gru_layer_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    rng = np.random.default_rng(0)
+    args = _gru_layer_case(rng, 4, 3, 64, torch.float32, cuda, "suffix")
+    with pytest.raises(ValueError, match="dtype"):
+        lk.gru_layer_stream(*(a.half() for a in args[:4]), args[4])
+    with pytest.raises(ValueError, match="contiguous"):
+        lk.gru_layer_stream(args[0].transpose(0, 1).contiguous().transpose(0, 1), *args[1:])
+    with pytest.raises(ValueError, match="mask"):
+        lk.gru_layer_stream(*args[:4], args[4][:, :2])
+    for hidden in (48, 1088):
+        odd = _gru_layer_case(rng, 4, 3, hidden, torch.float32, cuda, None)
+        with pytest.raises(ValueError, match="hidden size"):
+            lk.gru_layer_stream(*odd)

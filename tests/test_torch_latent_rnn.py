@@ -115,5 +115,7 @@ def test_latent_rnn_geometry_and_autoreg_guards():
                      decoder_hidden_size=16, device="meta")
     with pytest.raises(ValueError, match="num_rnn_layers == 2"):
         LatentRNN(vae, num_rnn_layers=3, rnn_hidden_size=16, device="meta")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        LatentRNN(vae, num_rnn_layers=2, rnn_hidden_size=16, auto_reg=True, device="meta")
+    # the autoregressive model: a z-wide generation input and no x_0
+    auto = LatentRNN(vae, num_rnn_layers=2, rnn_hidden_size=16, auto_reg=True, device="meta")
+    assert auto.generation_rnn.weight_ih_l0.shape == (3 * 32, Z)
+    assert auto.generation_linear.in_features == 64 and not hasattr(auto, "x_0")

@@ -184,13 +184,15 @@ def test_port_never_imports_jax():
 
 @pytest.mark.parametrize("entry", ["build_flagship", "build_latent_rnn", "MeasureVAE",
                                    "Trainer", "InpaintingEngine", "build_arnn",
-                                   "ConstraintModelGaussianReg", "ARNNServingEngine"])
+                                   "ConstraintModelGaussianReg", "ARNNServingEngine",
+                                   "LatentRNN", "LatentRNNAblations"])
 def test_entry_points_default_to_the_card(entry):
     """Entry points run on the card unless the caller asks for the CPU; the
     engines follow their model's device."""
     import inspect
 
     from inpaintnet_tpu_torch.models.anticipation_rnn import ConstraintModelGaussianReg
+    from inpaintnet_tpu_torch.models.latent_rnn import LatentRNN, LatentRNNAblations
     from inpaintnet_tpu_torch.models.measure_vae import MeasureVAE
     from inpaintnet_tpu_torch.models.presets import build_arnn
     from inpaintnet_tpu_torch.serve_arnn import ARNNServingEngine
@@ -199,7 +201,8 @@ def test_entry_points_default_to_the_card(entry):
     fn = {"build_flagship": build_flagship, "build_latent_rnn": build_latent_rnn,
           "MeasureVAE": MeasureVAE, "Trainer": Trainer, "InpaintingEngine": InpaintingEngine,
           "build_arnn": build_arnn, "ConstraintModelGaussianReg": ConstraintModelGaussianReg,
-          "ARNNServingEngine": ARNNServingEngine}[entry]
+          "ARNNServingEngine": ARNNServingEngine, "LatentRNN": LatentRNN,
+          "LatentRNNAblations": LatentRNNAblations}[entry]
     default = inspect.signature(fn).parameters["device"].default
     assert default == (None if entry.endswith("Engine") else "cuda")
 
