@@ -7,21 +7,33 @@
 // layer-0 outputs are rounded to the parameter dtype after every step.
 //
 // What bounds it on an H100: every step multiplies a tile of rows by the
-// whole (H, 3H) W_hh (layer 1 also by the (2H, 3H) W_ih). At H = 512 in bf16
-// that is 1.5 MB + 3 MB of weights per step, far over a block's 227 KB of
-// shared memory, so the weights stream from the 50 MB L2 (all of them fit
-// there) on every step, and the weight bytes read per row fall as the row
-// tile grows.
+// whole (H, 3H) W_hh, and layer 1 also by the (2H, 3H) W_ih. At H = 512 in
+// bf16 that is 1.5 MB + 3 MB of weights a step, far over a block's 227 KB of
+// shared memory, so the weights stream from the 50 MB L2 on every step: the
+// L2 bytes read per row fall as the row tile grows, and the serving shape
+// (65,536 rows) is bound by L2 traffic and by how well the loads overlap
+// the products, not by the tensor cores.
 //
-// Design: rows are independent, so one block owns a tile of rows of ONE
-// direction and loops over all 24 ticks itself (the TPU's sequential grid
-// axis becomes that loop; no grid-wide sync). The hidden tile stays in
-// shared memory, double-buffered old/new. The gates run in 64-unit chunks
-// that hold r, z and n of the same hidden units (gru_common.cuh), with
-// mma.sync bf16 products (f32: scalar FMAs). Layer 0 reads its input
-// projection as a row of the fused (V, 3H) table emb @ W_ih (computed
-// outside, like the TPU kernel's table); layer 1 computes [ys_f | ys_b] @ W_ih
-// in its body, as the TPU kernel does, and writes h_n only.
+// bf16 route (the serving default), the Hopper design of encoder_hopper.cuh:
+// - layer 1's input projection [ys_f | ys_b] @ W_ih has no recurrence, so
+//   it leaves the step loop: one TMA + wgmma GEMM (f32 sums, b_ih added in
+//   f32) over every step of a chunk of rows at once, at full tensor-core
+//   tiles, into an f32 scratch that the wrapper caps by chunking the rows;
+// - each layer's recurrence keeps a 64-row h tile in shared memory and
+//   streams only W_hh, through a TMA ring of k-slabs (the r, z, n columns
+//   of 64 units each) into wgmma, instead of chains of dependent fragment
+//   loads: 3 MB less L2 traffic per layer-1 step and tile, twice the rows
+//   per weight byte of the 32-row mma.sync kernel it replaces.
+// The wrapper launches, per chunk: layer 0, the GEMM, layer 1.
+//
+// f32 route (no serving default runs it; tensor cores have no exact f32
+// product): the first port's kernel below, kept as it was. Rows are
+// independent, so one block owns a 16-row tile of ONE direction and loops
+// over all 24 steps itself; the hidden tile stays in shared memory,
+// double-buffered; the gates run in 64-unit chunks holding r, z and n of
+// the same units (gru_common.cuh) with scalar FMA products; layer 1
+// computes [ys_f | ys_b] @ W_ih in its body, as the TPU kernel does.
+#include "encoder_hopper.cuh"
 #include "gru_common.cuh"
 
 namespace inpaint {
@@ -186,26 +198,49 @@ static cudaError_t encoder_hn(const int* tokens, const void* tab_f, const void* 
 
 }  // namespace inpaint
 
-// dtype: 0 = float32, 1 = bfloat16. Tensors as documented on EncLayerArgs;
-// ys is a (2, steps, B, H) scratch, hn the (4, B, H) output [l0f, l0b, l1f, l1b].
-// Returns the cudaError_t of the launches (0 on success); launches on
-// `stream` and does not synchronise.
-extern "C" int inpaint_encoder_hn(int dtype, const void* tokens, const void* tab_f,
-                                  const void* tab_b, const void* whh0_f, const void* whh0_b,
-                                  const void* wih1_f, const void* wih1_b,
-                                  const void* whh1_f, const void* whh1_b, const void* bih0,
-                                  const void* bhh0, const void* bih1, const void* bhh1,
-                                  void* ys, void* hn, int B, int steps, int H,
-                                  int V, void* stream) {
-  const int* tok = static_cast<const int*>(tokens);
+// f32: tensors as documented on EncLayerArgs; tab_* the (V, 3H) fused
+// tables, weights (in, 3H) as they are; ys a (2, steps, B, H) scratch, hn
+// the (4, B, H) output [l0f, l0b, l1f, l1b]. Returns the cudaError_t of the
+// launches (0 on success); launches on `stream` and does not synchronise.
+extern "C" int inpaint_encoder_hn_f32(const void* tokens, const void* tab_f, const void* tab_b,
+                                      const void* whh0_f, const void* whh0_b,
+                                      const void* wih1_f, const void* wih1_b,
+                                      const void* whh1_f, const void* whh1_b, const void* bih0,
+                                      const void* bhh0, const void* bih1, const void* bhh1,
+                                      void* ys, void* hn, int B, int steps, int H, int V,
+                                      void* stream) {
+  return inpaint::encoder_hn<float>(static_cast<const int*>(tokens), tab_f, tab_b, whh0_f,
+                                    whh0_b, wih1_f, wih1_b, whh1_f, whh1_b, bih0, bhh0, bih1,
+                                    bhh1, ys, hn, B, steps, H, V,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+// bf16, one layer's recurrence over the rows [row0, row0 + rows) of B:
+// whh (2, 3H, H) bf16, W_hh^T per direction with each 32-unit chunk's rows
+// grouped [r, z, n] (ops/encoder_kernel.pack_gate_slabs); layer 0 reads
+// tokens (B, steps) int32 and tab (2, V, 3H) f32 (the fused bf16 table
+// plus b_ih) and writes ys (steps, rows, 2H) bf16; layer 1 reads xw (2,
+// steps * rows, 3H) f32 (b_ih included); bhh (2, 3H) f32 (bih unused);
+// hn the layer's (2, B, H) bf16 h_n.
+extern "C" int inpaint_encoder_rec_bf16(int layer, const void* whh, const void* tokens,
+                                        const void* tab, const void* xw, const void* bih,
+                                        const void* bhh, void* ys, void* hn, int B, int row0,
+                                        int rows, int steps, int H, int V, void* stream) {
+  using namespace inpaint::enc90;
+  RecArgs a{static_cast<const int*>(tokens), static_cast<const float*>(tab), xw, nullptr, nullptr,
+            static_cast<const float*>(bih), static_cast<const float*>(bhh), ys, hn,
+            B, row0, rows, steps, H, V, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return inpaint::encoder_hn<float>(tok, tab_f, tab_b, whh0_f, whh0_b, wih1_f, wih1_b,
-                                      whh1_f, whh1_b, bih0, bhh0, bih1, bhh1, ys, hn, B, steps,
-                                      H, V, s);
-  if (dtype == 1)
-    return inpaint::encoder_hn<__nv_bfloat16>(tok, tab_f, tab_b, whh0_f, whh0_b, wih1_f,
-                                              wih1_b, whh1_f, whh1_b, bih0, bhh0, bih1,
-                                              bhh1, ys, hn, B, steps, H, V, s);
+  if (layer == 0) return (int)launch_rec<__nv_bfloat16, __nv_bfloat16, true>(whh, a, s);
+  if (layer == 1) return (int)launch_rec<__nv_bfloat16, __nv_bfloat16, false>(whh, a, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// bf16 layer-1 input projection: out (2, M, 3H) f32 = a (M, 2H) bf16 @
+// w[d]^T + bias[d] for w (2, 3H, 2H) bf16 (W_ih^T per direction) and bias
+// (2, 3H) f32.
+extern "C" int inpaint_encoder_gemm_bf16(const void* a, const void* w, const void* bias,
+                                         void* out, int M, int H, void* stream) {
+  return (int)inpaint::enc90::launch_xw_gemm<__nv_bfloat16>(
+      a, w, static_cast<const float*>(bias), out, M, H, static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,304 @@
+// Hopper (sm_90a) building blocks of the encoder kernels (encoder_hopper.cuh):
+// mbarriers, TMA tile loads, the shared-memory matrix descriptor of the
+// 128-byte swizzle, the warpgroup products (wgmma) of 64 x 256 and 64 x 96
+// tiles in bf16 -> f32 and s8 -> s32, and the host's tensor-map encoder.
+//
+// Every operand a wgmma reads from shared memory here is "K-major with the
+// 128-byte swizzle": rows of 128 bytes (64 bf16 or 128 int8 values of the
+// reduction dimension), 8-row groups of 1,024 bytes, the 16-byte chunk c of
+// row r stored at chunk c ^ (r % 8). A TMA load with
+// CU_TENSOR_MAP_SWIZZLE_128B writes that layout; code that stores into it
+// by hand uses sw128_offset. Tiles start on 1,024-byte boundaries.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums only: nothing links against libcuda
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace inpaint {
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// arrive and add `bytes` to the transactions the current phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// generic-proxy writes to shared memory become visible to the async proxy
+// (wgmma operand reads) of the threads that synchronise after this fence
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// named barrier over `count` threads (id 0 is __syncthreads')
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Byte offset of byte `kbyte` of row `r` in a K-major 128-byte-swizzled
+// tile of `rows` rows: the tile is split into k-blocks of 128 bytes, each
+// rows x 128 bytes.
+__device__ __forceinline__ int sw128_offset(int r, int kbyte, int rows) {
+  return (kbyte >> 7) * rows * 128 + r * 128 + ((((kbyte >> 4) & 7) ^ (r & 7)) << 4) +
+         (kbyte & 15);
+}
+
+// wgmma shared-memory descriptor of a K-major 128-byte-swizzled tile:
+// start address >> 4, leading offset 16 bytes (unused by this layout),
+// stride 1,024 bytes between 8-row groups, layout 1 = 128-byte swizzle.
+// Advancing 32 bytes along K (one k16 bf16 or k32 s8 step) adds 2.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator reads across a wgmma wait
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_operands(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+#define INPAINT_D128                                                                      \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22," \
+  "%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43," \
+  "%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64," \
+  "%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,%84,%85," \
+  "%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97,%98,%99,%100,%101,%102,%103,%104,%105," \
+  "%106,%107,%108,%109,%110,%111,%112,%113,%114,%115,%116,%117,%118,%119,%120,%121,%122," \
+  "%123,%124,%125,%126,%127}"
+#define INPAINT_D48                                                                          \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"  \
+  "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45," \
+  "%46,%47}"
+#define INPAINT_OPS8(C, i)                                                                   \
+  C(d[(i)]), C(d[(i) + 1]), C(d[(i) + 2]), C(d[(i) + 3]), C(d[(i) + 4]), C(d[(i) + 5]),      \
+      C(d[(i) + 6]), C(d[(i) + 7])
+#define INPAINT_OPS96(C)                                                                     \
+  INPAINT_OPS8(C, 0), INPAINT_OPS8(C, 8), INPAINT_OPS8(C, 16), INPAINT_OPS8(C, 24),          \
+      INPAINT_OPS8(C, 32), INPAINT_OPS8(C, 40), INPAINT_OPS8(C, 48), INPAINT_OPS8(C, 56),    \
+      INPAINT_OPS8(C, 64), INPAINT_OPS8(C, 72), INPAINT_OPS8(C, 80), INPAINT_OPS8(C, 88)
+#define INPAINT_OPS48(C)                                                                     \
+  INPAINT_OPS8(C, 0), INPAINT_OPS8(C, 8), INPAINT_OPS8(C, 16), INPAINT_OPS8(C, 24),          \
+      INPAINT_OPS8(C, 32), INPAINT_OPS8(C, 40)
+#define INPAINT_OPS128(C)                                                                    \
+  INPAINT_OPS96(C), INPAINT_OPS8(C, 96), INPAINT_OPS8(C, 104), INPAINT_OPS8(C, 112),         \
+      INPAINT_OPS8(C, 120)
+#define INPAINT_F(x) "+f"(x)
+#define INPAINT_R(x) "+r"(x)
+
+// d (64 x 256, f32) = A (64 x 16, bf16) @ B (16 x 256, bf16) [+ d] and its
+// s8 twin d (64 x 256, s32) = A (64 x 32, s8) @ B (32 x 256, s8) [+ d]: A
+// and B K-major in shared memory (descriptors above), d in the accumulator
+// fragment: d[i] holds row 16 * warp + lane / 4 + 8 * ((i / 2) % 2), column
+// 8 * (i / 4) + 2 * (lane % 4) + i % 2 of the warpgroup's tile.
+__device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " INPAINT_D128
+      ", %128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : INPAINT_OPS128(INPAINT_F)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " INPAINT_D128
+      ", %128, %129, p;\n"
+      "}\n"
+      : INPAINT_OPS128(INPAINT_R)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// the 64 x 96 tiles of both: d[i] as above, 48 registers
+__device__ __forceinline__ void wgmma_bf16_n96(float (&d)[48], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " INPAINT_D48
+      ", %48, %49, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : INPAINT_OPS48(INPAINT_F)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_s8_n96(int (&d)[48], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 " INPAINT_D48
+      ", %48, %49, p;\n"
+      "}\n"
+      : INPAINT_OPS48(INPAINT_R)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// One 128-byte k-slab of the product: four wgmma steps of 32 bytes.
+__device__ __forceinline__ void mma_slab(float (&d)[128], uint64_t da, uint64_t db,
+                                         bool accumulate) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) wgmma_bf16_n256(d, da + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
+}
+__device__ __forceinline__ void mma_slab(int (&d)[128], uint64_t da, uint64_t db,
+                                         bool accumulate) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) wgmma_s8_n256(d, da + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
+}
+
+__device__ __forceinline__ void mma_slab(float (&d)[48], uint64_t da, uint64_t db,
+                                         bool accumulate) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) wgmma_bf16_n96(d, da + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
+}
+__device__ __forceinline__ void mma_slab(int (&d)[48], uint64_t da, uint64_t db,
+                                         bool accumulate) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) wgmma_s8_n96(d, da + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
+}
+
+#undef INPAINT_F
+#undef INPAINT_R
+#undef INPAINT_OPS48
+#undef INPAINT_OPS128
+#undef INPAINT_D128
+#undef INPAINT_OPS96
+#undef INPAINT_OPS8
+#undef INPAINT_D48
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+// ---------------------------------------------------------------------------
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, found through the runtime (so the
+// library needs no link against libcuda)
+static inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) != cudaSuccess)
+      p = nullptr;
+#endif
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A tensor map over a row-major array of `rank` dims (dims innermost first,
+// strides in bytes of dims 1..rank-1), loading boxes of `box` with the
+// 128-byte swizzle (box[0] * element size must be 128) and zero fill past
+// the edges.
+static inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                                   const void* ptr, const uint64_t* dims,
+                                   const uint64_t* strides, const uint32_t* box) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  cuuint64_t d[3], s[2];
+  cuuint32_t b[3], e[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+  }
+  for (int i = 0; i + 1 < rank; ++i) s[i] = strides[i];
+  const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(ptr), d, s, b, e,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace sm90
+}  // namespace inpaint

@@ -1,21 +1,32 @@
 """K1 and K3: final hiddens of the 2-layer bidirectional encoder GRU from
 tokens.
 
-``encoder_hn`` (K1) is the CUDA kernel ``csrc/encoder_gru.cu`` (it replaces
-the TPU kernel ``inpaintnet_tpu/ops/encoder_pallas.py encoder_hn_pallas``;
-the source says what bounds it on the card and how its design answers).
+``encoder_hn`` (K1) replaces the TPU kernel
+``inpaintnet_tpu/ops/encoder_pallas.py encoder_hn_pallas``.
 ``encoder_hn_reference`` is its plain PyTorch version with the same
 numerics: products accumulate in f32, biases and gates in f32, and the
 carry and the layer-0 outputs are rounded to the parameter dtype after
 every step. For f32 parameters that is exactly the XLA scan
 ``gru_apply(..., last_outputs=False)[1]``.
 
-``encoder_hn_int8`` (K3, ``csrc/encoder_gru_int8.cu``) is the int8 serving
-twin (``encoder_hn_pallas_int8``), with ``encoder_hn_int8_reference`` as
-its plain version.
+``encoder_hn_int8`` (K3) is the int8 serving twin
+(``encoder_hn_pallas_int8``), with ``encoder_hn_int8_reference`` as its
+plain version.
+
+The bf16 route of K1 and K3 run the Hopper design of
+``csrc/encoder_hopper.cuh`` (``csrc/encoder_gru.cu`` and
+``csrc/encoder_gru_int8.cu`` say what bounds them and why): per chunk of
+rows, layer 0's recurrence, then layer 1's input projection for every step
+at once as a GEMM (``input_projection`` / ``input_projection_int8``, whose
+plain versions are ``input_projection_reference`` /
+``input_projection_int8_reference``), then layer 1's recurrence on it.
+``encoder_hn_staged_reference`` and ``encoder_hn_int8_staged_reference``
+are that staged computation in plain PyTorch. The chunk caps the GEMM's
+f32 / int32 scratch at ``XW_SCRATCH_BYTES``. K1's f32 route keeps the
+first port's kernel (``csrc/encoder_gru.cu``).
 
 The wrappers run the plain versions for CPU tensors only; for CUDA tensors
-they launch the kernel or raise.
+they launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -28,8 +39,7 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     gru_gates_f32,
     kernel_supports_hidden,
     load_kernels,
-    pack_mma_b,
-    pack_mma_b_s8,
+    round_up,
     stream_ptr,
 )
 from inpaintnet_tpu_torch.ops.quantize import (
@@ -48,35 +58,130 @@ def fused_tables(gru_params, emb_table: torch.Tensor):
     return [(emb_table.float() @ p["w_ih"].float()).to(dtype) for p in gru_params[0]]
 
 
-def encoder_hn_reference(gru_params, emb_table: torch.Tensor,
-                         tokens: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1. :return: h_n (4, B, H) [l0f, l0b, l1f, l1b] in
-    the parameter dtype."""
+# The Hopper kernels' geometry (csrc/encoder_hopper.cuh)
+REC_ROWS = 64  # rows of a recurrence block
+GATE_UNITS = 32  # hidden units of a gate chunk: its r, z, n rows form one W slab
+# Largest f32 / int32 layer-1 projection scratch a call allocates: the rows
+# are encoded in chunks of a power of two of rows under it (8,192 rows of
+# 24 steps at H 512: 2.4 GB).
+XW_SCRATCH_BYTES = 5 * 2**29  # 2.5 GiB
+
+
+def encoder_chunk_rows(batch: int, seq_len: int, hidden: int, max_chunk_rows=None) -> int:
+    """Rows of one chunk of the Hopper route: the largest power of two
+    (from 64) whose (2, steps, rows, 3H) 4-byte projection fits
+    ``XW_SCRATCH_BYTES``, at most ``max_chunk_rows`` and ``batch``."""
+    per_row = 2 * seq_len * 3 * hidden * 4
+    rows = REC_ROWS
+    while 2 * rows * per_row <= XW_SCRATCH_BYTES:
+        rows *= 2
+    if max_chunk_rows is not None:
+        rows = min(rows, max_chunk_rows)
+    return max(1, min(rows, batch))
+
+
+def encoder_cuda_launches(dtype, batch: int, seq_len: int, hidden: int,
+                          max_chunk_rows=None) -> int:
+    """CUDA kernel launches of one K1/K3 call: three a chunk (layer 0, the
+    GEMM, layer 1) on the Hopper route, two on K1's f32 route."""
+    if dtype == torch.float32:
+        return 2
+    chunk = encoder_chunk_rows(batch, seq_len, hidden, max_chunk_rows)
+    return 3 * -(-batch // chunk)
+
+
+def pack_gate_slabs(w_hh: torch.Tensor, k_multiple: int) -> torch.Tensor:
+    """A (H, 3H) recurrent weight as the Hopper recurrence reads it: W^T,
+    (3H, Hk) K-major, its rows reordered so that each 32-unit chunk's r, z
+    and n rows sit together (chunk c: rows [96c, 96c + 96) hold W's columns
+    [32c, +32), [H + 32c, +32), [2H + 32c, +32)), K zero-padded to
+    ``Hk = round_up(H, k_multiple)``."""
+    hidden = w_hh.shape[0]
+    wt = w_hh.t().reshape(3, hidden // GATE_UNITS, GATE_UNITS, hidden)
+    wt = wt.permute(1, 0, 2, 3).reshape(3 * hidden, hidden)
+    pad = round_up(hidden, k_multiple) - hidden
+    return torch.nn.functional.pad(wt, (0, pad)).contiguous() if pad else wt.contiguous()
+
+
+def _gru_direction(p, xw_at, reverse: bool, batch: int, seq_len: int, dtype, device):
+    """One direction of a plain encoder layer: the carry rounded to
+    ``dtype`` every step. :return: (outputs by step, last carry)"""
+    hidden = p["w_hh"].shape[0]
+    h = torch.zeros((batch, hidden), dtype=dtype, device=device)
+    whh, bhh = p["w_hh"].float(), p["b_hh"].float()
+    ys = [None] * seq_len
+    for t in (range(seq_len - 1, -1, -1) if reverse else range(seq_len)):
+        hw = h.float() @ whh + bhh
+        h = gru_gates_f32(xw_at(t), hw, h.float(), hidden).to(dtype)
+        ys[t] = h
+    return ys, h
+
+
+def _layer0_reference(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor):
+    """Layer 0 of the plain K1: (outputs [forward, backward] by step, [h_n
+    forward, h_n backward])."""
     dtype = gru_params[0][0]["w_hh"].dtype
-    hidden = gru_params[0][0]["w_hh"].shape[0]
     batch, seq_len = tokens.shape
     tokens = tokens.long()
-
-    def run(p, xw_at, reverse):
-        h = tokens.new_zeros((batch, hidden), dtype=dtype)
-        whh, bhh = p["w_hh"].float(), p["b_hh"].float()
-        ys = [None] * seq_len
-        for t in (range(seq_len - 1, -1, -1) if reverse else range(seq_len)):
-            hw = h.float() @ whh + bhh
-            h = gru_gates_f32(xw_at(t), hw, h.float(), hidden).to(dtype)
-            ys[t] = h
-        return ys, h
-
-    h_n, ys0 = [], []
+    ys0, h_n = [], []
     for d, (p, tab) in enumerate(zip(gru_params[0], fused_tables(gru_params, emb_table))):
         bih = p["b_ih"].float()
-        ys, h = run(p, lambda t, tab=tab, bih=bih: tab[tokens[:, t]].float() + bih, d == 1)
+        ys, h = _gru_direction(p, lambda t, tab=tab, bih=bih: tab[tokens[:, t]].float() + bih,
+                               d == 1, batch, seq_len, dtype, tokens.device)
         ys0.append(ys)
         h_n.append(h)
+    return ys0, h_n
+
+
+def encoder_hn_reference(gru_params, emb_table: torch.Tensor,
+                         tokens: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1, layer 1's input projection taken step by step.
+    :return: h_n (4, B, H) [l0f, l0b, l1f, l1b] in the parameter dtype."""
+    dtype = gru_params[0][0]["w_hh"].dtype
+    batch, seq_len = tokens.shape
+    ys0, h_n = _layer0_reference(gru_params, emb_table, tokens)
     for d, p in enumerate(gru_params[1]):
         wih, bih = p["w_ih"].float(), p["b_ih"].float()
-        _, h = run(p, lambda t, wih=wih, bih=bih:
-                   torch.cat([ys0[0][t], ys0[1][t]], dim=-1).float() @ wih + bih, d == 1)
+        _, h = _gru_direction(p, lambda t, wih=wih, bih=bih:
+                              torch.cat([ys0[0][t], ys0[1][t]], dim=-1).float() @ wih + bih,
+                              d == 1, batch, seq_len, dtype, tokens.device)
+        h_n.append(h)
+    return torch.stack(h_n, dim=0)
+
+
+def input_projection_reference(ys: torch.Tensor, w_ih: torch.Tensor,
+                               b_ih: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1's GEMM: layer 1's input projection for every
+    step at once, summed in f32 and biased in f32 after the sum.
+
+    :param ys: (M, 2H) layer-0 outputs [forward | backward], M = steps x rows
+    :param w_ih: (2, 2H, 3H) per direction; ``b_ih``: (2, 3H)
+    :return: (2, M, 3H) f32
+    """
+    return ys.float() @ w_ih.float() + b_ih.float()[:, None]
+
+
+def _stack_layer1(gru_params, key: str) -> torch.Tensor:
+    return torch.stack([p[key] for p in gru_params[1]])
+
+
+def encoder_hn_staged_reference(gru_params, emb_table: torch.Tensor,
+                                tokens: torch.Tensor) -> torch.Tensor:
+    """K1 staged as the Hopper route runs it, in plain PyTorch: layer 0,
+    then :func:`input_projection_reference` over every step at once, then
+    layer 1's recurrence reading it. Equals :func:`encoder_hn_reference` up
+    to the f32 sums' blocking."""
+    dtype = gru_params[0][0]["w_hh"].dtype
+    batch, seq_len = tokens.shape
+    ys0, h_n = _layer0_reference(gru_params, emb_table, tokens)
+    ys = torch.stack([torch.cat([f, b], dim=-1) for f, b in zip(*ys0)])  # (T, B, 2H)
+    xw = input_projection_reference(ys.reshape(seq_len * batch, -1),
+                                    _stack_layer1(gru_params, "w_ih"),
+                                    _stack_layer1(gru_params, "b_ih"))
+    xw = xw.reshape(2, seq_len, batch, -1)
+    for d, p in enumerate(gru_params[1]):
+        _, h = _gru_direction(p, lambda t, d=d: xw[d, t], d == 1, batch, seq_len, dtype,
+                              tokens.device)
         h_n.append(h)
     return torch.stack(h_n, dim=0)
 
@@ -106,13 +211,59 @@ def _check_encoder_args(name: str, gru_params, emb_table: torch.Tensor, tokens: 
     return hidden, dtype, device
 
 
-def encoder_hn(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def _check_projection_args(name: str, ys: torch.Tensor, w_ih: torch.Tensor, dtype):
+    """-> (rows M, hidden); raises ValueError on what the GEMM does not take."""
+    if ys.dim() != 2 or ys.shape[1] % 2:
+        raise ValueError(f"{name}: ys must be (M, 2H), got {tuple(ys.shape)}")
+    rows, hidden = ys.shape[0], ys.shape[1] // 2
+    if not kernel_supports_hidden(hidden):
+        raise ValueError(f"{name}: no kernel for hidden size {hidden}")
+    check_cuda_tensor("ys", ys, (rows, 2 * hidden), dtype, ys.device)
+    check_cuda_tensor("w_ih", w_ih, (2, 2 * hidden, 3 * hidden), dtype, ys.device)
+    return rows, hidden
+
+
+def input_projection(ys: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor) -> torch.Tensor:
+    """K1's bf16 GEMM on its own (the wrapper of the encoder runs it per
+    chunk): :func:`input_projection_reference`'s function, bf16 operands,
+    f32 out, through the TMA + wgmma kernel (``csrc/encoder_hopper.cuh``)."""
+    if ys.device.type == "cpu":
+        return input_projection_reference(ys, w_ih, b_ih)
+    rows, hidden = _check_projection_args("input_projection", ys, w_ih, torch.bfloat16)
+    check_cuda_tensor("b_ih", b_ih, (2, 3 * hidden), torch.float32, ys.device)
+    w_t = w_ih.transpose(1, 2).contiguous()
+    out = torch.empty((2, rows, 3 * hidden), dtype=torch.float32, device=ys.device)
+    check_launch(load_kernels().inpaint_encoder_gemm_bf16(
+        ys.data_ptr(), w_t.data_ptr(), b_ih.data_ptr(), out.data_ptr(), rows, hidden,
+        stream_ptr()), "input_projection")
+    return out
+
+
+def _encode_chunks(rec, gemm, hidden: int, batch: int, seq_len: int, scratch_dtype,
+                   acc_dtype, device, max_chunk_rows) -> None:
+    """The Hopper route's launches, chunk by chunk: ``rec(layer, ys, xw,
+    row0, rows)`` runs a layer's recurrence, ``gemm(ys, xw, m)`` the
+    projection. Scratch: ys (steps, rows, 2H) and xw (2, steps * rows, 3H)."""
+    chunk = encoder_chunk_rows(batch, seq_len, hidden, max_chunk_rows)
+    ys = torch.empty((seq_len * chunk * 2 * hidden,), dtype=scratch_dtype, device=device)
+    xw = torch.empty((2 * seq_len * chunk * 3 * hidden,), dtype=acc_dtype, device=device)
+    for row0 in range(0, batch, chunk):
+        rows = min(chunk, batch - row0)
+        rec(0, ys, xw, row0, rows)
+        gemm(ys, xw, seq_len * rows)
+        rec(1, ys, xw, row0, rows)
+
+
+def encoder_hn(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
+               max_chunk_rows=None) -> torch.Tensor:
     """K1: h_n (4, B, H) of the 2-layer bidirectional GRU over
     ``emb_table[tokens]``.
 
     :param gru_params: ``[layer][direction]`` dicts, (in, 3H) weights, f32 or bf16
     :param emb_table: (V, E) in the parameter dtype
     :param tokens: (B, T) int32 in [0, V)
+    :param max_chunk_rows: caps the rows of a chunk below the scratch's own
+        cap (for tests of the chunking; bf16 only)
     """
     if tokens.device.type == "cpu":
         return encoder_hn_reference(gru_params, emb_table, tokens)
@@ -122,30 +273,52 @@ def encoder_hn(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor) -> tor
     (p0f, p0b), (p1f, p1b) = gru_params
     batch, seq_len = tokens.shape
     vocab = emb_table.shape[0]
-
-    tab_f, tab_b = (t.contiguous() for t in fused_tables(gru_params, emb_table))
-    whh0_f, whh0_b, wih1_f, wih1_b, whh1_f, whh1_b = (
-        pack_mma_b(w) for w in (p0f["w_hh"], p0b["w_hh"], p1f["w_ih"], p1b["w_ih"],
-                                p1f["w_hh"], p1b["w_hh"]))
-    bih0 = torch.stack([p0f["b_ih"], p0b["b_ih"]])
-    bhh0 = torch.stack([p0f["b_hh"], p0b["b_hh"]])
-    bih1 = torch.stack([p1f["b_ih"], p1b["b_ih"]])
-    bhh1 = torch.stack([p1f["b_hh"], p1b["b_hh"]])
-    ys = torch.empty((2, seq_len, batch, hidden), dtype=dtype, device=device)
     h_n = torch.empty((4, batch, hidden), dtype=dtype, device=device)
+    tabs = fused_tables(gru_params, emb_table)
+    lib = load_kernels()
 
-    err = load_kernels().inpaint_encoder_hn(
-        DTYPE_CODES[dtype], tokens.data_ptr(), tab_f.data_ptr(), tab_b.data_ptr(),
-        whh0_f.data_ptr(), whh0_b.data_ptr(), wih1_f.data_ptr(), wih1_b.data_ptr(),
-        whh1_f.data_ptr(), whh1_b.data_ptr(), bih0.data_ptr(), bhh0.data_ptr(),
-        bih1.data_ptr(), bhh1.data_ptr(), ys.data_ptr(), h_n.data_ptr(),
-        batch, seq_len, hidden, vocab, stream_ptr())
-    check_launch(err, "encoder_hn")
+    if dtype == torch.float32:
+        ys = torch.empty((2, seq_len, batch, hidden), dtype=dtype, device=device)
+        tab_f, tab_b = (t.contiguous() for t in tabs)
+        weights = [p[k].contiguous() for p, k in ((p0f, "w_hh"), (p0b, "w_hh"), (p1f, "w_ih"),
+                                                  (p1b, "w_ih"), (p1f, "w_hh"), (p1b, "w_hh"))]
+        biases = [torch.stack([pf[k], pb[k]]) for pf, pb in ((p0f, p0b), (p1f, p1b))
+                  for k in ("b_ih", "b_hh")]
+        check_launch(lib.inpaint_encoder_hn_f32(
+            tokens.data_ptr(), tab_f.data_ptr(), tab_b.data_ptr(),
+            *(w.data_ptr() for w in weights), biases[0].data_ptr(), biases[1].data_ptr(),
+            biases[2].data_ptr(), biases[3].data_ptr(), ys.data_ptr(), h_n.data_ptr(),
+            batch, seq_len, hidden, vocab, stream_ptr()), "encoder_hn")
+    else:
+        # layer 0's input projection with b_ih added, as the plain version adds it
+        xtab = torch.stack([tab.float() + p["b_ih"].float()
+                            for tab, p in zip(tabs, gru_params[0])]).contiguous()
+        whh0, whh1 = (torch.stack([pack_gate_slabs(p["w_hh"], 64) for p in layer])
+                      for layer in gru_params)
+        wih1_t = torch.stack([p["w_ih"].t() for p in gru_params[1]]).contiguous()
+        b = {f"{k}{i}": torch.stack([p[k].float() for p in gru_params[i]])
+             for i in (0, 1) for k in ("b_ih", "b_hh")}
+
+        def rec(layer, ys, xw, row0, rows):
+            args = ((whh0, tokens, xtab, None, b["b_ih0"], b["b_hh0"]) if layer == 0 else
+                    (whh1, None, None, xw, b["b_ih1"], b["b_hh1"]))
+            check_launch(lib.inpaint_encoder_rec_bf16(
+                layer, *(None if a is None else a.data_ptr() for a in args), ys.data_ptr(),
+                h_n[2 * layer].data_ptr(), batch, row0, rows, seq_len, hidden, vocab,
+                stream_ptr()), "encoder_hn")
+
+        def gemm(ys, xw, m):
+            check_launch(lib.inpaint_encoder_gemm_bf16(
+                ys.data_ptr(), wih1_t.data_ptr(), b["b_ih1"].data_ptr(), xw.data_ptr(), m,
+                hidden, stream_ptr()), "encoder_hn")
+
+        _encode_chunks(rec, gemm, hidden, batch, seq_len, dtype, torch.float32, device,
+                       max_chunk_rows)
     encoder_hn.launches += 1
     return h_n
 
 
-encoder_hn.launches = 0  # kernel launches, for proving a run went through K1
+encoder_hn.launches = 0  # wrapper calls on the card, for proving a run went through K1
 
 
 # --------------------------------------------------------------------------- #
@@ -199,48 +372,111 @@ def encoder_hn_int8_reference(gru_params, emb_table: torch.Tensor,
     return encoder_int8_layers_reference(gru_params, emb_table, tokens)[0]
 
 
+def _int8_direction(d, whh_q, s_h, bhh, xw_at, batch: int, seq_len: int, device):
+    """One direction of a plain K3 layer. :return: (int8 carries by step,
+    the last step's unquantized f32 state)"""
+    hidden = whh_q.shape[0]
+    h_q = torch.zeros((batch, hidden), dtype=torch.int8, device=device)
+    whh = whh_q.float()
+    ys = [None] * seq_len
+    h_new = None
+    for t in (range(seq_len - 1, -1, -1) if d == 1 else range(seq_len)):
+        hw = (h_q.float() @ whh) * s_h + bhh
+        h_new = gru_gates_f32(xw_at(t), hw, dequantize_h(h_q), hidden)
+        h_q = quantize_h_int8(h_new)
+        ys[t] = h_q
+    return ys, h_new
+
+
+def _int8_layer0_reference(ops, tokens: torch.Tensor):
+    """Layer 0 of the plain K3: (int8 outputs [forward, backward] by step,
+    [f32 last states])."""
+    batch, seq_len = tokens.shape
+    tokens = tokens.long()
+    h_n, ys0 = [], []
+    for d in range(2):
+        tab_q, s_x, bih = ops["tab_q"][d], ops["s_x0"][d], ops["bih0"][d]
+        ys, h = _int8_direction(d, ops["whh0_q"][d], ops["s_h0"][d], ops["bhh0"][d],
+                                lambda t, tab_q=tab_q, s_x=s_x, bih=bih:
+                                tab_q[tokens[:, t]].float() * s_x + bih,
+                                batch, seq_len, tokens.device)
+        ys0.append(ys)
+        h_n.append(h)
+    return ys0, h_n
+
+
 def encoder_int8_layers_reference(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor):
     """:func:`encoder_hn_int8_reference` with its int8 layer-0 slab.
 
     :return: (h_n (4, B, H), ys (2, T, B, H) int8 [forward, backward])
     """
     dtype = gru_params[0][0]["w_hh"].dtype
-    hidden = gru_params[0][0]["w_hh"].shape[0]
     batch, seq_len = tokens.shape
-    tokens = tokens.long()
     ops = encoder_int8_operands(gru_params, emb_table)
-
-    def run(d, whh_q, s_h, bhh, xw_at):
-        h_q = tokens.new_zeros((batch, hidden), dtype=torch.int8)
-        whh = whh_q.float()
-        ys = [None] * seq_len
-        h_new = None
-        for t in (range(seq_len - 1, -1, -1) if d == 1 else range(seq_len)):
-            hw = (h_q.float() @ whh) * s_h + bhh
-            h_new = gru_gates_f32(xw_at(t), hw, dequantize_h(h_q), hidden)
-            h_q = quantize_h_int8(h_new)
-            ys[t] = h_q
-        return ys, h_new.to(dtype)
-
-    h_n, ys0 = [], []
-    for d in range(2):
-        tab_q = ops["tab_q"][d]
-        s_x, bih = ops["s_x0"][d], ops["bih0"][d]
-        ys, h = run(d, ops["whh0_q"][d], ops["s_h0"][d], ops["bhh0"][d],
-                    lambda t: tab_q[tokens[:, t]].float() * s_x + bih)
-        ys0.append(ys)
-        h_n.append(h)
+    ys0, h_n = _int8_layer0_reference(ops, tokens)
     for d in range(2):
         wih = ops["wih1_q"][d].float()
         s_x, bih = ops["s_x1"][d], ops["bih1"][d]
-        _, h = run(d, ops["whh1_q"][d], ops["s_h1"][d], ops["bhh1"][d],
-                   lambda t: (torch.cat([ys0[0][t], ys0[1][t]], dim=-1).float() @ wih)
-                   * s_x + bih)
+        _, h = _int8_direction(d, ops["whh1_q"][d], ops["s_h1"][d], ops["bhh1"][d],
+                               lambda t: (torch.cat([ys0[0][t], ys0[1][t]], dim=-1).float()
+                                          @ wih) * s_x + bih,
+                               batch, seq_len, tokens.device)
         h_n.append(h)
-    return torch.stack(h_n, dim=0), torch.stack([torch.stack(ys) for ys in ys0])
+    h_n = torch.stack(h_n, dim=0).to(dtype)
+    return h_n, torch.stack([torch.stack(ys) for ys in ys0])
 
 
-def encoder_hn_int8(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def input_projection_int8_reference(ys_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3's GEMM: layer 1's int8 input product for every
+    step at once, exact int32 sums held in f32 (exact below 2^24: at most
+    127^2 x 1024 here; TF32 must be off).
+
+    :param ys_q: (M, 2H) int8 layer-0 outputs [forward | backward]
+    :param w_q: (2, 2H, 3H) int8 per direction
+    :return: (2, M, 3H) f32 holding integers
+    """
+    return ys_q.float() @ w_q.float()
+
+
+def encoder_hn_int8_staged_reference(gru_params, emb_table: torch.Tensor,
+                                     tokens: torch.Tensor) -> torch.Tensor:
+    """K3 staged as the Hopper route runs it, in plain PyTorch: layer 0, then
+    :func:`input_projection_int8_reference` over every step at once, then
+    layer 1's recurrence dequantizing it. Bit-equal to
+    :func:`encoder_hn_int8_reference`: the sums are exact in any order."""
+    dtype = gru_params[0][0]["w_hh"].dtype
+    batch, seq_len = tokens.shape
+    ops = encoder_int8_operands(gru_params, emb_table)
+    ys0, h_n = _int8_layer0_reference(ops, tokens)
+    ys = torch.stack([torch.cat([f, b], dim=-1) for f, b in zip(*ys0)])  # (T, B, 2H)
+    acc = input_projection_int8_reference(ys.reshape(seq_len * batch, -1), ops["wih1_q"])
+    acc = acc.reshape(2, seq_len, batch, -1)
+    for d in range(2):
+        s_x, bih = ops["s_x1"][d], ops["bih1"][d]
+        _, h = _int8_direction(d, ops["whh1_q"][d], ops["s_h1"][d], ops["bhh1"][d],
+                               lambda t, d=d, s_x=s_x, bih=bih: acc[d, t] * s_x + bih,
+                               batch, seq_len, tokens.device)
+        h_n.append(h)
+    return torch.stack(h_n, dim=0).to(dtype)
+
+
+def input_projection_int8(ys_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """K3's s8 GEMM on its own (the wrapper of the encoder runs it per
+    chunk): :func:`input_projection_int8_reference`'s function, int32 out,
+    through the TMA + s8 wgmma kernel (``csrc/encoder_hopper.cuh``)."""
+    if ys_q.device.type == "cpu":
+        return input_projection_int8_reference(ys_q, w_q)
+    rows, hidden = _check_projection_args("input_projection_int8", ys_q, w_q, torch.int8)
+    w_t = w_q.transpose(1, 2).contiguous()
+    out = torch.empty((2, rows, 3 * hidden), dtype=torch.int32, device=ys_q.device)
+    check_launch(load_kernels().inpaint_encoder_gemm_int8(
+        ys_q.data_ptr(), w_t.data_ptr(), out.data_ptr(), rows, hidden, stream_ptr()),
+        "input_projection_int8")
+    return out
+
+
+def encoder_hn_int8(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
+                    max_chunk_rows=None) -> torch.Tensor:
     """K3: ``encoder_hn`` with int8 products (``csrc/encoder_gru_int8.cu``;
     it replaces ``inpaintnet_tpu/ops/encoder_pallas.py
     encoder_hn_pallas_int8``). Same arguments and result as
@@ -254,23 +490,33 @@ def encoder_hn_int8(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor) -
     batch, seq_len = tokens.shape
     vocab = emb_table.shape[0]
     ops = encoder_int8_operands(gru_params, emb_table)
-    tab = ops["tab_q"]
-    whh0, wih1, whh1 = (torch.stack([pack_mma_b_s8(w) for w in ops[k]])
-                        for k in ("whh0_q", "wih1_q", "whh1_q"))
+    # layer 0's input projection dequantized and biased, as the plain version does it
+    xtab = (ops["tab_q"].float() * ops["s_x0"][:, None] + ops["bih0"][:, None]).contiguous()
+    whh0, whh1 = (torch.stack([pack_gate_slabs(w, 128) for w in ops[k]])
+                  for k in ("whh0_q", "whh1_q"))
+    wih1_t = ops["wih1_q"].transpose(1, 2).contiguous()
     f32 = {k: ops[k].contiguous() for k in ("s_x0", "s_h0", "s_x1", "s_h1",
                                             "bih0", "bhh0", "bih1", "bhh1")}
-    ys = torch.empty((2, seq_len, batch, hidden), dtype=torch.int8, device=device)
     h_n = torch.empty((4, batch, hidden), dtype=dtype, device=device)
+    lib = load_kernels()
 
-    err = load_kernels().inpaint_encoder_hn_int8(
-        DTYPE_CODES[dtype], tokens.data_ptr(), tab.data_ptr(), whh0.data_ptr(),
-        wih1.data_ptr(), whh1.data_ptr(), f32["s_x0"].data_ptr(), f32["s_h0"].data_ptr(),
-        f32["s_x1"].data_ptr(), f32["s_h1"].data_ptr(), f32["bih0"].data_ptr(),
-        f32["bhh0"].data_ptr(), f32["bih1"].data_ptr(), f32["bhh1"].data_ptr(),
-        ys.data_ptr(), h_n.data_ptr(), batch, seq_len, hidden, vocab, stream_ptr())
-    check_launch(err, "encoder_hn_int8")
+    def rec(layer, ys, xw, row0, rows):
+        args = ((whh0, tokens, xtab, None) if layer == 0 else (whh1, None, None, xw))
+        args += tuple(f32[f"{k}{layer}"] for k in ("s_x", "s_h", "bih", "bhh"))
+        check_launch(lib.inpaint_encoder_rec_int8(
+            DTYPE_CODES[dtype], layer, *(None if a is None else a.data_ptr() for a in args),
+            ys.data_ptr(), h_n[2 * layer].data_ptr(), batch, row0, rows, seq_len, hidden,
+            vocab, stream_ptr()), "encoder_hn_int8")
+
+    def gemm(ys, xw, m):
+        check_launch(lib.inpaint_encoder_gemm_int8(
+            ys.data_ptr(), wih1_t.data_ptr(), xw.data_ptr(), m, hidden, stream_ptr()),
+            "encoder_hn_int8")
+
+    _encode_chunks(rec, gemm, hidden, batch, seq_len, torch.int8, torch.int32, device,
+                   max_chunk_rows)
     encoder_hn_int8.launches += 1
     return h_n
 
 
-encoder_hn_int8.launches = 0  # kernel launches, for proving a run went through K3
+encoder_hn_int8.launches = 0  # wrapper calls on the card, for proving a run went through K3

@@ -10,7 +10,8 @@
   ``build/inpaintnet_tpu_torch/`` at the repository root. It is loaded
   with ``ctypes``.
 - ``pack_mma_b`` and ``pack_mma_b_s8``: the weight layouts the bf16 and the
-  int8 kernels read.
+  int8 ``mma.sync`` kernels read (the Hopper encoder's are
+  ``encoder_kernel.pack_gate_slabs`` and plain transposes).
 - ``check_cuda_tensor``: the wrappers' argument checks.
 
 Nothing here imports or builds anything at import time: this module is
@@ -152,12 +153,18 @@ def load_kernels() -> ctypes.CDLL:
     ints)."""
     lib = ctypes.CDLL(str(build_kernels()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.inpaint_encoder_hn.argtypes = [i32] + [ptr] * 15 + [i32] * 4 + [ptr]
-    lib.inpaint_encoder_hn.restype = i32
+    lib.inpaint_encoder_hn_f32.argtypes = [ptr] * 15 + [i32] * 4 + [ptr]
+    lib.inpaint_encoder_hn_f32.restype = i32
+    lib.inpaint_encoder_rec_bf16.argtypes = [i32] + [ptr] * 8 + [i32] * 6 + [ptr]
+    lib.inpaint_encoder_rec_bf16.restype = i32
+    lib.inpaint_encoder_gemm_bf16.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]
+    lib.inpaint_encoder_gemm_bf16.restype = i32
     lib.inpaint_decode_sampling.argtypes = [i32] + [ptr] * 13 + [i32] * 4 + [ptr]
     lib.inpaint_decode_sampling.restype = i32
-    lib.inpaint_encoder_hn_int8.argtypes = [i32] + [ptr] * 15 + [i32] * 4 + [ptr]
-    lib.inpaint_encoder_hn_int8.restype = i32
+    lib.inpaint_encoder_rec_int8.argtypes = [i32] * 2 + [ptr] * 10 + [i32] * 6 + [ptr]
+    lib.inpaint_encoder_rec_int8.restype = i32
+    lib.inpaint_encoder_gemm_int8.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
+    lib.inpaint_encoder_gemm_int8.restype = i32
     lib.inpaint_decode_sampling_int8.argtypes = [i32] + [ptr] * 16 + [i32] * 4 + [ptr]
     lib.inpaint_decode_sampling_int8.restype = i32
     lib.inpaint_gru_fwd_seq.argtypes = [i32] + [ptr] * 5 + [i32] * 4 + [ptr]

@@ -35,12 +35,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _tree(tree, device, dtype, rng):
+def _tree(tree, device, dtype, rng, noise=0.1):
     if isinstance(tree, dict):
-        return {k: _tree(v, device, dtype, rng) for k, v in tree.items()}
+        return {k: _tree(v, device, dtype, rng, noise) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_tree(v, device, dtype, rng) for v in tree]
-    noisy = tree + 0.1 * rng.standard_normal(tree.shape).astype(np.float32)
+        return [_tree(v, device, dtype, rng, noise) for v in tree]
+    noisy = tree + noise * rng.standard_normal(tree.shape).astype(np.float32)
     return torch.from_numpy(noisy).to(device=device, dtype=dtype)
 
 
@@ -104,8 +104,8 @@ def _decode_case(rng, batch, hidden, vocab, dtype, device, big_row=None):
 # nothing is left to differ.
 
 
-def _encoder_int8_case(rng, batch, hidden, dtype, device):
-    gru = _tree(gru_init(rng, 10, hidden, 2, True), device, dtype, rng)
+def _encoder_int8_case(rng, batch, hidden, dtype, device, noise=0.1):
+    gru = _tree(gru_init(rng, 10, hidden, 2, True), device, dtype, rng, noise)
     table = _tree(embedding_init(rng, 61, 10)["table"], device, dtype, rng)
     tokens = torch.from_numpy(rng.integers(0, 61, (batch, 24)).astype(np.int32)).to(device)
     return gru, table, tokens
@@ -123,6 +123,59 @@ def test_encoder_int8_kernel_matches_plain(cuda, dtype, batch, hidden):
     assert encoder_kernel.encoder_hn_int8.launches == before + 1
     assert h_k.shape == (4, batch, hidden) and h_k.dtype == dtype
     assert torch.equal(h_k, h_p)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("rows,hidden", [(888, 64), (120, 128), (1000, 512)])
+def test_encoder_projection_gemm_matches_plain(cuda, kind, rows, hidden):
+    """The Hopper route's layer-1 GEMM alone, at ragged M (not a multiple of
+    its 128-row tile): bf16 operands summed in f32 within 1e-5 relative
+    (only the order of the f32 sums differs), int8 sums equal."""
+    rng = np.random.default_rng(rows + hidden)
+    if kind == "bf16":
+        ys = torch.from_numpy(rng.uniform(-1, 1, (rows, 2 * hidden)).astype(np.float32))
+        w = torch.from_numpy((0.1 * rng.standard_normal((2, 2 * hidden, 3 * hidden)))
+                             .astype(np.float32))
+        b = torch.from_numpy(rng.standard_normal((2, 3 * hidden)).astype(np.float32)).to(cuda)
+        ys, w = ys.to(cuda, torch.bfloat16), w.to(cuda, torch.bfloat16)
+        got = encoder_kernel.input_projection(ys, w, b)
+        want = encoder_kernel.input_projection_reference(ys, w, b)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == (2, rows, 3 * hidden)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        ys, w = (torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(cuda)
+                 for shape in ((rows, 2 * hidden), (2, 2 * hidden, 3 * hidden)))
+        got = encoder_kernel.input_projection_int8(ys, w)
+        want = encoder_kernel.input_projection_int8_reference(ys, w)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and got.shape == (2, rows, 3 * hidden)
+        assert torch.equal(got, want.int())
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("batch,hidden,chunk", [(150, 64, 64), (77, 128, 32), (70, 512, 64)])
+def test_encoder_kernels_chunked_ragged_rows(cuda, kind, batch, hidden, chunk):
+    """K1's bf16 route and K3 over several row chunks (a small chunk cap
+    forced), the last chunk and the last row tile ragged: the same h_n as
+    the plain version, within bf16's bound or bit-equal. The weights' noise
+    shrinks as 1 / sqrt(H), as their init does: at H 512 a noise of 0.1
+    makes the recurrence chaotic enough that two plain versions summing in
+    another order already differ by more than two bf16 ulps."""
+    gru, table, tokens = _encoder_int8_case(np.random.default_rng(batch), batch, hidden,
+                                            torch.bfloat16, cuda, noise=0.8 / hidden ** 0.5)
+    assert encoder_kernel.encoder_chunk_rows(batch, 24, hidden, chunk) == chunk < batch
+    if kind == "bf16":
+        h_k = encoder_kernel.encoder_hn(gru, table, tokens, max_chunk_rows=chunk)
+        h_p = encoder_kernel.encoder_hn_reference(gru, table, tokens)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(h_k.float(), h_p.float(), rtol=0,
+                                   atol=ATOL[torch.bfloat16])
+    else:
+        h_k = encoder_kernel.encoder_hn_int8(gru, table, tokens, max_chunk_rows=chunk)
+        h_p = encoder_kernel.encoder_hn_int8_reference(gru, table, tokens)
+        torch.cuda.synchronize()
+        assert torch.equal(h_k, h_p)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
