@@ -2,7 +2,12 @@
 """Drive the PyTorch port's serving, training and AnticipationRNN paths
 once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR`` names an earlier checkout of this repository (for example
+``git archive`` of the parent commit, unpacked): its K8 and K2 CUDA sources
+are built too, and each K8 and K2 bf16 time is printed beside that
+checkout's kernel on the same card (otherwise "parent not measured").
 
 Phases, each raising on failure:
 
@@ -22,7 +27,10 @@ Phases, each raising on failure:
    K1 bf16 and K3, whose Hopper route runs layer 0, a GEMM and layer 1 per
    chunk of rows, are timed with ``torch.profiler``'s split into those
    parts, their CUDA launches and peak memory, at 65,536 rows and at a
-   batch-1 request's 32;
+   batch-1 request's 32; K2 bf16 also at the autoregressive step's 2,048
+   rows and a batch-1 call's 6, every cluster size of its Hopper route
+   against the plain version and bit-equal to the others, each timed beside
+   its bound (and the parent's kernel);
 4. the training kernels K5 ``gru_fwd_seq`` and K6 ``gru_bwd_seq`` against
    their plain versions at the VAE encoder's shape (24 steps, 4,096 rows,
    H 512, both directions) and the tick GRU's (6 steps, 16,384 rows), in
@@ -71,9 +79,11 @@ Phases, each raising on failure:
    shapes (the context GRUs: 16 steps, H 512, suffix masks with all-zero
    rows, outputs on and off; the generation GRU: 6 steps, H 1024, target
    masks; the autoregressive step: 1 step, H 1024, at 2,048 rows and at
-   one), f32 and bf16, forward and reverse, with two planted faults (a
-   carry kept in f32 in bf16, a mask read one step late) that the bounds
-   must reject; each timed beside its plain version, its bound and cuDNN's
+   one; the beat GRU's), f32 and bf16 (every cluster size of the Hopper
+   route, bit-equal to each other), forward and reverse, with two planted
+   faults (a carry kept in f32 in bf16, a mask read one step late) that the
+   bounds must reject; each timed (bf16: at each cluster size, and the
+   parent's kernel) beside its plain version, its bound and cuDNN's
    one-direction ``torch.nn.GRU`` as a yardstick;
 14. the bf16 LatentRNN engine under the ``"pallas"`` GRU route beside
    ``"xla"``: K8 launches per call (asserted), no eager GRU step under
@@ -84,8 +94,10 @@ Phases, each raising on failure:
 16. the autoregressive flagship engine (hidden 512, generation hidden
    1024), bf16, under ``"pallas"``: three requests checked, K1, K2 and K8
    launches per call asserted, measures/s at batch 2048, the batch-1 p50,
-   a profile of each, and an ``/v1/inpaint`` burst through the HTTP
-   server whose responses must equal the solo ``inpaint_hetero``.
+   a profile of each, K8's and K2's device time a call with their launch
+   plans and with half and twice the plans' cluster sizes (``[plan]``), and
+   an ``/v1/inpaint`` burst through the HTTP server whose responses must
+   equal the solo ``inpaint_hetero``.
 
 Phases 12-16 run after phase 8, before the training phases. Prints one
 JSON line of the eight kernels, the card's name and power limit, and as
@@ -94,13 +106,16 @@ result, when there is no usable card or any phase fails.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
+import ctypes
 import http.client
 import json
 import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -240,6 +255,87 @@ def decode_ops(rows: int, hidden: int, vocab: int) -> float:
                          + 4 * hidden * 3 * hidden)
 
 
+# ---------------------------------------------------------------------------
+# An earlier checkout's K8 and K2 (``--parent DIR``), timed beside the new
+# ones in the same run
+# ---------------------------------------------------------------------------
+PARENT_SOURCES = ("gru_layer.cu", "decode_sampling.cu")
+
+
+class ParentKernels:
+    """The bf16 routes of K8 and K2 as the checkout at ``root`` built them
+    (its ``inpaintnet_tpu_torch/ops/csrc``: the 16/32-row ``mma.sync``
+    kernels), called as that checkout's wrappers called them, the weights
+    packed on every call. Used only to time them beside the new kernels on
+    the same card in the same run."""
+
+    def __init__(self, root: str):
+        from inpaintnet_tpu_torch.ops.kernel_common import NVCC_FLAGS, _nvcc, _run_all
+
+        csrc = Path(root) / "inpaintnet_tpu_torch" / "ops" / "csrc"
+        out = Path(__file__).resolve().parent / "build" / "parent"
+        out.mkdir(parents=True, exist_ok=True)
+        objs = [str(out / f"{src}.o") for src in PARENT_SOURCES]
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(csrc / src)]
+                  for src, obj in zip(PARENT_SOURCES, objs)], False)
+        so = out / "libparent.so"
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(so), *objs]], False)
+        self.lib = ctypes.CDLL(str(so))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        self.lib.inpaint_gru_layer.argtypes = [i32] + [ptr] * 7 + [i32] * 5 + [ptr]
+        self.lib.inpaint_gru_layer.restype = i32
+        self.lib.inpaint_decode_sampling.argtypes = [i32] + [ptr] * 13 + [i32] * 4 + [ptr]
+        self.lib.inpaint_decode_sampling.restype = i32
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def gru_layer(self, xw, w_hh, b_hh, h0, mask, want_ys=True):
+        from inpaintnet_tpu_torch.ops.kernel_common import check_launch, pack_mma_b, stream_ptr
+
+        rows, steps, hidden = xw.shape[0], xw.shape[1], w_hh.shape[0]
+        keep = None if mask is None else (mask > 0).to(torch.uint8).contiguous()
+        whh = pack_mma_b(w_hh)
+        ys = (torch.empty((rows, steps, hidden), dtype=xw.dtype, device=xw.device)
+              if want_ys else None)
+        hn = torch.empty((rows, hidden), dtype=xw.dtype, device=xw.device)
+        tile = 16 if hidden <= 512 and 16 < rows and -(-rows // 32) < self.sms else 32
+        err = self.lib.inpaint_gru_layer(
+            1, xw.data_ptr(), whh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
+            None if keep is None else keep.data_ptr(), None if ys is None else ys.data_ptr(),
+            hn.data_ptr(), rows, steps, hidden, 0, tile, stream_ptr())
+        check_launch(err, "the parent's gru_layer")
+        return ys, hn
+
+    def decode(self, params, tick_ctx, h_inits):
+        from inpaintnet_tpu_torch.ops import decode_kernel as dk
+        from inpaintnet_tpu_torch.ops.kernel_common import check_launch, pack_mma_b, stream_ptr
+
+        p0, p1 = params["tick_gru"][0][0], params["tick_gru"][1][0]
+        rows, hidden = tick_ctx.shape[0], tick_ctx.shape[2]
+        vocab = params["head"]["w"].shape[1]
+        ins = dk.decode_inputs(params, tick_ctx, h_inits)
+        vocab_pad = -(-vocab // 8) * 8
+        head_w = torch.nn.functional.pad(params["head"]["w"], (0, vocab_pad - vocab))
+        head_b = torch.nn.functional.pad(params["head"]["b"], (0, vocab_pad - vocab))
+        whh0, wih1, whh1, head_w = (pack_mma_b(w) for w in (p0["w_hh"], p1["w_ih"],
+                                                             p1["w_hh"], head_w))
+        bias = torch.stack([p0["b_hh"], p1["b_ih"], p1["b_hh"]])
+        logits = torch.empty((rows, 24, vocab), dtype=tick_ctx.dtype, device=tick_ctx.device)
+        samples = torch.empty((rows, 24), dtype=torch.int32, device=tick_ctx.device)
+        err = self.lib.inpaint_decode_sampling(
+            1, ins["ctx_xw"].data_ptr(), ins["hi0"].data_ptr(), ins["hi1"].data_ptr(),
+            ins["tok_tab"].data_ptr(), ins["x0_xw"].data_ptr(), whh0.data_ptr(),
+            wih1.data_ptr(), whh1.data_ptr(), bias.data_ptr(), head_w.data_ptr(),
+            head_b.data_ptr(), logits.data_ptr(), samples.data_ptr(), rows, hidden, vocab,
+            vocab_pad, stream_ptr())
+        check_launch(err, "the parent's decode_sampling")
+        return logits, samples
+
+
+def parent_ms(parent, fn) -> str:
+    """``fn(parent)`` timed, or "not measured" without ``--parent``."""
+    return "not measured" if parent is None else f"{cuda_ms(lambda: fn(parent), 5):.3f} ms"
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; no result")
@@ -301,9 +397,10 @@ def _reject_planted_faults(dec, gru, table, tokens, tick_ctx, h_inits, hn_k, lg_
         raise RuntimeError("a planted K3/K4 fault passes the int8 bounds")
 
 
-def phase_kernels(vae_f32, max_target: int, card: str) -> dict:
+def phase_kernels(vae_f32, max_target: int, card: str, parent) -> dict:
     """Each kernel against its plain version at the engine's batch-2048
-    shapes: K1/K2 in f32 and bf16, K3/K4 on bf16 masters (the int8 engine's)."""
+    shapes: K1/K2 in f32 and bf16, K3/K4 on bf16 masters (the int8 engine's);
+    K2 bf16 also at the autoregressive step's and a batch-1 call's rows."""
     from inpaintnet_tpu_torch.models.base import cast_params
     from inpaintnet_tpu_torch.models.measure_vae import NUM_BEATS_PER_MEASURE
     from inpaintnet_tpu_torch.ops import decode_kernel as dk
@@ -391,7 +488,65 @@ def phase_kernels(vae_f32, max_target: int, card: str) -> dict:
             v = report[k]
             print(f"[time] {k} {label}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
                   f"bound {v['bound_ms']:.3f} ms ({v['bound_by']}) | {card}", flush=True)
+        if label == "bfloat16":
+            decode_row_counts(dec, tick_ctx, h_inits, bound, card, parent)
     return report
+
+
+@contextlib.contextmanager
+def _cluster(module, cluster):
+    """``module.launch_plan`` (K8's or K2's) picks ``cluster`` CTAs a tile
+    inside, its ring depth unchanged (None: the plan's own choice)."""
+    from inpaintnet_tpu_torch.ops.kernel_common import LaunchPlan
+
+    chosen = module.launch_plan
+    if cluster is not None:
+        module.launch_plan = lambda *shape: LaunchPlan(cluster, chosen(*shape).stages)
+    try:
+        yield
+    finally:
+        module.launch_plan = chosen
+
+
+# K2's rows: a batch-2048 call (max_target 6 a request), an autoregressive
+# step at batch 2048 (one measure a request), a batch-1 call
+DECODE_ROWS = (BATCH * 6, BATCH, 6)
+
+
+def decode_row_counts(dec, tick_ctx, h_inits, bound, card: str, parent) -> None:
+    """K2 bf16 at ``DECODE_ROWS``: every cluster size against the plain
+    version (``BOUNDS``) and bit-equal to the others (the cluster only moves
+    h between CTAs), each timed, beside the bound and the parent's kernel."""
+    from inpaintnet_tpu_torch.ops import decode_kernel as dk
+    from inpaintnet_tpu_torch.ops.kernel_common import cluster_sizes
+
+    hidden, vocab = tick_ctx.shape[2], dec["head"]["w"].shape[1]
+    for rows in DECODE_ROWS:
+        tc, hi = tick_ctx[:rows].contiguous(), h_inits[:, :rows].contiguous()
+        plan = dk.card_plan(rows, hidden, tc.device)
+        outs, ms = {}, {}
+        for c in cluster_sizes(hidden):
+            with _cluster(dk, c):
+                outs[c] = dk.decode_sampling(dec, tc, hi)
+                ms[c] = cuda_ms(lambda: dk.decode_sampling(dec, tc, hi), 5)
+        lg_p, s_p = dk.decode_sampling_reference(dec, tc, hi)
+        lg_k, s_k = outs[plan.cluster]
+        agree = (s_k == s_p).float().mean().item()
+        lg_err = (lg_k.float() - lg_p.float()).abs()[_first_divergence_mask(s_k, s_p)].max().item()
+        same = all(torch.equal(o[0], lg_k) and torch.equal(o[1], s_k) for o in outs.values())
+        print(f"[kernels] decode_sampling bfloat16 rows {rows}: tokens equal {agree:.6f}, logits "
+              f"max_abs_err {lg_err:.3e}; clusters {sorted(outs)} bit-equal {same}", flush=True)
+        if not (same and agree >= bound["tokens"] and lg_err <= bound["logits"]):
+            raise RuntimeError(f"K2 bf16 at {rows} rows disagrees with its plain version or "
+                               "across cluster sizes")
+        b = bound_of(decode_ops(rows, hidden, vocab), "bf16",
+                     nbytes({k: dec[k] for k in ("embedding", "x_0", "tick_gru", "head")},
+                            tc, hi, lg_k, s_k))
+        per = ", ".join(f"cluster {c} {v:.3f} ms" for c, v in ms.items())
+        print(f"[time] decode_sampling bfloat16 rows {rows}: kernel {ms[plan.cluster]:.3f} ms "
+              f"(cluster {plan.cluster}, stages {plan.stages}; {per}), parent "
+              f"{parent_ms(parent, lambda pk: pk.decode(dec, tc, hi))}, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) | {card}", flush=True)
 
 
 def _check_encoder_share(gru, table, tokens, hn_k, hn_p) -> None:
@@ -1342,43 +1497,35 @@ def cudnn_gru_layer_ms(args, dtype) -> float:
         return cuda_ms(lambda: net(x, h0[None]), 3)
 
 
-@contextlib.contextmanager
-def _k8_tile(lk, tile):
-    """K8's bf16 route takes ``tile`` rows a block inside (None: its own
-    choice, ``gru_kernel.bf16_tile_rows``)."""
-    chosen = lk.bf16_tile_rows
-    if tile is not None:
-        lk.bf16_tile_rows = lambda *shape: tile
-    try:
-        yield
-    finally:
-        lk.bf16_tile_rows = chosen
-
-
-def phase_gru_layer_kernel(card: str) -> dict:
+def phase_gru_layer_kernel(card: str, parent) -> dict:
     """K8 against its plain version at ``GRU_LAYER_SHAPES``, f32 and bf16
-    (both row tiles), forward and reverse; the planted faults; the times of
-    the forward direction, bf16 at each tile. -> the report entry of the
+    (every cluster size the bf16 route can take, which must also agree bit
+    for bit: the cluster only moves h between CTAs), forward and reverse;
+    the planted faults; the times of the forward direction, bf16 at each
+    cluster size, beside the parent's kernel. -> the report entry of the
     bf16 context shape."""
     from inpaintnet_tpu_torch.ops import gru_kernel as lk
+    from inpaintnet_tpu_torch.ops.kernel_common import cluster_sizes
 
     report = {}
     for dtype in (torch.float32, torch.bfloat16):
         bound = lk.BOUNDS[dtype]
-        tiles = (16, 32) if dtype == torch.bfloat16 else (None,)
         for i, (label, rows, steps, hidden, mask_kind, outputs) in enumerate(GRU_LAYER_SHAPES):
             args = _gru_layer_inputs(20 + i, rows, steps, hidden, dtype, mask_kind)
             shape = f"{dtype} {label} rows {rows} steps {steps} H {hidden} outputs {outputs}"
+            clusters = cluster_sizes(hidden) if dtype == torch.bfloat16 else [None]
+            plan = lk.card_plan(rows, hidden, args[0].device) if dtype == torch.bfloat16 else None
+            chosen = None if plan is None else plan.cluster
             plain = {rev: lk.gru_layer_reference(*args, reverse=rev, want_ys=outputs)
                      for rev in (True, False)}
             got = {}
-            for tile in tiles:
-                with _k8_tile(lk, tile):
+            for cluster in clusters:
+                with _cluster(lk, cluster):
                     for reverse in (True, False):
                         out = lk.gru_layer_stream(*args, reverse=reverse, want_ys=outputs)
                         agree = lk.agreement(out, plain[reverse])
-                        print(f"[gru-layer] {shape} tile {tile or 16} reverse {reverse}: {agree} "
-                              f"(bound {bound})", flush=True)
+                        print(f"[gru-layer] {shape} cluster {cluster or '-'} reverse {reverse}: "
+                              f"{agree} (bound {bound})", flush=True)
                         if not lk.within(agree, bound) or not bool(torch.isfinite(
                                 out[1].float()).all()):
                             raise RuntimeError(f"K8 disagrees with its plain version: {shape}")
@@ -1386,9 +1533,12 @@ def phase_gru_layer_kernel(card: str) -> dict:
                             held = args[4].sum(dim=1) == 0
                             if not (held.any() and torch.equal(out[1][held], args[3][held])):
                                 raise RuntimeError(f"K8's all-zero rows do not return h0: {shape}")
-                        got[tile, reverse] = out, agree
-            chosen = None if dtype == torch.float32 else lk.bf16_tile_rows(
-                rows, hidden, torch.cuda.get_device_properties(0).multi_processor_count)
+                        got[cluster, reverse] = out, agree
+            for reverse in (True, False):
+                base = got[chosen, reverse][0]
+                if not all(all((x is None and y is None) or torch.equal(x, y)
+                               for x, y in zip(got[c, reverse][0], base)) for c in clusters):
+                    raise RuntimeError(f"K8 differs across cluster sizes: {shape}")
             out, agree = got[chosen, False]
             faults = {}
             if args[4] is not None:
@@ -1407,19 +1557,23 @@ def phase_gru_layer_kernel(card: str) -> dict:
                 print(f"[gru-layer] planted fault {shape}, {name}: {f_agree}", flush=True)
                 if lk.within(f_agree, bound):
                     raise RuntimeError(f"a planted K8 fault passes the bounds: {shape}, {name}")
-            tile_ms = {}
-            for tile in tiles:
-                with _k8_tile(lk, tile):
-                    tile_ms[tile] = cuda_ms(lambda: lk.gru_layer_stream(*args, want_ys=outputs), 5)
-            ms = tile_ms[chosen]
+            cluster_ms = {}
+            for cluster in clusters:
+                with _cluster(lk, cluster):
+                    cluster_ms[cluster] = cuda_ms(
+                        lambda: lk.gru_layer_stream(*args, want_ys=outputs), 5)
+            ms = cluster_ms[chosen]
             plain_ms = cuda_ms(lambda: lk.gru_layer_reference(*args, want_ys=outputs), 2)
             library_ms = cudnn_gru_layer_ms(args, dtype)
             moved = nbytes([a for a in args if a is not None], [o for o in out if o is not None])
             b = bound_of(gru_layer_ops(rows, steps, hidden),
                          "bf16" if dtype == torch.bfloat16 else "f32", moved)
-            by_tile = "" if chosen is None else " (" + ", ".join(
-                f"tile {t} {v:.3f} ms" for t, v in tile_ms.items()) + f"; chosen {chosen})"
-            print(f"[time] gru_layer_stream {shape}: kernel {ms:.3f} ms{by_tile}, plain "
+            extra = ""
+            if plan is not None:
+                per = ", ".join(f"cluster {c} {v:.3f} ms" for c, v in cluster_ms.items())
+                old = parent_ms(parent, lambda pk: pk.gru_layer(*args, want_ys=outputs))
+                extra = f" (cluster {chosen}, stages {plan.stages}; {per}), parent {old}"
+            print(f"[time] gru_layer_stream {shape}: kernel {ms:.3f} ms{extra}, plain "
                   f"{plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); cuDNN "
                   f"torch.nn.GRU({GRU_YARDSTICK_IN}, {hidden}) one direction, unmasked, "
                   f"yardstick {library_ms:.3f} ms | {card}", flush=True)
@@ -1604,27 +1758,50 @@ def phase_autoreg_engine(card: str):
                       t_big, card)
         _profile_line("autoreg bf16 batch 1", lambda: engine.inpaint(*one, seed=5),
                       float(np.median(lat)), card)
-        _k8_tile_device_ms(engine, {f"batch {BATCH}": big, "batch 1": one}, card)
+        _plan_device_ms(engine, {f"batch {BATCH}": big, "batch 1": one}, card)
     return engine, launches
 
 
-def _k8_tile_device_ms(engine, requests: dict, card: str) -> None:
-    """K8's device time in one call of each request (``torch.profiler``),
-    with ``gru_kernel.bf16_tile_rows`` and with 32-row tiles everywhere, in
-    turns (chosen, 32, 32, chosen): the choice held on the call's launch
-    mix. At one row both arms run the same tiles, so their spread is the
-    measurement's own."""
+def _neighbour_plan(plan_fn, factor):
+    """``plan_fn`` with its cluster size times ``factor`` where the width
+    allows that size, else its own."""
+    from inpaintnet_tpu_torch.ops.kernel_common import cluster_sizes
+
+    def plan(rows, hidden, sms, slots=None):
+        chosen = plan_fn(rows, hidden, sms, slots)
+        c = int(chosen.cluster * factor)
+        return chosen._replace(cluster=c) if c in cluster_sizes(hidden) else chosen
+    return plan
+
+
+def _plan_device_ms(engine, requests: dict, card: str) -> None:
+    """K8's and K2's device time in one call of each request
+    (``torch.profiler``) with their launch plans, and with each shape's
+    neighbours: half and twice the plan's cluster size where the width
+    allows, in turns (plan, half, twice, twice, half, plan). The plans held
+    on the call's own launch mix, within one run."""
+    from inpaintnet_tpu_torch.ops import decode_kernel as dk
     from inpaintnet_tpu_torch.ops import gru_kernel as lk
 
+    arms = {"launch_plan": 1, "half": 0.5, "twice": 2}
+    real = {m: m.launch_plan for m in (lk, dk)}
     for label, req in requests.items():
-        k8 = {None: [], 32: []}
-        for tile in (None, 32, 32, None):
-            with _k8_tile(lk, tile):
+        k8 = {a: [] for a in arms}
+        k2 = {a: [] for a in arms}
+        for arm in ("launch_plan", "half", "twice", "twice", "half", "launch_plan"):
+            for m in (lk, dk):
+                m.launch_plan = _neighbour_plan(real[m], arms[arm])
+            try:
                 rows = _profile_step(lambda: engine.inpaint(*req, seed=5))[2]
-            k8[tile].append(sum(ms for name, ms, _ in rows if "gru_layer_" in name))
-        print(f"[k8-tile] autoreg bf16 {label}: K8 device ms a call, bf16_tile_rows "
-              f"{[round(v, 3) for v in k8[None]]}, 32 rows everywhere "
-              f"{[round(v, 3) for v in k8[32]]} | {card}", flush=True)
+            finally:
+                for m in (lk, dk):
+                    m.launch_plan = real[m]
+            k8[arm].append(sum(ms for name, ms, _ in rows if "gru_layer_kernel" in name))
+            k2[arm].append(sum(ms for name, ms, _ in rows if "decode_kernel<" in name))
+        for kernel, got in (("K8", k8), ("K2", k2)):
+            print(f"[plan] autoreg bf16 {label}: {kernel} device ms a call, " + "; ".join(
+                f"{arm} {[round(v, 3) for v in vals]}" for arm, vals in got.items())
+                + f" | {card}", flush=True)
 
 
 def phase_autoreg_http(engine, card: str) -> dict:
@@ -1675,12 +1852,18 @@ def phase_autoreg_http(engine, card: str) -> dict:
 
 
 def main() -> int:
+    cli = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
+    cli.add_argument("--parent", metavar="DIR",
+                     help="an earlier checkout of this repository whose K8 and K2 kernels "
+                          "are built and timed beside the new ones")
+    opts = cli.parse_args()
     card = phase_device()
     phase_build()
+    parent = None if opts.parent is None else ParentKernels(opts.parent)
     from inpaintnet_tpu_torch.models.presets import build_flagship
 
     _, vae, model = build_flagship(seed=0, device="cuda", dtype=torch.float32)
-    report = phase_kernels(vae, model.max_target, card)
+    report = phase_kernels(vae, model.max_target, card, parent)
     report.update(phase_train_kernels(card))
     phase_reference(model)
     engine16, launches, span_bf16 = phase_engine(model, "bfloat16", card)
@@ -1696,7 +1879,7 @@ def main() -> int:
     arnn_engine, launches_arnn = phase_arnn_engine(arnn, card)
     launches_arnn_http = phase_arnn_http(engine8, arnn_engine, card)
     del engine8, arnn_engine
-    report.update(phase_gru_layer_kernel(card))
+    report.update(phase_gru_layer_kernel(card, parent))
     phase_gru_routes(engine16, card)
     del engine16
     phase_autoreg_reference(card)

@@ -17,10 +17,20 @@
 // (H, 3H) matrices and the (H, V) head: about 4.6 MB of bf16 weights at
 // H = 512, streamed from L2 every tick, behind a serial chain (layer 0 ->
 // layer 1 -> head -> argmax -> feedback) that allows no overlap across
-// ticks. As in K1 one block owns a tile of rows and loops over the 24 ticks
-// with its hiddens in shared memory; the feedback is a row lookup
-// (only the token index is kept between ticks, not a (rows, 3H) slab).
+// ticks.
+//
+// bf16 route (every serving default): decode_hopper.cuh, TMA-fed wgmma
+// products with the units of each 64-row tile split across a thread-block
+// cluster (its note gives the design).
+//
+// f32 route (the first port's kernel): as in K1, one block owns a 16-row tile and
+// loops over the 24 ticks with its hiddens in shared memory, scalar FMA
+// products (gru_common.cuh); the feedback is a row lookup (only the token
+// index is kept between ticks, not a (rows, 3H) slab).
+#include "decode_hopper.cuh"
 #include "gru_common.cuh"
+
+#include <string.h>
 
 namespace inpaint {
 
@@ -34,11 +44,11 @@ struct DecodeArgs {
   const T* hi1;        // (4, B, H) per-beat layer-1 init hiddens
   const T* tok_tab;    // (V, 3H): emb @ W_ih0[:E]
   const T* x0_xw;      // (3H,): x_0 @ W_ih0[:E], the tick-0 input
-  const void* whh0;    // (H, 3H), packed for bf16
-  const void* wih1;    // (H, 3H), packed for bf16
-  const void* whh1;    // (H, 3H), packed for bf16
+  const void* whh0;    // (H, 3H)
+  const void* wih1;    // (H, 3H)
+  const void* whh1;    // (H, 3H)
   const T* bias;       // (3, 3H): b_hh0, b_ih1, b_hh1
-  const void* head_w;  // (H, VP), zero columns past V, packed for bf16
+  const void* head_w;  // (H, VP), zero columns past V
   const T* head_b;     // (VP,), zero past V
   T* logits;           // (B, 24, V)
   int* samples;        // (B, 24)
@@ -196,31 +206,51 @@ static cudaError_t decode_sampling(const DecodeArgs<T>& a, cudaStream_t stream) 
 
 }  // namespace inpaint
 
-// dtype: 0 = float32, 1 = bfloat16. Tensors as documented on DecodeArgs.
-// Returns the cudaError_t of the launch (0 on success); launches on
-// `stream` and does not synchronise.
-extern "C" int inpaint_decode_sampling(int dtype, const void* ctx_xw, const void* hi0,
-                                       const void* hi1, const void* tok_tab,
-                                       const void* x0_xw, const void* whh0,
-                                       const void* wih1, const void* whh1,
-                                       const void* bias, const void* head_w,
-                                       const void* head_b, void* logits, void* samples,
-                                       int B, int H, int V, int VP, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define INPAINT_DECODE_ARGS(T)                                                         \
-  inpaint::DecodeArgs<T> a{static_cast<const T*>(ctx_xw), static_cast<const T*>(hi0), \
-                           static_cast<const T*>(hi1),    static_cast<const T*>(tok_tab), \
-                           static_cast<const T*>(x0_xw),  whh0, wih1, whh1,             \
-                           static_cast<const T*>(bias),   head_w,                       \
-                           static_cast<const T*>(head_b), static_cast<T*>(logits),      \
-                           static_cast<int*>(samples),    B, H, V, VP};                 \
-  return (int)inpaint::decode_sampling<T>(a, s);
-  if (dtype == 0) {
-    INPAINT_DECODE_ARGS(float)
-  }
-  if (dtype == 1) {
-    INPAINT_DECODE_ARGS(__nv_bfloat16)
-  }
-#undef INPAINT_DECODE_ARGS
-  return (int)cudaErrorInvalidValue;
+// The f32 route. Tensors as documented on DecodeArgs. Returns the
+// cudaError_t of the launch (0 on success); launches on `stream` and does
+// not synchronise.
+extern "C" int inpaint_decode_sampling_f32(const void* ctx_xw, const void* hi0, const void* hi1,
+                                           const void* tok_tab, const void* x0_xw,
+                                           const void* whh0, const void* wih1, const void* whh1,
+                                           const void* bias, const void* head_w,
+                                           const void* head_b, void* logits, void* samples,
+                                           int B, int H, int V, int VP, void* stream) {
+  using T = float;
+  inpaint::DecodeArgs<T> a{static_cast<const T*>(ctx_xw), static_cast<const T*>(hi0),
+                           static_cast<const T*>(hi1),    static_cast<const T*>(tok_tab),
+                           static_cast<const T*>(x0_xw),  whh0, wih1, whh1,
+                           static_cast<const T*>(bias),   head_w,
+                           static_cast<const T*>(head_b), static_cast<T*>(logits),
+                           static_cast<int*>(samples),    B, H, V, VP};
+  return (int)inpaint::decode_sampling<T>(a, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 route (decode_hopper.cuh): `map` is inpaint_slab_map's over the
+// packed weights (decode_kernel.pack_decode_weights); `cluster`
+// CTAs share each 64-row tile and `stages` is the depth of each consumer
+// warpgroup's ring (decode_kernel.launch_plan); bias (3, 3H) holds b_hh0,
+// b_ih1, b_hh1 and head_b (64,) the head's bias zero-padded; V at most 64.
+extern "C" int inpaint_decode_sampling_bf16(const void* map, const void* ctx_xw, const void* hi0,
+                                            const void* hi1, const void* tok_tab,
+                                            const void* x0_xw, const void* bias,
+                                            const void* head_b, void* logits, void* samples,
+                                            int B, int H, int V, int cluster, int stages,
+                                            void* stream) {
+  if (map == nullptr) return (int)cudaErrorInvalidValue;
+  using T = __nv_bfloat16;
+  CUtensorMap m;
+  memcpy(&m, map, sizeof(m));
+  const inpaint::rec90::DecodeArgs a{
+      static_cast<const T*>(ctx_xw), static_cast<const T*>(hi0),   static_cast<const T*>(hi1),
+      static_cast<const T*>(tok_tab), static_cast<const T*>(x0_xw), static_cast<const T*>(bias),
+      static_cast<const T*>(head_b),  static_cast<T*>(logits),      static_cast<int*>(samples),
+      B, H, V, stages};
+  return (int)inpaint::rec90::launch_decode(m, a, cluster, static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of `cluster` CTAs of the bf16 route's kernel for hidden width H
+// and `stages` ring stages that the card runs at once (the launch plan's
+// wave size); -1 where the plan does not fit.
+extern "C" int inpaint_decode_slots(int H, int cluster, int stages) {
+  return inpaint::rec90::decode_slots(H, cluster, stages);
 }

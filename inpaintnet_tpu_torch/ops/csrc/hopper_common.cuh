@@ -1,7 +1,11 @@
-// Hopper (sm_90a) building blocks of the encoder kernels (encoder_hopper.cuh):
-// mbarriers, TMA tile loads, the shared-memory matrix descriptor of the
-// 128-byte swizzle, the warpgroup products (wgmma) of 64 x 256 and 64 x 96
-// tiles in bf16 -> f32 and s8 -> s32, and the host's tensor-map encoder.
+// Hopper (sm_90a) building blocks of the wgmma kernels (encoder_hopper.cuh,
+// gru_layer_hopper.cuh, decode_hopper.cuh): mbarriers, TMA tile loads, the
+// shared-memory matrix descriptor of the 128-byte swizzle, the warpgroup
+// products (wgmma) of 64 x 256 and 64 x 96 tiles in bf16 -> f32 and
+// s8 -> s32 and of 64 x 64 and 64 x 32 tiles in bf16 -> f32, the thread-block
+// cluster pieces (rank, mapa, the cluster barrier, remote mbarrier arrivals,
+// bulk copies into a peer's shared memory), and the host's tensor-map
+// encoder.
 //
 // Every operand a wgmma reads from shared memory here is "K-major with the
 // 128-byte swizzle": rows of 128 bytes (64 bf16 or 128 int8 values of the
@@ -93,6 +97,95 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// ---------------------------------------------------------------------------
+// thread-block clusters
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// the shared::cluster address of shared::cta address `addr` in CTA `rank`
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t d;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(d) : "r"(addr), "r"(rank));
+  return d;
+}
+
+// every thread of every CTA of the cluster: arrive (release), then wait
+// (acquire). Threads may diverge (not .aligned).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// arrive on the mbarrier at shared::cluster address `bar` (this CTA's or a
+// peer's), releasing this thread's prior memory operations at cluster scope
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// mbar_wait for the cluster recurrences (gru_layer_hopper.cuh): acquire at
+// cluster scope (for phases that peers complete) or CTA scope, and a
+// watchdog: a wait that has not ended after ~2^34 cycles (seconds; no
+// legitimate wait comes near) traps, so a broken protocol fails the launch
+// instead of hanging the card.
+template <bool kCluster>
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  long long start = 0;
+  for (int spins = 0;; ++spins) {
+    if constexpr (kCluster) {
+      asm volatile(
+          "{\n"
+          ".reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n"
+          "}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity)
+          : "memory");
+    } else {
+      asm volatile(
+          "{\n"
+          ".reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n"
+          "}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity)
+          : "memory");
+    }
+    if (done) return;
+    if (spins == 0) {
+      start = clock64();
+    } else if ((spins & 1023) == 0 && clock64() - start > (1ll << 34)) {
+      __trap();
+    }
+  }
+}
+
+// copy `bytes` (a multiple of 16) of this CTA's shared memory at `src` to
+// shared::cluster address `dst` (a peer's), completing `bytes` transactions
+// on the mbarrier at shared::cluster address `bar` in the same CTA as `dst`.
+// The source must have been written before a fence_proxy_async.
+__device__ __forceinline__ void bulk_copy_to_cluster(uint32_t dst, const void* src,
+                                                     uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(smem_u32(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // Byte offset of byte `kbyte` of row `r` in a K-major 128-byte-swizzled
 // tile of `rows` rows: the tile is split into k-blocks of 128 bytes, each
 // rows x 128 bytes.
@@ -145,6 +238,10 @@ __device__ __forceinline__ void fence_operands(int (&d)[N]) {
   "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"  \
   "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45," \
   "%46,%47}"
+#define INPAINT_D32                                                                          \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"  \
+  "%24,%25,%26,%27,%28,%29,%30,%31}"
+#define INPAINT_D16 "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}"
 #define INPAINT_OPS8(C, i)                                                                   \
   C(d[(i)]), C(d[(i) + 1]), C(d[(i) + 2]), C(d[(i) + 3]), C(d[(i) + 4]), C(d[(i) + 5]),      \
       C(d[(i) + 6]), C(d[(i) + 7])
@@ -155,6 +252,9 @@ __device__ __forceinline__ void fence_operands(int (&d)[N]) {
 #define INPAINT_OPS48(C)                                                                     \
   INPAINT_OPS8(C, 0), INPAINT_OPS8(C, 8), INPAINT_OPS8(C, 16), INPAINT_OPS8(C, 24),          \
       INPAINT_OPS8(C, 32), INPAINT_OPS8(C, 40)
+#define INPAINT_OPS32(C) \
+  INPAINT_OPS8(C, 0), INPAINT_OPS8(C, 8), INPAINT_OPS8(C, 16), INPAINT_OPS8(C, 24)
+#define INPAINT_OPS16(C) INPAINT_OPS8(C, 0), INPAINT_OPS8(C, 8)
 #define INPAINT_OPS128(C)                                                                    \
   INPAINT_OPS96(C), INPAINT_OPS8(C, 96), INPAINT_OPS8(C, 104), INPAINT_OPS8(C, 112),         \
       INPAINT_OPS8(C, 120)
@@ -217,6 +317,32 @@ __device__ __forceinline__ void wgmma_s8_n96(int (&d)[48], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// the 64 x 64 and 64 x 32 bf16 tiles: d[i] as above, 32 and 16 registers
+__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " INPAINT_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : INPAINT_OPS32(INPAINT_F)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_bf16_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " INPAINT_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : INPAINT_OPS16(INPAINT_F)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // One 128-byte k-slab of the product: four wgmma steps of 32 bytes.
 __device__ __forceinline__ void mma_slab(float (&d)[128], uint64_t da, uint64_t db,
                                          bool accumulate) {
@@ -240,6 +366,17 @@ __device__ __forceinline__ void mma_slab(int (&d)[48], uint64_t da, uint64_t db,
   for (int s = 0; s < 4; ++s) wgmma_s8_n96(d, da + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
 }
 
+__device__ __forceinline__ void mma_slab(float (&d)[32], uint64_t da, uint64_t db,
+                                         bool accumulate) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) wgmma_bf16_n64(d, da + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
+}
+__device__ __forceinline__ void mma_slab(float (&d)[16], uint64_t da, uint64_t db,
+                                         bool accumulate) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) wgmma_bf16_n32(d, da + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
+}
+
 #undef INPAINT_F
 #undef INPAINT_R
 #undef INPAINT_OPS48
@@ -248,6 +385,10 @@ __device__ __forceinline__ void mma_slab(int (&d)[48], uint64_t da, uint64_t db,
 #undef INPAINT_OPS96
 #undef INPAINT_OPS8
 #undef INPAINT_D48
+#undef INPAINT_D32
+#undef INPAINT_D16
+#undef INPAINT_OPS32
+#undef INPAINT_OPS16
 
 // ---------------------------------------------------------------------------
 // host: tensor maps

@@ -3,7 +3,11 @@
 ``decode_sampling`` is the CUDA kernel ``csrc/decode_sampling.cu`` (it
 replaces the TPU kernel ``inpaintnet_tpu/ops/decode_pallas.py
 decode_sampling_pallas``; the source says what bounds it on the card and
-how its design answers). ``decode_sampling_reference`` is its plain
+how its design answers). Its bf16 route is the Hopper design of
+``csrc/decode_hopper.cuh``: :func:`launch_plan` picks how many CTAs of a
+cluster split the units of each 64-row tile, and the packed weights, their
+tensor map and the stacked biases are built once per set of weight tensors
+(:func:`decode_operands`). ``decode_sampling_reference`` is its plain
 PyTorch version with the same numerics: products accumulate in f32, biases
 and gates in f32, both carries are rounded to the parameter dtype every
 tick, the fed-back row is a row of the parameter-dtype token table, the
@@ -25,22 +29,29 @@ from __future__ import annotations
 
 import torch
 
+from inpaintnet_tpu_torch.ops.encoder_kernel import pack_gate_blocks
 from inpaintnet_tpu_torch.ops.kernel_common import (
     DTYPE_CODES,
+    LaunchPlan,
+    WeightCache,
     check_cuda_tensor,
     check_launch,
     gru_gates_f32,
     kernel_supports_hidden,
     load_kernels,
-    pack_mma_b,
     pack_mma_b_s8,
+    recurrence_plan,
+    recurrence_slots,
+    ring_stages,
     round_up,
+    slab_map,
     stream_ptr,
 )
 from inpaintnet_tpu_torch.ops.quantize import dequantize_h, quantize_cols_int8, quantize_h_int8
 
 NUM_TICKS = 24
 TICKS_PER_BEAT = 6
+HEAD_COLS = 64  # the bf16 route's head: one 64 x 64 wgmma tile, V zero-padded to 64
 
 
 def decode_inputs(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor) -> dict:
@@ -125,10 +136,59 @@ def _check_decode_args(name: str, params, tick_ctx: torch.Tensor, h_inits: torch
     return batch, hidden, vocab, dtype, device
 
 
+def launch_plan(rows: int, hidden: int, sms: int, slots=None) -> LaunchPlan:
+    """How K2's bf16 route runs ``rows`` decode rows at ``hidden`` units on a
+    card of ``sms`` SMs: the cluster size (CTAs sharing a 64-row tile, each
+    computing ``hidden / cluster`` units of both layers) and the ring depth
+    beside the two h tiles (``kernel_common.recurrence_plan``; ``slots``: the
+    clusters of each size the card runs at once)."""
+    return recurrence_plan(rows, hidden, sms, h_tiles=2, slots=slots)
+
+
+def card_plan(rows: int, hidden: int, device) -> LaunchPlan:
+    """:func:`launch_plan` on the card ``device`` names, with its own SM
+    count and cluster slots: the plan :func:`decode_sampling` launches."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    slots = recurrence_slots("inpaint_decode_slots", hidden, ring_stages(hidden, 2), index)
+    return launch_plan(rows, hidden, torch.cuda.get_device_properties(index).multi_processor_count,
+                       slots)
+
+
+def pack_decode_weights(w_hh0, w_ih1, w_hh1, head_w) -> torch.Tensor:
+    """K2's bf16 weights as one array of (96, 64) k-slabs, (3 H / 32 + 1,
+    H / 64, 96, 64): W_hh0, W_ih1 and W_hh1 as ``pack_gate_blocks`` lays
+    them out, then the head's W^T as one more chunk (rows 0..V-1 its
+    columns, zero rows after)."""
+    hidden, vocab = head_w.shape
+    head_t = torch.zeros((96, hidden), dtype=head_w.dtype, device=head_w.device)
+    head_t[:vocab] = head_w.t()
+    head = head_t.reshape(1, 96, hidden // 64, 64).permute(0, 2, 1, 3)
+    return torch.cat([pack_gate_blocks(w) for w in (w_hh0, w_ih1, w_hh1)] + [head]).contiguous()
+
+
+def _build_decode_operands(w_hh0, w_ih1, w_hh1, head_w, b_hh0, b_ih1, b_hh1, head_b):
+    if head_w.dtype != torch.bfloat16:  # the f32 route reads the weights as they are
+        vocab_pad = round_up(head_w.shape[1], 8)
+        pad = (0, vocab_pad - head_w.shape[1])
+        return {"head_w": torch.nn.functional.pad(head_w, pad).contiguous(),
+                "head_b": torch.nn.functional.pad(head_b, pad).contiguous(),
+                "bias": torch.stack([b_hh0, b_ih1, b_hh1])}
+    packed = pack_decode_weights(w_hh0, w_ih1, w_hh1, head_w)
+    buf, addr = slab_map(packed)
+    return {"packed": packed, "map": buf, "map_addr": addr,
+            "head_b": torch.nn.functional.pad(head_b, (0, HEAD_COLS - head_b.shape[0])),
+            "bias": torch.stack([b_hh0, b_ih1, b_hh1])}
+
+
+# K2's per-weight operands, built once per set of weight tensors
+decode_operands = WeightCache(_build_decode_operands)
+
+
 def decode_sampling(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
     """K2: argmax decode of one measure per row.
 
     :param params: HierarchicalDecoder params, (in, out) weights, f32 or bf16
+        (bf16: a vocabulary of at most 64)
     :param tick_ctx: (B, 4, H) per-beat context (selu'd beat_to_tick_input)
     :param h_inits: (2, B, 4, H) per-beat tick-GRU init hiddens
     :return: (logits (B, 24, V) in the parameter dtype, samples (B, 24) int32)
@@ -139,25 +199,30 @@ def decode_sampling(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
         raise ValueError(f"decode_sampling: no kernel for device {tick_ctx.device}")
     batch, hidden, vocab, dtype, device = _check_decode_args("decode_sampling", params,
                                                              tick_ctx, h_inits)
+    if dtype == torch.bfloat16 and vocab > HEAD_COLS:
+        raise ValueError(f"decode_sampling: no bf16 kernel for vocabulary {vocab} (at most "
+                         f"{HEAD_COLS})")
     p0, p1 = params["tick_gru"][0][0], params["tick_gru"][1][0]
-
+    ops = decode_operands(p0["w_hh"], p1["w_ih"], p1["w_hh"], params["head"]["w"],
+                          p0["b_hh"], p1["b_ih"], p1["b_hh"], params["head"]["b"])
     ins = decode_inputs(params, tick_ctx, h_inits)
-    vocab_pad = round_up(vocab, 8)
-    head_w = torch.nn.functional.pad(params["head"]["w"], (0, vocab_pad - vocab))
-    head_b = torch.nn.functional.pad(params["head"]["b"], (0, vocab_pad - vocab))
-    whh0, wih1, whh1, head_w = (pack_mma_b(w) for w in (p0["w_hh"], p1["w_ih"],
-                                                         p1["w_hh"], head_w))
-    bias = torch.stack([p0["b_hh"], p1["b_ih"], p1["b_hh"]])
     logits = torch.empty((batch, NUM_TICKS, vocab), dtype=dtype, device=device)
     samples = torch.empty((batch, NUM_TICKS), dtype=torch.int32, device=device)
-
-    err = load_kernels().inpaint_decode_sampling(
-        DTYPE_CODES[dtype], ins["ctx_xw"].data_ptr(), ins["hi0"].data_ptr(),
-        ins["hi1"].data_ptr(), ins["tok_tab"].data_ptr(), ins["x0_xw"].data_ptr(),
-        whh0.data_ptr(), wih1.data_ptr(),
-        whh1.data_ptr(), bias.data_ptr(), head_w.data_ptr(), head_b.data_ptr(),
-        logits.data_ptr(), samples.data_ptr(), batch, hidden, vocab, vocab_pad,
-        stream_ptr())
+    lib = load_kernels()
+    inputs = (ins["ctx_xw"].data_ptr(), ins["hi0"].data_ptr(), ins["hi1"].data_ptr(),
+              ins["tok_tab"].data_ptr(), ins["x0_xw"].data_ptr())
+    if dtype == torch.bfloat16:
+        plan = card_plan(batch, hidden, device)
+        err = lib.inpaint_decode_sampling_bf16(
+            ops["map_addr"], *inputs, ops["bias"].data_ptr(), ops["head_b"].data_ptr(),
+            logits.data_ptr(), samples.data_ptr(), batch, hidden, vocab, plan.cluster,
+            plan.stages, stream_ptr())
+    else:
+        err = lib.inpaint_decode_sampling_f32(
+            *inputs, p0["w_hh"].data_ptr(), p1["w_ih"].data_ptr(), p1["w_hh"].data_ptr(),
+            ops["bias"].data_ptr(), ops["head_w"].data_ptr(), ops["head_b"].data_ptr(),
+            logits.data_ptr(), samples.data_ptr(), batch, hidden, vocab,
+            ops["head_w"].shape[1], stream_ptr())
     check_launch(err, "decode_sampling")
     decode_sampling.launches += 1
     return logits, samples

@@ -103,6 +103,18 @@ def pack_gate_slabs(w_hh: torch.Tensor, k_multiple: int) -> torch.Tensor:
     return torch.nn.functional.pad(wt, (0, pad)).contiguous() if pad else wt.contiguous()
 
 
+def pack_gate_blocks(w_hh: torch.Tensor) -> torch.Tensor:
+    """A (H, 3H) recurrent weight as K8's and K2's Hopper recurrences
+    stream it: :func:`pack_gate_slabs`' rows (W^T, each 32-unit chunk's r, z
+    and n rows together) with each chunk's 64-wide k-slabs made contiguous,
+    (H / 32 chunks, H / 64 k-slabs, 96, 64): one TMA box then loads
+    consecutive k-slabs of a chunk in one piece."""
+    hidden = w_hh.shape[0]
+    slabs = pack_gate_slabs(w_hh, 64).reshape(hidden // GATE_UNITS, 3 * GATE_UNITS,
+                                              hidden // 64, 64)
+    return slabs.permute(0, 2, 1, 3).contiguous()
+
+
 def _gru_direction(p, xw_at, reverse: bool, batch: int, seq_len: int, dtype, device):
     """One direction of a plain encoder layer: the carry rounded to
     ``dtype`` every step. :return: (outputs by step, last carry)"""

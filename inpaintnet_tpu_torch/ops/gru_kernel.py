@@ -6,7 +6,11 @@ with hold masks: the generic layer of the ``"pallas"`` GRU route
 replaces ``inpaintnet_tpu/ops/gru_pallas.py gru_layer_pallas_stream`` and the
 two TPU kernels of the same function, ``gru_layer_pallas`` (K9) and
 ``gru_layer_pallas_dma`` (K10); the source says what bounds it on the card
-and how its design answers. ``gru_layer_reference`` is its plain PyTorch
+and how its design answers. Its bf16 route is the Hopper design of
+``csrc/gru_layer_hopper.cuh``: :func:`launch_plan` picks how many CTAs of
+a cluster split the units of each 64-row tile, and the packed W_hh^T gate
+slabs and their tensor map are built once per weight tensor
+(:func:`layer_operands`). ``gru_layer_reference`` is its plain PyTorch
 version, op for op the JAX kernel's (``_gru_stream_kernel``):
 
 - the carry h is held in the parameter dtype and rounded to it after every
@@ -38,14 +42,20 @@ from typing import Optional
 
 import torch
 
+from inpaintnet_tpu_torch.ops.encoder_kernel import pack_gate_blocks
 from inpaintnet_tpu_torch.ops.kernel_common import (
     DTYPE_CODES,
+    LaunchPlan,
+    WeightCache,
     check_cuda_tensor,
     check_launch,
     gru_gates_f32,
     gru_layer_supports_hidden,
     load_kernels,
-    pack_mma_b,
+    recurrence_plan,
+    recurrence_slots,
+    ring_stages,
+    slab_map,
     stream_ptr,
 )
 
@@ -84,15 +94,32 @@ def gru_layer_reference(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor
     return torch.stack(ys, dim=1).to(dtype), h.to(dtype)
 
 
-def bf16_tile_rows(rows: int, hidden: int, sms: int) -> int:
-    """Rows a block of K8's bf16 route owns on a card of ``sms`` SMs (the
-    f32 route's are 16): 16 where that makes more blocks (over 16 rows) and
-    32-row tiles would not fill one wave of the SMs, at H <= 512 (W_hh 1.5
-    MB); else 32. Each block streams all of W_hh from L2 every step, so
-    16-row tiles double the L2 bytes to use twice the SMs: that paid at H
-    512 and 2,048 rows, and lost at H 1024, at 12,288 rows and in a single
-    block (PERF.md gives the times of both tiles)."""
-    return 16 if hidden <= 512 and 16 < rows and -(-rows // 32) < sms else 32
+def launch_plan(rows: int, hidden: int, sms: int, slots=None) -> LaunchPlan:
+    """How K8's bf16 route runs ``rows`` rows at ``hidden`` units on a card
+    of ``sms`` SMs: the cluster size (CTAs sharing a 64-row tile, each
+    computing ``hidden / cluster`` units) and the ring depth beside the one
+    h tile (``kernel_common.recurrence_plan``; ``slots``: the clusters of
+    each size the card runs at once)."""
+    return recurrence_plan(rows, hidden, sms, h_tiles=1, slots=slots)
+
+
+def card_plan(rows: int, hidden: int, device) -> LaunchPlan:
+    """:func:`launch_plan` on the card ``device`` names, with its own SM
+    count and cluster slots: the plan :func:`gru_layer_stream` launches."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    slots = recurrence_slots("inpaint_gru_layer_slots", hidden, ring_stages(hidden, 1), index)
+    return launch_plan(rows, hidden, torch.cuda.get_device_properties(index).multi_processor_count,
+                       slots)
+
+
+def _build_layer_operands(w_hh: torch.Tensor):
+    packed = pack_gate_blocks(w_hh)
+    buf, addr = slab_map(packed)
+    return packed, buf, addr
+
+
+# (packed W_hh^T gate blocks, the map's buffer, its aligned address) per W_hh
+layer_operands = WeightCache(_build_layer_operands)
 
 
 def gru_layer_stream(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
@@ -107,8 +134,8 @@ def gru_layer_stream(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     if dtype not in DTYPE_CODES:
         raise ValueError(f"gru_layer_stream: no kernel for dtype {dtype}")
     hidden = w_hh.shape[0]
-    if not gru_layer_supports_hidden(hidden):
-        raise ValueError(f"gru_layer_stream: no kernel for hidden size {hidden}")
+    if not gru_layer_supports_hidden(hidden, dtype):
+        raise ValueError(f"gru_layer_stream: no kernel for hidden size {hidden} in {dtype}")
     batch, seq_len = xw.shape[:2]
     check_cuda_tensor("xw", xw, (batch, seq_len, 3 * hidden), dtype, device)
     check_cuda_tensor("w_hh", w_hh, (hidden, 3 * hidden), dtype, device)
@@ -120,17 +147,20 @@ def gru_layer_stream(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
             raise ValueError(f"mask: {tuple(mask.shape)} on {mask.device}, expected "
                              f"{(batch, seq_len)} on {device}")
         keep = (mask > 0).to(torch.uint8).contiguous()
-    whh = pack_mma_b(w_hh)
     ys = torch.empty((batch, seq_len, hidden), dtype=dtype, device=device) if want_ys else None
     hn = torch.empty((batch, hidden), dtype=dtype, device=device)
-    tile = 16
+    ptrs = (xw.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
+            None if keep is None else keep.data_ptr(), None if ys is None else ys.data_ptr(),
+            hn.data_ptr())
+    lib = load_kernels()
     if dtype == torch.bfloat16:
-        tile = bf16_tile_rows(batch, hidden,
-                              torch.cuda.get_device_properties(device).multi_processor_count)
-    err = load_kernels().inpaint_gru_layer(
-        DTYPE_CODES[dtype], xw.data_ptr(), whh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
-        None if keep is None else keep.data_ptr(), None if ys is None else ys.data_ptr(),
-        hn.data_ptr(), batch, seq_len, hidden, int(reverse), tile, stream_ptr())
+        plan = card_plan(batch, hidden, device)
+        _, _, map_addr = layer_operands(w_hh)
+        err = lib.inpaint_gru_layer_bf16(map_addr, *ptrs, batch, seq_len, hidden, int(reverse),
+                                         plan.cluster, plan.stages, stream_ptr())
+    else:
+        err = lib.inpaint_gru_layer_f32(ptrs[0], w_hh.data_ptr(), *ptrs[1:], batch, seq_len,
+                                        hidden, int(reverse), stream_ptr())
     check_launch(err, "gru_layer_stream")
     gru_layer_stream.launches += 1
     return ys, hn

@@ -10,8 +10,13 @@
   ``build/inpaintnet_tpu_torch/`` at the repository root. It is loaded
   with ``ctypes``.
 - ``pack_mma_b`` and ``pack_mma_b_s8``: the weight layouts the bf16 and the
-  int8 ``mma.sync`` kernels read (the Hopper encoder's are
+  int8 ``mma.sync`` kernels read (the Hopper kernels' are
   ``encoder_kernel.pack_gate_slabs`` and plain transposes).
+- The Hopper recurrences of K8 and K2 (``csrc/gru_layer_hopper.cuh``):
+  their launch plan (``recurrence_plan``: the cluster size and ring depth
+  from the shape), the CTAs a plan launches (``plan_blocks``), the tensor
+  map of their packed weights (``slab_map``), and ``WeightCache``, which
+  builds such per-weight operands once per weight tensor.
 - ``check_cuda_tensor``: the wrappers' argument checks.
 
 Nothing here imports or builds anything at import time: this module is
@@ -27,7 +32,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+import weakref
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -80,12 +87,157 @@ def kernel_supports_hidden(hidden: int) -> bool:
     return hidden % 64 == 0 and hidden <= 512
 
 
-def gru_layer_supports_hidden(hidden: int) -> bool:
+def gru_layer_supports_hidden(hidden: int, dtype=torch.float32) -> bool:
     """Hidden widths K8 (``csrc/gru_layer.cu``) takes: whole 64-unit chunks
-    up to 1024, the LatentRNN's generation GRU (H * layers). Its shared
-    memory at 1024: 132 KB for a 32-row bf16 tile double-buffered, 160 KB
-    for the f32 route's k-major carry, both inside the 227 KB opt-in."""
-    return hidden % 64 == 0 and 0 < hidden <= 1024
+    up to 1024, the LatentRNN's generation GRU (H * layers); the f32 route's
+    k-major carry takes 160 KB of shared memory at 1024. The bf16 route
+    splits the units across a cluster whose CTAs own whole 64-unit blocks,
+    at most 512 units each (:func:`cluster_sizes`): above 512 the number of
+    blocks must be even."""
+    if not (hidden % 64 == 0 and 0 < hidden <= 1024):
+        return False
+    return dtype != torch.bfloat16 or bool(cluster_sizes(hidden))
+
+
+# --------------------------------------------------------------------------- #
+# The Hopper recurrences of K8 and K2 (csrc/gru_layer_hopper.cuh)
+# --------------------------------------------------------------------------- #
+HOPPER_ROWS = 64  # rows of a CTA: one wgmma tile
+HOPPER_CLUSTERS = (1, 2, 4, 8)  # the portable cluster sizes
+HOPPER_MAX_UNITS = 512  # units a CTA computes: 2 consumer warpgroups x 8 chunks of 32
+HOPPER_STAGE_BYTES = 96 * 128  # one k-slab of a chunk: its r, z, n rows x 64 of K
+HOPPER_CONSUMERS = 2
+HOPPER_MAX_STAGES = 6
+HOPPER_SMEM_BUDGET = 232448 - 2048  # the 227 KB opt-in less alignment and barriers
+
+
+class LaunchPlan(NamedTuple):
+    """How a Hopper recurrence runs a shape: ``cluster`` CTAs share each
+    64-row tile, each computing ``hidden / cluster`` units, and each
+    consumer warpgroup's TMA ring has ``stages`` stages."""
+    cluster: int
+    stages: int
+
+
+def cluster_sizes(hidden: int) -> list:
+    """Cluster sizes that split ``hidden`` units into whole 64-unit blocks
+    of at most ``HOPPER_MAX_UNITS`` units a CTA."""
+    blocks = hidden // 64
+    return [c for c in HOPPER_CLUSTERS
+            if hidden % 64 == 0 and blocks % c == 0 and hidden // c <= HOPPER_MAX_UNITS]
+
+
+def box_slabs(hidden: int) -> int:
+    """k-slabs a TMA box and a ring stage hold (``gru_layer_hopper.cuh
+    box_slabs``): 2 where the 64-unit blocks pair up, else 1."""
+    return 2 if (hidden // 64) % 2 == 0 else 1
+
+
+def ring_stages(hidden: int, h_tiles: int) -> int:
+    """Ring stages a consumer warpgroup gets beside ``h_tiles`` 64-row bf16 h
+    tiles (``gru_layer_hopper.cuh smem_bytes``): 3 at H 512 with one tile,
+    2 at H 1024 with one or at H 512 with two."""
+    free = HOPPER_SMEM_BUDGET - 1024 - h_tiles * HOPPER_ROWS * hidden * 2
+    stage = box_slabs(hidden) * HOPPER_STAGE_BYTES
+    return min(HOPPER_MAX_STAGES, free // (HOPPER_CONSUMERS * stage))
+
+
+HOPPER_CTA_OVERHEAD = 0.02  # a CTA's fixed share of a wave, in tiles' work (see below)
+
+
+def recurrence_plan(rows: int, hidden: int, sms: int, h_tiles: int, slots=None) -> LaunchPlan:
+    """The cluster size C with the least modelled time: waves of clusters,
+    ``ceil(tiles / slots[C])``, each as long as 1/C of a tile's units plus a
+    fixed share ``HOPPER_CTA_OVERHEAD`` that every CTA pays whatever its
+    units (its prologue, the per-step exchange); the smaller C on a tie.
+    ``slots[C]``: the clusters of C CTAs the card runs at once (the kernels'
+    ``*_slots`` entry points ask the CUDA runtime; an H100 runs 30 of 4 and 15 of
+    8), by default ``sms // C``. With the default on 132 SMs at H 512: 1 or 6
+    rows take 8, 2,048 rows (32 tiles) 4, 12,288 rows (192 tiles) 2, 65,536
+    rows 1; with an H100's own slots 2,048 rows take 8 (three waves of 1/8
+    of a tile beat two of 1/4). Raises ValueError for a width no cluster
+    size splits."""
+    sizes = cluster_sizes(hidden)
+    stages = ring_stages(hidden, h_tiles)
+    if not sizes or stages < 2:
+        raise ValueError(f"no Hopper recurrence plan for hidden size {hidden}")
+    slots = slots or {c: max(1, sms // c) for c in sizes}
+    tiles = -(-rows // HOPPER_ROWS)
+
+    def cost(c):
+        return -(-tiles // slots[c]) * (1 / c + HOPPER_CTA_OVERHEAD)
+    return LaunchPlan(min(sizes, key=lambda c: (cost(c), c)), stages)
+
+
+@functools.lru_cache(maxsize=None)
+def recurrence_slots(entry: str, hidden: int, stages: int, device_index: int) -> dict:
+    """{C: clusters of C CTAs the card runs at once} for the Hopper
+    recurrence whose kernel library entry point is ``entry``
+    (``inpaint_gru_layer_slots`` or ``inpaint_decode_slots``), asked once
+    per width and card."""
+    with torch.cuda.device(device_index):
+        counts = {c: getattr(load_kernels(), entry)(hidden, c, stages) for c in cluster_sizes(hidden)}
+    bad = {c: n for c, n in counts.items() if n < 1}
+    if bad:
+        raise RuntimeError(f"{entry}: the card runs no cluster of sizes {sorted(bad)} "
+                           f"at hidden size {hidden}")
+    return counts
+
+
+def plan_blocks(rows: int, hidden: int, plan: LaunchPlan) -> list:
+    """The (row0, row1, unit0, unit1) each CTA of a launch computes, in
+    ``blockIdx.x`` order: CTA x is rank ``x % C`` of the cluster of row tile
+    ``x // C`` (the kernels' own index math)."""
+    c = plan.cluster
+    units = hidden // c
+    return [(t * HOPPER_ROWS, min((t + 1) * HOPPER_ROWS, rows), r * units, (r + 1) * units)
+            for t in range(-(-rows // HOPPER_ROWS)) for r in range(c)]
+
+
+def slab_map(packed: torch.Tensor):
+    """The tensor map (a 128-byte CUtensorMap, in a host buffer) of packed
+    (chunks, H / 64, 96, 64) bf16 gate blocks (``encoder_kernel.
+    pack_gate_blocks``) that the Hopper recurrences stream, ``box_slabs(H)``
+    k-slabs a box. Keep ``packed`` alive as long as the map."""
+    buf = ctypes.create_string_buffer(128 + 64)
+    addr = (ctypes.addressof(buf) + 63) // 64 * 64
+    hidden = packed.shape[1] * 64
+    blocks = packed.shape[0] * packed.shape[1]
+    check_launch(load_kernels().inpaint_slab_map(packed.data_ptr(), blocks, hidden, addr),
+                 "slab_map")
+    return buf, addr
+
+
+def _version(t: torch.Tensor):
+    try:
+        return t._version
+    except RuntimeError:  # an inference tensor counts no versions
+        return None
+
+
+class WeightCache:
+    """Operands built from weight tensors once: ``cache(*weights)`` returns
+    ``build(*weights)``, rebuilt when any weight is another tensor (weak
+    references, not reused ids) or was updated in place (its ``_version``
+    moved). Inference tensors count no versions, so they are rebuilt every
+    call."""
+
+    def __init__(self, build):
+        self._build = build
+        self._entries = {}
+
+    def __call__(self, *weights):
+        key = tuple(id(w) for w in weights)
+        stamp = tuple(_version(w) for w in weights)
+        hit = self._entries.get(key)
+        if (hit is not None and None not in stamp and hit[1] == stamp
+                and all(ref() is w for ref, w in zip(hit[0], weights))):
+            return hit[2]
+        ops = self._build(*weights)
+        self._entries = {k: v for k, v in self._entries.items()
+                         if all(ref() is not None for ref in v[0])}
+        self._entries[key] = ([weakref.ref(w) for w in weights], stamp, ops)
+        return ops
 
 
 def _sources():
@@ -159,8 +311,16 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_encoder_rec_bf16.restype = i32
     lib.inpaint_encoder_gemm_bf16.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]
     lib.inpaint_encoder_gemm_bf16.restype = i32
-    lib.inpaint_decode_sampling.argtypes = [i32] + [ptr] * 13 + [i32] * 4 + [ptr]
-    lib.inpaint_decode_sampling.restype = i32
+    lib.inpaint_decode_sampling_f32.argtypes = [ptr] * 13 + [i32] * 4 + [ptr]
+    lib.inpaint_decode_sampling_f32.restype = i32
+    lib.inpaint_decode_sampling_bf16.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
+    lib.inpaint_decode_sampling_bf16.restype = i32
+    lib.inpaint_slab_map.argtypes = [ptr, i32, i32, ptr]
+    lib.inpaint_slab_map.restype = i32
+    lib.inpaint_gru_layer_slots.argtypes = [i32] * 3
+    lib.inpaint_gru_layer_slots.restype = i32
+    lib.inpaint_decode_slots.argtypes = [i32] * 3
+    lib.inpaint_decode_slots.restype = i32
     lib.inpaint_encoder_rec_int8.argtypes = [i32] * 2 + [ptr] * 10 + [i32] * 6 + [ptr]
     lib.inpaint_encoder_rec_int8.restype = i32
     lib.inpaint_encoder_gemm_int8.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
@@ -173,8 +333,10 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_gru_bwd_seq.restype = i32
     lib.inpaint_arnn_decode.argtypes = [i32] + [ptr] * 16 + [i32] * 7 + [ptr]
     lib.inpaint_arnn_decode.restype = i32
-    lib.inpaint_gru_layer.argtypes = [i32] + [ptr] * 7 + [i32] * 5 + [ptr]
-    lib.inpaint_gru_layer.restype = i32
+    lib.inpaint_gru_layer_f32.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+    lib.inpaint_gru_layer_f32.restype = i32
+    lib.inpaint_gru_layer_bf16.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+    lib.inpaint_gru_layer_bf16.restype = i32
     return lib
 
 

@@ -16,6 +16,7 @@ from inpaintnet_tpu_torch.ops import gru_kernel as lk
 from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
 from inpaintnet_tpu_torch.ops.gru import gru_init
 from inpaintnet_tpu_torch.ops.gru_trainfast import gru_layer_trainfast
+from inpaintnet_tpu_torch.ops.kernel_common import cluster_sizes
 from inpaintnet_tpu_torch.ops.linear import embedding_init, linear_init
 from inpaintnet_tpu_torch.ops.lstm import lstm_stack_init
 from inpaintnet_tpu_torch.ops.quantize import dequantize_h
@@ -96,6 +97,42 @@ def _decode_case(rng, batch, hidden, vocab, dtype, device, big_row=None):
         h_inits[:, big_row] *= 40.0
     return params, *(torch.from_numpy(t).to(device=device, dtype=dtype)
                      for t in (tick_ctx, h_inits))
+
+
+def _with_cluster(monkeypatch, module, cluster):
+    """``module.launch_plan`` (K8's or K2's) picks ``cluster`` CTAs a tile."""
+    real = module.launch_plan
+    monkeypatch.setattr(module, "launch_plan",
+                        lambda *shape: real(*shape)._replace(cluster=cluster))
+
+
+def _bit_equal(a, b):
+    return all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("batch,hidden,vocab", [
+    (6, 512, 60), (45, 64, 60), (2048, 512, 60), (2100, 128, 13), (45, 128, 13), (6, 64, 13)])
+def test_decode_kernel_bf16_every_cluster_size(cuda, monkeypatch, batch, hidden, vocab):
+    """K2's Hopper route at each cluster size its width allows: within the
+    plain version's bounds, and bit-equal across cluster sizes (a cluster
+    only moves h between its CTAs, so any difference is a race)."""
+    rng = np.random.default_rng(batch + hidden)
+    params, tick_ctx, h_inits = _decode_case(rng, batch, hidden, vocab, torch.bfloat16, cuda)
+    outs = {}
+    for cluster in cluster_sizes(hidden):
+        with monkeypatch.context() as m:
+            _with_cluster(m, decode_kernel, cluster)
+            before = decode_kernel.decode_sampling.launches
+            outs[cluster] = decode_kernel.decode_sampling(params, tick_ctx, h_inits)
+            assert decode_kernel.decode_sampling.launches == before + 1
+    lg_p, s_p = decode_kernel.decode_sampling_reference(params, tick_ctx, h_inits)
+    torch.cuda.synchronize()
+    lg_k, s_k = outs[cluster_sizes(hidden)[0]]
+    assert all(_bit_equal(o, (lg_k, s_k)) for o in outs.values())
+    assert (s_k == s_p).float().mean().item() >= 0.99
+    same_rows = (s_k == s_p).all(dim=1)
+    torch.testing.assert_close(lg_k[same_rows].float(), lg_p[same_rows].float(), rtol=0,
+                               atol=ATOL[torch.bfloat16] * 4)
 
 
 # int8 kernel vs plain version: bit-equal. Both take exact int32 products,
@@ -449,8 +486,8 @@ def test_arnn_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 def _gru_layer_case(rng, batch, steps, hidden, dtype, device, mask_kind):
     """xw, W_hh, b_hh, h0 and a mask: suffix lengths 0..steps (0: an
-    all-zero row, the engine's "no future context"), interior zeros, or
-    none."""
+    all-zero row, the engine's "no future context"), target lengths
+    1..steps with an all-zero row 0, interior zeros, or none."""
     arrays = [rng.standard_normal((batch, steps, 3 * hidden)) * 0.5,
               rng.standard_normal((hidden, 3 * hidden)) * (2.0 / (4 * hidden)) ** 0.5,
               rng.standard_normal(3 * hidden) * 0.1, rng.standard_normal((batch, hidden)) * 0.5]
@@ -458,6 +495,10 @@ def _gru_layer_case(rng, batch, steps, hidden, dtype, device, mask_kind):
     mask = None
     if mask_kind == "suffix":
         lengths = rng.integers(0, steps + 1, batch)
+        lengths[0] = 0
+        mask = (np.arange(steps)[None] < lengths[:, None]).astype(np.float32)
+    elif mask_kind == "target":  # lengths 1..steps, and an all-zero row 0
+        lengths = rng.integers(1, steps + 1, batch)
         lengths[0] = 0
         mask = (np.arange(steps)[None] < lengths[:, None]).astype(np.float32)
     elif mask_kind == "interior":
@@ -489,19 +530,57 @@ def test_gru_layer_kernel_matches_plain(cuda, dtype, batch, steps, hidden, mask,
             assert torch.equal(got[0][0], args[3][0][None].expand(steps, -1))
 
 
-@pytest.mark.parametrize("tile", [16, 32])
-@pytest.mark.parametrize("batch,steps,hidden,mask", [
-    (70, 4, 512, None), (37, 16, 512, "suffix"), (49, 6, 1024, "interior"), (1, 1, 1024, None)])
-def test_gru_layer_kernel_bf16_row_tiles_match_plain(cuda, monkeypatch, tile, batch, steps,
+ROW_TILE_SHAPES = [(70, 4, 512, None), (37, 16, 512, "suffix"), (49, 6, 1024, "interior"),
+                   (1, 1, 1024, None)]
+
+
+@pytest.mark.parametrize("cluster,batch,steps,hidden,mask", [
+    (c, *shape) for shape in ROW_TILE_SHAPES for c in cluster_sizes(shape[2])])
+def test_gru_layer_kernel_bf16_row_tiles_match_plain(cuda, monkeypatch, cluster, batch, steps,
                                                       hidden, mask):
-    """Both bf16 row tiles, whatever ``bf16_tile_rows`` picks, at rows that
-    fill no whole tile."""
-    monkeypatch.setattr(lk, "bf16_tile_rows", lambda *shape: tile)
-    args = _gru_layer_case(np.random.default_rng(batch * tile), batch, steps, hidden,
+    """Every cluster size the plans can pick, whatever ``launch_plan``
+    picks, at rows that fill no whole 64-row tile."""
+    _with_cluster(monkeypatch, lk, cluster)
+    args = _gru_layer_case(np.random.default_rng(batch * cluster), batch, steps, hidden,
                            torch.bfloat16, cuda, mask)
     got = lk.gru_layer_stream(*args, reverse=True)
     agree = lk.agreement(got, lk.gru_layer_reference(*args, reverse=True))
     assert lk.within(agree, lk.BOUNDS[torch.bfloat16]), agree
+
+
+@pytest.mark.parametrize("batch,steps,hidden,mask,reverse,want_ys", [
+    (1, 3, 1024, None, False, True), (37, 16, 512, "suffix", True, True),
+    (130, 6, 1024, "target", False, False), (2100, 4, 128, "suffix", True, True),
+    (37, 9, 64, "target", False, True), (130, 64, 512, "suffix", False, True)])
+def test_gru_layer_kernel_bf16_every_cluster_size(cuda, monkeypatch, batch, steps, hidden, mask,
+                                                  reverse, want_ys):
+    """K8's Hopper route at each cluster size its width allows, at ragged
+    rows: bit-equal across cluster sizes (a cluster only moves h between its
+    CTAs: a missing fence in that exchange shows as a difference, most
+    likely over the 64-step case), an all-zero mask row returns h0 and emits
+    it, and the plain version's bounds hold. At 64 steps order flips cascade
+    over more of the outputs than the 2% share calibrated for the engines'
+    16 (2.6% seen on an H100), so there only the max bound applies."""
+    args = _gru_layer_case(np.random.default_rng(batch + steps), batch, steps, hidden,
+                           torch.bfloat16, cuda, mask)
+    outs = {}
+    for cluster in cluster_sizes(hidden):
+        with monkeypatch.context() as m:
+            _with_cluster(m, lk, cluster)
+            outs[cluster] = lk.gru_layer_stream(*args, reverse=reverse, want_ys=want_ys)
+    want = lk.gru_layer_reference(*args, reverse=reverse, want_ys=want_ys)
+    torch.cuda.synchronize()
+    got = outs[cluster_sizes(hidden)[0]]
+    assert all(_bit_equal(o, got) for o in outs.values())
+    bound = dict(lk.BOUNDS[torch.bfloat16])
+    if steps > 16:
+        bound.pop("share_changed")
+    agree = lk.agreement(got, want)
+    assert lk.within(agree, bound), agree
+    if mask is not None:
+        assert torch.equal(got[1][0], args[3][0])
+        if want_ys:
+            assert torch.equal(got[0][0], args[3][0][None].expand(steps, -1))
 
 
 def test_gru_layer_kernel_bounds_reject_planted_faults(cuda, monkeypatch):
@@ -532,3 +611,10 @@ def test_gru_layer_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         odd = _gru_layer_case(rng, 4, 3, hidden, torch.float32, cuda, None)
         with pytest.raises(ValueError, match="hidden size"):
             lk.gru_layer_stream(*odd)
+    # bf16: 9 blocks of 64 units have no cluster split of at most 512 units a CTA
+    odd = _gru_layer_case(rng, 4, 3, 576, torch.bfloat16, cuda, None)
+    with pytest.raises(ValueError, match="hidden size"):
+        lk.gru_layer_stream(*odd)
+    params, tick_ctx, h_inits = _decode_case(rng, 4, 64, 65, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="vocabulary"):
+        decode_kernel.decode_sampling(params, tick_ctx, h_inits)

@@ -232,15 +232,6 @@ def test_agreement_measures():
     assert gk.agreement((None, hn.float()), (None, hn.float())) == {"max_abs_err": 0.0}
 
 
-@pytest.mark.parametrize("rows,hidden,tile", [
-    (2048, 512, 16), (17, 512, 16), (16, 512, 32), (1, 512, 32), (4095, 512, 16),
-    (4225, 512, 32), (12288, 512, 32), (2048, 1024, 32), (1, 1024, 32)])
-def test_bf16_tile_rows(rows, hidden, tile):
-    """16-row tiles only where they make more blocks and 32-row ones leave
-    some of 132 SMs idle, at H 512 or less."""
-    assert gk.bf16_tile_rows(rows, hidden, 132) == tile
-
-
 def test_row_split_is_per_row_and_apart_from_row_bits():
     keys = torch.from_numpy(np.random.default_rng(0).integers(0, 2**32, (6, 2)))
     kids = row_split(keys, 3)
