@@ -20,16 +20,39 @@ plain PyTorch version with the TPU kernel's numerics, per tick:
 
 The operands around the loop (token table, tick-0 input, the split of
 W_ih0, the bias stack) are computed outside the kernel by
-``arnn_decode_inputs``, as the TPU kernel's are. The wrapper runs the
-plain version for CPU tensors only; for CUDA tensors it launches the
-kernel or raises.
+``arnn_decode_inputs``, as the TPU kernel's are.
+
+The bf16 route is the Hopper design of ``csrc/arnn_hopper.cuh``: the
+context product of every tick runs first, as one GEMM into f32 rows
+(:func:`ctx_projection`; the recurrence adds a tick's row in the plain
+version's order, and :func:`arnn_sampled_decode_staged_reference` is that
+staging in plain PyTorch), then a cluster recurrence whose launch plan
+(:func:`arnn_plan`) splits each 64-row tile's units across the CTAs of a
+cluster, its weights packed in 4-gate blocks (:func:`pack_lstm_blocks`,
+:func:`pack_arnn_weights`) once per set of weight tensors
+(:func:`arnn_operands`). The f32 route keeps the first kernel of the port
+(``csrc/arnn_decode.cu``), and so do the bf16 geometries that the Hopper
+plan does not take (:func:`arnn_hopper_supports`).
+
+The wrapper runs the plain version for CPU tensors only; for CUDA tensors
+it launches the kernel or raises.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
 from inpaintnet_tpu_torch.ops.kernel_common import (
     DTYPE_CODES,
+    HOPPER_CONSUMERS,
+    HOPPER_CTA_OVERHEAD,
+    HOPPER_MAX_STAGES,
+    HOPPER_ROWS,
+    HOPPER_SMEM_BUDGET,
+    LaunchPlan,
+    WeightCache,
     check_cuda_tensor,
     check_launch,
     kernel_supports_hidden,
@@ -41,36 +64,224 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
 )
 
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may take on Hopper
-_ROWS = {torch.float32: 16, torch.bfloat16: 32}  # rows of a block's tile
+_ROWS = {torch.float32: 16, torch.bfloat16: 32}  # rows of a block's tile (the first kernel)
 _PAD = {torch.float32: 4, torch.bfloat16: 8}  # smem row padding, elements
 
 
 def _head_pads(linear: int, vocab: int):
-    """(LP, VP): the head's hidden width padded to whole 16-deep products,
-    the vocab to whole 8-column tiles (zero weights, so the padding adds
-    nothing to the real columns)."""
+    """(LP, VP) of the first kernel: the head's hidden width padded to whole
+    16-deep products, the vocab to whole 8-column tiles (zero weights, so
+    the padding adds nothing to the real columns)."""
     return round_up(linear, 16), round_up(vocab, 8)
 
 
 def arnn_kernel_smem_bytes(hidden: int, ctx: int, linear: int, vocab: int, dtype) -> int:
-    """K7's dynamic shared memory: four padded h tiles (both layers, current
-    and next), two unpadded c tiles, and one region that holds the tick's
-    context rows in layer 0 and the head's hidden tile and f32 logits after
-    layer 1; plus the fed-back tokens. ``csrc/arnn_decode.cu`` computes the
-    same."""
+    """Dynamic shared memory of the first kernel: four padded
+    h tiles (both layers, current and next), two unpadded c tiles, and one
+    region that holds the tick's context rows in layer 0 and the head's
+    hidden tile and f32 logits after layer 1; plus the fed-back tokens.
+    ``csrc/arnn_decode.cu`` computes the same."""
     rows, pad, size = _ROWS[dtype], _PAD[dtype], torch.finfo(dtype).bits // 8
     lp, vp = _head_pads(linear, vocab)
     shared = max(rows * (ctx + pad) * size, rows * (lp + pad) * size + rows * vp * 4)
     return (4 * rows * (hidden + pad) + 2 * rows * hidden) * size + shared + rows * 4
 
 
+# --------------------------------------------------------------------------- #
+# The bf16 route's Hopper recurrence (csrc/arnn_hopper.cuh)
+# --------------------------------------------------------------------------- #
+ARNN_CLUSTERS = (1, 2, 4, 8)
+ARNN_SLAB_BYTES = 128 * 128  # one k-slab of a 4-gate chunk (32 units x i, f, g, o): 16 KB
+ARNN_HID_COLS = 128  # hidden columns of a head chunk
+ARNN_OUT_COLS = 64  # the vocabulary, zero-padded
+ARNN_MAX_UNITS = 256  # units a CTA computes: 2 consumer warpgroups x 4 chunks of 32
+ARNN_MAX_HEAD = 512
+
+
+def arnn_head_width(linear: int) -> int:
+    """LP: the head's hidden width padded to whole 128-column chunks."""
+    return round_up(linear, ARNN_HID_COLS)
+
+
+def arnn_smem_bytes(hidden: int, cluster: int, lp: int, stages: int) -> int:
+    """Dynamic shared memory of a bf16 K7 CTA (``arnn_hopper.cuh
+    arnn_smem_bytes``): both h tiles and the head's hidden tile (64 rows of
+    bf16, 8 KB a 64-column block), the two rings of ``stages`` 16 KB slabs,
+    and the bf16 c carries of its ``hidden / cluster`` units, both layers."""
+    return ((2 * (hidden // 64) + lp // 64) * HOPPER_ROWS * 128
+            + HOPPER_CONSUMERS * stages * ARNN_SLAB_BYTES
+            + 2 * HOPPER_ROWS * (hidden // cluster) * 2 + 1024)
+
+
+def arnn_ring_stages(hidden: int, cluster: int, lp: int) -> int:
+    """Ring stages a consumer warpgroup gets beside the tiles: 2 at the
+    flagship's H 256 with one CTA a tile, 3 with two or four."""
+    free = HOPPER_SMEM_BUDGET - arnn_smem_bytes(hidden, cluster, lp, 0)
+    return min(HOPPER_MAX_STAGES, free // (HOPPER_CONSUMERS * ARNN_SLAB_BYTES))
+
+
+def arnn_cluster_sizes(hidden: int, lp: int) -> list:
+    """Cluster sizes the bf16 route takes: CTAs owning whole 64-unit blocks
+    of at most 256 units, a head of at most 512 columns, and a ring of at
+    least two stages beside the tiles."""
+    if hidden % 64 or hidden <= 0 or lp % ARNN_HID_COLS or not 0 < lp <= ARNN_MAX_HEAD:
+        return []
+    return [c for c in ARNN_CLUSTERS
+            if (hidden // 64) % c == 0 and hidden // c <= ARNN_MAX_UNITS
+            and arnn_ring_stages(hidden, c, lp) >= 2]
+
+
+def arnn_plan(rows: int, hidden: int, linear: int, sms: int, slots=None) -> LaunchPlan:
+    """How the bf16 route runs ``rows`` rows: the cluster size C with the
+    least modelled time, waves of clusters ``ceil(tiles / slots[C])``, each
+    as long as 1/C of a tile's units plus the fixed share every CTA pays
+    (``kernel_common.HOPPER_CTA_OVERHEAD``); the smaller C on a tie. At the
+    flagship's H 256 every batch up to 30 tiles (1,920 rows) on an H100
+    takes C 4: one wave. Raises ValueError for a geometry no size takes."""
+    lp = arnn_head_width(linear)
+    sizes = arnn_cluster_sizes(hidden, lp)
+    if not sizes:
+        raise ValueError(f"no K7 plan for hidden size {hidden}, head {linear}")
+    slots = slots or {c: max(1, sms // c) for c in sizes}
+    tiles = -(-rows // HOPPER_ROWS)
+
+    def cost(c):
+        return -(-tiles // slots[c]) * (1 / c + HOPPER_CTA_OVERHEAD)
+    cluster = min(sizes, key=lambda c: (cost(c), c))
+    return LaunchPlan(cluster, arnn_ring_stages(hidden, cluster, lp))
+
+
+@functools.lru_cache(maxsize=None)
+def arnn_slots(hidden: int, lp: int, device_index: int) -> dict:
+    """{C: clusters of C CTAs of the bf16 route the card runs at once},
+    asked once per geometry and card."""
+    with torch.cuda.device(device_index):
+        counts = {c: load_kernels().inpaint_arnn_slots(hidden, c, lp,
+                                                        arnn_ring_stages(hidden, c, lp))
+                  for c in arnn_cluster_sizes(hidden, lp)}
+    bad = sorted(c for c, n in counts.items() if n < 1)
+    if bad:
+        raise RuntimeError(f"arnn_sampled_decode: the card runs no cluster of sizes {bad} at "
+                           f"hidden size {hidden}")
+    return counts
+
+
+def arnn_card_plan(rows: int, hidden: int, linear: int, device) -> LaunchPlan:
+    """:func:`arnn_plan` on the card ``device`` names, with its own SM count
+    and cluster slots: the plan :func:`arnn_sampled_decode` launches."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return arnn_plan(rows, hidden, linear,
+                     torch.cuda.get_device_properties(index).multi_processor_count,
+                     arnn_slots(hidden, arnn_head_width(linear), index))
+
+
+def arnn_hopper_supports(hidden: int, linear: int, vocab: int) -> bool:
+    """Whether K7's bf16 Hopper route takes this geometry: a vocabulary of
+    at most 64 and a cluster plan (:func:`arnn_cluster_sizes`). The bf16
+    geometries it does not take (H 512 at a 256-wide head, a vocabulary
+    over 64) run the first kernel of the port, as the f32 route does."""
+    return vocab <= ARNN_OUT_COLS and bool(arnn_cluster_sizes(hidden, arnn_head_width(linear)))
+
+
 def arnn_kernel_supports(hidden: int, ctx: int, linear: int, vocab: int, dtype) -> bool:
-    """Whether K7 takes this geometry: f32 or bf16, H and C whole 64-unit
-    chunks up to 512 (``kernel_supports_hidden``), and a tile that fits one
-    block's shared memory."""
-    return (dtype in DTYPE_CODES and kernel_supports_hidden(hidden)
-            and kernel_supports_hidden(ctx)
-            and arnn_kernel_smem_bytes(hidden, ctx, linear, vocab, dtype) <= SMEM_LIMIT)
+    """Whether K7 takes this geometry: H and C whole 64-unit chunks up to 512
+    (``kernel_supports_hidden``), and in bf16 a plan of the Hopper route
+    (:func:`arnn_hopper_supports`) or, in either dtype, a tile that fits one
+    block's shared memory (the first kernel, ``csrc/arnn_decode.cu``)."""
+    if dtype not in DTYPE_CODES or not (kernel_supports_hidden(hidden)
+                                        and kernel_supports_hidden(ctx)):
+        return False
+    if dtype == torch.bfloat16 and arnn_hopper_supports(hidden, linear, vocab):
+        return True
+    return arnn_kernel_smem_bytes(hidden, ctx, linear, vocab, dtype) <= SMEM_LIMIT
+
+
+def pack_lstm_blocks(w: torch.Tensor) -> torch.Tensor:
+    """A (K, 4H) LSTM weight as the bf16 route streams it: W^T in 4-gate
+    chunks of 32 units, (H / 32 chunks, K / 64 k-slabs, 128, 64); row
+    32 g + u of chunk c's k-slab k is gate g's column of unit 32 c + u at
+    inputs [64 k, 64 k + 64)."""
+    k_dim, hidden = w.shape[0], w.shape[1] // 4
+    wt = w.t().reshape(4, hidden // 32, 32, k_dim).permute(1, 0, 2, 3)
+    return wt.reshape(hidden // 32, 128, k_dim // 64, 64).permute(0, 2, 1, 3).contiguous()
+
+
+def pack_arnn_weights(w_hh0, w_ih1, w_hh1, w_l1, w_out) -> torch.Tensor:
+    """The bf16 route's weights as one array of (128, 64) k-slabs (16 KB
+    blocks), in the order the recurrence streams them: W_hh0 by chunk
+    (:func:`pack_lstm_blocks`); layer 1 by chunk, each chunk's W_ih1
+    k-slabs then its W_hh1 k-slabs (one stream, two accumulators); W_l1^T in
+    chunks of 128 hidden columns (zero past the head's width); W_out^T's
+    64 columns (zero past V) as two halves of 32, one a consumer
+    warpgroup's, each in blocks of four 32-row k-slabs: row 32 kk + r of
+    half w's block b is column 32 w + r at inputs 64 (4 b + kk) + [0, 64)."""
+    hidden, linear = w_l1.shape
+    vocab = w_out.shape[1]
+    lp = arnn_head_width(linear)
+    layer1 = torch.cat([pack_lstm_blocks(w_ih1), pack_lstm_blocks(w_hh1)], dim=1)
+    l1 = torch.nn.functional.pad(w_l1, (0, lp - linear)).t()  # (LP, H)
+    l1 = l1.reshape(lp // 128, 128, hidden // 64, 64).permute(0, 2, 1, 3)
+    blocks = -(-lp // 256)  # of four 64-wide k-slabs each
+    out = torch.zeros((ARNN_OUT_COLS, blocks * 256), dtype=w_out.dtype, device=w_out.device)
+    out[:vocab, :linear] = w_out.t()
+    out = out.reshape(2, 32, blocks, 4, 64).permute(0, 2, 3, 1, 4)
+    return torch.cat([b.reshape(-1, 128, 64)
+                      for b in (pack_lstm_blocks(w_hh0), layer1, l1, out)]).contiguous()
+
+
+def arnn_map(packed: torch.Tensor):
+    """The tensor map (a 128-byte CUtensorMap, in a host buffer) of the
+    packed (blocks, 128, 64) bf16 weights, one block a box. -> (buffer,
+    its aligned address); keep ``packed`` alive as long as the map."""
+    buf = ctypes.create_string_buffer(128 + 64)
+    addr = (ctypes.addressof(buf) + 63) // 64 * 64
+    check_launch(load_kernels().inpaint_arnn_map(packed.data_ptr(), packed.shape[0], addr),
+                 "arnn_map")
+    return buf, addr
+
+
+def _build_arnn_operands(table, w_ih0, b_ih0, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1, b_hh1,
+                         w_l1, b_l1, w_out, b_out) -> dict:
+    E, linear = table.shape[1], w_l1.shape[1]
+    lp = arnn_head_width(linear)
+    w_tok = w_ih0[:E].float()
+    packed = pack_arnn_weights(w_hh0, w_ih1, w_hh1, w_l1, w_out)
+    buf, addr = arnn_map(packed)
+    pad = torch.nn.functional.pad
+    return {"w_tok": w_tok, "tok_tab": (table.float() @ w_tok).to(table.dtype),
+            "w_ctx_t": w_ih0[E:].t().contiguous(),
+            "bias": torch.stack([b_ih0, b_hh0, b_ih1, b_hh1]),
+            "b_l1": pad(b_l1, (0, lp - linear)), "b_out": pad(b_out, (0, ARNN_OUT_COLS -
+                                                                      b_out.shape[0])),
+            "packed": packed, "map": buf, "map_addr": addr}
+
+
+# The bf16 route's per-weight operands, built once per set of weight
+# tensors: the token table, W_ctx^T, the bias stack, the padded head
+# biases, the packed weights and their tensor map
+arnn_operands = WeightCache(_build_arnn_operands)
+
+
+def arnn_chunk_rows(batch: int, seq_len: int, hidden: int) -> int:
+    """Rows of one chunk of the bf16 route: whole 64-row tiles whose f32
+    context projection (rows, T, 4H) fits ``encoder_kernel.XW_SCRATCH_BYTES``
+    (every row of the flagship's batch 512 x 384 ticks: 805 MB), at most
+    ``batch``."""
+    from inpaintnet_tpu_torch.ops import encoder_kernel
+
+    per_row = seq_len * 4 * hidden * 4
+    rows = encoder_kernel.XW_SCRATCH_BYTES // per_row // HOPPER_ROWS * HOPPER_ROWS
+    return min(max(HOPPER_ROWS, rows), batch)
+
+
+def arnn_cuda_launches(dtype, batch: int, seq_len: int, hidden: int, linear: int,
+                       vocab: int) -> int:
+    """CUDA kernel launches of one K7 call: two a chunk of rows (the context
+    projection GEMM, then the recurrence) on the bf16 Hopper route, one on
+    the first kernel's."""
+    if dtype == torch.bfloat16 and arnn_hopper_supports(hidden, linear, vocab):
+        return 2 * -(-batch // arnn_chunk_rows(batch, seq_len, hidden))
+    return 1
 
 
 def arnn_decode_inputs(params, start_emb: torch.Tensor) -> dict:
@@ -96,17 +307,16 @@ def carry_c(c: torch.Tensor, dtype) -> torch.Tensor:
     return c.to(dtype)
 
 
-def arnn_sampled_decode_reference(params, ctx: torch.Tensor, score: torch.Tensor,
-                                  force_mask: torch.Tensor, start_emb: torch.Tensor):
-    """Plain version of K7.
+def ctx_projection(ctx: torch.Tensor, w_ctx: torch.Tensor) -> torch.Tensor:
+    """The bf16 route's context projection of every tick, hoisted out of the
+    recurrence: (B, T, C) @ (C, 4H), summed and kept in f32 (one place, so
+    a check can plant a projection rounded to bf16)."""
+    return ctx.float() @ w_ctx.float()
 
-    :param params: ConstraintModelGaussianReg params (2 generation layers)
-    :param ctx: (B, T, C) constraint-LSTM outputs in the parameter dtype
-    :param score: (B, T) int ground-truth tokens; force_mask: (B, T) int, 1
-        where the token at that tick is forced
-    :param start_emb: (1, E) embedding of the tick -1 input
-    :return: (logits (B, T, V) in the parameter dtype, tokens (B, T) int32)
-    """
+
+def _decode_loop(params, ctx, score, force_mask, start_emb, projection):
+    """The plain versions' tick loop; ``projection`` (B, T, 4H) f32 is
+    ``ctx @ W_ctx`` taken up front, or None to take it inside the loop."""
     p0, p1 = params["lstm_generation"]
     dtype = p0["w_hh"].dtype
     hidden = p0["w_hh"].shape[0]
@@ -124,7 +334,8 @@ def arnn_sampled_decode_reference(params, ctx: torch.Tensor, score: torch.Tensor
     prev = ins["start_xw"].float().expand(batch, -1)
     logits, tokens = [], []
     for t in range(seq_len):
-        xw0 = prev + ctx[:, t].float() @ f["w_ctx"] + f["bias"][0]
+        cw = ctx[:, t].float() @ f["w_ctx"] if projection is None else projection[:, t]
+        xw0 = prev + cw + f["bias"][0]
         hw0 = h0.float() @ f["whh0"] + f["bias"][1]
         h0, c0_new = lstm_gates_f32(xw0, hw0, c0.float(), hidden)
         h0, c0 = h0.to(dtype), carry_c(c0_new, dtype)
@@ -142,15 +353,35 @@ def arnn_sampled_decode_reference(params, ctx: torch.Tensor, score: torch.Tensor
     return torch.stack(logits, dim=1), torch.stack(tokens, dim=1).to(torch.int32)
 
 
-def arnn_sampled_decode(params, ctx: torch.Tensor, score: torch.Tensor,
-                        force_mask: torch.Tensor, start_emb: torch.Tensor):
-    """K7: the argmax decode with forced ticks over the whole sequence.
+def arnn_sampled_decode_reference(params, ctx: torch.Tensor, score: torch.Tensor,
+                                  force_mask: torch.Tensor, start_emb: torch.Tensor):
+    """Plain version of K7.
 
-    Arguments and results as :func:`arnn_sampled_decode_reference`, with
-    (in, out) weights in f32 or bf16, ``score`` and ``force_mask`` int32;
-    the entries of ``score`` at forced ticks must lie in [0, n_tok)."""
-    if ctx.device.type == "cpu":
-        return arnn_sampled_decode_reference(params, ctx, score, force_mask, start_emb)
+    :param params: ConstraintModelGaussianReg params (2 generation layers)
+    :param ctx: (B, T, C) constraint-LSTM outputs in the parameter dtype
+    :param score: (B, T) int ground-truth tokens; force_mask: (B, T) int, 1
+        where the token at that tick is forced
+    :param start_emb: (1, E) embedding of the tick -1 input
+    :return: (logits (B, T, V) in the parameter dtype, tokens (B, T) int32)
+    """
+    return _decode_loop(params, ctx, score, force_mask, start_emb, None)
+
+
+def arnn_sampled_decode_staged_reference(params, ctx: torch.Tensor, score: torch.Tensor,
+                                         force_mask: torch.Tensor, start_emb: torch.Tensor):
+    """The plain version staged as K7's bf16 route runs: the context product
+    of every tick first (:func:`ctx_projection`, f32), each tick adding its
+    row in the plain version's order, ``(prev_xw + row) + b_ih0``. The same
+    function as :func:`arnn_sampled_decode_reference`; the products' sums
+    may differ in the last bit (another order). Arguments and results as
+    that function's."""
+    w_ctx = params["lstm_generation"][0]["w_ih"][start_emb.shape[1]:]
+    return _decode_loop(params, ctx, score, force_mask, start_emb, ctx_projection(ctx, w_ctx))
+
+
+def _check_arnn_args(params, ctx, score, force_mask, start_emb):
+    """The K7 wrapper's checks of what the kernels take. -> (batch, seq_len,
+    C, hidden, linear, vocab, dtype, device); raises ValueError otherwise."""
     if ctx.device.type != "cuda":
         raise ValueError(f"arnn_sampled_decode: no kernel for device {ctx.device}")
     if len(params["lstm_generation"]) != 2:
@@ -169,6 +400,7 @@ def arnn_sampled_decode(params, ctx: torch.Tensor, score: torch.Tensor,
     for tag, t in (("score", score), ("force_mask", force_mask)):
         check_cuda_tensor(tag, t, (batch, seq_len), torch.int32, device)
     check_cuda_tensor("start_emb", start_emb, (1, E), dtype, device)
+    check_cuda_tensor("note_embedding.table", emb, (emb.shape[0], E), dtype, device)
     check_cuda_tensor("lstm_generation0.w_ih", p0["w_ih"], (E + C, 4 * hidden), dtype, device)
     for tag, w in (("lstm_generation0.w_hh", p0["w_hh"]), ("lstm_generation1.w_ih", p1["w_ih"]),
                    ("lstm_generation1.w_hh", p1["w_hh"])):
@@ -178,9 +410,53 @@ def arnn_sampled_decode(params, ctx: torch.Tensor, score: torch.Tensor,
         check_cuda_tensor(tag, b, (4 * hidden,), dtype, device)
     check_cuda_tensor("linear_1.w", params["linear_1"]["w"], (hidden, linear), dtype, device)
     check_cuda_tensor("linear_1.b", params["linear_1"]["b"], (linear,), dtype, device)
+    check_cuda_tensor("linear_output_notes.w", params["linear_output_notes"]["w"],
+                      (linear, vocab), dtype, device)
     check_cuda_tensor("linear_output_notes.b", params["linear_output_notes"]["b"], (vocab,),
                       dtype, device)
+    return batch, seq_len, C, hidden, linear, vocab, dtype, device
 
+
+def _decode_hopper(params, ctx, score, force_mask, start_emb, shape):
+    """The bf16 Hopper route: per chunk of rows, the context projection
+    GEMM, then the cluster recurrence (csrc/arnn_hopper.cuh). ``shape`` is
+    :func:`_check_arnn_args`'."""
+    batch, seq_len, C, hidden, linear, vocab, dtype, device = shape
+    p0, p1 = params["lstm_generation"]
+    ops = arnn_operands(params["note_embedding"]["table"], p0["w_ih"], p0["b_ih"], p0["w_hh"],
+                        p0["b_hh"], p1["w_ih"], p1["b_ih"], p1["w_hh"], p1["b_hh"],
+                        params["linear_1"]["w"], params["linear_1"]["b"],
+                        params["linear_output_notes"]["w"], params["linear_output_notes"]["b"])
+    # the tick-0 input depends on the call's start embedding, not on the weights
+    start_xw = (start_emb.float() @ ops["w_tok"]).to(dtype).reshape(-1)
+    lp = arnn_head_width(linear)
+    logits = torch.empty((batch, seq_len, vocab), dtype=dtype, device=device)
+    tokens = torch.empty((batch, seq_len), dtype=torch.int32, device=device)
+    lib = load_kernels()
+    chunk = arnn_chunk_rows(batch, seq_len, hidden)
+    for r0 in range(0, batch, chunk):
+        rows = min(chunk, batch - r0)
+        plan = arnn_card_plan(rows, hidden, linear, device)
+        xwc = torch.empty((rows, seq_len, 4 * hidden), dtype=torch.float32, device=device)
+        check_launch(lib.inpaint_arnn_ctx_gemm(ctx[r0].data_ptr(), ops["w_ctx_t"].data_ptr(),
+                                               xwc.data_ptr(), rows * seq_len, C, 4 * hidden,
+                                               stream_ptr()), "arnn_sampled_decode's GEMM")
+        check_launch(lib.inpaint_arnn_decode_bf16(
+            ops["map_addr"], xwc.data_ptr(), score[r0].data_ptr(), force_mask[r0].data_ptr(),
+            ops["tok_tab"].data_ptr(), start_xw.data_ptr(), ops["bias"].data_ptr(),
+            ops["b_l1"].data_ptr(), ops["b_out"].data_ptr(), logits[r0].data_ptr(),
+            tokens[r0].data_ptr(), rows, seq_len, hidden, lp, vocab, plan.cluster, plan.stages,
+            stream_ptr()), "arnn_sampled_decode")
+    return logits, tokens
+
+
+def _decode_tiled(params, ctx, score, force_mask, start_emb, shape):
+    """The first kernel of the port (csrc/arnn_decode.cu): one block a tile
+    of 16 (f32) or 32 (bf16) rows, every product inside the tick loop. It
+    runs the f32 route and the bf16 geometries the Hopper route does not
+    take. ``shape`` is :func:`_check_arnn_args`'."""
+    batch, seq_len, C, hidden, linear, vocab, dtype, device = shape
+    p0, p1 = params["lstm_generation"]
     ins = arnn_decode_inputs(params, start_emb)
     lp, vp = _head_pads(linear, vocab)
     pad = torch.nn.functional.pad
@@ -192,7 +468,6 @@ def arnn_sampled_decode(params, ctx: torch.Tensor, score: torch.Tensor,
         pack_mma_b(w) for w in (ins["w_ctx"], p0["w_hh"], p1["w_ih"], p1["w_hh"], w_l1, w_out))
     logits = torch.empty((batch, seq_len, vocab), dtype=dtype, device=device)
     tokens = torch.empty((batch, seq_len), dtype=torch.int32, device=device)
-
     err = load_kernels().inpaint_arnn_decode(
         DTYPE_CODES[dtype], ctx.data_ptr(), score.data_ptr(), force_mask.data_ptr(),
         ins["tok_tab"].data_ptr(), ins["start_xw"].data_ptr(), w_ctx.data_ptr(),
@@ -201,8 +476,27 @@ def arnn_sampled_decode(params, ctx: torch.Tensor, score: torch.Tensor,
         logits.data_ptr(), tokens.data_ptr(), batch, seq_len, hidden, C, lp, vocab, vp,
         stream_ptr())
     check_launch(err, "arnn_sampled_decode")
-    arnn_sampled_decode.launches += 1
     return logits, tokens
+
+
+def arnn_sampled_decode(params, ctx: torch.Tensor, score: torch.Tensor,
+                        force_mask: torch.Tensor, start_emb: torch.Tensor):
+    """K7: the argmax decode with forced ticks over the whole sequence.
+
+    Arguments and results as :func:`arnn_sampled_decode_reference`, with
+    (in, out) weights in f32 or bf16, ``score`` and ``force_mask`` int32;
+    the entries of ``score`` at forced ticks must lie in [0, n_tok). In
+    bf16 the Hopper route runs where :func:`arnn_hopper_supports` holds, the
+    first kernel elsewhere."""
+    if ctx.device.type == "cpu":
+        return arnn_sampled_decode_reference(params, ctx, score, force_mask, start_emb)
+    shape = _check_arnn_args(params, ctx, score, force_mask, start_emb)
+    _, _, _, hidden, linear, vocab, dtype, _ = shape
+    hopper = dtype == torch.bfloat16 and arnn_hopper_supports(hidden, linear, vocab)
+    out = (_decode_hopper if hopper else _decode_tiled)(params, ctx, score, force_mask,
+                                                        start_emb, shape)
+    arnn_sampled_decode.launches += 1
+    return out
 
 
 arnn_sampled_decode.launches = 0  # kernel launches, for proving a run went through K7

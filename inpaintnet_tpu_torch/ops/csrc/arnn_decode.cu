@@ -5,7 +5,11 @@
 // token replaces the sampled one, as the output and as the feedback.
 //
 // Replaces the TPU kernel inpaintnet_tpu/ops/arnn_pallas.py
-// arnn_sampled_decode_pallas (_arnn_kernel). Same numerics: layer 0's
+// arnn_sampled_decode_pallas (_arnn_kernel). The bf16 route at the
+// geometries its plan takes is the Hopper design of arnn_hopper.cuh (entry
+// points at the end of this file); the kernel below is the f32 route, and
+// the bf16 route wherever that plan does not fit (a vocabulary over 64, H
+// 512 at a 256-wide head). Same numerics: layer 0's
 // input projection is prev_xw + ctx_t @ W_ctx + b_ih0 with prev_xw a row of
 // the parameter-dtype token table (start_xw at t = 0) and the context
 // product inside the loop; products accumulate in f32, biases and gates
@@ -25,22 +29,13 @@
 // memory (they are live in different phases of a tick). Occupancy is low
 // by design of this first version: batch 512 makes 16 bf16 blocks for 132
 // SMs, and batch 1 one block.
+#include <string.h>
+
+#include "arnn_hopper.cuh"
+#include "encoder_hopper.cuh"
 #include "gru_common.cuh"
 
 namespace inpaint {
-
-// torch's LSTM cell from its four gate pre-activations (biases added) and
-// the previous c, in f32, each multiply and add rounded on its own in the
-// order of the plain version's tensor ops (kernel_common.lstm_gates_f32).
-__device__ __forceinline__ void lstm_gate(const float (&gate)[4], float c, float& h_out,
-                                          float& c_out) {
-  const float i = sigmoid_f(gate[0]);
-  const float f = sigmoid_f(gate[1]);
-  const float g = tanhf(gate[2]);
-  const float o = sigmoid_f(gate[3]);
-  c_out = __fadd_rn(__fmul_rn(f, c), __fmul_rn(i, g));
-  h_out = __fmul_rn(o, tanhf(c_out));
-}
 
 template <typename T>
 struct ArnnArgs {
@@ -267,9 +262,10 @@ static cudaError_t arnn_decode(const ArnnArgs<T>& a, cudaStream_t stream) {
 
 }  // namespace inpaint
 
-// dtype: 0 = float32, 1 = bfloat16. Tensors as documented on ArnnArgs.
-// Returns the cudaError_t of the launch (0 on success); launches on
-// `stream` and does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16 (where arnn_kernel.arnn_hopper_supports
+// is false; inpaint_arnn_decode_bf16 runs the rest). Tensors as documented
+// on ArnnArgs. Returns the cudaError_t of the launch (0 on success);
+// launches on `stream` and does not synchronise.
 extern "C" int inpaint_arnn_decode(int dtype, const void* ctx, const void* score,
                                    const void* force, const void* tok_tab, const void* start_xw,
                                    const void* w_ctx, const void* whh0, const void* wih1,
@@ -297,4 +293,52 @@ extern "C" int inpaint_arnn_decode(int dtype, const void* ctx, const void* score
   }
 #undef INPAINT_ARNN_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 route (arnn_hopper.cuh): `map` is inpaint_arnn_map's over
+// arnn_kernel.pack_arnn_weights; `xwc` (B, S, 4H) f32 is ctx @ W_ctx
+// (inpaint_arnn_ctx_gemm); `cluster` CTAs share each 64-row tile and
+// `stages` is the depth of each consumer warpgroup's ring
+// (arnn_kernel.arnn_plan). bias (4, 4H), b_l1 (LP,), b_out (64,) bf16;
+// score, force (B, S) int32; logits (B, S, V) bf16; tokens (B, S) int32.
+extern "C" int inpaint_arnn_decode_bf16(const void* map, const void* xwc, const void* score,
+                                        const void* force, const void* tok_tab,
+                                        const void* start_xw, const void* bias, const void* b_l1,
+                                        const void* b_out, void* logits, void* tokens, int B,
+                                        int S, int H, int LP, int V, int cluster, int stages,
+                                        void* stream) {
+  if (map == nullptr) return (int)cudaErrorInvalidValue;
+  using T = __nv_bfloat16;
+  CUtensorMap m;
+  memcpy(&m, map, sizeof(m));
+  const inpaint::rec90::ArnnArgs a{static_cast<const float*>(xwc), static_cast<const int*>(score),
+                                   static_cast<const int*>(force), static_cast<const T*>(tok_tab),
+                                   static_cast<const T*>(start_xw), static_cast<const T*>(bias),
+                                   static_cast<const T*>(b_l1), static_cast<const T*>(b_out),
+                                   static_cast<T*>(logits), static_cast<int*>(tokens),
+                                   B, S, H, LP, V, stages};
+  return (int)inpaint::rec90::launch_arnn(m, a, cluster, static_cast<cudaStream_t>(stream));
+}
+
+// Encode into `map_out` (128 bytes, 64-byte aligned) the tensor map of
+// `blocks` packed 128 x 64 bf16 blocks (arnn_kernel.pack_arnn_weights).
+extern "C" int inpaint_arnn_map(const void* packed, int blocks, void* map_out) {
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  return (int)inpaint::rec90::make_lstm_map(static_cast<CUtensorMap*>(map_out), packed, blocks);
+}
+
+// Clusters of `cluster` CTAs of the bf16 route at widths H and LP with
+// `stages` ring stages that the card runs at once; -1 where the plan does
+// not fit.
+extern "C" int inpaint_arnn_slots(int H, int cluster, int LP, int stages) {
+  return inpaint::rec90::arnn_slots(H, cluster, LP, stages);
+}
+
+// The bf16 route's context projection: out (M, N) f32 = ctx (M, K) bf16 @
+// w_t (N, K)^T, w_t = W_ctx^T K-major; K a multiple of 64, N of 2.
+extern "C" int inpaint_arnn_ctx_gemm(const void* ctx, const void* w_t, void* out, int M, int K,
+                                     int N, void* stream) {
+  if (K % 64 != 0 || N % 2 != 0 || M < 1) return (int)cudaErrorInvalidValue;
+  return (int)inpaint::enc90::launch_proj_gemm<__nv_bfloat16>(
+      ctx, w_t, nullptr, out, M, K, N, 1, static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,487 @@
+// The Hopper design of K7's bf16 route (arnn_decode.cu): the
+// AnticipationRNN's argmax decode as a cluster recurrence, K2's design
+// (decode_hopper.cuh) carried to the 2-layer LSTM. It replaces, in bf16,
+// the TPU kernel inpaintnet_tpu/ops/arnn_pallas.py
+// arnn_sampled_decode_pallas (_arnn_kernel).
+//
+// What bounds it on an H100: a serial chain of 384 ticks, each layer 0 ->
+// layer 1 -> head -> argmax -> the fed-back token, over 2.2 MB of bf16
+// weights a tick at the flagship's H = C = L = 256. The first kernel
+// (arnn_decode.cu, now the f32 route) walked each product as a chain of
+// dependent L2 fragment loads in one block of 32 rows (about 92 us a tick
+// at 1, 64 or 512 rows), 16 blocks at batch 512.
+//
+// Design (arnn_kernel.arnn_plan picks the cluster size C from the rows):
+// - The context product ctx_t @ W_ctx does not depend on the recurrence: the
+//   wrapper runs it first for every tick as one TMA + wgmma GEMM
+//   (encoder_hopper.cuh launch_proj_gemm), in f32, and the tick adds its row
+//   in the plain version's order: (prev_xw + ctx_t @ W_ctx) + b_ih0.
+// - C CTAs share a 64-row tile; each computes U = H / C units of both
+//   layers from its own W^T slabs, packed in 4-gate blocks (32 units x
+//   [i, f, g, o] = 128 rows x 64 of K: 16 KB, arnn_kernel.pack_lstm_blocks),
+//   streamed through a TMA ring per consumer warpgroup into wgmma (a
+//   producer warp per ring, running ahead across layers and ticks). Layer
+//   1 streams a chunk's W_ih1 slabs, then its W_hh1 slabs, each product
+//   into an accumulator of its own: one accumulator over K = 2H drifted
+//   further from the plain version than the first kernel (the tensor cores'
+//   f32 sums are not rounded to nearest, and the sum's order was another).
+// - Every CTA holds both layers' whole h tiles (the A operands) and pushes
+//   its 64-unit blocks of each new h to its peers after each layer
+//   (gru_layer_hopper.cuh write_and_push). The c carries of its own units
+//   stay in its shared memory, read and written by the thread that owns
+//   each (row, unit).
+// - The head: every CTA recomputes it on its identical h1 (so every CTA
+//   reaches the same token with no exchange): relu(h1 @ W_l1 + b_l1), 128
+//   hidden columns a warpgroup chunk, rounded to bf16 into a shared tile;
+//   then that tile @ W_out + b_out, each warpgroup 32 of the 64 (padded)
+//   vocabulary columns, streaming only its own columns' k-slabs; the
+//   first-index argmax over the V real columns (a quad's shuffles, then the
+//   two warpgroups in shared memory); the force mask; CTA 0 writes the
+//   logits and the tokens.
+// - Numerics as the f32 route's kernel: products in f32, biases and gates
+//   in f32, both layers' h and c rounded to bf16 every tick, the head's
+//   hidden rounded to bf16, unbounded f32 logits written in bf16. Rows past
+//   B run on the token table alone and are never stored.
+#pragma once
+
+#include <limits.h>
+#include <math.h>
+
+#include "gru_layer_hopper.cuh"
+
+namespace inpaint {
+
+// torch's LSTM cell from its four gate pre-activations (biases added) and
+// the previous c, in f32, each multiply and add rounded on its own in the
+// order of the plain version's tensor ops (kernel_common.lstm_gates_f32).
+__device__ __forceinline__ void lstm_gate(const float (&gate)[4], float c, float& h_out,
+                                          float& c_out) {
+  const float i = sigmoid_f(gate[0]);
+  const float f = sigmoid_f(gate[1]);
+  const float g = tanhf(gate[2]);
+  const float o = sigmoid_f(gate[3]);
+  c_out = __fadd_rn(__fmul_rn(f, c), __fmul_rn(i, g));
+  h_out = __fmul_rn(o, tanhf(c_out));
+}
+
+namespace rec90 {
+
+constexpr int kLstmRows = 4 * kUnits;              // a chunk's i, f, g, o rows: the wgmma N
+constexpr int kLstmSlabBytes = kLstmRows * 128;    // one k-slab of a chunk: 16 KB
+constexpr int kHidCols = 128;                      // hidden columns of a head chunk
+constexpr int kOutCols = 64;                       // the vocabulary, zero-padded
+// a whole producer warpgroup (two warps feed the rings, two idle), so that
+// setmaxnreg can hand its registers to the consumers: 232 each, where the
+// launch's 384 threads leave 168, and layer 1's two 64 x 128 accumulators
+// spilled
+constexpr int kArnnThreads = kConsumerThreads + 128;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+struct ArnnArgs {
+  const float* xwc;              // (B, S, 4H): ctx @ W_ctx, f32
+  const int* score;              // (B, S) ground-truth tokens
+  const int* force;              // (B, S) 1 where the token is forced
+  const __nv_bfloat16* tok_tab;  // (n_tok, 4H): emb @ W_ih0[:E]
+  const __nv_bfloat16* start_xw; // (4H,): the tick-0 input
+  const __nv_bfloat16* bias;     // (4, 4H): b_ih0, b_hh0, b_ih1, b_hh1
+  const __nv_bfloat16* b_l1;     // (LP,), zero past the head's width
+  const __nv_bfloat16* b_out;    // (64,), zero past V
+  __nv_bfloat16* logits;         // (B, S, V)
+  int* tokens;                   // (B, S)
+  int B, S, H, LP, V, stages;
+};
+
+// what every consumer thread of a K7 CTA reads in each stage of a tick
+struct ArnnCta {
+  unsigned char* h0t;   // the layer-0 and layer-1 h tiles (swizzled bf16)
+  unsigned char* h1t;
+  unsigned char* hid;   // the head's hidden tile (swizzled bf16)
+  uint32_t* c0;         // (64, U / 2): bf16 pairs of this CTA's layer-0 c
+  uint32_t* c1;
+  int* prev_tok;        // each row's fed-back token, -1: start_xw
+  int H, KB, U, tile0, chunk0, nch, wg;
+};
+
+// The LSTM cells of a chunk's 64 rows x 32 units: `pre(gi, n8, a, e)` is
+// gate gi's pre-activation of the thread's (row half, unit) a = 4 n8 + 2 half
+// + e (unit j0 + 8 n8 + 2q + e of row 16 warp + g + 8 half; in a chunk's
+// 64 x 128 accumulator gate gi sits at 16 gi + a). The c carries are read
+// from and written to `c` (64 rows x U units of bf16, this CTA's units, as
+// pairs; the chunk's first unit is `uc`); the new h pairs go to `hold`.
+template <typename Pre>
+__device__ __forceinline__ void lstm_epilogue(Pre pre, uint32_t* c, int U, int uc,
+                                              uint32_t (&hold)[8]) {
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, g = (tid & 31) >> 2, q = tid & 3;
+  // every c first, every cell next, the new c last: a store between two
+  // cells would keep the next cell's c load, and so its math, behind it
+  uint32_t c_old[4][2], c_new[4][2];
+#pragma unroll
+  for (int n8 = 0; n8 < 4; ++n8)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      c_old[n8][half] = c[(16 * warp + g + 8 * half) * (U / 2) + (uc + 8 * n8 + 2 * q) / 2];
+#pragma unroll
+  for (int n8 = 0; n8 < 4; ++n8) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float hv[2], cv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float gate[4];
+#pragma unroll
+        for (int gi = 0; gi < 4; ++gi) gate[gi] = pre(gi, n8, 4 * n8 + 2 * half + e, e);
+        const uint32_t co = c_old[n8][half];
+        lstm_gate(gate, e ? bf_hi(co) : bf_lo(co), hv[e], cv[e]);
+      }
+      c_new[n8][half] = pack_bf16(cv[0], cv[1]);
+      hold[2 * n8 + half] = pack_bf16(hv[0], hv[1]);
+    }
+  }
+#pragma unroll
+  for (int n8 = 0; n8 < 4; ++n8)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      c[(16 * warp + g + 8 * half) * (U / 2) + (uc + 8 * n8 + 2 * q) / 2] = c_new[n8][half];
+}
+
+__device__ __forceinline__ float bf_pick(uint32_t v, int e) { return e ? bf_hi(v) : bf_lo(v); }
+
+// layer 0: gates = ((prev_xw + ctx_t @ W_ctx) + b_ih0) + (h0 @ W_hh0 + b_hh0)
+template <int MAXC>
+__device__ __forceinline__ void arnn_layer0(const ArnnArgs& p, const ArnnCta& k,
+                                            RingT<kLstmSlabBytes>& rg, const Exchange& ex,
+                                            int t) {
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2,
+            q = lane & 3;
+  const int H = k.H, H4 = 4 * H;
+  const __nv_bfloat16* bih = p.bias;
+  const __nv_bfloat16* bhh = p.bias + H4;
+  uint32_t hold[MAXC][8];
+#pragma unroll
+  for (int ci = 0; ci < MAXC; ++ci) {
+    const int c = k.wg + ci * kConsumers;
+    if (c < k.nch) {
+      const int j0 = (k.chunk0 + c) * kUnits + opaque_zero();
+      // the thread's two rows: their fed-back token rows and context
+      // projection rows, pulled into L2 while the products run (lanes of q
+      // 0: a quad's 8 units of a gate; the chunk's 32 are 128 bytes of f32)
+      const __nv_bfloat16* fb[2];
+      const float* px[2];
+      bool in[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 16 * warp + g + 8 * half, row = k.tile0 + r;
+        in[half] = row < p.B;
+        const int prev = k.prev_tok[r];
+        fb[half] = prev < 0 ? p.start_xw : p.tok_tab + (size_t)prev * H4;
+        px[half] = p.xwc + ((size_t)(in[half] ? row : 0) * p.S + t) * H4;
+        if (q == 0)
+#pragma unroll
+          for (int gi = 0; gi < 4; ++gi) {
+            prefetch_l2(px[half] + gi * H + j0);
+            prefetch_l2(fb[half] + gi * H + j0);
+          }
+      }
+      float acc[64];
+      rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
+        mma_slab(acc, desc_sw128(k.h0t + kk * kBlockBytes), desc_sw128(slab), kk > 0);
+      });
+      fence_operands(acc);
+      lstm_epilogue(
+          [&](int gi, int n8, int a, int e) {
+            // ((the fed-back row + the context projection) + b_ih0) + (acc + b_hh0)
+            const int half = (a >> 1) & 1, col = gi * H + j0 + 8 * n8 + 2 * q;
+            const float f = bf_pick(ldg_u32(fb[half] + col), e);
+            const float x = in[half] ? __fadd_rn(f, __ldg(px[half] + col + e)) : f;
+            const float xw = __fadd_rn(x, bf_pick(ldg_u32(bih + col), e));
+            return __fadd_rn(xw, __fadd_rn(acc[16 * gi + a], bf_pick(ldg_u32(bhh + col), e)));
+          },
+          k.c0, k.U, c * kUnits, hold[ci]);
+    }
+  }
+  write_and_push(k.h0t, ex, hold, k.wg, k.nch, k.chunk0, t & 1);
+  if (ex.C > 1) mbar_wait_bounded<true>(ex.full, t & 1);
+}
+
+// layer 1: gates = (h0' @ W_ih1 + b_ih1) + (h1 @ W_hh1 + b_hh1), the two
+// products in accumulators of their own, summed in the plain version's
+// order
+template <int MAXC>
+__device__ __forceinline__ void arnn_layer1(const ArnnArgs& p, const ArnnCta& k,
+                                            RingT<kLstmSlabBytes>& rg, const Exchange& ex,
+                                            int t) {
+  const int lane = threadIdx.x & 31, q = lane & 3;
+  const int H = k.H, H4 = 4 * H;
+  const __nv_bfloat16* bih = p.bias + 2 * H4;
+  const __nv_bfloat16* bhh = p.bias + 3 * H4;
+  uint32_t hold[MAXC][8];
+#pragma unroll
+  for (int ci = 0; ci < MAXC; ++ci) {
+    const int c = k.wg + ci * kConsumers;
+    if (c < k.nch) {
+      const int j0 = (k.chunk0 + c) * kUnits + opaque_zero();
+      float ax[64], ah[64];
+      rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
+        mma_slab(ax, desc_sw128(k.h0t + kk * kBlockBytes), desc_sw128(slab), kk > 0);
+      });
+      rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
+        mma_slab(ah, desc_sw128(k.h1t + kk * kBlockBytes), desc_sw128(slab), kk > 0);
+      });
+      fence_operands(ax);
+      fence_operands(ah);
+      lstm_epilogue(
+          [&](int gi, int n8, int a, int e) {
+            const int col = gi * H + j0 + 8 * n8 + 2 * q;
+            const uint32_t bi = ldg_u32(bih + col), bh = ldg_u32(bhh + col);
+            return __fadd_rn(__fadd_rn(ax[16 * gi + a], bf_pick(bi, e)),
+                             __fadd_rn(ah[16 * gi + a], bf_pick(bh, e)));
+          },
+          k.c1, k.U, c * kUnits, hold[ci]);
+    }
+  }
+  write_and_push(k.h1t, ex, hold, k.wg, k.nch, k.chunk0, t & 1);
+  if (ex.C > 1) mbar_wait_bounded<true>(ex.full, t & 1);
+}
+
+// The head and the argmax with the force mask, in every CTA on its own
+// (identical) h1. CTA 0 of the cluster writes the logits and the tokens.
+__device__ __forceinline__ void arnn_head(const ArnnArgs& p, const ArnnCta& k,
+                                          RingT<kLstmSlabBytes>& rg, uint32_t rank, int t,
+                                          float (&best_s)[kConsumers][kRows],
+                                          int (&arg_s)[kConsumers][kRows]) {
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2,
+            q = lane & 3;
+  const int LC = p.LP / kHidCols, LB = p.LP / 64;
+  // relu(h1 @ W_l1 + b_l1), rounded to bf16, into the hidden tile
+  for (int lc = k.wg; lc < LC; lc += kConsumers) {
+    float acc[64];
+    rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
+      mma_slab(acc, desc_sw128(k.h1t + kk * kBlockBytes), desc_sw128(slab), kk > 0);
+    });
+    fence_operands(acc);
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = 16 * warp + g + 8 * ((i >> 1) & 1);
+      const int col = lc * kHidCols + 8 * (i >> 2) + 2 * q;
+      const uint32_t b = ldg_u32(p.b_l1 + col);
+      *reinterpret_cast<uint32_t*>(k.hid + sw128_offset(r, col * 2, kRows)) =
+          pack_bf16(fmaxf(__fadd_rn(acc[i], bf_lo(b)), 0.0f),
+                    fmaxf(__fadd_rn(acc[i + 1], bf_hi(b)), 0.0f));
+    }
+  }
+  fence_proxy_async();
+  named_barrier(kBar, kConsumerThreads);
+  // the logits: warpgroup w takes the columns [32w, 32w + 32), four k-slabs
+  // of them a 128-row block (its own blocks of W_out^T)
+  const int col0 = 32 * k.wg;
+  float lg[16];
+  rg.consume((LB + 3) / 4, lane, [&](int b, unsigned char* slab) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int ks = 4 * b + kk;
+      if (ks < LB)
+        mma_slab(lg, desc_sw128(k.hid + ks * kBlockBytes), desc_sw128(slab + kk * 32 * 128),
+                 ks > 0);
+    }
+  });
+  fence_operands(lg);
+  // lg[i]: row 16 warp + g + 8 ((i / 2) % 2), column col0 + 8 (i / 4) + 2q + i % 2
+  float best[2] = {-INFINITY, -INFINITY};
+  int arg[2] = {INT_MAX, INT_MAX};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int half = (i >> 1) & 1, col = col0 + 8 * (i >> 2) + 2 * q + (i & 1);
+    lg[i] = __fadd_rn(lg[i], __bfloat162float(p.b_out[col]));
+    if (col < p.V && lg[i] > best[half]) {  // columns ascend: the first of equal maxima
+      best[half] = lg[i];
+      arg[half] = col;
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {  // the quad holding the row's 32 columns
+      const float ob = __shfl_xor_sync(0xffffffffu, best[half], off);
+      const int oa = __shfl_xor_sync(0xffffffffu, arg[half], off);
+      if (ob > best[half] || (ob == best[half] && oa < arg[half])) {
+        best[half] = ob;
+        arg[half] = oa;
+      }
+    }
+    const int r = 16 * warp + g + 8 * half, row = k.tile0 + r;
+    if (q == 0) {
+      best_s[k.wg][r] = best[half];
+      arg_s[k.wg][r] = arg[half];
+    }
+    if (rank == 0 && row < p.B) {
+      __nv_bfloat16* out = p.logits + ((size_t)row * p.S + t) * p.V;
+#pragma unroll
+      for (int i = 2 * half; i < 16; i += 4) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = col0 + 8 * (i >> 2) + 2 * q + e;
+          if (col < p.V) out[col] = __float2bfloat16_rn(lg[i + e]);
+        }
+      }
+    }
+  }
+  named_barrier(kBar, kConsumerThreads);
+  if (tid < kRows) {  // warpgroup 1's columns win only by a larger logit
+    int a = best_s[1][tid] > best_s[0][tid] ? arg_s[1][tid] : arg_s[0][tid];
+    const int row = k.tile0 + tid;
+    if (row < p.B) {
+      const size_t o = (size_t)row * p.S + t;
+      if (p.force[o] > 0) a = p.score[o];
+      if (rank == 0) p.tokens[o] = a;
+    }
+    k.prev_tok[tid] = a;
+  }
+}
+
+// The packed weights the map covers (arnn_kernel.pack_arnn_weights): 16 KB
+// blocks of 128 rows x 64 of K. W_hh0 in H / 32 chunks of H / 64 k-slabs;
+// layer 1 in H / 32 chunks of 2H / 64 k-slabs (W_ih1's, then W_hh1's); the
+// head's W_l1^T in LP / 128 chunks of H / 64 k-slabs; W_out^T's 64 (padded)
+// columns as warpgroup 0's 32 then warpgroup 1's, each in blocks of four
+// 32-row k-slabs.
+template <int MAXC>
+__global__ void __launch_bounds__(kArnnThreads, 1)
+    arnn_kernel(const __grid_constant__ CUtensorMap w_map, const __grid_constant__ ArnnArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kConsumers][kMaxStages];
+  __shared__ __align__(8) uint64_t empty_bar[kConsumers][kMaxStages];
+  __shared__ __align__(8) uint64_t h_full[2], h_done[2];
+  __shared__ int prev_tok[kRows];
+  __shared__ float head_best[kConsumers][kRows];
+  __shared__ int head_arg[kConsumers][kRows];
+  const int H = p.H, KB = H / 64, S = p.S;
+  unsigned char* h0t = align1024(smem_raw);
+  unsigned char* h1t = h0t + KB * kBlockBytes;
+  unsigned char* hid = h1t + KB * kBlockBytes;
+  unsigned char* ring = hid + (p.LP / 64) * kBlockBytes;
+  const int C = (int)cluster_nctarank();
+  const uint32_t rank = cluster_ctarank();
+  const int U = H / C, nch = U / kUnits, chunk0 = (int)rank * nch;
+  uint32_t* c0 = reinterpret_cast<uint32_t*>(ring + kConsumers * p.stages * kLstmSlabBytes);
+  uint32_t* c1 = c0 + kRows * U / 2;
+  const int tile0 = (int)(blockIdx.x / C) * kRows;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kConsumers; ++w)
+      for (int s = 0; s < p.stages; ++s) {
+        mbar_init(&full_bar[w][s], 1);
+        mbar_init(&empty_bar[w][s], 4);
+      }
+    for (int l = 0; l < 2; ++l) {
+      mbar_init(&h_full[l], 1);
+      mbar_init(&h_done[l], C);
+    }
+    fence_barrier_init();
+  }
+  if (threadIdx.x < kRows) prev_tok[threadIdx.x] = -1;
+  // h0 = c0 = h1 = c1 = 0
+  for (int i = threadIdx.x; i < 2 * KB * kBlockBytes / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(h0t)[i] = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < kRows * U / 4; i += blockDim.x)
+    reinterpret_cast<uint4*>(c0)[i] = make_uint4(0, 0, 0, 0);  // c0 and c1
+  fence_proxy_async();
+  __syncthreads();
+  cluster_sync();
+
+  if (wg == kConsumers) {  // the producer warps, in the consumers' order of use
+    setmaxnreg_dec<kProducerRegs>();
+    const int w = (threadIdx.x >> 5) & 3;
+    if (w < kConsumers && (threadIdx.x & 31) == 0) {
+      FeedT<kLstmSlabBytes> f{&w_map, ring + w * p.stages * kLstmSlabBytes, full_bar[w],
+                              empty_bar[w], p.stages, 1, 0, 0};
+      const int chunks = H / kUnits;
+      const int l1_base = chunks * KB, head_base = l1_base + chunks * 2 * KB;
+      const int LC = p.LP / kHidCols, out_base = head_base + LC * KB;
+      const int out_blocks = (p.LP / 64 + 3) / 4;  // each warpgroup's blocks of W_out^T
+      for (int t = 0; t < S; ++t) {
+        for (int c = w; c < nch; c += kConsumers) f.slabs((chunk0 + c) * KB, KB);
+        for (int c = w; c < nch; c += kConsumers) f.slabs(l1_base + (chunk0 + c) * 2 * KB, 2 * KB);
+        for (int lc = w; lc < LC; lc += kConsumers) f.slabs(head_base + lc * KB, KB);
+        f.slabs(out_base + w * out_blocks, out_blocks);
+      }
+    }
+    cluster_sync();
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  RingT<kLstmSlabBytes> rg{ring + wg * p.stages * kLstmSlabBytes, full_bar[wg], empty_bar[wg],
+                           p.stages, 1, 0, 0};
+  const Exchange ex0{C, rank, (int)rank * (U / 64), U / 64, &h_full[0], &h_done[0]};
+  const Exchange ex1{C, rank, (int)rank * (U / 64), U / 64, &h_full[1], &h_done[1]};
+  const ArnnCta cta{h0t, h1t, hid, c0, c1, prev_tok, H, KB, U, tile0, chunk0, nch, wg};
+
+  for (int t = 0; t < S; ++t) {
+    // the last tick's head is done: prev_tok is set, h1 and hid are read
+    named_barrier(kBar, kConsumerThreads);
+    arnn_layer0<MAXC>(p, cta, rg, ex0, t);
+    arnn_layer1<MAXC>(p, cta, rg, ex1, t);
+    arnn_head(p, cta, rg, rank, t, head_best, head_arg);
+  }
+  cluster_sync();
+}
+
+// dynamic shared memory of a K7 block: both h tiles, the hidden tile, the
+// rings and the two c arrays (and 1 KB of alignment)
+inline size_t arnn_smem_bytes(int H, int C, int LP, int stages) {
+  return (size_t)(2 * (H / 64) + LP / 64) * kBlockBytes +
+         (size_t)kConsumers * stages * kLstmSlabBytes + 2ull * kRows * (H / C) * 2 + 1024;
+}
+
+// the launch's checks: C in 1..8 owning whole 64-unit k-blocks, at most 4
+// chunks a warpgroup (more leave no ring beside the tiles and c carries), a
+// head of 128-column chunks up to 512 and a vocabulary of at most 64, a
+// ring of 2..kMaxStages stages that fits
+inline bool arnn_plan_fits(int H, int C, int LP, int V, int stages) {
+  if (H % 64 != 0 || H <= 0 || C < 1 || C > kMaxCluster || (C & (C - 1)) != 0) return false;
+  if ((H / 64) % C != 0 || H / C > 4 * kConsumers * kUnits) return false;
+  if (LP < kHidCols || LP % kHidCols != 0 || LP > 512 || V < 1 || V > kOutCols) return false;
+  if (stages < 2 || stages > kMaxStages) return false;
+  return arnn_smem_bytes(H, C, LP, stages) <= (size_t)kSmemBudget;
+}
+
+inline int arnn_slots(int H, int C, int LP, int stages) {
+  if (!arnn_plan_fits(H, C, LP, 1, stages)) return -1;
+  const size_t smem = arnn_smem_bytes(H, C, LP, stages);
+  switch (chunks_per_warpgroup(H, C)) {
+    case 1: return max_clusters(arnn_kernel<1>, C, smem, kArnnThreads);
+    case 2: return max_clusters(arnn_kernel<2>, C, smem, kArnnThreads);
+    default: return max_clusters(arnn_kernel<4>, C, smem, kArnnThreads);
+  }
+}
+
+inline cudaError_t launch_arnn(const CUtensorMap& map, const ArnnArgs& a, int C,
+                               cudaStream_t stream) {
+  if (!arnn_plan_fits(a.H, C, a.LP, a.V, a.stages) || a.B < 1 || a.S < 1)
+    return cudaErrorInvalidValue;
+  const int clusters = (a.B + kRows - 1) / kRows;
+  const size_t smem = arnn_smem_bytes(a.H, C, a.LP, a.stages);
+  switch (chunks_per_warpgroup(a.H, C)) {
+    case 1: return launch_clusters(arnn_kernel<1>, clusters, C, smem, stream, map, a,
+                                   kArnnThreads);
+    case 2: return launch_clusters(arnn_kernel<2>, clusters, C, smem, stream, map, a,
+                                   kArnnThreads);
+    case 3:
+    case 4: return launch_clusters(arnn_kernel<4>, clusters, C, smem, stream, map, a,
+                                   kArnnThreads);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// A 3D tensor map over K7's packed 16 KB blocks (128 rows x 64 bf16 of K),
+// one block a box.
+inline cudaError_t make_lstm_map(CUtensorMap* map, const void* packed, int blocks) {
+  const uint64_t dims[3] = {64, (uint64_t)kLstmRows, (uint64_t)blocks};
+  const uint64_t strides[2] = {128, (uint64_t)kLstmSlabBytes};
+  const uint32_t box[3] = {64, (uint32_t)kLstmRows, 1};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, packed, dims, strides, box);
+}
+
+}  // namespace rec90
+}  // namespace inpaint

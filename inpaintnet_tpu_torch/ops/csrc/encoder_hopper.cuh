@@ -24,7 +24,9 @@
 // encoder_xw_gemm_kernel: layer 1's input projection for every step of a
 // chunk at once, xw[d] = [ys_f | ys_b] @ W_ih1[d] (+ b_ih1[d] in f32 on the
 // bf16 route; int32 sums on the int8 route), M = steps x rows, K = 2H,
-// N = 3H per direction. Persistent blocks (one an SM) walk 128 x 256 tiles;
+// N = 3H per direction. K7's context projection (arnn_hopper.cuh) runs the
+// same kernel with one direction, K = C, N = 4H and no bias
+// (launch_proj_gemm). Persistent blocks (one an SM) walk 128 x 256 tiles;
 // one producer warp keeps TMA loads of A and B k-slabs in flight through a
 // 4-stage ring gated by mbarriers, across tiles, so a tile's stores overlap
 // the next tile's loads; two consumer warpgroups (64 rows each) run wgmma
@@ -310,7 +312,7 @@ template <typename HT>
 __global__ void __launch_bounds__(kGemmThreads, 1)
     encoder_xw_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
                            const __grid_constant__ CUtensorMap b_map, const float* bias,
-                           typename Enc<HT>::Acc* out, int M, int N3, int K) {
+                           typename Enc<HT>::Acc* out, int M, int N3, int K, int dirs) {
   using Acc = typename Enc<HT>::Acc;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[kGemmStages];
@@ -319,7 +321,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const int nslabs = K * (int)sizeof(HT) / 128;
   const int n_per_dir = (N3 + kGemmN - 1) / kGemmN;
-  const int n_tiles = 2 * n_per_dir;  // both directions; n fastest, so that
+  const int n_tiles = dirs * n_per_dir;  // every direction; n fastest, so that
   const int tiles = (M + kGemmM - 1) / kGemmM * n_tiles;  // concurrent tiles share A
   const int wg = threadIdx.x >> 7;
 
@@ -395,10 +397,12 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
         Acc* o = out + ((size_t)d * M + row) * N3 + col;
         if constexpr (sizeof(HT) == 1) {
           *reinterpret_cast<int2*>(o) = make_int2(acc[i], acc[i + 1]);
-        } else {  // the bias added in f32 after the sum
+        } else if (bias != nullptr) {  // the bias added in f32 after the sum
           const float* b = bias + d * N3 + col;
           *reinterpret_cast<float2*>(o) = make_float2(__fadd_rn(acc[i], b[0]),
                                                       __fadd_rn(acc[i + 1], b[1]));
+        } else {
+          *reinterpret_cast<float2*>(o) = make_float2(acc[i], acc[i + 1]);
         }
       }
     }
@@ -432,18 +436,18 @@ static cudaError_t launch_rec(const void* whh, RecArgs a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// out (2, M, 3H) = a (M, 2H) @ w[d]^T for w (2, 3H, 2H) K-major [+ bias (2, 3H)]
+// out (dirs, M, N3) = a (M, K) @ w[d]^T for w (dirs, N3, K) K-major
+// [+ bias (dirs, N3)]; K a multiple of 128 / sizeof(HT), N3 of 2
 template <typename HT>
-static cudaError_t launch_xw_gemm(const void* a, const void* w, const float* bias, void* out,
-                                  int M, int H, cudaStream_t stream) {
-  const int K = 2 * H, N3 = 3 * H;
+static cudaError_t launch_proj_gemm(const void* a, const void* w, const float* bias, void* out,
+                                    int M, int K, int N3, int dirs, cudaStream_t stream) {
   CUtensorMap a_map, b_map;
   const uint64_t a_dims[2] = {(uint64_t)K, (uint64_t)M};
   const uint64_t a_strides[1] = {(uint64_t)K * sizeof(HT)};
   const uint32_t a_box[2] = {128 / (uint32_t)sizeof(HT), (uint32_t)kGemmM};
   cudaError_t err = make_map(&a_map, Enc<HT>::kMap, 2, a, a_dims, a_strides, a_box);
   if (err != cudaSuccess) return err;
-  const uint64_t b_dims[3] = {(uint64_t)K, (uint64_t)N3, 2};
+  const uint64_t b_dims[3] = {(uint64_t)K, (uint64_t)N3, (uint64_t)dirs};
   const uint64_t b_strides[2] = {(uint64_t)K * sizeof(HT), (uint64_t)N3 * K * sizeof(HT)};
   const uint32_t b_box[3] = {128 / (uint32_t)sizeof(HT), (uint32_t)kGemmN, 1};
   err = make_map(&b_map, Enc<HT>::kMap, 3, w, b_dims, b_strides, b_box);
@@ -457,10 +461,17 @@ static cudaError_t launch_xw_gemm(const void* a, const void* w, const float* bia
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  const int tiles = (M + kGemmM - 1) / kGemmM * 2 * ((N3 + kGemmN - 1) / kGemmN);
+  const int tiles = (M + kGemmM - 1) / kGemmM * dirs * ((N3 + kGemmN - 1) / kGemmN);
   encoder_xw_gemm_kernel<HT><<<tiles < sms ? tiles : sms, kGemmThreads, smem, stream>>>(
-      a_map, b_map, bias, static_cast<typename Enc<HT>::Acc*>(out), M, N3, K);
+      a_map, b_map, bias, static_cast<typename Enc<HT>::Acc*>(out), M, N3, K, dirs);
   return cudaGetLastError();
+}
+
+// out (2, M, 3H) = a (M, 2H) @ w[d]^T for w (2, 3H, 2H) K-major [+ bias (2, 3H)]
+template <typename HT>
+static cudaError_t launch_xw_gemm(const void* a, const void* w, const float* bias, void* out,
+                                  int M, int H, cudaStream_t stream) {
+  return launch_proj_gemm<HT>(a, w, bias, out, M, 2 * H, 3 * H, 2, stream);
 }
 
 }  // namespace enc90

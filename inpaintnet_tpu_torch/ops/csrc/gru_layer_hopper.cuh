@@ -110,8 +110,10 @@ __host__ __device__ __forceinline__ int box_slabs(int H) { return (H / 64) % 2 =
 
 // The producer side of one consumer warpgroup's ring: a stage is a box of
 // `ks` consecutive k-slabs of one chunk (contiguous 12 KB blocks in the
-// packed weights, gru_kernel.pack_gate_blocks).
-struct Feed {
+// packed weights, gru_kernel.pack_gate_blocks; K7's are 16 KB,
+// arnn_hopper.cuh).
+template <int kSlab = kSlabBytes>
+struct FeedT {
   const CUtensorMap* map;
   unsigned char* ring;
   uint64_t* full;
@@ -122,8 +124,8 @@ struct Feed {
   __device__ void slabs(int block0, int nk) {
     for (int k = 0; k < nk; k += ks) {
       mbar_wait_bounded<false>(&empty[stage], phase ^ 1);
-      mbar_expect_tx(&full[stage], ks * kSlabBytes);
-      tma_load_3d(ring + stage * ks * kSlabBytes, map, &full[stage], 0, 0, block0 + k);
+      mbar_expect_tx(&full[stage], ks * kSlab);
+      tma_load_3d(ring + stage * ks * kSlab, map, &full[stage], 0, 0, block0 + k);
       if (++stage == stages) {
         stage = 0;
         phase ^= 1;
@@ -132,11 +134,14 @@ struct Feed {
   }
 };
 
+using Feed = FeedT<>;
+
 // The consumer side: `issue(k, slab)` issues the wgmmas of k-slab k on its
 // slab in shared memory; each stage is handed back once the next stage's
 // products are in flight. Returns with every product done (the caller
 // fences its accumulators).
-struct Ring {
+template <int kSlab = kSlabBytes>
+struct RingT {
   unsigned char* ring;
   uint64_t* full;
   uint64_t* empty;
@@ -148,7 +153,7 @@ struct Ring {
     for (int k = 0; k < nk; k += ks) {
       mbar_wait_bounded<false>(&full[stage], phase);
       wgmma_fence();
-      for (int j = 0; j < ks; ++j) issue(k + j, ring + (stage * ks + j) * kSlabBytes);
+      for (int j = 0; j < ks; ++j) issue(k + j, ring + (stage * ks + j) * kSlab);
       wgmma_commit();
       if (k > 0) {
         wgmma_wait<1>();
@@ -164,6 +169,7 @@ struct Ring {
     if (lane == 0) mbar_arrive(&empty[prev]);
   }
 };
+using Ring = RingT<>;
 
 // rows [row0, row0 + 64) of a (rows_total, H) bf16 matrix into a swizzled
 // h tile, zeros past rows_total: sixteen 16-byte loads in flight a thread
@@ -443,18 +449,19 @@ inline cudaError_t make_slab_map(CUtensorMap* map, const void* packed, int block
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, packed, dims, strides, box);
 }
 
-// Launch `kernel` on `clusters` clusters of C CTAs (cudaLaunchKernelEx with
-// the cluster dimension), after opting it in to `smem` bytes.
+// Launch `kernel` on `clusters` clusters of C CTAs of `threads` threads
+// (cudaLaunchKernelEx with the cluster dimension), after opting it in to
+// `smem` bytes.
 template <typename Kernel, typename Args>
 inline cudaError_t launch_clusters(Kernel kernel, int clusters, int C, size_t smem,
                                    cudaStream_t stream, const CUtensorMap& map,
-                                   const Args& args) {
+                                   const Args& args, int threads = kThreads) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(clusters * C, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -469,18 +476,18 @@ inline cudaError_t launch_clusters(Kernel kernel, int clusters, int C, size_t sm
   return cudaGetLastError();
 }
 
-// How many clusters of C CTAs of `kernel` (with `smem` bytes of shared
-// memory) the card runs at once (cudaOccupancyMaxActiveClusters): on an H100
+// How many clusters of C CTAs of `kernel` (`threads` threads and `smem`
+// bytes of shared memory) the card runs at once (cudaOccupancyMaxActiveClusters): on an H100
 // with one such CTA an SM, 30 of 4 and 15 of 8, not 132 / C, since a
 // cluster's CTAs share one GPC. -1 on an error.
 template <typename Kernel>
-inline int max_clusters(Kernel kernel, int C, size_t smem) {
+inline int max_clusters(Kernel kernel, int C, size_t smem, int threads = kThreads) {
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
       cudaSuccess)
     return -1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;

@@ -2,7 +2,8 @@
 // gru_layer_hopper.cuh, decode_hopper.cuh): mbarriers, TMA tile loads, the
 // shared-memory matrix descriptor of the 128-byte swizzle, the warpgroup
 // products (wgmma) of 64 x 256 and 64 x 96 tiles in bf16 -> f32 and
-// s8 -> s32 and of 64 x 64 and 64 x 32 tiles in bf16 -> f32, the thread-block
+// s8 -> s32 and of 64 x 128, 64 x 64 and 64 x 32 tiles in bf16 -> f32, the
+// thread-block
 // cluster pieces (rank, mapa, the cluster barrier, remote mbarrier arrivals,
 // bulk copies into a peer's shared memory), and the host's tensor-map
 // encoder.
@@ -120,6 +121,18 @@ __device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
 
 // every thread of every CTA of the cluster: arrive (release), then wait
 // (acquire). Threads may diverge (not .aligned).
+// Hand registers between warpgroups (every warp of the warpgroup runs it;
+// the paths must not meet again): a producer gives up to N, a consumer
+// takes up to N.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive;\n" ::: "memory");
   asm volatile("barrier.cluster.wait;\n" ::: "memory");
@@ -234,6 +247,10 @@ __device__ __forceinline__ void fence_operands(int (&d)[N]) {
   "%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97,%98,%99,%100,%101,%102,%103,%104,%105," \
   "%106,%107,%108,%109,%110,%111,%112,%113,%114,%115,%116,%117,%118,%119,%120,%121,%122," \
   "%123,%124,%125,%126,%127}"
+#define INPAINT_D64                                                                          \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"  \
+  "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45," \
+  "%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}"
 #define INPAINT_D48                                                                          \
   "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"  \
   "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45," \
@@ -252,6 +269,8 @@ __device__ __forceinline__ void fence_operands(int (&d)[N]) {
 #define INPAINT_OPS48(C)                                                                     \
   INPAINT_OPS8(C, 0), INPAINT_OPS8(C, 8), INPAINT_OPS8(C, 16), INPAINT_OPS8(C, 24),          \
       INPAINT_OPS8(C, 32), INPAINT_OPS8(C, 40)
+#define INPAINT_OPS64(C)                                                                     \
+  INPAINT_OPS48(C), INPAINT_OPS8(C, 48), INPAINT_OPS8(C, 56)
 #define INPAINT_OPS32(C) \
   INPAINT_OPS8(C, 0), INPAINT_OPS8(C, 8), INPAINT_OPS8(C, 16), INPAINT_OPS8(C, 24)
 #define INPAINT_OPS16(C) INPAINT_OPS8(C, 0), INPAINT_OPS8(C, 8)
@@ -317,7 +336,20 @@ __device__ __forceinline__ void wgmma_s8_n96(int (&d)[48], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// the 64 x 64 and 64 x 32 bf16 tiles: d[i] as above, 32 and 16 registers
+// the 64 x 128, 64 x 64 and 64 x 32 bf16 tiles: d[i] as above, 64, 32 and
+// 16 registers
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " INPAINT_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : INPAINT_OPS64(INPAINT_F)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 __device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da, uint64_t db,
                                                int accumulate) {
   asm volatile(
@@ -366,6 +398,11 @@ __device__ __forceinline__ void mma_slab(int (&d)[48], uint64_t da, uint64_t db,
   for (int s = 0; s < 4; ++s) wgmma_s8_n96(d, da + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
 }
 
+__device__ __forceinline__ void mma_slab(float (&d)[64], uint64_t da, uint64_t db,
+                                         bool accumulate) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) wgmma_bf16_n128(d, da + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
+}
 __device__ __forceinline__ void mma_slab(float (&d)[32], uint64_t da, uint64_t db,
                                          bool accumulate) {
 #pragma unroll
@@ -388,6 +425,8 @@ __device__ __forceinline__ void mma_slab(float (&d)[16], uint64_t da, uint64_t d
 #undef INPAINT_D32
 #undef INPAINT_D16
 #undef INPAINT_OPS32
+#undef INPAINT_OPS64
+#undef INPAINT_D64
 #undef INPAINT_OPS16
 
 // ---------------------------------------------------------------------------

@@ -2,11 +2,15 @@
 direction in training.
 
 ``gru_fwd_seq`` (K5) is the CUDA kernel ``csrc/gru_fwd_seq.cu`` and
-``gru_bwd_seq`` (K6) is ``csrc/gru_bwd_seq.cu``; they replace the TPU kernels
+``gru_bwd_seq`` (K6) is the Hopper design of ``csrc/gru_bwd_hopper.cuh``
+(entry points in ``csrc/gru_bwd_seq.cu``); they replace the TPU kernels
 ``inpaintnet_tpu/ops/gru_bwd_pallas.py gru_fwd_seq_pallas`` and
 ``gru_bwd_seq_pallas`` (each source says what bounds it on the card and how
-its design answers). ``gru_fwd_seq_reference`` and ``gru_bwd_seq_reference``
-are their plain PyTorch versions, op for op the JAX kernels':
+its design answers). K6 runs its f32 product as bf16 ``wgmma`` passes over
+exact bf16 pieces (:func:`split_bf16_pieces`, :func:`pack_bwd_weights`), a
+cluster of CTAs sharing each 64-row tile (:func:`bwd_plan`).
+``gru_fwd_seq_reference`` and ``gru_bwd_seq_reference`` are their plain
+PyTorch versions, op for op the JAX kernels':
 
 - K5: an f32 carry; the recurrent product on h rounded to the parameter
   dtype, accumulated in f32; ``hn = h @ W_hh + b_hh`` with its bias; the
@@ -15,20 +19,26 @@ are their plain PyTorch versions, op for op the JAX kernels':
   UNROUNDED f32 dhw with W_hh upcast, accumulated in f32, in every dtype;
   da, dhw and dh0 stored in the parameter dtype.
 
-``fwd_carry`` and ``bwd_product`` hold the two steps a kernel is most
-likely to get wrong (the carry's precision, the product's operand
-precision), so a check can plant a fault in the plain versions and show
-that its bound rejects it.
+``fwd_carry``, ``bwd_product`` and ``bwd_carry`` hold the steps a kernel
+is most likely to get wrong (K5's carry precision, K6's product operand
+precision and dh carry), so a check can plant a fault in the plain
+versions and show that its bound rejects it.
 
 The wrappers run the plain versions for CPU tensors only; for CUDA tensors
 they launch the kernel or raise.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from inpaintnet_tpu_torch.ops.kernel_common import (
     DTYPE_CODES,
+    HOPPER_ROWS,
+    HOPPER_SMEM_BUDGET,
+    LaunchPlan,
+    WeightCache,
     check_cuda_tensor,
     check_launch,
     kernel_supports_hidden,
@@ -46,6 +56,11 @@ def fwd_carry(h_new: torch.Tensor) -> torch.Tensor:
 def bwd_product(dhw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
     """K6's recurrent product: f32 ``dhw`` (B, 3H) @ f32 ``W_hh^T`` (3H, H)."""
     return dhw @ w_hh_t
+
+
+def bwd_carry(dh: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """K6's dh carried from one step to the next: in f32, as it is."""
+    return dh
 
 
 def _order(seq_len: int, backwards: bool):
@@ -108,7 +123,7 @@ def gru_bwd_seq_reference(w_hh: torch.Tensor, dys: torch.Tensor, r: torch.Tensor
         dar = dr * rt * (1.0 - rt)
         daz = dz * zt * (1.0 - zt)
         dhw = torch.cat([dar, daz, dan * rt], dim=-1)
-        dh = g * zt + bwd_product(dhw, w_t)
+        dh = bwd_carry(g * zt + bwd_product(dhw, w_t), dtype)
         da_out[t] = torch.cat([dar, daz, dan], dim=-1).to(dtype)
         dhw_out[t] = dhw.to(dtype)
     return torch.stack(da_out), torch.stack(dhw_out), dh.to(dtype)
@@ -150,6 +165,108 @@ def gru_fwd_seq(w_hh: torch.Tensor, b_hh: torch.Tensor, xw: torch.Tensor, h0: to
 gru_fwd_seq.launches = 0  # kernel launches, for proving a run went through K5
 
 
+# --------------------------------------------------------------------------- #
+# K6's Hopper route (csrc/gru_bwd_hopper.cuh)
+# --------------------------------------------------------------------------- #
+BWD_MAX_UNITS = 128  # units a CTA owns (three sets of partial sums in registers)
+BWD_MAX_CLUSTER = 8
+BWD_A_SLAB_BYTES = 3 * HOPPER_ROWS * 128  # a 64-wide k-slab of dhw's three pieces
+BWD_MAX_STAGES = 6
+BWD_DH_PAD = 8  # f32 padding of dh's rows in shared memory
+
+
+def split_bf16_pieces(x: torch.Tensor):
+    """(hi, mid, lo): the bf16 pieces of ``x`` that K6 multiplies, hi =
+    bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), each difference
+    taken in f32 (exact). hi + mid + lo is x for a bf16 ``x`` (mid = lo =
+    0) and within 2^-24 of |x| for an f32 one (three 8-bit mantissas)."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
+
+
+def bwd_weight_pieces(dtype) -> int:
+    """bf16 pieces of W_hh that K6 multiplies: one in bf16 (exact), three
+    in f32."""
+    return 1 if dtype == torch.bfloat16 else 3
+
+
+def pack_bwd_weights(w_hh: torch.Tensor) -> torch.Tensor:
+    """W_hh (H, 3H) as K6 streams it: (3H / 64 k-slabs, pieces, H, 64) bf16,
+    element [k, p, j, kk] piece p of ``W_hh[j, 64 k + kk]`` (the product's
+    B operand, K-major: row j is output unit j). A CTA's units are
+    contiguous rows of each k-slab's piece; the f32 route's three pieces are
+    :func:`split_bf16_pieces` of W."""
+    hidden = w_hh.shape[0]
+    pieces = ([w_hh] if w_hh.dtype == torch.bfloat16 else list(split_bf16_pieces(w_hh)))
+    stacked = torch.stack(pieces)  # (P, H, 3H)
+    return stacked.reshape(len(pieces), hidden, 3 * hidden // 64, 64).permute(2, 0, 1, 3) \
+        .contiguous()
+
+
+def bwd_ring_stages(units: int, pieces: int) -> int:
+    """Ring stages of a K6 CTA owning ``units`` units (``gru_bwd_hopper.cuh
+    smem_bytes``): a stage is a 64-wide k-slab of dhw's three pieces (24 KB)
+    and of the CTA's rows of every W piece, beside dh (64 rows of the units
+    in f32)."""
+    stage = BWD_A_SLAB_BYTES + pieces * units * 128
+    dh = HOPPER_ROWS * (units + BWD_DH_PAD) * 4
+    return min(BWD_MAX_STAGES, (HOPPER_SMEM_BUDGET - 1024 - dh) // stage)
+
+
+def bwd_cluster_sizes(hidden: int, dtype) -> list:
+    """Cluster sizes K6 can run ``hidden`` units at: 1-8 CTAs owning whole
+    64-unit blocks, at most ``BWD_MAX_UNITS`` each, with a ring of at least
+    two stages."""
+    if hidden % 64 or hidden <= 0:
+        return []
+    pieces = bwd_weight_pieces(dtype)
+    return [c for c in range(1, BWD_MAX_CLUSTER + 1)
+            if (hidden // 64) % c == 0 and hidden // c <= BWD_MAX_UNITS
+            and bwd_ring_stages(hidden // c, pieces) >= 2]
+
+
+def bwd_plan(hidden: int, dtype) -> LaunchPlan:
+    """How K6 runs ``hidden`` units, whatever the rows: the largest cluster
+    size, so the fewest units a CTA. A step is one serial chain in each CTA
+    (its units' elementwise chain, the exchange of dhw's pieces, the
+    product over all 3H of K), whose length grows with the CTA's units,
+    while the total work of all CTAs barely changes with C: on an H100 at
+    H 512 (PERF.md) 64 units a CTA beat 128 at the encoder's 4,096 rows and
+    at the tick GRU's 16,384, in both dtypes, and 256 was slower still.
+    Raises ValueError for a width no cluster size takes."""
+    sizes = bwd_cluster_sizes(hidden, dtype)
+    if not sizes:
+        raise ValueError(f"no K6 plan for hidden size {hidden} in {dtype}")
+    cluster = max(sizes)
+    return LaunchPlan(cluster, bwd_ring_stages(hidden // cluster, bwd_weight_pieces(dtype)))
+
+
+def _build_bwd_operands(w_hh: torch.Tensor) -> dict:
+    return {"packed": pack_bwd_weights(w_hh), "maps": {}}
+
+
+# K6's packed W pieces, built once per weight tensor (an Adam step's
+# in-place update rebuilds them), and their tensor maps by a CTA's units
+bwd_operands = WeightCache(_build_bwd_operands)
+
+
+def bwd_w_map(ops: dict, hidden: int, units: int) -> int:
+    """The address of the tensor map of ``ops``' packed W pieces for a CTA
+    owning ``units`` units, encoded once per size and kept with them."""
+    if units not in ops["maps"]:
+        packed = ops["packed"]
+        buf = ctypes.create_string_buffer(128 + 64)
+        addr = (ctypes.addressof(buf) + 63) // 64 * 64
+        check_launch(load_kernels().inpaint_gru_bwd_w_map(packed.data_ptr(), hidden,
+                                                          packed.shape[1], units, addr),
+                     "gru_bwd_seq's W map")
+        ops["maps"][units] = (buf, addr)
+    return ops["maps"][units][1]
+
+
 def gru_bwd_seq(w_hh: torch.Tensor, dys: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
                 n: torch.Tensor, hn: torch.Tensor, hprev: torch.Tensor, *,
                 reverse: bool = False):
@@ -158,17 +275,24 @@ def gru_bwd_seq(w_hh: torch.Tensor, dys: torch.Tensor, r: torch.Tensor, z: torch
         return gru_bwd_seq_reference(w_hh, dys, r, z, n, hn, hprev, reverse=reverse)
     dtype, device = dys.dtype, dys.device
     hidden = _check_common("gru_bwd_seq", w_hh, device, dtype)
+    if not bwd_cluster_sizes(hidden, dtype):
+        raise ValueError(f"gru_bwd_seq: no kernel for hidden size {hidden} in {dtype}")
     seq_len, batch = dys.shape[:2]
     for name, t in (("dys", dys), ("r", r), ("z", z), ("n", n), ("hn", hn), ("hprev", hprev)):
         check_cuda_tensor(name, t, (seq_len, batch, hidden), dtype, device)
-    w_t = w_hh.float().t().contiguous()
+    plan = bwd_plan(hidden, dtype)
+    map_addr = bwd_w_map(bwd_operands(w_hh), hidden, hidden // plan.cluster)
+    tiles = -(-batch // HOPPER_ROWS)
+    scratch = torch.empty((tiles, 2, 3, HOPPER_ROWS, 3 * hidden), dtype=torch.bfloat16,
+                          device=device)
     da = torch.empty((seq_len, batch, 3 * hidden), dtype=dtype, device=device)
     dhw = torch.empty_like(da)
     dh0 = torch.empty((batch, hidden), dtype=dtype, device=device)
-    err = load_kernels().inpaint_gru_bwd_seq(
-        DTYPE_CODES[dtype], dys.data_ptr(), r.data_ptr(), z.data_ptr(), n.data_ptr(),
-        hn.data_ptr(), hprev.data_ptr(), w_t.data_ptr(), da.data_ptr(), dhw.data_ptr(),
-        dh0.data_ptr(), batch, seq_len, hidden, int(reverse), stream_ptr())
+    err = load_kernels().inpaint_gru_bwd_hopper(
+        DTYPE_CODES[dtype], map_addr, dys.data_ptr(), r.data_ptr(), z.data_ptr(),
+        n.data_ptr(), hn.data_ptr(), hprev.data_ptr(), da.data_ptr(), dhw.data_ptr(),
+        dh0.data_ptr(), scratch.data_ptr(), batch, seq_len, hidden, int(reverse),
+        plan.cluster, plan.stages, stream_ptr())
     check_launch(err, "gru_bwd_seq")
     gru_bwd_seq.launches += 1
     return da, dhw, dh0

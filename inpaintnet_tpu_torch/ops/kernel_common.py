@@ -329,10 +329,20 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_decode_sampling_int8.restype = i32
     lib.inpaint_gru_fwd_seq.argtypes = [i32] + [ptr] * 5 + [i32] * 4 + [ptr]
     lib.inpaint_gru_fwd_seq.restype = i32
-    lib.inpaint_gru_bwd_seq.argtypes = [i32] + [ptr] * 10 + [i32] * 4 + [ptr]
-    lib.inpaint_gru_bwd_seq.restype = i32
+    lib.inpaint_gru_bwd_hopper.argtypes = [i32] + [ptr] * 11 + [i32] * 6 + [ptr]
+    lib.inpaint_gru_bwd_hopper.restype = i32
+    lib.inpaint_gru_bwd_w_map.argtypes = [ptr] + [i32] * 3 + [ptr]
+    lib.inpaint_gru_bwd_w_map.restype = i32
     lib.inpaint_arnn_decode.argtypes = [i32] + [ptr] * 16 + [i32] * 7 + [ptr]
     lib.inpaint_arnn_decode.restype = i32
+    lib.inpaint_arnn_decode_bf16.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
+    lib.inpaint_arnn_decode_bf16.restype = i32
+    lib.inpaint_arnn_map.argtypes = [ptr, i32, ptr]
+    lib.inpaint_arnn_map.restype = i32
+    lib.inpaint_arnn_slots.argtypes = [i32] * 4
+    lib.inpaint_arnn_slots.restype = i32
+    lib.inpaint_arnn_ctx_gemm.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+    lib.inpaint_arnn_ctx_gemm.restype = i32
     lib.inpaint_gru_layer_f32.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
     lib.inpaint_gru_layer_f32.restype = i32
     lib.inpaint_gru_layer_bf16.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]

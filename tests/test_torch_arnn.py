@@ -241,6 +241,34 @@ def test_plain_k7_matches_jax_kernel_bf16_and_rejects_planted_faults(pair64, mon
     assert not arnn_kernel.within(agree, K7_BF16), agree
 
 
+# K7's bf16 route takes the context product of every tick first, in f32
+# (``arnn_sampled_decode_staged_reference``). Against the plain version on
+# the CPU that is the same function: seen bit-equal at H 64, T 96 in f32 and
+# bf16. Against the JAX kernel: f32 tokens equal and logits within 1e-5
+# (seen 4.5e-8); bf16 within K7_BF16 (seen max 4.9e-4, mean 1.5e-6, no
+# early logit changed). The projection rounded to bf16, planted, changes
+# 64% of the first 8 ticks' logits in bf16.
+@pytest.mark.parametrize("dtype_j", [jnp.float32, jnp.bfloat16])
+def test_staged_k7_matches_plain_and_jax_kernel(pair64, monkeypatch, dtype_j):
+    port, lg_j, tok_j = _k7_case(pair64[0], 11, 96, dtype_j, seed=0)
+    want = (torch.from_numpy(lg_j), torch.from_numpy(tok_j))
+    staged = arnn_kernel.arnn_sampled_decode_staged_reference(*port)
+    plain = arnn_kernel.arnn_sampled_decode_reference(*port)
+    agree = arnn_kernel.decode_agreement(staged, plain, port[3])
+    assert agree["tokens"] == 1.0 and agree["logits_max"] <= 1e-6, agree
+    if dtype_j == jnp.float32:
+        np.testing.assert_array_equal(staged[1].numpy(), tok_j)
+        np.testing.assert_allclose(staged[0].numpy(), lg_j, atol=1e-5, rtol=0)
+        return
+    assert arnn_kernel.within(arnn_kernel.decode_agreement(staged, want, port[3]), K7_BF16)
+    real = arnn_kernel.ctx_projection
+    monkeypatch.setattr(arnn_kernel, "ctx_projection",
+                        lambda ctx, w: real(ctx, w).to(torch.bfloat16).float())
+    planted = arnn_kernel.arnn_sampled_decode_staged_reference(*port)
+    agree = arnn_kernel.decode_agreement(planted, want, port[3])
+    assert agree["early_changed"] > K7_BF16["early"], agree
+
+
 def test_kernel_gate():
     assert arnn_kernel_supports(256, 256, 256, 60, torch.bfloat16)  # the flagship
     assert arnn_kernel_supports(512, 512, 256, 60, torch.float32)

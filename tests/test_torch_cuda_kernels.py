@@ -355,6 +355,51 @@ def test_train_kernel_bounds_reject_planted_faults(cuda, monkeypatch, dtype):
         assert err_max > max_b or err_mean > mean_b, (err_max, err_mean)
 
 
+def _with_bwd_cluster(monkeypatch, cluster):
+    """K6's ``bwd_plan`` picks ``cluster`` CTAs a tile."""
+    monkeypatch.setattr(gk, "bwd_plan", lambda hidden, dtype: gk.LaunchPlan(
+        cluster, gk.bwd_ring_stages(hidden // cluster, gk.bwd_weight_pieces(dtype))))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,hidden,seq_len,reverse", [
+    (130, 512, 3, False), (70, 128, 5, True), (37, 320, 4, False), (64, 384, 3, True)])
+def test_gru_bwd_every_cluster_size(cuda, monkeypatch, dtype, batch, hidden, seq_len, reverse):
+    """K6 at each cluster size its width and dtype allow (the scratch
+    exchange of dhw's pieces across a cluster only moves data): bit-equal
+    across sizes, which is the race check of the exchange, and within the
+    plain version's bounds."""
+    fwd, dys, hprev = _train_case(np.random.default_rng(batch + hidden), batch, hidden,
+                                  seq_len, dtype, cuda)
+    out = gk.gru_fwd_seq_reference(*fwd, reverse=reverse)
+    want = gk.gru_bwd_seq_reference(fwd[0], dys, *out[1:], hprev, reverse=reverse)
+    got = {}
+    for cluster in gk.bwd_cluster_sizes(hidden, dtype):
+        with monkeypatch.context() as m:
+            _with_bwd_cluster(m, cluster)
+            got[cluster] = gk.gru_bwd_seq(fwd[0], dys, *out[1:], hprev, reverse=reverse)
+    torch.cuda.synchronize()
+    first = next(iter(got.values()))
+    assert all(_bit_equal(g, first) for g in got.values()), sorted(got)
+    max_b, mean_b = TRAIN_BOUNDS[dtype]
+    err_max, err_mean = _errs(first, want)
+    assert err_max <= max_b and err_mean <= mean_b, (err_max, err_mean)
+
+
+def test_gru_bwd_bounds_reject_dh_carried_in_bf16(cuda, monkeypatch):
+    """In bf16, K6's dh carried in the parameter dtype between steps (a
+    risk of any design that moves dh across CTAs), planted in the plain
+    version, breaks the bounds."""
+    fwd, dys, hprev = _train_case(np.random.default_rng(0), 37, 64, 24, torch.bfloat16, cuda)
+    out_k, grads_k = _run_train_kernels(fwd, dys, hprev, False, kernel=True)
+    monkeypatch.setattr(gk, "bwd_carry", lambda dh, dtype: dh.to(dtype).float())
+    grads_p = gk.gru_bwd_seq_reference(fwd[0], dys, *out_k[1:], hprev)
+    torch.cuda.synchronize()
+    max_b, mean_b = TRAIN_BOUNDS[torch.bfloat16]
+    err_max, err_mean = _errs(grads_k, grads_p)
+    assert err_max > max_b or err_mean > mean_b, (err_max, err_mean)
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 def test_trainfast_function_on_card_matches_cpu(cuda, reverse):
     """The autograd Function in f32: K5 and K6 on the card against the plain
@@ -411,14 +456,14 @@ K7_BOUNDS = {torch.float32: {"tokens": 0.99, "max": 1e-5, "mean": 1e-6},
              torch.bfloat16: {"tokens": 0.98, "max": 1e-2, "mean": 1e-4, "early": 0.15}}
 
 
-def _arnn_case(rng, batch, hidden, ctx_dim, seq_len, vocab, linear, dtype, device):
+def _arnn_case(rng, batch, hidden, ctx_dim, seq_len, vocab, linear, dtype, device, noise=0.1):
     emb = 10
     params = _tree({
         "note_embedding": embedding_init(rng, vocab + 1, emb),
         "lstm_generation": lstm_stack_init(rng, [(emb + ctx_dim, hidden), (hidden, hidden)]),
         "linear_1": linear_init(rng, hidden, linear),
         "linear_output_notes": linear_init(rng, linear, vocab),
-    }, device, dtype, rng)
+    }, device, dtype, rng, noise)
     ctx = torch.from_numpy(np.tanh(rng.standard_normal((batch, seq_len, ctx_dim)))
                            .astype(np.float32)).to(device=device, dtype=dtype)
     score = torch.from_numpy(rng.integers(0, vocab, (batch, seq_len)).astype(np.int32)).to(device)
@@ -461,6 +506,140 @@ def test_arnn_kernel_bounds_reject_planted_faults(cuda, monkeypatch):
     for planted in (carry, late):
         agree = arnn_kernel.decode_agreement(got, planted, force)
         assert not arnn_kernel.within(agree, K7_BOUNDS[torch.bfloat16]), agree
+
+
+def _with_arnn_cluster(monkeypatch, cluster):
+    """K7's ``arnn_plan`` picks ``cluster`` CTAs a tile."""
+    real = arnn_kernel.arnn_plan
+    monkeypatch.setattr(arnn_kernel, "arnn_plan", lambda rows, hidden, linear, sms, slots=None:
+                        real(rows, hidden, linear, sms, slots)._replace(
+                            cluster=cluster, stages=arnn_kernel.arnn_ring_stages(
+                                hidden, cluster, arnn_kernel.arnn_head_width(linear))))
+
+
+@pytest.mark.parametrize("batch,hidden,ctx_dim,vocab,linear", [
+    (70, 256, 256, 60, 256), (37, 128, 64, 13, 64), (5, 256, 128, 30, 200),
+    (9, 256, 64, 40, 300)])
+def test_arnn_kernel_bf16_every_cluster_size(cuda, monkeypatch, batch, hidden, ctx_dim, vocab,
+                                             linear):
+    """K7's bf16 route at each cluster size its width allows: bit-equal
+    across sizes (the cluster only moves h between its CTAs; every CTA
+    recomputes the head), and within the plain version's bounds. The
+    weights are the layers' own initialisation, as the flagship's: with
+    noise added, as K7_BOUNDS' H 64 cases have, the logits at H 256 grow
+    and order flips of bf16 roundings move their mean past 1e-4 for the
+    first kernel as for this one (seen 1.3e-4 at 0.05; PERF.md), so
+    test_arnn_kernel_bf16_h256_noisy_no_worse_than_first_kernel holds
+    those cases to the first kernel's error."""
+    args = _arnn_case(np.random.default_rng(batch), batch, hidden, ctx_dim, 48, vocab, linear,
+                      torch.bfloat16, cuda, noise=0.0)
+    got = {}
+    for cluster in arnn_kernel.arnn_cluster_sizes(hidden, arnn_kernel.arnn_head_width(linear)):
+        with monkeypatch.context() as m:
+            _with_arnn_cluster(m, cluster)
+            got[cluster] = arnn_kernel.arnn_sampled_decode(*args)
+    want = arnn_kernel.arnn_sampled_decode_reference(*args)
+    torch.cuda.synchronize()
+    first = next(iter(got.values()))
+    assert len(got) > 1 and all(_bit_equal(g, first) for g in got.values()), sorted(got)
+    agree = arnn_kernel.decode_agreement(first, want, args[3])
+    assert arnn_kernel.within(agree, K7_BOUNDS[torch.bfloat16]), agree
+
+
+def _first_kernel(args):
+    """K7's call through the first kernel (``csrc/arnn_decode.cu``), the
+    route of the bf16 geometries the Hopper route does not take."""
+    return arnn_kernel._decode_tiled(*args, arnn_kernel._check_arnn_args(*args))
+
+
+# K7's bf16 Hopper route at the flagship's H = C = L = 256 with noisy
+# weights, whose larger logits make order flips of bf16 roundings show,
+# held to the first kernel's error on the same inputs (both against the
+# plain version): the max and mean logit errors at most
+# K7_FIRST_KERNEL_RATIO times the first kernel's. The two sum alike, and
+# their readings were seen equal here on an NVIDIA H100 80GB HBM3 (700 W).
+K7_FIRST_KERNEL_RATIO = 1.1
+
+
+@pytest.mark.parametrize("noise", [0.05, 0.1])
+def test_arnn_kernel_bf16_h256_noisy_no_worse_than_first_kernel(cuda, monkeypatch, noise):
+    """The Hopper route against the first kernel at H 256 with noise on the
+    weights; a c carry kept in f32 and a context projection rounded to
+    bf16, planted in the plain version, break the same bounds."""
+    args = _arnn_case(np.random.default_rng(70), 70, 256, 256, 48, 60, 256, torch.bfloat16,
+                      cuda, noise=noise)
+    got = arnn_kernel.arnn_sampled_decode(*args)
+    first = _first_kernel(args)
+    want = arnn_kernel.arnn_sampled_decode_reference(*args)
+    torch.cuda.synchronize()
+    a_first = arnn_kernel.decode_agreement(first, want, args[3])
+    bounds = {**K7_BOUNDS[torch.bfloat16],
+              "max": K7_FIRST_KERNEL_RATIO * a_first["logits_max"],
+              "mean": K7_FIRST_KERNEL_RATIO * a_first["logits_mean"]}
+    agree = arnn_kernel.decode_agreement(got, want, args[3])
+    assert arnn_kernel.within(agree, bounds), (agree, a_first)
+    monkeypatch.setattr(arnn_kernel, "carry_c", lambda c, dtype: c)
+    carry = arnn_kernel.arnn_sampled_decode_reference(*args)
+    monkeypatch.undo()
+    real = arnn_kernel.ctx_projection
+    monkeypatch.setattr(arnn_kernel, "ctx_projection",
+                        lambda ctx, w: real(ctx, w).to(torch.bfloat16).float())
+    projection = arnn_kernel.arnn_sampled_decode_staged_reference(*args)
+    for planted in (carry, projection):
+        f_agree = arnn_kernel.decode_agreement(got, planted, args[3])
+        assert not arnn_kernel.within(f_agree, bounds), (f_agree, bounds)
+
+
+@pytest.mark.parametrize("batch,hidden,ctx_dim,vocab,linear", [
+    (37, 512, 256, 60, 256), (20, 256, 256, 65, 256)])
+def test_arnn_kernel_bf16_first_kernel_geometries(cuda, batch, hidden, ctx_dim, vocab, linear):
+    """The bf16 geometries the Hopper plan does not take (H 512 at a
+    256-wide head; a vocabulary over 64) launch the first kernel, within
+    the plain version's bounds (the layers' own initialisation, as the
+    flagship's)."""
+    assert not arnn_kernel.arnn_hopper_supports(hidden, linear, vocab)
+    assert arnn_kernel.arnn_kernel_supports(hidden, ctx_dim, linear, vocab, torch.bfloat16)
+    assert arnn_kernel.arnn_cuda_launches(torch.bfloat16, batch, 48, hidden, linear, vocab) == 1
+    args = _arnn_case(np.random.default_rng(batch), batch, hidden, ctx_dim, 48, vocab, linear,
+                      torch.bfloat16, cuda, noise=0.0)
+    before = arnn_kernel.arnn_sampled_decode.launches
+    got = arnn_kernel.arnn_sampled_decode(*args)
+    want = arnn_kernel.arnn_sampled_decode_reference(*args)
+    torch.cuda.synchronize()
+    assert arnn_kernel.arnn_sampled_decode.launches == before + 1
+    force = args[3] > 0
+    assert torch.equal(got[1][force], args[2][force])
+    agree = arnn_kernel.decode_agreement(got, want, args[3])
+    assert arnn_kernel.within(agree, K7_BOUNDS[torch.bfloat16]), agree
+
+
+def test_arnn_kernel_bf16_chunked_rows(cuda, monkeypatch):
+    """Chunks of 64 rows (each its own context GEMM and recurrence, the
+    scratch cap lowered) give the same bits as one chunk."""
+    args = _arnn_case(np.random.default_rng(3), 150, 128, 64, 24, 60, 64, torch.bfloat16, cuda)
+    whole = arnn_kernel.arnn_sampled_decode(*args)
+    monkeypatch.setattr(encoder_kernel, "XW_SCRATCH_BYTES", 64 * 24 * 4 * 128 * 4)
+    assert arnn_kernel.arnn_chunk_rows(150, 24, 128) == 64
+    chunked = arnn_kernel.arnn_sampled_decode(*args)
+    torch.cuda.synchronize()
+    assert _bit_equal(whole, chunked)
+
+
+def test_arnn_kernel_bf16_rejects_a_bf16_context_projection(cuda, monkeypatch):
+    """The staged plain version (the context projection of every tick taken
+    first, in f32) is within the bounds; with the projection rounded to
+    bf16, planted, it is not."""
+    args = _arnn_case(np.random.default_rng(37), 37, 64, 64, 72, 60, 12, torch.bfloat16, cuda)
+    got = arnn_kernel.arnn_sampled_decode(*args)
+    staged = arnn_kernel.arnn_sampled_decode_staged_reference(*args)
+    assert arnn_kernel.within(arnn_kernel.decode_agreement(got, staged, args[3]),
+                              K7_BOUNDS[torch.bfloat16])
+    real = arnn_kernel.ctx_projection
+    monkeypatch.setattr(arnn_kernel, "ctx_projection",
+                        lambda ctx, w: real(ctx, w).to(torch.bfloat16).float())
+    planted = arnn_kernel.arnn_sampled_decode_staged_reference(*args)
+    agree = arnn_kernel.decode_agreement(got, planted, args[3])
+    assert not arnn_kernel.within(agree, K7_BOUNDS[torch.bfloat16]), agree
 
 
 def test_arnn_wrapper_rejects_what_the_kernel_does_not_take(cuda):

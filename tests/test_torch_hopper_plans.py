@@ -1,14 +1,18 @@
 """The Python side of the Hopper routes of K8 and K2 (``csrc/gru_layer_hopper.cuh``,
-``csrc/decode_hopper.cuh``), which the CPU can check: the launch plans at
-the engines' row counts and the CTAs they launch, the packed weight
-layouts against the unpacked weights, and the per-weight operand cache."""
+``csrc/decode_hopper.cuh``), K6 (``csrc/gru_bwd_hopper.cuh``) and K7
+(``csrc/arnn_hopper.cuh``), which the CPU can check: the launch plans at
+the engines' and the trainer's row counts and the CTAs they launch, the
+packed weight layouts against the unpacked weights, K6's split of f32
+values into bf16 pieces, and the per-weight operand caches."""
 import numpy as np
 import pytest
 import torch
 
+from inpaintnet_tpu_torch.ops import arnn_kernel as ak
 from inpaintnet_tpu_torch.ops import decode_kernel as dk
 from inpaintnet_tpu_torch.ops import encoder_kernel as ek
 from inpaintnet_tpu_torch.ops import gru_kernel as gk
+from inpaintnet_tpu_torch.ops import gru_train_kernel as tk
 from inpaintnet_tpu_torch.ops import kernel_common as kc
 
 SMS = 132  # an H100 SXM
@@ -186,3 +190,255 @@ def test_weight_cache_counts_no_versions_of_inference_tensors():
     assert cache(w) == 1 and cache(w) == 2  # rebuilt: an update could not be seen
     v = torch.ones(4)
     assert cache(v) == 3 and cache(v) == 3
+
+
+# --------------------------------------------------------------------------- #
+# K6 (csrc/gru_bwd_hopper.cuh): the split product's pieces, the packed W
+# pieces, the launch plan and the operand cache
+# --------------------------------------------------------------------------- #
+
+
+def test_split_bf16_pieces_sum_back():
+    """bf16 inputs are their own hi piece (mid = lo = 0); f32 inputs come
+    back from hi + mid + lo to within 2^-24 of their magnitude."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((rng.standard_normal(4096) * 10.0 ** rng.uniform(-6, 4, 4096))
+                         .astype(np.float32))
+    xb = x.to(torch.bfloat16)
+    hi, mid, lo = tk.split_bf16_pieces(xb)
+    assert all(p.dtype == torch.bfloat16 for p in (hi, mid, lo))
+    assert torch.equal(hi, xb) and not mid.any() and not lo.any()
+    hi, mid, lo = tk.split_bf16_pieces(x)
+    back = hi.double() + mid.double() + lo.double()
+    assert ((back - x.double()).abs() <= 2.0 ** -24 * x.double().abs()).all()
+    assert ((hi.double() - x.double()).abs() > 2.0 ** -20 * x.double().abs()).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_product_passes_hold_f32(dtype):
+    """K6's passes over the pieces (bf16: dhw's three against W; f32: the
+    six cross terms down to 2^-24) give dhw @ W^T, with dhw taken in f32 and
+    W in its dtype, to within a few 2^-24 of the sum of |terms|: the
+    product keeps f32's precision (the planted fault, dhw rounded to bf16,
+    is 2^-9 off)."""
+    rng = np.random.default_rng(5)
+    dhw = torch.from_numpy(rng.standard_normal((16, 192)).astype(np.float32))
+    w = torch.from_numpy((0.2 * rng.standard_normal((64, 192))).astype(np.float32)).to(dtype)
+    a = tk.split_bf16_pieces(dhw)
+    b = tk.split_bf16_pieces(w) if dtype == torch.float32 else (w, None, None)
+    pairs = ([(2, 0), (1, 0), (0, 0)] if dtype == torch.bfloat16
+             else [(2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0)])
+    got = sum(a[i].double() @ b[j].double().t() for i, j in pairs)
+    exact = dhw.double() @ w.double().t()
+    scale = dhw.double().abs() @ w.double().abs().t()
+    assert ((got - exact).abs() <= 4 * 2.0 ** -24 * scale).all()
+    rounded = dhw.to(torch.bfloat16).double() @ w.double().t()
+    assert ((rounded - exact).abs() > 64 * 2.0 ** -24 * scale).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [64, 192])
+def test_pack_bwd_weights_layout(dtype, hidden):
+    """Element [k, p, j, kk] of the packed W is piece p of W_hh[j, 64 k + kk]:
+    a CTA's units are contiguous rows of each k-slab's piece."""
+    rng = np.random.default_rng(hidden)
+    w = torch.from_numpy(rng.standard_normal((hidden, 3 * hidden)).astype(np.float32)).to(dtype)
+    packed = tk.pack_bwd_weights(w)
+    pieces = [w] if dtype == torch.bfloat16 else list(tk.split_bf16_pieces(w))
+    assert packed.shape == (3 * hidden // 64, len(pieces), hidden, 64) and packed.is_contiguous()
+    assert packed.dtype == torch.bfloat16
+    for k in range(3 * hidden // 64):
+        for p, piece in enumerate(pieces):
+            torch.testing.assert_close(packed[k, p], piece[:, 64 * k: 64 * k + 64], rtol=0,
+                                       atol=0)
+
+
+def test_bwd_cluster_sizes_take_every_kernel_width():
+    """Every width K6 takes (multiples of 64 up to 512) has a cluster size
+    in each dtype, at most 128 units a CTA."""
+    for hidden in range(64, 513, 64):
+        for dtype in (torch.float32, torch.bfloat16):
+            sizes = tk.bwd_cluster_sizes(hidden, dtype)
+            assert sizes, (hidden, dtype)
+            for c in sizes:
+                units = hidden // c
+                assert (hidden // 64) % c == 0 and units <= 128
+                stages = tk.bwd_ring_stages(units, tk.bwd_weight_pieces(dtype))
+                stage = 3 * 64 * 128 + tk.bwd_weight_pieces(dtype) * units * 128
+                used = stages * stage + 64 * (units + 8) * 4 + 1024
+                assert 2 <= stages <= 6 and used <= kc.HOPPER_SMEM_BUDGET
+    assert tk.bwd_cluster_sizes(512, torch.float32) == [4, 8]
+    assert tk.bwd_cluster_sizes(512, torch.bfloat16) == [4, 8]
+    assert tk.bwd_cluster_sizes(384, torch.float32) == [3, 6]
+    assert tk.bwd_cluster_sizes(320, torch.bfloat16) == [5]
+    assert tk.bwd_cluster_sizes(48, torch.bfloat16) == []
+    with pytest.raises(ValueError, match="hidden size 48"):
+        tk.bwd_plan(48, torch.float32)
+
+
+# (rows, hidden, dtype, cluster, stages): the VAE encoder's 4,096 rows, the
+# tick GRU's 16,384, a one-tile call, small widths
+@pytest.mark.parametrize("rows,hidden,dtype,cluster,stages", [
+    (4096, 512, torch.bfloat16, 8, 6), (16384, 512, torch.bfloat16, 8, 6),
+    (4096, 512, torch.float32, 8, 4), (16384, 512, torch.float32, 8, 4),
+    (37, 512, torch.float32, 8, 4), (4096, 64, torch.float32, 1, 4),
+    (4096, 128, torch.bfloat16, 2, 6), (300, 384, torch.bfloat16, 6, 6),
+    (300, 448, torch.float32, 7, 4)])
+def test_bwd_plan(rows, hidden, dtype, cluster, stages):
+    """The plan's C: the largest size, at most 128 units a CTA (the
+    shortest chain a step; PERF.md has the times at other sizes)."""
+    plan = tk.bwd_plan(hidden, dtype)
+    assert plan == kc.LaunchPlan(cluster, stages)
+    _assert_covers_once(rows, hidden, plan)
+
+
+def test_bwd_operands_follow_in_place_updates(monkeypatch):
+    """K6's packed W pieces are built once per weight tensor and rebuilt
+    after an Adam step's in-place update."""
+    monkeypatch.setattr(tk, "bwd_operands", kc.WeightCache(tk._build_bwd_operands))
+    rng = np.random.default_rng(6)
+    w = torch.from_numpy(rng.standard_normal((64, 192)).astype(np.float32))
+    first = tk.bwd_operands(w)
+    assert tk.bwd_operands(w) is first
+    with torch.no_grad():
+        w.sub_(0.5)
+    second = tk.bwd_operands(w)
+    assert second is not first and second["maps"] == {}
+    torch.testing.assert_close(second["packed"], tk.pack_bwd_weights(w), rtol=0, atol=0)
+
+
+# --------------------------------------------------------------------------- #
+# K7's bf16 route (csrc/arnn_hopper.cuh)
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("rows,hidden,linear,cluster,stages", [
+    (512, 256, 256, 4, 3), (64, 256, 256, 4, 3), (1, 256, 256, 4, 3),
+    (4096, 256, 256, 2, 3), (37, 128, 64, 2, 5), (5, 64, 12, 1, 5)])
+def test_arnn_plan(rows, hidden, linear, cluster, stages):
+    """The flagship's batches (512, 64, 1 rows: 8 tiles or one) fit one wave
+    of clusters of 4 on an H100; 64 tiles take 2."""
+    sizes = ak.arnn_cluster_sizes(hidden, ak.arnn_head_width(linear))
+    slots = {c: n for c, n in H100_SLOTS.items() if c in sizes}
+    plan = ak.arnn_plan(rows, hidden, linear, SMS, slots)
+    assert plan == kc.LaunchPlan(cluster, stages)
+    _assert_covers_once(rows, hidden, plan)
+
+
+def test_arnn_smem_and_gate():
+    """Each plan's tiles, c carries and rings fit the 227 KB opt-in; the
+    Hopper route's gate follows the plans (a vocabulary of at most 64), and
+    the first kernel takes the bf16 geometries it does not (one CUDA launch
+    a call against the Hopper route's two a chunk)."""
+    for hidden, linear in ((256, 256), (64, 12), (128, 64), (256, 512)):
+        lp = ak.arnn_head_width(linear)
+        for c in ak.arnn_cluster_sizes(hidden, lp):
+            stages = ak.arnn_ring_stages(hidden, c, lp)
+            assert 2 <= stages and ak.arnn_smem_bytes(hidden, c, lp, stages) <= \
+                kc.HOPPER_SMEM_BUDGET
+    assert ak.arnn_cluster_sizes(256, 256) == [1, 2, 4]
+    assert ak.arnn_cluster_sizes(512, 256) == []
+    assert ak.arnn_hopper_supports(256, 256, 60)
+    assert not ak.arnn_hopper_supports(256, 256, 65)
+    assert not ak.arnn_hopper_supports(512, 256, 60)
+    assert ak.arnn_kernel_supports(256, 256, 256, 60, torch.bfloat16)
+    assert ak.arnn_kernel_supports(256, 256, 256, 65, torch.bfloat16)
+    assert ak.arnn_kernel_supports(512, 512, 256, 60, torch.bfloat16)
+    assert ak.arnn_kernel_supports(256, 256, 256, 65, torch.float32)
+    assert ak.arnn_cuda_launches(torch.bfloat16, 512, 384, 256, 256, 60) == 2
+    assert ak.arnn_cuda_launches(torch.bfloat16, 512, 384, 512, 256, 60) == 1
+    assert ak.arnn_cuda_launches(torch.float32, 512, 384, 256, 256, 60) == 1
+    with pytest.raises(ValueError, match="hidden size 512"):
+        ak.arnn_plan(64, 512, 256, SMS)
+
+
+def _lstm_columns(w, hidden, c, gate):
+    """W's columns of gate ``gate`` for the 32 units of chunk c, as rows."""
+    return w[:, gate * hidden + 32 * c: gate * hidden + 32 * c + 32].t()
+
+
+@pytest.mark.parametrize("k_dim,hidden", [(64, 64), (128, 64), (64, 128)])
+def test_pack_lstm_blocks_layout(k_dim, hidden):
+    """Block [c, k] is the (128, 64) k-slab k of 4-gate chunk c: row
+    32 g + u, column kk is gate g's column of unit 32 c + u at input 64 k + kk."""
+    w = torch.arange(k_dim * 4 * hidden, dtype=torch.float32).reshape(k_dim, 4 * hidden)
+    packed = ak.pack_lstm_blocks(w)
+    assert packed.shape == (hidden // 32, k_dim // 64, 128, 64) and packed.is_contiguous()
+    for c in range(hidden // 32):
+        for k in range(k_dim // 64):
+            for g in range(4):
+                torch.testing.assert_close(packed[c, k, 32 * g: 32 * g + 32],
+                                           _lstm_columns(w, hidden, c, g)[:, 64 * k: 64 * k + 64],
+                                           rtol=0, atol=0)
+
+
+def test_pack_arnn_weights_layout():
+    """W_hh0's chunks; layer 1's chunks, W_ih1's k-slabs then W_hh1's; the
+    head's W_l1^T in 128-column chunks (zero past L); W_out^T's columns
+    0-31, then 32-63, four 32-row k-slabs a block (zero past V and L)."""
+    hidden, linear, vocab = 128, 200, 13
+    rng = np.random.default_rng(7)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    w_hh0, w_ih1, w_hh1 = (rand(hidden, 4 * hidden) for _ in range(3))
+    w_l1, w_out = rand(hidden, linear), rand(linear, vocab)
+    packed = ak.pack_arnn_weights(w_hh0, w_ih1, w_hh1, w_l1, w_out)
+    nc, kb, lp = hidden // 32, hidden // 64, ak.arnn_head_width(linear)
+    nb = -(-lp // 256)
+    assert packed.shape == (nc * kb + nc * 2 * kb + lp // 128 * kb + 2 * nb, 128, 64)
+    torch.testing.assert_close(packed[:nc * kb], ak.pack_lstm_blocks(w_hh0).reshape(-1, 128, 64),
+                               rtol=0, atol=0)
+    layer1 = packed[nc * kb: 3 * nc * kb].reshape(nc, 2 * kb, 128, 64)
+    torch.testing.assert_close(layer1[:, :kb], ak.pack_lstm_blocks(w_ih1), rtol=0, atol=0)
+    torch.testing.assert_close(layer1[:, kb:], ak.pack_lstm_blocks(w_hh1), rtol=0, atol=0)
+    head = packed[3 * nc * kb: 3 * nc * kb + lp // 128 * kb].reshape(lp // 128, kb, 128, 64)
+    for lc in range(lp // 128):
+        for k in range(kb):
+            want = torch.zeros(128, 64)
+            cols = w_l1[64 * k: 64 * k + 64, 128 * lc: 128 * lc + 128].t()
+            want[:cols.shape[0]] = cols
+            torch.testing.assert_close(head[lc, k], want, rtol=0, atol=0)
+    out = packed[-2 * nb:].reshape(2, nb, 4, 32, 64)
+    full = torch.zeros(64, 256 * nb)
+    full[:vocab, :linear] = w_out.t()
+    for w in range(2):
+        for b in range(nb):
+            for kk in range(4):
+                k = 4 * b + kk
+                torch.testing.assert_close(out[w, b, kk],
+                                           full[32 * w: 32 * w + 32, 64 * k: 64 * k + 64],
+                                           rtol=0, atol=0)
+
+
+def test_arnn_operands_follow_in_place_updates(monkeypatch):
+    """K7's token table, packed weights and padded biases are built once per
+    set of weight tensors and rebuilt after an in-place update of any."""
+    monkeypatch.setattr(ak, "arnn_map", lambda packed: (None, 64))
+    monkeypatch.setattr(ak, "arnn_operands", kc.WeightCache(ak._build_arnn_operands))
+    rng = np.random.default_rng(8)
+    hidden, ctx, emb, linear, vocab = 64, 64, 10, 12, 30
+    shapes = ((vocab + 1, emb), (emb + ctx, 4 * hidden), (4 * hidden,), (hidden, 4 * hidden),
+              (4 * hidden,), (hidden, 4 * hidden), (4 * hidden,), (hidden, 4 * hidden),
+              (4 * hidden,), (hidden, linear), (linear,), (linear, vocab), (vocab,))
+    ws = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).bfloat16() for s in shapes]
+    ops = ak.arnn_operands(*ws)
+    assert ak.arnn_operands(*ws) is ops
+    assert ops["b_l1"].shape == (128,) and ops["b_out"].shape == (64,)
+    torch.testing.assert_close(ops["w_ctx_t"], ws[1][emb:].t(), rtol=0, atol=0)
+    with torch.no_grad():
+        ws[0].add_(1)  # the embedding table: the token table follows it
+    fresh = ak.arnn_operands(*ws)
+    assert fresh is not ops
+    torch.testing.assert_close(fresh["tok_tab"],
+                               (ws[0].float() @ ws[1][:emb].float()).bfloat16(), rtol=0, atol=0)
+
+
+def test_arnn_chunk_rows(monkeypatch):
+    """The flagship's batch 512 x 384 ticks is one chunk (805 MB of f32
+    projection); chunks are whole 64-row tiles under the cap, at least one."""
+    assert ak.arnn_chunk_rows(512, 384, 256) == 512
+    assert ak.arnn_chunk_rows(4096, 384, 256) == 1664
+    assert ak.arnn_chunk_rows(3, 24, 128) == 3
+    monkeypatch.setattr(ek, "XW_SCRATCH_BYTES", 100 * 24 * 512 * 4)
+    assert ak.arnn_chunk_rows(150, 24, 128) == 64
+    monkeypatch.setattr(ek, "XW_SCRATCH_BYTES", 1)
+    assert ak.arnn_chunk_rows(150, 24, 128) == 64
