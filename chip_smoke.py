@@ -5,10 +5,11 @@ once on one NVIDIA GPU.
     python3 chip_smoke.py [--parent DIR]
 
 ``--parent DIR`` names an earlier checkout of this repository (for example
-``git archive`` of the parent commit, unpacked): its K6 and K7 CUDA sources
-are built too, and each K6 time (with its error against the plain version)
-and each K7 bf16 time is printed beside that checkout's kernel on the same
-card (otherwise "parent not measured").
+``git archive`` of the parent commit, unpacked): its K2, K4 and K5 CUDA
+sources (``PARENT_SOURCES``) are built too, and each K2 bf16, K4 and K5
+time is printed beside that checkout's kernel on the same card (otherwise
+"parent not measured"), with K5's error against the plain version; the K2
+noise check also reads that checkout's K2.
 
 Phases, each raising on failure:
 
@@ -31,16 +32,23 @@ Phases, each raising on failure:
    batch-1 request's 32; K2 bf16 also at the autoregressive step's 2,048
    rows and a batch-1 call's 6, every cluster size of its Hopper route
    against the plain version and bit-equal to the others, each timed beside
-   its bound;
+   its bound; with noise 0.05 and 0.1 on the flagship decoder's weights at
+   2,048 rows, K2 bf16's mean and max logit error and early share against
+   the plain version held to ``K2_NOISY`` (beside the parent's kernel);
+   K4 on bf16 and f32 masters at 12,288, 2,048 and 6 rows, every cluster
+   size, bit-equal to its plain version and to each other, each timed
+   beside its bound (``[plan]``: the launch plan);
 4. the training kernels K5 ``gru_fwd_seq`` and K6 ``gru_bwd_seq`` against
    their plain versions at the VAE encoder's shape (24 steps, 4,096 rows,
    H 512, both directions), the beat GRU's (4 steps, 4,096 rows) and the
    tick GRU's (6 steps, 16,384 rows), in f32 and bf16; K6 at every cluster
    size of its Hopper route, bit-equal to the others, each timed beside
    both its bounds (the f32 FMA units', the split product's on the tensor
-   cores) and the parent's kernel and error; a K5 carry rounded to bf16, a K6 product
-   on bf16 dhw and (bf16) a K6 dh carried in bf16, planted in the plain
-   versions, must break the bounds;
+   cores); K5 likewise at every cluster size (bit-equal), timed beside its
+   bound and the parent's kernel and error; a K5 carry rounded to bf16,
+   (f32) a K5 product on h taken as one bf16 piece, a K6 product on bf16 dhw
+   and (bf16) a K6 dh carried in bf16, planted in the plain versions, must
+   break the bounds;
 5. the serving main path on the card against the same model on the CPU
    (plain versions) on a small input, f32 masters: unquantized, and int8,
    whose bounds the unquantized path must fail;
@@ -48,7 +56,8 @@ Phases, each raising on failure:
    three requests, checked; K1 and K2 must have launched;
 7. the int8 engine serves the same three requests, checked; K3 and K4 must
    have launched; the share of span tokens on which int8 and bf16 agree is
-   printed (random weights set no limit on it);
+   printed (random weights set no limit on it); its batch-2048 and batch-1
+   calls are profiled (``[profile] engine int8``);
 8. HTTP: ``inpaintnet_tpu_torch.server.InpaintingServer`` (the port's
    numpy-only front end) in front of the int8 engine, dynamic batching pinned
    to bucket 64: 16 concurrent clients' ``/v1/inpaint`` responses must
@@ -77,7 +86,7 @@ Phases, each raising on failure:
    Hopper route at every cluster size at 512, 64 and 1 rows, bit-equal to
    the others, its CUDA launches (two a chunk) and their device times, each
    timed beside the first kernel (``csrc/arnn_decode.cu``, which runs the
-   bf16 geometries the Hopper route does not take) and the parent's; with
+   bf16 geometries the Hopper route does not take); with
    noise on the flagship's weights, the Hopper route held to the first
    kernel's error and the two bf16 faults rejected; the ARNN path on the
    card against the CPU (f32, H 64); the bf16 ``ARNNServingEngine`` serving
@@ -268,18 +277,28 @@ def decode_ops(rows: int, hidden: int, vocab: int) -> float:
 
 
 # ---------------------------------------------------------------------------
-# An earlier checkout's K6 and K7 (``--parent DIR``), timed beside the new
-# ones in the same run
+# An earlier checkout's K2, K4 and K5 (``--parent DIR``), timed beside the
+# new ones in the same run
 # ---------------------------------------------------------------------------
-PARENT_SOURCES = ("gru_bwd_seq.cu", "arnn_decode.cu")
+PARENT_SOURCES = ("decode_sampling.cu", "decode_sampling_int8.cu", "gru_fwd_seq.cu")
+
+
+def _pack_mma_b_s8(w: torch.Tensor) -> torch.Tensor:
+    """The ``mma.sync m16n8k32`` s8 B-fragment order the parent's K4 read
+    (lane ``4 r + q`` of an 8-column, 32-row tile holds ``w[k0 + 4q + {0..3},
+    n0 + r]`` then ``w[k0 + 16 + 4q + {0..3}, n0 + r]``)."""
+    K, N = w.shape
+    return w.reshape(K // 32, 2, 4, 4, N // 8, 8).permute(4, 0, 5, 2, 1, 3).contiguous()
 
 
 class ParentKernels:
-    """K6 and K7 as the checkout at ``root`` built them (its
-    ``inpaintnet_tpu_torch/ops/csrc``; before the Hopper designs, a 16-row
-    K6 with an f32 FMA product and a 32-row ``mma.sync`` K7), called as
-    that checkout's wrappers called them, the operands built on every call. Used only to
-    time them beside the new kernels on the same card in the same run."""
+    """K2's bf16 route, K4 and K5 as the checkout at ``root`` built them (its
+    ``inpaintnet_tpu_torch/ops/csrc``; before this design, K2 summed layer
+    1's r/z products in one accumulator, K4 was a 32-row ``mma.sync`` kernel
+    and K5 a 16-row (f32) / 32-row (bf16) kernel streaming W_hh from L2),
+    called as that checkout's wrappers called them, the operands built on
+    every call. Used only to time and read them beside the new kernels on
+    the same card in the same run."""
 
     def __init__(self, root: str):
         from inpaintnet_tpu_torch.ops.kernel_common import NVCC_FLAGS, _nvcc, _run_all
@@ -294,56 +313,81 @@ class ParentKernels:
         _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(so), *objs]], False)
         self.lib = ctypes.CDLL(str(so))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        self.lib.inpaint_gru_bwd_seq.argtypes = [i32] + [ptr] * 10 + [i32] * 4 + [ptr]
-        self.lib.inpaint_gru_bwd_seq.restype = i32
-        self.lib.inpaint_arnn_decode.argtypes = [i32] + [ptr] * 16 + [i32] * 7 + [ptr]
-        self.lib.inpaint_arnn_decode.restype = i32
+        self.lib.inpaint_decode_sampling_bf16.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
+        self.lib.inpaint_decode_sampling_bf16.restype = i32
+        self.lib.inpaint_decode_slots.argtypes = [i32] * 3
+        self.lib.inpaint_decode_slots.restype = i32
+        self.lib.inpaint_decode_sampling_int8.argtypes = [i32] + [ptr] * 16 + [i32] * 4 + [ptr]
+        self.lib.inpaint_decode_sampling_int8.restype = i32
+        self.lib.inpaint_gru_fwd_seq.argtypes = [i32] + [ptr] * 5 + [i32] * 4 + [ptr]
+        self.lib.inpaint_gru_fwd_seq.restype = i32
 
-    def gru_bwd(self, w_hh, dys, r, z, n, hn, hprev, reverse=False):
+    def decode_bf16(self, params, tick_ctx, h_inits):
+        """The parent's K2 bf16 route, at its own launch plan."""
+        from inpaintnet_tpu_torch.ops import decode_kernel as dk
+        from inpaintnet_tpu_torch.ops.kernel_common import (check_launch, cluster_sizes,
+                                                            ring_stages, slab_map, stream_ptr)
+
+        p0, p1 = params["tick_gru"][0][0], params["tick_gru"][1][0]
+        batch, _, hidden = tick_ctx.shape
+        vocab = params["head"]["w"].shape[1]
+        packed = dk.pack_decode_weights(p0["w_hh"], p1["w_ih"], p1["w_hh"], params["head"]["w"])
+        buf, addr = slab_map(packed)  # the layout and map are as the parent's; buf held
+        # until the launch has read the map
+        stages = ring_stages(hidden, 2)
+        slots = {c: self.lib.inpaint_decode_slots(hidden, c, stages) for c in cluster_sizes(hidden)}
+        sms = torch.cuda.get_device_properties(tick_ctx.device).multi_processor_count
+        plan = dk.launch_plan(batch, hidden, sms, slots)
+        ins = dk.decode_inputs(params, tick_ctx, h_inits)
+        bias = torch.stack([p0["b_hh"], p1["b_ih"], p1["b_hh"]])
+        head_b = torch.nn.functional.pad(params["head"]["b"], (0, 64 - vocab))
+        logits = torch.empty((batch, 24, vocab), dtype=tick_ctx.dtype, device=tick_ctx.device)
+        samples = torch.empty((batch, 24), dtype=torch.int32, device=tick_ctx.device)
+        err = self.lib.inpaint_decode_sampling_bf16(
+            addr, ins["ctx_xw"].data_ptr(), ins["hi0"].data_ptr(), ins["hi1"].data_ptr(),
+            ins["tok_tab"].data_ptr(), ins["x0_xw"].data_ptr(), bias.data_ptr(),
+            head_b.data_ptr(), logits.data_ptr(), samples.data_ptr(), batch, hidden, vocab,
+            plan.cluster, plan.stages, stream_ptr())
+        check_launch(err, "the parent's decode_sampling")
+        return logits, samples
+
+    def decode_int8(self, params, tick_ctx, h_inits):
+        from inpaintnet_tpu_torch.ops import decode_kernel as dk
         from inpaintnet_tpu_torch.ops.kernel_common import DTYPE_CODES, check_launch, stream_ptr
 
-        seq_len, batch, hidden = dys.shape
-        w_t = w_hh.float().t().contiguous()
-        da = torch.empty((seq_len, batch, 3 * hidden), dtype=dys.dtype, device=dys.device)
-        dhw = torch.empty_like(da)
-        dh0 = torch.empty((batch, hidden), dtype=dys.dtype, device=dys.device)
-        err = self.lib.inpaint_gru_bwd_seq(
-            DTYPE_CODES[dys.dtype], dys.data_ptr(), r.data_ptr(), z.data_ptr(), n.data_ptr(),
-            hn.data_ptr(), hprev.data_ptr(), w_t.data_ptr(), da.data_ptr(), dhw.data_ptr(),
-            dh0.data_ptr(), batch, seq_len, hidden, int(reverse), stream_ptr())
-        check_launch(err, "the parent's gru_bwd_seq")
-        return da, dhw, dh0
+        batch, _, hidden = tick_ctx.shape
+        vocab = params["head"]["w"].shape[1]
+        ops = dk.decode_int8_operands(params, tick_ctx, h_inits)
+        vocab_pad = -(-vocab // 8) * 8
+        pad = (0, vocab_pad - vocab)
+        head_s, head_b = (torch.nn.functional.pad(ops[k], pad) for k in ("head_s", "head_b"))
+        whh0, wih1, whh1, head_w = (
+            _pack_mma_b_s8(w) for w in (ops["whh0_q"], ops["wih1_q"], ops["whh1_q"],
+                                        torch.nn.functional.pad(ops["head_q"], pad)))
+        logits = torch.empty((batch, 24, vocab), dtype=tick_ctx.dtype, device=tick_ctx.device)
+        samples = torch.empty((batch, 24), dtype=torch.int32, device=tick_ctx.device)
+        err = self.lib.inpaint_decode_sampling_int8(
+            DTYPE_CODES[tick_ctx.dtype], ops["ctx_xw"].data_ptr(), ops["hi0"].data_ptr(),
+            ops["hi1"].data_ptr(), ops["q"].data_ptr(), ops["tok_q"].data_ptr(),
+            ops["x0_xw"].data_ptr(), whh0.data_ptr(), wih1.data_ptr(), whh1.data_ptr(),
+            ops["scales"].data_ptr(), ops["bias"].data_ptr(), head_w.data_ptr(),
+            head_s.data_ptr(), head_b.data_ptr(), logits.data_ptr(), samples.data_ptr(),
+            batch, hidden, vocab, vocab_pad, stream_ptr())
+        check_launch(err, "the parent's decode_sampling_int8")
+        return logits, samples
 
-    def arnn(self, params, ctx, score, force_mask, start_emb):
-        from inpaintnet_tpu_torch.ops import arnn_kernel as ak
-        from inpaintnet_tpu_torch.ops.kernel_common import DTYPE_CODES, check_launch, pack_mma_b
-        from inpaintnet_tpu_torch.ops.kernel_common import stream_ptr
+    def gru_fwd(self, w_hh, b_hh, xw, h0, reverse=False):
+        from inpaintnet_tpu_torch.ops.kernel_common import (DTYPE_CODES, check_launch,
+                                                            pack_mma_b, stream_ptr)
 
-        p0, p1 = params["lstm_generation"]
-        batch, seq_len, C = ctx.shape
-        hidden = p0["w_hh"].shape[0]
-        linear, vocab = params["linear_output_notes"]["w"].shape
-        ins = ak.arnn_decode_inputs(params, start_emb)
-        lp, vp = -(-linear // 16) * 16, -(-vocab // 8) * 8
-        pad = torch.nn.functional.pad
-        w_l1 = pad(params["linear_1"]["w"], (0, lp - linear))
-        b_l1 = pad(params["linear_1"]["b"], (0, lp - linear))
-        w_out = pad(params["linear_output_notes"]["w"], (0, vp - vocab, 0, lp - linear))
-        b_out = pad(params["linear_output_notes"]["b"], (0, vp - vocab))
-        w_ctx, whh0, wih1, whh1, w_l1, w_out = (
-            pack_mma_b(w) for w in (ins["w_ctx"], p0["w_hh"], p1["w_ih"], p1["w_hh"], w_l1,
-                                    w_out))
-        logits = torch.empty((batch, seq_len, vocab), dtype=ctx.dtype, device=ctx.device)
-        tokens = torch.empty((batch, seq_len), dtype=torch.int32, device=ctx.device)
-        err = self.lib.inpaint_arnn_decode(
-            DTYPE_CODES[ctx.dtype], ctx.data_ptr(), score.data_ptr(), force_mask.data_ptr(),
-            ins["tok_tab"].data_ptr(), ins["start_xw"].data_ptr(), w_ctx.data_ptr(),
-            whh0.data_ptr(), wih1.data_ptr(), whh1.data_ptr(), ins["bias"].data_ptr(),
-            w_l1.data_ptr(), b_l1.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
-            logits.data_ptr(), tokens.data_ptr(), batch, seq_len, hidden, C, lp, vocab, vp,
-            stream_ptr())
-        check_launch(err, "the parent's arnn_sampled_decode")
-        return logits, tokens
+        batch, seq_len = xw.shape[:2]
+        hidden = w_hh.shape[0]
+        out = torch.empty((5, seq_len, batch, hidden), dtype=xw.dtype, device=xw.device)
+        err = self.lib.inpaint_gru_fwd_seq(
+            DTYPE_CODES[xw.dtype], xw.data_ptr(), pack_mma_b(w_hh).data_ptr(), b_hh.data_ptr(),
+            h0.data_ptr(), out.data_ptr(), batch, seq_len, hidden, int(reverse), stream_ptr())
+        check_launch(err, "the parent's gru_fwd_seq")
+        return tuple(out.unbind(0))
 
 
 def parent_ms(parent, fn) -> str:
@@ -422,10 +466,11 @@ def _reject_planted_faults(dec, gru, table, tokens, tick_ctx, h_inits, hn_k, lg_
         raise RuntimeError("a planted K3/K4 fault passes the int8 bounds")
 
 
-def phase_kernels(vae_f32, max_target: int, card: str) -> dict:
+def phase_kernels(vae_f32, max_target: int, card: str, parent) -> dict:
     """Each kernel against its plain version at the engine's batch-2048
     shapes: K1/K2 in f32 and bf16, K3/K4 on bf16 masters (the int8 engine's);
-    K2 bf16 also at the autoregressive step's and a batch-1 call's rows."""
+    K2 bf16 also at the autoregressive step's and a batch-1 call's rows, and
+    with noisy weights; K4 at those rows on both masters."""
     from inpaintnet_tpu_torch.models.base import cast_params
     from inpaintnet_tpu_torch.models.measure_vae import NUM_BEATS_PER_MEASURE
     from inpaintnet_tpu_torch.ops import decode_kernel as dk
@@ -450,7 +495,7 @@ def phase_kernels(vae_f32, max_target: int, card: str) -> dict:
          dk.decode_sampling_int8, dk.decode_sampling_int8_reference, BOUNDS_INT8,
          ("encoder_hn_int8", "decode_sampling_int8")),
     ]
-    report = {}
+    report, dec_inputs = {}, {}
     for label, dtype, enc_k, enc_p, dec_k, dec_p, bound, names in cases:
         p = cast_params(params32, dev, dtype)
         enc, dec = p["encoder"], p["decoder"]
@@ -465,6 +510,7 @@ def phase_kernels(vae_f32, max_target: int, card: str) -> dict:
         h_inits = vae_f32.decoder._tick_h0(
             dec, beat_out.reshape(dec_rows * NUM_BEATS_PER_MEASURE, -1)
         ).reshape(2, dec_rows, NUM_BEATS_PER_MEASURE, -1).contiguous()
+        dec_inputs[label] = (dec, tick_ctx, h_inits)
         lg_k, s_k = dec_k(dec, tick_ctx, h_inits)
         lg_p, s_p = dec_p(dec, tick_ctx, h_inits)
         torch.cuda.synchronize()
@@ -489,13 +535,13 @@ def phase_kernels(vae_f32, max_target: int, card: str) -> dict:
         library_ms = None
         if label != "int8":
             library_ms = cudnn_gru_ms(gru, table, tokens, hn_k, label, card)
-        if names is None:
-            continue
-        # the serving numerics: times at these shapes (plain versions: few reps)
-        enc_name, dec_name = names
-        kind = "int8" if label == "int8" else "bf16"
+        # times at these shapes (plain versions: few reps); the f32 routes
+        # are printed only, not reported
+        enc_name, dec_name = names or ("encoder_hn", "decode_sampling")
+        kind = {"int8": "int8", "bfloat16": "bf16", "float32": "f32"}[label]
         H, V = gru[0][0]["w_hh"].shape[0], dec["head"]["w"].shape[1]
-        encoder_times(enc_k, gru, table, tokens, label, card)
+        if names is not None:
+            encoder_times(enc_k, gru, table, tokens, label, card)
         report[enc_name] = {"max_abs_err": hn_err,
                             "ms": cuda_ms(lambda: enc_k(gru, table, tokens), 5),
                             "plain_ms": cuda_ms(lambda: enc_p(gru, table, tokens), 2),
@@ -509,28 +555,37 @@ def phase_kernels(vae_f32, max_target: int, card: str) -> dict:
                             **bound_of(decode_ops(dec_rows, H, V), kind,
                                     nbytes(dec_used, tick_ctx, h_inits, lg_k, s_k)),
                             "library_ms": None}
-        for k in names:
+        for k in (enc_name, dec_name):
             v = report[k]
             print(f"[time] {k} {label}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
                   f"bound {v['bound_ms']:.3f} ms ({v['bound_by']}) | {card}", flush=True)
+        if names is None:  # the f32 routes' entries are not the report's
+            del report[enc_name], report[dec_name]
+            continue
         if label == "bfloat16":
-            decode_row_counts(dec, tick_ctx, h_inits, bound, card)
+            decode_row_counts(dec, tick_ctx, h_inits, bound, card, parent)
+            k2_noisy(dec, tick_ctx, h_inits, card, parent)
+    # K4 on the int8 engine's bf16 masters and on f32 masters (the card-vs-CPU
+    # check's), the f32 case's decoder inputs
+    decode_int8_row_counts({"bfloat16": dec_inputs["int8"], "float32": dec_inputs["float32"]},
+                           card, parent)
     return report
 
 
 @contextlib.contextmanager
-def _cluster(module, cluster):
-    """``module.launch_plan`` (K8's or K2's) picks ``cluster`` CTAs a tile
-    inside, its ring depth unchanged (None: the plan's own choice)."""
+def _cluster(module, cluster, plan: str = "launch_plan"):
+    """``module.<plan>`` (K8's or K2's ``launch_plan``, K4's ``int8_plan``)
+    picks ``cluster`` CTAs a tile inside, its ring depth unchanged (None: the
+    plan's own choice)."""
     from inpaintnet_tpu_torch.ops.kernel_common import LaunchPlan
 
-    chosen = module.launch_plan
+    chosen = getattr(module, plan)
     if cluster is not None:
-        module.launch_plan = lambda *shape: LaunchPlan(cluster, chosen(*shape).stages)
+        setattr(module, plan, lambda *shape: LaunchPlan(cluster, chosen(*shape).stages))
     try:
         yield
     finally:
-        module.launch_plan = chosen
+        setattr(module, plan, chosen)
 
 
 # K2's rows: a batch-2048 call (max_target 6 a request), an autoregressive
@@ -538,10 +593,10 @@ def _cluster(module, cluster):
 DECODE_ROWS = (BATCH * 6, BATCH, 6)
 
 
-def decode_row_counts(dec, tick_ctx, h_inits, bound, card: str) -> None:
+def decode_row_counts(dec, tick_ctx, h_inits, bound, card: str, parent) -> None:
     """K2 bf16 at ``DECODE_ROWS``: every cluster size against the plain
     version (``BOUNDS``) and bit-equal to the others (the cluster only moves
-    h between CTAs), each timed, beside the bound."""
+    h between CTAs), each timed, beside the bound and the parent's kernel."""
     from inpaintnet_tpu_torch.ops import decode_kernel as dk
     from inpaintnet_tpu_torch.ops.kernel_common import cluster_sizes
 
@@ -568,9 +623,119 @@ def decode_row_counts(dec, tick_ctx, h_inits, bound, card: str) -> None:
                      nbytes({k: dec[k] for k in ("embedding", "x_0", "tick_gru", "head")},
                             tc, hi, lg_k, s_k))
         per = ", ".join(f"cluster {c} {v:.3f} ms" for c, v in ms.items())
+        alone = _device_ms(lambda: dk.decode_sampling(dec, tc, hi), "rec90::decode_kernel<")
+        p_alone = "not measured" if parent is None else (
+            f"{_device_ms(lambda: parent.decode_bf16(dec, tc, hi), 'rec90::decode_kernel<'):.3f}"
+            " ms")
+        print(f"[plan] decode_sampling bfloat16 rows {rows}: cluster {plan.cluster}, stages "
+              f"{plan.stages} | {card}", flush=True)
         print(f"[time] decode_sampling bfloat16 rows {rows}: kernel {ms[plan.cluster]:.3f} ms "
-              f"(cluster {plan.cluster}, stages {plan.stages}; {per}), bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) | {card}", flush=True)
+              f"(cluster {plan.cluster}, stages {plan.stages}; {per}), parent "
+              f"{parent_ms(parent, lambda pk: pk.decode_bf16(dec, tc, hi))}; the kernel alone "
+              f"{alone:.3f} ms device, parent's {p_alone}; bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}); 1 launch a call | {card}", flush=True)
+
+
+# K2 bf16 with noise of these scales added to the flagship decoder's weights
+# (their logits then spread, and order flips of bf16 roundings show) at
+# 2,048 rows, against the plain version (``arnn_kernel.decode_agreement``,
+# the early share over the first beat's 6 ticks): the logits' mean and max
+# where the fed-back tokens agree, and the share of early logits changed,
+# at most these. The mean and the early share lie between the readings of
+# the kernel that sums layer 1 as the plain version does and of the one that
+# summed its r/z products in one accumulator over K = 2H, ((x + h) + b_ih1)
+# + b_hh1, on an NVIDIA H100 80GB HBM3 (700 W): noise 0.05, mean 3.291e-5
+# against 3.422e-5, early 0.0194 against 0.0207; noise 0.1, 1.098e-4
+# against 1.208e-4, 0.0261 against 0.0297; the max is one bf16 ulp of the
+# largest logits in both (PERF.md).
+K2_NOISE = (0.05, 0.1)
+K2_NOISY = {0.05: {"mean": 3.36e-5, "max": 1.5625e-2, "early": 0.0200},
+            0.1: {"mean": 1.15e-4, "max": 3.125e-2, "early": 0.0280}}
+K2_NOISY_ROWS = 2048
+
+
+def k2_noisy(dec, tick_ctx, h_inits, card: str, parent) -> None:
+    """K2 bf16 with noisy weights (``K2_NOISE``) at ``K2_NOISY_ROWS`` rows
+    against its plain version, beside the parent's kernel (``--parent``)."""
+    from inpaintnet_tpu_torch.ops import arnn_kernel as ak
+    from inpaintnet_tpu_torch.ops import decode_kernel as dk
+
+    rows = K2_NOISY_ROWS
+    tc, hi = tick_ctx[:rows].contiguous(), h_inits[:, :rows].contiguous()
+    used = {k: dec[k] for k in ("embedding", "x_0", "tick_gru", "head")}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    unforced = torch.zeros((rows, 24), dtype=torch.int32, device=tc.device)
+    for noise in K2_NOISE:
+        p = {**dec, **_noisy(used, noise, gen)}
+        want = dk.decode_sampling_reference(p, tc, hi)
+        got = ak.decode_agreement(dk.decode_sampling(p, tc, hi), want, unforced, early_ticks=6)
+        par = "parent not measured"
+        if parent is not None:
+            par = "parent " + _agreement_line(ak.decode_agreement(
+                parent.decode_bf16(p, tc, hi), want, unforced, early_ticks=6))
+        b = K2_NOISY[noise]
+        print(f"[kernels] decode_sampling bfloat16 noise {noise}, {rows} rows: kernel "
+              f"{_agreement_line(got)}; {par} (bounds {b}) | {card}", flush=True)
+        if not (got["logits_mean"] <= b["mean"] and got["logits_max"] <= b["max"]
+                and got["early_changed"] <= b["early"]):
+            raise RuntimeError(f"K2 bf16 drifts from its plain version at noise {noise}")
+    # the card test's inputs (test_decode_kernel_bf16_noisy_layer1_sum_order),
+    # whose bound lies between these two readings
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_cuda_kernels import K2_NOISY_BOUNDS, _decode_case
+
+    params, tc, hi = _decode_case(np.random.default_rng(91), 512, 512, 60, torch.bfloat16,
+                                  tick_ctx.device)
+    want = dk.decode_sampling_reference(params, tc, hi)
+    unforced = unforced[:512]
+    got = ak.decode_agreement(dk.decode_sampling(params, tc, hi), want, unforced, early_ticks=6)
+    par = "parent not measured" if parent is None else "parent " + _agreement_line(
+        ak.decode_agreement(parent.decode_bf16(params, tc, hi), want, unforced, early_ticks=6))
+    print(f"[kernels] decode_sampling bfloat16, the card test's inputs (512 rows, noise 0.1): "
+          f"kernel {_agreement_line(got)}; {par} (the test's bounds {K2_NOISY_BOUNDS}) | {card}",
+          flush=True)
+
+
+def decode_int8_row_counts(inputs: dict, card: str, parent) -> None:
+    """K4 at ``DECODE_ROWS`` on each master dtype's decoder inputs
+    ({dtype label: (decoder params, tick_ctx, h_inits)}): every cluster size
+    bit-equal to the plain version and so to the others, each timed beside
+    the bound and the parent's kernel."""
+    from inpaintnet_tpu_torch.ops import decode_kernel as dk
+    from inpaintnet_tpu_torch.ops.kernel_common import cluster_sizes
+
+    for label, (dec, tick_ctx, h_inits) in inputs.items():
+        hidden, vocab = tick_ctx.shape[2], dec["head"]["w"].shape[1]
+        used = {k: dec[k] for k in ("embedding", "x_0", "tick_gru", "head")}
+        for rows in DECODE_ROWS:
+            tc, hi = tick_ctx[:rows].contiguous(), h_inits[:, :rows].contiguous()
+            plan = dk.int8_plan(hidden)
+            want = dk.decode_sampling_int8_reference(dec, tc, hi)
+            equal, ms = {}, {}
+            for c in cluster_sizes(hidden):
+                with _cluster(dk, c, "int8_plan"):
+                    lg, smp = dk.decode_sampling_int8(dec, tc, hi)
+                    equal[c] = bool(torch.equal(lg, want[0]) and torch.equal(smp, want[1]))
+                    ms[c] = cuda_ms(lambda: dk.decode_sampling_int8(dec, tc, hi), 5)
+            print(f"[kernels] decode_sampling_int8 {label} masters rows {rows}: bit-equal to the "
+                  f"plain version at clusters {equal}", flush=True)
+            if not all(equal.values()):
+                raise RuntimeError(f"K4 on {label} masters at {rows} rows is not bit-equal to its "
+                                   "plain version at every cluster size")
+            b = bound_of(decode_ops(rows, hidden, vocab), "int8", nbytes(used, tc, hi, *want))
+            per = ", ".join(f"cluster {c} {v:.3f} ms" for c, v in ms.items())
+            alone = _device_ms(lambda: dk.decode_sampling_int8(dec, tc, hi), "decode_i8_kernel<")
+            p_alone = "not measured" if parent is None else (
+                f"{_device_ms(lambda: parent.decode_int8(dec, tc, hi), 'decode_int8_kernel<'):.3f}"
+                " ms")
+            print(f"[plan] decode_sampling_int8 {label} rows {rows}: cluster {plan.cluster}, "
+                  f"stages {plan.stages} | {card}", flush=True)
+            print(f"[time] decode_sampling_int8 {label} masters rows {rows}: kernel "
+                  f"{ms[plan.cluster]:.3f} ms (cluster {plan.cluster}, stages {plan.stages}; "
+                  f"{per}), parent {parent_ms(parent, lambda pk: pk.decode_int8(dec, tc, hi))}; "
+                  f"the kernel alone {alone:.3f} ms device, parent's {p_alone}; bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}); 1 launch a call | {card}",
+                  flush=True)
 
 
 def _check_encoder_share(gru, table, tokens, hn_k, hn_p) -> None:
@@ -731,24 +896,33 @@ def _k5_k6_bounds(steps: int, batch: int, hidden: int, dtype, fwd, out, grads, d
 
 
 def _reject_train_faults(fwd, dys, out_k, grads_k, hprev, dtype, gk):
-    """A K5 carry rounded to bf16 every step, a K6 product on dhw rounded to
-    bf16 and (bf16) a K6 dh carried in bf16 between steps, planted in the
-    plain versions, must break the bounds."""
-    carry, product, bwd_carry = gk.fwd_carry, gk.bwd_product, gk.bwd_carry
+    """A K5 carry rounded to bf16 every step, (f32) a K5 product on h taken
+    as one bf16 piece, a K6 product on dhw rounded to bf16 and (bf16) a K6 dh
+    carried in bf16 between steps, planted in the plain versions, must break
+    the bounds. (In bf16 the one-piece product and the f32 dh are the
+    function itself.)"""
+    carry, fwd_product = gk.fwd_carry, gk.fwd_product
+    product, bwd_carry = gk.bwd_product, gk.bwd_carry
     gk.fwd_carry = lambda h: h.to(torch.bfloat16).float()
     gk.bwd_product = lambda dhw, w_t: dhw.to(torch.bfloat16).float() @ w_t
     try:
         out_p = gk.gru_fwd_seq_reference(*fwd)
         grads_p = gk.gru_bwd_seq_reference(fwd[0], dys, *out_k[1:], hprev)
-        gk.bwd_product = product
+        gk.fwd_carry, gk.bwd_product = carry, product
+        gk.fwd_product = lambda h, w, dt: h.to(torch.bfloat16).float() @ w
+        out_1 = gk.gru_fwd_seq_reference(*fwd) if dtype == torch.float32 else None
+        gk.fwd_product = fwd_product
         gk.bwd_carry = lambda dh, dt: dh.to(dt).float()
         grads_c = (gk.gru_bwd_seq_reference(fwd[0], dys, *out_k[1:], hprev)
                    if dtype == torch.bfloat16 else None)
     finally:
-        gk.fwd_carry, gk.bwd_product, gk.bwd_carry = carry, product, bwd_carry
+        gk.fwd_carry, gk.fwd_product = carry, fwd_product
+        gk.bwd_product, gk.bwd_carry = product, bwd_carry
     torch.cuda.synchronize()
     errs = {"K5 carry rounded to bf16": _train_kernel_errs(out_k, out_p),
             "K6 product on bf16 dhw": _train_kernel_errs(grads_k, grads_p)}
+    if out_1 is not None:
+        errs["K5 product on h as one bf16 piece"] = _train_kernel_errs(out_k, out_1)
     if grads_c is not None:
         errs["K6 dh carried in bf16"] = _train_kernel_errs(grads_k, grads_c)
     max_b, mean_b = TRAIN_BOUNDS[dtype]
@@ -759,17 +933,19 @@ def _reject_train_faults(fwd, dys, out_k, grads_k, hprev, dtype, gk):
             raise RuntimeError(f"a planted fault passes the {dtype} bounds: {name}")
 
 
-def _k6_by_cluster(gk, dtype, hidden, call):
-    """{C: (K6's outputs, ms)} of ``call()`` with K6's plan forced to each
-    cluster size its width and dtype allow."""
-    real, got = gk.bwd_plan, {}
-    for c in gk.bwd_cluster_sizes(hidden, dtype):
-        gk.bwd_plan = lambda hidden, dtype, c=c: gk.LaunchPlan(
-            c, gk.bwd_ring_stages(hidden // c, gk.bwd_weight_pieces(dtype)))
+def _by_cluster(gk, kernel: str, dtype, hidden, call):
+    """{C: (outputs, ms)} of ``call()`` with K5's (``kernel`` "fwd") or K6's
+    ("bwd") plan forced to each cluster size its width and dtype allow."""
+    plan = f"{kernel}_plan"
+    real, got = getattr(gk, plan), {}
+    sizes, stages = getattr(gk, f"{kernel}_cluster_sizes"), getattr(gk, f"{kernel}_ring_stages")
+    for c in sizes(hidden, dtype):
+        setattr(gk, plan, lambda hidden, dtype, c=c: gk.LaunchPlan(
+            c, stages(hidden // c, gk.bwd_weight_pieces(dtype))))
         try:
             got[c] = (call(), cuda_ms(call, 5))
         finally:
-            gk.bwd_plan = real
+            setattr(gk, plan, real)
     return got
 
 
@@ -780,8 +956,8 @@ def phase_train_kernels(card: str, parent) -> dict:
     4,096 x 4 beats), H 512, f32 and bf16; K6 at every cluster size,
     bit-equal to the others (its cluster only moves dhw's pieces). The
     planted faults at the encoder's shape; the times of the forward
-    direction at each shape, K6 at each cluster size beside the parent's
-    kernel. -> report entries of the bf16 encoder case."""
+    direction at each shape, K5 and K6 at each cluster size, K5 beside the
+    parent's kernel. -> report entries of the bf16 encoder case."""
     from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
 
     hidden, rows = 512, TRAIN_WINDOWS * N_BARS
@@ -798,9 +974,10 @@ def phase_train_kernels(card: str, parent) -> dict:
             torch.cuda.synchronize()
             e_fwd, e_bwd = _train_kernel_errs(out_k, out_p), _train_kernel_errs(grads_k, grads_p)
             max_b, mean_b = TRAIN_BOUNDS[dtype]
-            plan = gk.bwd_plan(hidden, dtype)
+            plan, fplan = gk.bwd_plan(hidden, dtype), gk.fwd_plan(hidden, dtype)
             print(f"[kernels] {dtype} {label} steps {steps} rows {batch} reverse {reverse}: "
-                  f"gru_fwd_seq max/mean {e_fwd[0]:.3e}/{e_fwd[1]:.3e} (abs {e_fwd[2]:.3e}), "
+                  f"gru_fwd_seq max/mean {e_fwd[0]:.3e}/{e_fwd[1]:.3e} (abs {e_fwd[2]:.3e}; "
+                  f"cluster {fplan.cluster}, stages {fplan.stages}), "
                   f"gru_bwd_seq {e_bwd[0]:.3e}/{e_bwd[1]:.3e} (abs {e_bwd[2]:.3e}; cluster "
                   f"{plan.cluster}, stages {plan.stages}) (bounds {max_b:.0e}/{mean_b:.0e})",
                   flush=True)
@@ -809,14 +986,16 @@ def phase_train_kernels(card: str, parent) -> dict:
                     raise RuntimeError(f"K5/K6 disagree with their plain versions: {dtype} {label}")
             if not all(bool(torch.isfinite(t.float()).all()) for t in (*out_k, *grads_k)):
                 raise RuntimeError(f"non-finite K5/K6 output: {dtype} {label}")
-            by_c = _k6_by_cluster(gk, dtype, hidden, lambda: gk.gru_bwd_seq(
+            by_c5 = _by_cluster(gk, "fwd", dtype, hidden,
+                                lambda: gk.gru_fwd_seq(*fwd, reverse=reverse))
+            by_c = _by_cluster(gk, "bwd", dtype, hidden, lambda: gk.gru_bwd_seq(
                 fwd[0], dys, *out_k[1:], hprev, reverse=reverse))
-            same = all(all(torch.equal(x, y) for x, y in zip(g, grads_k))
-                       for g, _ in by_c.values())
-            print(f"[kernels] gru_bwd_seq {dtype} {label} reverse {reverse}: clusters "
-                  f"{sorted(by_c)} bit-equal {same}", flush=True)
-            if not same:
-                raise RuntimeError(f"K6 differs across cluster sizes: {dtype} {label}")
+            for name, got, ref in (("gru_fwd_seq", by_c5, out_k), ("gru_bwd_seq", by_c, grads_k)):
+                same = all(all(torch.equal(x, y) for x, y in zip(g, ref)) for g, _ in got.values())
+                print(f"[kernels] {name} {dtype} {label} reverse {reverse}: clusters "
+                      f"{sorted(got)} bit-equal {same}", flush=True)
+                if not same:
+                    raise RuntimeError(f"{name} differs across cluster sizes: {dtype} {label}")
             if reverse:
                 continue
             if label == "encoder":
@@ -825,20 +1004,24 @@ def phase_train_kernels(card: str, parent) -> dict:
                                          dys, hprev)
             bwd_args = (fwd[0], dys, *out_k[1:], hprev)
             times = {
-                "gru_fwd_seq": (cuda_ms(lambda: gk.gru_fwd_seq(*fwd), 5),
+                "gru_fwd_seq": (by_c5[fplan.cluster][1],
                                 cuda_ms(lambda: gk.gru_fwd_seq_reference(*fwd), 2), b_fwd, e_fwd),
                 "gru_bwd_seq": (by_c[plan.cluster][1],
                                 cuda_ms(lambda: gk.gru_bwd_seq_reference(*bwd_args), 2), b_bwd,
                                 e_bwd),
             }
             for name, (ms, plain_ms, b, e) in times.items():
-                extra = ""
                 if name == "gru_bwd_seq":
                     per = ", ".join(f"cluster {c} {v[1]:.3f} ms" for c, v in by_c.items())
-                    extra = (f" (cluster {plan.cluster}, stages {plan.stages}; {per}), parent "
-                             f"{parent_ms(parent, lambda pk: pk.gru_bwd(*bwd_args))}"
-                             f"{parent_err(parent, lambda pk: pk.gru_bwd(*bwd_args), grads_p)}, "
+                    extra = (f" (cluster {plan.cluster}, stages {plan.stages}; {per}), "
                              f"f32 FMA bound {b['bound_f32_fma_ms']:.3f} ms,")
+                else:
+                    per = ", ".join(f"cluster {c} {v[1]:.3f} ms" for c, v in by_c5.items())
+                    extra = (f" (cluster {fplan.cluster}, stages {fplan.stages}; {per}), parent "
+                             f"{parent_ms(parent, lambda pk: pk.gru_fwd(*fwd))}"
+                             f"{parent_err(parent, lambda pk: pk.gru_fwd(*fwd), out_p)},")
+                    print(f"[plan] gru_fwd_seq {dtype} {label}: cluster {fplan.cluster}, stages "
+                          f"{fplan.stages} | {card}", flush=True)
                 print(f"[time] {name} {dtype} {label} steps {steps} rows {batch}: kernel "
                       f"{ms:.3f} ms{extra} plain {plain_ms:.3f} ms (kernel/plain "
                       f"{ms / plain_ms:.2f}x), bound {b['bound_ms']:.3f} ms ({b['bound_by']}) "
@@ -902,18 +1085,32 @@ def phase_train_reference(card: str):
 
 def _profile_step(step) -> tuple:
     """``torch.profiler``'s device time of one ``step()``. -> (device ms,
-    device launches, [(kernel, ms, launches)] by time, longest first)."""
+    device launches, [(kernel, ms, launches)] by time, longest first). A
+    trace that recorded no device activity at all (the profiler once lost
+    a whole window on the card) is taken again, up to twice; the launch
+    counts its callers assert come from a trace that recorded some."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        step()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            rows.append((e.key, (e.self_cuda_time_total if us is None else us) / 1e3, e.count))
+    for attempt in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            step()
+            torch.cuda.synchronize()
+        rows = []
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us = getattr(e, "self_device_time_total", None)
+                rows.append((e.key, (e.self_cuda_time_total if us is None else us) / 1e3, e.count))
+        if rows:
+            break
+        print(f"[profile] no device activity recorded (attempt {attempt + 1}); tracing again",
+              flush=True)
     rows.sort(key=lambda r: -r[1])
     return sum(r[1] for r in rows), sum(r[2] for r in rows), rows
+
+
+def _device_ms(call, key: str) -> float:
+    """Device ms of the kernels whose names hold ``key`` in one ``call()``
+    (``torch.profiler``): a wrapper's kernel without its operand work."""
+    return sum(ms for name, ms, _ in _profile_step(call)[2] if key in name)
 
 
 def _profile_line(tag: str, call, wall: float, card: str, top: int = 8) -> None:
@@ -1083,6 +1280,11 @@ def phase_engine(model, dtype: str, card: str):
           f"| {card}", flush=True)
     print(f"[time] engine {dtype} batch 1 2-measure: p50 {np.median(lat):.2f} ms "
           f"(p90 {np.percentile(lat, 90):.2f} ms) | {card}", flush=True)
+    if dtype == "int8":  # the bf16 engine's profiles: phase_gru_routes
+        _profile_line(f"engine int8 batch {BATCH}", lambda: engine.inpaint(tokens, start, num,
+                                                                          seed=5), t_big, card)
+        _profile_line("engine int8 batch 1", lambda: engine.inpaint(one, s1, n1, seed=5),
+                      float(np.median(lat)), card)
     return engine, launches, outs[2][:, start:start + num]
 
 
@@ -1407,12 +1609,12 @@ def k7_parts(call) -> tuple:
     return parts, launches
 
 
-def phase_arnn_kernel(model, card: str, parent) -> dict:
+def phase_arnn_kernel(model, card: str) -> dict:
     """K7 against its plain version at batch 512 x 384 ticks, flagship
     width, f32 and bf16; the planted faults; the times (bf16 reported). The
     bf16 Hopper route also at 64 and 1 rows, every cluster size bit-equal to
     the others (the cluster only moves h between its CTAs), its CUDA
-    launches asserted, timed beside the first kernel and the parent's; with
+    launches asserted, timed beside the first kernel; with
     noisy weights against the first kernel (``ARNN_NOISE``)."""
     from inpaintnet_tpu_torch.models.base import cast_params
     from inpaintnet_tpu_torch.ops import arnn_kernel as ak
@@ -1493,8 +1695,7 @@ def phase_arnn_kernel(model, card: str, parent) -> dict:
             first_ms = cuda_ms(lambda: _first_k7(ak, call_args), 3)
             print(f"[time] arnn_sampled_decode {dtype} rows {rows}: kernel {ms:.3f} ms "
                   f"(cluster {plan.cluster}, stages {plan.stages}; {per}), first kernel "
-                  f"{first_ms:.3f} ms, parent "
-                  f"{parent_ms(parent, lambda pk: pk.arnn(*call_args))}, plain {plain_ms:.3f} "
+                  f"{first_ms:.3f} ms, plain {plain_ms:.3f} "
                   f"ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) | {card}",
                   flush=True)
             if rows == ARNN_BATCH:
@@ -2070,8 +2271,8 @@ def phase_autoreg_http(engine, card: str) -> dict:
 def main() -> int:
     cli = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     cli.add_argument("--parent", metavar="DIR",
-                     help="an earlier checkout of this repository whose K6 and K7 kernels "
-                          "are built and timed beside the new ones")
+                     help="an earlier checkout of this repository whose K2, K4 and K5 "
+                          "kernels are built and timed beside the new ones")
     opts = cli.parse_args()
     card = phase_device()
     phase_build()
@@ -2079,7 +2280,7 @@ def main() -> int:
     from inpaintnet_tpu_torch.models.presets import build_flagship
 
     _, vae, model = build_flagship(seed=0, device="cuda", dtype=torch.float32)
-    report = phase_kernels(vae, model.max_target, card)
+    report = phase_kernels(vae, model.max_target, card, parent)
     report.update(phase_train_kernels(card, parent))
     phase_reference(model)
     engine16, launches, span_bf16 = phase_engine(model, "bfloat16", card)
@@ -2090,7 +2291,7 @@ def main() -> int:
     from inpaintnet_tpu_torch.models.presets import build_arnn
 
     arnn = build_arnn(seed=0, device="cuda")
-    report.update(phase_arnn_kernel(arnn, card, parent))
+    report.update(phase_arnn_kernel(arnn, card))
     phase_arnn_reference()
     arnn_engine, launches_arnn = phase_arnn_engine(arnn, card)
     launches_arnn_http = phase_arnn_http(engine8, arnn_engine, card)

@@ -144,8 +144,6 @@ __device__ __forceinline__ void lstm_epilogue(Pre pre, uint32_t* c, int U, int u
       c[(16 * warp + g + 8 * half) * (U / 2) + (uc + 8 * n8 + 2 * q) / 2] = c_new[n8][half];
 }
 
-__device__ __forceinline__ float bf_pick(uint32_t v, int e) { return e ? bf_hi(v) : bf_lo(v); }
-
 // layer 0: gates = ((prev_xw + ctx_t @ W_ctx) + b_ih0) + (h0 @ W_hh0 + b_hh0)
 template <int MAXC>
 __device__ __forceinline__ void arnn_layer0(const ArnnArgs& p, const ArnnCta& k,

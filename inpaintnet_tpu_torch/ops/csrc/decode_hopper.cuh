@@ -1,32 +1,49 @@
-// The Hopper design of K2's bf16 route (decode_sampling.cu): the 24-tick
-// 2-layer tick-GRU argmax decode on gru_layer_hopper.cuh's cluster
-// recurrence. It replaces, in bf16, the TPU kernel
-// inpaintnet_tpu/ops/decode_pallas.py decode_sampling_pallas.
+// The Hopper design of K2's bf16 route (decode_sampling.cu) and of K4
+// (decode_sampling_int8.cu): the 24-tick 2-layer tick-GRU argmax decode on
+// gru_layer_hopper.cuh's cluster recurrence, one kernel templated on the
+// operand type (bf16 or int8). It replaces the TPU kernels
+// inpaintnet_tpu/ops/decode_pallas.py decode_sampling_pallas (in bf16) and
+// decode_sampling_pallas_int8.
 //
 // What bounds it on an H100: every tick runs a serial chain, layer 0 ->
 // layer 1 -> head -> argmax -> the fed-back token, each product a 64-row
 // tile by an (H, 3H) weight streamed from L2 (three of them and the (H, 64)
-// head: 4.6 MB at H 512 a tick). The mma.sync kernel this replaces walked
-// each product as a chain of dependent L2 fragment loads; and at 2,048 or 6
-// rows too few row tiles exist to fill the card.
+// head: 4.6 MB of bf16 at H 512 a tick, 2.3 MB of int8). The mma.sync
+// kernels this replaces walked each product as a chain of dependent L2
+// fragment loads; and at 2,048 or 6 rows too few row tiles exist to fill
+// the card.
 //
 // Design, per 64-row tile and cluster of C CTAs (decode_kernel.launch_plan
-// picks C from the rows):
-// - Each CTA holds the whole h0 and h1 tiles (the A operands; 2 x 64 KB at
-//   H 512, bf16, swizzled) and computes U = H / C units of each layer, its
-//   W_hh0, W_ih1 and W_hh1 gate slabs streaming through the consumer
-//   warpgroups' TMA rings into wgmma (a producer warp per ring, running
-//   ahead across layers and ticks). Layer 1's r and z columns take one
-//   accumulator over K = 2H (x- and h-products summed, one 64 x 64 tile);
-//   n keeps x @ W_ih1 and h @ W_hh1 apart (two 64 x 32 tiles), because
-//   n = tanh(xn + r * hn).
+// picks K2's C from the rows, int8_plan K4's):
+// - Each CTA holds the whole h0 and h1 tiles (the A operands, swizzled:
+//   2 x 64 KB of bf16 at H 512, 2 x 32 KB of int8) and computes U = H / C
+//   units of each layer, its W_hh0, W_ih1 and W_hh1 gate slabs streaming
+//   through the consumer warpgroups' TMA rings into wgmma (a producer warp
+//   per ring, running ahead across layers and ticks; the rest of the
+//   producer warpgroup idles and hands its registers to the consumers,
+//   setmaxnreg). Layer 1 takes h0' @ W_ih1 and h1 @ W_hh1 in accumulators
+//   of their own, summed in the plain version's order, (x + b_ih1) +
+//   (h + b_hh1): one accumulator over K = 2H summed them as ((x + h) +
+//   b_ih1) + b_hh1, which drifted from the plain version (PERF.md).
 // - After each layer a CTA pushes its k-blocks of the new h to its peers
 //   (gru_layer_hopper.cuh write_and_push); the next product waits on the
-//   tile's `full` mbarrier. The new h is written in place once the CTA's
-//   products have read the old one, so two tiles, not four, fit beside the
-//   rings.
+//   tile's `full` mbarrier. In bf16 the new h is written in place once every
+//   CTA's products have read the old one (the `done` mbarrier), so two
+//   tiles, not four, fit beside the rings.
+// - int8 (K4, decode_i8_kernel): s8 wgmma (m64nNk32, int32 sums, exact).
+//   8-bit wgmma takes both operands K-major, so the int8 tiles and slabs use
+//   the 64-byte swizzle: one 64-unit block of h is a 64-byte row, as one of
+//   bf16 is a 128-byte row, and the packed slabs (decode_kernel.
+//   pack_decode_weights, the bf16 route's layout) are 96 x 64 bytes, two a
+//   TMA box. Its tiles are half the bf16 ones' bytes, so four fit: each
+//   layer's h is double-buffered by tick parity, and a CTA writes its new
+//   blocks straight into the other buffer, its own and its peers', with no
+//   wait for the cluster to finish reading the old h (no `done` round trip
+//   and no registers holding the new h). A peer writes a buffer two ticks
+//   after it was last read, and only after it has received this CTA's blocks
+//   of the tick between, which this CTA pushed after that read.
 // - Every CTA needs the fed-back token, so every CTA recomputes the small
-//   head (a 64 x 32 wgmma tile over H in each warpgroup) and the argmax on
+//   head (a 64 x 48 wgmma tile over H in each warpgroup) and the argmax on
 //   its own identical h1: no second exchange. The argmax of a row runs in
 //   the four lanes that hold its columns (two shuffles), then across the two
 //   warpgroups in shared memory, first index among equal maxima over the V
@@ -38,6 +55,13 @@
 //   (x_0's projection at tick 0) plus ctx_xw summed in f32, ReLU logits in
 //   f32, written in bf16; both hiddens reset to the beat's init hiddens at
 //   t % 6 == 0.
+// - Numerics as K4 (decode_kernel.decode_sampling_int8_reference, bit for
+//   bit): each row's scale q = 127 / bound, dq = 1 / q (a true division);
+//   every product dequantized as ((acc * column scale) * dq) + bias; the
+//   gates in f32 on the dequantized carry (int8 * dq); the new carry
+//   round_half_even(h * q) clamped to +-127; the fed-back token's
+//   projection tok_q[tok] * s_tok rounded to the master dtype T before
+//   ctx_xw is added; every multiply and add rounded on its own.
 #pragma once
 
 #include <limits.h>
@@ -50,7 +74,12 @@ namespace rec90 {
 
 constexpr int kTicks = 24;
 constexpr int kTicksPerBeat = 6;
-constexpr int kHeadCols = 64;  // the head's vocabulary, zero-padded: one 64 x 64 tile
+constexpr int kHeadCols = 96;  // the head's vocabulary, zero-padded: a 96-row chunk, 48 a warpgroup
+// a whole producer warpgroup (two warps feed the rings, two idle), so that
+// setmaxnreg can hand its registers to the consumers, whose layer 1 holds
+// two accumulators
+constexpr int kDecodeThreads = kConsumerThreads + 128;
+constexpr int kDecodeProducerRegs = 40, kDecodeConsumerRegs = 232;
 
 struct DecodeArgs {
   const __nv_bfloat16* ctx_xw;   // (4, B, 3H): beat-context part of x @ W_ih0, b_ih0 folded in
@@ -59,28 +88,89 @@ struct DecodeArgs {
   const __nv_bfloat16* tok_tab;  // (V, 3H): emb @ W_ih0[:E]
   const __nv_bfloat16* x0_xw;    // (3H,): x_0 @ W_ih0[:E], the tick-0 input
   const __nv_bfloat16* bias;     // (3, 3H): b_hh0, b_ih1, b_hh1
-  const __nv_bfloat16* head_b;   // (64,), zero past V
+  const __nv_bfloat16* head_b;   // (96,), zero past V
   __nv_bfloat16* logits;         // (B, 24, V)
   int* samples;                  // (B, 24)
   int B, H, V, stages;
 };
 
+// K4's: T is the master dtype (ctx_xw, x0_xw and the logits), bf16 or f32
+template <typename T>
+struct DecodeI8Args {
+  const T* ctx_xw;       // (4, B, 3H): beat-context part of x @ W_ih0, b_ih0 folded in
+  const int8_t* hi0;     // (4, B, H) per-beat layer-0 init hiddens, quantized at q
+  const int8_t* hi1;     // (4, B, H) per-beat layer-1 init hiddens, quantized at q
+  const float* q;        // (B,) each row's hidden scale 127 / bound
+  const int8_t* tok_q;   // (V, 3H) quantized emb @ W_ih0[:E]
+  const T* x0_xw;        // (3H,): x_0 @ W_ih0[:E], the tick-0 input
+  const float* scales;   // (4, 3H): column scales of W_hh0, W_ih1, W_hh1, tok_q
+  const float* bias;     // (3, 3H) f32: b_hh0, b_ih1, b_hh1
+  const float* head_s;   // (96,) the head's column scales, zero past V
+  const float* head_b;   // (96,) f32, zero past V
+  T* logits;             // (B, 24, V)
+  int* samples;          // (B, 24)
+  int B, H, V, stages;
+};
+
+// K4's int8 tiles and slabs: rows of 64 bytes (64 units or 64 of K) with
+// the 64-byte swizzle
+constexpr int kBlockI8 = kRows * 64;      // a 64-unit k-block of an int8 h tile: 4 KB
+constexpr int kSlabI8 = kSlabRows * 64;   // a chunk's k-slab of int8 weights: 6 KB
+using RingI8 = RingT<kSlabI8>;
+
+// A pair of adjacent T values in registers: one 32-bit load of bf16, one
+// 64-bit load of f32.
+template <typename T> struct Two;
+template <> struct Two<__nv_bfloat16> {
+  using V = uint32_t;
+  __device__ static V ld(const __nv_bfloat16* p) { return ldg_u32(p); }
+  __device__ static float get(V v, int e) { return e ? bf_hi(v) : bf_lo(v); }
+};
+template <> struct Two<float> {
+  using V = float2;
+  __device__ static V ld(const float* p) { return __ldg(reinterpret_cast<const float2*>(p)); }
+  __device__ static float get(V v, int e) { return e ? v.y : v.x; }
+};
+
+__device__ __forceinline__ float2 ldg_f2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ uint16_t ldg_u16(const int8_t* p) {
+  return __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+__device__ __forceinline__ float s8_of(uint32_t pair, int e) {  // int8 e of an int8 pair
+  return (float)(int8_t)(pair >> (8 * e));
+}
+__device__ __forceinline__ uint16_t pack_s8(int8_t lo, int8_t hi) {
+  return (uint16_t)((uint8_t)lo | ((uint16_t)(uint8_t)hi << 8));
+}
+// the int8 pair of units (jp, jp + 1) of row r of a K4 h tile, its bytes
+__device__ __forceinline__ uint16_t& s8_pair(unsigned char* tile, int r, int jp) {
+  return *reinterpret_cast<uint16_t*>(tile + sw64_offset(r, jp, kRows));
+}
+__device__ __forceinline__ uint32_t old_pair_s8(const unsigned char* tile, int r, int jp) {
+  return *reinterpret_cast<const uint16_t*>(tile + sw64_offset(r, jp, kRows));
+}
+
 // What every consumer thread of a decode CTA reads in each layer.
 struct DecodeCta {
-  unsigned char* h0t;  // the layer-0 and layer-1 h tiles (swizzled bf16)
+  unsigned char* h0t;  // K2: the layer-0 and layer-1 h tiles (swizzled)
   unsigned char* h1t;
   int* prev_tok;       // each row's fed-back token, -1: x_0
+  const float* row_q;  // K4: each row's q and dq = 1 / q (64 rows)
+  const float* row_dq;
   int H, KB, tile0, chunk0, nch, wg;
 };
 
-// Each layer, and the head, is a function of its own; each layer ends with
-// its h exchanged.
+// ---------------------------------------------------------------------------
+// K2 (bf16)
+// ---------------------------------------------------------------------------
 
 // layer 0: xw = the fed-back token's row + the beat context (summed in
 // f32); hw = h0 @ W_hh0 + b_hh0
 template <int MAXC>
 __device__ __forceinline__ void decode_layer0(const DecodeArgs& p, const DecodeCta& k, Ring& rg,
-                                           const Exchange& ex, int t) {
+                                              const Exchange& ex, int t) {
   const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2,
             q = lane & 3;
   const int H = k.H, H3 = 3 * H, beat = t / kTicksPerBeat;
@@ -149,10 +239,11 @@ __device__ __forceinline__ void decode_layer0(const DecodeArgs& p, const DecodeC
   if (ex.C > 1) mbar_wait_bounded<true>(ex.full, t & 1);
 }
 
-// layer 1: xw = h0' @ W_ih1 + b_ih1; hw = h1 @ W_hh1 + b_hh1
+// layer 1: xw = h0' @ W_ih1 + b_ih1; hw = h1 @ W_hh1 + b_hh1, each product
+// in an accumulator of its own
 template <int MAXC>
 __device__ __forceinline__ void decode_layer1(const DecodeArgs& p, const DecodeCta& k, Ring& rg,
-                                           const Exchange& ex, int t) {
+                                              const Exchange& ex, int t) {
   const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2,
             q = lane & 3;
   const int H = k.H, H3 = 3 * H;
@@ -163,44 +254,33 @@ __device__ __forceinline__ void decode_layer1(const DecodeArgs& p, const DecodeC
   for (int ci = 0; ci < MAXC; ++ci) {
     const int c = k.wg + ci * kConsumers;
     if (c < k.nch) {
-      const int j0 = (k.chunk0 + c) * kUnits;
-      uint32_t bi[3][4], bh[3][4];  // b_ih1 and b_hh1 pairs of the thread's units
-#pragma unroll
-      for (int gate = 0; gate < 3; ++gate)
-#pragma unroll
-        for (int n8 = 0; n8 < 4; ++n8) {
-          bi[gate][n8] = ldg_u32(bih1 + gate * H + j0 + 8 * n8 + 2 * q);
-          bh[gate][n8] = ldg_u32(bhh1 + gate * H + j0 + 8 * n8 + 2 * q);
-        }
-      // acc: x @ W_ih1's r, z, n columns (a 64 x 96 tile), then h1 @ W_hh1's
-      // r and z columns added into its first 64 (their n columns apart in hn)
-      float acc[48], hn[16];
-      float(&rz)[32] = *reinterpret_cast<float(*)[32]>(acc);
+      const int j0 = (k.chunk0 + c) * kUnits + opaque_zero();
+      float ax[48], ah[48];
       rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
-        mma_slab(acc, desc_sw128(k.h0t + kk * kBlockBytes), desc_sw128(slab), kk > 0);
+        mma_slab(ax, desc_sw128(k.h0t + kk * kBlockBytes), desc_sw128(slab), kk > 0);
       });
       rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
-        const uint64_t a = desc_sw128(k.h1t + kk * kBlockBytes);
-        mma_slab(rz, a, desc_sw128(slab), true);
-        mma_slab(hn, a, desc_sw128(slab + 2 * kUnits * 128), kk > 0);
+        mma_slab(ah, desc_sw128(k.h1t + kk * kBlockBytes), desc_sw128(slab), kk > 0);
       });
-      fence_operands(acc);
-      fence_operands(hn);
-      // r and z: (the x- and h-product sums) + b_ih, then + b_hh in gru_gate
+      fence_operands(ax);
+      fence_operands(ah);
 #pragma unroll
       for (int n8 = 0; n8 < 4; ++n8) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const uint32_t old = old_pair(k.h1t, 16 * warp + g + 8 * half, j0 + 8 * n8 + 2 * q);
+          const int jp = j0 + 8 * n8 + 2 * q;
+          const uint32_t old = old_pair(k.h1t, 16 * warp + g + 8 * half, jp);
           float hv[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int a = 4 * n8 + 2 * half + e;
-            const auto pick = [e](uint32_t v) { return e ? bf_hi(v) : bf_lo(v); };
-            hv[e] = gru_gate(__fadd_rn(acc[a], pick(bi[0][n8])), pick(bh[0][n8]),
-                             __fadd_rn(acc[16 + a], pick(bi[1][n8])), pick(bh[1][n8]),
-                             __fadd_rn(acc[32 + a], pick(bi[2][n8])),
-                             __fadd_rn(hn[a], pick(bh[2][n8])), pick(old));
+            float x[3], h[3];  // (x @ W_ih1 + b_ih1), (h @ W_hh1 + b_hh1) of each gate
+#pragma unroll
+            for (int gate = 0; gate < 3; ++gate) {
+              x[gate] = __fadd_rn(ax[16 * gate + a], bf_pick(ldg_u32(bih1 + gate * H + jp), e));
+              h[gate] = __fadd_rn(ah[16 * gate + a], bf_pick(ldg_u32(bhh1 + gate * H + jp), e));
+            }
+            hv[e] = gru_gate(x[0], h[0], x[1], h[1], x[2], h[2], bf_pick(old, e));
           }
           hold[ci][2 * n8 + half] = pack_bf16(hv[0], hv[1]);
         }
@@ -211,31 +291,249 @@ __device__ __forceinline__ void decode_layer1(const DecodeArgs& p, const DecodeC
   if (ex.C > 1) mbar_wait_bounded<true>(ex.full, t & 1);
 }
 
-// The ReLU head and the first-index argmax, in every CTA on its own
-// (identical) h1: warpgroup w takes the logits' columns [32w, 32w + 32), a
-// 64 x 32 tile over K = H; a row's 32 columns sit in the four lanes of a
-// quad (two shuffles), and the two warpgroups' bests meet in shared memory,
-// warpgroup 0's winning ties (its columns come first). CTA 0 of the cluster
-// writes the logits and the tokens.
-__device__ __forceinline__ void decode_head(const DecodeArgs& p, const DecodeCta& k, Ring& rg,
-                                            uint32_t rank, int t, float (&best_s)[kConsumers][kRows],
-                                            int (&arg_s)[kConsumers][kRows]) {
+// ---------------------------------------------------------------------------
+// K4 (int8)
+// ---------------------------------------------------------------------------
+
+// K4's exchange of a layer's new h (see the design note): this CTA's
+// k-blocks of a buffer, pushed into every peer's same buffer, each push
+// completing on that peer's `full` mbarrier of the buffer
+struct PushExchange {
+  int C;
+  uint32_t rank;
+  int kb0, nkb;     // this CTA's k-blocks
+  uint64_t* full;   // the buffer's: completes when every peer's blocks have landed here
+  // every consumer thread, after it wrote its part of the new h into `tile`:
+  // hand them to the async proxy; thread p pushes this CTA's blocks to peer
+  // p, thread 0 arms `full` for the peers' blocks; then wait for those
+  __device__ void publish(unsigned char* tile, uint32_t parity, int tid) const {
+    fence_proxy_async();
+    named_barrier(kBar, kConsumerThreads);
+    if (C == 1) return;
+    if (tid < C && tid != (int)rank) {
+      const uint32_t bar = mapa(smem_u32(full), tid);
+      for (int b = 0; b < nkb; ++b) {
+        unsigned char* blk = tile + (kb0 + b) * kBlockI8;
+        bulk_copy_to_cluster(mapa(smem_u32(blk), tid), blk, kBlockI8, bar);
+      }
+    }
+    if (tid == 0) mbar_expect_tx(full, (uint32_t)((C - 1) * nkb * kBlockI8));
+    mbar_wait_bounded<true>(full, parity);
+  }
+};
+
+// layer 0 on h0 `hr`, its new h0 into `hw`: xw = T(tok_q[tok] * s_tok)
+// (x0_xw at tick 0) + the beat context, in f32; hw = ((acc * s_whh0) * dq)
+// + b_hh0; the old carry int8 * dq
+template <int MAXC, typename T>
+__device__ __forceinline__ void decode_layer0(const DecodeI8Args<T>& p, const DecodeCta& k,
+                                              RingI8& rg, const unsigned char* hr,
+                                              unsigned char* hw, int t) {
+  using Tr = Traits<T>;
+  using TT = Two<T>;
   const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2,
             q = lane & 3;
-  const int col0 = 32 * k.wg;
-  float lg[16];
+  const int H = k.H, H3 = 3 * H, beat = t / kTicksPerBeat;
+  const float* s_whh0 = p.scales;
+  const float* s_tok = p.scales + 3 * H3;
+#pragma unroll
+  for (int ci = 0; ci < MAXC; ++ci) {
+    const int c = k.wg + ci * kConsumers;
+    if (c < k.nch) {
+      const int j0 = (k.chunk0 + c) * kUnits;
+      // the token's int8 row and the beat context of the thread's two rows,
+      // loaded before the products (pairs; rows past B take the token's row
+      // alone, and are never stored)
+      uint16_t tv[2][3][4];
+      typename TT::V cv[2][3][4];
+      int prev[2];
+      bool in[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 16 * warp + g + 8 * half, row = k.tile0 + r;
+        prev[half] = k.prev_tok[r];
+        in[half] = row < p.B;
+        const int8_t* tk = p.tok_q + (size_t)(prev[half] < 0 ? 0 : prev[half]) * H3 + j0 + 2 * q;
+        const T* ctx = p.ctx_xw + ((size_t)beat * p.B + (in[half] ? row : 0)) * H3 + j0 + 2 * q;
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+          for (int n8 = 0; n8 < 4; ++n8) {
+            tv[half][gate][n8] = ldg_u16(tk + gate * H + 8 * n8);
+            cv[half][gate][n8] = TT::ld(ctx + gate * H + 8 * n8);
+          }
+      }
+      int acc[48];
+      rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
+        mma_slab64(acc, desc_sw64(hr + kk * kBlockI8), desc_sw64(slab), kk > 0);
+      });
+      fence_operands(acc);
+#pragma unroll
+      for (int n8 = 0; n8 < 4; ++n8) {
+        const int jp = j0 + 8 * n8 + 2 * q;
+        float2 sw[3], bh[3], st[3];  // the pair's column scales and b_hh0 of each gate
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate) {
+          sw[gate] = ldg_f2(s_whh0 + gate * H + jp);
+          bh[gate] = ldg_f2(p.bias + gate * H + jp);
+          st[gate] = ldg_f2(s_tok + gate * H + jp);
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = 16 * warp + g + 8 * half;
+          const float qv = k.row_q[r], dq = k.row_dq[r];
+          const uint32_t old = old_pair_s8(hr, r, jp);
+          int8_t hq[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int a = 4 * n8 + 2 * half + e;
+            const auto pick = [e](float2 v) { return e ? v.y : v.x; };
+            float x[3], h[3];
+#pragma unroll
+            for (int gate = 0; gate < 3; ++gate) {
+              const float fb =
+                  prev[half] < 0
+                      ? Tr::to_f(p.x0_xw[gate * H + jp + e])
+                      : Tr::to_f(Tr::from_f(
+                            __fmul_rn(s8_of(tv[half][gate][n8], e), pick(st[gate]))));
+              x[gate] = in[half] ? __fadd_rn(fb, TT::get(cv[half][gate][n8], e)) : fb;
+              h[gate] = dequant(acc[16 * gate + a], pick(sw[gate]), dq, pick(bh[gate]));
+            }
+            const float hold = __fmul_rn(s8_of(old, e), dq);  // the old carry
+            hq[e] = quant_h(gru_gate(x[0], h[0], x[1], h[1], x[2], h[2], hold), qv);
+          }
+          s8_pair(hw, r, jp) = pack_s8(hq[0], hq[1]);
+        }
+      }
+    }
+  }
+}
+
+// layer 1 on h0' `h0n` and h1 `hr`, its new h1 into `hw`: xw = ((h0' @
+// W_ih1) * s_wih1) * dq + b_ih1; hw = ((h1 @ W_hh1) * s_whh1) * dq + b_hh1,
+// each int32 product in an accumulator of its own
+template <int MAXC, typename T>
+__device__ __forceinline__ void decode_layer1(const DecodeI8Args<T>& p, const DecodeCta& k,
+                                              RingI8& rg, const unsigned char* h0n,
+                                              const unsigned char* hr, unsigned char* hw) {
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2,
+            q = lane & 3;
+  const int H = k.H, H3 = 3 * H;
+  const float* s_wih1 = p.scales + H3;
+  const float* s_whh1 = p.scales + 2 * H3;
+  const float* b_ih1 = p.bias + H3;
+  const float* b_hh1 = p.bias + 2 * H3;
+#pragma unroll
+  for (int ci = 0; ci < MAXC; ++ci) {
+    const int c = k.wg + ci * kConsumers;
+    if (c < k.nch) {
+      const int j0 = (k.chunk0 + c) * kUnits + opaque_zero();
+      int ax[48], ah[48];
+      rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
+        mma_slab64(ax, desc_sw64(h0n + kk * kBlockI8), desc_sw64(slab), kk > 0);
+      });
+      rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
+        mma_slab64(ah, desc_sw64(hr + kk * kBlockI8), desc_sw64(slab), kk > 0);
+      });
+      fence_operands(ax);
+      fence_operands(ah);
+#pragma unroll
+      for (int n8 = 0; n8 < 4; ++n8) {
+        const int jp = j0 + 8 * n8 + 2 * q;
+        float2 sx[3], sh[3], bx[3], bh[3];
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate) {
+          const int col = gate * H + jp;
+          sx[gate] = ldg_f2(s_wih1 + col);
+          sh[gate] = ldg_f2(s_whh1 + col);
+          bx[gate] = ldg_f2(b_ih1 + col);
+          bh[gate] = ldg_f2(b_hh1 + col);
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = 16 * warp + g + 8 * half;
+          const float qv = k.row_q[r], dq = k.row_dq[r];
+          const uint32_t old = old_pair_s8(hr, r, jp);
+          int8_t hq[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int a = 4 * n8 + 2 * half + e;
+            const auto pick = [e](float2 v) { return e ? v.y : v.x; };
+            float x[3], h[3];
+#pragma unroll
+            for (int gate = 0; gate < 3; ++gate) {
+              x[gate] = dequant(ax[16 * gate + a], pick(sx[gate]), dq, pick(bx[gate]));
+              h[gate] = dequant(ah[16 * gate + a], pick(sh[gate]), dq, pick(bh[gate]));
+            }
+            const float hold = __fmul_rn(s8_of(old, e), dq);  // the old carry
+            hq[e] = quant_h(gru_gate(x[0], h[0], x[1], h[1], x[2], h[2], hold), qv);
+          }
+          s8_pair(hw, r, jp) = pack_s8(hq[0], hq[1]);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The head: warpgroup w takes the logits' columns [48w, 48w + 48), a 64 x 48
+// tile over K = H, in every CTA on its own (identical) h1
+// ---------------------------------------------------------------------------
+
+// K2: relu(h1 @ W + b) in f32
+__device__ __forceinline__ void head_logits(const DecodeArgs& p, const DecodeCta& k, Ring& rg,
+                                            float (&lg)[24]) {
+  const int col0 = 48 * k.wg, lane = threadIdx.x & 31, q = lane & 3;
   rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
     mma_slab(lg, desc_sw128(k.h1t + kk * kBlockBytes), desc_sw128(slab + col0 * 128), kk > 0);
   });
   fence_operands(lg);
-  // lg[i]: row 16 warp + g + 8 ((i / 2) % 2), column col0 + 8 (i / 4) + 2q + i % 2
+#pragma unroll
+  for (int i = 0; i < 24; ++i) {
+    const int col = col0 + 8 * (i >> 2) + 2 * q + (i & 1);
+    lg[i] = fmaxf(__fadd_rn(lg[i], __bfloat162float(p.head_b[col])), 0.0f);
+  }
+}
+
+// K4: relu(((acc * head_s) * dq) + head_b) in f32
+template <typename T>
+__device__ __forceinline__ void head_logits(const DecodeI8Args<T>& p, const DecodeCta& k,
+                                            RingI8& rg, const unsigned char* h1, float (&lg)[24]) {
+  const int col0 = 48 * k.wg, tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31,
+            g = lane >> 2, q = lane & 3;
+  int acc[24];
+  rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
+    mma_slab64(acc, desc_sw64(h1 + kk * kBlockI8), desc_sw64(slab + col0 * 64), kk > 0);
+  });
+  fence_operands(acc);
+#pragma unroll
+  for (int i = 0; i < 24; ++i) {
+    const int col = col0 + 8 * (i >> 2) + 2 * q + (i & 1);
+    const float dq = k.row_dq[16 * warp + g + 8 * ((i >> 1) & 1)];
+    lg[i] = fmaxf(dequant(acc[i], p.head_s[col], dq, p.head_b[col]), 0.0f);
+  }
+}
+
+// The first-index argmax of the logits lg[i] (row 16 warp + g + 8 ((i / 2)
+// % 2), column 48 wg + 8 (i / 4) + 2q + i % 2): a row's 48 columns sit in the
+// four lanes of a quad (two shuffles), and the two warpgroups' bests meet in
+// shared memory, warpgroup 0's winning ties (its columns come first). CTA 0
+// of the cluster writes the logits (rounded to OutT) and the tokens.
+template <typename OutT>
+__device__ __forceinline__ void head_argmax(const float (&lg)[24], OutT* logits, int* samples,
+                                            int B, int V, const DecodeCta& k, uint32_t rank,
+                                            int t, float (&best_s)[kConsumers][kRows],
+                                            int (&arg_s)[kConsumers][kRows]) {
+  using Tr = Traits<OutT>;
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2,
+            q = lane & 3;
+  const int col0 = 48 * k.wg;
   float best[2] = {-INFINITY, -INFINITY};
   int arg[2] = {INT_MAX, INT_MAX};
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < 24; ++i) {
     const int half = (i >> 1) & 1, col = col0 + 8 * (i >> 2) + 2 * q + (i & 1);
-    lg[i] = fmaxf(__fadd_rn(lg[i], __bfloat162float(p.head_b[col])), 0.0f);
-    if (col < p.V && lg[i] > best[half]) {  // columns ascend: the first of equal maxima
+    if (col < V && lg[i] > best[half]) {  // columns ascend: the first of equal maxima
       best[half] = lg[i];
       arg[half] = col;
     }
@@ -243,7 +541,7 @@ __device__ __forceinline__ void decode_head(const DecodeArgs& p, const DecodeCta
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
 #pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {  // the quad holding the row's 32 columns
+    for (int off = 1; off <= 2; off <<= 1) {  // the quad holding the row's 48 columns
       const float ob = __shfl_xor_sync(0xffffffffu, best[half], off);
       const int oa = __shfl_xor_sync(0xffffffffu, arg[half], off);
       if (ob > best[half] || (ob == best[half] && oa < arg[half])) {
@@ -256,14 +554,14 @@ __device__ __forceinline__ void decode_head(const DecodeArgs& p, const DecodeCta
       best_s[k.wg][r] = best[half];
       arg_s[k.wg][r] = arg[half];
     }
-    if (rank == 0 && row < p.B) {
-      __nv_bfloat16* out = p.logits + ((size_t)row * kTicks + t) * p.V;
+    if (rank == 0 && row < B) {
+      OutT* out = logits + ((size_t)row * kTicks + t) * V;
 #pragma unroll
-      for (int i = 2 * half; i < 16; i += 4) {
+      for (int i = 2 * half; i < 24; i += 4) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = col0 + 8 * (i >> 2) + 2 * q + e;
-          if (col < p.V) out[col] = __float2bfloat16_rn(lg[i + e]);
+          if (col < V) out[col] = Tr::from_f(lg[i + e]);
         }
       }
     }
@@ -273,16 +571,51 @@ __device__ __forceinline__ void decode_head(const DecodeArgs& p, const DecodeCta
     const int a = best_s[1][tid] > best_s[0][tid] ? arg_s[1][tid] : arg_s[0][tid];
     k.prev_tok[tid] = a;
     const int row = k.tile0 + tid;
-    if (rank == 0 && row < p.B) p.samples[(size_t)row * kTicks + t] = a;
+    if (rank == 0 && row < B) samples[(size_t)row * kTicks + t] = a;
   }
 }
 
-// The packed weights the map covers (decode_kernel.pack_decode_weights):
-// W_hh0, W_ih1 and W_hh1 as gru_kernel.pack_gate_blocks lays them out (H / 32
-// chunks each of H / 64 contiguous 96 x 64 k-slabs), then the head's W^T as
-// one more chunk: rows 0..V-1 its columns, zero rows after.
+// each row's q and dq (K4; rows past B take q = 127)
+template <typename T>
+__device__ __forceinline__ void init_row_scale(const DecodeI8Args<T>& p, int r, float* row_q,
+                                               float* row_dq) {
+  const int row = (int)(blockIdx.x / cluster_nctarank()) * kRows + r;
+  const float qv = row < p.B ? p.q[row] : 127.0f;
+  row_q[r] = qv;
+  row_dq[r] = 1.0f / qv;  // a true division, as the plain version's
+}
+
+// The producer warps of a decode CTA, in the consumers' order of use: the
+// packed weights the map covers (decode_kernel.pack_decode_weights, bf16 or
+// int8) are W_hh0, W_ih1 and W_hh1 as gru_kernel.pack_gate_blocks lays them
+// out (H / 32 chunks each of H / 64 contiguous 96 x 64 k-slabs), then the
+// head's W^T as one more chunk: rows 0..V-1 its columns, zero rows after.
+template <int kSlab>
+__device__ __forceinline__ void feed_decode(const CUtensorMap* map, unsigned char* ring,
+                                            uint64_t (&full_bar)[kConsumers][kMaxStages],
+                                            uint64_t (&empty_bar)[kConsumers][kMaxStages],
+                                            int stages, int ks, int H, int KB, int nch,
+                                            int chunk0) {
+  setmaxnreg_dec<kDecodeProducerRegs>();
+  const int w = (threadIdx.x >> 5) & 3;
+  if (w < kConsumers && (threadIdx.x & 31) == 0) {
+    FeedT<kSlab> f{map, ring + w * stages * ks * kSlab, full_bar[w], empty_bar[w], stages, ks,
+                   0, 0};
+    const int chunks = H / kUnits;  // the chunks of one packed weight
+    for (int t = 0; t < kTicks; ++t) {
+      for (int c = w; c < nch; c += kConsumers) f.slabs((chunk0 + c) * KB, KB);
+      for (int c = w; c < nch; c += kConsumers) {
+        f.slabs((chunks + chunk0 + c) * KB, KB);
+        f.slabs((2 * chunks + chunk0 + c) * KB, KB);
+      }
+      f.slabs(3 * chunks * KB, KB);  // the head: each warpgroup takes half of it
+    }
+  }
+}
+
+// K2
 template <int MAXC>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kDecodeThreads, 1)
     decode_kernel(const __grid_constant__ CUtensorMap w_map, const __grid_constant__ DecodeArgs p) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[kConsumers][kMaxStages];
@@ -317,30 +650,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   cluster_sync();
 
-  if (wg == kConsumers) {  // the producer warps, in the consumers' order of use
-    const int w = (threadIdx.x >> 5) & 3;
-    if ((threadIdx.x & 31) == 0) {
-      Feed f{&w_map, ring + w * p.stages * ks * kSlabBytes, full_bar[w], empty_bar[w],
-             p.stages, ks, 0, 0};
-      const int chunks = H / kUnits;  // the chunks of one packed weight
-      for (int t = 0; t < kTicks; ++t) {
-        for (int c = w; c < nch; c += kConsumers) f.slabs((chunk0 + c) * KB, KB);
-        for (int c = w; c < nch; c += kConsumers) {
-          f.slabs((chunks + chunk0 + c) * KB, KB);
-          f.slabs((2 * chunks + chunk0 + c) * KB, KB);
-        }
-        f.slabs(3 * chunks * KB, KB);  // the head: each warpgroup takes half of it
-      }
-    }
+  if (wg == kConsumers) {
+    feed_decode<kSlabBytes>(&w_map, ring, full_bar, empty_bar, p.stages, ks, H, KB, nch, chunk0);
     cluster_sync();
     return;
   }
 
+  setmaxnreg_inc<kDecodeConsumerRegs>();
   const int tid = threadIdx.x;
   Ring rg{ring + wg * p.stages * ks * kSlabBytes, full_bar[wg], empty_bar[wg], p.stages, ks, 0, 0};
   const Exchange ex0{C, rank, (int)rank * (U / 64), U / 64, &h_full[0], &h_done[0]};
   const Exchange ex1{C, rank, (int)rank * (U / 64), U / 64, &h_full[1], &h_done[1]};
-  const DecodeCta cta{h0t, h1t, prev_tok, H, KB, tile0, chunk0, nch, wg};
+  const DecodeCta cta{h0t, h1t, prev_tok, nullptr, nullptr, H, KB, tile0, chunk0, nch, wg};
 
   for (int t = 0; t < kTicks; ++t) {
     const int beat = t / kTicksPerBeat;
@@ -354,20 +675,106 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     decode_layer0<MAXC>(p, cta, rg, ex0, t);
     decode_layer1<MAXC>(p, cta, rg, ex1, t);
-    decode_head(p, cta, rg, rank, t, head_best, head_arg);
+    float lg[24];
+    head_logits(p, cta, rg, lg);
+    head_argmax(lg, p.logits, p.samples, B, p.V, cta, rank, t, head_best, head_arg);
   }
   cluster_sync();
 }
 
+// K4: h0 and h1 each in two int8 tiles, tick t reading buffer t % 2 and
+// writing buffer (t + 1) % 2
+template <typename T, int MAXC>
+__global__ void __launch_bounds__(kDecodeThreads, 1)
+    decode_i8_kernel(const __grid_constant__ CUtensorMap w_map,
+                     const __grid_constant__ DecodeI8Args<T> p) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kConsumers][kMaxStages];
+  __shared__ __align__(8) uint64_t empty_bar[kConsumers][kMaxStages];
+  __shared__ __align__(8) uint64_t h_full[2][2];  // [layer][buffer]
+  __shared__ int prev_tok[kRows];
+  __shared__ float row_q[kRows], row_dq[kRows];
+  __shared__ float head_best[kConsumers][kRows];
+  __shared__ int head_arg[kConsumers][kRows];
+  const int H = p.H, KB = H / 64, ks = box_slabs(H), B = p.B;
+  unsigned char* h0t[2];
+  unsigned char* h1t[2];
+  h0t[0] = align1024(smem_raw);
+  h0t[1] = h0t[0] + KB * kBlockI8;
+  h1t[0] = h0t[1] + KB * kBlockI8;
+  h1t[1] = h1t[0] + KB * kBlockI8;
+  unsigned char* ring = h1t[1] + KB * kBlockI8;
+  const int C = (int)cluster_nctarank();
+  const uint32_t rank = cluster_ctarank();
+  const int U = H / C, nch = U / kUnits, chunk0 = (int)rank * nch;
+  const int tile0 = (int)(blockIdx.x / C) * kRows;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kConsumers; ++w)
+      for (int s = 0; s < p.stages; ++s) {
+        mbar_init(&full_bar[w][s], 1);
+        mbar_init(&empty_bar[w][s], 4);
+      }
+    for (int l = 0; l < 2; ++l)
+      for (int b = 0; b < 2; ++b) mbar_init(&h_full[l][b], 1);
+    fence_barrier_init();
+  }
+  if (threadIdx.x < kRows) {
+    prev_tok[threadIdx.x] = -1;
+    init_row_scale(p, threadIdx.x, row_q, row_dq);
+  }
+  __syncthreads();
+  cluster_sync();
+
+  if (wg == kConsumers) {
+    feed_decode<kSlabI8>(&w_map, ring, full_bar, empty_bar, p.stages, ks, H, KB, nch, chunk0);
+    cluster_sync();
+    return;
+  }
+
+  setmaxnreg_inc<kDecodeConsumerRegs>();
+  const int tid = threadIdx.x;
+  RingI8 rg{ring + wg * p.stages * ks * kSlabI8, full_bar[wg], empty_bar[wg], p.stages, ks, 0, 0};
+  const DecodeCta cta{nullptr, nullptr, prev_tok, row_q, row_dq, H, KB, tile0, chunk0, nch, wg};
+  const int kb0 = (int)rank * (U / 64);
+
+  for (int t = 0; t < kTicks; ++t) {
+    const int beat = t / kTicksPerBeat, rb = t & 1, wb = rb ^ 1;
+    const uint32_t parity = (uint32_t)(t >> 1) & 1;  // buffer wb's uses so far, mod 2
+    // the last tick's head is done: prev_tok is set
+    named_barrier(kBar, kConsumerThreads);
+    if (t % kTicksPerBeat == 0) {  // t even: the read buffers are 0
+      load_h_tile(h0t[rb], p.hi0 + (size_t)beat * B * H, tile0, B, H, tid);
+      load_h_tile(h1t[rb], p.hi1 + (size_t)beat * B * H, tile0, B, H, tid);
+      fence_proxy_async();
+      named_barrier(kBar, kConsumerThreads);
+    }
+    decode_layer0<MAXC>(p, cta, rg, h0t[rb], h0t[wb], t);
+    PushExchange{C, rank, kb0, U / 64, &h_full[0][wb]}.publish(h0t[wb], parity, tid);
+    decode_layer1<MAXC>(p, cta, rg, h0t[wb], h1t[rb], h1t[wb]);
+    PushExchange{C, rank, kb0, U / 64, &h_full[1][wb]}.publish(h1t[wb], parity, tid);
+    float lg[24];
+    head_logits(p, cta, rg, h1t[wb], lg);
+    head_argmax(lg, p.logits, p.samples, B, p.V, cta, rank, t, head_best, head_arg);
+  }
+  cluster_sync();
+}
+
+// K2's dynamic shared memory: two bf16 h tiles and the rings; K4's: four
+// int8 tiles and the rings
+inline size_t decode_smem_bytes(int H, int stages) { return smem_bytes(H, 2, stages); }
+inline size_t decode_i8_smem_bytes(int H, int stages) { return smem_bytes(H, 4, stages, 64); }
+
 inline int decode_slots(int H, int C, int stages) {
   if (!plan_fits(H, C, stages, 2)) return -1;
-  const size_t smem = smem_bytes(H, 2, stages);
+  const size_t smem = decode_smem_bytes(H, stages);
   switch (chunks_per_warpgroup(H, C)) {
-    case 1: return max_clusters(decode_kernel<1>, C, smem);
-    case 2: return max_clusters(decode_kernel<2>, C, smem);
+    case 1: return max_clusters(decode_kernel<1>, C, smem, kDecodeThreads);
+    case 2: return max_clusters(decode_kernel<2>, C, smem, kDecodeThreads);
     case 3:
-    case 4: return max_clusters(decode_kernel<4>, C, smem);
-    default: return max_clusters(decode_kernel<8>, C, smem);
+    case 4: return max_clusters(decode_kernel<4>, C, smem, kDecodeThreads);
+    default: return max_clusters(decode_kernel<8>, C, smem, kDecodeThreads);
   }
 }
 
@@ -376,16 +783,44 @@ inline cudaError_t launch_decode(const CUtensorMap& map, const DecodeArgs& a, in
   if (!plan_fits(a.H, C, a.stages, 2) || a.B < 1 || a.V < 1 || a.V > kHeadCols)
     return cudaErrorInvalidValue;
   const int clusters = (a.B + kRows - 1) / kRows;
-  const size_t smem = smem_bytes(a.H, 2, a.stages);
+  const size_t smem = decode_smem_bytes(a.H, a.stages);
   switch (chunks_per_warpgroup(a.H, C)) {
-    case 1: return launch_clusters(decode_kernel<1>, clusters, C, smem, stream, map, a);
-    case 2: return launch_clusters(decode_kernel<2>, clusters, C, smem, stream, map, a);
+    case 1: return launch_clusters(decode_kernel<1>, clusters, C, smem, stream, map, a,
+                                   kDecodeThreads);
+    case 2: return launch_clusters(decode_kernel<2>, clusters, C, smem, stream, map, a,
+                                   kDecodeThreads);
     case 3:
-    case 4: return launch_clusters(decode_kernel<4>, clusters, C, smem, stream, map, a);
+    case 4: return launch_clusters(decode_kernel<4>, clusters, C, smem, stream, map, a,
+                                   kDecodeThreads);
     case 5:
     case 6:
     case 7:
-    case 8: return launch_clusters(decode_kernel<8>, clusters, C, smem, stream, map, a);
+    case 8: return launch_clusters(decode_kernel<8>, clusters, C, smem, stream, map, a,
+                                   kDecodeThreads);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+inline cudaError_t launch_decode_i8(const CUtensorMap& map, const DecodeI8Args<T>& a, int C,
+                                    cudaStream_t stream) {
+  if (!plan_fits(a.H, C, a.stages, 4, 64) || a.B < 1 || a.V < 1 || a.V > kHeadCols)
+    return cudaErrorInvalidValue;
+  const int clusters = (a.B + kRows - 1) / kRows;
+  const size_t smem = decode_i8_smem_bytes(a.H, a.stages);
+  switch (chunks_per_warpgroup(a.H, C)) {
+    case 1: return launch_clusters(decode_i8_kernel<T, 1>, clusters, C, smem, stream, map, a,
+                                   kDecodeThreads);
+    case 2: return launch_clusters(decode_i8_kernel<T, 2>, clusters, C, smem, stream, map, a,
+                                   kDecodeThreads);
+    case 3:
+    case 4: return launch_clusters(decode_i8_kernel<T, 4>, clusters, C, smem, stream, map, a,
+                                   kDecodeThreads);
+    case 5:
+    case 6:
+    case 7:
+    case 8: return launch_clusters(decode_i8_kernel<T, 8>, clusters, C, smem, stream, map, a,
+                                   kDecodeThreads);
     default: return cudaErrorInvalidValue;
   }
 }

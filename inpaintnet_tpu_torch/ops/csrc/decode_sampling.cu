@@ -229,7 +229,7 @@ extern "C" int inpaint_decode_sampling_f32(const void* ctx_xw, const void* hi0, 
 // packed weights (decode_kernel.pack_decode_weights); `cluster`
 // CTAs share each 64-row tile and `stages` is the depth of each consumer
 // warpgroup's ring (decode_kernel.launch_plan); bias (3, 3H) holds b_hh0,
-// b_ih1, b_hh1 and head_b (64,) the head's bias zero-padded; V at most 64.
+// b_ih1, b_hh1 and head_b (96,) the head's bias zero-padded; V at most 96.
 extern "C" int inpaint_decode_sampling_bf16(const void* map, const void* ctx_xw, const void* hi0,
                                             const void* hi1, const void* tok_tab,
                                             const void* x0_xw, const void* bias,

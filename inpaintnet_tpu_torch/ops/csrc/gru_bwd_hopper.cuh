@@ -91,19 +91,6 @@ template <> struct Io<__nv_bfloat16> {
   }
 };
 
-// the three bf16 pieces of x: x == hi + mid + lo to within 2^-24 of |x|
-// (each difference is exact in f32)
-__device__ __forceinline__ void split3(float x, __nv_bfloat16 (&p)[3]) {
-  p[0] = __float2bfloat16_rn(x);
-  const float r1 = __fsub_rn(x, __bfloat162float(p[0]));
-  p[1] = __float2bfloat16_rn(r1);
-  p[2] = __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(p[1])));
-}
-
-__device__ __forceinline__ void fence_proxy_async_global() {
-  asm volatile("fence.proxy.async.global;\n" ::: "memory");
-}
-
 // one k16 step of a 64 x N product (N = 32 or 64 by the fragment)
 __device__ __forceinline__ void wgmma_k16(float (&d)[16], uint64_t a, uint64_t b, int acc) {
   wgmma_bf16_n32(d, a, b, acc);

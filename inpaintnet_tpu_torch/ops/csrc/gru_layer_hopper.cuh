@@ -1,6 +1,7 @@
 // The Hopper design of K8's bf16 route (gru_layer.cu), and the pieces that
-// K2's bf16 route (decode_hopper.cuh) shares with it: a GRU recurrence whose
-// hidden units are split across the CTAs of a thread-block cluster. It
+// K2 and K4 (decode_hopper.cuh) and K7's bf16 route share with it: a GRU
+// recurrence whose hidden units are split across the CTAs of a thread-block
+// cluster. It
 // replaces, in bf16, the TPU kernel inpaintnet_tpu/ops/gru_pallas.py
 // gru_layer_pallas_stream (and gru_layer_pallas, gru_layer_pallas_dma,
 // which compute the same function).
@@ -86,6 +87,7 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 
 __device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
+__device__ __forceinline__ float bf_pick(uint32_t v, int e) { return e ? bf_hi(v) : bf_lo(v); }
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -105,7 +107,9 @@ __device__ __forceinline__ uint32_t ldg_u32(const __nv_bfloat16* p) {
 // k-slabs a TMA box (and a ring stage) holds: 2 where the 64-unit blocks
 // pair up. A box costs the TMA unit about the same time whatever its size
 // (0.17-0.22 us measured on an H100 for 12-48 KB), so two slabs a box
-// double a ring's rate (PERF.md).
+// double a ring's rate (PERF.md). K4's int8 slabs are half the bytes, and
+// two of them a box (12 KB, 4 stages) beat four (24 KB, 2 stages; PERF.md):
+// the consumer starts on a stage sooner.
 __host__ __device__ __forceinline__ int box_slabs(int H) { return (H / 64) % 2 == 0 ? 2 : 1; }
 
 // The producer side of one consumer warpgroup's ring: a stage is a box of
@@ -171,14 +175,24 @@ struct RingT {
 };
 using Ring = RingT<>;
 
-// rows [row0, row0 + 64) of a (rows_total, H) bf16 matrix into a swizzled
-// h tile, zeros past rows_total: sixteen 16-byte loads in flight a thread
-// before their stores, a whole tile at H 512 (a load-then-store loop waits
-// out each load's latency in turn: ~26 us for two 64 KB tiles)
-__device__ __forceinline__ void load_h_tile(unsigned char* tile, const __nv_bfloat16* src,
-                                            int row0, int rows_total, int H, int tid) {
-  constexpr int kBatch = 16;
-  const int per_row = H / 8;  // 16-byte pieces
+// Byte offset of byte `kbyte` of row r in an h tile of T (bf16: 128-byte
+// rows, 128-byte swizzle; K4's int8: 64-byte rows, 64-byte swizzle).
+__device__ __forceinline__ int tile_offset(const __nv_bfloat16*, int r, int kbyte) {
+  return sw128_offset(r, kbyte, kRows);
+}
+__device__ __forceinline__ int tile_offset(const int8_t*, int r, int kbyte) {
+  return sw64_offset(r, kbyte, kRows);
+}
+
+// rows [row0, row0 + 64) of a (rows_total, H) bf16 or int8 matrix into a
+// swizzled h tile, zeros past rows_total: sixteen 16-byte loads in flight a
+// thread before their stores, a whole tile at H 512 (a load-then-store loop
+// waits out each load's latency in turn: ~26 us for two 64 KB tiles)
+template <typename T>
+__device__ __forceinline__ void load_h_tile(unsigned char* tile, const T* src, int row0,
+                                            int rows_total, int H, int tid) {
+  constexpr int kBatch = 16, kPer = 16 / (int)sizeof(T);  // values a 16-byte piece
+  const int per_row = H / kPer;
   const int n = kRows * per_row;
   for (int i0 = tid; i0 < n; i0 += kBatch * kConsumerThreads) {
     uint4 v[kBatch];
@@ -187,12 +201,12 @@ __device__ __forceinline__ void load_h_tile(unsigned char* tile, const __nv_bflo
       const int i = i0 + b * kConsumerThreads, r = i / per_row, c = i % per_row;
       v[b] = make_uint4(0, 0, 0, 0);
       if (i < n && row0 + r < rows_total)
-        v[b] = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * H + c * 8));
+        v[b] = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * H + c * kPer));
     }
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
       const int i = i0 + b * kConsumerThreads, r = i / per_row, c = i % per_row;
-      if (i < n) *reinterpret_cast<uint4*>(tile + sw128_offset(r, c * 16, kRows)) = v[b];
+      if (i < n) *reinterpret_cast<uint4*>(tile + tile_offset(src, r, c * 16)) = v[b];
     }
   }
 }
@@ -229,7 +243,7 @@ struct Exchange {
 // After a layer's products and gates: once every warpgroup of this CTA has
 // read the old h (a named barrier), tell the cluster, write the new h held
 // in registers (hold[ci][2 * n8 + half]: the pair of units j0 + 8 n8 + 2q of
-// row 16 warp + g + 8 half of chunk wg + 4 ci) into the tile in place, hand
+// row 16 warp + g + 8 half of chunk wg + 2 ci) into the tile in place, hand
 // it to the async proxy, and push this CTA's k-blocks to the peers.
 template <int MAXC>
 __device__ __forceinline__ void write_and_push(unsigned char* tile, const Exchange& ex,
@@ -433,20 +447,26 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster_sync();
 }
 
-// dynamic shared memory of a recurrence block: `tiles` h tiles and the rings
-inline size_t smem_bytes(int H, int tiles, int stages) {
-  return (size_t)tiles * (H / 64) * kBlockBytes +
-         (size_t)kConsumers * stages * box_slabs(H) * kSlabBytes + 1024;
+// dynamic shared memory of a recurrence block: `tiles` h tiles and the
+// rings (`row_bytes`: 128 for bf16 tiles and slabs, 64 for K4's int8 ones)
+inline size_t smem_bytes(int H, int tiles, int stages, int row_bytes = 128) {
+  return (size_t)tiles * (H / 64) * kRows * row_bytes +
+         (size_t)kConsumers * stages * box_slabs(H) * kSlabRows * row_bytes + 1024;
 }
 
-// A 3D tensor map over packed gate slabs: `blocks` contiguous 96 x 64 bf16
-// k-slabs (rows of 128 bytes, K-major), loaded box_slabs(H) consecutive
-// slabs a box with the 128-byte swizzle.
-inline cudaError_t make_slab_map(CUtensorMap* map, const void* packed, int blocks, int H) {
+// A 3D tensor map over packed gate slabs: `blocks` contiguous 96 x 64
+// k-slabs (K-major; bf16 rows of 128 bytes with the 128-byte swizzle, or
+// with `int8` K4's int8 rows of 64 bytes with the 64-byte swizzle), loaded
+// box_slabs consecutive slabs a box.
+inline cudaError_t make_slab_map(CUtensorMap* map, const void* packed, int blocks, int H,
+                                 bool int8 = false) {
+  const int row_bytes = int8 ? 64 : 128;
   const uint64_t dims[3] = {64, (uint64_t)kSlabRows, (uint64_t)blocks};
-  const uint64_t strides[2] = {128, (uint64_t)kSlabBytes};
+  const uint64_t strides[2] = {(uint64_t)row_bytes, (uint64_t)kSlabRows * row_bytes};
   const uint32_t box[3] = {64, (uint32_t)kSlabRows, (uint32_t)box_slabs(H)};
-  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, packed, dims, strides, box);
+  return make_map(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  3, packed, dims, strides, box,
+                  int8 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Launch `kernel` on `clusters` clusters of C CTAs of `threads` threads
@@ -501,14 +521,14 @@ inline int max_clusters(Kernel kernel, int C, size_t smem, int threads = kThread
   return n;
 }
 
-// The launch's checks, shared with K2: C in {1, 2, 4, 8} owning whole
-// 64-unit k-blocks each, at most 8 chunks a consumer warpgroup, a ring of
-// 2..kMaxStages stages that fits beside `tiles` h tiles.
-inline bool plan_fits(int H, int C, int stages, int tiles) {
+// The launch's checks, shared with K2 and K4: C in {1, 2, 4, 8} owning
+// whole 64-unit k-blocks each, at most 8 chunks a consumer warpgroup, a ring
+// of 2..kMaxStages stages that fits beside `tiles` h tiles.
+inline bool plan_fits(int H, int C, int stages, int tiles, int row_bytes = 128) {
   if (H % 64 != 0 || H <= 0 || C < 1 || C > kMaxCluster || (C & (C - 1)) != 0) return false;
   if ((H / 64) % C != 0 || H / C > 8 * kConsumers * kUnits) return false;
   if (stages < 2 || stages > kMaxStages) return false;
-  return smem_bytes(H, tiles, stages) <= (size_t)kSmemBudget;
+  return smem_bytes(H, tiles, stages, row_bytes) <= (size_t)kSmemBudget;
 }
 
 inline int chunks_per_warpgroup(int H, int C) {

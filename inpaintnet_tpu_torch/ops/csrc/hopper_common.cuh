@@ -1,19 +1,23 @@
 // Hopper (sm_90a) building blocks of the wgmma kernels (encoder_hopper.cuh,
-// gru_layer_hopper.cuh, decode_hopper.cuh): mbarriers, TMA tile loads, the
-// shared-memory matrix descriptor of the 128-byte swizzle, the warpgroup
-// products (wgmma) of 64 x 256 and 64 x 96 tiles in bf16 -> f32 and
+// gru_layer_hopper.cuh, decode_hopper.cuh, gru_fwd_hopper.cuh,
+// gru_bwd_hopper.cuh): mbarriers, TMA tile loads, the shared-memory matrix
+// descriptors of the 128- and 64-byte swizzles, the warpgroup products
+// (wgmma) of 64 x 256, 64 x 96 and 64 x 48 tiles in bf16 -> f32 and
 // s8 -> s32 and of 64 x 128, 64 x 64 and 64 x 32 tiles in bf16 -> f32, the
-// thread-block
-// cluster pieces (rank, mapa, the cluster barrier, remote mbarrier arrivals,
-// bulk copies into a peer's shared memory), and the host's tensor-map
-// encoder.
+// thread-block cluster pieces (rank, mapa, the cluster barrier, remote
+// mbarrier arrivals, bulk copies into a peer's shared memory), and the
+// host's tensor-map encoder.
 //
-// Every operand a wgmma reads from shared memory here is "K-major with the
-// 128-byte swizzle": rows of 128 bytes (64 bf16 or 128 int8 values of the
-// reduction dimension), 8-row groups of 1,024 bytes, the 16-byte chunk c of
-// row r stored at chunk c ^ (r % 8). A TMA load with
-// CU_TENSOR_MAP_SWIZZLE_128B writes that layout; code that stores into it
-// by hand uses sw128_offset. Tiles start on 1,024-byte boundaries.
+// Every operand a wgmma reads from shared memory here is K-major and
+// swizzled. With the 128-byte swizzle: rows of 128 bytes (64 bf16 or 128
+// int8 values of the reduction dimension), 8-row groups of 1,024 bytes, the
+// 16-byte chunk c of row r stored at chunk c ^ (r % 8). With the 64-byte
+// swizzle (K4's int8 tiles, so that a 64-unit block of int8 h is one row of
+// 64 bytes, as a bf16 one is one row of 128): rows of 64 bytes, 8-row
+// groups of 512 bytes, chunk c of row r at chunk c ^ ((r / 2) % 4). A TMA
+// load with CU_TENSOR_MAP_SWIZZLE_128B / _64B writes those layouts; code
+// that stores into them by hand uses sw128_offset / sw64_offset. Tiles
+// start on 1,024-byte boundaries.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: nothing links against libcuda
@@ -71,6 +75,21 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// generic-proxy writes to global memory (K5's and K6's L2 scratch) become
+// visible to later TMA loads (async proxy)
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// the three bf16 pieces of x: x == hi + mid + lo to within 2^-24 of |x|
+// (each difference is exact in f32): K5's and K6's split f32 products
+__device__ __forceinline__ void split3(float x, __nv_bfloat16 (&p)[3]) {
+  p[0] = __float2bfloat16_rn(x);
+  const float r1 = __fsub_rn(x, __bfloat162float(p[0]));
+  p[1] = __float2bfloat16_rn(r1);
+  p[2] = __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(p[1])));
+}
+
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
@@ -95,6 +114,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
       : "memory");
 }
 
@@ -207,6 +236,13 @@ __device__ __forceinline__ int sw128_offset(int r, int kbyte, int rows) {
          (kbyte & 15);
 }
 
+// Byte offset of byte `kbyte` of row `r` in a K-major 64-byte-swizzled tile
+// of `rows` rows: k-blocks of 64 bytes, each rows x 64 bytes.
+__device__ __forceinline__ int sw64_offset(int r, int kbyte, int rows) {
+  return (kbyte >> 6) * rows * 64 + r * 64 + ((((kbyte >> 4) & 3) ^ ((r >> 1) & 3)) << 4) +
+         (kbyte & 15);
+}
+
 // wgmma shared-memory descriptor of a K-major 128-byte-swizzled tile:
 // start address >> 4, leading offset 16 bytes (unused by this layout),
 // stride 1,024 bytes between 8-row groups, layout 1 = 128-byte swizzle.
@@ -214,6 +250,12 @@ __device__ __forceinline__ int sw128_offset(int r, int kbyte, int rows) {
 __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   const uint64_t a = smem_u32(p);
   return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+// ... and of a K-major 64-byte-swizzled one: stride 512 bytes between
+// 8-row groups, layout 2 = 64-byte swizzle. A k32 s8 step (32 bytes) adds 2.
+__device__ __forceinline__ uint64_t desc_sw64(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (32ull << 32) | (2ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -258,6 +300,8 @@ __device__ __forceinline__ void fence_operands(int (&d)[N]) {
 #define INPAINT_D32                                                                          \
   "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"  \
   "%24,%25,%26,%27,%28,%29,%30,%31}"
+#define INPAINT_D24                                                                         \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23}"
 #define INPAINT_D16 "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}"
 #define INPAINT_OPS8(C, i)                                                                   \
   C(d[(i)]), C(d[(i) + 1]), C(d[(i) + 2]), C(d[(i) + 3]), C(d[(i) + 4]), C(d[(i) + 5]),      \
@@ -274,6 +318,7 @@ __device__ __forceinline__ void fence_operands(int (&d)[N]) {
 #define INPAINT_OPS32(C) \
   INPAINT_OPS8(C, 0), INPAINT_OPS8(C, 8), INPAINT_OPS8(C, 16), INPAINT_OPS8(C, 24)
 #define INPAINT_OPS16(C) INPAINT_OPS8(C, 0), INPAINT_OPS8(C, 8)
+#define INPAINT_OPS24(C) INPAINT_OPS16(C), INPAINT_OPS8(C, 16)
 #define INPAINT_OPS128(C)                                                                    \
   INPAINT_OPS96(C), INPAINT_OPS8(C, 96), INPAINT_OPS8(C, 104), INPAINT_OPS8(C, 112),         \
       INPAINT_OPS8(C, 120)
@@ -333,6 +378,32 @@ __device__ __forceinline__ void wgmma_s8_n96(int (&d)[48], uint64_t da, uint64_t
       ", %48, %49, p;\n"
       "}\n"
       : INPAINT_OPS48(INPAINT_R)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// the 64 x 48 tiles (K2's and K4's head): d[i] as above, 24 registers
+__device__ __forceinline__ void wgmma_bf16_n48(float (&d)[24], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 " INPAINT_D24
+      ", %24, %25, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : INPAINT_OPS24(INPAINT_F)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_s8_n48(int (&d)[24], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 " INPAINT_D24
+      ", %24, %25, p;\n"
+      "}\n"
+      : INPAINT_OPS24(INPAINT_R)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -398,6 +469,24 @@ __device__ __forceinline__ void mma_slab(int (&d)[48], uint64_t da, uint64_t db,
   for (int s = 0; s < 4; ++s) wgmma_s8_n96(d, da + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
 }
 
+// One 64-byte k-slab of an s8 product on 64-byte-swizzled operands (K4's):
+// two wgmma steps of 32 bytes.
+__device__ __forceinline__ void mma_slab64(int (&d)[48], uint64_t da, uint64_t db,
+                                           bool accumulate) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s) wgmma_s8_n96(d, da + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
+}
+__device__ __forceinline__ void mma_slab64(int (&d)[24], uint64_t da, uint64_t db,
+                                           bool accumulate) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s) wgmma_s8_n48(d, da + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
+}
+__device__ __forceinline__ void mma_slab(float (&d)[24], uint64_t da, uint64_t db,
+                                         bool accumulate) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) wgmma_bf16_n48(d, da + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
+}
+
 __device__ __forceinline__ void mma_slab(float (&d)[64], uint64_t da, uint64_t db,
                                          bool accumulate) {
 #pragma unroll
@@ -428,6 +517,8 @@ __device__ __forceinline__ void mma_slab(float (&d)[16], uint64_t da, uint64_t d
 #undef INPAINT_OPS64
 #undef INPAINT_D64
 #undef INPAINT_OPS16
+#undef INPAINT_OPS24
+#undef INPAINT_D24
 
 // ---------------------------------------------------------------------------
 // host: tensor maps
@@ -458,24 +549,25 @@ static inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A tensor map over a row-major array of `rank` dims (dims innermost first,
-// strides in bytes of dims 1..rank-1), loading boxes of `box` with the
-// 128-byte swizzle (box[0] * element size must be 128) and zero fill past
-// the edges.
+// A tensor map over a row-major array of `rank` (at most 5) dims (dims
+// innermost first, strides in bytes of dims 1..rank-1), loading boxes of
+// `box` with the 128-byte swizzle (box[0] * element size must be 128) or
+// the one given (64 bytes: 64), and zero fill past the edges.
 static inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                                    const void* ptr, const uint64_t* dims,
-                                   const uint64_t* strides, const uint32_t* box) {
+                                   const uint64_t* strides, const uint32_t* box,
+                                   CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  cuuint64_t d[3], s[2];
-  cuuint32_t b[3], e[3] = {1, 1, 1};
+  if (fn == nullptr || rank < 1 || rank > 5) return cudaErrorNotSupported;
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5], e[5] = {1, 1, 1, 1, 1};
   for (int i = 0; i < rank; ++i) {
     d[i] = dims[i];
     b[i] = box[i];
   }
   for (int i = 0; i + 1 < rank; ++i) s[i] = strides[i];
   const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(ptr), d, s, b, e,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

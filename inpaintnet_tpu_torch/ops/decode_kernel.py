@@ -20,7 +20,13 @@ TPU kernel's are.
 
 ``decode_sampling_int8`` (K4, ``csrc/decode_sampling_int8.cu``) is the int8
 serving twin (``decode_sampling_pallas_int8``), with
-``decode_sampling_int8_reference`` as its plain version.
+``decode_sampling_int8_reference`` as its plain version. It runs the same
+Hopper design on s8 ``wgmma`` (int8 h tiles and slabs with the 64-byte
+swizzle; :func:`int8_plan`) for bf16 and f32 masters, bit-equal to its
+plain version. Its operands come in two parts: the quantized weights,
+scales, packed slabs and tensor map, built once per set of weight tensors
+(:func:`decode_int8_weights`), and each call's row scales, quantized init
+hiddens and beat context (:func:`decode_int8_data`).
 
 The wrappers run the plain versions for CPU tensors only; for CUDA tensors
 they launch the kernel or raise.
@@ -36,10 +42,10 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     WeightCache,
     check_cuda_tensor,
     check_launch,
+    cluster_sizes,
     gru_gates_f32,
     kernel_supports_hidden,
     load_kernels,
-    pack_mma_b_s8,
     recurrence_plan,
     recurrence_slots,
     ring_stages,
@@ -51,7 +57,16 @@ from inpaintnet_tpu_torch.ops.quantize import dequantize_h, quantize_cols_int8, 
 
 NUM_TICKS = 24
 TICKS_PER_BEAT = 6
-HEAD_COLS = 64  # the bf16 route's head: one 64 x 64 wgmma tile, V zero-padded to 64
+HEAD_COLS = 96  # the Hopper routes' head: a 96-row chunk (48 columns a warpgroup), V zero-padded
+
+
+def _ctx_xw(params, tick_ctx: torch.Tensor) -> torch.Tensor:
+    """(4, B, 3H) = tick_ctx @ W_ih0[E:] + b_ih0 in the parameter dtype,
+    beat-major."""
+    p0 = params["tick_gru"][0][0]
+    E = params["embedding"]["table"].shape[1]
+    ctx_xw = (tick_ctx.float() @ p0["w_ih"][E:].float()).to(p0["w_hh"].dtype) + p0["b_ih"]
+    return ctx_xw.transpose(0, 1).contiguous()
 
 
 def decode_inputs(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor) -> dict:
@@ -62,13 +77,11 @@ def decode_inputs(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor) -> dict
     p0 = params["tick_gru"][0][0]
     dtype = p0["w_hh"].dtype
     emb = params["embedding"]["table"]
-    E = emb.shape[1]
-    w_tok, w_ctx = p0["w_ih"][:E].float(), p0["w_ih"][E:].float()
-    ctx_xw = (tick_ctx.float() @ w_ctx).to(dtype) + p0["b_ih"]
+    w_tok = p0["w_ih"][:emb.shape[1]].float()
     return {
         "tok_tab": (emb.float() @ w_tok).to(dtype),
         "x0_xw": (params["x_0"].float() @ w_tok).to(dtype),
-        "ctx_xw": ctx_xw.transpose(0, 1).contiguous(),
+        "ctx_xw": _ctx_xw(params, tick_ctx),
         "hi0": h_inits[0].transpose(0, 1).contiguous(),
         "hi1": h_inits[1].transpose(0, 1).contiguous(),
     }
@@ -155,14 +168,17 @@ def card_plan(rows: int, hidden: int, device) -> LaunchPlan:
 
 
 def pack_decode_weights(w_hh0, w_ih1, w_hh1, head_w) -> torch.Tensor:
-    """K2's bf16 weights as one array of (96, 64) k-slabs, (3 H / 32 + 1,
-    H / 64, 96, 64): W_hh0, W_ih1 and W_hh1 as ``pack_gate_blocks`` lays
-    them out, then the head's W^T as one more chunk (rows 0..V-1 its
-    columns, zero rows after)."""
+    """K2's bf16 or K4's int8 weights as one array of (96, 64) k-slabs,
+    (3 H / 32 + 1, H / 64, 96, 64): W_hh0, W_ih1 and W_hh1 as
+    ``pack_gate_blocks`` lays them out, then the head's W^T as one more
+    chunk (rows 0..V-1 its columns, zero rows after). A k-slab row is 64
+    values of K in either type: 128 bytes of bf16 (the 128-byte swizzle) or
+    64 of int8 (the 64-byte swizzle, which the 8-bit ``wgmma``'s K-major
+    operands need for 64-unit h blocks)."""
     hidden, vocab = head_w.shape
-    head_t = torch.zeros((96, hidden), dtype=head_w.dtype, device=head_w.device)
+    head_t = torch.zeros((HEAD_COLS, hidden), dtype=head_w.dtype, device=head_w.device)
     head_t[:vocab] = head_w.t()
-    head = head_t.reshape(1, 96, hidden // 64, 64).permute(0, 2, 1, 3)
+    head = head_t.reshape(1, HEAD_COLS, hidden // 64, 64).permute(0, 2, 1, 3)
     return torch.cat([pack_gate_blocks(w) for w in (w_hh0, w_ih1, w_hh1)] + [head]).contiguous()
 
 
@@ -188,7 +204,7 @@ def decode_sampling(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
     """K2: argmax decode of one measure per row.
 
     :param params: HierarchicalDecoder params, (in, out) weights, f32 or bf16
-        (bf16: a vocabulary of at most 64)
+        (bf16: a vocabulary of at most 96)
     :param tick_ctx: (B, 4, H) per-beat context (selu'd beat_to_tick_input)
     :param h_inits: (2, B, 4, H) per-beat tick-GRU init hiddens
     :return: (logits (B, 24, V) in the parameter dtype, samples (B, 24) int32)
@@ -234,9 +250,58 @@ decode_sampling.launches = 0  # kernel launches, for proving a run went through 
 # --------------------------------------------------------------------------- #
 # K4: the int8 twin of K2
 # --------------------------------------------------------------------------- #
+def _int8_weights(w_hh0, w_ih1, w_hh1, head_w, emb, w_ih0, x_0, b_hh0, b_ih1, b_hh1, head_b):
+    """K4's weight part (see :func:`decode_int8_operands`)."""
+    E = emb.shape[1]
+    w_tok = w_ih0[:E].float()
+    out = {"x0_xw": (x_0.float() @ w_tok).to(w_hh0.dtype)}
+    scales = []
+    for name, w in (("whh0_q", w_hh0), ("wih1_q", w_ih1), ("whh1_q", w_hh1),
+                    ("tok_q", emb.float() @ w_tok)):
+        out[name], s = quantize_cols_int8(w)
+        scales.append(s[0])
+    out["scales"] = torch.stack(scales)
+    out["head_q"], s_head = quantize_cols_int8(head_w)
+    out["head_s"] = s_head[0]
+    out["bias"] = torch.stack([b_hh0, b_ih1, b_hh1]).float()
+    out["head_b"] = head_b.float()
+    return out
+
+
+def _int8_weight_tensors(params) -> tuple:
+    """The weight tensors K4's weight part is built from, in
+    :func:`_int8_weights`' order."""
+    p0, p1 = params["tick_gru"][0][0], params["tick_gru"][1][0]
+    return (p0["w_hh"], p1["w_ih"], p1["w_hh"], params["head"]["w"],
+            params["embedding"]["table"], p0["w_ih"], params["x_0"], p0["b_hh"], p1["b_ih"],
+            p1["b_hh"], params["head"]["b"])
+
+
+def decode_int8_data(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor) -> dict:
+    """K4's data part, built on every call (see :func:`decode_int8_operands`):
+    ``q``, ``hi0``, ``hi1`` and ``ctx_xw``."""
+    bound = torch.clamp_min(h_inits.float().abs().amax(dim=(0, 2, 3)), 1.0)
+    # a true division: ``127.0 / bound`` would be ``reciprocal(bound) * 127``
+    q = torch.div(bound.new_tensor(127.0), bound)
+    return {"q": q, "ctx_xw": _ctx_xw(params, tick_ctx),
+            "hi0": quantize_h_int8(h_inits[0], q[:, None, None]).transpose(0, 1).contiguous(),
+            "hi1": quantize_h_int8(h_inits[1], q[:, None, None]).transpose(0, 1).contiguous()}
+
+
 def decode_int8_operands(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor) -> dict:
-    """K4's operands, computed per call outside the kernel as the TPU
-    kernel's are (``decode_pallas.py:474-508``):
+    """K4's operands, computed outside the kernel as the TPU kernel's are
+    (``decode_pallas.py:474-508``). The weight part (built once per set of
+    weight tensors by the wrapper, :func:`decode_int8_weights`):
+
+    - ``x0_xw`` (3H,): as K2's, in the parameter dtype;
+    - ``tok_q`` (V, 3H) int8: the token table ``emb @ W_ih0[:E]`` taken in
+      f32 and quantized;
+    - ``whh0_q``, ``wih1_q``, ``whh1_q`` (H, 3H), ``head_q`` (H, V) int8;
+    - ``scales`` (4, 3H) f32: the column scales of W_hh0, W_ih1, W_hh1 and
+      the token table; ``head_s`` (V,) f32;
+    - ``bias`` (3, 3H) f32: b_hh0, b_ih1, b_hh1; ``head_b`` (V,) f32.
+
+    The data part (built on every call, :func:`decode_int8_data`):
 
     - ``q`` (B,) f32: each row's hidden scale ``127 / bound`` with
       ``bound = max(1, max|h_inits[:, row]|)`` over both layers and all four
@@ -244,34 +309,42 @@ def decode_int8_operands(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor) 
       depend on its own inputs only (solo == coalesced, bit for bit);
     - ``hi0``/``hi1`` (4, B, H) int8: the beat-major init hiddens quantized
       at their row's ``q``;
-    - ``ctx_xw`` (4, B, 3H), ``x0_xw`` (3H,): as K2's, in the parameter dtype;
-    - ``tok_q`` (V, 3H) int8: the token table ``emb @ W_ih0[:E]`` taken in
-      f32 and quantized;
-    - ``whh0_q``, ``wih1_q``, ``whh1_q`` (H, 3H), ``head_q`` (H, V) int8;
-    - ``scales`` (4, 3H) f32: the column scales of W_hh0, W_ih1, W_hh1 and
-      the token table; ``head_s`` (V,) f32;
-    - ``bias`` (3, 3H) f32: b_hh0, b_ih1, b_hh1; ``head_b`` (V,) f32.
+    - ``ctx_xw`` (4, B, 3H): as K2's, in the parameter dtype.
     """
-    p0, p1 = params["tick_gru"][0][0], params["tick_gru"][1][0]
-    emb = params["embedding"]["table"]
-    ins = decode_inputs(params, tick_ctx, h_inits)
-    bound = torch.clamp_min(h_inits.float().abs().amax(dim=(0, 2, 3)), 1.0)
-    # a true division: ``127.0 / bound`` would be ``reciprocal(bound) * 127``
-    q = torch.div(bound.new_tensor(127.0), bound)
-    out = {"q": q, "ctx_xw": ins["ctx_xw"], "x0_xw": ins["x0_xw"],
-           "hi0": quantize_h_int8(ins["hi0"], q[None, :, None]),
-           "hi1": quantize_h_int8(ins["hi1"], q[None, :, None])}
-    scales = []
-    for name, w in (("whh0_q", p0["w_hh"]), ("wih1_q", p1["w_ih"]), ("whh1_q", p1["w_hh"]),
-                    ("tok_q", emb.float() @ p0["w_ih"][:emb.shape[1]].float())):
-        out[name], s = quantize_cols_int8(w)
-        scales.append(s[0])
-    out["scales"] = torch.stack(scales)
-    out["head_q"], s_head = quantize_cols_int8(params["head"]["w"])
-    out["head_s"] = s_head[0]
-    out["bias"] = torch.stack([p0["b_hh"], p1["b_ih"], p1["b_hh"]]).float()
-    out["head_b"] = params["head"]["b"].float()
-    return out
+    return {**_int8_weights(*_int8_weight_tensors(params)),
+            **decode_int8_data(params, tick_ctx, h_inits)}
+
+
+def _build_decode_int8_weights(*weights) -> dict:
+    ops = _int8_weights(*weights)
+    pad = (0, HEAD_COLS - ops["head_q"].shape[1])
+    packed = pack_decode_weights(ops["whh0_q"], ops["wih1_q"], ops["whh1_q"], ops["head_q"])
+    buf, addr = slab_map(packed)
+    return {**ops, "packed": packed, "map": buf, "map_addr": addr,
+            "head_s_pad": torch.nn.functional.pad(ops["head_s"], pad),
+            "head_b_pad": torch.nn.functional.pad(ops["head_b"], pad)}
+
+
+# K4's weight part with its packed int8 slabs, their tensor map and the
+# head's padded scales and bias, built once per set of weight tensors
+decode_int8_weights = WeightCache(_build_decode_int8_weights)
+
+
+def int8_plan(hidden: int) -> LaunchPlan:
+    """How K4 runs ``hidden`` units, whatever the rows: the largest cluster
+    size (the fewest units a CTA) and the ring depth beside its four int8 h
+    tiles (each layer's double-buffered; together K2's two tiles' bytes).
+    Unlike K2's, whose plan weighs
+    waves of clusters against units a CTA, a K4 CTA's step chain grows
+    faster than its units (its layers' registers spill more with more
+    chunks a warpgroup): on an H100 at H 512, 8 CTAs a tile beat 2 and 4 at
+    12,288 rows, and every other size at 2,048 and 6, on both masters
+    (PERF.md). Raises ValueError for a width no cluster size splits."""
+    sizes = cluster_sizes(hidden)
+    stages = ring_stages(hidden, 4, 1)
+    if not sizes or stages < 2:
+        raise ValueError(f"no K4 plan for hidden size {hidden}")
+    return LaunchPlan(max(sizes), stages)
 
 
 def fed_back_xw(ops: dict, tok: torch.Tensor, dtype) -> torch.Tensor:
@@ -321,34 +394,33 @@ def decode_sampling_int8_reference(params, tick_ctx: torch.Tensor, h_inits: torc
 
 
 def decode_sampling_int8(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
-    """K4: ``decode_sampling`` with int8 products (``csrc/decode_sampling_int8.cu``;
-    it replaces ``inpaintnet_tpu/ops/decode_pallas.py
+    """K4: ``decode_sampling`` with int8 products (``csrc/decode_sampling_int8.cu``,
+    the Hopper design of ``csrc/decode_hopper.cuh`` on s8 ``wgmma``; it
+    replaces ``inpaintnet_tpu/ops/decode_pallas.py
     decode_sampling_pallas_int8``). Same arguments and results as
-    :func:`decode_sampling`; the numerics are
-    :func:`decode_sampling_int8_reference`'s."""
+    :func:`decode_sampling` (a vocabulary of at most 96); the numerics are
+    :func:`decode_sampling_int8_reference`'s, bit for bit. Per call it
+    builds only the data part of its operands."""
     if tick_ctx.device.type == "cpu":
         return decode_sampling_int8_reference(params, tick_ctx, h_inits)
     if tick_ctx.device.type != "cuda":
         raise ValueError(f"decode_sampling_int8: no kernel for device {tick_ctx.device}")
     batch, hidden, vocab, dtype, device = _check_decode_args("decode_sampling_int8", params,
                                                              tick_ctx, h_inits)
-    ops = decode_int8_operands(params, tick_ctx, h_inits)
-    vocab_pad = round_up(vocab, 8)
-    pad = (0, vocab_pad - vocab)
-    head_s, head_b = (torch.nn.functional.pad(ops[k], pad) for k in ("head_s", "head_b"))
-    whh0, wih1, whh1, head_w = (
-        pack_mma_b_s8(w) for w in (ops["whh0_q"], ops["wih1_q"], ops["whh1_q"],
-                                   torch.nn.functional.pad(ops["head_q"], pad)))
+    if vocab > HEAD_COLS:
+        raise ValueError(f"decode_sampling_int8: no kernel for vocabulary {vocab} (at most "
+                         f"{HEAD_COLS})")
+    w = decode_int8_weights(*_int8_weight_tensors(params))
+    d = decode_int8_data(params, tick_ctx, h_inits)
+    plan = int8_plan(hidden)
     logits = torch.empty((batch, NUM_TICKS, vocab), dtype=dtype, device=device)
     samples = torch.empty((batch, NUM_TICKS), dtype=torch.int32, device=device)
-
     err = load_kernels().inpaint_decode_sampling_int8(
-        DTYPE_CODES[dtype], ops["ctx_xw"].data_ptr(), ops["hi0"].data_ptr(),
-        ops["hi1"].data_ptr(), ops["q"].data_ptr(), ops["tok_q"].data_ptr(),
-        ops["x0_xw"].data_ptr(), whh0.data_ptr(), wih1.data_ptr(), whh1.data_ptr(),
-        ops["scales"].data_ptr(), ops["bias"].data_ptr(), head_w.data_ptr(),
-        head_s.data_ptr(), head_b.data_ptr(), logits.data_ptr(), samples.data_ptr(),
-        batch, hidden, vocab, vocab_pad, stream_ptr())
+        DTYPE_CODES[dtype], w["map_addr"], d["ctx_xw"].data_ptr(), d["hi0"].data_ptr(),
+        d["hi1"].data_ptr(), d["q"].data_ptr(), w["tok_q"].data_ptr(), w["x0_xw"].data_ptr(),
+        w["scales"].data_ptr(), w["bias"].data_ptr(), w["head_s_pad"].data_ptr(),
+        w["head_b_pad"].data_ptr(), logits.data_ptr(), samples.data_ptr(), batch, hidden, vocab,
+        plan.cluster, plan.stages, stream_ptr())
     check_launch(err, "decode_sampling_int8")
     decode_sampling_int8.launches += 1
     return logits, samples

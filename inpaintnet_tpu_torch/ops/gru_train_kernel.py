@@ -1,14 +1,17 @@
 """K5 and K6: the forward and the sequential backward of one GRU layer
 direction in training.
 
-``gru_fwd_seq`` (K5) is the CUDA kernel ``csrc/gru_fwd_seq.cu`` and
-``gru_bwd_seq`` (K6) is the Hopper design of ``csrc/gru_bwd_hopper.cuh``
-(entry points in ``csrc/gru_bwd_seq.cu``); they replace the TPU kernels
-``inpaintnet_tpu/ops/gru_bwd_pallas.py gru_fwd_seq_pallas`` and
-``gru_bwd_seq_pallas`` (each source says what bounds it on the card and how
-its design answers). K6 runs its f32 product as bf16 ``wgmma`` passes over
-exact bf16 pieces (:func:`split_bf16_pieces`, :func:`pack_bwd_weights`), a
-cluster of CTAs sharing each 64-row tile (:func:`bwd_plan`).
+``gru_fwd_seq`` (K5) is the Hopper design of ``csrc/gru_fwd_hopper.cuh``
+(entry points in ``csrc/gru_fwd_seq.cu``) and ``gru_bwd_seq`` (K6) that of
+``csrc/gru_bwd_hopper.cuh`` (entry points in ``csrc/gru_bwd_seq.cu``); they
+replace the TPU kernels ``inpaintnet_tpu/ops/gru_bwd_pallas.py
+gru_fwd_seq_pallas`` and ``gru_bwd_seq_pallas`` (each source says what
+bounds it on the card and how its design answers). Both run their f32
+products as bf16 ``wgmma`` passes over exact bf16 pieces
+(:func:`split_bf16_pieces`; :func:`pack_fwd_weights`,
+:func:`pack_bwd_weights`), a cluster of CTAs sharing each 64-row tile
+(:func:`fwd_plan`, :func:`bwd_plan`) and exchanging the product's operand
+through an L2 scratch.
 ``gru_fwd_seq_reference`` and ``gru_bwd_seq_reference`` are their plain
 PyTorch versions, op for op the JAX kernels':
 
@@ -19,10 +22,11 @@ PyTorch versions, op for op the JAX kernels':
   UNROUNDED f32 dhw with W_hh upcast, accumulated in f32, in every dtype;
   da, dhw and dh0 stored in the parameter dtype.
 
-``fwd_carry``, ``bwd_product`` and ``bwd_carry`` hold the steps a kernel
-is most likely to get wrong (K5's carry precision, K6's product operand
-precision and dh carry), so a check can plant a fault in the plain
-versions and show that its bound rejects it.
+``fwd_carry``, ``fwd_product``, ``bwd_product`` and ``bwd_carry`` hold the
+steps a kernel is most likely to get wrong (K5's carry precision and
+product operand, K6's product operand precision and dh carry), so a check
+can plant a fault in the plain versions and show that its bound rejects
+it.
 
 The wrappers run the plain versions for CPU tensors only; for CUDA tensors
 they launch the kernel or raise.
@@ -33,6 +37,7 @@ import ctypes
 
 import torch
 
+from inpaintnet_tpu_torch.ops.encoder_kernel import pack_gate_blocks
 from inpaintnet_tpu_torch.ops.kernel_common import (
     DTYPE_CODES,
     HOPPER_ROWS,
@@ -43,7 +48,6 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     check_launch,
     kernel_supports_hidden,
     load_kernels,
-    pack_mma_b,
     stream_ptr,
 )
 
@@ -51,6 +55,12 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
 def fwd_carry(h_new: torch.Tensor) -> torch.Tensor:
     """K5's carry from one step to the next: the f32 state as it is."""
     return h_new
+
+
+def fwd_product(h: torch.Tensor, w_hh: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """K5's recurrent product: the f32 carry rounded to the parameter dtype,
+    @ f32 ``W_hh`` (H, 3H)."""
+    return h.to(dtype).float() @ w_hh
 
 
 def bwd_product(dhw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
@@ -83,7 +93,7 @@ def gru_fwd_seq_reference(w_hh: torch.Tensor, b_hh: torch.Tensor, xw: torch.Tens
     outs = [[None] * seq_len for _ in range(5)]
     for t in _order(seq_len, reverse):
         xwt = xw[:, t].float()
-        hw = h.to(dtype).float() @ whh + bhh
+        hw = fwd_product(h, whh, dtype) + bhh
         r = torch.sigmoid(xwt[:, :hidden] + hw[:, :hidden])
         z = torch.sigmoid(xwt[:, hidden:2 * hidden] + hw[:, hidden:2 * hidden])
         hn = hw[:, 2 * hidden:]
@@ -148,21 +158,117 @@ def gru_fwd_seq(w_hh: torch.Tensor, b_hh: torch.Tensor, xw: torch.Tensor, h0: to
         return gru_fwd_seq_reference(w_hh, b_hh, xw, h0, reverse=reverse)
     dtype, device = xw.dtype, xw.device
     hidden = _check_common("gru_fwd_seq", w_hh, device, dtype)
+    if not fwd_cluster_sizes(hidden, dtype):
+        raise ValueError(f"gru_fwd_seq: no kernel for hidden size {hidden} in {dtype}")
     batch, seq_len = xw.shape[:2]
     check_cuda_tensor("xw", xw, (batch, seq_len, 3 * hidden), dtype, device)
     check_cuda_tensor("b_hh", b_hh, (3 * hidden,), dtype, device)
     check_cuda_tensor("h0", h0, (batch, hidden), dtype, device)
-    whh = pack_mma_b(w_hh)
+    plan = fwd_plan(hidden, dtype)
+    map_addr = fwd_w_map(fwd_operands(w_hh), hidden, hidden // plan.cluster)
+    pieces = bwd_weight_pieces(dtype)
+    tiles = -(-batch // HOPPER_ROWS)
+    scratch = torch.empty((tiles, 2, pieces, HOPPER_ROWS, hidden), dtype=torch.bfloat16,
+                          device=device)
     out = torch.empty((5, seq_len, batch, hidden), dtype=dtype, device=device)
-    err = load_kernels().inpaint_gru_fwd_seq(
-        DTYPE_CODES[dtype], xw.data_ptr(), whh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
-        out.data_ptr(), batch, seq_len, hidden, int(reverse), stream_ptr())
+    err = load_kernels().inpaint_gru_fwd_hopper(
+        DTYPE_CODES[dtype], map_addr, xw.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), batch, seq_len, hidden, int(reverse), plan.cluster,
+        plan.stages, stream_ptr())
     check_launch(err, "gru_fwd_seq")
     gru_fwd_seq.launches += 1
     return tuple(out.unbind(0))
 
 
 gru_fwd_seq.launches = 0  # kernel launches, for proving a run went through K5
+
+
+# --------------------------------------------------------------------------- #
+# K5's Hopper route (csrc/gru_fwd_hopper.cuh)
+# --------------------------------------------------------------------------- #
+FWD_MAX_CLUSTER = 8
+FWD_MAX_STAGES = 6
+FWD_CARRY_PAD = 8  # f32 padding of the carry's rows in shared memory
+FWD_PIECE_BYTES = HOPPER_ROWS * 128  # a 64-wide k-slab of one piece of T(h)
+FWD_SLAB_BYTES = 96 * 128  # a 32-unit chunk's r, z, n rows of a W piece x 64 of K
+
+
+def fwd_max_units(dtype) -> int:
+    """Units a K5 CTA owns at most: in f32 64 (a consumer warpgroup's one
+    32-unit chunk takes three 64 x 96 f32 accumulators: the sum and two
+    k-slab partials), in bf16 128 (two chunks, one accumulator each)."""
+    return 128 if dtype == torch.bfloat16 else 64
+
+
+def fwd_ring_stages(units: int, pieces: int) -> int:
+    """Ring stages of a K5 CTA owning ``units`` units (``gru_fwd_hopper.cuh
+    smem_bytes``): a stage is a 64-wide k-slab of T(h)'s pieces (8 KB each)
+    and of the CTA's gate slabs in every W piece (12 KB a 32-unit chunk),
+    beside the f32 carry (64 rows of the units) and, in bf16 (one piece),
+    the two output buffers of each consumer warpgroup (64 rows of
+    ``units / 2 + 8`` bf16)."""
+    stage = pieces * FWD_PIECE_BYTES + pieces * (units // 32) * FWD_SLAB_BYTES
+    carry = HOPPER_ROWS * (units + FWD_CARRY_PAD) * 4
+    staging = 2 * 2 * HOPPER_ROWS * (units // 2 + 8) * 2 if pieces == 1 else 0
+    return min(FWD_MAX_STAGES, (HOPPER_SMEM_BUDGET - 1024 - carry - staging) // stage)
+
+
+def fwd_cluster_sizes(hidden: int, dtype) -> list:
+    """Cluster sizes K5 can run ``hidden`` units at: 1-8 CTAs owning whole
+    64-unit blocks, at most :func:`fwd_max_units` each, with a ring of at
+    least two stages (f32: H / 64 CTAs; bf16: that and half of it)."""
+    if hidden % 64 or hidden <= 0:
+        return []
+    pieces = bwd_weight_pieces(dtype)
+    return [c for c in range(1, FWD_MAX_CLUSTER + 1)
+            if (hidden // 64) % c == 0 and hidden // c <= fwd_max_units(dtype)
+            and fwd_ring_stages(hidden // c, pieces) >= 2]
+
+
+def fwd_plan(hidden: int, dtype) -> LaunchPlan:
+    """How K5 runs ``hidden`` units, whatever the rows: the largest cluster
+    size, so the fewest units a CTA, as :func:`bwd_plan` (each step is one
+    serial chain in each CTA whose length grows with its units). Raises
+    ValueError for a width no cluster size takes."""
+    sizes = fwd_cluster_sizes(hidden, dtype)
+    if not sizes:
+        raise ValueError(f"no K5 plan for hidden size {hidden} in {dtype}")
+    cluster = max(sizes)
+    return LaunchPlan(cluster, fwd_ring_stages(hidden // cluster, bwd_weight_pieces(dtype)))
+
+
+def pack_fwd_weights(w_hh: torch.Tensor) -> torch.Tensor:
+    """W_hh (H, 3H) as K5 streams it: (pieces, H / 32, H / 64, 96, 64) bf16,
+    ``encoder_kernel.pack_gate_blocks`` of each piece (one in bf16, the
+    three :func:`split_bf16_pieces` in f32): element [p, c, k, 32 g + u, kk]
+    is piece p of ``W_hh[64 k + kk, g H + 32 c + u]``, so one 5-D TMA box
+    holds a k-slab of a CTA's consecutive chunks in every piece."""
+    pieces = ([w_hh] if w_hh.dtype == torch.bfloat16 else list(split_bf16_pieces(w_hh)))
+    return torch.stack([pack_gate_blocks(p) for p in pieces]).contiguous()
+
+
+def _build_fwd_operands(w_hh: torch.Tensor) -> dict:
+    return {"packed": pack_fwd_weights(w_hh), "maps": {}}
+
+
+# K5's packed W pieces, built once per weight tensor (an Adam step's
+# in-place update rebuilds them, as K6's), and their tensor maps by a CTA's
+# units
+fwd_operands = WeightCache(_build_fwd_operands)
+
+
+def fwd_w_map(ops: dict, hidden: int, units: int) -> int:
+    """The address of the tensor map of ``ops``' packed W pieces for a K5
+    CTA owning ``units`` units, encoded once per size and kept with them."""
+    if units not in ops["maps"]:
+        packed = ops["packed"]
+        buf = ctypes.create_string_buffer(128 + 64)
+        addr = (ctypes.addressof(buf) + 63) // 64 * 64
+        check_launch(load_kernels().inpaint_gru_fwd_w_map(packed.data_ptr(), hidden,
+                                                          packed.shape[0], units, addr),
+                     "gru_fwd_seq's W map")
+        ops["maps"][units] = (buf, addr)
+    return ops["maps"][units][1]
 
 
 # --------------------------------------------------------------------------- #

@@ -9,14 +9,16 @@
   interface, at first use, keyed on the hash of the sources, into
   ``build/inpaintnet_tpu_torch/`` at the repository root. It is loaded
   with ``ctypes``.
-- ``pack_mma_b`` and ``pack_mma_b_s8``: the weight layouts the bf16 and the
-  int8 ``mma.sync`` kernels read (the Hopper kernels' are
-  ``encoder_kernel.pack_gate_slabs`` and plain transposes).
-- The Hopper recurrences of K8 and K2 (``csrc/gru_layer_hopper.cuh``):
-  their launch plan (``recurrence_plan``: the cluster size and ring depth
-  from the shape), the CTAs a plan launches (``plan_blocks``), the tensor
-  map of their packed weights (``slab_map``), and ``WeightCache``, which
-  builds such per-weight operands once per weight tensor.
+- ``pack_mma_b``: the weight layout the ``mma.sync`` kernels read (the
+  f32 routes of K1, K2, K7 and K8, and K7's first bf16 kernel; the Hopper
+  kernels' are ``encoder_kernel.pack_gate_slabs`` / ``pack_gate_blocks``
+  and plain transposes).
+- The Hopper recurrences of K8, K2 and K4 (``csrc/gru_layer_hopper.cuh``,
+  ``csrc/decode_hopper.cuh``): their launch plan (``recurrence_plan``: the
+  cluster size and ring depth from the shape and the h tiles' element
+  size), the CTAs a plan launches (``plan_blocks``), the tensor map of
+  their packed weights (``slab_map``, bf16 or int8), and ``WeightCache``,
+  which builds such per-weight operands once per weight tensor.
 - ``check_cuda_tensor``: the wrappers' argument checks.
 
 Nothing here imports or builds anything at import time: this module is
@@ -100,12 +102,12 @@ def gru_layer_supports_hidden(hidden: int, dtype=torch.float32) -> bool:
 
 
 # --------------------------------------------------------------------------- #
-# The Hopper recurrences of K8 and K2 (csrc/gru_layer_hopper.cuh)
+# The Hopper recurrences of K8, K2 and K4 (csrc/gru_layer_hopper.cuh)
 # --------------------------------------------------------------------------- #
 HOPPER_ROWS = 64  # rows of a CTA: one wgmma tile
 HOPPER_CLUSTERS = (1, 2, 4, 8)  # the portable cluster sizes
 HOPPER_MAX_UNITS = 512  # units a CTA computes: 2 consumer warpgroups x 8 chunks of 32
-HOPPER_STAGE_BYTES = 96 * 128  # one k-slab of a chunk: its r, z, n rows x 64 of K
+HOPPER_SLAB_ROWS = 96  # one k-slab of a chunk: its r, z, n rows x 64 of K
 HOPPER_CONSUMERS = 2
 HOPPER_MAX_STAGES = 6
 HOPPER_SMEM_BUDGET = 232448 - 2048  # the 227 KB opt-in less alignment and barriers
@@ -129,16 +131,19 @@ def cluster_sizes(hidden: int) -> list:
 
 def box_slabs(hidden: int) -> int:
     """k-slabs a TMA box and a ring stage hold (``gru_layer_hopper.cuh
-    box_slabs``): 2 where the 64-unit blocks pair up, else 1."""
+    box_slabs``): 2 where the 64-unit blocks pair up, else 1 (bf16 slabs of
+    12 KB and K4's int8 ones of 6 KB alike)."""
     return 2 if (hidden // 64) % 2 == 0 else 1
 
 
-def ring_stages(hidden: int, h_tiles: int) -> int:
-    """Ring stages a consumer warpgroup gets beside ``h_tiles`` 64-row bf16 h
-    tiles (``gru_layer_hopper.cuh smem_bytes``): 3 at H 512 with one tile,
-    2 at H 1024 with one or at H 512 with two."""
-    free = HOPPER_SMEM_BUDGET - 1024 - h_tiles * HOPPER_ROWS * hidden * 2
-    stage = box_slabs(hidden) * HOPPER_STAGE_BYTES
+def ring_stages(hidden: int, h_tiles: int, elem_bytes: int = 2) -> int:
+    """Ring stages a consumer warpgroup gets beside ``h_tiles`` 64-row h
+    tiles of ``elem_bytes`` a value (``gru_layer_hopper.cuh smem_bytes``; a
+    k-slab row holds 64 values of K in either type): 3 at H 512 with one
+    bf16 tile, 2 at H 1024 with one or at H 512 with two; 4 at H 512 with
+    K4's four int8 tiles (12 KB boxes)."""
+    free = HOPPER_SMEM_BUDGET - 1024 - h_tiles * HOPPER_ROWS * hidden * elem_bytes
+    stage = box_slabs(hidden) * HOPPER_SLAB_ROWS * 64 * elem_bytes
     return min(HOPPER_MAX_STAGES, free // (HOPPER_CONSUMERS * stage))
 
 
@@ -196,15 +201,17 @@ def plan_blocks(rows: int, hidden: int, plan: LaunchPlan) -> list:
 
 def slab_map(packed: torch.Tensor):
     """The tensor map (a 128-byte CUtensorMap, in a host buffer) of packed
-    (chunks, H / 64, 96, 64) bf16 gate blocks (``encoder_kernel.
-    pack_gate_blocks``) that the Hopper recurrences stream, ``box_slabs(H)``
-    k-slabs a box. Keep ``packed`` alive as long as the map."""
+    (chunks, H / 64, 96, 64) gate blocks (``encoder_kernel.
+    pack_gate_blocks``) that the Hopper recurrences stream, ``box_slabs``
+    k-slabs a box: bf16 with the 128-byte swizzle, or int8 (K4's) with the
+    64-byte swizzle. Keep ``packed`` alive as long as the map."""
     buf = ctypes.create_string_buffer(128 + 64)
     addr = (ctypes.addressof(buf) + 63) // 64 * 64
     hidden = packed.shape[1] * 64
     blocks = packed.shape[0] * packed.shape[1]
-    check_launch(load_kernels().inpaint_slab_map(packed.data_ptr(), blocks, hidden, addr),
-                 "slab_map")
+    lib = load_kernels()
+    entry = lib.inpaint_decode_int8_map if packed.dtype == torch.int8 else lib.inpaint_slab_map
+    check_launch(entry(packed.data_ptr(), blocks, hidden, addr), "slab_map")
     return buf, addr
 
 
@@ -325,10 +332,14 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_encoder_rec_int8.restype = i32
     lib.inpaint_encoder_gemm_int8.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
     lib.inpaint_encoder_gemm_int8.restype = i32
-    lib.inpaint_decode_sampling_int8.argtypes = [i32] + [ptr] * 16 + [i32] * 4 + [ptr]
+    lib.inpaint_decode_sampling_int8.argtypes = [i32] + [ptr] * 13 + [i32] * 5 + [ptr]
     lib.inpaint_decode_sampling_int8.restype = i32
-    lib.inpaint_gru_fwd_seq.argtypes = [i32] + [ptr] * 5 + [i32] * 4 + [ptr]
-    lib.inpaint_gru_fwd_seq.restype = i32
+    lib.inpaint_decode_int8_map.argtypes = [ptr, i32, i32, ptr]
+    lib.inpaint_decode_int8_map.restype = i32
+    lib.inpaint_gru_fwd_hopper.argtypes = [i32] + [ptr] * 6 + [i32] * 6 + [ptr]
+    lib.inpaint_gru_fwd_hopper.restype = i32
+    lib.inpaint_gru_fwd_w_map.argtypes = [ptr] + [i32] * 3 + [ptr]
+    lib.inpaint_gru_fwd_w_map.restype = i32
     lib.inpaint_gru_bwd_hopper.argtypes = [i32] + [ptr] * 11 + [i32] * 6 + [ptr]
     lib.inpaint_gru_bwd_hopper.restype = i32
     lib.inpaint_gru_bwd_w_map.argtypes = [ptr] + [i32] * 3 + [ptr]
@@ -372,21 +383,6 @@ def check_cuda_tensor(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
-
-
-def pack_mma_b_s8(w: torch.Tensor) -> torch.Tensor:
-    """Reorder a (K, N) int8 weight into the ``mma.sync m16n8k32`` s8
-    B-fragment order the int8 kernels load (``gru_common.cuh GemmS8``): for
-    each 8-column tile and 32-row k-tile, lane ``l = 4 * r + q`` holds
-    ``w[k0 + 4q + {0..3}, n0 + r]`` then ``w[k0 + 16 + 4q + {0..3}, n0 + r]``
-    as eight contiguous bytes."""
-    if w.dtype != torch.int8:
-        raise ValueError(f"pack_mma_b_s8: takes int8, got {w.dtype}")
-    K, N = w.shape
-    if K % 32 or N % 8:
-        raise ValueError(f"pack_mma_b_s8: shape {(K, N)} needs K % 32 == 0 and N % 8 == 0")
-    # k = kt*32 + half*16 + q*4 + p ; n = nt*8 + r  ->  (nt, kt, r, q, half, p)
-    return w.reshape(K // 32, 2, 4, 4, N // 8, 8).permute(4, 0, 5, 2, 1, 3).contiguous()
 
 
 def pack_mma_b(w: torch.Tensor) -> torch.Tensor:

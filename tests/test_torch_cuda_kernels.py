@@ -252,6 +252,53 @@ def test_int8_exact_bounds_reject_planted_faults(cuda, monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,hidden,vocab", [
+    (6, 512, 60), (2048, 512, 60), (130, 128, 13), (70, 256, 96), (45, 192, 60)])
+def test_decode_int8_kernel_every_cluster_size(cuda, monkeypatch, dtype, batch, hidden, vocab):
+    """K4's Hopper route on both master dtypes at each cluster size its width
+    allows: bit-equal to the plain version, and so to each other (a cluster
+    only moves h between its CTAs); a 96-column head at H 256."""
+    rng = np.random.default_rng(batch + hidden + vocab)
+    params, tick_ctx, h_inits = _decode_case(rng, batch, hidden, vocab, dtype, cuda,
+                                             big_row=batch // 3)
+    want = decode_kernel.decode_sampling_int8_reference(params, tick_ctx, h_inits)
+    for cluster in cluster_sizes(hidden):
+        with monkeypatch.context() as m:
+            real = decode_kernel.int8_plan
+            m.setattr(decode_kernel, "int8_plan",
+                      lambda *shape, c=cluster: real(*shape)._replace(cluster=c))
+            before = decode_kernel.decode_sampling_int8.launches
+            got = decode_kernel.decode_sampling_int8(params, tick_ctx, h_inits)
+            assert decode_kernel.decode_sampling_int8.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]), cluster
+
+
+# K2 bf16 with the weights of _decode_case (the layers' initialisation plus
+# noise 0.1) at 512 rows x H 512, against its plain version
+# (``arnn_kernel.decode_agreement``, the early share over the first beat's 6
+# ticks). The mean and the early share lie between the readings of the
+# kernel that sums layer 1 as the plain version does and of the kernel that
+# summed its r/z x- and h-products in one accumulator, both on these inputs
+# (``chip_smoke.py --parent``), seen on an NVIDIA H100 80GB HBM3 (700 W):
+# mean 1.040e-4 against 1.199e-4, early 0.0228 against 0.0258; max
+# 3.125e-2 (one bf16 ulp of the largest logits) in both (PERF.md).
+K2_NOISY_BOUNDS = {"mean": 1.12e-4, "max": 3.125e-2, "early": 0.0243}
+
+
+def test_decode_kernel_bf16_noisy_layer1_sum_order(cuda):
+    rng = np.random.default_rng(91)
+    params, tick_ctx, h_inits = _decode_case(rng, 512, 512, 60, torch.bfloat16, cuda)
+    got = decode_kernel.decode_sampling(params, tick_ctx, h_inits)
+    want = decode_kernel.decode_sampling_reference(params, tick_ctx, h_inits)
+    unforced = torch.zeros((512, 24), dtype=torch.int32, device=cuda)
+    a = arnn_kernel.decode_agreement(got, want, unforced, early_ticks=6)
+    b = K2_NOISY_BOUNDS
+    assert (a["logits_mean"] <= b["mean"] and a["logits_max"] <= b["max"]
+            and a["early_changed"] <= b["early"]), a
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_int8_rows_independent_of_extreme_cobatched_row(cuda, dtype):
     """The per-row bound: a co-batched row with init hiddens far above 1
     leaves every other row's K4 tokens and logits bit-equal to its solo run."""
@@ -384,6 +431,52 @@ def test_gru_bwd_every_cluster_size(cuda, monkeypatch, dtype, batch, hidden, seq
     max_b, mean_b = TRAIN_BOUNDS[dtype]
     err_max, err_mean = _errs(first, want)
     assert err_max <= max_b and err_mean <= mean_b, (err_max, err_mean)
+
+
+def _with_fwd_cluster(monkeypatch, cluster):
+    """K5's ``fwd_plan`` picks ``cluster`` CTAs a tile."""
+    monkeypatch.setattr(gk, "fwd_plan", lambda hidden, dtype: gk.LaunchPlan(
+        cluster, gk.fwd_ring_stages(hidden // cluster, gk.bwd_weight_pieces(dtype))))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,hidden,seq_len,reverse", [
+    (130, 512, 3, False), (70, 128, 5, True), (37, 384, 4, False), (64, 320, 3, True)])
+def test_gru_fwd_every_cluster_size(cuda, monkeypatch, dtype, batch, hidden, seq_len, reverse):
+    """K5 at each cluster size its width and dtype allow (the scratch
+    exchange of h's pieces across a cluster only moves data): bit-equal
+    across sizes, which is the race check of the exchange, and within the
+    plain version's bounds. W_hh at Xavier's scale: at _train_case's 0.3 a
+    recurrence of H 320-512 is chaotic, and any other summation order than
+    the plain version's leaves the bounds within a few steps."""
+    fwd, _, _ = _train_case(np.random.default_rng(batch + hidden), batch, hidden, seq_len,
+                            dtype, cuda)
+    fwd[0] = (fwd[0].float() * ((2.0 / (4 * hidden)) ** 0.5 / 0.3)).to(dtype)
+    want = gk.gru_fwd_seq_reference(*fwd, reverse=reverse)
+    got = {}
+    for cluster in gk.fwd_cluster_sizes(hidden, dtype):
+        with monkeypatch.context() as m:
+            _with_fwd_cluster(m, cluster)
+            got[cluster] = gk.gru_fwd_seq(*fwd, reverse=reverse)
+    torch.cuda.synchronize()
+    first = next(iter(got.values()))
+    assert all(_bit_equal(g, first) for g in got.values()), sorted(got)
+    max_b, mean_b = TRAIN_BOUNDS[dtype]
+    err_max, err_mean = _errs(first, want)
+    assert err_max <= max_b and err_mean <= mean_b, (err_max, err_mean)
+
+
+def test_gru_fwd_bounds_reject_a_one_piece_product(cuda, monkeypatch):
+    """In f32, K5's product on h taken as one bf16 piece (against W's three),
+    planted in the plain version, breaks the bounds."""
+    fwd, _, _ = _train_case(np.random.default_rng(0), 37, 64, 24, torch.float32, cuda)
+    out_k = gk.gru_fwd_seq(*fwd)
+    monkeypatch.setattr(gk, "fwd_product", lambda h, w, dtype: h.to(torch.bfloat16).float() @ w)
+    out_p = gk.gru_fwd_seq_reference(*fwd)
+    torch.cuda.synchronize()
+    max_b, mean_b = TRAIN_BOUNDS[torch.float32]
+    err_max, err_mean = _errs(out_k, out_p)
+    assert err_max > max_b or err_mean > mean_b, (err_max, err_mean)
 
 
 def test_gru_bwd_bounds_reject_dh_carried_in_bf16(cuda, monkeypatch):
@@ -794,6 +887,6 @@ def test_gru_layer_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     odd = _gru_layer_case(rng, 4, 3, 576, torch.bfloat16, cuda, None)
     with pytest.raises(ValueError, match="hidden size"):
         lk.gru_layer_stream(*odd)
-    params, tick_ctx, h_inits = _decode_case(rng, 4, 64, 65, torch.bfloat16, cuda)
+    params, tick_ctx, h_inits = _decode_case(rng, 4, 64, 97, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="vocabulary"):
         decode_kernel.decode_sampling(params, tick_ctx, h_inits)

@@ -179,7 +179,7 @@ def test_decode_operands_follow_in_place_updates(monkeypatch):
         fresh = dk.decode_operands(*ws)
         assert fresh is not ops
         torch.testing.assert_close(fresh["bias"][1], ws[5], rtol=0, atol=0)
-        assert fresh["head_b"].shape == ((64,) if dtype == torch.bfloat16 else (16,))
+        assert fresh["head_b"].shape == ((96,) if dtype == torch.bfloat16 else (16,))
 
 
 def test_weight_cache_counts_no_versions_of_inference_tensors():
@@ -442,3 +442,199 @@ def test_arnn_chunk_rows(monkeypatch):
     assert ak.arnn_chunk_rows(150, 24, 128) == 64
     monkeypatch.setattr(ek, "XW_SCRATCH_BYTES", 1)
     assert ak.arnn_chunk_rows(150, 24, 128) == 64
+
+
+# --------------------------------------------------------------------------- #
+# K4 (csrc/decode_hopper.cuh on s8 wgmma): the plan over int8 h tiles, the
+# int8 slab packing, the cached weight part
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("rows,hidden,cluster,stages", [
+    (6, 512, 8, 4), (2048, 512, 8, 4), (12288, 512, 8, 4), (65536, 512, 8, 4),
+    (45, 128, 2, 6), (7, 64, 1, 6), (40, 192, 1, 6), (9, 256, 4, 6)])
+def test_decode_int8_plan(rows, hidden, cluster, stages):
+    """K4 takes the largest cluster size whatever the rows; its four int8 h
+    tiles (each layer's double-buffered) are K2's two tiles' bytes, and its
+    boxes of two 6 KB int8 k-slabs half K2's, so its rings get 4 stages at
+    H 512 against K2's 2."""
+    plan = dk.int8_plan(hidden)
+    assert plan == kc.LaunchPlan(cluster, stages)
+    _assert_covers_once(rows, hidden, plan)
+    with pytest.raises(ValueError, match="hidden size 576"):
+        dk.int8_plan(576)
+
+
+def test_int8_tiles_and_rings_fit_shared_memory():
+    """Four int8 h tiles and the rings of 6 KB k-slabs, box_slabs of them a
+    box, fit the 227 KB opt-in (``gru_layer_hopper.cuh smem_bytes`` with
+    64-byte rows)."""
+    for hidden in range(64, 513, 64):
+        stages = kc.ring_stages(hidden, 4, 1)
+        used = 4 * 64 * hidden + 2 * stages * kc.box_slabs(hidden) * 96 * 64 + 1024
+        assert 2 <= stages <= 6 and used <= kc.HOPPER_SMEM_BUDGET
+        assert stages >= kc.ring_stages(hidden, 2)
+
+
+@pytest.mark.parametrize("hidden,vocab", [(128, 13), (64, 96)])
+def test_pack_decode_weights_int8_layout(hidden, vocab):
+    """The int8 slabs K4 streams: k-slab k of chunk c holds, in its 96 rows of
+    64 bytes (64 of K, one 64-byte swizzle row), gate g's column of unit
+    32 c + u at input 64 k + kk; the head's chunk its V columns, then zero
+    rows."""
+    rng = np.random.default_rng(hidden + vocab)
+    ws = [torch.from_numpy(rng.integers(-127, 128, (hidden, 3 * hidden)).astype(np.int8))
+          for _ in range(3)]
+    head = torch.from_numpy(rng.integers(-127, 128, (hidden, vocab)).astype(np.int8))
+    packed = dk.pack_decode_weights(*ws, head)
+    chunks = hidden // 32
+    assert packed.dtype == torch.int8 and packed.is_contiguous()
+    assert packed.shape == (3 * chunks + 1, hidden // 64, 96, 64)
+    for i, w in enumerate(ws):
+        for c in range(chunks):
+            for k in range(hidden // 64):
+                for g in range(3):
+                    want = w[64 * k: 64 * k + 64, g * hidden + 32 * c: g * hidden + 32 * c + 32]
+                    assert torch.equal(packed[chunks * i + c, k, 32 * g: 32 * g + 32], want.t())
+    for k in range(hidden // 64):
+        assert torch.equal(packed[-1, k, :vocab], head[64 * k: 64 * k + 64].t())
+    assert not packed[-1, :, vocab:].any()
+
+
+def _decoder_params(rng, hidden, vocab, dtype, emb=10):
+    def rand(*shape, scale=0.3):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(dtype)
+    layer = lambda k: {"w_ih": rand(k, 3 * hidden), "w_hh": rand(hidden, 3 * hidden),  # noqa: E731
+                       "b_ih": rand(3 * hidden), "b_hh": rand(3 * hidden)}
+    return {"embedding": {"table": rand(vocab, emb)}, "x_0": rand(emb),
+            "tick_gru": [[layer(emb + hidden)], [layer(hidden)]],
+            "head": {"w": rand(hidden, vocab), "b": rand(vocab)}}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_int8_weight_part_equals_operands(monkeypatch, dtype):
+    """K4's cached weight part equals ``decode_int8_operands``' (which the
+    plain version builds whole on every call), and the data part holds the
+    per-call rest; the packed slabs are the quantized weights' and the head's
+    scales and bias are zero-padded to the 96-column head."""
+    monkeypatch.setattr(dk, "slab_map", lambda packed: (None, 64))
+    monkeypatch.setattr(dk, "decode_int8_weights", kc.WeightCache(dk._build_decode_int8_weights))
+    rng = np.random.default_rng(9)
+    params = _decoder_params(rng, 64, 13, dtype)
+    tick_ctx = torch.from_numpy(rng.standard_normal((5, 4, 64)).astype(np.float32)).to(dtype)
+    h_inits = torch.from_numpy(3 * rng.standard_normal((2, 5, 4, 64)).astype(np.float32)).to(dtype)
+    ops = dk.decode_int8_operands(params, tick_ctx, h_inits)
+    w = dk.decode_int8_weights(*dk._int8_weight_tensors(params))
+    data = dk.decode_int8_data(params, tick_ctx, h_inits)
+    assert set(data) == {"q", "hi0", "hi1", "ctx_xw"}
+    for key, value in ops.items():
+        got = data[key] if key in data else w[key]
+        assert got.dtype == value.dtype and torch.equal(got, value), key
+    assert data["hi0"].is_contiguous() and data["hi0"].shape == (4, 5, 64)
+    assert torch.equal(w["packed"], dk.pack_decode_weights(ops["whh0_q"], ops["wih1_q"],
+                                                           ops["whh1_q"], ops["head_q"]))
+    assert w["head_s_pad"].shape == (96,) and not w["head_s_pad"][13:].any()
+    assert torch.equal(w["head_b_pad"][:13], ops["head_b"])
+
+
+def test_decode_int8_weights_follow_in_place_updates(monkeypatch):
+    """K4's weight part is built once per set of weight tensors and rebuilt
+    after an in-place update of any of them (the token table follows the
+    embedding)."""
+    monkeypatch.setattr(dk, "slab_map", lambda packed: (None, 64))
+    monkeypatch.setattr(dk, "decode_int8_weights", kc.WeightCache(dk._build_decode_int8_weights))
+    params = _decoder_params(np.random.default_rng(10), 64, 13, torch.bfloat16)
+    first = dk.decode_int8_weights(*dk._int8_weight_tensors(params))
+    assert dk.decode_int8_weights(*dk._int8_weight_tensors(params)) is first
+    with torch.no_grad():
+        params["embedding"]["table"].mul_(2)
+    second = dk.decode_int8_weights(*dk._int8_weight_tensors(params))
+    assert second is not first
+    assert not torch.equal(second["scales"][3], first["scales"][3])
+    assert torch.equal(second["whh0_q"], first["whh0_q"])
+
+
+# --------------------------------------------------------------------------- #
+# K5 (csrc/gru_fwd_hopper.cuh): the plan, the gate-block packing of the W
+# pieces, the split product, the operand cache
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("hidden,dtype,sizes,cluster,stages", [
+    (512, torch.float32, [8], 8, 2), (512, torch.bfloat16, [4, 8], 8, 5),
+    (64, torch.float32, [1], 1, 2), (128, torch.bfloat16, [1, 2], 2, 5),
+    (384, torch.bfloat16, [3, 6], 6, 5), (448, torch.float32, [7], 7, 2)])
+def test_fwd_plan(hidden, dtype, sizes, cluster, stages):
+    """K5's cluster sizes own 64 units a CTA in f32 (the sum and two k-slab
+    partials of a 64 x 96 tile fill a warpgroup's registers) and 64 or 128 in
+    bf16; the plan takes the largest size; the rings fit beside the carry
+    and, in bf16, the output buffers."""
+    assert tk.fwd_cluster_sizes(hidden, dtype) == sizes
+    plan = tk.fwd_plan(hidden, dtype)
+    assert plan == kc.LaunchPlan(cluster, stages)
+    _assert_covers_once(4096, hidden, plan)
+    for c in sizes:
+        units, pieces = hidden // c, tk.bwd_weight_pieces(dtype)
+        st = tk.fwd_ring_stages(units, pieces)
+        used = st * (pieces * 64 * 128 + pieces * units // 32 * 96 * 128) + 64 * (units + 8) * 4
+        used += 4 * 64 * (units // 2 + 8) * 2 if dtype == torch.bfloat16 else 0
+        assert 2 <= st <= 6 and used + 1024 <= kc.HOPPER_SMEM_BUDGET
+
+
+def test_fwd_cluster_sizes_take_every_kernel_width():
+    for hidden in range(64, 513, 64):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert tk.fwd_cluster_sizes(hidden, dtype), (hidden, dtype)
+    assert tk.fwd_cluster_sizes(48, torch.float32) == []
+    with pytest.raises(ValueError, match="hidden size 48"):
+        tk.fwd_plan(48, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [64, 128])
+def test_pack_fwd_weights_layout(dtype, hidden):
+    """Element [p, c, k, 32 g + u, kk] of the packed W is piece p of
+    W_hh[64 k + kk, g H + 32 c + u]: per piece K8's gate blocks, so a CTA's
+    chunks of one k-slab are one 5-D TMA box."""
+    rng = np.random.default_rng(hidden + 1)
+    w = torch.from_numpy(rng.standard_normal((hidden, 3 * hidden)).astype(np.float32)).to(dtype)
+    packed = tk.pack_fwd_weights(w)
+    pieces = [w] if dtype == torch.bfloat16 else list(tk.split_bf16_pieces(w))
+    assert packed.shape == (len(pieces), hidden // 32, hidden // 64, 96, 64)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    for p, piece in enumerate(pieces):
+        for c in range(hidden // 32):
+            for k in range(hidden // 64):
+                for g in range(3):
+                    want = piece[64 * k: 64 * k + 64, g * hidden + 32 * c: g * hidden + 32 * c + 32]
+                    assert torch.equal(packed[p, c, k, 32 * g: 32 * g + 32], want.t())
+
+
+def test_fwd_product_passes_hold_f32():
+    """K5's six passes over the pieces of the f32 carry h and of W_hh (lh,
+    hl, mm, mh, hm, hh) give h @ W, both in f32, to within a few 2^-24 of the
+    sum of |terms|; the planted fault, h taken as one bf16 piece against W's
+    three, is 2^-9 off."""
+    rng = np.random.default_rng(11)
+    h = torch.from_numpy(rng.uniform(-1, 1, (16, 128)).astype(np.float32))
+    w = torch.from_numpy((0.3 * rng.standard_normal((128, 384))).astype(np.float32))
+    a, b = tk.split_bf16_pieces(h), tk.split_bf16_pieces(w)
+    pairs = [(2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0)]
+    got = sum(a[i].double() @ b[j].double() for i, j in pairs)
+    exact = h.double() @ w.double()
+    scale = h.double().abs() @ w.double().abs()
+    assert ((got - exact).abs() <= 4 * 2.0 ** -24 * scale).all()
+    one_piece = sum(a[0].double() @ b[j].double() for j in range(3))
+    assert ((one_piece - exact).abs() > 64 * 2.0 ** -24 * scale).any()
+    torch.testing.assert_close(tk.fwd_product(h, w, torch.float32), h @ w, rtol=0, atol=0)
+
+
+def test_fwd_operands_follow_in_place_updates(monkeypatch):
+    """K5's packed W pieces are built once per weight tensor and rebuilt
+    after an Adam step's in-place update."""
+    monkeypatch.setattr(tk, "fwd_operands", kc.WeightCache(tk._build_fwd_operands))
+    rng = np.random.default_rng(12)
+    w = torch.from_numpy(rng.standard_normal((64, 192)).astype(np.float32))
+    first = tk.fwd_operands(w)
+    assert tk.fwd_operands(w) is first
+    with torch.no_grad():
+        w.add_(0.25)
+    second = tk.fwd_operands(w)
+    assert second is not first and second["maps"] == {}
+    torch.testing.assert_close(second["packed"], tk.pack_fwd_weights(w), rtol=0, atol=0)
