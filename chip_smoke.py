@@ -5,11 +5,10 @@ once on one NVIDIA GPU.
     python3 chip_smoke.py [--parent DIR]
 
 ``--parent DIR`` names an earlier checkout of this repository (for example
-``git archive`` of the parent commit, unpacked): its K2, K4 and K5 CUDA
-sources (``PARENT_SOURCES``) are built too, and each K2 bf16, K4 and K5
-time is printed beside that checkout's kernel on the same card (otherwise
-"parent not measured"), with K5's error against the plain version; the K2
-noise check also reads that checkout's K2.
+``git archive`` of the parent commit, unpacked): its K1 and K7 CUDA
+sources (``PARENT_SOURCES``) are built too, and the K1 f32 and K7 f32
+times are printed beside that checkout's kernels on the same card
+(otherwise "parent not measured").
 
 Phases, each raising on failure:
 
@@ -24,17 +23,21 @@ Phases, each raising on failure:
    (bit-equal; each of their two traps, planted in the plain versions,
    must break that bound); in bf16 K1's share of changed h_n elements is
    bounded too, and a layer-1 input projection rounded to bf16, planted in
-   the staged plain version, must break K1's bounds; K1's function through
+   the staged plain version, must break K1's bounds; in f32 two planted
+   faults (the product on h taken as one bf16 piece, layer 1's projection
+   rounded to bf16) must break K1's f32 bound; K1's function through
    cuDNN's ``torch.nn.GRU`` is timed beside it (the port never calls it);
-   K1 bf16 and K3, whose Hopper route runs layer 0, a GEMM and layer 1 per
-   chunk of rows, are timed with ``torch.profiler``'s split into those
-   parts, their CUDA launches and peak memory, at 65,536 rows and at a
-   batch-1 request's 32; K2 bf16 also at the autoregressive step's 2,048
+   K1 in both dtypes and K3, whose Hopper routes run layer 0, a GEMM and
+   layer 1 per chunk of rows, are timed with ``torch.profiler``'s split
+   into those parts, their CUDA launches and peak memory, at 65,536 rows
+   and at a batch-1 request's 32 (K1 f32 beside both its bounds, the split
+   products' and the f32 FMA units', and the cost a per-chunk split of f32
+   ys into the GEMM's pieces would add); K2 bf16 also at the autoregressive step's 2,048
    rows and a batch-1 call's 6, every cluster size of its Hopper route
    against the plain version and bit-equal to the others, each timed beside
    its bound; with noise 0.05 and 0.1 on the flagship decoder's weights at
    2,048 rows, K2 bf16's mean and max logit error and early share against
-   the plain version held to ``K2_NOISY`` (beside the parent's kernel);
+   the plain version held to ``K2_NOISY``;
    K4 on bf16 and f32 masters at 12,288, 2,048 and 6 rows, every cluster
    size, bit-equal to its plain version and to each other, each timed
    beside its bound (``[plan]``: the launch plan);
@@ -45,7 +48,7 @@ Phases, each raising on failure:
    size of its Hopper route, bit-equal to the others, each timed beside
    both its bounds (the f32 FMA units', the split product's on the tensor
    cores); K5 likewise at every cluster size (bit-equal), timed beside its
-   bound and the parent's kernel and error; a K5 carry rounded to bf16,
+   bound; a K5 carry rounded to bf16,
    (f32) a K5 product on h taken as one bf16 piece, a K6 product on bf16 dhw
    and (bf16) a K6 dh carried in bf16, planted in the plain versions, must
    break the bounds;
@@ -81,12 +84,13 @@ Phases, each raising on failure:
 12. the AnticipationRNN (flagship: 2 x 256 LSTMs, random weights from seed
    0): K7 ``arnn_sampled_decode`` against its plain version at the engine's
    batch-512 x 384-tick shapes in f32 and bf16, with planted faults (a force
-   mask read one tick late; in bf16 a c carry kept in f32 and a context
-   projection rounded to bf16) that the bounds must reject; the bf16
-   Hopper route at every cluster size at 512, 64 and 1 rows, bit-equal to
-   the others, its CUDA launches (two a chunk) and their device times, each
-   timed beside the first kernel (``csrc/arnn_decode.cu``, which runs the
-   bf16 geometries the Hopper route does not take); with
+   mask read one tick late and a context projection rounded to bf16; in
+   bf16 a c carry kept in f32, in f32 the products on h taken as one bf16
+   piece) that the bounds must reject; both Hopper routes at every cluster
+   size at 512, 64 and 1 rows, bit-equal to the others, their CUDA
+   launches (two a chunk) and their device times, each timed beside the
+   first kernel (``csrc/arnn_decode.cu``, which runs the geometries the
+   Hopper routes do not take; f32 also beside both its bounds); with
    noise on the flagship's weights, the Hopper route held to the first
    kernel's error and the two bf16 faults rejected; the ARNN path on the
    card against the CPU (f32, H 64); the bf16 ``ARNNServingEngine`` serving
@@ -277,28 +281,19 @@ def decode_ops(rows: int, hidden: int, vocab: int) -> float:
 
 
 # ---------------------------------------------------------------------------
-# An earlier checkout's K2, K4 and K5 (``--parent DIR``), timed beside the
-# new ones in the same run
+# An earlier checkout's f32 routes of K1 and K7 (``--parent DIR``), timed
+# beside the new ones in the same run
 # ---------------------------------------------------------------------------
-PARENT_SOURCES = ("decode_sampling.cu", "decode_sampling_int8.cu", "gru_fwd_seq.cu")
-
-
-def _pack_mma_b_s8(w: torch.Tensor) -> torch.Tensor:
-    """The ``mma.sync m16n8k32`` s8 B-fragment order the parent's K4 read
-    (lane ``4 r + q`` of an 8-column, 32-row tile holds ``w[k0 + 4q + {0..3},
-    n0 + r]`` then ``w[k0 + 16 + 4q + {0..3}, n0 + r]``)."""
-    K, N = w.shape
-    return w.reshape(K // 32, 2, 4, 4, N // 8, 8).permute(4, 0, 5, 2, 1, 3).contiguous()
+PARENT_SOURCES = ("encoder_gru.cu", "arnn_decode.cu")
 
 
 class ParentKernels:
-    """K2's bf16 route, K4 and K5 as the checkout at ``root`` built them (its
-    ``inpaintnet_tpu_torch/ops/csrc``; before this design, K2 summed layer
-    1's r/z products in one accumulator, K4 was a 32-row ``mma.sync`` kernel
-    and K5 a 16-row (f32) / 32-row (bf16) kernel streaming W_hh from L2),
-    called as that checkout's wrappers called them, the operands built on
-    every call. Used only to time and read them beside the new kernels on
-    the same card in the same run."""
+    """The f32 routes of K1 and K7 as the checkout at ``root`` built them
+    (its ``inpaintnet_tpu_torch/ops/csrc``; before this design, the first
+    port's one-block-a-tile kernels with scalar-FMA products), called as
+    that checkout's wrappers called them, the operands built on every call.
+    Used only to time them beside the new routes on the same card in the
+    same run."""
 
     def __init__(self, root: str):
         from inpaintnet_tpu_torch.ops.kernel_common import NVCC_FLAGS, _nvcc, _run_all
@@ -313,96 +308,51 @@ class ParentKernels:
         _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(so), *objs]], False)
         self.lib = ctypes.CDLL(str(so))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        self.lib.inpaint_decode_sampling_bf16.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
-        self.lib.inpaint_decode_sampling_bf16.restype = i32
-        self.lib.inpaint_decode_slots.argtypes = [i32] * 3
-        self.lib.inpaint_decode_slots.restype = i32
-        self.lib.inpaint_decode_sampling_int8.argtypes = [i32] + [ptr] * 16 + [i32] * 4 + [ptr]
-        self.lib.inpaint_decode_sampling_int8.restype = i32
-        self.lib.inpaint_gru_fwd_seq.argtypes = [i32] + [ptr] * 5 + [i32] * 4 + [ptr]
-        self.lib.inpaint_gru_fwd_seq.restype = i32
+        self.lib.inpaint_encoder_hn_f32.argtypes = [ptr] * 15 + [i32] * 4 + [ptr]
+        self.lib.inpaint_encoder_hn_f32.restype = i32
+        self.lib.inpaint_arnn_decode.argtypes = [i32] + [ptr] * 16 + [i32] * 7 + [ptr]
+        self.lib.inpaint_arnn_decode.restype = i32
 
-    def decode_bf16(self, params, tick_ctx, h_inits):
-        """The parent's K2 bf16 route, at its own launch plan."""
-        from inpaintnet_tpu_torch.ops import decode_kernel as dk
-        from inpaintnet_tpu_torch.ops.kernel_common import (check_launch, cluster_sizes,
-                                                            ring_stages, slab_map, stream_ptr)
+    def encoder_f32(self, gru, table, tokens):
+        """The parent's K1 f32 route: the first port's kernel, one 16-row
+        block a tile of one direction with scalar-FMA products, layer 1's
+        projection in its loop."""
+        from inpaintnet_tpu_torch.ops.encoder_kernel import fused_tables
+        from inpaintnet_tpu_torch.ops.kernel_common import check_launch, stream_ptr
 
-        p0, p1 = params["tick_gru"][0][0], params["tick_gru"][1][0]
-        batch, _, hidden = tick_ctx.shape
-        vocab = params["head"]["w"].shape[1]
-        packed = dk.pack_decode_weights(p0["w_hh"], p1["w_ih"], p1["w_hh"], params["head"]["w"])
-        buf, addr = slab_map(packed)  # the layout and map are as the parent's; buf held
-        # until the launch has read the map
-        stages = ring_stages(hidden, 2)
-        slots = {c: self.lib.inpaint_decode_slots(hidden, c, stages) for c in cluster_sizes(hidden)}
-        sms = torch.cuda.get_device_properties(tick_ctx.device).multi_processor_count
-        plan = dk.launch_plan(batch, hidden, sms, slots)
-        ins = dk.decode_inputs(params, tick_ctx, h_inits)
-        bias = torch.stack([p0["b_hh"], p1["b_ih"], p1["b_hh"]])
-        head_b = torch.nn.functional.pad(params["head"]["b"], (0, 64 - vocab))
-        logits = torch.empty((batch, 24, vocab), dtype=tick_ctx.dtype, device=tick_ctx.device)
-        samples = torch.empty((batch, 24), dtype=torch.int32, device=tick_ctx.device)
-        err = self.lib.inpaint_decode_sampling_bf16(
-            addr, ins["ctx_xw"].data_ptr(), ins["hi0"].data_ptr(), ins["hi1"].data_ptr(),
-            ins["tok_tab"].data_ptr(), ins["x0_xw"].data_ptr(), bias.data_ptr(),
-            head_b.data_ptr(), logits.data_ptr(), samples.data_ptr(), batch, hidden, vocab,
-            plan.cluster, plan.stages, stream_ptr())
-        check_launch(err, "the parent's decode_sampling")
-        return logits, samples
+        (p0f, p0b), (p1f, p1b) = gru
+        batch, seq_len = tokens.shape
+        hidden = p0f["w_hh"].shape[0]
+        h_n = torch.empty((4, batch, hidden), dtype=table.dtype, device=tokens.device)
+        ys = torch.empty((2, seq_len, batch, hidden), dtype=table.dtype, device=tokens.device)
+        tab_f, tab_b = (t.contiguous() for t in fused_tables(gru, table))
+        weights = [p[k].contiguous() for p, k in ((p0f, "w_hh"), (p0b, "w_hh"), (p1f, "w_ih"),
+                                                  (p1b, "w_ih"), (p1f, "w_hh"), (p1b, "w_hh"))]
+        biases = [torch.stack([pf[k], pb[k]]) for pf, pb in ((p0f, p0b), (p1f, p1b))
+                  for k in ("b_ih", "b_hh")]
+        check_launch(self.lib.inpaint_encoder_hn_f32(
+            tokens.data_ptr(), tab_f.data_ptr(), tab_b.data_ptr(),
+            *(w.data_ptr() for w in weights), *(b.data_ptr() for b in biases), ys.data_ptr(),
+            h_n.data_ptr(), batch, seq_len, hidden, table.shape[0], stream_ptr()),
+            "the parent's encoder_hn f32")
+        return h_n
 
-    def decode_int8(self, params, tick_ctx, h_inits):
-        from inpaintnet_tpu_torch.ops import decode_kernel as dk
-        from inpaintnet_tpu_torch.ops.kernel_common import DTYPE_CODES, check_launch, stream_ptr
+    def arnn_f32(self, args):
+        """The parent's K7 f32 route: the first kernel (``_decode_tiled``'s
+        call), built from the parent's ``arnn_decode.cu``."""
+        from inpaintnet_tpu_torch.ops import arnn_kernel as ak
 
-        batch, _, hidden = tick_ctx.shape
-        vocab = params["head"]["w"].shape[1]
-        ops = dk.decode_int8_operands(params, tick_ctx, h_inits)
-        vocab_pad = -(-vocab // 8) * 8
-        pad = (0, vocab_pad - vocab)
-        head_s, head_b = (torch.nn.functional.pad(ops[k], pad) for k in ("head_s", "head_b"))
-        whh0, wih1, whh1, head_w = (
-            _pack_mma_b_s8(w) for w in (ops["whh0_q"], ops["wih1_q"], ops["whh1_q"],
-                                        torch.nn.functional.pad(ops["head_q"], pad)))
-        logits = torch.empty((batch, 24, vocab), dtype=tick_ctx.dtype, device=tick_ctx.device)
-        samples = torch.empty((batch, 24), dtype=torch.int32, device=tick_ctx.device)
-        err = self.lib.inpaint_decode_sampling_int8(
-            DTYPE_CODES[tick_ctx.dtype], ops["ctx_xw"].data_ptr(), ops["hi0"].data_ptr(),
-            ops["hi1"].data_ptr(), ops["q"].data_ptr(), ops["tok_q"].data_ptr(),
-            ops["x0_xw"].data_ptr(), whh0.data_ptr(), wih1.data_ptr(), whh1.data_ptr(),
-            ops["scales"].data_ptr(), ops["bias"].data_ptr(), head_w.data_ptr(),
-            head_s.data_ptr(), head_b.data_ptr(), logits.data_ptr(), samples.data_ptr(),
-            batch, hidden, vocab, vocab_pad, stream_ptr())
-        check_launch(err, "the parent's decode_sampling_int8")
-        return logits, samples
-
-    def gru_fwd(self, w_hh, b_hh, xw, h0, reverse=False):
-        from inpaintnet_tpu_torch.ops.kernel_common import (DTYPE_CODES, check_launch,
-                                                            pack_mma_b, stream_ptr)
-
-        batch, seq_len = xw.shape[:2]
-        hidden = w_hh.shape[0]
-        out = torch.empty((5, seq_len, batch, hidden), dtype=xw.dtype, device=xw.device)
-        err = self.lib.inpaint_gru_fwd_seq(
-            DTYPE_CODES[xw.dtype], xw.data_ptr(), pack_mma_b(w_hh).data_ptr(), b_hh.data_ptr(),
-            h0.data_ptr(), out.data_ptr(), batch, seq_len, hidden, int(reverse), stream_ptr())
-        check_launch(err, "the parent's gru_fwd_seq")
-        return tuple(out.unbind(0))
+        own = ak.load_kernels
+        ak.load_kernels = lambda: self.lib
+        try:
+            return ak._decode_tiled(*args, ak._check_arnn_args(*args))
+        finally:
+            ak.load_kernels = own
 
 
 def parent_ms(parent, fn) -> str:
     """``fn(parent)`` timed, or "not measured" without ``--parent``."""
     return "not measured" if parent is None else f"{cuda_ms(lambda: fn(parent), 5):.3f} ms"
-
-
-def parent_err(parent, fn, want) -> str:
-    """The max/mean relative error of ``fn(parent)``'s outputs against the
-    plain version's ``want`` (as ``_train_kernel_errs``), or "" without
-    ``--parent``."""
-    if parent is None:
-        return ""
-    e = _train_kernel_errs(fn(parent), want)
-    return f" (its error max/mean {e[0]:.3e}/{e[1]:.3e})"
 
 
 def phase_device():
@@ -532,6 +482,8 @@ def phase_kernels(vae_f32, max_target: int, card: str, parent) -> dict:
             _reject_planted_faults(dec, gru, table, tokens, tick_ctx, h_inits, hn_k, lg_k, s_k)
         if label == "bfloat16":
             _check_encoder_share(gru, table, tokens, hn_k, hn_p)
+        if label == "float32":
+            _reject_encoder_f32_faults(gru, table, tokens, hn_k)
         library_ms = None
         if label != "int8":
             library_ms = cudnn_gru_ms(gru, table, tokens, hn_k, label, card)
@@ -540,7 +492,7 @@ def phase_kernels(vae_f32, max_target: int, card: str, parent) -> dict:
         enc_name, dec_name = names or ("encoder_hn", "decode_sampling")
         kind = {"int8": "int8", "bfloat16": "bf16", "float32": "f32"}[label]
         H, V = gru[0][0]["w_hh"].shape[0], dec["head"]["w"].shape[1]
-        if names is not None:
+        if label != "int8":
             encoder_times(enc_k, gru, table, tokens, label, card)
         report[enc_name] = {"max_abs_err": hn_err,
                             "ms": cuda_ms(lambda: enc_k(gru, table, tokens), 5),
@@ -555,20 +507,31 @@ def phase_kernels(vae_f32, max_target: int, card: str, parent) -> dict:
                             **bound_of(decode_ops(dec_rows, H, V), kind,
                                     nbytes(dec_used, tick_ctx, h_inits, lg_k, s_k)),
                             "library_ms": None}
+        if label == "float32":  # the split products' bound, beside the f32 FMA units'
+            fma = report[enc_name]
+            report[enc_name] = {**fma, **bound_of(6 * encoder_ops(enc_rows, 24, H), "bf16",
+                                                  nbytes(gru, table, tokens, hn_k)),
+                                "bound_f32_fma_ms": fma["bound_ms"]}
         for k in (enc_name, dec_name):
             v = report[k]
+            fma = (f", f32 FMA bound {v['bound_f32_fma_ms']:.3f} ms, cuDNN "
+                   f"{v['library_ms']:.3f} ms, the parent's f32 kernel "
+                   f"{parent_ms(parent, lambda pk: pk.encoder_f32(gru, table, tokens))}"
+                   if "bound_f32_fma_ms" in v else "")
             print(f"[time] {k} {label}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
-                  f"bound {v['bound_ms']:.3f} ms ({v['bound_by']}) | {card}", flush=True)
-        if names is None:  # the f32 routes' entries are not the report's
-            del report[enc_name], report[dec_name]
+                  f"bound {v['bound_ms']:.3f} ms ({v['bound_by']}){fma} | {card}", flush=True)
+        if names is None:  # the f32 routes' entries go beside the report's bf16 ones
+            f32_report = {enc_name: report.pop(enc_name), dec_name: report.pop(dec_name)}
+            _split_alternative(gru, table, tokens, card)
             continue
         if label == "bfloat16":
-            decode_row_counts(dec, tick_ctx, h_inits, bound, card, parent)
-            k2_noisy(dec, tick_ctx, h_inits, card, parent)
+            decode_row_counts(dec, tick_ctx, h_inits, bound, card)
+            k2_noisy(dec, tick_ctx, h_inits, card)
     # K4 on the int8 engine's bf16 masters and on f32 masters (the card-vs-CPU
     # check's), the f32 case's decoder inputs
     decode_int8_row_counts({"bfloat16": dec_inputs["int8"], "float32": dec_inputs["float32"]},
-                           card, parent)
+                           card)
+    report["encoder_hn"]["f32"] = f32_report["encoder_hn"]
     return report
 
 
@@ -593,10 +556,11 @@ def _cluster(module, cluster, plan: str = "launch_plan"):
 DECODE_ROWS = (BATCH * 6, BATCH, 6)
 
 
-def decode_row_counts(dec, tick_ctx, h_inits, bound, card: str, parent) -> None:
+def decode_row_counts(dec, tick_ctx, h_inits, bound, card: str) -> None:
     """K2 bf16 at ``DECODE_ROWS``: every cluster size against the plain
     version (``BOUNDS``) and bit-equal to the others (the cluster only moves
-    h between CTAs), each timed, beside the bound and the parent's kernel."""
+    h between CTAs), each timed beside the bound and the kernel's own device
+    time."""
     from inpaintnet_tpu_torch.ops import decode_kernel as dk
     from inpaintnet_tpu_torch.ops.kernel_common import cluster_sizes
 
@@ -624,15 +588,11 @@ def decode_row_counts(dec, tick_ctx, h_inits, bound, card: str, parent) -> None:
                             tc, hi, lg_k, s_k))
         per = ", ".join(f"cluster {c} {v:.3f} ms" for c, v in ms.items())
         alone = _device_ms(lambda: dk.decode_sampling(dec, tc, hi), "rec90::decode_kernel<")
-        p_alone = "not measured" if parent is None else (
-            f"{_device_ms(lambda: parent.decode_bf16(dec, tc, hi), 'rec90::decode_kernel<'):.3f}"
-            " ms")
         print(f"[plan] decode_sampling bfloat16 rows {rows}: cluster {plan.cluster}, stages "
               f"{plan.stages} | {card}", flush=True)
         print(f"[time] decode_sampling bfloat16 rows {rows}: kernel {ms[plan.cluster]:.3f} ms "
-              f"(cluster {plan.cluster}, stages {plan.stages}; {per}), parent "
-              f"{parent_ms(parent, lambda pk: pk.decode_bf16(dec, tc, hi))}; the kernel alone "
-              f"{alone:.3f} ms device, parent's {p_alone}; bound {b['bound_ms']:.4f} ms "
+              f"(cluster {plan.cluster}, stages {plan.stages}; {per}); the kernel alone "
+              f"{alone:.3f} ms device; bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']}); 1 launch a call | {card}", flush=True)
 
 
@@ -654,9 +614,9 @@ K2_NOISY = {0.05: {"mean": 3.36e-5, "max": 1.5625e-2, "early": 0.0200},
 K2_NOISY_ROWS = 2048
 
 
-def k2_noisy(dec, tick_ctx, h_inits, card: str, parent) -> None:
+def k2_noisy(dec, tick_ctx, h_inits, card: str) -> None:
     """K2 bf16 with noisy weights (``K2_NOISE``) at ``K2_NOISY_ROWS`` rows
-    against its plain version, beside the parent's kernel (``--parent``)."""
+    against its plain version."""
     from inpaintnet_tpu_torch.ops import arnn_kernel as ak
     from inpaintnet_tpu_torch.ops import decode_kernel as dk
 
@@ -669,13 +629,9 @@ def k2_noisy(dec, tick_ctx, h_inits, card: str, parent) -> None:
         p = {**dec, **_noisy(used, noise, gen)}
         want = dk.decode_sampling_reference(p, tc, hi)
         got = ak.decode_agreement(dk.decode_sampling(p, tc, hi), want, unforced, early_ticks=6)
-        par = "parent not measured"
-        if parent is not None:
-            par = "parent " + _agreement_line(ak.decode_agreement(
-                parent.decode_bf16(p, tc, hi), want, unforced, early_ticks=6))
         b = K2_NOISY[noise]
         print(f"[kernels] decode_sampling bfloat16 noise {noise}, {rows} rows: kernel "
-              f"{_agreement_line(got)}; {par} (bounds {b}) | {card}", flush=True)
+              f"{_agreement_line(got)} (bounds {b}) | {card}", flush=True)
         if not (got["logits_mean"] <= b["mean"] and got["logits_max"] <= b["max"]
                 and got["early_changed"] <= b["early"]):
             raise RuntimeError(f"K2 bf16 drifts from its plain version at noise {noise}")
@@ -689,18 +645,16 @@ def k2_noisy(dec, tick_ctx, h_inits, card: str, parent) -> None:
     want = dk.decode_sampling_reference(params, tc, hi)
     unforced = unforced[:512]
     got = ak.decode_agreement(dk.decode_sampling(params, tc, hi), want, unforced, early_ticks=6)
-    par = "parent not measured" if parent is None else "parent " + _agreement_line(
-        ak.decode_agreement(parent.decode_bf16(params, tc, hi), want, unforced, early_ticks=6))
     print(f"[kernels] decode_sampling bfloat16, the card test's inputs (512 rows, noise 0.1): "
-          f"kernel {_agreement_line(got)}; {par} (the test's bounds {K2_NOISY_BOUNDS}) | {card}",
+          f"kernel {_agreement_line(got)} (the test's bounds {K2_NOISY_BOUNDS}) | {card}",
           flush=True)
 
 
-def decode_int8_row_counts(inputs: dict, card: str, parent) -> None:
+def decode_int8_row_counts(inputs: dict, card: str) -> None:
     """K4 at ``DECODE_ROWS`` on each master dtype's decoder inputs
     ({dtype label: (decoder params, tick_ctx, h_inits)}): every cluster size
     bit-equal to the plain version and so to the others, each timed beside
-    the bound and the parent's kernel."""
+    the bound and the kernel's own device time."""
     from inpaintnet_tpu_torch.ops import decode_kernel as dk
     from inpaintnet_tpu_torch.ops.kernel_common import cluster_sizes
 
@@ -725,15 +679,11 @@ def decode_int8_row_counts(inputs: dict, card: str, parent) -> None:
             b = bound_of(decode_ops(rows, hidden, vocab), "int8", nbytes(used, tc, hi, *want))
             per = ", ".join(f"cluster {c} {v:.3f} ms" for c, v in ms.items())
             alone = _device_ms(lambda: dk.decode_sampling_int8(dec, tc, hi), "decode_i8_kernel<")
-            p_alone = "not measured" if parent is None else (
-                f"{_device_ms(lambda: parent.decode_int8(dec, tc, hi), 'decode_int8_kernel<'):.3f}"
-                " ms")
             print(f"[plan] decode_sampling_int8 {label} rows {rows}: cluster {plan.cluster}, "
                   f"stages {plan.stages} | {card}", flush=True)
             print(f"[time] decode_sampling_int8 {label} masters rows {rows}: kernel "
                   f"{ms[plan.cluster]:.3f} ms (cluster {plan.cluster}, stages {plan.stages}; "
-                  f"{per}), parent {parent_ms(parent, lambda pk: pk.decode_int8(dec, tc, hi))}; "
-                  f"the kernel alone {alone:.3f} ms device, parent's {p_alone}; bound "
+                  f"{per}); the kernel alone {alone:.3f} ms device; bound "
                   f"{b['bound_ms']:.4f} ms ({b['bound_by']}); 1 launch a call | {card}",
                   flush=True)
 
@@ -768,28 +718,82 @@ def _check_encoder_share(gru, table, tokens, hn_k, hn_p) -> None:
         raise RuntimeError("the planted bf16 xw1 passes the encoder's bf16 bounds")
 
 
+def _reject_encoder_f32_faults(gru, table, tokens, hn_k) -> None:
+    """K1 f32's planted faults, in its plain versions on the first
+    ``PLANTED_ROWS`` rows, must break ``BOUNDS[float32]`` against the kernel:
+    the recurrent product on h taken as one bf16 piece, and layer 1's
+    projection rounded to bf16 (the staged plain version)."""
+    from inpaintnet_tpu_torch.ops import encoder_kernel as ek
+
+    tk = tokens[:PLANTED_ROWS]
+    product, exact = ek.recurrent_product, ek.input_projection_reference
+    faults = {}
+    ek.recurrent_product = lambda h, w: h.bfloat16().float() @ w
+    try:
+        faults["product on h as one bf16 piece"] = ek.encoder_hn_reference(gru, table, tk)
+    finally:
+        ek.recurrent_product = product
+    ek.input_projection_reference = lambda ys, w, b: exact(ys, w, b).bfloat16().float()
+    try:
+        faults["layer 1's projection rounded to bf16"] = ek.encoder_hn_staged_reference(
+            gru, table, tk)
+    finally:
+        ek.input_projection_reference = exact
+    torch.cuda.synchronize()
+    for name, planted in faults.items():
+        err = (hn_k[:, :PLANTED_ROWS] - planted).abs().max().item()
+        print(f"[kernels] float32 planted fault, {name}, {PLANTED_ROWS} rows: encoder_hn h_n "
+              f"max_abs_err {err:.3e} (bound {BOUNDS[torch.float32]['hn']:.1e})", flush=True)
+        if err <= BOUNDS[torch.float32]["hn"]:
+            raise RuntimeError(f"a planted K1 f32 fault passes the f32 bound: {name}")
+
+
+def _split_alternative(gru, table, tokens, card: str) -> None:
+    """K1 f32's layer 0 writes its outputs as the GEMM's three bf16 pieces.
+    The other way, layer 0 writing f32 ys and a per-chunk split into the
+    pieces, would add that split: timed here on one chunk's f32 ys (through
+    ``split_bf16_pieces``' PyTorch ops), beside layer 0's own device time a
+    chunk."""
+    from inpaintnet_tpu_torch.ops import encoder_kernel as ek
+    from inpaintnet_tpu_torch.ops.kernel_common import split_bf16_pieces
+
+    H = gru[0][0]["w_hh"].shape[0]
+    chunk = ek.encoder_chunk_rows(tokens.shape[0], 24, H, dtype=torch.float32)
+    ys = torch.rand((24 * chunk, 2 * H), device=tokens.device)
+    ms = cuda_ms(lambda: torch.stack(split_bf16_pieces(ys)), 5)
+    print(f"[time] encoder_hn float32: a per-chunk split of f32 ys ({24 * chunk} x {2 * H}) "
+          f"into three bf16 pieces would add {ms:.3f} ms a chunk, "
+          f"{ms * -(-tokens.shape[0] // chunk):.3f} ms a call | {card}", flush=True)
+
+
 # The Hopper route's three kernels, as torch.profiler names them (mangled
-# or not): layer 0's and layer 1's recurrence and the projection GEMM.
+# or not): layer 0's and layer 1's recurrence and the projection GEMM; in
+# f32 K5's recurrence in its K1 modes and the split GEMM.
 ENCODER_PARTS = (("layer 0", "encoder_rec_kernel", ("true>", "Lb1E")),
                  ("GEMM", "encoder_xw_gemm_kernel", ()),
                  ("layer 1", "encoder_rec_kernel", ("false>", "Lb0E")))
+ENCODER_F32_PARTS = (("layer 0", "gru_fwd_kernel", (", 1, 1>", "Li1ELi1E")),
+                     ("GEMM", "encoder_xw_gemm_split_kernel", ()),
+                     ("layer 1", "gru_fwd_kernel", (", 1, 2>", "Li1ELi2E")))
 
 
-def encoder_parts(call) -> tuple:
+def encoder_parts(call, want: int, kinds=ENCODER_PARTS) -> tuple:
     """``torch.profiler``'s split of one encoder call: ({part: device ms},
     CUDA launches of the three kernels, device ms of every other kernel:
-    the wrapper's operand preparation)."""
-    _, _, rows = _profile_step(call)
-    parts, launches, other = {label: 0.0 for label, _, _ in ENCODER_PARTS}, 0, 0.0
-    for name, ms, count in rows:
-        for label, kernel, flags in ENCODER_PARTS:
-            if kernel in name and (not flags or any(f in name for f in flags)):
-                parts[label] += ms
-                launches += count
-                break
-        else:
-            other += ms
-    return parts, launches, other
+    the wrapper's operand preparation), traced again while fewer than
+    ``want`` launches show."""
+    def count(trace):
+        parts, launches, other = {label: 0.0 for label, _, _ in kinds}, 0, 0.0
+        for name, ms, n in trace[2]:
+            for label, kernel, flags in kinds:
+                if kernel in name and (not flags or any(f in name for f in flags)):
+                    parts[label] += ms
+                    launches += n
+                    break
+            else:
+                other += ms
+        return parts, launches, other
+    return _profile_retaken(count, call, want)
 
 
 def encoder_times(enc_k, gru, table, tokens, label: str, card: str) -> None:
@@ -799,10 +803,12 @@ def encoder_times(enc_k, gru, table, tokens, label: str, card: str) -> None:
     from inpaintnet_tpu_torch.ops.encoder_kernel import encoder_cuda_launches
 
     H = gru[0][0]["w_hh"].shape[0]
+    kinds = ENCODER_F32_PARTS if table.dtype == torch.float32 else ENCODER_PARTS
     for rows in (tokens.shape[0], 2 * N_BARS):
         tk = tokens[:rows].contiguous()
         ms = cuda_ms(lambda: enc_k(gru, table, tk), 5)
-        parts, launches, other = encoder_parts(lambda: enc_k(gru, table, tk))
+        want = encoder_cuda_launches(table.dtype, rows, 24, H)
+        parts, launches, other = encoder_parts(lambda: enc_k(gru, table, tk), want, kinds)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -810,7 +816,6 @@ def encoder_times(enc_k, gru, table, tokens, label: str, card: str) -> None:
         torch.cuda.synchronize()
         peak = (torch.cuda.max_memory_allocated() - base) / 2**30
         split = ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
-        want = encoder_cuda_launches(table.dtype, rows, 24, H)
         print(f"[time] {enc_k.__name__} {label} rows {rows}: {ms:.3f} ms a call; device: {split}, "
               f"operand preparation {other:.3f} ms; {launches} CUDA launches of the three "
               f"kernels ({want} expected); peak {peak:.2f} GiB above the {base / 2**30:.2f} GiB "
@@ -949,15 +954,15 @@ def _by_cluster(gk, kernel: str, dtype, hidden, call):
     return got
 
 
-def phase_train_kernels(card: str, parent) -> dict:
+def phase_train_kernels(card: str) -> dict:
     """K5 and K6 against their plain versions at the VAE's shapes: the
     encoder's (24 steps, 4,096 rows, both directions, h0 zero), the beat
     GRU's (4 steps, 4,096 rows) and the tick GRU's (6 steps, 16,384 rows =
     4,096 x 4 beats), H 512, f32 and bf16; K6 at every cluster size,
     bit-equal to the others (its cluster only moves dhw's pieces). The
     planted faults at the encoder's shape; the times of the forward
-    direction at each shape, K5 and K6 at each cluster size, K5 beside the
-    parent's kernel. -> report entries of the bf16 encoder case."""
+    direction at each shape, K5 and K6 at each cluster size. -> report
+    entries of the bf16 encoder case."""
     from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
 
     hidden, rows = 512, TRAIN_WINDOWS * N_BARS
@@ -1017,9 +1022,7 @@ def phase_train_kernels(card: str, parent) -> dict:
                              f"f32 FMA bound {b['bound_f32_fma_ms']:.3f} ms,")
                 else:
                     per = ", ".join(f"cluster {c} {v[1]:.3f} ms" for c, v in by_c5.items())
-                    extra = (f" (cluster {fplan.cluster}, stages {fplan.stages}; {per}), parent "
-                             f"{parent_ms(parent, lambda pk: pk.gru_fwd(*fwd))}"
-                             f"{parent_err(parent, lambda pk: pk.gru_fwd(*fwd), out_p)},")
+                    extra = f" (cluster {fplan.cluster}, stages {fplan.stages}; {per}),"
                     print(f"[plan] gru_fwd_seq {dtype} {label}: cluster {fplan.cluster}, stages "
                           f"{fplan.stages} | {card}", flush=True)
                 print(f"[time] {name} {dtype} {label} steps {steps} rows {batch}: kernel "
@@ -1086,17 +1089,21 @@ def phase_train_reference(card: str):
 def _profile_step(step) -> tuple:
     """``torch.profiler``'s device time of one ``step()``. -> (device ms,
     device launches, [(kernel, ms, launches)] by time, longest first). A
-    trace that recorded no device activity at all (the profiler once lost
-    a whole window on the card) is taken again, up to twice; the launch
-    counts its callers assert come from a trace that recorded some."""
+    trace may lose the kernels at its start on the card (a whole window
+    once, a call's first kernel another time), so each trace starts with a
+    few milliseconds of ``torch.cuda._sleep``, whose kernel is left out of
+    the rows; a trace that recorded no device activity at all is taken
+    again, up to twice."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(3):
         with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(PROFILE_LEAD_CYCLES)
+            torch.cuda.synchronize()
             step()
             torch.cuda.synchronize()
         rows = []
         for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key:
                 us = getattr(e, "self_device_time_total", None)
                 rows.append((e.key, (e.self_cuda_time_total if us is None else us) / 1e3, e.count))
         if rows:
@@ -1105,6 +1112,22 @@ def _profile_step(step) -> tuple:
               flush=True)
     rows.sort(key=lambda r: -r[1])
     return sum(r[1] for r in rows), sum(r[2] for r in rows), rows
+
+
+# the lead of a trace: ~5 ms of a card's clock before the traced call
+PROFILE_LEAD_CYCLES = 10_000_000
+
+
+def _profile_retaken(count, call, want: int):
+    """``count(_profile_step(call))`` (a tuple whose second item is the
+    launches of the kernels it counts), traced again up to twice while
+    fewer than ``want`` show: a trace that lost a kernel. The last reading
+    otherwise, for the caller to reject."""
+    for _ in range(3):
+        got = count(_profile_step(call))
+        if got[1] >= want:
+            break
+    return got
 
 
 def _device_ms(call, key: str) -> float:
@@ -1575,46 +1598,56 @@ def _k7_noisy_against_first_kernel(ak, model, params, card: str) -> None:
                 raise RuntimeError(f"a planted K7 fault passes at noise {noise}: {name}")
 
 
-def _k7_by_cluster(ak, hidden, linear, call):
-    """{C: (K7's outputs, ms)} of ``call()`` with K7's bf16 plan forced to
-    each cluster size its geometry allows."""
-    real, got = ak.arnn_plan, {}
+def _k7_by_cluster(ak, hidden, linear, call, dtype=torch.bfloat16):
+    """{C: (K7's outputs, ms)} of ``call()`` with the dtype's K7 plan
+    forced to each cluster size its geometry allows."""
     lp = ak.arnn_head_width(linear)
-    for c in ak.arnn_cluster_sizes(hidden, lp):
-        ak.arnn_plan = lambda *shape, c=c: real(*shape)._replace(
-            cluster=c, stages=ak.arnn_ring_stages(hidden, c, lp))
+    if dtype == torch.float32:
+        name, sizes = "arnn_f32_plan", ak.arnn_f32_cluster_sizes(hidden, lp)
+    else:
+        name, sizes = "arnn_plan", ak.arnn_cluster_sizes(hidden, lp)
+    real, got = getattr(ak, name), {}
+    for c in sizes:
+        stages = 2 if dtype == torch.float32 else ak.arnn_ring_stages(hidden, c, lp)
+        setattr(ak, name, lambda *shape, c=c, st=stages: real(*shape)._replace(cluster=c,
+                                                                                 stages=st))
         try:
             got[c] = (call(), cuda_ms(call, 5))
         finally:
-            ak.arnn_plan = real
+            setattr(ak, name, real)
     return got
 
 
-# K7's bf16 Hopper route as torch.profiler names its kernels: the context
-# projection GEMM and the recurrence.
-K7_PARTS = (("GEMM", "encoder_xw_gemm_kernel"), ("recurrence", "arnn_kernel"))
+# K7's Hopper routes as torch.profiler names their kernels: the context
+# projection GEMM and the recurrence, in bf16 and (split) in f32.
+K7_PARTS = {torch.bfloat16: (("GEMM", "encoder_xw_gemm_kernel"), ("recurrence", "arnn_kernel")),
+            torch.float32: (("GEMM", "encoder_xw_gemm_split_kernel"),
+                            ("recurrence", "arnn_f32_kernel"))}
 
 
-def k7_parts(call) -> tuple:
+def k7_parts(call, want: int, dtype=torch.bfloat16) -> tuple:
     """``torch.profiler``'s split of one K7 call: ({part: device ms}, CUDA
-    launches of K7's kernels)."""
-    _, _, rows = _profile_step(call)
-    parts, launches = {}, 0
-    for name, ms, count in rows:
-        for label, kernel in K7_PARTS:
-            if kernel in name:
-                parts[label] = parts.get(label, 0.0) + ms
-                launches += count
-                break
-    return parts, launches
+    launches of K7's kernels), traced again while fewer than ``want``
+    launches show."""
+    def count(trace):
+        parts, launches = {}, 0
+        for name, ms, n in trace[2]:
+            for label, kernel in K7_PARTS[dtype]:
+                if kernel in name:
+                    parts[label] = parts.get(label, 0.0) + ms
+                    launches += n
+                    break
+        return parts, launches
+    return _profile_retaken(count, call, want)
 
 
-def phase_arnn_kernel(model, card: str) -> dict:
+def phase_arnn_kernel(model, card: str, parent) -> dict:
     """K7 against its plain version at batch 512 x 384 ticks, flagship
-    width, f32 and bf16; the planted faults; the times (bf16 reported). The
-    bf16 Hopper route also at 64 and 1 rows, every cluster size bit-equal to
-    the others (the cluster only moves h between its CTAs), its CUDA
-    launches asserted, timed beside the first kernel; with
+    width, f32 and bf16; the planted faults; the times (bf16 reported, f32
+    beside it). Both Hopper routes also at 64 and 1 rows, every cluster
+    size bit-equal to the others (the cluster only moves h between its
+    CTAs), their CUDA launches asserted, each timed beside the first kernel
+    (f32 also beside both its bounds and the parent's kernel); bf16 with
     noisy weights against the first kernel (``ARNN_NOISE``)."""
     from inpaintnet_tpu_torch.models.base import cast_params
     from inpaintnet_tpu_torch.ops import arnn_kernel as ak
@@ -1636,19 +1669,26 @@ def phase_arnn_kernel(model, card: str) -> dict:
         fm = args[3]
         faults["force mask read one tick late"] = ak.arnn_sampled_decode_reference(
             *args[:3], torch.cat([fm[:, :1], fm[:, :-1]], dim=1).contiguous(), args[4])
+        carry, projection, product = ak.carry_c, ak.ctx_projection, ak.recurrent_product
         if dtype == torch.bfloat16:
-            carry, projection = ak.carry_c, ak.ctx_projection
             ak.carry_c = lambda c, dtype: c
             try:
                 faults["c carry kept in f32"] = ak.arnn_sampled_decode_reference(*args)
             finally:
                 ak.carry_c = carry
-            ak.ctx_projection = lambda ctx, w: projection(ctx, w).to(torch.bfloat16).float()
+        else:
+            ak.recurrent_product = lambda h, w: h.bfloat16().float() @ w
             try:
-                faults["context projection rounded to bf16"] = \
-                    ak.arnn_sampled_decode_staged_reference(*args)
+                faults["products on h as one bf16 piece"] = \
+                    ak.arnn_sampled_decode_reference(*args)
             finally:
-                ak.ctx_projection = projection
+                ak.recurrent_product = product
+        ak.ctx_projection = lambda ctx, w: projection(ctx, w).to(torch.bfloat16).float()
+        try:
+            faults["context projection rounded to bf16"] = \
+                ak.arnn_sampled_decode_staged_reference(*args)
+        finally:
+            ak.ctx_projection = projection
         for name, planted in faults.items():
             f_agree = ak.decode_agreement(got, planted, fm)
             print(f"[arnn-kernel] planted fault {dtype}, {name}: {_agreement_line(f_agree)}",
@@ -1658,50 +1698,53 @@ def phase_arnn_kernel(model, card: str) -> dict:
         used = {k: params[k] for k in ("note_embedding", "lstm_generation", "linear_1",
                                        "linear_output_notes")}
         kind = "bf16" if dtype == torch.bfloat16 else "f32"
-        if dtype == torch.float32:
-            ms = cuda_ms(lambda: ak.arnn_sampled_decode(*args), 5)
-            plain_ms = cuda_ms(lambda: ak.arnn_sampled_decode_reference(*args), 2)
-            bound = bound_of(arnn_ops(ARNN_BATCH, ARNN_BARS * 24, H, C, L, model.num_notes),
-                             kind, nbytes(used, *args[1:], *got))
-            print(f"[time] arnn_sampled_decode {dtype}: kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}) "
-                  f"| {card}", flush=True)
-            continue
-        _k7_noisy_against_first_kernel(ak, model, params, card)
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        if dtype == torch.bfloat16:
+            _k7_noisy_against_first_kernel(ak, model, params, card)
         for rows in ARNN_ROWS:
             call_args = args if rows == ARNN_BATCH else (
                 params, *_arnn_inputs(model, params, rows, seed=8))
             out = got if rows == ARNN_BATCH else ak.arnn_sampled_decode(*call_args)
-            plan = ak.arnn_card_plan(rows, H, L, args[1].device)
-            by_c = _k7_by_cluster(ak, H, L, lambda: ak.arnn_sampled_decode(*call_args))
+            plan = (ak.arnn_card_plan if dtype == torch.bfloat16 else ak.arnn_f32_card_plan)(
+                rows, H, L, args[1].device)
+            by_c = _k7_by_cluster(ak, H, L, lambda: ak.arnn_sampled_decode(*call_args), dtype)
             same = all(torch.equal(o[0], out[0]) and torch.equal(o[1], out[1])
                        for o, _ in by_c.values())
-            print(f"[arnn-kernel] bf16 rows {rows}: clusters {sorted(by_c)} bit-equal {same}",
+            print(f"[arnn-kernel] {tag} rows {rows}: clusters {sorted(by_c)} bit-equal {same}",
                   flush=True)
             if not same:
-                raise RuntimeError(f"K7 bf16 differs across cluster sizes at {rows} rows")
+                raise RuntimeError(f"K7 {tag} differs across cluster sizes at {rows} rows")
             ms = by_c[plan.cluster][1]
-            parts, launches = k7_parts(lambda: ak.arnn_sampled_decode(*call_args))
             want = ak.arnn_cuda_launches(dtype, rows, ARNN_BARS * 24, H, L, model.num_notes)
-            print(f"[arnn-kernel] bf16 rows {rows}: device " + ", ".join(
+            parts, launches = k7_parts(lambda: ak.arnn_sampled_decode(*call_args), want, dtype)
+            print(f"[arnn-kernel] {tag} rows {rows}: device " + ", ".join(
                 f"{k} {v:.3f} ms" for k, v in parts.items()) + f"; {launches} CUDA launches "
                 f"({want} expected) | {card}", flush=True)
             if launches != want:
                 raise RuntimeError(f"K7: {launches} CUDA launches at {rows} rows, expected {want}")
             plain_ms = cuda_ms(lambda: ak.arnn_sampled_decode_reference(*call_args), 2)
-            bound = bound_of(arnn_ops(rows, ARNN_BARS * 24, H, C, L, model.num_notes), kind,
-                             nbytes(used, *call_args[1:], *out))
+            ops = arnn_ops(rows, ARNN_BARS * 24, H, C, L, model.num_notes)
+            moved = nbytes(used, *call_args[1:], *out)
+            bound = bound_of(ops, kind, moved)
+            extra = ""
+            if dtype == torch.float32:  # the split products' bound, beside the FMA units'
+                bound = {**bound_of(6 * ops, "bf16", moved), "bound_f32_fma_ms": bound["bound_ms"]}
+                extra = (f", f32 FMA bound {bound['bound_f32_fma_ms']:.4f} ms, parent "
+                         f"{parent_ms(parent, lambda pk: pk.arnn_f32(call_args))}")
             per = ", ".join(f"cluster {c} {v[1]:.3f} ms" for c, v in by_c.items())
             first_ms = cuda_ms(lambda: _first_k7(ak, call_args), 3)
             print(f"[time] arnn_sampled_decode {dtype} rows {rows}: kernel {ms:.3f} ms "
                   f"(cluster {plan.cluster}, stages {plan.stages}; {per}), first kernel "
                   f"{first_ms:.3f} ms, plain {plain_ms:.3f} "
-                  f"ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) | {card}",
+                  f"ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}){extra} | {card}",
                   flush=True)
             if rows == ARNN_BATCH:
-                report["arnn_sampled_decode"] = {"max_abs_err": agree["logits_max"], "ms": ms,
-                                                 "plain_ms": plain_ms, **bound,
-                                                 "library_ms": None}
+                entry = {"max_abs_err": agree["logits_max"], "ms": ms, "plain_ms": plain_ms,
+                         **bound, "library_ms": None}
+                if dtype == torch.float32:
+                    f32_entry = entry
+                else:
+                    report["arnn_sampled_decode"] = {**entry, "f32": f32_entry}
     return report
 
 
@@ -2271,7 +2314,7 @@ def phase_autoreg_http(engine, card: str) -> dict:
 def main() -> int:
     cli = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     cli.add_argument("--parent", metavar="DIR",
-                     help="an earlier checkout of this repository whose K2, K4 and K5 "
+                     help="an earlier checkout of this repository whose f32 K1 and K7 "
                           "kernels are built and timed beside the new ones")
     opts = cli.parse_args()
     card = phase_device()
@@ -2281,7 +2324,7 @@ def main() -> int:
 
     _, vae, model = build_flagship(seed=0, device="cuda", dtype=torch.float32)
     report = phase_kernels(vae, model.max_target, card, parent)
-    report.update(phase_train_kernels(card, parent))
+    report.update(phase_train_kernels(card))
     phase_reference(model)
     engine16, launches, span_bf16 = phase_engine(model, "bfloat16", card)
     engine8, launches8, span_int8 = phase_engine(model, "int8", card)
@@ -2291,7 +2334,7 @@ def main() -> int:
     from inpaintnet_tpu_torch.models.presets import build_arnn
 
     arnn = build_arnn(seed=0, device="cuda")
-    report.update(phase_arnn_kernel(arnn, card))
+    report.update(phase_arnn_kernel(arnn, card, parent))
     phase_arnn_reference()
     arnn_engine, launches_arnn = phase_arnn_engine(arnn, card)
     launches_arnn_http = phase_arnn_http(engine8, arnn_engine, card)

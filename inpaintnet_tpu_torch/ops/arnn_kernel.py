@@ -30,9 +30,18 @@ staging in plain PyTorch), then a cluster recurrence whose launch plan
 (:func:`arnn_plan`) splits each 64-row tile's units across the CTAs of a
 cluster, its weights packed in 4-gate blocks (:func:`pack_lstm_blocks`,
 :func:`pack_arnn_weights`) once per set of weight tensors
-(:func:`arnn_operands`). The f32 route keeps the first kernel of the port
-(``csrc/arnn_decode.cu``), and so do the bf16 geometries that the Hopper
-plan does not take (:func:`arnn_hopper_supports`).
+(:func:`arnn_operands`). The f32 route is the same staging with every
+product split into six bf16 passes over exact pieces
+(``kernel_common.split_product`` emulates them): the context projection
+as the split GEMM, then ``arnn_f32_kernel``, whose CTAs exchange the h
+pieces through an L2 scratch (:func:`arnn_f32_plan`,
+:func:`pack_arnn_f32_weights`, :func:`arnn_f32_operands`). The geometries
+neither plan takes (:func:`arnn_hopper_supports`,
+:func:`arnn_f32_supports`: a vocabulary over 64, a head over 512 columns;
+in bf16 H 512 at a 256-wide head, in f32 more than 128 units a CTA) run
+the first kernel of the port (``csrc/arnn_decode.cu``).
+``recurrent_product``, ``carry_c`` and ``ctx_projection`` are the plain
+versions' steps where a check plants a fault.
 
 The wrapper runs the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel or raises.
@@ -60,6 +69,7 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     lstm_gates_f32,
     pack_mma_b,
     round_up,
+    split_bf16_pieces,
     stream_ptr,
 )
 
@@ -131,23 +141,29 @@ def arnn_cluster_sizes(hidden: int, lp: int) -> list:
             and arnn_ring_stages(hidden, c, lp) >= 2]
 
 
-def arnn_plan(rows: int, hidden: int, linear: int, sms: int, slots=None) -> LaunchPlan:
-    """How the bf16 route runs ``rows`` rows: the cluster size C with the
-    least modelled time, waves of clusters ``ceil(tiles / slots[C])``, each
-    as long as 1/C of a tile's units plus the fixed share every CTA pays
-    (``kernel_common.HOPPER_CTA_OVERHEAD``); the smaller C on a tie. At the
-    flagship's H 256 every batch up to 30 tiles (1,920 rows) on an H100
-    takes C 4: one wave. Raises ValueError for a geometry no size takes."""
-    lp = arnn_head_width(linear)
-    sizes = arnn_cluster_sizes(hidden, lp)
-    if not sizes:
-        raise ValueError(f"no K7 plan for hidden size {hidden}, head {linear}")
+def _least_cost_cluster(rows: int, sizes: list, sms: int, slots) -> int:
+    """The cluster size C with the least modelled time: waves of clusters
+    ``ceil(tiles / slots[C])``, each as long as 1/C of a tile's units plus
+    the fixed share every CTA pays (``kernel_common.HOPPER_CTA_OVERHEAD``);
+    the smaller C on a tie."""
     slots = slots or {c: max(1, sms // c) for c in sizes}
     tiles = -(-rows // HOPPER_ROWS)
 
     def cost(c):
         return -(-tiles // slots[c]) * (1 / c + HOPPER_CTA_OVERHEAD)
-    cluster = min(sizes, key=lambda c: (cost(c), c))
+    return min(sizes, key=lambda c: (cost(c), c))
+
+
+def arnn_plan(rows: int, hidden: int, linear: int, sms: int, slots=None) -> LaunchPlan:
+    """How the bf16 route runs ``rows`` rows: the cluster size of
+    :func:`_least_cost_cluster`. At the flagship's H 256 every batch up to
+    30 tiles (1,920 rows) on an H100 takes C 4: one wave. Raises ValueError
+    for a geometry no size takes."""
+    lp = arnn_head_width(linear)
+    sizes = arnn_cluster_sizes(hidden, lp)
+    if not sizes:
+        raise ValueError(f"no K7 plan for hidden size {hidden}, head {linear}")
+    cluster = _least_cost_cluster(rows, sizes, sms, slots)
     return LaunchPlan(cluster, arnn_ring_stages(hidden, cluster, lp))
 
 
@@ -183,15 +199,101 @@ def arnn_hopper_supports(hidden: int, linear: int, vocab: int) -> bool:
     return vocab <= ARNN_OUT_COLS and bool(arnn_cluster_sizes(hidden, arnn_head_width(linear)))
 
 
+# --------------------------------------------------------------------------- #
+# The f32 route's Hopper recurrence (csrc/arnn_hopper.cuh arnn_f32_kernel)
+# --------------------------------------------------------------------------- #
+ARNN_F32_UNITS = 16  # units of a chunk: its i, f, g, o rows are one 64-row wgmma tile
+ARNN_F32_BLOCK_BYTES = 64 * 128  # a 64 x 64 bf16 block of packed weights
+ARNN_F32_STAGE_BYTES = 3 * HOPPER_ROWS * 128 + 6 * ARNN_F32_BLOCK_BYTES  # 72 KB
+ARNN_F32_STAGES = 2
+ARNN_F32_CARRY_PAD = 8  # f32 padding of the c carries' rows
+ARNN_F32_MAX_ROUNDS = 4  # 32-unit rounds a CTA: two chunks of 16 a round, one a warpgroup
+
+
+def arnn_f32_smem_bytes(hidden: int, cluster: int) -> int:
+    """Dynamic shared memory of an f32 K7 CTA (``arnn_hopper.cuh
+    arnn_f32_smem_bytes``): the two 72 KB ring stages (a k-slab of the
+    operand's three pieces and of two chunks' three weight pieces) and the
+    f32 c carries of its ``hidden / cluster`` units, both layers."""
+    return (ARNN_F32_STAGES * ARNN_F32_STAGE_BYTES
+            + 2 * HOPPER_ROWS * (hidden // cluster + ARNN_F32_CARRY_PAD) * 4 + 1024)
+
+
+def arnn_f32_cluster_sizes(hidden: int, lp: int) -> list:
+    """Cluster sizes the f32 route takes: CTAs owning whole pairs of 16-unit
+    chunks (32 units a round, one chunk a consumer warpgroup), at most four
+    rounds (128 units), a head of at most 512 columns, and a block that
+    fits shared memory: H 64 takes 1 and 2, the flagship's H 256 takes 2, 4
+    and 8, H 512 takes 4 and 8."""
+    if hidden % 64 or hidden <= 0 or lp % ARNN_HID_COLS or not 0 < lp <= ARNN_MAX_HEAD:
+        return []
+    return [c for c in ARNN_CLUSTERS
+            if hidden % c == 0 and (hidden // c) % 32 == 0
+            and hidden // c // 32 <= ARNN_F32_MAX_ROUNDS
+            and arnn_f32_smem_bytes(hidden, c) <= HOPPER_SMEM_BUDGET]
+
+
+def arnn_f32_plan(rows: int, hidden: int, linear: int, sms: int, slots=None) -> LaunchPlan:
+    """How the f32 route runs ``rows`` rows: the cluster size of
+    :func:`_least_cost_cluster` (a CTA's chain of rounds shrinks as 1/C),
+    with the ring's two stages. At the flagship's H 256 on an H100 every
+    batch up to 15 tiles (960 rows) takes C 8: one wave. Raises ValueError
+    for a geometry no size takes."""
+    sizes = arnn_f32_cluster_sizes(hidden, arnn_head_width(linear))
+    if not sizes:
+        raise ValueError(f"no f32 K7 plan for hidden size {hidden}, head {linear}")
+    return LaunchPlan(_least_cost_cluster(rows, sizes, sms, slots), ARNN_F32_STAGES)
+
+
+@functools.lru_cache(maxsize=None)
+def arnn_f32_slots(hidden: int, lp: int, device_index: int) -> dict:
+    """{C: clusters of C CTAs of the f32 route the card runs at once},
+    asked once per geometry and card."""
+    with torch.cuda.device(device_index):
+        counts = {c: load_kernels().inpaint_arnn_f32_slots(hidden, c, lp)
+                  for c in arnn_f32_cluster_sizes(hidden, lp)}
+    bad = sorted(c for c, n in counts.items() if n < 1)
+    if bad:
+        raise RuntimeError(f"arnn_sampled_decode: the card runs no f32 cluster of sizes {bad} "
+                           f"at hidden size {hidden}")
+    return counts
+
+
+def arnn_f32_card_plan(rows: int, hidden: int, linear: int, device) -> LaunchPlan:
+    """:func:`arnn_f32_plan` on the card ``device`` names: the plan
+    :func:`arnn_sampled_decode` launches in f32."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return arnn_f32_plan(rows, hidden, linear,
+                         torch.cuda.get_device_properties(index).multi_processor_count,
+                         arnn_f32_slots(hidden, arnn_head_width(linear), index))
+
+
+def arnn_f32_supports(hidden: int, linear: int, vocab: int) -> bool:
+    """Whether K7's f32 Hopper route takes this geometry: a vocabulary of at
+    most 64 and a cluster plan (:func:`arnn_f32_cluster_sizes`). The f32
+    geometries it does not take (a vocabulary over 64, a head over 512
+    columns) run the first kernel of the port."""
+    return vocab <= ARNN_OUT_COLS and bool(arnn_f32_cluster_sizes(hidden,
+                                                                  arnn_head_width(linear)))
+
+
+def _route_supports(hidden: int, linear: int, vocab: int, dtype) -> bool:
+    """Whether a Hopper route takes this geometry in ``dtype``."""
+    if dtype == torch.bfloat16:
+        return arnn_hopper_supports(hidden, linear, vocab)
+    return dtype == torch.float32 and arnn_f32_supports(hidden, linear, vocab)
+
+
 def arnn_kernel_supports(hidden: int, ctx: int, linear: int, vocab: int, dtype) -> bool:
     """Whether K7 takes this geometry: H and C whole 64-unit chunks up to 512
-    (``kernel_supports_hidden``), and in bf16 a plan of the Hopper route
-    (:func:`arnn_hopper_supports`) or, in either dtype, a tile that fits one
-    block's shared memory (the first kernel, ``csrc/arnn_decode.cu``)."""
+    (``kernel_supports_hidden``), and a plan of the dtype's Hopper route
+    (:func:`arnn_hopper_supports`, :func:`arnn_f32_supports`) or a tile that
+    fits one block's shared memory (the first kernel,
+    ``csrc/arnn_decode.cu``)."""
     if dtype not in DTYPE_CODES or not (kernel_supports_hidden(hidden)
                                         and kernel_supports_hidden(ctx)):
         return False
-    if dtype == torch.bfloat16 and arnn_hopper_supports(hidden, linear, vocab):
+    if _route_supports(hidden, linear, vocab, dtype):
         return True
     return arnn_kernel_smem_bytes(hidden, ctx, linear, vocab, dtype) <= SMEM_LIMIT
 
@@ -229,6 +331,40 @@ def pack_arnn_weights(w_hh0, w_ih1, w_hh1, w_l1, w_out) -> torch.Tensor:
                       for b in (pack_lstm_blocks(w_hh0), layer1, l1, out)]).contiguous()
 
 
+def _f32_blocks(wt_pieces: torch.Tensor) -> torch.Tensor:
+    """(3, N, K) bf16 pieces of a W^T, N a multiple of 128, as the f32
+    route's blocks: (N / 128 pairs of 64-row chunks, K / 64 k-slabs, 3
+    pieces, 2 chunks, 64, 64), so a k-slab of a pair's pieces is six
+    consecutive blocks."""
+    _, n, k = wt_pieces.shape
+    return wt_pieces.reshape(3, n // 128, 2, 64, k // 64, 64).permute(1, 4, 0, 2, 3, 5) \
+        .reshape(-1, 64, 64)
+
+
+def pack_arnn_f32_weights(w_hh0, w_ih1, w_hh1, w_l1, w_out) -> torch.Tensor:
+    """The f32 route's weights as one array of (64, 64) bf16 blocks (8 KB),
+    each weight's three pieces (``kernel_common.split_bf16_pieces``), in the
+    order the recurrence streams them (:func:`_f32_blocks`): W_hh0, W_ih1 and
+    W_hh1 by pairs of 16-unit chunks, row 16 g + u of chunk c W's column g H
+    + 16 c + u; W_l1^T by rounds of 128 hidden columns (zero past the head's
+    width); W_out^T's 64 columns (zero past V) beside a zero chunk."""
+    hidden, linear = w_l1.shape
+    vocab = w_out.shape[1]
+    lp = arnn_head_width(linear)
+
+    def lstm(w):
+        wt = w.t().reshape(4, hidden // ARNN_F32_UNITS, ARNN_F32_UNITS, w.shape[0])
+        return _f32_blocks(torch.stack(split_bf16_pieces(
+            wt.permute(1, 0, 2, 3).reshape(4 * hidden, w.shape[0]))))
+
+    l1 = torch.nn.functional.pad(w_l1.float(), (0, lp - linear)).t()
+    out = torch.zeros((2 * ARNN_OUT_COLS, lp), dtype=torch.float32, device=w_out.device)
+    out[:vocab, :linear] = w_out.float().t()
+    return torch.cat([lstm(w_hh0), lstm(w_ih1), lstm(w_hh1),
+                      _f32_blocks(torch.stack(split_bf16_pieces(l1))),
+                      _f32_blocks(torch.stack(split_bf16_pieces(out)))]).contiguous()
+
+
 def arnn_map(packed: torch.Tensor):
     """The tensor map (a 128-byte CUtensorMap, in a host buffer) of the
     packed (blocks, 128, 64) bf16 weights, one block a box. -> (buffer,
@@ -262,6 +398,31 @@ def _build_arnn_operands(table, w_ih0, b_ih0, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1,
 arnn_operands = WeightCache(_build_arnn_operands)
 
 
+def _build_arnn_f32_operands(table, w_ih0, b_ih0, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1, b_hh1,
+                             w_l1, b_l1, w_out, b_out) -> dict:
+    E, linear = table.shape[1], w_l1.shape[1]
+    lp = arnn_head_width(linear)
+    w_tok = w_ih0[:E].float()
+    packed = pack_arnn_f32_weights(w_hh0, w_ih1, w_hh1, w_l1, w_out)
+    buf = ctypes.create_string_buffer(128 + 64)
+    addr = (ctypes.addressof(buf) + 63) // 64 * 64
+    check_launch(load_kernels().inpaint_arnn_f32_map(packed.data_ptr(), packed.shape[0], addr),
+                 "arnn_f32_map")
+    pad = torch.nn.functional.pad
+    return {"w_tok": w_tok, "tok_tab": table.float() @ w_tok,
+            "w_ctx": torch.stack(split_bf16_pieces(w_ih0[E:].t())).contiguous(),
+            "bias": torch.stack([b_ih0, b_hh0, b_ih1, b_hh1]).float(),
+            "b_l1": pad(b_l1.float(), (0, lp - linear)),
+            "b_out": pad(b_out.float(), (0, ARNN_OUT_COLS - b_out.shape[0])),
+            "packed": packed, "map": buf, "map_addr": addr}
+
+
+# The f32 route's per-weight operands, built once per set of weight tensors:
+# the token table, W_ctx^T's pieces (the split GEMM's), the bias stack, the
+# padded head biases, the packed weight pieces and their tensor map
+arnn_f32_operands = WeightCache(_build_arnn_f32_operands)
+
+
 def arnn_chunk_rows(batch: int, seq_len: int, hidden: int) -> int:
     """Rows of one chunk of the bf16 route: whole 64-row tiles whose f32
     context projection (rows, T, 4H) fits ``encoder_kernel.XW_SCRATCH_BYTES``
@@ -277,9 +438,9 @@ def arnn_chunk_rows(batch: int, seq_len: int, hidden: int) -> int:
 def arnn_cuda_launches(dtype, batch: int, seq_len: int, hidden: int, linear: int,
                        vocab: int) -> int:
     """CUDA kernel launches of one K7 call: two a chunk of rows (the context
-    projection GEMM, then the recurrence) on the bf16 Hopper route, one on
-    the first kernel's."""
-    if dtype == torch.bfloat16 and arnn_hopper_supports(hidden, linear, vocab):
+    projection GEMM, then the recurrence) on either Hopper route, one on the
+    first kernel's."""
+    if _route_supports(hidden, linear, vocab, dtype):
         return 2 * -(-batch // arnn_chunk_rows(batch, seq_len, hidden))
     return 1
 
@@ -299,6 +460,13 @@ def arnn_decode_inputs(params, start_emb: torch.Tensor) -> dict:
         "w_ctx": p0["w_ih"][E:].contiguous(),
         "bias": torch.stack([p0["b_ih"], p0["b_hh"], p1["b_ih"], p1["b_hh"]]),
     }
+
+
+def recurrent_product(h: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """The plain versions' products on the carried h of each layer: h in f32
+    @ f32 ``W_hh`` (one place, so a check can plant h taken as one bf16
+    piece)."""
+    return h.float() @ w_hh
 
 
 def carry_c(c: torch.Tensor, dtype) -> torch.Tensor:
@@ -336,11 +504,11 @@ def _decode_loop(params, ctx, score, force_mask, start_emb, projection):
     for t in range(seq_len):
         cw = ctx[:, t].float() @ f["w_ctx"] if projection is None else projection[:, t]
         xw0 = prev + cw + f["bias"][0]
-        hw0 = h0.float() @ f["whh0"] + f["bias"][1]
+        hw0 = recurrent_product(h0, f["whh0"]) + f["bias"][1]
         h0, c0_new = lstm_gates_f32(xw0, hw0, c0.float(), hidden)
         h0, c0 = h0.to(dtype), carry_c(c0_new, dtype)
         xw1 = h0.float() @ f["wih1"] + f["bias"][2]
-        hw1 = h1.float() @ f["whh1"] + f["bias"][3]
+        hw1 = recurrent_product(h1, f["whh1"]) + f["bias"][3]
         h1, c1_new = lstm_gates_f32(xw1, hw1, c1.float(), hidden)
         h1, c1 = h1.to(dtype), carry_c(c1_new, dtype)
         hid = torch.relu(h1.float() @ f["w_l1"] + f["b_l1"]).to(dtype)
@@ -450,11 +618,50 @@ def _decode_hopper(params, ctx, score, force_mask, start_emb, shape):
     return logits, tokens
 
 
+def _decode_hopper_f32(params, ctx, score, force_mask, start_emb, shape):
+    """The f32 Hopper route: per chunk of rows, the context projection as the
+    split GEMM (the chunk's context split into its three bf16 pieces), then
+    the split cluster recurrence (csrc/arnn_hopper.cuh arnn_f32_kernel).
+    ``shape`` is :func:`_check_arnn_args`'."""
+    batch, seq_len, C, hidden, linear, vocab, dtype, device = shape
+    p0, p1 = params["lstm_generation"]
+    ops = arnn_f32_operands(params["note_embedding"]["table"], p0["w_ih"], p0["b_ih"],
+                            p0["w_hh"], p0["b_hh"], p1["w_ih"], p1["b_ih"], p1["w_hh"],
+                            p1["b_hh"], params["linear_1"]["w"], params["linear_1"]["b"],
+                            params["linear_output_notes"]["w"],
+                            params["linear_output_notes"]["b"])
+    start_xw = (start_emb.float() @ ops["w_tok"]).reshape(-1)
+    lp = arnn_head_width(linear)
+    logits = torch.empty((batch, seq_len, vocab), dtype=dtype, device=device)
+    tokens = torch.empty((batch, seq_len), dtype=torch.int32, device=device)
+    lib = load_kernels()
+    chunk = arnn_chunk_rows(batch, seq_len, hidden)
+    for r0 in range(0, batch, chunk):
+        rows = min(chunk, batch - r0)
+        plan = arnn_f32_card_plan(rows, hidden, linear, device)
+        pieces = torch.stack(split_bf16_pieces(ctx[r0:r0 + rows])).contiguous()
+        xwc = torch.empty((rows, seq_len, 4 * hidden), dtype=torch.float32, device=device)
+        check_launch(lib.inpaint_arnn_ctx_gemm_f32(pieces.data_ptr(), ops["w_ctx"].data_ptr(),
+                                                   xwc.data_ptr(), rows * seq_len, C,
+                                                   4 * hidden, stream_ptr()),
+                     "arnn_sampled_decode's GEMM")
+        del pieces
+        # the h0 / h1 / hidden pieces' exchange, zero: tick -1's h0 and h1
+        scratch = torch.zeros((-(-rows // HOPPER_ROWS), 3, 2, 3, HOPPER_ROWS, max(hidden, lp)),
+                              dtype=torch.bfloat16, device=device)
+        check_launch(lib.inpaint_arnn_decode_f32(
+            ops["map_addr"], xwc.data_ptr(), score[r0].data_ptr(), force_mask[r0].data_ptr(),
+            ops["tok_tab"].data_ptr(), start_xw.data_ptr(), ops["bias"].data_ptr(),
+            ops["b_l1"].data_ptr(), ops["b_out"].data_ptr(), logits[r0].data_ptr(),
+            tokens[r0].data_ptr(), scratch.data_ptr(), rows, seq_len, hidden, lp, vocab,
+            plan.cluster, stream_ptr()), "arnn_sampled_decode")
+    return logits, tokens
+
+
 def _decode_tiled(params, ctx, score, force_mask, start_emb, shape):
     """The first kernel of the port (csrc/arnn_decode.cu): one block a tile
     of 16 (f32) or 32 (bf16) rows, every product inside the tick loop. It
-    runs the f32 route and the bf16 geometries the Hopper route does not
-    take. ``shape`` is :func:`_check_arnn_args`'."""
+    runs the geometries neither Hopper route takes. ``shape`` is :func:`_check_arnn_args`'."""
     batch, seq_len, C, hidden, linear, vocab, dtype, device = shape
     p0, p1 = params["lstm_generation"]
     ins = arnn_decode_inputs(params, start_emb)
@@ -485,16 +692,18 @@ def arnn_sampled_decode(params, ctx: torch.Tensor, score: torch.Tensor,
 
     Arguments and results as :func:`arnn_sampled_decode_reference`, with
     (in, out) weights in f32 or bf16, ``score`` and ``force_mask`` int32;
-    the entries of ``score`` at forced ticks must lie in [0, n_tok). In
-    bf16 the Hopper route runs where :func:`arnn_hopper_supports` holds, the
-    first kernel elsewhere."""
+    the entries of ``score`` at forced ticks must lie in [0, n_tok). The
+    dtype's Hopper route runs where :func:`arnn_hopper_supports` (bf16) or
+    :func:`arnn_f32_supports` (f32) holds, the first kernel elsewhere."""
     if ctx.device.type == "cpu":
         return arnn_sampled_decode_reference(params, ctx, score, force_mask, start_emb)
     shape = _check_arnn_args(params, ctx, score, force_mask, start_emb)
     _, _, _, hidden, linear, vocab, dtype, _ = shape
-    hopper = dtype == torch.bfloat16 and arnn_hopper_supports(hidden, linear, vocab)
-    out = (_decode_hopper if hopper else _decode_tiled)(params, ctx, score, force_mask,
-                                                        start_emb, shape)
+    if not _route_supports(hidden, linear, vocab, dtype):
+        route = _decode_tiled
+    else:
+        route = _decode_hopper if dtype == torch.bfloat16 else _decode_hopper_f32
+    out = route(params, ctx, score, force_mask, start_emb, shape)
     arnn_sampled_decode.launches += 1
     return out
 

@@ -5,11 +5,12 @@
 // token replaces the sampled one, as the output and as the feedback.
 //
 // Replaces the TPU kernel inpaintnet_tpu/ops/arnn_pallas.py
-// arnn_sampled_decode_pallas (_arnn_kernel). The bf16 route at the
-// geometries its plan takes is the Hopper design of arnn_hopper.cuh (entry
-// points at the end of this file); the kernel below is the f32 route, and
-// the bf16 route wherever that plan does not fit (a vocabulary over 64, H
-// 512 at a 256-wide head). Same numerics: layer 0's
+// arnn_sampled_decode_pallas (_arnn_kernel). Both routes, at the
+// geometries their plans take, are the Hopper designs of arnn_hopper.cuh
+// (entry points at the end of this file: arnn_kernel in bf16, the split
+// arnn_f32_kernel in f32); the kernel below runs wherever those plans do
+// not fit (a vocabulary over 64; in bf16 H 512 at a 256-wide head, in f32
+// more than 128 units a CTA). Same numerics: layer 0's
 // input projection is prev_xw + ctx_t @ W_ctx + b_ih0 with prev_xw a row of
 // the parameter-dtype token table (start_xw at t = 0) and the context
 // product inside the loop; products accumulate in f32, biases and gates
@@ -341,4 +342,53 @@ extern "C" int inpaint_arnn_ctx_gemm(const void* ctx, const void* w_t, void* out
   if (K % 64 != 0 || N % 2 != 0 || M < 1) return (int)cudaErrorInvalidValue;
   return (int)inpaint::enc90::launch_proj_gemm<__nv_bfloat16>(
       ctx, w_t, nullptr, out, M, K, N, 1, static_cast<cudaStream_t>(stream));
+}
+
+// The f32 route (arnn_hopper.cuh arnn_f32_kernel): `map` is
+// inpaint_arnn_f32_map's over arnn_kernel.pack_arnn_f32_weights; `xwc` (B,
+// S, 4H) f32 is ctx @ W_ctx (inpaint_arnn_ctx_gemm_f32); `scratch` (tiles,
+// 3, 2, 3, 64, max(H, LP)) bf16, zero; `cluster` CTAs share each 64-row
+// tile (arnn_kernel.arnn_f32_plan). tok_tab (n_tok, 4H), start_xw (4H,),
+// bias (4, 4H), b_l1 (LP,), b_out (64,) f32; score, force (B, S) int32;
+// logits (B, S, V) f32; tokens (B, S) int32.
+extern "C" int inpaint_arnn_decode_f32(const void* map, const void* xwc, const void* score,
+                                       const void* force, const void* tok_tab,
+                                       const void* start_xw, const void* bias, const void* b_l1,
+                                       const void* b_out, void* logits, void* tokens,
+                                       void* scratch, int B, int S, int H, int LP, int V,
+                                       int cluster, void* stream) {
+  if (map == nullptr) return (int)cudaErrorInvalidValue;
+  CUtensorMap m;
+  memcpy(&m, map, sizeof(m));
+  const inpaint::rec90::ArnnF32Args a{
+      static_cast<const float*>(xwc),     static_cast<const int*>(score),
+      static_cast<const int*>(force),     static_cast<const float*>(tok_tab),
+      static_cast<const float*>(start_xw), static_cast<const float*>(bias),
+      static_cast<const float*>(b_l1),    static_cast<const float*>(b_out),
+      static_cast<float*>(logits),        static_cast<int*>(tokens),
+      static_cast<__nv_bfloat16*>(scratch), B, S, H, LP, V};
+  return (int)inpaint::rec90::launch_arnn_f32(m, a, cluster, static_cast<cudaStream_t>(stream));
+}
+
+// Encode into `map_out` (128 bytes, 64-byte aligned) the tensor map of
+// `blocks` packed 64 x 64 bf16 blocks (arnn_kernel.pack_arnn_f32_weights).
+extern "C" int inpaint_arnn_f32_map(const void* packed, int blocks, void* map_out) {
+  if (blocks < 6) return (int)cudaErrorInvalidValue;
+  return (int)inpaint::rec90::make_arnn_f32_map(static_cast<CUtensorMap*>(map_out), packed,
+                                                blocks);
+}
+
+// Clusters of `cluster` CTAs of the f32 route at widths H and LP that the
+// card runs at once; -1 where the plan does not fit.
+extern "C" int inpaint_arnn_f32_slots(int H, int cluster, int LP) {
+  return inpaint::rec90::arnn_f32_slots(H, cluster, LP);
+}
+
+// The f32 route's context projection: out (M, N) f32 = ctx @ W_ctx from the
+// pieces ctx (3, M, K) and w (3, N, K) (W_ctx^T's, K-major) bf16; K a
+// multiple of 64, N of 2.
+extern "C" int inpaint_arnn_ctx_gemm_f32(const void* ctx, const void* w, void* out, int M, int K,
+                                         int N, void* stream) {
+  return (int)inpaint::enc90::launch_proj_gemm_split(ctx, w, nullptr, static_cast<float*>(out), M,
+                                                     K, N, 1, static_cast<cudaStream_t>(stream));
 }

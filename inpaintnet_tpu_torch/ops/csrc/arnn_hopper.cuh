@@ -481,5 +481,422 @@ inline cudaError_t make_lstm_map(CUtensorMap* map, const void* packed, int block
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, packed, dims, strides, box);
 }
 
+// ---------------------------------------------------------------------------
+// K7's f32 route: the same tick chain with every product split
+// ---------------------------------------------------------------------------
+// It replaces, in f32, the TPU kernel arnn_sampled_decode_pallas
+// (_arnn_kernel). What bounds it: the f32 products, 2 x 512 x 384 x 1.18M
+// operations at the flagship (0.46 TFLOP: 6.6 ms of f32 FMA), on the
+// tensor cores six bf16 passes (2.8 ms at the bf16 peak), behind the
+// 384-tick serial chain.
+//
+// Design (arnn_kernel.arnn_f32_plan picks the cluster size C):
+// - Every product is split as K5's (gru_fwd_hopper.cuh): the operand and
+//   the weight each as three exact bf16 pieces (split3), six wgmma passes a
+//   64-wide k-slab into a partial of its own, added into the sum with
+//   rounded f32 adds. The context product runs first for every tick as the
+//   split GEMM (encoder_hopper.cuh launch_proj_gemm_split) into f32 rows.
+// - Three f32 tiles of pieces (h0, h1 and the head's hidden) would take 288
+//   KB of shared memory at H 256, so the pieces go through an L2 scratch as
+//   K5's do: (tile, plane h0 / h1 / hidden, tick parity, piece, 64 rows,
+//   max(H, LP)). After each stage of a tick every CTA writes its part's
+//   pieces there and arrives on every peer's `ready` mbarrier of that
+//   plane; one producer warp streams each 64-wide k-slab of the operand's
+//   pieces (one TMA box, 24 KB) with the matching k-slab of two weight
+//   chunks' pieces (one box of six 8 KB blocks) through a two-stage ring
+//   that both consumer warpgroups read. The parity keeps a plane's tick
+//   t + 2 pieces from landing before every CTA has read its tick t ones.
+// - Registers: layer 1's x- and h-products keep accumulators of their own
+//   (summed (x + b_ih1) + (h + b_hh1), the plain version's order), each
+//   beside the slab's partial. So a chunk is 16 units (its i, f, g, o rows
+//   are a 64 x 64 tile: 32 registers an accumulator), a warpgroup takes one
+//   chunk a round, and a CTA owns U = H / C units in U / 32 rounds (1..4).
+//   Its c carries stay in shared memory in f32.
+// - The head: CTA r computes the hidden columns of rounds r, r + C, ... of
+//   128 (64 a warpgroup), relu(h1 @ W_l1 + b_l1), and writes their pieces;
+//   then every CTA computes all 64 (padded) logit columns from the whole
+//   hidden row (warpgroup 0; warpgroup 1's chunk is zeros and idles), so
+//   every CTA takes the same argmax with no exchange. CTA 0 writes the
+//   logits (f32) and the tokens.
+// - Every cluster size sums in the same order, so all give bit-equal
+//   outputs: the check for a race in the exchange.
+constexpr int kF32Units = 16;                        // units of a chunk: i, f, g, o rows = 64
+constexpr int kF32Block = kRows * 128;               // a 64 x 64 bf16 block of weights: 8 KB
+constexpr int kF32ABytes = 3 * kBlockBytes;          // a k-slab of an operand's pieces: 24 KB
+constexpr int kF32StageBytes = kF32ABytes + 6 * kF32Block;  // + two chunks' pieces: 72 KB
+constexpr int kF32Stages = 2;
+// + a whole producer warpgroup, so that setmaxnreg can hand its registers
+// to the consumers (232 each): at the launch's 168 the kernel spilled 1 KB
+// and took 12% longer (PERF.md)
+constexpr int kF32Threads = kConsumerThreads + 128;
+constexpr int kF32CarryPad = 8;                      // f32 padding of the c carries' rows
+constexpr int kF32MaxRounds = 4;                     // 32-unit rounds a CTA: 128 units at most
+
+struct ArnnF32Args {
+  const float* xwc;       // (B, S, 4H): ctx @ W_ctx from the split GEMM
+  const int* score;       // (B, S) ground-truth tokens
+  const int* force;       // (B, S) 1 where the token is forced
+  const float* tok_tab;   // (n_tok, 4H): emb @ W_ih0[:E]
+  const float* start_xw;  // (4H,): the tick-0 input
+  const float* bias;      // (4, 4H): b_ih0, b_hh0, b_ih1, b_hh1
+  const float* b_l1;      // (LP,), zero past the head's width
+  const float* b_out;     // (64,), zero past V
+  float* logits;          // (B, S, V)
+  int* tokens;            // (B, S)
+  __nv_bfloat16* scratch;  // (tiles, 3, 2, 3, 64, max(H, LP)), zero at the start
+  int B, S, H, LP, V;
+};
+
+// the consumers' side of the f32 route's ring (both warpgroups read every stage)
+struct F32Ring {
+  unsigned char* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  int stage;
+  uint32_t phase;
+};
+
+// The split product of the next `nk` ring stages into acc (acc[i]: row 16
+// warp + g + 8 ((i / 2) % 2), column 8 (i / 4) + 2q + i % 2 of warpgroup
+// wg's 64 x 64 tile); a warpgroup that is not `active` only hands the
+// stages back.
+__device__ __forceinline__ void f32_product(F32Ring& rg, float (&acc)[32], int nk, bool active,
+                                            int wg, int lane) {
+  for (int k = 0; k < nk; ++k) {
+    unsigned char* st = rg.ring + rg.stage * kF32StageBytes;
+    mbar_wait_bounded<false>(&rg.full[rg.stage], rg.phase);
+    if (active) {
+      float part[32];
+      wgmma_fence();
+#pragma unroll
+      for (int pass = 0; pass < 6; ++pass) {
+        // (operand piece, weight piece), smallest terms first: lh, hl, mm, mh, hm, hh
+        const int ap = (0x001102 >> (4 * pass)) & 0xF;
+        const int bp = (0x010120 >> (4 * pass)) & 0xF;
+        const uint64_t da = desc_sw128(st + ap * kBlockBytes);
+        const uint64_t db = desc_sw128(st + kF32ABytes + (bp * 2 + wg) * kF32Block);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_bf16_n64(part, da + 2 * kk, db + 2 * kk, (pass > 0 || kk > 0) ? 1 : 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(part);
+      if (lane == 0) mbar_arrive(&rg.empty[rg.stage]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = k == 0 ? part[i] : __fadd_rn(acc[i], part[i]);
+    } else if (lane == 0) {
+      mbar_arrive(&rg.empty[rg.stage]);
+    }
+    if (++rg.stage == kF32Stages) {
+      rg.stage = 0;
+      rg.phase ^= 1;
+    }
+  }
+}
+
+// the pieces of the pair (v0, v1) at row r, column col of the scratch
+// plane `pl` (rows of `wd`)
+__device__ __forceinline__ void f32_put(__nv_bfloat16* scratch, int pl, int wd, int r, int col,
+                                        float v0, float v1) {
+  __nv_bfloat16 a[3], b[3];
+  split3(v0, a);
+  split3(v1, b);
+#pragma unroll
+  for (int pi = 0; pi < 3; ++pi)
+    *reinterpret_cast<__nv_bfloat162*>(scratch + ((size_t)(pl + pi) * kRows + r) * wd + col) =
+        __halves2bfloat162(a[pi], b[pi]);
+}
+
+// The LSTM cells of a round's chunk: units j0 + 8 n8 + 2q + e of rows r =
+// 16 warp + g + 8 half, gate gi's pre-activation pre(gi, r, gi H + unit, a)
+// with a = 8 gi + 4 n8 + 2 half + e its accumulator index; their c carries
+// in `c` (rows of ldc, the chunk's first unit at jl0), the new h's pieces
+// into the scratch plane `pl`.
+template <typename Pre>
+__device__ __forceinline__ void f32_cells(Pre pre, float* c, int ldc, int jl0, int j0, int H,
+                                          __nv_bfloat16* scratch, int pl, int wd) {
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, g = (tid & 31) >> 2, q = tid & 3;
+#pragma unroll
+  for (int n8 = 0; n8 < 2; ++n8) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * warp + g + 8 * half;
+      float* cp = c + r * ldc + jl0 + 8 * n8 + 2 * q;
+      float hv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float gate[4];
+#pragma unroll
+        for (int gi = 0; gi < 4; ++gi)
+          gate[gi] = pre(gi, r, gi * H + j0 + 8 * n8 + 2 * q + e, 8 * gi + 4 * n8 + 2 * half + e);
+        float cn;
+        lstm_gate(gate, cp[e], hv[e], cn);
+        cp[e] = cn;
+      }
+      f32_put(scratch, pl, wd, r, j0 + 8 * n8 + 2 * q, hv[0], hv[1]);
+    }
+  }
+}
+
+// The packed weights (arnn_kernel.pack_arnn_f32_weights): 8 KB blocks of
+// 64 rows x 64 of K, six a k-slab of two chunks: [piece][chunk]. W_hh0,
+// W_ih1 and W_hh1 by pairs of 16-unit chunks (rows 16 gate + unit), then
+// W_l1^T by rounds of 128 hidden columns, then W_out^T's 64 (padded)
+// columns beside a zero chunk, by k-slab.
+__global__ void __launch_bounds__(kF32Threads, 1)
+    arnn_f32_kernel(const __grid_constant__ CUtensorMap w_map,
+                    const __grid_constant__ CUtensorMap a_map,
+                    const __grid_constant__ ArnnF32Args p) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kF32Stages];
+  __shared__ __align__(8) uint64_t empty_bar[kF32Stages];
+  __shared__ __align__(8) uint64_t ready[3];  // every CTA's h0 / h1 / hidden pieces of a tick
+  __shared__ int prev_tok[kRows];
+  unsigned char* ring = align1024(smem_raw);
+  const int H = p.H, H4 = 4 * H, KB = H / 64, LB = p.LP / 64, S = p.S;
+  const int wd = H > p.LP ? H : p.LP;  // the scratch's row width
+  const int C = (int)cluster_nctarank();
+  const uint32_t rank = cluster_ctarank();
+  const int U = H / C, rounds = U / 32, pair0 = (int)rank * rounds;
+  const int hid_rounds = p.LP / 128;
+  const int tile = (int)(blockIdx.x / C), tile0 = tile * kRows;
+  const int wg = threadIdx.x >> 7;
+  const int ldc = U + kF32CarryPad;
+  float* c0 = reinterpret_cast<float*>(ring + kF32Stages * kF32StageBytes);
+  float* c1 = c0 + kRows * ldc;
+  const int blk_ih1 = (H / 32) * KB * 6, blk_hh1 = 2 * blk_ih1, blk_l1 = 3 * blk_ih1;
+  const int blk_out = blk_l1 + hid_rounds * KB * 6;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kF32Stages; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], 4 * kConsumers);  // one arrival per consumer warp
+    }
+    for (int i = 0; i < 3; ++i) mbar_init(&ready[i], C);
+    fence_barrier_init();
+  }
+  if (threadIdx.x < kRows) prev_tok[threadIdx.x] = -1;
+  for (int i = threadIdx.x; i < 2 * kRows * ldc; i += blockDim.x) c0[i] = 0.0f;  // c0, c1
+  __syncthreads();
+  cluster_sync();
+
+  // the first scratch plane (of three pieces) of `kind` at tick parity `par`
+  const auto plane = [&](int kind, int par) { return ((tile * 3 + kind) * 2 + par) * 3; };
+  if (wg == kConsumers) {  // the producer, in the consumers' order of use
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumerThreads) {
+      int stage = 0;
+      uint32_t phase = 0;
+      const auto load = [&](int pl, int k, int block) {
+        unsigned char* st = ring + stage * kF32StageBytes;
+        mbar_wait_bounded<false>(&empty_bar[stage], phase ^ 1);
+        mbar_expect_tx(&full_bar[stage], kF32StageBytes);
+        tma_load_3d(st, &a_map, &full_bar[stage], k * 64, 0, pl);
+        tma_load_3d(st + kF32ABytes, &w_map, &full_bar[stage], 0, 0, block);
+        if (++stage == kF32Stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      };
+      // every CTA's pieces of this tick's plane are written
+      const auto wait_ready = [&](int i, int t) {
+        mbar_wait_bounded<true>(&ready[i], t & 1);
+        fence_proxy_async_global();
+      };
+      for (int t = 0; t < S; ++t) {
+        const int cur = t & 1, prev = cur ^ 1;  // tick -1's planes are the zeros
+        for (int r = 0; r < rounds; ++r)
+          for (int k = 0; k < KB; ++k) load(plane(0, prev), k, ((pair0 + r) * KB + k) * 6);
+        wait_ready(0, t);
+        for (int r = 0; r < rounds; ++r) {
+          for (int k = 0; k < KB; ++k) load(plane(0, cur), k, blk_ih1 + ((pair0 + r) * KB + k) * 6);
+          for (int k = 0; k < KB; ++k) load(plane(1, prev), k, blk_hh1 + ((pair0 + r) * KB + k) * 6);
+        }
+        wait_ready(1, t);
+        for (int hr = (int)rank; hr < hid_rounds; hr += C)
+          for (int k = 0; k < KB; ++k) load(plane(1, cur), k, blk_l1 + (hr * KB + k) * 6);
+        wait_ready(2, t);
+        for (int k = 0; k < LB; ++k) load(plane(2, cur), k, blk_out + k * 6);
+      }
+    }
+    cluster_sync();
+    return;
+  }
+
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2,
+            q = lane & 3;
+  setmaxnreg_inc<kConsumerRegs>();
+  F32Ring rg{ring, full_bar, empty_bar, 0, 0};
+  // the pieces are written: make them visible to the peers' TMA loads, then
+  // tell every CTA of the cluster (thread c tells CTA c)
+  const auto publish = [&](int i) {
+    __threadfence();
+    fence_proxy_async_global();
+    named_barrier(kBar, kConsumerThreads);
+    if (tid < C) mbar_arrive_cluster(mapa(smem_u32(&ready[i]), tid));
+  };
+
+  for (int t = 0; t < S; ++t) {
+    const int cur = t & 1;
+    // the last tick's head is done: prev_tok is set
+    named_barrier(kBar, kConsumerThreads);
+    // layer 0: ((the fed-back row + the context projection) + b_ih0) + (acc + b_hh0)
+    for (int r = 0; r < rounds; ++r) {
+      const int jl0 = 32 * r + kF32Units * wg, j0 = (int)rank * U + jl0;
+      float acc[32];
+      f32_product(rg, acc, KB, true, wg, lane);
+      f32_cells(
+          [&](int gi, int rr, int col, int a) {
+            const int row = tile0 + rr, prev = prev_tok[rr];
+            const float f = (prev < 0 ? p.start_xw : p.tok_tab + (size_t)prev * H4)[col];
+            const float x = row < p.B ? __fadd_rn(f, p.xwc[((size_t)row * S + t) * H4 + col]) : f;
+            return __fadd_rn(__fadd_rn(x, p.bias[col]), __fadd_rn(acc[a], p.bias[H4 + col]));
+          },
+          c0, ldc, jl0, j0, H, p.scratch, plane(0, cur), wd);
+    }
+    publish(0);
+    // layer 1: (h0' @ W_ih1 + b_ih1) + (h1 @ W_hh1 + b_hh1)
+    for (int r = 0; r < rounds; ++r) {
+      const int jl0 = 32 * r + kF32Units * wg, j0 = (int)rank * U + jl0;
+      float ax[32], ah[32];
+      f32_product(rg, ax, KB, true, wg, lane);
+      f32_product(rg, ah, KB, true, wg, lane);
+      f32_cells(
+          [&](int gi, int rr, int col, int a) {
+            return __fadd_rn(__fadd_rn(ax[a], p.bias[2 * H4 + col]),
+                             __fadd_rn(ah[a], p.bias[3 * H4 + col]));
+          },
+          c1, ldc, jl0, j0, H, p.scratch, plane(1, cur), wd);
+    }
+    publish(1);
+    // this CTA's hidden columns of the head, relu(h1 @ W_l1 + b_l1)
+    for (int hr = (int)rank; hr < hid_rounds; hr += C) {
+      float acc[32];
+      f32_product(rg, acc, KB, true, wg, lane);
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int r = 16 * warp + g + 8 * ((i >> 1) & 1);
+        const int col = hr * 128 + 64 * wg + 8 * (i >> 2) + 2 * q;
+        f32_put(p.scratch, plane(2, cur), wd, r, col, fmaxf(__fadd_rn(acc[i], p.b_l1[col]), 0.0f),
+            fmaxf(__fadd_rn(acc[i + 1], p.b_l1[col + 1]), 0.0f));
+      }
+    }
+    publish(2);
+    // the logits of the whole hidden row, the argmax and the force mask
+    float lg[32];
+    f32_product(rg, lg, LB, wg == 0, wg, lane);
+    if (wg == 0) {
+      float best[2] = {-INFINITY, -INFINITY};
+      int arg[2] = {INT_MAX, INT_MAX};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {  // a half's columns ascend: the first of equal maxima
+        const int half = (i >> 1) & 1, col = 8 * (i >> 2) + 2 * q + (i & 1);
+        lg[i] = __fadd_rn(lg[i], p.b_out[col]);
+        if (col < p.V && lg[i] > best[half]) {
+          best[half] = lg[i];
+          arg[half] = col;
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {  // the quad holding the row's 64 columns
+          const float ob = __shfl_xor_sync(0xffffffffu, best[half], off);
+          const int oa = __shfl_xor_sync(0xffffffffu, arg[half], off);
+          if (ob > best[half] || (ob == best[half] && oa < arg[half])) {
+            best[half] = ob;
+            arg[half] = oa;
+          }
+        }
+        const int r = 16 * warp + g + 8 * half, row = tile0 + r;
+        if (rank == 0 && row < p.B) {
+          float* out = p.logits + ((size_t)row * S + t) * p.V;
+#pragma unroll
+          for (int i = 2 * half; i < 32; i += 4)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = 8 * (i >> 2) + 2 * q + e;
+              if (col < p.V) out[col] = lg[i + e];
+            }
+        }
+        if (q == 0) {
+          int a = arg[half];
+          if (row < p.B) {
+            const size_t o = (size_t)row * S + t;
+            if (p.force[o] > 0) a = p.score[o];
+            if (rank == 0) p.tokens[o] = a;
+          }
+          prev_tok[r] = a;
+        }
+      }
+    }
+  }
+  cluster_sync();
+}
+
+// dynamic shared memory of an f32 K7 block: the ring and the two c carries
+// (and 1 KB of alignment)
+inline size_t arnn_f32_smem_bytes(int H, int C) {
+  return (size_t)kF32Stages * kF32StageBytes + 2ull * kRows * (H / C + kF32CarryPad) * 4 + 1024;
+}
+
+// the launch's checks: C in 1..8 owning whole 32-unit pairs of chunks, at
+// most kF32MaxRounds of them; a head of 128-column rounds up to 512 and a
+// vocabulary of at most 64; a block that fits
+inline bool arnn_f32_plan_fits(int H, int C, int LP, int V) {
+  if (H % 64 != 0 || H <= 0 || C < 1 || C > kMaxCluster || H % C != 0) return false;
+  const int U = H / C;
+  if (U % 32 != 0 || U / 32 > kF32MaxRounds) return false;
+  if (LP < 128 || LP % 128 != 0 || LP > 512 || V < 1 || V > kOutCols) return false;
+  return arnn_f32_smem_bytes(H, C) <= (size_t)kSmemBudget;
+}
+
+inline int arnn_f32_slots(int H, int C, int LP) {
+  if (!arnn_f32_plan_fits(H, C, LP, 1)) return -1;
+  return max_clusters(arnn_f32_kernel, C, arnn_f32_smem_bytes(H, C), kF32Threads);
+}
+
+// A 3D tensor map over the f32 route's packed 8 KB blocks, six a box.
+inline cudaError_t make_arnn_f32_map(CUtensorMap* map, const void* packed, int blocks) {
+  const uint64_t dims[3] = {64, (uint64_t)kRows, (uint64_t)blocks};
+  const uint64_t strides[2] = {128, (uint64_t)kF32Block};
+  const uint32_t box[3] = {64, (uint32_t)kRows, 6};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, packed, dims, strides, box);
+}
+
+inline cudaError_t launch_arnn_f32(const CUtensorMap& w_map, const ArnnF32Args& a, int C,
+                                   cudaStream_t stream) {
+  if (!arnn_f32_plan_fits(a.H, C, a.LP, a.V) || a.B < 1 || a.S < 1 || a.scratch == nullptr)
+    return cudaErrorInvalidValue;
+  const int tiles = (a.B + kRows - 1) / kRows, wd = a.H > a.LP ? a.H : a.LP;
+  CUtensorMap a_map;  // the scratch's planes of (64 rows, wd), three pieces a box
+  const uint64_t dims[3] = {(uint64_t)wd, (uint64_t)kRows, (uint64_t)tiles * 18};
+  const uint64_t strides[2] = {(uint64_t)wd * 2, (uint64_t)kRows * wd * 2};
+  const uint32_t box[3] = {64, (uint32_t)kRows, 3};
+  cudaError_t err = make_map(&a_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, a.scratch, dims,
+                             strides, box);
+  if (err != cudaSuccess) return err;
+  const size_t smem = arnn_f32_smem_bytes(a.H, C);
+  err = cudaFuncSetAttribute(arnn_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * C, 1, 1);
+  cfg.blockDim = dim3(kF32Threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, arnn_f32_kernel, w_map, a_map, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace rec90
 }  // namespace inpaint

@@ -23,7 +23,7 @@
 // products with the units of each 64-row tile split across a thread-block
 // cluster (its note gives the design).
 //
-// f32 route (the first port's kernel): as in K1, one block owns a 16-row tile and
+// f32 route (the first port's kernel): one block owns a 16-row tile and
 // loops over the 24 ticks with its hiddens in shared memory, scalar FMA
 // products (gru_common.cuh); the feedback is a row lookup (only the token
 // index is kept between ticks, not a (rows, 3H) slab).

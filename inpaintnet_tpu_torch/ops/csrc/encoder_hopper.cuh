@@ -31,6 +31,20 @@
 // 4-stage ring gated by mbarriers, across tiles, so a tile's stores overlap
 // the next tile's loads; two consumer warpgroups (64 rows each) run wgmma
 // with f32 / s32 accumulators.
+//
+// encoder_xw_gemm_split_kernel: the same GEMM with f32 operands (K1's f32
+// route, and K7's: arnn_hopper.cuh), on the tensor cores, which have no
+// f32 product. A (M, K) and W^T are each taken as three exact bf16 pieces
+// (hi, mid, lo: split3), A's stacked as (3, M, K), W's per direction as
+// (dirs, 3, N3, K); six wgmma passes a 64-wide k-slab keep the cross terms
+// down to 2^-24 (lh, hl, mm, mh, hm, hh: the smallest first), summed into a
+// partial of their own that is added into the result with rounded f32 adds
+// (the tensor cores' own f32 sums are not rounded to nearest), and the bias
+// is added in f32 after the sum. The partial doubles the accumulators, so
+// the tiles are 128 x 128 (two consumer warpgroups of 64 rows, 64 + 64
+// registers each), and a stage holds a k-slab of A's and of W's three
+// pieces (96 KB, two stages). What bounds it: the passes, six times the
+// bf16 GEMM's products at the bf16 peak.
 #pragma once
 
 #include "gru_common.cuh"
@@ -409,6 +423,122 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
   }
 }
 
+constexpr int kSplitM = 128;
+constexpr int kSplitN = 128;
+constexpr int kSplitStages = 2;
+constexpr int kSplitABytes = 3 * kSplitM * 128;                  // a k-slab of A's pieces: 48 KB
+constexpr int kSplitStageBytes = kSplitABytes + 3 * kSplitN * 128;  // + W's: 96 KB
+// two consumer warpgroups and a producer warpgroup that hands its registers
+// to them (setmaxnreg 40 / 232): at the launch's 168 the kernel spilled 84
+// bytes and took 3% longer (PERF.md)
+constexpr int kSplitThreads = 128 * kGemmConsumers + 128;
+
+// out (dirs, M, N3) f32 = A @ W[d]^T [+ bias[d]] from their bf16 pieces
+// (see the note at the top); a_map boxes a k-slab of the three pieces of
+// 128 rows of A, b_map one of the three pieces of 128 rows of W[d]^T
+// (static: this header is compiled into several sources)
+static __global__ void __launch_bounds__(kSplitThreads, 1)
+    encoder_xw_gemm_split_kernel(const __grid_constant__ CUtensorMap a_map,
+                                 const __grid_constant__ CUtensorMap b_map, const float* bias,
+                                 float* out, int M, int N3, int K, int dirs) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kSplitStages];
+  __shared__ __align__(8) uint64_t empty_bar[kSplitStages];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int nslabs = K / 64;
+  const int n_per_dir = (N3 + kSplitN - 1) / kSplitN;
+  const int n_tiles = dirs * n_per_dir;
+  const int tiles = (M + kSplitM - 1) / kSplitM * n_tiles;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSplitStages; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], 4 * kGemmConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == kGemmConsumers) {  // the producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 128 * kGemmConsumers) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / n_tiles * kSplitM, nt = tile % n_tiles;
+        const int d = nt / n_per_dir, n0 = nt % n_per_dir * kSplitN;
+        for (int k = 0; k < nslabs; ++k) {
+          unsigned char* st = smem + stage * kSplitStageBytes;
+          mbar_wait(&empty_bar[stage], phase ^ 1);
+          mbar_expect_tx(&full_bar[stage], kSplitStageBytes);
+          tma_load_3d(st, &a_map, &full_bar[stage], k * 64, m0, 0);
+          tma_load_4d(st + kSplitABytes, &b_map, &full_bar[stage], k * 64, n0, 0, d);
+          if (++stage == kSplitStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / n_tiles * kSplitM, nt = tile % n_tiles;
+    const int d = nt / n_per_dir, n0 = nt % n_per_dir * kSplitN;
+    float acc[64], part[64];
+    for (int k = 0; k < nslabs; ++k) {
+      unsigned char* st = smem + stage * kSplitStageBytes;
+      mbar_wait(&full_bar[stage], phase);
+      wgmma_fence();
+#pragma unroll
+      for (int pass = 0; pass < 6; ++pass) {
+        // (A piece, W piece), smallest terms first: lh, hl, mm, mh, hm, hh
+        const int ap = (0x001102 >> (4 * pass)) & 0xF;
+        const int bp = (0x010120 >> (4 * pass)) & 0xF;
+        const uint64_t da = desc_sw128(st + ap * kSplitM * 128 + wg * kRows * 128);
+        const uint64_t db = desc_sw128(st + kSplitABytes + bp * kSplitN * 128);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_bf16_n128(part, da + 2 * kk, db + 2 * kk, (pass > 0 || kk > 0) ? 1 : 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(part);
+      if (lane == 0) mbar_arrive(&empty_bar[stage]);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = k == 0 ? part[i] : __fadd_rn(acc[i], part[i]);
+      if (++stage == kSplitStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int row = m0 + kRows * wg + 16 * warp + g + 8 * ((i >> 1) & 1);
+      const int col = n0 + 8 * (i >> 2) + 2 * q;
+      if (row < M && col < N3) {  // W's rows past N3 load as zeros
+        float* o = out + ((size_t)d * M + row) * N3 + col;
+        if (bias != nullptr) {  // the bias added in f32 after the sum
+          const float* b = bias + d * N3 + col;
+          *reinterpret_cast<float2*>(o) = make_float2(__fadd_rn(acc[i], b[0]),
+                                                      __fadd_rn(acc[i + 1], b[1]));
+        } else {
+          *reinterpret_cast<float2*>(o) = make_float2(acc[i], acc[i + 1]);
+        }
+      }
+    }
+  }
+}
+
 // H padded to whole 128-byte k-slabs
 template <typename HT>
 inline int padded_k(int H) {
@@ -464,6 +594,41 @@ static cudaError_t launch_proj_gemm(const void* a, const void* w, const float* b
   const int tiles = (M + kGemmM - 1) / kGemmM * dirs * ((N3 + kGemmN - 1) / kGemmN);
   encoder_xw_gemm_kernel<HT><<<tiles < sms ? tiles : sms, kGemmThreads, smem, stream>>>(
       a_map, b_map, bias, static_cast<typename Enc<HT>::Acc*>(out), M, N3, K, dirs);
+  return cudaGetLastError();
+}
+
+// out (dirs, M, N3) f32 = a @ w[d]^T [+ bias (dirs, N3)] from their bf16
+// pieces: a (3, M, K), w (dirs, 3, N3, K) K-major; K a multiple of 64, N3
+// of 2
+static cudaError_t launch_proj_gemm_split(const void* a, const void* w, const float* bias,
+                                          float* out, int M, int K, int N3, int dirs,
+                                          cudaStream_t stream) {
+  if (M < 1 || K < 64 || K % 64 != 0 || N3 < 2 || N3 % 2 != 0 || dirs < 1)
+    return cudaErrorInvalidValue;
+  CUtensorMap a_map, b_map;
+  const uint64_t a_dims[3] = {(uint64_t)K, (uint64_t)M, 3};
+  const uint64_t a_strides[2] = {(uint64_t)K * 2, (uint64_t)M * K * 2};
+  const uint32_t a_box[3] = {64, (uint32_t)kSplitM, 3};
+  cudaError_t err = make_map(&a_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, a, a_dims, a_strides,
+                             a_box);
+  if (err != cudaSuccess) return err;
+  const uint64_t b_dims[4] = {(uint64_t)K, (uint64_t)N3, 3, (uint64_t)dirs};
+  const uint64_t b_strides[3] = {(uint64_t)K * 2, (uint64_t)N3 * K * 2, 3ull * N3 * K * 2};
+  const uint32_t b_box[4] = {64, (uint32_t)kSplitN, 3, 1};
+  err = make_map(&b_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, w, b_dims, b_strides, b_box);
+  if (err != cudaSuccess) return err;
+  const size_t smem = (size_t)kSplitStages * kSplitStageBytes + 1024;
+  err = cudaFuncSetAttribute(encoder_xw_gemm_split_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int tiles = (M + kSplitM - 1) / kSplitM * dirs * ((N3 + kSplitN - 1) / kSplitN);
+  encoder_xw_gemm_split_kernel<<<tiles < sms ? tiles : sms, kSplitThreads, smem, stream>>>(
+      a_map, b_map, bias, out, M, N3, K, dirs);
   return cudaGetLastError();
 }
 

@@ -1,8 +1,8 @@
-// Shared device pieces of the hand-written GRU kernels (encoder_gru.cu,
-// decode_sampling.cu, gru_layer.cu and the int8 twins encoder_gru_int8.cu,
-// decode_sampling_int8.cu): the block-level "three gates at once" products
-// (bf16/f32 and int8), the [r, z, n] gate math, the int8 (de)quantization,
-// and the dtype traits.
+// Shared device pieces of the hand-written GRU kernels: the block-level
+// "three gates at once" products of the first port's kernels (the f32
+// routes of decode_sampling.cu and gru_layer.cu, arnn_decode.cu's first
+// kernel), and the [r, z, n] gate math, the int8 (de)quantization and the
+// dtype traits, which the Hopper kernels use too.
 //
 // Thread layout every kernel here uses: 256 threads = 8 warps. A block owns
 // MT m-tiles of 16 batch rows (TILE_M = 16 * MT rows) and walks the hidden
@@ -146,57 +146,8 @@ template <int NG> struct Gemm<float, 1, NG> {
 };
 
 // ---------------------------------------------------------------------------
-// int8 pieces (encoder_gru_int8.cu, decode_sampling_int8.cu)
+// int8 pieces (encoder_hopper.cuh, decode_hopper.cuh)
 // ---------------------------------------------------------------------------
-
-// Row padding of an int8 hidden tile in smem, bytes: 16 keeps uint4 stores
-// aligned, and with H a multiple of 64 the row stride is 4 banks off a
-// multiple of 32 banks, so the 8 rows x 4 lanes of an A-fragment load hit
-// 32 distinct banks.
-constexpr int kPadS8 = 16;
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc[G] += A (16*MT x K int8, smem, row stride lda bytes) @ W[:, 8-column
-// tile nt[G]] in exact int32, for NG column tiles at once. K is a multiple
-// of 32. W is fragment-packed by the host (kernel_common.pack_mma_b_s8):
-// for n-tile nt and k-tile kt the 32 lanes' B fragments are 256 contiguous
-// bytes, one 8-byte load per lane. The accumulator layout is the f32 one
-// (acc_row / acc_col below).
-template <int MT, int NG>
-__device__ __forceinline__ void gemm_s8(int (&acc)[NG][MT][4], const int8_t* A, int lda, int K,
-                                        const void* W, const int (&nt)[NG]) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, q = lane & 3;
-  const int KT = K / 32;
-  const uint2* P = reinterpret_cast<const uint2*>(W);
-  const uint2* p[NG];
-#pragma unroll
-  for (int G = 0; G < NG; ++G) p[G] = P + (size_t)nt[G] * KT * 32 + lane;
-  for (int kt = 0; kt < KT; ++kt) {
-    uint2 b[NG];
-#pragma unroll
-    for (int G = 0; G < NG; ++G) b[G] = __ldg(p[G] + kt * 32);
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const int8_t* base = A + (16 * m + g) * lda + kt * 32 + 4 * q;
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(base);
-      a[1] = *reinterpret_cast<const uint32_t*>(base + 8 * lda);
-      a[2] = *reinterpret_cast<const uint32_t*>(base + 16);
-      a[3] = *reinterpret_cast<const uint32_t*>(base + 8 * lda + 16);
-#pragma unroll
-      for (int G = 0; G < NG; ++G) mma_s8(acc[G][m], a, b[G].x, b[G].y);
-    }
-  }
-}
 
 // (acc * s) [* dq] + b, each step rounded as gru_gate's: the dequantization
 // of an int32 product (ops/quantize.py)

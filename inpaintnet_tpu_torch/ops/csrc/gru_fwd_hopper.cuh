@@ -58,6 +58,15 @@
 //   every peer's arrival of step s, made after each peer had consumed all
 //   of step s - 1's slabs (the same buffer).
 // - Rows past B compute on zeros and are never stored.
+//
+// K1's f32 route (the frozen encoder's two layers, encoder_gru.cu) runs
+// the same kernel through its kMode parameter, both directions in one
+// launch (blockIdx.y; W's pieces of both stacked in the map's last
+// dimension, the scratch's planes per direction): h0 = 0; layer 0 (kEnc0)
+// reads its input projection as a row of the f32 (V, 3H) table with b_ih
+// folded in, gathered by token, and writes only the outputs' pieces (the
+// projection GEMM's A operand) and h_n; layer 1 (kEnc1) reads the GEMM's
+// f32 rows (b_ih added) and writes only h_n. Neither writes r, z, n or hn.
 #pragma once
 
 #include "gru_common.cuh"
@@ -111,13 +120,22 @@ template <> struct Fwd<__nv_bfloat16> {
   __device__ static void pieces(float v, __nv_bfloat16 (&pc)[1]) { pc[0] = __float2bfloat16_rn(v); }
 };
 
+// what the kernel computes: K5, or one of K1's f32 layers
+enum FwdMode { kTrain = 0, kEnc0 = 1, kEnc1 = 2 };
+
 struct FwdArgs {
-  const void* xw;   // (B, steps, 3H) T
-  const void* bhh;  // (3H,) T
-  const void* h0;   // (B, H) T
+  const void* xw;   // (B, steps, 3H) T; kEnc1: (2, steps * rows, 3H) f32, b_ih added
+  const void* bhh;  // (3H,) T; K1: (2, 3H) f32
+  const void* h0;   // (B, H) T; K1: unused (zeros)
   void* out;        // (5, steps, B, H) T: ys, r, z, n, hn in original time order
-  __nv_bfloat16* scratch;  // (tiles, 2, P, 64, H): T(h)'s pieces by step parity
+  __nv_bfloat16* scratch;  // (dirs, tiles, 2, P, 64, H): T(h)'s pieces by step parity
   int B, steps, H, reverse, stages;
+  // K1 (kEnc0, kEnc1), over the rows [row0, row0 + rows) of B
+  const int* tokens;  // (B, steps) int32: kEnc0
+  const float* tab;   // (2, V, 3H): kEnc0's input projection table, b_ih folded in
+  __nv_bfloat16* ys;  // (3, steps * rows, 2H): kEnc0's outputs' pieces [fwd | bwd]
+  float* hn;          // (2, B, H): the layer's h_n [fwd, bwd]
+  int row0, rows, V;
 };
 
 // bytes of one ring stage: a k-slab of T(h)'s P pieces and of the CTA's
@@ -127,24 +145,30 @@ __host__ __device__ __forceinline__ int stage_bytes(int U, int P) {
 }
 
 // NCH: 32-unit chunks of a consumer warpgroup (U / 64): 1, or 2 in bf16
-template <typename T, int NCH>
+template <typename T, int NCH, int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
     gru_fwd_kernel(const __grid_constant__ CUtensorMap w_map,
                    const __grid_constant__ CUtensorMap a_map, const __grid_constant__ FwdArgs p) {
   using F = Fwd<T>;
   constexpr int P = F::kPieces;
+  constexpr bool kEnc = kMode != kTrain;
   static_assert(P == 1 || NCH == 1, "the f32 route's two accumulators fit one chunk");
+  static_assert(!kEnc || P == 3, "K1's layers run the f32 route");
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[kMaxStages];
   __shared__ __align__(8) uint64_t empty_bar[kMaxStages];
   __shared__ __align__(8) uint64_t ready;  // every CTA's pieces of a step's h are written
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const int H = p.H, H3 = 3 * H, B = p.B, steps = p.steps, KB = H / 64;
+  // B: the rows this launch computes (K1: its chunk's)
+  const int H = p.H, H3 = 3 * H, B = kEnc ? p.rows : p.B, steps = p.steps, KB = H / 64;
   const int C = (int)cluster_nctarank();
   const uint32_t rank = cluster_ctarank();
   const int U = H / C, u0 = (int)rank * U, cpc = U / kUnits;
-  const int tile = (int)(blockIdx.x / C), tile0 = tile * kRows;
+  const int d = kEnc ? (int)blockIdx.y : 0;  // K1's direction: 0 forward, 1 backward
+  const bool reverse = kEnc ? d == 1 : p.reverse != 0;
+  const int tiles = (int)(gridDim.x / C), tile0 = (int)(blockIdx.x / C) * kRows;
+  const int tile = d * tiles + (int)(blockIdx.x / C);  // the scratch's tile index
   const int sbytes = stage_bytes(U, P), a_bytes = P * kPieceBytes;
   const int wg = threadIdx.x >> 7;
   constexpr int kStageLd = kUnits * NCH + 8;  // bf16 row stride of an output buffer
@@ -170,7 +194,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           unsigned char* st = ring + stage * sbytes;
           mbar_wait_bounded<false>(&empty_bar[stage], phase ^ 1);
           mbar_expect_tx(&full_bar[stage], (uint32_t)sbytes);
-          tma_load_5d(st + a_bytes, &w_map, &full_bar[stage], 0, 0, k, (int)rank * cpc, 0);
+          tma_load_5d(st + a_bytes, &w_map, &full_bar[stage], 0, 0, k, (int)rank * cpc, d * P);
           if (k == 0) {  // this step's pieces, from every CTA of the cluster
             mbar_wait_bounded<true>(&ready, s & 1);
             fence_proxy_async_global();
@@ -190,7 +214,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2,
             q = lane & 3;
   const T* xw = static_cast<const T*>(p.xw);
-  const T* bhh = static_cast<const T*>(p.bhh);
+  const T* bhh = static_cast<const T*>(p.bhh) + d * H3;
   T* out = static_cast<T*>(p.out);
   const size_t plane_out = (size_t)steps * B * H;  // one of the five outputs
   // the f32 carry of the CTA's 64 rows x U units, rows of U + kCarryPad
@@ -222,6 +246,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (tid < C) mbar_arrive_cluster(mapa(smem_u32(&ready), tid));
   };
 
+  // The row of step t's input projection of local row `row` (< B): xw's
+  // (K5, K1 layer 1: the GEMM's f32 rows), or the table's row of the token
+  // (K1 layer 0)
+  const auto x_row = [&](int row, int t) -> const T* {
+    if constexpr (kMode == kEnc0) {
+      const int tok = p.tokens[(size_t)(p.row0 + row) * steps + t];
+      return p.tab + ((size_t)d * p.V + min(max(tok, 0), p.V - 1)) * H3;  // never outside
+    } else if constexpr (kMode == kEnc1) {
+      return xw + ((size_t)d * steps * B + (size_t)t * B + row) * H3;
+    } else {
+      return xw + ((size_t)row * steps + t) * H3;
+    }
+  };
+
   // h0 into the carry and its pieces into the scratch of step 0
 #pragma unroll
   for (int ci = 0; ci < NCH; ++ci)
@@ -231,19 +269,21 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int half = 0; half < 2; ++half) {
         const int r = 16 * warp + g + 8 * half, row = tile0 + r;
         const int jl = kUnits * (wg * NCH + ci) + 8 * n8 + 2 * q;
-        const float2 v = row < B ? F::load2(static_cast<const T*>(p.h0) + (size_t)row * H + u0 + jl)
-                                 : make_float2(0.0f, 0.0f);
+        const float2 v = row < B && !kEnc
+                             ? F::load2(static_cast<const T*>(p.h0) + (size_t)row * H + u0 + jl)
+                             : make_float2(0.0f, 0.0f);
         *reinterpret_cast<float2*>(carry + r * ld + jl) = v;
         put_pieces(0, r, jl, v.x, v.y);
       }
   publish();
 
   for (int s = 0; s < steps; ++s) {
-    const int t = p.reverse ? steps - 1 - s : s;
+    const int t = reverse ? steps - 1 - s : s;
     const bool last = s == steps - 1;
     // this step's xw rows of the thread's units into L2 while the products
-    // run (lanes of q 0: a quad's run of a gate's 32 units)
-    if (q == 0)
+    // run (lanes of q 0: a quad's run of a gate's 32 units; K1's layer-0
+    // table stays in L2)
+    if (q == 0 && kMode != kEnc0)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = tile0 + 16 * warp + g + 8 * half;
@@ -252,8 +292,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int ci = 0; ci < NCH; ++ci)
 #pragma unroll
             for (int gate = 0; gate < 3; ++gate)
-              prefetch_l2(xw + ((size_t)row * steps + t) * H3 + gate * H + u0 +
-                          kUnits * (wg * NCH + ci));
+              prefetch_l2(x_row(row, t) + gate * H + u0 + kUnits * (wg * NCH + ci));
       }
 
     // the product: acc[ci][a] is r, acc[ci][16 + a] z and acc[ci][32 + a]
@@ -330,10 +369,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           const bool valid = row < B;
           const int jl = kUnits * (wg * NCH + ci) + 8 * n8 + 2 * q, j = u0 + jl;
           float2 x[3], b[3];
+          const T* xr = valid ? x_row(row, t) : nullptr;
 #pragma unroll
           for (int gate = 0; gate < 3; ++gate) {
-            x[gate] = valid ? F::load2(xw + ((size_t)row * steps + t) * H3 + gate * H + j)
-                            : make_float2(0.0f, 0.0f);
+            x[gate] = valid ? F::load2(xr + gate * H + j) : make_float2(0.0f, 0.0f);
             b[gate] = F::load2(bhh + gate * H + j);
           }
           float2* cp = reinterpret_cast<float2*>(carry + r * ld + jl);
@@ -356,7 +395,22 @@ __global__ void __launch_bounds__(kThreads, 1)
             o[4][e] = hn;
           }
           *cp = make_float2(o[0][0], o[0][1]);
-          if constexpr (P == 1) {
+          if constexpr (kEnc) {
+            if (valid && kMode == kEnc0) {  // the outputs' pieces, at row t * rows + row
+              __nv_bfloat16 a[3], b2[3];
+              split3(o[0][0], a);
+              split3(o[0][1], b2);
+              const size_t plane = (size_t)steps * B * 2 * H;
+#pragma unroll
+              for (int pi = 0; pi < 3; ++pi)
+                *reinterpret_cast<__nv_bfloat162*>(
+                    p.ys + pi * plane + ((size_t)t * B + row) * 2 * H + d * H + j) =
+                    __halves2bfloat162(a[pi], b2[pi]);
+            }
+            if (valid && last)
+              *reinterpret_cast<float2*>(p.hn + ((size_t)d * p.B + p.row0 + row) * H + j) =
+                  make_float2(o[0][0], o[0][1]);
+          } else if constexpr (P == 1) {
 #pragma unroll
             for (int v = 0; v < 5; ++v) staged[v][ci][n8][half] = pack_bf16_pair(o[v][0], o[v][1]);
           } else if (valid) {
@@ -421,11 +475,12 @@ inline bool plan_fits(int H, int C, int stages) {
 }
 
 // the W map over the packed pieces (P pieces of H / 32 chunks of H / 64
-// k-slabs of 96 x 64 bf16), a box of one k-slab of U / 32 consecutive
-// chunks in every piece
-inline cudaError_t make_w_map(CUtensorMap* map, const void* packed, int H, int P, int U) {
+// k-slabs of 96 x 64 bf16; K1: of each of two directions, direction-major),
+// a box of one k-slab of U / 32 consecutive chunks in every piece
+inline cudaError_t make_w_map(CUtensorMap* map, const void* packed, int H, int P, int U,
+                              int dirs = 1) {
   const uint64_t dims[5] = {64, 3 * kUnits, (uint64_t)(H / 64), (uint64_t)(H / kUnits),
-                            (uint64_t)P};
+                            (uint64_t)(P * dirs)};
   const uint64_t strides[4] = {128, (uint64_t)kSlabBytes, (uint64_t)(H / 64) * kSlabBytes,
                                (uint64_t)(H / kUnits) * (H / 64) * kSlabBytes};
   const uint32_t box[5] = {64, 3 * kUnits, 1, (uint32_t)(U / kUnits), (uint32_t)P};
@@ -441,19 +496,23 @@ inline cudaError_t make_a_map(CUtensorMap* map, const void* scratch, int H, int 
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, scratch, dims, strides, box);
 }
 
-template <typename T, int NCH>
+// K5 over a.B rows, or one of K1's layers over a.rows rows in both
+// directions (grid y)
+template <typename T, int NCH, int kMode>
 inline cudaError_t run_k5(const CUtensorMap& w_map, const FwdArgs& a, int C, cudaStream_t stream) {
   constexpr int P = Fwd<T>::kPieces;
-  const int U = a.H / C, tiles = (a.B + kRows - 1) / kRows;
+  constexpr int dirs = kMode == kTrain ? 1 : 2;
+  const int rows = kMode == kTrain ? a.B : a.rows;
+  const int U = a.H / C, tiles = (rows + kRows - 1) / kRows;
   CUtensorMap a_map;
-  cudaError_t err = make_a_map(&a_map, a.scratch, a.H, P, tiles);
+  cudaError_t err = make_a_map(&a_map, a.scratch, a.H, P, tiles * dirs);
   if (err != cudaSuccess) return err;
   const size_t smem = smem_bytes(U, P, a.stages);
-  err = cudaFuncSetAttribute(gru_fwd_kernel<T, NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  err = cudaFuncSetAttribute(gru_fwd_kernel<T, NCH, kMode>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles * C, 1, 1);
+  cfg.gridDim = dim3(tiles * C, dirs, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -464,7 +523,7 @@ inline cudaError_t run_k5(const CUtensorMap& w_map, const FwdArgs& a, int C, cud
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, gru_fwd_kernel<T, NCH>, w_map, a_map, a);
+  err = cudaLaunchKernelEx(&cfg, gru_fwd_kernel<T, NCH, kMode>, w_map, a_map, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -475,12 +534,30 @@ inline cudaError_t launch_gru_fwd(const CUtensorMap& w_map, const FwdArgs& a, in
   if (!plan_fits<T>(a.H, C, a.stages) || a.B < 1 || a.steps < 1 || a.scratch == nullptr)
     return cudaErrorInvalidValue;
   switch (a.H / C / 64) {
-    case 1: return run_k5<T, 1>(w_map, a, C, stream);
+    case 1: return run_k5<T, 1, kTrain>(w_map, a, C, stream);
     case 2:
-      if constexpr (Fwd<T>::kPieces == 1) return run_k5<T, 2>(w_map, a, C, stream);
+      if constexpr (Fwd<T>::kPieces == 1) return run_k5<T, 2, kTrain>(w_map, a, C, stream);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
+}
+
+// K1's f32 layer `layer` (0 or 1) over the rows [a.row0, a.row0 + a.rows)
+// of a.B, both directions: `w_map` is make_w_map's over both directions'
+// packed W_hh pieces for U = H / C; the scratch holds (2, tiles, 2, 3, 64,
+// H) bf16
+inline cudaError_t launch_encoder_layer(const CUtensorMap& w_map, const FwdArgs& a, int layer,
+                                        int C, cudaStream_t stream) {
+  if (!plan_fits<float>(a.H, C, a.stages) || a.H / C != 64 || a.rows < 1 || a.steps < 1 ||
+      a.row0 < 0 || a.row0 + a.rows > a.B || a.scratch == nullptr || a.hn == nullptr)
+    return cudaErrorInvalidValue;
+  if (layer == 0) {
+    if (a.tokens == nullptr || a.tab == nullptr || a.ys == nullptr || a.V < 1)
+      return cudaErrorInvalidValue;
+    return run_k5<float, 1, kEnc0>(w_map, a, C, stream);
+  }
+  if (layer == 1 && a.xw != nullptr) return run_k5<float, 1, kEnc1>(w_map, a, C, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace fwd90

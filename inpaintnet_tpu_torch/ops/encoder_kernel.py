@@ -13,7 +13,7 @@ every step. For f32 parameters that is exactly the XLA scan
 (``encoder_hn_pallas_int8``), with ``encoder_hn_int8_reference`` as its
 plain version.
 
-The bf16 route of K1 and K3 run the Hopper design of
+Both routes of K1, and K3, run the Hopper design of
 ``csrc/encoder_hopper.cuh`` (``csrc/encoder_gru.cu`` and
 ``csrc/encoder_gru_int8.cu`` say what bounds them and why): per chunk of
 rows, layer 0's recurrence, then layer 1's input projection for every step
@@ -22,24 +22,35 @@ plain versions are ``input_projection_reference`` /
 ``input_projection_int8_reference``), then layer 1's recurrence on it.
 ``encoder_hn_staged_reference`` and ``encoder_hn_int8_staged_reference``
 are that staged computation in plain PyTorch. The chunk caps the GEMM's
-f32 / int32 scratch at ``XW_SCRATCH_BYTES``. K1's f32 route keeps the
-first port's kernel (``csrc/encoder_gru.cu``).
+f32 / int32 scratch at ``XW_SCRATCH_BYTES``. K1's f32 route takes its
+products on the tensor cores as six bf16 passes over exact pieces
+(``kernel_common.split_product`` emulates them): each layer's recurrence
+is K5's f32 cluster recurrence (``csrc/gru_fwd_hopper.cuh``), layer 0
+writing its outputs as the GEMM's pieces, and the GEMM is the split one
+(:func:`encoder_f32_operands` packs the weights' pieces once per weight
+tensor). ``recurrent_product`` is the plain version's product on h, where a
+check can plant the fault "h taken as one bf16 piece".
 
 The wrappers run the plain versions for CPU tensors only; for CUDA tensors
 they launch the kernels or raise.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from inpaintnet_tpu_torch.ops.kernel_common import (
     DTYPE_CODES,
+    HOPPER_ROWS,
+    WeightCache,
     check_cuda_tensor,
     check_launch,
     gru_gates_f32,
     kernel_supports_hidden,
     load_kernels,
     round_up,
+    split_bf16_pieces,
     stream_ptr,
 )
 from inpaintnet_tpu_torch.ops.quantize import (
@@ -67,11 +78,16 @@ GATE_UNITS = 32  # hidden units of a gate chunk: its r, z, n rows form one W sla
 XW_SCRATCH_BYTES = 5 * 2**29  # 2.5 GiB
 
 
-def encoder_chunk_rows(batch: int, seq_len: int, hidden: int, max_chunk_rows=None) -> int:
+def encoder_chunk_rows(batch: int, seq_len: int, hidden: int, max_chunk_rows=None,
+                       dtype=torch.bfloat16) -> int:
     """Rows of one chunk of the Hopper route: the largest power of two
     (from 64) whose (2, steps, rows, 3H) 4-byte projection fits
-    ``XW_SCRATCH_BYTES``, at most ``max_chunk_rows`` and ``batch``."""
+    ``XW_SCRATCH_BYTES`` (in f32 beside layer 0's outputs as three bf16
+    pieces and the h-piece exchange of both directions: half bf16's rows),
+    at most ``max_chunk_rows`` and ``batch``."""
     per_row = 2 * seq_len * 3 * hidden * 4
+    if dtype == torch.float32:
+        per_row += seq_len * 2 * hidden * 3 * 2 + 2 * 2 * 3 * hidden * 2
     rows = REC_ROWS
     while 2 * rows * per_row <= XW_SCRATCH_BYTES:
         rows *= 2
@@ -83,10 +99,8 @@ def encoder_chunk_rows(batch: int, seq_len: int, hidden: int, max_chunk_rows=Non
 def encoder_cuda_launches(dtype, batch: int, seq_len: int, hidden: int,
                           max_chunk_rows=None) -> int:
     """CUDA kernel launches of one K1/K3 call: three a chunk (layer 0, the
-    GEMM, layer 1) on the Hopper route, two on K1's f32 route."""
-    if dtype == torch.float32:
-        return 2
-    chunk = encoder_chunk_rows(batch, seq_len, hidden, max_chunk_rows)
+    GEMM, layer 1), in every dtype."""
+    chunk = encoder_chunk_rows(batch, seq_len, hidden, max_chunk_rows, dtype)
     return 3 * -(-batch // chunk)
 
 
@@ -115,6 +129,12 @@ def pack_gate_blocks(w_hh: torch.Tensor) -> torch.Tensor:
     return slabs.permute(0, 2, 1, 3).contiguous()
 
 
+def recurrent_product(h: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """The plain K1's product on h: the carry in f32 @ f32 ``W_hh`` (one
+    place, so a check can plant h taken as one bf16 piece)."""
+    return h.float() @ w_hh
+
+
 def _gru_direction(p, xw_at, reverse: bool, batch: int, seq_len: int, dtype, device):
     """One direction of a plain encoder layer: the carry rounded to
     ``dtype`` every step. :return: (outputs by step, last carry)"""
@@ -123,7 +143,7 @@ def _gru_direction(p, xw_at, reverse: bool, batch: int, seq_len: int, dtype, dev
     whh, bhh = p["w_hh"].float(), p["b_hh"].float()
     ys = [None] * seq_len
     for t in (range(seq_len - 1, -1, -1) if reverse else range(seq_len)):
-        hw = h.float() @ whh + bhh
+        hw = recurrent_product(h, whh) + bhh
         h = gru_gates_f32(xw_at(t), hw, h.float(), hidden).to(dtype)
         ys[t] = h
     return ys, h
@@ -235,35 +255,84 @@ def _check_projection_args(name: str, ys: torch.Tensor, w_ih: torch.Tensor, dtyp
     return rows, hidden
 
 
+def split_weight_pieces(w: torch.Tensor) -> torch.Tensor:
+    """(dirs, K, N) f32 weights as the split GEMM streams them: (dirs, 3, N,
+    K) bf16, the pieces (``kernel_common.split_bf16_pieces``) of each
+    direction's W^T, K-major."""
+    return torch.stack([torch.stack(split_bf16_pieces(wd.t())) for wd in w]).contiguous()
+
+
 def input_projection(ys: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor) -> torch.Tensor:
-    """K1's bf16 GEMM on its own (the wrapper of the encoder runs it per
-    chunk): :func:`input_projection_reference`'s function, bf16 operands,
-    f32 out, through the TMA + wgmma kernel (``csrc/encoder_hopper.cuh``)."""
+    """K1's GEMM on its own (the wrapper of the encoder runs it per chunk):
+    :func:`input_projection_reference`'s function, f32 out, through the TMA +
+    wgmma kernels (``csrc/encoder_hopper.cuh``): bf16 operands, or f32 ones
+    split into three bf16 pieces each (six passes a k-slab)."""
     if ys.device.type == "cpu":
         return input_projection_reference(ys, w_ih, b_ih)
-    rows, hidden = _check_projection_args("input_projection", ys, w_ih, torch.bfloat16)
+    rows, hidden = _check_projection_args("input_projection", ys, w_ih, ys.dtype)
     check_cuda_tensor("b_ih", b_ih, (2, 3 * hidden), torch.float32, ys.device)
-    w_t = w_ih.transpose(1, 2).contiguous()
     out = torch.empty((2, rows, 3 * hidden), dtype=torch.float32, device=ys.device)
-    check_launch(load_kernels().inpaint_encoder_gemm_bf16(
-        ys.data_ptr(), w_t.data_ptr(), b_ih.data_ptr(), out.data_ptr(), rows, hidden,
-        stream_ptr()), "input_projection")
+    lib = load_kernels()
+    if ys.dtype == torch.float32:
+        a, w = torch.stack(split_bf16_pieces(ys)).contiguous(), split_weight_pieces(w_ih)
+        err = lib.inpaint_encoder_gemm_f32(a.data_ptr(), w.data_ptr(), b_ih.data_ptr(),
+                                           out.data_ptr(), rows, hidden, stream_ptr())
+    elif ys.dtype == torch.bfloat16:
+        w_t = w_ih.transpose(1, 2).contiguous()
+        err = lib.inpaint_encoder_gemm_bf16(ys.data_ptr(), w_t.data_ptr(), b_ih.data_ptr(),
+                                            out.data_ptr(), rows, hidden, stream_ptr())
+    else:
+        raise ValueError(f"input_projection: no kernel for dtype {ys.dtype}")
+    check_launch(err, "input_projection")
     return out
 
 
-def _encode_chunks(rec, gemm, hidden: int, batch: int, seq_len: int, scratch_dtype,
-                   acc_dtype, device, max_chunk_rows) -> None:
-    """The Hopper route's launches, chunk by chunk: ``rec(layer, ys, xw,
-    row0, rows)`` runs a layer's recurrence, ``gemm(ys, xw, m)`` the
-    projection. Scratch: ys (steps, rows, 2H) and xw (2, steps * rows, 3H)."""
-    chunk = encoder_chunk_rows(batch, seq_len, hidden, max_chunk_rows)
-    ys = torch.empty((seq_len * chunk * 2 * hidden,), dtype=scratch_dtype, device=device)
-    xw = torch.empty((2 * seq_len * chunk * 3 * hidden,), dtype=acc_dtype, device=device)
+def pack_f32_gate_pieces(w_f: torch.Tensor, w_b: torch.Tensor) -> torch.Tensor:
+    """A layer's f32 W_hh of both directions as K1's f32 recurrence streams
+    them: (2, 3, H / 32, H / 64, 96, 64) bf16, direction-major, each
+    direction's three pieces as :func:`pack_gate_blocks` (K5's
+    ``pack_fwd_weights``), so a 5-D TMA box over the direction's pieces
+    holds a k-slab of a CTA's chunks."""
+    return torch.stack([torch.stack([pack_gate_blocks(p) for p in split_bf16_pieces(w)])
+                        for w in (w_f, w_b)]).contiguous()
+
+
+def _build_encoder_f32_operands(whh0_f, whh0_b, wih1_f, wih1_b, whh1_f, whh1_b) -> dict:
+    hidden = whh0_f.shape[0]
+    whh = [pack_f32_gate_pieces(whh0_f, whh0_b), pack_f32_gate_pieces(whh1_f, whh1_b)]
+    maps = []
+    for packed in whh:
+        buf = ctypes.create_string_buffer(128 + 64)
+        addr = (ctypes.addressof(buf) + 63) // 64 * 64
+        check_launch(load_kernels().inpaint_encoder_w_map_f32(packed.data_ptr(), hidden, 64, addr),
+                     "encoder_hn's W map")
+        maps.append((buf, addr))
+    return {"whh": whh, "maps": maps, "wih1": split_weight_pieces(torch.stack([wih1_f, wih1_b]))}
+
+
+# K1's f32 operands, built once per set of weight tensors: both layers' W_hh
+# pieces of both directions (:func:`pack_f32_gate_pieces`) with their tensor
+# maps for 64 units a CTA, and W_ih1^T's pieces (:func:`split_weight_pieces`)
+encoder_f32_operands = WeightCache(_build_encoder_f32_operands)
+
+
+def _encode_chunks(rec, gemm, batch: int, seq_len: int, chunk: int, ys, xw) -> None:
+    """The Hopper route's launches, chunk by chunk of ``chunk`` rows:
+    ``rec(layer, ys, xw, row0, rows)`` runs a layer's recurrence, ``gemm(ys,
+    xw, m)`` the projection, through the scratch ys (layer 0's outputs) and
+    xw (2, steps * rows, 3H)."""
     for row0 in range(0, batch, chunk):
         rows = min(chunk, batch - row0)
         rec(0, ys, xw, row0, rows)
         gemm(ys, xw, seq_len * rows)
         rec(1, ys, xw, row0, rows)
+
+
+def _scratch(chunk: int, seq_len: int, hidden: int, ys_dtype, xw_dtype, device, pieces=1):
+    """A chunk's scratch: layer 0's outputs ((pieces,) steps, rows, 2H) and
+    the projection (2, steps * rows, 3H)."""
+    return (torch.empty((pieces * seq_len * chunk * 2 * hidden,), dtype=ys_dtype, device=device),
+            torch.empty((2 * seq_len * chunk * 3 * hidden,), dtype=xw_dtype, device=device))
 
 
 def encoder_hn(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
@@ -275,41 +344,51 @@ def encoder_hn(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
     :param emb_table: (V, E) in the parameter dtype
     :param tokens: (B, T) int32 in [0, V)
     :param max_chunk_rows: caps the rows of a chunk below the scratch's own
-        cap (for tests of the chunking; bf16 only)
+        cap (for tests of the chunking)
     """
     if tokens.device.type == "cpu":
         return encoder_hn_reference(gru_params, emb_table, tokens)
     if tokens.device.type != "cuda":
         raise ValueError(f"encoder_hn: no kernel for device {tokens.device}")
     hidden, dtype, device = _check_encoder_args("encoder_hn", gru_params, emb_table, tokens)
-    (p0f, p0b), (p1f, p1b) = gru_params
     batch, seq_len = tokens.shape
     vocab = emb_table.shape[0]
     h_n = torch.empty((4, batch, hidden), dtype=dtype, device=device)
-    tabs = fused_tables(gru_params, emb_table)
+    # layer 0's input projection with b_ih added, as the plain version adds it
+    xtab = torch.stack([tab.float() + p["b_ih"].float() for tab, p in
+                        zip(fused_tables(gru_params, emb_table), gru_params[0])]).contiguous()
+    b = {f"{k}{i}": torch.stack([p[k].float() for p in gru_params[i]])
+         for i in (0, 1) for k in ("b_ih", "b_hh")}
     lib = load_kernels()
+    chunk = encoder_chunk_rows(batch, seq_len, hidden, max_chunk_rows, dtype)
 
     if dtype == torch.float32:
-        ys = torch.empty((2, seq_len, batch, hidden), dtype=dtype, device=device)
-        tab_f, tab_b = (t.contiguous() for t in tabs)
-        weights = [p[k].contiguous() for p, k in ((p0f, "w_hh"), (p0b, "w_hh"), (p1f, "w_ih"),
-                                                  (p1b, "w_ih"), (p1f, "w_hh"), (p1b, "w_hh"))]
-        biases = [torch.stack([pf[k], pb[k]]) for pf, pb in ((p0f, p0b), (p1f, p1b))
-                  for k in ("b_ih", "b_hh")]
-        check_launch(lib.inpaint_encoder_hn_f32(
-            tokens.data_ptr(), tab_f.data_ptr(), tab_b.data_ptr(),
-            *(w.data_ptr() for w in weights), biases[0].data_ptr(), biases[1].data_ptr(),
-            biases[2].data_ptr(), biases[3].data_ptr(), ys.data_ptr(), h_n.data_ptr(),
-            batch, seq_len, hidden, vocab, stream_ptr()), "encoder_hn")
+        from inpaintnet_tpu_torch.ops.gru_train_kernel import fwd_plan
+
+        ops = encoder_f32_operands(*(p[k] for k, i in (("w_hh", 0), ("w_ih", 1), ("w_hh", 1))
+                                     for p in gru_params[i]))
+        plan = fwd_plan(hidden, dtype)
+        # the h-piece exchange of both directions: (2, tiles, 2, 3, 64, H) bf16
+        exchange = torch.empty((2 * -(-chunk // HOPPER_ROWS) * 2 * 3 * HOPPER_ROWS * hidden,),
+                               dtype=torch.bfloat16, device=device)
+
+        def rec(layer, ys, xw, row0, rows):
+            check_launch(lib.inpaint_encoder_rec_f32(
+                layer, ops["maps"][layer][1], tokens.data_ptr(), xtab.data_ptr(), xw.data_ptr(),
+                b[f"b_hh{layer}"].data_ptr(), ys.data_ptr(), h_n[2 * layer].data_ptr(),
+                exchange.data_ptr(), batch, row0, rows, seq_len, hidden, vocab, plan.cluster,
+                plan.stages, stream_ptr()), "encoder_hn")
+
+        def gemm(ys, xw, m):
+            check_launch(lib.inpaint_encoder_gemm_f32(
+                ys.data_ptr(), ops["wih1"].data_ptr(), b["b_ih1"].data_ptr(), xw.data_ptr(), m,
+                hidden, stream_ptr()), "encoder_hn")
+
+        scratch = _scratch(chunk, seq_len, hidden, torch.bfloat16, torch.float32, device, 3)
     else:
-        # layer 0's input projection with b_ih added, as the plain version adds it
-        xtab = torch.stack([tab.float() + p["b_ih"].float()
-                            for tab, p in zip(tabs, gru_params[0])]).contiguous()
         whh0, whh1 = (torch.stack([pack_gate_slabs(p["w_hh"], 64) for p in layer])
                       for layer in gru_params)
         wih1_t = torch.stack([p["w_ih"].t() for p in gru_params[1]]).contiguous()
-        b = {f"{k}{i}": torch.stack([p[k].float() for p in gru_params[i]])
-             for i in (0, 1) for k in ("b_ih", "b_hh")}
 
         def rec(layer, ys, xw, row0, rows):
             args = ((whh0, tokens, xtab, None, b["b_ih0"], b["b_hh0"]) if layer == 0 else
@@ -324,8 +403,8 @@ def encoder_hn(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
                 ys.data_ptr(), wih1_t.data_ptr(), b["b_ih1"].data_ptr(), xw.data_ptr(), m,
                 hidden, stream_ptr()), "encoder_hn")
 
-        _encode_chunks(rec, gemm, hidden, batch, seq_len, dtype, torch.float32, device,
-                       max_chunk_rows)
+        scratch = _scratch(chunk, seq_len, hidden, dtype, torch.float32, device)
+    _encode_chunks(rec, gemm, batch, seq_len, chunk, *scratch)
     encoder_hn.launches += 1
     return h_n
 
@@ -525,8 +604,9 @@ def encoder_hn_int8(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
             ys.data_ptr(), wih1_t.data_ptr(), xw.data_ptr(), m, hidden, stream_ptr()),
             "encoder_hn_int8")
 
-    _encode_chunks(rec, gemm, hidden, batch, seq_len, torch.int8, torch.int32, device,
-                   max_chunk_rows)
+    chunk = encoder_chunk_rows(batch, seq_len, hidden, max_chunk_rows)
+    _encode_chunks(rec, gemm, batch, seq_len, chunk,
+                   *_scratch(chunk, seq_len, hidden, torch.int8, torch.int32, device))
     encoder_hn_int8.launches += 1
     return h_n
 

@@ -48,6 +48,7 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     check_launch,
     kernel_supports_hidden,
     load_kernels,
+    split_bf16_pieces,
     stream_ptr,
 )
 
@@ -279,18 +280,6 @@ BWD_MAX_CLUSTER = 8
 BWD_A_SLAB_BYTES = 3 * HOPPER_ROWS * 128  # a 64-wide k-slab of dhw's three pieces
 BWD_MAX_STAGES = 6
 BWD_DH_PAD = 8  # f32 padding of dh's rows in shared memory
-
-
-def split_bf16_pieces(x: torch.Tensor):
-    """(hi, mid, lo): the bf16 pieces of ``x`` that K6 multiplies, hi =
-    bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), each difference
-    taken in f32 (exact). hi + mid + lo is x for a bf16 ``x`` (mid = lo =
-    0) and within 2^-24 of |x| for an f32 one (three 8-bit mantissas)."""
-    x = x.float()
-    hi = x.to(torch.bfloat16)
-    rest = x - hi.float()
-    mid = rest.to(torch.bfloat16)
-    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
 
 
 def bwd_weight_pieces(dtype) -> int:

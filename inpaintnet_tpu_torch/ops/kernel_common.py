@@ -10,9 +10,13 @@
   ``build/inpaintnet_tpu_torch/`` at the repository root. It is loaded
   with ``ctypes``.
 - ``pack_mma_b``: the weight layout the ``mma.sync`` kernels read (the
-  f32 routes of K1, K2, K7 and K8, and K7's first bf16 kernel; the Hopper
-  kernels' are ``encoder_kernel.pack_gate_slabs`` / ``pack_gate_blocks``
-  and plain transposes).
+  f32 routes of K2 and K8, and K7's first kernel; the Hopper kernels' are
+  ``encoder_kernel.pack_gate_slabs`` / ``pack_gate_blocks`` and plain
+  transposes).
+- ``split_bf16_pieces`` and ``split_product``: the f32 products on the
+  tensor cores (K1's and K7's f32 routes, K5, K6) take each operand as
+  three exact bf16 pieces, six passes a 64-wide k-slab added slab by slab
+  in f32; ``split_product`` is that arithmetic in plain PyTorch.
 - The Hopper recurrences of K8, K2 and K4 (``csrc/gru_layer_hopper.cuh``,
   ``csrc/decode_hopper.cuh``): their launch plan (``recurrence_plan``: the
   cluster size and ring depth from the shape and the h tiles' element
@@ -77,6 +81,47 @@ def lstm_gates_f32(xw, hw, c_prev, hidden: int):
     o = torch.sigmoid(gates[:, 3 * hidden :])
     c_new = f * c_prev + i * g
     return o * torch.tanh(c_new), c_new
+
+
+def split_bf16_pieces(x: torch.Tensor):
+    """(hi, mid, lo): the exact bf16 pieces of ``x`` that the split f32
+    products multiply (K1's and K7's f32 routes, K5, K6), hi = bf16(x), mid =
+    bf16(x - hi), lo = bf16(x - hi - mid), each difference taken in f32
+    (exact). hi + mid + lo is x for a bf16 ``x`` (mid = lo = 0) and within
+    2^-24 of |x| for an f32 one (three 8-bit mantissas)."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
+
+
+# The split product's passes: (A piece, W piece) over (hi, mid, lo), the
+# smallest terms first (lh, hl, mm, mh, hm, hh); the cross terms left out
+# (ll, lm, ml) lie below 2^-24 of |A| |W|
+SPLIT_PASSES = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+
+
+def split_product(a: torch.Tensor, w: torch.Tensor, pieces: int = 3) -> torch.Tensor:
+    """A plain emulation of the split f32 product ``a @ w`` (K1's and K7's
+    f32 GEMM and recurrences): per 64-wide k-slab, the six passes over the
+    bf16 pieces of (M, K) ``a`` and (K, N) ``w`` summed in f32 into a
+    partial, the partials added in f32 slab by slab. ``pieces=1`` takes
+    ``a`` as its hi piece alone (the planted fault "a product on one bf16
+    piece"). The tensor cores' own sum inside a slab is another order, so
+    the kernels agree with this within f32 rounding, not bit for bit."""
+    pa = split_bf16_pieces(a)
+    pw = split_bf16_pieces(w)
+    out = None
+    for k0 in range(0, a.shape[1], 64):
+        part = None
+        for i, j in SPLIT_PASSES:
+            if i >= pieces:
+                continue
+            term = pa[i][:, k0:k0 + 64].float() @ pw[j][k0:k0 + 64].float()
+            part = term if part is None else part + term
+        out = part if out is None else out + part
+    return out
 
 
 def kernel_supports_hidden(hidden: int) -> bool:
@@ -312,8 +357,12 @@ def load_kernels() -> ctypes.CDLL:
     ints)."""
     lib = ctypes.CDLL(str(build_kernels()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.inpaint_encoder_hn_f32.argtypes = [ptr] * 15 + [i32] * 4 + [ptr]
-    lib.inpaint_encoder_hn_f32.restype = i32
+    lib.inpaint_encoder_rec_f32.argtypes = [i32] + [ptr] * 8 + [i32] * 8 + [ptr]
+    lib.inpaint_encoder_rec_f32.restype = i32
+    lib.inpaint_encoder_w_map_f32.argtypes = [ptr, i32, i32, ptr]
+    lib.inpaint_encoder_w_map_f32.restype = i32
+    lib.inpaint_encoder_gemm_f32.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]
+    lib.inpaint_encoder_gemm_f32.restype = i32
     lib.inpaint_encoder_rec_bf16.argtypes = [i32] + [ptr] * 8 + [i32] * 6 + [ptr]
     lib.inpaint_encoder_rec_bf16.restype = i32
     lib.inpaint_encoder_gemm_bf16.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]
@@ -354,6 +403,14 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_arnn_slots.restype = i32
     lib.inpaint_arnn_ctx_gemm.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
     lib.inpaint_arnn_ctx_gemm.restype = i32
+    lib.inpaint_arnn_decode_f32.argtypes = [ptr] * 12 + [i32] * 6 + [ptr]
+    lib.inpaint_arnn_decode_f32.restype = i32
+    lib.inpaint_arnn_f32_map.argtypes = [ptr, i32, ptr]
+    lib.inpaint_arnn_f32_map.restype = i32
+    lib.inpaint_arnn_f32_slots.argtypes = [i32] * 3
+    lib.inpaint_arnn_f32_slots.restype = i32
+    lib.inpaint_arnn_ctx_gemm_f32.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+    lib.inpaint_arnn_ctx_gemm_f32.restype = i32
     lib.inpaint_gru_layer_f32.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
     lib.inpaint_gru_layer_f32.restype = i32
     lib.inpaint_gru_layer_bf16.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]

@@ -162,14 +162,29 @@ def test_encoder_int8_kernel_matches_plain(cuda, dtype, batch, hidden):
     assert torch.equal(h_k, h_p)
 
 
-@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
 @pytest.mark.parametrize("rows,hidden", [(888, 64), (120, 128), (1000, 512)])
 def test_encoder_projection_gemm_matches_plain(cuda, kind, rows, hidden):
     """The Hopper route's layer-1 GEMM alone, at ragged M (not a multiple of
     its 128-row tile): bf16 operands summed in f32 within 1e-5 relative
-    (only the order of the f32 sums differs), int8 sums equal."""
+    (only the order of the f32 sums differs), int8 sums equal; f32 operands
+    (the split GEMM: six passes over their bf16 pieces a k-slab) within 64
+    x 2^-24 of the sum of |terms|: the tensor cores' own sums inside each
+    slab are not rounded to nearest (seen 1.3e-5 at H 512 on values near
+    2), and h taken as one bf16 piece would be 2^-9 off."""
     rng = np.random.default_rng(rows + hidden)
-    if kind == "bf16":
+    if kind == "f32":
+        ys = torch.from_numpy(rng.uniform(-1, 1, (rows, 2 * hidden)).astype(np.float32)).to(cuda)
+        w = torch.from_numpy((0.1 * rng.standard_normal((2, 2 * hidden, 3 * hidden)))
+                             .astype(np.float32)).to(cuda)
+        b = torch.from_numpy(rng.standard_normal((2, 3 * hidden)).astype(np.float32)).to(cuda)
+        got = encoder_kernel.input_projection(ys, w, b)
+        want = encoder_kernel.input_projection_reference(ys, w, b)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == (2, rows, 3 * hidden)
+        scale = ys.double().abs() @ w.double().abs()
+        assert ((got.double() - want.double()).abs() <= 64 * 2.0 ** -24 * scale).all()
+    elif kind == "bf16":
         ys = torch.from_numpy(rng.uniform(-1, 1, (rows, 2 * hidden)).astype(np.float32))
         w = torch.from_numpy((0.1 * rng.standard_normal((2, 2 * hidden, 3 * hidden)))
                              .astype(np.float32))
@@ -190,19 +205,25 @@ def test_encoder_projection_gemm_matches_plain(cuda, kind, rows, hidden):
         assert torch.equal(got, want.int())
 
 
-@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
 @pytest.mark.parametrize("batch,hidden,chunk", [(150, 64, 64), (77, 128, 32), (70, 512, 64)])
 def test_encoder_kernels_chunked_ragged_rows(cuda, kind, batch, hidden, chunk):
-    """K1's bf16 route and K3 over several row chunks (a small chunk cap
+    """K1's routes and K3 over several row chunks (a small chunk cap
     forced), the last chunk and the last row tile ragged: the same h_n as
-    the plain version, within bf16's bound or bit-equal. The weights' noise
+    the plain version, within the dtype's bound or bit-equal. The weights' noise
     shrinks as 1 / sqrt(H), as their init does: at H 512 a noise of 0.1
     makes the recurrence chaotic enough that two plain versions summing in
     another order already differ by more than two bf16 ulps."""
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
     gru, table, tokens = _encoder_int8_case(np.random.default_rng(batch), batch, hidden,
-                                            torch.bfloat16, cuda, noise=0.8 / hidden ** 0.5)
-    assert encoder_kernel.encoder_chunk_rows(batch, 24, hidden, chunk) == chunk < batch
-    if kind == "bf16":
+                                            dtype, cuda, noise=0.8 / hidden ** 0.5)
+    assert encoder_kernel.encoder_chunk_rows(batch, 24, hidden, chunk, dtype) == chunk < batch
+    if kind == "f32":
+        h_k = encoder_kernel.encoder_hn(gru, table, tokens, max_chunk_rows=chunk)
+        h_p = encoder_kernel.encoder_hn_reference(gru, table, tokens)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(h_k, h_p, rtol=0, atol=ATOL[torch.float32])
+    elif kind == "bf16":
         h_k = encoder_kernel.encoder_hn(gru, table, tokens, max_chunk_rows=chunk)
         h_p = encoder_kernel.encoder_hn_reference(gru, table, tokens)
         torch.cuda.synchronize()
@@ -213,6 +234,45 @@ def test_encoder_kernels_chunked_ragged_rows(cuda, kind, batch, hidden, chunk):
         h_p = encoder_kernel.encoder_hn_int8_reference(gru, table, tokens)
         torch.cuda.synchronize()
         assert torch.equal(h_k, h_p)
+
+
+# K1's f32 h_n against its plain version: chip_smoke.py's f32 bound
+K1_F32_HN = 1e-6
+
+
+@pytest.mark.parametrize("batch,hidden", [(70, 64), (130, 128), (300, 512)])
+def test_encoder_f32_within_the_f32_bound(cuda, batch, hidden):
+    """K1's f32 route at the layers' own initialisation (the flagship's),
+    at the one cluster size of each width (H / 64 CTAs of 64 units: the
+    f32 recurrence's sum and k-slab partial fill a warpgroup's registers at
+    32 units), within chip_smoke.py's f32 bound of h_n."""
+    gru, table, tokens = _encoder_int8_case(np.random.default_rng(hidden), batch, hidden,
+                                            torch.float32, cuda, noise=0.0)
+    assert gk.fwd_cluster_sizes(hidden, torch.float32) == [hidden // 64]
+    h_k = encoder_kernel.encoder_hn(gru, table, tokens)
+    h_p = encoder_kernel.encoder_hn_reference(gru, table, tokens)
+    torch.cuda.synchronize()
+    assert (h_k - h_p).abs().max().item() <= K1_F32_HN
+
+
+def test_encoder_f32_bound_rejects_planted_faults(cuda, monkeypatch):
+    """K1 f32 against its plain versions with a planted fault: the product
+    on h taken as one bf16 piece, and layer 1's projection rounded to bf16
+    (the staged plain version), each beyond the f32 bound."""
+    gru, table, tokens = _encoder_int8_case(np.random.default_rng(5), 130, 128, torch.float32,
+                                            cuda, noise=0.0)
+    got = encoder_kernel.encoder_hn(gru, table, tokens)
+    monkeypatch.setattr(encoder_kernel, "recurrent_product",
+                        lambda h, w: h.bfloat16().float() @ w)
+    one_piece = encoder_kernel.encoder_hn_reference(gru, table, tokens)
+    monkeypatch.undo()
+    exact = encoder_kernel.input_projection_reference
+    monkeypatch.setattr(encoder_kernel, "input_projection_reference",
+                        lambda ys, w, b: exact(ys, w, b).bfloat16().float())
+    rounded = encoder_kernel.encoder_hn_staged_reference(gru, table, tokens)
+    torch.cuda.synchronize()
+    for planted in (one_piece, rounded):
+        assert (got - planted).abs().max().item() > K1_F32_HN
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -733,6 +793,74 @@ def test_arnn_kernel_bf16_rejects_a_bf16_context_projection(cuda, monkeypatch):
     planted = arnn_kernel.arnn_sampled_decode_staged_reference(*args)
     agree = arnn_kernel.decode_agreement(got, planted, args[3])
     assert not arnn_kernel.within(agree, K7_BOUNDS[torch.bfloat16]), agree
+
+
+@pytest.mark.parametrize("batch,hidden,ctx_dim,vocab,linear", [
+    (70, 256, 256, 60, 256), (37, 64, 64, 60, 12), (5, 128, 64, 13, 64), (9, 512, 64, 40, 300)])
+def test_arnn_kernel_f32_every_cluster_size(cuda, monkeypatch, batch, hidden, ctx_dim, vocab,
+                                            linear):
+    """K7's f32 route at each cluster size its width allows, the flagship's
+    H 256 (2, 4, 8) and H 64 (1, 2) among them: bit-equal across sizes (the
+    cluster only moves the h and hidden pieces through L2; every CTA
+    computes the logits), two CUDA launches a chunk, and within the plain
+    version's f32 bounds (the layers' own initialisation)."""
+    args = _arnn_case(np.random.default_rng(batch), batch, hidden, ctx_dim, 48, vocab, linear,
+                      torch.float32, cuda, noise=0.0)
+    assert arnn_kernel.arnn_cuda_launches(torch.float32, batch, 48, hidden, linear, vocab) == 2
+    got = {}
+    real = arnn_kernel.arnn_f32_plan
+    for cluster in arnn_kernel.arnn_f32_cluster_sizes(hidden, arnn_kernel.arnn_head_width(linear)):
+        with monkeypatch.context() as m:
+            m.setattr(arnn_kernel, "arnn_f32_plan", lambda *shape, c=cluster:
+                      real(*shape)._replace(cluster=c))
+            got[cluster] = arnn_kernel.arnn_sampled_decode(*args)
+    want = arnn_kernel.arnn_sampled_decode_reference(*args)
+    torch.cuda.synchronize()
+    first = next(iter(got.values()))
+    assert len(got) > 1 and all(_bit_equal(g, first) for g in got.values()), sorted(got)
+    agree = arnn_kernel.decode_agreement(first, want, args[3])
+    assert arnn_kernel.within(agree, K7_BOUNDS[torch.float32]), agree
+
+
+def test_arnn_kernel_f32_bounds_reject_planted_faults(cuda, monkeypatch):
+    """In f32: the products on h taken as one bf16 piece (the plain
+    version) and the context projection rounded to bf16 (the staged plain
+    version), planted, break the bounds the kernel holds."""
+    args = _arnn_case(np.random.default_rng(37), 37, 64, 64, 72, 60, 12, torch.float32, cuda)
+    got = arnn_kernel.arnn_sampled_decode(*args)
+    staged = arnn_kernel.arnn_sampled_decode_staged_reference(*args)
+    assert arnn_kernel.within(arnn_kernel.decode_agreement(got, staged, args[3]),
+                              K7_BOUNDS[torch.float32])
+    monkeypatch.setattr(arnn_kernel, "recurrent_product", lambda h, w: h.bfloat16().float() @ w)
+    one_piece = arnn_kernel.arnn_sampled_decode_reference(*args)
+    monkeypatch.undo()
+    real = arnn_kernel.ctx_projection
+    monkeypatch.setattr(arnn_kernel, "ctx_projection",
+                        lambda ctx, w: real(ctx, w).to(torch.bfloat16).float())
+    projection = arnn_kernel.arnn_sampled_decode_staged_reference(*args)
+    for planted in (one_piece, projection):
+        agree = arnn_kernel.decode_agreement(got, planted, args[3])
+        assert not arnn_kernel.within(agree, K7_BOUNDS[torch.float32]), agree
+
+
+def test_arnn_kernel_f32_first_kernel_geometry_and_chunks(cuda, monkeypatch):
+    """A vocabulary over 64 keeps the first kernel in f32 (one CUDA
+    launch), within the bounds; the split route over chunks of 64 rows
+    gives the same bits as one chunk."""
+    assert not arnn_kernel.arnn_f32_supports(256, 256, 65)
+    assert arnn_kernel.arnn_cuda_launches(torch.float32, 20, 48, 256, 256, 65) == 1
+    args = _arnn_case(np.random.default_rng(20), 20, 256, 256, 48, 65, 256, torch.float32, cuda,
+                      noise=0.0)
+    agree = arnn_kernel.decode_agreement(arnn_kernel.arnn_sampled_decode(*args),
+                                         arnn_kernel.arnn_sampled_decode_reference(*args), args[3])
+    assert arnn_kernel.within(agree, K7_BOUNDS[torch.float32]), agree
+    args = _arnn_case(np.random.default_rng(3), 150, 128, 64, 24, 60, 64, torch.float32, cuda)
+    whole = arnn_kernel.arnn_sampled_decode(*args)
+    monkeypatch.setattr(encoder_kernel, "XW_SCRATCH_BYTES", 64 * 24 * 4 * 128 * 4)
+    assert arnn_kernel.arnn_chunk_rows(150, 24, 128) == 64
+    chunked = arnn_kernel.arnn_sampled_decode(*args)
+    torch.cuda.synchronize()
+    assert _bit_equal(whole, chunked)
 
 
 def test_arnn_wrapper_rejects_what_the_kernel_does_not_take(cuda):

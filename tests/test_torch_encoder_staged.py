@@ -134,7 +134,14 @@ def test_chunk_rows_cap_the_projection_scratch():
     assert ek.encoder_chunk_rows(200, 24, 64, max_chunk_rows=64) == 64
     assert ek.encoder_cuda_launches(torch.bfloat16, 65536, 24, 512) == 24
     assert ek.encoder_cuda_launches(torch.bfloat16, 200, 24, 64, max_chunk_rows=64) == 12
-    assert ek.encoder_cuda_launches(torch.float32, 65536, 24, 512) == 2
+    # f32: layer 0's outputs as three bf16 pieces and the h-piece exchange
+    # beside the projection: half the rows a chunk, three launches each
+    f32_rows = ek.encoder_chunk_rows(65536, 24, 512, dtype=torch.float32)
+    assert f32_rows == 4096
+    assert f32_rows * (2 * 24 * 3 * 512 * 4 + 24 * 2 * 512 * 6 + 2 * 2 * 3 * 512 * 2) <= \
+        ek.XW_SCRATCH_BYTES
+    assert ek.encoder_cuda_launches(torch.float32, 65536, 24, 512) == 48
+    assert ek.encoder_cuda_launches(torch.float32, 200, 24, 64, max_chunk_rows=64) == 12
 
 
 def test_wrappers_on_cpu_run_the_plain_versions_without_launching():

@@ -345,7 +345,9 @@ def test_arnn_smem_and_gate():
     assert ak.arnn_kernel_supports(256, 256, 256, 65, torch.float32)
     assert ak.arnn_cuda_launches(torch.bfloat16, 512, 384, 256, 256, 60) == 2
     assert ak.arnn_cuda_launches(torch.bfloat16, 512, 384, 512, 256, 60) == 1
-    assert ak.arnn_cuda_launches(torch.float32, 512, 384, 256, 256, 60) == 1
+    # f32: the split route's two a chunk; a vocabulary over 64 runs the first kernel
+    assert ak.arnn_cuda_launches(torch.float32, 512, 384, 256, 256, 60) == 2
+    assert ak.arnn_cuda_launches(torch.float32, 512, 384, 256, 256, 65) == 1
     with pytest.raises(ValueError, match="hidden size 512"):
         ak.arnn_plan(64, 512, 256, SMS)
 
@@ -638,3 +640,248 @@ def test_fwd_operands_follow_in_place_updates(monkeypatch):
     second = tk.fwd_operands(w)
     assert second is not first and second["maps"] == {}
     torch.testing.assert_close(second["packed"], tk.pack_fwd_weights(w), rtol=0, atol=0)
+
+
+# --------------------------------------------------------------------------- #
+# K1's and K7's f32 routes: the split product (six bf16 passes a k-slab),
+# K1's plan and packed pieces, K7's plan, packing and the geometries that
+# keep the first kernel
+# --------------------------------------------------------------------------- #
+def _scale_bound(a, w, got, want, ulps):
+    """|got - want| within ``ulps`` x 2^-24 of the product's |terms|."""
+    scale = a.double().abs() @ w.double().abs()
+    return ((got.double() - want.double()).abs() <= ulps * 2.0 ** -24 * scale).all()
+
+
+@pytest.mark.parametrize("case", ["encoder_projection", "arnn_context"])
+def test_split_product_holds_the_f32_projections(case):
+    """The split GEMM's arithmetic in plain PyTorch (``kernel_common.
+    split_product``: per 64-wide k-slab six passes into a partial, the
+    partials added in f32) against the f32 plain versions it stands for, K1's
+    ``input_projection_reference`` and K7's ``ctx_projection``: within 16 x
+    2^-24 of the sum of |terms| (a few f32 roundings of the slabs' sums). The
+    planted fault, the operand taken as its hi piece alone, is 2^-9 off and
+    breaks that bound."""
+    rng = np.random.default_rng(13)
+    if case == "encoder_projection":
+        hidden = 128
+        a = torch.from_numpy(rng.uniform(-1, 1, (96, 2 * hidden)).astype(np.float32))
+        w = torch.from_numpy((0.1 * rng.standard_normal((2, 2 * hidden, 3 * hidden)))
+                             .astype(np.float32))
+        b = torch.from_numpy(rng.standard_normal((2, 3 * hidden)).astype(np.float32))
+        want = ek.input_projection_reference(a, w, b)
+        got = torch.stack([kc.split_product(a, w[d]) + b[d] for d in range(2)])
+        fault = torch.stack([kc.split_product(a, w[d], pieces=1) + b[d] for d in range(2)])
+        exact = torch.stack([a.double() @ w[d].double() + b[d].double() for d in range(2)])
+        ok = all(_scale_bound(a, w[d], got[d], want[d], 16) for d in range(2))
+        bad = any(not _scale_bound(a, w[d], fault[d], exact[d], 64) for d in range(2))
+    else:
+        a = torch.from_numpy((0.5 * rng.standard_normal((4, 24, 128))).astype(np.float32))
+        w = torch.from_numpy((0.1 * rng.standard_normal((128, 256))).astype(np.float32))
+        want = ak.ctx_projection(a, w).reshape(-1, 256)
+        flat = a.reshape(-1, 128)
+        got, fault = kc.split_product(flat, w), kc.split_product(flat, w, pieces=1)
+        ok = _scale_bound(flat, w, got, want, 16)
+        bad = not _scale_bound(flat, w, fault, flat.double() @ w.double(), 64)
+    assert ok and bad
+
+
+@pytest.mark.parametrize("hidden", [64, 128, 512])
+def test_encoder_f32_plan_owns_64_units_a_cta(hidden):
+    """K1's f32 layers run K5's f32 plan: H / 64 CTAs a tile, 64 units each
+    (what ``inpaint_encoder_rec_f32`` and its W map take), two ring stages."""
+    plan = tk.fwd_plan(hidden, torch.float32)
+    assert plan == kc.LaunchPlan(hidden // 64, 2) and hidden // plan.cluster == 64
+    _assert_covers_once(4096, hidden, plan)
+
+
+@pytest.mark.parametrize("hidden", [64, 192])
+def test_encoder_f32_packed_pieces(hidden):
+    """K1's f32 W_hh pieces are K5's packing of each direction, stacked
+    direction-major; W_ih1^T's pieces (the split GEMM's B) are element [d, p,
+    n, k] = piece p of W_ih1[d][k, n], and the pieces sum back to W."""
+    rng = np.random.default_rng(hidden)
+    w_f, w_b = (torch.from_numpy(rng.standard_normal((hidden, 3 * hidden)).astype(np.float32))
+                for _ in range(2))
+    packed = ek.pack_f32_gate_pieces(w_f, w_b)
+    assert packed.shape == (2, 3, hidden // 32, hidden // 64, 96, 64)
+    torch.testing.assert_close(packed, torch.stack([tk.pack_fwd_weights(w_f),
+                                                    tk.pack_fwd_weights(w_b)]), rtol=0, atol=0)
+    w = torch.from_numpy(rng.standard_normal((2, 2 * hidden, 3 * hidden)).astype(np.float32))
+    pieces = ek.split_weight_pieces(w)
+    assert pieces.shape == (2, 3, 3 * hidden, 2 * hidden) and pieces.dtype == torch.bfloat16
+    assert pieces.is_contiguous()
+    for d in range(2):
+        hi, mid, lo = kc.split_bf16_pieces(w[d])
+        for p, piece in enumerate((hi, mid, lo)):
+            torch.testing.assert_close(pieces[d, p], piece.t(), rtol=0, atol=0)
+    back = pieces.double().sum(dim=1).transpose(1, 2)
+    assert ((back - w.double()).abs() <= 2.0 ** -24 * w.double().abs()).all()
+
+
+@pytest.mark.parametrize("hidden,linear,sizes,rows,slots,cluster", [
+    (256, 256, [2, 4, 8], 512, None, 8), (256, 256, [2, 4, 8], 1, None, 8),
+    (256, 256, [2, 4, 8], 1024, {2: 66, 4: 30, 8: 15}, 4), (64, 12, [1, 2], 37, None, 2),
+    (128, 64, [1, 2, 4], 64, None, 4), (512, 256, [4, 8], 512, None, 8)])
+def test_arnn_f32_plan(hidden, linear, sizes, rows, slots, cluster):
+    """K7's f32 route: CTAs own whole 32-unit rounds (two 16-unit chunks, one
+    a consumer warpgroup), at most four, beside two 72 KB ring stages and
+    their f32 c carries; the plan takes the least modelled time (one wave of
+    clusters of 8 at the flagship's batch 512; 1,024 rows on an H100's
+    slots take 4)."""
+    lp = ak.arnn_head_width(linear)
+    assert ak.arnn_f32_cluster_sizes(hidden, lp) == sizes
+    for c in sizes:
+        assert ak.arnn_f32_smem_bytes(hidden, c) <= kc.HOPPER_SMEM_BUDGET
+        assert (hidden // c) % 32 == 0 and hidden // c <= 128
+    plan = ak.arnn_f32_plan(rows, hidden, linear, SMS, slots)
+    assert plan == kc.LaunchPlan(cluster, 2)
+
+
+def test_arnn_f32_gate_and_first_kernel_geometries():
+    """The f32 route takes the flagship and H 64; a vocabulary over 64 or a
+    head over 512 columns keeps the first kernel (one CUDA launch a call)."""
+    assert ak.arnn_f32_supports(256, 256, 60) and ak.arnn_f32_supports(64, 12, 30)
+    assert ak.arnn_f32_supports(512, 256, 60)
+    assert not ak.arnn_f32_supports(256, 256, 65)
+    assert not ak.arnn_f32_supports(256, 600, 60)
+    assert ak.arnn_f32_cluster_sizes(96, 128) == []
+    assert ak.arnn_kernel_supports(256, 256, 256, 65, torch.float32)  # the first kernel
+    assert ak.arnn_cuda_launches(torch.float32, 70, 384, 64, 12, 30) == 2
+    assert ak.arnn_cuda_launches(torch.float32, 70, 384, 64, 12, 65) == 1
+    with pytest.raises(ValueError, match="hidden size 96"):
+        ak.arnn_f32_plan(64, 96, 256, SMS)
+
+
+def test_pack_arnn_f32_weights_layout():
+    """Six 64 x 64 blocks a k-slab of a pair of chunks, [piece][chunk]:
+    the LSTM weights' chunk c row 16 g + u is gate g's column of unit 16 c +
+    u; W_l1^T in rounds of 128 hidden columns (zero past L); W_out^T's 64
+    columns (zero past V and L) beside a zero chunk."""
+    hidden, linear, vocab = 64, 100, 30
+    rng = np.random.default_rng(17)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    w_hh0, w_ih1, w_hh1 = (rand(hidden, 4 * hidden) for _ in range(3))
+    w_l1, w_out = rand(hidden, linear), rand(linear, vocab)
+    packed = ak.pack_arnn_f32_weights(w_hh0, w_ih1, w_hh1, w_l1, w_out)
+    kb, lp, pairs = hidden // 64, ak.arnn_head_width(linear), hidden // 32
+    lstm_blocks = pairs * kb * 6
+    assert packed.shape == (3 * lstm_blocks + lp // 128 * kb * 6 + lp // 64 * 6, 64, 64)
+    assert packed.dtype == torch.bfloat16
+
+    def block(base, pair, k, p, chunk, slabs):
+        return packed[base + (pair * slabs + k) * 6 + 2 * p + chunk].float()
+    for i, w in enumerate((w_hh0, w_ih1, w_hh1)):
+        pieces = kc.split_bf16_pieces(w)
+        for c in range(hidden // 16):
+            for k in range(kb):
+                for p in range(3):
+                    got = block(i * lstm_blocks, c // 2, k, p, c % 2, kb)
+                    for g in range(4):
+                        want = pieces[p][64 * k: 64 * k + 64,
+                                         g * hidden + 16 * c: g * hidden + 16 * c + 16].t()
+                        torch.testing.assert_close(got[16 * g: 16 * g + 16], want.float(),
+                                                   rtol=0, atol=0)
+    l1 = torch.zeros(hidden, lp)
+    l1[:, :linear] = w_l1
+    l1_pieces = kc.split_bf16_pieces(l1)
+    for hr in range(lp // 128):
+        for k in range(kb):
+            for p in range(3):
+                for chunk in range(2):
+                    cols = slice(128 * hr + 64 * chunk, 128 * hr + 64 * chunk + 64)
+                    want = l1_pieces[p][64 * k: 64 * k + 64, cols].t()
+                    torch.testing.assert_close(block(3 * lstm_blocks, hr, k, p, chunk, kb),
+                                               want.float(), rtol=0, atol=0)
+    out = torch.zeros(lp, 128)
+    out[:linear, :vocab] = w_out
+    out_pieces = kc.split_bf16_pieces(out)
+    base = 3 * lstm_blocks + lp // 128 * kb * 6
+    for k in range(lp // 64):
+        for p in range(3):
+            want = out_pieces[p][64 * k: 64 * k + 64, :64].t()
+            torch.testing.assert_close(block(base, 0, k, p, 0, lp // 64), want.float(),
+                                       rtol=0, atol=0)
+            assert not block(base, 0, k, p, 1, lp // 64).any()
+
+
+# chip_smoke.py's f32 bounds of K1's h_n and of K7's decode against their
+# plain versions, which the planted faults must break
+K1_F32_HN = 1e-6
+K7_F32 = {"tokens": 0.999, "max": 1e-6, "mean": 1e-7}
+
+
+def _encoder_f32_case(batch=24, hidden=64, seed=19):
+    from inpaintnet_tpu_torch.ops.gru import gru_init
+    from inpaintnet_tpu_torch.ops.linear import embedding_init
+
+    rng = np.random.default_rng(seed)
+
+    def tensors(tree):
+        if isinstance(tree, dict):
+            return {k: tensors(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [tensors(v) for v in tree]
+        return torch.from_numpy(np.asarray(tree, np.float32))
+    gru = tensors(gru_init(rng, 10, hidden, 2, True))
+    table = tensors(embedding_init(rng, 61, 10)["table"])
+    tokens = torch.from_numpy(rng.integers(0, 61, (batch, 24)).astype(np.int32))
+    return gru, table, tokens
+
+
+def test_k1_f32_planted_faults_break_the_f32_bound(monkeypatch):
+    """The two faults chip_smoke.py plants in K1's f32 plain versions move
+    h_n past the f32 bound at the encoder's init scale: the product on h
+    taken as one bf16 piece, and layer 1's projection rounded to bf16."""
+    gru, table, tokens = _encoder_f32_case()
+    want = ek.encoder_hn_reference(gru, table, tokens)
+    torch.testing.assert_close(ek.encoder_hn_staged_reference(gru, table, tokens), want,
+                               rtol=0, atol=K1_F32_HN / 10)
+    monkeypatch.setattr(ek, "recurrent_product", lambda h, w: h.bfloat16().float() @ w)
+    one_piece = ek.encoder_hn_reference(gru, table, tokens)
+    monkeypatch.undo()
+    exact = ek.input_projection_reference
+    monkeypatch.setattr(ek, "input_projection_reference",
+                        lambda ys, w, b: exact(ys, w, b).bfloat16().float())
+    rounded = ek.encoder_hn_staged_reference(gru, table, tokens)
+    for planted in (one_piece, rounded):
+        assert (planted - want).abs().max().item() > K1_F32_HN
+
+
+def _arnn_f32_case(batch=8, ticks=48, hidden=64, ctx=64, emb=10, linear=12, vocab=30, seed=23):
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape, scale=hidden ** -0.5):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32))
+    params = {"note_embedding": {"table": rand(vocab + 1, emb, scale=1.0)},
+              "lstm_generation": [{"w_ih": rand(k, 4 * hidden), "w_hh": rand(hidden, 4 * hidden),
+                                   "b_ih": rand(4 * hidden), "b_hh": rand(4 * hidden)}
+                                  for k in (emb + ctx, hidden)],
+              "linear_1": {"w": rand(hidden, linear), "b": rand(linear)},
+              "linear_output_notes": {"w": rand(linear, vocab, scale=linear ** -0.5),
+                                      "b": rand(vocab)}}
+    force = torch.from_numpy((rng.uniform(size=(batch, ticks)) < 0.5).astype(np.int32))
+    score = torch.from_numpy(rng.integers(0, vocab, (batch, ticks)).astype(np.int32))
+    return (params, rand(batch, ticks, ctx, scale=0.5), score, force, rand(1, emb, scale=1.0))
+
+
+def test_k7_f32_planted_faults_break_the_f32_bounds(monkeypatch):
+    """The two faults chip_smoke.py plants in K7's f32 plain versions break
+    the f32 bounds: the products on h taken as one bf16 piece, and the
+    context projection rounded to bf16; the staged plain version (the
+    route's staging) stays within them."""
+    args = _arnn_f32_case()
+    want = ak.arnn_sampled_decode_reference(*args)
+    assert ak.within(ak.decode_agreement(ak.arnn_sampled_decode_staged_reference(*args), want,
+                                         args[3]), K7_F32)
+    monkeypatch.setattr(ak, "recurrent_product", lambda h, w: h.bfloat16().float() @ w)
+    faults = [ak.arnn_sampled_decode_reference(*args)]
+    monkeypatch.undo()
+    projection = ak.ctx_projection
+    monkeypatch.setattr(ak, "ctx_projection",
+                        lambda ctx, w: projection(ctx, w).bfloat16().float())
+    faults.append(ak.arnn_sampled_decode_staged_reference(*args))
+    for planted in faults:
+        assert not ak.within(ak.decode_agreement(planted, want, args[3]), K7_F32)
