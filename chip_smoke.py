@@ -5,8 +5,8 @@ once on one NVIDIA GPU.
     python3 chip_smoke.py [--parent DIR]
 
 ``--parent DIR`` names an earlier checkout of this repository (for example
-``git archive`` of the parent commit, unpacked): its K1 and K7 CUDA
-sources (``PARENT_SOURCES``) are built too, and the K1 f32 and K7 f32
+``git archive`` of the parent commit, unpacked): its K2 and K8 CUDA
+sources (``PARENT_SOURCES``) are built too, and the K2 f32 and K8 f32
 times are printed beside that checkout's kernels on the same card
 (otherwise "parent not measured").
 
@@ -32,12 +32,18 @@ Phases, each raising on failure:
    into those parts, their CUDA launches and peak memory, at 65,536 rows
    and at a batch-1 request's 32 (K1 f32 beside both its bounds, the split
    products' and the f32 FMA units', and the cost a per-chunk split of f32
-   ys into the GEMM's pieces would add); K2 bf16 also at the autoregressive step's 2,048
-   rows and a batch-1 call's 6, every cluster size of its Hopper route
-   against the plain version and bit-equal to the others, each timed beside
-   its bound; with noise 0.05 and 0.1 on the flagship decoder's weights at
-   2,048 rows, K2 bf16's mean and max logit error and early share against
-   the plain version held to ``K2_NOISY``;
+   ys into the GEMM's pieces would add); K2 in both dtypes also at the
+   autoregressive step's 2,048 rows and a batch-1 call's 6, every cluster
+   size of its Hopper route against the plain version and bit-equal to the
+   others, each timed beside its bound (f32: both bounds, the kernel's own
+   device time and the parent's first kernel); K2 f32's planted faults at
+   2,048 rows (the products on h as one bf16 piece and a reset tick on the
+   previous tick's h must break ``BOUNDS``; layer 1's two products in one
+   accumulator, on cancelling layer-1 biases, must move the mean logit
+   error ``decode_kernel.SUM_ORDER_RATIO`` times the kernel's); with noise
+   0.05 and 0.1 on the flagship decoder's weights at 2,048 rows, K2 bf16's
+   mean and max logit error and early share against the plain version held
+   to ``K2_NOISY``;
    K4 on bf16 and f32 masters at 12,288, 2,048 and 6 rows, every cluster
    size, bit-equal to its plain version and to each other, each timed
    beside its bound (``[plan]``: the launch plan);
@@ -104,12 +110,15 @@ Phases, each raising on failure:
    shapes (the context GRUs: 16 steps, H 512, suffix masks with all-zero
    rows, outputs on and off; the generation GRU: 6 steps, H 1024, target
    masks; the autoregressive step: 1 step, H 1024, at 2,048 rows and at
-   one; the beat GRU's), f32 and bf16 (every cluster size of the Hopper
-   route, bit-equal to each other), forward and reverse, with two planted
-   faults (a carry kept in f32 in bf16, a mask read one step late) that the
-   bounds must reject; each timed (bf16: at each cluster size) beside its
-   plain version, its bound and cuDNN's one-direction ``torch.nn.GRU`` as a
-   yardstick;
+   one; the beat GRU's), f32 and bf16 (every cluster size of the bf16
+   route, bit-equal to each other; the f32 route's one size a width, H /
+   64 CTAs, bit-equal across two runs), forward and reverse, with planted
+   faults (a mask read one step late; in bf16 a carry kept in f32; in f32
+   the product on h as one bf16 piece, and a held row writing no pieces,
+   on the reverse run) that the bounds must reject; each timed (bf16: at
+   each cluster size; f32: beside both bounds, its own device time and the
+   parent's first kernel) beside its plain version, its bound and cuDNN's
+   one-direction ``torch.nn.GRU`` as a yardstick;
 14. the bf16 LatentRNN engine under the ``"pallas"`` GRU route beside
    ``"xla"``: K8 launches per call (asserted), no eager GRU step under
    ``"pallas"``, the batch-2048 wall and the batch-1 p50 in turns, and a
@@ -122,9 +131,14 @@ Phases, each raising on failure:
    a profile of each, K8's and K2's device time a call with their launch
    plans and with half and twice the plans' cluster sizes (``[plan]``), and
    an ``/v1/inpaint`` burst through the HTTP server whose responses must
-   equal the solo ``inpaint_hetero``.
+   equal the solo ``inpaint_hetero``;
+17. the flagship f32 engine under ``"pallas"`` (the path of K1's, K2's and
+   K8's f32 routes): three requests checked, K1, K2 and K8 launches per
+   call asserted, measures/s at batch 2048 (6/4/6), the batch-1 p50 and a
+   profile of each.
 
-Phases 12-16 run after phase 8, before the training phases. Prints one
+Phase 17 runs after phase 7; phases 12-16 after phase 8, before the
+training phases. Prints one
 JSON line of the eight kernels, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
 result, when there is no usable card or any phase fails.
@@ -281,14 +295,14 @@ def decode_ops(rows: int, hidden: int, vocab: int) -> float:
 
 
 # ---------------------------------------------------------------------------
-# An earlier checkout's f32 routes of K1 and K7 (``--parent DIR``), timed
+# An earlier checkout's f32 routes of K2 and K8 (``--parent DIR``), timed
 # beside the new ones in the same run
 # ---------------------------------------------------------------------------
-PARENT_SOURCES = ("encoder_gru.cu", "arnn_decode.cu")
+PARENT_SOURCES = ("decode_sampling.cu", "gru_layer.cu")
 
 
 class ParentKernels:
-    """The f32 routes of K1 and K7 as the checkout at ``root`` built them
+    """The f32 routes of K2 and K8 as the checkout at ``root`` built them
     (its ``inpaintnet_tpu_torch/ops/csrc``; before this design, the first
     port's one-block-a-tile kernels with scalar-FMA products), called as
     that checkout's wrappers called them, the operands built on every call.
@@ -308,46 +322,50 @@ class ParentKernels:
         _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(so), *objs]], False)
         self.lib = ctypes.CDLL(str(so))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        self.lib.inpaint_encoder_hn_f32.argtypes = [ptr] * 15 + [i32] * 4 + [ptr]
-        self.lib.inpaint_encoder_hn_f32.restype = i32
-        self.lib.inpaint_arnn_decode.argtypes = [i32] + [ptr] * 16 + [i32] * 7 + [ptr]
-        self.lib.inpaint_arnn_decode.restype = i32
+        self.lib.inpaint_decode_sampling_f32.argtypes = [ptr] * 13 + [i32] * 4 + [ptr]
+        self.lib.inpaint_decode_sampling_f32.restype = i32
+        self.lib.inpaint_gru_layer_f32.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+        self.lib.inpaint_gru_layer_f32.restype = i32
 
-    def encoder_f32(self, gru, table, tokens):
-        """The parent's K1 f32 route: the first port's kernel, one 16-row
-        block a tile of one direction with scalar-FMA products, layer 1's
-        projection in its loop."""
-        from inpaintnet_tpu_torch.ops.encoder_kernel import fused_tables
+    def decode_f32(self, dec, tick_ctx, h_inits):
+        """The parent's K2 f32 route: the first port's kernel, one 16-row
+        block a tile with scalar-FMA products, the weights as they are and
+        the head padded to whole 8-column groups."""
+        from inpaintnet_tpu_torch.ops.decode_kernel import NUM_TICKS, decode_inputs
         from inpaintnet_tpu_torch.ops.kernel_common import check_launch, stream_ptr
 
-        (p0f, p0b), (p1f, p1b) = gru
-        batch, seq_len = tokens.shape
-        hidden = p0f["w_hh"].shape[0]
-        h_n = torch.empty((4, batch, hidden), dtype=table.dtype, device=tokens.device)
-        ys = torch.empty((2, seq_len, batch, hidden), dtype=table.dtype, device=tokens.device)
-        tab_f, tab_b = (t.contiguous() for t in fused_tables(gru, table))
-        weights = [p[k].contiguous() for p, k in ((p0f, "w_hh"), (p0b, "w_hh"), (p1f, "w_ih"),
-                                                  (p1b, "w_ih"), (p1f, "w_hh"), (p1b, "w_hh"))]
-        biases = [torch.stack([pf[k], pb[k]]) for pf, pb in ((p0f, p0b), (p1f, p1b))
-                  for k in ("b_ih", "b_hh")]
-        check_launch(self.lib.inpaint_encoder_hn_f32(
-            tokens.data_ptr(), tab_f.data_ptr(), tab_b.data_ptr(),
-            *(w.data_ptr() for w in weights), *(b.data_ptr() for b in biases), ys.data_ptr(),
-            h_n.data_ptr(), batch, seq_len, hidden, table.shape[0], stream_ptr()),
-            "the parent's encoder_hn f32")
-        return h_n
+        p0, p1 = dec["tick_gru"][0][0], dec["tick_gru"][1][0]
+        batch, _, hidden = tick_ctx.shape
+        vocab = dec["head"]["w"].shape[1]
+        pad = (0, -vocab % 8)
+        head_w = torch.nn.functional.pad(dec["head"]["w"], pad).contiguous()
+        head_b = torch.nn.functional.pad(dec["head"]["b"], pad).contiguous()
+        bias = torch.stack([p0["b_hh"], p1["b_ih"], p1["b_hh"]])
+        ins = decode_inputs(dec, tick_ctx, h_inits)
+        logits = torch.empty((batch, NUM_TICKS, vocab), device=tick_ctx.device)
+        samples = torch.empty((batch, NUM_TICKS), dtype=torch.int32, device=tick_ctx.device)
+        check_launch(self.lib.inpaint_decode_sampling_f32(
+            *(ins[k].data_ptr() for k in ("ctx_xw", "hi0", "hi1", "tok_tab", "x0_xw")),
+            p0["w_hh"].data_ptr(), p1["w_ih"].data_ptr(), p1["w_hh"].data_ptr(),
+            bias.data_ptr(), head_w.data_ptr(), head_b.data_ptr(), logits.data_ptr(),
+            samples.data_ptr(), batch, hidden, vocab, head_w.shape[1], stream_ptr()),
+            "the parent's decode_sampling f32")
+        return logits, samples
 
-    def arnn_f32(self, args):
-        """The parent's K7 f32 route: the first kernel (``_decode_tiled``'s
-        call), built from the parent's ``arnn_decode.cu``."""
-        from inpaintnet_tpu_torch.ops import arnn_kernel as ak
+    def gru_layer_f32(self, xw, w_hh, b_hh, h0, mask, want_ys):
+        """The parent's K8 f32 route: the first port's kernel, one 16-row
+        block a tile with scalar-FMA products."""
+        from inpaintnet_tpu_torch.ops.kernel_common import check_launch, stream_ptr
 
-        own = ak.load_kernels
-        ak.load_kernels = lambda: self.lib
-        try:
-            return ak._decode_tiled(*args, ak._check_arnn_args(*args))
-        finally:
-            ak.load_kernels = own
+        batch, steps, hidden = xw.shape[0], xw.shape[1], w_hh.shape[0]
+        keep = None if mask is None else (mask > 0).to(torch.uint8).contiguous()
+        ys = torch.empty((batch, steps, hidden), device=xw.device) if want_ys else None
+        hn = torch.empty((batch, hidden), device=xw.device)
+        check_launch(self.lib.inpaint_gru_layer_f32(
+            xw.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
+            None if keep is None else keep.data_ptr(), None if ys is None else ys.data_ptr(),
+            hn.data_ptr(), batch, steps, hidden, 0, stream_ptr()), "the parent's gru_layer f32")
+        return ys, hn
 
 
 def parent_ms(parent, fn) -> str:
@@ -507,22 +525,29 @@ def phase_kernels(vae_f32, max_target: int, card: str, parent) -> dict:
                             **bound_of(decode_ops(dec_rows, H, V), kind,
                                     nbytes(dec_used, tick_ctx, h_inits, lg_k, s_k)),
                             "library_ms": None}
-        if label == "float32":  # the split products' bound, beside the f32 FMA units'
+        if label == "float32":  # the split products' bounds, beside the f32 FMA units'
             fma = report[enc_name]
             report[enc_name] = {**fma, **bound_of(6 * encoder_ops(enc_rows, 24, H), "bf16",
                                                   nbytes(gru, table, tokens, hn_k)),
                                 "bound_f32_fma_ms": fma["bound_ms"]}
+            fma = report[dec_name]
+            report[dec_name] = {**fma, **bound_of(6 * decode_ops(dec_rows, H, V), "bf16",
+                                                  nbytes(dec_used, tick_ctx, h_inits, lg_k, s_k)),
+                                "bound_f32_fma_ms": fma["bound_ms"]}
         for k in (enc_name, dec_name):
             v = report[k]
-            fma = (f", f32 FMA bound {v['bound_f32_fma_ms']:.3f} ms, cuDNN "
-                   f"{v['library_ms']:.3f} ms, the parent's f32 kernel "
-                   f"{parent_ms(parent, lambda pk: pk.encoder_f32(gru, table, tokens))}"
-                   if "bound_f32_fma_ms" in v else "")
+            fma = ""
+            if "bound_f32_fma_ms" in v:
+                fma = f", f32 FMA bound {v['bound_f32_fma_ms']:.3f} ms"
+                fma += (f", cuDNN {v['library_ms']:.3f} ms" if k == enc_name else
+                        f", the parent's f32 kernel "
+                        f"{parent_ms(parent, lambda pk: pk.decode_f32(dec, tick_ctx, h_inits))}")
             print(f"[time] {k} {label}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
                   f"bound {v['bound_ms']:.3f} ms ({v['bound_by']}){fma} | {card}", flush=True)
         if names is None:  # the f32 routes' entries go beside the report's bf16 ones
             f32_report = {enc_name: report.pop(enc_name), dec_name: report.pop(dec_name)}
             _split_alternative(gru, table, tokens, card)
+            decode_f32_row_counts(dec, tick_ctx, h_inits, card, parent)
             continue
         if label == "bfloat16":
             decode_row_counts(dec, tick_ctx, h_inits, bound, card)
@@ -532,6 +557,7 @@ def phase_kernels(vae_f32, max_target: int, card: str, parent) -> dict:
     decode_int8_row_counts({"bfloat16": dec_inputs["int8"], "float32": dec_inputs["float32"]},
                            card)
     report["encoder_hn"]["f32"] = f32_report["encoder_hn"]
+    report["decode_sampling"]["f32"] = f32_report["decode_sampling"]
     return report
 
 
@@ -554,6 +580,108 @@ def _cluster(module, cluster, plan: str = "launch_plan"):
 # K2's rows: a batch-2048 call (max_target 6 a request), an autoregressive
 # step at batch 2048 (one measure a request), a batch-1 call
 DECODE_ROWS = (BATCH * 6, BATCH, 6)
+
+
+@contextlib.contextmanager
+def _f32_decode_cluster(cluster):
+    """K2's f32 plan picks ``cluster`` CTAs a tile inside, with that size's
+    ring depth (None: the plan's own choice)."""
+    from inpaintnet_tpu_torch.ops import decode_kernel as dk
+    from inpaintnet_tpu_torch.ops.kernel_common import LaunchPlan
+
+    chosen = dk.f32_plan
+    if cluster is not None:
+        dk.f32_plan = lambda rows, hidden, sms, slots=None: LaunchPlan(
+            cluster, dk.f32_stages(hidden, cluster))
+    try:
+        yield
+    finally:
+        dk.f32_plan = chosen
+
+
+def _reject_decode_f32_faults(dec, tc, hi, got, card: str) -> None:
+    """K2 f32's planted faults against the kernel's output ``got``: the
+    products on h as one bf16 piece and a reset tick's products on the
+    previous tick's h must break ``BOUNDS[float32]``; layer 1's two products
+    in one accumulator, on cancelling biases, must move the mean logit error
+    ``SUM_ORDER_RATIO`` times the kernel's."""
+    from inpaintnet_tpu_torch.ops import decode_kernel as dk
+    from inpaintnet_tpu_torch.ops.kernel_common import split_bf16_pieces
+
+    b = BOUNDS[torch.float32]
+    for hook, fault, name in (
+            ("tick_product", lambda h, w: split_bf16_pieces(h)[0].float() @ w,
+             "products on h as one bf16 piece"),
+            ("beat_operand", lambda init, prev: prev, "a reset read from the previous tick")):
+        real = getattr(dk, hook)
+        setattr(dk, hook, fault)
+        try:
+            agree = dk.agreement(got, dk.decode_sampling_reference(dec, tc, hi))
+        finally:
+            setattr(dk, hook, real)
+        print(f"[kernels] decode_sampling float32 planted fault, {name}: {agree}", flush=True)
+        if dk.within(agree, b):
+            raise RuntimeError(f"a planted K2 f32 fault passes the bounds: {name}")
+    shifted = dk.cancelling_layer1_biases(dec, dk.SUM_ORDER_SHIFT)
+    plain = dk.decode_sampling_reference(shifted, tc, hi)
+    kernel = dk.agreement(dk.decode_sampling(shifted, tc, hi), plain)
+    real = dk.layer1_preacts
+    dk.layer1_preacts = dk.one_accumulator_preacts
+    try:
+        fault = dk.agreement(dk.decode_sampling_reference(shifted, tc, hi), plain)
+    finally:
+        dk.layer1_preacts = real
+    print(f"[kernels] decode_sampling float32 on layer-1 biases +-{dk.SUM_ORDER_SHIFT:g}: kernel "
+          f"{kernel}; planted fault, the two products in one accumulator: {fault} | {card}",
+          flush=True)
+    if fault["mean"] <= dk.SUM_ORDER_RATIO * kernel["mean"]:
+        raise RuntimeError("K2 f32's sum-order fault is not told from the kernel")
+
+
+def decode_f32_row_counts(dec, tick_ctx, h_inits, card: str, parent) -> None:
+    """K2 f32 at ``DECODE_ROWS``: every cluster size of its route against
+    the plain version (``BOUNDS[float32]``) and bit-equal to the others,
+    each timed beside both bounds (the f32 FMA units', the split passes' on
+    the tensor cores), the kernel's own device time and the parent's first
+    kernel; the planted faults at 2,048 rows."""
+    from inpaintnet_tpu_torch.ops import decode_kernel as dk
+
+    hidden, vocab = tick_ctx.shape[2], dec["head"]["w"].shape[1]
+    b = BOUNDS[torch.float32]
+    for rows in DECODE_ROWS:
+        tc, hi = tick_ctx[:rows].contiguous(), h_inits[:, :rows].contiguous()
+        plan = dk.f32_card_plan(rows, hidden, tc.device)
+        outs, ms = {}, {}
+        for c in dk.f32_cluster_sizes(hidden):
+            with _f32_decode_cluster(c):
+                outs[c] = dk.decode_sampling(dec, tc, hi)
+                ms[c] = cuda_ms(lambda: dk.decode_sampling(dec, tc, hi), 5)
+        got = outs[plan.cluster]
+        agree = dk.agreement(got, dk.decode_sampling_reference(dec, tc, hi))
+        same = all(torch.equal(o[0], got[0]) and torch.equal(o[1], got[1]) for o in outs.values())
+        print(f"[kernels] decode_sampling float32 rows {rows}: {agree}; clusters "
+              f"{sorted(outs)} bit-equal {same} (bounds {b})", flush=True)
+        if not (same and dk.within(agree, b) and bool(torch.isfinite(got[0]).all())):
+            raise RuntimeError(f"K2 f32 at {rows} rows disagrees with its plain version or "
+                               "across cluster sizes")
+        if rows == BATCH:
+            _reject_decode_f32_faults(dec, tc, hi, got, card)
+        moved = nbytes({k: dec[k] for k in ("embedding", "x_0", "tick_gru", "head")}, tc, hi,
+                       *got)
+        fma = bound_of(decode_ops(rows, hidden, vocab), "f32", moved)
+        split = bound_of(6 * decode_ops(rows, hidden, vocab), "bf16", moved)
+        alone = _device_ms(lambda: dk.decode_sampling(dec, tc, hi), "decode_f32_kernel")
+        plain_ms = cuda_ms(lambda: dk.decode_sampling_reference(dec, tc, hi), 2)
+        per = ", ".join(f"cluster {c} {v:.3f} ms" for c, v in ms.items())
+        print(f"[plan] decode_sampling float32 rows {rows}: cluster {plan.cluster}, stages "
+              f"{plan.stages}; slots {dk.f32_slots(hidden, tc.device.index or 0)} | {card}",
+              flush=True)
+        print(f"[time] decode_sampling float32 rows {rows}: kernel {ms[plan.cluster]:.3f} ms "
+              f"({per}); the kernel alone {alone:.3f} ms device; plain {plain_ms:.3f} ms; "
+              f"bound {split['bound_ms']:.4f} ms (the split passes, {split['bound_by']}), f32 "
+              f"FMA bound {fma['bound_ms']:.4f} ms; the parent's f32 kernel "
+              f"{parent_ms(parent, lambda pk: pk.decode_f32(dec, tc, hi))}; 1 launch a call "
+              f"| {card}", flush=True)
 
 
 def decode_row_counts(dec, tick_ctx, h_inits, bound, card: str) -> None:
@@ -1132,8 +1260,14 @@ def _profile_retaken(count, call, want: int):
 
 def _device_ms(call, key: str) -> float:
     """Device ms of the kernels whose names hold ``key`` in one ``call()``
-    (``torch.profiler``): a wrapper's kernel without its operand work."""
-    return sum(ms for name, ms, _ in _profile_step(call)[2] if key in name)
+    (``torch.profiler``): a wrapper's kernel without its operand work;
+    traced again up to twice while no such kernel shows (a trace that lost
+    it)."""
+    for _ in range(3):
+        ms = sum(ms for name, ms, _ in _profile_step(call)[2] if key in name)
+        if ms > 0:
+            break
+    return ms
 
 
 def _profile_line(tag: str, call, wall: float, card: str, top: int = 8) -> None:
@@ -1309,6 +1443,53 @@ def phase_engine(model, dtype: str, card: str):
         _profile_line("engine int8 batch 1", lambda: engine.inpaint(one, s1, n1, seed=5),
                       float(np.median(lat)), card)
     return engine, launches, outs[2][:, start:start + num]
+
+
+def phase_f32_engine(model, card: str) -> dict:
+    """The flagship f32 engine under ``"pallas"``, the path that runs K2's
+    and K8's f32 routes (and K1's): three requests checked, K1, K2 and K8
+    launches per call asserted, then measures/s at batch 2048 (6/4/6), the
+    batch-1 p50 and a profile of each. -> {kernel: launches a call}"""
+    from inpaintnet_tpu_torch.ops.decode_kernel import decode_sampling
+    from inpaintnet_tpu_torch.ops.encoder_kernel import encoder_hn
+    from inpaintnet_tpu_torch.ops.gru import gru_impl_scope
+    from inpaintnet_tpu_torch.ops.gru_kernel import gru_layer_stream
+    from inpaintnet_tpu_torch.serve import InpaintingEngine
+
+    engine = InpaintingEngine(model, batch_buckets=BUCKETS, dtype="float32", device="cuda")
+    kernels = (encoder_hn, decode_sampling, gru_layer_stream)
+    want = {"encoder_hn": 1, "decode_sampling": 1,
+            "gru_layer_stream": k8_launches_per_call(engine.max_target, False)}
+    rng = np.random.default_rng(17)
+    requests = [("batch 1, 2-measure span", *_request(rng, 1, 7, 2, 7)),
+                ("batch 8, 6/4/6", *_request(rng, 8, N_PAST, N_TARGET, N_FUTURE)),
+                (f"batch {BATCH}, 6/4/6", *_request(rng, BATCH, N_PAST, N_TARGET, N_FUTURE))]
+    with gru_impl_scope("pallas"):
+        engine.warmup()
+        for label, tokens, start, num in requests:
+            before = [k.launches for k in kernels]
+            out = engine.inpaint(tokens, start, num, seed=11)
+            got = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
+            _check_response(out, tokens, start, num)
+            if not np.array_equal(out, engine.inpaint(tokens, start, num, seed=11)):
+                raise RuntimeError(f"f32 engine {label}: the same seed gave other tokens")
+            if got != want:
+                raise RuntimeError(f"f32 engine {label}: launches {got}, expected {want}")
+            print(f"[f32-engine] {label}: ok, launches a call {got}, "
+                  f"{(out[:, start:start + num] != tokens[:, start:start + num]).mean():.3f} of "
+                  f"span tokens differ from the input", flush=True)
+        big, one = requests[2][1:], requests[0][1:]
+        t_big = cuda_ms(lambda: engine.inpaint(*big, seed=5), 3)
+        lat = [cuda_ms(lambda: engine.inpaint(*one, seed=5), 1) for _ in range(20)]
+        print(f"[time] engine float32 pallas batch {BATCH} 6/4/6: {t_big:.2f} ms per call, "
+              f"{BATCH * N_TARGET / (t_big / 1e3):.1f} measures/s | {card}", flush=True)
+        print(f"[time] engine float32 pallas batch 1 2-measure: p50 {np.median(lat):.2f} ms "
+              f"(p90 {np.percentile(lat, 90):.2f} ms) | {card}", flush=True)
+        _profile_line(f"engine f32 pallas batch {BATCH}", lambda: engine.inpaint(*big, seed=5),
+                      t_big, card)
+        _profile_line("engine f32 pallas batch 1", lambda: engine.inpaint(*one, seed=5),
+                      float(np.median(lat)), card)
+    return want
 
 
 def phase_reference(model):
@@ -1641,14 +1822,14 @@ def k7_parts(call, want: int, dtype=torch.bfloat16) -> tuple:
     return _profile_retaken(count, call, want)
 
 
-def phase_arnn_kernel(model, card: str, parent) -> dict:
+def phase_arnn_kernel(model, card: str) -> dict:
     """K7 against its plain version at batch 512 x 384 ticks, flagship
     width, f32 and bf16; the planted faults; the times (bf16 reported, f32
     beside it). Both Hopper routes also at 64 and 1 rows, every cluster
     size bit-equal to the others (the cluster only moves h between its
     CTAs), their CUDA launches asserted, each timed beside the first kernel
-    (f32 also beside both its bounds and the parent's kernel); bf16 with
-    noisy weights against the first kernel (``ARNN_NOISE``)."""
+    (f32 also beside both its bounds); bf16 with noisy weights against the
+    first kernel (``ARNN_NOISE``)."""
     from inpaintnet_tpu_torch.models.base import cast_params
     from inpaintnet_tpu_torch.ops import arnn_kernel as ak
 
@@ -1729,8 +1910,7 @@ def phase_arnn_kernel(model, card: str, parent) -> dict:
             extra = ""
             if dtype == torch.float32:  # the split products' bound, beside the FMA units'
                 bound = {**bound_of(6 * ops, "bf16", moved), "bound_f32_fma_ms": bound["bound_ms"]}
-                extra = (f", f32 FMA bound {bound['bound_f32_fma_ms']:.4f} ms, parent "
-                         f"{parent_ms(parent, lambda pk: pk.arnn_f32(call_args))}")
+                extra = f", f32 FMA bound {bound['bound_f32_fma_ms']:.4f} ms"
             per = ", ".join(f"cluster {c} {v[1]:.3f} ms" for c, v in by_c.items())
             first_ms = cuda_ms(lambda: _first_k7(ak, call_args), 3)
             print(f"[time] arnn_sampled_decode {dtype} rows {rows}: kernel {ms:.3f} ms "
@@ -1958,15 +2138,18 @@ def cudnn_gru_layer_ms(args, dtype) -> float:
         return cuda_ms(lambda: net(x, h0[None]), 3)
 
 
-def phase_gru_layer_kernel(card: str) -> dict:
+def phase_gru_layer_kernel(card: str, parent) -> dict:
     """K8 against its plain version at ``GRU_LAYER_SHAPES``, f32 and bf16
     (every cluster size the bf16 route can take, which must also agree bit
-    for bit: the cluster only moves h between CTAs), forward and reverse;
-    the planted faults; the times of the forward direction, bf16 at each
-    cluster size. -> the report entry of the
-    bf16 context shape."""
+    for bit: the cluster only moves h between CTAs; the f32 route has one
+    size a width, H / 64 CTAs, so there a rerun must agree bit for bit),
+    forward and reverse; the planted faults; the times of the forward
+    direction, bf16 at each cluster size, f32 beside both its bounds and
+    the parent's first kernel. -> the report entry of the bf16 context
+    shape, with the f32 one beside it."""
     from inpaintnet_tpu_torch.ops import gru_kernel as lk
-    from inpaintnet_tpu_torch.ops.kernel_common import cluster_sizes
+    from inpaintnet_tpu_torch.ops.kernel_common import cluster_sizes, load_kernels, \
+        split_bf16_pieces
 
     report = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1997,24 +2180,41 @@ def phase_gru_layer_kernel(card: str) -> dict:
                         got[cluster, reverse] = out, agree
             for reverse in (True, False):
                 base = got[chosen, reverse][0]
+                if dtype == torch.float32:  # one cluster size a width: a rerun
+                    again = lk.gru_layer_stream(*args, reverse=reverse, want_ys=outputs)
+                    if not all((x is None and y is None) or torch.equal(x, y)
+                               for x, y in zip(again, base)):
+                        raise RuntimeError(f"K8 f32 differs between two runs: {shape}")
                 if not all(all((x is None and y is None) or torch.equal(x, y)
                                for x, y in zip(got[c, reverse][0], base)) for c in clusters):
                     raise RuntimeError(f"K8 differs across cluster sizes: {shape}")
             out, agree = got[chosen, False]
-            faults = {}
+            faults = {}  # name: (planted plain version, reverse)
             if args[4] is not None:
                 m = args[4]
-                faults["mask read one step late"] = lk.gru_layer_reference(
-                    *args[:4], torch.cat([m[:, :1], m[:, :-1]], dim=1), want_ys=outputs)
+                faults["mask read one step late"] = (lk.gru_layer_reference(
+                    *args[:4], torch.cat([m[:, :1], m[:, :-1]], dim=1), want_ys=outputs), False)
             if dtype == torch.bfloat16 and steps > 1:
                 carry = lk.carry
                 lk.carry = lambda h, dtype: h
                 try:
-                    faults["carry kept in f32"] = lk.gru_layer_reference(*args, want_ys=outputs)
+                    faults["carry kept in f32"] = (lk.gru_layer_reference(*args, want_ys=outputs),
+                                                   False)
                 finally:
                     lk.carry = carry
-            for name, planted in faults.items():
-                f_agree = lk.agreement(out, planted)
+            if dtype == torch.float32:
+                product = lk.layer_product
+                lk.layer_product = lambda h, w: split_bf16_pieces(h)[0].float() @ w
+                try:
+                    faults["product on h as one bf16 piece"] = (
+                        lk.gru_layer_reference(*args, want_ys=outputs), False)
+                finally:
+                    lk.layer_product = product
+                if args[4] is not None:  # reverse: the rows run after their holds
+                    faults["a held row writing no pieces"] = (lk.held_pieces_fault_reference(
+                        *args, reverse=True, want_ys=outputs), True)
+            for name, (planted, reverse) in faults.items():
+                f_agree = lk.agreement(got[chosen, reverse][0], planted)
                 print(f"[gru-layer] planted fault {shape}, {name}: {f_agree}", flush=True)
                 if lk.within(f_agree, bound):
                     raise RuntimeError(f"a planted K8 fault passes the bounds: {shape}, {name}")
@@ -2033,14 +2233,29 @@ def phase_gru_layer_kernel(card: str) -> dict:
             if plan is not None:
                 per = ", ".join(f"cluster {c} {v:.3f} ms" for c, v in cluster_ms.items())
                 extra = f" (cluster {chosen}, stages {plan.stages}; {per})"
+            else:  # f32: the split passes' bound, beside the f32 FMA units'
+                f32 = lk.f32_plan(hidden)
+                b = {**bound_of(6 * gru_layer_ops(rows, steps, hidden), "bf16", moved),
+                     "bound_f32_fma_ms": b["bound_ms"]}
+                slots = load_kernels().inpaint_gru_layer_f32_slots(hidden, f32.cluster,
+                                                                   f32.stages)
+                alone = _device_ms(lambda: lk.gru_layer_stream(*args, want_ys=outputs),
+                                   "gru_fwd_kernel")
+                extra = (f" (cluster {f32.cluster}, stages {f32.stages}, {slots} clusters at "
+                         f"once; the kernel alone {alone:.3f} ms device), the parent's f32 "
+                         f"kernel {parent_ms(parent, lambda pk: pk.gru_layer_f32(*args, outputs))}"
+                         f", f32 FMA bound {b['bound_f32_fma_ms']:.4f} ms")
             print(f"[time] gru_layer_stream {shape}: kernel {ms:.3f} ms{extra}, plain "
                   f"{plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); cuDNN "
                   f"torch.nn.GRU({GRU_YARDSTICK_IN}, {hidden}) one direction, unmasked, "
                   f"yardstick {library_ms:.3f} ms | {card}", flush=True)
-            if dtype == torch.bfloat16 and label == "context":
-                report["gru_layer_stream"] = {"max_abs_err": agree["max_abs_err"], "ms": ms,
-                                              "plain_ms": plain_ms, **b,
-                                              "library_ms": library_ms}
+            if label == "context":
+                entry = {"max_abs_err": agree["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+                         **b, "library_ms": library_ms}
+                if dtype == torch.float32:
+                    f32_entry = entry
+                else:
+                    report["gru_layer_stream"] = {**entry, "f32": f32_entry}
     return report
 
 
@@ -2314,7 +2529,7 @@ def phase_autoreg_http(engine, card: str) -> dict:
 def main() -> int:
     cli = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     cli.add_argument("--parent", metavar="DIR",
-                     help="an earlier checkout of this repository whose f32 K1 and K7 "
+                     help="an earlier checkout of this repository whose f32 K2 and K8 "
                           "kernels are built and timed beside the new ones")
     opts = cli.parse_args()
     card = phase_device()
@@ -2330,16 +2545,17 @@ def main() -> int:
     engine8, launches8, span_int8 = phase_engine(model, "int8", card)
     print(f"[engine] int8 and bf16 agree on {(span_int8 == span_bf16).mean():.4f} of the "
           f"batch-{BATCH} span tokens (random weights: printed, no limit)", flush=True)
+    launches_f32 = phase_f32_engine(model, card)
     launches_http = phase_http(engine8, card)
     from inpaintnet_tpu_torch.models.presets import build_arnn
 
     arnn = build_arnn(seed=0, device="cuda")
-    report.update(phase_arnn_kernel(arnn, card, parent))
+    report.update(phase_arnn_kernel(arnn, card))
     phase_arnn_reference()
     arnn_engine, launches_arnn = phase_arnn_engine(arnn, card)
     launches_arnn_http = phase_arnn_http(engine8, arnn_engine, card)
     del engine8, arnn_engine
-    report.update(phase_gru_layer_kernel(card))
+    report.update(phase_gru_layer_kernel(card, parent))
     phase_gru_routes(engine16, card)
     del engine16
     phase_autoreg_reference(card)
@@ -2365,6 +2581,8 @@ def main() -> int:
                                 launches_arnn),
         "gru_layer_stream": ("gru_layer.cu", "inpaintnet_tpu/ops/gru_pallas.py:82", launches_ar),
     }
+    for name in ("decode_sampling", "gru_layer_stream"):  # the f32 engine's calls
+        report[name]["f32"]["launches"] = launches_f32[name]
     kernels = [{"name": name, "route": "cuda",
                 "source": f"inpaintnet_tpu_torch/ops/csrc/{src}", "replaces": replaces,
                 "launches": runs[name], **report[name]}

@@ -38,6 +38,7 @@ from inpaintnet_tpu_torch.models.convert import (
     to_functional,
 )
 from inpaintnet_tpu_torch.ops.arnn_kernel import arnn_kernel_supports, arnn_sampled_decode
+from inpaintnet_tpu_torch.ops.kernel_common import kernel_with_eager_grad
 from inpaintnet_tpu_torch.ops.linear import (
     embedding_apply,
     embedding_init,
@@ -231,9 +232,14 @@ class ConstraintModelGaussianReg(CheckpointedModel, nn.Module):
         if force_mask is None:
             force_mask = torch.zeros_like(score)
         if temperature is None and self._use_kernel_decode(params):
-            return arnn_sampled_decode(params, constraint_out, score.to(torch.int32).contiguous(),
-                                       force_mask.to(torch.int32).contiguous(),
-                                       self._start_embedding(params, 1))
+            # K7's forward; under a gradient, the eager argmax loop's
+            # backward at the same inputs (JAX's kernel_with_xla_grad)
+            decode = kernel_with_eager_grad(
+                arnn_sampled_decode,
+                lambda p, ctx, sc, fm, se: self._sampled_scan(
+                    p, ctx, sc, fm, start_emb=se.expand(sc.shape[0], se.shape[-1])))
+            return decode(params, constraint_out, score.to(torch.int32).contiguous(),
+                          force_mask.to(torch.int32).contiguous(), self._start_embedding(params, 1))
         if temperature is not None and gumbel_noise is None:
             gumbel_noise = (row_gumbel(row_keys, seq_len, self.num_notes) if row_keys is not None
                             else gumbel((batch, seq_len, self.num_notes), generator,
@@ -289,7 +295,7 @@ class ConstraintModelGaussianReg(CheckpointedModel, nn.Module):
         package's ``apply`` at ``train=False``)."""
         if train:
             raise NotImplementedError(
-                "ARNN training waits for the ARNN trainer (ROADMAP queue 1 item 10b)")
+                "ARNN training waits for the ARNN trainer (ROADMAP §1 item 3)")
         return self.forward_sampled(params, score, metadata, constraints_loc)[0]
 
     def apply_inpaint(self, params, score, metadata, constraints_loc, *,

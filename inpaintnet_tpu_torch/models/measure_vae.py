@@ -40,7 +40,7 @@ from inpaintnet_tpu_torch.ops.gru import (
     gru_gates,
     gru_init,
 )
-from inpaintnet_tpu_torch.ops.kernel_common import kernel_supports_hidden
+from inpaintnet_tpu_torch.ops.kernel_common import kernel_supports_hidden, kernel_with_eager_grad
 from inpaintnet_tpu_torch.ops.linear import (
     embedding_apply,
     embedding_init,
@@ -141,7 +141,10 @@ class Encoder(nn.Module):
             _, h_n = gru_apply(params["gru"], emb, last_outputs=False, dropout=self.dropout,
                                train=True, dropout_masks=dropout_masks, generator=generator)
         elif self.use_kernel():
-            kernel = encoder_hn_int8 if quant == "int8" else encoder_hn
+            # the kernel's forward; under a gradient, the eager scan's
+            # backward at the same inputs (JAX's kernel_with_xla_grad)
+            kernel = kernel_with_eager_grad(encoder_hn_int8 if quant == "int8" else encoder_hn,
+                                            _encoder_eager_hn)
             h_n = kernel(params["gru"], params["embedding"]["table"], tokens)
         else:
             emb = embedding_apply(params["embedding"], tokens)
@@ -154,6 +157,14 @@ class Encoder(nn.Module):
         z_mean = mlp_selu_apply(params["mean_head"], hidden)
         z_log_std = mlp_selu_apply(params["log_std_head"], hidden)
         return DiagNormal(z_mean, torch.exp(z_log_std))
+
+
+def _encoder_eager_hn(gru, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """K1's and K3's eager twin: h_n of the eager GRU scan over the
+    embedded tokens (the JAX package's ``gru_apply`` twin, whatever the
+    inference GRU route)."""
+    emb = embedding_apply({"table": table}, tokens)
+    return gru_apply(gru, emb, last_outputs=False, impl="xla")[1]
 
 
 class HierarchicalDecoder(nn.Module):
@@ -269,7 +280,13 @@ class HierarchicalDecoder(nn.Module):
             params, beat_out.reshape(batch * NUM_BEATS_PER_MEASURE, -1)
         ).reshape(self.num_layers, batch, NUM_BEATS_PER_MEASURE, -1)
         if not train and self.use_kernel():
-            kernel = decode_sampling_int8 if quant == "int8" else decode_sampling_kernel
+            # the kernel's forward; under a gradient (LatentRNN training
+            # differentiates through this frozen-VAE decode) the backward of
+            # the unquantized eager scan at the same inputs, as JAX's
+            # kernel_with_xla_grad, for K4 too
+            kernel = kernel_with_eager_grad(
+                decode_sampling_int8 if quant == "int8" else decode_sampling_kernel,
+                lambda p, c, h: self._decode_scan(p, c, h, train=False))
             return kernel(params, tick_ctx.contiguous(), h_inits.contiguous())
         return self._decode_scan(params, tick_ctx, h_inits, train=train, generator=generator)
 

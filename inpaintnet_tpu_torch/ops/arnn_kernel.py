@@ -56,7 +56,6 @@ import torch
 from inpaintnet_tpu_torch.ops.kernel_common import (
     DTYPE_CODES,
     HOPPER_CONSUMERS,
-    HOPPER_CTA_OVERHEAD,
     HOPPER_MAX_STAGES,
     HOPPER_ROWS,
     HOPPER_SMEM_BUDGET,
@@ -65,10 +64,12 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     check_cuda_tensor,
     check_launch,
     kernel_supports_hidden,
+    least_cost_cluster,
     load_kernels,
     lstm_gates_f32,
     pack_mma_b,
     round_up,
+    split_blocks,
     split_bf16_pieces,
     stream_ptr,
 )
@@ -141,29 +142,16 @@ def arnn_cluster_sizes(hidden: int, lp: int) -> list:
             and arnn_ring_stages(hidden, c, lp) >= 2]
 
 
-def _least_cost_cluster(rows: int, sizes: list, sms: int, slots) -> int:
-    """The cluster size C with the least modelled time: waves of clusters
-    ``ceil(tiles / slots[C])``, each as long as 1/C of a tile's units plus
-    the fixed share every CTA pays (``kernel_common.HOPPER_CTA_OVERHEAD``);
-    the smaller C on a tie."""
-    slots = slots or {c: max(1, sms // c) for c in sizes}
-    tiles = -(-rows // HOPPER_ROWS)
-
-    def cost(c):
-        return -(-tiles // slots[c]) * (1 / c + HOPPER_CTA_OVERHEAD)
-    return min(sizes, key=lambda c: (cost(c), c))
-
-
 def arnn_plan(rows: int, hidden: int, linear: int, sms: int, slots=None) -> LaunchPlan:
     """How the bf16 route runs ``rows`` rows: the cluster size of
-    :func:`_least_cost_cluster`. At the flagship's H 256 every batch up to
+    ``kernel_common.least_cost_cluster``. At the flagship's H 256 every batch up to
     30 tiles (1,920 rows) on an H100 takes C 4: one wave. Raises ValueError
     for a geometry no size takes."""
     lp = arnn_head_width(linear)
     sizes = arnn_cluster_sizes(hidden, lp)
     if not sizes:
         raise ValueError(f"no K7 plan for hidden size {hidden}, head {linear}")
-    cluster = _least_cost_cluster(rows, sizes, sms, slots)
+    cluster = least_cost_cluster(rows, sizes, sms, slots)
     return LaunchPlan(cluster, arnn_ring_stages(hidden, cluster, lp))
 
 
@@ -235,14 +223,14 @@ def arnn_f32_cluster_sizes(hidden: int, lp: int) -> list:
 
 def arnn_f32_plan(rows: int, hidden: int, linear: int, sms: int, slots=None) -> LaunchPlan:
     """How the f32 route runs ``rows`` rows: the cluster size of
-    :func:`_least_cost_cluster` (a CTA's chain of rounds shrinks as 1/C),
+    ``kernel_common.least_cost_cluster`` (a CTA's chain of rounds shrinks as 1/C),
     with the ring's two stages. At the flagship's H 256 on an H100 every
     batch up to 15 tiles (960 rows) takes C 8: one wave. Raises ValueError
     for a geometry no size takes."""
     sizes = arnn_f32_cluster_sizes(hidden, arnn_head_width(linear))
     if not sizes:
         raise ValueError(f"no f32 K7 plan for hidden size {hidden}, head {linear}")
-    return LaunchPlan(_least_cost_cluster(rows, sizes, sms, slots), ARNN_F32_STAGES)
+    return LaunchPlan(least_cost_cluster(rows, sizes, sms, slots), ARNN_F32_STAGES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -331,20 +319,10 @@ def pack_arnn_weights(w_hh0, w_ih1, w_hh1, w_l1, w_out) -> torch.Tensor:
                       for b in (pack_lstm_blocks(w_hh0), layer1, l1, out)]).contiguous()
 
 
-def _f32_blocks(wt_pieces: torch.Tensor) -> torch.Tensor:
-    """(3, N, K) bf16 pieces of a W^T, N a multiple of 128, as the f32
-    route's blocks: (N / 128 pairs of 64-row chunks, K / 64 k-slabs, 3
-    pieces, 2 chunks, 64, 64), so a k-slab of a pair's pieces is six
-    consecutive blocks."""
-    _, n, k = wt_pieces.shape
-    return wt_pieces.reshape(3, n // 128, 2, 64, k // 64, 64).permute(1, 4, 0, 2, 3, 5) \
-        .reshape(-1, 64, 64)
-
-
 def pack_arnn_f32_weights(w_hh0, w_ih1, w_hh1, w_l1, w_out) -> torch.Tensor:
     """The f32 route's weights as one array of (64, 64) bf16 blocks (8 KB),
     each weight's three pieces (``kernel_common.split_bf16_pieces``), in the
-    order the recurrence streams them (:func:`_f32_blocks`): W_hh0, W_ih1 and
+    order the recurrence streams them (``kernel_common.split_blocks``): W_hh0, W_ih1 and
     W_hh1 by pairs of 16-unit chunks, row 16 g + u of chunk c W's column g H
     + 16 c + u; W_l1^T by rounds of 128 hidden columns (zero past the head's
     width); W_out^T's 64 columns (zero past V) beside a zero chunk."""
@@ -354,15 +332,15 @@ def pack_arnn_f32_weights(w_hh0, w_ih1, w_hh1, w_l1, w_out) -> torch.Tensor:
 
     def lstm(w):
         wt = w.t().reshape(4, hidden // ARNN_F32_UNITS, ARNN_F32_UNITS, w.shape[0])
-        return _f32_blocks(torch.stack(split_bf16_pieces(
-            wt.permute(1, 0, 2, 3).reshape(4 * hidden, w.shape[0]))))
+        return split_blocks(torch.stack(split_bf16_pieces(
+            wt.permute(1, 0, 2, 3).reshape(4 * hidden, w.shape[0]))), 64)
 
     l1 = torch.nn.functional.pad(w_l1.float(), (0, lp - linear)).t()
     out = torch.zeros((2 * ARNN_OUT_COLS, lp), dtype=torch.float32, device=w_out.device)
     out[:vocab, :linear] = w_out.float().t()
     return torch.cat([lstm(w_hh0), lstm(w_ih1), lstm(w_hh1),
-                      _f32_blocks(torch.stack(split_bf16_pieces(l1))),
-                      _f32_blocks(torch.stack(split_bf16_pieces(out)))]).contiguous()
+                      split_blocks(torch.stack(split_bf16_pieces(l1)), 64),
+                      split_blocks(torch.stack(split_bf16_pieces(out)), 64)]).contiguous()
 
 
 def arnn_map(packed: torch.Tensor):

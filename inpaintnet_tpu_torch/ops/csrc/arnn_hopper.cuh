@@ -522,7 +522,6 @@ inline cudaError_t make_lstm_map(CUtensorMap* map, const void* packed, int block
 //   outputs: the check for a race in the exchange.
 constexpr int kF32Units = 16;                        // units of a chunk: i, f, g, o rows = 64
 constexpr int kF32Block = kRows * 128;               // a 64 x 64 bf16 block of weights: 8 KB
-constexpr int kF32ABytes = 3 * kBlockBytes;          // a k-slab of an operand's pieces: 24 KB
 constexpr int kF32StageBytes = kF32ABytes + 6 * kF32Block;  // + two chunks' pieces: 72 KB
 constexpr int kF32Stages = 2;
 // + a whole producer warpgroup, so that setmaxnreg can hand its registers
@@ -546,67 +545,6 @@ struct ArnnF32Args {
   __nv_bfloat16* scratch;  // (tiles, 3, 2, 3, 64, max(H, LP)), zero at the start
   int B, S, H, LP, V;
 };
-
-// the consumers' side of the f32 route's ring (both warpgroups read every stage)
-struct F32Ring {
-  unsigned char* ring;
-  uint64_t* full;
-  uint64_t* empty;
-  int stage;
-  uint32_t phase;
-};
-
-// The split product of the next `nk` ring stages into acc (acc[i]: row 16
-// warp + g + 8 ((i / 2) % 2), column 8 (i / 4) + 2q + i % 2 of warpgroup
-// wg's 64 x 64 tile); a warpgroup that is not `active` only hands the
-// stages back.
-__device__ __forceinline__ void f32_product(F32Ring& rg, float (&acc)[32], int nk, bool active,
-                                            int wg, int lane) {
-  for (int k = 0; k < nk; ++k) {
-    unsigned char* st = rg.ring + rg.stage * kF32StageBytes;
-    mbar_wait_bounded<false>(&rg.full[rg.stage], rg.phase);
-    if (active) {
-      float part[32];
-      wgmma_fence();
-#pragma unroll
-      for (int pass = 0; pass < 6; ++pass) {
-        // (operand piece, weight piece), smallest terms first: lh, hl, mm, mh, hm, hh
-        const int ap = (0x001102 >> (4 * pass)) & 0xF;
-        const int bp = (0x010120 >> (4 * pass)) & 0xF;
-        const uint64_t da = desc_sw128(st + ap * kBlockBytes);
-        const uint64_t db = desc_sw128(st + kF32ABytes + (bp * 2 + wg) * kF32Block);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_bf16_n64(part, da + 2 * kk, db + 2 * kk, (pass > 0 || kk > 0) ? 1 : 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_operands(part);
-      if (lane == 0) mbar_arrive(&rg.empty[rg.stage]);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] = k == 0 ? part[i] : __fadd_rn(acc[i], part[i]);
-    } else if (lane == 0) {
-      mbar_arrive(&rg.empty[rg.stage]);
-    }
-    if (++rg.stage == kF32Stages) {
-      rg.stage = 0;
-      rg.phase ^= 1;
-    }
-  }
-}
-
-// the pieces of the pair (v0, v1) at row r, column col of the scratch
-// plane `pl` (rows of `wd`)
-__device__ __forceinline__ void f32_put(__nv_bfloat16* scratch, int pl, int wd, int r, int col,
-                                        float v0, float v1) {
-  __nv_bfloat16 a[3], b[3];
-  split3(v0, a);
-  split3(v1, b);
-#pragma unroll
-  for (int pi = 0; pi < 3; ++pi)
-    *reinterpret_cast<__nv_bfloat162*>(scratch + ((size_t)(pl + pi) * kRows + r) * wd + col) =
-        __halves2bfloat162(a[pi], b[pi]);
-}
 
 // The LSTM cells of a round's chunk: units j0 + 8 n8 + 2q + e of rows r =
 // 16 warp + g + 8 half, gate gi's pre-activation pre(gi, r, gi H + unit, a)
@@ -727,7 +665,7 @@ __global__ void __launch_bounds__(kF32Threads, 1)
   const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2,
             q = lane & 3;
   setmaxnreg_inc<kConsumerRegs>();
-  F32Ring rg{ring, full_bar, empty_bar, 0, 0};
+  F32Ring rg{ring, full_bar, empty_bar, kF32Stages, kF32StageBytes, kF32Block, 0, 0};
   // the pieces are written: make them visible to the peers' TMA loads, then
   // tell every CTA of the cluster (thread c tells CTA c)
   const auto publish = [&](int i) {

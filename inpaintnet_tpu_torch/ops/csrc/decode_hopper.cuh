@@ -3,7 +3,8 @@
 // gru_layer_hopper.cuh's cluster recurrence, one kernel templated on the
 // operand type (bf16 or int8). It replaces the TPU kernels
 // inpaintnet_tpu/ops/decode_pallas.py decode_sampling_pallas (in bf16) and
-// decode_sampling_pallas_int8.
+// decode_sampling_pallas_int8. K2's f32 route (decode_sampling.cu
+// decode_f32_kernel) runs the same tick chain with split products.
 //
 // What bounds it on an H100: every tick runs a serial chain, layer 0 ->
 // layer 1 -> head -> argmax -> the fed-back token, each product a 64-row
@@ -761,45 +762,8 @@ __global__ void __launch_bounds__(kDecodeThreads, 1)
   cluster_sync();
 }
 
-// K2's dynamic shared memory: two bf16 h tiles and the rings; K4's: four
-// int8 tiles and the rings
-inline size_t decode_smem_bytes(int H, int stages) { return smem_bytes(H, 2, stages); }
+// K4's dynamic shared memory: four int8 h tiles and the rings
 inline size_t decode_i8_smem_bytes(int H, int stages) { return smem_bytes(H, 4, stages, 64); }
-
-inline int decode_slots(int H, int C, int stages) {
-  if (!plan_fits(H, C, stages, 2)) return -1;
-  const size_t smem = decode_smem_bytes(H, stages);
-  switch (chunks_per_warpgroup(H, C)) {
-    case 1: return max_clusters(decode_kernel<1>, C, smem, kDecodeThreads);
-    case 2: return max_clusters(decode_kernel<2>, C, smem, kDecodeThreads);
-    case 3:
-    case 4: return max_clusters(decode_kernel<4>, C, smem, kDecodeThreads);
-    default: return max_clusters(decode_kernel<8>, C, smem, kDecodeThreads);
-  }
-}
-
-inline cudaError_t launch_decode(const CUtensorMap& map, const DecodeArgs& a, int C,
-                                 cudaStream_t stream) {
-  if (!plan_fits(a.H, C, a.stages, 2) || a.B < 1 || a.V < 1 || a.V > kHeadCols)
-    return cudaErrorInvalidValue;
-  const int clusters = (a.B + kRows - 1) / kRows;
-  const size_t smem = decode_smem_bytes(a.H, a.stages);
-  switch (chunks_per_warpgroup(a.H, C)) {
-    case 1: return launch_clusters(decode_kernel<1>, clusters, C, smem, stream, map, a,
-                                   kDecodeThreads);
-    case 2: return launch_clusters(decode_kernel<2>, clusters, C, smem, stream, map, a,
-                                   kDecodeThreads);
-    case 3:
-    case 4: return launch_clusters(decode_kernel<4>, clusters, C, smem, stream, map, a,
-                                   kDecodeThreads);
-    case 5:
-    case 6:
-    case 7:
-    case 8: return launch_clusters(decode_kernel<8>, clusters, C, smem, stream, map, a,
-                                   kDecodeThreads);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 template <typename T>
 inline cudaError_t launch_decode_i8(const CUtensorMap& map, const DecodeI8Args<T>& a, int C,

@@ -45,6 +45,31 @@
 #include "encoder_hopper.cuh"
 #include "gru_fwd_hopper.cuh"
 
+namespace inpaint {
+namespace fwd90 {
+
+// K1's f32 layer `layer` (0 or 1) over the rows [a.row0, a.row0 + a.rows)
+// of a.B, both directions: `w_map` is make_w_map's over both directions'
+// packed W_hh pieces for U = H / C; the scratch holds (2, tiles, 2, 3, 64,
+// H) bf16. (Here, not in gru_fwd_hopper.cuh, so that the other sources
+// that include it do not compile K1's layers again.)
+inline cudaError_t launch_encoder_layer(const CUtensorMap& w_map, const FwdArgs& a, int layer,
+                                        int C, cudaStream_t stream) {
+  if (!plan_fits<float>(a.H, C, a.stages) || a.H / C != 64 || a.rows < 1 || a.steps < 1 ||
+      a.row0 < 0 || a.row0 + a.rows > a.B || a.scratch == nullptr || a.hn == nullptr)
+    return cudaErrorInvalidValue;
+  if (layer == 0) {
+    if (a.tokens == nullptr || a.tab == nullptr || a.ys == nullptr || a.V < 1)
+      return cudaErrorInvalidValue;
+    return run_k5<float, 1, kEnc0>(w_map, a, C, stream);
+  }
+  if (layer == 1 && a.xw != nullptr) return run_k5<float, 1, kEnc1>(w_map, a, C, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace fwd90
+}  // namespace inpaint
+
 // bf16, one layer's recurrence over the rows [row0, row0 + rows) of B:
 // whh (2, 3H, H) bf16, W_hh^T per direction with each 32-unit chunk's rows
 // grouped [r, z, n] (ops/encoder_kernel.pack_gate_slabs); layer 0 reads

@@ -1,8 +1,7 @@
 // Shared device pieces of the hand-written GRU kernels: the block-level
-// "three gates at once" products of the first port's kernels (the f32
-// routes of decode_sampling.cu and gru_layer.cu, arnn_decode.cu's first
-// kernel), and the [r, z, n] gate math, the int8 (de)quantization and the
-// dtype traits, which the Hopper kernels use too.
+// "gates at once" products of the first port's kernels (arnn_decode.cu's
+// first kernel is the last of them), and the [r, z, n] gate math, the int8
+// (de)quantization and the dtype traits, which the Hopper kernels use too.
 //
 // Thread layout every kernel here uses: 256 threads = 8 warps. A block owns
 // MT m-tiles of 16 batch rows (TILE_M = 16 * MT rows) and walks the hidden

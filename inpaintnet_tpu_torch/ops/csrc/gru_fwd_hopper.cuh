@@ -67,6 +67,19 @@
 // folded in, gathered by token, and writes only the outputs' pieces (the
 // projection GEMM's A operand) and h_n; layer 1 (kEnc1) reads the GEMM's
 // f32 rows (b_ih added) and writes only h_n. Neither writes r, z, n or hn.
+//
+// K8's f32 route (the generic GRU layer, gru_layer.cu) is mode kLayer: K5's
+// function with hold masks, writing ys (B, steps, H) or only h_n and no
+// gates (gru_kernel.gru_layer_reference; in f32 its carry, rounded to the
+// parameter dtype, is K5's f32 carry). A step whose keep is 0 (keep is
+// indexed by the time t, not the step s, under reverse) keeps h, emits the
+// held h, and writes the held h's pieces into the scratch buffer of the
+// next step like any new h: a held row that wrote nothing there would
+// leave that buffer's pieces of two steps before for the peers to read.
+// An all-zero row returns h0. Its CTAs own 64 units as K5's, so H 1024
+// takes a cluster of 16 (non-portable: the launch opts in); two 32-unit
+// chunks a warpgroup at 8 CTAs would need 168 KB ring stages (K5's
+// layout), and a ring holds at least two.
 #pragma once
 
 #include "gru_common.cuh"
@@ -86,6 +99,7 @@ constexpr int kConsumerThreads = 128 * kConsumers;
 constexpr int kThreads = kConsumerThreads + 32;  // + the producer warp
 constexpr int kMaxStages = 6;
 constexpr int kMaxCluster = 8;
+constexpr int kMaxLayerCluster = 16;         // kLayer's: H 1024 at 64 units a CTA (non-portable)
 constexpr int kCarryPad = 8;                 // f32 padding of the carry's rows in shared memory
 constexpr int kBar = 1;                      // named barrier of the consumers (2, 3: each warpgroup's)
 constexpr int kSmemBudget = 232448 - 2048;
@@ -120,22 +134,24 @@ template <> struct Fwd<__nv_bfloat16> {
   __device__ static void pieces(float v, __nv_bfloat16 (&pc)[1]) { pc[0] = __float2bfloat16_rn(v); }
 };
 
-// what the kernel computes: K5, or one of K1's f32 layers
-enum FwdMode { kTrain = 0, kEnc0 = 1, kEnc1 = 2 };
+// what the kernel computes: K5, one of K1's f32 layers, or K8's f32 layer
+enum FwdMode { kTrain = 0, kEnc0 = 1, kEnc1 = 2, kLayer = 3 };
 
 struct FwdArgs {
   const void* xw;   // (B, steps, 3H) T; kEnc1: (2, steps * rows, 3H) f32, b_ih added
   const void* bhh;  // (3H,) T; K1: (2, 3H) f32
   const void* h0;   // (B, H) T; K1: unused (zeros)
-  void* out;        // (5, steps, B, H) T: ys, r, z, n, hn in original time order
+  void* out;        // (5, steps, B, H) T: ys, r, z, n, hn in original time order;
+                    // kLayer: ys (B, steps, H) f32, or null (h_n only)
   __nv_bfloat16* scratch;  // (dirs, tiles, 2, P, 64, H): T(h)'s pieces by step parity
   int B, steps, H, reverse, stages;
   // K1 (kEnc0, kEnc1), over the rows [row0, row0 + rows) of B
   const int* tokens;  // (B, steps) int32: kEnc0
   const float* tab;   // (2, V, 3H): kEnc0's input projection table, b_ih folded in
   __nv_bfloat16* ys;  // (3, steps * rows, 2H): kEnc0's outputs' pieces [fwd | bwd]
-  float* hn;          // (2, B, H): the layer's h_n [fwd, bwd]
+  float* hn;          // (2, B, H): the layer's h_n [fwd, bwd]; kLayer: (B, H)
   int row0, rows, V;
+  const uint8_t* keep;  // kLayer: (B, steps), 0 holds h at that step; null: every step runs
 };
 
 // bytes of one ring stage: a k-slab of T(h)'s P pieces and of the CTA's
@@ -151,9 +167,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const __grid_constant__ CUtensorMap a_map, const __grid_constant__ FwdArgs p) {
   using F = Fwd<T>;
   constexpr int P = F::kPieces;
-  constexpr bool kEnc = kMode != kTrain;
+  constexpr bool kEnc = kMode == kEnc0 || kMode == kEnc1;
   static_assert(P == 1 || NCH == 1, "the f32 route's two accumulators fit one chunk");
-  static_assert(!kEnc || P == 3, "K1's layers run the f32 route");
+  static_assert((!kEnc && kMode != kLayer) || P == 3, "K1's and K8's layers run the f32 route");
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[kMaxStages];
   __shared__ __align__(8) uint64_t empty_bar[kMaxStages];
@@ -394,6 +410,12 @@ __global__ void __launch_bounds__(kThreads, 1)
             o[3][e] = ng;
             o[4][e] = hn;
           }
+          if constexpr (kMode == kLayer) {  // a held step keeps h: its pieces go on below
+            if (valid && p.keep != nullptr && p.keep[(size_t)row * steps + t] == 0) {
+              o[0][0] = h2.x;
+              o[0][1] = h2.y;
+            }
+          }
           *cp = make_float2(o[0][0], o[0][1]);
           if constexpr (kEnc) {
             if (valid && kMode == kEnc0) {  // the outputs' pieces, at row t * rows + row
@@ -410,6 +432,10 @@ __global__ void __launch_bounds__(kThreads, 1)
             if (valid && last)
               *reinterpret_cast<float2*>(p.hn + ((size_t)d * p.B + p.row0 + row) * H + j) =
                   make_float2(o[0][0], o[0][1]);
+          } else if constexpr (kMode == kLayer) {
+            if (valid && p.out != nullptr)
+              F::store2(out + ((size_t)row * steps + t) * H + j, o[0][0], o[0][1]);
+            if (valid && last) F::store2(p.hn + (size_t)row * H + j, o[0][0], o[0][1]);
           } else if constexpr (P == 1) {
 #pragma unroll
             for (int v = 0; v < 5; ++v) staged[v][ci][n8][half] = pack_bf16_pair(o[v][0], o[v][1]);
@@ -464,11 +490,12 @@ inline size_t smem_bytes(int U, int P, int stages) {
          1024;
 }
 
-// the launch's checks: C CTAs owning whole 64-unit blocks of at most
-// Fwd<T>::kMaxUnits units each, a ring of 2..kMaxStages stages that fits
+// the launch's checks: C CTAs (up to max_cluster) owning whole 64-unit
+// blocks of at most Fwd<T>::kMaxUnits units each, a ring of 2..kMaxStages
+// stages that fits
 template <typename T>
-inline bool plan_fits(int H, int C, int stages) {
-  if (H % 64 != 0 || H <= 0 || C < 1 || C > kMaxCluster || (H / 64) % C != 0) return false;
+inline bool plan_fits(int H, int C, int stages, int max_cluster = kMaxCluster) {
+  if (H % 64 != 0 || H <= 0 || C < 1 || C > max_cluster || (H / 64) % C != 0) return false;
   const int U = H / C;
   if (U > Fwd<T>::kMaxUnits || stages < 2 || stages > kMaxStages) return false;
   return smem_bytes(U, Fwd<T>::kPieces, stages) <= (size_t)kSmemBudget;
@@ -496,13 +523,14 @@ inline cudaError_t make_a_map(CUtensorMap* map, const void* scratch, int H, int 
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, scratch, dims, strides, box);
 }
 
-// K5 over a.B rows, or one of K1's layers over a.rows rows in both
-// directions (grid y)
+// K5 or K8's f32 layer over a.B rows, or one of K1's layers over a.rows
+// rows in both directions (grid y)
 template <typename T, int NCH, int kMode>
 inline cudaError_t run_k5(const CUtensorMap& w_map, const FwdArgs& a, int C, cudaStream_t stream) {
   constexpr int P = Fwd<T>::kPieces;
-  constexpr int dirs = kMode == kTrain ? 1 : 2;
-  const int rows = kMode == kTrain ? a.B : a.rows;
+  constexpr bool kEnc = kMode == kEnc0 || kMode == kEnc1;
+  constexpr int dirs = kEnc ? 2 : 1;
+  const int rows = kEnc ? a.rows : a.B;
   const int U = a.H / C, tiles = (rows + kRows - 1) / kRows;
   CUtensorMap a_map;
   cudaError_t err = make_a_map(&a_map, a.scratch, a.H, P, tiles * dirs);
@@ -511,6 +539,11 @@ inline cudaError_t run_k5(const CUtensorMap& w_map, const FwdArgs& a, int C, cud
   err = cudaFuncSetAttribute(gru_fwd_kernel<T, NCH, kMode>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
+  if (C > kMaxCluster) {  // 16 CTAs: beyond the portable cluster sizes
+    err = cudaFuncSetAttribute(gru_fwd_kernel<T, NCH, kMode>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles * C, dirs, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
@@ -540,24 +573,6 @@ inline cudaError_t launch_gru_fwd(const CUtensorMap& w_map, const FwdArgs& a, in
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
-}
-
-// K1's f32 layer `layer` (0 or 1) over the rows [a.row0, a.row0 + a.rows)
-// of a.B, both directions: `w_map` is make_w_map's over both directions'
-// packed W_hh pieces for U = H / C; the scratch holds (2, tiles, 2, 3, 64,
-// H) bf16
-inline cudaError_t launch_encoder_layer(const CUtensorMap& w_map, const FwdArgs& a, int layer,
-                                        int C, cudaStream_t stream) {
-  if (!plan_fits<float>(a.H, C, a.stages) || a.H / C != 64 || a.rows < 1 || a.steps < 1 ||
-      a.row0 < 0 || a.row0 + a.rows > a.B || a.scratch == nullptr || a.hn == nullptr)
-    return cudaErrorInvalidValue;
-  if (layer == 0) {
-    if (a.tokens == nullptr || a.tab == nullptr || a.ys == nullptr || a.V < 1)
-      return cudaErrorInvalidValue;
-    return run_k5<float, 1, kEnc0>(w_map, a, C, stream);
-  }
-  if (layer == 1 && a.xw != nullptr) return run_k5<float, 1, kEnc1>(w_map, a, C, stream);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace fwd90

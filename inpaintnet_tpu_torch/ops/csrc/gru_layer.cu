@@ -9,7 +9,8 @@
 // same function. Same numerics as K8: the carry h is held in the parameter
 // dtype and rounded to it after every step (unlike K5, whose carry is f32);
 // hw = h @ W_hh takes h in the parameter dtype and accumulates in f32 (bf16:
-// wgmma; f32: scalar FMAs, no TF32); b_hh, xw and the gates run in f32,
+// wgmma; f32: six bf16 wgmma passes over exact pieces); b_hh, xw and the
+// gates run in f32,
 // every multiply and add rounded on its own (gru_common.cuh gru_gate); a
 // step whose mask is 0 keeps h and emits the held h, so an all-zero row
 // returns h0; reverse runs t = steps-1 .. 0 and the outputs stay in time
@@ -22,7 +23,8 @@
 // peak; the bytes (xw once, ys once) take less in bf16. W_hh is 1.5 MB
 // (H 512) or 6 MB (H 1024) in bf16, far over a block's 227 KB of shared
 // memory, so every block streams all of it from the 50 MB L2 on every step,
-// and the L2 bytes per row fall as the row tile grows.
+// and the L2 bytes per row fall as the row tile grows. In f32 the tensor
+// cores take the product as six bf16 passes: 0.31-0.47 ms at the bf16 peak.
 //
 // bf16 route (every serving default), the Hopper design of
 // gru_layer_hopper.cuh: a cluster of CTAs splits the units of a 64-row
@@ -30,157 +32,117 @@
 // wgmma and pushing its share of the new h into its peers' shared memory
 // every step (the source's note says why).
 //
-// f32 route (no serving default runs it; tensor cores have no exact f32
-// product), the first port's kernel: rows are independent, so one block owns 16 rows
-// and loops over all steps itself. Each thread owns whole units j
-// (j = thread + 256 c, up to four at H 1024) for all 16 rows and keeps their
-// carry in registers; the carry of all units sits k-major in shared memory,
-// (H, 20), double-buffered, as the product's operand (160 KB at H 1024). A
-// mask-held row computes its products but not its gates.
-#include "gru_common.cuh"
-#include "gru_layer_hopper.cuh"
-
+// f32 route: K5's f32 cluster recurrence (gru_fwd_hopper.cuh, mode
+// kLayer). The product on h runs as six bf16 wgmma passes over exact bf16
+// pieces of h and W_hh (hi, mid, lo), each 64-wide k-slab's partial added
+// with rounded f32 adds; C = H / 64 CTAs share a 64-row tile, each owning
+// 64 units of all three gates and exchanging its units' pieces of the new h
+// through an L2 scratch (16 CTAs at H 1024: a non-portable cluster); a
+// held step keeps h and passes the held h's pieces on.
 #include <string.h>
 
+#include "gru_fwd_hopper.cuh"
+#include "gru_layer_hopper.cuh"
+
 namespace inpaint {
+constexpr int kLayerMaxHidden = 1024;  // the LatentRNN's generation GRU (H * layers)
 
-template <typename T>
-struct LayerArgs {
-  const T* xw;            // (B, steps, 3H)
-  const void* whh;        // (H, 3H)
-  const T* bhh;           // (3H,)
-  const T* h0;            // (B, H)
-  const uint8_t* keep;    // (B, steps): 0 holds h at that step; null: every step runs
-  T* ys;                  // (B, steps, H) outputs, or null (h_n only)
-  T* hn;                  // (B, H)
-  int B, steps, H, reverse;
-};
+// The launchers live here, not in the headers, so that the other sources
+// that include those headers do not compile these kernels again.
+namespace rec90 {
 
-constexpr int kLayerMaxHidden = 1024;
-constexpr int kF32Rows = 16;
-constexpr int kLdT = kF32Rows + 4;  // k-major f32 carry: 16 rows + 4 floats (16-byte rows)
-
-__device__ __forceinline__ bool runs_step(const uint8_t* keep, int row, int steps, int t) {
-  return keep == nullptr || keep[(size_t)row * steps + t] != 0;
-}
-
-// f32: one thread per unit, all 16 rows, the carry in registers (see the
-// design note). NCOL: units per thread, ceil(H / kThreads).
-template <int NCOL>
-__global__ void __launch_bounds__(kThreads) gru_layer_f32_kernel(const LayerArgs<float> p) {
-  const int row0 = blockIdx.x * kF32Rows;
-  const int H = p.H, H3 = 3 * H, B = p.B;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* cur = reinterpret_cast<float*>(smem_raw);  // (H, kLdT): the carry, k-major
-  float* nxt = cur + H * kLdT;
-
-  float h[NCOL][kF32Rows];
-#pragma unroll
-  for (int c = 0; c < NCOL; ++c) {
-    const int j = threadIdx.x + c * kThreads;
-#pragma unroll
-    for (int r = 0; r < kF32Rows; ++r) {
-      h[c][r] = j < H && row0 + r < B ? p.h0[(size_t)(row0 + r) * H + j] : 0.0f;
-      if (j < H) cur[j * kLdT + r] = h[c][r];
-    }
-  }
-  __syncthreads();
-
-  const float* W = static_cast<const float*>(p.whh);
-  for (int s = 0; s < p.steps; ++s) {
-    const int t = p.reverse ? p.steps - 1 - s : s;
-#pragma unroll
-    for (int c = 0; c < NCOL; ++c) {
-      const int j = threadIdx.x + c * kThreads;
-      if (j >= H) continue;
-      float acc[3][kF32Rows];
-#pragma unroll
-      for (int g = 0; g < 3; ++g)
-#pragma unroll
-        for (int r = 0; r < kF32Rows; ++r) acc[g][r] = 0.0f;
-      const float* w = W + j;
-#pragma unroll 2
-      for (int k = 0; k < H; ++k) {
-        const float wr = __ldg(w + (size_t)k * H3);
-        const float wz = __ldg(w + (size_t)k * H3 + H);
-        const float wn = __ldg(w + (size_t)k * H3 + 2 * H);
-        const float4* a = reinterpret_cast<const float4*>(cur + k * kLdT);
-#pragma unroll
-        for (int q = 0; q < kF32Rows / 4; ++q) {
-          const float4 v = a[q];
-          const float vs[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[0][4 * q + e] = fmaf(vs[e], wr, acc[0][4 * q + e]);
-            acc[1][4 * q + e] = fmaf(vs[e], wz, acc[1][4 * q + e]);
-            acc[2][4 * q + e] = fmaf(vs[e], wn, acc[2][4 * q + e]);
-          }
-        }
-      }
-      const float br = p.bhh[j], bz = p.bhh[H + j], bn = p.bhh[2 * H + j];
-#pragma unroll
-      for (int r = 0; r < kF32Rows; ++r) {
-        const int row = row0 + r;
-        if (row < B && runs_step(p.keep, row, p.steps, t)) {
-          const float* x = p.xw + ((size_t)row * p.steps + t) * H3;
-          h[c][r] = gru_gate(x[j], __fadd_rn(acc[0][r], br), x[H + j], __fadd_rn(acc[1][r], bz),
-                             x[2 * H + j], __fadd_rn(acc[2][r], bn), h[c][r]);
-        }
-        nxt[j * kLdT + r] = h[c][r];
-        if (row < B && p.ys != nullptr) p.ys[((size_t)row * p.steps + t) * H + j] = h[c][r];
-      }
-    }
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-
-#pragma unroll
-  for (int c = 0; c < NCOL; ++c) {
-    const int j = threadIdx.x + c * kThreads;
-#pragma unroll
-    for (int r = 0; r < kF32Rows; ++r)
-      if (j < H && row0 + r < B) p.hn[(size_t)(row0 + r) * H + j] = h[c][r];
+inline int gru_layer_slots(int H, int C, int stages) {
+  if (!plan_fits(H, C, stages, 1)) return -1;
+  const size_t smem = smem_bytes(H, 1, stages);
+  switch (chunks_per_warpgroup(H, C)) {
+    case 1: return max_clusters(gru_layer_kernel<1>, C, smem);
+    case 2: return max_clusters(gru_layer_kernel<2>, C, smem);
+    case 3:
+    case 4: return max_clusters(gru_layer_kernel<4>, C, smem);
+    default: return max_clusters(gru_layer_kernel<8>, C, smem);
   }
 }
 
-template <int NCOL>
-static cudaError_t launch_f32(const LayerArgs<float>& a, cudaStream_t stream) {
-  const size_t smem = 2ull * a.H * kLdT * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(gru_layer_f32_kernel<NCOL>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  gru_layer_f32_kernel<NCOL><<<(a.B + kF32Rows - 1) / kF32Rows, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-static cudaError_t launch(const LayerArgs<float>& a, cudaStream_t stream) {
-  switch ((a.H + kThreads - 1) / kThreads) {
-    case 1: return launch_f32<1>(a, stream);
-    case 2: return launch_f32<2>(a, stream);
-    case 3: return launch_f32<3>(a, stream);
-    default: return launch_f32<4>(a, stream);
+inline cudaError_t launch_gru_layer(const CUtensorMap& map, const LayerArgs& a, int C,
+                                    cudaStream_t stream) {
+  if (!plan_fits(a.H, C, a.stages, 1) || a.B < 1 || a.steps < 1) return cudaErrorInvalidValue;
+  const int clusters = (a.B + kRows - 1) / kRows;
+  const size_t smem = smem_bytes(a.H, 1, a.stages);
+  switch (chunks_per_warpgroup(a.H, C)) {
+    case 1: return launch_clusters(gru_layer_kernel<1>, clusters, C, smem, stream, map, a);
+    case 2: return launch_clusters(gru_layer_kernel<2>, clusters, C, smem, stream, map, a);
+    case 3:
+    case 4: return launch_clusters(gru_layer_kernel<4>, clusters, C, smem, stream, map, a);
+    case 5:
+    case 6:
+    case 7:
+    case 8: return launch_clusters(gru_layer_kernel<8>, clusters, C, smem, stream, map, a);
+    default: return cudaErrorInvalidValue;
   }
 }
 
+}  // namespace rec90
+
+namespace fwd90 {
+
+// K8's f32 layer over a.B rows: `w_map` is make_w_map's over the packed
+// W_hh pieces for U = 64 (C = H / 64 CTAs, up to 16); the scratch holds
+// (tiles, 2, 3, 64, H) bf16; a.out (ys) may be null, a.hn not
+inline cudaError_t launch_gru_layer_f32(const CUtensorMap& w_map, const FwdArgs& a, int C,
+                                        cudaStream_t stream) {
+  if (!plan_fits<float>(a.H, C, a.stages, kMaxLayerCluster) || a.H / C != 64 || a.B < 1 ||
+      a.steps < 1 || a.scratch == nullptr || a.hn == nullptr)
+    return cudaErrorInvalidValue;
+  return run_k5<float, 1, kLayer>(w_map, a, C, stream);
+}
+
+}  // namespace fwd90
 }  // namespace inpaint
 
-// The f32 route. Tensors as documented on LayerArgs (keep and ys may be
-// null); H a multiple of 64 up to 1024, B and steps at least 1; reverse != 0
-// runs t = steps-1 .. 0. Returns the cudaError_t of the launch (0 on
-// success); launches on `stream` and does not synchronise.
-extern "C" int inpaint_gru_layer_f32(const void* xw, const void* whh, const void* bhh,
+// The f32 route: `w_map` is inpaint_gru_fwd_w_map's over the packed W_hh
+// pieces (gru_train_kernel.pack_fwd_weights) for 64 units a CTA; `scratch`
+// holds (tiles, 2, 3, 64, H) bf16; `cluster` is H / 64 (at most 16) and
+// `stages` the ring's depth (gru_kernel.f32_plan). xw (B, steps, 3H), b_hh
+// (3H,), h0 (B, H), ys (B, steps, H) or null, hn (B, H), all f32; keep (B,
+// steps) uint8 or null (0 holds h at that step); reverse != 0 runs t =
+// steps-1 .. 0. Returns the cudaError_t of the launch (0 on success);
+// launches on `stream` and does not synchronise.
+extern "C" int inpaint_gru_layer_f32(const void* w_map, const void* xw, const void* bhh,
                                      const void* h0, const void* keep, void* ys, void* hn,
-                                     int B, int steps, int H, int reverse, void* stream) {
-  if (H % inpaint::kChunk != 0 || H > inpaint::kLayerMaxHidden || B < 1 || steps < 1)
-    return (int)cudaErrorInvalidValue;
-  inpaint::LayerArgs<float> a{static_cast<const float*>(xw), whh,
-                              static_cast<const float*>(bhh), static_cast<const float*>(h0),
-                              static_cast<const uint8_t*>(keep), static_cast<float*>(ys),
-                              static_cast<float*>(hn), B, steps, H, reverse};
-  return (int)inpaint::launch(a, static_cast<cudaStream_t>(stream));
+                                     void* scratch, int B, int steps, int H, int reverse,
+                                     int cluster, int stages, void* stream) {
+  using namespace inpaint::fwd90;
+  if (w_map == nullptr) return (int)cudaErrorInvalidValue;
+  CUtensorMap m;
+  memcpy(&m, w_map, sizeof(m));
+  FwdArgs a{};
+  a.xw = xw;
+  a.bhh = bhh;
+  a.h0 = h0;
+  a.out = ys;
+  a.scratch = static_cast<__nv_bfloat16*>(scratch);
+  a.B = B;
+  a.steps = steps;
+  a.H = H;
+  a.reverse = reverse;
+  a.stages = stages;
+  a.hn = static_cast<float*>(hn);
+  a.keep = static_cast<const uint8_t*>(keep);
+  return (int)launch_gru_layer_f32(m, a, cluster, static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of `cluster` (H / 64) CTAs of the f32 route with `stages` ring
+// stages that the card runs at once (16 CTAs: a non-portable cluster, so
+// fewer GPCs hold one); -1 where the plan does not fit.
+extern "C" int inpaint_gru_layer_f32_slots(int H, int cluster, int stages) {
+  using namespace inpaint::fwd90;
+  const auto kernel = gru_fwd_kernel<float, 1, kLayer>;
+  if (!plan_fits<float>(H, cluster, stages, kMaxLayerCluster) || H / cluster != 64) return -1;
+  if (cluster > kMaxCluster &&
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) !=
+          cudaSuccess)
+    return -1;
+  return inpaint::rec90::max_clusters(kernel, cluster, smem_bytes(64, 3, stages), kThreads);
 }
 
 // Encode into `map_out` (128 bytes, 64-byte aligned) the tensor map of

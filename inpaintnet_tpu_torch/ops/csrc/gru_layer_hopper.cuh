@@ -536,34 +536,85 @@ inline int chunks_per_warpgroup(int H, int C) {
   return (nch + kConsumers - 1) / kConsumers;
 }
 
-inline int gru_layer_slots(int H, int C, int stages) {
-  if (!plan_fits(H, C, stages, 1)) return -1;
-  const size_t smem = smem_bytes(H, 1, stages);
-  switch (chunks_per_warpgroup(H, C)) {
-    case 1: return max_clusters(gru_layer_kernel<1>, C, smem);
-    case 2: return max_clusters(gru_layer_kernel<2>, C, smem);
-    case 3:
-    case 4: return max_clusters(gru_layer_kernel<4>, C, smem);
-    default: return max_clusters(gru_layer_kernel<8>, C, smem);
+// ---------------------------------------------------------------------------
+// The split f32 products of K7's and K2's f32 routes (arnn_hopper.cuh
+// arnn_f32_kernel, decode_hopper.cuh decode_f32_kernel): a ring of `stages`
+// stages, each a 64-wide k-slab of the operand's three bf16 pieces (one TMA
+// box from an L2 scratch, 24 KB) and of two chunks' weight pieces (blocks
+// of N rows x 64 of K, [piece][chunk]), read by both consumer warpgroups:
+// warpgroup wg multiplies chunk wg.
+// ---------------------------------------------------------------------------
+constexpr int kF32ABytes = 3 * kBlockBytes;  // a k-slab of an operand's pieces: 24 KB
+
+// the consumers' side of the ring (both warpgroups read every stage)
+struct F32Ring {
+  unsigned char* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  int stages, stage_bytes, block_bytes;  // a block: one chunk's N rows of one weight piece
+  int stage;
+  uint32_t phase;
+};
+
+// The split product of the next `nk` ring stages into acc: six bf16 passes
+// a stage into a partial of its own, added into acc with rounded f32 adds
+// (the tensor cores' own f32 sums are not rounded to nearest). NA = 32: a
+// 64 x 64 tile (wgmma n64, K7's 16-unit LSTM chunks); NA = 24: a 64 x 48
+// tile (n48, K2's 16-unit GRU chunks). acc[i] is row 16 warp + g + 8 ((i /
+// 2) % 2), column 8 (i / 4) + 2q + i % 2 of warpgroup wg's tile; a
+// warpgroup that is not `active` only hands the stages back.
+template <int NA>
+__device__ __forceinline__ void f32_product(F32Ring& rg, float (&acc)[NA], int nk, bool active,
+                                            int wg, int lane) {
+  static_assert(NA == 32 || NA == 24, "n64 or n48 tiles");
+  for (int k = 0; k < nk; ++k) {
+    unsigned char* st = rg.ring + rg.stage * rg.stage_bytes;
+    mbar_wait_bounded<false>(&rg.full[rg.stage], rg.phase);
+    if (active) {
+      float part[NA];
+      wgmma_fence();
+#pragma unroll
+      for (int pass = 0; pass < 6; ++pass) {
+        // (operand piece, weight piece), smallest terms first: lh, hl, mm, mh, hm, hh
+        const int ap = (0x001102 >> (4 * pass)) & 0xF;
+        const int bp = (0x010120 >> (4 * pass)) & 0xF;
+        const uint64_t da = desc_sw128(st + ap * kBlockBytes);
+        const uint64_t db = desc_sw128(st + kF32ABytes + (bp * 2 + wg) * rg.block_bytes);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if constexpr (NA == 32)
+            wgmma_bf16_n64(part, da + 2 * kk, db + 2 * kk, (pass > 0 || kk > 0) ? 1 : 0);
+          else
+            wgmma_bf16_n48(part, da + 2 * kk, db + 2 * kk, (pass > 0 || kk > 0) ? 1 : 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(part);
+      if (lane == 0) mbar_arrive(&rg.empty[rg.stage]);
+#pragma unroll
+      for (int i = 0; i < NA; ++i) acc[i] = k == 0 ? part[i] : __fadd_rn(acc[i], part[i]);
+    } else if (lane == 0) {
+      mbar_arrive(&rg.empty[rg.stage]);
+    }
+    if (++rg.stage == rg.stages) {
+      rg.stage = 0;
+      rg.phase ^= 1;
+    }
   }
 }
 
-inline cudaError_t launch_gru_layer(const CUtensorMap& map, const LayerArgs& a, int C,
-                                    cudaStream_t stream) {
-  if (!plan_fits(a.H, C, a.stages, 1) || a.B < 1 || a.steps < 1) return cudaErrorInvalidValue;
-  const int clusters = (a.B + kRows - 1) / kRows;
-  const size_t smem = smem_bytes(a.H, 1, a.stages);
-  switch (chunks_per_warpgroup(a.H, C)) {
-    case 1: return launch_clusters(gru_layer_kernel<1>, clusters, C, smem, stream, map, a);
-    case 2: return launch_clusters(gru_layer_kernel<2>, clusters, C, smem, stream, map, a);
-    case 3:
-    case 4: return launch_clusters(gru_layer_kernel<4>, clusters, C, smem, stream, map, a);
-    case 5:
-    case 6:
-    case 7:
-    case 8: return launch_clusters(gru_layer_kernel<8>, clusters, C, smem, stream, map, a);
-    default: return cudaErrorInvalidValue;
-  }
+// the pieces of the pair (v0, v1) at row r, column col of the scratch
+// plane `pl` (rows of `wd`)
+__device__ __forceinline__ void f32_put(__nv_bfloat16* scratch, int pl, int wd, int r, int col,
+                                        float v0, float v1) {
+  __nv_bfloat16 a[3], b[3];
+  split3(v0, a);
+  split3(v1, b);
+#pragma unroll
+  for (int pi = 0; pi < 3; ++pi)
+    *reinterpret_cast<__nv_bfloat162*>(scratch + ((size_t)(pl + pi) * kRows + r) * wd + col) =
+        __halves2bfloat162(a[pi], b[pi]);
 }
 
 }  // namespace rec90

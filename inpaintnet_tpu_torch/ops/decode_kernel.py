@@ -7,12 +7,19 @@ how its design answers). Its bf16 route is the Hopper design of
 ``csrc/decode_hopper.cuh``: :func:`launch_plan` picks how many CTAs of a
 cluster split the units of each 64-row tile, and the packed weights, their
 tensor map and the stacked biases are built once per set of weight tensors
-(:func:`decode_operands`). ``decode_sampling_reference`` is its plain
-PyTorch version with the same numerics: products accumulate in f32, biases
-and gates in f32, both carries are rounded to the parameter dtype every
-tick, the fed-back row is a row of the parameter-dtype token table, the
-argmax runs on the f32 logits (first index among equal maxima), and the
-logits are returned in the parameter dtype.
+(:func:`decode_operands`). Its f32 route (``decode_hopper.cuh
+decode_f32_kernel``) runs the same tick chain with every product as six
+bf16 ``wgmma`` passes over exact pieces, h's pieces exchanged through an L2
+scratch (:func:`f32_plan`; the weight pieces :func:`pack_decode_f32_weights`,
+the init hiddens' pieces :func:`decode_f32_data`).
+``decode_sampling_reference`` is its plain PyTorch version with the same
+numerics: products accumulate in f32, biases and gates in f32, both
+carries are rounded to the parameter dtype every tick, the fed-back row is
+a row of the parameter-dtype token table, the argmax runs on the f32
+logits (first index among equal maxima), and the logits are returned in
+the parameter dtype. :func:`tick_product`, :func:`layer1_preacts` and
+:func:`beat_operand` hold the steps a kernel is most likely to get wrong,
+so a check can plant a fault there.
 
 The products around the loop (token table, tick-0 input, beat-context
 projection) are computed outside the kernel by ``decode_inputs``, as the
@@ -35,9 +42,15 @@ from __future__ import annotations
 
 import torch
 
+import ctypes
+import functools
+
 from inpaintnet_tpu_torch.ops.encoder_kernel import pack_gate_blocks
 from inpaintnet_tpu_torch.ops.kernel_common import (
     DTYPE_CODES,
+    HOPPER_CLUSTERS,
+    HOPPER_ROWS,
+    HOPPER_SMEM_BUDGET,
     LaunchPlan,
     WeightCache,
     check_cuda_tensor,
@@ -45,12 +58,14 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     cluster_sizes,
     gru_gates_f32,
     kernel_supports_hidden,
+    least_cost_cluster,
     load_kernels,
     recurrence_plan,
     recurrence_slots,
     ring_stages,
-    round_up,
     slab_map,
+    split_bf16_pieces,
+    split_blocks,
     stream_ptr,
 )
 from inpaintnet_tpu_torch.ops.quantize import dequantize_h, quantize_cols_int8, quantize_h_int8
@@ -58,6 +73,11 @@ from inpaintnet_tpu_torch.ops.quantize import dequantize_h, quantize_cols_int8, 
 NUM_TICKS = 24
 TICKS_PER_BEAT = 6
 HEAD_COLS = 96  # the Hopper routes' head: a 96-row chunk (48 columns a warpgroup), V zero-padded
+# K2 f32 against its plain version on the card (and a split emulation
+# against the plain version and the JAX kernel on the CPU): tokens equal on
+# >= 99.99% (argmax near-ties), logits within 1e-5 where both decodes fed
+# back the same tokens (both sum in f32, in other orders)
+F32_BOUNDS = {"tokens": 0.9999, "logits": 1e-5}
 
 
 def _ctx_xw(params, tick_ctx: torch.Tensor) -> torch.Tensor:
@@ -87,6 +107,77 @@ def decode_inputs(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor) -> dict
     }
 
 
+def agreement(got, want) -> dict:
+    """(logits, samples) of K2 against its plain version's: the share of
+    equal tokens, and the logits' max and mean absolute error up to each
+    row's first token mismatch (both decodes fed back the same tokens
+    there; past it the two rows are not comparable)."""
+    same = (got[1] == want[1]).int()
+    seen = torch.cat([torch.ones_like(same[:, :1]), torch.cumprod(same, 1)[:, :-1]], 1).bool()
+    err = (got[0].float() - want[0].float()).abs()[seen]
+    return {"tokens": same.float().mean().item(), "logits": err.max().item(),
+            "mean": err.mean().item()}
+
+
+def within(agree: dict, bound: dict = F32_BOUNDS) -> bool:
+    """Tokens equal on at least ``bound["tokens"]``, logits within
+    ``bound["logits"]``."""
+    return agree["tokens"] >= bound["tokens"] and agree["logits"] <= bound["logits"]
+
+
+def tick_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The products on a tick's h (layer 0's on h0, layer 1's on h0' and
+    h1, the head's on h1'): h in f32 @ f32 ``w`` (one place, so a check can
+    plant h taken as one bf16 piece, or the split arithmetic)."""
+    return h.float() @ w
+
+
+def layer1_preacts(x: torch.Tensor, h: torch.Tensor, b_ih: torch.Tensor, b_hh: torch.Tensor):
+    """Layer 1's two pre-activations from its products: (x + b_ih1, h +
+    b_hh1), each in its own sum (one place, so a check can plant the two
+    products summed in one accumulator)."""
+    return x + b_ih, h + b_hh
+
+
+def one_accumulator_preacts(x: torch.Tensor, h: torch.Tensor, b_ih: torch.Tensor,
+                            b_hh: torch.Tensor):
+    """The planted fault of :func:`layer1_preacts` "layer 1's x- and
+    h-products in one accumulator": the r and z columns summed ((x + h) +
+    b_ih1) + b_hh1 (hw's part zero), the n column's products apart (r
+    multiplies h's). In f32 it moves layer 1 by a rounding only; on
+    :func:`cancelling_layer1_biases` the rounding shows."""
+    hidden = x.shape[1] // 3
+    rz = ((x[:, :2 * hidden] + h[:, :2 * hidden]) + b_ih[:2 * hidden]) + b_hh[:2 * hidden]
+    return (torch.cat([rz, x[:, 2 * hidden:] + b_ih[2 * hidden:]], 1),
+            torch.cat([torch.zeros_like(rz), h[:, 2 * hidden:] + b_hh[2 * hidden:]], 1))
+
+
+def cancelling_layer1_biases(params, shift: float):
+    """The decoder's params with layer 1's biases moved by +shift (b_ih1)
+    and -shift (b_hh1): the same function, on which the plain version's sum
+    order (x + b_ih1) + (h + b_hh1) and :func:`one_accumulator_preacts`'
+    round apart by up to half an ulp of ``shift`` (a check's input, not a
+    model's)."""
+    p1 = dict(params["tick_gru"][1][0])
+    p1["b_ih"], p1["b_hh"] = p1["b_ih"] + shift, p1["b_hh"] - shift
+    return {**params, "tick_gru": [params["tick_gru"][0], [p1]]}
+
+
+# On cancelling_layer1_biases(params, SUM_ORDER_SHIFT) the fault
+# one_accumulator_preacts moves the mean logit error (against the plain
+# version) to at least SUM_ORDER_RATIO times a correct kernel's (the split
+# emulation on the CPU: 35-41x; PERF.md has the card's readings)
+SUM_ORDER_SHIFT = 1024.0
+SUM_ORDER_RATIO = 8.0
+
+
+def beat_operand(init: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """The operand of a reset tick's product on h (t % 6 == 0, t > 0): the
+    beat's init hidden, not ``prev``, the h of the tick before (one place,
+    so a check can plant the latter)."""
+    return init
+
+
 def decode_sampling_reference(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
     """Plain version of K2.
 
@@ -107,15 +198,20 @@ def decode_sampling_reference(params, tick_ctx: torch.Tensor, h_inits: torch.Ten
     logits, samples = [], []
     for t in range(NUM_TICKS):
         beat = t // TICKS_PER_BEAT
-        if t % TICKS_PER_BEAT == 0:
+        if t % TICKS_PER_BEAT:
+            op0, op1 = h0, h1
+        elif t == 0:
+            op0, op1 = h0, h1 = ins["hi0"][beat], ins["hi1"][beat]
+        else:
+            op0, op1 = beat_operand(ins["hi0"][beat], h0), beat_operand(ins["hi1"][beat], h1)
             h0, h1 = ins["hi0"][beat], ins["hi1"][beat]
         xw0 = prev + ins["ctx_xw"][beat].float()
-        hw0 = h0.float() @ f["whh0"] + f["bhh0"]
+        hw0 = tick_product(op0, f["whh0"]) + f["bhh0"]
         h0 = gru_gates_f32(xw0, hw0, h0.float(), hidden).to(dtype)
-        xw1 = h0.float() @ f["wih1"] + f["bih1"]
-        hw1 = h1.float() @ f["whh1"] + f["bhh1"]
+        xw1, hw1 = layer1_preacts(tick_product(h0, f["wih1"]), tick_product(op1, f["whh1"]),
+                                  f["bih1"], f["bhh1"])
         h1 = gru_gates_f32(xw1, hw1, h1.float(), hidden).to(dtype)
-        lg = torch.relu(h1.float() @ f["head_w"] + f["head_b"])
+        lg = torch.relu(tick_product(h1, f["head_w"]) + f["head_b"])
         s = torch.argmax(lg, dim=-1)  # first index among equal maxima
         prev = ins["tok_tab"][s].float()
         logits.append(lg.to(dtype))
@@ -167,6 +263,121 @@ def card_plan(rows: int, hidden: int, device) -> LaunchPlan:
                        slots)
 
 
+# --------------------------------------------------------------------------- #
+# K2's f32 route (csrc/decode_hopper.cuh decode_f32_kernel)
+# --------------------------------------------------------------------------- #
+F32_UNITS = 16  # units of a chunk: its r, z, n rows are one 64 x 48 wgmma tile
+F32_BLOCK_BYTES = 3 * F32_UNITS * 128  # a 48 x 64 bf16 block of packed weight pieces
+F32_STAGE_BYTES = 3 * HOPPER_ROWS * 128 + 6 * F32_BLOCK_BYTES  # the operand's pieces + two chunks'
+F32_MAX_STAGES = 4
+F32_CARRY_PAD = 8  # f32 padding of the carries' rows
+
+
+def f32_smem_bytes(hidden: int, cluster: int, stages: int) -> int:
+    """Dynamic shared memory of an f32 K2 CTA (``decode_hopper.cuh
+    decode_f32_smem_bytes``): the ring's 60 KB stages (a k-slab of the
+    operand's three pieces and of two chunks' three weight pieces) and the
+    f32 carries of its ``hidden / cluster`` units, both layers."""
+    return (stages * F32_STAGE_BYTES
+            + 2 * HOPPER_ROWS * (hidden // cluster + F32_CARRY_PAD) * 4 + 1024)
+
+
+def f32_stages(hidden: int, cluster: int) -> int:
+    """Ring stages of an f32 K2 CTA beside its carries: 3 at H 512 with 8
+    CTAs a tile, 2 with 4."""
+    free = HOPPER_SMEM_BUDGET - f32_smem_bytes(hidden, cluster, 0)
+    return min(F32_MAX_STAGES, free // F32_STAGE_BYTES)
+
+
+def f32_cluster_sizes(hidden: int) -> list:
+    """Cluster sizes the f32 route takes: CTAs owning whole pairs of 16-unit
+    chunks (32 units a round, one chunk a consumer warpgroup) with a ring of
+    at least two stages beside their f32 carries: 4 and 8 at the flagship's
+    H 512 (at 2 the carries of 256 units leave one stage)."""
+    if hidden % 64 or hidden <= 0:
+        return []
+    return [c for c in HOPPER_CLUSTERS
+            if hidden % c == 0 and (hidden // c) % 32 == 0 and f32_stages(hidden, c) >= 2]
+
+
+def f32_plan(rows: int, hidden: int, sms: int, slots=None) -> LaunchPlan:
+    """How the f32 route runs ``rows`` rows: the cluster size of
+    ``kernel_common.least_cost_cluster`` among :func:`f32_cluster_sizes`
+    (a CTA's chain of rounds shrinks as 1/C), with its ring depth. Raises
+    ValueError for a width no size takes."""
+    sizes = f32_cluster_sizes(hidden)
+    if not sizes:
+        raise ValueError(f"no f32 K2 plan for hidden size {hidden}")
+    cluster = least_cost_cluster(rows, sizes, sms, slots)
+    return LaunchPlan(cluster, f32_stages(hidden, cluster))
+
+
+@functools.lru_cache(maxsize=None)
+def f32_slots(hidden: int, device_index: int) -> dict:
+    """{C: clusters of C CTAs of the f32 route the card runs at once},
+    asked once per width and card."""
+    with torch.cuda.device(device_index):
+        counts = {c: load_kernels().inpaint_decode_f32_slots(hidden, c, f32_stages(hidden, c))
+                  for c in f32_cluster_sizes(hidden)}
+    bad = sorted(c for c, n in counts.items() if n < 1)
+    if bad:
+        raise RuntimeError(f"decode_sampling: the card runs no f32 cluster of sizes {bad} at "
+                           f"hidden size {hidden}")
+    return counts
+
+
+def f32_card_plan(rows: int, hidden: int, device) -> LaunchPlan:
+    """:func:`f32_plan` on the card ``device`` names, with its own SM count
+    and cluster slots: the plan :func:`decode_sampling` launches in f32."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return f32_plan(rows, hidden, torch.cuda.get_device_properties(index).multi_processor_count,
+                    f32_slots(hidden, index))
+
+
+def pack_decode_f32_weights(w_hh0, w_ih1, w_hh1, head_w) -> torch.Tensor:
+    """The f32 route's weights as one array of (48, 64) bf16 blocks (6 KB),
+    each weight's three pieces (``kernel_common.split_bf16_pieces``), in
+    the order the recurrence streams them (``kernel_common.split_blocks``):
+    W_hh0, W_ih1 and W_hh1 by pairs of 16-unit chunks, row 16 g + u of chunk
+    c the weight's column g H + 16 c + u; then the head's W^T, its columns
+    zero-padded to 96, as one pair of 48."""
+    hidden, vocab = head_w.shape
+
+    def gru(w):
+        wt = w.float().t().reshape(3, hidden // F32_UNITS, F32_UNITS, hidden)
+        wt = wt.permute(1, 0, 2, 3).reshape(3 * hidden, hidden)
+        return split_blocks(torch.stack(split_bf16_pieces(wt)), 3 * F32_UNITS)
+
+    head = torch.zeros((HEAD_COLS, hidden), dtype=torch.float32, device=head_w.device)
+    head[:vocab] = head_w.float().t()
+    return torch.cat([gru(w_hh0), gru(w_ih1), gru(w_hh1),
+                      split_blocks(torch.stack(split_bf16_pieces(head)), HEAD_COLS // 2)]) \
+        .contiguous()
+
+
+def f32_map(packed: torch.Tensor):
+    """The tensor map (a 128-byte CUtensorMap, in a host buffer) of the
+    packed (blocks, 48, 64) bf16 weight pieces, six blocks a box. ->
+    (buffer, its aligned address); keep ``packed`` alive as long as the
+    map."""
+    buf = ctypes.create_string_buffer(128 + 64)
+    addr = (ctypes.addressof(buf) + 63) // 64 * 64
+    check_launch(load_kernels().inpaint_decode_f32_map(packed.data_ptr(), packed.shape[0], addr),
+                 "decode_f32_map")
+    return buf, addr
+
+
+def decode_f32_data(h_inits: torch.Tensor) -> torch.Tensor:
+    """The f32 route's per-call operand: the init hiddens' three bf16
+    pieces, (2 layers, 4 beats, 3 pieces, rows, H) with the rows zero-padded
+    to whole 64-row tiles, which a reset tick's products read instead of the
+    previous tick's pieces."""
+    layers, batch, beats, hidden = h_inits.shape
+    rows = -(-batch // HOPPER_ROWS) * HOPPER_ROWS
+    hi = torch.nn.functional.pad(h_inits.float().transpose(1, 2), (0, 0, 0, rows - batch))
+    return torch.stack(split_bf16_pieces(hi), dim=2).contiguous()
+
+
 def pack_decode_weights(w_hh0, w_ih1, w_hh1, head_w) -> torch.Tensor:
     """K2's bf16 or K4's int8 weights as one array of (96, 64) k-slabs,
     (3 H / 32 + 1, H / 64, 96, 64): W_hh0, W_ih1 and W_hh1 as
@@ -183,17 +394,15 @@ def pack_decode_weights(w_hh0, w_ih1, w_hh1, head_w) -> torch.Tensor:
 
 
 def _build_decode_operands(w_hh0, w_ih1, w_hh1, head_w, b_hh0, b_ih1, b_hh1, head_b):
-    if head_w.dtype != torch.bfloat16:  # the f32 route reads the weights as they are
-        vocab_pad = round_up(head_w.shape[1], 8)
-        pad = (0, vocab_pad - head_w.shape[1])
-        return {"head_w": torch.nn.functional.pad(head_w, pad).contiguous(),
-                "head_b": torch.nn.functional.pad(head_b, pad).contiguous(),
-                "bias": torch.stack([b_hh0, b_ih1, b_hh1])}
-    packed = pack_decode_weights(w_hh0, w_ih1, w_hh1, head_w)
-    buf, addr = slab_map(packed)
-    return {"packed": packed, "map": buf, "map_addr": addr,
-            "head_b": torch.nn.functional.pad(head_b, (0, HEAD_COLS - head_b.shape[0])),
-            "bias": torch.stack([b_hh0, b_ih1, b_hh1])}
+    head_b = torch.nn.functional.pad(head_b, (0, HEAD_COLS - head_b.shape[0]))
+    bias = torch.stack([b_hh0, b_ih1, b_hh1])
+    if head_w.dtype == torch.bfloat16:
+        packed = pack_decode_weights(w_hh0, w_ih1, w_hh1, head_w)
+        buf, addr = slab_map(packed)
+    else:
+        packed = pack_decode_f32_weights(w_hh0, w_ih1, w_hh1, head_w)
+        buf, addr = f32_map(packed)
+    return {"packed": packed, "map": buf, "map_addr": addr, "head_b": head_b, "bias": bias}
 
 
 # K2's per-weight operands, built once per set of weight tensors
@@ -203,8 +412,8 @@ decode_operands = WeightCache(_build_decode_operands)
 def decode_sampling(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
     """K2: argmax decode of one measure per row.
 
-    :param params: HierarchicalDecoder params, (in, out) weights, f32 or bf16
-        (bf16: a vocabulary of at most 96)
+    :param params: HierarchicalDecoder params, (in, out) weights, f32 or bf16,
+        a vocabulary of at most 96
     :param tick_ctx: (B, 4, H) per-beat context (selu'd beat_to_tick_input)
     :param h_inits: (2, B, 4, H) per-beat tick-GRU init hiddens
     :return: (logits (B, 24, V) in the parameter dtype, samples (B, 24) int32)
@@ -215,8 +424,8 @@ def decode_sampling(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
         raise ValueError(f"decode_sampling: no kernel for device {tick_ctx.device}")
     batch, hidden, vocab, dtype, device = _check_decode_args("decode_sampling", params,
                                                              tick_ctx, h_inits)
-    if dtype == torch.bfloat16 and vocab > HEAD_COLS:
-        raise ValueError(f"decode_sampling: no bf16 kernel for vocabulary {vocab} (at most "
+    if vocab > HEAD_COLS:
+        raise ValueError(f"decode_sampling: no kernel for vocabulary {vocab} (at most "
                          f"{HEAD_COLS})")
     p0, p1 = params["tick_gru"][0][0], params["tick_gru"][1][0]
     ops = decode_operands(p0["w_hh"], p1["w_ih"], p1["w_hh"], params["head"]["w"],
@@ -234,11 +443,15 @@ def decode_sampling(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
             logits.data_ptr(), samples.data_ptr(), batch, hidden, vocab, plan.cluster,
             plan.stages, stream_ptr())
     else:
+        plan = f32_card_plan(batch, hidden, device)
+        init = decode_f32_data(h_inits)
+        # the exchange of h0's and h1's three pieces, by tick parity
+        scratch = torch.empty((-(-batch // HOPPER_ROWS), 2, 2, 3, HOPPER_ROWS, hidden),
+                              dtype=torch.bfloat16, device=device)
         err = lib.inpaint_decode_sampling_f32(
-            *inputs, p0["w_hh"].data_ptr(), p1["w_ih"].data_ptr(), p1["w_hh"].data_ptr(),
-            ops["bias"].data_ptr(), ops["head_w"].data_ptr(), ops["head_b"].data_ptr(),
-            logits.data_ptr(), samples.data_ptr(), batch, hidden, vocab,
-            ops["head_w"].shape[1], stream_ptr())
+            ops["map_addr"], *inputs, ops["bias"].data_ptr(), ops["head_b"].data_ptr(),
+            logits.data_ptr(), samples.data_ptr(), init.data_ptr(), scratch.data_ptr(), batch,
+            hidden, vocab, plan.cluster, plan.stages, stream_ptr())
     check_launch(err, "decode_sampling")
     decode_sampling.launches += 1
     return logits, samples

@@ -10,13 +10,17 @@ and how its design answers. Its bf16 route is the Hopper design of
 ``csrc/gru_layer_hopper.cuh``: :func:`launch_plan` picks how many CTAs of
 a cluster split the units of each 64-row tile, and the packed W_hh^T gate
 slabs and their tensor map are built once per weight tensor
-(:func:`layer_operands`). ``gru_layer_reference`` is its plain PyTorch
-version, op for op the JAX kernel's (``_gru_stream_kernel``):
+(:func:`layer_operands`). Its f32 route is K5's f32 recurrence
+(``csrc/gru_fwd_hopper.cuh``, mode ``kLayer``): the product as six bf16
+``wgmma`` passes over exact pieces, 64 units a CTA (:func:`f32_plan`), the
+W_hh pieces and their map K5's (``gru_train_kernel.fwd_operands``).
+``gru_layer_reference`` is its plain PyTorch version, op for op the JAX
+kernel's (``_gru_stream_kernel``):
 
 - the carry h is held in the parameter dtype and rounded to it after every
   step (:func:`carry`; K5's carry is f32);
 - ``hw = h @ W_hh`` takes h in the parameter dtype, accumulates in f32, and
-  adds ``b_hh`` in f32;
+  adds ``b_hh`` in f32 (:func:`layer_product`);
 - the gates run in f32 on ``xw`` and h upcast
   (``kernel_common.gru_gates_f32``);
 - a step whose mask is 0 keeps h and emits the held h, so an all-zero row
@@ -43,8 +47,10 @@ from typing import Optional
 import torch
 
 from inpaintnet_tpu_torch.ops.encoder_kernel import pack_gate_blocks
+from inpaintnet_tpu_torch.ops.gru_train_kernel import fwd_operands, fwd_ring_stages, fwd_w_map
 from inpaintnet_tpu_torch.ops.kernel_common import (
     DTYPE_CODES,
+    HOPPER_ROWS,
     LaunchPlan,
     WeightCache,
     check_cuda_tensor,
@@ -66,6 +72,12 @@ def carry(h_new: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return h_new.to(dtype)
 
 
+def layer_product(h: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """K8's recurrent product: the carry in the parameter dtype @ f32
+    ``W_hh`` (one place, so a check can plant h taken as one bf16 piece)."""
+    return h.float() @ w_hh
+
+
 def gru_layer_reference(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                         h0: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
                         reverse: bool = False, want_ys: bool = True):
@@ -85,13 +97,35 @@ def gru_layer_reference(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor
     h = h0
     ys = [None] * seq_len
     for t in (range(seq_len - 1, -1, -1) if reverse else range(seq_len)):
-        hw = h.to(dtype).float() @ whh + bhh
+        hw = layer_product(h.to(dtype), whh) + bhh
         h_new = carry(gru_gates_f32(xw[:, t].float(), hw, h.float(), hidden), dtype)
         h = h_new if keep is None else torch.where(keep[:, t], h_new, h)
         ys[t] = h
     if not want_ys:
         return None, h.to(dtype)
     return torch.stack(ys, dim=1).to(dtype), h.to(dtype)
+
+
+def held_pieces_fault_reference(xw, w_hh, b_hh, h0, mask, *, reverse: bool = False,
+                                want_ys: bool = True):
+    """The planted fault "a held row writes no pieces" of K8's f32 route, in
+    plain PyTorch: the kernel's product reads its operand from the scratch
+    buffer of the step's parity, which holds h0 before step 0 and what each
+    row last wrote there; here a held row writes nothing, so a row that runs
+    after a hold multiplies the h of two steps (or more) before, or zeros
+    where its buffer was never written. The gates take the right carry.
+    Arguments and results as :func:`gru_layer_reference` (f32)."""
+    seq_len, hidden = xw.shape[1], w_hh.shape[0]
+    keep = (mask > 0)[..., None]
+    h, bufs = h0, [h0, torch.zeros_like(h0)]
+    ys = [None] * seq_len
+    order = range(seq_len - 1, -1, -1) if reverse else range(seq_len)
+    for s, t in enumerate(order):
+        hw = layer_product(bufs[s & 1], w_hh) + b_hh
+        h = torch.where(keep[:, t], gru_gates_f32(xw[:, t], hw, h, hidden), h)
+        bufs[(s + 1) & 1] = torch.where(keep[:, t], h, bufs[(s + 1) & 1])
+        ys[t] = h
+    return (torch.stack(ys, dim=1) if want_ys else None), h
 
 
 def launch_plan(rows: int, hidden: int, sms: int, slots=None) -> LaunchPlan:
@@ -110,6 +144,22 @@ def card_plan(rows: int, hidden: int, device) -> LaunchPlan:
     slots = recurrence_slots("inpaint_gru_layer_slots", hidden, ring_stages(hidden, 1), index)
     return launch_plan(rows, hidden, torch.cuda.get_device_properties(index).multi_processor_count,
                        slots)
+
+
+F32_UNITS = 64  # units of a CTA of the f32 route (K5's f32 register budget)
+F32_MAX_CLUSTER = 16  # H 1024: a non-portable cluster
+
+
+def f32_plan(hidden: int) -> LaunchPlan:
+    """How K8's f32 route runs ``hidden`` units, whatever the rows: H / 64
+    CTAs a 64-row tile, each owning 64 units of all three gates (a consumer
+    warpgroup's 32-unit chunk holds the sum and the slab's partial, 96
+    registers), so H 1024 takes 16 (a non-portable cluster; 128 units a
+    CTA would need 168 KB ring stages, and a ring holds two), and K5's ring
+    depth for 64 units. Raises ValueError for a width no plan takes."""
+    if hidden % F32_UNITS or not 0 < hidden <= F32_UNITS * F32_MAX_CLUSTER:
+        raise ValueError(f"no f32 K8 plan for hidden size {hidden}")
+    return LaunchPlan(hidden // F32_UNITS, fwd_ring_stages(F32_UNITS, 3))
 
 
 def _build_layer_operands(w_hh: torch.Tensor):
@@ -159,8 +209,14 @@ def gru_layer_stream(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
         err = lib.inpaint_gru_layer_bf16(map_addr, *ptrs, batch, seq_len, hidden, int(reverse),
                                          plan.cluster, plan.stages, stream_ptr())
     else:
-        err = lib.inpaint_gru_layer_f32(ptrs[0], w_hh.data_ptr(), *ptrs[1:], batch, seq_len,
-                                        hidden, int(reverse), stream_ptr())
+        plan = f32_plan(hidden)
+        map_addr = fwd_w_map(fwd_operands(w_hh), hidden, F32_UNITS)
+        # the exchange of h's three pieces, by step parity
+        scratch = torch.empty((-(-batch // HOPPER_ROWS), 2, 3, HOPPER_ROWS, hidden),
+                              dtype=torch.bfloat16, device=device)
+        err = lib.inpaint_gru_layer_f32(map_addr, *ptrs, scratch.data_ptr(), batch, seq_len,
+                                        hidden, int(reverse), plan.cluster, plan.stages,
+                                        stream_ptr())
     check_launch(err, "gru_layer_stream")
     gru_layer_stream.launches += 1
     return ys, hn

@@ -9,14 +9,14 @@
   interface, at first use, keyed on the hash of the sources, into
   ``build/inpaintnet_tpu_torch/`` at the repository root. It is loaded
   with ``ctypes``.
-- ``pack_mma_b``: the weight layout the ``mma.sync`` kernels read (the
-  f32 routes of K2 and K8, and K7's first kernel; the Hopper kernels' are
-  ``encoder_kernel.pack_gate_slabs`` / ``pack_gate_blocks`` and plain
-  transposes).
+- ``pack_mma_b``: the weight layout the ``mma.sync`` kernel reads (K7's
+  first kernel; the Hopper kernels' are ``encoder_kernel.pack_gate_slabs``
+  / ``pack_gate_blocks``, :func:`split_blocks` and plain transposes).
 - ``split_bf16_pieces`` and ``split_product``: the f32 products on the
-  tensor cores (K1's and K7's f32 routes, K5, K6) take each operand as
-  three exact bf16 pieces, six passes a 64-wide k-slab added slab by slab
-  in f32; ``split_product`` is that arithmetic in plain PyTorch.
+  tensor cores (the f32 routes of K1, K2, K7 and K8, K5, K6) take each
+  operand as three exact bf16 pieces, six passes a 64-wide k-slab added
+  slab by slab in f32; ``split_product`` is that arithmetic in plain
+  PyTorch, ``split_blocks`` the weight pieces' layout of K7's and K2's.
 - The Hopper recurrences of K8, K2 and K4 (``csrc/gru_layer_hopper.cuh``,
   ``csrc/decode_hopper.cuh``): their launch plan (``recurrence_plan``: the
   cluster size and ring depth from the shape and the h tiles' element
@@ -24,6 +24,10 @@
   their packed weights (``slab_map``, bf16 or int8), and ``WeightCache``,
   which builds such per-weight operands once per weight tensor.
 - ``check_cuda_tensor``: the wrappers' argument checks.
+- ``kernel_with_eager_grad``: a kernel route made differentiable by its
+  eager twin (``inpaintnet_tpu/ops/pallas_common.py kernel_with_xla_grad``):
+  the kernel computes the forward, the backward re-runs the eager twin on
+  the saved inputs and differentiates that.
 
 Nothing here imports or builds anything at import time: this module is
 imported on machines without ``nvcc`` or a GPU, where only the plain
@@ -85,7 +89,7 @@ def lstm_gates_f32(xw, hw, c_prev, hidden: int):
 
 def split_bf16_pieces(x: torch.Tensor):
     """(hi, mid, lo): the exact bf16 pieces of ``x`` that the split f32
-    products multiply (K1's and K7's f32 routes, K5, K6), hi = bf16(x), mid =
+    products multiply (the f32 routes of K1, K2, K7, K8; K5, K6), hi = bf16(x), mid =
     bf16(x - hi), lo = bf16(x - hi - mid), each difference taken in f32
     (exact). hi + mid + lo is x for a bf16 ``x`` (mid = lo = 0) and within
     2^-24 of |x| for an f32 one (three 8-bit mantissas)."""
@@ -102,9 +106,22 @@ def split_bf16_pieces(x: torch.Tensor):
 SPLIT_PASSES = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
 
 
+def split_blocks(wt_pieces: torch.Tensor, rows: int) -> torch.Tensor:
+    """(3, N, K) bf16 pieces of a W^T (N of whole chunks of ``rows`` rows,
+    in pairs) as the split recurrences stream them (``csrc/
+    gru_layer_hopper.cuh f32_product``): (N / 2 rows pairs of chunks, K / 64
+    k-slabs, 3 pieces, 2 chunks, rows, 64) flattened to (rows, 64) blocks,
+    so a k-slab of a pair's pieces is six consecutive blocks, one TMA box.
+    K7's f32 route takes chunks of 64 rows (16 LSTM units), K2's of 48 (16
+    GRU units)."""
+    _, n, k = wt_pieces.shape
+    return wt_pieces.reshape(3, n // (2 * rows), 2, rows, k // 64, 64) \
+        .permute(1, 4, 0, 2, 3, 5).reshape(-1, rows, 64)
+
+
 def split_product(a: torch.Tensor, w: torch.Tensor, pieces: int = 3) -> torch.Tensor:
-    """A plain emulation of the split f32 product ``a @ w`` (K1's and K7's
-    f32 GEMM and recurrences): per 64-wide k-slab, the six passes over the
+    """A plain emulation of the split f32 product ``a @ w`` (the f32 GEMM
+    and recurrences of K1, K2, K7 and K8): per 64-wide k-slab, the six passes over the
     bf16 pieces of (M, K) ``a`` and (K, N) ``w`` summed in f32 into a
     partial, the partials added in f32 slab by slab. ``pieces=1`` takes
     ``a`` as its hi piece alone (the planted fault "a product on one bf16
@@ -136,11 +153,11 @@ def kernel_supports_hidden(hidden: int) -> bool:
 
 def gru_layer_supports_hidden(hidden: int, dtype=torch.float32) -> bool:
     """Hidden widths K8 (``csrc/gru_layer.cu``) takes: whole 64-unit chunks
-    up to 1024, the LatentRNN's generation GRU (H * layers); the f32 route's
-    k-major carry takes 160 KB of shared memory at 1024. The bf16 route
-    splits the units across a cluster whose CTAs own whole 64-unit blocks,
-    at most 512 units each (:func:`cluster_sizes`): above 512 the number of
-    blocks must be even."""
+    up to 1024, the LatentRNN's generation GRU (H * layers); the f32 route
+    takes H / 64 CTAs of 64 units, up to 16. The bf16 route splits the units
+    across a cluster whose CTAs own whole 64-unit blocks, at most 512 units
+    each (:func:`cluster_sizes`): above 512 the number of blocks must be
+    even."""
     if not (hidden % 64 == 0 and 0 < hidden <= 1024):
         return False
     return dtype != torch.bfloat16 or bool(cluster_sizes(hidden))
@@ -195,28 +212,35 @@ def ring_stages(hidden: int, h_tiles: int, elem_bytes: int = 2) -> int:
 HOPPER_CTA_OVERHEAD = 0.02  # a CTA's fixed share of a wave, in tiles' work (see below)
 
 
-def recurrence_plan(rows: int, hidden: int, sms: int, h_tiles: int, slots=None) -> LaunchPlan:
-    """The cluster size C with the least modelled time: waves of clusters,
-    ``ceil(tiles / slots[C])``, each as long as 1/C of a tile's units plus a
-    fixed share ``HOPPER_CTA_OVERHEAD`` that every CTA pays whatever its
-    units (its prologue, the per-step exchange); the smaller C on a tie.
-    ``slots[C]``: the clusters of C CTAs the card runs at once (the kernels'
-    ``*_slots`` entry points ask the CUDA runtime; an H100 runs 30 of 4 and 15 of
-    8), by default ``sms // C``. With the default on 132 SMs at H 512: 1 or 6
-    rows take 8, 2,048 rows (32 tiles) 4, 12,288 rows (192 tiles) 2, 65,536
-    rows 1; with an H100's own slots 2,048 rows take 8 (three waves of 1/8
-    of a tile beat two of 1/4). Raises ValueError for a width no cluster
-    size splits."""
-    sizes = cluster_sizes(hidden)
-    stages = ring_stages(hidden, h_tiles)
-    if not sizes or stages < 2:
-        raise ValueError(f"no Hopper recurrence plan for hidden size {hidden}")
+def least_cost_cluster(rows: int, sizes: list, sms: int, slots=None) -> int:
+    """The cluster size C of ``sizes`` with the least modelled time: waves
+    of clusters, ``ceil(tiles / slots[C])``, each as long as 1/C of a tile's
+    units plus a fixed share ``HOPPER_CTA_OVERHEAD`` that every CTA pays
+    whatever its units (its prologue, the per-step exchange); the smaller C
+    on a tie. ``slots[C]``: the clusters of C CTAs the card runs at once
+    (the kernels' ``*_slots`` entry points ask the CUDA runtime), by default
+    ``sms // C``."""
     slots = slots or {c: max(1, sms // c) for c in sizes}
     tiles = -(-rows // HOPPER_ROWS)
 
     def cost(c):
         return -(-tiles // slots[c]) * (1 / c + HOPPER_CTA_OVERHEAD)
-    return LaunchPlan(min(sizes, key=lambda c: (cost(c), c)), stages)
+    return min(sizes, key=lambda c: (cost(c), c))
+
+
+def recurrence_plan(rows: int, hidden: int, sms: int, h_tiles: int, slots=None) -> LaunchPlan:
+    """The cluster size of :func:`least_cost_cluster` among
+    :func:`cluster_sizes` (an H100 runs 30 clusters of 4 and 15 of 8), with
+    the ring depth beside ``h_tiles`` h tiles. With the default slots on 132
+    SMs at H 512: 1 or 6 rows take 8, 2,048 rows (32 tiles) 4, 12,288 rows
+    (192 tiles) 2, 65,536 rows 1; with an H100's own slots 2,048 rows take
+    8 (three waves of 1/8 of a tile beat two of 1/4). Raises ValueError for
+    a width no cluster size splits."""
+    sizes = cluster_sizes(hidden)
+    stages = ring_stages(hidden, h_tiles)
+    if not sizes or stages < 2:
+        raise ValueError(f"no Hopper recurrence plan for hidden size {hidden}")
+    return LaunchPlan(least_cost_cluster(rows, sizes, sms, slots), stages)
 
 
 @functools.lru_cache(maxsize=None)
@@ -367,8 +391,14 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_encoder_rec_bf16.restype = i32
     lib.inpaint_encoder_gemm_bf16.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]
     lib.inpaint_encoder_gemm_bf16.restype = i32
-    lib.inpaint_decode_sampling_f32.argtypes = [ptr] * 13 + [i32] * 4 + [ptr]
+    lib.inpaint_decode_sampling_f32.argtypes = [ptr] * 12 + [i32] * 5 + [ptr]
     lib.inpaint_decode_sampling_f32.restype = i32
+    lib.inpaint_decode_f32_map.argtypes = [ptr, i32, ptr]
+    lib.inpaint_decode_f32_map.restype = i32
+    lib.inpaint_decode_f32_slots.argtypes = [i32] * 3
+    lib.inpaint_decode_f32_slots.restype = i32
+    lib.inpaint_gru_layer_f32_slots.argtypes = [i32] * 3
+    lib.inpaint_gru_layer_f32_slots.restype = i32
     lib.inpaint_decode_sampling_bf16.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
     lib.inpaint_decode_sampling_bf16.restype = i32
     lib.inpaint_slab_map.argtypes = [ptr, i32, i32, ptr]
@@ -411,7 +441,7 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_arnn_f32_slots.restype = i32
     lib.inpaint_arnn_ctx_gemm_f32.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
     lib.inpaint_arnn_ctx_gemm_f32.restype = i32
-    lib.inpaint_gru_layer_f32.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+    lib.inpaint_gru_layer_f32.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
     lib.inpaint_gru_layer_f32.restype = i32
     lib.inpaint_gru_layer_bf16.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
     lib.inpaint_gru_layer_bf16.restype = i32
@@ -440,6 +470,83 @@ def check_cuda_tensor(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def _flatten(tree, leaves: list):
+    """The structure of nested dicts, lists and tuples ``tree``, its tensor
+    leaves appended to ``leaves`` (anything else is kept as a constant)."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, _flatten(v, leaves)) for k, v in tree.items()))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree), tuple(_flatten(v, leaves) for v in tree))
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return ("leaf", len(leaves) - 1)
+    return ("const", tree)
+
+
+def _unflatten(spec, leaves):
+    kind, body = spec
+    if kind == "dict":
+        return {k: _unflatten(v, leaves) for k, v in body}
+    if kind == "leaf":
+        return leaves[body]
+    if kind == "const":
+        return body
+    return kind(_unflatten(v, leaves) for v in body)
+
+
+def _outputs(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+class _EagerGrad(torch.autograd.Function):
+    """The forward of ``kernel_fn`` with the gradient of ``eager_fn`` at the
+    same inputs (:func:`kernel_with_eager_grad`). The arguments' tensors
+    come in flattened (``spec`` rebuilds the nesting); the inputs are saved
+    and the backward recomputes the eager twin from them (remat, as JAX's
+    residuals)."""
+
+    @staticmethod
+    def forward(ctx, kernel_fn, eager_fn, spec, *leaves):
+        out = kernel_fn(*_unflatten(spec, leaves))
+        ctx.eager_fn, ctx.spec = eager_fn, spec
+        ctx.save_for_backward(*leaves)
+        ctx.mark_non_differentiable(*(o for o in _outputs(out) if not o.is_floating_point()))
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[3:]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            outs = _outputs(ctx.eager_fn(*_unflatten(ctx.spec, inputs)))
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None and o.requires_grad]
+        wanted = [x for x, n in zip(inputs, need) if n]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wanted, [g for _, g in pairs],
+                                       allow_unused=True)
+                   if pairs and wanted else [None] * len(wanted))
+        return (None, None, None, *(next(got) if n else None for n in need))
+
+
+def kernel_with_eager_grad(kernel_fn, eager_fn):
+    """``kernel_fn`` made differentiable (the port's ``inpaintnet_tpu/ops/
+    pallas_common.py kernel_with_xla_grad``): where autograd records and
+    some argument tensor requires a gradient, the forward runs
+    ``kernel_fn`` on the inputs with no graph, and the backward re-runs
+    ``eager_fn`` (the same positional arguments, the same outputs) on them
+    under ``enable_grad`` and returns its gradients with the incoming
+    cotangents. The arguments may nest tensors in dicts, lists and tuples;
+    a leaf that needs no gradient gets none; integer outputs (samples,
+    tokens) are not differentiable. Elsewhere it is ``kernel_fn`` itself, so
+    inference launches what it launched before."""
+    def run(*args):
+        leaves = []
+        spec = _flatten(args, leaves)
+        if not (torch.is_grad_enabled() and any(t.requires_grad for t in leaves)):
+            return kernel_fn(*args)
+        return _EagerGrad.apply(kernel_fn, eager_fn, spec, *leaves)
+    return run
 
 
 def pack_mma_b(w: torch.Tensor) -> torch.Tensor:

@@ -96,7 +96,7 @@ def lstm_stack_apply(params, x: torch.Tensor, hidden=None, *,
     if train:
         raise NotImplementedError(
             "LSTM training (inter-layer dropout) waits for the ARNN trainer "
-            "(ROADMAP queue 1 item 10b)")
+            "(ROADMAP §1 item 3)")
     num_layers = len(params)
     hid = params[0]["w_hh"].shape[0]
     if hidden is None:

@@ -16,7 +16,7 @@ from inpaintnet_tpu_torch.ops import gru_kernel as lk
 from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
 from inpaintnet_tpu_torch.ops.gru import gru_init
 from inpaintnet_tpu_torch.ops.gru_trainfast import gru_layer_trainfast
-from inpaintnet_tpu_torch.ops.kernel_common import cluster_sizes
+from inpaintnet_tpu_torch.ops.kernel_common import cluster_sizes, split_bf16_pieces
 from inpaintnet_tpu_torch.ops.linear import embedding_init, linear_init
 from inpaintnet_tpu_torch.ops.lstm import lstm_stack_init
 from inpaintnet_tpu_torch.ops.quantize import dequantize_h
@@ -133,6 +133,67 @@ def test_decode_kernel_bf16_every_cluster_size(cuda, monkeypatch, batch, hidden,
     same_rows = (s_k == s_p).all(dim=1)
     torch.testing.assert_close(lg_k[same_rows].float(), lg_p[same_rows].float(), rtol=0,
                                atol=ATOL[torch.bfloat16] * 4)
+
+
+def _with_f32_cluster(monkeypatch, cluster):
+    """K2's f32 plan picks ``cluster`` CTAs a tile (with that size's ring)."""
+    monkeypatch.setattr(decode_kernel, "f32_plan", lambda rows, hidden, sms, slots=None:
+                        decode_kernel.LaunchPlan(cluster,
+                                                 decode_kernel.f32_stages(hidden, cluster)))
+
+
+@pytest.mark.parametrize("batch,hidden,vocab", [
+    (6, 512, 60), (2048, 512, 60), (45, 64, 60), (130, 128, 13), (7, 128, 96)])
+def test_decode_kernel_f32_every_cluster_size(cuda, monkeypatch, batch, hidden, vocab):
+    """K2's f32 route (split products, h's pieces through L2) at each
+    cluster size its width allows: within ``decode_kernel.F32_BOUNDS`` of
+    the plain version, and bit-equal across cluster sizes (the race check:
+    every size sums alike)."""
+    rng = np.random.default_rng(batch + hidden + vocab)
+    params, tick_ctx, h_inits = _decode_case(rng, batch, hidden, vocab, torch.float32, cuda)
+    outs = {}
+    for cluster in decode_kernel.f32_cluster_sizes(hidden):
+        with monkeypatch.context() as m:
+            _with_f32_cluster(m, cluster)
+            before = decode_kernel.decode_sampling.launches
+            outs[cluster] = decode_kernel.decode_sampling(params, tick_ctx, h_inits)
+            assert decode_kernel.decode_sampling.launches == before + 1
+    want = decode_kernel.decode_sampling_reference(params, tick_ctx, h_inits)
+    torch.cuda.synchronize()
+    got = outs[decode_kernel.f32_cluster_sizes(hidden)[0]]
+    assert len(outs) >= 2 and all(_bit_equal(o, got) for o in outs.values())
+    assert got[0].shape == (batch, 24, vocab) and got[1].dtype == torch.int32
+    agree = decode_kernel.agreement(got, want)
+    assert decode_kernel.within(agree), agree
+
+
+def test_decode_kernel_f32_bounds_reject_planted_faults(cuda, monkeypatch):
+    """K2 f32's traps, planted in the plain version: the products on h
+    taken as one bf16 piece, and a reset tick whose products take the
+    previous tick's h, break ``F32_BOUNDS``; layer 1's x- and h-products
+    summed in one accumulator moves layer 1 by a rounding only, so it is
+    held on cancelling biases (``cancelling_layer1_biases``), where its
+    mean logit error must be ``SUM_ORDER_RATIO`` times the kernel's."""
+    rng = np.random.default_rng(3)
+    params, tick_ctx, h_inits = _decode_case(rng, 130, 128, 60, torch.float32, cuda)
+    got = decode_kernel.decode_sampling(params, tick_ctx, h_inits)
+    assert decode_kernel.within(decode_kernel.agreement(
+        got, decode_kernel.decode_sampling_reference(params, tick_ctx, h_inits)))
+    for hook, fault in (("tick_product",
+                         lambda h, w: split_bf16_pieces(h)[0].float() @ w),
+                        ("beat_operand", lambda init, prev: prev)):
+        with monkeypatch.context() as m:
+            m.setattr(decode_kernel, hook, fault)
+            planted = decode_kernel.decode_sampling_reference(params, tick_ctx, h_inits)
+        agree = decode_kernel.agreement(got, planted)
+        assert not decode_kernel.within(agree), (hook, agree)
+    args = (decode_kernel.cancelling_layer1_biases(params, decode_kernel.SUM_ORDER_SHIFT),
+            tick_ctx, h_inits)
+    plain = decode_kernel.decode_sampling_reference(*args)
+    kernel = decode_kernel.agreement(decode_kernel.decode_sampling(*args), plain)
+    monkeypatch.setattr(decode_kernel, "layer1_preacts", decode_kernel.one_accumulator_preacts)
+    fault = decode_kernel.agreement(decode_kernel.decode_sampling_reference(*args), plain)
+    assert fault["mean"] > decode_kernel.SUM_ORDER_RATIO * kernel["mean"], (kernel, fault)
 
 
 # int8 kernel vs plain version: bit-equal. Both take exact int32 products,
@@ -998,6 +1059,53 @@ def test_gru_layer_kernel_bounds_reject_planted_faults(cuda, monkeypatch):
         assert not lk.within(agree, lk.BOUNDS[torch.bfloat16]), agree
 
 
+@pytest.mark.parametrize("batch,steps,hidden,mask,reverse,want_ys", [
+    (1, 3, 1024, None, False, True), (37, 16, 512, "suffix", True, True),
+    (130, 6, 1024, "target", False, False), (2100, 4, 128, "suffix", True, True),
+    (37, 9, 64, "interior", False, True), (130, 16, 512, "interior", True, False)])
+def test_gru_layer_kernel_f32_reruns_bit_equal(cuda, batch, steps, hidden, mask, reverse,
+                                               want_ys):
+    """K8's f32 route (K5's split recurrence in mode kLayer: H / 64 CTAs a
+    tile, 16 at H 1024) at ragged rows: within ``BOUNDS[float32]``, an
+    all-zero mask row returns h0 and emits it, and a rerun is bit-equal. Its
+    CTAs own 64 units whatever the rows, so a width has one cluster size:
+    the race check is the rerun, over the widths' sizes 1, 2, 8 and 16."""
+    args = _gru_layer_case(np.random.default_rng(batch + steps), batch, steps, hidden,
+                           torch.float32, cuda, mask)
+    got = lk.gru_layer_stream(*args, reverse=reverse, want_ys=want_ys)
+    again = lk.gru_layer_stream(*args, reverse=reverse, want_ys=want_ys)
+    want = lk.gru_layer_reference(*args, reverse=reverse, want_ys=want_ys)
+    torch.cuda.synchronize()
+    assert _bit_equal(got, again)
+    agree = lk.agreement(got, want)
+    assert lk.within(agree, lk.BOUNDS[torch.float32]), agree
+    if mask in ("suffix", "target"):
+        assert torch.equal(got[1][0], args[3][0])
+        if want_ys:
+            assert torch.equal(got[0][0], args[3][0][None].expand(steps, -1))
+
+
+def test_gru_layer_kernel_f32_bounds_reject_planted_faults(cuda, monkeypatch):
+    """K8 f32's traps, planted in the plain version, break ``BOUNDS[float32]``:
+    the product on h taken as one bf16 piece, a mask read one step late,
+    and a held row that writes no pieces for the next step (a reverse layer
+    over suffix masks runs its rows after their holds)."""
+    args = _gru_layer_case(np.random.default_rng(2), 70, 16, 512, torch.float32, cuda, "suffix")
+    got = lk.gru_layer_stream(*args, reverse=True)
+    assert lk.within(lk.agreement(got, lk.gru_layer_reference(*args, reverse=True)),
+                     lk.BOUNDS[torch.float32])
+    monkeypatch.setattr(lk, "layer_product", lambda h, w: split_bf16_pieces(h)[0].float() @ w)
+    one_piece = lk.gru_layer_reference(*args, reverse=True)
+    monkeypatch.undo()
+    mask = args[4]
+    late = lk.gru_layer_reference(*args[:4], torch.cat([mask[:, :1], mask[:, :-1]], dim=1),
+                                  reverse=True)
+    stale = lk.held_pieces_fault_reference(*args, reverse=True)
+    for name, planted in (("one piece", one_piece), ("late mask", late), ("stale", stale)):
+        agree = lk.agreement(got, planted)
+        assert not lk.within(agree, lk.BOUNDS[torch.float32]), (name, agree)
+
+
 def test_gru_layer_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     rng = np.random.default_rng(0)
     args = _gru_layer_case(rng, 4, 3, 64, torch.float32, cuda, "suffix")
@@ -1015,6 +1123,132 @@ def test_gru_layer_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     odd = _gru_layer_case(rng, 4, 3, 576, torch.bfloat16, cuda, None)
     with pytest.raises(ValueError, match="hidden size"):
         lk.gru_layer_stream(*odd)
-    params, tick_ctx, h_inits = _decode_case(rng, 4, 64, 97, torch.bfloat16, cuda)
-    with pytest.raises(ValueError, match="vocabulary"):
-        decode_kernel.decode_sampling(params, tick_ctx, h_inits)
+    for dtype in (torch.bfloat16, torch.float32):
+        params, tick_ctx, h_inits = _decode_case(rng, 4, 64, 97, dtype, cuda)
+        with pytest.raises(ValueError, match="vocabulary"):
+            decode_kernel.decode_sampling(params, tick_ctx, h_inits)
+
+
+# --------------------------------------------------------------------------- #
+# Gradients through the kernel routes (kernel_common.kernel_with_eager_grad):
+# the backward re-runs the eager route, so with a loss linear in the
+# kernel's outputs the gradients equal that route's bit for bit. Embedding
+# tables are left out: their gradients scatter-add with atomics, in no fixed
+# order.
+# --------------------------------------------------------------------------- #
+def _dense_grads(tree, path=""):
+    """{path: grad} of every leaf whose path names no embedding."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _dense_grads(sub, f"{path}/{key}").items()}
+    if isinstance(tree, list):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in _dense_grads(sub, f"{path}/{i}").items()}
+    return {} if "embedding" in path else {path: tree.grad}
+
+
+def _leaf_copy(tree):
+    if isinstance(tree, dict):
+        return {k: _leaf_copy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_leaf_copy(v) for v in tree]
+    return tree.detach().clone().requires_grad_(tree.is_floating_point())
+
+
+def _same_grads(got: dict, eager: dict, must_move: str):
+    assert got.keys() == eager.keys()
+    for k in got:
+        assert (got[k] is None) == (eager[k] is None), k
+        if got[k] is not None:
+            assert torch.equal(got[k], eager[k]), k
+    moved = [k for k in got if must_move in k and got[k] is not None and got[k].abs().max() > 0]
+    assert moved, f"no gradient reaches {must_move}"
+
+
+def test_gradient_through_k2_reaches_the_generation_gru(cuda, monkeypatch):
+    """LatentRNN's argmax decode through K2 (f32) under a gradient: the
+    generation GRU's weights get the eager decode's gradients, bit for bit."""
+    from inpaintnet_tpu_torch.models.presets import build_flagship
+
+    _, vae, model = build_flagship(vocab_size=30, hidden=64, z_dim=12, emb=8, seed=3,
+                                   device=cuda)
+    assert vae.decoder.use_kernel()
+    rng = np.random.default_rng(4)
+    past, future = (torch.from_numpy(rng.integers(0, 30, (5, 3, 24)).astype(np.int32)).to(cuda)
+                    for _ in range(2))
+    target_mask = torch.ones((5, 2), device=cuda)
+    eps = torch.from_numpy(rng.standard_normal((5 * 6, 12)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.standard_normal((5, 2, 24, 30)).astype(np.float32)).to(cuda)
+
+    def grads():
+        params, vae_params = _leaf_copy(model.params()), _leaf_copy(vae.params())
+        weights, _, _ = model.apply(params, vae_params, past, future, target_mask=target_mask,
+                                    eps=eps)
+        (weights * w).sum().backward()
+        return _dense_grads(params)
+
+    before = decode_kernel.decode_sampling.launches
+    got = grads()
+    assert decode_kernel.decode_sampling.launches == before + 1
+    monkeypatch.setattr(vae.decoder, "use_kernel", lambda: False)
+    _same_grads(got, grads(), "generation_rnn")
+
+
+def test_gradient_through_k1_matches_the_eager_scan(cuda, monkeypatch):
+    """The frozen encoder through K1 (f32) under a gradient: every GRU
+    weight gets the eager scan's gradient, bit for bit. The loss is linear
+    in h_n (the heads are taken out): behind a nonlinear head the cotangent
+    reaching h_n would depend on the forward's own h_n, which the kernel
+    and the eager scan round apart."""
+    from inpaintnet_tpu_torch.models.presets import build_flagship
+
+    _, vae, _ = build_flagship(vocab_size=30, hidden=64, z_dim=12, emb=8, seed=5, device=cuda)
+    assert vae.encoder.use_kernel()
+    monkeypatch.setattr(vae.encoder, "_heads", lambda params, h_n, batch: h_n)
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(0, 30, (7, 24)).astype(np.int32)).to(cuda)
+    w = torch.from_numpy(rng.standard_normal((4, 7, 64)).astype(np.float32)).to(cuda)
+
+    def grads():
+        params = _leaf_copy(vae.params()["encoder"])
+        (vae.encoder.apply(params, tokens) * w).sum().backward()
+        return _dense_grads(params)
+
+    before = encoder_kernel.encoder_hn.launches
+    got = grads()
+    assert encoder_kernel.encoder_hn.launches == before + 1
+    monkeypatch.setattr(vae.encoder, "use_kernel", lambda: False)
+    _same_grads(got, grads(), "gru")
+
+
+def test_gradient_through_k7_matches_the_eager_decode(cuda, monkeypatch):
+    """The ARNN's inpainting decode through K7 (f32, H 64) under a
+    gradient: the generation LSTM's and the head's weights get the eager
+    argmax loop's gradients, bit for bit."""
+    from inpaintnet_tpu_torch.models.anticipation_rnn import AnticipationRNNBaseline
+    from inpaintnet_tpu_torch.models.presets import ARNNDataset
+
+    model = AnticipationRNNBaseline(
+        ARNNDataset(30), note_embedding_dim=8, metadata_embedding_dim=4,
+        num_lstm_constraints_units=64, num_lstm_generation_units=64, linear_hidden_size=12,
+        num_layers=2, unary_constraint=True, device=cuda, seed=7)
+    assert model._use_kernel_decode(model.params())
+    ticks, rng = 48, np.random.default_rng(8)
+    score = torch.from_numpy(rng.integers(0, 30, (3, ticks)).astype(np.int32)).to(cuda)
+    md = np.stack([m.generate(ticks) for m in model.dataset.metadatas]
+                  + [np.zeros(ticks, np.int64)], axis=1).astype(np.int32)
+    md = torch.from_numpy(md).to(cuda)[None].expand(3, -1, -1)
+    loc = torch.ones((3, ticks), dtype=torch.int32, device=cuda)
+    loc[:, 16:32] = 0
+    w = torch.from_numpy(rng.standard_normal((3, ticks, 30)).astype(np.float32)).to(cuda)
+
+    def grads():
+        params = _leaf_copy(model.params())
+        (model.apply_inpaint(params, score, md, loc)[0] * w).sum().backward()
+        return _dense_grads(params)
+
+    before = arnn_kernel.arnn_sampled_decode.launches
+    got = grads()
+    assert arnn_kernel.arnn_sampled_decode.launches == before + 1
+    monkeypatch.setattr(model, "_use_kernel_decode", lambda p: False)
+    _same_grads(got, grads(), "lstm_generation")

@@ -166,6 +166,7 @@ def test_decode_operands_follow_in_place_updates(monkeypatch):
     weight tensors; an in-place update of any of them rebuilds them, in
     both routes' layouts."""
     monkeypatch.setattr(dk, "slab_map", lambda packed: (None, 64))
+    monkeypatch.setattr(dk, "f32_map", lambda packed: (None, 64))
     monkeypatch.setattr(dk, "decode_operands", kc.WeightCache(dk._build_decode_operands))
     rng = np.random.default_rng(2)
     for dtype in (torch.bfloat16, torch.float32):
@@ -179,7 +180,7 @@ def test_decode_operands_follow_in_place_updates(monkeypatch):
         fresh = dk.decode_operands(*ws)
         assert fresh is not ops
         torch.testing.assert_close(fresh["bias"][1], ws[5], rtol=0, atol=0)
-        assert fresh["head_b"].shape == ((96,) if dtype == torch.bfloat16 else (16,))
+        assert fresh["head_b"].shape == (96,)
 
 
 def test_weight_cache_counts_no_versions_of_inference_tensors():
