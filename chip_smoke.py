@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and AnticipationRNN paths
-once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, training (MeasureVAE and LatentRNN) and
+AnticipationRNN paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -135,11 +135,22 @@ Phases, each raising on failure:
 17. the flagship f32 engine under ``"pallas"`` (the path of K1's, K2's and
    K8's f32 routes): three requests checked, K1, K2 and K8 launches per
    call asserted, measures/s at batch 2048 (6/4/6), the batch-1 p50 and a
-   profile of each.
+   profile of each;
+18. LatentRNN training: a step on the card against the same step on the
+   CPU (f32, H 64, the same parameters, split and noise) for the
+   non-autoregressive model and the autoregressive one on each coin, two
+   Adam steps each, K2's tokens equal; then the full-width trainer at
+   ``train_inpaintnet.py``'s defaults (32 windows of 16 bars, every
+   dropout 0.5), both modes, f32 and bf16 compute: K2 and K5 launches a
+   step asserted and K6 never, the hidden-1024 generation GRU on the eager
+   loop, the frozen VAE bit-unchanged, a validation step's K1 and K2
+   launches; ms a step, windows/s, valid target measures/s, peak memory
+   and a profile of each branch.
 
 Phase 17 runs after phase 7; phases 12-16 after phase 8, before the
-training phases. Prints one
-JSON line of the eight kernels, the card's name and power limit, and as
+training phases; phase 18 last. Prints one
+JSON line of the eight kernels (each with its launches in phase 18,
+``latent_train_launches``), the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
 result, when there is no usable card or any phase fails.
 """
@@ -228,6 +239,9 @@ TRAIN_LAUNCHES = {True: 8, False: 6}
 # not the other: the max allows two such steps (seen 2.0e-6), the mean that
 # they are rare (seen 6.5e-10).
 TRAIN_REF = {"loss": 1e-5, "grad": 1e-5, "param_max": 2e-3, "param_mean": 1e-6}
+# The full-width LatentRNN trainer: train_inpaintnet.py's batch of 32
+# windows of 16 bars (max context 16, max target 6).
+LATENT_WINDOWS = 32
 # Published dense peaks of an H100 SXM at 700 W (NVIDIA's data sheet):
 # operations per second by product type, and device-memory bytes per second.
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
@@ -1357,6 +1371,236 @@ def phase_trainer(card: str) -> dict:
     return launches
 
 
+def latent_train_launches(auto_reg: bool, coin, max_target: int) -> dict:
+    """K2, K5 and K6 launches a LatentRNN training step: one decode and one
+    encode (4 K5 layer-directions) a step, or on the autoregressive sampled
+    branch ``max_target`` decodes and the context encode plus
+    ``max_target - 1`` re-encodes; K6 never (nothing upstream of the frozen
+    encoder needs a gradient)."""
+    sampled = auto_reg and not coin
+    return {"decode_sampling": max_target if sampled else 1,
+            "gru_fwd_seq": 4 * max_target if sampled else 4, "gru_bwd_seq": 0}
+
+
+def _recorded_tokens(decoder) -> list:
+    """Wrap ``decoder.decode_sampling`` (the instance's) to keep the tokens
+    of every forward decode; -> the list they go into."""
+    seen, real = [], decoder.decode_sampling
+
+    def recorded(*a, **k):
+        out = real(*a, **k)
+        seen.append(out[1].detach().cpu())
+        return out
+
+    decoder.decode_sampling = recorded
+    return seen
+
+
+def phase_latent_train_reference(card: str) -> None:
+    """LatentRNN train steps on the card (K5, K2 with its eager backward)
+    against the same steps on the CPU (plain versions), f32, phase 15's
+    geometry (vocab 60, E 10, H 64, generation hidden 128, z 16) on 4
+    windows of 16 bars: the same parameters, split and injected rsample
+    noise, every dropout 0 but the frozen decoder's 0.5 (the argmax decode
+    never applies it). The non-autoregressive model and the autoregressive
+    one on each coin take two Adam steps (lr 1e-3) each: the tokens of the
+    K2 forward must equal the CPU's (a flipped argmax near-tie is reported
+    and fails the phase), and loss, gradients and parameters after each
+    step stay within ``TRAIN_REF``, phase 9's bounds for phase 9's
+    reasons."""
+    from inpaintnet_tpu_torch.models.base import iter_leaves
+    from inpaintnet_tpu_torch.models.latent_rnn import LatentRNN
+    from inpaintnet_tpu_torch.models.measure_vae import MeasureVAE
+    from inpaintnet_tpu_torch.models.presets import VocabOnlyDataset
+    from inpaintnet_tpu_torch.ops import decode_kernel
+    from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
+    from inpaintnet_tpu_torch.train import LatentRNNTrainer
+    from inpaintnet_tpu_torch.train.data import ArrayDataset
+
+    rng = np.random.default_rng(16)
+    b, z_dim = 4, 16
+    windows = rng.integers(0, VOCAB, (b, 1, N_BARS * 24)).astype(np.int32)
+    data = ArrayDataset((windows,), N_BARS)
+    kernels = (decode_kernel.decode_sampling, gk.gru_fwd_seq, gk.gru_bwd_seq)
+    for label, auto_reg, coin in (("non-autoregressive", False, None),
+                                  ("autoregressive heads", True, True),
+                                  ("autoregressive tails", True, False)):
+        vae = MeasureVAE(VocabOnlyDataset(VOCAB), note_embedding_dim=10, encoder_hidden_size=64,
+                         latent_space_dim=z_dim, decoder_hidden_size=64, device="cpu", seed=4,
+                         encoder_dropout_prob=0.0)
+        model = LatentRNN(vae, 2, 64, auto_reg, device="cpu", dropout=0.0, seed=5)
+        mt = model.max_target
+        tokens = _recorded_tokens(vae.decoder)
+        trainers = {dev: LatentRNNTrainer(data, model, lr=1e-3, device=dev, seed=1)
+                    for dev in ("cuda", "cpu")}
+        for step in range(2):
+            measures = 2 * N_BARS + (mt if model.use_teacher_forcing else 0)
+            eps = torch.from_numpy(rng.standard_normal((b * measures, z_dim)).astype(np.float32))
+            eps_steps = torch.from_numpy(
+                rng.standard_normal((mt - 1, b, z_dim)).astype(np.float32))
+            out = {}
+            for dev, tr in trainers.items():
+                tokens.clear()
+                before = [k.launches for k in kernels]
+                loss, _ = tr.train_step(tr.process_batch_data((windows,)), eps=eps.to(tr.device),
+                                        eps_steps=eps_steps.to(tr.device), coin=coin)
+                leaves = [p for _, p in iter_leaves(tr.params)]
+                out[dev] = (loss.item(),
+                            [torch.zeros_like(p).cpu() if p.grad is None else p.grad.cpu()
+                             for p in leaves],
+                            [p.detach().cpu() for p in leaves], torch.cat(tokens),
+                            [k.launches - n for k, n in zip(kernels, before)])
+            (l_c, g_c, p_c, t_c, n_c), (l_p, g_p, p_p, t_p, _) = out["cuda"], out["cpu"]
+            agree = (t_c == t_p).float().mean().item()
+            loss_err = abs(l_c - l_p) / abs(l_p)
+            g_err = max(((a - c).abs() / (1.0 + c.abs())).max().item() for a, c in zip(g_c, g_p))
+            p_diff = torch.cat([(a - c).abs().flatten() for a, c in zip(p_c, p_p)])
+            print(f"[latent-train-ref] {label} step {step}: K2 tokens equal {agree:.6f} (bound "
+                  f"1); loss card {l_c:.7f} cpu {l_p:.7f} rel err {loss_err:.3e} (bound "
+                  f"{TRAIN_REF['loss']:.0e}); gradients max |d|/(1+|g|) {g_err:.3e} (bound "
+                  f"{TRAIN_REF['grad']:.0e}); post-Adam params max {p_diff.max().item():.3e} "
+                  f"(bound {TRAIN_REF['param_max']:.0e}), mean {p_diff.mean().item():.3e} "
+                  f"(bound {TRAIN_REF['param_mean']:.0e}); K2/K5/K6 launches on the card "
+                  f"{n_c} | {card}", flush=True)
+            if agree < 1.0:
+                flips = (t_c != t_p).nonzero()[:4].tolist()
+                raise RuntimeError(f"{label} step {step}: K2's argmax differs from the CPU's at "
+                                   f"(row, tick) {flips}: a near-tie flipped a token")
+            if not (loss_err <= TRAIN_REF["loss"] and g_err <= TRAIN_REF["grad"]
+                    and p_diff.max().item() <= TRAIN_REF["param_max"]
+                    and p_diff.mean().item() <= TRAIN_REF["param_mean"]):
+                raise RuntimeError(f"the LatentRNN train step on the card disagrees with the CPU "
+                                   f"({label}, step {step})")
+
+
+def phase_latent_trainer(card: str) -> dict:
+    """The full-width LatentRNN trainer at ``train_inpaintnet.py``'s defaults
+    (vocab 60, E 10, VAE GRUs of hidden 512, z 256, LatentRNN hidden 512,
+    every dropout 0.5, lr 1e-4, 32 windows of 16 bars), random weights from
+    seed 0: the non-autoregressive flagship and the autoregressive one with
+    teacher forcing, each in f32 and in bf16 compute, 8 steps (the
+    autoregressive coins alternating, heads first). Per step: K2, K5 and K6
+    launch as ``latent_train_launches`` says; the loss is finite; on the
+    warm-up and profiled steps the generation GRU's hidden-1024 steps (6
+    target steps x 2 layers x 2 directions) run in the eager loop. After
+    the steps the LatentRNN's parameters moved and every VAE parameter is
+    bit-unchanged; one validation step launches K1 and K2 (once, or a
+    context encode and 5 re-encodes and 6 decodes when autoregressive).
+    Steps 0-1 warm up, 2-5 are timed (ms a step: the mean of the branches'
+    medians), 6-7 profiled one a branch (``_profile_step``). -> {kernel:
+    launches} over the whole phase."""
+    from inpaintnet_tpu_torch.models.base import iter_leaves
+    from inpaintnet_tpu_torch.models.presets import build_flagship
+    from inpaintnet_tpu_torch.ops import decode_kernel, encoder_kernel
+    from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
+    from inpaintnet_tpu_torch.train import LatentRNNTrainer
+    from inpaintnet_tpu_torch.train.data import ArrayDataset
+
+    rng = np.random.default_rng(17)
+    windows = rng.integers(0, VOCAB, (LATENT_WINDOWS, 1, N_BARS * 24)).astype(np.int32)
+    data = ArrayDataset((windows,), N_BARS)
+    kernels = (encoder_kernel.encoder_hn, decode_kernel.decode_sampling, gk.gru_fwd_seq,
+               gk.gru_bwd_seq)
+    train_kernels = kernels[1:]
+
+    def drive():
+        for auto_reg in (False, True):
+            _, vae, model = build_flagship(seed=0, device="cuda", auto_reg=auto_reg)
+            mt, gen = model.max_target, model.gen_hidden_size
+            vae_before = {k: v.clone() for k, v in vae.state_dict().items()}
+            mode = "autoregressive" if auto_reg else "non-autoregressive"
+            coins = (True, False) * 4 if auto_reg else (None,) * 8
+            for compute in (None, "bfloat16"):
+                label = f"{mode} {compute or 'float32'}"
+                tr = LatentRNNTrainer(data, model, lr=1e-4, device="cuda",
+                                      compute_dtype=compute, seed=1)
+                start = [p.detach().clone() for _, p in iter_leaves(tr.params)]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                times, measures, profiles = {}, [], {}
+                for i, coin in enumerate(coins):
+                    batch = tr.process_batch_data((windows,))
+                    valid = int(batch[5].sum().item())  # valid target measures
+                    before = [k.launches for k in train_kernels]
+                    eager = None
+                    if i >= 6:
+                        out = []
+                        profiles[coin] = _profile_step(
+                            lambda: out.append(tr.train_step(batch, coin=coin)[0]))
+                        loss = out[0].item()
+                    elif i < 2:
+                        (loss, _), eager = _eager_gru_steps(
+                            lambda: tr.train_step(batch, coin=coin), gen)
+                        loss = loss.item()
+                    else:
+                        t0 = time.perf_counter()
+                        loss, _ = tr.train_step(batch, coin=coin)
+                        loss = loss.item()  # waits for the step
+                        times.setdefault(coin, []).append((time.perf_counter() - t0) * 1e3)
+                        measures.append(valid)
+                    got = {k.__name__: k.launches - n for k, n in zip(train_kernels, before)}
+                    want = latent_train_launches(auto_reg, coin, mt)
+                    if got != want or not np.isfinite(loss):
+                        raise RuntimeError(f"{label} step {i} (coin {coin}): launches {got}, "
+                                           f"expected {want}; loss {loss}")
+                    if eager is not None and eager != mt * 4:
+                        raise RuntimeError(f"{label} step {i} (coin {coin}): {eager} eager "
+                                           f"generation-GRU steps of hidden {gen}, expected "
+                                           f"{mt * 4}: the layer left the eager route")
+                peak = torch.cuda.max_memory_allocated()
+                moved = sum((p.detach() - s).abs().sum().item()
+                            for (_, p), s in zip(iter_leaves(tr.params), start))
+                if not moved > 0:
+                    raise RuntimeError(f"{label}: the LatentRNN's parameters did not move")
+                changed = [k for k, v in vae.state_dict().items() if not torch.equal(v, vae_before[k])]
+                if changed:
+                    raise RuntimeError(f"{label}: the frozen VAE changed: {changed[:4]}")
+                before = [k.launches for k in kernels]
+                val_loss, _ = tr.eval_step(tr.process_batch_data((windows,)))
+                val = {k.__name__: k.launches - n for k, n in zip(kernels, before)}
+                want_val = {"encoder_hn": mt if auto_reg else 1,
+                            "decode_sampling": mt if auto_reg else 1,
+                            "gru_fwd_seq": 0, "gru_bwd_seq": 0}
+                if val != want_val or not np.isfinite(val_loss.item()):
+                    raise RuntimeError(f"{label} validation step: launches {val}, expected "
+                                       f"{want_val}; loss {val_loss.item()}")
+                walls = {c: float(np.median(t)) for c, t in times.items()}
+                ms = float(np.mean(list(walls.values())))
+                per_step = float(np.mean(measures))
+                branches = ", ".join(f"{'teacher-forced' if c else 'sampled'} {w:.2f}"
+                                     for c, w in walls.items() if c is not None)
+                print(f"[latent-trainer] {label}: {ms:.2f} ms/step"
+                      + (f" ({branches})" if branches else "")
+                      + f", {LATENT_WINDOWS / (ms / 1e3):.1f} windows/s, "
+                      f"{per_step / (ms / 1e3):.1f} valid target measures/s ({per_step:.1f} a "
+                      f"step), peak memory {peak / 2**30:.2f} GiB, last loss {loss:.5f}, "
+                      f"validation loss {val_loss.item():.5f}; K2/K5/K6 launches a step "
+                      f"{[latent_train_launches(auto_reg, c, mt) for c in walls]}, validation "
+                      f"{val}; VAE bit-unchanged | {card}", flush=True)
+                for coin, (device_ms, count, kernel_rows) in profiles.items():
+                    branch = {None: "step", True: "teacher-forced", False: "sampled"}[coin]
+                    print(f"[profile] latent {label} {branch}: device {device_ms:.2f} ms/step, "
+                          f"{count} launches/step, idle share {1 - device_ms / walls[coin]:.3f} "
+                          f"(of the unprofiled median wall {walls[coin]:.2f} ms) | {card}",
+                          flush=True)
+                    for name, k_ms, k_count in kernel_rows[:12]:
+                        print(f"[profile]   {k_ms:9.3f} ms {k_count:6d}x  {name[:110]}",
+                              flush=True)
+                del tr, start
+                torch.cuda.empty_cache()
+            del vae, model, vae_before
+
+    for k in kernels:
+        k.launches = 0
+    drive()
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"[latent-trainer] launches in the phase: {launches}", flush=True)
+    if launches["gru_bwd_seq"] != 0 or min(launches[n] for n in
+                                          ("encoder_hn", "decode_sampling", "gru_fwd_seq")) < 1:
+        raise RuntimeError(f"the LatentRNN training path launched {launches}")
+    return launches
+
+
 def _request(rng, batch: int, n_past: int, n_target: int, n_future: int):
     m = n_past + n_target + n_future
     return rng.integers(0, VOCAB, (batch, m, 24)).astype(np.int32), n_past, n_target
@@ -2259,15 +2503,16 @@ def phase_gru_layer_kernel(card: str, parent) -> dict:
     return report
 
 
-def _eager_gru_steps(fn):
-    """-> (fn(), how many eager GRU steps ``ops/gru.py``'s loop ran)."""
+def _eager_gru_steps(fn, width=None):
+    """-> (fn(), how many eager GRU steps ``ops/gru.py``'s loop ran; with
+    ``width``, only those of that hidden size)."""
     from inpaintnet_tpu_torch.ops import gru as gru_mod
 
     real, count = gru_mod.gru_gates, [0]
 
-    def counted(*a):
-        count[0] += 1
-        return real(*a)
+    def counted(params, h, xw):
+        count[0] += width is None or h.shape[-1] == width
+        return real(params, h, xw)
 
     gru_mod.gru_gates = counted
     try:
@@ -2565,6 +2810,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_reference(card)
     launches_train = phase_trainer(card)
+    phase_latent_train_reference(card)
+    launches_latent = phase_latent_trainer(card)
     sources = {
         "encoder_hn": ("encoder_gru.cu", "inpaintnet_tpu/ops/encoder_pallas.py:147", launches),
         "decode_sampling": ("decode_sampling.cu", "inpaintnet_tpu/ops/decode_pallas.py:216",
@@ -2585,7 +2832,8 @@ def main() -> int:
         report[name]["f32"]["launches"] = launches_f32[name]
     kernels = [{"name": name, "route": "cuda",
                 "source": f"inpaintnet_tpu_torch/ops/csrc/{src}", "replaces": replaces,
-                "launches": runs[name], **report[name]}
+                "launches": runs[name], **report[name],
+                "latent_train_launches": launches_latent.get(name, 0)}
                for name, (src, replaces, runs) in sources.items()]
     # K8's kernel also serves the two TPU kernels of the same function (K9, K10)
     kernels[-1]["also_replaces"] = ["inpaintnet_tpu/ops/gru_pallas.py:296",

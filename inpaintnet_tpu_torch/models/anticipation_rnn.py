@@ -295,7 +295,8 @@ class ConstraintModelGaussianReg(CheckpointedModel, nn.Module):
         package's ``apply`` at ``train=False``)."""
         if train:
             raise NotImplementedError(
-                "ARNN training waits for the ARNN trainer (ROADMAP §1 item 3)")
+                "ARNN training waits for the ARNN trainer, which the port does "
+                "not have yet")
         return self.forward_sampled(params, score, metadata, constraints_loc)[0]
 
     def apply_inpaint(self, params, score, metadata, constraints_loc, *,

@@ -27,12 +27,15 @@ The JAX package's ``"trainfast"`` names select its training route, which
 the port takes with ``train=True``: they leave the inference route at
 ``"xla"``.
 
-Training (``train=True``, whatever the route): an unmasked layer runs
+Training (``train=True``, whatever the route): an unmasked layer of a
+width K5 and K6 take (``gru_train_kernel.trainfast_supports``) runs
 through the minimal-residual autograd Function of ``ops/gru_trainfast.py``
 (K5 and K6 on the card), as the JAX package's trainers scope every
 mask-free layer through ``gru_layer_trainfast``
-(``inpaintnet_tpu/ops/gru.py:151-160``); a masked layer keeps the eager
-loop, which autograd differentiates. Between layers, ``dropout`` drops each
+(``inpaintnet_tpu/ops/gru.py:151-160``); a masked layer, or one of another
+width (the autoregressive LatentRNN's H-1024 generation GRU), keeps the
+eager loop, which autograd differentiates. The gate reads the width
+alone, so the CPU takes the card's route. Between layers, ``dropout`` drops each
 output of every non-last layer with a keep mask drawn from an explicit
 ``torch.Generator`` (or given as ``dropout_masks``), and scales the kept
 ones by ``1 / (1 - p)`` (``gru.py:411-421``).
@@ -48,6 +51,7 @@ import torch
 
 from inpaintnet_tpu_torch.ops.distributions import draw
 from inpaintnet_tpu_torch.ops.gru_kernel import gru_layer_stream
+from inpaintnet_tpu_torch.ops.gru_train_kernel import trainfast_supports
 from inpaintnet_tpu_torch.ops.linear import xavier_normal
 
 _IMPLS = ("xla", "pallas")
@@ -127,13 +131,14 @@ def gru_layer_apply(params, x: torch.Tensor, h0: torch.Tensor, *, reverse: bool 
     :param x: (B, T, in); h0: (B, H)
     :param reverse: run t = T-1 .. 0 (outputs stay in original order)
     :param mask: optional (B, T); steps with mask == 0 keep h
-    :param train: the training route (an unmasked layer runs the trainfast
-        autograd Function, a masked one the eager loop)
+    :param train: the training route (an unmasked layer that
+        ``trainfast_supports`` takes runs the trainfast autograd Function,
+        any other the eager loop)
     :param impl: the inference route, ``"xla"`` or ``"pallas"`` (default:
         the global one, see the module docstring)
     :return: (outputs (B, T, H) or None, h_last (B, H))
     """
-    if train and mask is None:
+    if train and mask is None and trainfast_supports(params["w_hh"].shape[0]):
         from inpaintnet_tpu_torch.ops.gru_trainfast import gru_layer_trainfast
 
         ys, h_last = gru_layer_trainfast(params, x, h0, reverse=reverse)

@@ -140,6 +140,16 @@ def gru_bwd_seq_reference(w_hh: torch.Tensor, dys: torch.Tensor, r: torch.Tensor
     return torch.stack(da_out), torch.stack(dhw_out), dh.to(dtype)
 
 
+def trainfast_supports(hidden: int) -> bool:
+    """Whether an unmasked training GRU layer of this width runs the
+    trainfast autograd Function (K5 forward, K6 backward): the widths both
+    kernels have a plan for, :func:`kernel_supports_hidden` (the VAE's H-512
+    layers). Any other width, such as the autoregressive LatentRNN's H-1024
+    generation GRU, runs the eager loop that autograd differentiates, on
+    every device, so the CPU takes the route the card takes."""
+    return kernel_supports_hidden(hidden)
+
+
 def _check_common(name: str, w_hh: torch.Tensor, device: torch.device, dtype: torch.dtype) -> int:
     if device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {device}")

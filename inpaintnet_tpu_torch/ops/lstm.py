@@ -95,8 +95,8 @@ def lstm_stack_apply(params, x: torch.Tensor, hidden=None, *,
     """
     if train:
         raise NotImplementedError(
-            "LSTM training (inter-layer dropout) waits for the ARNN trainer "
-            "(ROADMAP §1 item 3)")
+            "LSTM training (inter-layer dropout) waits for the ARNN trainer, "
+            "which the port does not have yet")
     num_layers = len(params)
     hid = params[0]["w_hh"].shape[0]
     if hidden is None:

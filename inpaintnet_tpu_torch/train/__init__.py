@@ -1,3 +1,7 @@
 """Training (``inpaintnet_tpu/train``): the single-device trainer, the
-MeasureVAE trainer, their losses, train-state checkpoints and an in-memory
-dataset."""
+MeasureVAE and LatentRNN trainers, their losses, train-state checkpoints and
+an in-memory dataset."""
+from inpaintnet_tpu_torch.train.latent_rnn_trainer import LatentRNNTrainer
+from inpaintnet_tpu_torch.train.vae_trainer import VAETrainer
+
+__all__ = ["LatentRNNTrainer", "VAETrainer"]

@@ -14,6 +14,12 @@ parameters in the JAX package's nested (in, out) layout and a
 eps 1e-8). With ``compute_dtype="bfloat16"`` the parameters are cast inside
 the loss (activations follow); masters and Adam state stay f32.
 
+A subclass whose loss reads frozen parameters beside the trained ones (the
+LatentRNN's MeasureVAE) returns them from ``extra_params``: the trainer
+keeps one copy, detached, on its device, in the compute dtype, made once
+(so the kernels' weight caches hold across steps), passes it to the loss
+as ``extra=`` and never optimises it.
+
 Randomness is explicit: ``generator``, a seeded ``torch.Generator`` on the
 trainer's device, draws dropout masks and rsample noise; ``coin_generator``,
 a seeded CPU generator, draws the per-batch teacher-forcing coin on the
@@ -83,6 +89,9 @@ class Trainer(ABC):
             raise ValueError(f"compute_dtype {compute_dtype!r}: None (f32) or 'bfloat16'")
         self.compute_dtype = compute_dtype
         self.params = trainable_copy(model.params(), self.device)
+        extra = self.extra_params()
+        self.extra = None if extra is None else cast_params(
+            extra, self.device, getattr(torch, compute_dtype or "float32"))
         self.optimizer = torch.optim.Adam([p for _, p in iter_leaves(self.params)], lr=lr,
                                           betas=(0.9, 0.999), eps=1e-8)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -97,7 +106,12 @@ class Trainer(ABC):
 
     @abstractmethod
     def loss_and_metrics(self, params, batch_data, train: bool, **inject):
-        """(scalar loss, {"accuracy": scalar})."""
+        """(scalar loss, {"accuracy": scalar}); with ``extra_params``, the
+        frozen parameters come as ``extra=``."""
+
+    def extra_params(self):
+        """Frozen nested parameters the loss reads, or None."""
+        return None
 
     # --- steps ------------------------------------------------------------- #
     def compute_params(self):
@@ -107,17 +121,22 @@ class Trainer(ABC):
             return self.params
         return cast_params(self.params, self.device, getattr(torch, self.compute_dtype))
 
+    def _loss(self, batch_data, train: bool, inject: dict):
+        if self.extra is not None:
+            inject = {**inject, "extra": self.extra}
+        return self.loss_and_metrics(self.compute_params(), batch_data, train, **inject)
+
     def train_step(self, batch_data, **inject):
         """One Adam step; -> (loss, metrics) as device tensors."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = self.loss_and_metrics(self.compute_params(), batch_data, True, **inject)
+        loss, metrics = self._loss(batch_data, True, inject)
         loss.backward()
         self.optimizer.step()
         return loss.detach(), metrics
 
     def eval_step(self, batch_data, **inject):
         with torch.no_grad():
-            return self.loss_and_metrics(self.compute_params(), batch_data, False, **inject)
+            return self._loss(batch_data, False, inject)
 
     # --- epoch machinery ---------------------------------------------------- #
     def loss_and_acc_on_epoch(self, data_loader, train: bool = True):

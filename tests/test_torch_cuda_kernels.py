@@ -1252,3 +1252,105 @@ def test_gradient_through_k7_matches_the_eager_decode(cuda, monkeypatch):
     assert arnn_kernel.arnn_sampled_decode.launches == before + 1
     monkeypatch.setattr(model, "_use_kernel_decode", lambda p: False)
     _same_grads(got, grads(), "lstm_generation")
+
+
+# --------------------------------------------------------------------------- #
+# LatentRNN training: the frozen encoder on K5, the decode on K2
+# --------------------------------------------------------------------------- #
+def _latent_trainers(devices, auto_reg, hidden=64, rnn_hidden=64, seed=5):
+    """A LatentRNN (every dropout 0 but the frozen decoder's, which the
+    argmax decode never applies) over a frozen VAE of ``hidden`` units, one
+    trainer a device, on the same 3 windows of 9 bars."""
+    from inpaintnet_tpu_torch.models.latent_rnn import LatentRNN
+    from inpaintnet_tpu_torch.models.measure_vae import MeasureVAE
+    from inpaintnet_tpu_torch.models.presets import VocabOnlyDataset
+    from inpaintnet_tpu_torch.train import LatentRNNTrainer
+    from inpaintnet_tpu_torch.train.data import ArrayDataset
+
+    vae = MeasureVAE(VocabOnlyDataset(30), note_embedding_dim=8, encoder_hidden_size=hidden,
+                     latent_space_dim=12, decoder_hidden_size=hidden, device="cpu", seed=seed,
+                     encoder_dropout_prob=0.0)
+    model = LatentRNN(vae, 2, rnn_hidden, auto_reg, device="cpu", dropout=0.0, seed=seed + 1)
+    windows = np.random.default_rng(seed).integers(0, 30, (3, 1, 9 * 24)).astype(np.int32)
+    data = ArrayDataset((windows,), 9)
+    return windows, model, [LatentRNNTrainer(data, model, lr=1e-3, device=d, seed=1)
+                            for d in devices]
+
+
+@pytest.mark.parametrize("auto_reg,coin", [(False, None), (True, True), (True, False)],
+                         ids=["non_autoregressive", "teacher_forced", "sampled"])
+def test_latent_rnn_train_step_on_card_matches_cpu(cuda, auto_reg, coin):
+    """One LatentRNN train step, f32, H 64, the same split and injected
+    noise: on the card (K5 for the frozen encoder, K2 for the decode with
+    the eager scan's backward) against the CPU's plain versions. Loss and
+    gradients within chip_smoke.py's TRAIN_REF bounds (f32 sums in another
+    order); the K2 forward's tokens equal."""
+    from inpaintnet_tpu_torch.models.base import iter_leaves
+
+    windows, model, (card_tr, cpu_tr) = _latent_trainers((cuda, "cpu"), auto_reg)
+    rng = np.random.default_rng(9)
+    mt = model.max_target
+    measures = 2 * 9 + (mt if model.use_teacher_forcing else 0)
+    eps = torch.from_numpy(rng.standard_normal((3 * measures, 12)).astype(np.float32))
+    eps_steps = torch.from_numpy(rng.standard_normal((mt - 1, 3, 12)).astype(np.float32))
+    out = []
+    for tr in (card_tr, cpu_tr):
+        batch = tr.process_batch_data((windows,))
+        before = (decode_kernel.decode_sampling.launches, gk.gru_fwd_seq.launches)
+        weights, samples, _ = tr.model.apply(
+            tr.params, tr.extra, batch[0], batch[2], batch[4], past_mask=batch[1],
+            future_mask=batch[3], target_mask=batch[5], train=True, coin=coin,
+            eps=eps.to(tr.device), eps_steps=eps_steps.to(tr.device))
+        loss, _ = tr.loss_and_metrics(tr.params, batch, True, extra=tr.extra,
+                                      eps=eps.to(tr.device), eps_steps=eps_steps.to(tr.device),
+                                      coin=coin)
+        loss.backward()
+        launched = (decode_kernel.decode_sampling.launches - before[0],
+                    gk.gru_fwd_seq.launches - before[1])
+        out.append((loss.item(), samples.cpu(), launched,
+                    [p.grad.cpu() for _, p in iter_leaves(tr.params) if p.grad is not None]))
+    (l_c, s_c, n_c, g_c), (l_p, s_p, n_p, g_p) = out
+    # per forward: K2 a decode; K5 4 an encode and, on the sampled branch,
+    # 4 a step of the generation GRU (hidden 128, a width K5 takes)
+    sampled = auto_reg and not coin
+    assert n_c == ((mt if sampled else 1) * 2, (8 * mt if sampled else 4) * 2)
+    assert n_p == (0, 0)
+    assert torch.equal(s_c, s_p)
+    assert abs(l_c - l_p) <= 1e-5 * abs(l_p)
+    assert len(g_c) == len(g_p)
+    for a, b in zip(g_c, g_p):
+        assert ((a - b).abs() / (1.0 + b.abs())).max().item() <= 1e-5
+
+
+def test_latent_rnn_sampled_step_at_generation_hidden_1024(cuda):
+    """The autoregressive sampled branch at LatentRNN hidden 512 (generation
+    GRU 1024, wider than K5/K6 take) over a small frozen VAE (H 64): the
+    step runs, the generation GRU takes the eager loop (6 steps x 2 layers x
+    2 directions), the frozen encoder K5 (a context encode and 5
+    re-encodes), K6 never, and the generation GRU's weights get
+    gradients."""
+    from inpaintnet_tpu_torch.models.base import iter_leaves
+    from inpaintnet_tpu_torch.ops import gru as gru_mod
+
+    windows, model, (tr,) = _latent_trainers((cuda,), True, rnn_hidden=512)
+    assert model.gen_hidden_size == 1024 and not gk.trainfast_supports(1024)
+    mt = model.max_target
+    wide, real = [0], gru_mod.gru_gates
+
+    def counted(params, h, xw):
+        wide[0] += h.shape[-1] == 1024
+        return real(params, h, xw)
+
+    before = (gk.gru_fwd_seq.launches, gk.gru_bwd_seq.launches)
+    gru_mod.gru_gates = counted
+    try:
+        loss, _ = tr.train_step(tr.process_batch_data((windows,)), coin=False)
+    finally:
+        gru_mod.gru_gates = real
+    torch.cuda.synchronize()
+    assert np.isfinite(loss.item())
+    assert wide[0] == mt * 4
+    assert gk.gru_fwd_seq.launches - before[0] == 4 * mt
+    assert gk.gru_bwd_seq.launches == before[1]
+    grads = [p.grad for k, p in iter_leaves(tr.params) if k.startswith("generation_rnn")]
+    assert all(g is not None for g in grads) and max(g.abs().max().item() for g in grads) > 0

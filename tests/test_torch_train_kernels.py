@@ -164,15 +164,20 @@ def test_trainfast_function_grads_match_jax_vjp(interpret, monkeypatch, reverse)
     assert max(np.abs(a - b).max() for a, b in zip(planted, want)) > 10 * GRAD_ATOL
 
 
+# the stack's width: one the trainfast route takes (``trainfast_supports``:
+# whole 64-unit chunks); a narrower training layer runs the eager loop
+STACK_H = 64
+
+
 def _stack_case(seed):
     rng = np.random.default_rng(seed)
     params = jax.tree_util.tree_map(
         lambda v: (v + 0.1 * rng.standard_normal(v.shape)).astype(np.float32),
-        gru_init(rng, 5, H, 2, bidirectional=True))
+        gru_init(rng, 5, STACK_H, 2, bidirectional=True))
     x = rng.standard_normal((4, 6, 5)).astype(np.float32)
-    keep = rng.random((4, 6, 2 * H)) < 0.5
-    w_out = rng.standard_normal((4, 6, 2 * H)).astype(np.float32)
-    w_hn = rng.standard_normal((4, 4, H)).astype(np.float32)
+    keep = rng.random((4, 6, 2 * STACK_H)) < 0.5
+    w_out = rng.standard_normal((4, 6, 2 * STACK_H)).astype(np.float32)
+    w_hn = rng.standard_normal((4, 4, STACK_H)).astype(np.float32)
     return params, x, keep, w_out, w_hn
 
 
