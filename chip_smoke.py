@@ -145,12 +145,28 @@ Phases, each raising on failure:
    step asserted and K6 never, the hidden-1024 generation GRU on the eager
    loop, the frozen VAE bit-unchanged, a validation step's K1 and K2
    launches; ms a step, windows/s, valid target measures/s, peak memory
-   and a profile of each branch.
+   and a profile of each branch;
+19. AnticipationRNN training: the port's ``FolkDatasetNBars`` built from
+   ``generate_corpus`` (200 tunes, 16 bars; windows, vocabulary, host
+   seconds and whether the native tokenizer ran); a train step of each
+   trainer on each coin on the card against the CPU (f32, H 64, 9 bars, the
+   same parameters, masks and coin, two Adam steps each, the sampled
+   branch's tokens equal); then both trainers at ``train_arnn_baseline.py``'s
+   and ``train_arnn_reg.py``'s width (2 x 256 LSTMs, linear 256, dropout
+   0.2, batch 32 of 16 bars) in f32 and bf16 compute on both coins: K7
+   never launched by a train step and once by each validation batch, the
+   loss finite, the parameters moving; ms a step, windows/s, target
+   ticks/s, peak memory, a profile of each branch with its launches split
+   by the constraint stack, the generation stack or loop, and the
+   backward, and K7's device time in a validation batch; last,
+   ``train_model`` for one epoch on a 4-tune corpus, resumed exactly by
+   ``load_state`` on a fresh trainer.
 
 Phase 17 runs after phase 7; phases 12-16 after phase 8, before the
-training phases; phase 18 last. Prints one
+training phases; phases 18 and 19 last. Prints one
 JSON line of the eight kernels (each with its launches in phase 18,
-``latent_train_launches``), the card's name and power limit, and as
+``latent_train_launches``, and in phase 19, ``arnn_train_launches``), the
+card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
 result, when there is no usable card or any phase fails.
 """
@@ -242,6 +258,13 @@ TRAIN_REF = {"loss": 1e-5, "grad": 1e-5, "param_max": 2e-3, "param_mean": 1e-6}
 # The full-width LatentRNN trainer: train_inpaintnet.py's batch of 32
 # windows of 16 bars (max context 16, max target 6).
 LATENT_WINDOWS = 32
+# AnticipationRNN training (phase 19): train_arnn_baseline.py's and
+# train_arnn_reg.py's batch of 32 windows of 16 bars, on the port's
+# FolkDatasetNBars over benchmarks/quality_check.py's 200-tune synthetic
+# corpus (seed 7); train_model runs one epoch of a 4-tune corpus.
+ARNN_WINDOWS = 32
+ARNN_TUNES = 200
+ARNN_SMALL_TUNES = 4
 # Published dense peaks of an H100 SXM at 700 W (NVIDIA's data sheet):
 # operations per second by product type, and device-memory bytes per second.
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
@@ -1243,11 +1266,7 @@ def _profile_step(step) -> tuple:
             torch.cuda.synchronize()
             step()
             torch.cuda.synchronize()
-        rows = []
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key:
-                us = getattr(e, "self_device_time_total", None)
-                rows.append((e.key, (e.self_cuda_time_total if us is None else us) / 1e3, e.count))
+        rows = _kernel_rows(prof)
         if rows:
             break
         print(f"[profile] no device activity recorded (attempt {attempt + 1}); tracing again",
@@ -1258,6 +1277,19 @@ def _profile_step(step) -> tuple:
 
 # the lead of a trace: ~5 ms of a card's clock before the traced call
 PROFILE_LEAD_CYCLES = 10_000_000
+
+
+def _kernel_rows(prof, skip=()) -> list:
+    """[(kernel, device ms, launches)] of a trace, leaving out the lead's
+    ``spin_kernel`` and the device ranges of the ``record_function`` labels
+    in ``skip``."""
+    rows = []
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key
+                and e.key not in skip):
+            us = getattr(e, "self_device_time_total", None)
+            rows.append((e.key, (e.self_cuda_time_total if us is None else us) / 1e3, e.count))
+    return rows
 
 
 def _profile_retaken(count, call, want: int):
@@ -2771,6 +2803,452 @@ def phase_autoreg_http(engine, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# AnticipationRNN training (phase 19)
+# ---------------------------------------------------------------------------
+def _folk_nbars(root: Path, tunes: int, num_bars: int = N_BARS):
+    """The port's ``FolkDatasetNBars`` (beat marker and tick channels) over a
+    fresh synthetic corpus of ``tunes`` tunes (seed 7), built under
+    ``root``. -> (dataset with its arrays built, host seconds)."""
+    from inpaintnet_tpu_torch.data import BeatMarkerMetadata, DatasetManager, TickMetadata
+    from inpaintnet_tpu_torch.data.synthetic import generate_corpus
+
+    t0 = time.perf_counter()
+    generate_corpus(str(root / "corpus"), num_tunes=tunes, num_bars=16, seed=7)
+    ds = DatasetManager(cache_dir=str(root / "cache"), corpus_dir=str(root / "corpus")) \
+        .get_dataset("folk_4by4nbars_train", metadatas=[BeatMarkerMetadata(6), TickMetadata(6)],
+                     num_bars=num_bars, train=True)
+    ds.arrays
+    return ds, time.perf_counter() - t0
+
+
+def phase_arnn_data(root: Path, card: str):
+    """The 200-tune dataset the full-width trainers read."""
+    from inpaintnet_tpu_torch.data.native import NativeTokenizer
+
+    ds, seconds = _folk_nbars(root, ARNN_TUNES)
+    score, md = ds.arrays
+    print(f"[arnn-data] FolkDatasetNBars over {ARNN_TUNES} synthetic tunes: {score.shape[0]} "
+          f"windows of {score.shape[-1]} ticks, metadata {tuple(md.shape[1:])}, vocabulary "
+          f"{len(ds.vocab)}, {seconds:.2f} s on the host; native tokenizer "
+          f"{'used' if NativeTokenizer.available() else 'not built (Python tokenizer)'} "
+          f"| {card}", flush=True)
+    if len(ds.vocab) > 64:
+        raise RuntimeError(f"vocabulary {len(ds.vocab)}: K7's Hopper routes take at most 64")
+    return ds
+
+
+class _Bars:
+    """A dataset's vocabulary, metadata channels and measure geometry over
+    its windows cut to ``n_bars``: what the ARNN models and trainers read."""
+
+    def __init__(self, ds, n_bars: int):
+        self.n_bars = n_bars
+        for name in ("note2index_dicts", "metadatas", "num_voices", "subdivision",
+                     "num_beats_per_bar"):
+            setattr(self, name, getattr(ds, name))
+        self.ticks = n_bars * ds.subdivision * ds.num_beats_per_bar
+
+    def __repr__(self):
+        return f"Bars({self.n_bars})"
+
+
+def _arnn_model(kind: str, ds, hidden: int, device, seed: int):
+    """``train_arnn_baseline.py``'s / ``train_arnn_reg.py``'s model: note
+    embedding 10, metadata embedding 2, 2-layer LSTMs and linear of
+    ``hidden``, dropout 0.2 between the layers and on the input, unary
+    constraints, teacher forcing."""
+    from inpaintnet_tpu_torch.models.anticipation_rnn import (
+        AnticipationRNNBaseline,
+        ConstraintModelGaussianReg,
+    )
+
+    cls = ConstraintModelGaussianReg if kind == "reg" else AnticipationRNNBaseline
+    return cls(ds, note_embedding_dim=10, metadata_embedding_dim=2,
+               num_lstm_constraints_units=hidden, num_lstm_generation_units=hidden,
+               linear_hidden_size=hidden, num_layers=2, dropout_input_prob=0.2,
+               dropout_prob=0.2, unary_constraint=True, teacher_forcing=True, device=device,
+               seed=seed)
+
+
+def _arnn_trainer_class(kind: str):
+    from inpaintnet_tpu_torch.train import (
+        AnticipationRNNBaselineTrainer,
+        AnticipationRNNGaussianRegTrainer,
+    )
+
+    return AnticipationRNNGaussianRegTrainer if kind == "reg" else AnticipationRNNBaselineTrainer
+
+
+def _check_no_tf32() -> None:
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError("TF32 products are on: the f32 path must compute f32 products in f32")
+
+
+def phase_arnn_train_reference(ds, card: str) -> None:
+    """ARNN train steps on the card against the same steps on the CPU, f32,
+    H 64, 4 windows of the dataset cut to 9 bars: each trainer takes two
+    Adam steps (lr 1e-3), teacher-forced then sampled, from the same
+    parameters (seed 5), constraint masks (the same host stream) and
+    dropout masks (a seeded CPU generator on both devices). The sampled
+    branch's tokens must equal the CPU's; loss, gradients and parameters
+    stay within ``TRAIN_REF``, phase 9's bounds for phase 9's reasons; K7
+    never launches."""
+    from inpaintnet_tpu_torch.models.base import iter_leaves
+    from inpaintnet_tpu_torch.ops.arnn_kernel import arnn_sampled_decode
+
+    bars = _Bars(ds, 9)
+    windows = tuple(a[:4, :, :bars.ticks] for a in ds.arrays)
+    for kind in ("reg", "baseline"):
+        model = _arnn_model(kind, bars, 64, "cpu", seed=5)
+        tokens, scan = [], model._sampled_scan
+
+        def recorded(*a, **k):
+            out = scan(*a, **k)
+            tokens.append(out[1].detach().cpu())
+            return out
+
+        model._sampled_scan = recorded
+        trainers = {}
+        for dev in ("cuda", "cpu"):
+            trainers[dev] = _arnn_trainer_class(kind)(bars, model, lr=1e-3, device=dev, seed=1)
+            trainers[dev].generator = torch.Generator().manual_seed(11)
+        for step, coin in enumerate((True, False)):
+            label = f"{kind} {'teacher-forced' if coin else 'sampled'}"
+            out = {}
+            for dev, tr in trainers.items():
+                tokens.clear()
+                before = arnn_sampled_decode.launches
+                loss, _ = tr.train_step(tr.process_batch_data(windows), coin=coin)
+                leaves = [p for _, p in iter_leaves(tr.params)]
+                out[dev] = (loss.item(),
+                            [torch.zeros_like(p).cpu() if p.grad is None else p.grad.cpu()
+                             for p in leaves],
+                            [p.detach().cpu() for p in leaves],
+                            torch.cat(tokens) if tokens else None,
+                            arnn_sampled_decode.launches - before)
+            (l_c, g_c, p_c, t_c, k7), (l_p, g_p, p_p, t_p, _) = out["cuda"], out["cpu"]
+            loss_err = abs(l_c - l_p) / abs(l_p)
+            g_err = max(((a - c).abs() / (1.0 + c.abs())).max().item()
+                        for a, c in zip(g_c, g_p))
+            p_diff = torch.cat([(a - c).abs().flatten() for a, c in zip(p_c, p_p)])
+            agree = None if t_c is None else (t_c == t_p).float().mean().item()
+            print(f"[arnn-train-ref] {label} step {step}: loss card {l_c:.7f} cpu {l_p:.7f} "
+                  f"rel err {loss_err:.3e} (bound {TRAIN_REF['loss']:.0e}); gradients max "
+                  f"|d|/(1+|g|) {g_err:.3e} (bound {TRAIN_REF['grad']:.0e}); post-Adam "
+                  f"params max {p_diff.max().item():.3e} (bound "
+                  f"{TRAIN_REF['param_max']:.0e}), mean {p_diff.mean().item():.3e} (bound "
+                  f"{TRAIN_REF['param_mean']:.0e}); sampled tokens equal "
+                  f"{'-' if agree is None else f'{agree:.6f}'}; K7 launches {k7} | {card}",
+                  flush=True)
+            if k7 != 0:
+                raise RuntimeError(f"{label}: a train step launched K7 {k7} times")
+            if (t_c is None) != coin or (agree is not None and agree < 1.0):
+                raise RuntimeError(f"{label} step {step}: the sampled branch's tokens "
+                                   f"differ from the CPU's (equal share {agree})")
+            if not (loss_err <= TRAIN_REF["loss"] and g_err <= TRAIN_REF["grad"]
+                    and p_diff.max().item() <= TRAIN_REF["param_max"]
+                    and p_diff.mean().item() <= TRAIN_REF["param_mean"]):
+                raise RuntimeError(f"the ARNN train step on the card disagrees with the "
+                                   f"CPU ({label}, step {step})")
+
+
+ARNN_LABELS = ("arnn.step", "arnn.forward", "arnn.constraint", "arnn.adam")
+_UNSET = object()
+
+
+@contextlib.contextmanager
+def _labelled_parts(tr):
+    """Name the parts of ``tr``'s step for the profiler: the loss
+    (``arnn.forward``), the constraint stack inside it (``arnn.constraint``)
+    and Adam (``arnn.adam``). The instance attributes are put back on exit."""
+    targets = ((tr, "loss_and_metrics", "arnn.forward"),
+               (tr.model, "output_lstm_constraints", "arnn.constraint"),
+               (tr.optimizer, "step", "arnn.adam"))
+
+    def labelled(fn, label):
+        def run(*a, **k):
+            with torch.profiler.record_function(label):
+                return fn(*a, **k)
+        return run
+
+    saved = [(obj, name, obj.__dict__.get(name, _UNSET)) for obj, name, _ in targets]
+    for obj, name, label in targets:
+        setattr(obj, name, labelled(getattr(obj, name), label))
+    try:
+        yield
+    finally:
+        for obj, name, old in saved:
+            if old is _UNSET:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, old)
+
+
+def _launch_split(spans: dict, launches: list) -> dict:
+    """Host launches (the ``cuda*LaunchKernel*`` runtime calls' start times)
+    of one traced step by part: each goes to the innermost labelled part
+    whose span holds it; the generation stack or loop is the forward less
+    the constraint stack (with the head and the loss, 24-35 launches), the
+    backward the rest of the step. Host-side, so a kernel the trace lost
+    on the device does not move a launch between parts. Empty when the
+    trace holds no runtime calls."""
+    def inside(t, label):
+        return any(a <= t <= b for a, b in spans.get(label, ()))
+
+    split = {"constraint": 0, "generation": 0, "backward": 0, "adam": 0}
+    for t in launches:
+        if not inside(t, "arnn.step"):
+            continue
+        part = next((key for label, key in (("arnn.adam", "adam"),
+                                            ("arnn.constraint", "constraint"),
+                                            ("arnn.forward", "generation"))
+                     if inside(t, label)), "backward")
+        split[part] += 1
+    return split if sum(split.values()) else {}
+
+
+def _arnn_profile(tr, batch, coin) -> tuple:
+    """One labelled train step traced on the card, read from kineto's raw
+    events (not parsed into a tree of ``FunctionEvent``s, which takes ~50 s
+    of the host for ~90,000 kernels and their ops). A trace that recorded
+    no device activity is taken again, up to twice. -> (device ms, device
+    launches, [(kernel, ms, launches)] by time, longest first, the host
+    launches by part (``_launch_split``))."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(3):
+        with _labelled_parts(tr), torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(PROFILE_LEAD_CYCLES)
+            torch.cuda.synchronize()
+            with torch.profiler.record_function("arnn.step"):
+                loss, _ = tr.train_step(batch, coin=coin)
+                loss.item()
+            torch.cuda.synchronize()
+        device, host, spans, launches = [], set(), {}, []
+        for e in prof.profiler.kineto_results.events():
+            name = e.name()
+            if e.device_type() == torch.autograd.DeviceType.CUDA:
+                device.append((name, e.duration_ns()))
+                continue
+            host.add(name)
+            if name in ARNN_LABELS:
+                spans.setdefault(name, []).append((e.start_ns(), e.start_ns() + e.duration_ns()))
+            elif "LaunchKernel" in name:
+                launches.append(e.start_ns())
+        by_name = {}
+        for name, ns in device:
+            # a device range named as a host event is a record_function
+            # label's (ours, or Adam's own), not a kernel
+            if "spin_kernel" not in name and name not in host:
+                ms, n = by_name.get(name, (0.0, 0))
+                by_name[name] = (ms + ns / 1e6, n + 1)
+        if by_name:
+            break
+        print(f"[profile] no device activity recorded (attempt {attempt + 1}); tracing again",
+              flush=True)
+    rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()), key=lambda r: -r[1])
+    return (sum(r[1] for r in rows), sum(r[2] for r in rows), rows,
+            _launch_split(spans, launches))
+
+
+def _validate_on_k7(tr, batch, label: str, dtype):
+    """One validation batch of ``tr``: K7 launches once, and its call
+    (recorded where the model calls it) holds against its plain version on
+    the same inputs within ``ARNN_BOUNDS``. -> the validation loss."""
+    from inpaintnet_tpu_torch.models import anticipation_rnn as tarnn
+    from inpaintnet_tpu_torch.ops import arnn_kernel as ak
+
+    real, calls = tarnn.arnn_sampled_decode, []
+
+    def recorded(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
+
+    before = ak.arnn_sampled_decode.launches
+    tarnn.arnn_sampled_decode = recorded
+    try:
+        loss = tr.eval_step(batch)[0].item()
+    finally:
+        tarnn.arnn_sampled_decode = real
+    k7 = ak.arnn_sampled_decode.launches - before
+    if k7 != 1 or len(calls) != 1 or not np.isfinite(loss):
+        raise RuntimeError(f"{label} validation batch: K7 launched {k7} times (expected 1); "
+                           f"loss {loss}")
+    args, got = calls[0]
+    agree = ak.decode_agreement(got, ak.arnn_sampled_decode_reference(*args), args[3])
+    b = ARNN_BOUNDS[dtype]
+    print(f"[arnn-trainer] {label} validation batch, K7 at {tuple(args[2].shape)} against its "
+          f"plain version: {_agreement_line(agree)} (bounds {b})", flush=True)
+    if not ak.within(agree, b) or not bool(torch.isfinite(got[0].float()).all()):
+        raise RuntimeError(f"{label}: K7 in the validation batch disagrees with its plain "
+                           f"version")
+    return loss
+
+
+def phase_arnn_trainer(ds, card: str) -> dict:
+    """Both ARNN trainers at the width of ``train_arnn_baseline.py`` /
+    ``train_arnn_reg.py`` (random weights from seed 0) on the dataset's
+    first 32 windows, in f32 and in bf16 compute, 8 steps each (coins
+    alternating, teacher-forced first; steps 0-1 warm up, 2-7 are timed, ms
+    a step being the mean of the branches' medians), and the reg trainer's
+    K7 device time in a validation batch; then one profiled step of each
+    branch of the reg trainer in f32 (``_arnn_profile``). Every train step
+    launches K7 0 times and each validation batch (the next 32 windows)
+    once, and that call holds against K7's plain version
+    (``_validate_on_k7``); the loss is finite and the parameters move.
+    -> {kernel: launches} over the phase."""
+    from inpaintnet_tpu_torch.models.base import iter_leaves
+    from inpaintnet_tpu_torch.ops import arnn_kernel as ak
+
+    _check_no_tf32()
+    score, md = ds.arrays
+    train_batch = (score[:ARNN_WINDOWS], md[:ARNN_WINDOWS])
+    val_batch = (score[ARNN_WINDOWS:2 * ARNN_WINDOWS], md[ARNN_WINDOWS:2 * ARNN_WINDOWS])
+    vocab = len(ds.note2index_dicts[0])
+
+    t_phase = time.perf_counter()
+
+    def drive():
+        for kind in ("reg", "baseline"):
+            for compute in (None, "bfloat16"):
+                label = f"{kind} {compute or 'float32'}"
+                dtype = torch.bfloat16 if compute else torch.float32
+                model = _arnn_model(kind, ds, 256, "cuda", seed=0)
+                tr = _arnn_trainer_class(kind)(ds, model, lr=1e-4, device="cuda",
+                                              compute_dtype=compute, seed=1)
+                start = [p.detach().clone() for _, p in iter_leaves(tr.params)]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                times, targets = {}, []
+                for i, coin in enumerate((True, False) * 4):
+                    batch = tr.process_batch_data(train_batch)
+                    before = ak.arnn_sampled_decode.launches
+                    t0 = time.perf_counter()
+                    loss, _ = tr.train_step(batch, coin=coin)
+                    loss = loss.item()  # waits for the step
+                    wall = (time.perf_counter() - t0) * 1e3
+                    if i >= 2:
+                        times.setdefault(coin, []).append(wall)
+                        targets.append(int((1 - batch[2]).sum().item()))
+                    k7 = ak.arnn_sampled_decode.launches - before
+                    if k7 != 0 or not np.isfinite(loss):
+                        raise RuntimeError(f"{label} step {i} (coin {coin}): K7 launched {k7} "
+                                           f"times (expected 0); loss {loss}")
+                peak = torch.cuda.max_memory_allocated()
+                moved = sum((p.detach() - s).abs().sum().item()
+                            for (_, p), s in zip(iter_leaves(tr.params), start))
+                if not moved > 0:
+                    raise RuntimeError(f"{label}: the parameters did not move")
+                val_loss = _validate_on_k7(tr, tr.process_batch_data(val_batch), label, dtype)
+                k7_line = ""
+                if kind == "reg":
+                    vb = tr.process_batch_data(val_batch)
+                    parts, n = k7_parts(lambda: tr.eval_step(vb), ak.arnn_cuda_launches(
+                        dtype, ARNN_WINDOWS, score.shape[-1], 256, 256, vocab), dtype)
+                    k7_line = (f"; K7 in a validation batch: device {sum(parts.values()):.3f} ms "
+                               f"({', '.join(f'{k} {v:.3f}' for k, v in parts.items())}; {n} "
+                               f"CUDA launches)")
+                walls = {c: float(np.median(t)) for c, t in times.items()}
+                ms = float(np.mean(list(walls.values())))
+                per_step = float(np.mean(targets))
+                print(f"[arnn-trainer] {label} ({time.perf_counter() - t_phase:.1f} s into "
+                      f"the phase): {ms:.2f} ms/step (teacher-forced "
+                      f"{walls[True]:.2f}, sampled {walls[False]:.2f}), "
+                      f"{ARNN_WINDOWS / (ms / 1e3):.1f} windows/s, "
+                      f"{per_step / (ms / 1e3):.1f} target ticks/s ({per_step:.1f} a step), "
+                      f"peak memory {peak / 2**30:.3f} GiB, last loss {loss:.5f}, validation "
+                      f"loss {val_loss:.5f}; K7 launches: 0 a train step, 1 a "
+                      f"validation batch{k7_line} | {card}", flush=True)
+                if kind == "reg" and compute is None:
+                    for coin in (True, False):
+                        t0 = time.perf_counter()
+                        device_ms, count, rows, split = _arnn_profile(
+                            tr, tr.process_batch_data(train_batch), coin)
+                        branch = "teacher-forced" if coin else "sampled"
+                        print(f"[profile] arnn {label} {branch}: device {device_ms:.2f} "
+                              f"ms/step, {count} launches/step, idle share "
+                              f"{1 - device_ms / walls[coin]:.3f} (of the unprofiled median "
+                              f"wall {walls[coin]:.2f} ms); host launches by part "
+                              f"{split or 'not measured (no runtime calls traced)'}; traced "
+                              f"and read in {time.perf_counter() - t0:.1f} s | {card}",
+                              flush=True)
+                        for name, k_ms, k_count in rows[:10]:
+                            print(f"[profile]   {k_ms:9.3f} ms {k_count:6d}x  {name[:110]}",
+                                  flush=True)
+                del tr, model, start
+                torch.cuda.empty_cache()
+
+    ak.arnn_sampled_decode.launches = 0
+    drive()
+    launches = {"arnn_sampled_decode": ak.arnn_sampled_decode.launches}
+    print(f"[arnn-trainer] launches in the full-width runs: {launches}", flush=True)
+    if launches["arnn_sampled_decode"] < 1:
+        raise RuntimeError(f"the ARNN training path launched {launches}")
+    return launches
+
+
+def phase_arnn_train_model(root: Path, card: str) -> int:
+    """``train_model`` for one epoch at full width (f32, the baseline
+    trainer) on a 4-tune corpus, batch 32; then a fresh trainer's
+    ``load_state`` restores the parameters, the Adam state and the epoch
+    exactly on the card. -> K7 launches in the epoch."""
+    from inpaintnet_tpu_torch.models.base import iter_leaves
+    from inpaintnet_tpu_torch.ops import arnn_kernel as ak
+
+    ds, seconds = _folk_nbars(root / "small", ARNN_SMALL_TUNES)
+    ckpt = str(root / "checkpoints")
+
+    def fresh(seed):
+        model = _arnn_model("baseline", ds, 256, "cuda", seed=seed)
+        model.checkpoint_dir = ckpt
+        return _arnn_trainer_class("baseline")(ds, model, lr=1e-4, device="cuda", seed=1)
+
+    trainer = fresh(0)
+    _, val, _ = ds.data_loaders(batch_size=ARNN_WINDOWS, split=(0.70, 0.20), seed=1)
+    before = ak.arnn_sampled_decode.launches
+    t0 = time.perf_counter()
+    trainer.train_model(batch_size=ARNN_WINDOWS, num_epochs=1, split=(0.70, 0.20))
+    epoch_s = time.perf_counter() - t0
+    k7 = ak.arnn_sampled_decode.launches - before
+    if k7 != len(val) or trainer.epoch != 1:
+        raise RuntimeError(f"train_model: K7 launched {k7} times over {len(val)} validation "
+                           f"batches; epoch {trainer.epoch}")
+    resumed = fresh(2)
+    if resumed.load_state() != 1 or resumed.epoch != 1:
+        raise RuntimeError("load_state did not restore the epoch")
+    for (k, p), (_, q) in zip(iter_leaves(resumed.params), iter_leaves(trainer.params)):
+        s, t = resumed.optimizer.state[p], trainer.optimizer.state[q]
+        if not (p.is_cuda and torch.equal(p, q) and set(s) == set(t)
+                == {"step", "exp_avg", "exp_avg_sq"}
+                and all(torch.equal(s[n], t[n]) for n in s)):
+            raise RuntimeError(f"load_state did not restore {k} exactly")
+    print(f"[arnn-train-model] one epoch on {ARNN_SMALL_TUNES} tunes "
+          f"({ds.arrays[0].shape[0]} windows, dataset {seconds:.2f} s on the host): "
+          f"{epoch_s:.2f} s, K7 launches {k7} (one a validation batch); load_state restored "
+          f"the parameters, Adam state and epoch exactly | {card}", flush=True)
+    return k7
+
+
+def phase_arnn_training(card: str) -> dict:
+    """Phase 19, in a temporary directory. -> {kernel: launches}."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ds = phase_arnn_data(root, card)
+        phase_arnn_train_reference(ds, card)
+        t1 = time.perf_counter()
+        launches = phase_arnn_trainer(ds, card)
+        t2 = time.perf_counter()
+        launches["arnn_sampled_decode"] += phase_arnn_train_model(root, card)
+    print(f"[arnn] phase 19: {time.perf_counter() - t0:.1f} s (data and the card against the "
+          f"CPU {t1 - t0:.1f} s, full width {t2 - t1:.1f} s, train_model "
+          f"{time.perf_counter() - t2:.1f} s)", flush=True)
+    return launches
+
+
 def main() -> int:
     cli = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     cli.add_argument("--parent", metavar="DIR",
@@ -2812,6 +3290,7 @@ def main() -> int:
     launches_train = phase_trainer(card)
     phase_latent_train_reference(card)
     launches_latent = phase_latent_trainer(card)
+    launches_arnn_train = phase_arnn_training(card)
     sources = {
         "encoder_hn": ("encoder_gru.cu", "inpaintnet_tpu/ops/encoder_pallas.py:147", launches),
         "decode_sampling": ("decode_sampling.cu", "inpaintnet_tpu/ops/decode_pallas.py:216",
@@ -2833,7 +3312,8 @@ def main() -> int:
     kernels = [{"name": name, "route": "cuda",
                 "source": f"inpaintnet_tpu_torch/ops/csrc/{src}", "replaces": replaces,
                 "launches": runs[name], **report[name],
-                "latent_train_launches": launches_latent.get(name, 0)}
+                "latent_train_launches": launches_latent.get(name, 0),
+                "arnn_train_launches": launches_arnn_train.get(name, 0)}
                for name, (src, replaces, runs) in sources.items()]
     # K8's kernel also serves the two TPU kernels of the same function (K9, K10)
     kernels[-1]["also_replaces"] = ["inpaintnet_tpu/ops/gru_pallas.py:296",

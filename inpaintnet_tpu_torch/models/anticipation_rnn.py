@@ -1,5 +1,5 @@
 """AnticipationRNN: the constraint-conditioned LSTM family
-(``inpaintnet_tpu/models/anticipation_rnn.py``), inference.
+(``inpaintnet_tpu/models/anticipation_rnn.py``).
 
 - a *constraint* LSTM stack runs BACKWARDS over the embedded metadata and
   the unary-constraint note embeddings (``output_lstm_constraints``), with
@@ -16,8 +16,17 @@ routes it to its Pallas kernel; everything else runs the eager scan.
 Temperature sampling takes explicit Gumbel noise (``ops/sampling.py``):
 given, from per-row keys, or from a ``torch.Generator``.
 
-Training (``forward_tf``, dropout, the teacher-forcing coin) waits for the
-ARNN trainer: ``apply(train=True)`` raises.
+Training (``apply(train=True)``) flips one teacher-forcing coin a batch
+(p 0.5, drawn on the host from ``coin_generator`` unless given): heads run
+``forward_tf``, one teacher-forced pass whose generation stack reads zeros
+at tick 0 and the previous tick's note embedding after it; tails run the
+eager argmax loop under autograd, never K7 (as the JAX package never takes
+its kernel in training). Dropout acts between the layers of both LSTM
+stacks and, teacher-forced, on whole ticks of the shifted note embeddings.
+Its keep masks come from ``generator``, or from ``masks`` (a test passes
+the JAX package's draws): ``{"constraint": [...], "generation": [...],
+"input": (B, T, 1)}``, each stack's list one (B, T, H) mask a non-last
+layer. The constraint stack's masks are in its own, time-reversed, order.
 
 The modules hold their parameters under the reference's ``state_dict``
 names (``convert.anticipation_rnn_leaves``); the functional methods take
@@ -25,7 +34,7 @@ the nested (in, out) parameters that ``params()`` returns.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,6 +47,7 @@ from inpaintnet_tpu_torch.models.convert import (
     to_functional,
 )
 from inpaintnet_tpu_torch.ops.arnn_kernel import arnn_kernel_supports, arnn_sampled_decode
+from inpaintnet_tpu_torch.ops.gru import apply_dropout, dropout_keep
 from inpaintnet_tpu_torch.ops.kernel_common import kernel_with_eager_grad
 from inpaintnet_tpu_torch.ops.linear import (
     embedding_apply,
@@ -52,6 +62,13 @@ from inpaintnet_tpu_torch.ops.sampling import (
     sample_argmax,
     sample_categorical,
 )
+
+
+def shift_right(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, E) -> the previous tick's rows, zeros at tick 0: the
+    teacher-forced pass's input (the sampled loop feeds START instead)."""
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+
 
 class LSTMWeights(nn.Module):
     """One layer's parameters under ``torch.nn.LSTM``'s names and shapes
@@ -71,6 +88,8 @@ class ConstraintModelGaussianReg(CheckpointedModel, nn.Module):
     """Made on any device but ``meta``, it holds the random parameters that
     ``init_params(numpy.random.default_rng(seed))`` draws. It lives on the
     card unless ``device`` says otherwise."""
+
+    teacher_forcing_prob = 0.5
 
     def __init__(self, dataset, note_embedding_dim: int = 20,
                  metadata_embedding_dim: int = 30, num_lstm_constraints_units: int = 256,
@@ -178,23 +197,44 @@ class ConstraintModelGaussianReg(CheckpointedModel, nn.Module):
         return torch.cat(parts, dim=-1)
 
     def output_lstm_constraints(self, params, embedded_metadata: torch.Tensor,
-                                tick_mask: Optional[torch.Tensor] = None):
+                                tick_mask: Optional[torch.Tensor] = None, *,
+                                train: bool = False,
+                                generator: Optional[torch.Generator] = None,
+                                dropout_masks: Optional[Sequence[torch.Tensor]] = None):
         """The constraint LSTM over the reversed sequence.
 
         :param tick_mask: optional (B, T) validity mask (1 = real tick;
             padding is a SUFFIX): the reversed loop meets the padding first
             and holds its zero state there, so a row's constraint outputs at
             its valid ticks equal its unpadded run's
-        :return: (outputs (B, T, C), per-layer outputs)
+        :param train, generator, dropout_masks: the stack's inter-layer
+            dropout (``lstm_stack_apply``); the masks lie over the reversed
+            sequence, as the stack sees it
+        :return: (outputs (B, T, C), per-layer outputs in reversed order)
         """
         rev = embedded_metadata.flip(1)
         rev_mask = None if tick_mask is None else tick_mask.flip(1)
-        out, _, all_hs = lstm_stack_apply(params["lstm_constraint"], rev, mask=rev_mask)
+        out, _, all_hs = lstm_stack_apply(params["lstm_constraint"], rev, mask=rev_mask,
+                                          train=train, dropout=self.dropout_prob,
+                                          generator=generator, dropout_masks=dropout_masks)
         return out.flip(1), all_hs
 
     def _head(self, params, gen_out: torch.Tensor) -> torch.Tensor:
         h = torch.relu(linear_apply(params["linear_1"], gen_out))
         return linear_apply(params["linear_output_notes"], h)
+
+    def _drop_input(self, x: torch.Tensor, *, train: bool,
+                    generator: Optional[torch.Generator] = None,
+                    keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Timestep dropout (the reference's ``Dropout2d`` over (B, T, E, 1)):
+        whole ticks of ``x`` dropped with probability ``dropout_input_prob``
+        by a (B, T, 1) keep mask, given or drawn from ``generator``."""
+        rate = self.dropout_input_prob
+        if not train or rate <= 0.0:
+            return x
+        if keep is None:
+            keep = dropout_keep(x.shape[:2] + (1,), rate, generator, x.device)
+        return apply_dropout(x, keep, rate)
 
     def _start_embedding(self, params, batch: int) -> torch.Tensor:
         table = params["note_embedding"]["table"]
@@ -202,13 +242,44 @@ class ConstraintModelGaussianReg(CheckpointedModel, nn.Module):
         return embedding_apply(params["note_embedding"], tok)
 
     # --- forward paths ------------------------------------------------------------- #
+    def forward_tf(self, params, score: torch.Tensor, metadata: torch.Tensor,
+                   constraints_loc: torch.Tensor, *, train: bool = False,
+                   generator: Optional[torch.Generator] = None, masks: Optional[dict] = None,
+                   return_activations: bool = False):
+        """The teacher-forced pass over all ticks: the generation stack reads
+        [previous tick's note embedding (zeros at tick 0), constraint
+        output] in one pass per layer.
+
+        :param masks: optional keep masks (see the module docstring), else
+            drawn from ``generator``
+        :return: logits (B, T, V) [, (generation activations, constraint
+            activations), each a list of per-layer (B, T, H) outputs]
+        """
+        masks = masks or {}
+        m = self.embed_metadata(params, metadata, score, constraints_loc)
+        constraint_out, c_acts = self.output_lstm_constraints(
+            params, m, train=train, generator=generator,
+            dropout_masks=masks.get("constraint"))
+        offset = shift_right(embedding_apply(params["note_embedding"], score))
+        offset = self._drop_input(offset, train=train, generator=generator,
+                                  keep=masks.get("input"))
+        gen_out, _, g_acts = lstm_stack_apply(
+            params["lstm_generation"], torch.cat([offset, constraint_out], dim=-1),
+            train=train, dropout=self.dropout_prob, generator=generator,
+            dropout_masks=masks.get("generation"))
+        logits = self._head(params, gen_out)
+        if return_activations:
+            return logits, (g_acts, c_acts)
+        return logits
+
     def forward_sampled(self, params, score: torch.Tensor, metadata: torch.Tensor,
                         constraints_loc: torch.Tensor, *,
                         force_mask: Optional[torch.Tensor] = None, temperature=None,
                         generator: Optional[torch.Generator] = None,
                         row_keys: Optional[torch.Tensor] = None,
                         gumbel_noise: Optional[torch.Tensor] = None,
-                        tick_mask: Optional[torch.Tensor] = None):
+                        tick_mask: Optional[torch.Tensor] = None, train: bool = False,
+                        masks: Optional[dict] = None):
         """The autoregressive decode over all ticks.
 
         :param score: (B, T) int tokens; metadata (B, T, num_md) int;
@@ -224,14 +295,19 @@ class ConstraintModelGaussianReg(CheckpointedModel, nn.Module):
             its key's alone), else from ``generator``
         :param tick_mask: optional (B, T) validity mask of suffix-padded rows
             (only the reversed constraint loop needs it)
+        :param train: the training branch: the constraint stack's dropout
+            (keep masks ``masks["constraint"]`` or drawn from ``generator``)
+            and the eager loop, never K7
         :return: (logits (B, T, V), tokens (B, T) int32)
         """
         batch, seq_len = score.shape
         m = self.embed_metadata(params, metadata, score, constraints_loc)
-        constraint_out, _ = self.output_lstm_constraints(params, m, tick_mask)
+        constraint_out, _ = self.output_lstm_constraints(
+            params, m, tick_mask, train=train, generator=generator,
+            dropout_masks=(masks or {}).get("constraint"))
         if force_mask is None:
             force_mask = torch.zeros_like(score)
-        if temperature is None and self._use_kernel_decode(params):
+        if temperature is None and not train and self._use_kernel_decode(params):
             # K7's forward; under a gradient, the eager argmax loop's
             # backward at the same inputs (JAX's kernel_with_xla_grad)
             decode = kernel_with_eager_grad(
@@ -290,14 +366,29 @@ class ConstraintModelGaussianReg(CheckpointedModel, nn.Module):
             tokens.append(token)
         return torch.stack(logits_all, dim=1), torch.stack(tokens, dim=1).to(torch.int32)
 
-    def apply(self, params, score, metadata, constraints_loc, *, train: bool = False):
-        """The logits of the argmax decode with nothing forced (the JAX
-        package's ``apply`` at ``train=False``)."""
-        if train:
-            raise NotImplementedError(
-                "ARNN training waits for the ARNN trainer, which the port does "
-                "not have yet")
-        return self.forward_sampled(params, score, metadata, constraints_loc)[0]
+    def apply(self, params, score, metadata, constraints_loc, *, train: bool = False,
+              generator: Optional[torch.Generator] = None,
+              coin_generator: Optional[torch.Generator] = None, coin: Optional[bool] = None,
+              masks: Optional[dict] = None):
+        """The logits the trainers score. Outside training, or without
+        teacher forcing, the argmax decode with nothing forced (K7 where it
+        takes the geometry and no gradient is asked for: the trainers'
+        validation). In training with teacher forcing, one coin a batch:
+        heads :meth:`forward_tf`, tails the sampled branch.
+
+        :param generator: draws the dropout keep masks unless ``masks``
+            gives them (see the module docstring)
+        :param coin_generator: the CPU generator of the teacher-forcing coin;
+        :param coin: the coin itself (a test injects the JAX package's)
+        """
+        if train and self.use_teacher_forcing:
+            if coin is None:
+                coin = bool(torch.rand((), generator=coin_generator) < self.teacher_forcing_prob)
+            if coin:
+                return self.forward_tf(params, score, metadata, constraints_loc, train=True,
+                                       generator=generator, masks=masks)
+        return self.forward_sampled(params, score, metadata, constraints_loc, train=train,
+                                    generator=generator, masks=masks)[0]
 
     def apply_inpaint(self, params, score, metadata, constraints_loc, *,
                       tick_mask: Optional[torch.Tensor] = None):

@@ -1,5 +1,5 @@
 """LSTM recurrences of the AnticipationRNN family as eager PyTorch loops
-(``inpaintnet_tpu/ops/lstm.py``), inference only.
+(``inpaintnet_tpu/ops/lstm.py``).
 
 Same parameter layout as the JAX package, per stack:
     [layer] -> {"w_ih": (in, 4H), "w_hh": (H, 4H), "b_ih": (4H,), "b_hh": (4H,)}
@@ -12,16 +12,18 @@ padding (the serving engine's mixed-length coalescing). cuDNN's packed
 sequences emit zeros at pad steps and do not hold the state, so this is a
 loop, not ``nn.LSTM``.
 
-The inter-layer dropout of training waits for the ARNN trainer:
-``train=True`` raises.
+Training applies inverted dropout between the layers of a stack
+(:func:`lstm_stack_apply`), with keep masks drawn from a
+``torch.Generator`` or given by the caller.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from inpaintnet_tpu_torch.ops.gru import apply_dropout, dropout_keep
 from inpaintnet_tpu_torch.ops.linear import xavier_normal
 
 
@@ -85,18 +87,20 @@ def lstm_layer_apply(params, x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor
 
 
 def lstm_stack_apply(params, x: torch.Tensor, hidden=None, *,
-                     mask: Optional[torch.Tensor] = None, train: bool = False):
-    """A stack of LSTM layers over a sequence, inference only.
+                     mask: Optional[torch.Tensor] = None, train: bool = False,
+                     dropout: float = 0.0, generator: Optional[torch.Generator] = None,
+                     dropout_masks: Optional[Sequence[torch.Tensor]] = None):
+    """A stack of LSTM layers over a sequence. In training, every layer's
+    output but the last goes through inverted dropout: kept with probability
+    ``1 - dropout``, scaled by ``1 / (1 - dropout)``.
 
     :param hidden: ((L, B, H), (L, B, H)) or None for zeros
     :param mask: optional (B, T) validity mask threaded to every layer
+    :param dropout_masks: optional bool keep masks, (B, T, H), one per
+        non-last layer, used instead of drawing from ``generator``
     :return: (outputs (B, T, H), (h_n (L, B, H), c_n (L, B, H)), the list of
-        per-layer outputs)
+        per-layer outputs, after their dropout)
     """
-    if train:
-        raise NotImplementedError(
-            "LSTM training (inter-layer dropout) waits for the ARNN trainer, "
-            "which the port does not have yet")
     num_layers = len(params)
     hid = params[0]["w_hh"].shape[0]
     if hidden is None:
@@ -108,6 +112,10 @@ def lstm_stack_apply(params, x: torch.Tensor, hidden=None, *,
     for layer in range(num_layers):
         out, (h_last, c_last) = lstm_layer_apply(params[layer], out, h0[layer], c0[layer],
                                                  mask=mask)
+        if train and dropout > 0.0 and layer < num_layers - 1:
+            keep = (dropout_masks[layer] if dropout_masks is not None
+                    else dropout_keep(out.shape, dropout, generator, out.device))
+            out = apply_dropout(out, keep, dropout)
         h_n.append(h_last)
         c_n.append(c_last)
         all_hs.append(out)

@@ -1,13 +1,13 @@
-"""An in-memory dataset of token arrays with the JAX package's loaders
-(``inpaintnet_tpu/data/dataset.py`` ``BatchIterator`` and
-``MusicDataset.data_loaders``), for the port's trainers.
+"""An in-memory dataset of token arrays with the data layer's loaders
+(``data/dataset.py`` ``BatchIterator`` and ``MusicDataset.data_loaders``),
+for the port's trainers.
 
 The trainers are duck-typed over any object with
-``data_loaders(batch_size, split, seed)`` and ``n_bars``: the JAX
-package's ``FolkDatasetNBars`` is one (numpy only), ``ArrayDataset`` over
-its arrays is another, and the two give the same batches. The split is the
-JAX package's contiguous one; train batches are reshuffled every pass from
-``seed + pass`` and drop the tail, eval batches keep it.
+``data_loaders(batch_size, split, seed)`` and ``n_bars``: the data layer's
+``FolkDatasetNBars`` is one, ``ArrayDataset`` over its arrays is another,
+and the two give the same batches. The split is the contiguous one; train
+batches are reshuffled every pass from ``seed + pass`` and drop the tail,
+eval batches keep it.
 """
 from __future__ import annotations
 
@@ -15,33 +15,7 @@ from typing import Sequence
 
 import numpy as np
 
-
-class BatchIterator:
-    """Iterates tuples of numpy views, one per array."""
-
-    def __init__(self, arrays, batch_size: int, shuffle: bool = False, drop_last: bool = True,
-                 seed: int = 0):
-        self.arrays = arrays
-        self.batch_size = batch_size
-        self.shuffle = shuffle
-        self.drop_last = drop_last
-        self.seed = seed
-        self.epoch = 0
-        self.num_examples = arrays[0].shape[0]
-
-    def __len__(self):
-        if self.drop_last:
-            return self.num_examples // self.batch_size
-        return -(-self.num_examples // self.batch_size)
-
-    def __iter__(self):
-        idx = np.arange(self.num_examples)
-        if self.shuffle:
-            np.random.RandomState(self.seed + self.epoch).shuffle(idx)
-            self.epoch += 1
-        for b in range(len(self)):
-            sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
-            yield tuple(a[sel] for a in self.arrays)
+from inpaintnet_tpu_torch.data.dataset import BatchIterator
 
 
 class ArrayDataset:

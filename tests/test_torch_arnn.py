@@ -134,8 +134,19 @@ def test_lstm_stack_matches_jax(masked):
     assert len(hs) == len(hs_j) == 2
     for got, want in ((out, out_j), (hn, hn_j), (cn, cn_j), (hs[0], hs_j[0])):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=LSTM_ATOL, rtol=0)
-    with pytest.raises(NotImplementedError, match="trainer"):
-        lstm.lstm_stack_apply(_tensors(params), *_t(x), train=True)
+    # training: JAX's inter-layer dropout mask (``rng, sub = split(rng)``)
+    # given to the port
+    key = jax.random.PRNGKey(4)
+    out_j, _, hs_j = jax_lstm.lstm_stack_apply(params, jnp.asarray(x), dropout=0.3, rng=key,
+                                               train=True, mask=None if m is None
+                                               else jnp.asarray(m))
+    keep = np.array(jax.random.bernoulli(jax.random.split(key)[1], 0.7, hs_j[0].shape))
+    out, _, hs = lstm.lstm_stack_apply(_tensors(params), *_t(x), train=True, dropout=0.3,
+                                       dropout_masks=[torch.from_numpy(keep)],
+                                       mask=None if m is None else torch.from_numpy(m))
+    assert not keep.all()
+    for got, want in ((out, out_j), (hs[0], hs_j[0])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=LSTM_ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("length", [1, 47, 384])
@@ -317,8 +328,17 @@ def test_apply_inpaint_scan_matches_jax_scan(pair16):
     logits = pm.apply(pm.params(), *_t(*make_batch(3, 96)))
     want = jm.apply(jm.params, *map(jnp.asarray, make_batch(3, 96)), train=False)
     np.testing.assert_allclose(logits.numpy(), np.asarray(want), atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="trainer"):
-        pm.apply(pm.params(), *_t(*make_batch(3, 96)), train=True)
+    # the training branch's sampled decode, JAX's constraint dropout mask
+    # (``forward_sampled``: ``r_c, r_scan = split(rng)``) given to the port
+    key = jax.random.PRNGKey(6)
+    batch = make_batch(3, 96)
+    lg_j, tok_j = jm.forward_sampled(jm.params, *map(jnp.asarray, batch), train=True, rng=key)
+    keep = np.array(jax.random.bernoulli(jax.random.split(jax.random.split(key)[0])[1],
+                                         1.0 - pm.dropout_prob, (3, 96, 16)))
+    lg, tok = pm.forward_sampled(pm.params(), *_t(*batch), train=True,
+                                 masks={"constraint": [torch.from_numpy(keep)]})
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(tok_j))
+    np.testing.assert_allclose(lg.numpy(), np.asarray(lg_j), atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("per_row", [False, True])

@@ -1354,3 +1354,118 @@ def test_latent_rnn_sampled_step_at_generation_hidden_1024(cuda):
     assert gk.gru_bwd_seq.launches == before[1]
     grads = [p.grad for k, p in iter_leaves(tr.params) if k.startswith("generation_rnn")]
     assert all(g is not None for g in grads) and max(g.abs().max().item() for g in grads) > 0
+
+
+# --------------------------------------------------------------------------- #
+# AnticipationRNN training: the eager LSTMs under autograd, K7 in validation
+# --------------------------------------------------------------------------- #
+def _arnn_trainers(devices, kind, hidden=64, seed=5):
+    """An ARNN (dropout 0.2 between the layers and on the input, unary
+    constraints, teacher forcing) of ``hidden`` units, one trainer a device
+    with the same seeded CPU generator of dropout masks, on the same 3
+    windows of 9 bars."""
+    from inpaintnet_tpu_torch.models.anticipation_rnn import (
+        AnticipationRNNBaseline,
+        ConstraintModelGaussianReg,
+    )
+    from inpaintnet_tpu_torch.models.presets import ARNNDataset
+    from inpaintnet_tpu_torch.train import (
+        AnticipationRNNBaselineTrainer,
+        AnticipationRNNGaussianRegTrainer,
+    )
+
+    ds = ARNNDataset(30)
+    ds.n_bars = 9
+    model_cls, trainer_cls = ((ConstraintModelGaussianReg, AnticipationRNNGaussianRegTrainer)
+                              if kind == "reg" else
+                              (AnticipationRNNBaseline, AnticipationRNNBaselineTrainer))
+    model = model_cls(ds, note_embedding_dim=10, metadata_embedding_dim=2,
+                      num_lstm_constraints_units=hidden, num_lstm_generation_units=hidden,
+                      linear_hidden_size=hidden, num_layers=2, dropout_input_prob=0.2,
+                      dropout_prob=0.2, unary_constraint=True, device="cpu", seed=seed)
+    ticks = 9 * 24
+    rng = np.random.default_rng(seed)
+    score = rng.integers(0, 30, (3, 1, ticks)).astype(np.int32)
+    md = np.stack([m.generate(ticks) for m in ds.metadatas] + [np.zeros(ticks, np.int64)], 1)
+    windows = (score, np.broadcast_to(md[None, None], (3, 1, ticks, 3)).astype(np.int32))
+    trainers = []
+    for d in devices:
+        tr = trainer_cls(ds, model, lr=1e-3, device=d, seed=1)
+        tr.generator = torch.Generator().manual_seed(11)
+        trainers.append(tr)
+    return windows, model, trainers
+
+
+@pytest.mark.parametrize("kind", ["reg", "baseline"])
+@pytest.mark.parametrize("coin", [True, False], ids=["teacher_forced", "sampled"])
+def test_arnn_train_step_on_card_matches_cpu(cuda, kind, coin):
+    """One ARNN train step, f32, H 64, the same constraint and dropout masks
+    and coin: the eager LSTMs on the card against the CPU. Loss, gradients
+    and the parameters after the Adam step within chip_smoke.py's TRAIN_REF
+    bounds (f32 sums in another order); the sampled branch's tokens equal;
+    K7 never launches in a train step."""
+    from inpaintnet_tpu_torch.models.base import iter_leaves
+
+    windows, model, (card_tr, cpu_tr) = _arnn_trainers((cuda, "cpu"), kind)
+    tokens, scan = [], model._sampled_scan
+
+    def recorded(*a, **k):
+        out = scan(*a, **k)
+        tokens.append(out[1].cpu())
+        return out
+
+    model._sampled_scan = recorded
+    out = []
+    for tr in (card_tr, cpu_tr):
+        tokens.clear()
+        before = arnn_kernel.arnn_sampled_decode.launches
+        loss, _ = tr.train_step(tr.process_batch_data(windows), coin=coin)
+        leaves = [p for _, p in iter_leaves(tr.params)]
+        out.append((loss.item(), [p.grad.cpu() for p in leaves],
+                    [p.detach().cpu() for p in leaves], list(tokens),
+                    arnn_kernel.arnn_sampled_decode.launches - before))
+    (l_c, g_c, p_c, t_c, k_c), (l_p, g_p, p_p, t_p, _) = out
+    assert k_c == 0
+    assert len(t_c) == len(t_p) == (0 if coin else 1)
+    for a, b in zip(t_c, t_p):
+        assert torch.equal(a, b)
+    assert abs(l_c - l_p) <= 1e-5 * abs(l_p)
+    for a, b in zip(g_c, g_p):
+        assert ((a - b).abs() / (1.0 + b.abs())).max().item() <= 1e-5
+    diff = torch.cat([(a - b).abs().flatten() for a, b in zip(p_c, p_p)])
+    assert diff.max().item() <= 2e-3 and diff.mean().item() <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"], ids=["f32", "bf16"])
+def test_arnn_validation_launches_k7_and_train_step_does_not(cuda, monkeypatch, dtype):
+    """At a width K7 takes (64): a train step launches K7 on neither coin, a
+    validation step once, and that call's logits and tokens hold against
+    K7's plain version on the same inputs within ``K7_BOUNDS``."""
+    from inpaintnet_tpu_torch.models import anticipation_rnn
+
+    windows, model, (tr,) = _arnn_trainers((cuda,), "baseline")
+    tr.compute_dtype = dtype
+    batch = tr.process_batch_data(windows)
+    for coin in (True, False):
+        before = arnn_kernel.arnn_sampled_decode.launches
+        loss, _ = tr.train_step(batch, coin=coin)
+        assert np.isfinite(loss.item())
+        assert arnn_kernel.arnn_sampled_decode.launches == before
+    calls = []
+
+    def recorded(*args):
+        out = arnn_kernel.arnn_sampled_decode(*args)
+        calls.append((args, out))
+        return out
+
+    monkeypatch.setattr(anticipation_rnn, "arnn_sampled_decode", recorded)
+    before = arnn_kernel.arnn_sampled_decode.launches
+    val, _ = tr.eval_step(batch)
+    assert arnn_kernel.arnn_sampled_decode.launches == before + 1 and len(calls) == 1
+    assert np.isfinite(val.item())
+    args, got = calls[0]
+    assert args[1].is_cuda and args[2].shape == (3, 9 * 24)
+    agree = arnn_kernel.decode_agreement(
+        got, arnn_kernel.arnn_sampled_decode_reference(*args), args[3])
+    assert arnn_kernel.within(agree, K7_BOUNDS[torch.bfloat16 if dtype else torch.float32]), \
+        agree

@@ -185,7 +185,9 @@ def test_port_never_imports_jax():
 @pytest.mark.parametrize("entry", ["build_flagship", "build_latent_rnn", "MeasureVAE",
                                    "Trainer", "InpaintingEngine", "build_arnn",
                                    "ConstraintModelGaussianReg", "ARNNServingEngine",
-                                   "LatentRNN", "LatentRNNAblations"])
+                                   "LatentRNN", "LatentRNNAblations",
+                                   "AnticipationRNNGaussianRegTrainer",
+                                   "AnticipationRNNBaselineTrainer"])
 def test_entry_points_default_to_the_card(entry):
     """Entry points run on the card unless the caller asks for the CPU; the
     engines follow their model's device."""
@@ -196,13 +198,19 @@ def test_entry_points_default_to_the_card(entry):
     from inpaintnet_tpu_torch.models.measure_vae import MeasureVAE
     from inpaintnet_tpu_torch.models.presets import build_arnn
     from inpaintnet_tpu_torch.serve_arnn import ARNNServingEngine
+    from inpaintnet_tpu_torch.train import (
+        AnticipationRNNBaselineTrainer,
+        AnticipationRNNGaussianRegTrainer,
+    )
     from inpaintnet_tpu_torch.train.trainer import Trainer
 
     fn = {"build_flagship": build_flagship, "build_latent_rnn": build_latent_rnn,
           "MeasureVAE": MeasureVAE, "Trainer": Trainer, "InpaintingEngine": InpaintingEngine,
           "build_arnn": build_arnn, "ConstraintModelGaussianReg": ConstraintModelGaussianReg,
           "ARNNServingEngine": ARNNServingEngine, "LatentRNN": LatentRNN,
-          "LatentRNNAblations": LatentRNNAblations}[entry]
+          "LatentRNNAblations": LatentRNNAblations,
+          "AnticipationRNNGaussianRegTrainer": AnticipationRNNGaussianRegTrainer,
+          "AnticipationRNNBaselineTrainer": AnticipationRNNBaselineTrainer}[entry]
     default = inspect.signature(fn).parameters["device"].default
     assert default == (None if entry.endswith("Engine") else "cuda")
 
