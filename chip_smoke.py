@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training (MeasureVAE and LatentRNN) and
-AnticipationRNN paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, training (MeasureVAE and LatentRNN),
+AnticipationRNN, evaluation and command-line paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -160,12 +160,27 @@ Phases, each raising on failure:
    by the constraint stack, the generation stack or loop, and the
    backward, and K7's device time in a validation batch; last,
    ``train_model`` for one epoch on a 4-tune corpus, resumed exactly by
-   ``load_state`` on a fresh trainer.
+   ``load_state`` on a fresh trainer;
+20. the command line (``inpaintnet_tpu_torch/cli``), in-process through
+   each entry point's ``main(argv)`` on the card: ``prepare_corpus synth``
+   (16 tunes of 16 bars, the run's only cut) and ``stats``; the five
+   trainers one epoch each at the shipped widths (the MeasureVAE, the
+   LatentRNN and its past and future ablations, both ARNNs), each test
+   loss finite; the joint evaluation ``test_reconstruction
+   --include_ablations past,future`` (batches of 32 test windows, the last
+   one short): every row printed, K1, K2 and K7 launched, windows/s,
+   device time by kernel and idle share; the same evaluation on the CPU
+   (the plain versions) on the same checkpoints, splits and noise, each
+   model's loss and argmax tokens held to ``CLI_REF``; the VAE tester over
+   the test split; both generation scripts' MIDI decoded, K2 launched by
+   the batch-1 ``generate``; ``run_server`` as a subprocess answering
+   ``/healthz`` and ``/v1/inpaint``, then stopped.
 
 Phase 17 runs after phase 7; phases 12-16 after phase 8, before the
-training phases; phases 18 and 19 last. Prints one
+training phases; phases 18, 19 and 20 last. Prints one
 JSON line of the eight kernels (each with its launches in phase 18,
-``latent_train_launches``, and in phase 19, ``arnn_train_launches``), the
+``latent_train_launches``, in phase 19, ``arnn_train_launches``, and in
+phase 20's joint evaluation, ``eval_launches``), the
 card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
 result, when there is no usable card or any phase fails.
@@ -3249,6 +3264,326 @@ def phase_arnn_training(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the command line on the card
+# ---------------------------------------------------------------------------
+# The run's only cut is the corpus: 16 synthetic tunes of 16 bars (546
+# training windows and 79 test windows in folk_4by4nbars_train's split), so
+# each trainer takes one epoch of a few steps at the shipped widths.
+CLI_TUNES = 16
+CLI_EVAL_BATCH = 32  # 79 test windows: batches of 32, 32 and 15
+# The joint evaluation on the card against the CPU (plain versions), the
+# same checkpoints, splits and rsample noise: per model, the relative error
+# of the mean loss and the share of scored ticks whose argmax agrees.
+CLI_REF = {"loss_rel": 1e-5, "tokens": 0.999}
+EVAL_KERNELS = ("encoder_hn", "decode_sampling", "arnn_sampled_decode")
+
+
+def _all_kernels():
+    """{name: wrapper} of the eight kernels' wrappers (their launch counts)."""
+    from inpaintnet_tpu_torch.ops import (
+        arnn_kernel,
+        decode_kernel,
+        encoder_kernel,
+        gru_kernel,
+        gru_train_kernel,
+    )
+
+    return {k.__name__: k for k in (
+        encoder_kernel.encoder_hn, decode_kernel.decode_sampling,
+        encoder_kernel.encoder_hn_int8, decode_kernel.decode_sampling_int8,
+        gru_train_kernel.gru_fwd_seq, gru_train_kernel.gru_bwd_seq,
+        arnn_kernel.arnn_sampled_decode, gru_kernel.gru_layer_stream)}
+
+
+def _counted(fn):
+    """Run ``fn()`` with every kernel's launch count set to 0. -> (its
+    result, {kernel: launches})"""
+    kernels = _all_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    return out, {name: k.launches for name, k in kernels.items()}
+
+
+def _cli_testers(argv):
+    """``cli.test_reconstruction``'s testers of ``argv``, built anew (their
+    splits start afresh). -> (loader, the other arguments of its
+    ``loss_and_acc_test``, windows)"""
+    from inpaintnet_tpu_torch.cli import test_reconstruction as tr
+
+    args = tr.build_parser().parse_args(argv)
+    loader, latent, arnn, baseline, ablations = tr.build_testers(args)
+    windows = sum(np.asarray(b[0]).shape[0] for b in loader)
+    return (loader, latent, arnn, baseline, args.num_target, args.num_models, ablations), windows
+
+
+def _cli_eval(testers, predictions=None):
+    """The joint evaluation's loop over built testers. -> (results, wall s)"""
+    from inpaintnet_tpu_torch.cli import test_reconstruction as tr
+
+    loader, latent, arnn, baseline, num_target, num_models, ablations = testers
+    if latent.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = tr.loss_and_acc_test(loader, latent, arnn, baseline,
+                                   num_target_measures=num_target, num_models=num_models,
+                                   ablation_testers=ablations, predictions=predictions)
+    return results, time.perf_counter() - t0
+
+
+def _restart_splits(testers) -> None:
+    """The testers' split draws from their start, as new testers' (the
+    LatentRNN tester's ``RandomState(seed + 41)`` cuts every split)."""
+    latent = testers[1]
+    latent._np_rng = np.random.RandomState(latent.seed + 41)
+
+
+@contextlib.contextmanager
+def _recorded_eval_kernels(calls: dict):
+    """The models' calls of K1, K2 and K7, each appended to
+    ``calls[wrapper name]`` as (wrapper, arguments) before it runs."""
+    from inpaintnet_tpu_torch.models import anticipation_rnn, measure_vae
+
+    sites = ((measure_vae, "encoder_hn"), (measure_vae, "decode_sampling_kernel"),
+             (anticipation_rnn, "arnn_sampled_decode"))
+    saved = [getattr(module, name) for module, name in sites]
+
+    def record(fn):
+        def call(*args):
+            calls.setdefault(fn.__name__, []).append((fn, args))
+            return fn(*args)
+        return call
+
+    for (module, name), fn in zip(sites, saved):
+        setattr(module, name, record(fn))
+    try:
+        yield
+    finally:
+        for (module, name), fn in zip(sites, saved):
+            setattr(module, name, fn)
+
+
+def _device_rows(call) -> tuple:
+    """The device activity of one traced ``call()`` (CUDA activity only,
+    read from kineto's raw events: parsing ~85,000 launches into
+    ``FunctionEvent``s takes the host tens of seconds), traced again while
+    none shows. -> (device ms, launches, [(kernel, ms, launches)] by time)"""
+    for attempt in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(PROFILE_LEAD_CYCLES)
+            torch.cuda.synchronize()
+            call()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.profiler.kineto_results.events():
+            if (e.device_type() == torch.autograd.DeviceType.CUDA
+                    and "spin_kernel" not in e.name()):
+                ms, n = by_name.get(e.name(), (0.0, 0))
+                by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+        if by_name:
+            break
+        print(f"[profile] no device activity recorded (attempt {attempt + 1}); tracing again",
+              flush=True)
+    rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()), key=lambda r: -r[1])
+    return sum(r[1] for r in rows), sum(r[2] for r in rows), rows
+
+
+def phase_cli_train(data: list, card: str) -> None:
+    """A corpus, then the five trainers through their entry points at the
+    shipped widths, one epoch each on the card."""
+    from inpaintnet_tpu_torch.cli import (
+        prepare_corpus,
+        train_arnn_baseline,
+        train_arnn_reg,
+        train_inpaintnet,
+        train_inpaintnet_ablation,
+        train_measure_vae,
+    )
+
+    prepare_corpus.main(["synth", "--out_dir", "corpus", "--num_tunes", str(CLI_TUNES),
+                         "--num_bars", "16"])
+    prepare_corpus.main(["stats", "--corpus_dir", "corpus", "--cache_dir", "cache"])
+    train = data + ["--num_epochs", "1", "--no_plot"]
+    for name, main, argv in (
+            ("MeasureVAE", train_measure_vae.main, train),
+            ("LatentRNN", train_inpaintnet.main, train + ["--no_auto_reg"]),
+            ("ablation past", train_inpaintnet_ablation.main,
+             train + ["--no_auto_reg", "--context_type", "past"]),
+            ("ablation future", train_inpaintnet_ablation.main,
+             train + ["--no_auto_reg", "--context_type", "future"]),
+            ("ARNN reg", train_arnn_reg.main, train),
+            ("ARNN baseline", train_arnn_baseline.main, train)):
+        t0 = time.perf_counter()
+        (loss, acc), launches = _counted(lambda: main(argv))
+        if not np.isfinite(loss):
+            raise RuntimeError(f"{name}: test loss {loss}")
+        print(f"[cli] train {name}: one epoch and its test in {time.perf_counter() - t0:.2f} s,"
+              f" test loss {loss:.6f}, accuracy {acc:.4f}; launches "
+              f"{ {k: v for k, v in launches.items() if v} } | {card}", flush=True)
+
+
+def phase_cli_eval(data: list, card: str) -> dict:
+    """The joint evaluation through ``cli.test_reconstruction.main`` on the
+    card (K1, K2 and K7 must launch), its time, profile and idle share,
+    then the same evaluation on the CPU held to ``CLI_REF``; the VAE
+    tester over the test split. -> {kernel: launches in the evaluation}"""
+    from inpaintnet_tpu_torch.cli import test_reconstruction as tr
+
+    argv = data + ["--include_ablations", "past,future", "--batch_size", str(CLI_EVAL_BATCH)]
+    results, launches = _counted(lambda: tr.main(argv))
+    if min(launches[k] for k in EVAL_KERNELS) < 1:
+        raise RuntimeError(f"the joint eval did not launch K1, K2 and K7: {launches}")
+    names = ("latent_rnn", "ablation_past", "ablation_future", "arnn", "arnn_baseline")
+    for name in names:
+        print(f"[cli-eval] {name}: loss {results[f'{name}_loss']:.6f}, accuracy "
+              f"{results[f'{name}_acc']:.4f}, repeat {results.get(f'{name}_acc_repeat', 0):.4f}"
+              f", novel {results.get(f'{name}_acc_novel', 0):.4f} | {card}", flush=True)
+    print(f"[cli-eval] launches in the eval: {launches}; repeat fraction "
+          f"{results.get('repeat_fraction', 0):.4f}", flush=True)
+
+    card_pred, cpu_pred, calls = {}, {}, {}
+    testers, windows = _cli_testers(argv)
+    got, wall = _cli_eval(testers)
+    _restart_splits(testers)
+    with _recorded_eval_kernels(calls):
+        again, _ = _cli_eval(testers, card_pred)
+    if again != got:
+        raise RuntimeError("the joint eval's second run on the card differs from its first")
+    _restart_splits(testers)
+    device_ms, count, rows = _device_rows(lambda: _cli_eval(testers))
+    batches = len(testers[0])
+    kernel_ms = {name: sum(cuda_ms(lambda: fn(*args), 3) for fn, args in runs)
+                 for name, runs in calls.items()}
+    print(f"[cli-eval] card: {windows / wall:.1f} windows/s ({wall * 1e3:.1f} ms for {windows} "
+          f"windows, {batches} batches), device {device_ms:.2f} ms ({device_ms / batches:.2f} "
+          f"ms a batch, {count} launches), idle share {1 - device_ms / (wall * 1e3):.3f} | "
+          f"{card}", flush=True)
+    print(f"[cli-eval] the eval's kernel calls replayed (CUDA events, wrapper ms summed over "
+          f"its calls): " + ", ".join(f"{k} {len(calls[k])} calls {v:.3f} ms"
+                                      for k, v in kernel_ms.items()) + f" | {card}", flush=True)
+    parts = {}
+    for label, key in (("K1 recurrence (gru_fwd_kernel)", "gru_fwd_kernel"),
+                       ("K2 (decode_f32_kernel)", "decode_f32_kernel"),
+                       ("K7 recurrence (arnn_f32_kernel)", "arnn_f32_kernel"),
+                       ("the split GEMM of K1 and K7", "encoder_xw_gemm_split_kernel")):
+        found = [(ms, n) for name, ms, n in rows if key in name]
+        parts[label] = (round(sum(ms for ms, _ in found), 3), sum(n for _, n in found))
+    print(f"[cli-eval] torch.profiler, device ms and launches of the eval's kernels: {parts}",
+          flush=True)
+    for name, ms, n in rows[:8]:
+        print(f"[cli-eval]   {ms:9.3f} ms {n:6d}x  {name[:100]}", flush=True)
+
+    cpu, cpu_wall = _cli_eval(_cli_testers(argv + ["--device", "cpu"])[0], cpu_pred)
+    for name in names:
+        loss_rel = abs(got[f"{name}_loss"] - cpu[f"{name}_loss"]) / abs(cpu[f"{name}_loss"])
+        share = float(np.mean(np.concatenate([a.ravel() for a in card_pred[name]])
+                              == np.concatenate([a.ravel() for a in cpu_pred[name]])))
+        print(f"[cli-eval] {name} card vs CPU: loss {got[f'{name}_loss']:.7f} / "
+              f"{cpu[f'{name}_loss']:.7f} (relative error {loss_rel:.2e}), argmax agrees on "
+              f"{share:.5f} of the scored ticks", flush=True)
+        if loss_rel > CLI_REF["loss_rel"] or share < CLI_REF["tokens"]:
+            raise RuntimeError(f"{name}: the card's joint eval left CLI_REF {CLI_REF}")
+    print(f"[cli-eval] the CPU's eval took {cpu_wall:.1f} s", flush=True)
+
+    from inpaintnet_tpu_torch.cli.common import build_vae, standard_datasets
+    from inpaintnet_tpu_torch.eval import VAETester
+
+    args = tr.build_parser().parse_args(argv)
+    train_ds, test_ds = standard_datasets(args.dataset_name, args.cache_dir, args.corpus_dir)
+    tester = VAETester(test_ds, build_vae(args, train_ds, torch.device("cuda")).load())
+    _, _, loader = test_ds.data_loaders(batch_size=64, split=(0.01, 0.01))
+    tester.loss_and_acc_test(loader)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (loss, acc), vae_launches = _counted(lambda: tester.loss_and_acc_test(loader))
+    vae_s = time.perf_counter() - t0
+    print(f"[cli-eval] VAE tester over the test split ({windows * 16} measures, batch 64): "
+          f"{vae_s * 1e3:.1f} ms, loss {loss:.6f}, accuracy {acc:.4f}, launches "
+          f"{ {k: v for k, v in vae_launches.items() if v} } | {card}", flush=True)
+    return {k: launches[k] for k in launches}
+
+
+def phase_cli_generate(data: list, card: str) -> None:
+    """Both generation entry points write MIDI that decodes; K2 launches in
+    the batch-1 ``generate``."""
+    from inpaintnet_tpu_torch.cli import script_gen_diff_models, script_gen_same_context
+    from inpaintnet_tpu_torch.data.midi import read_midi_notes
+
+    same, launches = _counted(lambda: script_gen_same_context.main(
+        data + ["--num_generations", "3", "--save_folder", "midi_same"]))
+    if launches["decode_sampling"] < 3:
+        raise RuntimeError(f"script_gen_same_context: K2 launched {launches}")
+    diff = script_gen_diff_models.main(data + ["--num_melodies", "2", "--save_folder",
+                                               "midi_diff"])
+    for path in same + diff:
+        with open(path, "rb") as f:
+            if f.read(4) != b"MThd" or not read_midi_notes(path):
+                raise RuntimeError(f"{path}: not a MIDI file that decodes")
+    print(f"[cli-generate] {len(same)} re-inpaintings and {len(diff)} listening-test files "
+          f"written and decoded; launches of the batch-1 generations "
+          f"{ {k: v for k, v in launches.items() if v} } | {card}", flush=True)
+
+
+def phase_cli_server(data: list, card: str) -> None:
+    """``python -m inpaintnet_tpu_torch.cli.run_server`` on the trained
+    checkpoints: /healthz and one /v1/inpaint answer; then it is stopped."""
+    import os
+    import re
+
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "inpaintnet_tpu_torch.cli.run_server",
+                             *data, "--port", "0"], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        port = None
+        while port is None:
+            line = proc.stdout.readline()
+            if not line:
+                raise RuntimeError(f"run_server ended before serving (rc {proc.poll()})")
+            found = re.search(r"serving on http://[\d.]+:(\d+)", line)
+            port = int(found.group(1)) if found else None
+        up = time.perf_counter() - t0
+        if _http(port, "GET", "/healthz")["status"] != "ok":
+            raise RuntimeError("/healthz did not answer ok")
+        tokens = np.random.default_rng(20).integers(0, 50, (1, 16, 24))
+        out = np.asarray(_http(port, "POST", "/v1/inpaint", {
+            "tokens": tokens, "start_measure": 6, "num_measures": 4, "seed": 1})["tokens"])
+        _check_response(out, tokens, 6, 4)
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    print(f"[cli-server] run_server up in {up:.1f} s, /healthz and /v1/inpaint answered, "
+          f"stopped | {card}", flush=True)
+
+
+def phase_cli(card: str) -> dict:
+    """Phase 20, in a temporary working directory (the entry points write
+    checkpoints/ there). -> {kernel: launches in the joint evaluation}"""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            data = ["--corpus_dir", "corpus", "--cache_dir", "cache", "--device", "cuda"]
+            phase_cli_train(data, card)
+            t1 = time.perf_counter()
+            launches = phase_cli_eval(data, card)
+            t2 = time.perf_counter()
+            phase_cli_generate(data, card)
+            phase_cli_server(data, card)
+        finally:
+            os.chdir(cwd)
+    print(f"[cli] phase 20: {time.perf_counter() - t0:.1f} s (corpus and training "
+          f"{t1 - t0:.1f} s, evaluation {t2 - t1:.1f} s, generation and server "
+          f"{time.perf_counter() - t2:.1f} s)", flush=True)
+    return launches
+
+
 def main() -> int:
     cli = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     cli.add_argument("--parent", metavar="DIR",
@@ -3291,6 +3626,7 @@ def main() -> int:
     phase_latent_train_reference(card)
     launches_latent = phase_latent_trainer(card)
     launches_arnn_train = phase_arnn_training(card)
+    launches_eval = phase_cli(card)
     sources = {
         "encoder_hn": ("encoder_gru.cu", "inpaintnet_tpu/ops/encoder_pallas.py:147", launches),
         "decode_sampling": ("decode_sampling.cu", "inpaintnet_tpu/ops/decode_pallas.py:216",
@@ -3313,7 +3649,8 @@ def main() -> int:
                 "source": f"inpaintnet_tpu_torch/ops/csrc/{src}", "replaces": replaces,
                 "launches": runs[name], **report[name],
                 "latent_train_launches": launches_latent.get(name, 0),
-                "arnn_train_launches": launches_arnn_train.get(name, 0)}
+                "arnn_train_launches": launches_arnn_train.get(name, 0),
+                "eval_launches": launches_eval.get(name, 0)}
                for name, (src, replaces, runs) in sources.items()]
     # K8's kernel also serves the two TPU kernels of the same function (K9, K10)
     kernels[-1]["also_replaces"] = ["inpaintnet_tpu/ops/gru_pallas.py:296",

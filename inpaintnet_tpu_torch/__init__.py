@@ -16,8 +16,14 @@ module for module and imports ``torch``, never ``jax`` nor anything of
   presets.
 - ``serve``  — the batched inpainting engine; ``serve_arnn`` the
   AnticipationRNN's; ``server`` the HTTP front end of both.
-- ``train``  — the single-device trainer and the MeasureVAE trainer.
-- ``eval``   — the AnticipationRNN tester; ``data`` the metadata channels.
+- ``train``  — the single-device trainer and the MeasureVAE, LatentRNN
+  and AnticipationRNN trainers.
+- ``eval``   — the MeasureVAE, LatentRNN and AnticipationRNN testers and
+  the HTML report; ``data`` the corpus, tokenizer and datasets; ``utils``
+  the live training plot.
+- ``cli``    — the entry points, ``python -m inpaintnet_tpu_torch.cli.<name>``:
+  twins of the JAX package's root scripts, on the card unless
+  ``--device cpu``.
 """
 
 __version__ = "0.1.0"

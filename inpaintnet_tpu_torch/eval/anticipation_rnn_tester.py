@@ -7,9 +7,11 @@ two arrays give them; ``tensor_to_score`` is used only where the dataset
 has one. The measure length is ``subdivision * num_beats_per_bar`` where
 the dataset says so, else 24 ticks.
 
-The inpainting metrics run ``apply_inpaint`` and the alternative ones
-``apply``: both are the argmax decode, so a 2-layer model of the kernel's
-widths runs K7 on the card here too.
+The inpainting metrics run ``apply_inpaint`` (:meth:`AnticipationRNNTester.inpaint`,
+which the joint evaluation ``cli/test_reconstruction.py`` calls too) and
+the alternative ones ``apply``: both are the argmax decode, so a 2-layer
+model of the kernel's widths runs K7 on the card here too. ``generation``
+and ``generation_test`` sample with a temperature.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from inpaintnet_tpu_torch.eval.vae_tester import mean_of_batches
 from inpaintnet_tpu_torch.models.measure_vae import NUM_TICKS_PER_MEASURE
 from inpaintnet_tpu_torch.train.metrics import mean_accuracy, mean_crossentropy_loss
 
@@ -45,7 +48,7 @@ class AnticipationRNNTester:
         self._np_rng = np.random.RandomState(seed + 53)
 
     def _to_device(self, *arrays):
-        return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays]
+        return [torch.as_tensor(a).to(self.device) for a in arrays]
 
     # --- eval -------------------------------------------------------------- #
     def test_model(self, batch_size: int = 512):
@@ -56,20 +59,26 @@ class AnticipationRNNTester:
         print(f"\tTest Loss: {mean_loss}\tTest Accuracy: {mean_acc * 100} %")
         return mean_loss, mean_acc
 
+    def inpaint(self, score, md, loc):
+        """The inpainting decode (JAX's ``_inpaint``) of numpy or device
+        (score (B, T), metadata (B, T, num_md), constraints_loc (B, T)):
+        the constrained ticks forced, the rest by argmax. -> (logits
+        (B, T, V), tokens (B, T)) on the device"""
+        with torch.inference_mode():
+            return self.model.apply_inpaint(self.model.params(),
+                                            *self._to_device(score, md, loc))
+
     def loss_and_acc_test(self, data_loader):
         """Inpainting NLL and accuracy on the unconstrained span."""
-        params = self.model.params()
-        mean_loss, mean_acc, nb = 0.0, 0.0, 0
+        losses, accs = [], []
         with torch.inference_mode():
             for batch in data_loader:
                 score, md, loc = self._to_device(*self.process_batch_data(batch))
-                logits, _ = self.model.apply_inpaint(params, score, md, loc)
+                logits, _ = self.inpaint(score, md, loc)
                 mask = 1 - loc
-                mean_loss += float(mean_crossentropy_loss(logits, score, mask=mask))
-                mean_acc += float(mean_accuracy(logits, score, mask=mask))
-                nb += 1
-        nb = max(nb, 1)
-        return mean_loss / nb, mean_acc / nb
+                losses.append(mean_crossentropy_loss(logits, score, mask=mask))
+                accs.append(mean_accuracy(logits, score, mask=mask))
+        return mean_of_batches(losses, accs)
 
     def loss_and_acc_test_alt(self, data_loader):
         """Single-tick NLL and accuracy near the sequence's middle, from the
@@ -121,6 +130,29 @@ class AnticipationRNNTester:
         return loc, start_tick, end_tick
 
     # --- generation --------------------------------------------------------- #
+    def generation_test(self, temperature: float = 1.5):
+        """Inpaint the first test window at the default constraint place."""
+        _, _, gen_test = self.dataset.data_loaders(batch_size=1, split=(0.70, 0.20))
+        score, md, loc = self.process_batch_data(next(iter(gen_test)))
+        return self.generation_from_tensor(score, md, loc, temperature)
+
+    def generation(self, tensor_score=None, tensor_metadata=None, start_measure: int = 8,
+                   num_measures_gen: int = 2, temperature: float = 1.5):
+        """Regenerate ``num_measures_gen`` measures from ``start_measure``
+        (0-based) of a tune ((1, T) tokens and (T, num_md) metadata; the
+        corpus's first tune, cut to at most ``n_bars`` measures, when None)."""
+        if tensor_score is None:
+            score = next(self.dataset.iterator_gen())
+            st, mt = self.dataset.get_score_tensor(score), self.dataset.get_metadata_tensor(score)
+            n = min(self.dataset.n_bars, st.shape[1] // self.measure_seq_len)
+            tensor_score = st[:, :n * self.measure_seq_len]
+            tensor_metadata = mt[:n * self.measure_seq_len]
+        score = np.asarray(tensor_score).reshape(1, -1).astype(np.int32)
+        md = np.asarray(tensor_metadata).reshape(1, score.shape[1], -1).astype(np.int32)
+        loc, _, _ = self.get_constraints_location(score[:, None, :], start_measure=start_measure,
+                                                  num_measures=num_measures_gen)
+        return self.generation_from_tensor(score, md, loc.reshape(1, -1), temperature)
+
     def generation_from_tensor(self, score, md, loc, temperature: float = 1.5):
         """Temperature sampling of the unconstrained ticks, with noise from a
         generator seeded with the tester's seed. -> (the generated score, or

@@ -412,3 +412,21 @@ class MeasureVAE(CheckpointedModel, nn.Module):
                                               coin=coin, generator=generator,
                                               coin_generator=coin_generator)
         return weights, samples, z_dist, prior_dist, z_tilde, z_prior
+
+    def apply_test(self, params, measures: torch.Tensor, *,
+                   generator: Optional[torch.Generator] = None,
+                   eps: Optional[torch.Tensor] = None):
+        """Reconstruction of several measures a row (``measure_vae.py:708-727``),
+        batched over them: the encoder, an rsample, the argmax decode.
+
+        :param measures: (B, M, 24) int tokens
+        :param eps: optional (B * M, z) rsample noise in place of a draw
+            from ``generator``
+        :return: (weights (B, M, 24, V), samples (B, M, 24))
+        """
+        batch, num_measures, seq_len = measures.shape
+        flat = measures.reshape(batch * num_measures, seq_len)
+        z = self.encoder.apply(params["encoder"], flat).rsample(generator, eps)
+        weights, samples = self.decoder.decode_sampling(params["decoder"], z)
+        return (weights.reshape(batch, num_measures, seq_len, -1),
+                samples.reshape(batch, num_measures, seq_len))

@@ -6,6 +6,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 
@@ -18,6 +19,16 @@ def draw(fn, shape, generator: Optional[torch.Generator], device,
     if generator is None:
         return fn(shape, device=device, dtype=dtype)
     return fn(shape, generator=generator, device=generator.device, dtype=dtype).to(device)
+
+
+def seeded_normal(seed: int, index: int, shape, device) -> torch.Tensor:
+    """Standard normal noise of ``shape`` from a CPU generator seeded by
+    (``seed``, ``index``), moved to ``device``: the testers' rsample noise
+    of batch ``index``, the same on the card and on the CPU (a CUDA and a
+    CPU generator give different streams)."""
+    mixed = int(np.random.SeedSequence([seed, index]).generate_state(1)[0])
+    generator = torch.Generator().manual_seed(mixed)
+    return torch.randn(tuple(shape), generator=generator).to(device)
 
 
 class DiagNormal(NamedTuple):

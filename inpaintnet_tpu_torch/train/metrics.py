@@ -16,7 +16,10 @@ from inpaintnet_tpu_torch.ops.sampling import sample_argmax
 
 def _masked_mean(values: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     if mask is None:
-        return values.mean()
+        # jnp.mean's rounding: XLA multiplies the sum by the f32 reciprocal
+        # of the constant count (a share such as the accuracy then rounds
+        # as the JAX package's does)
+        return values.sum() * (1.0 / values.numel())
     mask = mask.to(values.dtype)
     return (values * mask).sum() / mask.sum().clamp_min(1.0)
 

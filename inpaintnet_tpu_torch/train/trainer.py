@@ -153,15 +153,30 @@ class Trainer(ABC):
         return torch.stack(losses).mean().item(), torch.stack(accs).mean().item()
 
     def train_model(self, batch_size: int, num_epochs: int, split=(0.70, 0.20),
-                    run_name: Optional[str] = None, log: bool = False) -> None:
+                    run_name: Optional[str] = None, log: bool = False,
+                    plot: bool = False) -> None:
         """``num_epochs`` more epochs, numbered on from ``self.epoch``. With
-        ``log`` or ``run_name``, each epoch's stats append to
-        ``runs/<run_name>.jsonl``."""
+        ``log``, ``plot`` or ``run_name``, each epoch's stats append to
+        ``runs/<run_name>.jsonl``; ``plot`` also redraws the train and
+        validation curves each epoch (``utils.plotting.LivePlot``: a live
+        figure with a display, ``runs/<run_name>.png`` without one)."""
         metrics_path = None
-        if log or run_name is not None:
+        live_plot = None
+        if log or plot or run_name is not None:
             os.makedirs("runs", exist_ok=True)
             run_name = run_name or f"{type(self.model).__name__}_{int(time.time())}"
             metrics_path = os.path.join("runs", run_name + ".jsonl")
+            if plot:
+                from inpaintnet_tpu_torch.utils.plotting import LivePlot
+
+                live_plot = LivePlot(os.path.join("runs", run_name + ".png"))
+        try:
+            self._run_epochs(batch_size, num_epochs, split, metrics_path, live_plot)
+        finally:
+            if live_plot is not None:
+                live_plot.close()
+
+    def _run_epochs(self, batch_size: int, num_epochs: int, split, metrics_path, live_plot):
         train_loader, val_loader, _ = self.dataset.data_loaders(
             batch_size=batch_size, split=split, seed=self.seed)
         print("Num Train Batches: ", len(train_loader))
@@ -179,6 +194,8 @@ class Trainer(ABC):
             if metrics_path:
                 with open(metrics_path, "a") as f:
                     f.write(json.dumps(stats) + "\n")
+            if live_plot is not None:
+                live_plot.update(**stats)
             self.print_epoch_stats(**stats)
             self.model.set_params(self.params)
             self.model.save()

@@ -643,6 +643,35 @@ def test_trainfast_function_on_card_matches_cpu(cuda, reverse):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+def test_trainfast_function_is_deterministic_on_card(cuda, reverse):
+    """Two runs of the autograd Function on the card (K5, K6 and the
+    batched gradient products) on the same inputs agree bit for bit, values
+    and every gradient, however the caching allocator places their
+    buffers."""
+    rng = np.random.default_rng(5)
+    p = {k: v + 0.1 * rng.standard_normal(v.shape).astype(np.float32)
+         for k, v in gru_init(rng, 20, 64, 1)[0][0].items()}
+    x = rng.standard_normal((37, 24, 20)).astype(np.float32)
+    h0 = (0.5 * rng.standard_normal((37, 64))).astype(np.float32)
+    wy = torch.from_numpy(rng.standard_normal((37, 24, 64)).astype(np.float32)).to(cuda)
+
+    def run(shift):
+        pad = torch.empty(shift, device=cuda)  # another place for the buffers that follow
+        tp = {k: torch.from_numpy(v).to(cuda).requires_grad_() for k, v in p.items()}
+        tx, th0 = (torch.from_numpy(a).to(cuda).requires_grad_() for a in (x, h0))
+        ys, h_last = gru_layer_trainfast(tp, tx, th0, reverse=reverse)
+        loss = (ys * wy).sum() + h_last.sum()
+        loss.backward()
+        del pad
+        return [ys.detach(), loss.detach()] + [tp[k].grad for k in sorted(tp)] + [tx.grad,
+                                                                                   th0.grad]
+
+    first = run(1)
+    for shift in (4099, 65537):
+        assert all(torch.equal(a, b) for a, b in zip(run(shift), first))
+
+
 def test_train_wrappers_reject_what_the_kernels_do_not_take(cuda):
     fwd, dys, hprev = _train_case(np.random.default_rng(0), 8, 64, 4, torch.float32, cuda)
     with pytest.raises(ValueError, match="dtype"):
