@@ -1,10 +1,10 @@
-"""LatentRNN tester and inpainting drivers
+"""LatentRNN tester and its inpainting entry points
 (``inpaintnet_tpu/eval/latent_rnn_tester.py``; reference
 LatentRNN/latent_rnn_tester.py:13-414).
 
 The product-level contract, *(tensor_score, time_index_range_ticks) ->
 inpainted score and tensor*, is :meth:`LatentRNNTester.generation`; every
-driver funnels into :meth:`LatentRNNTester.generate`, which pads the
+entry point funnels into :meth:`LatentRNNTester.generate`, which pads the
 contexts into the model's fixed buffers and runs one forward.
 
 The splits come from ``numpy.random.RandomState(seed + 41)``, as the JAX
@@ -120,7 +120,7 @@ class LatentRNNTester:
                                            self.measure_seq_len)
         return pack_padded(past, future, target, self.max_context, self.model.max_target)
 
-    # --- generation drivers ---------------------------------------------------- #
+    # --- generation ------------------------------------------------------------ #
     def generation_test(self):
         """Inpaint a random test window."""
         _, _, gen_test = self.dataset.data_loaders(batch_size=1, split=(0.70, 0.20))
