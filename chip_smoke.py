@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training (MeasureVAE and LatentRNN),
-AnticipationRNN, evaluation and command-line paths once on one NVIDIA GPU.
+AnticipationRNN, evaluation, command-line and data-parallel paths once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -176,11 +177,29 @@ Phases, each raising on failure:
    the batch-1 ``generate``; ``run_server`` as a subprocess answering
    ``/healthz`` and ``/v1/inpaint``, then stopped.
 
+21. the rest of the training surface: K1's training mode
+   (``encoder_hn(keep=, rate=)``, dropout 0.5) at the VAE step's 4,096 rows
+   x 24, H 512, in f32 and bf16 against its plain version within K1's
+   bounds, in one chunk and in four, with the planted fault (the keep mask
+   read at a chunk's local rows) rejected, timed beside K1 inference at the
+   same rows, the encoder's default training forward (K5, four launches),
+   and cuDNN's ``nn.GRU(..., dropout=0.5)`` in train mode (a yardstick); the
+   VAE trainer under ``INPAINTNET_TRAIN_ENCODER_IMPL=pallas``: phase 9's step
+   on the card against the CPU, then the full-width trainer in f32 and bf16
+   (K1 once a step, K5/K6 only for the decoder, asserted), timed beside the
+   default route in turns; ``SRDecoder``, ``SRDecoderNoInput`` and the
+   multinomial ``HierarchicalDecoder`` decode, two Adam steps each on the card
+   against the CPU at H 64 with the same draws; two gloo ranks sharing the
+   card training the full-width VAE two steps against one process
+   (``TRAIN_REF``), a world-1 NCCL step, and the bf16 engine on a mesh naming
+   the card twice, bit-equal to the engine without one at batch 2048.
+
 Phase 17 runs after phase 7; phases 12-16 after phase 8, before the
-training phases; phases 18, 19 and 20 last. Prints one
+training phases; phases 18, 19, 20 and 21 last. Prints one
 JSON line of the eight kernels (each with its launches in phase 18,
 ``latent_train_launches``, in phase 19, ``arnn_train_launches``, and in
-phase 20's joint evaluation, ``eval_launches``), the
+phase 20's joint evaluation, ``eval_launches``; K1's with ``train_mode``,
+phase 21's numbers of its training mode), the
 card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
 result, when there is no usable card or any phase fails.
@@ -3584,6 +3603,423 @@ def phase_cli(card: str) -> dict:
     return launches
 
 
+# --- phase 21: the rest of the training surface ------------------------------ #
+# K1's training mode at the VAE step's shape: 256 windows x 16 bars = 4,096
+# measure rows of 24 ticks, H 512, the encoder's dropout 0.5. Its planted
+# fault is the keep mask read at a chunk's local rows, with chunks of
+# K1_FAULT_CHUNK rows (four at 4,096). K1's bounds hold it: BOUNDS' h_n max
+# and, in bf16, ENCODER_SHARE_BF16.
+K1_TRAIN_RATE = 0.5
+K1_FAULT_CHUNK = 1024
+# The VAE step under INPAINTNET_TRAIN_ENCODER_IMPL=pallas: K1 launches once a
+# step (its backward is the eager scan), and K5/K6 only for the decoder's
+# GRUs (TRAIN_LAUNCHES less the encoder's 4).
+K1_TRAIN_LAUNCHES = 1
+ENCODER_K5_LAUNCHES = 4
+DP_WORLD = 2  # gloo ranks sharing the one card
+
+
+@contextlib.contextmanager
+def _train_encoder_impl(impl: str):
+    """``INPAINTNET_TRAIN_ENCODER_IMPL`` inside the block."""
+    import os
+
+    old = os.environ.get("INPAINTNET_TRAIN_ENCODER_IMPL")
+    os.environ["INPAINTNET_TRAIN_ENCODER_IMPL"] = impl
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["INPAINTNET_TRAIN_ENCODER_IMPL"]
+        else:
+            os.environ["INPAINTNET_TRAIN_ENCODER_IMPL"] = old
+
+
+@contextlib.contextmanager
+def _chunk_local_keep():
+    """The planted fault inside the block: K1's staged plain version reads
+    each chunk's mask at its local rows (the mask's first) instead of its
+    global ones."""
+    from inpaintnet_tpu_torch.ops import encoder_kernel as ek
+
+    real = ek.chunk_keep
+    ek.chunk_keep = lambda keep, row0, rows: keep[:rows]
+    try:
+        yield
+    finally:
+        ek.chunk_keep = real
+
+
+def _k1_judge(got: torch.Tensor, want: torch.Tensor, dtype) -> tuple:
+    """(max abs error, share of elements not bit-equal, within K1's bounds)."""
+    err = (got.float() - want.float()).abs().max().item()
+    share = (got != want).float().mean().item()
+    ok = err <= BOUNDS[dtype]["hn"] and (dtype == torch.float32 or share <= ENCODER_SHARE_BF16)
+    return err, share, ok
+
+
+def phase_k1_train_kernel(card: str) -> dict:
+    """K1's training mode (``encoder_hn(keep=, rate=)``) at the VAE step's
+    shape in f32 and bf16 against its plain version; the chunk-offset fault
+    rejected; its time beside K1 inference at the same rows, the encoder's
+    default training forward (K5, four launches) and cuDNN's ``nn.GRU``
+    with dropout in train mode (a yardstick: it draws its own masks). ->
+    {"bfloat16": entry, "float32": entry}"""
+    from inpaintnet_tpu_torch.models.base import cast_params
+    from inpaintnet_tpu_torch.models.presets import build_flagship
+    from inpaintnet_tpu_torch.ops import encoder_kernel as ek
+    from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
+    from inpaintnet_tpu_torch.ops.gru import gru_apply
+    from inpaintnet_tpu_torch.utils.timing import device_timeit
+
+    def min_ms(fn, reps):
+        """The least of ``reps`` single calls, CUDA events (utils.timing)."""
+        return device_timeit(fn, iters=1, warmup=1, reps=reps) * 1e3
+
+    _, vae, _ = build_flagship(seed=0, device="cuda")
+    enc = vae.params()["encoder"]
+    rows, hidden = TRAIN_WINDOWS * N_BARS, vae.encoder.rnn_hidden_size
+    rng = np.random.default_rng(21)
+    tokens = torch.from_numpy(rng.integers(0, VOCAB, (rows, 24)).astype(np.int32)).cuda()
+    keep = torch.rand((rows, 24, 2 * hidden), device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(21)) >= K1_TRAIN_RATE
+    report = {}
+    for label, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        gru = cast_params(enc["gru"], "cuda", dtype)
+        table = enc["embedding"]["table"].to(dtype).contiguous()
+        hn_k = ek.encoder_hn(gru, table, tokens, keep=keep, rate=K1_TRAIN_RATE)
+        hn_c = ek.encoder_hn(gru, table, tokens, max_chunk_rows=K1_FAULT_CHUNK, keep=keep,
+                             rate=K1_TRAIN_RATE)
+        hn_p = ek.encoder_hn_reference(gru, table, tokens, keep, K1_TRAIN_RATE)
+        with _chunk_local_keep():
+            planted = ek.encoder_hn_staged_reference(gru, table, tokens, keep, K1_TRAIN_RATE,
+                                                     max_chunk_rows=K1_FAULT_CHUNK)
+        torch.cuda.synchronize()
+        err, share, ok = _k1_judge(hn_k, hn_p, dtype)
+        c_err, c_share, c_ok = _k1_judge(hn_c, hn_p, dtype)
+        f_err, f_share, f_ok = _k1_judge(hn_c, planted, dtype)
+        print(f"[k1-train] {label}: {rows} rows, rate {K1_TRAIN_RATE}: h_n max_abs_err {err:.3e} "
+              f"on {share:.4f} of elements; {rows // K1_FAULT_CHUNK} chunks {c_err:.3e} on "
+              f"{c_share:.4f}; planted fault, the mask at the chunk's local rows: {f_err:.3e} on "
+              f"{f_share:.4f} (bounds {BOUNDS[dtype]['hn']:.0e}"
+              f"{'' if dtype == torch.float32 else f', share {ENCODER_SHARE_BF16}'}) | {card}",
+              flush=True)
+        if not (ok and c_ok):
+            raise RuntimeError(f"K1's training mode ({label}) disagrees with its plain version")
+        if f_ok:
+            raise RuntimeError(f"the planted chunk-offset fault passes K1's {label} bounds")
+        del hn_c, planted
+        # the default training route's encoder GRU (K5's four launches, the
+        # parameters requiring grad as in a step) and cuDNN's, timed beside K1
+        leaves = [[{k: v.detach().requires_grad_(True) for k, v in p.items()} for p in layer]
+                  for layer in gru]
+        emb = table[tokens.long()]
+
+        def default_route():
+            return gru_apply(leaves, emb, last_outputs=False, dropout=K1_TRAIN_RATE, train=True,
+                             dropout_masks=[keep])[1]
+
+        gk.gru_fwd_seq.launches = 0
+        default_route()
+        if gk.gru_fwd_seq.launches != ENCODER_K5_LAUNCHES:
+            raise RuntimeError(f"the default route launched K5 {gk.gru_fwd_seq.launches} times")
+        net = torch.nn.GRU(emb.shape[-1], hidden, 2, batch_first=True, bidirectional=True,
+                           dropout=K1_TRAIN_RATE).to(device="cuda", dtype=dtype).train()
+        net.flatten_parameters()  # one contiguous weight buffer, as cuDNN wants it
+        with torch.no_grad():
+            cudnn_ms = min_ms(lambda: net(emb), 5)
+        ops = encoder_ops(rows, 24, hidden)
+        moved = nbytes(gru, table, tokens, keep, hn_k)
+        entry = {"max_abs_err": err, "ms": min_ms(lambda: ek.encoder_hn(
+                     gru, table, tokens, keep=keep, rate=K1_TRAIN_RATE), 5),
+                 "plain_ms": min_ms(lambda: ek.encoder_hn_reference(
+                     gru, table, tokens, keep, K1_TRAIN_RATE), 2),
+                 **bound_of(ops if dtype == torch.bfloat16 else 6 * ops, "bf16", moved),
+                 "library_ms": cudnn_ms,
+                 "inference_ms": min_ms(lambda: ek.encoder_hn(gru, table, tokens), 5),
+                 "default_route_ms": min_ms(default_route, 5), "rows": rows}
+        if dtype == torch.float32:
+            entry["bound_f32_fma_ms"] = bound_of(ops, "f32", moved)["bound_ms"]
+        print(f"[time] encoder_hn training mode {label} (each the least of its calls): kernel "
+              f"{entry['ms']:.3f} ms, plain "
+              f"{entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.3f} ms "
+              f"({entry['bound_by']}); K1 inference {entry['inference_ms']:.3f} ms; the default "
+              f"route's forward (K5 x{ENCODER_K5_LAUNCHES}) {entry['default_route_ms']:.3f} ms; "
+              f"cuDNN nn.GRU(dropout {K1_TRAIN_RATE}, train) {cudnn_ms:.3f} ms | {card}",
+              flush=True)
+        report[label] = entry
+        del leaves, emb, net, hn_k, hn_p
+        torch.cuda.empty_cache()
+    return report
+
+
+def phase_k1_trainer(card: str) -> int:
+    """The VAE trainer under ``INPAINTNET_TRAIN_ENCODER_IMPL=pallas``: phase
+    9's step on the card against the CPU (K1 launched on the card), then the
+    full-width trainer in f32 and bf16, each step's launches asserted (K1
+    once, K5/K6 only for the decoder), timed beside the default route in
+    turns. -> K1's launches in the full-width steps under the switch"""
+    from inpaintnet_tpu_torch.models.measure_vae import MeasureVAE
+    from inpaintnet_tpu_torch.models.presets import VocabOnlyDataset
+    from inpaintnet_tpu_torch.ops import encoder_kernel as ek
+    from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
+    from inpaintnet_tpu_torch.train.data import ArrayDataset
+    from inpaintnet_tpu_torch.train.vae_trainer import VAETrainer
+    from inpaintnet_tpu_torch.utils.profiling import StepTimer
+
+    ek.encoder_hn.launches = 0
+    with _train_encoder_impl("pallas"):
+        phase_train_reference(card)
+    if ek.encoder_hn.launches < 2:
+        raise RuntimeError(f"phase 9's step under the switch launched K1 {ek.encoder_hn.launches}"
+                           " times")
+    model = MeasureVAE(VocabOnlyDataset(VOCAB), device="cuda", seed=0)
+    windows = np.random.default_rng(7).integers(
+        0, VOCAB, (TRAIN_WINDOWS, 1, N_BARS * 24)).astype(np.int32)
+    data = ArrayDataset((windows,), N_BARS)
+    rows = TRAIN_WINDOWS * N_BARS
+    kernels = (ek.encoder_hn, gk.gru_fwd_seq, gk.gru_bwd_seq)
+    total = 0
+    for compute in (None, "bfloat16"):
+        label = compute or "float32"
+        trainers = {impl: VAETrainer(data, model, lr=1e-4, device="cuda", compute_dtype=compute)
+                    for impl in ("xla", "pallas")}
+        batch = trainers["xla"].process_batch_data((windows,))
+        # the card's time of a step: StepTimer synchronises at its start and
+        # end; the first step of each coin is left out
+        timers = {impl: StepTimer(items_per_step=rows, warmup=2, device="cuda")
+                  for impl in trainers}
+        for i, coin in enumerate((True, False) * 3):
+            for impl in (("xla", "pallas") if i % 2 == 0 else ("pallas", "xla")):
+                before = [k.launches for k in kernels]
+                with _train_encoder_impl(impl), timers[impl]:
+                    loss = trainers[impl].train_step(batch, coin=coin)[0].item()
+                got = [k.launches - b for k, b in zip(kernels, before)]
+                want = ([K1_TRAIN_LAUNCHES] + [TRAIN_LAUNCHES[coin] - ENCODER_K5_LAUNCHES] * 2
+                        if impl == "pallas" else [0] + [TRAIN_LAUNCHES[coin]] * 2)
+                if got != want or not np.isfinite(loss):
+                    raise RuntimeError(f"{label} step {i} under {impl} (coin {coin}): launches "
+                                       f"K1/K5/K6 {got}, expected {want}; loss {loss}")
+                if impl == "pallas":
+                    total += got[0]
+        ms = {impl: timer.mean_s * 1e3 for impl, timer in timers.items()}
+        print(f"[k1-trainer] {label} compute, {rows} measure rows a step: "
+              f"INPAINTNET_TRAIN_ENCODER_IMPL=pallas {ms['pallas']:.2f} ms/step (K1 once, K5/K6 "
+              f"for the decoder), default {ms['xla']:.2f} ms/step (K5/K6 {TRAIN_LAUNCHES}), "
+              f"mean of 4 steps each, both coins, in turns | {card}", flush=True)
+        del trainers, batch
+        torch.cuda.empty_cache()
+    return total
+
+
+def _adam_steps(params, steps) -> tuple:
+    """``steps`` Adam steps (lr 1e-3) of a cross-entropy loss through
+    ``step(params)`` -> logits (B, T, V), tokens; -> (the parameters
+    after, every step's tokens)."""
+    from inpaintnet_tpu_torch.models.base import iter_leaves
+    from inpaintnet_tpu_torch.train.metrics import mean_crossentropy_loss
+
+    leaves = [p for _, p in iter_leaves(params)]
+    opt = torch.optim.Adam(leaves, lr=1e-3)
+    tokens = []
+    for step, target in steps:
+        opt.zero_grad(set_to_none=True)
+        logits, samples = step(params)
+        mean_crossentropy_loss(logits, target).backward()
+        opt.step()
+        tokens.append(samples.cpu())
+    return [p.detach().cpu() for p in leaves], tokens
+
+
+def phase_flat_decoders(card: str) -> None:
+    """``SRDecoder`` (multinomial sampling), ``SRDecoderNoInput`` and
+    ``HierarchicalDecoder``'s multinomial decode: two Adam steps each (one a
+    coin) on the card against the CPU, f32, H 64, the same parameters,
+    dropout masks and Gumbel noise; the tokens of each step equal, the
+    parameters held to ``TRAIN_REF``."""
+    from inpaintnet_tpu_torch.models.measure_vae import (
+        HierarchicalDecoder,
+        SRDecoder,
+        SRDecoderNoInput,
+    )
+    from inpaintnet_tpu_torch.train.trainer import trainable_copy
+
+    geometry = dict(note_embedding_dim=10, num_notes=VOCAB, z_dim=16, num_layers=2,
+                    rnn_hidden_size=64)
+    batch, ticks, hidden = 32, 24, 64
+    rng = np.random.default_rng(22)
+    z = torch.from_numpy(rng.standard_normal((batch, 16)).astype(np.float32))
+    target = torch.from_numpy(rng.integers(0, VOCAB, (batch, ticks)))
+    gumbel = torch.from_numpy(rng.gumbel(size=(batch, ticks, VOCAB)).astype(np.float32))
+
+    def keep(*shape):
+        return torch.from_numpy(rng.random(shape) >= 0.5)
+
+    for name, cls, dropout in (("SRDecoder multinomial", SRDecoder, 0.5),
+                               ("SRDecoderNoInput", SRDecoderNoInput, 0.5),
+                               ("HierarchicalDecoder multinomial", HierarchicalDecoder, 0.0)):
+        out = {}
+        tf_masks = [keep(batch, ticks, hidden)]
+        seq_masks = [[keep(batch, hidden)] for _ in range(ticks)]
+        for device in ("cuda", "cpu"):
+            dec = cls(dropout=dropout, device="cpu", **geometry)
+            dec.sampling = "multinomial"
+            params = trainable_copy(dec.init_params(np.random.default_rng(23)), device)
+            zd, td, gd = z.to(device), target.to(device), gumbel.to(device)
+            tf_d = [m.to(device) for m in tf_masks]
+            seq_d = [[m.to(device) for m in ms] for ms in seq_masks]
+
+            def step_of(coin, dec=dec, zd=zd, td=td, gd=gd, tf_d=tf_d, seq_d=seq_d):
+                if cls is HierarchicalDecoder:
+                    if coin:
+                        return lambda p: dec.decode_teacher_forced(p, zd, td, train=True,
+                                                                   gumbel=gd)
+                    return lambda p: dec.decode_sampling(p, zd, train=True, gumbel=gd)
+                return lambda p: dec.apply(p, zd, td, train=True, coin=coin,
+                                           dropout_masks=tf_d if coin or cls is SRDecoderNoInput
+                                           else seq_d, gumbel=gd)
+
+            out[device] = _adam_steps(params, [(step_of(c), td) for c in (True, False)])
+        (p_c, t_c), (p_p, t_p) = out["cuda"], out["cpu"]
+        same_tokens = all(torch.equal(a.long(), b.long()) for a, b in zip(t_c, t_p))
+        diff = torch.cat([(a - b).abs().flatten() for a, b in zip(p_c, p_p)])
+        print(f"[flat-decoders] {name}: two Adam steps (coin True, False), card vs CPU: tokens "
+              f"equal {same_tokens}, params max {diff.max().item():.3e} (bound "
+              f"{TRAIN_REF['param_max']:.0e}), mean {diff.mean().item():.3e} (bound "
+              f"{TRAIN_REF['param_mean']:.0e}) | {card}", flush=True)
+        if not (same_tokens and diff.max().item() <= TRAIN_REF["param_max"]
+                and diff.mean().item() <= TRAIN_REF["param_mean"]):
+            raise RuntimeError(f"{name}: the card's Adam steps disagree with the CPU's")
+
+
+def _dp_vae_run(mesh=None, steps: int = 2) -> tuple:
+    """The full-width VAE trainer (dropout 0; the rsample noise and the coin
+    injected, one coin a step) on ``TRAIN_WINDOWS`` windows of ``N_BARS``
+    bars, ``steps`` Adam steps. -> ({path: parameter}, last loss, the last
+    step's wall ms)"""
+    from inpaintnet_tpu_torch.models.base import flatten_params
+    from inpaintnet_tpu_torch.models.measure_vae import MeasureVAE
+    from inpaintnet_tpu_torch.models.presets import VocabOnlyDataset
+    from inpaintnet_tpu_torch.train.data import ArrayDataset
+    from inpaintnet_tpu_torch.train.vae_trainer import VAETrainer
+
+    rng = np.random.default_rng(24)
+    windows = rng.integers(0, VOCAB, (TRAIN_WINDOWS, 1, N_BARS * 24)).astype(np.int32)
+    model = MeasureVAE(VocabOnlyDataset(VOCAB), encoder_dropout_prob=0.0,
+                       decoder_dropout_prob=0.0, device="cuda", seed=0)
+    tr = VAETrainer(ArrayDataset((windows,), N_BARS), model, lr=1e-4, device="cuda", mesh=mesh)
+    batch = tr.process_batch_data((windows,))
+    loss = wall = None
+    for step in range(steps):
+        eps = torch.from_numpy(rng.standard_normal((batch.shape[0], model.latent_space_dim))
+                               .astype(np.float32)).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = tr.train_step(batch, eps=eps, coin=step % 2 == 0)[0].item()
+        wall = (time.perf_counter() - t0) * 1e3
+    return flatten_params(tr.params), loss, wall
+
+
+def _dp_rank(rank: int, world: int, port: int, out_path: str) -> None:
+    """One gloo rank on the shared card: ``_dp_vae_run`` over the world."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        params, loss, wall = _dp_vae_run()
+        if rank == 0:
+            np.savez(out_path, loss=loss, wall=wall, **params)
+    finally:
+        dist.destroy_process_group()
+
+
+def _same_params(a: dict, b: dict) -> tuple:
+    diff = np.concatenate([np.abs(a[k] - b[k]).ravel() for k in b])
+    return float(diff.max()), float(diff.mean())
+
+
+def phase_data_parallel(model, card: str) -> None:
+    """Two gloo ranks sharing the card train the full-width VAE two steps
+    (4,096 global rows, dropout 0, the same injected draws) and must equal
+    one process within ``TRAIN_REF``; a world-1 NCCL group's step (its
+    all-reduce runs) too; the bf16 engine on a mesh naming the card twice
+    serves batch 2048 (6/4/6) through ``inpaint_hetero`` bit-equal to the
+    engine without a mesh. This checks correctness: ranks on one card share
+    it, so their times say nothing of scaling."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from inpaintnet_tpu_torch.parallel.mesh import Mesh, free_port, make_mesh
+    from inpaintnet_tpu_torch.serve import InpaintingEngine
+
+    t0 = time.perf_counter()
+    one, one_loss, one_wall = _dp_vae_run()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "rank0.npz")
+        mp.start_processes(_dp_rank, args=(DP_WORLD, free_port(), out), nprocs=DP_WORLD,
+                           join=True, start_method="spawn")
+        with np.load(out) as z:
+            two = {k: z[k] for k in z.files if k not in ("loss", "wall")}
+            two_loss, two_wall = float(z["loss"]), float(z["wall"])
+    t2 = time.perf_counter()
+    p_max, p_mean = _same_params(two, one)
+    print(f"[dp] {DP_WORLD} gloo ranks on one card vs one process, full-width VAE, "
+          f"{TRAIN_WINDOWS * N_BARS} global rows, 2 Adam steps: last loss {two_loss:.6f} / "
+          f"{one_loss:.6f}, params max {p_max:.3e} (bound {TRAIN_REF['param_max']:.0e}), mean "
+          f"{p_mean:.3e} (bound {TRAIN_REF['param_mean']:.0e}); the second step's wall: one "
+          f"process {one_wall:.2f} ms, rank 0 of two {two_wall:.2f} ms (half the rows each, "
+          f"both ranks on one card, gloo reducing through the host: no scaling measured); one "
+          f"process {t1 - t0:.1f} s, the two ranks {t2 - t1:.1f} s with their start-up | {card}",
+          flush=True)
+    if not (p_max <= TRAIN_REF["param_max"] and p_mean <= TRAIN_REF["param_mean"]):
+        raise RuntimeError("two data-parallel ranks disagree with one process")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        nccl, nccl_loss, _ = _dp_vae_run(
+            mesh=Mesh([torch.device("cuda", 0)], 1, distributed=True), steps=1)
+    finally:
+        dist.destroy_process_group()
+    first, first_loss, _ = _dp_vae_run(steps=1)
+    n_max, n_mean = _same_params(nccl, first)
+    print(f"[dp] world-1 NCCL group, one step (its all-reduce run): loss {nccl_loss:.6f} / "
+          f"{first_loss:.6f}, params max {n_max:.3e}, mean {n_mean:.3e} | {card}", flush=True)
+    if not (n_max <= TRAIN_REF["param_max"] and n_mean <= TRAIN_REF["param_mean"]):
+        raise RuntimeError("the NCCL step disagrees with the step without a group")
+    rng = np.random.default_rng(25)
+    tokens, start, num = _request(rng, BATCH, N_PAST, N_TARGET, N_FUTURE)
+    reqs = [{"tokens": tokens, "start_measure": start, "num_measures": num, "seed": 5}]
+    single = InpaintingEngine(model, batch_buckets=(BATCH,), dtype="bfloat16")
+    sharded = InpaintingEngine(model, batch_buckets=(BATCH,), dtype="bfloat16",
+                               mesh=make_mesh(devices=["cuda", "cuda"]))
+    a, b = single.inpaint_hetero(reqs)[0], sharded.inpaint_hetero(reqs)[0]
+    _check_response(b, tokens, start, num)
+    equal = np.array_equal(a, b)
+    print(f"[dp] bf16 engine, mesh of the card named twice, batch {BATCH} "
+          f"({N_PAST}/{N_TARGET}/{N_FUTURE}) inpaint_hetero: bit-equal to the engine without a "
+          f"mesh {equal} (token share {(a == b).mean():.6f}) | {card}", flush=True)
+    if not equal:
+        raise RuntimeError("the mesh engine's inpaint_hetero differs from the engine's")
+
+
+def phase_training_surface(model, card: str) -> dict:
+    """Phase 21. -> K1's training-mode entry of the kernels line."""
+    t0 = time.perf_counter()
+    report = phase_k1_train_kernel(card)
+    launches = phase_k1_trainer(card)
+    phase_flat_decoders(card)
+    phase_data_parallel(model, card)
+    print(f"[phase21] {time.perf_counter() - t0:.1f} s", flush=True)
+    entry = report["bfloat16"]
+    return {**entry, "launches": launches, "f32": report["float32"]}
+
+
 def main() -> int:
     cli = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     cli.add_argument("--parent", metavar="DIR",
@@ -3627,6 +4063,7 @@ def main() -> int:
     launches_latent = phase_latent_trainer(card)
     launches_arnn_train = phase_arnn_training(card)
     launches_eval = phase_cli(card)
+    train_mode = phase_training_surface(model, card)
     sources = {
         "encoder_hn": ("encoder_gru.cu", "inpaintnet_tpu/ops/encoder_pallas.py:147", launches),
         "decode_sampling": ("decode_sampling.cu", "inpaintnet_tpu/ops/decode_pallas.py:216",
@@ -3652,6 +4089,9 @@ def main() -> int:
                 "arnn_train_launches": launches_arnn_train.get(name, 0),
                 "eval_launches": launches_eval.get(name, 0)}
                for name, (src, replaces, runs) in sources.items()]
+    # K1's training mode (phase 21): its launches in the VAE steps under the
+    # switch, its time and bound at the VAE step's rows, cuDNN as library_ms
+    kernels[0]["train_mode"] = train_mode
     # K8's kernel also serves the two TPU kernels of the same function (K9, K10)
     kernels[-1]["also_replaces"] = ["inpaintnet_tpu/ops/gru_pallas.py:296",
                                     "inpaintnet_tpu/ops/gru_pallas.py:363"]

@@ -8,12 +8,19 @@ the same default, and a bool option (``--has_metadata``) reads the words
 click's BOOL reads. Every entry point has ``--device`` (default ``cuda``):
 the models, trainers and testers run there, and ``cuda`` on a machine
 without a usable card raises instead of running on the CPU.
+
+Under ``torchrun --nproc_per_node N`` (``WORLD_SIZE`` above 1) each rank of
+a ``train_*`` entry point takes ``cuda:LOCAL_RANK`` and joins the process
+group (NCCL; gloo with ``--device cpu``), and the trainers train
+data-parallel over it (``train/trainer.py``); no flag changes.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
+import torch.distributed as dist
 
 from inpaintnet_tpu_torch.data import BeatMarkerMetadata, DatasetManager, TickMetadata
 
@@ -85,6 +92,29 @@ def resolve_device(name: str) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {name}: torch.cuda.is_available() is false "
                          "(pass --device cpu to run on the CPU)")
+    return device
+
+
+def train_device(name: str) -> torch.device:
+    """The trainers' ``--device``: :func:`resolve_device`, then under
+    ``torchrun`` this rank's device with the process group joined
+    (:func:`join_process_group`). Only the ``train_*`` entry points join:
+    the others run one process's work."""
+    return join_process_group(resolve_device(name))
+
+
+def join_process_group(device: torch.device) -> torch.device:
+    """With ``WORLD_SIZE`` above 1 (``torchrun`` sets it, with ``RANK``,
+    ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``): ``cuda:LOCAL_RANK``
+    for a CUDA ``device``, and the process group initialised from those
+    variables, NCCL on cards, gloo on the CPU. Else ``device`` as it is."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return device
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
     return device
 
 

@@ -18,8 +18,8 @@ from inpaintnet_tpu_torch.cli.common import (
     dataset_options,
     device_option,
     flag_pair,
-    resolve_device,
     standard_datasets,
+    train_device,
     trainer_dtype,
 )
 
@@ -56,7 +56,7 @@ def run(args, kind: str):
         AnticipationRNNGaussianRegTrainer,
     )
 
-    device = resolve_device(args.device)
+    device = train_device(args.device)
     folk_dataset, folk_dataset_test = standard_datasets(
         args.dataset_name, cache_dir=args.cache_dir, corpus_dir=args.corpus_dir)
     model = build_arnn(args, folk_dataset, device, kind, teacher_forcing=args.teacher_forcing)

@@ -17,8 +17,8 @@ from inpaintnet_tpu_torch.cli.common import (
     dataset_options,
     device_option,
     flag_pair,
-    resolve_device,
     standard_datasets,
+    train_device,
     trainer_dtype,
     vae_options,
 )
@@ -56,7 +56,7 @@ def run(args, ablation=None):
     from inpaintnet_tpu_torch.eval import LatentRNNTester
     from inpaintnet_tpu_torch.train import LatentRNNTrainer
 
-    device = resolve_device(args.device)
+    device = train_device(args.device)
     folk_dataset_train, folk_dataset_test = standard_datasets(
         args.dataset_name, cache_dir=args.cache_dir, corpus_dir=args.corpus_dir)
     vae_model = build_vae(args, folk_dataset_train, device).load()  # trained beforehand

@@ -14,8 +14,8 @@ from inpaintnet_tpu_torch.cli.common import (
     dataset_options,
     device_option,
     flag_pair,
-    resolve_device,
     standard_datasets,
+    train_device,
     trainer_dtype,
     vae_options,
 )
@@ -43,7 +43,7 @@ def main(argv=None):
     from inpaintnet_tpu_torch.train import VAETrainer
 
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    device = train_device(args.device)
     folk_dataset, folk_dataset_test = standard_datasets(
         args.dataset_name, cache_dir=args.cache_dir, corpus_dir=args.corpus_dir)
     model = build_vae(args, folk_dataset, device)

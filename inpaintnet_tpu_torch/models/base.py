@@ -31,6 +31,16 @@ def iter_leaves(tree, prefix: str = ""):
         yield from iter_leaves(v, f"{prefix}/{k}" if prefix else str(k))
 
 
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of nested dicts, lists and tuples, the
+    nesting kept."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
 def to_numpy(leaf) -> np.ndarray:
     """A tensor copied to the CPU as numpy (bf16 as f32, which numpy lacks)."""
     if isinstance(leaf, torch.Tensor):

@@ -11,7 +11,9 @@ reference, the JAX package and the port.
 
 - ``from_jax_params``: the JAX package's parameters (nested dicts and
   lists of numpy arrays) -> a ``state_dict`` for ``LatentRNN``;
-  ``anticipation_rnn_from_jax_params`` the same for the AnticipationRNN.
+  ``anticipation_rnn_from_jax_params`` the same for the AnticipationRNN,
+  ``flat_decoder_from_jax_params`` for ``SRDecoder`` and
+  ``SRDecoderNoInput`` (whose keys follow the reference's module names).
 - ``to_functional``: a module's ``state_dict`` -> the nested (in, out)
   parameters the port's functional code (and its kernels) takes;
   ``from_functional`` is its inverse.
@@ -67,6 +69,20 @@ def measure_vae_leaves(enc_layers: int, dec_layers: int) -> List[Leaf]:
         (d + ("x_0",), "decoder.x_0", False),
         *_gru(d + ("tick_gru",), "decoder.rnn_tick", dec_layers, 1),
         *_linear(d + ("head",), "decoder.tick_emb_to_note_emb.0"),
+    ]
+
+
+def flat_decoder_leaves(num_layers: int, no_input: bool = False) -> List[Leaf]:
+    """``SRDecoder``'s leaves (``SRDecoderNoInput``'s with ``no_input``: its
+    z projection is one linear layer, not the Linear/SELU/Linear stack)."""
+    z_proj = (_linear(("z_to_rnn_input",), "z_to_rnn_input") if no_input
+              else _mlp_selu(("z_to_rnn_input",), "z_to_rnn_input"))
+    return [
+        (("embedding", "table"), "note_embedding_layer.weight", False),
+        *z_proj,
+        (("x_0",), "x_0", False),
+        *_gru(("gru",), "rnn_dec", num_layers, 1),
+        *_linear(("head",), "rnn_out_to_note_emb.0"),
     ]
 
 
@@ -149,6 +165,14 @@ def anticipation_rnn_from_jax_params(params_np: Mapping) -> Dict[str, torch.Tens
     leaves = anticipation_rnn_leaves(len(params_np["lstm_constraint"]),
                                      len(params_np["metadata_embeddings"]))
     return _float32_state_dict(params_np, leaves)
+
+
+def flat_decoder_from_jax_params(params_np: Mapping, no_input: bool = False
+                                 ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``SRDecoder`` (``SRDecoderNoInput`` with
+    ``no_input``) parameters (numpy leaves) -> a float32 ``state_dict`` of
+    the port's."""
+    return _float32_state_dict(params_np, flat_decoder_leaves(len(params_np["gru"]), no_input))
 
 
 def to_functional(state_dict: Mapping[str, torch.Tensor], leaves: List[Leaf]):

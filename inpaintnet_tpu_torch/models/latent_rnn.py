@@ -29,7 +29,8 @@ K3/K4 (``ops/encoder_kernel.py``, ``ops/decode_kernel.py``).
 Training (``apply(train=True)``, the JAX package's ``apply`` at
 ``train=True``):
 - the frozen encoder runs in train mode, its dropout included (the
-  trainfast GRU layers: K5 on the card, never K1), in one call over past,
+  trainfast GRU layers, K5 on the card; K1's training mode instead under
+  ``INPAINTNET_TRAIN_ENCODER_IMPL=pallas``), in one call over past,
   future and, where the teacher-forced branch can read it, the target;
 - the context and generation GRUs drop their inter-layer outputs with
   probability ``dropout`` (masks from ``generator``);

@@ -70,21 +70,34 @@ inline cudaError_t launch_encoder_layer(const CUtensorMap& w_map, const FwdArgs&
 }  // namespace fwd90
 }  // namespace inpaint
 
+// Training mode (K1 in Encoder.apply(train=True) under
+// INPAINTNET_TRAIN_ENCODER_IMPL=pallas; the TPU kernel applies the mask
+// between its two pallas_calls): layer 0's stored outputs are dropped by a
+// (B, steps, 2H) uint8 keep mask, keep ? y / (1 - rate) : 0 with a true
+// division, in layer 0's own store (bf16: the rounded output divided in
+// f32, rounded to bf16 once; f32: the f32 output divided before the split
+// into the GEMM's pieces), so no pass over the scratch is added. The mask
+// is indexed by global row (row0 + the chunk's row), step and unit; the
+// carry and h_n stay undropped.
+//
 // bf16, one layer's recurrence over the rows [row0, row0 + rows) of B:
 // whh (2, 3H, H) bf16, W_hh^T per direction with each 32-unit chunk's rows
 // grouped [r, z, n] (ops/encoder_kernel.pack_gate_slabs); layer 0 reads
 // tokens (B, steps) int32 and tab (2, V, 3H) f32 (the fused bf16 table
 // plus b_ih) and writes ys (steps, rows, 2H) bf16; layer 1 reads xw (2,
 // steps * rows, 3H) f32 (b_ih included); bhh (2, 3H) f32 (bih unused);
-// hn the layer's (2, B, H) bf16 h_n.
+// hn the layer's (2, B, H) bf16 h_n; keep (B, steps, 2H) uint8 or null,
+// layer 0 only, with keep_div = 1 - rate (the training mode).
 extern "C" int inpaint_encoder_rec_bf16(int layer, const void* whh, const void* tokens,
                                         const void* tab, const void* xw, const void* bih,
-                                        const void* bhh, void* ys, void* hn, int B, int row0,
-                                        int rows, int steps, int H, int V, void* stream) {
+                                        const void* bhh, void* ys, void* hn, const void* keep,
+                                        int B, int row0, int rows, int steps, int H, int V,
+                                        float keep_div, void* stream) {
   using namespace inpaint::enc90;
+  if (keep != nullptr && (layer != 0 || !(keep_div > 0.0f))) return (int)cudaErrorInvalidValue;
   RecArgs a{static_cast<const int*>(tokens), static_cast<const float*>(tab), xw, nullptr, nullptr,
             static_cast<const float*>(bih), static_cast<const float*>(bhh), ys, hn,
-            B, row0, rows, steps, H, V, 0};
+            B, row0, rows, steps, H, V, 0, static_cast<const uint8_t*>(keep), keep_div};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (layer == 0) return (int)launch_rec<__nv_bfloat16, __nv_bfloat16, true>(whh, a, s);
   if (layer == 1) return (int)launch_rec<__nv_bfloat16, __nv_bfloat16, false>(whh, a, s);
@@ -107,13 +120,16 @@ extern "C" int inpaint_encoder_gemm_bf16(const void* a, const void* w, const voi
 // V, 3H) f32 (the fused table plus b_ih) and writes ys (3, steps * rows,
 // 2H) bf16, the pieces of its outputs; layer 1 reads xw (2, steps * rows,
 // 3H) f32 (b_ih included); both write the layer's h_n to hn (2, B, H) f32.
+// keep (B, steps, 2H) uint8 or null, layer 0 only, with keep_div = 1 - rate
+// (the training mode).
 extern "C" int inpaint_encoder_rec_f32(int layer, const void* w_map, const void* tokens,
                                        const void* tab, const void* xw, const void* bhh,
-                                       void* ys, void* hn, void* scratch, int B, int row0,
-                                       int rows, int steps, int H, int V, int cluster,
-                                       int stages, void* stream) {
+                                       void* ys, void* hn, void* scratch, const void* keep,
+                                       int B, int row0, int rows, int steps, int H, int V,
+                                       int cluster, int stages, float keep_div, void* stream) {
   using namespace inpaint::fwd90;
   if (w_map == nullptr) return (int)cudaErrorInvalidValue;
+  if (keep != nullptr && (layer != 0 || !(keep_div > 0.0f))) return (int)cudaErrorInvalidValue;
   CUtensorMap m;
   memcpy(&m, w_map, sizeof(m));
   FwdArgs a{};
@@ -131,6 +147,8 @@ extern "C" int inpaint_encoder_rec_f32(int layer, const void* w_map, const void*
   a.row0 = row0;
   a.rows = rows;
   a.V = V;
+  a.keep = static_cast<const uint8_t*>(keep);
+  a.keep_div = keep_div;
   return (int)launch_encoder_layer(m, a, layer, cluster, static_cast<cudaStream_t>(stream));
 }
 

@@ -112,6 +112,11 @@ struct RecArgs {
   void* ys;           // (steps, rows, 2H) HT: this chunk's layer-0 outputs [fwd | bwd]
   void* hn;           // (2, B, H) OutT: this layer's final hiddens [fwd, bwd]
   int B, row0, rows, steps, H, V, Hk;  // chunk = rows [row0, row0 + rows); Hk: padded K
+  // bf16 layer 0 in training (K1's training mode), else null: the inter-layer
+  // dropout keep mask (B, steps, 2H) uint8 [fwd | bwd] of the GLOBAL rows, and
+  // 1 - rate; the stored outputs become keep ? bf16(y / keep_div) : 0
+  const uint8_t* keep;
+  float keep_div;
 };
 
 template <typename HT, typename OutT, bool kLayer0>
@@ -299,7 +304,26 @@ __global__ void __launch_bounds__(kRecThreads, 1)
           store_pair(reinterpret_cast<HT*>(h_nxt + off), h_store);
           if (valid[half]) {
             const size_t lrow = (size_t)tile0 + r;
-            if constexpr (kLayer0) store_pair(ys + (t * rows + lrow) * 2 * H + d * H + jp, h_store);
+            if constexpr (kLayer0) {
+              HT* y = ys + (t * rows + lrow) * 2 * H + d * H + jp;
+              if constexpr (!kInt8) {
+                if (p.keep != nullptr) {  // the dropped outputs; the carry keeps h_store
+                  // the mask's row is the global row0 + lrow, its step t
+                  const uint8_t* kp =
+                      p.keep + ((size_t)(p.row0 + lrow) * steps + t) * 2 * H + d * H + jp;
+                  HT dropped[2];
+#pragma unroll
+                  for (int e = 0; e < 2; ++e)  // a true division, rounded to bf16 once
+                    dropped[e] = __float2bfloat16_rn(
+                        kp[e] ? __fdiv_rn(__bfloat162float(h_store[e]), p.keep_div) : 0.0f);
+                  store_pair(y, dropped);
+                } else {
+                  store_pair(y, h_store);
+                }
+              } else {
+                store_pair(y, h_store);
+              }
+            }
             if (last) {
               OutT* o = hn + ((size_t)d * p.B + p.row0 + lrow) * H + jp;
               if constexpr (kInt8) {

@@ -152,6 +152,10 @@ struct FwdArgs {
   float* hn;          // (2, B, H): the layer's h_n [fwd, bwd]; kLayer: (B, H)
   int row0, rows, V;
   const uint8_t* keep;  // kLayer: (B, steps), 0 holds h at that step; null: every step runs
+                        // kEnc0 in training (K1's training mode), else null: the
+                        // inter-layer dropout keep mask (B, steps, 2H) [fwd | bwd] of
+                        // the GLOBAL rows; the outputs' pieces are keep ? y / keep_div : 0
+  float keep_div;       // kEnc0: 1 - rate
 };
 
 // bytes of one ring stage: a k-slab of T(h)'s P pieces and of the CTA's
@@ -419,9 +423,17 @@ __global__ void __launch_bounds__(kThreads, 1)
           *cp = make_float2(o[0][0], o[0][1]);
           if constexpr (kEnc) {
             if (valid && kMode == kEnc0) {  // the outputs' pieces, at row t * rows + row
+              float y0 = o[0][0], y1 = o[0][1];
+              if (p.keep != nullptr) {  // dropped (a true division) before the split;
+                // the carry keeps h. The mask's row is the global row0 + row
+                const uint8_t* kp =
+                    p.keep + ((size_t)(p.row0 + row) * steps + t) * 2 * H + d * H + j;
+                y0 = kp[0] ? __fdiv_rn(y0, p.keep_div) : 0.0f;
+                y1 = kp[1] ? __fdiv_rn(y1, p.keep_div) : 0.0f;
+              }
               __nv_bfloat16 a[3], b2[3];
-              split3(o[0][0], a);
-              split3(o[0][1], b2);
+              split3(y0, a);
+              split3(y1, b2);
               const size_t plane = (size_t)steps * B * 2 * H;
 #pragma unroll
               for (int pi = 0; pi < 3; ++pi)

@@ -1,6 +1,6 @@
 """Diagonal normal for the VAE latent (``inpaintnet_tpu/ops/distributions.py``),
-its KL to the standard normal, and the per-row noise and key splits of the
-serving engine's coalesced batches."""
+its KL to the standard normal, inverted dropout, and the per-row noise and
+key splits of the serving engine's coalesced batches."""
 from __future__ import annotations
 
 import math
@@ -19,6 +19,17 @@ def draw(fn, shape, generator: Optional[torch.Generator], device,
     if generator is None:
         return fn(shape, device=device, dtype=dtype)
     return fn(shape, generator=generator, device=generator.device, dtype=dtype).to(device)
+
+
+def apply_dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """``where(keep, x / (1 - rate), 0)`` in ``x``'s dtype, the division a
+    true f32 one rounded once, as JAX divides. The divisor is a tensor on
+    ``x``'s device: PyTorch's CUDA division by a Python number multiplies by
+    its reciprocal, which differs by an ulp where that is inexact (rate 0.3).
+    Every dropout of the port goes through here, K1's plain training mode
+    too, so its kernel and the eager route drop bit-identically."""
+    div = torch.full((), 1.0 - rate, dtype=torch.float32, device=x.device)
+    return torch.where(keep, x.float() / div, torch.zeros((), device=x.device)).to(x.dtype)
 
 
 def seeded_normal(seed: int, index: int, shape, device) -> torch.Tensor:

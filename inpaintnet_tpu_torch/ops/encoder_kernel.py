@@ -31,6 +31,15 @@ writing its outputs as the GEMM's pieces, and the GEMM is the split one
 tensor). ``recurrent_product`` is the plain version's product on h, where a
 check can plant the fault "h taken as one bf16 piece".
 
+K1's training mode (``keep=``, ``rate=``; the TPU kernel's ``keep``/``rate``
+arguments, ``encoder_pallas.py:147-177``, applied between its two
+``pallas_call``s at ``:257-267``) drops layer 0's outputs by a bool (B, T,
+2H) keep mask before layer 1 reads them: ``where(keep, y / (1 - rate), 0)``
+with a true f32 division, rounded once to the parameter dtype, while the
+carry and h_n stay undropped. The kernels do it in layer 0's own store
+(``csrc/encoder_gru.cu``); :func:`encoder_hn_reference` and
+:func:`encoder_hn_staged_reference` are its plain versions.
+
 The wrappers run the plain versions for CPU tensors only; for CUDA tensors
 they launch the kernels or raise.
 """
@@ -40,6 +49,7 @@ import ctypes
 
 import torch
 
+from inpaintnet_tpu_torch.ops.distributions import apply_dropout
 from inpaintnet_tpu_torch.ops.kernel_common import (
     DTYPE_CODES,
     HOPPER_ROWS,
@@ -149,29 +159,37 @@ def _gru_direction(p, xw_at, reverse: bool, batch: int, seq_len: int, dtype, dev
     return ys, h
 
 
-def _layer0_reference(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor):
+def _layer0_reference(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
+                      keep=None, rate: float = 0.0):
     """Layer 0 of the plain K1: (outputs [forward, backward] by step, [h_n
-    forward, h_n backward])."""
+    forward, h_n backward]); with ``keep``, the outputs are the dropped
+    ones layer 1 reads (the carry and h_n are not dropped)."""
     dtype = gru_params[0][0]["w_hh"].dtype
     batch, seq_len = tokens.shape
+    hidden = gru_params[0][0]["w_hh"].shape[0]
     tokens = tokens.long()
     ys0, h_n = [], []
     for d, (p, tab) in enumerate(zip(gru_params[0], fused_tables(gru_params, emb_table))):
         bih = p["b_ih"].float()
         ys, h = _gru_direction(p, lambda t, tab=tab, bih=bih: tab[tokens[:, t]].float() + bih,
                                d == 1, batch, seq_len, dtype, tokens.device)
+        if keep is not None:
+            ys = [apply_dropout(y, keep[:, t, d * hidden:(d + 1) * hidden], rate)
+                  for t, y in enumerate(ys)]
         ys0.append(ys)
         h_n.append(h)
     return ys0, h_n
 
 
-def encoder_hn_reference(gru_params, emb_table: torch.Tensor,
-                         tokens: torch.Tensor) -> torch.Tensor:
+def encoder_hn_reference(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
+                         keep=None, rate: float = 0.0) -> torch.Tensor:
     """Plain version of K1, layer 1's input projection taken step by step.
+    ``keep`` (bool (B, T, 2H), [:, :, :H] forward) and ``rate``: the
+    training mode (``apply_dropout`` on layer 0's outputs).
     :return: h_n (4, B, H) [l0f, l0b, l1f, l1b] in the parameter dtype."""
     dtype = gru_params[0][0]["w_hh"].dtype
     batch, seq_len = tokens.shape
-    ys0, h_n = _layer0_reference(gru_params, emb_table, tokens)
+    ys0, h_n = _layer0_reference(gru_params, emb_table, tokens, keep, rate)
     for d, p in enumerate(gru_params[1]):
         wih, bih = p["w_ih"].float(), p["b_ih"].float()
         _, h = _gru_direction(p, lambda t, wih=wih, bih=bih:
@@ -197,15 +215,33 @@ def _stack_layer1(gru_params, key: str) -> torch.Tensor:
     return torch.stack([p[key] for p in gru_params[1]])
 
 
-def encoder_hn_staged_reference(gru_params, emb_table: torch.Tensor,
-                                tokens: torch.Tensor) -> torch.Tensor:
+def chunk_keep(keep: torch.Tensor, row0: int, rows: int) -> torch.Tensor:
+    """The training mode's mask for a chunk: its global rows [row0, row0 +
+    rows), which the kernels read as ``row0 + r``."""
+    return keep[row0:row0 + rows]
+
+
+def encoder_hn_staged_reference(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
+                                keep=None, rate: float = 0.0,
+                                max_chunk_rows=None) -> torch.Tensor:
     """K1 staged as the Hopper route runs it, in plain PyTorch: layer 0,
     then :func:`input_projection_reference` over every step at once, then
     layer 1's recurrence reading it. Equals :func:`encoder_hn_reference` up
-    to the f32 sums' blocking."""
+    to the f32 sums' blocking. ``keep``/``rate``: the training mode. With
+    ``max_chunk_rows``, chunk by chunk of :func:`encoder_chunk_rows` rows
+    as the wrapper launches, each chunk reading its rows of ``keep``."""
+    if max_chunk_rows is not None:
+        batch, seq_len = tokens.shape
+        hidden = gru_params[0][0]["w_hh"].shape[0]
+        chunk = encoder_chunk_rows(batch, seq_len, hidden, max_chunk_rows,
+                                   gru_params[0][0]["w_hh"].dtype)
+        return torch.cat([encoder_hn_staged_reference(
+            gru_params, emb_table, tokens[r0:r0 + chunk],
+            None if keep is None else chunk_keep(keep, r0, min(chunk, batch - r0)), rate)
+            for r0 in range(0, batch, chunk)], dim=1)
     dtype = gru_params[0][0]["w_hh"].dtype
     batch, seq_len = tokens.shape
-    ys0, h_n = _layer0_reference(gru_params, emb_table, tokens)
+    ys0, h_n = _layer0_reference(gru_params, emb_table, tokens, keep, rate)
     ys = torch.stack([torch.cat([f, b], dim=-1) for f, b in zip(*ys0)])  # (T, B, 2H)
     xw = input_projection_reference(ys.reshape(seq_len * batch, -1),
                                     _stack_layer1(gru_params, "w_ih"),
@@ -335,8 +371,19 @@ def _scratch(chunk: int, seq_len: int, hidden: int, ys_dtype, xw_dtype, device, 
             torch.empty((2 * seq_len * chunk * 3 * hidden,), dtype=xw_dtype, device=device))
 
 
+def _check_keep(keep, rate: float, batch: int, seq_len: int, hidden: int, device):
+    """The training mode's mask as the kernels read it: (B, T, 2H) uint8 (a
+    view of the bool mask), or None. Raises on a mask the kernels do not take."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"encoder_hn: dropout rate {rate} outside [0, 1)")
+    if keep is None:
+        return None
+    check_cuda_tensor("keep", keep, (batch, seq_len, 2 * hidden), torch.bool, device)
+    return keep.view(torch.uint8)
+
+
 def encoder_hn(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
-               max_chunk_rows=None) -> torch.Tensor:
+               max_chunk_rows=None, keep=None, rate: float = 0.0) -> torch.Tensor:
     """K1: h_n (4, B, H) of the 2-layer bidirectional GRU over
     ``emb_table[tokens]``.
 
@@ -345,13 +392,20 @@ def encoder_hn(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
     :param tokens: (B, T) int32 in [0, V)
     :param max_chunk_rows: caps the rows of a chunk below the scratch's own
         cap (for tests of the chunking)
+    :param keep: the training mode's inter-layer dropout keep mask, bool (B,
+        T, 2H) ([:, :, :H] forward, [:, :, H:] backward), contiguous, or
+        None (inference: what it launched before)
+    :param rate: the dropout rate the kept outputs are scaled by
     """
     if tokens.device.type == "cpu":
-        return encoder_hn_reference(gru_params, emb_table, tokens)
+        return encoder_hn_reference(gru_params, emb_table, tokens, keep, rate)
     if tokens.device.type != "cuda":
         raise ValueError(f"encoder_hn: no kernel for device {tokens.device}")
     hidden, dtype, device = _check_encoder_args("encoder_hn", gru_params, emb_table, tokens)
     batch, seq_len = tokens.shape
+    keep_u8 = _check_keep(keep, rate, batch, seq_len, hidden, device)
+    # layer 0's only: None for layer 1
+    keep_ptr = {0: None if keep_u8 is None else keep_u8.data_ptr(), 1: None}
     vocab = emb_table.shape[0]
     h_n = torch.empty((4, batch, hidden), dtype=dtype, device=device)
     # layer 0's input projection with b_ih added, as the plain version adds it
@@ -376,8 +430,8 @@ def encoder_hn(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
             check_launch(lib.inpaint_encoder_rec_f32(
                 layer, ops["maps"][layer][1], tokens.data_ptr(), xtab.data_ptr(), xw.data_ptr(),
                 b[f"b_hh{layer}"].data_ptr(), ys.data_ptr(), h_n[2 * layer].data_ptr(),
-                exchange.data_ptr(), batch, row0, rows, seq_len, hidden, vocab, plan.cluster,
-                plan.stages, stream_ptr()), "encoder_hn")
+                exchange.data_ptr(), keep_ptr[layer], batch, row0, rows, seq_len, hidden,
+                vocab, plan.cluster, plan.stages, 1.0 - rate, stream_ptr()), "encoder_hn")
 
         def gemm(ys, xw, m):
             check_launch(lib.inpaint_encoder_gemm_f32(
@@ -395,8 +449,8 @@ def encoder_hn(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
                     (whh1, None, None, xw, b["b_ih1"], b["b_hh1"]))
             check_launch(lib.inpaint_encoder_rec_bf16(
                 layer, *(None if a is None else a.data_ptr() for a in args), ys.data_ptr(),
-                h_n[2 * layer].data_ptr(), batch, row0, rows, seq_len, hidden, vocab,
-                stream_ptr()), "encoder_hn")
+                h_n[2 * layer].data_ptr(), keep_ptr[layer], batch, row0, rows, seq_len,
+                hidden, vocab, 1.0 - rate, stream_ptr()), "encoder_hn")
 
         def gemm(ys, xw, m):
             check_launch(lib.inpaint_encoder_gemm_bf16(

@@ -49,7 +49,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from inpaintnet_tpu_torch.ops.distributions import draw
+from inpaintnet_tpu_torch.ops.distributions import apply_dropout, draw
 from inpaintnet_tpu_torch.ops.gru_kernel import gru_layer_stream
 from inpaintnet_tpu_torch.ops.gru_train_kernel import trainfast_supports
 from inpaintnet_tpu_torch.ops.linear import xavier_normal
@@ -167,9 +167,34 @@ def dropout_keep(shape, rate: float, generator: Optional[torch.Generator],
     return draw(torch.rand, shape, generator, device) < (1.0 - rate)
 
 
-def apply_dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
-    """``where(keep, x / (1 - rate), 0)``."""
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+def gru_stack_cell_apply(params, h: torch.Tensor, x: torch.Tensor, *, dropout: float = 0.0,
+                         train: bool = False, generator: Optional[torch.Generator] = None,
+                         dropout_masks: Optional[Sequence[torch.Tensor]] = None):
+    """One step through a stack of unidirectional GRU layers (the
+    sequential sampling decoders', where the next input depends on the
+    sampled token; ``inpaintnet_tpu/ops/gru.py:286-311``). In training a
+    fresh keep mask drops every non-last layer's output at every step,
+    torch's ``nn.GRU(dropout=...)`` semantics per call.
+
+    :param params: ``gru_init(..., bidirectional=False)`` stack
+    :param h: (num_layers, B, H); :param x: (B, in)
+    :param dropout_masks: optional bool (B, H) keep masks, one per non-last
+        layer, used instead of drawing from ``generator``
+    :return: (new h (num_layers, B, H), top-layer output (B, H))
+    """
+    num_layers = len(params)
+    new_h = []
+    inp = x
+    for layer in range(num_layers):
+        p = params[layer][0]
+        h_l = gru_gates(p, h[layer], inp @ p["w_ih"] + p["b_ih"])
+        new_h.append(h_l)
+        inp = h_l
+        if train and dropout > 0.0 and layer < num_layers - 1:
+            keep = (dropout_masks[layer] if dropout_masks is not None
+                    else dropout_keep(inp.shape, dropout, generator, inp.device))
+            inp = apply_dropout(inp, keep, dropout)
+    return torch.stack(new_h), inp
 
 
 def gru_apply(params, x: torch.Tensor, h0: Optional[torch.Tensor] = None, *,

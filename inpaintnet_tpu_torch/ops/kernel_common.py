@@ -381,13 +381,14 @@ def load_kernels() -> ctypes.CDLL:
     ints)."""
     lib = ctypes.CDLL(str(build_kernels()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.inpaint_encoder_rec_f32.argtypes = [i32] + [ptr] * 8 + [i32] * 8 + [ptr]
+    f32 = ctypes.c_float
+    lib.inpaint_encoder_rec_f32.argtypes = [i32] + [ptr] * 9 + [i32] * 8 + [f32, ptr]
     lib.inpaint_encoder_rec_f32.restype = i32
     lib.inpaint_encoder_w_map_f32.argtypes = [ptr, i32, i32, ptr]
     lib.inpaint_encoder_w_map_f32.restype = i32
     lib.inpaint_encoder_gemm_f32.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]
     lib.inpaint_encoder_gemm_f32.restype = i32
-    lib.inpaint_encoder_rec_bf16.argtypes = [i32] + [ptr] * 8 + [i32] * 6 + [ptr]
+    lib.inpaint_encoder_rec_bf16.argtypes = [i32] + [ptr] * 9 + [i32] * 6 + [f32, ptr]
     lib.inpaint_encoder_rec_bf16.restype = i32
     lib.inpaint_encoder_gemm_bf16.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]
     lib.inpaint_encoder_gemm_bf16.restype = i32

@@ -20,6 +20,16 @@ engine's per-row keys and generator draws itself, and
 posteriors. The GRU route (``ops/gru.py``'s ``"xla"`` or ``"pallas"``) is
 the caller's: ``gru_impl_scope`` around a call, or ``INPAINTNET_GRU_IMPL``.
 
+With ``mesh=`` (a local ``parallel.mesh`` mesh, the JAX package's
+``shard_map`` path) every bucket must divide the mesh's data axis; the
+weights are copied to each device, each shard's rows run on its device
+(shards on one device in turn), and the outputs come back in row order.
+Per-row keys travel with their rows, so ``inpaint_hetero`` is row for row
+the engine without a mesh; the batch-seed paths (``inpaint``,
+``inpaint_variations``) fold the shard index into the seed
+(``parallel.mesh.fold_seed``), as the JAX package folds the data index
+into the key.
+
 Not ported yet: CUDA-graph buckets.
 """
 from __future__ import annotations
@@ -30,6 +40,7 @@ import numpy as np
 import torch
 
 from inpaintnet_tpu_torch.models.base import cast_params
+from inpaintnet_tpu_torch.parallel.mesh import Mesh, fold_seed, replicate, shard_batch
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 SERVE_DTYPES = (*DTYPES, "int8")
@@ -79,15 +90,33 @@ class InpaintingEngine:
     MAX_INTERP = 62
 
     def __init__(self, model, batch_buckets: Sequence[int] = (1, 8, 64, 512),
-                 dtype: str = "bfloat16", n_bars: int = 16, device=None, seed: int = 0):
+                 dtype: str = "bfloat16", n_bars: int = 16, device=None, seed: int = 0,
+                 mesh: Optional[Mesh] = None):
         """:param model: a ``LatentRNN`` (its parameters are copied, in
             ``dtype``, to ``device``)
         :param dtype: serving numeric, "float32", "bfloat16", or "int8"
             (bf16 master parameters and the int8 kernels K3/K4)
         :param device: where the engine runs; defaults to the model's device
+            (with a mesh: the mesh's first device)
+        :param mesh: optional local mesh: requests are sharded over its
+            "data" axis, the weights copied to each of its devices; every
+            bucket must divide the data axis
         """
         if dtype not in SERVE_DTYPES:
             raise ValueError(f"dtype must be one of {sorted(SERVE_DTYPES)}, got {dtype!r}")
+        if mesh is not None:
+            if mesh.distributed:
+                raise ValueError("the engine shards over a local mesh (make_mesh(devices=...)), "
+                                 "not a process group's world")
+            dp = mesh.shape["data"]
+            bad = [bk for bk in sorted(batch_buckets) if bk % dp]
+            if bad:
+                raise ValueError(
+                    f"batch buckets {bad} do not divide the mesh 'data' axis ({dp}); "
+                    "shard_map requires every bucket to split evenly across data-parallel "
+                    "devices")
+            device = mesh.devices[0]
+        self.mesh = mesh
         self._quant = "int8" if dtype == "int8" else "none"
         param_dtype = DTYPES["bfloat16" if dtype == "int8" else dtype]
         self.model = model
@@ -101,6 +130,9 @@ class InpaintingEngine:
             model.parameters()).device
         self._params = cast_params(model.params(), self.device, param_dtype)
         self._vae_params = cast_params(model.vae_model.params(), self.device, param_dtype)
+        # the weights of each shard, on its device (one copy a device)
+        self._replicas = ([(self._params, self._vae_params)] if mesh is None else
+                          replicate(mesh, (self._params, self._vae_params)))
         # the (method, bucket) keys each serving method has run, for the HTTP
         # server's /healthz; a dict, which list() copies atomically
         self._compiled: Dict[object, bool] = {}
@@ -169,21 +201,42 @@ class InpaintingEngine:
         fm[rows, :n_future] = 1
         tm[rows, :num_measures] = 1
 
-    def _to_device(self, arrays):
-        return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+    def _shards(self, arrays):
+        """(shard index, its arrays on its device, the device, its weights)
+        of a batch: one shard on the engine's device without a mesh (index
+        None), else one a data index (``shard_batch``)."""
+        if self.mesh is None:
+            return [(None, tuple(torch.from_numpy(a).to(self.device) for a in arrays),
+                     self.device, self._replicas[0])]
+        return [(i, shard, d, w) for i, (shard, d, w) in enumerate(
+            zip(shard_batch(self.mesh, arrays), self.mesh.devices, self._replicas))]
 
-    def _run(self, arrays, **draw) -> np.ndarray:
+    def _run(self, arrays, seed: Optional[int] = None,
+             row_keys: Optional[np.ndarray] = None) -> np.ndarray:
         """One padded batch through the model -> (bucket, max_target, msl)
-        samples on the host. ``draw``: ``generator=`` or ``row_keys=``."""
-        past, pm, future, fm, tm = self._to_device(arrays)
-        with torch.inference_mode():
-            _, samples, _ = self.model.apply(
-                self._params, self._vae_params, past, future, None, past_mask=pm,
-                future_mask=fm, target_mask=tm, quant=self._quant, **draw)
-            return samples.cpu().numpy()
+        samples on the host, each shard on its device. The draws: a batch
+        ``seed`` (a generator; a shard's folds in its index), or per-row
+        ``row_keys`` (B, 2), which shard with their rows."""
+        outs = []
+        keys = () if row_keys is None else (row_keys,)
+        for i, shard, device, (params, vae_params) in self._shards(tuple(arrays) + keys):
+            past, pm, future, fm, tm = shard[:5]
+            draw = ({"row_keys": shard[5]} if row_keys is not None
+                    else {"generator": self._generator(seed, i, device)})
+            with torch.inference_mode():
+                _, samples, _ = self.model.apply(
+                    params, vae_params, past, future, None, past_mask=pm, future_mask=fm,
+                    target_mask=tm, quant=self._quant, **draw)
+                outs.append(samples.cpu().numpy())
+        return np.concatenate(outs)
 
-    def _generator(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(seed)
+    def _generator(self, seed: int, shard: Optional[int] = None,
+                   device=None) -> torch.Generator:
+        """The generator of a batch seed (of shard ``shard`` of a mesh:
+        the seed folded with its index)."""
+        device = self.device if device is None else device
+        return torch.Generator(device=device).manual_seed(
+            seed if shard is None else fold_seed(seed, shard))
 
     def _resolve_seed(self, seed: Optional[int]) -> int:
         seed = self.seed if seed is None else seed
@@ -215,7 +268,7 @@ class InpaintingEngine:
             ])
         bucket = pick_bucket(self.batch_buckets, b)
         arrays = self._pack_request(tokens, start_measure, num_measures, bucket)
-        samples = self._run(arrays, generator=self._generator(seed))
+        samples = self._run(arrays, seed=seed)
         self._compiled[bucket] = True
         out = tokens.copy()
         out[:, start_measure:start_measure + num_measures] = samples[:b, :num_measures]
@@ -265,7 +318,7 @@ class InpaintingEngine:
             self._fill_rows(arrays, slice(lo, lo + b), tokens, num, m, n_past, n_future)
             row_keys[lo:lo + b] = derive_row_keys(seed, b)
             lo += b
-        samples = self._run(arrays, row_keys=torch.from_numpy(row_keys).to(self.device))
+        samples = self._run(arrays, row_keys=row_keys)
         self._compiled[("hetero", bucket)] = True
         outs, lo = [], 0
         for tokens, start, num, seed, b, m, n_past, n_future in norm:
@@ -314,21 +367,26 @@ class InpaintingEngine:
                 for i, lo in enumerate(range(0, b, largest))
             ], axis=1)
         bucket = pick_bucket(self.batch_buckets, b)
-        past, pm, future, fm, tm = self._to_device(
-            self._pack_request(tokens, start_measure, num_measures, bucket))
+        arrays = self._pack_request(tokens, start_measure, num_measures, bucket)
+        samples = [[] for _ in range(num_variations)]
+        for shard, (past, pm, future, fm, tm), device, (params, vae_params) in self._shards(
+                arrays):
+            with torch.inference_mode():
+                past_dist, future_dist = self.model.encode_context_dists(
+                    vae_params, past, future, self._quant)
+                for i in range(num_variations):
+                    _, s, _ = self.model.generate_from_context_dists(
+                        params, vae_params, past_dist, future_dist, past_mask=pm,
+                        future_mask=fm, target_mask=tm,
+                        generator=self._generator(chunk_seed(seed, i), shard, device),
+                        quant=self._quant)
+                    samples[i].append(s.cpu().numpy())
         outs = []
-        with torch.inference_mode():
-            past_dist, future_dist = self.model.encode_context_dists(
-                self._vae_params, past, future, self._quant)
-            for i in range(num_variations):
-                _, samples, _ = self.model.generate_from_context_dists(
-                    self._params, self._vae_params, past_dist, future_dist, past_mask=pm,
-                    future_mask=fm, target_mask=tm,
-                    generator=self._generator(chunk_seed(seed, i)), quant=self._quant)
-                out = tokens.copy()
-                out[:, start_measure:start_measure + num_measures] = (
-                    samples.cpu().numpy()[:b, :num_measures])
-                outs.append(out)
+        for i in range(num_variations):
+            out = tokens.copy()
+            out[:, start_measure:start_measure + num_measures] = (
+                np.concatenate(samples[i])[:b, :num_measures])
+            outs.append(out)
         self._compiled[("variations", bucket)] = True
         return np.stack(outs)
 

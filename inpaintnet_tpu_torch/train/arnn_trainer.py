@@ -34,14 +34,14 @@ class AnticipationRNNGaussianRegTrainer(Trainer):
 
     def __init__(self, dataset, model, lr: float = 1e-4, early_stopping: bool = False,
                  gaussian_reg_coeff: float = 0.0, seed: int = 0,
-                 compute_dtype: Optional[str] = None, device="cuda"):
+                 compute_dtype: Optional[str] = None, device="cuda", **kw):
         # the span draws num_past from [1, n_bars - num_target - 1), a
         # range that is empty for the largest target below this
         if dataset.n_bars < self.max_num_measure_target + 3:
             raise ValueError(f"n_bars {dataset.n_bars} too small for max target "
                              f"{self.max_num_measure_target} (need >= target + 3)")
         super().__init__(dataset, model, lr, early_stopping, seed=seed,
-                         compute_dtype=compute_dtype, device=device)
+                         compute_dtype=compute_dtype, device=device, **kw)
         self.gaussian_reg_coeff = gaussian_reg_coeff
         if hasattr(dataset, "subdivision") and hasattr(dataset, "num_beats_per_bar"):
             self.measure_seq_len = dataset.subdivision * dataset.num_beats_per_bar
@@ -93,9 +93,11 @@ class AnticipationRNNGaussianRegTrainer(Trainer):
 
     # --- loss ---------------------------------------------------------------- #
     def loss_and_metrics(self, params, batch_data, train: bool, coin: Optional[bool] = None,
-                         masks: Optional[dict] = None):
+                         masks: Optional[dict] = None, row_mask: Optional[torch.Tensor] = None):
         """:param coin, masks: optional teacher-forcing coin and dropout keep
-        masks (``apply``'s; a test injects the JAX package's)."""
+        masks (``apply``'s; a test injects the JAX package's); :param
+        row_mask: optional (B,) 1 where a row is real (a padded eval tail):
+        the means are over real rows, and the metrics carry their ``weight``."""
         score, md, loc = batch_data
         if train and self.gaussian_reg_coeff > 0.0:
             weights, (g_acts, c_acts) = self.model.forward_tf(
@@ -109,9 +111,14 @@ class AnticipationRNNGaussianRegTrainer(Trainer):
                                        masks=masks)
             reg = 0.0
         mask = 1 - loc  # the unconstrained ticks
+        if row_mask is not None:
+            mask = mask * row_mask[:, None].to(mask.dtype)
         loss = mean_crossentropy_loss(weights, score, mask=mask)
         loss = loss + self.gaussian_reg_coeff * reg
-        return loss, {"accuracy": mean_accuracy(weights, score, mask=mask)}
+        metrics = {"accuracy": mean_accuracy(weights, score, mask=mask)}
+        if row_mask is not None:
+            metrics["weight"] = mask.sum()
+        return loss, metrics
 
     @staticmethod
     def gaussian_regularization(activations) -> torch.Tensor:

@@ -119,15 +119,23 @@ class LatentRNNTrainer(Trainer):
     # --- loss ---------------------------------------------------------------- #
     def loss_and_metrics(self, params, batch_data, train: bool, extra=None,
                          eps: Optional[torch.Tensor] = None,
-                         eps_steps: Optional[torch.Tensor] = None, coin: Optional[bool] = None):
+                         eps_steps: Optional[torch.Tensor] = None, coin: Optional[bool] = None,
+                         row_mask: Optional[torch.Tensor] = None):
         """:param extra: the frozen VAE's parameters; :param eps,
         eps_steps, coin: optional rsample noise and teacher-forcing coin
-        (``LatentRNN.apply``'s; a test injects the JAX package's)."""
+        (``LatentRNN.apply``'s; a test injects the JAX package's); :param
+        row_mask: optional (B,) 1 where a row is real (a padded eval tail):
+        the means are over real rows, and the metrics carry their ``weight``."""
         past, pm, future, fm, target, tm = batch_data
         weights, _, _ = self.model.apply(
             params, extra, past, future, target, past_mask=pm, future_mask=fm, target_mask=tm,
             train=train, generator=self.generator, coin_generator=self.coin_generator,
             coin=coin, eps=eps, eps_steps=eps_steps)
         tick_mask = target_tick_mask(tm, self.measure_seq_len)
+        if row_mask is not None:
+            tick_mask = tick_mask * row_mask[:, None, None].to(tick_mask.dtype)
         loss = mean_crossentropy_loss(weights, target, mask=tick_mask)
-        return loss, {"accuracy": mean_accuracy(weights, target, mask=tick_mask)}
+        metrics = {"accuracy": mean_accuracy(weights, target, mask=tick_mask)}
+        if row_mask is not None:
+            metrics["weight"] = tick_mask.sum()
+        return loss, metrics

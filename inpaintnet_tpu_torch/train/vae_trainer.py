@@ -31,14 +31,25 @@ class VAETrainer(Trainer):
         return torch.from_numpy(score).to(self.device)
 
     def loss_and_metrics(self, params, batch_data: torch.Tensor, train: bool,
-                         eps: Optional[torch.Tensor] = None, coin: Optional[bool] = None):
+                         eps: Optional[torch.Tensor] = None, coin: Optional[bool] = None,
+                         row_mask: Optional[torch.Tensor] = None):
         """:param eps: optional rsample noise; :param coin: optional
-        teacher-forcing coin (a test injects the JAX package's)."""
+        teacher-forcing coin (a test injects the JAX package's); :param
+        row_mask: optional (B,) 1 where a row is real (a padded eval tail):
+        the means are over real rows, and the metrics carry their ``weight``
+        (the real rows)."""
         weights, _, z_dist, _, _, _ = self.model.apply(
             params, batch_data, train=train, generator=self.generator,
             coin_generator=self.coin_generator, eps=eps, coin=coin)
-        recons = mean_crossentropy_loss(weights, batch_data)
+        mask = None if row_mask is None else row_mask[:, None].expand(batch_data.shape)
+        recons = mean_crossentropy_loss(weights, batch_data, mask=mask)
         kld = kl_diag_normal_vs_standard(
             DiagNormal(z_dist.loc.float(), z_dist.scale.float())).sum(dim=1)
-        loss = recons + self.beta * kld.mean()
-        return loss, {"accuracy": mean_accuracy(weights, batch_data)}
+        if row_mask is None:
+            loss = recons + self.beta * kld.mean()
+        else:
+            loss = recons + self.beta * (kld * row_mask).sum() / row_mask.sum().clamp_min(1.0)
+        metrics = {"accuracy": mean_accuracy(weights, batch_data, mask=mask)}
+        if row_mask is not None:
+            metrics["weight"] = row_mask.sum()
+        return loss, metrics

@@ -1,1 +1,4 @@
-"""Utilities (``inpaintnet_tpu/utils``): the live training plot."""
+"""Utilities (``inpaintnet_tpu/utils``): seeded generator streams
+(``rng``), non-finite checks (``debug``), device timing (``timing``),
+tracing and step timing (``profiling``) and the live training plot
+(``plotting``)."""

@@ -133,27 +133,28 @@ def _coin_key(want, start=0):
     raise AssertionError("no key gives that coin")
 
 
-def _stack_masks(key, rate, hidden):
+def _stack_masks(key, rate, hidden, rows=B):
     """One keep mask a non-last layer of a 2-layer stack (``rng, sub =
-    split(rng)``), over (B, T, H) as the stack saw it."""
+    split(rng)``), over (rows, T, H) as the stack saw it."""
     _, sub = jax.random.split(key)
-    return [torch.from_numpy(np.array(jax.random.bernoulli(sub, 1.0 - rate, (B, T, hidden))))]
+    return [torch.from_numpy(np.array(jax.random.bernoulli(sub, 1.0 - rate,
+                                                           (rows, T, hidden))))]
 
 
-def _jax_masks(key, model, reg: bool, coin):
-    """The keep masks JAX's loss draws from step key ``key``: ``apply``
-    splits ``r_flip, r_fwd``; the gaussian term calls ``forward_tf`` on the
-    key itself; ``forward_tf`` splits ``r_c, r_g, r_in`` and
-    ``forward_sampled`` ``r_c, r_scan``."""
+def _jax_masks(key, model, reg: bool, coin, rows=B):
+    """The keep masks JAX's loss draws from step key ``key`` over a batch of
+    ``rows``: ``apply`` splits ``r_flip, r_fwd``; the gaussian term calls
+    ``forward_tf`` on the key itself; ``forward_tf`` splits ``r_c, r_g,
+    r_in`` and ``forward_sampled`` ``r_c, r_scan``."""
     rate, hidden = model.dropout_prob, model.num_lstm_generation_units
     fwd = key if reg else jax.random.split(key)[1]
     teacher_forced = reg or (model.use_teacher_forcing and coin)
     if not teacher_forced:
-        return {"constraint": _stack_masks(jax.random.split(fwd)[0], rate, hidden)}
+        return {"constraint": _stack_masks(jax.random.split(fwd)[0], rate, hidden, rows)}
     r_c, r_g, r_in = jax.random.split(fwd, 3)
-    keep_in = jax.random.bernoulli(r_in, 1.0 - model.dropout_input_prob, (B, T, 1))
-    return {"constraint": _stack_masks(r_c, rate, hidden),
-            "generation": _stack_masks(r_g, rate, hidden),
+    keep_in = jax.random.bernoulli(r_in, 1.0 - model.dropout_input_prob, (rows, T, 1))
+    return {"constraint": _stack_masks(r_c, rate, hidden, rows),
+            "generation": _stack_masks(r_g, rate, hidden, rows),
             "input": torch.from_numpy(np.array(keep_in))}
 
 

@@ -62,6 +62,71 @@ def test_encoder_kernel_matches_plain(cuda, dtype, batch, hidden):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.5, 0.3])
+def test_encoder_training_mode_matches_plain(cuda, dtype, rate):
+    """K1's training mode (the keep mask on layer 0's stores) against its
+    plain version, over three chunks of 64 rows (the mask is read at the
+    chunk's global rows) with a ragged last one; rate 0.3's 1 / 0.7 is
+    inexact, so a multiplication by the reciprocal would show."""
+    rng = np.random.default_rng(int(rate * 10))
+    batch, hidden = 150, 64
+    gru = _tree(gru_init(rng, 10, hidden, 2, True), cuda, dtype, rng)
+    table = _tree(embedding_init(rng, 61, 10)["table"], cuda, dtype, rng)
+    tokens = torch.from_numpy(rng.integers(0, 61, (batch, 24)).astype(np.int32)).to(cuda)
+    keep = torch.from_numpy(rng.random((batch, 24, 2 * hidden)) >= rate).to(cuda)
+    before = encoder_kernel.encoder_hn.launches
+    h_k = encoder_kernel.encoder_hn(gru, table, tokens, max_chunk_rows=64, keep=keep, rate=rate)
+    h_p = encoder_kernel.encoder_hn_reference(gru, table, tokens, keep, rate)
+    h_inf = encoder_kernel.encoder_hn(gru, table, tokens)
+    torch.cuda.synchronize()
+    assert encoder_kernel.encoder_hn.launches == before + 2
+    torch.testing.assert_close(h_k.float(), h_p.float(), rtol=0, atol=ATOL[dtype])
+    # layer 0 is not dropped; layer 1 is
+    torch.testing.assert_close(h_k[:2].float(), h_inf[:2].float(), rtol=0, atol=ATOL[dtype])
+    assert (h_k[2:].float() - h_inf[2:].float()).abs().max() > 10 * ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoder_training_mode_drops_as_the_eager_route(cuda, monkeypatch, dtype):
+    """At rate 0.3 (1 / 0.7 is inexact) K1's training mode drops layer 0's
+    outputs bit for bit as ``apply_dropout`` does, the one dropout of the
+    eager route its gradient is taken through and of the default route: the
+    scratch that layer 1 reads after a call with the mask equals
+    ``apply_dropout`` of the scratch after a call without one (layer 0 is
+    the same computation in both). f32's scratch is three bf16 pieces per
+    output, whose sum is the output exactly. In f32 the reciprocal's product
+    differs from that on some elements."""
+    from inpaintnet_tpu_torch.ops.distributions import apply_dropout
+
+    rng = np.random.default_rng(31)
+    batch, hidden, steps, rate = 70, 64, 24, 0.3
+    gru = _tree(gru_init(rng, 10, hidden, 2, True), cuda, dtype, rng)
+    table = _tree(embedding_init(rng, 61, 10)["table"], cuda, dtype, rng)
+    tokens = torch.from_numpy(rng.integers(0, 61, (batch, steps)).astype(np.int32)).to(cuda)
+    keep = torch.from_numpy(rng.random((batch, steps, 2 * hidden)) >= rate).to(cuda)
+    scratch = []
+    real = encoder_kernel._scratch
+    monkeypatch.setattr(encoder_kernel, "_scratch",
+                        lambda *a, **k: scratch.append(real(*a, **k)) or scratch[-1])
+    encoder_kernel.encoder_hn(gru, table, tokens)
+    encoder_kernel.encoder_hn(gru, table, tokens, keep=keep, rate=rate)
+    torch.cuda.synchronize()
+    n = steps * batch * 2 * hidden  # one chunk: (steps, rows, 2H) per piece
+
+    def layer0(ys):
+        if dtype == torch.bfloat16:
+            return ys[:n].view(steps, batch, 2 * hidden)
+        pieces = ys[:3 * n].view(3, steps, batch, 2 * hidden).float()
+        return (pieces[0] + pieces[1]) + pieces[2]
+
+    y, got = layer0(scratch[0][0]), layer0(scratch[1][0])
+    mask = keep.transpose(0, 1)
+    assert torch.equal(got, apply_dropout(y, mask, rate))
+    if dtype == torch.float32:
+        assert not torch.equal(got, torch.where(mask, y * (1.0 / (1.0 - rate)), 0.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("batch,hidden,vocab", [(45, 64, 60), (7, 128, 13)])
 def test_decode_kernel_matches_plain(cuda, dtype, batch, hidden, vocab):
     rng = np.random.default_rng(batch)
@@ -1248,6 +1313,48 @@ def test_gradient_through_k1_matches_the_eager_scan(cuda, monkeypatch):
     assert encoder_kernel.encoder_hn.launches == before + 1
     monkeypatch.setattr(vae.encoder, "use_kernel", lambda: False)
     _same_grads(got, grads(), "gru")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gradient_through_k1_training_mode(cuda, monkeypatch, dtype):
+    """The encoder's training forward through K1's training mode
+    (``INPAINTNET_TRAIN_ENCODER_IMPL=pallas``, dropout 0.5, H 64): K1
+    launches, K5/K6 do not, and under a loss linear in h_n every GRU weight
+    gets the eager route's gradient (the eager scan under the same mask),
+    bit for bit; the embedding table gets one too (its backward adds with
+    atomics, so in no fixed order: held within a tolerance)."""
+    from inpaintnet_tpu_torch.models.measure_vae import _encoder_eager_hn
+    from inpaintnet_tpu_torch.models.presets import build_flagship
+    from inpaintnet_tpu_torch.models.base import cast_params
+
+    _, vae, _ = build_flagship(vocab_size=30, hidden=64, z_dim=12, emb=8, seed=5, device=cuda)
+    enc = vae.encoder
+    monkeypatch.setenv("INPAINTNET_TRAIN_ENCODER_IMPL", "pallas")
+    assert enc.use_train_kernel() and enc.dropout == 0.5
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(0, 30, (70, 24)).astype(np.int32)).to(cuda)
+    w = torch.from_numpy(rng.standard_normal((4, 70, 64)).astype(np.float32)).to(cuda)
+    keep = torch.from_numpy(rng.random((70, 24, 128)) >= 0.5).to(cuda)
+    monkeypatch.setattr(enc, "_heads", lambda params, h_n, batch: h_n)
+    master = cast_params(vae.params()["encoder"], cuda, dtype)
+
+    def grads(route):
+        params = _leaf_copy(master)
+        out = (route(params) * w).float().sum()
+        out.backward()
+        return _dense_grads(params), params["embedding"]["table"].grad
+
+    counts = (encoder_kernel.encoder_hn, gk.gru_fwd_seq, gk.gru_bwd_seq)
+    before = [k.launches for k in counts]
+    got, got_emb = grads(lambda p: enc.apply(p, tokens, train=True, dropout_masks=[keep]))
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counts, before)] == [1, 0, 0]
+    eager, eager_emb = grads(lambda p: _encoder_eager_hn(
+        p["gru"], p["embedding"]["table"], tokens, keep, 0.5))
+    _same_grads(got, eager, "gru")
+    assert got_emb is not None and got_emb.abs().max() > 0
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}[dtype]
+    torch.testing.assert_close(got_emb.float(), eager_emb.float(), rtol=tol, atol=tol)
 
 
 def test_gradient_through_k7_matches_the_eager_decode(cuda, monkeypatch):
