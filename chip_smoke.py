@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training (MeasureVAE and LatentRNN),
-AnticipationRNN, evaluation, command-line and data-parallel paths once on
-one NVIDIA GPU.
+AnticipationRNN, evaluation, command-line, data-parallel and
+tensor-parallel paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -193,13 +193,21 @@ Phases, each raising on failure:
    card training the full-width VAE two steps against one process
    (``TRAIN_REF``), a world-1 NCCL step, and the bf16 engine on a mesh naming
    the card twice, bit-equal to the engine without one at batch 2048.
+22. the mesh's "model" axis: two gloo ranks sharing the card at model=2
+   (``parallel/dryrun.py``) against one process: the flagship MeasureVAE
+   forward with ``shard_params``'s gate blocks gathered on use, in bf16 and
+   f32 (K1 and K2, bit-equal), the flagship LatentRNN step (K5 and K2,
+   parameters within ``TP_PARAM_ATOL``), the trainer matrix (K7 in the
+   ARNNs' validation); each rank's launches equal one process's, its gate
+   bytes half of the whole; the step's wall beside one process's.
 
 Phase 17 runs after phase 7; phases 12-16 after phase 8, before the
-training phases; phases 18, 19, 20 and 21 last. Prints one
+training phases; phases 18, 19, 20, 21 and 22 last. Prints one
 JSON line of the eight kernels (each with its launches in phase 18,
 ``latent_train_launches``, in phase 19, ``arnn_train_launches``, and in
 phase 20's joint evaluation, ``eval_launches``; K1's with ``train_mode``,
-phase 21's numbers of its training mode), the
+phase 21's numbers of its training mode; K1's, K2's, K5's and K7's with
+``tp_launches``, rank 0's in phase 22), the
 card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
 result, when there is no usable card or any phase fails.
@@ -4020,6 +4028,165 @@ def phase_training_surface(model, card: str) -> dict:
     return {**entry, "launches": launches, "f32": report["float32"]}
 
 
+# --- phase 22: the mesh's "model" axis ---------------------------------------- #
+# Two gloo ranks on the one card at model=2 (a 1 x 2 world) against one
+# process: the flagship MeasureVAE forward (TP_VAE_ROWS measures) in bf16 and
+# f32 through K1 and K2 on gathered gate matrices, bit-equal; the flagship
+# dry-run LatentRNN step (TP_WINDOWS windows of 16 bars, TP_STEPS Adam steps,
+# dropout 0.5: both ranks and the one process draw the same masks) through
+# K5 and K2, its parameters within TP_PARAM_ATOL (the gather is exact, so
+# bit-equality is expected); the trainer matrix's steps, whose ARNN
+# validation runs K7. Launches on each rank equal one process's.
+TP_VAE_ROWS = 2048
+TP_WINDOWS = 32
+TP_STEPS = 2
+TP_PARAM_ATOL = 1e-6
+TP_KERNELS = ("encoder_hn", "decode_sampling", "gru_fwd_seq", "arnn_sampled_decode")
+
+
+def _tp_run(mesh) -> dict:
+    """Phase 22's work on ``mesh`` (one process's or a rank's). -> flat
+    numpy results: outputs, parameters, losses, walls, launches, bytes"""
+    import tempfile
+
+    from inpaintnet_tpu_torch.parallel import dryrun
+    from inpaintnet_tpu_torch.parallel.mesh import gate_bytes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    vae, model = dryrun.build_models(**dryrun.FLAGSHIP, device="cuda")
+    rng = np.random.default_rng(26)
+    tokens = torch.from_numpy(rng.integers(0, VOCAB, (TP_VAE_ROWS, 24)).astype(np.int32)).cuda()
+    eps = torch.from_numpy(rng.standard_normal((TP_VAE_ROWS, vae.latent_space_dim)).astype(
+        np.float32)).cuda()
+    out = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        ((weights, samples, *_), params), launches = _counted(
+            lambda d=dtype: dryrun.sharded_vae_forward(
+                mesh, vae, tokens, dtype=d, eps=eps,
+                generator=torch.Generator("cuda").manual_seed(0)))
+        torch.cuda.synchronize()
+        out[f"vae_{name}_weights"] = weights.float().cpu().numpy()
+        out[f"vae_{name}_samples"] = samples.cpu().numpy()
+        out[f"vae_{name}_launches"] = [launches[k] for k in TP_KERNELS]
+        out[f"vae_{name}_bytes"] = gate_bytes(params)
+    step = dryrun.ShardedLatentRNNStep(mesh, model)
+    batch = dryrun.example_batch(TP_WINDOWS, vocab=VOCAB)
+    walls, losses = [], []
+
+    def steps():
+        for _ in range(TP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step.step(batch)[0].item())
+            walls.append((time.perf_counter() - t0) * 1e3)
+
+    _, launches = _counted(steps)
+    out.update({f"latent/{k}": v for k, v in step.full_params().items()})
+    out["latent_losses"], out["latent_walls"] = losses, walls
+    out["latent_launches"] = [launches[k] for k in TP_KERNELS]
+    for key, (held, whole) in step.gate_bytes().items():
+        out[f"latent_bytes_{key}"] = [held, whole]
+    with tempfile.TemporaryDirectory() as workdir:
+        matrix, launches = _counted(lambda: dryrun.check_trainer_matrix(mesh, "cuda", workdir))
+    out["matrix_losses"] = [loss for _, loss in matrix]
+    out["matrix_launches"] = [launches[k] for k in TP_KERNELS]
+    return out
+
+
+def _tp_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One gloo rank of a 1 x ``world`` world on the shared card."""
+    import torch.distributed as dist
+
+    from inpaintnet_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        out = _tp_run(make_mesh(model=world))
+        np.savez(str(Path(out_dir) / f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tensor_parallel(card: str) -> dict:
+    """Phase 22. -> {kernel: launches on the sharded path, rank 0's}"""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from inpaintnet_tpu_torch.parallel.mesh import free_port, make_mesh
+
+    t0 = time.perf_counter()
+    one = _tp_run(make_mesh(devices=["cuda"]))
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_tp_rank, args=(DP_WORLD, free_port(), tmp), nprocs=DP_WORLD,
+                           join=True, start_method="spawn")
+        ranks = []
+        for r in range(DP_WORLD):
+            with np.load(str(Path(tmp) / f"rank{r}.npz")) as z:
+                ranks.append({k: z[k] for k in z.files})
+    t2 = time.perf_counter()
+    latent = [k for k in one if k.startswith("latent/")]
+    for r, got in enumerate(ranks):
+        for name in ("bf16", "f32"):
+            equal = all(np.array_equal(got[f"vae_{name}_{k}"], one[f"vae_{name}_{k}"])
+                        for k in ("weights", "samples"))
+            held, whole = got[f"vae_{name}_bytes"]
+            print(f"[tp] rank {r} of a 1x{DP_WORLD} gloo world on one card, flagship "
+                  f"MeasureVAE forward {name}, {TP_VAE_ROWS} rows: bit-equal to one process "
+                  f"{equal}; launches {_launch_dict(got[f'vae_{name}_launches'])} "
+                  f"(one process {_launch_dict(one[f'vae_{name}_launches'])}); gate "
+                  f"bytes {held} of {whole} | {card}", flush=True)
+            if not equal or held * DP_WORLD != whole:
+                raise RuntimeError(f"rank {r}: the sharded {name} forward is not one process's")
+            _same_launches(got[f"vae_{name}_launches"], one[f"vae_{name}_launches"],
+                           ("encoder_hn", "decode_sampling"), f"rank {r} {name} forward")
+        diff = max(float(np.abs(got[k] - one[k]).max()) for k in latent)
+        walls = got["latent_walls"]
+        print(f"[tp] rank {r}: flagship LatentRNN step, {TP_WINDOWS} windows x {N_BARS} bars, "
+              f"{TP_STEPS} Adam steps: losses {got['latent_losses'].tolist()} (one process "
+              f"{one['latent_losses']}), params max diff {diff:.3e} (bound {TP_PARAM_ATOL:.0e}); "
+              f"launches {_launch_dict(got['latent_launches'])} (one process "
+              f"{_launch_dict(one['latent_launches'])}); the last step's wall "
+              f"{walls[-1]:.2f} ms (one process {one['latent_walls'][-1]:.2f} ms; both ranks "
+              f"share the card, gloo gathers through the host: no target); gate bytes "
+              + ", ".join(f"{k} {got[f'latent_bytes_{k}'][0]} of {got[f'latent_bytes_{k}'][1]}"
+                          for k in ("latent_rnn", "vae", "adam_moments")) + f" | {card}",
+              flush=True)
+        if diff > TP_PARAM_ATOL:
+            raise RuntimeError(f"rank {r}: the sharded LatentRNN step disagrees")
+        for k in ("latent_rnn", "vae", "adam_moments"):
+            held, whole = got[f"latent_bytes_{k}"]
+            if held * DP_WORLD != whole:
+                raise RuntimeError(f"rank {r}: holds {held} of {whole} {k} gate bytes")
+        _same_launches(got["latent_launches"], one["latent_launches"],
+                       ("decode_sampling", "gru_fwd_seq"), f"rank {r} LatentRNN step")
+        print(f"[tp] rank {r}: trainer matrix losses {got['matrix_losses'].tolist()} (one "
+              f"process {one['matrix_losses']}); launches "
+              f"{_launch_dict(got['matrix_launches'])} | {card}", flush=True)
+        _same_launches(got["matrix_launches"], one["matrix_launches"],
+                       ("arnn_sampled_decode",), f"rank {r} trainer matrix")
+    print(f"[phase22] {time.perf_counter() - t0:.1f} s (one process {t1 - t0:.1f} s, the "
+          f"two ranks {t2 - t1:.1f} s with their start-up)", flush=True)
+    totals = [sum(x) for x in zip(*(ranks[0][f"{k}_launches"] for k in
+                                    ("vae_bf16", "vae_f32", "latent", "matrix")))]
+    return _launch_dict(totals)
+
+
+def _launch_dict(counts) -> dict:
+    return {k: int(n) for k, n in zip(TP_KERNELS, counts)}
+
+
+def _same_launches(got, want, kernels, label: str) -> None:
+    """Each of ``kernels`` launched, as often as one process launches it."""
+    got, want = _launch_dict(got), _launch_dict(want)
+    for k in kernels:
+        if got[k] == 0 or got[k] != want[k]:
+            raise RuntimeError(f"{label}: {k} launched {got[k]} times, one process {want[k]}")
+
+
 def main() -> int:
     cli = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     cli.add_argument("--parent", metavar="DIR",
@@ -4064,6 +4231,7 @@ def main() -> int:
     launches_arnn_train = phase_arnn_training(card)
     launches_eval = phase_cli(card)
     train_mode = phase_training_surface(model, card)
+    launches_tp = phase_tensor_parallel(card)
     sources = {
         "encoder_hn": ("encoder_gru.cu", "inpaintnet_tpu/ops/encoder_pallas.py:147", launches),
         "decode_sampling": ("decode_sampling.cu", "inpaintnet_tpu/ops/decode_pallas.py:216",
@@ -4087,7 +4255,8 @@ def main() -> int:
                 "launches": runs[name], **report[name],
                 "latent_train_launches": launches_latent.get(name, 0),
                 "arnn_train_launches": launches_arnn_train.get(name, 0),
-                "eval_launches": launches_eval.get(name, 0)}
+                "eval_launches": launches_eval.get(name, 0),
+                **({"tp_launches": launches_tp[name]} if name in launches_tp else {})}
                for name, (src, replaces, runs) in sources.items()]
     # K1's training mode (phase 21): its launches in the VAE steps under the
     # switch, its time and bound at the VAE step's rows, cuDNN as library_ms

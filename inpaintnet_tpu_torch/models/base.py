@@ -77,6 +77,23 @@ def nest_lists(node):
     return {k: nest_lists(v) for k, v in node.items()}
 
 
+def unflatten_like(template, flat) -> dict:
+    """``flat`` (``{"a/0/b": array}``) nested as ``template`` is, every key
+    and shape of ``template`` checked (the JAX package's
+    ``unflatten_like``): :func:`unflatten_params` of the template's keys,
+    as tensors."""
+    out = {}
+    for key, leaf in iter_leaves(template):
+        if key not in flat:
+            raise KeyError(f"checkpoint missing parameter {key!r}")
+        arr = np.asarray(flat[key])
+        if arr.shape != tuple(leaf.shape):
+            raise ValueError(f"shape mismatch for {key!r}: checkpoint {arr.shape} vs model "
+                             f"{tuple(leaf.shape)}")
+        out[key] = torch.from_numpy(arr)
+    return unflatten_params(out)
+
+
 def load_jax_checkpoint(path: str) -> dict:
     """Read a JAX package ``.npz`` checkpoint into nested numpy params."""
     with np.load(path) as z:
@@ -91,6 +108,13 @@ def cast_params(tree, device, dtype: torch.dtype):
     if isinstance(tree, list):
         return [cast_params(v, device, dtype) for v in tree]
     return tree.to(device=device, dtype=dtype).contiguous()
+
+
+def cast_pytree(params, dtype: torch.dtype):
+    """Every floating leaf of nested parameters cast to ``dtype`` where it
+    lies, integer leaves untouched (the JAX package's ``cast_pytree``;
+    :func:`cast_params` also moves every leaf to a device)."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, params)
 
 
 def npz_path(path: str) -> str:
@@ -128,3 +152,7 @@ class CheckpointedModel:
         self.set_params(load_jax_checkpoint(path))
         print(f"Model {self!r} loaded")
         return self
+
+
+# the JAX package's name of the checkpointed-model base class
+Model = CheckpointedModel

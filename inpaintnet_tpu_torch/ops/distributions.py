@@ -61,6 +61,11 @@ class DiagNormal(NamedTuple):
         """:meth:`rsample` without gradients."""
         return self.rsample(generator, eps).detach()
 
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise log density at ``x``."""
+        var = self.scale ** 2
+        return -0.5 * (torch.log(2 * math.pi * var) + (x - self.loc) ** 2 / var)
+
 
 def kl_diag_normal_vs_standard(dist: DiagNormal) -> torch.Tensor:
     """KL(N(loc, scale^2) || N(0, 1)), elementwise, in the tensors' dtype."""

@@ -112,6 +112,11 @@ def gru_init(rng: np.random.Generator, input_size: int, hidden_size: int,
     ]
 
 
+def gru_cell_apply(params, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One GRU step. h: (B, H), x: (B, in) -> the new h (B, H)."""
+    return gru_gates(params, h, x @ params["w_ih"] + params["b_ih"])
+
+
 def gru_gates(params, h: torch.Tensor, xw: torch.Tensor) -> torch.Tensor:
     """One step's gate math given ``xw = x @ W_ih + b_ih``, in the tensors'
     own dtype (the JAX package's XLA scan does the same)."""
@@ -158,6 +163,36 @@ def gru_layer_apply(params, x: torch.Tensor, h0: torch.Tensor, *, reverse: bool 
     if not want_ys:
         return None, h
     return torch.stack(ys, dim=1), h
+
+
+def gru_layer_bidir_fused(p_fwd, p_bwd, x: torch.Tensor, h0_pair: torch.Tensor, *,
+                          mask: Optional[torch.Tensor] = None):
+    """Both directions of a bidirectional GRU layer in one loop (the JAX
+    package's ``gru_layer_bidir_fused``): step t advances the forward carry
+    at t and the backward one at T-1-t with one batched (2, B, H) x
+    (2, H, 3H) product. The outputs of two directional
+    :func:`gru_layer_apply` calls, in plain PyTorch.
+
+    :param x: (B, T, in); h0_pair: (2, B, H); mask: optional (B, T)
+    :return: (outputs (B, T, 2H), forward then backward; h_last (2, B, H))
+    """
+    w_ih = torch.stack([p_fwd["w_ih"], p_bwd["w_ih"]])  # (2, in, 3H)
+    b_ih = torch.stack([p_fwd["b_ih"], p_bwd["b_ih"]])
+    stacked = {"w_hh": torch.stack([p_fwd["w_hh"], p_bwd["w_hh"]]),
+               "b_hh": torch.stack([p_fwd["b_hh"], p_bwd["b_hh"]])[:, None, :]}
+    xw = torch.einsum("bti,dik->dbtk", x, w_ih) + b_ih[:, None, None, :]
+    seq_len = x.shape[1]
+    h = h0_pair
+    fwd, bwd = [None] * seq_len, [None] * seq_len
+    for t in range(seq_len):
+        back = seq_len - 1 - t
+        h_new = gru_gates(stacked, h, torch.stack([xw[0, :, t], xw[1, :, back]]))
+        if mask is not None:
+            keep = torch.stack([mask[:, t], mask[:, back]])[..., None] > 0
+            h_new = torch.where(keep, h_new, h)
+        h = h_new
+        fwd[t], bwd[back] = h[0], h[1]
+    return torch.cat([torch.stack(fwd, dim=1), torch.stack(bwd, dim=1)], dim=-1), h
 
 
 def dropout_keep(shape, rate: float, generator: Optional[torch.Generator],

@@ -11,9 +11,17 @@ Scheme (symmetric, per output channel):
 - gate math stays f32: only the products are quantized.
 
 The mode is an explicit argument (``quant="none" | "int8"``) from the
-engine down to the kernels: there is no process-wide setting.
+engine down to the kernels, which read no process-wide setting.
+:func:`serve_quant_mode` gives a caller the JAX package's ambient mode
+(``INPAINTNET_SERVE_QUANT``, or a :func:`serving_quant` scope) to pass
+there.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
+import os
+from typing import Optional
 
 import torch
 
@@ -26,6 +34,34 @@ H_SCALE = 127.0
 def check_quant(quant: str) -> None:
     if quant not in QUANT_MODES:
         raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
+
+
+_SERVE_QUANT: contextvars.ContextVar = contextvars.ContextVar("serve_quant", default=None)
+
+
+def serve_quant_mode() -> str:
+    """The ambient serving quantization, "int8" or "none": the innermost
+    :func:`serving_quant` scope's, else ``INPAINTNET_SERVE_QUANT`` (default
+    "none"), read at each call as the JAX package reads it. A value for an
+    explicit ``quant=`` argument."""
+    mode = _SERVE_QUANT.get()
+    if mode is None:
+        mode = os.environ.get("INPAINTNET_SERVE_QUANT", "none")
+    check_quant(mode)
+    return mode
+
+
+@contextlib.contextmanager
+def serving_quant(mode: Optional[str]):
+    """Scope in which :func:`serve_quant_mode` is ``mode`` (None defers to
+    the environment); scoped to the thread or task that enters it."""
+    if mode is not None:
+        check_quant(mode)
+    token = _SERVE_QUANT.set(mode)
+    try:
+        yield
+    finally:
+        _SERVE_QUANT.reset(token)
 
 
 def quantize_cols_int8(w: torch.Tensor):

@@ -22,8 +22,10 @@ the caller's: ``gru_impl_scope`` around a call, or ``INPAINTNET_GRU_IMPL``.
 
 With ``mesh=`` (a local ``parallel.mesh`` mesh, the JAX package's
 ``shard_map`` path) every bucket must divide the mesh's data axis; the
-weights are copied to each device, each shard's rows run on its device
-(shards on one device in turn), and the outputs come back in row order.
+weights are copied whole to each data index's device (a (data, model) mesh
+replicates them, as the JAX package's engine does: its model axis idles),
+each shard's rows run on its device (shards on one device in turn), and the
+outputs come back in row order.
 Per-row keys travel with their rows, so ``inpaint_hetero`` is row for row
 the engine without a mesh; the batch-seed paths (``inpaint``,
 ``inpaint_variations``) fold the shard index into the seed
@@ -40,7 +42,13 @@ import numpy as np
 import torch
 
 from inpaintnet_tpu_torch.models.base import cast_params
-from inpaintnet_tpu_torch.parallel.mesh import Mesh, fold_seed, replicate, shard_batch
+from inpaintnet_tpu_torch.parallel.mesh import (
+    Mesh,
+    batch_sharding,
+    fold_seed,
+    replicate,
+    shard_batch,
+)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 SERVE_DTYPES = (*DTYPES, "int8")
@@ -51,6 +59,12 @@ _M64 = np.uint64(0xFFFFFFFFFFFFFFFF)
 def pick_bucket(buckets: Sequence[int], rows: int) -> int:
     """Smallest bucket that fits ``rows`` (largest one otherwise)."""
     return next((b for b in buckets if b >= rows), buckets[-1])
+
+
+def token_wire_dtype(vocab: int):
+    """The compact dtype of token arrays on the wire (int16 whenever the
+    vocabulary allows; the caller has validated values in [0, vocab))."""
+    return np.int16 if vocab < 2**15 else np.int32
 
 
 def chunk_seed(seed: int, index: int) -> int:
@@ -99,8 +113,8 @@ class InpaintingEngine:
         :param device: where the engine runs; defaults to the model's device
             (with a mesh: the mesh's first device)
         :param mesh: optional local mesh: requests are sharded over its
-            "data" axis, the weights copied to each of its devices; every
-            bucket must divide the data axis
+            "data" axis, the weights copied to each data index's device;
+            every bucket must divide the data axis
         """
         if dtype not in SERVE_DTYPES:
             raise ValueError(f"dtype must be one of {sorted(SERVE_DTYPES)}, got {dtype!r}")
@@ -209,7 +223,8 @@ class InpaintingEngine:
             return [(None, tuple(torch.from_numpy(a).to(self.device) for a in arrays),
                      self.device, self._replicas[0])]
         return [(i, shard, d, w) for i, (shard, d, w) in enumerate(
-            zip(shard_batch(self.mesh, arrays), self.mesh.devices, self._replicas))]
+            zip(shard_batch(self.mesh, arrays), batch_sharding(self.mesh).devices(),
+                self._replicas))]
 
     def _run(self, arrays, seed: Optional[int] = None,
              row_keys: Optional[np.ndarray] = None) -> np.ndarray:

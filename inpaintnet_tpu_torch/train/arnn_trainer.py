@@ -64,6 +64,15 @@ class AnticipationRNNGaussianRegTrainer(Trainer):
         loc, _, _ = self.get_constraints_location(score_tensor)
         return self._to_device(score_tensor, np.asarray(batch[1]), loc)
 
+    def get_num_target_stochastic(self) -> int:
+        """A span's measure count, drawn from the trainer's numpy stream."""
+        return int(self._np_rng.randint(self.min_num_measures_target,
+                                        self.max_num_measure_target + 1))
+
+    def get_num_past_stochastic(self, num_target: int, num_measures: int) -> int:
+        """The past measures before a ``num_target``-measure span."""
+        return int(self._np_rng.randint(1, num_measures - num_target - 1))
+
     def get_constraints_location(self, score_tensor: np.ndarray, extra_outs: bool = False,
                                  fix_num_target: Optional[int] = None):
         """A contiguous span (reference :93-128: the span starts at measure
@@ -74,12 +83,9 @@ class AnticipationRNNGaussianRegTrainer(Trainer):
         if num_measures != self.dataset.n_bars:
             raise ValueError(f"{num_measures} measures a window, dataset has "
                              f"{self.dataset.n_bars} bars")
-        if fix_num_target is None:
-            num_target = int(self._np_rng.randint(self.min_num_measures_target,
-                                                  self.max_num_measure_target + 1))
-        else:
-            num_target = fix_num_target
-        num_past = int(self._np_rng.randint(1, num_measures - num_target - 1))
+        num_target = (fix_num_target if fix_num_target is not None
+                      else self.get_num_target_stochastic())
+        num_past = self.get_num_past_stochastic(num_target, num_measures)
         start_tick = (num_past + 1) * self.measure_seq_len
         end_tick = start_tick + num_target * self.measure_seq_len
         loc = np.zeros_like(score_tensor)

@@ -41,3 +41,19 @@ def mean_accuracy(weights: torch.Tensor, targets: torch.Tensor,
     """Share of (valid) elements whose argmax (first index among ties) is
     the target."""
     return _masked_mean((sample_argmax(weights) == targets).float(), mask)
+
+
+# the reference's 4-D ``*_alt`` variants (trainer.py:345-376): the masked
+# forms above take any rank
+mean_crossentropy_loss_alt = mean_crossentropy_loss
+mean_accuracy_alt = mean_accuracy
+
+
+def mean_l1_loss(weights: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean absolute difference, in f32."""
+    return (weights.float() - targets.float()).abs().mean()
+
+
+def mean_mse_loss(weights: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean squared difference, in f32."""
+    return ((weights.float() - targets.float()) ** 2).mean()

@@ -33,9 +33,13 @@ same loader order and processes the same global batch, then keeps its rows
 (data index i: rows [i n / D, (i + 1) n / D); a local mesh that names the
 trainer's device D times runs its D shards in turn). Each shard's loss is
 its rows' mean; the loss, the metrics and the gradients are averaged over
-the shards (``all_reduce``): equal shards, so that is the global batch's
-mean. Randomness follows the JAX trainer's kernel-bearing path
-(``grads_per_shard``, ``inpaintnet_tpu/train/trainer.py:295-315``): each
+the shards (``all_reduce`` over the mesh's data group: the ranks of one
+model index): equal shards, so that is the global batch's mean. A (data,
+model) mesh replicates the parameters, as the JAX package's trainer does
+(it never calls ``shard_params``): model peers compute the same shard with
+the same noise, so their gradients already agree. Randomness follows the
+JAX trainer's kernel-bearing path (``grads_per_shard``,
+``inpaintnet_tpu/train/trainer.py:295-315``): each
 step draws one seed from ``coin_generator`` (every rank the same) and each
 shard folds its data index into it for its own dropout masks, rsample noise
 and teacher-forcing coin, so a shard's noise depends on its index alone
@@ -146,7 +150,7 @@ class Trainer(ABC):
         if compute_dtype not in (None, "bfloat16"):
             raise ValueError(f"compute_dtype {compute_dtype!r}: None (f32) or 'bfloat16'")
         self.compute_dtype = compute_dtype
-        self.params = trainable_copy(model.params(), self.device)
+        self.params = trainable_copy(self.trainable_params(model.params()), self.device)
         extra = self.extra_params()
         self.extra = None if extra is None else cast_params(
             extra, self.device, getattr(torch, compute_dtype or "float32"))
@@ -169,6 +173,27 @@ class Trainer(ABC):
 
     def extra_params(self):
         """Frozen nested parameters the loss reads, or None."""
+        return None
+
+    def update_scheduler(self, epoch_num: int) -> None:
+        """Learning-rate schedule hook, called at the start of each epoch (a
+        no-op, as the reference's ``vae_trainer.py:57-63``)."""
+
+    def trainable_params(self, params):
+        """The part of the model's parameters the optimiser owns (all of
+        them: a frozen model comes through :meth:`extra_params`)."""
+        return params
+
+    def merge_params(self, params, trained):
+        """Inverse of :meth:`trainable_params`: the model's parameters with
+        ``trained`` in place."""
+        return trained
+
+    def default_train_gru_impl(self):
+        """The family's training GRU route: None. The JAX package picks a
+        route per trainer family; the port picks one per layer from its
+        width (``ops/gru_train_kernel.trainfast_supports``), so a family
+        default has nothing to choose."""
         return None
 
     # --- steps ------------------------------------------------------------- #
@@ -236,22 +261,25 @@ class Trainer(ABC):
 
     def _fit_mesh_to_batch_size(self, rows: int) -> None:
         """Shrink the data axis to gcd(rows, D) for a batch it does not
-        divide, as the JAX package's trainer does (``inpaintnet_tpu/train/
-        trainer.py:188-223``): a small batch still runs, with a warning (an
-        error under ``INPAINTNET_STRICT_MESH=1``). With several processes
-        it raises: every rank holds one shard of a fixed world."""
-        data_axis = self._data_axis()
+        divide, keeping the model axis, as the JAX package's trainer does
+        (``inpaintnet_tpu/train/trainer.py:188-223``): a small batch still
+        runs, with a warning (an error under ``INPAINTNET_STRICT_MESH=1``).
+        With several processes it raises: every rank holds one shard of a
+        fixed world."""
+        data_axis, model_axis = self._data_axis(), self.mesh.shape["model"]
         if process_count() > 1:
             raise ValueError(f"global batch {rows} ({process_count()} processes) must divide "
                              f"the {data_axis}-way data axis in a multi-host run")
         new_data = math.gcd(rows, data_axis)
         msg = (f"batch size {rows} does not divide the {data_axis}-way data axis; shrinking "
-               f"the mesh to {new_data}x1 — {data_axis - new_data} device(s) will idle. Pick "
-               f"a batch size divisible by {data_axis} to use the full mesh.")
+               f"the mesh to {new_data}x{model_axis} — {(data_axis - new_data) * model_axis} "
+               f"device(s) will idle. Pick a batch size divisible by {data_axis} to use the "
+               "full mesh.")
         if os.environ.get("INPAINTNET_STRICT_MESH", "0") == "1":
             raise ValueError(msg)
         warnings.warn(msg, stacklevel=3)
-        self.mesh = make_mesh(devices=self.mesh.devices[:new_data])
+        self.mesh = make_mesh(devices=self.mesh.devices[:new_data * model_axis], data=new_data,
+                              model=model_axis)
 
     def _sharded_grads(self, batch_data, inject: dict):
         """The gradients, loss and metrics of a global batch averaged over its
@@ -271,7 +299,7 @@ class Trainer(ABC):
                 p.grad = torch.zeros_like(p)
         loss, acc = torch.stack(losses).mean(), torch.stack(accs).mean()
         if self.mesh.distributed:
-            all_reduce_mean([p.grad for p in leaves] + [loss, acc])
+            all_reduce_mean([p.grad for p in leaves] + [loss, acc], self.mesh.data_group)
         return loss, {"accuracy": acc}
 
     def eval_step(self, batch_data, **inject):
@@ -301,7 +329,7 @@ class Trainer(ABC):
                                      metrics["accuracy"].float() * weight, weight]))
         total = torch.stack(sums).sum(dim=0)
         if self.mesh.distributed:
-            all_reduce_mean([total])
+            all_reduce_mean([total], self.mesh.data_group)
         return total[0] / total[2], {"accuracy": total[1] / total[2]}
 
     # --- epoch machinery ---------------------------------------------------- #
@@ -353,6 +381,7 @@ class Trainer(ABC):
         print("Num Valid Batches: ", len(val_loader))
         start = self.epoch
         for epoch_index in range(start, start + num_epochs):
+            self.update_scheduler(epoch_index)
             t0 = time.time()
             loss_train, acc_train = self.loss_and_acc_on_epoch(train_loader, train=True)
             loss_val, acc_val = self.loss_and_acc_on_epoch(val_loader, train=False)
@@ -367,7 +396,7 @@ class Trainer(ABC):
             if live_plot is not None:
                 live_plot.update(**stats)
             self.print_epoch_stats(**stats)
-            self.model.set_params(self.params)
+            self.model.set_params(self.merge_params(self.model.params(), self.params))
             if self.is_writer:
                 self.model.save()
                 self.save_state()
@@ -391,7 +420,7 @@ class Trainer(ABC):
         """Restore parameters, Adam state and the epoch count; the model
         takes the parameters too. -> the epoch count."""
         self.epoch = load_train_state(self.state_path, self.params, self.optimizer)
-        self.model.set_params(self.params)
+        self.model.set_params(self.merge_params(self.model.params(), self.params))
         return self.epoch
 
     @staticmethod

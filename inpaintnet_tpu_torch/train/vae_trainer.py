@@ -43,13 +43,39 @@ class VAETrainer(Trainer):
             coin_generator=self.coin_generator, eps=eps, coin=coin)
         mask = None if row_mask is None else row_mask[:, None].expand(batch_data.shape)
         recons = mean_crossentropy_loss(weights, batch_data, mask=mask)
-        kld = kl_diag_normal_vs_standard(
-            DiagNormal(z_dist.loc.float(), z_dist.scale.float())).sum(dim=1)
         if row_mask is None:
-            loss = recons + self.beta * kld.mean()
+            loss = recons + self.compute_kld_loss(z_dist, beta=self.beta)
         else:
+            kld = _kld_rows(z_dist)
             loss = recons + self.beta * (kld * row_mask).sum() / row_mask.sum().clamp_min(1.0)
         metrics = {"accuracy": mean_accuracy(weights, batch_data, mask=mask)}
         if row_mask is not None:
             metrics["weight"] = row_mask.sum()
         return loss, metrics
+
+    @staticmethod
+    def compute_kld_loss(z_dist: DiagNormal, prior_dist=None, beta: float = 0.001):
+        """beta * the KLD to the standard normal, summed over z and averaged
+        over rows, in f32 whatever the compute dtype (``vae_trainer.py:128-139``;
+        ``prior_dist`` is unused, as there)."""
+        return beta * _kld_rows(z_dist).mean()
+
+    @staticmethod
+    def compute_mmd_loss(z_tilde: torch.Tensor, z_prior: torch.Tensor, coeff: float = 10.0):
+        """The reference's unused alternative WAE objective, a Gaussian-kernel
+        MMD (``vae_trainer.py:81-126``), kept for the API."""
+        def kernel(x, y, var=16.0):
+            d = ((x[:, None, :] - y[None, :, :]) ** 2).sum(-1)
+            return torch.exp(-d / var).sum()
+
+        n = z_tilde.shape[0]
+        first = 1.0 / (n * (n - 1)) / 2 if n > 1 else 1.0
+        second = 2.0 / (n * n)
+        return coeff * (first * kernel(z_prior, z_prior) + first * kernel(z_tilde, z_tilde)
+                        - second * kernel(z_prior, z_tilde))
+
+
+def _kld_rows(z_dist: DiagNormal) -> torch.Tensor:
+    """Each row's KLD to the standard normal (summed over z), in f32."""
+    return kl_diag_normal_vs_standard(
+        DiagNormal(z_dist.loc.float(), z_dist.scale.float())).sum(dim=1)

@@ -2,3 +2,4 @@
 (``rng``), non-finite checks (``debug``), device timing (``timing``),
 tracing and step timing (``profiling``) and the live training plot
 (``plotting``)."""
+from inpaintnet_tpu_torch.utils.rng import RngStream

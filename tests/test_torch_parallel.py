@@ -115,12 +115,38 @@ def test_shard_batch_replicates_an_indivisible_batch(monkeypatch):
     assert len(copies) == 4 and copies[0] is copies[3]
 
 
-def test_mesh_shapes_and_the_model_axis():
+def test_mesh_shapes_and_the_model_axis(monkeypatch):
+    """The 2-D mesh's arithmetic: a local mesh's (data, model) grid in
+    row-major order; a world rank r at (r // model, r % model), its model
+    group the ranks of its data index and its data group those of its model
+    index, every rank making the groups in one order; the shape checks."""
     with pytest.raises(ValueError, match="2x1 mesh != 3 devices"):
         make_mesh(data=2, devices=["cpu"] * 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh(data=1, model=2, devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="2x2 mesh != 3 devices"):
+        make_mesh(data=2, model=2, devices=["cpu"] * 3)
     assert make_mesh(num_devices=2, devices=["cpu"] * 4).shape["data"] == 2
+    local = make_mesh(data=1, model=2, devices=["cpu"] * 2)
+    assert local.shape == {"data": 1, "model": 2} and local.local_indices() == [0]
+    assert local.model_indices() == [0, 1]
+    grid = make_mesh(model=2, devices=["cpu", "meta", "cpu", "meta"])
+    assert grid.shape == {"data": 2, "model": 2}
+    assert [grid.device_of(d, m).type for d in (0, 1) for m in (0, 1)] == [
+        "cpu", "meta", "cpu", "meta"]
+    made = []
+    monkeypatch.setattr(mesh_mod.dist, "new_group", lambda ranks: made.append(ranks) or
+                        tuple(ranks))
+    for rank in range(6):
+        monkeypatch.setattr(mesh_mod, "process_index", lambda r=rank: r)
+        made.clear()
+        world = mesh_mod.Mesh(["cpu"], 3, 2, distributed=True)
+        assert made == [[0, 1], [2, 3], [4, 5], [0, 2, 4], [1, 3, 5]]
+        assert world.local_indices() == [rank // 2] and world.model_indices() == [rank % 2]
+        assert world.model_group == tuple(range(rank // 2 * 2, rank // 2 * 2 + 2))
+        assert world.data_group == (rank % 2, rank % 2 + 2, rank % 2 + 4)
+    monkeypatch.setattr(mesh_mod, "process_count", lambda: 6)
+    assert local_batch_size(world, 12) == 4  # model peers feed the same rows
+    with pytest.raises(ValueError, match="2x2 mesh != 6 processes"):
+        make_mesh(data=2, model=2)
 
 
 @pytest.fixture(scope="module")
