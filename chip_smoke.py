@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training (MeasureVAE and LatentRNN),
-AnticipationRNN, evaluation, command-line, data-parallel and
-tensor-parallel paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving (on its CUDA-graph route and its eager
+one), training (MeasureVAE and LatentRNN), AnticipationRNN, evaluation,
+command-line, data-parallel and tensor-parallel paths once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py [--parent DIR]
 
@@ -200,12 +201,31 @@ Phases, each raising on failure:
    parameters within ``TP_PARAM_ATOL``), the trainer matrix (K7 in the
    ARNNs' validation); each rank's launches equal one process's, its gate
    bytes half of the whole; the step's wall beside one process's.
+23. the engines' CUDA-graph route (``inpaintnet_tpu_torch/graphs.py``, the
+   default on the card, which every serving phase above runs) against
+   their eager route (``graphs=False``) on one engine each: the flagship
+   LatentRNN engines in bf16 on ``"xla"`` and ``"pallas"``, int8, f32 on
+   ``"pallas"``, the autoregressive one on ``"pallas"`` and the bf16 one on
+   a mesh naming the card twice, at buckets 1 (the mesh: 2), 8 and 2048,
+   through ``inpaint``, ``inpaint_hetero``, ``inpaint_variations`` and
+   ``interpolate``; the bf16 ARNN engine at buckets 1 and 512, argmax,
+   sampled and a sampled ``inpaint_hetero`` with rows shorter than their
+   bucket. Each call's replay gives the eager call's tokens bit for bit
+   and launches each kernel wrapper as often; ``torch.profiler`` names the
+   same hand-written kernels, as often, in one replay as in one eager
+   call; ``graphs=True`` on a CPU engine and a planted host sync inside a
+   capture raise. Per engine (not the mesh): the batch-2048 (ARNN: 512)
+   wall and rate and the batch-1 p50 / p90 on both routes in turns, a
+   profile of each route's batch-1 call and of the graph route's big one
+   (device time, launches, idle share), the capture seconds a key and the
+   memory the graphs hold.
 
-Phase 17 runs after phase 7; phases 12-16 after phase 8, before the
-training phases; phases 18, 19, 20, 21 and 22 last. Prints one
+Phase 17 runs after phase 7; phases 12-16 after phase 8, then phase 23,
+before the training phases; phases 18, 19, 20, 21 and 22 last. Prints one
 JSON line of the eight kernels (each with its launches in phase 18,
 ``latent_train_launches``, in phase 19, ``arnn_train_launches``, and in
-phase 20's joint evaluation, ``eval_launches``; K1's with ``train_mode``,
+phase 20's joint evaluation, ``eval_launches``, and in phase 23's graph
+replays, ``graph_launches``; K1's with ``train_mode``,
 phase 21's numbers of its training mode; K1's, K2's, K5's and K7's with
 ``tp_launches``, rank 0's in phase 22), the
 card's name and power limit, and as
@@ -1750,16 +1770,17 @@ def phase_engine(model, dtype: str, card: str):
     one, s1, n1 = requests[0][1:]
     lat = [cuda_ms(lambda: engine.inpaint(one, s1, n1, seed=5), 1) for _ in range(20)]
     rate = BATCH * N_TARGET / (t_big / 1e3)
-    print(f"[time] engine {dtype} batch {BATCH} 6/4/6: {t_big:.2f} ms per call, "
+    route = _route_name(engine)
+    print(f"[time] engine {dtype} ({route}) batch {BATCH} 6/4/6: {t_big:.2f} ms per call, "
           f"{rate:.1f} measures/s, peak {peak:.2f} GiB above the {base / 2**30:.2f} GiB held "
           f"| {card}", flush=True)
-    print(f"[time] engine {dtype} batch 1 2-measure: p50 {np.median(lat):.2f} ms "
+    print(f"[time] engine {dtype} ({route}) batch 1 2-measure: p50 {np.median(lat):.2f} ms "
           f"(p90 {np.percentile(lat, 90):.2f} ms) | {card}", flush=True)
     if dtype == "int8":  # the bf16 engine's profiles: phase_gru_routes
-        _profile_line(f"engine int8 batch {BATCH}", lambda: engine.inpaint(tokens, start, num,
-                                                                          seed=5), t_big, card)
-        _profile_line("engine int8 batch 1", lambda: engine.inpaint(one, s1, n1, seed=5),
-                      float(np.median(lat)), card)
+        _profile_line(f"engine int8 ({route}) batch {BATCH}",
+                      lambda: engine.inpaint(tokens, start, num, seed=5), t_big, card)
+        _profile_line(f"engine int8 ({route}) batch 1",
+                      lambda: engine.inpaint(one, s1, n1, seed=5), float(np.median(lat)), card)
     return engine, launches, outs[2][:, start:start + num]
 
 
@@ -1799,14 +1820,16 @@ def phase_f32_engine(model, card: str) -> dict:
         big, one = requests[2][1:], requests[0][1:]
         t_big = cuda_ms(lambda: engine.inpaint(*big, seed=5), 3)
         lat = [cuda_ms(lambda: engine.inpaint(*one, seed=5), 1) for _ in range(20)]
-        print(f"[time] engine float32 pallas batch {BATCH} 6/4/6: {t_big:.2f} ms per call, "
-              f"{BATCH * N_TARGET / (t_big / 1e3):.1f} measures/s | {card}", flush=True)
-        print(f"[time] engine float32 pallas batch 1 2-measure: p50 {np.median(lat):.2f} ms "
-              f"(p90 {np.percentile(lat, 90):.2f} ms) | {card}", flush=True)
-        _profile_line(f"engine f32 pallas batch {BATCH}", lambda: engine.inpaint(*big, seed=5),
-                      t_big, card)
-        _profile_line("engine f32 pallas batch 1", lambda: engine.inpaint(*one, seed=5),
-                      float(np.median(lat)), card)
+        route = _route_name(engine)
+        print(f"[time] engine float32 pallas ({route}) batch {BATCH} 6/4/6: {t_big:.2f} ms per "
+              f"call, {BATCH * N_TARGET / (t_big / 1e3):.1f} measures/s | {card}", flush=True)
+        print(f"[time] engine float32 pallas ({route}) batch 1 2-measure: p50 "
+              f"{np.median(lat):.2f} ms (p90 {np.percentile(lat, 90):.2f} ms) | {card}",
+              flush=True)
+        _profile_line(f"engine f32 pallas ({route}) batch {BATCH}",
+                      lambda: engine.inpaint(*big, seed=5), t_big, card)
+        _profile_line(f"engine f32 pallas ({route}) batch 1",
+                      lambda: engine.inpaint(*one, seed=5), float(np.median(lat)), card)
     return want
 
 
@@ -2326,15 +2349,16 @@ def phase_arnn_engine(model, card: str):
 
     t_big = cuda_ms(lambda: engine.inpaint(big, ARNN_START, ARNN_SPAN), 5)
     lat = [cuda_ms(lambda: engine.inpaint(one, ARNN_START, ARNN_SPAN), 1) for _ in range(20)]
-    print(f"[time] arnn engine bf16 batch {ARNN_BATCH} x {ARNN_BARS} bars, span {ARNN_SPAN}: "
-          f"{t_big:.2f} ms per call, {ARNN_BATCH * ARNN_SPAN / (t_big / 1e3):.1f} "
+    route = _route_name(engine)
+    print(f"[time] arnn engine bf16 ({route}) batch {ARNN_BATCH} x {ARNN_BARS} bars, span "
+          f"{ARNN_SPAN}: {t_big:.2f} ms per call, {ARNN_BATCH * ARNN_SPAN / (t_big / 1e3):.1f} "
           f"span-measures/s | {card}", flush=True)
-    print(f"[time] arnn engine bf16 batch 1: p50 {np.median(lat):.2f} ms (p90 "
+    print(f"[time] arnn engine bf16 ({route}) batch 1: p50 {np.median(lat):.2f} ms (p90 "
           f"{np.percentile(lat, 90):.2f} ms) | {card}", flush=True)
     for label, tokens, wall in ((f"batch {ARNN_BATCH}", big, t_big),
                                 ("batch 1", one, float(np.median(lat)))):
-        _profile_line(f"arnn bf16 {label}", lambda: engine.inpaint(tokens, ARNN_START, ARNN_SPAN),
-                      wall, card)
+        _profile_line(f"arnn bf16 ({route}) {label}",
+                      lambda: engine.inpaint(tokens, ARNN_START, ARNN_SPAN), wall, card)
     return engine, launches
 
 
@@ -2597,12 +2621,13 @@ def _eager_gru_steps(fn, width=None):
 
 def _route_calls(engine, requests, impl: str, auto_reg: bool):
     """Each request once under the GRU route ``impl``, checked, with its K8
-    launches and eager GRU steps asserted. -> {label: response}"""
+    launches and eager GRU steps asserted, on the engine's eager route (a
+    graph replay runs no Python GRU step to count). -> {label: response}"""
     from inpaintnet_tpu_torch.ops.gru import gru_impl_scope
     from inpaintnet_tpu_torch.ops.gru_kernel import gru_layer_stream
 
     outs = {}
-    with gru_impl_scope(impl):
+    with gru_impl_scope(impl), _route(engine, False):
         for label, tokens, start, num in requests:
             before = gru_layer_stream.launches
             out, steps = _eager_gru_steps(lambda: engine.inpaint(tokens, start, num, seed=5))
@@ -2638,16 +2663,17 @@ def phase_gru_routes(engine, card: str) -> None:
             walls[impl][0].append(cuda_ms(lambda: engine.inpaint(*big, seed=5), 3))
             walls[impl][1].extend(cuda_ms(lambda: engine.inpaint(*one, seed=5), 1)
                                   for _ in range(10))
+    route = _route_name(engine)
     for impl, (w_big, w_one) in walls.items():
         t_big, p50 = float(np.median(w_big)), float(np.median(w_one))
-        print(f"[time] engine bf16 GRU route {impl}: batch {BATCH} 6/4/6 {t_big:.2f} ms per call, "
-              f"{BATCH * N_TARGET / (t_big / 1e3):.1f} measures/s; batch 1 p50 {p50:.2f} ms "
-              f"(p90 {np.percentile(w_one, 90):.2f} ms) | {card}", flush=True)
+        print(f"[time] engine bf16 GRU route {impl} ({route}): batch {BATCH} 6/4/6 {t_big:.2f} "
+              f"ms per call, {BATCH * N_TARGET / (t_big / 1e3):.1f} measures/s; batch 1 p50 "
+              f"{p50:.2f} ms (p90 {np.percentile(w_one, 90):.2f} ms) | {card}", flush=True)
         with gru_impl_scope(impl):
-            _profile_line(f"engine bf16 {impl} batch {BATCH}",
+            _profile_line(f"engine bf16 {impl} ({route}) batch {BATCH}",
                           lambda: engine.inpaint(*big, seed=5), t_big, card, top=6)
-            _profile_line(f"engine bf16 {impl} batch 1", lambda: engine.inpaint(*one, seed=5),
-                          p50, card, top=6)
+            _profile_line(f"engine bf16 {impl} ({route}) batch 1",
+                          lambda: engine.inpaint(*one, seed=5), p50, card, top=6)
 
 
 def phase_autoreg_reference(card: str) -> None:
@@ -2744,13 +2770,15 @@ def phase_autoreg_engine(card: str):
         big, one = requests[2][1:], requests[0][1:]
         t_big = cuda_ms(lambda: engine.inpaint(*big, seed=5), 3)
         lat = [cuda_ms(lambda: engine.inpaint(*one, seed=5), 1) for _ in range(20)]
-        print(f"[time] autoreg engine bf16 pallas batch {BATCH} 6/4/6: {t_big:.2f} ms per call, "
-              f"{BATCH * N_TARGET / (t_big / 1e3):.1f} measures/s | {card}", flush=True)
-        print(f"[time] autoreg engine bf16 pallas batch 1 2-measure: p50 {np.median(lat):.2f} ms "
-              f"(p90 {np.percentile(lat, 90):.2f} ms) | {card}", flush=True)
-        _profile_line(f"autoreg bf16 batch {BATCH}", lambda: engine.inpaint(*big, seed=5),
-                      t_big, card)
-        _profile_line("autoreg bf16 batch 1", lambda: engine.inpaint(*one, seed=5),
+        route = _route_name(engine)
+        print(f"[time] autoreg engine bf16 pallas ({route}) batch {BATCH} 6/4/6: {t_big:.2f} ms "
+              f"per call, {BATCH * N_TARGET / (t_big / 1e3):.1f} measures/s | {card}", flush=True)
+        print(f"[time] autoreg engine bf16 pallas ({route}) batch 1 2-measure: p50 "
+              f"{np.median(lat):.2f} ms (p90 {np.percentile(lat, 90):.2f} ms) | {card}",
+              flush=True)
+        _profile_line(f"autoreg bf16 ({route}) batch {BATCH}",
+                      lambda: engine.inpaint(*big, seed=5), t_big, card)
+        _profile_line(f"autoreg bf16 ({route}) batch 1", lambda: engine.inpaint(*one, seed=5),
                       float(np.median(lat)), card)
         _plan_device_ms(engine, {f"batch {BATCH}": big, "batch 1": one}, card)
     return engine, launches
@@ -2772,8 +2800,9 @@ def _plan_device_ms(engine, requests: dict, card: str) -> None:
     """K8's and K2's device time in one call of each request
     (``torch.profiler``) with their launch plans, and with each shape's
     neighbours: half and twice the plan's cluster size where the width
-    allows, in turns (plan, half, twice, twice, half, plan). The plans held
-    on the call's own launch mix, within one run."""
+    allows, in turns (plan, half, twice, twice, half, plan), on the eager
+    route (a replay keeps the plans of its capture). The plans held on the
+    call's own launch mix, within one run."""
     from inpaintnet_tpu_torch.ops import decode_kernel as dk
     from inpaintnet_tpu_torch.ops import gru_kernel as lk
 
@@ -2786,7 +2815,8 @@ def _plan_device_ms(engine, requests: dict, card: str) -> None:
             for m in (lk, dk):
                 m.launch_plan = _neighbour_plan(real[m], arms[arm])
             try:
-                rows = _profile_step(lambda: engine.inpaint(*req, seed=5))[2]
+                with _route(engine, False):
+                    rows = _profile_step(lambda: engine.inpaint(*req, seed=5))[2]
             finally:
                 for m in (lk, dk):
                     m.launch_plan = real[m]
@@ -4187,6 +4217,251 @@ def _same_launches(got, want, kernels, label: str) -> None:
             raise RuntimeError(f"{label}: {k} launched {got[k]} times, one process {want[k]}")
 
 
+# Phase 23: the engines' CUDA-graph route against their eager route
+GRAPH_BUCKETS = (1, 8, BATCH)
+GRAPH_MESH_BUCKETS = (2, 8, BATCH)  # a mesh of two shards takes even buckets only
+GRAPH_ARNN_BUCKETS = (1, ARNN_BATCH)
+# the hand-written kernels' names (csrc/*.cu, *.cuh), as a trace names them
+OWN_KERNELS = ("encoder_rec_kernel", "encoder_xw_gemm_kernel", "encoder_xw_gemm_split_kernel",
+               "decode_kernel", "decode_f32_kernel", "decode_i8_kernel", "gru_layer_kernel",
+               "gru_fwd_kernel", "gru_bwd_kernel", "arnn_kernel", "arnn_f32_kernel",
+               "arnn_decode_kernel")
+
+
+@contextlib.contextmanager
+def _route(engine, graphs: bool):
+    """The engine on the graph route (``graphs``) or the eager one inside
+    the block; its own route after."""
+    old = engine.graphs
+    engine.graphs = graphs
+    try:
+        yield
+    finally:
+        engine.graphs = old
+
+
+def _route_name(engine) -> str:
+    return "graphs" if engine.graphs else "eager"
+
+
+def _own_kernels(call) -> dict:
+    """{hand-written kernel: launches} in a ``torch.profiler`` trace of one
+    ``call()``: the function name of each device row whose name is one of
+    ``OWN_KERNELS`` (``decode_kernel`` is not ``arnn_decode_kernel``)."""
+    import re
+
+    got = {}
+    for name, _, count in _profile_step(call)[2]:
+        m = re.search(r"\b(\w+_kernel)\b", name)
+        if m and m.group(1) in OWN_KERNELS:
+            got[m.group(1)] = got.get(m.group(1), 0) + count
+    return got
+
+
+def _same_tokens(a, b) -> bool:
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_same_tokens(x, y) for x, y in zip(a, b))
+    return a.shape == b.shape and np.array_equal(a, b)
+
+
+def _check_routes(engine, label: str, calls, totals: dict) -> None:
+    """Each (name, call) on the eager route, then on the graph route twice
+    (the key's capture, then a replay): the replay's tokens bit-equal to
+    the eager call's and its launches by wrapper equal to the eager call's;
+    the replay's launches added to ``totals``."""
+    for name, call in calls:
+        with _route(engine, False):
+            eager, n_eager = _counted(call)
+        with _route(engine, True):
+            call()
+            graph, n_graph = _counted(call)
+        if not _same_tokens(graph, eager):
+            raise RuntimeError(f"{label} {name}: the graph route's tokens differ from the eager "
+                               "route's")
+        if n_graph != n_eager:
+            raise RuntimeError(f"{label} {name}: a replay launched {n_graph}, the eager call "
+                               f"{n_eager}")
+        for k, n in n_graph.items():
+            totals[k] = totals.get(k, 0) + n
+    print(f"[graphs] {label}: {len(calls)} calls, the graph route's tokens and launches equal "
+          "the eager route's", flush=True)
+
+
+def _latent_graph_calls(engine, rng, buckets) -> tuple:
+    """Every method at each bucket (a batch of the bucket's rows, 6/4/6),
+    and ``interpolate`` unless the model is autoregressive. -> (calls, the
+    largest bucket's request, the first bucket's)"""
+    calls, requests = [], {}
+    for b in buckets:
+        tokens, start, num = _request(rng, b, N_PAST, N_TARGET, N_FUTURE)
+        requests[b] = (tokens, start, num)
+        hetero = [{"tokens": tokens, "start_measure": start, "num_measures": num, "seed": 11}]
+        calls += [
+            (f"inpaint batch {b}", lambda t=tokens, s=start, n=num: engine.inpaint(t, s, n,
+                                                                                 seed=11)),
+            (f"inpaint_hetero batch {b}", lambda h=hetero: engine.inpaint_hetero(h)),
+            (f"inpaint_variations batch {b} x 2",
+             lambda t=tokens, s=start, n=num: engine.inpaint_variations(t, s, n, 2, seed=11)),
+        ]
+    if not engine.model.auto_reg:
+        a, z = requests[buckets[0]][0][0, 0], requests[buckets[-1]][0][-1, -1]
+        calls.append(("interpolate 8 points", lambda: engine.interpolate(a, z, 8)))
+    return calls, requests[buckets[-1]], requests[buckets[0]]
+
+
+def _graph_times(engine, label: str, big, one, rows: int, span: int, units: str,
+                 card: str) -> None:
+    """The batch-``rows`` wall and rate (``span`` ``units`` a row) and the
+    batch-1 p50 / p90 on both routes, in turns (eager, graphs, graphs,
+    eager); a profile of the graph route's batch-1 call and big one (a
+    trace of an eager ARNN call's ~25,000 launches takes many seconds)."""
+    walls = {False: [], True: []}
+    lats = {False: [], True: []}
+    for graphs in (False, True, True, False):
+        with _route(engine, graphs):
+            walls[graphs].append(cuda_ms(big, 2))
+            lats[graphs].extend(cuda_ms(one, 1) for _ in range(6))
+    for graphs in (False, True):
+        wall, lat = float(np.median(walls[graphs])), lats[graphs]
+        route = "graphs" if graphs else "eager"
+        print(f"[time] graphs {label} {route}: batch {rows} {wall:.2f} ms per call, "
+              f"{rows * span / (wall / 1e3):.1f} {units}/s; batch 1 p50 {np.median(lat):.2f} "
+              f"ms (p90 {np.percentile(lat, 90):.2f} ms) | {card}", flush=True)
+        if graphs:
+            _profile_line(f"graphs {label} {route} batch 1", one, float(np.median(lat)), card,
+                          top=4)
+            _profile_line(f"graphs {label} {route} batch {rows}", big, wall, card, top=4)
+
+
+def _graph_keys_line(engine, label: str, card: str) -> None:
+    graphs = engine._graphs
+    caps = [graphs[k].capture_s for k in graphs.keys()]
+    warms = [graphs[k].warm_s for k in graphs.keys()]
+    print(f"[graphs] {label}: {len(caps)} keys captured, capture {np.median(caps):.3f} s a key "
+          f"(max {max(caps):.3f} s; the eager run before it {np.median(warms):.3f} s, max "
+          f"{max(warms):.3f} s); the graphs hold {graphs.held_bytes() / 2**30:.3f} GiB | {card}",
+          flush=True)
+
+
+def phase_graphs(model, arnn, card: str) -> dict:
+    """Phase 23. -> {kernel wrapper: launches of the graph route's replays}"""
+    from inpaintnet_tpu_torch.graphs import GraphCaptureError, GraphSet
+    from inpaintnet_tpu_torch.models.presets import build_flagship
+    from inpaintnet_tpu_torch.ops.gru import gru_impl_scope
+    from inpaintnet_tpu_torch.parallel.mesh import make_mesh
+    from inpaintnet_tpu_torch.serve import InpaintingEngine
+    from inpaintnet_tpu_torch.serve_arnn import ARNNServingEngine
+
+    t0 = time.perf_counter()
+    try:
+        InpaintingEngine(model, dtype="bfloat16", device="cpu", graphs=True)
+    except ValueError as e:
+        print(f"[graphs] graphs=True on a CPU engine raises: {e}", flush=True)
+    else:
+        raise RuntimeError("graphs=True on a CPU engine did not raise")
+    x = torch.ones(8, device="cuda")
+
+    def synced(x, *, generator=None):
+        if torch.cuda.is_current_stream_capturing():
+            x.sum().item()  # the planted host synchronisation
+        return x * 2
+    try:
+        GraphSet().call(("planted host sync",), torch.device("cuda"), synced, (x,))
+    except GraphCaptureError as e:
+        print(f"[graphs] a planted host sync inside a capture raises: {str(e)[:160]}",
+              flush=True)
+    else:
+        raise RuntimeError("a host sync inside a capture did not raise")
+
+    totals = {}
+    _, _, ar_model = build_flagship(seed=0, device="cuda", auto_reg=True)
+    configs = [("bf16 xla", model, "bfloat16", "xla", None),
+               ("bf16 pallas", model, "bfloat16", "pallas", None),
+               ("int8", model, "int8", "xla", None),
+               ("f32 pallas", model, "float32", "pallas", None),
+               ("autoregressive bf16 pallas", ar_model, "bfloat16", "pallas", None),
+               ("mesh bf16 (the card twice)", model, "bfloat16", "xla",
+                make_mesh(devices=["cuda", "cuda"]))]
+    for label, m, dtype, impl, mesh in configs:
+        t_engine = time.perf_counter()
+        buckets = GRAPH_BUCKETS if mesh is None else GRAPH_MESH_BUCKETS
+        engine = InpaintingEngine(m, batch_buckets=buckets, dtype=dtype, mesh=mesh,
+                                  device=None if mesh is not None else "cuda")
+        with gru_impl_scope(impl):
+            calls, big, one = _latent_graph_calls(engine, np.random.default_rng(23), buckets)
+            _check_routes(engine, label, calls, totals)
+            big_call = lambda: engine.inpaint(*big, seed=5)  # noqa: E731
+            one_call = lambda: engine.inpaint(*one, seed=5)  # noqa: E731
+            kernels = {}
+            for graphs in (False, True):
+                with _route(engine, graphs):
+                    kernels[graphs] = _own_kernels(one_call)
+            print(f"[graphs] {label}: the profiler names the same hand-written kernels in one "
+                  f"replay as in one eager call: {kernels[True] == kernels[False]} "
+                  f"{kernels[True]}", flush=True)
+            if kernels[True] != kernels[False] or not kernels[True]:
+                raise RuntimeError(f"{label}: a replay's hand-written kernels {kernels[True]} "
+                                   f"differ from the eager call's {kernels[False]}")
+            if mesh is None:  # shards sharing one card time nothing of a mesh
+                _graph_times(engine, label, big_call, one_call, big[0].shape[0], N_TARGET,
+                             "measures", card)
+        _graph_keys_line(engine, label, card)
+        print(f"[graphs] {label}: {time.perf_counter() - t_engine:.1f} s", flush=True)
+        del engine
+        torch.cuda.empty_cache()
+    del ar_model
+
+    t_engine = time.perf_counter()
+    engine = ARNNServingEngine(arnn, batch_buckets=GRAPH_ARNN_BUCKETS, dtype="bfloat16",
+                               device="cuda")
+    rng = np.random.default_rng(24)
+    calls, reqs = [], {}
+    for b in GRAPH_ARNN_BUCKETS:
+        tokens = _arnn_request(rng, b, ARNN_BARS)
+        reqs[b] = tokens
+        # full-length rows and rows two measures short (the tick mask)
+        mixed = [r for r in (
+            {"tokens": tokens[:b // 2], "start_measure": ARNN_START,
+             "num_measures": ARNN_SPAN, "temperature": 1.5, "seed": 3},
+            {"tokens": tokens[b // 2:, :ARNN_BARS - 2], "start_measure": 2,
+             "num_measures": 3, "temperature": 0.8}) if len(r["tokens"])]
+        calls += [
+            (f"argmax batch {b}", lambda t=tokens: engine.inpaint(t, ARNN_START, ARNN_SPAN)),
+            (f"sampled batch {b}", lambda t=tokens: engine.inpaint(
+                t, ARNN_START, ARNN_SPAN, seed=3, temperature=1.5)),
+            (f"inpaint_hetero sampled batch {b}, short rows",
+             lambda r=mixed: engine.inpaint_hetero(r)),
+        ]
+    label = "arnn bf16"
+    _check_routes(engine, label, calls, totals)
+    big, one = reqs[ARNN_BATCH], reqs[1]
+    for kind, temp in (("argmax", None), ("sampled", 1.5)):
+        kw = {} if temp is None else {"seed": 3, "temperature": temp}
+        big_call = lambda kw=kw: engine.inpaint(big, ARNN_START, ARNN_SPAN, **kw)  # noqa
+        one_call = lambda kw=kw: engine.inpaint(one, ARNN_START, ARNN_SPAN, **kw)  # noqa
+        if temp is None:  # the sampled decode is an eager loop: no hand-written kernel
+            kernels = {}
+            for graphs in (False, True):
+                with _route(engine, graphs):
+                    kernels[graphs] = _own_kernels(one_call)
+            print(f"[graphs] {label} {kind}: the profiler names the same hand-written kernels "
+                  f"in one replay as in one eager call: {kernels[True] == kernels[False]} "
+                  f"{kernels[True]}", flush=True)
+            if kernels[True] != kernels[False] or not kernels[True]:
+                raise RuntimeError(f"{label} {kind}: a replay's hand-written kernels "
+                                   f"{kernels[True]} differ from the eager call's "
+                                   f"{kernels[False]}")
+        _graph_times(engine, f"{label} {kind}", big_call, one_call, ARNN_BATCH, ARNN_SPAN,
+                     "span-measures", card)
+    _graph_keys_line(engine, label, card)
+    print(f"[graphs] {label}: {time.perf_counter() - t_engine:.1f} s", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    print(f"[graphs] phase 23: {time.perf_counter() - t0:.1f} s; replays' launches {totals} | "
+          f"{card}", flush=True)
+    return totals
+
+
 def main() -> int:
     cli = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     cli.add_argument("--parent", metavar="DIR",
@@ -4224,6 +4499,9 @@ def main() -> int:
     launches_ar_http = phase_autoreg_http(ar_engine, card)
     del ar_engine
     torch.cuda.empty_cache()
+    launches_graphs = phase_graphs(model, arnn, card)
+    del arnn
+    torch.cuda.empty_cache()
     phase_train_reference(card)
     launches_train = phase_trainer(card)
     phase_latent_train_reference(card)
@@ -4256,6 +4534,7 @@ def main() -> int:
                 "latent_train_launches": launches_latent.get(name, 0),
                 "arnn_train_launches": launches_arnn_train.get(name, 0),
                 "eval_launches": launches_eval.get(name, 0),
+                "graph_launches": launches_graphs.get(name, 0),
                 **({"tp_launches": launches_tp[name]} if name in launches_tp else {})}
                for name, (src, replaces, runs) in sources.items()]
     # K1's training mode (phase 21): its launches in the VAE steps under the

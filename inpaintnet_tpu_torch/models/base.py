@@ -100,13 +100,19 @@ def load_jax_checkpoint(path: str) -> dict:
         return unflatten_params({k: z[k] for k in z.files})
 
 
-def cast_params(tree, device, dtype: torch.dtype):
+def cast_params(tree, device, dtype: torch.dtype, copy: bool = False):
     """Nested parameters (dicts and lists of tensors) as contiguous
-    ``dtype`` tensors on ``device`` (the JAX package's ``cast_pytree``)."""
+    ``dtype`` tensors on ``device`` (the JAX package's ``cast_pytree``).
+    A leaf already of that device, dtype and layout is returned as it is,
+    unless ``copy``: then every leaf is a detached tensor of its own, which
+    no later update of ``tree`` reaches (the serving engines' weights)."""
     if isinstance(tree, dict):
-        return {k: cast_params(v, device, dtype) for k, v in tree.items()}
+        return {k: cast_params(v, device, dtype, copy) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [cast_params(v, device, dtype) for v in tree]
+        return [cast_params(v, device, dtype, copy) for v in tree]
+    if copy:
+        return tree.detach().to(device=device, dtype=dtype, memory_format=torch.contiguous_format,
+                                copy=True)
     return tree.to(device=device, dtype=dtype).contiguous()
 
 

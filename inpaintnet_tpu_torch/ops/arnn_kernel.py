@@ -63,14 +63,15 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     WeightCache,
     check_cuda_tensor,
     check_launch,
+    counts_launches,
     kernel_supports_hidden,
     least_cost_cluster,
     load_kernels,
     lstm_gates_f32,
     pack_mma_b,
     round_up,
-    split_blocks,
     split_bf16_pieces,
+    split_blocks,
     stream_ptr,
 )
 
@@ -664,6 +665,7 @@ def _decode_tiled(params, ctx, score, force_mask, start_emb, shape):
     return logits, tokens
 
 
+@counts_launches  # proves a run went through K7
 def arnn_sampled_decode(params, ctx: torch.Tensor, score: torch.Tensor,
                         force_mask: torch.Tensor, start_emb: torch.Tensor):
     """K7: the argmax decode with forced ticks over the whole sequence.
@@ -684,9 +686,6 @@ def arnn_sampled_decode(params, ctx: torch.Tensor, score: torch.Tensor,
     out = route(params, ctx, score, force_mask, start_emb, shape)
     arnn_sampled_decode.launches += 1
     return out
-
-
-arnn_sampled_decode.launches = 0  # kernel launches, for proving a run went through K7
 
 
 def decode_agreement(got, want, force_mask: torch.Tensor, early_ticks: int = 8) -> dict:

@@ -56,6 +56,7 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     check_cuda_tensor,
     check_launch,
     cluster_sizes,
+    counts_launches,
     gru_gates_f32,
     kernel_supports_hidden,
     least_cost_cluster,
@@ -409,6 +410,7 @@ def _build_decode_operands(w_hh0, w_ih1, w_hh1, head_w, b_hh0, b_ih1, b_hh1, hea
 decode_operands = WeightCache(_build_decode_operands)
 
 
+@counts_launches  # proves a run went through K2
 def decode_sampling(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
     """K2: argmax decode of one measure per row.
 
@@ -457,9 +459,6 @@ def decode_sampling(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
     return logits, samples
 
 
-decode_sampling.launches = 0  # kernel launches, for proving a run went through K2
-
-
 # --------------------------------------------------------------------------- #
 # K4: the int8 twin of K2
 # --------------------------------------------------------------------------- #
@@ -494,8 +493,9 @@ def decode_int8_data(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor) -> d
     """K4's data part, built on every call (see :func:`decode_int8_operands`):
     ``q``, ``hi0``, ``hi1`` and ``ctx_xw``."""
     bound = torch.clamp_min(h_inits.float().abs().amax(dim=(0, 2, 3)), 1.0)
-    # a true division: ``127.0 / bound`` would be ``reciprocal(bound) * 127``
-    q = torch.div(bound.new_tensor(127.0), bound)
+    # a true division: ``127.0 / bound`` would be ``reciprocal(bound) * 127``;
+    # the numerator made on the device (a host tensor's copy would not capture)
+    q = torch.div(torch.full_like(bound, 127.0), bound)
     return {"q": q, "ctx_xw": _ctx_xw(params, tick_ctx),
             "hi0": quantize_h_int8(h_inits[0], q[:, None, None]).transpose(0, 1).contiguous(),
             "hi1": quantize_h_int8(h_inits[1], q[:, None, None]).transpose(0, 1).contiguous()}
@@ -606,6 +606,7 @@ def decode_sampling_int8_reference(params, tick_ctx: torch.Tensor, h_inits: torc
     return torch.stack(logits, dim=1), torch.stack(samples, dim=1).to(torch.int32)
 
 
+@counts_launches  # proves a run went through K4
 def decode_sampling_int8(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
     """K4: ``decode_sampling`` with int8 products (``csrc/decode_sampling_int8.cu``,
     the Hopper design of ``csrc/decode_hopper.cuh`` on s8 ``wgmma``; it
@@ -637,6 +638,3 @@ def decode_sampling_int8(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
     check_launch(err, "decode_sampling_int8")
     decode_sampling_int8.launches += 1
     return logits, samples
-
-
-decode_sampling_int8.launches = 0  # kernel launches, for proving a run went through K4

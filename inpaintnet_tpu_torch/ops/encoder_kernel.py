@@ -56,6 +56,7 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     WeightCache,
     check_cuda_tensor,
     check_launch,
+    counts_launches,
     gru_gates_f32,
     kernel_supports_hidden,
     load_kernels,
@@ -382,6 +383,7 @@ def _check_keep(keep, rate: float, batch: int, seq_len: int, hidden: int, device
     return keep.view(torch.uint8)
 
 
+@counts_launches  # proves a run went through K1
 def encoder_hn(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
                max_chunk_rows=None, keep=None, rate: float = 0.0) -> torch.Tensor:
     """K1: h_n (4, B, H) of the 2-layer bidirectional GRU over
@@ -461,9 +463,6 @@ def encoder_hn(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
     _encode_chunks(rec, gemm, batch, seq_len, chunk, *scratch)
     encoder_hn.launches += 1
     return h_n
-
-
-encoder_hn.launches = 0  # wrapper calls on the card, for proving a run went through K1
 
 
 # --------------------------------------------------------------------------- #
@@ -620,6 +619,7 @@ def input_projection_int8(ys_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor
     return out
 
 
+@counts_launches  # proves a run went through K3
 def encoder_hn_int8(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
                     max_chunk_rows=None) -> torch.Tensor:
     """K3: ``encoder_hn`` with int8 products (``csrc/encoder_gru_int8.cu``;
@@ -663,6 +663,3 @@ def encoder_hn_int8(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
                    *_scratch(chunk, seq_len, hidden, torch.int8, torch.int32, device))
     encoder_hn_int8.launches += 1
     return h_n
-
-
-encoder_hn_int8.launches = 0  # wrapper calls on the card, for proving a run went through K3

@@ -55,6 +55,7 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     WeightCache,
     check_cuda_tensor,
     check_launch,
+    counts_launches,
     gru_gates_f32,
     gru_layer_supports_hidden,
     load_kernels,
@@ -172,6 +173,7 @@ def _build_layer_operands(w_hh: torch.Tensor):
 layer_operands = WeightCache(_build_layer_operands)
 
 
+@counts_launches  # proves a run went through K8
 def gru_layer_stream(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                      h0: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
                      reverse: bool = False, want_ys: bool = True):
@@ -220,9 +222,6 @@ def gru_layer_stream(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     check_launch(err, "gru_layer_stream")
     gru_layer_stream.launches += 1
     return ys, hn
-
-
-gru_layer_stream.launches = 0  # kernel launches, for proving a run went through K8
 
 
 BF16_ULP_OF_H = 2.0 ** -8  # the bf16 ulp of |h| in [0.5, 1), the scale of a GRU state

@@ -46,6 +46,7 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     WeightCache,
     check_cuda_tensor,
     check_launch,
+    counts_launches,
     kernel_supports_hidden,
     load_kernels,
     split_bf16_pieces,
@@ -162,6 +163,7 @@ def _check_common(name: str, w_hh: torch.Tensor, device: torch.device, dtype: to
     return hidden
 
 
+@counts_launches  # proves a run went through K5
 def gru_fwd_seq(w_hh: torch.Tensor, b_hh: torch.Tensor, xw: torch.Tensor, h0: torch.Tensor,
                 *, reverse: bool = False):
     """K5: arguments and result as :func:`gru_fwd_seq_reference`."""
@@ -189,9 +191,6 @@ def gru_fwd_seq(w_hh: torch.Tensor, b_hh: torch.Tensor, xw: torch.Tensor, h0: to
     check_launch(err, "gru_fwd_seq")
     gru_fwd_seq.launches += 1
     return tuple(out.unbind(0))
-
-
-gru_fwd_seq.launches = 0  # kernel launches, for proving a run went through K5
 
 
 # --------------------------------------------------------------------------- #
@@ -372,6 +371,7 @@ def bwd_w_map(ops: dict, hidden: int, units: int) -> int:
     return ops["maps"][units][1]
 
 
+@counts_launches  # proves a run went through K6
 def gru_bwd_seq(w_hh: torch.Tensor, dys: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
                 n: torch.Tensor, hn: torch.Tensor, hprev: torch.Tensor, *,
                 reverse: bool = False):
@@ -401,6 +401,3 @@ def gru_bwd_seq(w_hh: torch.Tensor, dys: torch.Tensor, r: torch.Tensor, z: torch
     check_launch(err, "gru_bwd_seq")
     gru_bwd_seq.launches += 1
     return da, dhw, dh0
-
-
-gru_bwd_seq.launches = 0  # kernel launches, for proving a run went through K6

@@ -24,6 +24,8 @@
   their packed weights (``slab_map``, bf16 or int8), and ``WeightCache``,
   which builds such per-weight operands once per weight tensor.
 - ``check_cuda_tensor``: the wrappers' argument checks.
+- ``counts_launches``: the wrappers' ``launches`` counters
+  (``LAUNCH_COUNTERS``), which ``graphs.py``'s replays add to as well.
 - ``kernel_with_eager_grad``: a kernel route made differentiable by its
   eager twin (``inpaintnet_tpu/ops/pallas_common.py kernel_with_xla_grad``):
   the kernel computes the forward, the backward re-runs the eager twin on
@@ -296,7 +298,12 @@ class WeightCache:
     ``build(*weights)``, rebuilt when any weight is another tensor (weak
     references, not reused ids) or was updated in place (its ``_version``
     moved). Inference tensors count no versions, so they are rebuilt every
-    call."""
+    call.
+
+    A build inside a CUDA graph capture raises: its operands would be
+    computed only when the graph replays, and an eager call that hit them
+    before that would read memory nothing has written (``graphs.py`` runs
+    each call once outside the capture first)."""
 
     def __init__(self, build):
         self._build = build
@@ -309,6 +316,10 @@ class WeightCache:
         if (hit is not None and None not in stamp and hit[1] == stamp
                 and all(ref() is w for ref, w in zip(hit[0], weights))):
             return hit[2]
+        if weights[0].is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{getattr(self._build, '__name__', 'WeightCache')}: weight "
+                               "operands built inside a CUDA graph capture; run the call once "
+                               "before capturing it")
         ops = self._build(*weights)
         self._entries = {k: v for k, v in self._entries.items()
                          if all(ref() is not None for ref in v[0])}
@@ -458,6 +469,21 @@ def check_launch(err: int, name: str) -> None:
 
 def stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+# The kernel wrappers whose ``launches`` counters prove a run went through
+# their kernels (:func:`counts_launches`)
+LAUNCH_COUNTERS: list = []
+
+
+def counts_launches(wrapper):
+    """Give a kernel wrapper its ``launches`` counter, 0 at import: the
+    wrapper adds one where it launches its kernel on the card (never on the
+    CPU), and a CUDA graph replay adds the launches its capture counted
+    (``graphs.py``). The wrapper is registered in ``LAUNCH_COUNTERS``."""
+    wrapper.launches = 0
+    LAUNCH_COUNTERS.append(wrapper)
+    return wrapper
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, shape, dtype, device) -> None:

@@ -32,23 +32,31 @@ the engine without a mesh; the batch-seed paths (``inpaint``,
 (``parallel.mesh.fold_seed``), as the JAX package folds the data index
 into the key.
 
-Not ported yet: CUDA-graph buckets.
+On the card each fixed-shape call runs as a captured CUDA graph
+(``graphs.py``), the counterpart of the JAX engine's one compiled program
+per bucket: one graph per (method, bucket, GRU route, shard), where the
+methods are ``inpaint`` (batch seed), ``inpaint_hetero`` (per-row keys),
+``inpaint_variations``' encode and generate (JAX's ``enc_dists`` /
+``gen_dists``) and ``interpolate`` (JAX's ``interp``, one graph a route).
+A key's first call runs eagerly and captures it; later calls replay it,
+with the tokens of the eager route bit for bit (the same function, the
+batch seed's generator registered with the graph and seeded as the eager
+route seeds its own). ``graphs=False`` keeps the eager route on the card;
+the CPU has only that route. The engine holds its own copy of the weights
+(a graph bakes in their addresses), and a lock from copy-in to copy-out
+(the graphs' static buffers are shared by every call of a key).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from inpaintnet_tpu_torch.graphs import GraphRouted
 from inpaintnet_tpu_torch.models.base import cast_params
-from inpaintnet_tpu_torch.parallel.mesh import (
-    Mesh,
-    batch_sharding,
-    fold_seed,
-    replicate,
-    shard_batch,
-)
+from inpaintnet_tpu_torch.ops.gru import get_gru_impl
+from inpaintnet_tpu_torch.parallel.mesh import Mesh, batch_sharding, fold_seed, replicate
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 SERVE_DTYPES = (*DTYPES, "int8")
@@ -98,16 +106,17 @@ def derive_row_keys(seed: int, n: int) -> np.ndarray:
                      (h & np.uint64(0xFFFFFFFF)).astype(np.uint32)], axis=1)
 
 
-class InpaintingEngine:
+class InpaintingEngine(GraphRouted):
     # max interpolation points per request: rows pad to one (64, z) decode
     # (the decode is row-independent, so the padding is exact)
     MAX_INTERP = 62
 
     def __init__(self, model, batch_buckets: Sequence[int] = (1, 8, 64, 512),
                  dtype: str = "bfloat16", n_bars: int = 16, device=None, seed: int = 0,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, graphs: Optional[bool] = None):
         """:param model: a ``LatentRNN`` (its parameters are copied, in
-            ``dtype``, to ``device``)
+            ``dtype``, to ``device``: a later update of the model does not
+            reach the engine)
         :param dtype: serving numeric, "float32", "bfloat16", or "int8"
             (bf16 master parameters and the int8 kernels K3/K4)
         :param device: where the engine runs; defaults to the model's device
@@ -115,6 +124,9 @@ class InpaintingEngine:
         :param mesh: optional local mesh: requests are sharded over its
             "data" axis, the weights copied to each data index's device;
             every bucket must divide the data axis
+        :param graphs: replay each fixed-shape call as a CUDA graph
+            (default: on a CUDA device); False keeps the eager route, and
+            True off the card raises ValueError
         """
         if dtype not in SERVE_DTYPES:
             raise ValueError(f"dtype must be one of {sorted(SERVE_DTYPES)}, got {dtype!r}")
@@ -142,11 +154,14 @@ class InpaintingEngine:
         self.seed = seed
         self.device = torch.device(device) if device is not None else next(
             model.parameters()).device
-        self._params = cast_params(model.params(), self.device, param_dtype)
-        self._vae_params = cast_params(model.vae_model.params(), self.device, param_dtype)
-        # the weights of each shard, on its device (one copy a device)
-        self._replicas = ([(self._params, self._vae_params)] if mesh is None else
-                          replicate(mesh, (self._params, self._vae_params)))
+        self._init_graphs(graphs)
+        with torch.inference_mode(False):
+            self._params = cast_params(model.params(), self.device, param_dtype, copy=True)
+            self._vae_params = cast_params(model.vae_model.params(), self.device, param_dtype,
+                                           copy=True)
+            # the weights of each shard, on its device (one copy a device)
+            self._replicas = ([(self._params, self._vae_params)] if mesh is None else
+                              replicate(mesh, (self._params, self._vae_params)))
         # the (method, bucket) keys each serving method has run, for the HTTP
         # server's /healthz; a dict, which list() copies atomically
         self._compiled: Dict[object, bool] = {}
@@ -158,7 +173,8 @@ class InpaintingEngine:
         or the model is autoregressive: its variations are ``inpaint`` and
         ``inpaint_hetero`` calls) and ``inpaint_hetero`` (with
         ``hetero=True``), so the first real request pays neither the kernel
-        build nor first-call set-up."""
+        build nor first-call set-up: on the graph route, each captures its
+        keys under the GRU route in force."""
         for bucket in (buckets if buckets is not None else self.batch_buckets):
             tokens = np.zeros((bucket, self.n_bars, self.msl), np.int32)
             self.inpaint(tokens, start_measure=1, num_measures=1, seed=0)
@@ -216,42 +232,53 @@ class InpaintingEngine:
         tm[rows, :num_measures] = 1
 
     def _shards(self, arrays):
-        """(shard index, its arrays on its device, the device, its weights)
-        of a batch: one shard on the engine's device without a mesh (index
-        None), else one a data index (``shard_batch``)."""
+        """(shard index, its rows of the host ``arrays`` as tensors, the
+        device, its weights) of a batch: one shard on the engine's device
+        without a mesh (index None), else one a data index, which takes rows
+        [i n / D, (i + 1) n / D) (``parallel.mesh.shard_batch``'s split:
+        every bucket divides the data axis)."""
+        arrays = tuple(torch.from_numpy(a) for a in arrays)
         if self.mesh is None:
-            return [(None, tuple(torch.from_numpy(a).to(self.device) for a in arrays),
-                     self.device, self._replicas[0])]
-        return [(i, shard, d, w) for i, (shard, d, w) in enumerate(
-            zip(shard_batch(self.mesh, arrays), batch_sharding(self.mesh).devices(),
-                self._replicas))]
+            return [(None, arrays, self.device, self._replicas[0])]
+        devices = batch_sharding(self.mesh).devices()
+        per = arrays[0].shape[0] // len(devices)
+        return [(i, tuple(a[i * per:(i + 1) * per] for a in arrays), d, w)
+                for i, (d, w) in enumerate(zip(devices, self._replicas))]
 
-    def _run(self, arrays, seed: Optional[int] = None,
+    def _sample_fn(self, params, vae_params) -> Callable:
+        """``(past, pm, future, fm, tm[, row_keys], generator=) -> samples``
+        of one shard: the model's inference pass, its draws from per-row
+        keys where the call gives them, else from the generator."""
+        def sample(past, pm, future, fm, tm, row_keys=None, *, generator=None):
+            draw = {"row_keys": row_keys} if row_keys is not None else {"generator": generator}
+            return self.model.apply(params, vae_params, past, future, None, past_mask=pm,
+                                    future_mask=fm, target_mask=tm, quant=self._quant,
+                                    **draw)[1]
+        return sample
+
+    def _run(self, arrays, bucket: int, seed: Optional[int] = None,
              row_keys: Optional[np.ndarray] = None) -> np.ndarray:
         """One padded batch through the model -> (bucket, max_target, msl)
-        samples on the host, each shard on its device. The draws: a batch
-        ``seed`` (a generator; a shard's folds in its index), or per-row
-        ``row_keys`` (B, 2), which shard with their rows."""
+        samples on the host, each shard on its device (the graph key
+        ``("inpaint" | "hetero", bucket, GRU route, shard)``). The draws: a
+        batch ``seed`` (a generator; a shard's folds in its index), or
+        per-row ``row_keys`` (B, 2), which shard with their rows."""
         outs = []
         keys = () if row_keys is None else (row_keys,)
-        for i, shard, device, (params, vae_params) in self._shards(tuple(arrays) + keys):
-            past, pm, future, fm, tm = shard[:5]
-            draw = ({"row_keys": shard[5]} if row_keys is not None
-                    else {"generator": self._generator(seed, i, device)})
-            with torch.inference_mode():
-                _, samples, _ = self.model.apply(
-                    params, vae_params, past, future, None, past_mask=pm, future_mask=fm,
-                    target_mask=tm, quant=self._quant, **draw)
+        method, route = ("inpaint" if row_keys is None else "hetero"), get_gru_impl()
+        with self._graphs.lock:
+            for i, shard, device, (params, vae_params) in self._shards(tuple(arrays) + keys):
+                samples = self._call((method, bucket, route, i), device,
+                                     self._sample_fn(params, vae_params), shard,
+                                     None if row_keys is not None else self._shard_seed(seed, i))
                 outs.append(samples.cpu().numpy())
         return np.concatenate(outs)
 
-    def _generator(self, seed: int, shard: Optional[int] = None,
-                   device=None) -> torch.Generator:
-        """The generator of a batch seed (of shard ``shard`` of a mesh:
-        the seed folded with its index)."""
-        device = self.device if device is None else device
-        return torch.Generator(device=device).manual_seed(
-            seed if shard is None else fold_seed(seed, shard))
+    @staticmethod
+    def _shard_seed(seed: int, shard: Optional[int]) -> int:
+        """The generator seed of a batch seed (of shard ``shard`` of a
+        mesh: the seed folded with its index)."""
+        return seed if shard is None else fold_seed(seed, shard)
 
     def _resolve_seed(self, seed: Optional[int]) -> int:
         seed = self.seed if seed is None else seed
@@ -283,7 +310,7 @@ class InpaintingEngine:
             ])
         bucket = pick_bucket(self.batch_buckets, b)
         arrays = self._pack_request(tokens, start_measure, num_measures, bucket)
-        samples = self._run(arrays, seed=seed)
+        samples = self._run(arrays, bucket, seed=seed)
         self._compiled[bucket] = True
         out = tokens.copy()
         out[:, start_measure:start_measure + num_measures] = samples[:b, :num_measures]
@@ -333,7 +360,7 @@ class InpaintingEngine:
             self._fill_rows(arrays, slice(lo, lo + b), tokens, num, m, n_past, n_future)
             row_keys[lo:lo + b] = derive_row_keys(seed, b)
             lo += b
-        samples = self._run(arrays, row_keys=row_keys)
+        samples = self._run(arrays, bucket, row_keys=row_keys)
         self._compiled[("hetero", bucket)] = True
         outs, lo = [], 0
         for tokens, start, num, seed, b, m, n_past, n_future in norm:
@@ -384,17 +411,27 @@ class InpaintingEngine:
         bucket = pick_bucket(self.batch_buckets, b)
         arrays = self._pack_request(tokens, start_measure, num_measures, bucket)
         samples = [[] for _ in range(num_variations)]
-        for shard, (past, pm, future, fm, tm), device, (params, vae_params) in self._shards(
-                arrays):
-            with torch.inference_mode():
-                past_dist, future_dist = self.model.encode_context_dists(
-                    vae_params, past, future, self._quant)
+        model, quant, route = self.model, self._quant, get_gru_impl()
+        with self._graphs.lock:
+            for shard, (past, pm, future, fm, tm), device, (params, vae_params) in self._shards(
+                    arrays):
+                def enc_dists(past, future, *, generator=None, vae_params=vae_params):
+                    (pl, ps), (fl, fs) = model.encode_context_dists(vae_params, past, future,
+                                                                    quant)
+                    return pl, ps, fl, fs
+
+                def gen_dists(pl, ps, fl, fs, pm, fm, tm, *, generator=None, params=params,
+                              vae_params=vae_params):
+                    return model.generate_from_context_dists(
+                        params, vae_params, (pl, ps), (fl, fs), past_mask=pm, future_mask=fm,
+                        target_mask=tm, generator=generator, quant=quant)[1]
+
+                dists = self._call(("enc_dists", bucket, route, shard), device, enc_dists,
+                                   (past, future))
                 for i in range(num_variations):
-                    _, s, _ = self.model.generate_from_context_dists(
-                        params, vae_params, past_dist, future_dist, past_mask=pm,
-                        future_mask=fm, target_mask=tm,
-                        generator=self._generator(chunk_seed(seed, i), shard, device),
-                        quant=self._quant)
+                    s = self._call(("gen_dists", bucket, route, shard), device, gen_dists,
+                                   (*dists, pm, fm, tm),
+                                   self._shard_seed(chunk_seed(seed, i), shard))
                     samples[i].append(s.cpu().numpy())
         outs = []
         for i in range(num_variations):
@@ -425,19 +462,21 @@ class InpaintingEngine:
         # pad to one fixed row count; the pad rows decode and are sliced away
         alphas = np.zeros((self.MAX_INTERP + 2,), np.float32)
         alphas[:n] = np.arange(n, dtype=np.float32) / (n - 1)
-        vae = self.model.vae_model
-        with torch.inference_mode():
-            dist = vae.encoder.apply(self._vae_params["encoder"],
-                                     torch.from_numpy(pair.astype(np.int32)).to(self.device),
-                                     self._quant)
-            a = torch.from_numpy(alphas).to(self.device)[:, None]
+        vae, vae_params, quant = self.model.vae_model, self._vae_params, self._quant
+
+        def interp(pair, alphas, *, generator=None):
+            dist = vae.encoder.apply(vae_params["encoder"], pair, quant)
+            a = alphas[:, None]
             z1, z2 = dist.loc[0].float(), dist.loc[1].float()
             # mixed in f32 as the JAX package's promotion does, then fed to
             # the decoder in the parameter dtype
             zs = (z1[None, :] * (1 - a) + z2[None, :] * a).to(dist.loc.dtype)
-            _, samples = vae.decoder.decode_sampling(self._vae_params["decoder"], zs,
-                                                     self._quant)
-            out = samples.cpu().numpy()
+            return vae.decoder.decode_sampling(vae_params["decoder"], zs, quant)[1]
+
+        with self._graphs.lock:
+            out = self._call(("interp", get_gru_impl()), self.device, interp,
+                             (torch.from_numpy(pair.astype(np.int32)),
+                              torch.from_numpy(alphas))).cpu().numpy()
         self._compiled["interp"] = True
         return out[:n].astype(np.int32)
 

@@ -30,6 +30,16 @@ serves it at ``POST /v1/arnn/inpaint``; it reads ``batch_buckets``,
 ``max_measures``, ``measure_buckets``, ``msl`` and ``model.num_notes``, and
 calls ``length_bucket``, ``inpaint`` and ``inpaint_hetero``. ``_compiled``
 records the (row bucket, measure bucket, sampled) keys run so far.
+
+On the card each call runs as a captured CUDA graph (``graphs.py``), the
+counterpart of the JAX engine's one compiled program per (row bucket,
+measure bucket, decode kind): one graph per (row bucket, measure bucket,
+argmax or sampled, tick mask present or not), the last the host's choice
+of whether any row is shorter than its bucket. The per-row spans, lengths,
+temperatures and keys are its static inputs, so the graph route gives the
+eager route's tokens bit for bit. ``graphs=False`` keeps the eager route
+on the card; the CPU has only that route. The engine holds its own copy of
+the weights and a lock from copy-in to copy-out.
 """
 from __future__ import annotations
 
@@ -38,26 +48,32 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from inpaintnet_tpu_torch.graphs import GraphRouted
 from inpaintnet_tpu_torch.models.base import cast_params
 from inpaintnet_tpu_torch.serve import DTYPES, derive_row_keys, pick_bucket
 
 __all__ = ["ARNNServingEngine"]
 
 
-class ARNNServingEngine:
+class ARNNServingEngine(GraphRouted):
     def __init__(self, model, batch_buckets: Sequence[int] = (1, 8, 64, 512),
                  dtype: str = "bfloat16", measure_seq_len: int = 24, max_measures: int = 16,
-                 seed: int = 0, measure_buckets: Optional[Sequence[int]] = None, device=None):
+                 seed: int = 0, measure_buckets: Optional[Sequence[int]] = None, device=None,
+                 graphs: Optional[bool] = None):
         """:param model: an ``AnticipationRNNBaseline`` or
             ``ConstraintModelGaussianReg`` (its ``dataset`` gives the
             metadata channels; its parameters are copied, in ``dtype``, to
-            ``device``)
+            ``device``: a later update of the model does not reach the
+            engine)
         :param dtype: serving numeric, "float32" or "bfloat16"
         :param max_measures: cap on a request's length in measures: it
             bounds the decode a request can make the engine run
         :param measure_buckets: sequence lengths requests pad to; default
             {4, 8, 12} below ``max_measures``, plus ``max_measures``
         :param device: where the engine runs; defaults to the model's device
+        :param graphs: replay each call as a CUDA graph (default: on a
+            CUDA device); False keeps the eager route, and True off the
+            card raises ValueError
         """
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {dtype!r}")
@@ -73,7 +89,9 @@ class ARNNServingEngine:
         self.seed = seed
         self.device = torch.device(device) if device is not None else next(
             model.parameters()).device
-        self._params = cast_params(model.params(), self.device, DTYPES[dtype])
+        self._init_graphs(graphs)
+        with torch.inference_mode(False):
+            self._params = cast_params(model.params(), self.device, DTYPES[dtype], copy=True)
         # the (row bucket, measure bucket, sampled) keys run so far; a dict,
         # which list() copies atomically
         self._compiled: Dict[object, bool] = {}
@@ -103,7 +121,8 @@ class ARNNServingEngine:
         """Run a dummy request per row bucket (default: all) at the measure
         bucket ``measures`` pads to, argmax and (unless ``sampled=False``)
         sampled, so the first real request pays neither the kernel build nor
-        first-call set-up."""
+        first-call set-up (on the graph route: each captures its key, with
+        no tick mask)."""
         for bucket in (buckets if buckets is not None else self.batch_buckets):
             tokens = np.zeros((bucket, measures, self.msl), np.int32)
             self.inpaint(tokens, start_measure=1, num_measures=1)
@@ -119,26 +138,29 @@ class ARNNServingEngine:
         are built on the device from the per-row (start, num, length) in
         measures; the tick mask is left out when every row is full length
         (it would hold nothing)."""
-        dev, msl = self.device, self.msl
+        dev, msl, model, params = self.device, self.msl, self.model, self._params
         b, total = score.shape
-        with torch.inference_mode():
-            score_t = torch.from_numpy(score.astype(np.int32)).to(dev)
-            starts_t, nums_t, lens_t = (torch.from_numpy(a.astype(np.int64)).to(dev)[:, None]
-                                        for a in (starts, nums, lengths))
+        sampled = temps is not None
+        masked = not (lengths * msl == total).all()
+        md = self._metadata(total)[None].expand(b, -1, -1)
+
+        def decode(score_t, starts_t, nums_t, lens_t, *sampling, generator=None):
             tick = torch.arange(total, device=dev)[None, :]
             loc = ((tick < starts_t * msl) | (tick >= (starts_t + nums_t) * msl)).to(torch.int32)
-            tick_mask = (None if (lengths * msl == total).all()
-                         else (tick < lens_t * msl).to(torch.int32))
-            md = self._metadata(total)[None].expand(b, -1, -1)
-            if temps is None:
-                _, tokens = self.model.apply_inpaint(self._params, score_t, md, loc,
-                                                     tick_mask=tick_mask)
-            else:
-                _, tokens = self.model.generate(
-                    self._params, score_t, md, loc, temperature=torch.from_numpy(temps).to(dev),
-                    row_keys=torch.from_numpy(row_keys.astype(np.int64)).to(dev),
-                    tick_mask=tick_mask)
-            return tokens.cpu().numpy()
+            tick_mask = (tick < lens_t * msl).to(torch.int32) if masked else None
+            if not sampled:
+                return model.apply_inpaint(params, score_t, md, loc, tick_mask=tick_mask)[1]
+            temps_t, keys_t = sampling
+            return model.generate(params, score_t, md, loc, temperature=temps_t, row_keys=keys_t,
+                                  tick_mask=tick_mask)[1]
+
+        inputs = (torch.from_numpy(score.astype(np.int32)),
+                  *(torch.from_numpy(a.astype(np.int64))[:, None] for a in (starts, nums, lengths)))
+        if sampled:
+            inputs += (torch.from_numpy(temps), torch.from_numpy(row_keys.astype(np.int64)))
+        with self._graphs.lock:
+            return self._call((b, total // msl, sampled, masked), dev, decode,
+                              inputs).cpu().numpy()
 
     def inpaint_hetero(self, requests: Sequence[dict], bucket: Optional[int] = None) -> list:
         """Several independent requests in ONE batch (the dynamic-batching
