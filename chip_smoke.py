@@ -4,13 +4,19 @@ one), training (MeasureVAE and LatentRNN), AnticipationRNN, evaluation,
 command-line, data-parallel and tensor-parallel paths once on one NVIDIA
 GPU.
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py [--parent DIR] [--first-port DIR]
 
 ``--parent DIR`` names an earlier checkout of this repository (for example
-``git archive`` of the parent commit, unpacked): its K2 and K8 CUDA
-sources (``PARENT_SOURCES``) are built too, and the K2 f32 and K8 f32
-times are printed beside that checkout's kernels on the same card
-(otherwise "parent not measured").
+``git archive`` of the parent commit, unpacked into a git-ignored
+directory): the flagship's V 60 decode kernels (K2 and K4 at 12,288, 2,048
+and 6 rows, K7 at 512, 64 and 1 rows, both dtypes) are timed through that
+checkout's wrappers and this tree's, each in a process of its own
+(``--kernel-times DIR``), in turns: parent, this, this, parent
+(``[parent]`` lines). ``--first-port DIR`` names a checkout from before
+the Hopper f32 routes: its K2 and K8 CUDA sources (``PARENT_SOURCES``) are
+built too, and the K2 f32 and K8 f32 times are printed beside that
+checkout's first kernels on the same card (otherwise "parent not
+measured").
 
 Phases, each raising on failure:
 
@@ -219,15 +225,36 @@ Phases, each raising on failure:
    profile of each route's batch-1 call and of the graph route's big one
    (device time, launches, idle share), the capture seconds a key and the
    memory the graphs hold.
+24. the heads over wider vocabularies and heads: K2 (bf16, f32) and K4
+   (bf16 and f32 masters) at V 97 and 256 on the flagship decoder (H 512,
+   a head and token table of V drawn anew) at 12,288, 2,048 and 6 rows
+   against their plain versions (``BOUNDS``; K4 bit-equal), one launch a
+   call, timed beside V 60; K7 (bf16, f32) at V 90 and 256 on the flagship
+   ARNN at 512, 64 and 1 rows x 384 ticks, bf16 at H = C = 512 with a
+   256-wide head and both dtypes at a 1,024-wide head (``ARNN_WIDE``, the
+   first kernel timed beside), within ``ARNN_HEAD_BOUNDS`` (at the wide
+   geometries bf16's early share within the first kernel's), with two CUDA
+   launches a chunk of rows and none of the first kernel in a trace,
+   timed; for each head a maximum tied
+   across a chunk border taken by its first index, and the planted fault
+   that lets the later chunk win (``kernel_common.head_ties``) rejected;
+   the LatentRNN flagship at V 256 on the card against the CPU, its bf16
+   (``"xla"``) and int8 engines and the ARNN flagship's bf16 engine at V 90
+   (against the CPU at H 64) on the graph route, each at its big batch and
+   at batch 1: checked, launches counted, measures/s, p50 and the decode
+   kernel's device ms.
 
-Phase 17 runs after phase 7; phases 12-16 after phase 8, then phase 23,
-before the training phases; phases 18, 19, 20, 21 and 22 last. Prints one
+Phase 17 runs after phase 7; phases 12-16 after phase 8, then phase 24
+and phase 23, before the training phases; phases 18, 19, 20, 21 and 22
+last. Prints one
 JSON line of the eight kernels (each with its launches in phase 18,
 ``latent_train_launches``, in phase 19, ``arnn_train_launches``, and in
 phase 20's joint evaluation, ``eval_launches``, and in phase 23's graph
 replays, ``graph_launches``; K1's with ``train_mode``,
 phase 21's numbers of its training mode; K1's, K2's, K5's and K7's with
-``tp_launches``, rank 0's in phase 22), the
+``tp_launches``, rank 0's in phase 22; K2's, K4's and K7's with
+``vocab_heads``, phase 24's entries at the wider heads, and
+``vocab_engine_launches``), the
 card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
 result, when there is no usable card or any phase fails.
@@ -1700,10 +1727,10 @@ def _request(rng, batch: int, n_past: int, n_target: int, n_future: int):
     return rng.integers(0, VOCAB, (batch, m, 24)).astype(np.int32), n_past, n_target
 
 
-def _check_response(out, tokens, start: int, num: int):
+def _check_response(out, tokens, start: int, num: int, vocab: int = VOCAB):
     if out.shape != tokens.shape:
         raise RuntimeError(f"response shape {out.shape} != request {tokens.shape}")
-    if out.min() < 0 or out.max() >= VOCAB:
+    if out.min() < 0 or out.max() >= vocab:
         raise RuntimeError("response tokens outside [0, vocab)")
     keep = np.ones(tokens.shape[1], bool)
     keep[start:start + num] = False
@@ -1833,15 +1860,15 @@ def phase_f32_engine(model, card: str) -> dict:
     return want
 
 
-def phase_reference(model):
+def phase_reference(model, quantized: bool = True):
     """The main path on the card (kernels) against the same model on the
     CPU (plain versions) on a small input with shared noise, f32 masters:
-    unquantized (z and tokens), and int8 (z, by median and max; the random
-    weights' near-flat logits turn a flipped carry rounding into other
-    argmax tokens, so the token share is printed). The unquantized path on
-    the card against the int8 path on the CPU must fail both int8 bounds,
-    or they could not tell the two apart. K3 and K4 at the engine's bf16
-    masters are held to their plain versions in phase 3."""
+    unquantized (z and tokens), and with ``quantized`` int8 (z, by median
+    and max; the random weights' near-flat logits turn a flipped carry
+    rounding into other argmax tokens, so the token share is printed). The
+    unquantized path on the card against the int8 path on the CPU must fail
+    both int8 bounds, or they could not tell the two apart. K3 and K4 at the
+    engine's bf16 masters are held to their plain versions in phase 3."""
     from inpaintnet_tpu_torch.models.base import cast_params
 
     rng = np.random.default_rng(3)
@@ -1864,7 +1891,8 @@ def phase_reference(model):
                                    target_mask=args[4], eps=args[5], quant=quant)
         return lg.cpu(), s.cpu(), z.cpu()
 
-    outs = {(dev, quant): run(dev, quant) for quant in ("none", "int8") for dev in ("cuda", "cpu")}
+    quants = ("none", "int8") if quantized else ("none",)
+    outs = {(dev, quant): run(dev, quant) for quant in quants for dev in ("cuda", "cpu")}
 
     def compare(card_quant, cpu_quant):
         (lg, s, z), (_, s_cpu, z_cpu) = outs["cuda", card_quant], outs["cpu", cpu_quant]
@@ -1873,10 +1901,14 @@ def phase_reference(model):
                 bool(torch.isfinite(lg).all()))
 
     z_max, _, agree, ok = compare("none", "none")
-    print(f"[reference] f32 main path, card vs CPU plain: gen z max_abs_err {z_max:.3e} "
-          f"(bound 1e-3), tokens equal {agree:.4f} (bound 0.99), finite {ok}", flush=True)
+    print(f"[reference] f32 main path at V {model.vae_model.decoder.num_notes}, card vs CPU plain: "
+          f"gen z "
+          f"max_abs_err {z_max:.3e} (bound 1e-3), tokens equal {agree:.4f} (bound 0.99), finite "
+          f"{ok}", flush=True)
     if not (z_max <= 1e-3 and agree >= 0.99 and ok):
         raise RuntimeError("the f32 main path on the card disagrees with the CPU")
+    if not quantized:
+        return
     z_max, z_med, agree, ok = compare("int8", "int8")
     c_max, c_med, _, _ = compare("none", "int8")
     print(f"[reference] int8 main path (f32 masters), card vs CPU plain: gen z max_abs_err "
@@ -2130,7 +2162,8 @@ def _k7_by_cluster(ak, hidden, linear, call, dtype=torch.bfloat16):
         name, sizes = "arnn_plan", ak.arnn_cluster_sizes(hidden, lp)
     real, got = getattr(ak, name), {}
     for c in sizes:
-        stages = 2 if dtype == torch.float32 else ak.arnn_ring_stages(hidden, c, lp)
+        stages = 2 if dtype == torch.float32 else ak.arnn_ring_stages(
+            hidden, c, ak.arnn_hid_cols(hidden, c, lp))
         setattr(ak, name, lambda *shape, c=c, st=stages: real(*shape)._replace(cluster=c,
                                                                                  stages=st))
         try:
@@ -2269,10 +2302,11 @@ def phase_arnn_kernel(model, card: str) -> dict:
     return report
 
 
-def phase_arnn_reference():
+def phase_arnn_reference(vocab: int = VOCAB):
     """The ARNN path on the card (K7) against the same model on the CPU
-    (plain versions), f32, H 64: the argmax inpaint and a sampled generate
-    with per-row keys (the same noise bits on both devices)."""
+    (plain versions), f32, H 64, a vocabulary of ``vocab``: the argmax
+    inpaint and a sampled generate with per-row keys (the same noise bits on
+    both devices)."""
     from inpaintnet_tpu_torch.models.anticipation_rnn import AnticipationRNNBaseline
     from inpaintnet_tpu_torch.models.presets import ARNNDataset
     from inpaintnet_tpu_torch.ops.arnn_kernel import arnn_sampled_decode
@@ -2289,7 +2323,7 @@ def phase_arnn_reference():
     before = arnn_sampled_decode.launches
     for dev in ("cuda", "cpu"):
         model = AnticipationRNNBaseline(
-            ARNNDataset(), note_embedding_dim=10, metadata_embedding_dim=2,
+            ARNNDataset(vocab_size=vocab), note_embedding_dim=10, metadata_embedding_dim=2,
             num_lstm_constraints_units=64, num_lstm_generation_units=64, linear_hidden_size=64,
             num_layers=2, unary_constraint=True, device=dev, seed=3)
         score, md, loc = (torch.from_numpy(a).to(dev) for a in arrays)
@@ -2303,7 +2337,8 @@ def phase_arnn_reference():
     (lg, tok, smp), (lg_c, tok_c, smp_c) = out["cuda"], out["cpu"]
     share = (tok == tok_c).float().mean().item()
     err = (lg - lg_c).abs()[_first_divergence_mask(tok, tok_c)].max().item()
-    print(f"[arnn-reference] f32 H 64, card (K7) vs CPU plain: inpaint tokens equal {share:.4f} "
+    print(f"[arnn-reference] f32 H 64 V {vocab}, card (K7) vs CPU plain: inpaint tokens equal "
+          f"{share:.4f} "
           f"(bound {ARNN_REF['tokens']}), logits max_abs_err {err:.3e} (bound "
           f"{ARNN_REF['logits']:.0e}); sampled tokens equal {(smp == smp_c).float().mean():.4f} "
           f"(printed, no limit)", flush=True)
@@ -2403,6 +2438,463 @@ def phase_arnn_http(main_engine, engine, card: str) -> dict:
     finally:
         server.stop()
     return launches
+
+# ---------------------------------------------------------------------------
+# Phase 24: the heads of K2, K4 and K7 over wider vocabularies and heads
+# ---------------------------------------------------------------------------
+HEAD_VOCABS = (97, 256)  # K2 and K4: past one 96-column head chunk, and three chunks
+ARNN_HEAD_VOCABS = (90, 256)  # K7: past one 64-column output chunk, and four chunks
+# K7 beside the flagship's widths, at the engine's batch: (H, C, linear, V,
+# dtypes). H = C = 512 with a 256-wide head: in bf16 a 128-column hidden
+# tile in two rounds; a 1,024-wide head: rounds of 512 in bf16. The first
+# kernel, which ran them before, is timed beside and is the yardstick of
+# bf16's early share.
+ARNN_WIDE = ((512, 512, 256, 60, (torch.bfloat16,)),
+             (256, 256, 1024, 90, (torch.bfloat16, torch.float32)))
+# K7 at the wider heads against its plain version: ARNN_BOUNDS, but a bf16
+# token share of 0.95. A head of V drawn anew on random weights has
+# near-flat logits, and the more columns, the more argmax near-ties whose
+# rounding flips cascade over a row's 384 ticks: seen on an NVIDIA H100
+# 80GB HBM3 (700 W) tokens 0.99295 at V 90 (512 rows) and 0.97892 at V 256
+# (64 rows), every row's first mismatch within 3.1e-5 of its top logit,
+# logits max 6.1e-5, mean 2.6e-6, early share 0.024-0.033. The max, the
+# mean, the tie gap (each first mismatch a near-tie), no mismatch at a
+# forced tick and the early share, which the planted faults break, are
+# ARNN_BOUNDS'.
+ARNN_HEAD_BOUNDS = {torch.float32: ARNN_BOUNDS[torch.float32],
+                    torch.bfloat16: {**ARNN_BOUNDS[torch.bfloat16], "tokens": 0.95}}
+# The V 256 engines and the V 90 ARNN engine: their buckets (captured on
+# the first call of each)
+VOCAB_BUCKETS = (1, BATCH)
+VOCAB_ARNN_BUCKETS = (1, ARNN_BATCH)
+ENGINE_VOCAB, ARNN_ENGINE_VOCAB = 256, 90  # the engines' vocabularies
+
+
+def _head_params(tree: dict, head: str, table: str, rows: int, vocab: int, seed: int) -> dict:
+    """``tree`` (the flagship's params, on the card) with a ``vocab``-column
+    head (``tree[head]``: linear_init's scale) and a ``rows``-row embedding
+    ``tree[table]`` (embedding_init's), drawn from ``seed``."""
+    from inpaintnet_tpu_torch.ops.linear import embedding_init, linear_init
+
+    rng = np.random.default_rng(seed)
+    w = tree[head]["w"]
+    dev, dtype = w.device, w.dtype
+    lin = linear_init(rng, w.shape[0], vocab)
+    emb = embedding_init(rng, rows, tree[table]["table"].shape[1])["table"]
+    return {**tree, head: {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev, dtype)
+                           for k, v in lin.items()},
+            table: {"table": torch.from_numpy(np.asarray(emb, np.float32)).to(dev, dtype)}}
+
+
+def _tied(tree: dict, head: str, width: int, col: int = 5) -> dict:
+    """``tree`` with head column ``col`` copied into the next chunk (``col +
+    width``) and both biases raised by 8: equal logits, every tick's
+    largest, on either side of a chunk border."""
+    w, b = tree[head]["w"].clone(), tree[head]["b"].clone()
+    w[:, col + width] = w[:, col]
+    b[col] += 8.0
+    b[col + width] = b[col]
+    return {**tree, head: {**tree[head], "w": w, "b": b}}
+
+
+@contextlib.contextmanager
+def _later_chunk_wins_ties():
+    """The heads' planted fault inside the block: a later chunk wins a tie
+    (``kernel_common.head_ties``, passed to every launch)."""
+    from inpaintnet_tpu_torch.ops import kernel_common
+
+    real = kernel_common.head_ties
+    kernel_common.head_ties = lambda: 1
+    try:
+        yield
+    finally:
+        kernel_common.head_ties = real
+
+
+def _decoder_inputs(vae, dtype, rows: int, seed: int):
+    """The decoder's params in ``dtype`` and K2's per-beat inputs of
+    ``rows`` random z, as the engine makes them."""
+    from inpaintnet_tpu_torch.models.base import cast_params
+    from inpaintnet_tpu_torch.models.measure_vae import NUM_BEATS_PER_MEASURE
+    from inpaintnet_tpu_torch.ops.linear import linear_apply
+
+    dec = cast_params(vae.params(), "cuda", dtype)["decoder"]
+    rng = np.random.default_rng(seed)
+    z = torch.from_numpy(rng.standard_normal((rows, vae.latent_space_dim)).astype(np.float32))
+    with torch.inference_mode():
+        beat_out = vae.decoder._beat_outputs(dec, z.to("cuda", dtype))
+        tick_ctx = torch.selu(linear_apply(dec["beat_to_tick_input"], beat_out)).contiguous()
+        h_inits = vae.decoder._tick_h0(
+            dec, beat_out.reshape(rows * NUM_BEATS_PER_MEASURE, -1)
+        ).reshape(2, rows, NUM_BEATS_PER_MEASURE, -1).contiguous()
+    return dec, tick_ctx, h_inits
+
+
+def _k2_k4_heads(vae, card: str) -> dict:
+    """K2 (bf16, f32) and K4 (bf16 and f32 masters) at ``HEAD_VOCABS`` on
+    the flagship decoder (H 512, a head and token table of V drawn anew) at
+    ``DECODE_ROWS``: against the plain versions (``BOUNDS``; K4 bit-equal),
+    one launch a call, timed beside the same call at V 60; then the tie
+    across a head chunk border, and its planted fault. -> {kernel: {"V 97":
+    entry, ...}} at 12,288 rows."""
+    from inpaintnet_tpu_torch.ops import decode_kernel as dk
+
+    cases = (("decode_sampling", torch.bfloat16, dk.decode_sampling,
+              dk.decode_sampling_reference, BOUNDS[torch.bfloat16], "bf16"),
+             ("decode_sampling", torch.float32, dk.decode_sampling,
+              dk.decode_sampling_reference, BOUNDS[torch.float32], "f32"),
+             ("decode_sampling_int8", torch.bfloat16, dk.decode_sampling_int8,
+              dk.decode_sampling_int8_reference, BOUNDS_INT8, "int8"),
+             ("decode_sampling_int8", torch.float32, dk.decode_sampling_int8,
+              dk.decode_sampling_int8_reference, BOUNDS_INT8, "int8"))
+    report = {}
+    for name, dtype, kernel, plain, bound, kind in cases:
+        label = f"{name} {str(dtype)[6:]}{' masters' if name.endswith('int8') else ''}"
+        dec60, tick_ctx, h_inits = _decoder_inputs(vae, dtype, DECODE_ROWS[0], seed=24)
+        hidden = tick_ctx.shape[2]
+        for vocab in HEAD_VOCABS:
+            dec = _head_params(dec60, "head", "embedding", vocab, vocab, seed=vocab)
+            used = {k: dec[k] for k in ("embedding", "x_0", "tick_gru", "head")}
+            for rows in DECODE_ROWS:
+                tc, hi = tick_ctx[:rows].contiguous(), h_inits[:, :rows].contiguous()
+                before = kernel.launches
+                got = kernel(dec, tc, hi)
+                want = plain(dec, tc, hi)
+                torch.cuda.synchronize()
+                agree = dk.agreement(got, want)
+                ok = (bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+                      if bound is BOUNDS_INT8 else dk.within(agree, bound))
+                print(f"[heads] {label} V {vocab} rows {rows}: {agree} (bounds {bound}), "
+                      f"{kernel.launches - before} launch", flush=True)
+                if not ok or kernel.launches != before + 1 or got[0].shape[2] != vocab:
+                    raise RuntimeError(f"{label} at V {vocab}, {rows} rows disagrees with its "
+                                       "plain version or did not launch once")
+                if rows != DECODE_ROWS[0]:
+                    continue
+                ms = cuda_ms(lambda: kernel(dec, tc, hi), 5)
+                ms60 = cuda_ms(lambda: kernel(dec60, tc, hi), 5)
+                b = bound_of(decode_ops(rows, hidden, vocab), kind, nbytes(used, tc, hi, *got))
+                entry = {"max_abs_err": agree["logits"], "ms": ms, "ms_v60": ms60,
+                         "plain_ms": cuda_ms(lambda: plain(dec, tc, hi), 2), **b,
+                         "library_ms": None, "launches": 1}
+                report.setdefault(label, {})[f"V {vocab}"] = entry
+                print(f"[time] {label} V {vocab} rows {rows}: kernel {ms:.3f} ms, at V 60 "
+                      f"{ms60:.3f} ms ({ms / ms60:.3f}x), plain {entry['plain_ms']:.3f} ms, "
+                      f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}) | {card}", flush=True)
+        # the tie across the first head chunk border, and its planted fault
+        dec = _tied(_head_params(dec60, "head", "embedding", 256, 256, seed=7), "head",
+                    dk.HEAD_COLS)
+        tc, hi = tick_ctx[:70].contiguous(), h_inits[:, :70].contiguous()
+        want = plain(dec, tc, hi)[1]
+        got = kernel(dec, tc, hi)[1]
+        with _later_chunk_wins_ties():
+            fault = kernel(dec, tc, hi)[1]
+        torch.cuda.synchronize()
+        print(f"[heads] {label} tie across the chunk border: plain tokens all 5 "
+              f"{bool((want == 5).all())}, kernel equal {bool(torch.equal(got, want))}; planted "
+              f"fault (the later chunk wins ties) equal {bool(torch.equal(fault, want))}",
+              flush=True)
+        if not ((want == 5).all() and torch.equal(got, want)) or torch.equal(fault, want):
+            raise RuntimeError(f"{label}: the chunk-border tie is not taken by the first index, "
+                               "or its planted fault passes")
+    return report
+
+
+def _k7_check(ak, args, bound, label: str, card: str, time_it: bool):
+    """One K7 call against its plain version within ``bound``: one wrapper
+    launch, two CUDA launches a chunk of rows (``arnn_cuda_launches``) and
+    none of the first kernel (``arnn_decode_kernel``) in a trace (taken
+    again, up to twice, while it shows fewer). -> (its agreement, ms or
+    None, the call's outputs)"""
+    params, ctx = args[0], args[1]
+    dtype = params["lstm_generation"][0]["w_hh"].dtype
+    linear, vocab = params["linear_output_notes"]["w"].shape
+    hidden = params["lstm_generation"][0]["w_hh"].shape[0]
+    rows, ticks = ctx.shape[0], ctx.shape[1]
+    before = ak.arnn_sampled_decode.launches
+    got = ak.arnn_sampled_decode(*args)
+    once = ak.arnn_sampled_decode.launches == before + 1
+    want = ak.arnn_sampled_decode_reference(*args)
+    torch.cuda.synchronize()
+    agree = ak.decode_agreement(got, want, args[3])
+    expect = ak.arnn_cuda_launches(dtype, rows, ticks, hidden, linear, vocab)
+    for _ in range(3):  # a trace may lose a call's first kernel: trace again
+        own = _own_kernels(lambda: ak.arnn_sampled_decode(*args))
+        if sum(own.values()) >= expect:
+            break
+    recurrence = "arnn_kernel" if dtype == torch.bfloat16 else "arnn_f32_kernel"
+    launches = sum(own.values())
+    print(f"[heads] arnn_sampled_decode {label}: {_agreement_line(agree)} (bounds {bound}); CUDA "
+          f"launches {own} ({expect} expected) | {card}", flush=True)
+    if (not once or not ak.within(agree, bound)
+            or launches != expect or own.get(recurrence, 0) != expect // 2
+            or "arnn_decode_kernel" in own or got[0].shape[2] != vocab):
+        raise RuntimeError(f"K7 {label}: disagrees with its plain version, or its launches are "
+                           "not two a chunk of its Hopper route")
+    return agree, (cuda_ms(lambda: ak.arnn_sampled_decode(*args), 3) if time_it else None), got
+
+
+def _k7_heads(arnn, card: str) -> dict:
+    """K7 (bf16, f32) at ``ARNN_HEAD_VOCABS`` on the flagship (H = C = L =
+    256, a head and token table of V drawn anew) at ``ARNN_ROWS`` x 384
+    ticks, at the ``ARNN_WIDE`` geometries, each against its plain version
+    with two CUDA launches a chunk and none of the first kernel, timed beside
+    V 60 at 512 rows; the tie across an output chunk border and its planted
+    fault. -> {dtype label: {"V 90": entry, ...}}"""
+    from inpaintnet_tpu_torch.models.base import cast_params
+    from inpaintnet_tpu_torch.ops import arnn_kernel as ak
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_cuda_kernels import _arnn_case
+
+    H, C, L = (arnn.num_lstm_generation_units, arnn.num_lstm_constraints_units,
+               arnn.num_units_linear)
+    report = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        p60 = cast_params(arnn.params(), "cuda", dtype)
+        bound = ARNN_HEAD_BOUNDS[dtype]
+        inputs = {rows: _arnn_inputs(arnn, p60, rows, seed=24) for rows in ARNN_ROWS}
+        for vocab in ARNN_HEAD_VOCABS:
+            params = _head_params(p60, "linear_output_notes", "note_embedding", vocab + 1,
+                                  vocab, seed=vocab)
+            start = params["note_embedding"]["table"][vocab:].contiguous()
+            used = {k: params[k] for k in ("note_embedding", "lstm_generation", "linear_1",
+                                           "linear_output_notes")}
+            for rows in ARNN_ROWS:
+                ctx, score, force, _ = inputs[rows]
+                args = (params, ctx, score, force, start)
+                agree, ms, got = _k7_check(ak, args, bound, f"{tag} V {vocab} rows {rows}",
+                                           card, rows == ARNN_BATCH)
+                if ms is None:
+                    continue
+                ms60 = cuda_ms(lambda: ak.arnn_sampled_decode(p60, ctx, score, force,
+                                                              inputs[rows][3]), 3)
+                ops = arnn_ops(rows, ARNN_BARS * 24, H, C, L, vocab)
+                moved = nbytes(used, *args[1:], *got)
+                b = (bound_of(ops, "bf16", moved) if dtype == torch.bfloat16
+                     else {**bound_of(6 * ops, "bf16", moved),
+                           "bound_f32_fma_ms": bound_of(ops, "f32", moved)["bound_ms"]})
+                entry = {"max_abs_err": agree["logits_max"], "ms": ms, "ms_v60": ms60,
+                         "plain_ms": cuda_ms(lambda: ak.arnn_sampled_decode_reference(*args), 1),
+                         **b, "library_ms": None,
+                         "launches": ak.arnn_cuda_launches(dtype, rows, ARNN_BARS * 24, H, L,
+                                                           vocab)}
+                report.setdefault(tag, {})[f"V {vocab}"] = entry
+                print(f"[time] arnn_sampled_decode {tag} V {vocab} rows {rows}: kernel {ms:.3f} "
+                      f"ms, at V 60 {ms60:.3f} ms ({ms / ms60:.3f}x), plain "
+                      f"{entry['plain_ms']:.3f} ms, bound {b['bound_ms']:.4f} ms "
+                      f"({b['bound_by']}) | {card}", flush=True)
+        # the tie across the first output chunk border, and its planted fault
+        params = _tied(_head_params(p60, "linear_output_notes", "note_embedding", 131, 130,
+                                    seed=7), "linear_output_notes", ak.ARNN_OUT_COLS)
+        ctx, score, force, _ = inputs[64]
+        args = (params, ctx, score, force, params["note_embedding"]["table"][130:].contiguous())
+        free = force == 0
+        want = ak.arnn_sampled_decode_reference(*args)[1]
+        got = ak.arnn_sampled_decode(*args)[1]
+        with _later_chunk_wins_ties():
+            fault = ak.arnn_sampled_decode(*args)[1]
+        torch.cuda.synchronize()
+        print(f"[heads] arnn_sampled_decode {tag} tie across the chunk border: plain sampled "
+              f"tokens all 5 {bool((want[free] == 5).all())}, kernel equal "
+              f"{bool(torch.equal(got, want))}; planted fault (the later chunk wins ties) equal "
+              f"{bool(torch.equal(fault, want))}", flush=True)
+        if not ((want[free] == 5).all() and torch.equal(got, want)) or torch.equal(fault, want):
+            raise RuntimeError(f"K7 {tag}: the chunk-border tie is not taken by the first index, "
+                               "or its planted fault passes")
+    for hidden, ctx_dim, linear, vocab, dtypes in ARNN_WIDE:
+        for dtype in dtypes:
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            args = _arnn_case(np.random.default_rng(hidden + linear), ARNN_BATCH, hidden,
+                              ctx_dim, ARNN_BARS * 24, vocab, linear, dtype, "cuda", noise=0.0)
+            label = f"{tag} H {hidden} C {ctx_dim} head {linear} x {vocab}"
+            # the first kernel, which ran these geometries before, on the same
+            # inputs: at H 512 more bf16 roundings flip in the first ticks, and
+            # the early share is held to its reading as phase 12's noisy
+            # weights are (ARNN_FIRST_RATIO)
+            first = _first_k7(ak, args)
+            a_first = ak.decode_agreement(first, ak.arnn_sampled_decode_reference(*args), args[3])
+            first_ms = cuda_ms(lambda: _first_k7(ak, args), 3)
+            bound = dict(ARNN_HEAD_BOUNDS[dtype])
+            if dtype == torch.bfloat16:
+                bound["early"] = max(bound["early"], ARNN_FIRST_RATIO * a_first["early_changed"])
+            print(f"[heads] arnn_sampled_decode {label} rows {ARNN_BATCH}, the first kernel: "
+                  f"{_agreement_line(a_first)}, {first_ms:.3f} ms | {card}", flush=True)
+            agree, ms, got = _k7_check(ak, args, bound, f"{label} rows {ARNN_BATCH}", card, True)
+            plan = (ak.arnn_card_plan if dtype == torch.bfloat16 else ak.arnn_f32_card_plan)(
+                ARNN_BATCH, hidden, linear, args[1].device)
+            ht = ak.arnn_hid_cols(hidden, plan.cluster, ak.arnn_head_width(linear))
+            ops = arnn_ops(ARNN_BATCH, ARNN_BARS * 24, hidden, ctx_dim, linear, vocab)
+            moved = nbytes({k: args[0][k] for k in ("note_embedding", "lstm_generation",
+                                                    "linear_1", "linear_output_notes")},
+                           *args[1:], *got)
+            b = bound_of(ops if dtype == torch.bfloat16 else 6 * ops, "bf16", moved)
+            entry = {"max_abs_err": agree["logits_max"], "ms": ms, "first_kernel_ms": first_ms,
+                     "plain_ms": cuda_ms(lambda: ak.arnn_sampled_decode_reference(*args), 1), **b,
+                     "library_ms": None, "launches": 2, "cluster": plan.cluster}
+            report.setdefault(tag, {})[f"H {hidden} head {linear} V {vocab}"] = entry
+            print(f"[time] arnn_sampled_decode {label} rows {ARNN_BATCH}: kernel {ms:.3f} ms "
+                  f"(cluster {plan.cluster}, stages {plan.stages}"
+                  f"{f', hidden tile {ht}' if dtype == torch.bfloat16 else ''}), the first "
+                  f"kernel {first_ms:.3f} ms, plain {entry['plain_ms']:.3f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}) | {card}", flush=True)
+    return report
+
+
+def _vocab_latent_engines(card: str) -> dict:
+    """The LatentRNN flagship at V 256: its main path on the card against
+    the CPU (f32, phase 5's check), then the bf16 engine (on the ``"xla"``
+    GRU route) and the int8 engine on the graph route at batch 2048 (6/4/6)
+    and batch 1, checked, K2 / K4 launches counted, measures/s, the batch-1
+    p50 and the decode kernel's device ms. -> {kernel: launches}"""
+    from inpaintnet_tpu_torch.models.presets import build_flagship
+    from inpaintnet_tpu_torch.serve import InpaintingEngine
+
+    _, _, model = build_flagship(vocab_size=ENGINE_VOCAB, seed=0, device="cuda",
+                                 dtype=torch.float32)
+    phase_reference(model, quantized=False)
+    rng = np.random.default_rng(24)
+    big = _request(rng, BATCH, N_PAST, N_TARGET, N_FUTURE)
+    one = _request(rng, 1, 7, 2, 7)
+    launches = {}
+    for dtype, key in (("bfloat16", "rec90::decode_kernel<"), ("int8", "decode_i8_kernel<")):
+        engine = InpaintingEngine(model, batch_buckets=VOCAB_BUCKETS, dtype=dtype, device="cuda")
+
+        def serve():
+            for tokens, start, num in (big, one):
+                out = engine.inpaint(tokens, start, num, seed=11)
+                _check_response(out, tokens, start, num, vocab=ENGINE_VOCAB)
+                if not np.array_equal(out, engine.inpaint(tokens, start, num, seed=11)):
+                    raise RuntimeError(f"V {ENGINE_VOCAB} {dtype} engine: the same seed gave "
+                                       "other tokens")
+
+        _, counts = _launches_during(_kernels_of(dtype), serve)
+        launches.update(counts)
+        t_big = cuda_ms(lambda: engine.inpaint(*big, seed=5), 5)
+        lat = [cuda_ms(lambda: engine.inpaint(*one, seed=5), 1) for _ in range(20)]
+        dev_big = _device_ms(lambda: engine.inpaint(*big, seed=5), key)
+        dev_one = _device_ms(lambda: engine.inpaint(*one, seed=5), key)
+        print(f"[engine] V {ENGINE_VOCAB} {dtype} ({_route_name(engine)}): ok, launches {counts}; "
+              f"batch {BATCH} 6/4/6 {t_big:.2f} ms per call, "
+              f"{BATCH * N_TARGET / (t_big / 1e3):.1f} "
+              f"measures/s, the decode kernel {dev_big:.3f} ms device; batch 1 p50 "
+              f"{np.median(lat):.2f} ms (p90 {np.percentile(lat, 90):.2f} ms), the decode kernel "
+              f"{dev_one:.3f} ms device | {card}", flush=True)
+        del engine
+    return launches
+
+
+def _vocab_arnn_engine(card: str) -> dict:
+    """The ARNN at V 90: its path on the card against the CPU (f32, H 64,
+    phase 12's check), then the flagship-width bf16 engine on the graph
+    route at batch 512 and 1 (argmax), checked, K7 launches counted,
+    span-measures/s, the batch-1 p50 and K7's device ms. -> {kernel:
+    launches}"""
+    from inpaintnet_tpu_torch.models.anticipation_rnn import AnticipationRNNBaseline
+    from inpaintnet_tpu_torch.models.presets import ARNNDataset
+    from inpaintnet_tpu_torch.ops.arnn_kernel import arnn_sampled_decode
+    from inpaintnet_tpu_torch.serve_arnn import ARNNServingEngine
+
+    phase_arnn_reference(vocab=ARNN_ENGINE_VOCAB)
+    model = AnticipationRNNBaseline(
+        ARNNDataset(vocab_size=ARNN_ENGINE_VOCAB), note_embedding_dim=10, metadata_embedding_dim=2,
+        num_lstm_constraints_units=256, num_lstm_generation_units=256, linear_hidden_size=256,
+        num_layers=2, unary_constraint=True, device="cuda", seed=0)
+    engine = ARNNServingEngine(model, batch_buckets=VOCAB_ARNN_BUCKETS, dtype="bfloat16",
+                               device="cuda")
+    rng = np.random.default_rng(25)
+    big, one = _arnn_request(rng, ARNN_BATCH, ARNN_BARS), _arnn_request(rng, 1, ARNN_BARS)
+
+    def serve():
+        for tokens in (big, one):
+            out = engine.inpaint(tokens, ARNN_START, ARNN_SPAN)
+            _check_response(out, tokens, ARNN_START, ARNN_SPAN, vocab=ARNN_ENGINE_VOCAB)
+            if not np.array_equal(out, engine.inpaint(tokens, ARNN_START, ARNN_SPAN)):
+                raise RuntimeError(f"V {ARNN_ENGINE_VOCAB} ARNN engine: the argmax decode is not "
+                                   "deterministic")
+
+    _, launches = _launches_during([arnn_sampled_decode], serve)
+    t_big = cuda_ms(lambda: engine.inpaint(big, ARNN_START, ARNN_SPAN), 5)
+    lat = [cuda_ms(lambda: engine.inpaint(one, ARNN_START, ARNN_SPAN), 1) for _ in range(20)]
+    dev_big = _device_ms(lambda: engine.inpaint(big, ARNN_START, ARNN_SPAN), "arnn_kernel")
+    dev_one = _device_ms(lambda: engine.inpaint(one, ARNN_START, ARNN_SPAN), "arnn_kernel")
+    print(f"[arnn-engine] V {ARNN_ENGINE_VOCAB} bf16 ({_route_name(engine)}): ok, launches "
+          f"{launches}; batch {ARNN_BATCH} x {ARNN_BARS} bars, span {ARNN_SPAN}: {t_big:.2f} ms "
+          f"per call, "
+          f"{ARNN_BATCH * ARNN_SPAN / (t_big / 1e3):.1f} span-measures/s, K7's recurrence "
+          f"{dev_big:.3f} ms device; batch 1 p50 {np.median(lat):.2f} ms (p90 "
+          f"{np.percentile(lat, 90):.2f} ms), K7's recurrence {dev_one:.3f} ms device | {card}",
+          flush=True)
+    return launches
+
+
+def phase_vocab_heads(vae, arnn, card: str) -> tuple:
+    """Phase 24: the heads over wider vocabularies and heads. -> ({kernel
+    name: {case: entry}} for the kernels line, {kernel: launches} of the
+    V 256 and V 90 engines' requests)"""
+    t0 = time.perf_counter()
+    heads = _k2_k4_heads(vae, card)
+    k7 = _k7_heads(arnn, card)
+    launches = {**_vocab_latent_engines(card), **_vocab_arnn_engine(card)}
+    print(f"[heads] phase 24 took {time.perf_counter() - t0:.1f} s", flush=True)
+    entries = {"decode_sampling": {"bf16": heads["decode_sampling bfloat16"],
+                                   "f32": heads["decode_sampling float32"]},
+               "decode_sampling_int8": {"bf16 masters": heads["decode_sampling_int8 bfloat16 "
+                                                                "masters"],
+                                        "f32 masters": heads["decode_sampling_int8 float32 "
+                                                               "masters"]},
+               "arnn_sampled_decode": k7}
+    return entries, launches
+
+
+# ---------------------------------------------------------------------------
+# ``--parent DIR``: the flagship's V 60 decode kernels of an earlier
+# checkout, timed beside this tree's in the same run
+# ---------------------------------------------------------------------------
+def kernel_times(root: str) -> dict:
+    """Median ms of the flagship-shape decode kernels at V 60 through the
+    wrappers of the checkout at ``root`` (its package imported, its kernels
+    built into its own ``build/``): K2 and K4 (bf16 and f32 masters) at
+    ``DECODE_ROWS``, K7 at ``ARNN_ROWS`` x 384 ticks, both dtypes, on its
+    card tests' inputs (``_decode_case``, ``_arnn_case``)."""
+    sys.path[:0] = [root, str(Path(root) / "tests")]
+    from inpaintnet_tpu_torch.ops import arnn_kernel as ak
+    from inpaintnet_tpu_torch.ops import decode_kernel as dk
+    from inpaintnet_tpu_torch.ops.kernel_common import build_kernels
+    from test_torch_cuda_kernels import _arnn_case, _decode_case
+
+    build_kernels()
+    times = {"source": str(Path(dk.__file__).resolve())}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for rows in DECODE_ROWS:
+            p, tc, hi = _decode_case(np.random.default_rng(1), rows, 512, VOCAB, dtype, "cuda")
+            times[f"K2 {tag} {rows}"] = cuda_ms(lambda: dk.decode_sampling(p, tc, hi), 10)
+            times[f"K4 {tag} {rows}"] = cuda_ms(lambda: dk.decode_sampling_int8(p, tc, hi), 10)
+        for rows in ARNN_ROWS:
+            args = _arnn_case(np.random.default_rng(1), rows, 256, 256, ARNN_BARS * 24, VOCAB,
+                              256, dtype, "cuda", noise=0.0)
+            times[f"K7 {tag} {rows}"] = cuda_ms(lambda: ak.arnn_sampled_decode(*args), 5)
+    return times
+
+
+def phase_parent_times(parent: str, card: str) -> None:
+    """The V 60 kernel times of ``parent`` and of this tree, each in a
+    process of its own, in turns (parent, this, this, parent)."""
+    here = str(Path(__file__).resolve().parent)
+    runs = []
+    for root in (parent, here, here, parent):
+        out = subprocess.run([sys.executable, __file__, "--kernel-times", root],
+                             capture_output=True, text=True, timeout=900, cwd=root)
+        if out.returncode != 0:
+            raise RuntimeError(f"--kernel-times {root} failed:\n{out.stderr[-4000:]}")
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    for key in runs[0]:
+        if key == "source":
+            continue
+        print(f"[parent] {key} rows, V 60: parent {runs[0][key]:.3f} / {runs[3][key]:.3f} ms, "
+              f"this tree {runs[1][key]:.3f} / {runs[2][key]:.3f} ms | {card}", flush=True)
+
 
 
 # ---------------------------------------------------------------------------
@@ -4465,12 +4957,23 @@ def phase_graphs(model, arnn, card: str) -> dict:
 def main() -> int:
     cli = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     cli.add_argument("--parent", metavar="DIR",
-                     help="an earlier checkout of this repository whose f32 K2 and K8 "
-                          "kernels are built and timed beside the new ones")
+                     help="an earlier checkout of this repository whose V 60 decode kernels "
+                          "(K2, K4, K7) are timed beside this tree's, in turns")
+    cli.add_argument("--first-port", metavar="DIR",
+                     help="a checkout from before the Hopper f32 routes, whose first f32 K2 "
+                          "and K8 kernels are built and timed beside the new ones")
+    cli.add_argument("--kernel-times", metavar="DIR",
+                     help="only print the V 60 decode kernels' times of the checkout at DIR "
+                          "as one JSON line (what --parent runs in a process of its own)")
     opts = cli.parse_args()
     card = phase_device()
+    if opts.kernel_times:
+        print(json.dumps(kernel_times(opts.kernel_times)))
+        return 0
     phase_build()
-    parent = None if opts.parent is None else ParentKernels(opts.parent)
+    if opts.parent:
+        phase_parent_times(opts.parent, card)
+    parent = None if opts.first_port is None else ParentKernels(opts.first_port)
     from inpaintnet_tpu_torch.models.presets import build_flagship
 
     _, vae, model = build_flagship(seed=0, device="cuda", dtype=torch.float32)
@@ -4491,6 +4994,8 @@ def main() -> int:
     arnn_engine, launches_arnn = phase_arnn_engine(arnn, card)
     launches_arnn_http = phase_arnn_http(engine8, arnn_engine, card)
     del engine8, arnn_engine
+    torch.cuda.empty_cache()
+    vocab_entries, launches_vocab = phase_vocab_heads(vae, arnn, card)
     report.update(phase_gru_layer_kernel(card, parent))
     phase_gru_routes(engine16, card)
     del engine16
@@ -4535,7 +5040,10 @@ def main() -> int:
                 "arnn_train_launches": launches_arnn_train.get(name, 0),
                 "eval_launches": launches_eval.get(name, 0),
                 "graph_launches": launches_graphs.get(name, 0),
-                **({"tp_launches": launches_tp[name]} if name in launches_tp else {})}
+                **({"tp_launches": launches_tp[name]} if name in launches_tp else {}),
+                **({"vocab_heads": vocab_entries[name],
+                    "vocab_engine_launches": launches_vocab.get(name, 0)}
+                   if name in vocab_entries else {})}
                for name, (src, replaces, runs) in sources.items()]
     # K1's training mode (phase 21): its launches in the VAE steps under the
     # switch, its time and bound at the VAE step's rows, cuDNN as library_ms

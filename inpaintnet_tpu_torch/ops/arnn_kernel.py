@@ -35,11 +35,13 @@ product split into six bf16 passes over exact pieces
 (``kernel_common.split_product`` emulates them): the context projection
 as the split GEMM, then ``arnn_f32_kernel``, whose CTAs exchange the h
 pieces through an L2 scratch (:func:`arnn_f32_plan`,
-:func:`pack_arnn_f32_weights`, :func:`arnn_f32_operands`). The geometries
-neither plan takes (:func:`arnn_hopper_supports`,
-:func:`arnn_f32_supports`: a vocabulary over 64, a head over 512 columns;
-in bf16 H 512 at a 256-wide head, in f32 more than 128 units a CTA) run
-the first kernel of the port (``csrc/arnn_decode.cu``).
+:func:`pack_arnn_f32_weights`, :func:`arnn_f32_operands`). Both heads run
+over any vocabulary in chunks of 64 columns with a running argmax, and
+the bf16 route's head hidden over any width in rounds of its hidden tile
+(:func:`arnn_hid_cols`): every geometry the gate
+(:func:`arnn_kernel_supports`) takes runs a Hopper route. The port's
+first kernel (``csrc/arnn_decode.cu``, :func:`_decode_tiled`) runs on no
+route: it is the yardstick of the Hopper routes' error at noisy weights.
 ``recurrent_product``, ``carry_c`` and ``ctx_projection`` are the plain
 versions' steps where a check plants a fault.
 
@@ -53,6 +55,7 @@ import functools
 
 import torch
 
+from inpaintnet_tpu_torch.ops import kernel_common
 from inpaintnet_tpu_torch.ops.kernel_common import (
     DTYPE_CODES,
     HOPPER_CONSUMERS,
@@ -64,6 +67,7 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     check_cuda_tensor,
     check_launch,
     counts_launches,
+    fitting_clusters,
     kernel_supports_hidden,
     least_cost_cluster,
     load_kernels,
@@ -75,10 +79,6 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     stream_ptr,
 )
 
-SMEM_LIMIT = 232_448  # bytes of shared memory one block may take on Hopper
-_ROWS = {torch.float32: 16, torch.bfloat16: 32}  # rows of a block's tile (the first kernel)
-_PAD = {torch.float32: 4, torch.bfloat16: 8}  # smem row padding, elements
-
 
 def _head_pads(linear: int, vocab: int):
     """(LP, VP) of the first kernel: the head's hidden width padded to whole
@@ -87,27 +87,13 @@ def _head_pads(linear: int, vocab: int):
     return round_up(linear, 16), round_up(vocab, 8)
 
 
-def arnn_kernel_smem_bytes(hidden: int, ctx: int, linear: int, vocab: int, dtype) -> int:
-    """Dynamic shared memory of the first kernel: four padded
-    h tiles (both layers, current and next), two unpadded c tiles, and one
-    region that holds the tick's context rows in layer 0 and the head's
-    hidden tile and f32 logits after layer 1; plus the fed-back tokens.
-    ``csrc/arnn_decode.cu`` computes the same."""
-    rows, pad, size = _ROWS[dtype], _PAD[dtype], torch.finfo(dtype).bits // 8
-    lp, vp = _head_pads(linear, vocab)
-    shared = max(rows * (ctx + pad) * size, rows * (lp + pad) * size + rows * vp * 4)
-    return (4 * rows * (hidden + pad) + 2 * rows * hidden) * size + shared + rows * 4
-
-
 # --------------------------------------------------------------------------- #
 # The bf16 route's Hopper recurrence (csrc/arnn_hopper.cuh)
 # --------------------------------------------------------------------------- #
-ARNN_CLUSTERS = (1, 2, 4, 8)
 ARNN_SLAB_BYTES = 128 * 128  # one k-slab of a 4-gate chunk (32 units x i, f, g, o): 16 KB
 ARNN_HID_COLS = 128  # hidden columns of a head chunk
-ARNN_OUT_COLS = 64  # the vocabulary, zero-padded
+ARNN_OUT_COLS = 64  # vocabulary columns of an output chunk
 ARNN_MAX_UNITS = 256  # units a CTA computes: 2 consumer warpgroups x 4 chunks of 32
-ARNN_MAX_HEAD = 512
 
 
 def arnn_head_width(linear: int) -> int:
@@ -115,55 +101,93 @@ def arnn_head_width(linear: int) -> int:
     return round_up(linear, ARNN_HID_COLS)
 
 
-def arnn_smem_bytes(hidden: int, cluster: int, lp: int, stages: int) -> int:
+def arnn_out_chunks(vocab: int) -> int:
+    """Output chunks of both routes' heads: the vocabulary zero-padded to
+    whole chunks of ``ARNN_OUT_COLS``, one at the flagship's V 60. Each CTA
+    walks them all with a running argmax."""
+    return -(-vocab // ARNN_OUT_COLS)
+
+
+def arnn_smem_bytes(hidden: int, cluster: int, ht: int, stages: int) -> int:
     """Dynamic shared memory of a bf16 K7 CTA (``arnn_hopper.cuh
-    arnn_smem_bytes``): both h tiles and the head's hidden tile (64 rows of
-    bf16, 8 KB a 64-column block), the two rings of ``stages`` 16 KB slabs,
-    and the bf16 c carries of its ``hidden / cluster`` units, both layers."""
-    return ((2 * (hidden // 64) + lp // 64) * HOPPER_ROWS * 128
+    arnn_smem_bytes``): both h tiles and the head's hidden tile of ``ht``
+    columns (64 rows of bf16, 8 KB a 64-column block), the two rings of
+    ``stages`` 16 KB slabs, and the bf16 c carries of its ``hidden /
+    cluster`` units, both layers."""
+    return ((2 * (hidden // 64) + ht // 64) * HOPPER_ROWS * 128
             + HOPPER_CONSUMERS * stages * ARNN_SLAB_BYTES
             + 2 * HOPPER_ROWS * (hidden // cluster) * 2 + 1024)
 
 
-def arnn_ring_stages(hidden: int, cluster: int, lp: int) -> int:
-    """Ring stages a consumer warpgroup gets beside the tiles: 2 at the
-    flagship's H 256 with one CTA a tile, 3 with two or four."""
-    free = HOPPER_SMEM_BUDGET - arnn_smem_bytes(hidden, cluster, lp, 0)
+def arnn_ring_stages(hidden: int, cluster: int, ht: int) -> int:
+    """Ring stages a consumer warpgroup gets beside the tiles (a hidden tile
+    of ``ht`` columns): 2 at the flagship's H 256 with one CTA a tile, 3
+    with two or four."""
+    free = HOPPER_SMEM_BUDGET - arnn_smem_bytes(hidden, cluster, ht, 0)
     return min(HOPPER_MAX_STAGES, free // (HOPPER_CONSUMERS * ARNN_SLAB_BYTES))
+
+
+def arnn_hid_cols(hidden: int, cluster: int, lp: int) -> int:
+    """HT: the columns of the bf16 route's hidden tile, the widest whole
+    number of 128-column chunks that divides the padded head width ``lp``
+    and leaves a ring of two stages (0 if none does). It is ``lp`` wherever
+    that fits (the flagship's 256); else the head's hidden runs in ``lp /
+    HT`` rounds (H 512 at a 256-wide head: 128, two rounds)."""
+    chunks = lp // ARNN_HID_COLS
+    for n in range(chunks, 0, -1):
+        if chunks % n == 0 and arnn_ring_stages(hidden, cluster, n * ARNN_HID_COLS) >= 2:
+            return n * ARNN_HID_COLS
+    return 0
+
+
+def arnn_out_kslabs(hidden: int, lp: int) -> int:
+    """k-slabs of a block of the bf16 route's W_out^T (:func:`pack_arnn_weights`):
+    4, a warpgroup's 32 columns of a chunk (the one-chunk layout of the
+    flagship), where every plan's hidden tile is the whole head or whole
+    256-column blocks of it; else 2, a chunk's 64 columns, which both
+    warpgroups stream (a hidden tile of 128 columns in rounds: H 512 at a
+    256-wide head)."""
+    return 4 if all(ht == lp or ht % 256 == 0
+                    for ht in (arnn_hid_cols(hidden, c, lp)
+                               for c in arnn_cluster_sizes(hidden, lp))) else 2
 
 
 def arnn_cluster_sizes(hidden: int, lp: int) -> list:
     """Cluster sizes the bf16 route takes: CTAs owning whole 64-unit blocks
-    of at most 256 units, a head of at most 512 columns, and a ring of at
-    least two stages beside the tiles."""
-    if hidden % 64 or hidden <= 0 or lp % ARNN_HID_COLS or not 0 < lp <= ARNN_MAX_HEAD:
+    of at most 256 units, with a hidden tile and a ring of at least two
+    stages beside the h tiles (:func:`arnn_hid_cols`); 5 at H 320 and 7 at
+    H 448, where no power of two fits (``kernel_common.fitting_clusters``)."""
+    if hidden % 64 or hidden <= 0 or lp % ARNN_HID_COLS or lp <= 0:
         return []
-    return [c for c in ARNN_CLUSTERS
-            if (hidden // 64) % c == 0 and hidden // c <= ARNN_MAX_UNITS
-            and arnn_ring_stages(hidden, c, lp) >= 2]
+    return fitting_clusters(lambda c: (hidden // 64) % c == 0 and hidden // c <= ARNN_MAX_UNITS
+                            and arnn_hid_cols(hidden, c, lp) > 0)
 
 
 def arnn_plan(rows: int, hidden: int, linear: int, sms: int, slots=None) -> LaunchPlan:
     """How the bf16 route runs ``rows`` rows: the cluster size of
-    ``kernel_common.least_cost_cluster``. At the flagship's H 256 every batch up to
-    30 tiles (1,920 rows) on an H100 takes C 4: one wave. Raises ValueError
-    for a geometry no size takes."""
+    ``kernel_common.least_cost_cluster``, with the ring depth beside its
+    hidden tile (:func:`arnn_hid_cols`). At the flagship's H 256 every batch
+    up to 30 tiles (1,920 rows) on an H100 takes C 4: one wave. Raises
+    ValueError for a geometry no size takes."""
     lp = arnn_head_width(linear)
     sizes = arnn_cluster_sizes(hidden, lp)
     if not sizes:
         raise ValueError(f"no K7 plan for hidden size {hidden}, head {linear}")
     cluster = least_cost_cluster(rows, sizes, sms, slots)
-    return LaunchPlan(cluster, arnn_ring_stages(hidden, cluster, lp))
+    return LaunchPlan(cluster, arnn_ring_stages(hidden, cluster, arnn_hid_cols(hidden, cluster,
+                                                                               lp)))
 
 
 @functools.lru_cache(maxsize=None)
 def arnn_slots(hidden: int, lp: int, device_index: int) -> dict:
     """{C: clusters of C CTAs of the bf16 route the card runs at once},
     asked once per geometry and card."""
+    def slots(c):
+        ht = arnn_hid_cols(hidden, c, lp)
+        return load_kernels().inpaint_arnn_slots(hidden, c, ht, arnn_ring_stages(hidden, c, ht))
+
     with torch.cuda.device(device_index):
-        counts = {c: load_kernels().inpaint_arnn_slots(hidden, c, lp,
-                                                        arnn_ring_stages(hidden, c, lp))
-                  for c in arnn_cluster_sizes(hidden, lp)}
+        counts = {c: slots(c) for c in arnn_cluster_sizes(hidden, lp)}
     bad = sorted(c for c, n in counts.items() if n < 1)
     if bad:
         raise RuntimeError(f"arnn_sampled_decode: the card runs no cluster of sizes {bad} at "
@@ -181,11 +205,9 @@ def arnn_card_plan(rows: int, hidden: int, linear: int, device) -> LaunchPlan:
 
 
 def arnn_hopper_supports(hidden: int, linear: int, vocab: int) -> bool:
-    """Whether K7's bf16 Hopper route takes this geometry: a vocabulary of
-    at most 64 and a cluster plan (:func:`arnn_cluster_sizes`). The bf16
-    geometries it does not take (H 512 at a 256-wide head, a vocabulary
-    over 64) run the first kernel of the port, as the f32 route does."""
-    return vocab <= ARNN_OUT_COLS and bool(arnn_cluster_sizes(hidden, arnn_head_width(linear)))
+    """Whether K7's bf16 Hopper route takes this geometry: a cluster plan
+    (:func:`arnn_cluster_sizes`), at any vocabulary."""
+    return vocab >= 1 and bool(arnn_cluster_sizes(hidden, arnn_head_width(linear)))
 
 
 # --------------------------------------------------------------------------- #
@@ -211,15 +233,15 @@ def arnn_f32_smem_bytes(hidden: int, cluster: int) -> int:
 def arnn_f32_cluster_sizes(hidden: int, lp: int) -> list:
     """Cluster sizes the f32 route takes: CTAs owning whole pairs of 16-unit
     chunks (32 units a round, one chunk a consumer warpgroup), at most four
-    rounds (128 units), a head of at most 512 columns, and a block that
-    fits shared memory: H 64 takes 1 and 2, the flagship's H 256 takes 2, 4
-    and 8, H 512 takes 4 and 8."""
-    if hidden % 64 or hidden <= 0 or lp % ARNN_HID_COLS or not 0 < lp <= ARNN_MAX_HEAD:
+    rounds (128 units), and a block that fits shared memory, at any head
+    width: H 64 takes 1 and 2, the flagship's H 256 takes 2, 4 and 8, H 512
+    takes 4 and 8; H 320 takes 5, where no power of two fits
+    (``kernel_common.fitting_clusters``)."""
+    if hidden % 64 or hidden <= 0 or lp % ARNN_HID_COLS or lp <= 0:
         return []
-    return [c for c in ARNN_CLUSTERS
-            if hidden % c == 0 and (hidden // c) % 32 == 0
-            and hidden // c // 32 <= ARNN_F32_MAX_ROUNDS
-            and arnn_f32_smem_bytes(hidden, c) <= HOPPER_SMEM_BUDGET]
+    return fitting_clusters(lambda c: hidden % c == 0 and (hidden // c) % 32 == 0
+                            and hidden // c // 32 <= ARNN_F32_MAX_ROUNDS
+                            and arnn_f32_smem_bytes(hidden, c) <= HOPPER_SMEM_BUDGET)
 
 
 def arnn_f32_plan(rows: int, hidden: int, linear: int, sms: int, slots=None) -> LaunchPlan:
@@ -258,12 +280,9 @@ def arnn_f32_card_plan(rows: int, hidden: int, linear: int, device) -> LaunchPla
 
 
 def arnn_f32_supports(hidden: int, linear: int, vocab: int) -> bool:
-    """Whether K7's f32 Hopper route takes this geometry: a vocabulary of at
-    most 64 and a cluster plan (:func:`arnn_f32_cluster_sizes`). The f32
-    geometries it does not take (a vocabulary over 64, a head over 512
-    columns) run the first kernel of the port."""
-    return vocab <= ARNN_OUT_COLS and bool(arnn_f32_cluster_sizes(hidden,
-                                                                  arnn_head_width(linear)))
+    """Whether K7's f32 Hopper route takes this geometry: a cluster plan
+    (:func:`arnn_f32_cluster_sizes`), at any vocabulary."""
+    return vocab >= 1 and bool(arnn_f32_cluster_sizes(hidden, arnn_head_width(linear)))
 
 
 def _route_supports(hidden: int, linear: int, vocab: int, dtype) -> bool:
@@ -275,16 +294,13 @@ def _route_supports(hidden: int, linear: int, vocab: int, dtype) -> bool:
 
 def arnn_kernel_supports(hidden: int, ctx: int, linear: int, vocab: int, dtype) -> bool:
     """Whether K7 takes this geometry: H and C whole 64-unit chunks up to 512
-    (``kernel_supports_hidden``), and a plan of the dtype's Hopper route
-    (:func:`arnn_hopper_supports`, :func:`arnn_f32_supports`) or a tile that
-    fits one block's shared memory (the first kernel,
-    ``csrc/arnn_decode.cu``)."""
+    (``kernel_supports_hidden``) and a plan of the dtype's Hopper route
+    (:func:`arnn_hopper_supports`, :func:`arnn_f32_supports`), which every
+    such width has at any head width and vocabulary."""
     if dtype not in DTYPE_CODES or not (kernel_supports_hidden(hidden)
                                         and kernel_supports_hidden(ctx)):
         return False
-    if _route_supports(hidden, linear, vocab, dtype):
-        return True
-    return arnn_kernel_smem_bytes(hidden, ctx, linear, vocab, dtype) <= SMEM_LIMIT
+    return _route_supports(hidden, linear, vocab, dtype)
 
 
 def pack_lstm_blocks(w: torch.Tensor) -> torch.Tensor:
@@ -302,20 +318,29 @@ def pack_arnn_weights(w_hh0, w_ih1, w_hh1, w_l1, w_out) -> torch.Tensor:
     blocks), in the order the recurrence streams them: W_hh0 by chunk
     (:func:`pack_lstm_blocks`); layer 1 by chunk, each chunk's W_ih1
     k-slabs then its W_hh1 k-slabs (one stream, two accumulators); W_l1^T in
-    chunks of 128 hidden columns (zero past the head's width); W_out^T's
-    64 columns (zero past V) as two halves of 32, one a consumer
-    warpgroup's, each in blocks of four 32-row k-slabs: row 32 kk + r of
-    half w's block b is column 32 w + r at inputs 64 (4 b + kk) + [0, 64)."""
+    chunks of 128 hidden columns (zero past the head's width); W_out^T by
+    chunks of 64 vocabulary columns (zero past V, :func:`arnn_out_chunks`)
+    in blocks of :func:`arnn_out_kslabs` k-slabs. With 4: each chunk's
+    columns 0-31, then 32-63, one a consumer warpgroup's, each half in
+    blocks of four 32-row k-slabs over the head padded to 256: row 32 kk + r
+    of half w's block b of chunk c is column 64 c + 32 w + r at inputs
+    64 (4 b + kk) + [0, 64). With 2: each chunk in LP / 128 blocks of two
+    64-row k-slabs, row 64 kk + r of block b column 64 c + r at inputs
+    64 (2 b + kk) + [0, 64), which both warpgroups stream, warpgroup w
+    reading its rows 64 kk + 32 w + [0, 32)."""
     hidden, linear = w_l1.shape
     vocab = w_out.shape[1]
     lp = arnn_head_width(linear)
     layer1 = torch.cat([pack_lstm_blocks(w_ih1), pack_lstm_blocks(w_hh1)], dim=1)
     l1 = torch.nn.functional.pad(w_l1, (0, lp - linear)).t()  # (LP, H)
     l1 = l1.reshape(lp // 128, 128, hidden // 64, 64).permute(0, 2, 1, 3)
-    blocks = -(-lp // 256)  # of four 64-wide k-slabs each
-    out = torch.zeros((ARNN_OUT_COLS, blocks * 256), dtype=w_out.dtype, device=w_out.device)
+    chunks, kslabs = arnn_out_chunks(vocab), arnn_out_kslabs(hidden, lp)
+    width = round_up(lp, 64 * kslabs)
+    out = torch.zeros((chunks * ARNN_OUT_COLS, width), dtype=w_out.dtype, device=w_out.device)
     out[:vocab, :linear] = w_out.t()
-    out = out.reshape(2, 32, blocks, 4, 64).permute(0, 2, 3, 1, 4)
+    rows = 128 // kslabs  # of a k-slab in a block: 32 (a warpgroup's half) or 64
+    out = out.reshape(chunks, ARNN_OUT_COLS // rows, rows, width // (64 * kslabs), kslabs, 64)
+    out = out.permute(0, 1, 3, 4, 2, 5)
     return torch.cat([b.reshape(-1, 128, 64)
                       for b in (pack_lstm_blocks(w_hh0), layer1, l1, out)]).contiguous()
 
@@ -326,7 +351,8 @@ def pack_arnn_f32_weights(w_hh0, w_ih1, w_hh1, w_l1, w_out) -> torch.Tensor:
     order the recurrence streams them (``kernel_common.split_blocks``): W_hh0, W_ih1 and
     W_hh1 by pairs of 16-unit chunks, row 16 g + u of chunk c W's column g H
     + 16 c + u; W_l1^T by rounds of 128 hidden columns (zero past the head's
-    width); W_out^T's 64 columns (zero past V) beside a zero chunk."""
+    width); W_out^T by pairs of 64-column chunks (zero past V, a zero chunk
+    after an odd last one)."""
     hidden, linear = w_l1.shape
     vocab = w_out.shape[1]
     lp = arnn_head_width(linear)
@@ -337,7 +363,8 @@ def pack_arnn_f32_weights(w_hh0, w_ih1, w_hh1, w_l1, w_out) -> torch.Tensor:
             wt.permute(1, 0, 2, 3).reshape(4 * hidden, w.shape[0]))), 64)
 
     l1 = torch.nn.functional.pad(w_l1.float(), (0, lp - linear)).t()
-    out = torch.zeros((2 * ARNN_OUT_COLS, lp), dtype=torch.float32, device=w_out.device)
+    pairs = -(-arnn_out_chunks(vocab) // 2)
+    out = torch.zeros((pairs * 2 * ARNN_OUT_COLS, lp), dtype=torch.float32, device=w_out.device)
     out[:vocab, :linear] = w_out.float().t()
     return torch.cat([lstm(w_hh0), lstm(w_ih1), lstm(w_hh1),
                       split_blocks(torch.stack(split_bf16_pieces(l1)), 64),
@@ -366,8 +393,9 @@ def _build_arnn_operands(table, w_ih0, b_ih0, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1,
     return {"w_tok": w_tok, "tok_tab": (table.float() @ w_tok).to(table.dtype),
             "w_ctx_t": w_ih0[E:].t().contiguous(),
             "bias": torch.stack([b_ih0, b_hh0, b_ih1, b_hh1]),
-            "b_l1": pad(b_l1, (0, lp - linear)), "b_out": pad(b_out, (0, ARNN_OUT_COLS -
-                                                                      b_out.shape[0])),
+            "b_l1": pad(b_l1, (0, lp - linear)),
+            "b_out": pad(b_out, (0, arnn_out_chunks(b_out.shape[0]) * ARNN_OUT_COLS
+                                 - b_out.shape[0])),
             "packed": packed, "map": buf, "map_addr": addr}
 
 
@@ -392,7 +420,8 @@ def _build_arnn_f32_operands(table, w_ih0, b_ih0, w_hh0, b_hh0, w_ih1, b_ih1, w_
             "w_ctx": torch.stack(split_bf16_pieces(w_ih0[E:].t())).contiguous(),
             "bias": torch.stack([b_ih0, b_hh0, b_ih1, b_hh1]).float(),
             "b_l1": pad(b_l1.float(), (0, lp - linear)),
-            "b_out": pad(b_out.float(), (0, ARNN_OUT_COLS - b_out.shape[0])),
+            "b_out": pad(b_out.float(), (0, -(-arnn_out_chunks(b_out.shape[0]) // 2)
+                                         * 2 * ARNN_OUT_COLS - b_out.shape[0])),
             "packed": packed, "map": buf, "map_addr": addr}
 
 
@@ -417,11 +446,12 @@ def arnn_chunk_rows(batch: int, seq_len: int, hidden: int) -> int:
 def arnn_cuda_launches(dtype, batch: int, seq_len: int, hidden: int, linear: int,
                        vocab: int) -> int:
     """CUDA kernel launches of one K7 call: two a chunk of rows (the context
-    projection GEMM, then the recurrence) on either Hopper route, one on the
-    first kernel's."""
-    if _route_supports(hidden, linear, vocab, dtype):
-        return 2 * -(-batch // arnn_chunk_rows(batch, seq_len, hidden))
-    return 1
+    projection GEMM, then the recurrence) on either Hopper route, at every
+    geometry the gate takes. Raises ValueError for one it does not."""
+    if not _route_supports(hidden, linear, vocab, dtype):
+        raise ValueError(f"arnn_cuda_launches: no K7 route for dtype {dtype}, hidden size "
+                         f"{hidden}, head {linear} x {vocab}")
+    return 2 * -(-batch // arnn_chunk_rows(batch, seq_len, hidden))
 
 
 def arnn_decode_inputs(params, start_emb: torch.Tensor) -> dict:
@@ -584,6 +614,7 @@ def _decode_hopper(params, ctx, score, force_mask, start_emb, shape):
     for r0 in range(0, batch, chunk):
         rows = min(chunk, batch - r0)
         plan = arnn_card_plan(rows, hidden, linear, device)
+        ht = arnn_hid_cols(hidden, plan.cluster, lp)
         xwc = torch.empty((rows, seq_len, 4 * hidden), dtype=torch.float32, device=device)
         check_launch(lib.inpaint_arnn_ctx_gemm(ctx[r0].data_ptr(), ops["w_ctx_t"].data_ptr(),
                                                xwc.data_ptr(), rows * seq_len, C, 4 * hidden,
@@ -592,8 +623,9 @@ def _decode_hopper(params, ctx, score, force_mask, start_emb, shape):
             ops["map_addr"], xwc.data_ptr(), score[r0].data_ptr(), force_mask[r0].data_ptr(),
             ops["tok_tab"].data_ptr(), start_xw.data_ptr(), ops["bias"].data_ptr(),
             ops["b_l1"].data_ptr(), ops["b_out"].data_ptr(), logits[r0].data_ptr(),
-            tokens[r0].data_ptr(), rows, seq_len, hidden, lp, vocab, plan.cluster, plan.stages,
-            stream_ptr()), "arnn_sampled_decode")
+            tokens[r0].data_ptr(), rows, seq_len, hidden, lp, ht, vocab, plan.cluster,
+            plan.stages, kernel_common.head_ties(), arnn_out_kslabs(hidden, lp), stream_ptr()),
+            "arnn_sampled_decode")
     return logits, tokens
 
 
@@ -633,14 +665,17 @@ def _decode_hopper_f32(params, ctx, score, force_mask, start_emb, shape):
             ops["tok_tab"].data_ptr(), start_xw.data_ptr(), ops["bias"].data_ptr(),
             ops["b_l1"].data_ptr(), ops["b_out"].data_ptr(), logits[r0].data_ptr(),
             tokens[r0].data_ptr(), scratch.data_ptr(), rows, seq_len, hidden, lp, vocab,
-            plan.cluster, stream_ptr()), "arnn_sampled_decode")
+            plan.cluster, kernel_common.head_ties(), stream_ptr()), "arnn_sampled_decode")
     return logits, tokens
 
 
 def _decode_tiled(params, ctx, score, force_mask, start_emb, shape):
     """The first kernel of the port (csrc/arnn_decode.cu): one block a tile
-    of 16 (f32) or 32 (bf16) rows, every product inside the tick loop. It
-    runs the geometries neither Hopper route takes. ``shape`` is :func:`_check_arnn_args`'."""
+    of 16 (f32) or 32 (bf16) rows, every product inside the tick loop. No
+    route of :func:`arnn_sampled_decode` runs it: checks call it as the
+    yardstick of the Hopper routes' error at noisy weights, at geometries
+    whose tile fits one block's shared memory (the flagship's). ``shape``
+    is :func:`_check_arnn_args`'."""
     batch, seq_len, C, hidden, linear, vocab, dtype, device = shape
     p0, p1 = params["lstm_generation"]
     ins = arnn_decode_inputs(params, start_emb)
@@ -673,16 +708,12 @@ def arnn_sampled_decode(params, ctx: torch.Tensor, score: torch.Tensor,
     Arguments and results as :func:`arnn_sampled_decode_reference`, with
     (in, out) weights in f32 or bf16, ``score`` and ``force_mask`` int32;
     the entries of ``score`` at forced ticks must lie in [0, n_tok). The
-    dtype's Hopper route runs where :func:`arnn_hopper_supports` (bf16) or
-    :func:`arnn_f32_supports` (f32) holds, the first kernel elsewhere."""
+    dtype's Hopper route runs every geometry :func:`arnn_kernel_supports`
+    takes; the wrapper raises ValueError on any other."""
     if ctx.device.type == "cpu":
         return arnn_sampled_decode_reference(params, ctx, score, force_mask, start_emb)
     shape = _check_arnn_args(params, ctx, score, force_mask, start_emb)
-    _, _, _, hidden, linear, vocab, dtype, _ = shape
-    if not _route_supports(hidden, linear, vocab, dtype):
-        route = _decode_tiled
-    else:
-        route = _decode_hopper if dtype == torch.bfloat16 else _decode_hopper_f32
+    route = _decode_hopper if shape[6] == torch.bfloat16 else _decode_hopper_f32
     out = route(params, ctx, score, force_mask, start_emb, shape)
     arnn_sampled_decode.launches += 1
     return out

@@ -5,12 +5,13 @@
 // token replaces the sampled one, as the output and as the feedback.
 //
 // Replaces the TPU kernel inpaintnet_tpu/ops/arnn_pallas.py
-// arnn_sampled_decode_pallas (_arnn_kernel). Both routes, at the
-// geometries their plans take, are the Hopper designs of arnn_hopper.cuh
-// (entry points at the end of this file: arnn_kernel in bf16, the split
-// arnn_f32_kernel in f32); the kernel below runs wherever those plans do
-// not fit (a vocabulary over 64; in bf16 H 512 at a 256-wide head, in f32
-// more than 128 units a CTA). Same numerics: layer 0's
+// arnn_sampled_decode_pallas (_arnn_kernel). Both routes are the Hopper
+// designs of arnn_hopper.cuh (entry points at the end of this file:
+// arnn_kernel in bf16, the split arnn_f32_kernel in f32), at every
+// geometry the wrapper's gate takes. The kernel below, the port's first,
+// runs on no route of the wrapper any more: chip_smoke.py and the card
+// tests call it directly as the accuracy yardstick of the Hopper routes at
+// noisy weights (arnn_kernel.first_kernel_decode). Same numerics: layer 0's
 // input projection is prev_xw + ctx_t @ W_ctx + b_ih0 with prev_xw a row of
 // the parameter-dtype token table (start_xw at t = 0) and the context
 // product inside the loop; products accumulate in f32, biases and gates
@@ -263,9 +264,9 @@ static cudaError_t arnn_decode(const ArnnArgs<T>& a, cudaStream_t stream) {
 
 }  // namespace inpaint
 
-// dtype: 0 = float32, 1 = bfloat16 (where arnn_kernel.arnn_hopper_supports
-// is false; inpaint_arnn_decode_bf16 runs the rest). Tensors as documented
-// on ArnnArgs. Returns the cudaError_t of the launch (0 on success);
+// The first kernel (arnn_kernel.first_kernel_decode, a yardstick): dtype 0
+// = float32, 1 = bfloat16. Tensors as documented on ArnnArgs. Returns the
+// cudaError_t of the launch (0 on success);
 // launches on `stream` and does not synchronise.
 extern "C" int inpaint_arnn_decode(int dtype, const void* ctx, const void* score,
                                    const void* force, const void* tok_tab, const void* start_xw,
@@ -299,15 +300,18 @@ extern "C" int inpaint_arnn_decode(int dtype, const void* ctx, const void* score
 // The bf16 route (arnn_hopper.cuh): `map` is inpaint_arnn_map's over
 // arnn_kernel.pack_arnn_weights; `xwc` (B, S, 4H) f32 is ctx @ W_ctx
 // (inpaint_arnn_ctx_gemm); `cluster` CTAs share each 64-row tile and
-// `stages` is the depth of each consumer warpgroup's ring
-// (arnn_kernel.arnn_plan). bias (4, 4H), b_l1 (LP,), b_out (64,) bf16;
-// score, force (B, S) int32; logits (B, S, V) bf16; tokens (B, S) int32.
+// `stages` is the depth of each consumer warpgroup's ring, HT the hidden
+// tile's width and `out_kslabs` the k-slabs of a W_out^T block
+// (arnn_kernel.arnn_plan, arnn_hid_cols, arnn_out_kslabs). bias (4, 4H),
+// b_l1 (LP,), b_out (64 NOC,) bf16; score, force (B, S) int32; logits (B,
+// S, V) bf16; tokens (B, S) int32; `ties` 0 (1: the planted fault of
+// gru_layer_hopper.cuh head_beats).
 extern "C" int inpaint_arnn_decode_bf16(const void* map, const void* xwc, const void* score,
                                         const void* force, const void* tok_tab,
                                         const void* start_xw, const void* bias, const void* b_l1,
                                         const void* b_out, void* logits, void* tokens, int B,
-                                        int S, int H, int LP, int V, int cluster, int stages,
-                                        void* stream) {
+                                        int S, int H, int LP, int HT, int V, int cluster,
+                                        int stages, int ties, int out_kslabs, void* stream) {
   if (map == nullptr) return (int)cudaErrorInvalidValue;
   using T = __nv_bfloat16;
   CUtensorMap m;
@@ -317,7 +321,7 @@ extern "C" int inpaint_arnn_decode_bf16(const void* map, const void* xwc, const 
                                    static_cast<const T*>(start_xw), static_cast<const T*>(bias),
                                    static_cast<const T*>(b_l1), static_cast<const T*>(b_out),
                                    static_cast<T*>(logits), static_cast<int*>(tokens),
-                                   B, S, H, LP, V, stages};
+                                   B, S, H, LP, HT, V, stages, ties, out_kslabs};
   return (int)inpaint::rec90::launch_arnn(m, a, cluster, static_cast<cudaStream_t>(stream));
 }
 
@@ -328,11 +332,11 @@ extern "C" int inpaint_arnn_map(const void* packed, int blocks, void* map_out) {
   return (int)inpaint::rec90::make_lstm_map(static_cast<CUtensorMap*>(map_out), packed, blocks);
 }
 
-// Clusters of `cluster` CTAs of the bf16 route at widths H and LP with
-// `stages` ring stages that the card runs at once; -1 where the plan does
-// not fit.
-extern "C" int inpaint_arnn_slots(int H, int cluster, int LP, int stages) {
-  return inpaint::rec90::arnn_slots(H, cluster, LP, stages);
+// Clusters of `cluster` CTAs of the bf16 route at width H with a hidden
+// tile of HT columns and `stages` ring stages that the card runs at once;
+// -1 where the plan does not fit.
+extern "C" int inpaint_arnn_slots(int H, int cluster, int HT, int stages) {
+  return inpaint::rec90::arnn_slots(H, cluster, HT, stages);
 }
 
 // The bf16 route's context projection: out (M, N) f32 = ctx (M, K) bf16 @
@@ -349,14 +353,15 @@ extern "C" int inpaint_arnn_ctx_gemm(const void* ctx, const void* w_t, void* out
 // S, 4H) f32 is ctx @ W_ctx (inpaint_arnn_ctx_gemm_f32); `scratch` (tiles,
 // 3, 2, 3, 64, max(H, LP)) bf16, zero; `cluster` CTAs share each 64-row
 // tile (arnn_kernel.arnn_f32_plan). tok_tab (n_tok, 4H), start_xw (4H,),
-// bias (4, 4H), b_l1 (LP,), b_out (64,) f32; score, force (B, S) int32;
-// logits (B, S, V) f32; tokens (B, S) int32.
+// bias (4, 4H), b_l1 (LP,), b_out (128 pairs,) f32; score, force (B, S)
+// int32; logits (B, S, V) f32; tokens (B, S) int32; `ties` 0 (1: the
+// planted fault of head_beats).
 extern "C" int inpaint_arnn_decode_f32(const void* map, const void* xwc, const void* score,
                                        const void* force, const void* tok_tab,
                                        const void* start_xw, const void* bias, const void* b_l1,
                                        const void* b_out, void* logits, void* tokens,
                                        void* scratch, int B, int S, int H, int LP, int V,
-                                       int cluster, void* stream) {
+                                       int cluster, int ties, void* stream) {
   if (map == nullptr) return (int)cudaErrorInvalidValue;
   CUtensorMap m;
   memcpy(&m, map, sizeof(m));
@@ -366,7 +371,7 @@ extern "C" int inpaint_arnn_decode_f32(const void* map, const void* xwc, const v
       static_cast<const float*>(start_xw), static_cast<const float*>(bias),
       static_cast<const float*>(b_l1),    static_cast<const float*>(b_out),
       static_cast<float*>(logits),        static_cast<int*>(tokens),
-      static_cast<__nv_bfloat16*>(scratch), B, S, H, LP, V};
+      static_cast<__nv_bfloat16*>(scratch), B, S, H, LP, V, ties};
   return (int)inpaint::rec90::launch_arnn_f32(m, a, cluster, static_cast<cudaStream_t>(stream));
 }
 

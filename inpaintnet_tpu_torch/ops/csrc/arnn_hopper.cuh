@@ -32,12 +32,23 @@
 //   each (row, unit).
 // - The head: every CTA recomputes it on its identical h1 (so every CTA
 //   reaches the same token with no exchange): relu(h1 @ W_l1 + b_l1), 128
-//   hidden columns a warpgroup chunk, rounded to bf16 into a shared tile;
-//   then that tile @ W_out + b_out, each warpgroup 32 of the 64 (padded)
-//   vocabulary columns, streaming only its own columns' k-slabs; the
-//   first-index argmax over the V real columns (a quad's shuffles, then the
-//   two warpgroups in shared memory); the force mask; CTA 0 writes the
-//   logits and the tokens.
+//   hidden columns a warpgroup chunk, rounded to bf16 into a shared tile of
+//   HT columns; then that tile @ W_out + b_out by chunks of 64 vocabulary
+//   columns (V zero-padded to whole chunks), warpgroup w taking the columns
+//   [32w, 32w + 32) of every chunk, each streaming its own half in blocks
+//   of four k-slabs where HT is whole 256-column blocks or the whole head
+//   (arnn_kernel.arnn_out_kslabs), else blocks of two k-slabs of the whole
+//   chunk through both rings. One chunk on the whole hidden row (V at most
+//   64) takes the one-chunk path of the flagship. HT is the whole
+//   padded head width LP where that fits beside the h tiles and rings
+//   (arnn_kernel.arnn_hid_cols), else a part of it: then the hidden tile is
+//   computed in LP / HT rounds, each chunk's logits accumulating over the
+//   rounds in the same wgmma order, and recomputed for each chunk. Each
+//   thread keeps a running (max, index) of its rows across the chunks, then
+//   a quad's shuffles and the two warpgroups in shared memory merge them,
+//   the lower index winning a tie (gru_layer_hopper.cuh): the first index
+//   among equal maxima over the V real columns; after the last chunk the
+//   force mask; CTA 0 writes the logits and the tokens.
 // - Numerics as the f32 route's kernel: products in f32, biases and gates
 //   in f32, both layers' h and c rounded to bf16 every tick, the head's
 //   hidden rounded to bf16, unbounded f32 logits written in bf16. Rows past
@@ -69,7 +80,7 @@ namespace rec90 {
 constexpr int kLstmRows = 4 * kUnits;              // a chunk's i, f, g, o rows: the wgmma N
 constexpr int kLstmSlabBytes = kLstmRows * 128;    // one k-slab of a chunk: 16 KB
 constexpr int kHidCols = 128;                      // hidden columns of a head chunk
-constexpr int kOutCols = 64;                       // the vocabulary, zero-padded
+constexpr int kOutCols = 64;                       // vocabulary columns of an output chunk
 // a whole producer warpgroup (two warps feed the rings, two idle), so that
 // setmaxnreg can hand its registers to the consumers: 232 each, where the
 // launch's 384 threads leave 168, and layer 1's two 64 x 128 accumulators
@@ -85,11 +96,17 @@ struct ArnnArgs {
   const __nv_bfloat16* start_xw; // (4H,): the tick-0 input
   const __nv_bfloat16* bias;     // (4, 4H): b_ih0, b_hh0, b_ih1, b_hh1
   const __nv_bfloat16* b_l1;     // (LP,), zero past the head's width
-  const __nv_bfloat16* b_out;    // (64,), zero past V
+  const __nv_bfloat16* b_out;    // (64 NOC,), zero past V
   __nv_bfloat16* logits;         // (B, S, V)
   int* tokens;                   // (B, S)
-  int B, S, H, LP, V, stages;
+  int B, S, H, LP, HT, V, stages, ties;  // HT: the hidden tile's width; ties: chunk_at's
+  int OK;                        // k-slabs of a W_out^T block: 4 or 2 (arnn_out_kslabs)
 };
+
+// output chunks of the head: V zero-padded to whole chunks of kOutCols
+__host__ __device__ __forceinline__ int out_chunks(int V) {
+  return (V + kOutCols - 1) / kOutCols;
+}
 
 // what every consumer thread of a K7 CTA reads in each stage of a tick
 struct ArnnCta {
@@ -243,89 +260,203 @@ __device__ __forceinline__ void arnn_layer1(const ArnnArgs& p, const ArnnCta& k,
 
 // The head and the argmax with the force mask, in every CTA on its own
 // (identical) h1. CTA 0 of the cluster writes the logits and the tokens.
+// kChunks: more than one output chunk or hidden round (else the one-chunk
+// path, in an instantiation of its own that keeps today's registers).
+template <bool kChunks>
 __device__ __forceinline__ void arnn_head(const ArnnArgs& p, const ArnnCta& k,
                                           RingT<kLstmSlabBytes>& rg, uint32_t rank, int t,
                                           float (&best_s)[kConsumers][kRows],
                                           int (&arg_s)[kConsumers][kRows]) {
   const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2,
             q = lane & 3;
-  const int LC = p.LP / kHidCols, LB = p.LP / 64;
-  // relu(h1 @ W_l1 + b_l1), rounded to bf16, into the hidden tile
-  for (int lc = k.wg; lc < LC; lc += kConsumers) {
-    float acc[64];
-    rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
-      mma_slab(acc, desc_sw128(k.h1t + kk * kBlockBytes), desc_sw128(slab), kk > 0);
-    });
-    fence_operands(acc);
+  const int rounds = p.LP / p.HT, RC = p.HT / kHidCols, HB = p.HT / 64;
+  const int NOC = out_chunks(p.V);
+  if constexpr (!kChunks) {
+    // one output chunk (V at most 64, the flagship's) on the whole hidden
+    // row (OK 4): the same function as the general path below, in fewer
+    // steps (the general path was slower at one chunk; PERF.md)
+    const int LC = p.LP / kHidCols, LB = p.LP / 64;
+    // relu(h1 @ W_l1 + b_l1), rounded to bf16, into the hidden tile
+    for (int lc = k.wg; lc < LC; lc += kConsumers) {
+      float acc[64];
+      rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
+        mma_slab(acc, desc_sw128(k.h1t + kk * kBlockBytes), desc_sw128(slab), kk > 0);
+      });
+      fence_operands(acc);
 #pragma unroll
-    for (int i = 0; i < 64; i += 2) {
-      const int r = 16 * warp + g + 8 * ((i >> 1) & 1);
-      const int col = lc * kHidCols + 8 * (i >> 2) + 2 * q;
-      const uint32_t b = ldg_u32(p.b_l1 + col);
-      *reinterpret_cast<uint32_t*>(k.hid + sw128_offset(r, col * 2, kRows)) =
-          pack_bf16(fmaxf(__fadd_rn(acc[i], bf_lo(b)), 0.0f),
-                    fmaxf(__fadd_rn(acc[i + 1], bf_hi(b)), 0.0f));
-    }
-  }
-  fence_proxy_async();
-  named_barrier(kBar, kConsumerThreads);
-  // the logits: warpgroup w takes the columns [32w, 32w + 32), four k-slabs
-  // of them a 128-row block (its own blocks of W_out^T)
-  const int col0 = 32 * k.wg;
-  float lg[16];
-  rg.consume((LB + 3) / 4, lane, [&](int b, unsigned char* slab) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int ks = 4 * b + kk;
-      if (ks < LB)
-        mma_slab(lg, desc_sw128(k.hid + ks * kBlockBytes), desc_sw128(slab + kk * 32 * 128),
-                 ks > 0);
-    }
-  });
-  fence_operands(lg);
-  // lg[i]: row 16 warp + g + 8 ((i / 2) % 2), column col0 + 8 (i / 4) + 2q + i % 2
-  float best[2] = {-INFINITY, -INFINITY};
-  int arg[2] = {INT_MAX, INT_MAX};
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int half = (i >> 1) & 1, col = col0 + 8 * (i >> 2) + 2 * q + (i & 1);
-    lg[i] = __fadd_rn(lg[i], __bfloat162float(p.b_out[col]));
-    if (col < p.V && lg[i] > best[half]) {  // columns ascend: the first of equal maxima
-      best[half] = lg[i];
-      arg[half] = col;
-    }
-  }
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {  // the quad holding the row's 32 columns
-      const float ob = __shfl_xor_sync(0xffffffffu, best[half], off);
-      const int oa = __shfl_xor_sync(0xffffffffu, arg[half], off);
-      if (ob > best[half] || (ob == best[half] && oa < arg[half])) {
-        best[half] = ob;
-        arg[half] = oa;
+      for (int i = 0; i < 64; i += 2) {
+        const int r = 16 * warp + g + 8 * ((i >> 1) & 1);
+        const int col = lc * kHidCols + 8 * (i >> 2) + 2 * q;
+        const uint32_t b = ldg_u32(p.b_l1 + col);
+        *reinterpret_cast<uint32_t*>(k.hid + sw128_offset(r, col * 2, kRows)) =
+            pack_bf16(fmaxf(__fadd_rn(acc[i], bf_lo(b)), 0.0f),
+                      fmaxf(__fadd_rn(acc[i + 1], bf_hi(b)), 0.0f));
       }
     }
-    const int r = 16 * warp + g + 8 * half, row = k.tile0 + r;
-    if (q == 0) {
-      best_s[k.wg][r] = best[half];
-      arg_s[k.wg][r] = arg[half];
+    fence_proxy_async();
+    named_barrier(kBar, kConsumerThreads);
+    // the logits: warpgroup w takes the columns [32w, 32w + 32), four k-slabs
+    // of them a 128-row block (its own blocks of W_out^T)
+    const int col0 = 32 * k.wg;
+    float lg[16];
+    rg.consume((LB + 3) / 4, lane, [&](int b, unsigned char* slab) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int ks = 4 * b + kk;
+        if (ks < LB)
+          mma_slab(lg, desc_sw128(k.hid + ks * kBlockBytes), desc_sw128(slab + kk * 32 * 128),
+                   ks > 0);
+      }
+    });
+    fence_operands(lg);
+    // lg[i]: row 16 warp + g + 8 ((i / 2) % 2), column col0 + 8 (i / 4) + 2q + i % 2
+    float best[2] = {-INFINITY, -INFINITY};
+    int arg[2] = {INT_MAX, INT_MAX};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int half = (i >> 1) & 1, col = col0 + 8 * (i >> 2) + 2 * q + (i & 1);
+      lg[i] = __fadd_rn(lg[i], __bfloat162float(p.b_out[col]));
+      if (col < p.V && lg[i] > best[half]) {  // columns ascend: the first of equal maxima
+        best[half] = lg[i];
+        arg[half] = col;
+      }
     }
-    if (rank == 0 && row < p.B) {
-      __nv_bfloat16* out = p.logits + ((size_t)row * p.S + t) * p.V;
 #pragma unroll
-      for (int i = 2 * half; i < 16; i += 4) {
+    for (int half = 0; half < 2; ++half) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = col0 + 8 * (i >> 2) + 2 * q + e;
-          if (col < p.V) out[col] = __float2bfloat16_rn(lg[i + e]);
+      for (int off = 1; off <= 2; off <<= 1) {  // the quad holding the row's 32 columns
+        const float ob = __shfl_xor_sync(0xffffffffu, best[half], off);
+        const int oa = __shfl_xor_sync(0xffffffffu, arg[half], off);
+        if (ob > best[half] || (ob == best[half] && oa < arg[half])) {
+          best[half] = ob;
+          arg[half] = oa;
+        }
+      }
+      const int r = 16 * warp + g + 8 * half, row = k.tile0 + r;
+      if (q == 0) {
+        best_s[k.wg][r] = best[half];
+        arg_s[k.wg][r] = arg[half];
+      }
+      if (rank == 0 && row < p.B) {
+        __nv_bfloat16* out = p.logits + ((size_t)row * p.S + t) * p.V;
+#pragma unroll
+        for (int i = 2 * half; i < 16; i += 4) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = col0 + 8 * (i >> 2) + 2 * q + e;
+            if (col < p.V) out[col] = __float2bfloat16_rn(lg[i + e]);
+          }
+        }
+      }
+    }
+    named_barrier(kBar, kConsumerThreads);
+    if (tid < kRows) {  // warpgroup 1's columns win only by a larger logit
+      int a = best_s[1][tid] > best_s[0][tid] ? arg_s[1][tid] : arg_s[0][tid];
+      const int row = k.tile0 + tid;
+      if (row < p.B) {
+        const size_t o = (size_t)row * p.S + t;
+        if (p.force[o] > 0) a = p.score[o];
+        if (rank == 0) p.tokens[o] = a;
+      }
+      k.prev_tok[tid] = a;
+    }
+    return;
+  }
+  float best[2] = {-INFINITY, -INFINITY};
+  int arg[2] = {INT_MAX, INT_MAX};
+  for (int j = 0; j < NOC; ++j) {
+    const int oc = chunk_at(j, NOC, p.ties);
+    float lg[16];
+    for (int hr = 0; hr < rounds; ++hr) {
+      if (j == 0 || rounds > 1) {
+        // the hidden tile is free: every warpgroup has read the last round's
+        if (j > 0 || hr > 0) named_barrier(kBar, kConsumerThreads);
+        // relu(h1 @ W_l1 + b_l1) of round hr's hidden columns, rounded to bf16
+        for (int lc = k.wg; lc < RC; lc += kConsumers) {
+          float acc[64];
+          rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
+            mma_slab(acc, desc_sw128(k.h1t + kk * kBlockBytes), desc_sw128(slab), kk > 0);
+          });
+          fence_operands(acc);
+#pragma unroll
+          for (int i = 0; i < 64; i += 2) {
+            const int r = 16 * warp + g + 8 * ((i >> 1) & 1);
+            const int col = lc * kHidCols + 8 * (i >> 2) + 2 * q;
+            const uint32_t b = ldg_u32(p.b_l1 + hr * p.HT + col);
+            *reinterpret_cast<uint32_t*>(k.hid + sw128_offset(r, col * 2, kRows)) =
+                pack_bf16(fmaxf(__fadd_rn(acc[i], bf_lo(b)), 0.0f),
+                          fmaxf(__fadd_rn(acc[i + 1], bf_hi(b)), 0.0f));
+          }
+        }
+        fence_proxy_async();
+        named_barrier(kBar, kConsumerThreads);
+      }
+      // this warpgroup's 32 columns of chunk oc over round hr's k-slabs: a
+      // block of its own four 32-row k-slabs, or rows 64 kk + 32 wg of a
+      // block of two k-slabs of the chunk's 64 columns
+      if (p.OK == 4)
+        rg.consume((HB + 3) / 4, lane, [&](int b, unsigned char* slab) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const int ks = 4 * b + kk;
+            if (ks < HB)
+              mma_slab(lg, desc_sw128(k.hid + ks * kBlockBytes), desc_sw128(slab + kk * 32 * 128),
+                       hr > 0 || ks > 0);
+          }
+        });
+      else
+        rg.consume(HB / 2, lane, [&](int b, unsigned char* slab) {
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) {
+            const int ks = 2 * b + kk;
+            mma_slab(lg, desc_sw128(k.hid + ks * kBlockBytes),
+                     desc_sw128(slab + (64 * kk + 32 * k.wg) * 128), hr > 0 || ks > 0);
+          }
+        });
+      fence_operands(lg);
+    }
+    // lg[i]: row 16 warp + g + 8 ((i / 2) % 2), column 64 oc + 32 wg + 8 (i / 4) + 2q + i % 2
+    const int c0 = kOutCols * oc + 32 * k.wg;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int half = (i >> 1) & 1, col = c0 + 8 * (i >> 2) + 2 * q + (i & 1);
+      lg[i] = __fadd_rn(lg[i], __bfloat162float(p.b_out[col]));
+      if (col < p.V && lg[i] > best[half]) {
+        best[half] = lg[i];
+        arg[half] = col;
+      }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = k.tile0 + 16 * warp + g + 8 * half;
+      if (rank == 0 && row < p.B) {
+        __nv_bfloat16* out = p.logits + ((size_t)row * p.S + t) * p.V;
+#pragma unroll
+        for (int i = 2 * half; i < 16; i += 4) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = c0 + 8 * (i >> 2) + 2 * q + e;
+            if (col < p.V) out[col] = __float2bfloat16_rn(lg[i + e]);
+          }
         }
       }
     }
   }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    quad_best(best[half], arg[half]);
+    const int r = 16 * warp + g + 8 * half;
+    if (q == 0) {
+      best_s[k.wg][r] = best[half];
+      arg_s[k.wg][r] = arg[half];
+    }
+  }
   named_barrier(kBar, kConsumerThreads);
-  if (tid < kRows) {  // warpgroup 1's columns win only by a larger logit
-    int a = best_s[1][tid] > best_s[0][tid] ? arg_s[1][tid] : arg_s[0][tid];
+  if (tid < kRows) {
+    int a = head_beats(best_s[1][tid], arg_s[1][tid], best_s[0][tid], arg_s[0][tid], kOutCols,
+                       p.ties)
+                ? arg_s[1][tid]
+                : arg_s[0][tid];
     const int row = k.tile0 + tid;
     if (row < p.B) {
       const size_t o = (size_t)row * p.S + t;
@@ -339,10 +470,13 @@ __device__ __forceinline__ void arnn_head(const ArnnArgs& p, const ArnnCta& k,
 // The packed weights the map covers (arnn_kernel.pack_arnn_weights): 16 KB
 // blocks of 128 rows x 64 of K. W_hh0 in H / 32 chunks of H / 64 k-slabs;
 // layer 1 in H / 32 chunks of 2H / 64 k-slabs (W_ih1's, then W_hh1's); the
-// head's W_l1^T in LP / 128 chunks of H / 64 k-slabs; W_out^T's 64 (padded)
-// columns as warpgroup 0's 32 then warpgroup 1's, each in blocks of four
-// 32-row k-slabs.
-template <int MAXC>
+// head's W_l1^T in LP / 128 chunks of H / 64 k-slabs; W_out^T by chunks of
+// 64 (padded) vocabulary columns: with OK 4 each chunk's columns 0-31, then
+// 32-63, each half in blocks of four 32-row k-slabs (LP padded to 256),
+// streamed by its warpgroup's ring; with OK 2 the chunk in LP / 128 blocks
+// of two 64-row k-slabs, which both rings stream (each warpgroup reads 32
+// rows of each).
+template <int MAXC, bool kChunks>
 __global__ void __launch_bounds__(kArnnThreads, 1)
     arnn_kernel(const __grid_constant__ CUtensorMap w_map, const __grid_constant__ ArnnArgs p) {
   extern __shared__ unsigned char smem_raw[];
@@ -356,7 +490,7 @@ __global__ void __launch_bounds__(kArnnThreads, 1)
   unsigned char* h0t = align1024(smem_raw);
   unsigned char* h1t = h0t + KB * kBlockBytes;
   unsigned char* hid = h1t + KB * kBlockBytes;
-  unsigned char* ring = hid + (p.LP / 64) * kBlockBytes;
+  unsigned char* ring = hid + (p.HT / 64) * kBlockBytes;
   const int C = (int)cluster_nctarank();
   const uint32_t rank = cluster_ctarank();
   const int U = H / C, nch = U / kUnits, chunk0 = (int)rank * nch;
@@ -396,12 +530,21 @@ __global__ void __launch_bounds__(kArnnThreads, 1)
       const int chunks = H / kUnits;
       const int l1_base = chunks * KB, head_base = l1_base + chunks * 2 * KB;
       const int LC = p.LP / kHidCols, out_base = head_base + LC * KB;
-      const int out_blocks = (p.LP / 64 + 3) / 4;  // each warpgroup's blocks of W_out^T
+      const int rounds = p.LP / p.HT, RC = p.HT / kHidCols, NOC = out_chunks(p.V);
+      // W_out^T's blocks of a chunk (of this warpgroup's half of it) and of a round
+      const int OB = p.OK == 4 ? (p.LP + 255) / 256 : p.LP / 128;
+      const int RB = p.OK == 4 ? (p.HT + 255) / 256 : p.HT / 128;
       for (int t = 0; t < S; ++t) {
         for (int c = w; c < nch; c += kConsumers) f.slabs((chunk0 + c) * KB, KB);
         for (int c = w; c < nch; c += kConsumers) f.slabs(l1_base + (chunk0 + c) * 2 * KB, 2 * KB);
-        for (int lc = w; lc < LC; lc += kConsumers) f.slabs(head_base + lc * KB, KB);
-        f.slabs(out_base + w * out_blocks, out_blocks);
+        for (int j = 0; j < NOC; ++j)
+          for (int hr = 0; hr < rounds; ++hr) {
+            const int oc = chunk_at(j, NOC, p.ties);
+            if (j == 0 || rounds > 1)
+              for (int lc = w; lc < RC; lc += kConsumers)
+                f.slabs(head_base + (hr * RC + lc) * KB, KB);
+            f.slabs(out_base + (p.OK == 4 ? 2 * oc + w : oc) * OB + hr * RB, RB);
+          }
       }
     }
     cluster_sync();
@@ -420,56 +563,65 @@ __global__ void __launch_bounds__(kArnnThreads, 1)
     named_barrier(kBar, kConsumerThreads);
     arnn_layer0<MAXC>(p, cta, rg, ex0, t);
     arnn_layer1<MAXC>(p, cta, rg, ex1, t);
-    arnn_head(p, cta, rg, rank, t, head_best, head_arg);
+    arnn_head<kChunks>(p, cta, rg, rank, t, head_best, head_arg);
   }
   cluster_sync();
 }
 
-// dynamic shared memory of a K7 block: both h tiles, the hidden tile, the
-// rings and the two c arrays (and 1 KB of alignment)
-inline size_t arnn_smem_bytes(int H, int C, int LP, int stages) {
-  return (size_t)(2 * (H / 64) + LP / 64) * kBlockBytes +
+// dynamic shared memory of a K7 block: both h tiles, the hidden tile of HT
+// columns, the rings and the two c arrays (and 1 KB of alignment)
+inline size_t arnn_smem_bytes(int H, int C, int HT, int stages) {
+  return (size_t)(2 * (H / 64) + HT / 64) * kBlockBytes +
          (size_t)kConsumers * stages * kLstmSlabBytes + 2ull * kRows * (H / C) * 2 + 1024;
 }
 
 // the launch's checks: C in 1..8 owning whole 64-unit k-blocks, at most 4
 // chunks a warpgroup (more leave no ring beside the tiles and c carries), a
-// head of 128-column chunks up to 512 and a vocabulary of at most 64, a
-// ring of 2..kMaxStages stages that fits
-inline bool arnn_plan_fits(int H, int C, int LP, int V, int stages) {
-  if (H % 64 != 0 || H <= 0 || C < 1 || C > kMaxCluster || (C & (C - 1)) != 0) return false;
+// hidden tile of whole 128-column chunks that splits the head's LP into
+// rounds, a ring of 2..kMaxStages stages that fits
+inline bool arnn_plan_fits(int H, int C, int LP, int HT, int V, int stages) {
+  if (H % 64 != 0 || H <= 0 || C < 1 || C > kMaxCluster) return false;
   if ((H / 64) % C != 0 || H / C > 4 * kConsumers * kUnits) return false;
-  if (LP < kHidCols || LP % kHidCols != 0 || LP > 512 || V < 1 || V > kOutCols) return false;
+  if (HT < kHidCols || HT % kHidCols != 0 || LP % HT != 0 || V < 1) return false;
   if (stages < 2 || stages > kMaxStages) return false;
-  return arnn_smem_bytes(H, C, LP, stages) <= (size_t)kSmemBudget;
+  return arnn_smem_bytes(H, C, HT, stages) <= (size_t)kSmemBudget;
 }
 
-inline int arnn_slots(int H, int C, int LP, int stages) {
-  if (!arnn_plan_fits(H, C, LP, 1, stages)) return -1;
-  const size_t smem = arnn_smem_bytes(H, C, LP, stages);
+inline int arnn_slots(int H, int C, int HT, int stages) {
+  if (!arnn_plan_fits(H, C, HT, HT, 1, stages)) return -1;
+  const size_t smem = arnn_smem_bytes(H, C, HT, stages);
   switch (chunks_per_warpgroup(H, C)) {
-    case 1: return max_clusters(arnn_kernel<1>, C, smem, kArnnThreads);
-    case 2: return max_clusters(arnn_kernel<2>, C, smem, kArnnThreads);
-    default: return max_clusters(arnn_kernel<4>, C, smem, kArnnThreads);
+    case 1: return max_clusters(arnn_kernel<1, false>, C, smem, kArnnThreads);
+    case 2: return max_clusters(arnn_kernel<2, false>, C, smem, kArnnThreads);
+    default: return max_clusters(arnn_kernel<4, false>, C, smem, kArnnThreads);
+  }
+}
+
+template <bool kChunks>
+inline cudaError_t launch_arnn_as(const CUtensorMap& map, const ArnnArgs& a, int C, int clusters,
+                                  size_t smem, cudaStream_t stream) {
+  switch (chunks_per_warpgroup(a.H, C)) {
+    case 1: return launch_clusters(arnn_kernel<1, kChunks>, clusters, C, smem, stream, map, a,
+                                   kArnnThreads);
+    case 2: return launch_clusters(arnn_kernel<2, kChunks>, clusters, C, smem, stream, map, a,
+                                   kArnnThreads);
+    case 3:
+    case 4: return launch_clusters(arnn_kernel<4, kChunks>, clusters, C, smem, stream, map, a,
+                                   kArnnThreads);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 inline cudaError_t launch_arnn(const CUtensorMap& map, const ArnnArgs& a, int C,
                                cudaStream_t stream) {
-  if (!arnn_plan_fits(a.H, C, a.LP, a.V, a.stages) || a.B < 1 || a.S < 1)
+  if (!arnn_plan_fits(a.H, C, a.LP, a.HT, a.V, a.stages) || a.B < 1 || a.S < 1 ||
+      !(a.OK == 2 || (a.OK == 4 && (a.HT == a.LP || a.HT % 256 == 0))))
     return cudaErrorInvalidValue;
   const int clusters = (a.B + kRows - 1) / kRows;
-  const size_t smem = arnn_smem_bytes(a.H, C, a.LP, a.stages);
-  switch (chunks_per_warpgroup(a.H, C)) {
-    case 1: return launch_clusters(arnn_kernel<1>, clusters, C, smem, stream, map, a,
-                                   kArnnThreads);
-    case 2: return launch_clusters(arnn_kernel<2>, clusters, C, smem, stream, map, a,
-                                   kArnnThreads);
-    case 3:
-    case 4: return launch_clusters(arnn_kernel<4>, clusters, C, smem, stream, map, a,
-                                   kArnnThreads);
-    default: return cudaErrorInvalidValue;
-  }
+  const size_t smem = arnn_smem_bytes(a.H, C, a.HT, a.stages);
+  const bool one = out_chunks(a.V) == 1 && a.HT == a.LP && a.OK == 4;
+  return one ? launch_arnn_as<false>(map, a, C, clusters, smem, stream)
+             : launch_arnn_as<true>(map, a, C, clusters, smem, stream);
 }
 
 // A 3D tensor map over K7's packed 16 KB blocks (128 rows x 64 bf16 of K),
@@ -514,10 +666,11 @@ inline cudaError_t make_lstm_map(CUtensorMap* map, const void* packed, int block
 //   Its c carries stay in shared memory in f32.
 // - The head: CTA r computes the hidden columns of rounds r, r + C, ... of
 //   128 (64 a warpgroup), relu(h1 @ W_l1 + b_l1), and writes their pieces;
-//   then every CTA computes all 64 (padded) logit columns from the whole
-//   hidden row (warpgroup 0; warpgroup 1's chunk is zeros and idles), so
-//   every CTA takes the same argmax with no exchange. CTA 0 writes the
-//   logits (f32) and the tokens.
+//   then every CTA computes every logit column from the whole hidden row,
+//   by pairs of 64-column chunks (V zero-padded to whole chunks; warpgroup
+//   w takes chunk w of a pair, and idles where that chunk is past V), so
+//   every CTA takes the same running argmax (arnn_head's) with no exchange.
+//   CTA 0 writes the logits (f32) and the tokens.
 // - Every cluster size sums in the same order, so all give bit-equal
 //   outputs: the check for a race in the exchange.
 constexpr int kF32Units = 16;                        // units of a chunk: i, f, g, o rows = 64
@@ -539,11 +692,11 @@ struct ArnnF32Args {
   const float* start_xw;  // (4H,): the tick-0 input
   const float* bias;      // (4, 4H): b_ih0, b_hh0, b_ih1, b_hh1
   const float* b_l1;      // (LP,), zero past the head's width
-  const float* b_out;     // (64,), zero past V
+  const float* b_out;     // (64 NOC,), zero past V
   float* logits;          // (B, S, V)
   int* tokens;            // (B, S)
   __nv_bfloat16* scratch;  // (tiles, 3, 2, 3, 64, max(H, LP)), zero at the start
-  int B, S, H, LP, V;
+  int B, S, H, LP, V, ties;
 };
 
 // The LSTM cells of a round's chunk: units j0 + 8 n8 + 2q + e of rows r =
@@ -580,8 +733,11 @@ __device__ __forceinline__ void f32_cells(Pre pre, float* c, int ldc, int jl0, i
 // The packed weights (arnn_kernel.pack_arnn_f32_weights): 8 KB blocks of
 // 64 rows x 64 of K, six a k-slab of two chunks: [piece][chunk]. W_hh0,
 // W_ih1 and W_hh1 by pairs of 16-unit chunks (rows 16 gate + unit), then
-// W_l1^T by rounds of 128 hidden columns, then W_out^T's 64 (padded)
-// columns beside a zero chunk, by k-slab.
+// W_l1^T by rounds of 128 hidden columns, then W_out^T by pairs of 64
+// (padded) vocabulary columns (a zero chunk past the last), by k-slab.
+// kChunks: more than one output chunk (else the one-chunk path of the
+// flagship, in an instantiation of its own).
+template <bool kChunks>
 __global__ void __launch_bounds__(kF32Threads, 1)
     arnn_f32_kernel(const __grid_constant__ CUtensorMap w_map,
                     const __grid_constant__ CUtensorMap a_map,
@@ -591,8 +747,11 @@ __global__ void __launch_bounds__(kF32Threads, 1)
   __shared__ __align__(8) uint64_t empty_bar[kF32Stages];
   __shared__ __align__(8) uint64_t ready[3];  // every CTA's h0 / h1 / hidden pieces of a tick
   __shared__ int prev_tok[kRows];
+  __shared__ float head_best[kConsumers][kRows];
+  __shared__ int head_arg[kConsumers][kRows];
   unsigned char* ring = align1024(smem_raw);
   const int H = p.H, H4 = 4 * H, KB = H / 64, LB = p.LP / 64, S = p.S;
+  const int NOC = out_chunks(p.V), pairs = (NOC + 1) / 2;
   const int wd = H > p.LP ? H : p.LP;  // the scratch's row width
   const int C = (int)cluster_nctarank();
   const uint32_t rank = cluster_ctarank();
@@ -655,7 +814,9 @@ __global__ void __launch_bounds__(kF32Threads, 1)
         for (int hr = (int)rank; hr < hid_rounds; hr += C)
           for (int k = 0; k < KB; ++k) load(plane(1, cur), k, blk_l1 + (hr * KB + k) * 6);
         wait_ready(2, t);
-        for (int k = 0; k < LB; ++k) load(plane(2, cur), k, blk_out + k * 6);
+        for (int j = 0; j < pairs; ++j)
+          for (int k = 0; k < LB; ++k)
+            load(plane(2, cur), k, blk_out + (chunk_at(j, pairs, p.ties) * LB + k) * 6);
       }
     }
     cluster_sync();
@@ -721,52 +882,110 @@ __global__ void __launch_bounds__(kF32Threads, 1)
       }
     }
     publish(2);
-    // the logits of the whole hidden row, the argmax and the force mask
-    float lg[32];
-    f32_product(rg, lg, LB, wg == 0, wg, lane);
-    if (wg == 0) {
+    if constexpr (!kChunks) {  // the one-chunk path (the general one was slower there)
+      // the logits of the whole hidden row, the argmax and the force mask
+      float lg[32];
+      f32_product(rg, lg, LB, wg == 0, wg, lane);
+      if (wg == 0) {
+        float best[2] = {-INFINITY, -INFINITY};
+        int arg[2] = {INT_MAX, INT_MAX};
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {  // a half's columns ascend: the first of equal maxima
+          const int half = (i >> 1) & 1, col = 8 * (i >> 2) + 2 * q + (i & 1);
+          lg[i] = __fadd_rn(lg[i], p.b_out[col]);
+          if (col < p.V && lg[i] > best[half]) {
+            best[half] = lg[i];
+            arg[half] = col;
+          }
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+#pragma unroll
+          for (int off = 1; off <= 2; off <<= 1) {  // the quad holding the row's 64 columns
+            const float ob = __shfl_xor_sync(0xffffffffu, best[half], off);
+            const int oa = __shfl_xor_sync(0xffffffffu, arg[half], off);
+            if (ob > best[half] || (ob == best[half] && oa < arg[half])) {
+              best[half] = ob;
+              arg[half] = oa;
+            }
+          }
+          const int r = 16 * warp + g + 8 * half, row = tile0 + r;
+          if (rank == 0 && row < p.B) {
+            float* out = p.logits + ((size_t)row * S + t) * p.V;
+#pragma unroll
+            for (int i = 2 * half; i < 32; i += 4)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int col = 8 * (i >> 2) + 2 * q + e;
+                if (col < p.V) out[col] = lg[i + e];
+              }
+          }
+          if (q == 0) {
+            int a = arg[half];
+            if (row < p.B) {
+              const size_t o = (size_t)row * S + t;
+              if (p.force[o] > 0) a = p.score[o];
+              if (rank == 0) p.tokens[o] = a;
+            }
+            prev_tok[r] = a;
+          }
+        }
+      }
+    } else {
+      // the logits of the whole hidden row by pairs of chunks, the running
+      // argmax and, after the last, the force mask
       float best[2] = {-INFINITY, -INFINITY};
       int arg[2] = {INT_MAX, INT_MAX};
+      for (int j = 0; j < pairs; ++j) {
+        const int oc = 2 * chunk_at(j, pairs, p.ties) + wg, col0 = kOutCols * oc;
+        float lg[32];
+        f32_product(rg, lg, LB, oc < NOC, wg, lane);
+        if (oc >= NOC) continue;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {  // a half's columns ascend: the first of equal maxima
-        const int half = (i >> 1) & 1, col = 8 * (i >> 2) + 2 * q + (i & 1);
-        lg[i] = __fadd_rn(lg[i], p.b_out[col]);
-        if (col < p.V && lg[i] > best[half]) {
-          best[half] = lg[i];
-          arg[half] = col;
+        for (int i = 0; i < 32; ++i) {  // a half's columns ascend
+          const int half = (i >> 1) & 1, col = col0 + 8 * (i >> 2) + 2 * q + (i & 1);
+          lg[i] = __fadd_rn(lg[i], p.b_out[col]);
+          if (col < p.V && lg[i] > best[half]) {
+            best[half] = lg[i];
+            arg[half] = col;
+          }
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = tile0 + 16 * warp + g + 8 * half;
+          if (rank == 0 && row < p.B) {
+            float* out = p.logits + ((size_t)row * S + t) * p.V;
+#pragma unroll
+            for (int i = 2 * half; i < 32; i += 4)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int col = col0 + 8 * (i >> 2) + 2 * q + e;
+                if (col < p.V) out[col] = lg[i + e];
+              }
+          }
         }
       }
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-#pragma unroll
-        for (int off = 1; off <= 2; off <<= 1) {  // the quad holding the row's 64 columns
-          const float ob = __shfl_xor_sync(0xffffffffu, best[half], off);
-          const int oa = __shfl_xor_sync(0xffffffffu, arg[half], off);
-          if (ob > best[half] || (ob == best[half] && oa < arg[half])) {
-            best[half] = ob;
-            arg[half] = oa;
-          }
-        }
-        const int r = 16 * warp + g + 8 * half, row = tile0 + r;
-        if (rank == 0 && row < p.B) {
-          float* out = p.logits + ((size_t)row * S + t) * p.V;
-#pragma unroll
-          for (int i = 2 * half; i < 32; i += 4)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int col = 8 * (i >> 2) + 2 * q + e;
-              if (col < p.V) out[col] = lg[i + e];
-            }
-        }
+        quad_best(best[half], arg[half]);
         if (q == 0) {
-          int a = arg[half];
-          if (row < p.B) {
-            const size_t o = (size_t)row * S + t;
-            if (p.force[o] > 0) a = p.score[o];
-            if (rank == 0) p.tokens[o] = a;
-          }
-          prev_tok[r] = a;
+          head_best[wg][16 * warp + g + 8 * half] = best[half];
+          head_arg[wg][16 * warp + g + 8 * half] = arg[half];
         }
+      }
+      named_barrier(kBar, kConsumerThreads);
+      if (tid < kRows) {
+        int a = head_beats(head_best[1][tid], head_arg[1][tid], head_best[0][tid],
+                           head_arg[0][tid], kOutCols, p.ties)
+                    ? head_arg[1][tid]
+                    : head_arg[0][tid];
+        const int row = tile0 + tid;
+        if (row < p.B) {
+          const size_t o = (size_t)row * S + t;
+          if (p.force[o] > 0) a = p.score[o];
+          if (rank == 0) p.tokens[o] = a;
+        }
+        prev_tok[tid] = a;
       }
     }
   }
@@ -780,19 +999,19 @@ inline size_t arnn_f32_smem_bytes(int H, int C) {
 }
 
 // the launch's checks: C in 1..8 owning whole 32-unit pairs of chunks, at
-// most kF32MaxRounds of them; a head of 128-column rounds up to 512 and a
-// vocabulary of at most 64; a block that fits
+// most kF32MaxRounds of them; a head of 128-column rounds; a block that
+// fits
 inline bool arnn_f32_plan_fits(int H, int C, int LP, int V) {
   if (H % 64 != 0 || H <= 0 || C < 1 || C > kMaxCluster || H % C != 0) return false;
   const int U = H / C;
   if (U % 32 != 0 || U / 32 > kF32MaxRounds) return false;
-  if (LP < 128 || LP % 128 != 0 || LP > 512 || V < 1 || V > kOutCols) return false;
+  if (LP < 128 || LP % 128 != 0 || V < 1) return false;
   return arnn_f32_smem_bytes(H, C) <= (size_t)kSmemBudget;
 }
 
 inline int arnn_f32_slots(int H, int C, int LP) {
   if (!arnn_f32_plan_fits(H, C, LP, 1)) return -1;
-  return max_clusters(arnn_f32_kernel, C, arnn_f32_smem_bytes(H, C), kF32Threads);
+  return max_clusters(arnn_f32_kernel<false>, C, arnn_f32_smem_bytes(H, C), kF32Threads);
 }
 
 // A 3D tensor map over the f32 route's packed 8 KB blocks, six a box.
@@ -816,8 +1035,8 @@ inline cudaError_t launch_arnn_f32(const CUtensorMap& w_map, const ArnnF32Args& 
                              strides, box);
   if (err != cudaSuccess) return err;
   const size_t smem = arnn_f32_smem_bytes(a.H, C);
-  err = cudaFuncSetAttribute(arnn_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  const auto kernel = out_chunks(a.V) > 1 ? arnn_f32_kernel<true> : arnn_f32_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles * C, 1, 1);
@@ -831,7 +1050,7 @@ inline cudaError_t launch_arnn_f32(const CUtensorMap& w_map, const ArnnF32Args& 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, arnn_f32_kernel, w_map, a_map, a);
+  err = cudaLaunchKernelEx(&cfg, kernel, w_map, a_map, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

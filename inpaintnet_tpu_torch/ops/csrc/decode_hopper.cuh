@@ -43,11 +43,17 @@
 //   and no registers holding the new h). A peer writes a buffer two ticks
 //   after it was last read, and only after it has received this CTA's blocks
 //   of the tick between, which this CTA pushed after that read.
-// - Every CTA needs the fed-back token, so every CTA recomputes the small
-//   head (a 64 x 48 wgmma tile over H in each warpgroup) and the argmax on
-//   its own identical h1: no second exchange. The argmax of a row runs in
-//   the four lanes that hold its columns (two shuffles), then across the two
-//   warpgroups in shared memory, first index among equal maxima over the V
+// - Every CTA needs the fed-back token, so every CTA recomputes the head
+//   and the argmax on its own identical h1: no second exchange. The head is
+//   a loop over chunks of 96 vocabulary columns (V zero-padded to whole
+//   chunks; a 64 x 48 wgmma tile over H in each warpgroup), each chunk's
+//   slabs streaming through the same rings as the layers', so the shared
+//   memory plan does not depend on V; a vocabulary of at most 96 is one
+//   chunk (head_argmax, today's path). Over more chunks each thread keeps a
+//   running (max, index) of its two rows, a later column winning only by a
+//   larger logit; then a row's four lanes (two shuffles) and the two
+//   warpgroups (shared memory) merge, the lower index winning a tie
+//   (gru_layer_hopper.cuh): the first index among equal maxima over the V
 //   real columns. CTA 0 of the cluster writes the logits and the tokens.
 // - The layers and the head are inlined: as functions of their own that
 //   were not inlined they spilled less but took 66% more time (PERF.md).
@@ -75,7 +81,7 @@ namespace rec90 {
 
 constexpr int kTicks = 24;
 constexpr int kTicksPerBeat = 6;
-constexpr int kHeadCols = 96;  // the head's vocabulary, zero-padded: a 96-row chunk, 48 a warpgroup
+constexpr int kHeadCols = 96;  // columns of a head chunk: a 96-row slab, 48 a warpgroup
 // a whole producer warpgroup (two warps feed the rings, two idle), so that
 // setmaxnreg can hand its registers to the consumers, whose layer 1 holds
 // two accumulators
@@ -89,11 +95,16 @@ struct DecodeArgs {
   const __nv_bfloat16* tok_tab;  // (V, 3H): emb @ W_ih0[:E]
   const __nv_bfloat16* x0_xw;    // (3H,): x_0 @ W_ih0[:E], the tick-0 input
   const __nv_bfloat16* bias;     // (3, 3H): b_hh0, b_ih1, b_hh1
-  const __nv_bfloat16* head_b;   // (96,), zero past V
+  const __nv_bfloat16* head_b;   // (96 NHC,), zero past V
   __nv_bfloat16* logits;         // (B, 24, V)
   int* samples;                  // (B, 24)
-  int B, H, V, stages;
+  int B, H, V, stages, ties;     // ties: the planted fault (gru_layer_hopper.cuh chunk_at)
 };
+
+// chunks of the head: V zero-padded to whole chunks of kHeadCols
+__host__ __device__ __forceinline__ int head_chunks(int V) {
+  return (V + kHeadCols - 1) / kHeadCols;
+}
 
 // K4's: T is the master dtype (ctx_xw, x0_xw and the logits), bf16 or f32
 template <typename T>
@@ -106,11 +117,11 @@ struct DecodeI8Args {
   const T* x0_xw;        // (3H,): x_0 @ W_ih0[:E], the tick-0 input
   const float* scales;   // (4, 3H): column scales of W_hh0, W_ih1, W_hh1, tok_q
   const float* bias;     // (3, 3H) f32: b_hh0, b_ih1, b_hh1
-  const float* head_s;   // (96,) the head's column scales, zero past V
-  const float* head_b;   // (96,) f32, zero past V
+  const float* head_s;   // (96 NHC,) the head's column scales, zero past V
+  const float* head_b;   // (96 NHC,) f32, zero past V
   T* logits;             // (B, 24, V)
   int* samples;          // (B, 24)
-  int B, H, V, stages;
+  int B, H, V, stages, ties;
 };
 
 // K4's int8 tiles and slabs: rows of 64 bytes (64 units or 64 of K) with
@@ -477,13 +488,14 @@ __device__ __forceinline__ void decode_layer1(const DecodeI8Args<T>& p, const De
 }
 
 // ---------------------------------------------------------------------------
-// The head: warpgroup w takes the logits' columns [48w, 48w + 48), a 64 x 48
-// tile over K = H, in every CTA on its own (identical) h1
+// The head, chunk hc: warpgroup w takes the logits' columns 96 hc + [48w,
+// 48w + 48), a 64 x 48 tile over K = H, in every CTA on its own (identical)
+// h1
 // ---------------------------------------------------------------------------
 
 // K2: relu(h1 @ W + b) in f32
 __device__ __forceinline__ void head_logits(const DecodeArgs& p, const DecodeCta& k, Ring& rg,
-                                            float (&lg)[24]) {
+                                            int hc, float (&lg)[24]) {
   const int col0 = 48 * k.wg, lane = threadIdx.x & 31, q = lane & 3;
   rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
     mma_slab(lg, desc_sw128(k.h1t + kk * kBlockBytes), desc_sw128(slab + col0 * 128), kk > 0);
@@ -491,7 +503,7 @@ __device__ __forceinline__ void head_logits(const DecodeArgs& p, const DecodeCta
   fence_operands(lg);
 #pragma unroll
   for (int i = 0; i < 24; ++i) {
-    const int col = col0 + 8 * (i >> 2) + 2 * q + (i & 1);
+    const int col = kHeadCols * hc + col0 + 8 * (i >> 2) + 2 * q + (i & 1);
     lg[i] = fmaxf(__fadd_rn(lg[i], __bfloat162float(p.head_b[col])), 0.0f);
   }
 }
@@ -499,7 +511,8 @@ __device__ __forceinline__ void head_logits(const DecodeArgs& p, const DecodeCta
 // K4: relu(((acc * head_s) * dq) + head_b) in f32
 template <typename T>
 __device__ __forceinline__ void head_logits(const DecodeI8Args<T>& p, const DecodeCta& k,
-                                            RingI8& rg, const unsigned char* h1, float (&lg)[24]) {
+                                            RingI8& rg, const unsigned char* h1, int hc,
+                                            float (&lg)[24]) {
   const int col0 = 48 * k.wg, tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31,
             g = lane >> 2, q = lane & 3;
   int acc[24];
@@ -509,17 +522,84 @@ __device__ __forceinline__ void head_logits(const DecodeI8Args<T>& p, const Deco
   fence_operands(acc);
 #pragma unroll
   for (int i = 0; i < 24; ++i) {
-    const int col = col0 + 8 * (i >> 2) + 2 * q + (i & 1);
+    const int col = kHeadCols * hc + col0 + 8 * (i >> 2) + 2 * q + (i & 1);
     const float dq = k.row_dq[16 * warp + g + 8 * ((i >> 1) & 1)];
     lg[i] = fmaxf(dequant(acc[i], p.head_s[col], dq, p.head_b[col]), 0.0f);
   }
 }
 
-// The first-index argmax of the logits lg[i] (row 16 warp + g + 8 ((i / 2)
-// % 2), column 48 wg + 8 (i / 4) + 2q + i % 2): a row's 48 columns sit in the
-// four lanes of a quad (two shuffles), and the two warpgroups' bests meet in
-// shared memory, warpgroup 0's winning ties (its columns come first). CTA 0
-// of the cluster writes the logits (rounded to OutT) and the tokens.
+// One chunk's logits lg[i] (row 16 warp + g + 8 ((i / 2) % 2), column c0 +
+// 8 (i / 4) + 2q + i % 2, c0 = 96 hc + 48 wg) into the thread's running
+// (max, index) of its two rows (a later column only by a larger logit); CTA
+// 0 of the cluster writes them (rounded to OutT).
+template <typename OutT>
+__device__ __forceinline__ void head_chunk(const float (&lg)[24], int c0, OutT* logits, int B,
+                                           int V, const DecodeCta& k, uint32_t rank, int t,
+                                           float (&best)[2], int (&arg)[2]) {
+  using Tr = Traits<OutT>;
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, g = (tid & 31) >> 2, q = tid & 3;
+#pragma unroll
+  for (int i = 0; i < 24; ++i) {
+    const int half = (i >> 1) & 1, col = c0 + 8 * (i >> 2) + 2 * q + (i & 1);
+    if (col < V && lg[i] > best[half]) {
+      best[half] = lg[i];
+      arg[half] = col;
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = k.tile0 + 16 * warp + g + 8 * half;
+    if (rank == 0 && row < B) {
+      OutT* out = logits + ((size_t)row * kTicks + t) * V;
+#pragma unroll
+      for (int i = 2 * half; i < 24; i += 4) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = c0 + 8 * (i >> 2) + 2 * q + e;
+          if (col < V) out[col] = Tr::from_f(lg[i + e]);
+        }
+      }
+    }
+  }
+}
+
+// After the last chunk: a row's bests meet across the four lanes of its
+// quad (two shuffles), then across the two warpgroups in shared memory, the
+// lower index winning a tie; CTA 0 of the cluster writes the tokens.
+__device__ __forceinline__ void head_finish(float (&best)[2], int (&arg)[2], int* samples,
+                                            int B, const DecodeCta& k, uint32_t rank, int t,
+                                            int ties, float (&best_s)[kConsumers][kRows],
+                                            int (&arg_s)[kConsumers][kRows]) {
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, g = (tid & 31) >> 2, q = tid & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    quad_best(best[half], arg[half]);
+    const int r = 16 * warp + g + 8 * half;
+    if (q == 0) {
+      best_s[k.wg][r] = best[half];
+      arg_s[k.wg][r] = arg[half];
+    }
+  }
+  named_barrier(kBar, kConsumerThreads);
+  if (tid < kRows) {
+    const int a = head_beats(best_s[1][tid], arg_s[1][tid], best_s[0][tid], arg_s[0][tid],
+                             kHeadCols, ties)
+                      ? arg_s[1][tid]
+                      : arg_s[0][tid];
+    k.prev_tok[tid] = a;
+    const int row = k.tile0 + tid;
+    if (rank == 0 && row < B) samples[(size_t)row * kTicks + t] = a;
+  }
+}
+
+// A head of one chunk (V at most 96, the flagship's): the first-index argmax
+// of the logits lg[i] (row 16 warp + g + 8 ((i / 2) % 2), column 48 wg + 8
+// (i / 4) + 2q + i % 2): a row's 48 columns sit in the four lanes of a quad
+// (two shuffles), and the two warpgroups' bests meet in shared memory,
+// warpgroup 0's winning ties (its columns come first). CTA 0 of the cluster
+// writes the logits (rounded to OutT) and the tokens. The same function as
+// head_chunk and head_finish over one chunk, in fewer steps (those were
+// slower at one chunk; PERF.md).
 template <typename OutT>
 __device__ __forceinline__ void head_argmax(const float (&lg)[24], OutT* logits, int* samples,
                                             int B, int V, const DecodeCta& k, uint32_t rank,
@@ -590,13 +670,14 @@ __device__ __forceinline__ void init_row_scale(const DecodeI8Args<T>& p, int r, 
 // packed weights the map covers (decode_kernel.pack_decode_weights, bf16 or
 // int8) are W_hh0, W_ih1 and W_hh1 as gru_kernel.pack_gate_blocks lays them
 // out (H / 32 chunks each of H / 64 contiguous 96 x 64 k-slabs), then the
-// head's W^T as one more chunk: rows 0..V-1 its columns, zero rows after.
+// head's W^T as `nhc` more chunks: rows 96 hc + [0, 96) of chunk hc are its
+// columns, zero rows past V.
 template <int kSlab>
 __device__ __forceinline__ void feed_decode(const CUtensorMap* map, unsigned char* ring,
                                             uint64_t (&full_bar)[kConsumers][kMaxStages],
                                             uint64_t (&empty_bar)[kConsumers][kMaxStages],
                                             int stages, int ks, int H, int KB, int nch,
-                                            int chunk0) {
+                                            int chunk0, int nhc, int ties) {
   setmaxnreg_dec<kDecodeProducerRegs>();
   const int w = (threadIdx.x >> 5) & 3;
   if (w < kConsumers && (threadIdx.x & 31) == 0) {
@@ -609,13 +690,15 @@ __device__ __forceinline__ void feed_decode(const CUtensorMap* map, unsigned cha
         f.slabs((chunks + chunk0 + c) * KB, KB);
         f.slabs((2 * chunks + chunk0 + c) * KB, KB);
       }
-      f.slabs(3 * chunks * KB, KB);  // the head: each warpgroup takes half of it
+      // the head: each warpgroup takes half of each chunk
+      for (int j = 0; j < nhc; ++j) f.slabs((3 * chunks + chunk_at(j, nhc, ties)) * KB, KB);
     }
   }
 }
 
-// K2
-template <int MAXC>
+// K2. kChunks: the head over more than one chunk (an instantiation of its
+// own, so that the one-chunk path keeps today's registers)
+template <int MAXC, bool kChunks>
 __global__ void __launch_bounds__(kDecodeThreads, 1)
     decode_kernel(const __grid_constant__ CUtensorMap w_map, const __grid_constant__ DecodeArgs p) {
   extern __shared__ unsigned char smem_raw[];
@@ -625,7 +708,7 @@ __global__ void __launch_bounds__(kDecodeThreads, 1)
   __shared__ int prev_tok[kRows];
   __shared__ float head_best[kConsumers][kRows];
   __shared__ int head_arg[kConsumers][kRows];
-  const int H = p.H, KB = H / 64, ks = box_slabs(H), B = p.B;
+  const int H = p.H, KB = H / 64, ks = box_slabs(H), B = p.B, nhc = head_chunks(p.V);
   unsigned char* h0t = align1024(smem_raw);
   unsigned char* h1t = h0t + KB * kBlockBytes;
   unsigned char* ring = h1t + KB * kBlockBytes;
@@ -652,7 +735,8 @@ __global__ void __launch_bounds__(kDecodeThreads, 1)
   cluster_sync();
 
   if (wg == kConsumers) {
-    feed_decode<kSlabBytes>(&w_map, ring, full_bar, empty_bar, p.stages, ks, H, KB, nch, chunk0);
+    feed_decode<kSlabBytes>(&w_map, ring, full_bar, empty_bar, p.stages, ks, H, KB, nch, chunk0,
+                            head_chunks(p.V), p.ties);
     cluster_sync();
     return;
   }
@@ -676,16 +760,28 @@ __global__ void __launch_bounds__(kDecodeThreads, 1)
     }
     decode_layer0<MAXC>(p, cta, rg, ex0, t);
     decode_layer1<MAXC>(p, cta, rg, ex1, t);
-    float lg[24];
-    head_logits(p, cta, rg, lg);
-    head_argmax(lg, p.logits, p.samples, B, p.V, cta, rank, t, head_best, head_arg);
+    if constexpr (!kChunks) {
+      float lg[24];
+      head_logits(p, cta, rg, 0, lg);
+      head_argmax(lg, p.logits, p.samples, B, p.V, cta, rank, t, head_best, head_arg);
+    } else {
+      float best[2] = {-INFINITY, -INFINITY};
+      int arg[2] = {INT_MAX, INT_MAX};
+      for (int j = 0; j < nhc; ++j) {
+        const int hc = chunk_at(j, nhc, p.ties);
+        float lg[24];
+        head_logits(p, cta, rg, hc, lg);
+        head_chunk(lg, kHeadCols * hc + 48 * wg, p.logits, B, p.V, cta, rank, t, best, arg);
+      }
+      head_finish(best, arg, p.samples, B, cta, rank, t, p.ties, head_best, head_arg);
+    }
   }
   cluster_sync();
 }
 
 // K4: h0 and h1 each in two int8 tiles, tick t reading buffer t % 2 and
-// writing buffer (t + 1) % 2
-template <typename T, int MAXC>
+// writing buffer (t + 1) % 2; kChunks as K2's
+template <typename T, int MAXC, bool kChunks>
 __global__ void __launch_bounds__(kDecodeThreads, 1)
     decode_i8_kernel(const __grid_constant__ CUtensorMap w_map,
                      const __grid_constant__ DecodeI8Args<T> p) {
@@ -697,7 +793,7 @@ __global__ void __launch_bounds__(kDecodeThreads, 1)
   __shared__ float row_q[kRows], row_dq[kRows];
   __shared__ float head_best[kConsumers][kRows];
   __shared__ int head_arg[kConsumers][kRows];
-  const int H = p.H, KB = H / 64, ks = box_slabs(H), B = p.B;
+  const int H = p.H, KB = H / 64, ks = box_slabs(H), B = p.B, nhc = head_chunks(p.V);
   unsigned char* h0t[2];
   unsigned char* h1t[2];
   h0t[0] = align1024(smem_raw);
@@ -729,7 +825,8 @@ __global__ void __launch_bounds__(kDecodeThreads, 1)
   cluster_sync();
 
   if (wg == kConsumers) {
-    feed_decode<kSlabI8>(&w_map, ring, full_bar, empty_bar, p.stages, ks, H, KB, nch, chunk0);
+    feed_decode<kSlabI8>(&w_map, ring, full_bar, empty_bar, p.stages, ks, H, KB, nch, chunk0,
+                         head_chunks(p.V), p.ties);
     cluster_sync();
     return;
   }
@@ -755,9 +852,21 @@ __global__ void __launch_bounds__(kDecodeThreads, 1)
     PushExchange{C, rank, kb0, U / 64, &h_full[0][wb]}.publish(h0t[wb], parity, tid);
     decode_layer1<MAXC>(p, cta, rg, h0t[wb], h1t[rb], h1t[wb]);
     PushExchange{C, rank, kb0, U / 64, &h_full[1][wb]}.publish(h1t[wb], parity, tid);
-    float lg[24];
-    head_logits(p, cta, rg, h1t[wb], lg);
-    head_argmax(lg, p.logits, p.samples, B, p.V, cta, rank, t, head_best, head_arg);
+    if constexpr (!kChunks) {
+      float lg[24];
+      head_logits(p, cta, rg, h1t[wb], 0, lg);
+      head_argmax(lg, p.logits, p.samples, B, p.V, cta, rank, t, head_best, head_arg);
+    } else {
+      float best[2] = {-INFINITY, -INFINITY};
+      int arg[2] = {INT_MAX, INT_MAX};
+      for (int j = 0; j < nhc; ++j) {
+        const int hc = chunk_at(j, nhc, p.ties);
+        float lg[24];
+        head_logits(p, cta, rg, h1t[wb], hc, lg);
+        head_chunk(lg, kHeadCols * hc + 48 * wg, p.logits, B, p.V, cta, rank, t, best, arg);
+      }
+      head_finish(best, arg, p.samples, B, cta, rank, t, p.ties, head_best, head_arg);
+    }
   }
   cluster_sync();
 }
@@ -765,28 +874,44 @@ __global__ void __launch_bounds__(kDecodeThreads, 1)
 // K4's dynamic shared memory: four int8 h tiles and the rings
 inline size_t decode_i8_smem_bytes(int H, int stages) { return smem_bytes(H, 4, stages, 64); }
 
-template <typename T>
-inline cudaError_t launch_decode_i8(const CUtensorMap& map, const DecodeI8Args<T>& a, int C,
-                                    cudaStream_t stream) {
-  if (!plan_fits(a.H, C, a.stages, 4, 64) || a.B < 1 || a.V < 1 || a.V > kHeadCols)
-    return cudaErrorInvalidValue;
-  const int clusters = (a.B + kRows - 1) / kRows;
-  const size_t smem = decode_i8_smem_bytes(a.H, a.stages);
+template <typename T, bool kChunks>
+inline cudaError_t launch_decode_i8_as(const CUtensorMap& map, const DecodeI8Args<T>& a, int C,
+                                       int clusters, size_t smem, cudaStream_t stream) {
   switch (chunks_per_warpgroup(a.H, C)) {
-    case 1: return launch_clusters(decode_i8_kernel<T, 1>, clusters, C, smem, stream, map, a,
-                                   kDecodeThreads);
-    case 2: return launch_clusters(decode_i8_kernel<T, 2>, clusters, C, smem, stream, map, a,
-                                   kDecodeThreads);
+    case 1: return launch_clusters(decode_i8_kernel<T, 1, kChunks>, clusters, C, smem, stream, map,
+                                   a, kDecodeThreads);
+    case 2: return launch_clusters(decode_i8_kernel<T, 2, kChunks>, clusters, C, smem, stream, map,
+                                   a, kDecodeThreads);
     case 3:
-    case 4: return launch_clusters(decode_i8_kernel<T, 4>, clusters, C, smem, stream, map, a,
-                                   kDecodeThreads);
+    case 4: return launch_clusters(decode_i8_kernel<T, 4, kChunks>, clusters, C, smem, stream, map,
+                                   a, kDecodeThreads);
     case 5:
     case 6:
     case 7:
-    case 8: return launch_clusters(decode_i8_kernel<T, 8>, clusters, C, smem, stream, map, a,
-                                   kDecodeThreads);
+    case 8: return launch_clusters(decode_i8_kernel<T, 8, kChunks>, clusters, C, smem, stream, map,
+                                   a, kDecodeThreads);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// K4's launchers of a head of more than one chunk: decode_sampling_int8_chunks.cu
+// instantiates decode_i8_kernel<T, MAXC, true> in a source of its own, built
+// beside decode_sampling_int8.cu in parallel (together they were the build's
+// longest source)
+cudaError_t launch_decode_i8_chunks(const CUtensorMap& map, const DecodeI8Args<float>& a, int C,
+                                    int clusters, size_t smem, cudaStream_t stream);
+cudaError_t launch_decode_i8_chunks(const CUtensorMap& map, const DecodeI8Args<__nv_bfloat16>& a,
+                                    int C, int clusters, size_t smem, cudaStream_t stream);
+
+template <typename T>
+inline cudaError_t launch_decode_i8(const CUtensorMap& map, const DecodeI8Args<T>& a, int C,
+                                    cudaStream_t stream) {
+  if (!plan_fits(a.H, C, a.stages, 4, 64) || a.B < 1 || a.V < 1)
+    return cudaErrorInvalidValue;
+  const int clusters = (a.B + kRows - 1) / kRows;
+  const size_t smem = decode_i8_smem_bytes(a.H, a.stages);
+  return head_chunks(a.V) > 1 ? launch_decode_i8_chunks(map, a, C, clusters, smem, stream)
+                              : launch_decode_i8_as<T, false>(map, a, C, clusters, smem, stream);
 }
 
 }  // namespace rec90

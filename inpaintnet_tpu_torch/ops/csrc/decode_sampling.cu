@@ -42,35 +42,42 @@ inline int decode_slots(int H, int C, int stages) {
   if (!plan_fits(H, C, stages, 2)) return -1;
   const size_t smem = decode_smem_bytes(H, stages);
   switch (chunks_per_warpgroup(H, C)) {
-    case 1: return max_clusters(decode_kernel<1>, C, smem, kDecodeThreads);
-    case 2: return max_clusters(decode_kernel<2>, C, smem, kDecodeThreads);
+    case 1: return max_clusters(decode_kernel<1, false>, C, smem, kDecodeThreads);
+    case 2: return max_clusters(decode_kernel<2, false>, C, smem, kDecodeThreads);
     case 3:
-    case 4: return max_clusters(decode_kernel<4>, C, smem, kDecodeThreads);
-    default: return max_clusters(decode_kernel<8>, C, smem, kDecodeThreads);
+    case 4: return max_clusters(decode_kernel<4, false>, C, smem, kDecodeThreads);
+    default: return max_clusters(decode_kernel<8, false>, C, smem, kDecodeThreads);
+  }
+}
+
+template <bool kChunks>
+inline cudaError_t launch_decode_as(const CUtensorMap& map, const DecodeArgs& a, int C,
+                                    int clusters, size_t smem, cudaStream_t stream) {
+  switch (chunks_per_warpgroup(a.H, C)) {
+    case 1: return launch_clusters(decode_kernel<1, kChunks>, clusters, C, smem, stream, map, a,
+                                   kDecodeThreads);
+    case 2: return launch_clusters(decode_kernel<2, kChunks>, clusters, C, smem, stream, map, a,
+                                   kDecodeThreads);
+    case 3:
+    case 4: return launch_clusters(decode_kernel<4, kChunks>, clusters, C, smem, stream, map, a,
+                                   kDecodeThreads);
+    case 5:
+    case 6:
+    case 7:
+    case 8: return launch_clusters(decode_kernel<8, kChunks>, clusters, C, smem, stream, map, a,
+                                   kDecodeThreads);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 inline cudaError_t launch_decode(const CUtensorMap& map, const DecodeArgs& a, int C,
                                  cudaStream_t stream) {
-  if (!plan_fits(a.H, C, a.stages, 2) || a.B < 1 || a.V < 1 || a.V > kHeadCols)
+  if (!plan_fits(a.H, C, a.stages, 2) || a.B < 1 || a.V < 1)
     return cudaErrorInvalidValue;
   const int clusters = (a.B + kRows - 1) / kRows;
   const size_t smem = decode_smem_bytes(a.H, a.stages);
-  switch (chunks_per_warpgroup(a.H, C)) {
-    case 1: return launch_clusters(decode_kernel<1>, clusters, C, smem, stream, map, a,
-                                   kDecodeThreads);
-    case 2: return launch_clusters(decode_kernel<2>, clusters, C, smem, stream, map, a,
-                                   kDecodeThreads);
-    case 3:
-    case 4: return launch_clusters(decode_kernel<4>, clusters, C, smem, stream, map, a,
-                                   kDecodeThreads);
-    case 5:
-    case 6:
-    case 7:
-    case 8: return launch_clusters(decode_kernel<8>, clusters, C, smem, stream, map, a,
-                                   kDecodeThreads);
-    default: return cudaErrorInvalidValue;
-  }
+  return head_chunks(a.V) > 1 ? launch_decode_as<true>(map, a, C, clusters, smem, stream)
+                              : launch_decode_as<false>(map, a, C, clusters, smem, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -109,10 +116,12 @@ inline cudaError_t launch_decode(const CUtensorMap& map, const DecodeArgs& a, in
 //   tile, 24 registers an accumulator), a warpgroup takes one chunk a round,
 //   and a CTA owns U = H / C units in U / 32 rounds. Its f32 carries (both
 //   layers) stay in shared memory.
-// - Every CTA computes the head on the same h1 pieces (the 96 zero-padded
-//   columns as two chunks of 48, one a warpgroup) and takes the same argmax
-//   (head_argmax), so no token is exchanged; CTA 0 writes the logits (f32)
-//   and the tokens. Every cluster size sums in the same order, so all give
+// - Every CTA computes the head on the same h1 pieces, chunk by chunk of 96
+//   columns (V zero-padded to whole chunks; 48 a warpgroup), and takes the
+//   same argmax (decode_hopper.cuh head_argmax for one chunk, head_chunk and
+//   head_finish over more), so no
+//   token is exchanged; CTA 0 writes the logits (f32) and the tokens.
+//   Every cluster size sums in the same order, so all give
 //   bit-equal outputs: the check for a race in the exchange.
 // - Rows past B compute on zeros (and the tokens they feed back) and are
 //   never stored; x_0 is the fed-back input at tick 0 only.
@@ -129,11 +138,11 @@ struct DecodeF32Args {
   const float* tok_tab;  // (V, 3H): emb @ W_ih0[:E]
   const float* x0_xw;    // (3H,): x_0 @ W_ih0[:E], the tick-0 input
   const float* bias;     // (3, 3H): b_hh0, b_ih1, b_hh1
-  const float* head_b;   // (96,), zero past V
+  const float* head_b;   // (96 NHC,), zero past V
   float* logits;         // (B, 24, V)
   int* samples;          // (B, 24)
   __nv_bfloat16* scratch;  // (tiles, 2, 2, 3, 64, H): h0's and h1's pieces by tick parity
-  int B, H, V, stages;
+  int B, H, V, stages, ties;
 };
 
 // The GRU cells of a round's chunk: units j0 + 8 n8 + 2q + e of rows r =
@@ -177,9 +186,11 @@ __device__ __forceinline__ void decode_f32_cells(XH xh, float* c, int ldc, const
 // The packed weights (decode_kernel.pack_decode_f32_weights): 6 KB blocks
 // of 48 rows x 64 of K, six a k-slab of two chunks ([piece][chunk]): W_hh0,
 // W_ih1 and W_hh1 by pairs of 16-unit chunks (row 16 g + u of chunk c the
-// weight's column g H + 16 c + u), then the head's W^T, its 96 zero-padded
-// columns as one pair, by k-slab. `i_map` is over the pieces of the init
-// hiddens, (layer, beat, piece, rows padded to tiles, H).
+// weight's column g H + 16 c + u), then the head's W^T by chunks of 96
+// columns (zero past V), each chunk one pair, by k-slab. `i_map` is over the pieces of the init
+// hiddens, (layer, beat, piece, rows padded to tiles, H). kChunks: the head
+// over more than one chunk (decode_hopper.cuh decode_kernel's).
+template <bool kChunks>
 __global__ void __launch_bounds__(kDecodeThreads, 1)
     decode_f32_kernel(const __grid_constant__ CUtensorMap w_map,
                       const __grid_constant__ CUtensorMap a_map,
@@ -193,7 +204,7 @@ __global__ void __launch_bounds__(kDecodeThreads, 1)
   __shared__ float head_best[kConsumers][kRows];
   __shared__ int head_arg[kConsumers][kRows];
   unsigned char* ring = align1024(smem_raw);
-  const int H = p.H, H3 = 3 * H, KB = H / 64, B = p.B;
+  const int H = p.H, H3 = 3 * H, KB = H / 64, B = p.B, nhc = head_chunks(p.V);
   const int C = (int)cluster_nctarank();
   const uint32_t rank = cluster_ctarank();
   const int U = H / C, rounds = U / 32, pair0 = (int)rank * rounds;
@@ -261,7 +272,9 @@ __global__ void __launch_bounds__(kDecodeThreads, 1)
           for (int k = 0; k < KB; ++k) h_load(1, k, blk_hh1 + ((pair0 + r) * KB + k) * 6);
         }
         wait_ready(1, t);
-        for (int k = 0; k < KB; ++k) load(&a_map, 0, plane(1, cur), k, blk_head + k * 6);
+        for (int j = 0; j < nhc; ++j)
+          for (int k = 0; k < KB; ++k)
+            load(&a_map, 0, plane(1, cur), k, blk_head + (chunk_at(j, nhc, p.ties) * KB + k) * 6);
       }
     }
     cluster_sync();
@@ -317,15 +330,32 @@ __global__ void __launch_bounds__(kDecodeThreads, 1)
           plane(1, cur));
     }
     publish(1);
-    // the head on every CTA: relu(h1 @ W + b), columns 48 wg + [0, 48)
-    float lg[24];
-    f32_product(rg, lg, KB, true, wg, lane);
+    // the head on every CTA, chunk hc: relu(h1 @ W + b), columns 96 hc + 48 wg + [0, 48)
+    if constexpr (!kChunks) {
+      float lg[24];
+      f32_product(rg, lg, KB, true, wg, lane);
 #pragma unroll
-    for (int i = 0; i < 24; ++i) {
-      const int col = 48 * wg + 8 * (i >> 2) + 2 * q + (i & 1);
-      lg[i] = fmaxf(__fadd_rn(lg[i], p.head_b[col]), 0.0f);
+      for (int i = 0; i < 24; ++i) {
+        const int col = 48 * wg + 8 * (i >> 2) + 2 * q + (i & 1);
+        lg[i] = fmaxf(__fadd_rn(lg[i], p.head_b[col]), 0.0f);
+      }
+      head_argmax(lg, p.logits, p.samples, B, p.V, cta, rank, t, head_best, head_arg);
+    } else {
+      float best[2] = {-INFINITY, -INFINITY};
+      int arg[2] = {INT_MAX, INT_MAX};
+      for (int j = 0; j < nhc; ++j) {
+        const int c0 = kHeadCols * chunk_at(j, nhc, p.ties) + 48 * wg;
+        float lg[24];
+        f32_product(rg, lg, KB, true, wg, lane);
+#pragma unroll
+        for (int i = 0; i < 24; ++i) {
+          const int col = c0 + 8 * (i >> 2) + 2 * q + (i & 1);
+          lg[i] = fmaxf(__fadd_rn(lg[i], p.head_b[col]), 0.0f);
+        }
+        head_chunk(lg, c0, p.logits, B, p.V, cta, rank, t, best, arg);
+      }
+      head_finish(best, arg, p.samples, B, cta, rank, t, p.ties, head_best, head_arg);
     }
-    head_argmax(lg, p.logits, p.samples, B, p.V, cta, rank, t, head_best, head_arg);
   }
   cluster_sync();
 }
@@ -337,7 +367,7 @@ inline size_t decode_f32_smem_bytes(int H, int C, int stages) {
 }
 
 // the launch's checks: C in 1..8 owning whole 32-unit pairs of chunks, a
-// vocabulary of at most 96, a ring of 2..kDecF32MaxStages stages that fits
+// ring of 2..kDecF32MaxStages stages that fits
 inline bool decode_f32_plan_fits(int H, int C, int stages) {
   if (H % 64 != 0 || H <= 0 || C < 1 || C > kMaxCluster || H % C != 0) return false;
   if ((H / C) % 32 != 0 || stages < 2 || stages > kDecF32MaxStages) return false;
@@ -346,7 +376,8 @@ inline bool decode_f32_plan_fits(int H, int C, int stages) {
 
 inline int decode_f32_slots(int H, int C, int stages) {
   if (!decode_f32_plan_fits(H, C, stages)) return -1;
-  return max_clusters(decode_f32_kernel, C, decode_f32_smem_bytes(H, C, stages), kDecodeThreads);
+  return max_clusters(decode_f32_kernel<false>, C, decode_f32_smem_bytes(H, C, stages),
+                      kDecodeThreads);
 }
 
 // A 3D tensor map over the f32 route's packed 6 KB blocks, six a box.
@@ -360,7 +391,7 @@ inline cudaError_t make_decode_f32_map(CUtensorMap* map, const void* packed, int
 // `init` holds the init hiddens' pieces (2, 4, 3, tiles * 64, H) bf16
 inline cudaError_t launch_decode_f32(const CUtensorMap& w_map, const DecodeF32Args& a,
                                      const void* init, int C, cudaStream_t stream) {
-  if (!decode_f32_plan_fits(a.H, C, a.stages) || a.B < 1 || a.V < 1 || a.V > kHeadCols ||
+  if (!decode_f32_plan_fits(a.H, C, a.stages) || a.B < 1 || a.V < 1 ||
       a.scratch == nullptr || init == nullptr)
     return cudaErrorInvalidValue;
   const int tiles = (a.B + kRows - 1) / kRows;
@@ -376,8 +407,8 @@ inline cudaError_t launch_decode_f32(const CUtensorMap& w_map, const DecodeF32Ar
   err = make_map(&i_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, init, i_dims, i_strides, box);
   if (err != cudaSuccess) return err;
   const size_t smem = decode_f32_smem_bytes(a.H, C, a.stages);
-  err = cudaFuncSetAttribute(decode_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  const auto kernel = head_chunks(a.V) > 1 ? decode_f32_kernel<true> : decode_f32_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles * C, 1, 1);
@@ -391,7 +422,7 @@ inline cudaError_t launch_decode_f32(const CUtensorMap& w_map, const DecodeF32Ar
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, decode_f32_kernel, w_map, a_map, i_map, a);
+  err = cudaLaunchKernelEx(&cfg, kernel, w_map, a_map, i_map, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -406,15 +437,16 @@ inline cudaError_t launch_decode_f32(const CUtensorMap& w_map, const DecodeF32Ar
 // share each 64-row tile and `stages` is the ring's depth
 // (decode_kernel.f32_plan). ctx_xw (4, B, 3H), hi0 and hi1 (4, B, H),
 // tok_tab (V, 3H), x0_xw (3H,), bias (3, 3H) = b_hh0, b_ih1, b_hh1, head_b
-// (96,) zero past V, logits (B, 24, V), all f32; samples (B, 24) int32; V
-// at most 96. Returns the cudaError_t of the launch (0 on success);
-// launches on `stream` and does not synchronise.
+// (96 NHC,) zero past V, logits (B, 24, V), all f32; samples (B, 24) int32;
+// `ties` 0 (1: the planted fault of decode_hopper.cuh head_beats). Returns
+// the cudaError_t of the launch (0 on success); launches on `stream` and
+// does not synchronise.
 extern "C" int inpaint_decode_sampling_f32(const void* map, const void* ctx_xw, const void* hi0,
                                            const void* hi1, const void* tok_tab,
                                            const void* x0_xw, const void* bias,
                                            const void* head_b, void* logits, void* samples,
                                            const void* init, void* scratch, int B, int H, int V,
-                                           int cluster, int stages, void* stream) {
+                                           int cluster, int stages, int ties, void* stream) {
   if (map == nullptr) return (int)cudaErrorInvalidValue;
   using T = float;
   CUtensorMap m;
@@ -423,7 +455,7 @@ extern "C" int inpaint_decode_sampling_f32(const void* map, const void* ctx_xw, 
       static_cast<const T*>(ctx_xw), static_cast<const T*>(hi0),   static_cast<const T*>(hi1),
       static_cast<const T*>(tok_tab), static_cast<const T*>(x0_xw), static_cast<const T*>(bias),
       static_cast<const T*>(head_b),  static_cast<T*>(logits),      static_cast<int*>(samples),
-      static_cast<__nv_bfloat16*>(scratch), B, H, V, stages};
+      static_cast<__nv_bfloat16*>(scratch), B, H, V, stages, ties};
   return (int)inpaint::rec90::launch_decode_f32(m, a, init, cluster,
                                                 static_cast<cudaStream_t>(stream));
 }
@@ -447,13 +479,14 @@ extern "C" int inpaint_decode_f32_slots(int H, int cluster, int stages) {
 // packed weights (decode_kernel.pack_decode_weights); `cluster`
 // CTAs share each 64-row tile and `stages` is the depth of each consumer
 // warpgroup's ring (decode_kernel.launch_plan); bias (3, 3H) holds b_hh0,
-// b_ih1, b_hh1 and head_b (96,) the head's bias zero-padded; V at most 96.
+// b_ih1, b_hh1 and head_b (96 NHC,) the head's bias zero-padded; `ties` 0
+// (1: the planted fault of head_beats).
 extern "C" int inpaint_decode_sampling_bf16(const void* map, const void* ctx_xw, const void* hi0,
                                             const void* hi1, const void* tok_tab,
                                             const void* x0_xw, const void* bias,
                                             const void* head_b, void* logits, void* samples,
                                             int B, int H, int V, int cluster, int stages,
-                                            void* stream) {
+                                            int ties, void* stream) {
   if (map == nullptr) return (int)cudaErrorInvalidValue;
   using T = __nv_bfloat16;
   CUtensorMap m;
@@ -462,7 +495,7 @@ extern "C" int inpaint_decode_sampling_bf16(const void* map, const void* ctx_xw,
       static_cast<const T*>(ctx_xw), static_cast<const T*>(hi0),   static_cast<const T*>(hi1),
       static_cast<const T*>(tok_tab), static_cast<const T*>(x0_xw), static_cast<const T*>(bias),
       static_cast<const T*>(head_b),  static_cast<T*>(logits),      static_cast<int*>(samples),
-      B, H, V, stages};
+      B, H, V, stages, ties};
   return (int)inpaint::rec90::launch_decode(m, a, cluster, static_cast<cudaStream_t>(stream));
 }
 

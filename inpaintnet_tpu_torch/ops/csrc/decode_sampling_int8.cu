@@ -31,15 +31,16 @@
 // and head); `cluster` CTAs share each 64-row tile and `stages` is the
 // depth of each consumer warpgroup's ring (decode_kernel.int8_plan). dtype
 // (of ctx_xw, x0_xw and logits): 0 = float32, 1 = bfloat16. Tensors as
-// documented on DecodeI8Args; V at most 96. Returns the cudaError_t of the
-// launch (0 on success); launches on `stream` and does not synchronise.
+// documented on DecodeI8Args; `ties` 0 (1: the planted fault of
+// decode_hopper.cuh head_beats). Returns the cudaError_t of the launch (0
+// on success); launches on `stream` and does not synchronise.
 extern "C" int inpaint_decode_sampling_int8(int dtype, const void* map, const void* ctx_xw,
                                             const void* hi0, const void* hi1, const void* q,
                                             const void* tok_q, const void* x0_xw,
                                             const void* scales, const void* bias,
                                             const void* head_s, const void* head_b,
                                             void* logits, void* samples, int B, int H, int V,
-                                            int cluster, int stages, void* stream) {
+                                            int cluster, int stages, int ties, void* stream) {
   if (map == nullptr) return (int)cudaErrorInvalidValue;
   CUtensorMap m;
   memcpy(&m, map, sizeof(m));
@@ -54,7 +55,8 @@ extern "C" int inpaint_decode_sampling_int8(int dtype, const void* map, const vo
         static_cast<const float*>(head_s), static_cast<const float*>(head_b),               \
         static_cast<T*>(logits),           static_cast<int*>(samples),                      \
         B,                                 H,                                               \
-        V,                                 stages};                                         \
+        V,                                 stages,                                          \
+        ties};                                                                              \
     return (int)inpaint::rec90::launch_decode_i8(m, a, cluster, s);                         \
   }
   if (dtype == 0) INPAINT_DECODE_I8(float)

@@ -537,6 +537,44 @@ inline int chunks_per_warpgroup(int H, int C) {
 }
 
 // ---------------------------------------------------------------------------
+// The heads' argmax over chunks (K2, K4 and K7, both routes): a head over
+// any vocabulary runs as chunks of columns. A thread walks its columns in
+// ascending order, chunk after chunk, keeping a running (max, index) of each
+// of its rows that a later column takes only by a larger logit; the lanes
+// of a quad and the two warpgroups then merge, the lower index winning a
+// tie: the first index among equal maxima, as the plain versions' argmax.
+// The launches' `ties` (kernel_common.head_ties) is the planted fault of a
+// check, "a later chunk wins a tie": a thread walks its chunks last to
+// first, and the warpgroups' merge prefers the later chunk (head_beats).
+// ---------------------------------------------------------------------------
+
+// the running max's chunk walk: chunk j of n in order, or (ties) reversed
+__device__ __forceinline__ int chunk_at(int j, int n, int ties) { return ties ? n - 1 - j : j; }
+
+// the best (value, index) of a row across the four lanes of a quad, the
+// lower index winning a tie
+__device__ __forceinline__ void quad_best(float& best, int& arg) {
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+    const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
+    if (ob > best || (ob == best && oa < arg)) {
+      best = ob;
+      arg = oa;
+    }
+  }
+}
+
+// Whether warpgroup 1's best (v, i) of a row beats warpgroup 0's (bv, bi):
+// the larger value, on equal values the lower index; with `ties` (the
+// planted fault) a later chunk of `cw` columns
+__device__ __forceinline__ bool head_beats(float v, int i, float bv, int bi, int cw, int ties) {
+  if (v != bv) return v > bv;
+  if (ties && i / cw != bi / cw) return i / cw > bi / cw;
+  return i < bi;
+}
+
+// ---------------------------------------------------------------------------
 // The split f32 products of K7's and K2's f32 routes (arnn_hopper.cuh
 // arnn_f32_kernel, decode_hopper.cuh decode_f32_kernel): a ring of `stages`
 // stages, each a 64-wide k-slab of the operand's three bf16 pieces (one TMA

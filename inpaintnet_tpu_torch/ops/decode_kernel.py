@@ -45,10 +45,10 @@ import torch
 import ctypes
 import functools
 
+from inpaintnet_tpu_torch.ops import kernel_common
 from inpaintnet_tpu_torch.ops.encoder_kernel import pack_gate_blocks
 from inpaintnet_tpu_torch.ops.kernel_common import (
     DTYPE_CODES,
-    HOPPER_CLUSTERS,
     HOPPER_ROWS,
     HOPPER_SMEM_BUDGET,
     LaunchPlan,
@@ -57,6 +57,7 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     check_launch,
     cluster_sizes,
     counts_launches,
+    fitting_clusters,
     gru_gates_f32,
     kernel_supports_hidden,
     least_cost_cluster,
@@ -73,7 +74,7 @@ from inpaintnet_tpu_torch.ops.quantize import dequantize_h, quantize_cols_int8, 
 
 NUM_TICKS = 24
 TICKS_PER_BEAT = 6
-HEAD_COLS = 96  # the Hopper routes' head: a 96-row chunk (48 columns a warpgroup), V zero-padded
+HEAD_COLS = 96  # columns of a head chunk of the Hopper routes (48 a warpgroup)
 # K2 f32 against its plain version on the card (and a split emulation
 # against the plain version and the JAX kernel on the CPU): tokens equal on
 # >= 99.99% (argmax near-ties), logits within 1e-5 where both decodes fed
@@ -230,7 +231,8 @@ def _check_decode_args(name: str, params, tick_ctx: torch.Tensor, h_inits: torch
     if dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: no kernel for dtype {dtype}")
     batch, num_beats, hidden = tick_ctx.shape
-    if num_beats != NUM_TICKS // TICKS_PER_BEAT or not kernel_supports_hidden(hidden):
+    kind = "int8" if name.endswith("int8") else dtype
+    if num_beats != NUM_TICKS // TICKS_PER_BEAT or not decode_supports(hidden, kind):
         raise ValueError(f"{name}: no kernel for (beats, hidden) {(num_beats, hidden)}")
     check_cuda_tensor("tick_ctx", tick_ctx, (batch, num_beats, hidden), dtype, device)
     check_cuda_tensor("h_inits", h_inits, (2, batch, num_beats, hidden), dtype, device)
@@ -264,6 +266,23 @@ def card_plan(rows: int, hidden: int, device) -> LaunchPlan:
                        slots)
 
 
+def head_chunks(vocab: int) -> int:
+    """Chunks of the Hopper routes' head: the vocabulary zero-padded to
+    whole chunks of ``HEAD_COLS``, one at the flagship's V 60. Each CTA
+    walks them all with a running argmax (``csrc/decode_hopper.cuh
+    head_chunk``)."""
+    return -(-vocab // HEAD_COLS)
+
+
+def _padded_head(head_w: torch.Tensor, dtype) -> torch.Tensor:
+    """The head's W^T, (chunks * 96, H), zero rows past V."""
+    hidden, vocab = head_w.shape
+    head = torch.zeros((head_chunks(vocab) * HEAD_COLS, hidden), dtype=dtype,
+                       device=head_w.device)
+    head[:vocab] = head_w.t()
+    return head
+
+
 # --------------------------------------------------------------------------- #
 # K2's f32 route (csrc/decode_hopper.cuh decode_f32_kernel)
 # --------------------------------------------------------------------------- #
@@ -294,11 +313,12 @@ def f32_cluster_sizes(hidden: int) -> list:
     """Cluster sizes the f32 route takes: CTAs owning whole pairs of 16-unit
     chunks (32 units a round, one chunk a consumer warpgroup) with a ring of
     at least two stages beside their f32 carries: 4 and 8 at the flagship's
-    H 512 (at 2 the carries of 256 units leave one stage)."""
+    H 512 (at 2 the carries of 256 units leave one stage); 7 at H 448, where
+    no power of two fits (``kernel_common.fitting_clusters``)."""
     if hidden % 64 or hidden <= 0:
         return []
-    return [c for c in HOPPER_CLUSTERS
-            if hidden % c == 0 and (hidden // c) % 32 == 0 and f32_stages(hidden, c) >= 2]
+    return fitting_clusters(lambda c: hidden % c == 0 and (hidden // c) % 32 == 0
+                            and f32_stages(hidden, c) >= 2)
 
 
 def f32_plan(rows: int, hidden: int, sms: int, slots=None) -> LaunchPlan:
@@ -341,16 +361,16 @@ def pack_decode_f32_weights(w_hh0, w_ih1, w_hh1, head_w) -> torch.Tensor:
     the order the recurrence streams them (``kernel_common.split_blocks``):
     W_hh0, W_ih1 and W_hh1 by pairs of 16-unit chunks, row 16 g + u of chunk
     c the weight's column g H + 16 c + u; then the head's W^T, its columns
-    zero-padded to 96, as one pair of 48."""
-    hidden, vocab = head_w.shape
+    zero-padded to whole chunks of 96 (:func:`head_chunks`), each chunk one
+    pair of 48."""
+    hidden = head_w.shape[0]
 
     def gru(w):
         wt = w.float().t().reshape(3, hidden // F32_UNITS, F32_UNITS, hidden)
         wt = wt.permute(1, 0, 2, 3).reshape(3 * hidden, hidden)
         return split_blocks(torch.stack(split_bf16_pieces(wt)), 3 * F32_UNITS)
 
-    head = torch.zeros((HEAD_COLS, hidden), dtype=torch.float32, device=head_w.device)
-    head[:vocab] = head_w.float().t()
+    head = _padded_head(head_w.float(), torch.float32)
     return torch.cat([gru(w_hh0), gru(w_ih1), gru(w_hh1),
                       split_blocks(torch.stack(split_bf16_pieces(head)), HEAD_COLS // 2)]) \
         .contiguous()
@@ -381,21 +401,39 @@ def decode_f32_data(h_inits: torch.Tensor) -> torch.Tensor:
 
 def pack_decode_weights(w_hh0, w_ih1, w_hh1, head_w) -> torch.Tensor:
     """K2's bf16 or K4's int8 weights as one array of (96, 64) k-slabs,
-    (3 H / 32 + 1, H / 64, 96, 64): W_hh0, W_ih1 and W_hh1 as
-    ``pack_gate_blocks`` lays them out, then the head's W^T as one more
-    chunk (rows 0..V-1 its columns, zero rows after). A k-slab row is 64
+    (3 H / 32 + chunks, H / 64, 96, 64): W_hh0, W_ih1 and W_hh1 as
+    ``pack_gate_blocks`` lays them out, then the head's W^T as
+    :func:`head_chunks` more chunks (row r of head chunk c its column 96 c +
+    r, zero rows past V). A k-slab row is 64
     values of K in either type: 128 bytes of bf16 (the 128-byte swizzle) or
     64 of int8 (the 64-byte swizzle, which the 8-bit ``wgmma``'s K-major
     operands need for 64-unit h blocks)."""
-    hidden, vocab = head_w.shape
-    head_t = torch.zeros((HEAD_COLS, hidden), dtype=head_w.dtype, device=head_w.device)
-    head_t[:vocab] = head_w.t()
-    head = head_t.reshape(1, HEAD_COLS, hidden // 64, 64).permute(0, 2, 1, 3)
+    hidden = head_w.shape[0]
+    head = _padded_head(head_w, head_w.dtype)
+    head = head.reshape(-1, HEAD_COLS, hidden // 64, 64).permute(0, 2, 1, 3)
     return torch.cat([pack_gate_blocks(w) for w in (w_hh0, w_ih1, w_hh1)] + [head]).contiguous()
 
 
+def _head_pad(vocab: int) -> tuple:
+    """``F.pad``'s padding of a (V,) head vector to whole chunks."""
+    return (0, head_chunks(vocab) * HEAD_COLS - vocab)
+
+
+def decode_supports(hidden: int, dtype) -> bool:
+    """Whether K2's route in ``dtype`` (K4's for ``"int8"``) has a plan at
+    ``hidden``: every width of ``kernel_supports_hidden`` does, at every
+    vocabulary (the head is a loop over chunks, :func:`head_chunks`). With
+    ``HierarchicalDecoder.use_kernel`` this is K2's and K4's gate."""
+    if not kernel_supports_hidden(hidden):
+        return False
+    if dtype == "int8" or dtype == torch.bfloat16:
+        h_tiles, elem = (4, 1) if dtype == "int8" else (2, 2)
+        return bool(cluster_sizes(hidden)) and ring_stages(hidden, h_tiles, elem) >= 2
+    return dtype == torch.float32 and bool(f32_cluster_sizes(hidden))
+
+
 def _build_decode_operands(w_hh0, w_ih1, w_hh1, head_w, b_hh0, b_ih1, b_hh1, head_b):
-    head_b = torch.nn.functional.pad(head_b, (0, HEAD_COLS - head_b.shape[0]))
+    head_b = torch.nn.functional.pad(head_b, _head_pad(head_b.shape[0]))
     bias = torch.stack([b_hh0, b_ih1, b_hh1])
     if head_w.dtype == torch.bfloat16:
         packed = pack_decode_weights(w_hh0, w_ih1, w_hh1, head_w)
@@ -415,7 +453,7 @@ def decode_sampling(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
     """K2: argmax decode of one measure per row.
 
     :param params: HierarchicalDecoder params, (in, out) weights, f32 or bf16,
-        a vocabulary of at most 96
+        any vocabulary (the head runs in chunks of ``HEAD_COLS``)
     :param tick_ctx: (B, 4, H) per-beat context (selu'd beat_to_tick_input)
     :param h_inits: (2, B, 4, H) per-beat tick-GRU init hiddens
     :return: (logits (B, 24, V) in the parameter dtype, samples (B, 24) int32)
@@ -426,9 +464,6 @@ def decode_sampling(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
         raise ValueError(f"decode_sampling: no kernel for device {tick_ctx.device}")
     batch, hidden, vocab, dtype, device = _check_decode_args("decode_sampling", params,
                                                              tick_ctx, h_inits)
-    if vocab > HEAD_COLS:
-        raise ValueError(f"decode_sampling: no kernel for vocabulary {vocab} (at most "
-                         f"{HEAD_COLS})")
     p0, p1 = params["tick_gru"][0][0], params["tick_gru"][1][0]
     ops = decode_operands(p0["w_hh"], p1["w_ih"], p1["w_hh"], params["head"]["w"],
                           p0["b_hh"], p1["b_ih"], p1["b_hh"], params["head"]["b"])
@@ -443,7 +478,7 @@ def decode_sampling(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
         err = lib.inpaint_decode_sampling_bf16(
             ops["map_addr"], *inputs, ops["bias"].data_ptr(), ops["head_b"].data_ptr(),
             logits.data_ptr(), samples.data_ptr(), batch, hidden, vocab, plan.cluster,
-            plan.stages, stream_ptr())
+            plan.stages, kernel_common.head_ties(), stream_ptr())
     else:
         plan = f32_card_plan(batch, hidden, device)
         init = decode_f32_data(h_inits)
@@ -453,7 +488,7 @@ def decode_sampling(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
         err = lib.inpaint_decode_sampling_f32(
             ops["map_addr"], *inputs, ops["bias"].data_ptr(), ops["head_b"].data_ptr(),
             logits.data_ptr(), samples.data_ptr(), init.data_ptr(), scratch.data_ptr(), batch,
-            hidden, vocab, plan.cluster, plan.stages, stream_ptr())
+            hidden, vocab, plan.cluster, plan.stages, kernel_common.head_ties(), stream_ptr())
     check_launch(err, "decode_sampling")
     decode_sampling.launches += 1
     return logits, samples
@@ -530,7 +565,7 @@ def decode_int8_operands(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor) 
 
 def _build_decode_int8_weights(*weights) -> dict:
     ops = _int8_weights(*weights)
-    pad = (0, HEAD_COLS - ops["head_q"].shape[1])
+    pad = _head_pad(ops["head_q"].shape[1])
     packed = pack_decode_weights(ops["whh0_q"], ops["wih1_q"], ops["whh1_q"], ops["head_q"])
     buf, addr = slab_map(packed)
     return {**ops, "packed": packed, "map": buf, "map_addr": addr,
@@ -539,7 +574,8 @@ def _build_decode_int8_weights(*weights) -> dict:
 
 
 # K4's weight part with its packed int8 slabs, their tensor map and the
-# head's padded scales and bias, built once per set of weight tensors
+# head's scales and bias padded to whole chunks, built once per set of
+# weight tensors
 decode_int8_weights = WeightCache(_build_decode_int8_weights)
 
 
@@ -612,7 +648,7 @@ def decode_sampling_int8(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
     the Hopper design of ``csrc/decode_hopper.cuh`` on s8 ``wgmma``; it
     replaces ``inpaintnet_tpu/ops/decode_pallas.py
     decode_sampling_pallas_int8``). Same arguments and results as
-    :func:`decode_sampling` (a vocabulary of at most 96); the numerics are
+    :func:`decode_sampling` (any vocabulary); the numerics are
     :func:`decode_sampling_int8_reference`'s, bit for bit. Per call it
     builds only the data part of its operands."""
     if tick_ctx.device.type == "cpu":
@@ -621,9 +657,6 @@ def decode_sampling_int8(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
         raise ValueError(f"decode_sampling_int8: no kernel for device {tick_ctx.device}")
     batch, hidden, vocab, dtype, device = _check_decode_args("decode_sampling_int8", params,
                                                              tick_ctx, h_inits)
-    if vocab > HEAD_COLS:
-        raise ValueError(f"decode_sampling_int8: no kernel for vocabulary {vocab} (at most "
-                         f"{HEAD_COLS})")
     w = decode_int8_weights(*_int8_weight_tensors(params))
     d = decode_int8_data(params, tick_ctx, h_inits)
     plan = int8_plan(hidden)
@@ -634,7 +667,7 @@ def decode_sampling_int8(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
         d["hi1"].data_ptr(), d["q"].data_ptr(), w["tok_q"].data_ptr(), w["x0_xw"].data_ptr(),
         w["scales"].data_ptr(), w["bias"].data_ptr(), w["head_s_pad"].data_ptr(),
         w["head_b_pad"].data_ptr(), logits.data_ptr(), samples.data_ptr(), batch, hidden, vocab,
-        plan.cluster, plan.stages, stream_ptr())
+        plan.cluster, plan.stages, kernel_common.head_ties(), stream_ptr())
     check_launch(err, "decode_sampling_int8")
     decode_sampling_int8.launches += 1
     return logits, samples

@@ -169,7 +169,10 @@ def gru_layer_supports_hidden(hidden: int, dtype=torch.float32) -> bool:
 # The Hopper recurrences of K8, K2 and K4 (csrc/gru_layer_hopper.cuh)
 # --------------------------------------------------------------------------- #
 HOPPER_ROWS = 64  # rows of a CTA: one wgmma tile
-HOPPER_CLUSTERS = (1, 2, 4, 8)  # the portable cluster sizes
+HOPPER_CLUSTERS = (1, 2, 4, 8)  # the cluster sizes the plans prefer
+# the other portable sizes (up to 8 CTAs), which a plan takes only where no
+# power of two fits: a width of 5 or 7 blocks of 64 splits evenly only so
+HOPPER_ODD_CLUSTERS = (3, 5, 6, 7)
 HOPPER_MAX_UNITS = 512  # units a CTA computes: 2 consumer warpgroups x 8 chunks of 32
 HOPPER_SLAB_ROWS = 96  # one k-slab of a chunk: its r, z, n rows x 64 of K
 HOPPER_CONSUMERS = 2
@@ -183,6 +186,24 @@ class LaunchPlan(NamedTuple):
     consumer warpgroup's TMA ring has ``stages`` stages."""
     cluster: int
     stages: int
+
+
+def fitting_clusters(fits) -> list:
+    """The sizes of ``HOPPER_CLUSTERS`` for which ``fits(c)`` holds, or,
+    where none does, those of ``HOPPER_ODD_CLUSTERS``."""
+    return ([c for c in HOPPER_CLUSTERS if fits(c)]
+            or [c for c in HOPPER_ODD_CLUSTERS if fits(c)])
+
+
+def head_ties() -> int:
+    """How the heads' argmax over chunks (K2, K4 and K7, ``csrc/
+    gru_layer_hopper.cuh``) breaks a tie between two vocabulary chunks: 0,
+    the lower index, so the first index among equal maxima wins across
+    chunks as the plain versions' ``argmax`` does. The wrappers pass it to
+    every launch (one place, so a check can plant 1, "a later chunk wins a
+    tie": each thread walks its chunks last to first, and the warpgroups'
+    merge prefers the later chunk)."""
+    return 0
 
 
 def cluster_sizes(hidden: int) -> list:
@@ -403,7 +424,7 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_encoder_rec_bf16.restype = i32
     lib.inpaint_encoder_gemm_bf16.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]
     lib.inpaint_encoder_gemm_bf16.restype = i32
-    lib.inpaint_decode_sampling_f32.argtypes = [ptr] * 12 + [i32] * 5 + [ptr]
+    lib.inpaint_decode_sampling_f32.argtypes = [ptr] * 12 + [i32] * 6 + [ptr]
     lib.inpaint_decode_sampling_f32.restype = i32
     lib.inpaint_decode_f32_map.argtypes = [ptr, i32, ptr]
     lib.inpaint_decode_f32_map.restype = i32
@@ -411,7 +432,7 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_decode_f32_slots.restype = i32
     lib.inpaint_gru_layer_f32_slots.argtypes = [i32] * 3
     lib.inpaint_gru_layer_f32_slots.restype = i32
-    lib.inpaint_decode_sampling_bf16.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
+    lib.inpaint_decode_sampling_bf16.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
     lib.inpaint_decode_sampling_bf16.restype = i32
     lib.inpaint_slab_map.argtypes = [ptr, i32, i32, ptr]
     lib.inpaint_slab_map.restype = i32
@@ -423,7 +444,7 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_encoder_rec_int8.restype = i32
     lib.inpaint_encoder_gemm_int8.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
     lib.inpaint_encoder_gemm_int8.restype = i32
-    lib.inpaint_decode_sampling_int8.argtypes = [i32] + [ptr] * 13 + [i32] * 5 + [ptr]
+    lib.inpaint_decode_sampling_int8.argtypes = [i32] + [ptr] * 13 + [i32] * 6 + [ptr]
     lib.inpaint_decode_sampling_int8.restype = i32
     lib.inpaint_decode_int8_map.argtypes = [ptr, i32, i32, ptr]
     lib.inpaint_decode_int8_map.restype = i32
@@ -437,7 +458,7 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_gru_bwd_w_map.restype = i32
     lib.inpaint_arnn_decode.argtypes = [i32] + [ptr] * 16 + [i32] * 7 + [ptr]
     lib.inpaint_arnn_decode.restype = i32
-    lib.inpaint_arnn_decode_bf16.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
+    lib.inpaint_arnn_decode_bf16.argtypes = [ptr] * 11 + [i32] * 10 + [ptr]
     lib.inpaint_arnn_decode_bf16.restype = i32
     lib.inpaint_arnn_map.argtypes = [ptr, i32, ptr]
     lib.inpaint_arnn_map.restype = i32
@@ -445,7 +466,7 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_arnn_slots.restype = i32
     lib.inpaint_arnn_ctx_gemm.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
     lib.inpaint_arnn_ctx_gemm.restype = i32
-    lib.inpaint_arnn_decode_f32.argtypes = [ptr] * 12 + [i32] * 6 + [ptr]
+    lib.inpaint_arnn_decode_f32.argtypes = [ptr] * 12 + [i32] * 7 + [ptr]
     lib.inpaint_arnn_decode_f32.restype = i32
     lib.inpaint_arnn_f32_map.argtypes = [ptr, i32, ptr]
     lib.inpaint_arnn_f32_map.restype = i32

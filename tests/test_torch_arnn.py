@@ -285,7 +285,9 @@ def test_kernel_gate():
     assert arnn_kernel_supports(512, 512, 256, 60, torch.float32)
     assert not arnn_kernel_supports(16, 16, 16, 30, torch.float32)  # the small preset
     assert not arnn_kernel_supports(64, 48, 12, 30, torch.float32)
-    assert not arnn_kernel_supports(512, 512, 512, 60, torch.bfloat16)  # shared memory
+    assert arnn_kernel_supports(512, 512, 512, 60, torch.bfloat16)  # the hidden in rounds
+    assert arnn_kernel_supports(256, 256, 1024, 1280, torch.bfloat16)
+    assert not arnn_kernel_supports(576, 256, 256, 60, torch.bfloat16)  # past the hidden gate
     assert not arnn_kernel_supports(64, 64, 12, 30, torch.float16)
 
 

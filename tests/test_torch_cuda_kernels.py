@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from inpaintnet_tpu_torch.ops import arnn_kernel, decode_kernel, encoder_kernel
+from inpaintnet_tpu_torch.ops import arnn_kernel, decode_kernel, encoder_kernel, kernel_common
 from inpaintnet_tpu_torch.ops import gru_kernel as lk
 from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
 from inpaintnet_tpu_torch.ops.gru import gru_init
@@ -176,7 +176,8 @@ def _bit_equal(a, b):
 
 
 @pytest.mark.parametrize("batch,hidden,vocab", [
-    (6, 512, 60), (45, 64, 60), (2048, 512, 60), (2100, 128, 13), (45, 128, 13), (6, 64, 13)])
+    (6, 512, 60), (45, 64, 60), (2048, 512, 60), (2100, 128, 13), (45, 128, 13), (6, 64, 13),
+    (70, 512, 256), (45, 448, 97)])
 def test_decode_kernel_bf16_every_cluster_size(cuda, monkeypatch, batch, hidden, vocab):
     """K2's Hopper route at each cluster size its width allows: within the
     plain version's bounds, and bit-equal across cluster sizes (a cluster
@@ -208,7 +209,7 @@ def _with_f32_cluster(monkeypatch, cluster):
 
 
 @pytest.mark.parametrize("batch,hidden,vocab", [
-    (6, 512, 60), (2048, 512, 60), (45, 64, 60), (130, 128, 13), (7, 128, 96)])
+    (6, 512, 60), (2048, 512, 60), (45, 64, 60), (130, 128, 13), (7, 128, 96), (70, 512, 256)])
 def test_decode_kernel_f32_every_cluster_size(cuda, monkeypatch, batch, hidden, vocab):
     """K2's f32 route (split products, h's pieces through L2) at each
     cluster size its width allows: within ``decode_kernel.F32_BOUNDS`` of
@@ -439,11 +440,13 @@ def test_int8_exact_bounds_reject_planted_faults(cuda, monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("batch,hidden,vocab", [
-    (6, 512, 60), (2048, 512, 60), (130, 128, 13), (70, 256, 96), (45, 192, 60)])
+    (6, 512, 60), (2048, 512, 60), (130, 128, 13), (70, 256, 96), (45, 192, 60),
+    (70, 512, 256), (45, 448, 97)])
 def test_decode_int8_kernel_every_cluster_size(cuda, monkeypatch, dtype, batch, hidden, vocab):
     """K4's Hopper route on both master dtypes at each cluster size its width
     allows: bit-equal to the plain version, and so to each other (a cluster
-    only moves h between its CTAs); a 96-column head at H 256."""
+    only moves h between its CTAs); one whole 96-column head chunk at H 256,
+    two and three chunks at H 448 and 512."""
     rng = np.random.default_rng(batch + hidden + vocab)
     params, tick_ctx, h_inits = _decode_case(rng, batch, hidden, vocab, dtype, cuda,
                                              big_row=batch // 3)
@@ -482,6 +485,57 @@ def test_decode_kernel_bf16_noisy_layer1_sum_order(cuda):
     b = K2_NOISY_BOUNDS
     assert (a["logits_mean"] <= b["mean"] and a["logits_max"] <= b["max"]
             and a["early_changed"] <= b["early"]), a
+
+
+def _tied_head(params, key, width, col=5):
+    """``params`` with head column ``col`` copied into the next chunk (``col
+    + width``) and both biases raised by 8: their equal logits are every
+    tick's maximum."""
+    head = dict(params[key])
+    w, b = head["w"].clone(), head["b"].clone()
+    w[:, col + width] = w[:, col]
+    b[col] += 8.0
+    b[col + width] = b[col]
+    return {**params, key: {**head, "w": w, "b": b}}
+
+
+@pytest.fixture
+def later_chunk_wins_ties(monkeypatch):
+    """The heads' planted fault: a later chunk wins a tie
+    (``kernel_common.head_ties``)."""
+    def plant():
+        monkeypatch.setattr(kernel_common, "head_ties", lambda: 1)
+    return plant
+
+
+@pytest.mark.parametrize("kernel", ["k2", "k4", "k7"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_heads_take_the_first_index_across_chunks(cuda, later_chunk_wins_ties, kernel, dtype):
+    """A head whose maximum ties across a chunk border: every kernel takes
+    the first column, as its plain version's argmax; the variant that lets
+    the later chunk win the tie, planted in the wrapper, does not."""
+    rng = np.random.default_rng(11)
+    if kernel == "k7":
+        args = _arnn_case(rng, 37, 64, 64, 24, 130, 12, dtype, cuda, noise=0.0)
+        args = (_tied_head(args[0], "linear_output_notes", arnn_kernel.ARNN_OUT_COLS),
+                *args[1:])
+        run, plain = arnn_kernel.arnn_sampled_decode, arnn_kernel.arnn_sampled_decode_reference
+    else:
+        params, tick_ctx, h_inits = _decode_case(rng, 37, 64, 200, dtype, cuda)
+        args = (_tied_head(params, "head", decode_kernel.HEAD_COLS), tick_ctx, h_inits)
+        run, plain = ((decode_kernel.decode_sampling, decode_kernel.decode_sampling_reference)
+                      if kernel == "k2" else (decode_kernel.decode_sampling_int8,
+                                              decode_kernel.decode_sampling_int8_reference))
+    want = plain(*args)[1]
+    sampled = want if kernel != "k7" else want[args[3] == 0]
+    assert (sampled == 5).all()
+    assert torch.equal(run(*args)[1], want)
+    later_chunk_wins_ties()
+    got = run(*args)[1]
+    torch.cuda.synchronize()
+    assert not torch.equal(got, want)
+    assert ((got if kernel != "k7" else got[args[3] == 0]) == 5 + (
+        arnn_kernel.ARNN_OUT_COLS if kernel == "k7" else decode_kernel.HEAD_COLS)).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -824,12 +878,13 @@ def _with_arnn_cluster(monkeypatch, cluster):
     monkeypatch.setattr(arnn_kernel, "arnn_plan", lambda rows, hidden, linear, sms, slots=None:
                         real(rows, hidden, linear, sms, slots)._replace(
                             cluster=cluster, stages=arnn_kernel.arnn_ring_stages(
-                                hidden, cluster, arnn_kernel.arnn_head_width(linear))))
+                                hidden, cluster, arnn_kernel.arnn_hid_cols(
+                                    hidden, cluster, arnn_kernel.arnn_head_width(linear)))))
 
 
 @pytest.mark.parametrize("batch,hidden,ctx_dim,vocab,linear", [
     (70, 256, 256, 60, 256), (37, 128, 64, 13, 64), (5, 256, 128, 30, 200),
-    (9, 256, 64, 40, 300)])
+    (9, 256, 64, 40, 300), (9, 256, 64, 130, 1024)])
 def test_arnn_kernel_bf16_every_cluster_size(cuda, monkeypatch, batch, hidden, ctx_dim, vocab,
                                              linear):
     """K7's bf16 route at each cluster size its width allows: bit-equal
@@ -857,8 +912,8 @@ def test_arnn_kernel_bf16_every_cluster_size(cuda, monkeypatch, batch, hidden, c
 
 
 def _first_kernel(args):
-    """K7's call through the first kernel (``csrc/arnn_decode.cu``), the
-    route of the bf16 geometries the Hopper route does not take."""
+    """K7's call through the first kernel (``csrc/arnn_decode.cu``), which
+    no route of the wrapper runs: the Hopper routes' yardstick."""
     return arnn_kernel._decode_tiled(*args, arnn_kernel._check_arnn_args(*args))
 
 
@@ -903,13 +958,13 @@ def test_arnn_kernel_bf16_h256_noisy_no_worse_than_first_kernel(cuda, monkeypatc
 @pytest.mark.parametrize("batch,hidden,ctx_dim,vocab,linear", [
     (37, 512, 256, 60, 256), (20, 256, 256, 65, 256)])
 def test_arnn_kernel_bf16_first_kernel_geometries(cuda, batch, hidden, ctx_dim, vocab, linear):
-    """The bf16 geometries the Hopper plan does not take (H 512 at a
-    256-wide head; a vocabulary over 64) launch the first kernel, within
-    the plain version's bounds (the layers' own initialisation, as the
-    flagship's)."""
-    assert not arnn_kernel.arnn_hopper_supports(hidden, linear, vocab)
-    assert arnn_kernel.arnn_kernel_supports(hidden, ctx_dim, linear, vocab, torch.bfloat16)
-    assert arnn_kernel.arnn_cuda_launches(torch.bfloat16, batch, 48, hidden, linear, vocab) == 1
+    """The bf16 geometries that ran the first kernel before the heads were
+    chunked (H 512 at a 256-wide head, now a 128-column hidden tile in two
+    rounds; a vocabulary over 64, now two output chunks) run the Hopper
+    route: two CUDA launches a chunk, within the plain version's bounds
+    (the layers' own initialisation, as the flagship's)."""
+    assert arnn_kernel.arnn_hopper_supports(hidden, linear, vocab)
+    assert arnn_kernel.arnn_cuda_launches(torch.bfloat16, batch, 48, hidden, linear, vocab) == 2
     args = _arnn_case(np.random.default_rng(batch), batch, hidden, ctx_dim, 48, vocab, linear,
                       torch.bfloat16, cuda, noise=0.0)
     before = arnn_kernel.arnn_sampled_decode.launches
@@ -953,7 +1008,8 @@ def test_arnn_kernel_bf16_rejects_a_bf16_context_projection(cuda, monkeypatch):
 
 
 @pytest.mark.parametrize("batch,hidden,ctx_dim,vocab,linear", [
-    (70, 256, 256, 60, 256), (37, 64, 64, 60, 12), (5, 128, 64, 13, 64), (9, 512, 64, 40, 300)])
+    (70, 256, 256, 60, 256), (37, 64, 64, 60, 12), (5, 128, 64, 13, 64), (9, 512, 64, 40, 300),
+    (9, 256, 64, 130, 600)])
 def test_arnn_kernel_f32_every_cluster_size(cuda, monkeypatch, batch, hidden, ctx_dim, vocab,
                                             linear):
     """K7's f32 route at each cluster size its width allows, the flagship's
@@ -1001,11 +1057,12 @@ def test_arnn_kernel_f32_bounds_reject_planted_faults(cuda, monkeypatch):
 
 
 def test_arnn_kernel_f32_first_kernel_geometry_and_chunks(cuda, monkeypatch):
-    """A vocabulary over 64 keeps the first kernel in f32 (one CUDA
-    launch), within the bounds; the split route over chunks of 64 rows
-    gives the same bits as one chunk."""
-    assert not arnn_kernel.arnn_f32_supports(256, 256, 65)
-    assert arnn_kernel.arnn_cuda_launches(torch.float32, 20, 48, 256, 256, 65) == 1
+    """A vocabulary over 64, the first kernel's in f32 before the heads were
+    chunked, runs the split route (two CUDA launches), within the bounds;
+    the split route over chunks of 64 rows gives the same bits as one
+    chunk."""
+    assert arnn_kernel.arnn_f32_supports(256, 256, 65)
+    assert arnn_kernel.arnn_cuda_launches(torch.float32, 20, 48, 256, 256, 65) == 2
     args = _arnn_case(np.random.default_rng(20), 20, 256, 256, 48, 65, 256, torch.float32, cuda,
                       noise=0.0)
     agree = arnn_kernel.decode_agreement(arnn_kernel.arnn_sampled_decode(*args),
@@ -1219,10 +1276,22 @@ def test_gru_layer_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     odd = _gru_layer_case(rng, 4, 3, 576, torch.bfloat16, cuda, None)
     with pytest.raises(ValueError, match="hidden size"):
         lk.gru_layer_stream(*odd)
+    # a vocabulary past one 96-column head chunk, which K2 refused before its
+    # head was chunked: within the plain version's bounds, K4 bit-equal
     for dtype in (torch.bfloat16, torch.float32):
-        params, tick_ctx, h_inits = _decode_case(rng, 4, 64, 97, dtype, cuda)
-        with pytest.raises(ValueError, match="vocabulary"):
-            decode_kernel.decode_sampling(params, tick_ctx, h_inits)
+        for vocab in (97, 256):
+            params, tick_ctx, h_inits = _decode_case(rng, 37, 64, vocab, dtype, cuda)
+            got = decode_kernel.decode_sampling(params, tick_ctx, h_inits)
+            want = decode_kernel.decode_sampling_reference(params, tick_ctx, h_inits)
+            got8 = decode_kernel.decode_sampling_int8(params, tick_ctx, h_inits)
+            want8 = decode_kernel.decode_sampling_int8_reference(params, tick_ctx, h_inits)
+            torch.cuda.synchronize()
+            assert got[0].shape == (37, 24, vocab)
+            assert (got[1] == want[1]).float().mean().item() >= 0.99
+            same_rows = (got[1] == want[1]).all(dim=1)
+            torch.testing.assert_close(got[0][same_rows].float(), want[0][same_rows].float(),
+                                       rtol=0, atol=ATOL[dtype] * 4)
+            assert _bit_equal(got8, want8)
 
 
 # --------------------------------------------------------------------------- #

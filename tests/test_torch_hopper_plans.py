@@ -325,32 +325,41 @@ def test_arnn_plan(rows, hidden, linear, cluster, stages):
 
 
 def test_arnn_smem_and_gate():
-    """Each plan's tiles, c carries and rings fit the 227 KB opt-in; the
-    Hopper route's gate follows the plans (a vocabulary of at most 64), and
-    the first kernel takes the bf16 geometries it does not (one CUDA launch
-    a call against the Hopper route's two a chunk)."""
-    for hidden, linear in ((256, 256), (64, 12), (128, 64), (256, 512)):
+    """Each plan's tiles (the hidden tile of ``arnn_hid_cols`` columns, a
+    whole number of rounds of the padded head), c carries and rings fit the
+    227 KB opt-in; the Hopper route takes every width at any head width and
+    vocabulary: H 512 at a 256-wide head with a 128-column hidden tile in
+    two rounds, a 1,024-wide head in rounds, H 320 and 448 on clusters of 5
+    and 7; two CUDA launches a chunk everywhere, none of the first kernel."""
+    for hidden, linear in ((256, 256), (64, 12), (128, 64), (256, 512), (512, 256),
+                           (256, 1024), (320, 256), (448, 512)):
         lp = ak.arnn_head_width(linear)
+        assert ak.arnn_cluster_sizes(hidden, lp)
         for c in ak.arnn_cluster_sizes(hidden, lp):
-            stages = ak.arnn_ring_stages(hidden, c, lp)
-            assert 2 <= stages and ak.arnn_smem_bytes(hidden, c, lp, stages) <= \
+            ht = ak.arnn_hid_cols(hidden, c, lp)
+            stages = ak.arnn_ring_stages(hidden, c, ht)
+            assert lp % ht == 0 and 2 <= stages and ak.arnn_smem_bytes(hidden, c, ht, stages) <= \
                 kc.HOPPER_SMEM_BUDGET
-    assert ak.arnn_cluster_sizes(256, 256) == [1, 2, 4]
-    assert ak.arnn_cluster_sizes(512, 256) == []
+    assert ak.arnn_cluster_sizes(256, 256) == [1, 2, 4] and ak.arnn_hid_cols(256, 4, 256) == 256
+    assert ak.arnn_cluster_sizes(512, 256) == [8] and ak.arnn_hid_cols(512, 8, 256) == 128
+    assert ak.arnn_hid_cols(256, 4, 1024) == 512
+    assert ak.arnn_cluster_sizes(320, 256) == [5] and ak.arnn_cluster_sizes(448, 256) == [7]
     assert ak.arnn_hopper_supports(256, 256, 60)
-    assert not ak.arnn_hopper_supports(256, 256, 65)
-    assert not ak.arnn_hopper_supports(512, 256, 60)
+    assert ak.arnn_hopper_supports(256, 256, 65) and ak.arnn_hopper_supports(256, 256, 1280)
+    assert ak.arnn_hopper_supports(512, 256, 60) and ak.arnn_hopper_supports(256, 1024, 90)
     assert ak.arnn_kernel_supports(256, 256, 256, 60, torch.bfloat16)
     assert ak.arnn_kernel_supports(256, 256, 256, 65, torch.bfloat16)
     assert ak.arnn_kernel_supports(512, 512, 256, 60, torch.bfloat16)
     assert ak.arnn_kernel_supports(256, 256, 256, 65, torch.float32)
+    assert not ak.arnn_kernel_supports(96, 256, 256, 60, torch.bfloat16)
     assert ak.arnn_cuda_launches(torch.bfloat16, 512, 384, 256, 256, 60) == 2
-    assert ak.arnn_cuda_launches(torch.bfloat16, 512, 384, 512, 256, 60) == 1
-    # f32: the split route's two a chunk; a vocabulary over 64 runs the first kernel
+    assert ak.arnn_cuda_launches(torch.bfloat16, 512, 384, 512, 256, 60) == 2
+    assert ak.arnn_cuda_launches(torch.bfloat16, 512, 384, 256, 1024, 256) == 2
+    # f32: the split route's two a chunk, at a vocabulary over 64 too
     assert ak.arnn_cuda_launches(torch.float32, 512, 384, 256, 256, 60) == 2
-    assert ak.arnn_cuda_launches(torch.float32, 512, 384, 256, 256, 65) == 1
-    with pytest.raises(ValueError, match="hidden size 512"):
-        ak.arnn_plan(64, 512, 256, SMS)
+    assert ak.arnn_cuda_launches(torch.float32, 512, 384, 256, 256, 65) == 2
+    with pytest.raises(ValueError, match="hidden size 96"):
+        ak.arnn_plan(64, 96, 256, SMS)
 
 
 def _lstm_columns(w, hidden, c, gate):
@@ -373,11 +382,13 @@ def test_pack_lstm_blocks_layout(k_dim, hidden):
                                            rtol=0, atol=0)
 
 
-def test_pack_arnn_weights_layout():
+@pytest.mark.parametrize("hidden,linear,vocab,kslabs", [(128, 200, 70, 4), (384, 256, 70, 2)])
+def test_pack_arnn_weights_layout(hidden, linear, vocab, kslabs):
     """W_hh0's chunks; layer 1's chunks, W_ih1's k-slabs then W_hh1's; the
-    head's W_l1^T in 128-column chunks (zero past L); W_out^T's columns
-    0-31, then 32-63, four 32-row k-slabs a block (zero past V and L)."""
-    hidden, linear, vocab = 128, 200, 13
+    head's W_l1^T in 128-column chunks (zero past L); W_out^T by chunks of
+    64 columns (zero past V and L): with 4 k-slabs a block each chunk's
+    halves of 32 columns, the head padded to 256; with 2 (H 384 at a
+    256-wide head: a 128-column hidden tile in rounds) the chunk's 64."""
     rng = np.random.default_rng(7)
 
     def rand(*shape):
@@ -386,8 +397,13 @@ def test_pack_arnn_weights_layout():
     w_l1, w_out = rand(hidden, linear), rand(linear, vocab)
     packed = ak.pack_arnn_weights(w_hh0, w_ih1, w_hh1, w_l1, w_out)
     nc, kb, lp = hidden // 32, hidden // 64, ak.arnn_head_width(linear)
-    nb = -(-lp // 256)
-    assert packed.shape == (nc * kb + nc * 2 * kb + lp // 128 * kb + 2 * nb, 128, 64)
+    assert ak.arnn_out_kslabs(hidden, lp) == kslabs
+    chunks, width = ak.arnn_out_chunks(vocab), -(-lp // (64 * kslabs)) * 64 * kslabs
+    rows = 128 // kslabs
+    nb = width // (64 * kslabs)  # blocks of a chunk's part
+    assert chunks == 2
+    assert packed.shape == (nc * kb + nc * 2 * kb + lp // 128 * kb + chunks * 64 // rows * nb,
+                            128, 64)
     torch.testing.assert_close(packed[:nc * kb], ak.pack_lstm_blocks(w_hh0).reshape(-1, 128, 64),
                                rtol=0, atol=0)
     layer1 = packed[nc * kb: 3 * nc * kb].reshape(nc, 2 * kb, 128, 64)
@@ -400,16 +416,17 @@ def test_pack_arnn_weights_layout():
             cols = w_l1[64 * k: 64 * k + 64, 128 * lc: 128 * lc + 128].t()
             want[:cols.shape[0]] = cols
             torch.testing.assert_close(head[lc, k], want, rtol=0, atol=0)
-    out = packed[-2 * nb:].reshape(2, nb, 4, 32, 64)
-    full = torch.zeros(64, 256 * nb)
+    out = packed[-chunks * 64 // rows * nb:].reshape(chunks, 64 // rows, nb, kslabs, rows, 64)
+    full = torch.zeros(64 * chunks, width)
     full[:vocab, :linear] = w_out.t()
-    for w in range(2):
-        for b in range(nb):
-            for kk in range(4):
-                k = 4 * b + kk
-                torch.testing.assert_close(out[w, b, kk],
-                                           full[32 * w: 32 * w + 32, 64 * k: 64 * k + 64],
-                                           rtol=0, atol=0)
+    for c in range(chunks):
+        for part in range(64 // rows):
+            for b in range(nb):
+                for kk in range(kslabs):
+                    k, r0 = kslabs * b + kk, 64 * c + rows * part
+                    torch.testing.assert_close(out[c, part, b, kk],
+                                               full[r0: r0 + rows, 64 * k: 64 * k + 64],
+                                               rtol=0, atol=0)
 
 
 def test_arnn_operands_follow_in_place_updates(monkeypatch):
@@ -740,16 +757,19 @@ def test_arnn_f32_plan(hidden, linear, sizes, rows, slots, cluster):
 
 
 def test_arnn_f32_gate_and_first_kernel_geometries():
-    """The f32 route takes the flagship and H 64; a vocabulary over 64 or a
-    head over 512 columns keeps the first kernel (one CUDA launch a call)."""
+    """The f32 route takes the flagship and H 64 at any vocabulary and head
+    width, and H 320 on clusters of 5; no geometry the gate takes runs the
+    first kernel (two CUDA launches a call), and a width the route cannot
+    split is refused."""
     assert ak.arnn_f32_supports(256, 256, 60) and ak.arnn_f32_supports(64, 12, 30)
     assert ak.arnn_f32_supports(512, 256, 60)
-    assert not ak.arnn_f32_supports(256, 256, 65)
-    assert not ak.arnn_f32_supports(256, 600, 60)
+    assert ak.arnn_f32_supports(256, 256, 65) and ak.arnn_f32_supports(256, 600, 60)
+    assert ak.arnn_f32_cluster_sizes(320, 256) == [5]
     assert ak.arnn_f32_cluster_sizes(96, 128) == []
-    assert ak.arnn_kernel_supports(256, 256, 256, 65, torch.float32)  # the first kernel
+    assert ak.arnn_kernel_supports(256, 256, 256, 65, torch.float32)
+    assert not ak.arnn_kernel_supports(96, 256, 256, 60, torch.float32)
     assert ak.arnn_cuda_launches(torch.float32, 70, 384, 64, 12, 30) == 2
-    assert ak.arnn_cuda_launches(torch.float32, 70, 384, 64, 12, 65) == 1
+    assert ak.arnn_cuda_launches(torch.float32, 70, 384, 64, 12, 65) == 2
     with pytest.raises(ValueError, match="hidden size 96"):
         ak.arnn_f32_plan(64, 96, 256, SMS)
 
