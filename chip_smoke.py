@@ -2618,19 +2618,19 @@ def _k7_check(ak, args, bound, label: str, card: str, time_it: bool):
     torch.cuda.synchronize()
     agree = ak.decode_agreement(got, want, args[3])
     expect = ak.arnn_cuda_launches(dtype, rows, ticks, hidden, linear, vocab)
-    for _ in range(3):  # a trace may lose a call's first kernel: trace again
-        own = _own_kernels(lambda: ak.arnn_sampled_decode(*args))
-        if sum(own.values()) >= expect:
-            break
+    own = _own_kernels(lambda: ak.arnn_sampled_decode(*args), want=expect)
     recurrence = "arnn_kernel" if dtype == torch.bfloat16 else "arnn_f32_kernel"
-    launches = sum(own.values())
     print(f"[heads] arnn_sampled_decode {label}: {_agreement_line(agree)} (bounds {bound}); CUDA "
           f"launches {own} ({expect} expected) | {card}", flush=True)
-    if (not once or not ak.within(agree, bound)
-            or launches != expect or own.get(recurrence, 0) != expect // 2
-            or "arnn_decode_kernel" in own or got[0].shape[2] != vocab):
-        raise RuntimeError(f"K7 {label}: disagrees with its plain version, or its launches are "
-                           "not two a chunk of its Hopper route")
+    faults = [why for why, bad in (
+        ("the wrapper did not count one launch", not once),
+        (f"outside its bounds {bound}: {_agreement_line(agree)}", not ak.within(agree, bound)),
+        (f"traced CUDA launches {own}, {expect} expected with {expect // 2} of {recurrence}",
+         sum(own.values()) != expect or own.get(recurrence, 0) != expect // 2),
+        ("the first kernel arnn_decode_kernel launched", "arnn_decode_kernel" in own),
+        (f"logits of {got[0].shape[2]} columns", got[0].shape[2] != vocab)) if bad]
+    if faults:
+        raise RuntimeError(f"K7 {label}: " + "; ".join(faults))
     return agree, (cuda_ms(lambda: ak.arnn_sampled_decode(*args), 3) if time_it else None), got
 
 
@@ -4732,22 +4732,58 @@ def _route(engine, graphs: bool):
         engine.graphs = old
 
 
+def _on_route(engine, graphs: bool, call):
+    """``call`` as a function that runs it on the graph route (``graphs``)
+    or the eager one."""
+    def run():
+        with _route(engine, graphs):
+            return call()
+    return run
+
+
 def _route_name(engine) -> str:
     return "graphs" if engine.graphs else "eager"
 
 
-def _own_kernels(call) -> dict:
-    """{hand-written kernel: launches} in a ``torch.profiler`` trace of one
-    ``call()``: the function name of each device row whose name is one of
-    ``OWN_KERNELS`` (``decode_kernel`` is not ``arnn_decode_kernel``)."""
+def _own_kernels(call, want: int = 0, seen: dict | None = None) -> dict:
+    """{hand-written kernel: launches} of one ``call()`` by ``torch.profiler``
+    traces: the function name of each device row whose name is one of
+    ``OWN_KERNELS`` (``decode_kernel`` is not ``arnn_decode_kernel``). A
+    trace may lose a kernel (the same call has lost the same one in three
+    traces running) but shows none that did not run, so each kernel counts
+    its most launches over the traces, and ``seen`` (an earlier reading of
+    the same call) is merged in. Traced again, up to ``OWN_TRACES`` times in
+    all, while the counts sum to fewer than ``want``."""
     import re
 
-    got = {}
-    for name, _, count in _profile_step(call)[2]:
-        m = re.search(r"\b(\w+_kernel)\b", name)
-        if m and m.group(1) in OWN_KERNELS:
-            got[m.group(1)] = got.get(m.group(1), 0) + count
+    got = dict(seen or {})
+    for _ in range(OWN_TRACES):
+        once = {}
+        for name, _, count in _profile_step(call)[2]:
+            m = re.search(r"\b(\w+_kernel)\b", name)
+            if m and m.group(1) in OWN_KERNELS:
+                once[m.group(1)] = once.get(m.group(1), 0) + count
+        got.update({k: max(n, got.get(k, 0)) for k, n in once.items()})
+        if sum(got.values()) >= want:
+            break
     return got
+
+
+# the most traces `_own_kernels` takes of one call
+OWN_TRACES = 6
+
+
+def _same_kernels(calls) -> dict:
+    """{route: ``_own_kernels``} of each (route, call) in ``calls``, traced
+    again, merged with the earlier readings, while the readings differ (a
+    trace that lost a kernel), up to ``OWN_TRACES`` rounds."""
+    kernels = {}
+    for _ in range(OWN_TRACES):
+        for key, call in calls:
+            kernels[key] = _own_kernels(call, seen=kernels.get(key))
+        if len({tuple(sorted(k.items())) for k in kernels.values()}) == 1:
+            break
+    return kernels
 
 
 def _same_tokens(a, b) -> bool:
@@ -4884,10 +4920,8 @@ def phase_graphs(model, arnn, card: str) -> dict:
             _check_routes(engine, label, calls, totals)
             big_call = lambda: engine.inpaint(*big, seed=5)  # noqa: E731
             one_call = lambda: engine.inpaint(*one, seed=5)  # noqa: E731
-            kernels = {}
-            for graphs in (False, True):
-                with _route(engine, graphs):
-                    kernels[graphs] = _own_kernels(one_call)
+            kernels = _same_kernels([(graphs, _on_route(engine, graphs, one_call))
+                                     for graphs in (False, True)])
             print(f"[graphs] {label}: the profiler names the same hand-written kernels in one "
                   f"replay as in one eager call: {kernels[True] == kernels[False]} "
                   f"{kernels[True]}", flush=True)
@@ -4932,10 +4966,8 @@ def phase_graphs(model, arnn, card: str) -> dict:
         big_call = lambda kw=kw: engine.inpaint(big, ARNN_START, ARNN_SPAN, **kw)  # noqa
         one_call = lambda kw=kw: engine.inpaint(one, ARNN_START, ARNN_SPAN, **kw)  # noqa
         if temp is None:  # the sampled decode is an eager loop: no hand-written kernel
-            kernels = {}
-            for graphs in (False, True):
-                with _route(engine, graphs):
-                    kernels[graphs] = _own_kernels(one_call)
+            kernels = _same_kernels([(graphs, _on_route(engine, graphs, one_call))
+                                     for graphs in (False, True)])
             print(f"[graphs] {label} {kind}: the profiler names the same hand-written kernels "
                   f"in one replay as in one eager call: {kernels[True] == kernels[False]} "
                   f"{kernels[True]}", flush=True)
