@@ -149,9 +149,11 @@ Phases, each raising on failure:
    non-autoregressive model and the autoregressive one on each coin, two
    Adam steps each, K2's tokens equal; then the full-width trainer at
    ``train_inpaintnet.py``'s defaults (32 windows of 16 bars, every
-   dropout 0.5), both modes, f32 and bf16 compute: K2 and K5 launches a
-   step asserted and K6 never, the hidden-1024 generation GRU on the eager
-   loop, the frozen VAE bit-unchanged, a validation step's K1 and K2
+   dropout 0.5), both modes, f32 and bf16 compute: K2, K5 and K6 launches
+   a step asserted (K6 only for the autoregressive sampled branch's
+   unmasked hidden-1024 generation GRU, which runs K5/K6; its masked
+   teacher-forced twin keeps the eager loop), the frozen VAE bit-unchanged,
+   a validation step's K1 and K2
    launches; ms a step, windows/s, valid target measures/s, peak memory
    and a profile of each branch;
 19. AnticipationRNN training: the port's ``FolkDatasetNBars`` built from
@@ -242,11 +244,36 @@ Phases, each raising on failure:
    (``"xla"``) and int8 engines and the ARNN flagship's bf16 engine at V 90
    (against the CPU at H 64) on the graph route, each at its big batch and
    at batch 1: checked, launches counted, measures/s, p50 and the decode
-   kernel's device ms.
+   kernel's device ms;
+25. the widths that run on zero units (a layer padded to whole 64-unit
+   blocks, or in bf16 above 512 to an even number of them): first the
+   entry points a user calls, the f32 model at VAE and LatentRNN H 100 on
+   ``"xla"`` and ``"pallas"`` and the ARNN at H 48 with C 100, card
+   against CPU, then the LatentRNN engine at H 100 (bf16, int8, bf16 and
+   f32 on ``"pallas"``) and the ARNN engine at H 48 / C 100 (f32, bf16),
+   each call on the eager route and the graph route, tokens and launches
+   equal (launches counted from 0: K1-K4, K7 and K8 must launch); K1 (f32,
+   bf16), K3, K2 (f32, bf16), K4 (both masters) at H 100 and 200 on random
+   weights at 2,048 rows, K7 (both dtypes) at H = C = 100 and 200 and at H
+   48 with C 100 (64 rows x 384 ticks), K8 at H 100 (both dtypes) and bf16
+   576 and 704 (2,048 rows, 6 steps, target masks), each against its plain
+   version at H (K3/K4 bit-equal) with one launch, the planted gate-major
+   padding (``kernel_common.gate_padding``) rejected, and timed beside the
+   same kernel on operands made at the padded width, its plain version,
+   its bound and (K1, K8) cuDNN; K5 and K6 at H 100 and 1024, both dtypes,
+   at the generation GRU's training calls (32 rows, 1 step) and at 2,048
+   rows x 6 steps, called as the trainfast Function calls them (padded
+   once, K6 on K5's padded residuals), likewise (at 1024 nothing is
+   padded: K5 f32 on a
+   cluster of 16, K6 on 8 CTAs of 128 units); one sampled training step of
+   the autoregressive flagship with its H-1024 generation GRU on K5/K6
+   (launches counted from 0: K5 8 and K6 4 a target step, no eager step of
+   that width), beside the same step on the eager loop, in turns, each
+   route's ms and traced device launches.
 
 Phase 17 runs after phase 7; phases 12-16 after phase 8, then phase 24
-and phase 23, before the training phases; phases 18, 19, 20, 21 and 22
-last. Prints one
+and phase 23, before the training phases; phases 18, 19, 20, 21, 22 and
+25 last. Prints one
 JSON line of the eight kernels (each with its launches in phase 18,
 ``latent_train_launches``, in phase 19, ``arnn_train_launches``, and in
 phase 20's joint evaluation, ``eval_launches``, and in phase 23's graph
@@ -254,7 +281,9 @@ replays, ``graph_launches``; K1's with ``train_mode``,
 phase 21's numbers of its training mode; K1's, K2's, K5's and K7's with
 ``tp_launches``, rank 0's in phase 22; K2's, K4's and K7's with
 ``vocab_heads``, phase 24's entries at the wider heads, and
-``vocab_engine_launches``), the
+``vocab_engine_launches``; every kernel's ``hidden_widths``, phase 25's
+entries, and ``width_launches``, its main paths': K5's and K6's in its
+training step, the others' in its engines at narrow widths), the
 card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
 result, when there is no usable card or any phase fails.
@@ -1345,17 +1374,23 @@ def _profile_step(step) -> tuple:
     device launches, [(kernel, ms, launches)] by time, longest first). A
     trace may lose the kernels at its start on the card (a whole window
     once, a call's first kernel another time), so each trace starts with a
-    few milliseconds of ``torch.cuda._sleep``, whose kernel is left out of
-    the rows; a trace that recorded no device activity at all is taken
-    again, up to twice."""
+    lead: a pause of ``PROFILE_LEAD_S`` on the host, then a few milliseconds
+    of ``torch.cuda._sleep``, whose kernel is left out of the rows (a trace
+    that lost it too is counted in ``LEADS_LOST``); a trace that recorded no
+    device activity at all is taken again, up to twice."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(3):
         with torch.profiler.profile(activities=acts) as prof:
+            time.sleep(PROFILE_LEAD_S)
             torch.cuda._sleep(PROFILE_LEAD_CYCLES)
             torch.cuda.synchronize()
             step()
             torch.cuda.synchronize()
         rows = _kernel_rows(prof)
+        LEADS_LOST[1] += 1
+        if not any(e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" in e.key
+                   for e in prof.key_averages()):
+            LEADS_LOST[0] += 1
         if rows:
             break
         print(f"[profile] no device activity recorded (attempt {attempt + 1}); tracing again",
@@ -1364,8 +1399,13 @@ def _profile_step(step) -> tuple:
     return sum(r[1] for r in rows), sum(r[2] for r in rows), rows
 
 
-# the lead of a trace: ~5 ms of a card's clock before the traced call
-PROFILE_LEAD_CYCLES = 10_000_000
+# the lead of a trace: 20 ms on the host, then ~10 ms of a card's clock
+# before the traced call (a trace of phase 24 once lost the traced call's
+# first kernel six times running behind a lead of ~5 ms alone)
+PROFILE_LEAD_S = 0.02
+PROFILE_LEAD_CYCLES = 20_000_000
+# [traces whose lead kernel is missing, traces taken]
+LEADS_LOST = [0, 0]
 
 
 def _kernel_rows(prof, skip=()) -> list:
@@ -1495,12 +1535,15 @@ def phase_trainer(card: str) -> dict:
 def latent_train_launches(auto_reg: bool, coin, max_target: int) -> dict:
     """K2, K5 and K6 launches a LatentRNN training step: one decode and one
     encode (4 K5 layer-directions) a step, or on the autoregressive sampled
-    branch ``max_target`` decodes and the context encode plus
-    ``max_target - 1`` re-encodes; K6 never (nothing upstream of the frozen
-    encoder needs a gradient)."""
+    branch ``max_target`` decodes, the context encode plus ``max_target -
+    1`` re-encodes, and the unmasked hidden-1024 generation GRU's 2 layers
+    x 2 directions a target step on K5 forward and K6 backward; K6 for
+    nothing else (nothing upstream of the frozen encoder needs a
+    gradient)."""
     sampled = auto_reg and not coin
     return {"decode_sampling": max_target if sampled else 1,
-            "gru_fwd_seq": 4 * max_target if sampled else 4, "gru_bwd_seq": 0}
+            "gru_fwd_seq": 8 * max_target if sampled else 4,
+            "gru_bwd_seq": 4 * max_target if sampled else 0}
 
 
 def _recorded_tokens(decoder) -> list:
@@ -1602,8 +1645,9 @@ def phase_latent_trainer(card: str) -> dict:
     teacher forcing, each in f32 and in bf16 compute, 8 steps (the
     autoregressive coins alternating, heads first). Per step: K2, K5 and K6
     launch as ``latent_train_launches`` says; the loss is finite; on the
-    warm-up and profiled steps the generation GRU's hidden-1024 steps (6
-    target steps x 2 layers x 2 directions) run in the eager loop. After
+    warm-up steps the masked generation GRU's hidden-1024 steps (6 target
+    steps x 2 layers x 2 directions) run in the eager loop, and on the
+    autoregressive sampled branch none does (K5/K6 run them). After
     the steps the LatentRNN's parameters moved and every VAE parameter is
     bit-unchanged; one validation step launches K1 and K2 (once, or a
     context encode and 5 re-encodes and 6 decodes when autoregressive).
@@ -1664,10 +1708,11 @@ def phase_latent_trainer(card: str) -> dict:
                     if got != want or not np.isfinite(loss):
                         raise RuntimeError(f"{label} step {i} (coin {coin}): launches {got}, "
                                            f"expected {want}; loss {loss}")
-                    if eager is not None and eager != mt * 4:
+                    want_eager = 0 if auto_reg and coin is False else mt * 4
+                    if eager is not None and eager != want_eager:
                         raise RuntimeError(f"{label} step {i} (coin {coin}): {eager} eager "
                                            f"generation-GRU steps of hidden {gen}, expected "
-                                           f"{mt * 4}: the layer left the eager route")
+                                           f"{want_eager}: the layer left its route")
                 peak = torch.cuda.max_memory_allocated()
                 moved = sum((p.detach() - s).abs().sum().item()
                             for (_, p), s in zip(iter_leaves(tr.params), start))
@@ -1716,8 +1761,8 @@ def phase_latent_trainer(card: str) -> dict:
     drive()
     launches = {k.__name__: k.launches for k in kernels}
     print(f"[latent-trainer] launches in the phase: {launches}", flush=True)
-    if launches["gru_bwd_seq"] != 0 or min(launches[n] for n in
-                                          ("encoder_hn", "decode_sampling", "gru_fwd_seq")) < 1:
+    if min(launches[n] for n in ("encoder_hn", "decode_sampling", "gru_fwd_seq",
+                                 "gru_bwd_seq")) < 1:
         raise RuntimeError(f"the LatentRNN training path launched {launches}")
     return launches
 
@@ -2302,9 +2347,11 @@ def phase_arnn_kernel(model, card: str) -> dict:
     return report
 
 
-def phase_arnn_reference(vocab: int = VOCAB):
+def phase_arnn_reference(vocab: int = VOCAB, hidden: int = 64, ctx: int = 64):
     """The ARNN path on the card (K7) against the same model on the CPU
-    (plain versions), f32, H 64, a vocabulary of ``vocab``: the argmax
+    (plain versions), f32, generation LSTM H ``hidden`` and constraint
+    LSTM C ``ctx`` (64 each, or narrow ones that run on zero units), a
+    vocabulary of ``vocab``: the argmax
     inpaint and a sampled generate with per-row keys (the same noise bits on
     both devices)."""
     from inpaintnet_tpu_torch.models.anticipation_rnn import AnticipationRNNBaseline
@@ -2324,8 +2371,8 @@ def phase_arnn_reference(vocab: int = VOCAB):
     for dev in ("cuda", "cpu"):
         model = AnticipationRNNBaseline(
             ARNNDataset(vocab_size=vocab), note_embedding_dim=10, metadata_embedding_dim=2,
-            num_lstm_constraints_units=64, num_lstm_generation_units=64, linear_hidden_size=64,
-            num_layers=2, unary_constraint=True, device=dev, seed=3)
+            num_lstm_constraints_units=ctx, num_lstm_generation_units=hidden,
+            linear_hidden_size=64, num_layers=2, unary_constraint=True, device=dev, seed=3)
         score, md, loc = (torch.from_numpy(a).to(dev) for a in arrays)
         with torch.inference_mode():
             lg, tok = model.apply_inpaint(model.params(), score, md, loc)
@@ -2337,7 +2384,8 @@ def phase_arnn_reference(vocab: int = VOCAB):
     (lg, tok, smp), (lg_c, tok_c, smp_c) = out["cuda"], out["cpu"]
     share = (tok == tok_c).float().mean().item()
     err = (lg - lg_c).abs()[_first_divergence_mask(tok, tok_c)].max().item()
-    print(f"[arnn-reference] f32 H 64 V {vocab}, card (K7) vs CPU plain: inpaint tokens equal "
+    print(f"[arnn-reference] f32 H {hidden} C {ctx} V {vocab}, card (K7) vs CPU plain: "
+          f"inpaint tokens equal "
           f"{share:.4f} "
           f"(bound {ARNN_REF['tokens']}), logits max_abs_err {err:.3e} (bound "
           f"{ARNN_REF['logits']:.0e}); sampled tokens equal {(smp == smp_c).float().mean():.4f} "
@@ -2625,7 +2673,8 @@ def _k7_check(ak, args, bound, label: str, card: str, time_it: bool):
     faults = [why for why, bad in (
         ("the wrapper did not count one launch", not once),
         (f"outside its bounds {bound}: {_agreement_line(agree)}", not ak.within(agree, bound)),
-        (f"traced CUDA launches {own}, {expect} expected with {expect // 2} of {recurrence}",
+        (f"traced CUDA launches {own}, {expect} expected with {expect // 2} of {recurrence} "
+         f"(traces so far whose lead kernel is missing: {LEADS_LOST[0]} of {LEADS_LOST[1]})",
          sum(own.values()) != expect or own.get(recurrence, 0) != expect // 2),
         ("the first kernel arnn_decode_kernel launched", "arnn_decode_kernel" in own),
         (f"logits of {got[0].shape[2]} columns", got[0].shape[2] != vocab)) if bad]
@@ -4986,6 +5035,480 @@ def phase_graphs(model, arnn, card: str) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: every hidden width on the kernel routes (zero units), K5/K6 to 1024
+# ---------------------------------------------------------------------------
+NARROW_WIDTHS = (100, 200)  # K1-K4 (and K7 with C = H): 1.6 and 3.1 blocks of 64 units
+NARROW_K7 = ((100, 100), (200, 200), (48, 100))  # (H, C), each padded on its own
+NARROW_K8 = ((100, torch.float32), (100, torch.bfloat16), (576, torch.bfloat16),
+             (704, torch.bfloat16))  # bf16 576 and 704: 9 and 11 blocks, run at 640 and 768
+NARROW_TRAIN = (100, 1024)  # K5/K6: a narrow width, and the generation GRU's
+# K5/K6's shapes (rows, steps): the generation GRU's calls in a sampled
+# LatentRNN step (its 32 windows, one target step a call), and the engine's
+# batch over the 6 target measures
+NARROW_TRAIN_SHAPES = ((LATENT_WINDOWS, 1), (BATCH, 6))
+NARROW_ARNN_ROWS = 64  # K7: one bucket of the ARNN engine, 384 ticks
+NARROW_ENGINE_H = 100  # the engines' VAE and LatentRNN width (K8 at 128 on "pallas")
+NARROW_ARNN_ENGINE = (48, 100)  # the ARNN engine's generation H and constraint C
+NARROW_ENGINE_BUCKETS = (1, 8)
+# K7 at the narrow widths: phase 24's bounds, seen on weights at their
+# init scale (the flagship's random ones). With noise 0.1 on every weight
+# (logits near 1-2) one flip of a bf16 rounding cascading over 384 ticks
+# moved the logits by one bf16 ulp there, 7.8e-3, mean 2.4e-4 (NVIDIA H100
+# 80GB HBM3, 700 W): the bounds are in the flagship's logit scale, so K7
+# runs at it.
+NARROW_ARNN_BOUNDS = ARNN_HEAD_BOUNDS
+
+
+@contextlib.contextmanager
+def _gate_major():
+    """The planted fault of every wrapper's zero units: the 3H (4H) gate
+    columns padded as a whole at the end (``kernel_common.gate_padding``;
+    the padded operands are cached per layout)."""
+    from inpaintnet_tpu_torch.ops import kernel_common
+
+    real = kernel_common.gate_padding
+    kernel_common.gate_padding = lambda: 1
+    try:
+        yield
+    finally:
+        kernel_common.gate_padding = real
+
+
+def _card_tree(tree, dtype, gen, noise: float = 0.1):
+    """A numpy init tree on the card in ``dtype``, plus noise from ``gen``
+    (the weights of a model that trained a little: less flat logits)."""
+    if isinstance(tree, dict):
+        return {k: _card_tree(v, dtype, gen, noise) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_card_tree(v, dtype, gen, noise) for v in tree]
+    t = torch.from_numpy(np.asarray(tree, np.float32)).to("cuda")
+    return (t + noise * torch.randn(t.shape, generator=gen, device="cuda")).to(dtype)
+
+
+def _narrow_check(kernel, label: str, call, call_hp, plain, judge, bound, card: str,
+                  library=None) -> dict:
+    """One wrapper at a width that runs on zero units: ``call()`` against
+    ``plain()`` (the plain version at H) by ``judge(got, want) -> (ok,
+    max_abs_err, text)``, one launch counted; the same with the gate-major
+    layout planted, which ``judge`` must reject; then its time beside
+    ``call_hp()`` (the wrapper on operands made at the padded width: the
+    kernel's time at Hp, no padding), the plain version's and
+    ``library()``'s, and ``bound(got)``, the bound of the narrow function's
+    work. ``call_hp`` None: a width that runs as it is (no fault, no second
+    time). -> the kernels line's entry"""
+    before = kernel.launches
+    got = call()
+    launched = kernel.launches - before
+    want = plain()
+    torch.cuda.synchronize()
+    ok, err, text = judge(got, want)
+    fault_ok, fault_text = False, "nothing padded"
+    if call_hp is not None:
+        with _gate_major():
+            fault_ok, _, fault_text = judge(call(), want)
+    print(f"[widths] {kernel.__name__} {label}: {text}, {launched} launch; planted gate-major "
+          f"padding: {fault_text} | {card}", flush=True)
+    if not ok or launched != 1 or fault_ok:
+        raise RuntimeError(f"{kernel.__name__} {label}: against its plain version {text}, "
+                           f"{launched} launches; the planted gate-major padding "
+                           f"{'passes' if fault_ok else 'fails'}")
+    ms = cuda_ms(call, 5)
+    ms_hp = None if call_hp is None else cuda_ms(call_hp, 5)
+    entry = {"max_abs_err": err, "ms": ms, "ms_at_padded": ms_hp,
+             "plain_ms": cuda_ms(plain, 1), **bound(got),
+             "library_ms": library() if library else None, "launches": 1}
+    lib = entry["library_ms"]
+    print(f"[time] {kernel.__name__} {label}: kernel {ms:.3f} ms"
+          + ("" if ms_hp is None else f", at the padded width {ms_hp:.3f} ms "
+             f"({ms / ms_hp:.3f}x)")
+          + f", plain {entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.4f} ms "
+          f"({entry['bound_by']}), library {'none' if lib is None else f'{lib:.3f} ms'} | "
+          f"{card}", flush=True)
+    return entry
+
+
+def _judge_exact(got, want):
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+    return same, err, f"bit-equal {same} (max_abs_err {err:.3e})"
+
+
+def _narrow_encoders(card: str) -> dict:
+    """K1 (f32, bf16) and K3 (bf16 masters) at ``NARROW_WIDTHS`` on random
+    weights, ``BATCH`` rows of 24 tokens. -> {kernel: {case: entry}}"""
+    from inpaintnet_tpu_torch.ops import encoder_kernel as ek
+    from inpaintnet_tpu_torch.ops.gru import gru_init
+    from inpaintnet_tpu_torch.ops.linear import embedding_init
+
+    entries = {}
+    for hidden in NARROW_WIDTHS:
+        rng = np.random.default_rng(hidden)
+        init = gru_init(rng, 10, hidden, 2, True), embedding_init(rng, VOCAB, 10)["table"]
+        tokens = torch.from_numpy(rng.integers(0, VOCAB, (BATCH, 24)).astype(np.int32)).cuda()
+        for name, dtype, kernel, plain in (
+                ("encoder_hn", torch.float32, ek.encoder_hn, ek.encoder_hn_reference),
+                ("encoder_hn", torch.bfloat16, ek.encoder_hn, ek.encoder_hn_reference),
+                ("encoder_hn_int8", torch.bfloat16, ek.encoder_hn_int8,
+                 ek.encoder_hn_int8_reference)):
+            gen = torch.Generator(device="cuda").manual_seed(hidden)
+            gru, table = (_card_tree(t, dtype, gen) for t in init)
+            padded = ek.encoder_padded_operands(gru)[0]
+
+            def judge(got, want, name=name, dtype=dtype):
+                if name.endswith("int8"):
+                    return _judge_exact([got], [want])
+                diff = (got.float() - want.float()).abs()
+                share = (got != want).float().mean().item()
+                ok = diff.max().item() <= BOUNDS[dtype]["hn"] and (
+                    dtype == torch.float32 or share <= ENCODER_SHARE_BF16)
+                return ok, diff.max().item(), (f"h_n max_abs_err {diff.max().item():.3e}, "
+                                               f"{share:.4f} of it changed")
+
+            label = f"{'bf16 masters' if name.endswith('int8') else str(dtype)[6:]} H {hidden}"
+            kind = ("int8" if name.endswith("int8") else
+                    "bf16" if dtype == torch.bfloat16 else "f32")
+            library = None
+            if not name.endswith("int8"):
+                def library(gru=gru, table=table, dtype=dtype, hidden=hidden, kernel=kernel):
+                    return cudnn_gru_ms(gru, table, tokens, kernel(gru, table, tokens),
+                                        f"{str(dtype)[6:]} H {hidden}", card)
+            entries.setdefault(name, {})[label] = _narrow_check(
+                kernel, label, lambda: kernel(gru, table, tokens),
+                lambda: kernel(padded, table, tokens), lambda: plain(gru, table, tokens), judge,
+                lambda got, kind=kind: bound_of(encoder_ops(BATCH, 24, hidden), kind,
+                                                nbytes(gru, table, tokens, got)),
+                card, library)
+    return entries
+
+
+def _narrow_decoders(card: str) -> dict:
+    """K2 (f32, bf16) and K4 (bf16 and f32 masters) at ``NARROW_WIDTHS`` on
+    random weights (V 60), ``BATCH`` rows. -> {kernel: {case: entry}}"""
+    from inpaintnet_tpu_torch.ops import decode_kernel as dk
+    from inpaintnet_tpu_torch.ops.gru import gru_init
+    from inpaintnet_tpu_torch.ops.linear import embedding_init, linear_init
+
+    entries = {}
+    for hidden in NARROW_WIDTHS:
+        rng = np.random.default_rng(hidden + 1)
+        init = {"embedding": embedding_init(rng, VOCAB, 10), "x_0": np.zeros(10, np.float32),
+                "tick_gru": gru_init(rng, 10 + hidden, hidden, 2),
+                "head": linear_init(rng, hidden, VOCAB)}
+        data = (rng.standard_normal((BATCH, 4, hidden)), rng.standard_normal((2, BATCH, 4, hidden)))
+        for name, dtype, kernel, plain, bound in (
+                ("decode_sampling", torch.float32, dk.decode_sampling,
+                 dk.decode_sampling_reference, BOUNDS[torch.float32]),
+                ("decode_sampling", torch.bfloat16, dk.decode_sampling,
+                 dk.decode_sampling_reference, BOUNDS[torch.bfloat16]),
+                ("decode_sampling_int8", torch.bfloat16, dk.decode_sampling_int8,
+                 dk.decode_sampling_int8_reference, None),
+                ("decode_sampling_int8", torch.float32, dk.decode_sampling_int8,
+                 dk.decode_sampling_int8_reference, None)):
+            dec = _card_tree(init, dtype, torch.Generator(device="cuda").manual_seed(hidden))
+            tc, hi = (torch.from_numpy(a.astype(np.float32)).to("cuda", dtype) for a in data)
+            padded = dk.decode_padded_operands(dec, tc, hi)
+
+            def judge(got, want, bound=bound):
+                if bound is None:
+                    return _judge_exact(got, want)
+                agree = dk.agreement(got, want)
+                return dk.within(agree, bound), agree["logits"], f"{agree} (bounds {bound})"
+
+            label = (f"{str(dtype)[6:]}{' masters' if name.endswith('int8') else ''} "
+                     f"H {hidden}")
+            kind = "int8" if name.endswith("int8") else ("bf16" if dtype == torch.bfloat16
+                                                         else "f32")
+            entries.setdefault(name, {})[label] = _narrow_check(
+                kernel, label, lambda: kernel(dec, tc, hi), lambda: kernel(*padded),
+                lambda: plain(dec, tc, hi), judge,
+                lambda got, kind=kind: bound_of(
+                    decode_ops(BATCH, hidden, VOCAB), kind,
+                    nbytes({k: dec[k] for k in ("embedding", "x_0", "tick_gru", "head")}, tc, hi,
+                           *got)), card)
+    return entries
+
+
+def _narrow_arnn(card: str) -> dict:
+    """K7 (f32, bf16) at ``NARROW_K7`` on random init-scale weights (linear
+    256, V 60),
+    ``NARROW_ARNN_ROWS`` rows of 384 ticks with a forced span. -> {case:
+    entry}"""
+    from inpaintnet_tpu_torch.ops import arnn_kernel as ak
+    from inpaintnet_tpu_torch.ops.linear import embedding_init, linear_init
+    from inpaintnet_tpu_torch.ops.lstm import lstm_stack_init
+
+    entries, rows, ticks = {}, NARROW_ARNN_ROWS, ARNN_BARS * 24
+    for hidden, ctx in NARROW_K7:
+        rng = np.random.default_rng(hidden + ctx)
+        init = {"note_embedding": embedding_init(rng, VOCAB + 1, 10),
+                "lstm_generation": lstm_stack_init(rng, [(10 + ctx, hidden), (hidden, hidden)]),
+                "linear_1": linear_init(rng, hidden, 256),
+                "linear_output_notes": linear_init(rng, 256, VOCAB)}
+        ctx_np = np.tanh(rng.standard_normal((rows, ticks, ctx)))
+        score = torch.from_numpy(rng.integers(0, VOCAB, (rows, ticks)).astype(np.int32)).cuda()
+        force = torch.ones((rows, ticks), dtype=torch.int32, device="cuda")
+        force[:, ARNN_START * 24:(ARNN_START + ARNN_SPAN) * 24] = 0
+        for dtype in (torch.float32, torch.bfloat16):
+            params = _card_tree(init, dtype, torch.Generator(device="cuda").manual_seed(ctx),
+                                noise=0.0)
+            x = torch.from_numpy(ctx_np.astype(np.float32)).to("cuda", dtype)
+            start = params["note_embedding"]["table"][VOCAB:VOCAB + 1].contiguous()
+            args = (params, x, score, force, start)
+            padded = (*ak.arnn_padded_operands(params, x), score, force, start)
+            bound = NARROW_ARNN_BOUNDS[dtype]
+
+            def judge(got, want, bound=bound):
+                agree = ak.decode_agreement(got, want, force)
+                return ak.within(agree, bound), agree["logits_max"], _agreement_line(agree)
+
+            label = f"{str(dtype)[6:]} H {hidden} C {ctx}"
+            entries[label] = _narrow_check(
+                ak.arnn_sampled_decode, label, lambda: ak.arnn_sampled_decode(*args),
+                lambda: ak.arnn_sampled_decode(*padded),
+                lambda: ak.arnn_sampled_decode_reference(*args), judge,
+                lambda got, dtype=dtype: bound_of(
+                    arnn_ops(rows, ticks, hidden, ctx, 256, VOCAB),
+                    "bf16" if dtype == torch.bfloat16 else "f32",
+                    nbytes(params, x, score, force, start, *got)), card)
+    return entries
+
+
+def _narrow_k8(card: str) -> dict:
+    """K8 at ``NARROW_K8``: the generation GRU's shape (``BATCH`` rows, 6
+    steps, target masks), against its plain version within
+    ``gru_kernel.BOUNDS``; cuDNN's one-direction GRU as the library call.
+    -> {case: entry}"""
+    from inpaintnet_tpu_torch.ops import gru_kernel as lk
+
+    entries = {}
+    for hidden, dtype in NARROW_K8:
+        args = _gru_layer_inputs(hidden, BATCH, 6, hidden, dtype, "target")
+        padded = (*lk.padded_operands(*args[:4]), args[4])
+
+        def judge(got, want, dtype=dtype):
+            agree = lk.agreement(got, want)
+            return (lk.within(agree, lk.BOUNDS[dtype]), agree["max_abs_err"],
+                    f"{agree} (bounds {lk.BOUNDS[dtype]})")
+
+        label = f"{str(dtype)[6:]} H {hidden} (at {padded[1].shape[0]})"
+        entries[label] = _narrow_check(
+            lk.gru_layer_stream, label, lambda: lk.gru_layer_stream(*args),
+            lambda: lk.gru_layer_stream(*padded), lambda: lk.gru_layer_reference(*args), judge,
+            lambda got, dtype=dtype, hidden=hidden: bound_of(
+                gru_layer_ops(BATCH, 6, hidden), "bf16" if dtype == torch.bfloat16 else "f32",
+                nbytes(args[:4], args[4], got[0], got[1])), card,
+            lambda args=args, dtype=dtype: cudnn_gru_layer_ms(args, dtype))
+    return entries
+
+
+def _narrow_train(card: str) -> dict:
+    """K5 and K6 at ``NARROW_TRAIN`` x ``NARROW_TRAIN_SHAPES``, both dtypes,
+    called as the trainfast Function calls them: at ``trainfast_width`` on
+    zero units (``fwd_padded_operands``, dys and h_{t-1} padded), K6 on
+    K5's residuals at that width, the outputs sliced back; against the
+    plain versions at H (``TRAIN_BOUNDS``), K6's on K5's sliced gates; the
+    gate-major fault at the narrow width (at 1024 nothing is padded).
+    -> {kernel: {case: entry}}"""
+    from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
+    from inpaintnet_tpu_torch.ops.kernel_common import pad_units, unpad_units
+
+    def judge(got, want):
+        e_max, e_mean, e_abs = _train_kernel_errs(got, want)
+        bound = TRAIN_BOUNDS[got[0].dtype]
+        return (e_max <= bound[0] and e_mean <= bound[1], e_abs,
+                f"max {e_max:.3e} mean {e_mean:.3e} (bounds {bound}), abs {e_abs:.3e}")
+
+    entries = {}
+    for hidden in NARROW_TRAIN:
+        for rows, steps in NARROW_TRAIN_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                fwd, dys = _train_kernel_case(hidden + rows, rows, steps, hidden, dtype, False)
+                width = gk.trainfast_width(hidden, dtype)
+                padded_fwd = gk.fwd_padded_operands(*fwd)
+                out_p = gk.gru_fwd_seq(*padded_fwd)
+                hprev_p = torch.cat([padded_fwd[3][None], out_p[0][:-1]])
+                gates_p = (pad_units(dys, hidden, width), *out_p[1:], hprev_p)
+                out = tuple(unpad_units(o, hidden, width) for o in out_p)
+                hprev = unpad_units(hprev_p, hidden, width)
+                gates = (fwd[0], dys, *out[1:], hprev)
+
+                def k5(fwd=fwd, hidden=hidden, width=width):
+                    return tuple(unpad_units(o, hidden, width)
+                                 for o in gk.gru_fwd_seq(*gk.fwd_padded_operands(*fwd)))
+
+                def k6(fwd=fwd, gates_p=gates_p, hidden=hidden, width=width):
+                    da, dhw, dh0 = gk.gru_bwd_seq(gk.fwd_padded_operands(*fwd)[0], *gates_p)
+                    return (unpad_units(da, hidden, width, 3), unpad_units(dhw, hidden, width, 3),
+                            unpad_units(dh0, hidden, width))
+
+                bounds = _k5_k6_bounds(steps, rows, hidden, dtype, fwd, out, k6(), dys, hprev)
+                label = (f"{str(dtype)[6:]} H {hidden}"
+                         f"{'' if width == hidden else f' (at {width})'} rows {rows} steps {steps}")
+                for kernel, call, call_hp, plain, bound in (
+                        (gk.gru_fwd_seq, k5, lambda: gk.gru_fwd_seq(*padded_fwd),
+                         lambda: gk.gru_fwd_seq_reference(*fwd), bounds[0]),
+                        (gk.gru_bwd_seq, k6, lambda: gk.gru_bwd_seq(padded_fwd[0], *gates_p),
+                         lambda: gk.gru_bwd_seq_reference(*gates), bounds[1])):
+                    entries.setdefault(kernel.__name__, {})[label] = _narrow_check(
+                        kernel, label, call, call_hp if width != hidden else None, plain, judge,
+                        lambda got, bound=bound: bound, card)
+    return entries
+
+
+def _width_training_step(card: str) -> dict:
+    """One full-width training step of the autoregressive flagship on its
+    sampled branch (32 windows of 16 bars, f32): the unmasked H-1024
+    generation GRU on K5/K6 (the phase's main path: counts set to 0 before
+    the step, read after: K5 8 x max_target, K6 4 x max_target, no eager
+    step of that width), beside the same step with that GRU forced onto the
+    eager loop it took before, in turns (K5/K6, eager, eager, K5/K6) after
+    a warm-up of each; each route's device launches and time of one traced
+    step. -> {kernel: launches} of the K5/K6 step"""
+    from inpaintnet_tpu_torch.models.presets import build_flagship
+    from inpaintnet_tpu_torch.ops import gru as gru_mod
+    from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
+    from inpaintnet_tpu_torch.train import LatentRNNTrainer
+    from inpaintnet_tpu_torch.train.data import ArrayDataset
+
+    _, vae, model = build_flagship(seed=0, device="cuda", auto_reg=True)
+    mt, gen = model.max_target, model.gen_hidden_size
+    rng = np.random.default_rng(25)
+    windows = rng.integers(0, VOCAB, (LATENT_WINDOWS, 1, N_BARS * 24)).astype(np.int32)
+    tr = LatentRNNTrainer(ArrayDataset((windows,), N_BARS), model, lr=1e-4, device="cuda", seed=1)
+    batch = tr.process_batch_data((windows,))
+    real = gru_mod.trainfast_supports
+
+    def step(route):
+        gru_mod.trainfast_supports = real if route == "K5/K6" else (
+            lambda h: h != gen and real(h))
+        try:
+            loss = tr.train_step(batch, coin=False)[0].item()
+        finally:
+            gru_mod.trainfast_supports = real
+        if not np.isfinite(loss):
+            raise RuntimeError(f"the sampled step on the {route} route: loss {loss}")
+        return loss
+
+    kernels = (gk.gru_fwd_seq, gk.gru_bwd_seq)
+    counts = {}
+    for route in ("K5/K6", "eager"):
+        for k in kernels:
+            k.launches = 0
+        _, eager = _eager_gru_steps(lambda: step(route), gen)
+        counts[route] = {**{k.__name__: k.launches for k in kernels}, "eager_steps": eager}
+    want = {"K5/K6": {"gru_fwd_seq": 8 * mt, "gru_bwd_seq": 4 * mt, "eager_steps": 0},
+            "eager": {"gru_fwd_seq": 4 * mt, "gru_bwd_seq": 0, "eager_steps": 4 * mt}}
+    if counts != want:
+        raise RuntimeError(f"the sampled step's launches {counts}, expected {want}")
+    walls = {"K5/K6": [], "eager": []}
+    for route in ("K5/K6", "eager", "eager", "K5/K6"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(route)
+        walls[route].append((time.perf_counter() - t0) * 1e3)
+    for route in walls:
+        device_ms, launches, rows = _profile_step(lambda route=route: step(route))
+        wall = float(np.mean(walls[route]))
+        print(f"[widths] training step (autoregressive flagship, sampled branch, f32) on the "
+              f"{route} route for the H-{gen} generation GRU: {wall:.1f} ms a step (walls "
+              f"{[round(w, 1) for w in walls[route]]}), wrapper launches "
+              f"{counts[route]}, {launches} device launches, device {device_ms:.1f} ms, idle "
+              f"share {1 - device_ms / wall:.3f} | {card}", flush=True)
+        for name, k_ms, k_count in rows[:6]:
+            print(f"[profile]   {k_ms:9.3f} ms {k_count:6d}x  {name[:110]}", flush=True)
+    del tr, vae, model
+    torch.cuda.empty_cache()
+    return counts["K5/K6"]
+
+
+def _narrow_engines(card: str) -> dict:
+    """The entry points a user calls, at widths that run on zero units: the
+    model (VAE and LatentRNN of H ``NARROW_ENGINE_H``: ``Encoder.apply``,
+    the decoder's decode, the LatentRNN's GRUs, on ``"xla"`` and on
+    ``"pallas"``) and the ARNN's ``apply_inpaint`` at ``NARROW_ARNN_ENGINE``
+    on the card against the CPU (phases 5 and 12's checks and bounds); then
+    the serving engines at those widths, each call on the eager route and
+    on the graph route (capture, replay), tokens and launches equal: the
+    LatentRNN engine in bf16, int8, and bf16 and f32 on ``"pallas"``, the
+    ARNN engine in f32 and bf16. -> {kernel: launches} of the graph
+    route's replays (``_check_routes`` counts each call from 0; each
+    kernel must launch)"""
+    from inpaintnet_tpu_torch.models.anticipation_rnn import AnticipationRNNBaseline
+    from inpaintnet_tpu_torch.models.presets import ARNNDataset, build_flagship
+    from inpaintnet_tpu_torch.ops import arnn_kernel as ak
+    from inpaintnet_tpu_torch.ops import decode_kernel as dk
+    from inpaintnet_tpu_torch.ops import encoder_kernel as ek
+    from inpaintnet_tpu_torch.ops import gru_kernel as lk
+    from inpaintnet_tpu_torch.ops.gru import gru_impl_scope
+    from inpaintnet_tpu_torch.serve import InpaintingEngine
+    from inpaintnet_tpu_torch.serve_arnn import ARNNServingEngine
+
+    t0 = time.perf_counter()
+    hidden, (gen, ctx) = NARROW_ENGINE_H, NARROW_ARNN_ENGINE
+    _, _, model = build_flagship(hidden=hidden, seed=0, device="cuda")
+    for impl in ("xla", "pallas"):
+        print(f"[widths] the model's entry points at H {hidden} on {impl!r}, card against CPU:",
+              flush=True)
+        with gru_impl_scope(impl):
+            phase_reference(model, quantized=False)
+    phase_arnn_reference(hidden=gen, ctx=ctx)
+    arnn = AnticipationRNNBaseline(
+        ARNNDataset(), note_embedding_dim=10, metadata_embedding_dim=2,
+        num_lstm_constraints_units=ctx, num_lstm_generation_units=gen, linear_hidden_size=256,
+        num_layers=2, unary_constraint=True, device="cuda", seed=0)
+    buckets, totals = NARROW_ENGINE_BUCKETS, {}
+
+    def serve():
+        for label, dtype, impl in (("bf16", "bfloat16", "xla"), ("int8", "int8", "xla"),
+                                   ("bf16 pallas", "bfloat16", "pallas"),
+                                   ("f32 pallas", "float32", "pallas")):
+            engine = InpaintingEngine(model, batch_buckets=buckets, dtype=dtype, device="cuda")
+            with gru_impl_scope(impl):
+                calls = _latent_graph_calls(engine, np.random.default_rng(25), buckets)[0]
+                _check_routes(engine, f"H {hidden} {label}", calls, totals)
+        for dtype in ("float32", "bfloat16"):
+            engine = ARNNServingEngine(arnn, batch_buckets=buckets, dtype=dtype, device="cuda")
+            rng = np.random.default_rng(26)
+            calls = []
+            for b in buckets:
+                tokens = _arnn_request(rng, b, ARNN_BARS)
+                calls += [(f"argmax batch {b}", lambda t=tokens, e=engine: e.inpaint(
+                               t, ARNN_START, ARNN_SPAN)),
+                          (f"sampled batch {b}", lambda t=tokens, e=engine: e.inpaint(
+                              t, ARNN_START, ARNN_SPAN, seed=3, temperature=1.5))]
+            _check_routes(engine, f"arnn {dtype} H {gen} C {ctx}", calls, totals)
+
+    serve()
+    launches = {k.__name__: totals.get(k.__name__, 0)
+                for k in (ek.encoder_hn, dk.decode_sampling, ek.encoder_hn_int8,
+                          dk.decode_sampling_int8, lk.gru_layer_stream, ak.arnn_sampled_decode)}
+    if min(launches.values()) < 1:
+        raise RuntimeError(f"the engines at narrow widths did not launch every kernel: "
+                           f"{launches}")
+    print(f"[widths] engines at H {hidden} and ARNN H {gen} C {ctx}: the graph route's "
+          f"replays launched {totals}; {time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    del model, arnn
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_hidden_widths(card: str) -> tuple:
+    """Phase 25: the widths that run on zero units, and K5/K6 at 1024. ->
+    ({kernel name: {case: entry}} for the kernels line, {kernel: launches}
+    of the training step and of the narrow engines, the phase's main
+    paths)"""
+    t0 = time.perf_counter()
+    launches = _narrow_engines(card)
+    entries = {**_narrow_encoders(card), **_narrow_decoders(card)}
+    entries["arnn_sampled_decode"] = _narrow_arnn(card)
+    entries["gru_layer_stream"] = _narrow_k8(card)
+    entries.update(_narrow_train(card))
+    launches.update(_width_training_step(card))
+    print(f"[widths] phase 25 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return entries, launches
+
+
 def main() -> int:
     cli = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     cli.add_argument("--parent", metavar="DIR",
@@ -5047,6 +5570,7 @@ def main() -> int:
     launches_eval = phase_cli(card)
     train_mode = phase_training_surface(model, card)
     launches_tp = phase_tensor_parallel(card)
+    width_entries, launches_width = phase_hidden_widths(card)
     sources = {
         "encoder_hn": ("encoder_gru.cu", "inpaintnet_tpu/ops/encoder_pallas.py:147", launches),
         "decode_sampling": ("decode_sampling.cu", "inpaintnet_tpu/ops/decode_pallas.py:216",
@@ -5075,7 +5599,10 @@ def main() -> int:
                 **({"tp_launches": launches_tp[name]} if name in launches_tp else {}),
                 **({"vocab_heads": vocab_entries[name],
                     "vocab_engine_launches": launches_vocab.get(name, 0)}
-                   if name in vocab_entries else {})}
+                   if name in vocab_entries else {}),
+                "hidden_widths": width_entries[name],
+                **({"width_launches": launches_width[name]}
+                   if name in launches_width else {})}
                for name, (src, replaces, runs) in sources.items()]
     # K1's training mode (phase 21): its launches in the VAE steps under the
     # switch, its time and bound at the VAE step's rows, cuDNN as library_ms
@@ -5085,6 +5612,8 @@ def main() -> int:
                                     "inpaintnet_tpu/ops/gru_pallas.py:363"]
     print(f"[launches] HTTP path: {launches_http}; ARNN HTTP path: {launches_arnn_http}; "
           f"autoregressive HTTP path: {launches_ar_http}", flush=True)
+    print(f"[profile] traces whose lead kernel is missing: {LEADS_LOST[0]} of {LEADS_LOST[1]}",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

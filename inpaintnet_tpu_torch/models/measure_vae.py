@@ -145,7 +145,8 @@ class Encoder(nn.Module):
 
     def use_kernel(self) -> bool:
         """K1 and K3 take this geometry: 2 bidirectional layers (always
-        bidirectional here) and a hidden width the kernels tile."""
+        bidirectional here) and a hidden width up to 512 (one that is not
+        whole 64-unit blocks on zero units, ``kernel_supports_hidden``)."""
         return self.num_layers == 2 and kernel_supports_hidden(self.rnn_hidden_size)
 
     def apply(self, params, tokens: torch.Tensor, quant: str = "none", *, train: bool = False,
@@ -304,7 +305,8 @@ class HierarchicalDecoder(nn.Module):
 
     def use_kernel(self) -> bool:
         """K2 and K4 take this geometry: 2 tick-GRU layers (the decode here
-        is always argmax inference) and a hidden width the kernels tile."""
+        is always argmax inference) and a hidden width up to 512 (one that is
+        not whole 64-unit blocks on zero units, ``kernel_supports_hidden``)."""
         return self.num_layers == 2 and kernel_supports_hidden(self.rnn_hidden_size)
 
     def decode_teacher_forced(self, params, z: torch.Tensor, tokens: torch.Tensor, *,

@@ -45,6 +45,10 @@ route: it is the yardstick of the Hopper routes' error at noisy weights.
 ``recurrent_product``, ``carry_c`` and ``ctx_projection`` are the plain
 versions' steps where a check plants a fault.
 
+Every H and C up to 512 runs (:func:`arnn_kernel_supports`): a width that
+is not whole 64-unit blocks runs at the next one that is, on zero units
+(:func:`arnn_padded_operands`); the logits and tokens need no slicing.
+
 The wrapper runs the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel or raises.
 """
@@ -57,6 +61,7 @@ import torch
 
 from inpaintnet_tpu_torch.ops import kernel_common
 from inpaintnet_tpu_torch.ops.kernel_common import (
+    CELL_KEYS,
     DTYPE_CODES,
     HOPPER_CONSUMERS,
     HOPPER_MAX_STAGES,
@@ -68,11 +73,14 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     check_launch,
     counts_launches,
     fitting_clusters,
-    kernel_supports_hidden,
+    kernel_width,
     least_cost_cluster,
     load_kernels,
     lstm_gates_f32,
+    pad_cell,
     pack_mma_b,
+    pad_units,
+    padded_cache,
     round_up,
     split_bf16_pieces,
     split_blocks,
@@ -293,14 +301,57 @@ def _route_supports(hidden: int, linear: int, vocab: int, dtype) -> bool:
 
 
 def arnn_kernel_supports(hidden: int, ctx: int, linear: int, vocab: int, dtype) -> bool:
-    """Whether K7 takes this geometry: H and C whole 64-unit chunks up to 512
-    (``kernel_supports_hidden``) and a plan of the dtype's Hopper route
-    (:func:`arnn_hopper_supports`, :func:`arnn_f32_supports`), which every
-    such width has at any head width and vocabulary."""
-    if dtype not in DTYPE_CODES or not (kernel_supports_hidden(hidden)
-                                        and kernel_supports_hidden(ctx)):
+    """Whether K7 takes this geometry: H and C up to 512, each run at its
+    ``kernel_width`` on zero units (:func:`arnn_padded_operands`), and a
+    plan of the dtype's Hopper route at that H (:func:`arnn_hopper_supports`,
+    :func:`arnn_f32_supports`), which every such width has at any head width
+    and vocabulary."""
+    if dtype not in DTYPE_CODES or kernel_width(hidden) is None or kernel_width(ctx) is None:
         return False
-    return _route_supports(hidden, linear, vocab, dtype)
+    return _route_supports(kernel_width(hidden), linear, vocab, dtype)
+
+
+def _build_padded_arnn(*weights, hp: int, cp: int) -> dict:
+    """The generation LSTM and head hidden of ``weights`` (layer 0's and
+    layer 1's ``CELL_KEYS``, the token embedding table, linear_1's w) at
+    ``hp`` units, layer 0's context rows at ``cp``."""
+    p0, p1 = (dict(zip(CELL_KEYS, weights[4 * i:4 * i + 4])) for i in range(2))
+    hidden, emb_dim = p0["w_hh"].shape[0], weights[8].shape[1]
+    ctx = p0["w_ih"].shape[0] - emb_dim
+
+    def ctx_rows(w):  # layer 0 reads [token embedding E | constraint output C]
+        return torch.cat([w[:emb_dim], pad_units(w[emb_dim:], ctx, cp, dim=0)])
+
+    def unit_rows(w):
+        return pad_units(w, hidden, hp, dim=0)
+    return {"lstm_generation": [pad_cell(p0, hidden, hp, 4, ctx_rows),
+                                pad_cell(p1, hidden, hp, 4, unit_rows)],
+            "linear_1_w": unit_rows(weights[9])}
+
+
+# K7's generation LSTM and head hidden at the widths it runs them at, built
+# once per set of weight tensors
+padded_arnn = padded_cache(_build_padded_arnn)
+
+
+def arnn_padded_operands(params, ctx: torch.Tensor) -> tuple:
+    """K7's operands at ``kernel_width`` of H and of C: the generation
+    LSTM with zero units (``kernel_common.pad_cell`` with 4 gates; layer 0's
+    W_ih rows of the context and layer 1's, and linear_1's input rows) and
+    the context with zero columns. H and C pad independently (H 48 with C
+    100 runs at 64 and 128); the head's hidden L is padded by the packings
+    already. The token table, start embedding and head are unchanged, so
+    the logits and tokens are the narrow model's. -> (params, ctx)"""
+    p0, p1 = params["lstm_generation"]
+    hidden, width = p0["w_hh"].shape[0], ctx.shape[2]
+    narrow = padded_arnn(*(p[k] for p in (p0, p1) for k in CELL_KEYS),
+                         params["note_embedding"]["table"], params["linear_1"]["w"],
+                         hp=kernel_width(hidden), cp=kernel_width(width))
+    return ({"note_embedding": params["note_embedding"],
+             "lstm_generation": narrow["lstm_generation"],
+             "linear_1": {"w": narrow["linear_1_w"], "b": params["linear_1"]["b"]},
+             "linear_output_notes": params["linear_output_notes"]},
+            pad_units(ctx, width, kernel_width(width)))
 
 
 def pack_lstm_blocks(w: torch.Tensor) -> torch.Tensor:
@@ -447,7 +498,9 @@ def arnn_cuda_launches(dtype, batch: int, seq_len: int, hidden: int, linear: int
                        vocab: int) -> int:
     """CUDA kernel launches of one K7 call: two a chunk of rows (the context
     projection GEMM, then the recurrence) on either Hopper route, at every
-    geometry the gate takes. Raises ValueError for one it does not."""
+    geometry the gate takes (a narrow H runs at its ``kernel_width``). Raises
+    ValueError for one it does not."""
+    hidden = kernel_width(hidden) or hidden
     if not _route_supports(hidden, linear, vocab, dtype):
         raise ValueError(f"arnn_cuda_launches: no K7 route for dtype {dtype}, hidden size "
                          f"{hidden}, head {linear} x {vocab}")
@@ -568,7 +621,8 @@ def _check_arnn_args(params, ctx, score, force_mask, start_emb):
     batch, seq_len, C = ctx.shape
     hidden = p0["w_hh"].shape[0]
     linear, vocab = params["linear_output_notes"]["w"].shape
-    if not arnn_kernel_supports(hidden, C, linear, vocab, dtype):
+    if not (kernel_width(hidden) == hidden and kernel_width(C) == C
+            and arnn_kernel_supports(hidden, C, linear, vocab, dtype)):
         raise ValueError(f"arnn_sampled_decode: no kernel for dtype {dtype}, hidden size "
                          f"{hidden}, context {C}, head {linear} x {vocab}")
     emb = params["note_embedding"]["table"]
@@ -712,6 +766,11 @@ def arnn_sampled_decode(params, ctx: torch.Tensor, score: torch.Tensor,
     takes; the wrapper raises ValueError on any other."""
     if ctx.device.type == "cpu":
         return arnn_sampled_decode_reference(params, ctx, score, force_mask, start_emb)
+    hidden, width = params["lstm_generation"][0]["w_hh"].shape[0], ctx.shape[2]
+    padded = kernel_width(hidden), kernel_width(width)
+    if None not in padded and padded != (hidden, width):  # zero units up to 64-unit blocks
+        return arnn_sampled_decode(*arnn_padded_operands(params, ctx), score, force_mask,
+                                   start_emb)
     shape = _check_arnn_args(params, ctx, score, force_mask, start_emb)
     route = _decode_hopper if shape[6] == torch.bfloat16 else _decode_hopper_f32
     out = route(params, ctx, score, force_mask, start_emb, shape)

@@ -22,7 +22,9 @@
 //   shape). In f32 W_hh is split the same way and the passes keep the cross
 //   terms down to 2^-24 (lh, hl, mm, mh, hm, hh: six, smallest first).
 // - A cluster of C CTAs shares a 64-row tile; CTA rank p owns the U = H / C
-//   units [pU, pU + U) (at most 128): their elementwise chain, their 3U
+//   units [pU, pU + U) (at most 128, so H 1024 takes 8 CTAs of 128, whose
+//   product is 3H = 3,072 deep: 48 k-slabs streamed as at every width,
+//   nothing of the tile resident): their elementwise chain, their 3U
 //   columns of da and dhw, and their U output columns of the product (two
 //   consumer warpgroups each take half of them). dh stays in shared memory,
 //   f32: the elementwise phase walks it by rows, each warp's loads and

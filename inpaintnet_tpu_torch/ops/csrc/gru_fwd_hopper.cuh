@@ -79,7 +79,10 @@
 // An all-zero row returns h0. Its CTAs own 64 units as K5's, so H 1024
 // takes a cluster of 16 (non-portable: the launch opts in); two 32-unit
 // chunks a warpgroup at 8 CTAs would need 168 KB ring stages (K5's
-// layout), and a ring holds at least two.
+// layout), and a ring holds at least two. K5's f32 route (kTrain) takes
+// the same plan from H 576 to 1024 (9-16 CTAs); its bf16 route 8 CTAs of
+// 128 units at H 1024. Nothing here holds a whole h tile: T(h) streams in
+// 64-wide k-slabs at every width, so only the cluster grows.
 #pragma once
 
 #include "gru_common.cuh"
@@ -573,10 +576,13 @@ inline cudaError_t run_k5(const CUtensorMap& w_map, const FwdArgs& a, int C, cud
   return cudaGetLastError();
 }
 
+// K5's launch: bf16 CTAs of 64 or 128 units in clusters of up to 8; f32
+// CTAs of 64 units, so up to 16 at H 1024 (kLayer's non-portable plan)
 template <typename T>
 inline cudaError_t launch_gru_fwd(const CUtensorMap& w_map, const FwdArgs& a, int C,
                                   cudaStream_t stream) {
-  if (!plan_fits<T>(a.H, C, a.stages) || a.B < 1 || a.steps < 1 || a.scratch == nullptr)
+  constexpr int kMost = Fwd<T>::kPieces == 3 ? kMaxLayerCluster : kMaxCluster;
+  if (!plan_fits<T>(a.H, C, a.stages, kMost) || a.B < 1 || a.steps < 1 || a.scratch == nullptr)
     return cudaErrorInvalidValue;
   switch (a.H / C / 64) {
     case 1: return run_k5<T, 1, kTrain>(w_map, a, C, stream);

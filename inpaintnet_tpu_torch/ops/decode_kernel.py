@@ -35,6 +35,10 @@ scales, packed slabs and tensor map, built once per set of weight tensors
 (:func:`decode_int8_weights`), and each call's row scales, quantized init
 hiddens and beat context (:func:`decode_int8_data`).
 
+Both take every width up to 512 (:func:`decode_supports`): a width that
+is not whole 64-unit blocks runs at the next one that is, on zero units
+(:func:`decode_padded_operands`); the logits and samples need no slicing.
+
 The wrappers run the plain versions for CPU tensors only; for CUDA tensors
 they launch the kernel or raise.
 """
@@ -46,8 +50,8 @@ import ctypes
 import functools
 
 from inpaintnet_tpu_torch.ops import kernel_common
-from inpaintnet_tpu_torch.ops.encoder_kernel import pack_gate_blocks
 from inpaintnet_tpu_torch.ops.kernel_common import (
+    CELL_KEYS,
     DTYPE_CODES,
     HOPPER_ROWS,
     HOPPER_SMEM_BUDGET,
@@ -59,9 +63,12 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     counts_launches,
     fitting_clusters,
     gru_gates_f32,
-    kernel_supports_hidden,
+    kernel_width,
     least_cost_cluster,
     load_kernels,
+    pad_cell,
+    pad_units,
+    padded_cache,
     recurrence_plan,
     recurrence_slots,
     ring_stages,
@@ -70,6 +77,7 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     split_blocks,
     stream_ptr,
 )
+from inpaintnet_tpu_torch.ops.encoder_kernel import pack_gate_blocks
 from inpaintnet_tpu_torch.ops.quantize import dequantize_h, quantize_cols_int8, quantize_h_int8
 
 NUM_TICKS = 24
@@ -232,7 +240,8 @@ def _check_decode_args(name: str, params, tick_ctx: torch.Tensor, h_inits: torch
         raise ValueError(f"{name}: no kernel for dtype {dtype}")
     batch, num_beats, hidden = tick_ctx.shape
     kind = "int8" if name.endswith("int8") else dtype
-    if num_beats != NUM_TICKS // TICKS_PER_BEAT or not decode_supports(hidden, kind):
+    if (num_beats != NUM_TICKS // TICKS_PER_BEAT or kernel_width(hidden) != hidden
+            or not decode_supports(hidden, kind)):
         raise ValueError(f"{name}: no kernel for (beats, hidden) {(num_beats, hidden)}")
     check_cuda_tensor("tick_ctx", tick_ctx, (batch, num_beats, hidden), dtype, device)
     check_cuda_tensor("h_inits", h_inits, (2, batch, num_beats, hidden), dtype, device)
@@ -421,15 +430,56 @@ def _head_pad(vocab: int) -> tuple:
 
 def decode_supports(hidden: int, dtype) -> bool:
     """Whether K2's route in ``dtype`` (K4's for ``"int8"``) has a plan at
-    ``hidden``: every width of ``kernel_supports_hidden`` does, at every
-    vocabulary (the head is a loop over chunks, :func:`head_chunks`). With
+    ``hidden``, run at ``kernel_width(H)`` (:func:`decode_padded_operands`):
+    every width of ``kernel_supports_hidden`` does, at every vocabulary (the
+    head is a loop over chunks, :func:`head_chunks`). With
     ``HierarchicalDecoder.use_kernel`` this is K2's and K4's gate."""
-    if not kernel_supports_hidden(hidden):
+    hidden = kernel_width(hidden)
+    if hidden is None:
         return False
     if dtype == "int8" or dtype == torch.bfloat16:
         h_tiles, elem = (4, 1) if dtype == "int8" else (2, 2)
         return bool(cluster_sizes(hidden)) and ring_stages(hidden, h_tiles, elem) >= 2
     return dtype == torch.float32 and bool(f32_cluster_sizes(hidden))
+
+
+def _build_padded_decoder(*weights, padded: int) -> dict:
+    """The tick GRU and head of ``weights`` (layer 0's and layer 1's
+    ``CELL_KEYS``, then the head's w and b) at ``padded`` units."""
+    hidden = weights[1].shape[0]
+    p0, p1 = (dict(zip(CELL_KEYS, weights[4 * i:4 * i + 4])) for i in range(2))
+    emb_dim = p0["w_ih"].shape[0] - hidden
+
+    def unit_rows(w):  # an input of H units: the beat context, h0', h1'
+        return pad_units(w, hidden, padded, dim=0)
+
+    def ctx_rows(w):  # layer 0 reads [token embedding E | beat context H]
+        return torch.cat([w[:emb_dim], unit_rows(w[emb_dim:])])
+    return {"tick_gru": [[pad_cell(p0, hidden, padded, 3, ctx_rows)],
+                         [pad_cell(p1, hidden, padded, 3, unit_rows)]],
+            "head": {"w": unit_rows(weights[8]), "b": weights[9]}}
+
+
+# K2's and K4's decoder at the width they run it at, built once per set of
+# weight tensors
+padded_decoder = padded_cache(_build_padded_decoder)
+
+
+def decode_padded_operands(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor) -> tuple:
+    """K2's and K4's operands at ``kernel_width(H)`` units: the tick GRU with
+    zero units (``kernel_common.pad_cell``: layer 0's W_ih rows of the beat
+    context, layer 1's W_ih rows, the head's input rows), the beat context
+    and the (SELU'd beat-to-tick) init hiddens with zero units. The token
+    table, ``x_0`` and the head's columns are unchanged, so the logits and
+    samples are the narrow decoder's: no slicing. K4's per-row bound and
+    column scales see only zeros more. -> (params, tick_ctx, h_inits)"""
+    hidden = tick_ctx.shape[2]
+    padded = kernel_width(hidden)
+    p0, p1 = params["tick_gru"][0][0], params["tick_gru"][1][0]
+    narrow = padded_decoder(*(p[k] for p in (p0, p1) for k in CELL_KEYS), params["head"]["w"],
+                            params["head"]["b"], padded=padded)
+    return ({**narrow, "embedding": params["embedding"], "x_0": params["x_0"]},
+            pad_units(tick_ctx, hidden, padded), pad_units(h_inits, hidden, padded))
 
 
 def _build_decode_operands(w_hh0, w_ih1, w_hh1, head_w, b_hh0, b_ih1, b_hh1, head_b):
@@ -462,6 +512,9 @@ def decode_sampling(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
         return decode_sampling_reference(params, tick_ctx, h_inits)
     if tick_ctx.device.type != "cuda":
         raise ValueError(f"decode_sampling: no kernel for device {tick_ctx.device}")
+    padded = kernel_width(tick_ctx.shape[2])
+    if padded not in (None, tick_ctx.shape[2]):  # zero units up to whole 64-unit blocks
+        return decode_sampling(*decode_padded_operands(params, tick_ctx, h_inits))
     batch, hidden, vocab, dtype, device = _check_decode_args("decode_sampling", params,
                                                              tick_ctx, h_inits)
     p0, p1 = params["tick_gru"][0][0], params["tick_gru"][1][0]
@@ -655,6 +708,9 @@ def decode_sampling_int8(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
         return decode_sampling_int8_reference(params, tick_ctx, h_inits)
     if tick_ctx.device.type != "cuda":
         raise ValueError(f"decode_sampling_int8: no kernel for device {tick_ctx.device}")
+    padded = kernel_width(tick_ctx.shape[2])
+    if padded not in (None, tick_ctx.shape[2]):  # zero units up to whole 64-unit blocks
+        return decode_sampling_int8(*decode_padded_operands(params, tick_ctx, h_inits))
     batch, hidden, vocab, dtype, device = _check_decode_args("decode_sampling_int8", params,
                                                              tick_ctx, h_inits)
     w = decode_int8_weights(*_int8_weight_tensors(params))

@@ -40,6 +40,13 @@ carry and h_n stay undropped. The kernels do it in layer 0's own store
 (``csrc/encoder_gru.cu``); :func:`encoder_hn_reference` and
 :func:`encoder_hn_staged_reference` are its plain versions.
 
+Both take every width up to 512 (``kernel_common.kernel_supports_hidden``):
+a width that is not whole 64-unit blocks runs at the next one that is, on
+zero units (:func:`encoder_padded_operands`), and h_n is sliced back. In
+K3 a zero column quantizes to q = 0 at the floored scale
+(``quantize.quantize_cols_int8``) and a padded h to 0, so no real unit's
+product, scale or bound moves.
+
 The wrappers run the plain versions for CPU tensors only; for CUDA tensors
 they launch the kernels or raise.
 """
@@ -51,6 +58,7 @@ import torch
 
 from inpaintnet_tpu_torch.ops.distributions import apply_dropout
 from inpaintnet_tpu_torch.ops.kernel_common import (
+    CELL_KEYS,
     DTYPE_CODES,
     HOPPER_ROWS,
     WeightCache,
@@ -58,11 +66,15 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     check_launch,
     counts_launches,
     gru_gates_f32,
-    kernel_supports_hidden,
+    kernel_width,
     load_kernels,
+    pad_cell,
+    pad_units,
+    padded_cache,
     round_up,
     split_bf16_pieces,
     stream_ptr,
+    unpad_units,
 )
 from inpaintnet_tpu_torch.ops.quantize import (
     H_SCALE,
@@ -110,7 +122,8 @@ def encoder_chunk_rows(batch: int, seq_len: int, hidden: int, max_chunk_rows=Non
 def encoder_cuda_launches(dtype, batch: int, seq_len: int, hidden: int,
                           max_chunk_rows=None) -> int:
     """CUDA kernel launches of one K1/K3 call: three a chunk (layer 0, the
-    GEMM, layer 1), in every dtype."""
+    GEMM, layer 1), in every dtype (a narrow H runs at round_up(H, 64))."""
+    hidden = round_up(hidden, 64)
     chunk = encoder_chunk_rows(batch, seq_len, hidden, max_chunk_rows, dtype)
     return 3 * -(-batch // chunk)
 
@@ -255,17 +268,55 @@ def encoder_hn_staged_reference(gru_params, emb_table: torch.Tensor, tokens: tor
     return torch.stack(h_n, dim=0)
 
 
+def _build_padded_encoder(*weights, padded: int) -> list:
+    """The 2-layer bidirectional GRU of ``weights`` (16 tensors: [l0f, l0b,
+    l1f, l1b] x ``CELL_KEYS``) at ``padded`` units."""
+    hidden = weights[1].shape[0]
+    cells = [dict(zip(CELL_KEYS, weights[4 * i:4 * i + 4])) for i in range(4)]
+
+    def concat_rows(w):  # layer 1 reads [forward H | backward H]: padded in two places
+        return pad_units(w, hidden, padded, 2, dim=0)
+    return [[pad_cell(c, hidden, padded, 3) for c in cells[:2]],
+            [pad_cell(c, hidden, padded, 3, concat_rows) for c in cells[2:]]]
+
+
+# K1's and K3's GRU at the width they run it at, built once per set of
+# weight tensors
+padded_encoder = padded_cache(_build_padded_encoder)
+
+
+def encoder_padded_operands(gru_params, keep=None) -> tuple:
+    """K1's and K3's operands at ``kernel_width(H)`` units: the GRU with zero
+    units (``kernel_common.pad_cell``; layer 1's W_ih rows padded in both
+    halves of the [forward | backward] concat), and the training mode's
+    keep mask (B, T, 2H) padded in both halves (a padded unit's output is
+    0, dropped or kept). The plain versions on them, sliced back to H
+    units, are the plain versions at H; the embedding and tokens are
+    unchanged. -> (gru_params, keep)"""
+    hidden = gru_params[0][0]["w_hh"].shape[0]
+    padded = kernel_width(hidden)
+    params = padded_encoder(*(p[k] for layer in gru_params for p in layer for k in CELL_KEYS),
+                            padded=padded)
+    return params, None if keep is None else pad_units(keep, hidden, padded, 2)
+
+
+def _encoder_hidden(name: str, gru_params) -> int:
+    """H of a 2-layer bidirectional GRU; raises ValueError on another."""
+    if len(gru_params) != 2 or len(gru_params[0]) != 2 or len(gru_params[1]) != 2:
+        raise ValueError(f"{name}: takes a 2-layer bidirectional GRU")
+    return gru_params[0][0]["w_hh"].shape[0]
+
+
 def _check_encoder_args(name: str, gru_params, emb_table: torch.Tensor, tokens: torch.Tensor):
     """The K1/K3 wrappers' checks of what the kernels take. -> (hidden,
     parameter dtype, device); raises ValueError otherwise."""
-    if len(gru_params) != 2 or len(gru_params[0]) != 2 or len(gru_params[1]) != 2:
-        raise ValueError(f"{name}: takes a 2-layer bidirectional GRU")
+    _encoder_hidden(name, gru_params)
     (p0f, p0b), (p1f, p1b) = gru_params
     device, dtype = tokens.device, p0f["w_hh"].dtype
     if dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: no kernel for dtype {dtype}")
     hidden = p0f["w_hh"].shape[0]
-    if not kernel_supports_hidden(hidden):
+    if kernel_width(hidden) != hidden:
         raise ValueError(f"{name}: no kernel for hidden size {hidden}")
     batch, seq_len = tokens.shape
     vocab, emb_dim = emb_table.shape
@@ -285,7 +336,7 @@ def _check_projection_args(name: str, ys: torch.Tensor, w_ih: torch.Tensor, dtyp
     if ys.dim() != 2 or ys.shape[1] % 2:
         raise ValueError(f"{name}: ys must be (M, 2H), got {tuple(ys.shape)}")
     rows, hidden = ys.shape[0], ys.shape[1] // 2
-    if not kernel_supports_hidden(hidden):
+    if kernel_width(hidden) != hidden:
         raise ValueError(f"{name}: no kernel for hidden size {hidden}")
     check_cuda_tensor("ys", ys, (rows, 2 * hidden), dtype, ys.device)
     check_cuda_tensor("w_ih", w_ih, (2, 2 * hidden, 3 * hidden), dtype, ys.device)
@@ -403,6 +454,12 @@ def encoder_hn(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
         return encoder_hn_reference(gru_params, emb_table, tokens, keep, rate)
     if tokens.device.type != "cuda":
         raise ValueError(f"encoder_hn: no kernel for device {tokens.device}")
+    hidden = _encoder_hidden("encoder_hn", gru_params)
+    padded = kernel_width(hidden)
+    if padded not in (None, hidden):  # zero units up to whole 64-unit blocks
+        params, keep = encoder_padded_operands(gru_params, keep)
+        return unpad_units(encoder_hn(params, emb_table, tokens, max_chunk_rows, keep, rate),
+                           hidden, padded)
     hidden, dtype, device = _check_encoder_args("encoder_hn", gru_params, emb_table, tokens)
     batch, seq_len = tokens.shape
     keep_u8 = _check_keep(keep, rate, batch, seq_len, hidden, device)
@@ -630,6 +687,11 @@ def encoder_hn_int8(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
         return encoder_hn_int8_reference(gru_params, emb_table, tokens)
     if tokens.device.type != "cuda":
         raise ValueError(f"encoder_hn_int8: no kernel for device {tokens.device}")
+    hidden = _encoder_hidden("encoder_hn_int8", gru_params)
+    padded = kernel_width(hidden)
+    if padded not in (None, hidden):  # zero units: q = 0 at a floored scale, bit-equal at H
+        return unpad_units(encoder_hn_int8(encoder_padded_operands(gru_params)[0], emb_table,
+                                           tokens, max_chunk_rows), hidden, padded)
     hidden, dtype, device = _check_encoder_args("encoder_hn_int8", gru_params, emb_table,
                                                 tokens)
     batch, seq_len = tokens.shape

@@ -37,6 +37,12 @@ not bit-equal (a carry kept in f32 moves a fifth or more of the elements by
 an ulp; a legitimate rounding flip, from another summation order, moves
 few).
 
+K8 takes every width up to 1024 (``kernel_common.gru_layer_width``): a
+layer whose width the plans do not take (not whole 64-unit blocks; in
+bf16 above 512 an odd number of them) runs at the next width they do, on
+zero units (:func:`padded_operands`), and is sliced back. Wider layers
+never reach it: ``ops/gru.py`` runs them on the eager loop.
+
 The wrapper runs the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel or raises.
 """
@@ -57,13 +63,16 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     check_launch,
     counts_launches,
     gru_gates_f32,
-    gru_layer_supports_hidden,
+    gru_layer_width,
     load_kernels,
+    pad_units,
+    padded_gru_layer,
     recurrence_plan,
     recurrence_slots,
     ring_stages,
     slab_map,
     stream_ptr,
+    unpad_units,
 )
 
 
@@ -173,6 +182,20 @@ def _build_layer_operands(w_hh: torch.Tensor):
 layer_operands = WeightCache(_build_layer_operands)
 
 
+def padded_operands(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                    h0: torch.Tensor, padded=None) -> tuple:
+    """K8's operands at ``padded`` units, by default the width it runs
+    ``hidden`` units at (``kernel_common.gru_layer_width``): (xw, W_hh,
+    b_hh, h0) with zero units, gate by gate (``kernel_common.pad_units``;
+    W_hh and b_hh cached per weight tensor, xw and h0 padded per call). The
+    plain version on them, sliced back to ``hidden`` units, is the plain
+    version at ``hidden``."""
+    hidden = w_hh.shape[0]
+    padded = padded or gru_layer_width(hidden, xw.dtype)
+    w, b = padded_gru_layer(w_hh, b_hh, padded=padded)
+    return pad_units(xw, hidden, padded, 3), w, b, pad_units(h0, hidden, padded)
+
+
 @counts_launches  # proves a run went through K8
 def gru_layer_stream(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                      h0: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
@@ -186,8 +209,14 @@ def gru_layer_stream(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     if dtype not in DTYPE_CODES:
         raise ValueError(f"gru_layer_stream: no kernel for dtype {dtype}")
     hidden = w_hh.shape[0]
-    if not gru_layer_supports_hidden(hidden, dtype):
+    padded = gru_layer_width(hidden, dtype)
+    if padded is None:
         raise ValueError(f"gru_layer_stream: no kernel for hidden size {hidden} in {dtype}")
+    if padded != hidden:  # zero units up to a width the plans take
+        ys, hn = gru_layer_stream(*padded_operands(xw, w_hh, b_hh, h0), mask, reverse=reverse,
+                                  want_ys=want_ys)
+        return (None if ys is None else unpad_units(ys, hidden, padded),
+                unpad_units(hn, hidden, padded))
     batch, seq_len = xw.shape[:2]
     check_cuda_tensor("xw", xw, (batch, seq_len, 3 * hidden), dtype, device)
     check_cuda_tensor("w_hh", w_hh, (hidden, 3 * hidden), dtype, device)

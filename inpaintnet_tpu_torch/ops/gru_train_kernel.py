@@ -28,12 +28,19 @@ product operand, K6's product operand precision and dh carry), so a check
 can plant a fault in the plain versions and show that its bound rejects
 it.
 
+Both run a layer at a width their plans take. The trainfast Function
+(``ops/gru_trainfast.py``) takes every width up to 1024: it runs a layer
+at :func:`trainfast_width`, the next width both kernels take, on zero
+units (:func:`fwd_padded_operands`), keeps K5's residuals at that width
+for K6, and slices the outputs and gradients back to the layer's units.
+
 The wrappers run the plain versions for CPU tensors only; for CUDA tensors
 they launch the kernel or raise.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -47,8 +54,10 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     check_cuda_tensor,
     check_launch,
     counts_launches,
-    kernel_supports_hidden,
     load_kernels,
+    pad_units,
+    padded_gru_layer,
+    padded_width,
     split_bf16_pieces,
     stream_ptr,
 )
@@ -143,12 +152,29 @@ def gru_bwd_seq_reference(w_hh: torch.Tensor, dys: torch.Tensor, r: torch.Tensor
 
 def trainfast_supports(hidden: int) -> bool:
     """Whether an unmasked training GRU layer of this width runs the
-    trainfast autograd Function (K5 forward, K6 backward): the widths both
-    kernels have a plan for, :func:`kernel_supports_hidden` (the VAE's H-512
-    layers). Any other width, such as the autoregressive LatentRNN's H-1024
-    generation GRU, runs the eager loop that autograd differentiates, on
-    every device, so the CPU takes the route the card takes."""
-    return kernel_supports_hidden(hidden)
+    trainfast autograd Function (K5 forward, K6 backward): every width up
+    to 1024 in both dtypes (:func:`trainfast_width`), the autoregressive
+    LatentRNN's generation GRU, narrow ones on zero units. A wider layer
+    runs the eager loop that autograd differentiates, on every device, so
+    the CPU takes the route the card takes."""
+    return all(trainfast_width(hidden, d) is not None for d in DTYPE_CODES)
+
+
+@functools.lru_cache(maxsize=None)
+def _trainfast_width(hidden: int, dtype):
+    return padded_width(hidden, lambda w: bool(fwd_cluster_sizes(w, dtype))
+                        and bool(bwd_cluster_sizes(w, dtype)))
+
+
+def trainfast_width(hidden: int, dtype):
+    """The width the trainfast Function runs ``hidden`` units at
+    (``kernel_common.padded_width``): the next width at which both K5 and
+    K6 have a plan, up to 1024. In bf16 above 512, and in f32 above 512
+    for K6 (8 CTAs of at most 128 units), an odd number of 64-unit blocks
+    runs one block wider: 576 at 640, 1024 as it is. Another dtype (the
+    tests' float64 on the CPU) takes f32's widths."""
+    return _trainfast_width(hidden, torch.bfloat16 if dtype == torch.bfloat16
+                            else torch.float32)
 
 
 def _check_common(name: str, w_hh: torch.Tensor, device: torch.device, dtype: torch.dtype) -> int:
@@ -157,10 +183,25 @@ def _check_common(name: str, w_hh: torch.Tensor, device: torch.device, dtype: to
     if dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: no kernel for dtype {dtype}")
     hidden = w_hh.shape[0]
-    if not kernel_supports_hidden(hidden):
-        raise ValueError(f"{name}: no kernel for hidden size {hidden}")
     check_cuda_tensor("w_hh", w_hh, (hidden, 3 * hidden), dtype, device)
     return hidden
+
+
+def fwd_padded_operands(w_hh: torch.Tensor, b_hh: torch.Tensor, xw: torch.Tensor,
+                        h0: torch.Tensor, padded=None) -> tuple:
+    """K5's operands at ``padded`` units (by default :func:`trainfast_width`):
+    (W_hh, b_hh, xw, h0) with zero units, gate by gate
+    (``kernel_common.pad_units``; W_hh and b_hh built once per weight tensor,
+    ``kernel_common.padded_gru_layer``: an Adam step's in-place update
+    rebuilds them). Its padded units emit r = z = 1/2, n = 0 and hn = 0;
+    handed on to K6 with a zero dy, their g, da, dhw and (their rows and
+    columns of W_hh being zero) dh stay exactly 0."""
+    hidden = w_hh.shape[0]
+    padded = padded or trainfast_width(hidden, xw.dtype)
+    if padded == hidden:
+        return w_hh, b_hh, xw, h0
+    w, b = padded_gru_layer(w_hh, b_hh, padded=padded)
+    return w, b, pad_units(xw, hidden, padded, 3), pad_units(h0, hidden, padded)
 
 
 @counts_launches  # proves a run went through K5
@@ -197,6 +238,7 @@ def gru_fwd_seq(w_hh: torch.Tensor, b_hh: torch.Tensor, xw: torch.Tensor, h0: to
 # K5's Hopper route (csrc/gru_fwd_hopper.cuh)
 # --------------------------------------------------------------------------- #
 FWD_MAX_CLUSTER = 8
+FWD_MAX_F32_CLUSTER = 16  # H 1024 at 64 units a CTA: a non-portable cluster, as K8's f32 route
 FWD_MAX_STAGES = 6
 FWD_CARRY_PAD = 8  # f32 padding of the carry's rows in shared memory
 FWD_PIECE_BYTES = HOPPER_ROWS * 128  # a 64-wide k-slab of one piece of T(h)
@@ -224,13 +266,17 @@ def fwd_ring_stages(units: int, pieces: int) -> int:
 
 
 def fwd_cluster_sizes(hidden: int, dtype) -> list:
-    """Cluster sizes K5 can run ``hidden`` units at: 1-8 CTAs owning whole
+    """Cluster sizes K5 can run ``hidden`` units at: CTAs owning whole
     64-unit blocks, at most :func:`fwd_max_units` each, with a ring of at
-    least two stages (f32: H / 64 CTAs; bf16: that and half of it)."""
+    least two stages; 1-8 CTAs in bf16 (H / 64 and half of it: 8 of 128
+    units at H 1024), 1-16 in f32 (H / 64, so H 1024 takes a non-portable
+    cluster of 16, as K8's f32 route, ``gru_fwd_hopper.cuh`` mode
+    ``kLayer``)."""
     if hidden % 64 or hidden <= 0:
         return []
     pieces = bwd_weight_pieces(dtype)
-    return [c for c in range(1, FWD_MAX_CLUSTER + 1)
+    most = FWD_MAX_CLUSTER if dtype == torch.bfloat16 else FWD_MAX_F32_CLUSTER
+    return [c for c in range(1, most + 1)
             if (hidden // 64) % c == 0 and hidden // c <= fwd_max_units(dtype)
             and fwd_ring_stages(hidden // c, pieces) >= 2]
 

@@ -23,6 +23,12 @@
   size), the CTAs a plan launches (``plan_blocks``), the tensor map of
   their packed weights (``slab_map``, bf16 or int8), and ``WeightCache``,
   which builds such per-weight operands once per weight tensor.
+- The widths: :func:`kernel_supports_hidden` (K1-K4) and
+  :func:`gru_layer_supports_hidden` (K8) take every width up to their
+  ceilings; a wrapper runs a layer at :func:`kernel_width` or
+  :func:`gru_layer_width` (:func:`padded_width`), the units past its width
+  zero (:func:`pad_units`, :func:`pad_cell`; ``gate_padding`` is
+  the seam where a check plants the gate-major layout).
 - ``check_cuda_tensor``: the wrappers' argument checks.
 - ``counts_launches``: the wrappers' ``launches`` counters
   (``LAUNCH_COUNTERS``), which ``graphs.py``'s replays add to as well.
@@ -143,26 +149,122 @@ def split_product(a: torch.Tensor, w: torch.Tensor, pieces: int = 3) -> torch.Te
     return out
 
 
+KERNEL_MAX_HIDDEN = 512  # K1-K4's and K7's widest layer: a row tile in one block's shared memory
+LAYER_MAX_HIDDEN = 1024  # K5, K6 and K8's: the LatentRNN's generation GRU (H * layers)
+
+
+def padded_width(hidden: int, takes, most: int = LAYER_MAX_HIDDEN):
+    """The width a kernel runs a layer of ``hidden`` units at: the least
+    multiple of 64 at or above it, up to ``most``, at which the kernel has
+    a plan (``takes(width)``), the units past ``hidden`` zero
+    (:func:`pad_units`); None where there is none."""
+    if hidden <= 0:
+        return None
+    return next((w for w in range(round_up(hidden, 64), most + 1, 64) if takes(w)), None)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_width(hidden: int):
+    """The width K1-K4 (and K7, for H and C) run ``hidden`` units at
+    (:func:`padded_width`): whole 64-unit blocks (so every product depth is
+    a multiple of the int8 ``mma`` depth of 32, and the bf16 one of 16), up
+    to 512, a row tile that fits one block's shared memory; None above. A
+    wrapper runs a layer whose width this is not on zero units."""
+    return padded_width(hidden, lambda w: True, KERNEL_MAX_HIDDEN)
+
+
 def kernel_supports_hidden(hidden: int) -> bool:
-    """Hidden widths K1-K6 take, bf16/f32 (K1, K2, K5, K6) and int8 (K3,
-    K4) alike: whole 64-unit chunks (so every product depth is a multiple of
-    the int8 ``mma`` depth of 32, and the bf16 one of 16), and a row tile
-    that fits one block's shared memory (up to the flagship's 512). K7 and
-    K8 have gates of their own (``arnn_kernel.arnn_kernel_supports``,
-    :func:`gru_layer_supports_hidden`)."""
-    return hidden % 64 == 0 and hidden <= 512
+    """Hidden widths K1-K4 take, bf16/f32 (K1, K2) and int8 (K3, K4) alike:
+    every width up to 512, at :func:`kernel_width`, on zero units
+    (:func:`pad_units`), which computes the narrow layer's function exactly.
+    K5/K6, K7 and K8 have gates of their own
+    (``gru_train_kernel.trainfast_supports``,
+    ``arnn_kernel.arnn_kernel_supports``, :func:`gru_layer_supports_hidden`)."""
+    return kernel_width(hidden) is not None
+
+
+@functools.lru_cache(maxsize=None)
+def gru_layer_width(hidden: int, dtype=torch.float32):
+    """The width K8 (``csrc/gru_layer.cu``) runs ``hidden`` units at
+    (:func:`padded_width`), or None above 1024. Its f32 route takes H / 64
+    CTAs of 64 units, up to 16: every multiple of 64. Its bf16 route splits
+    the units across a cluster whose CTAs own whole 64-unit blocks, at most
+    512 units each (:func:`cluster_sizes`), so above 512 the number of
+    blocks must be even: 576 and 640 run at 640, 704 at 768."""
+    return padded_width(hidden, lambda w: dtype != torch.bfloat16 or bool(cluster_sizes(w)))
 
 
 def gru_layer_supports_hidden(hidden: int, dtype=torch.float32) -> bool:
-    """Hidden widths K8 (``csrc/gru_layer.cu``) takes: whole 64-unit chunks
-    up to 1024, the LatentRNN's generation GRU (H * layers); the f32 route
-    takes H / 64 CTAs of 64 units, up to 16. The bf16 route splits the units
-    across a cluster whose CTAs own whole 64-unit blocks, at most 512 units
-    each (:func:`cluster_sizes`): above 512 the number of blocks must be
-    even."""
-    if not (hidden % 64 == 0 and 0 < hidden <= 1024):
-        return False
-    return dtype != torch.bfloat16 or bool(cluster_sizes(hidden))
+    """Hidden widths K8 takes: every width up to 1024, the LatentRNN's
+    generation GRU (H * layers), at :func:`gru_layer_width`."""
+    return gru_layer_width(hidden, dtype) is not None
+
+
+# --------------------------------------------------------------------------- #
+# Zero units: a layer of any width on kernels that tile 64-unit blocks
+# --------------------------------------------------------------------------- #
+def gate_padding() -> int:
+    """How :func:`pad_units` lays a layer's gates out at the padded width:
+    0, gate by gate (gate g of the real layer at columns [g Hp, g Hp + H)),
+    the one layout that computes the narrow layer's function. The wrappers
+    all pad through here, so a check can plant 1: the 3H (4H) columns
+    padded as a whole at the end, which hands every gate past the first
+    another gate's columns (:func:`padded_cache` keys its operands on it)."""
+    return 0
+
+
+def _unit_groups(groups: int, hidden: int, padded: int) -> tuple:
+    if groups > 1 and gate_padding():
+        return 1, groups * hidden, groups * padded
+    return groups, hidden, padded
+
+
+def pad_units(t: torch.Tensor, hidden: int, padded: int, groups: int = 1,
+              dim: int = -1) -> torch.Tensor:
+    """``t`` with each of its ``groups`` blocks of ``hidden`` entries along
+    ``dim`` zero-padded to ``padded``: a hidden state (1), a layer's gate
+    columns (3 for a GRU, 4 for an LSTM), the input rows of a layer that
+    reads a padded one (2 for a bidirectional layer's [forward | backward]
+    concat). The wrappers of K1-K8 build their padded operands through it."""
+    if padded == hidden:
+        return t
+    dim %= t.dim()
+    groups, hidden, padded = _unit_groups(groups, hidden, padded)
+    blocks = t.unflatten(dim, (groups, hidden))
+    zeros = blocks.new_zeros((*blocks.shape[:dim + 1], padded - hidden, *blocks.shape[dim + 2:]))
+    return torch.cat([blocks, zeros], dim + 1).flatten(dim, dim + 1)
+
+
+def unpad_units(t: torch.Tensor, hidden: int, padded: int, groups: int = 1,
+                dim: int = -1) -> torch.Tensor:
+    """The inverse of :func:`pad_units`: each block's first ``hidden``
+    entries, contiguous."""
+    if padded == hidden:
+        return t
+    dim %= t.dim()
+    groups, hidden, padded = _unit_groups(groups, hidden, padded)
+    return t.unflatten(dim, (groups, padded)).narrow(dim + 1, 0, hidden) \
+        .flatten(dim, dim + 1).contiguous()
+
+
+CELL_KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")  # a GRU or LSTM cell's weights, in this order
+
+
+def pad_cell(p: dict, hidden: int, padded: int, gates: int, rows=None) -> dict:
+    """A GRU (``gates`` 3) or LSTM (4) cell's {w_ih, w_hh, b_ih, b_hh} at
+    ``padded`` units: every weight's and bias's gate columns zero-padded
+    gate by gate, W_hh's rows too, and W_ih's rows by ``rows`` where the
+    cell reads a padded input. Exact: a padded GRU unit (zero weights and
+    biases, h0 0) sees r = z = 1/2 and n = tanh(0) = 0, so h' = h / 2 stays
+    0; a padded LSTM unit sees g = 0, so c and h = o tanh(c) stay 0; and
+    their zero rows of W_hh and of the next layer's W_ih feed nothing into
+    the real units."""
+    def cols(t):
+        return pad_units(t, hidden, padded, gates)
+    w_ih = cols(p["w_ih"])
+    return {"w_ih": w_ih if rows is None else rows(w_ih),
+            "w_hh": pad_units(cols(p["w_hh"]), hidden, padded, dim=0),
+            "b_ih": cols(p["b_ih"]), "b_hh": cols(p["b_hh"])}
 
 
 # --------------------------------------------------------------------------- #
@@ -315,11 +417,12 @@ def _version(t: torch.Tensor):
 
 
 class WeightCache:
-    """Operands built from weight tensors once: ``cache(*weights)`` returns
-    ``build(*weights)``, rebuilt when any weight is another tensor (weak
-    references, not reused ids) or was updated in place (its ``_version``
-    moved). Inference tensors count no versions, so they are rebuilt every
-    call.
+    """Operands built from weight tensors once: ``cache(*weights,
+    **static)`` returns ``build(*weights, **static)``, rebuilt when any
+    weight is another tensor (weak references, not reused ids) or was
+    updated in place (its ``_version`` moved); ``static`` (hashable: a
+    width, a layout) is part of the key. Inference tensors count no
+    versions, so they are rebuilt every call.
 
     A build inside a CUDA graph capture raises: its operands would be
     computed only when the graph replays, and an eager call that hit them
@@ -330,8 +433,8 @@ class WeightCache:
         self._build = build
         self._entries = {}
 
-    def __call__(self, *weights):
-        key = tuple(id(w) for w in weights)
+    def __call__(self, *weights, **static):
+        key = tuple(id(w) for w in weights) + tuple(sorted(static.items()))
         stamp = tuple(_version(w) for w in weights)
         hit = self._entries.get(key)
         if (hit is not None and None not in stamp and hit[1] == stamp
@@ -341,11 +444,39 @@ class WeightCache:
             raise RuntimeError(f"{getattr(self._build, '__name__', 'WeightCache')}: weight "
                                "operands built inside a CUDA graph capture; run the call once "
                                "before capturing it")
-        ops = self._build(*weights)
+        ops = self._build(*weights, **static)
         self._entries = {k: v for k, v in self._entries.items()
                          if all(ref() is not None for ref in v[0])}
         self._entries[key] = ([weakref.ref(w) for w in weights], stamp, ops)
         return ops
+
+
+def padded_cache(build):
+    """A :class:`WeightCache` of weights with zero units: ``cache(*weights,
+    padded=width)`` returns ``build(*weights, padded=width)``, keyed also on
+    the width and on :func:`gate_padding`, so a planted layout builds
+    operands of its own.
+
+    The padded weights are built as ordinary tensors outside autograd, even
+    under ``torch.inference_mode`` (an engine's or a tester's first call):
+    they count versions, so the kernels' own caches of operands built from
+    them hit on every later call, a CUDA graph capture included."""
+    def versioned(*weights, layout, **widths):
+        with torch.inference_mode(False), torch.no_grad():
+            return build(*weights, **widths)
+    cache = WeightCache(versioned)
+    return lambda *weights, **widths: cache(*weights, layout=gate_padding(), **widths)
+
+
+def _pad_gru_layer(w_hh: torch.Tensor, *bias: torch.Tensor, padded: int) -> tuple:
+    hidden = w_hh.shape[0]
+    return (pad_units(pad_units(w_hh, hidden, padded, 3), hidden, padded, dim=0),
+            *(pad_units(b, hidden, padded, 3) for b in bias))
+
+
+# (W_hh, b_hh ...) of one GRU layer direction with zero units, built once
+# per weight tensor and width: K8's, K5's and K6's (W_hh alone) operands
+padded_gru_layer = padded_cache(_pad_gru_layer)
 
 
 def _sources():

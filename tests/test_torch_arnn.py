@@ -283,8 +283,9 @@ def test_staged_k7_matches_plain_and_jax_kernel(pair64, monkeypatch, dtype_j):
 def test_kernel_gate():
     assert arnn_kernel_supports(256, 256, 256, 60, torch.bfloat16)  # the flagship
     assert arnn_kernel_supports(512, 512, 256, 60, torch.float32)
-    assert not arnn_kernel_supports(16, 16, 16, 30, torch.float32)  # the small preset
-    assert not arnn_kernel_supports(64, 48, 12, 30, torch.float32)
+    # the small preset and a narrow context: at 64 units, on zero units
+    assert arnn_kernel_supports(16, 16, 16, 30, torch.float32)
+    assert arnn_kernel_supports(64, 48, 12, 30, torch.float32)
     assert arnn_kernel_supports(512, 512, 512, 60, torch.bfloat16)  # the hidden in rounds
     assert arnn_kernel_supports(256, 256, 1024, 1280, torch.bfloat16)
     assert not arnn_kernel_supports(576, 256, 256, 60, torch.bfloat16)  # past the hidden gate
@@ -320,13 +321,19 @@ def pair16():
     return make_pair(16, seed=2)
 
 
-def test_apply_inpaint_scan_matches_jax_scan(pair16):
-    """H 16: no kernel on either side; the eager loop against the XLA scan."""
+def test_apply_inpaint_scan_matches_jax_scan(pair16, monkeypatch):
+    """H 16 against the JAX package's XLA scan (its gate is closed on the
+    CPU): the port's gate routes to K7 (its plain version here; on the card
+    the kernel at 64 units, on zero units), then, the gate closed, to the
+    eager loop, which the rest of the test drives."""
     jm, pm = pair16
-    assert not pm._use_kernel_decode(pm.params())
-    (lg, tok), (lg_j, tok_j), _ = _apply_inpaint_both(jm, pm)
-    np.testing.assert_array_equal(tok, tok_j)
-    np.testing.assert_allclose(lg, lg_j, atol=1e-5, rtol=0)
+    assert pm._use_kernel_decode(pm.params())
+    for closed in (False, True):
+        if closed:
+            monkeypatch.setattr(type(pm), "_use_kernel_decode", lambda self, params: False)
+        (lg, tok), (lg_j, tok_j), _ = _apply_inpaint_both(jm, pm)
+        np.testing.assert_array_equal(tok, tok_j)
+        np.testing.assert_allclose(lg, lg_j, atol=1e-5, rtol=0)
     logits = pm.apply(pm.params(), *_t(*make_batch(3, 96)))
     want = jm.apply(jm.params, *map(jnp.asarray, make_batch(3, 96)), train=False)
     np.testing.assert_allclose(logits.numpy(), np.asarray(want), atol=1e-5, rtol=0)
@@ -437,7 +444,7 @@ def test_jax_checkpoint_loads_into_the_port(pair16, tmp_path):
 def test_build_arnn_presets():
     small = build_arnn(small=True, seed=0, device="cpu")
     assert isinstance(small.dataset, ARNNDataset) and small.num_notes == 60
-    assert not small._use_kernel_decode(small.params())
+    assert small._use_kernel_decode(small.params())  # H 16: K7 on zero units
     flagship = build_arnn(seed=0, device="meta")
     n = sum(p.numel() for p in flagship.parameters())
     assert 1.9e6 < n < 2.0e6, n

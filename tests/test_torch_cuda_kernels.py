@@ -562,8 +562,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         encoder_kernel.encoder_hn(gru, table, tokens)
     with pytest.raises(ValueError, match="contiguous"):
         encoder_kernel.encoder_hn(gru, table, tokens.int().t().contiguous().t())
-    with pytest.raises(ValueError, match="hidden size"):
-        odd = _tree(gru_init(rng, 10, 48, 2, True), cuda, torch.bfloat16, rng)
+    with pytest.raises(ValueError, match="hidden size"):  # past the 512 ceiling
+        odd = _tree(gru_init(rng, 10, 576, 2, True), cuda, torch.bfloat16, rng)
         encoder_kernel.encoder_hn(odd, table, tokens.int())
     with pytest.raises(ValueError, match="dtype"):
         encoder_kernel.encoder_hn_int8(gru, table, tokens)
@@ -800,8 +800,8 @@ def test_train_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         gk.gru_fwd_seq(fwd[0], fwd[1], fwd[2].transpose(0, 1).contiguous().transpose(0, 1),
                        fwd[3])
-    odd, _, _ = _train_case(np.random.default_rng(0), 8, 48, 4, torch.float32, cuda)
-    with pytest.raises(ValueError, match="hidden size"):
+    odd, _, _ = _train_case(np.random.default_rng(0), 8, 1088, 4, torch.float32, cuda)
+    with pytest.raises(ValueError, match="hidden size"):  # past the 1024 ceiling
         gk.gru_fwd_seq(*odd)
     out = gk.gru_fwd_seq(*fwd)
     with pytest.raises(ValueError, match="shape"):
@@ -1086,8 +1086,8 @@ def test_arnn_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         arnn_kernel.arnn_sampled_decode(params, ctx.transpose(0, 1).contiguous().transpose(0, 1),
                                         score, force, start)
-    odd = _arnn_case(rng, 4, 48, 64, 8, 30, 12, torch.float32, cuda)
-    with pytest.raises(ValueError, match="hidden size"):
+    odd = _arnn_case(rng, 4, 576, 64, 8, 30, 12, torch.float32, cuda)
+    with pytest.raises(ValueError, match="hidden size"):  # past the 512 ceiling
         arnn_kernel.arnn_sampled_decode(*odd)
     half = _arnn_case(rng, 4, 64, 64, 8, 30, 12, torch.float16, cuda)
     with pytest.raises(ValueError, match="dtype"):
@@ -1268,14 +1268,10 @@ def test_gru_layer_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         lk.gru_layer_stream(args[0].transpose(0, 1).contiguous().transpose(0, 1), *args[1:])
     with pytest.raises(ValueError, match="mask"):
         lk.gru_layer_stream(*args[:4], args[4][:, :2])
-    for hidden in (48, 1088):
-        odd = _gru_layer_case(rng, 4, 3, hidden, torch.float32, cuda, None)
+    for dtype in (torch.float32, torch.bfloat16):  # past the 1024 ceiling
+        odd = _gru_layer_case(rng, 4, 3, 1088, dtype, cuda, None)
         with pytest.raises(ValueError, match="hidden size"):
             lk.gru_layer_stream(*odd)
-    # bf16: 9 blocks of 64 units have no cluster split of at most 512 units a CTA
-    odd = _gru_layer_case(rng, 4, 3, 576, torch.bfloat16, cuda, None)
-    with pytest.raises(ValueError, match="hidden size"):
-        lk.gru_layer_stream(*odd)
     # a vocabulary past one 96-column head chunk, which K2 refused before its
     # head was chunked: within the plain version's bounds, K4 bit-equal
     for dtype in (torch.bfloat16, torch.float32):
@@ -1531,16 +1527,16 @@ def test_latent_rnn_train_step_on_card_matches_cpu(cuda, auto_reg, coin):
 
 def test_latent_rnn_sampled_step_at_generation_hidden_1024(cuda):
     """The autoregressive sampled branch at LatentRNN hidden 512 (generation
-    GRU 1024, wider than K5/K6 take) over a small frozen VAE (H 64): the
-    step runs, the generation GRU takes the eager loop (6 steps x 2 layers x
-    2 directions), the frozen encoder K5 (a context encode and 5
-    re-encodes), K6 never, and the generation GRU's weights get
-    gradients."""
+    GRU 1024, the widest K5/K6 take) over a small frozen VAE (H 64): the
+    step runs, the generation GRU takes K5 and K6 (2 layers x 2 directions
+    a target measure each) and never the eager loop, the frozen encoder K5
+    (a context encode and 5 re-encodes) and never K6, and the generation
+    GRU's weights get gradients."""
     from inpaintnet_tpu_torch.models.base import iter_leaves
     from inpaintnet_tpu_torch.ops import gru as gru_mod
 
     windows, model, (tr,) = _latent_trainers((cuda,), True, rnn_hidden=512)
-    assert model.gen_hidden_size == 1024 and not gk.trainfast_supports(1024)
+    assert model.gen_hidden_size == 1024 and gk.trainfast_supports(1024)
     mt = model.max_target
     wide, real = [0], gru_mod.gru_gates
 
@@ -1556,9 +1552,9 @@ def test_latent_rnn_sampled_step_at_generation_hidden_1024(cuda):
         gru_mod.gru_gates = real
     torch.cuda.synchronize()
     assert np.isfinite(loss.item())
-    assert wide[0] == mt * 4
-    assert gk.gru_fwd_seq.launches - before[0] == 4 * mt
-    assert gk.gru_bwd_seq.launches == before[1]
+    assert wide[0] == 0
+    assert gk.gru_fwd_seq.launches - before[0] == 8 * mt
+    assert gk.gru_bwd_seq.launches - before[1] == 4 * mt
     grads = [p.grad for k, p in iter_leaves(tr.params) if k.startswith("generation_rnn")]
     assert all(g is not None for g in grads) and max(g.abs().max().item() for g in grads) > 0
 

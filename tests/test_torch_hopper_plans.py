@@ -85,7 +85,8 @@ def test_every_cluster_size_covers_once(rows, cluster):
 def test_plans_fit_shared_memory_and_reject_unsplittable_widths():
     """Each plan's h tiles and rings fit the 227 KB opt-in (the C++ side's
     ``smem_bytes``); above 512 units an odd number of 64-unit blocks has no
-    cluster split, so the bf16 route rejects it and the f32 route takes it."""
+    cluster split, so the bf16 route's plan rejects it and the wrapper runs
+    it one block wider, on zero units, while the f32 route takes it."""
     for hidden, tiles in ((512, 1), (1024, 1), (512, 2), (64, 2), (192, 1)):
         stages = kc.ring_stages(hidden, tiles)
         used = tiles * 64 * hidden * 2 + 2 * stages * kc.box_slabs(hidden) * 96 * 128 + 1024
@@ -94,8 +95,8 @@ def test_plans_fit_shared_memory_and_reject_unsplittable_widths():
     assert kc.cluster_sizes(1024) == [2, 4, 8] and kc.cluster_sizes(576) == []
     with pytest.raises(ValueError, match="hidden size 576"):
         gk.launch_plan(64, 576, SMS)
-    assert not kc.gru_layer_supports_hidden(576, torch.bfloat16)
-    assert kc.gru_layer_supports_hidden(576, torch.float32)
+    assert kc.gru_layer_width(576, torch.bfloat16) == 640
+    assert kc.gru_layer_width(576, torch.float32) == 576
     assert kc.gru_layer_supports_hidden(1024, torch.bfloat16)
 
 
@@ -351,7 +352,8 @@ def test_arnn_smem_and_gate():
     assert ak.arnn_kernel_supports(256, 256, 256, 65, torch.bfloat16)
     assert ak.arnn_kernel_supports(512, 512, 256, 60, torch.bfloat16)
     assert ak.arnn_kernel_supports(256, 256, 256, 65, torch.float32)
-    assert not ak.arnn_kernel_supports(96, 256, 256, 60, torch.bfloat16)
+    assert ak.arnn_cluster_sizes(96, 256) == []  # 96 runs at 128, on zero units
+    assert ak.arnn_kernel_supports(96, 256, 256, 60, torch.bfloat16)
     assert ak.arnn_cuda_launches(torch.bfloat16, 512, 384, 256, 256, 60) == 2
     assert ak.arnn_cuda_launches(torch.bfloat16, 512, 384, 512, 256, 60) == 2
     assert ak.arnn_cuda_launches(torch.bfloat16, 512, 384, 256, 1024, 256) == 2
@@ -767,7 +769,7 @@ def test_arnn_f32_gate_and_first_kernel_geometries():
     assert ak.arnn_f32_cluster_sizes(320, 256) == [5]
     assert ak.arnn_f32_cluster_sizes(96, 128) == []
     assert ak.arnn_kernel_supports(256, 256, 256, 65, torch.float32)
-    assert not ak.arnn_kernel_supports(96, 256, 256, 60, torch.float32)
+    assert ak.arnn_kernel_supports(96, 256, 256, 60, torch.float32)  # at 128, on zero units
     assert ak.arnn_cuda_launches(torch.float32, 70, 384, 64, 12, 30) == 2
     assert ak.arnn_cuda_launches(torch.float32, 70, 384, 64, 12, 65) == 2
     with pytest.raises(ValueError, match="hidden size 96"):

@@ -51,7 +51,7 @@ def _port(jvae, jmodel, hidden):
 def test_encoder_apply_matches_jax(hidden):
     jvae, jmodel = _jax_models(hidden)
     vae, _ = _port(jvae, jmodel, hidden)
-    assert vae.encoder.use_kernel() == (hidden == 64)
+    assert vae.encoder.use_kernel()  # H 16: K1 on zero units (its plain version here)
     tokens = np.random.default_rng(1).integers(0, VOCAB, (9, 24)).astype(np.int32)
     jd = jvae.encoder.apply(jax.tree_util.tree_map(jnp.asarray, jvae.params["encoder"]),
                             jnp.asarray(tokens), train=False)
