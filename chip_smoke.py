@@ -269,11 +269,25 @@ Phases, each raising on failure:
    the autoregressive flagship with its H-1024 generation GRU on K5/K6
    (launches counted from 0: K5 8 and K6 4 a target step, no eager step of
    that width), beside the same step on the eager loop, in turns, each
-   route's ms and traced device launches.
+   route's ms and traced device launches;
+26. K1-K4 above 512 units in bf16 masters (K1/K3 to H 577, K2/K4 to H
+   717): the LatentRNN engine over a VAE whose encoder is 577 wide (K1 and
+   K3 at 640, on zero units) and whose decoder is 640 wide, bf16 and int8,
+   each call on the eager route and the graph route, tokens and launches
+   equal (launches counted from 0: K1-K4 must launch); the entry points
+   (``Encoder.apply`` at H 576, the decode at H 704, run at 768), bf16
+   masters on the card against the CPU within ``BOUNDS``; K1 bf16 and K3
+   at H 576 and 577 at 2,048 and 65,536 rows, K1's training mode at 576,
+   K2 bf16 and K4 at H 576, 640, 704 and 717 at 2,048 and 12,288 rows and
+   V 60 and 128, each against its plain version (K3/K4 bit-equal) with one
+   launch, the planted gate-major padding rejected where the width runs
+   on zero units, and timed beside the same kernel at the padded width,
+   its plain version, its bound and (K1) cuDNN.
 
-Phase 17 runs after phase 7; phases 12-16 after phase 8, then phase 24
-and phase 23, before the training phases; phases 18, 19, 20, 21, 22 and
-25 last. Prints one
+Phase 26 runs after phase 4, before any engine holds a CUDA graph's
+memory pool; phase 17 after phase 7; phases 12-16 after phase 8, then
+phase 24 and phase 23, before the training phases; phases 18, 19, 20, 21,
+22 and 25 last. Prints one
 JSON line of the eight kernels (each with its launches in phase 18,
 ``latent_train_launches``, in phase 19, ``arnn_train_launches``, and in
 phase 20's joint evaluation, ``eval_launches``, and in phase 23's graph
@@ -283,8 +297,9 @@ phase 21's numbers of its training mode; K1's, K2's, K5's and K7's with
 ``vocab_heads``, phase 24's entries at the wider heads, and
 ``vocab_engine_launches``; every kernel's ``hidden_widths``, phase 25's
 entries, and ``width_launches``, its main paths': K5's and K6's in its
-training step, the others' in its engines at narrow widths), the
-card's name and power limit, and as
+training step, the others' in its engines at narrow widths; K1-K4's
+``wide_widths``, phase 26's entries, and ``wide_launches``, their launches
+in its engines' replays), the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
 result, when there is no usable card or any phase fails.
 """
@@ -1373,24 +1388,27 @@ def _profile_step(step) -> tuple:
     """``torch.profiler``'s device time of one ``step()``. -> (device ms,
     device launches, [(kernel, ms, launches)] by time, longest first). A
     trace may lose the kernels at its start on the card (a whole window
-    once, a call's first kernel another time), so each trace starts with a
-    lead: a pause of ``PROFILE_LEAD_S`` on the host, then a few milliseconds
-    of ``torch.cuda._sleep``, whose kernel is left out of the rows (a trace
-    that lost it too is counted in ``LEADS_LOST``); a trace that recorded no
+    once, a call's first kernel or two another time), so each trace starts
+    with a lead: a pause of ``PROFILE_LEAD_S`` on the host, then
+    ``PROFILE_LEAD_SPINS`` short ``torch.cuda._sleep`` kernels and one of a
+    few milliseconds, which are left out of the rows (the lead's kernels
+    the trace lost are counted in ``LEADS_LOST``); a trace that recorded no
     device activity at all is taken again, up to twice."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(3):
         with torch.profiler.profile(activities=acts) as prof:
             time.sleep(PROFILE_LEAD_S)
+            for _ in range(PROFILE_LEAD_SPINS):
+                torch.cuda._sleep(PROFILE_LEAD_SPIN_CYCLES)
             torch.cuda._sleep(PROFILE_LEAD_CYCLES)
             torch.cuda.synchronize()
             step()
             torch.cuda.synchronize()
         rows = _kernel_rows(prof)
-        LEADS_LOST[1] += 1
-        if not any(e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" in e.key
-                   for e in prof.key_averages()):
-            LEADS_LOST[0] += 1
+        LEADS_LOST[1] += PROFILE_LEAD_SPINS + 1
+        LEADS_LOST[0] += PROFILE_LEAD_SPINS + 1 - sum(
+            e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" in e.key)
         if rows:
             break
         print(f"[profile] no device activity recorded (attempt {attempt + 1}); tracing again",
@@ -1399,12 +1417,17 @@ def _profile_step(step) -> tuple:
     return sum(r[1] for r in rows), sum(r[2] for r in rows), rows
 
 
-# the lead of a trace: 20 ms on the host, then ~10 ms of a card's clock
-# before the traced call (a trace of phase 24 once lost the traced call's
-# first kernel six times running behind a lead of ~5 ms alone)
+# the lead of a trace: 20 ms on the host, then 32 short kernels and ~10 ms
+# of a card's clock before the traced call. A trace of phase 24 once lost
+# the traced call's first kernel six times running behind a lead of ~5 ms
+# alone, and again behind one ~10 ms kernel. Late in a full run a trace
+# loses ~10 of its first kernels (1,119 of 3,894 lead kernels in one), in a
+# fresh process none of 200 traces lost one (NVIDIA H100 80GB HBM3)
 PROFILE_LEAD_S = 0.02
+PROFILE_LEAD_SPINS = 32
+PROFILE_LEAD_SPIN_CYCLES = 1_000
 PROFILE_LEAD_CYCLES = 20_000_000
-# [traces whose lead kernel is missing, traces taken]
+# [the lead's kernels the traces lost, the lead's kernels launched]
 LEADS_LOST = [0, 0]
 
 
@@ -2674,7 +2697,7 @@ def _k7_check(ak, args, bound, label: str, card: str, time_it: bool):
         ("the wrapper did not count one launch", not once),
         (f"outside its bounds {bound}: {_agreement_line(agree)}", not ak.within(agree, bound)),
         (f"traced CUDA launches {own}, {expect} expected with {expect // 2} of {recurrence} "
-         f"(traces so far whose lead kernel is missing: {LEADS_LOST[0]} of {LEADS_LOST[1]})",
+         f"(lead kernels the traces so far lost: {LEADS_LOST[0]} of {LEADS_LOST[1]})",
          sum(own.values()) != expect or own.get(recurrence, 0) != expect // 2),
         ("the first kernel arnn_decode_kernel launched", "arnn_decode_kernel" in own),
         (f"logits of {got[0].shape[2]} columns", got[0].shape[2] != vocab)) if bad]
@@ -4818,8 +4841,9 @@ def _own_kernels(call, want: int = 0, seen: dict | None = None) -> dict:
     return got
 
 
-# the most traces `_own_kernels` takes of one call
-OWN_TRACES = 6
+# the most traces `_own_kernels` takes of one call (six running once all
+# lost the call's first kernel)
+OWN_TRACES = 12
 
 
 def _same_kernels(calls) -> dict:
@@ -5087,7 +5111,7 @@ def _card_tree(tree, dtype, gen, noise: float = 0.1):
 
 
 def _narrow_check(kernel, label: str, call, call_hp, plain, judge, bound, card: str,
-                  library=None) -> dict:
+                  library=None, tag: str = "widths") -> dict:
     """One wrapper at a width that runs on zero units: ``call()`` against
     ``plain()`` (the plain version at H) by ``judge(got, want) -> (ok,
     max_abs_err, text)``, one launch counted; the same with the gate-major
@@ -5107,7 +5131,7 @@ def _narrow_check(kernel, label: str, call, call_hp, plain, judge, bound, card: 
     if call_hp is not None:
         with _gate_major():
             fault_ok, _, fault_text = judge(call(), want)
-    print(f"[widths] {kernel.__name__} {label}: {text}, {launched} launch; planted gate-major "
+    print(f"[{tag}] {kernel.__name__} {label}: {text}, {launched} launch; planted gate-major "
           f"padding: {fault_text} | {card}", flush=True)
     if not ok or launched != 1 or fault_ok:
         raise RuntimeError(f"{kernel.__name__} {label}: against its plain version {text}, "
@@ -5493,6 +5517,256 @@ def _narrow_engines(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: K1-K4 above 512 units in bf16 masters (K1/K3 to H 577, K2/K4 to
+# H 717: the JAX kernels' VMEM gates)
+# ---------------------------------------------------------------------------
+WIDE_ENCODER = (576, 577)  # K1 at 576 on 2 consumer warpgroups; 577 at 640 on zero units
+WIDE_ENCODER_ROWS = (BATCH, 65536)  # the engine's batch, and the encoder's serving shape
+WIDE_DECODE = (576, 640, 704, 717)  # K2/K4 at 576 (3 CTAs), 640, and 768 (half-slab boxes)
+WIDE_DECODE_ROWS = (BATCH, BATCH * 6)
+WIDE_VOCABS = (VOCAB, 128)
+WIDE_ENGINE = (577, 640)  # the engines' VAE: encoder H (K1/K3 at 640), decoder H
+WIDE_ENTRY = (576, 704)  # the entry points' encoder and decoder H
+WIDE_ENTRY_ROWS = 256  # the entry points' rows (the CPU runs the plain versions)
+# The entry points on the card against the CPU: h_n within BOUNDS' h_n and
+# K1's share; the decode's tokens equal on phase 5's share (0.99: the two
+# devices' plain versions and kernels round apart, and the initialisation's
+# near-flat logits turn that into other argmax tokens; seen 0.9924 at these
+# widths, NVIDIA H100 80GB HBM3, 700 W), its logits within BOUNDS where both
+# fed back the same tokens (seen 2.4e-4)
+WIDE_ENTRY_BOUNDS = {"tokens": 0.99, "logits": BOUNDS[torch.bfloat16]["logits"]}
+# K2/K4's weights: the layers' initialisation plus noise 0.03, logits
+# inside BOUNDS' "two ulps of logits up to 4" at these widths (noise 0.05
+# took H 576's past 4, where one ulp is 0.03125; noise 0.1 past 8; NVIDIA
+# H100 80GB HBM3, 700 W), and far enough from flat that the planted
+# gate-major padding shows. K1/K3 run at the initialisation's scale, as
+# phase 3 holds K1 at 65,536 rows.
+WIDE_DECODE_NOISE = 0.03
+
+
+def _wide_model(enc_hidden: int, dec_hidden: int, vocab: int = VOCAB, seed: int = 0):
+    """A LatentRNN (2 x 64) over a MeasureVAE whose encoder is
+    ``enc_hidden`` and whose decoder is ``dec_hidden`` units wide, seeded
+    random weights on the card in f32 (``presets.build_flagship``'s
+    construction, two widths)."""
+    from inpaintnet_tpu_torch.models.convert import from_jax_params
+    from inpaintnet_tpu_torch.models.latent_rnn import LatentRNN
+    from inpaintnet_tpu_torch.models.measure_vae import MeasureVAE
+    from inpaintnet_tpu_torch.models.presets import VocabOnlyDataset
+
+    vae = MeasureVAE(VocabOnlyDataset(vocab), note_embedding_dim=10, num_encoder_layers=2,
+                     encoder_hidden_size=enc_hidden, latent_space_dim=256, num_decoder_layers=2,
+                     decoder_hidden_size=dec_hidden, device="meta")
+    model = LatentRNN(vae, num_rnn_layers=2, rnn_hidden_size=64, device="meta")
+    rng = np.random.default_rng(seed)
+    vae_np = vae.init_params(rng)
+    model.to_empty(device="cuda")
+    model.load_state_dict(from_jax_params(vae_np, model.init_params(rng)), strict=True)
+    return model
+
+
+def _encoder_judge(name: str):
+    def judge(got, want):
+        if name.endswith("int8"):
+            return _judge_exact([got], [want])
+        diff = (got.float() - want.float()).abs()
+        share = (got != want).float().mean().item()
+        ok = diff.max().item() <= BOUNDS[torch.bfloat16]["hn"] and share <= ENCODER_SHARE_BF16
+        return ok, diff.max().item(), (f"h_n max_abs_err {diff.max().item():.3e}, {share:.4f} "
+                                       f"of it changed (bounds {BOUNDS[torch.bfloat16]['hn']}, "
+                                       f"{ENCODER_SHARE_BF16})")
+    return judge
+
+
+def _wide_encoders(card: str) -> dict:
+    """K1 bf16 and K3 (bf16 masters) at ``WIDE_ENCODER`` x
+    ``WIDE_ENCODER_ROWS``, and K1's training mode at 576, on the layers'
+    initialisation, 24 tokens a row, each against its plain version, the
+    planted gate-major padding rejected where the width runs on zero units,
+    timed beside cuDNN's ``nn.GRU(10, H, 2, bidirectional=True)``. ->
+    {kernel: {case: entry}}"""
+    from inpaintnet_tpu_torch.ops import encoder_kernel as ek
+    from inpaintnet_tpu_torch.ops.gru import gru_init
+    from inpaintnet_tpu_torch.ops.linear import embedding_init
+
+    entries = {}
+    for hidden in WIDE_ENCODER:
+        rng = np.random.default_rng(hidden)
+        init = gru_init(rng, 10, hidden, 2, True), embedding_init(rng, VOCAB, 10)["table"]
+        gen = torch.Generator(device="cuda").manual_seed(hidden)
+        gru, table = (_card_tree(t, torch.bfloat16, gen, 0.0) for t in init)
+        padded = ek.encoder_padded_operands(gru)[0]
+        on_zero_units = padded[0][0]["w_hh"].shape[0] != hidden
+        for rows in WIDE_ENCODER_ROWS:
+            tokens = torch.from_numpy(rng.integers(0, VOCAB, (rows, 24)).astype(np.int32)).cuda()
+            cases = [("encoder_hn", ek.encoder_hn, ek.encoder_hn_reference, "bf16", None),
+                     ("encoder_hn_int8", ek.encoder_hn_int8, ek.encoder_hn_int8_reference,
+                      "int8", None)]
+            if hidden == 576 and rows == BATCH:  # the training mode, rate 0.5 (the VAE's)
+                keep = torch.rand((rows, 24, 2 * hidden), generator=gen, device="cuda") >= 0.5
+                cases.append(("encoder_hn", ek.encoder_hn, ek.encoder_hn_reference, "bf16",
+                              keep))
+            for name, kernel, plain, kind, keep in cases:
+                label = (f"{'bf16 masters' if kind == 'int8' else 'bf16'} H {hidden} rows {rows}"
+                         + (" training mode" if keep is not None else ""))
+                extra = {} if keep is None else {"keep": keep, "rate": 0.5}
+                plain_extra = () if keep is None else (keep, 0.5)
+                library = None
+                if kind == "bf16" and keep is None:
+                    def library(tokens=tokens, hidden=hidden, rows=rows):
+                        h_n = ek.encoder_hn(gru, table, tokens)
+                        # cuDNN's GRU at H 577 x 65,536 rows asks for 22.3 GiB
+                        # at once: hand it the blocks this case left cached
+                        torch.cuda.empty_cache()
+                        return cudnn_gru_ms(gru, table, tokens, h_n,
+                                            f"bf16 H {hidden} rows {rows}", card)
+                entries.setdefault(name, {})[label] = _narrow_check(
+                    kernel, label, lambda k=kernel, t=tokens, e=extra: k(gru, table, t, **e),
+                    (lambda k=kernel, t=tokens: k(padded, table, t))
+                    if on_zero_units and keep is None else None,
+                    lambda p=plain, t=tokens, e=plain_extra: p(gru, table, t, *e),
+                    _encoder_judge(name),
+                    lambda got, kind=kind, t=tokens, rows=rows, e=plain_extra: bound_of(
+                        encoder_ops(rows, 24, hidden), kind, nbytes(gru, table, t, got, *e[:1])),
+                    card, library, tag="wide")
+    return entries
+
+
+def _wide_decoders(card: str) -> dict:
+    """K2 bf16 and K4 (bf16 masters) at ``WIDE_DECODE`` x
+    ``WIDE_DECODE_ROWS`` x ``WIDE_VOCABS`` (noise ``WIDE_DECODE_NOISE``),
+    each against its plain version (K2 within BOUNDS, K4 bit-equal), the
+    planted gate-major padding rejected where the width runs on zero units.
+    -> {kernel: {case: entry}}"""
+    from inpaintnet_tpu_torch.ops import decode_kernel as dk
+    from inpaintnet_tpu_torch.ops.gru import gru_init
+    from inpaintnet_tpu_torch.ops.linear import embedding_init, linear_init
+
+    entries = {}
+    for hidden in WIDE_DECODE:
+        for vocab in WIDE_VOCABS:
+            rng = np.random.default_rng(hidden + vocab)
+            init = {"embedding": embedding_init(rng, vocab, 10), "x_0": np.zeros(10, np.float32),
+                    "tick_gru": gru_init(rng, 10 + hidden, hidden, 2),
+                    "head": linear_init(rng, hidden, vocab)}
+            dec = _card_tree(init, torch.bfloat16,
+                             torch.Generator(device="cuda").manual_seed(hidden + vocab),
+                             WIDE_DECODE_NOISE)
+            for rows in WIDE_DECODE_ROWS:
+                data = (rng.standard_normal((rows, 4, hidden)),
+                        rng.standard_normal((2, rows, 4, hidden)))
+                tc, hi = (torch.from_numpy(a.astype(np.float32)).to("cuda", torch.bfloat16)
+                          for a in data)
+                padded = dk.decode_padded_operands(dec, tc, hi)
+                for name, kernel, plain, kind in (
+                        ("decode_sampling", dk.decode_sampling, dk.decode_sampling_reference,
+                         "bf16"),
+                        ("decode_sampling_int8", dk.decode_sampling_int8,
+                         dk.decode_sampling_int8_reference, "int8")):
+                    def judge(got, want, kind=kind):
+                        if kind == "int8":
+                            return _judge_exact(got, want)
+                        agree = dk.agreement(got, want)
+                        bound = BOUNDS[torch.bfloat16]
+                        return dk.within(agree, bound), agree["logits"], f"{agree} (bounds {bound})"
+
+                    label = (f"{'bf16 masters' if kind == 'int8' else 'bf16'} H {hidden} "
+                             f"(at {padded[1].shape[2]}) V {vocab} rows {rows}")
+                    entries.setdefault(name, {})[label] = _narrow_check(
+                        kernel, label, lambda k=kernel: k(dec, tc, hi),
+                        None if padded[1] is tc else lambda k=kernel: k(*padded),
+                        lambda p=plain: p(dec, tc, hi), judge,
+                        lambda got, kind=kind, rows=rows, vocab=vocab: bound_of(
+                            decode_ops(rows, hidden, vocab), kind,
+                            nbytes({k: dec[k] for k in ("embedding", "x_0", "tick_gru", "head")},
+                                   tc, hi, *got)), card, tag="wide")
+    return entries
+
+
+def _wide_entry_points(card: str) -> None:
+    """The entry points a user calls, bf16 masters, encoder H 576 and
+    decoder H 704 (at 768): ``Encoder.apply`` on the card (K1) against the
+    CPU (K1's plain version), h_n within BOUNDS' h_n and share; the
+    decoder's ``decode_sampling`` of the CPU's z on the card (K2) against
+    the CPU within ``WIDE_ENTRY_BOUNDS``; one launch each."""
+    from inpaintnet_tpu_torch.models.base import cast_params
+    from inpaintnet_tpu_torch.models import measure_vae as mv
+    from inpaintnet_tpu_torch.ops import decode_kernel as dk
+    from inpaintnet_tpu_torch.ops import encoder_kernel as ek
+
+    vae = _wide_model(*WIDE_ENTRY).vae_model
+    tokens = np.random.default_rng(7).integers(0, VOCAB, (WIDE_ENTRY_ROWS, 24)).astype(np.int32)
+    h_n, outs, z = {}, {}, None
+    real = mv.encoder_hn
+    try:
+        for dev in ("cpu", "cuda"):  # the card decodes the CPU's z
+            params = cast_params(vae.params(), dev, torch.bfloat16)
+            mv.encoder_hn = lambda *a, dev=dev: h_n.setdefault(dev, real(*a))
+            with torch.inference_mode():
+                before = (ek.encoder_hn.launches, dk.decode_sampling.launches)
+                dist = vae.encoder.apply(params["encoder"], torch.from_numpy(tokens).to(dev))
+                z = dist.loc if z is None else z.to(dev)
+                outs[dev] = vae.decoder.decode_sampling(params["decoder"], z)
+                launched = (ek.encoder_hn.launches - before[0],
+                            dk.decode_sampling.launches - before[1])
+            if launched != ((1, 1) if dev == "cuda" else (0, 0)):
+                raise RuntimeError(f"the entry points on {dev} launched {launched}")
+    finally:
+        mv.encoder_hn = real
+    ok, err, text = _encoder_judge("encoder_hn")(h_n["cuda"].cpu(), h_n["cpu"])
+    agree = dk.agreement(tuple(t.cpu() for t in outs["cuda"]), outs["cpu"])
+    print(f"[wide] entry points, encoder H {WIDE_ENTRY[0]} and decoder H {WIDE_ENTRY[1]}, card "
+          f"against CPU: Encoder.apply {text}; decode_sampling {agree} (bounds "
+          f"{WIDE_ENTRY_BOUNDS}) | {card}", flush=True)
+    if not (ok and dk.within(agree, WIDE_ENTRY_BOUNDS)):
+        raise RuntimeError("the wide entry points on the card disagree with the CPU")
+
+
+def _wide_engines(card: str) -> dict:
+    """``InpaintingEngine`` over a VAE of ``WIDE_ENGINE`` (K1/K3 at 640 on
+    zero units, K2/K4 at 640 on 2 CTAs a tile) in bf16 and int8, each call
+    on the eager route and on the graph route (capture, replay), tokens and
+    launches equal. -> {kernel: launches} of the graph route's replays
+    (each of K1-K4 must launch)"""
+    from inpaintnet_tpu_torch.ops import decode_kernel as dk
+    from inpaintnet_tpu_torch.ops import encoder_kernel as ek
+    from inpaintnet_tpu_torch.serve import InpaintingEngine
+
+    t0 = time.perf_counter()
+    model, buckets, totals = _wide_model(*WIDE_ENGINE), NARROW_ENGINE_BUCKETS, {}
+    for dtype in ("bfloat16", "int8"):
+        engine = InpaintingEngine(model, batch_buckets=buckets, dtype=dtype, device="cuda")
+        calls = _latent_graph_calls(engine, np.random.default_rng(26), buckets)[0]
+        _check_routes(engine, f"VAE encoder H {WIDE_ENGINE[0]} decoder H {WIDE_ENGINE[1]} "
+                      f"{dtype}", calls, totals)
+        del engine
+    launches = {k.__name__: totals.get(k.__name__, 0)
+                for k in (ek.encoder_hn, dk.decode_sampling, ek.encoder_hn_int8,
+                          dk.decode_sampling_int8)}
+    if min(launches.values()) < 1:
+        raise RuntimeError(f"the wide engines did not launch every kernel: {launches}")
+    print(f"[wide] engines over the VAE of H {WIDE_ENGINE}: the graph route's replays launched "
+          f"{totals}; {time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_wide_widths(card: str) -> tuple:
+    """Phase 26: K1-K4 above 512 units in bf16 masters. -> ({kernel name:
+    {case: entry}} for the kernels line, {kernel: launches} of the wide
+    engines, the phase's main path)"""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = _wide_engines(card)
+    _wide_entry_points(card)
+    entries = {**_wide_encoders(card), **_wide_decoders(card)}
+    torch.cuda.empty_cache()
+    print(f"[wide] phase 26 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return entries, launches
+
+
 def phase_hidden_widths(card: str) -> tuple:
     """Phase 25: the widths that run on zero units, and K5/K6 at 1024. ->
     ({kernel name: {case: entry}} for the kernels line, {kernel: launches}
@@ -5534,6 +5808,9 @@ def main() -> int:
     _, vae, model = build_flagship(seed=0, device="cuda", dtype=torch.float32)
     report = phase_kernels(vae, model.max_target, card, parent)
     report.update(phase_train_kernels(card))
+    # before any engine holds a CUDA graph's memory pool, which the cache
+    # cannot hand back to cuDNN's 22 GiB GRU at H 577 x 65,536 rows
+    wide_entries, launches_wide = phase_wide_widths(card)
     phase_reference(model)
     engine16, launches, span_bf16 = phase_engine(model, "bfloat16", card)
     engine8, launches8, span_int8 = phase_engine(model, "int8", card)
@@ -5602,7 +5879,9 @@ def main() -> int:
                    if name in vocab_entries else {}),
                 "hidden_widths": width_entries[name],
                 **({"width_launches": launches_width[name]}
-                   if name in launches_width else {})}
+                   if name in launches_width else {}),
+                **({"wide_widths": wide_entries[name],
+                    "wide_launches": launches_wide[name]} if name in wide_entries else {})}
                for name, (src, replaces, runs) in sources.items()]
     # K1's training mode (phase 21): its launches in the VAE steps under the
     # switch, its time and bound at the VAE step's rows, cuDNN as library_ms
@@ -5612,7 +5891,7 @@ def main() -> int:
                                     "inpaintnet_tpu/ops/gru_pallas.py:363"]
     print(f"[launches] HTTP path: {launches_http}; ARNN HTTP path: {launches_arnn_http}; "
           f"autoregressive HTTP path: {launches_ar_http}", flush=True)
-    print(f"[profile] traces whose lead kernel is missing: {LEADS_LOST[0]} of {LEADS_LOST[1]}",
+    print(f"[profile] lead kernels the traces lost: {LEADS_LOST[0]} of {LEADS_LOST[1]}",
           flush=True)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")

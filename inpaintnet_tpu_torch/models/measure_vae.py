@@ -62,7 +62,11 @@ from inpaintnet_tpu_torch.ops.gru import (
     gru_layer_apply,
     gru_stack_cell_apply,
 )
-from inpaintnet_tpu_torch.ops.kernel_common import kernel_supports_hidden, kernel_with_eager_grad
+from inpaintnet_tpu_torch.ops.kernel_common import (
+    decode_supports_hidden,
+    encoder_supports_hidden,
+    kernel_with_eager_grad,
+)
 from inpaintnet_tpu_torch.ops.linear import (
     embedding_apply,
     embedding_init,
@@ -143,11 +147,14 @@ class Encoder(nn.Module):
             "log_std_head": mlp_selu_init(rng, hid_cat, 2 * self.rnn_hidden_size, self.z_dim),
         }
 
-    def use_kernel(self) -> bool:
-        """K1 and K3 take this geometry: 2 bidirectional layers (always
-        bidirectional here) and a hidden width up to 512 (one that is not
-        whole 64-unit blocks on zero units, ``kernel_supports_hidden``)."""
-        return self.num_layers == 2 and kernel_supports_hidden(self.rnn_hidden_size)
+    def use_kernel(self, dtype=None) -> bool:
+        """K1 and K3 take this geometry in masters of ``dtype`` (None: in
+        either): 2 bidirectional layers (always bidirectional here) and a
+        hidden width up to 512, and in bf16 up to 577 (one that is not whole
+        64-unit blocks on zero units, ``kernel_common.encoder_supports_hidden``);
+        f32 and int8 on f32 masters above 512 run the eager scan, as the JAX
+        package's gate reads the masters' itemsize."""
+        return self.num_layers == 2 and encoder_supports_hidden(self.rnn_hidden_size, dtype)
 
     def apply(self, params, tokens: torch.Tensor, quant: str = "none", *, train: bool = False,
               generator: Optional[torch.Generator] = None,
@@ -161,13 +168,13 @@ class Encoder(nn.Module):
             ``dropout_masks`` gives it), never K3; K1's training mode under
             ``INPAINTNET_TRAIN_ENCODER_IMPL=pallas`` (:meth:`use_train_kernel`)"""
         check_quant(quant)
-        if train and self.use_train_kernel():
+        if train and self.use_train_kernel(params["gru"][0][0]["w_hh"].dtype):
             return self._apply_train_kernel(params, tokens, generator, dropout_masks)
         if train:
             emb = embedding_apply(params["embedding"], tokens)
             _, h_n = gru_apply(params["gru"], emb, last_outputs=False, dropout=self.dropout,
                                train=True, dropout_masks=dropout_masks, generator=generator)
-        elif self.use_kernel():
+        elif self.use_kernel(params["gru"][0][0]["w_hh"].dtype):
             # the kernel's forward; under a gradient, the eager scan's
             # backward at the same inputs (JAX's kernel_with_xla_grad)
             kernel = kernel_with_eager_grad(encoder_hn_int8 if quant == "int8" else encoder_hn,
@@ -178,15 +185,15 @@ class Encoder(nn.Module):
             _, h_n = gru_apply(params["gru"], emb, last_outputs=False)
         return self._heads(params, h_n, tokens.shape[0])
 
-    def use_train_kernel(self) -> bool:
+    def use_train_kernel(self, dtype=None) -> bool:
         """K1's training mode (the JAX package's opt-in
         ``_apply_train_pallas``): ``INPAINTNET_TRAIN_ENCODER_IMPL=pallas``, read
-        at each call, and a geometry K1 takes, in either dtype (K1's own gate:
-        the JAX package also asks that its weights fit the TPU's 10 MB VMEM
-        budget, which only bf16 at H 512 does). On the CPU the wrapper runs
-        K1's plain version."""
+        at each call, and a geometry K1 takes in masters of ``dtype``
+        (:meth:`use_kernel`; K1's own gate: the JAX package also asks that
+        its weights fit the TPU's 10 MB VMEM budget, which only bf16 at H 512
+        does). On the CPU the wrapper runs K1's plain version."""
         return (os.environ.get("INPAINTNET_TRAIN_ENCODER_IMPL", "xla") == "pallas"
-                and self.use_kernel())
+                and self.use_kernel(dtype))
 
     def _apply_train_kernel(self, params, tokens: torch.Tensor, generator, dropout_masks):
         """The training forward through K1's training mode: the inter-layer
@@ -303,11 +310,14 @@ class HierarchicalDecoder(nn.Module):
         # ReLU on logits: the reference's quirk, kept
         return torch.relu(linear_apply(params["head"], tick_out))
 
-    def use_kernel(self) -> bool:
-        """K2 and K4 take this geometry: 2 tick-GRU layers (the decode here
-        is always argmax inference) and a hidden width up to 512 (one that is
-        not whole 64-unit blocks on zero units, ``kernel_supports_hidden``)."""
-        return self.num_layers == 2 and kernel_supports_hidden(self.rnn_hidden_size)
+    def use_kernel(self, dtype=None) -> bool:
+        """K2 and K4 take this geometry in masters of ``dtype`` (None: in
+        either): 2 tick-GRU layers (the decode here is always argmax
+        inference) and a hidden width up to 512, and in bf16 up to 717 (one
+        no plan takes on zero units at the next one that does,
+        ``kernel_common.decode_supports_hidden``); f32 and int8 on f32
+        masters above 512 run the eager loop."""
+        return self.num_layers == 2 and decode_supports_hidden(self.rnn_hidden_size, dtype)
 
     def decode_teacher_forced(self, params, z: torch.Tensor, tokens: torch.Tensor, *,
                               train: bool = True, generator: Optional[torch.Generator] = None,
@@ -358,7 +368,7 @@ class HierarchicalDecoder(nn.Module):
         h_inits = self._tick_h0(
             params, beat_out.reshape(batch * NUM_BEATS_PER_MEASURE, -1)
         ).reshape(self.num_layers, batch, NUM_BEATS_PER_MEASURE, -1)
-        if not train and self.use_kernel():
+        if not train and self.use_kernel(params["tick_gru"][0][0]["w_hh"].dtype):
             # the kernel's forward; under a gradient (LatentRNN training
             # differentiates through this frozen-VAE decode) the backward of
             # the unquantized eager scan at the same inputs, as JAX's

@@ -57,6 +57,14 @@
 //   real columns. CTA 0 of the cluster writes the logits and the tokens.
 // - The layers and the head are inlined: as functions of their own that
 //   were not inlined they spilled less but took 66% more time (PERF.md).
+// - Above H 512 (decode_box_halves, decode_plan_fits; decode_kernel.
+//   decode_width): a width of an odd number of 64-unit blocks takes an odd
+//   cluster (576: 3 CTAs of 192 units); where two-slab boxes leave fewer
+//   than two stages beside the h tiles a box is one k-slab (K2 at 640, K4
+//   at 768); and where one-slab boxes do too (K2 at 768: its two bf16 tiles
+//   are 192 KB of the 225) a box is half a k-slab, 32 values wide with the
+//   64-byte swizzle (HalfFeed, HalfRing), its two k16 steps in a whole
+//   slab's order. None of these moves a chunk's sum order or K8's plans.
 // - Numerics as K2: products in f32, biases and gates in f32, both carries
 //   rounded to bf16 every tick, layer 0's input the fed-back row of tok_tab
 //   (x_0's projection at tick 0) plus ctx_xw summed in f32, ReLU logits in
@@ -73,6 +81,8 @@
 
 #include <limits.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "gru_layer_hopper.cuh"
 
@@ -123,6 +133,153 @@ struct DecodeI8Args {
   int* samples;          // (B, 24)
   int B, H, V, stages, ties;
 };
+
+// K2's and K4's boxes: the halves of a 64-value k-slab that a TMA box and
+// a ring stage hold beside `tiles` h tiles of `row_bytes` rows (128: bf16,
+// 64: K4's int8): box_slabs(H) whole slabs where two stages of them fit, else
+// one slab, else (bf16) half of one; 0 where none fits. At H 512 and below
+// it is 2 box_slabs(H) (gru_layer_hopper.cuh, K8's).
+__host__ __device__ inline int decode_box_halves(int H, int tiles, int row_bytes) {
+  const long long free =
+      (long long)kSmemBudget - 1024 - (long long)tiles * (H / 64) * kRows * row_bytes;
+  const int options[3] = {2 * box_slabs(H), 2, row_bytes == 128 ? 1 : 2};
+  for (int i = 0; i < 3; ++i)
+    if (free >= 2LL * kConsumers * options[i] * kSlabRows * row_bytes / 2) return options[i];
+  return 0;
+}
+
+// K2's and K4's dynamic shared memory: `tiles` h tiles and the rings
+inline size_t decode_smem_bytes(int H, int tiles, int stages, int row_bytes) {
+  return (size_t)tiles * (H / 64) * kRows * row_bytes +
+         (size_t)kConsumers * stages * decode_box_halves(H, tiles, row_bytes) * kSlabRows *
+             row_bytes / 2 +
+         1024;
+}
+
+// The launch's checks of K2 and K4: C CTAs (any portable size, odd ones
+// too) owning whole 64-unit k-blocks each, at most 8 chunks a consumer
+// warpgroup, a ring of 2..kMaxStages stages of decode_box_halves that fits
+// beside `tiles` h tiles.
+inline bool decode_plan_fits(int H, int C, int stages, int tiles, int row_bytes) {
+  if (H % 64 != 0 || H <= 0 || C < 1 || C > kMaxCluster) return false;
+  if ((H / 64) % C != 0 || H / C > 8 * kConsumers * kUnits) return false;
+  if (stages < 2 || stages > kMaxStages || decode_box_halves(H, tiles, row_bytes) < 1)
+    return false;
+  return decode_smem_bytes(H, tiles, stages, row_bytes) <= (size_t)kSmemBudget;
+}
+
+// The tensor map of K2's (bf16) or K4's (int8) packed weights: `blocks`
+// contiguous 96 x 64 k-slabs, loaded decode_box_halves of a slab a box
+// (beside two tiles of bf16, four of int8): whole slabs with the 128-byte
+// swizzle in bf16 and the 64-byte one in int8, or half slabs (32 bf16
+// values, 64 bytes) with the 64-byte swizzle.
+inline cudaError_t make_decode_map(CUtensorMap* map, const void* packed, int blocks, int H,
+                                   bool int8) {
+  const int row_bytes = int8 ? 64 : 128;
+  const int kh = decode_box_halves(H, int8 ? 4 : 2, row_bytes);
+  if (H % 64 != 0 || H <= 0 || blocks < 1 || kh < 1) return cudaErrorInvalidValue;
+  const uint64_t dims[3] = {64, (uint64_t)kSlabRows, (uint64_t)blocks};
+  const uint64_t strides[2] = {(uint64_t)row_bytes, (uint64_t)kSlabRows * row_bytes};
+  const uint32_t box[3] = {kh == 1 ? 32u : 64u, (uint32_t)kSlabRows, kh == 1 ? 1u : kh / 2u};
+  return make_map(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                  packed, dims, strides, box,
+                  int8 || kh == 1 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// K2's ring where a stage is half a k-slab (decode_box_halves 1): the
+// producer loads each k-slab as two boxes of 32 values of K, one a stage;
+// the consumer multiplies each half by its two k16 steps (a whole slab's
+// four, in the same order).
+constexpr int kHalfBytes = kSlabBytes / 2;  // 96 rows x 64 bytes: 6 KB
+
+struct HalfFeed {
+  const CUtensorMap* map;
+  unsigned char* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  int stages, stage;
+  uint32_t phase;
+  // the k-slabs 0..nk-1 of the chunk whose slabs start at block `block0`
+  __device__ void slabs(int block0, int nk) {
+    for (int k = 0; k < nk; ++k)
+      for (int h = 0; h < 2; ++h) {
+        mbar_wait_bounded<false>(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], kHalfBytes);
+        tma_load_3d(ring + stage * kHalfBytes, map, &full[stage], 32 * h, 0, block0 + k);
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+  }
+};
+
+struct HalfRing {
+  unsigned char* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  int stages, stage;
+  uint32_t phase;
+  // `issue(k, h, half)` issues the wgmmas of half h of k-slab k on its
+  // stage; each stage is handed back once the next one's products are in
+  // flight, and the call returns with every product done
+  template <typename Products>
+  __device__ __forceinline__ void consume(int nk, int lane, Products issue) {
+    int prev = 0;
+    for (int i = 0; i < 2 * nk; ++i) {
+      mbar_wait_bounded<false>(&full[stage], phase);
+      wgmma_fence();
+      issue(i >> 1, i & 1, ring + stage * kHalfBytes);
+      wgmma_commit();
+      if (i > 0) {
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(&empty[prev]);
+      }
+      prev = stage;
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&empty[prev]);
+  }
+};
+
+// Half h of a k-slab of a bf16 product: the 128-byte-swizzled A's k16
+// steps 2h and 2h + 1 by the 64-byte-swizzled half slab's two.
+__device__ __forceinline__ void mma_half(float (&d)[48], uint64_t da, uint64_t db, int h,
+                                         bool accumulate) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+    wgmma_bf16_n96(d, da + 4 * h + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
+}
+__device__ __forceinline__ void mma_half(float (&d)[24], uint64_t da, uint64_t db, int h,
+                                         bool accumulate) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+    wgmma_bf16_n48(d, da + 4 * h + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
+}
+
+// acc (+)= the bf16 h tile `tile` (its nk 64-unit k-blocks) @ the ring's
+// next nk k-slabs, each slab's rows from `row0` on (a head half: 48 of 96)
+template <int N>
+__device__ __forceinline__ void ring_product(Ring& rg, float (&acc)[N],
+                                             const unsigned char* tile, int nk, int lane,
+                                             int row0 = 0) {
+  rg.consume(nk, lane, [&](int kk, unsigned char* slab) {
+    mma_slab(acc, desc_sw128(tile + kk * kBlockBytes), desc_sw128(slab + row0 * 128), kk > 0);
+  });
+}
+template <int N>
+__device__ __forceinline__ void ring_product(HalfRing& rg, float (&acc)[N],
+                                             const unsigned char* tile, int nk, int lane,
+                                             int row0 = 0) {
+  rg.consume(nk, lane, [&](int kk, int h, unsigned char* half) {
+    mma_half(acc, desc_sw128(tile + kk * kBlockBytes), desc_sw64(half + row0 * 64), h,
+             kk > 0 || h > 0);
+  });
+}
 
 // K4's int8 tiles and slabs: rows of 64 bytes (64 units or 64 of K) with
 // the 64-byte swizzle
@@ -180,8 +337,8 @@ struct DecodeCta {
 
 // layer 0: xw = the fed-back token's row + the beat context (summed in
 // f32); hw = h0 @ W_hh0 + b_hh0
-template <int MAXC>
-__device__ __forceinline__ void decode_layer0(const DecodeArgs& p, const DecodeCta& k, Ring& rg,
+template <int MAXC, typename R>
+__device__ __forceinline__ void decode_layer0(const DecodeArgs& p, const DecodeCta& k, R& rg,
                                               const Exchange& ex, int t) {
   const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2,
             q = lane & 3;
@@ -218,9 +375,7 @@ __device__ __forceinline__ void decode_layer0(const DecodeArgs& p, const DecodeC
 #pragma unroll
         for (int n8 = 0; n8 < 4; ++n8) bv[gate][n8] = ldg_u32(p.bias + gate * H + j0 + 8 * n8 + 2 * q);
       float acc[48];
-      rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
-        mma_slab(acc, desc_sw128(k.h0t + kk * kBlockBytes), desc_sw128(slab), kk > 0);
-      });
+      ring_product(rg, acc, k.h0t, k.KB, lane);
       fence_operands(acc);
 #pragma unroll
       for (int n8 = 0; n8 < 4; ++n8) {
@@ -253,8 +408,8 @@ __device__ __forceinline__ void decode_layer0(const DecodeArgs& p, const DecodeC
 
 // layer 1: xw = h0' @ W_ih1 + b_ih1; hw = h1 @ W_hh1 + b_hh1, each product
 // in an accumulator of its own
-template <int MAXC>
-__device__ __forceinline__ void decode_layer1(const DecodeArgs& p, const DecodeCta& k, Ring& rg,
+template <int MAXC, typename R>
+__device__ __forceinline__ void decode_layer1(const DecodeArgs& p, const DecodeCta& k, R& rg,
                                               const Exchange& ex, int t) {
   const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2,
             q = lane & 3;
@@ -268,12 +423,8 @@ __device__ __forceinline__ void decode_layer1(const DecodeArgs& p, const DecodeC
     if (c < k.nch) {
       const int j0 = (k.chunk0 + c) * kUnits + opaque_zero();
       float ax[48], ah[48];
-      rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
-        mma_slab(ax, desc_sw128(k.h0t + kk * kBlockBytes), desc_sw128(slab), kk > 0);
-      });
-      rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
-        mma_slab(ah, desc_sw128(k.h1t + kk * kBlockBytes), desc_sw128(slab), kk > 0);
-      });
+      ring_product(rg, ax, k.h0t, k.KB, lane);
+      ring_product(rg, ah, k.h1t, k.KB, lane);
       fence_operands(ax);
       fence_operands(ah);
 #pragma unroll
@@ -494,12 +645,11 @@ __device__ __forceinline__ void decode_layer1(const DecodeI8Args<T>& p, const De
 // ---------------------------------------------------------------------------
 
 // K2: relu(h1 @ W + b) in f32
-__device__ __forceinline__ void head_logits(const DecodeArgs& p, const DecodeCta& k, Ring& rg,
+template <typename R>
+__device__ __forceinline__ void head_logits(const DecodeArgs& p, const DecodeCta& k, R& rg,
                                             int hc, float (&lg)[24]) {
   const int col0 = 48 * k.wg, lane = threadIdx.x & 31, q = lane & 3;
-  rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
-    mma_slab(lg, desc_sw128(k.h1t + kk * kBlockBytes), desc_sw128(slab + col0 * 128), kk > 0);
-  });
+  ring_product(rg, lg, k.h1t, k.KB, lane, col0);
   fence_operands(lg);
 #pragma unroll
   for (int i = 0; i < 24; ++i) {
@@ -672,7 +822,23 @@ __device__ __forceinline__ void init_row_scale(const DecodeI8Args<T>& p, int r, 
 // out (H / 32 chunks each of H / 64 contiguous 96 x 64 k-slabs), then the
 // head's W^T as `nhc` more chunks: rows 96 hc + [0, 96) of chunk hc are its
 // columns, zero rows past V.
-template <int kSlab>
+template <typename F>
+__device__ __forceinline__ void feed_ticks(F& f, int w, int H, int KB, int nch, int chunk0,
+                                           int nhc, int ties) {
+  const int chunks = H / kUnits;  // the chunks of one packed weight
+  for (int t = 0; t < kTicks; ++t) {
+    for (int c = w; c < nch; c += kConsumers) f.slabs((chunk0 + c) * KB, KB);
+    for (int c = w; c < nch; c += kConsumers) {
+      f.slabs((chunks + chunk0 + c) * KB, KB);
+      f.slabs((2 * chunks + chunk0 + c) * KB, KB);
+    }
+    // the head: each warpgroup takes half of each chunk
+    for (int j = 0; j < nhc; ++j) f.slabs((3 * chunks + chunk_at(j, nhc, ties)) * KB, KB);
+  }
+}
+
+// (kHalf: K2's half-slab ring, HalfFeed; `ks` unused)
+template <int kSlab, bool kHalf = false>
 __device__ __forceinline__ void feed_decode(const CUtensorMap* map, unsigned char* ring,
                                             uint64_t (&full_bar)[kConsumers][kMaxStages],
                                             uint64_t (&empty_bar)[kConsumers][kMaxStages],
@@ -681,24 +847,21 @@ __device__ __forceinline__ void feed_decode(const CUtensorMap* map, unsigned cha
   setmaxnreg_dec<kDecodeProducerRegs>();
   const int w = (threadIdx.x >> 5) & 3;
   if (w < kConsumers && (threadIdx.x & 31) == 0) {
-    FeedT<kSlab> f{map, ring + w * stages * ks * kSlab, full_bar[w], empty_bar[w], stages, ks,
-                   0, 0};
-    const int chunks = H / kUnits;  // the chunks of one packed weight
-    for (int t = 0; t < kTicks; ++t) {
-      for (int c = w; c < nch; c += kConsumers) f.slabs((chunk0 + c) * KB, KB);
-      for (int c = w; c < nch; c += kConsumers) {
-        f.slabs((chunks + chunk0 + c) * KB, KB);
-        f.slabs((2 * chunks + chunk0 + c) * KB, KB);
-      }
-      // the head: each warpgroup takes half of each chunk
-      for (int j = 0; j < nhc; ++j) f.slabs((3 * chunks + chunk_at(j, nhc, ties)) * KB, KB);
+    if constexpr (kHalf) {
+      HalfFeed f{map, ring + w * stages * kHalfBytes, full_bar[w], empty_bar[w], stages, 0, 0};
+      feed_ticks(f, w, H, KB, nch, chunk0, nhc, ties);
+    } else {
+      FeedT<kSlab> f{map, ring + w * stages * ks * kSlab, full_bar[w], empty_bar[w], stages, ks,
+                     0, 0};
+      feed_ticks(f, w, H, KB, nch, chunk0, nhc, ties);
     }
   }
 }
 
 // K2. kChunks: the head over more than one chunk (an instantiation of its
-// own, so that the one-chunk path keeps today's registers)
-template <int MAXC, bool kChunks>
+// own, so that the one-chunk path keeps today's registers); kHalf: boxes of
+// half a k-slab (decode_box_halves 1)
+template <int MAXC, bool kChunks, bool kHalf = false>
 __global__ void __launch_bounds__(kDecodeThreads, 1)
     decode_kernel(const __grid_constant__ CUtensorMap w_map, const __grid_constant__ DecodeArgs p) {
   extern __shared__ unsigned char smem_raw[];
@@ -708,7 +871,8 @@ __global__ void __launch_bounds__(kDecodeThreads, 1)
   __shared__ int prev_tok[kRows];
   __shared__ float head_best[kConsumers][kRows];
   __shared__ int head_arg[kConsumers][kRows];
-  const int H = p.H, KB = H / 64, ks = box_slabs(H), B = p.B, nhc = head_chunks(p.V);
+  const int H = p.H, KB = H / 64, ks = decode_box_halves(H, 2, 128) / 2, B = p.B,
+            nhc = head_chunks(p.V);
   unsigned char* h0t = align1024(smem_raw);
   unsigned char* h1t = h0t + KB * kBlockBytes;
   unsigned char* ring = h1t + KB * kBlockBytes;
@@ -735,15 +899,21 @@ __global__ void __launch_bounds__(kDecodeThreads, 1)
   cluster_sync();
 
   if (wg == kConsumers) {
-    feed_decode<kSlabBytes>(&w_map, ring, full_bar, empty_bar, p.stages, ks, H, KB, nch, chunk0,
-                            head_chunks(p.V), p.ties);
+    feed_decode<kSlabBytes, kHalf>(&w_map, ring, full_bar, empty_bar, p.stages, ks, H, KB, nch,
+                                   chunk0, head_chunks(p.V), p.ties);
     cluster_sync();
     return;
   }
 
   setmaxnreg_inc<kDecodeConsumerRegs>();
   const int tid = threadIdx.x;
-  Ring rg{ring + wg * p.stages * ks * kSlabBytes, full_bar[wg], empty_bar[wg], p.stages, ks, 0, 0};
+  using R = std::conditional_t<kHalf, HalfRing, Ring>;
+  R rg;
+  if constexpr (kHalf)
+    rg = HalfRing{ring + wg * p.stages * kHalfBytes, full_bar[wg], empty_bar[wg], p.stages, 0, 0};
+  else
+    rg = Ring{ring + wg * p.stages * ks * kSlabBytes, full_bar[wg], empty_bar[wg], p.stages, ks,
+              0, 0};
   const Exchange ex0{C, rank, (int)rank * (U / 64), U / 64, &h_full[0], &h_done[0]};
   const Exchange ex1{C, rank, (int)rank * (U / 64), U / 64, &h_full[1], &h_done[1]};
   const DecodeCta cta{h0t, h1t, prev_tok, nullptr, nullptr, H, KB, tile0, chunk0, nch, wg};
@@ -779,6 +949,29 @@ __global__ void __launch_bounds__(kDecodeThreads, 1)
   cluster_sync();
 }
 
+// K2's launch at C CTAs a tile, by chunks a consumer warpgroup (the
+// instantiations of one-chunk heads live in decode_sampling.cu, of chunked
+// ones in decode_sampling_chunks.cu)
+template <bool kChunks>
+inline cudaError_t launch_decode_as(const CUtensorMap& map, const DecodeArgs& a, int C,
+                                    int clusters, size_t smem, cudaStream_t stream) {
+  switch (chunks_per_warpgroup(a.H, C)) {
+    case 1: return launch_clusters(decode_kernel<1, kChunks>, clusters, C, smem, stream, map, a,
+                                   kDecodeThreads);
+    case 2: return launch_clusters(decode_kernel<2, kChunks>, clusters, C, smem, stream, map, a,
+                                   kDecodeThreads);
+    case 3:
+    case 4: return launch_clusters(decode_kernel<4, kChunks>, clusters, C, smem, stream, map, a,
+                                   kDecodeThreads);
+    case 5:
+    case 6:
+    case 7:
+    case 8: return launch_clusters(decode_kernel<8, kChunks>, clusters, C, smem, stream, map, a,
+                                   kDecodeThreads);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // K4: h0 and h1 each in two int8 tiles, tick t reading buffer t % 2 and
 // writing buffer (t + 1) % 2; kChunks as K2's
 template <typename T, int MAXC, bool kChunks>
@@ -793,7 +986,8 @@ __global__ void __launch_bounds__(kDecodeThreads, 1)
   __shared__ float row_q[kRows], row_dq[kRows];
   __shared__ float head_best[kConsumers][kRows];
   __shared__ int head_arg[kConsumers][kRows];
-  const int H = p.H, KB = H / 64, ks = box_slabs(H), B = p.B, nhc = head_chunks(p.V);
+  const int H = p.H, KB = H / 64, ks = decode_box_halves(H, 4, 64) / 2, B = p.B,
+            nhc = head_chunks(p.V);
   unsigned char* h0t[2];
   unsigned char* h1t[2];
   h0t[0] = align1024(smem_raw);
@@ -872,7 +1066,9 @@ __global__ void __launch_bounds__(kDecodeThreads, 1)
 }
 
 // K4's dynamic shared memory: four int8 h tiles and the rings
-inline size_t decode_i8_smem_bytes(int H, int stages) { return smem_bytes(H, 4, stages, 64); }
+inline size_t decode_i8_smem_bytes(int H, int stages) {
+  return decode_smem_bytes(H, 4, stages, 64);
+}
 
 template <typename T, bool kChunks>
 inline cudaError_t launch_decode_i8_as(const CUtensorMap& map, const DecodeI8Args<T>& a, int C,
@@ -906,7 +1102,7 @@ cudaError_t launch_decode_i8_chunks(const CUtensorMap& map, const DecodeI8Args<_
 template <typename T>
 inline cudaError_t launch_decode_i8(const CUtensorMap& map, const DecodeI8Args<T>& a, int C,
                                     cudaStream_t stream) {
-  if (!plan_fits(a.H, C, a.stages, 4, 64) || a.B < 1 || a.V < 1)
+  if (!decode_plan_fits(a.H, C, a.stages, 4, 64) || a.B < 1 || a.V < 1)
     return cudaErrorInvalidValue;
   const int clusters = (a.B + kRows - 1) / kRows;
   const size_t smem = decode_i8_smem_bytes(a.H, a.stages);

@@ -34,13 +34,20 @@ namespace inpaint {
 namespace rec90 {
 
 // The bf16 route's launchers (here, not in decode_hopper.cuh, so that
-// decode_sampling_int8.cu does not compile its kernels again). K2's dynamic
-// shared memory: two bf16 h tiles and the rings.
-inline size_t decode_smem_bytes(int H, int stages) { return smem_bytes(H, 2, stages); }
+// decode_sampling_int8.cu does not compile its kernels again). Two sources
+// of their own, built beside this one in parallel, hold the instantiations
+// of a head of more than one chunk (decode_sampling_chunks.cu) and those of
+// half-slab boxes (decode_box_halves 1, H 768: decode_sampling_half.cu).
+cudaError_t launch_decode_chunks(const CUtensorMap& map, const DecodeArgs& a, int C, int clusters,
+                                 size_t smem, cudaStream_t stream);
+cudaError_t launch_decode_half(const CUtensorMap& map, const DecodeArgs& a, int C, int clusters,
+                               size_t smem, cudaStream_t stream);
+int decode_half_slots(int H, int C, size_t smem);
 
 inline int decode_slots(int H, int C, int stages) {
-  if (!plan_fits(H, C, stages, 2)) return -1;
-  const size_t smem = decode_smem_bytes(H, stages);
+  if (!decode_plan_fits(H, C, stages, 2, 128)) return -1;
+  const size_t smem = decode_smem_bytes(H, 2, stages, 128);
+  if (decode_box_halves(H, 2, 128) == 1) return decode_half_slots(H, C, smem);
   switch (chunks_per_warpgroup(H, C)) {
     case 1: return max_clusters(decode_kernel<1, false>, C, smem, kDecodeThreads);
     case 2: return max_clusters(decode_kernel<2, false>, C, smem, kDecodeThreads);
@@ -50,33 +57,15 @@ inline int decode_slots(int H, int C, int stages) {
   }
 }
 
-template <bool kChunks>
-inline cudaError_t launch_decode_as(const CUtensorMap& map, const DecodeArgs& a, int C,
-                                    int clusters, size_t smem, cudaStream_t stream) {
-  switch (chunks_per_warpgroup(a.H, C)) {
-    case 1: return launch_clusters(decode_kernel<1, kChunks>, clusters, C, smem, stream, map, a,
-                                   kDecodeThreads);
-    case 2: return launch_clusters(decode_kernel<2, kChunks>, clusters, C, smem, stream, map, a,
-                                   kDecodeThreads);
-    case 3:
-    case 4: return launch_clusters(decode_kernel<4, kChunks>, clusters, C, smem, stream, map, a,
-                                   kDecodeThreads);
-    case 5:
-    case 6:
-    case 7:
-    case 8: return launch_clusters(decode_kernel<8, kChunks>, clusters, C, smem, stream, map, a,
-                                   kDecodeThreads);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 inline cudaError_t launch_decode(const CUtensorMap& map, const DecodeArgs& a, int C,
                                  cudaStream_t stream) {
-  if (!plan_fits(a.H, C, a.stages, 2) || a.B < 1 || a.V < 1)
+  if (!decode_plan_fits(a.H, C, a.stages, 2, 128) || a.B < 1 || a.V < 1)
     return cudaErrorInvalidValue;
   const int clusters = (a.B + kRows - 1) / kRows;
-  const size_t smem = decode_smem_bytes(a.H, a.stages);
-  return head_chunks(a.V) > 1 ? launch_decode_as<true>(map, a, C, clusters, smem, stream)
+  const size_t smem = decode_smem_bytes(a.H, 2, a.stages, 128);
+  if (decode_box_halves(a.H, 2, 128) == 1)
+    return launch_decode_half(map, a, C, clusters, smem, stream);
+  return head_chunks(a.V) > 1 ? launch_decode_chunks(map, a, C, clusters, smem, stream)
                               : launch_decode_as<false>(map, a, C, clusters, smem, stream);
 }
 
@@ -475,7 +464,7 @@ extern "C" int inpaint_decode_f32_slots(int H, int cluster, int stages) {
   return inpaint::rec90::decode_f32_slots(H, cluster, stages);
 }
 
-// The bf16 route (decode_hopper.cuh): `map` is inpaint_slab_map's over the
+// The bf16 route (decode_hopper.cuh): `map` is inpaint_decode_map's over the
 // packed weights (decode_kernel.pack_decode_weights); `cluster`
 // CTAs share each 64-row tile and `stages` is the depth of each consumer
 // warpgroup's ring (decode_kernel.launch_plan); bias (3, 3H) holds b_hh0,
@@ -504,4 +493,14 @@ extern "C" int inpaint_decode_sampling_bf16(const void* map, const void* ctx_xw,
 // wave size); -1 where the plan does not fit.
 extern "C" int inpaint_decode_slots(int H, int cluster, int stages) {
   return inpaint::rec90::decode_slots(H, cluster, stages);
+}
+
+// Encode into `map_out` (128 bytes, 64-byte aligned) the tensor map of K2's
+// packed bf16 weights (int8 0) or K4's packed int8 ones (int8 1): `blocks`
+// 96 x 64 k-slabs, decode_box_halves of a slab a box (decode_hopper.cuh
+// make_decode_map).
+extern "C" int inpaint_decode_map(const void* packed, int blocks, int H, int int8,
+                                  void* map_out) {
+  return (int)inpaint::rec90::make_decode_map(static_cast<CUtensorMap*>(map_out), packed, blocks,
+                                              H, int8 != 0);
 }

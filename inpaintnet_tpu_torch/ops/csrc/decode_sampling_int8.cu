@@ -26,7 +26,7 @@
 
 #include "decode_hopper.cuh"
 
-// `map` is inpaint_decode_int8_map's over the packed int8 weights
+// `map` is inpaint_decode_map's over the packed int8 weights
 // (decode_kernel.pack_decode_weights of the quantized W_hh0, W_ih1, W_hh1
 // and head); `cluster` CTAs share each 64-row tile and `stages` is the
 // depth of each consumer warpgroup's ring (decode_kernel.int8_plan). dtype
@@ -63,13 +63,4 @@ extern "C" int inpaint_decode_sampling_int8(int dtype, const void* map, const vo
   if (dtype == 1) INPAINT_DECODE_I8(__nv_bfloat16)
 #undef INPAINT_DECODE_I8
   return (int)cudaErrorInvalidValue;
-}
-
-// Encode into `map_out` (128 bytes, 64-byte aligned) the tensor map of the
-// packed int8 weights: `blocks` 96 x 64-byte k-slabs, box_slabs(H) a box,
-// 64-byte swizzle.
-extern "C" int inpaint_decode_int8_map(const void* packed, int blocks, int H, void* map_out) {
-  if (H % 64 != 0 || H <= 0 || blocks < 1) return (int)cudaErrorInvalidValue;
-  return (int)inpaint::rec90::make_slab_map(static_cast<CUtensorMap*>(map_out), packed, blocks,
-                                            H, true);
 }

@@ -87,17 +87,19 @@ inline cudaError_t launch_encoder_layer(const CUtensorMap& w_map, const FwdArgs&
 // plus b_ih) and writes ys (steps, rows, 2H) bf16; layer 1 reads xw (2,
 // steps * rows, 3H) f32 (b_ih included); bhh (2, 3H) f32 (bih unused);
 // hn the layer's (2, B, H) bf16 h_n; keep (B, steps, 2H) uint8 or null,
-// layer 0 only, with keep_div = 1 - rate (the training mode).
+// layer 0 only, with keep_div = 1 - rate (the training mode); `consumers`
+// consumer warpgroups (encoder_kernel.encoder_consumers: 4, or 2 above H 512).
 extern "C" int inpaint_encoder_rec_bf16(int layer, const void* whh, const void* tokens,
                                         const void* tab, const void* xw, const void* bih,
                                         const void* bhh, void* ys, void* hn, const void* keep,
                                         int B, int row0, int rows, int steps, int H, int V,
-                                        float keep_div, void* stream) {
+                                        int consumers, float keep_div, void* stream) {
   using namespace inpaint::enc90;
   if (keep != nullptr && (layer != 0 || !(keep_div > 0.0f))) return (int)cudaErrorInvalidValue;
   RecArgs a{static_cast<const int*>(tokens), static_cast<const float*>(tab), xw, nullptr, nullptr,
             static_cast<const float*>(bih), static_cast<const float*>(bhh), ys, hn,
-            B, row0, rows, steps, H, V, 0, static_cast<const uint8_t*>(keep), keep_div};
+            B, row0, rows, steps, H, V, 0, consumers, static_cast<const uint8_t*>(keep),
+            keep_div};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (layer == 0) return (int)launch_rec<__nv_bfloat16, __nv_bfloat16, true>(whh, a, s);
   if (layer == 1) return (int)launch_rec<__nv_bfloat16, __nv_bfloat16, false>(whh, a, s);

@@ -40,17 +40,19 @@
 // table dequantized and biased, tab_q * s_x0 + b_ih0) and writes ys (steps,
 // rows, 2H) int8; layer 1 reads xw (2, steps * rows, 3H) int32 and
 // dequantizes it with s_x, bih; s_h, bhh (2, 3H) f32 of the layer; hn the
-// layer's (2, B, H).
+// layer's (2, B, H); `consumers` consumer warpgroups
+// (encoder_kernel.encoder_consumers: 4 at every K3 width).
 extern "C" int inpaint_encoder_rec_int8(int out_dtype, int layer, const void* whh,
                                         const void* tokens, const void* tab, const void* xw,
                                         const void* s_x, const void* s_h, const void* bih,
                                         const void* bhh, void* ys, void* hn, int B, int row0,
-                                        int rows, int steps, int H, int V, void* stream) {
+                                        int rows, int steps, int H, int V, int consumers,
+                                        void* stream) {
   using namespace inpaint::enc90;
   RecArgs a{static_cast<const int*>(tokens), static_cast<const float*>(tab), xw,
             static_cast<const float*>(s_x), static_cast<const float*>(s_h),
             static_cast<const float*>(bih), static_cast<const float*>(bhh), ys, hn,
-            B, row0, rows, steps, H, V, 0};
+            B, row0, rows, steps, H, V, 0, consumers};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_dtype == 0 && layer == 0) return (int)launch_rec<int8_t, float, true>(whh, a, s);
   if (out_dtype == 0 && layer == 1) return (int)launch_rec<int8_t, float, false>(whh, a, s);

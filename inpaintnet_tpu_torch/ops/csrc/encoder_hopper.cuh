@@ -14,7 +14,11 @@
 // bf16, 3 in int8: what shared memory holds beside the h tiles at H 512).
 // A step is a long chain per chunk (the products, then the gate math of
 // 2,048 (row, unit) pairs with exact f32 exp, tanh and division), so four
-// warpgroups let one's gate math run beside another's products. The new h
+// warpgroups let one's gate math run beside another's products. Above H
+// 512 in bf16 the two h tiles (2 x 64 x 640 x 2 B at H 577) leave room for
+// the rings of two consumer warpgroups only: the wrapper's plan
+// (encoder_kernel.encoder_consumers) launches two there, each taking every
+// other chunk, each chunk's k-slabs summed in the same order. The new h
 // is rounded to bf16 (or quantized with quant_h) into the other h buffer,
 // in the swizzled layout the next step's wgmma reads. Layer 0's input
 // projection is a row of an f32 (V, 3H) table with b_ih (and on the int8
@@ -58,9 +62,12 @@ using namespace sm90;
 constexpr int kRows = 64;                    // rows of a recurrence block: one wgmma m64 tile
 constexpr int kUnits = 32;                   // hidden units of a recurrence chunk
 constexpr int kRecN = 3 * kUnits;            // its r, z, n columns: the wgmma N (96)
-constexpr int kRecConsumers = 4;             // consumer warpgroups of a recurrence block
+constexpr int kRecConsumers = 4;             // most consumer warpgroups of a recurrence block
 constexpr int kRecStageBytes = kRecN * 128;  // one W_hh k-slab: 12 KB
 constexpr int kRecThreads = 128 * kRecConsumers + 128;  // + the producer warpgroup
+// what a recurrence block may hold beside its barriers: the 227 KB opt-in
+// less 1 KB of alignment and 1 KB
+constexpr int kRecSmemBudget = 232448 - 2048;
 constexpr int kGemmM = 128;
 constexpr int kGemmN = 256;
 constexpr int kGemmConsumers = 2;
@@ -112,6 +119,7 @@ struct RecArgs {
   void* ys;           // (steps, rows, 2H) HT: this chunk's layer-0 outputs [fwd | bwd]
   void* hn;           // (2, B, H) OutT: this layer's final hiddens [fwd, bwd]
   int B, row0, rows, steps, H, V, Hk;  // chunk = rows [row0, row0 + rows); Hk: padded K
+  int consumers;                       // consumer warpgroups: 4, or 2 (bf16 above H 512)
   // bf16 layer 0 in training (K1's training mode), else null: the inter-layer
   // dropout keep mask (B, steps, 2H) uint8 [fwd | bwd] of the GLOBAL rows, and
   // 1 - rate; the stored outputs become keep ? bf16(y / keep_div) : 0
@@ -138,10 +146,10 @@ __global__ void __launch_bounds__(kRecThreads, 1)
   const int d = blockIdx.y;  // 0 forward, 1 backward
   const int tile0 = blockIdx.x * kRows;
   const int nchunks = H / kUnits, nslabs = row_bytes / 128;
-  const int wg = threadIdx.x >> 7;
+  const int wg = threadIdx.x >> 7, consumers = p.consumers;
 
   if (threadIdx.x == 0) {
-    for (int w = 0; w < kRecConsumers; ++w)
+    for (int w = 0; w < consumers; ++w)
       for (int s = 0; s < kStages; ++s) {
         mbar_init(&full_bar[w][s], 1);
         mbar_init(&empty_bar[w][s], 4);  // one arrival per consumer warp
@@ -153,13 +161,13 @@ __global__ void __launch_bounds__(kRecThreads, 1)
   fence_proxy_async();
   __syncthreads();
 
-  if (wg == kRecConsumers) {  // the producer warpgroup: warp w keeps consumer w's ring full
+  if (wg == consumers) {  // the producer warpgroup: warp w keeps consumer w's ring full
     const int w = (threadIdx.x >> 5) & 3;
-    if ((threadIdx.x & 31) == 0) {
+    if (w < consumers && (threadIdx.x & 31) == 0) {
       int stage = 0;
       uint32_t phase = 0;
       for (int s = 0; s < steps; ++s)
-        for (int c = w; c < nchunks; c += kRecConsumers)
+        for (int c = w; c < nchunks; c += consumers)
           for (int k = 0; k < nslabs; ++k) {
             mbar_wait(&empty_bar[w][stage], phase ^ 1);
             mbar_expect_tx(&full_bar[w][stage], kRecStageBytes);
@@ -209,7 +217,7 @@ __global__ void __launch_bounds__(kRecThreads, 1)
         in[half] = xw + ((size_t)t * rows + (valid[half] ? lrow : 0)) * H3;
       }
     }
-    for (int c = wg; c < nchunks; c += kRecConsumers) {
+    for (int c = wg; c < nchunks; c += consumers) {
       if constexpr (!kLayer0) {  // layer 1: pull this chunk's projection into L2
 #pragma unroll                   // while the products run
         for (int half = 0; half < 2; ++half)
@@ -339,7 +347,7 @@ __global__ void __launch_bounds__(kRecThreads, 1)
     // every new h of this step is written: hand them to the next step's
     // wgmma (async proxy), then swap the buffers
     fence_proxy_async();
-    named_barrier(1, 128 * kRecConsumers);
+    named_barrier(1, 128 * consumers);
     unsigned char* tmp = h_cur;
     h_cur = h_nxt;
     h_nxt = tmp;
@@ -570,9 +578,19 @@ inline int padded_k(int H) {
   return (H + e - 1) / e * e;
 }
 
+// a recurrence block's dynamic shared memory: the two h tiles and the rings
+template <typename HT>
+inline size_t rec_smem_bytes(int Hk, int consumers) {
+  return 2ull * kRows * Hk * sizeof(HT) +
+         (size_t)consumers * Enc<HT>::kRecStages * kRecStageBytes + 1024;
+}
+
 template <typename HT, typename OutT, bool kLayer0>
 static cudaError_t launch_rec(const void* whh, RecArgs a, cudaStream_t stream) {
   a.Hk = padded_k<HT>(a.H);
+  if (a.H <= 0 || a.H % 64 != 0 || (a.consumers != 2 && a.consumers != kRecConsumers) ||
+      rec_smem_bytes<HT>(a.Hk, a.consumers) > (size_t)kRecSmemBudget)
+    return cudaErrorInvalidValue;
   CUtensorMap map;
   const uint64_t dims[3] = {(uint64_t)a.Hk, 3ull * a.H, 2};
   const uint64_t strides[2] = {(uint64_t)a.Hk * sizeof(HT),
@@ -580,13 +598,12 @@ static cudaError_t launch_rec(const void* whh, RecArgs a, cudaStream_t stream) {
   const uint32_t box[3] = {128 / (uint32_t)sizeof(HT), (uint32_t)kRecN, 1};
   cudaError_t err = make_map(&map, Enc<HT>::kMap, 3, whh, dims, strides, box);
   if (err != cudaSuccess) return err;
-  const size_t smem = 2ull * kRows * a.Hk * sizeof(HT) +
-                      (size_t)kRecConsumers * Enc<HT>::kRecStages * kRecStageBytes + 1024;
+  const size_t smem = rec_smem_bytes<HT>(a.Hk, a.consumers);
   err = cudaFuncSetAttribute(encoder_rec_kernel<HT, OutT, kLayer0>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.rows + kRows - 1) / kRows, 2);
-  encoder_rec_kernel<HT, OutT, kLayer0><<<grid, kRecThreads, smem, stream>>>(map, a);
+  encoder_rec_kernel<HT, OutT, kLayer0><<<grid, 128 * a.consumers + 128, smem, stream>>>(map, a);
   return cudaGetLastError();
 }
 

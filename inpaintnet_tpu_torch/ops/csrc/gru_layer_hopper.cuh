@@ -447,26 +447,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster_sync();
 }
 
-// dynamic shared memory of a recurrence block: `tiles` h tiles and the
-// rings (`row_bytes`: 128 for bf16 tiles and slabs, 64 for K4's int8 ones)
-inline size_t smem_bytes(int H, int tiles, int stages, int row_bytes = 128) {
-  return (size_t)tiles * (H / 64) * kRows * row_bytes +
-         (size_t)kConsumers * stages * box_slabs(H) * kSlabRows * row_bytes + 1024;
+// dynamic shared memory of a K8 block: `tiles` bf16 h tiles and the rings
+// (K2's and K4's: decode_hopper.cuh decode_smem_bytes)
+inline size_t smem_bytes(int H, int tiles, int stages) {
+  return (size_t)tiles * (H / 64) * kRows * 128 +
+         (size_t)kConsumers * stages * box_slabs(H) * kSlabRows * 128 + 1024;
 }
 
-// A 3D tensor map over packed gate slabs: `blocks` contiguous 96 x 64
-// k-slabs (K-major; bf16 rows of 128 bytes with the 128-byte swizzle, or
-// with `int8` K4's int8 rows of 64 bytes with the 64-byte swizzle), loaded
-// box_slabs consecutive slabs a box.
-inline cudaError_t make_slab_map(CUtensorMap* map, const void* packed, int blocks, int H,
-                                 bool int8 = false) {
-  const int row_bytes = int8 ? 64 : 128;
+// A 3D tensor map over K8's packed gate slabs: `blocks` contiguous 96 x 64
+// bf16 k-slabs (K-major, rows of 128 bytes with the 128-byte swizzle),
+// loaded box_slabs consecutive slabs a box (K2's and K4's maps:
+// decode_hopper.cuh make_decode_map).
+inline cudaError_t make_slab_map(CUtensorMap* map, const void* packed, int blocks, int H) {
   const uint64_t dims[3] = {64, (uint64_t)kSlabRows, (uint64_t)blocks};
-  const uint64_t strides[2] = {(uint64_t)row_bytes, (uint64_t)kSlabRows * row_bytes};
+  const uint64_t strides[2] = {128, (uint64_t)kSlabRows * 128};
   const uint32_t box[3] = {64, (uint32_t)kSlabRows, (uint32_t)box_slabs(H)};
-  return make_map(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                  3, packed, dims, strides, box,
-                  int8 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, packed, dims, strides, box);
 }
 
 // Launch `kernel` on `clusters` clusters of C CTAs of `threads` threads
@@ -521,14 +517,15 @@ inline int max_clusters(Kernel kernel, int C, size_t smem, int threads = kThread
   return n;
 }
 
-// The launch's checks, shared with K2 and K4: C in {1, 2, 4, 8} owning
-// whole 64-unit k-blocks each, at most 8 chunks a consumer warpgroup, a ring
-// of 2..kMaxStages stages that fits beside `tiles` h tiles.
-inline bool plan_fits(int H, int C, int stages, int tiles, int row_bytes = 128) {
+// K8's launch checks: C in {1, 2, 4, 8} owning whole 64-unit k-blocks
+// each, at most 8 chunks a consumer warpgroup, a ring of 2..kMaxStages
+// stages that fits beside `tiles` h tiles (K2's and K4's: decode_hopper.cuh
+// decode_plan_fits).
+inline bool plan_fits(int H, int C, int stages, int tiles) {
   if (H % 64 != 0 || H <= 0 || C < 1 || C > kMaxCluster || (C & (C - 1)) != 0) return false;
   if ((H / 64) % C != 0 || H / C > 8 * kConsumers * kUnits) return false;
   if (stages < 2 || stages > kMaxStages) return false;
-  return smem_bytes(H, tiles, stages, row_bytes) <= (size_t)kSmemBudget;
+  return smem_bytes(H, tiles, stages) <= (size_t)kSmemBudget;
 }
 
 inline int chunks_per_warpgroup(int H, int C) {

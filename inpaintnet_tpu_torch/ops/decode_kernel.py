@@ -35,9 +35,14 @@ scales, packed slabs and tensor map, built once per set of weight tensors
 (:func:`decode_int8_weights`), and each call's row scales, quantized init
 hiddens and beat context (:func:`decode_int8_data`).
 
-Both take every width up to 512 (:func:`decode_supports`): a width that
-is not whole 64-unit blocks runs at the next one that is, on zero units
-(:func:`decode_padded_operands`); the logits and samples need no slicing.
+Both take every width up to 512, and in bf16 masters up to 717
+(:func:`decode_supports`, ``kernel_common.decode_width``): a width no plan
+takes runs at the next one that one does (whole 64-unit blocks; above 512
+one that K2's and K4's clusters split and whose rings fit, so 641-717 run
+at 768), on zero units (:func:`decode_padded_operands`); the logits and
+samples need no slicing. Above 512 units the plans take an odd cluster (3
+CTAs at 576) and boxes of one k-slab or, K2 at 768, half of one
+(``kernel_common.decode_box_halves``, :func:`slab_map`).
 
 The wrappers run the plain versions for CPU tensors only; for CUDA tensors
 they launch the kernel or raise.
@@ -59,20 +64,18 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     WeightCache,
     check_cuda_tensor,
     check_launch,
-    cluster_sizes,
     counts_launches,
+    decode_cluster_sizes,
+    decode_stages,
+    decode_width,
     fitting_clusters,
     gru_gates_f32,
-    kernel_width,
     least_cost_cluster,
     load_kernels,
     pad_cell,
     pad_units,
     padded_cache,
-    recurrence_plan,
     recurrence_slots,
-    ring_stages,
-    slab_map,
     split_bf16_pieces,
     split_blocks,
     stream_ptr,
@@ -99,11 +102,36 @@ def _ctx_xw(params, tick_ctx: torch.Tensor) -> torch.Tensor:
     return ctx_xw.transpose(0, 1).contiguous()
 
 
-def decode_inputs(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor) -> dict:
+def narrow_ctx_xw(params, tick_ctx: torch.Tensor, padded: int) -> torch.Tensor:
+    """The beat context's projection (``decode_inputs``' ``ctx_xw``) of the
+    decoder at its own width H, with zero units up to ``padded``: what the
+    wrappers hand a launch at the padded width, so that its one product of
+    real values over H (the only sum of the data part that is not exact)
+    is the plain version's, bit for bit. Taken at the padded depth, cuBLAS
+    may block it otherwise (a bf16 rounding of it moved K4's logits at 704
+    on 768 units, NVIDIA H100 80GB HBM3)."""
+    return pad_units(_ctx_xw(params, tick_ctx), tick_ctx.shape[2], padded, 3)
+
+
+def _at_width(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor) -> tuple:
+    """What K2's and K4's wrappers launch on: at ``decode_width(H)`` on zero
+    units (:func:`decode_padded_operands`) with the beat context's
+    projection taken at H (:func:`narrow_ctx_xw`) where the plans do not
+    take H, else the operands as they are (the projection None: computed
+    from them). -> (params, tick_ctx, h_inits, ctx_xw)"""
+    padded = decode_width(tick_ctx.shape[2], tick_ctx.dtype)
+    if padded in (None, tick_ctx.shape[2]):
+        return params, tick_ctx, h_inits, None
+    return (*decode_padded_operands(params, tick_ctx, h_inits),
+            narrow_ctx_xw(params, tick_ctx, padded))
+
+
+def decode_inputs(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor, ctx_xw=None) -> dict:
     """The loop's precomputed operands, all in the parameter dtype:
     ``tok_tab`` (V, 3H) = emb @ W_ih0[:E]; ``x0_xw`` (3H,) = x_0 @ W_ih0[:E];
-    ``ctx_xw`` (4, B, 3H) = tick_ctx @ W_ih0[E:] + b_ih0; ``hi0``/``hi1``
-    (4, B, H) beat-major init hiddens."""
+    ``ctx_xw`` (4, B, 3H) = tick_ctx @ W_ih0[E:] + b_ih0 (unless given:
+    :func:`narrow_ctx_xw`); ``hi0``/``hi1`` (4, B, H) beat-major init
+    hiddens."""
     p0 = params["tick_gru"][0][0]
     dtype = p0["w_hh"].dtype
     emb = params["embedding"]["table"]
@@ -111,7 +139,7 @@ def decode_inputs(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor) -> dict
     return {
         "tok_tab": (emb.float() @ w_tok).to(dtype),
         "x0_xw": (params["x_0"].float() @ w_tok).to(dtype),
-        "ctx_xw": _ctx_xw(params, tick_ctx),
+        "ctx_xw": _ctx_xw(params, tick_ctx) if ctx_xw is None else ctx_xw,
         "hi0": h_inits[0].transpose(0, 1).contiguous(),
         "hi1": h_inits[1].transpose(0, 1).contiguous(),
     }
@@ -240,8 +268,8 @@ def _check_decode_args(name: str, params, tick_ctx: torch.Tensor, h_inits: torch
         raise ValueError(f"{name}: no kernel for dtype {dtype}")
     batch, num_beats, hidden = tick_ctx.shape
     kind = "int8" if name.endswith("int8") else dtype
-    if (num_beats != NUM_TICKS // TICKS_PER_BEAT or kernel_width(hidden) != hidden
-            or not decode_supports(hidden, kind)):
+    if (num_beats != NUM_TICKS // TICKS_PER_BEAT or decode_width(hidden, dtype) != hidden
+            or not decode_supports(hidden, kind, dtype)):
         raise ValueError(f"{name}: no kernel for (beats, hidden) {(num_beats, hidden)}")
     check_cuda_tensor("tick_ctx", tick_ctx, (batch, num_beats, hidden), dtype, device)
     check_cuda_tensor("h_inits", h_inits, (2, batch, num_beats, hidden), dtype, device)
@@ -259,18 +287,25 @@ def _check_decode_args(name: str, params, tick_ctx: torch.Tensor, h_inits: torch
 
 def launch_plan(rows: int, hidden: int, sms: int, slots=None) -> LaunchPlan:
     """How K2's bf16 route runs ``rows`` decode rows at ``hidden`` units on a
-    card of ``sms`` SMs: the cluster size (CTAs sharing a 64-row tile, each
-    computing ``hidden / cluster`` units of both layers) and the ring depth
-    beside the two h tiles (``kernel_common.recurrence_plan``; ``slots``: the
-    clusters of each size the card runs at once)."""
-    return recurrence_plan(rows, hidden, sms, h_tiles=2, slots=slots)
+    card of ``sms`` SMs: the cluster size of ``kernel_common.
+    least_cost_cluster`` among ``decode_cluster_sizes`` (CTAs sharing a
+    64-row tile, each computing ``hidden / cluster`` units of both layers)
+    and the ring depth beside the two h tiles (``decode_stages``; ``slots``:
+    the clusters of each size the card runs at once). Up to 512 units it is
+    ``kernel_common.recurrence_plan``'s. Raises ValueError for a width no
+    plan takes."""
+    sizes, stages = decode_cluster_sizes(hidden), decode_stages(hidden, 2, 2)
+    if not sizes or stages < 2:
+        raise ValueError(f"no K2 plan for hidden size {hidden}")
+    return LaunchPlan(least_cost_cluster(rows, sizes, sms, slots), stages)
 
 
 def card_plan(rows: int, hidden: int, device) -> LaunchPlan:
     """:func:`launch_plan` on the card ``device`` names, with its own SM
     count and cluster slots: the plan :func:`decode_sampling` launches."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    slots = recurrence_slots("inpaint_decode_slots", hidden, ring_stages(hidden, 2), index)
+    slots = recurrence_slots("inpaint_decode_slots", hidden, decode_stages(hidden, 2, 2), index,
+                             tuple(decode_cluster_sizes(hidden)))
     return launch_plan(rows, hidden, torch.cuda.get_device_properties(index).multi_processor_count,
                        slots)
 
@@ -428,18 +463,22 @@ def _head_pad(vocab: int) -> tuple:
     return (0, head_chunks(vocab) * HEAD_COLS - vocab)
 
 
-def decode_supports(hidden: int, dtype) -> bool:
+def decode_supports(hidden: int, dtype, masters=None) -> bool:
     """Whether K2's route in ``dtype`` (K4's for ``"int8"``) has a plan at
-    ``hidden``, run at ``kernel_width(H)`` (:func:`decode_padded_operands`):
-    every width of ``kernel_supports_hidden`` does, at every vocabulary (the
-    head is a loop over chunks, :func:`head_chunks`). With
-    ``HierarchicalDecoder.use_kernel`` this is K2's and K4's gate."""
-    hidden = kernel_width(hidden)
+    the width it runs ``hidden`` at in masters of ``masters`` (by default
+    ``dtype``, and bf16, K4's widest, for ``"int8"``), ``decode_width``
+    (:func:`decode_padded_operands`): every width up to 512 does, and in
+    bf16 every one up to 768, at every vocabulary (the head is a loop over
+    chunks, :func:`head_chunks`). With ``HierarchicalDecoder.use_kernel``
+    (``kernel_common.decode_supports_hidden``: bf16 up to 717) this is K2's
+    and K4's gate."""
+    masters = masters or (torch.bfloat16 if dtype == "int8" else dtype)
+    hidden = decode_width(hidden, masters)
     if hidden is None:
         return False
     if dtype == "int8" or dtype == torch.bfloat16:
         h_tiles, elem = (4, 1) if dtype == "int8" else (2, 2)
-        return bool(cluster_sizes(hidden)) and ring_stages(hidden, h_tiles, elem) >= 2
+        return bool(decode_cluster_sizes(hidden)) and decode_stages(hidden, h_tiles, elem) >= 2
     return dtype == torch.float32 and bool(f32_cluster_sizes(hidden))
 
 
@@ -465,21 +504,38 @@ def _build_padded_decoder(*weights, padded: int) -> dict:
 padded_decoder = padded_cache(_build_padded_decoder)
 
 
-def decode_padded_operands(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor) -> tuple:
-    """K2's and K4's operands at ``kernel_width(H)`` units: the tick GRU with
-    zero units (``kernel_common.pad_cell``: layer 0's W_ih rows of the beat
-    context, layer 1's W_ih rows, the head's input rows), the beat context
-    and the (SELU'd beat-to-tick) init hiddens with zero units. The token
-    table, ``x_0`` and the head's columns are unchanged, so the logits and
-    samples are the narrow decoder's: no slicing. K4's per-row bound and
-    column scales see only zeros more. -> (params, tick_ctx, h_inits)"""
+def decode_padded_operands(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor,
+                           padded=None) -> tuple:
+    """K2's and K4's operands at ``decode_width(H)`` units (or ``padded``):
+    the tick GRU with zero units (``kernel_common.pad_cell``: layer 0's W_ih
+    rows of the beat context, layer 1's W_ih rows, the head's input rows),
+    the beat context and the (SELU'd beat-to-tick) init hiddens with zero
+    units. The token table, ``x_0`` and the head's columns are unchanged, so
+    the logits and samples are the narrow decoder's: no slicing. K4's
+    per-row bound and column scales see only zeros more. -> (params,
+    tick_ctx, h_inits)"""
     hidden = tick_ctx.shape[2]
-    padded = kernel_width(hidden)
     p0, p1 = params["tick_gru"][0][0], params["tick_gru"][1][0]
+    padded = padded or decode_width(hidden, p0["w_hh"].dtype)
     narrow = padded_decoder(*(p[k] for p in (p0, p1) for k in CELL_KEYS), params["head"]["w"],
                             params["head"]["b"], padded=padded)
     return ({**narrow, "embedding": params["embedding"], "x_0": params["x_0"]},
             pad_units(tick_ctx, hidden, padded), pad_units(h_inits, hidden, padded))
+
+
+def slab_map(packed: torch.Tensor):
+    """The tensor map (a 128-byte CUtensorMap, in a host buffer) of K2's
+    bf16 or K4's int8 packed weights (:func:`pack_decode_weights`), boxes of
+    ``kernel_common.decode_box_halves`` halves of a k-slab (``csrc/
+    decode_hopper.cuh make_decode_map``). Keep ``packed`` alive as long as
+    the map."""
+    buf = ctypes.create_string_buffer(128 + 64)
+    addr = (ctypes.addressof(buf) + 63) // 64 * 64
+    int8 = packed.dtype == torch.int8
+    check_launch(load_kernels().inpaint_decode_map(
+        packed.data_ptr(), packed.shape[0] * packed.shape[1], packed.shape[1] * 64, int(int8),
+        addr), "decode slab_map")
+    return buf, addr
 
 
 def _build_decode_operands(w_hh0, w_ih1, w_hh1, head_w, b_hh0, b_ih1, b_hh1, head_b):
@@ -512,15 +568,13 @@ def decode_sampling(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
         return decode_sampling_reference(params, tick_ctx, h_inits)
     if tick_ctx.device.type != "cuda":
         raise ValueError(f"decode_sampling: no kernel for device {tick_ctx.device}")
-    padded = kernel_width(tick_ctx.shape[2])
-    if padded not in (None, tick_ctx.shape[2]):  # zero units up to whole 64-unit blocks
-        return decode_sampling(*decode_padded_operands(params, tick_ctx, h_inits))
+    params, tick_ctx, h_inits, ctx_xw = _at_width(params, tick_ctx, h_inits)
     batch, hidden, vocab, dtype, device = _check_decode_args("decode_sampling", params,
                                                              tick_ctx, h_inits)
     p0, p1 = params["tick_gru"][0][0], params["tick_gru"][1][0]
     ops = decode_operands(p0["w_hh"], p1["w_ih"], p1["w_hh"], params["head"]["w"],
                           p0["b_hh"], p1["b_ih"], p1["b_hh"], params["head"]["b"])
-    ins = decode_inputs(params, tick_ctx, h_inits)
+    ins = decode_inputs(params, tick_ctx, h_inits, ctx_xw)
     logits = torch.empty((batch, NUM_TICKS, vocab), dtype=dtype, device=device)
     samples = torch.empty((batch, NUM_TICKS), dtype=torch.int32, device=device)
     lib = load_kernels()
@@ -577,14 +631,16 @@ def _int8_weight_tensors(params) -> tuple:
             p1["b_hh"], params["head"]["b"])
 
 
-def decode_int8_data(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor) -> dict:
+def decode_int8_data(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor,
+                     ctx_xw=None) -> dict:
     """K4's data part, built on every call (see :func:`decode_int8_operands`):
-    ``q``, ``hi0``, ``hi1`` and ``ctx_xw``."""
+    ``q``, ``hi0``, ``hi1`` and ``ctx_xw`` (unless given:
+    :func:`narrow_ctx_xw`)."""
     bound = torch.clamp_min(h_inits.float().abs().amax(dim=(0, 2, 3)), 1.0)
     # a true division: ``127.0 / bound`` would be ``reciprocal(bound) * 127``;
     # the numerator made on the device (a host tensor's copy would not capture)
     q = torch.div(torch.full_like(bound, 127.0), bound)
-    return {"q": q, "ctx_xw": _ctx_xw(params, tick_ctx),
+    return {"q": q, "ctx_xw": _ctx_xw(params, tick_ctx) if ctx_xw is None else ctx_xw,
             "hi0": quantize_h_int8(h_inits[0], q[:, None, None]).transpose(0, 1).contiguous(),
             "hi1": quantize_h_int8(h_inits[1], q[:, None, None]).transpose(0, 1).contiguous()}
 
@@ -641,9 +697,11 @@ def int8_plan(hidden: int) -> LaunchPlan:
     faster than its units (its layers' registers spill more with more
     chunks a warpgroup): on an H100 at H 512, 8 CTAs a tile beat 2 and 4 at
     12,288 rows, and every other size at 2,048 and 6, on both masters
-    (PERF.md). Raises ValueError for a width no cluster size splits."""
-    sizes = cluster_sizes(hidden)
-    stages = ring_stages(hidden, 4, 1)
+    (PERF.md). Above 512 units: 3 at 576, 2 at 640, 4 at 768
+    (``kernel_common.decode_cluster_sizes``). Raises ValueError for a width
+    no cluster size splits."""
+    sizes = decode_cluster_sizes(hidden)
+    stages = decode_stages(hidden, 4, 1)
     if not sizes or stages < 2:
         raise ValueError(f"no K4 plan for hidden size {hidden}")
     return LaunchPlan(max(sizes), stages)
@@ -708,13 +766,11 @@ def decode_sampling_int8(params, tick_ctx: torch.Tensor, h_inits: torch.Tensor):
         return decode_sampling_int8_reference(params, tick_ctx, h_inits)
     if tick_ctx.device.type != "cuda":
         raise ValueError(f"decode_sampling_int8: no kernel for device {tick_ctx.device}")
-    padded = kernel_width(tick_ctx.shape[2])
-    if padded not in (None, tick_ctx.shape[2]):  # zero units up to whole 64-unit blocks
-        return decode_sampling_int8(*decode_padded_operands(params, tick_ctx, h_inits))
+    params, tick_ctx, h_inits, ctx_xw = _at_width(params, tick_ctx, h_inits)
     batch, hidden, vocab, dtype, device = _check_decode_args("decode_sampling_int8", params,
                                                              tick_ctx, h_inits)
     w = decode_int8_weights(*_int8_weight_tensors(params))
-    d = decode_int8_data(params, tick_ctx, h_inits)
+    d = decode_int8_data(params, tick_ctx, h_inits, ctx_xw)
     plan = int8_plan(hidden)
     logits = torch.empty((batch, NUM_TICKS, vocab), dtype=dtype, device=device)
     samples = torch.empty((batch, NUM_TICKS), dtype=torch.int32, device=device)

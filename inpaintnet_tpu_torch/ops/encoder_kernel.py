@@ -40,12 +40,14 @@ carry and h_n stay undropped. The kernels do it in layer 0's own store
 (``csrc/encoder_gru.cu``); :func:`encoder_hn_reference` and
 :func:`encoder_hn_staged_reference` are its plain versions.
 
-Both take every width up to 512 (``kernel_common.kernel_supports_hidden``):
-a width that is not whole 64-unit blocks runs at the next one that is, on
-zero units (:func:`encoder_padded_operands`), and h_n is sliced back. In
-K3 a zero column quantizes to q = 0 at the floored scale
-(``quantize.quantize_cols_int8``) and a padded h to 0, so no real unit's
-product, scale or bound moves.
+Both take every width up to 512, and in bf16 masters up to 577
+(``kernel_common.encoder_width``): a width that is not whole 64-unit blocks
+runs at the next one that is, on zero units (:func:`encoder_padded_operands`),
+and h_n is sliced back. In K3 a zero column quantizes to q = 0 at the
+floored scale (``quantize.quantize_cols_int8``) and a padded h to 0, so no
+real unit's product, scale or bound moves. Above 512 units K1's bf16
+recurrence block runs two consumer warpgroups, not four
+(:func:`encoder_consumers`).
 
 The wrappers run the plain versions for CPU tensors only; for CUDA tensors
 they launch the kernels or raise.
@@ -61,12 +63,13 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     CELL_KEYS,
     DTYPE_CODES,
     HOPPER_ROWS,
+    HOPPER_SMEM_BUDGET,
     WeightCache,
     check_cuda_tensor,
     check_launch,
     counts_launches,
+    encoder_width,
     gru_gates_f32,
-    kernel_width,
     load_kernels,
     pad_cell,
     pad_units,
@@ -95,6 +98,8 @@ def fused_tables(gru_params, emb_table: torch.Tensor):
 # The Hopper kernels' geometry (csrc/encoder_hopper.cuh)
 REC_ROWS = 64  # rows of a recurrence block
 GATE_UNITS = 32  # hidden units of a gate chunk: its r, z, n rows form one W slab
+REC_STAGE_BYTES = 3 * GATE_UNITS * 128  # one W_hh k-slab of a chunk: 12 KB
+REC_STAGES = {2: 2, 1: 3}  # ring stages a consumer warpgroup, by h's bytes: bf16, int8
 # Largest f32 / int32 layer-1 projection scratch a call allocates: the rows
 # are encoded in chunks of a power of two of rows under it (8,192 rows of
 # 24 steps at H 512: 2.4 GB).
@@ -117,6 +122,24 @@ def encoder_chunk_rows(batch: int, seq_len: int, hidden: int, max_chunk_rows=Non
     if max_chunk_rows is not None:
         rows = min(rows, max_chunk_rows)
     return max(1, min(rows, batch))
+
+
+def encoder_rec_smem_bytes(hidden: int, elem_bytes: int, consumers: int) -> int:
+    """Dynamic shared memory of a K1 bf16 (``elem_bytes`` 2) or K3 (1)
+    recurrence block (``csrc/encoder_hopper.cuh rec_smem_bytes``): two 64-row
+    h tiles of K padded to whole 128-byte k-slabs, and each consumer
+    warpgroup's ring."""
+    padded_k = round_up(hidden, 128 // elem_bytes)
+    return (2 * REC_ROWS * padded_k * elem_bytes
+            + consumers * REC_STAGES[elem_bytes] * REC_STAGE_BYTES + 1024)
+
+
+def encoder_consumers(hidden: int, elem_bytes: int) -> int:
+    """Consumer warpgroups of a K1 bf16 / K3 recurrence block: 4 where their
+    rings fit beside the two h tiles (every width up to 512, and K3's up to
+    640: 2 x 64 x 640 int8 + 4 x 3 x 12 KB), else 2 (K1 bf16 above 512: at
+    640, 160 KB of tiles + 2 x 2 x 12 KB)."""
+    return 4 if encoder_rec_smem_bytes(hidden, elem_bytes, 4) <= HOPPER_SMEM_BUDGET else 2
 
 
 def encoder_cuda_launches(dtype, batch: int, seq_len: int, hidden: int,
@@ -285,16 +308,16 @@ def _build_padded_encoder(*weights, padded: int) -> list:
 padded_encoder = padded_cache(_build_padded_encoder)
 
 
-def encoder_padded_operands(gru_params, keep=None) -> tuple:
-    """K1's and K3's operands at ``kernel_width(H)`` units: the GRU with zero
-    units (``kernel_common.pad_cell``; layer 1's W_ih rows padded in both
-    halves of the [forward | backward] concat), and the training mode's
-    keep mask (B, T, 2H) padded in both halves (a padded unit's output is
-    0, dropped or kept). The plain versions on them, sliced back to H
-    units, are the plain versions at H; the embedding and tokens are
-    unchanged. -> (gru_params, keep)"""
+def encoder_padded_operands(gru_params, keep=None, padded=None) -> tuple:
+    """K1's and K3's operands at ``encoder_width(H)`` units (or ``padded``):
+    the GRU with zero units (``kernel_common.pad_cell``; layer 1's W_ih rows
+    padded in both halves of the [forward | backward] concat), and the
+    training mode's keep mask (B, T, 2H) padded in both halves (a padded
+    unit's output is 0, dropped or kept). The plain versions on them,
+    sliced back to H units, are the plain versions at H; the embedding and
+    tokens are unchanged. -> (gru_params, keep)"""
     hidden = gru_params[0][0]["w_hh"].shape[0]
-    padded = kernel_width(hidden)
+    padded = padded or encoder_width(hidden, gru_params[0][0]["w_hh"].dtype)
     params = padded_encoder(*(p[k] for layer in gru_params for p in layer for k in CELL_KEYS),
                             padded=padded)
     return params, None if keep is None else pad_units(keep, hidden, padded, 2)
@@ -316,8 +339,8 @@ def _check_encoder_args(name: str, gru_params, emb_table: torch.Tensor, tokens: 
     if dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: no kernel for dtype {dtype}")
     hidden = p0f["w_hh"].shape[0]
-    if kernel_width(hidden) != hidden:
-        raise ValueError(f"{name}: no kernel for hidden size {hidden}")
+    if encoder_width(hidden, dtype) != hidden:
+        raise ValueError(f"{name}: no kernel for hidden size {hidden} in {dtype}")
     batch, seq_len = tokens.shape
     vocab, emb_dim = emb_table.shape
     check_cuda_tensor("tokens", tokens, (batch, seq_len), torch.int32, device)
@@ -332,11 +355,13 @@ def _check_encoder_args(name: str, gru_params, emb_table: torch.Tensor, tokens: 
 
 
 def _check_projection_args(name: str, ys: torch.Tensor, w_ih: torch.Tensor, dtype):
-    """-> (rows M, hidden); raises ValueError on what the GEMM does not take."""
+    """-> (rows M, hidden); raises ValueError on what the GEMM does not take
+    (in f32 the widths of f32 masters, else those of bf16 ones)."""
     if ys.dim() != 2 or ys.shape[1] % 2:
         raise ValueError(f"{name}: ys must be (M, 2H), got {tuple(ys.shape)}")
     rows, hidden = ys.shape[0], ys.shape[1] // 2
-    if kernel_width(hidden) != hidden:
+    masters = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    if encoder_width(hidden, masters) != hidden:
         raise ValueError(f"{name}: no kernel for hidden size {hidden}")
     check_cuda_tensor("ys", ys, (rows, 2 * hidden), dtype, ys.device)
     check_cuda_tensor("w_ih", w_ih, (2, 2 * hidden, 3 * hidden), dtype, ys.device)
@@ -455,7 +480,7 @@ def encoder_hn(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
     if tokens.device.type != "cuda":
         raise ValueError(f"encoder_hn: no kernel for device {tokens.device}")
     hidden = _encoder_hidden("encoder_hn", gru_params)
-    padded = kernel_width(hidden)
+    padded = encoder_width(hidden, gru_params[0][0]["w_hh"].dtype)
     if padded not in (None, hidden):  # zero units up to whole 64-unit blocks
         params, keep = encoder_padded_operands(gru_params, keep)
         return unpad_units(encoder_hn(params, emb_table, tokens, max_chunk_rows, keep, rate),
@@ -502,6 +527,7 @@ def encoder_hn(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
         whh0, whh1 = (torch.stack([pack_gate_slabs(p["w_hh"], 64) for p in layer])
                       for layer in gru_params)
         wih1_t = torch.stack([p["w_ih"].t() for p in gru_params[1]]).contiguous()
+        consumers = encoder_consumers(hidden, 2)
 
         def rec(layer, ys, xw, row0, rows):
             args = ((whh0, tokens, xtab, None, b["b_ih0"], b["b_hh0"]) if layer == 0 else
@@ -509,7 +535,7 @@ def encoder_hn(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
             check_launch(lib.inpaint_encoder_rec_bf16(
                 layer, *(None if a is None else a.data_ptr() for a in args), ys.data_ptr(),
                 h_n[2 * layer].data_ptr(), keep_ptr[layer], batch, row0, rows, seq_len,
-                hidden, vocab, 1.0 - rate, stream_ptr()), "encoder_hn")
+                hidden, vocab, consumers, 1.0 - rate, stream_ptr()), "encoder_hn")
 
         def gemm(ys, xw, m):
             check_launch(lib.inpaint_encoder_gemm_bf16(
@@ -688,7 +714,7 @@ def encoder_hn_int8(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
     if tokens.device.type != "cuda":
         raise ValueError(f"encoder_hn_int8: no kernel for device {tokens.device}")
     hidden = _encoder_hidden("encoder_hn_int8", gru_params)
-    padded = kernel_width(hidden)
+    padded = encoder_width(hidden, gru_params[0][0]["w_hh"].dtype)
     if padded not in (None, hidden):  # zero units: q = 0 at a floored scale, bit-equal at H
         return unpad_units(encoder_hn_int8(encoder_padded_operands(gru_params)[0], emb_table,
                                            tokens, max_chunk_rows), hidden, padded)
@@ -706,6 +732,7 @@ def encoder_hn_int8(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
                                             "bih0", "bhh0", "bih1", "bhh1")}
     h_n = torch.empty((4, batch, hidden), dtype=dtype, device=device)
     lib = load_kernels()
+    consumers = encoder_consumers(hidden, 1)
 
     def rec(layer, ys, xw, row0, rows):
         args = ((whh0, tokens, xtab, None) if layer == 0 else (whh1, None, None, xw))
@@ -713,7 +740,7 @@ def encoder_hn_int8(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
         check_launch(lib.inpaint_encoder_rec_int8(
             DTYPE_CODES[dtype], layer, *(None if a is None else a.data_ptr() for a in args),
             ys.data_ptr(), h_n[2 * layer].data_ptr(), batch, row0, rows, seq_len, hidden,
-            vocab, stream_ptr()), "encoder_hn_int8")
+            vocab, consumers, stream_ptr()), "encoder_hn_int8")
 
     def gemm(ys, xw, m):
         check_launch(lib.inpaint_encoder_gemm_int8(

@@ -20,14 +20,19 @@
 - The Hopper recurrences of K8, K2 and K4 (``csrc/gru_layer_hopper.cuh``,
   ``csrc/decode_hopper.cuh``): their launch plan (``recurrence_plan``: the
   cluster size and ring depth from the shape and the h tiles' element
-  size), the CTAs a plan launches (``plan_blocks``), the tensor map of
-  their packed weights (``slab_map``, bf16 or int8), and ``WeightCache``,
+  size; K2's and K4's own sizes and boxes above 512 units,
+  :func:`decode_cluster_sizes`, :func:`decode_box_halves`,
+  :func:`decode_stages`), the CTAs a plan launches (``plan_blocks``), the
+  tensor map of K8's packed weights (``slab_map``), and ``WeightCache``,
   which builds such per-weight operands once per weight tensor.
-- The widths: :func:`kernel_supports_hidden` (K1-K4) and
-  :func:`gru_layer_supports_hidden` (K8) take every width up to their
-  ceilings; a wrapper runs a layer at :func:`kernel_width` or
-  :func:`gru_layer_width` (:func:`padded_width`), the units past its width
-  zero (:func:`pad_units`, :func:`pad_cell`; ``gate_padding`` is
+- The widths: K1-K4 take every width up to 512 in both dtypes and, in
+  bf16 masters, K1/K3 up to 577 and K2/K4 up to 717
+  (:func:`encoder_supports_hidden`, :func:`decode_supports_hidden`), K7 up
+  to 512 (:func:`kernel_width`), K8 up to 1024
+  (:func:`gru_layer_supports_hidden`); each runs a layer at a width its
+  plans take (:func:`encoder_width`, :func:`decode_width`,
+  :func:`gru_layer_width`, all over :func:`padded_width`), the units past
+  its width zero (:func:`pad_units`, :func:`pad_cell`; ``gate_padding`` is
   the seam where a check plants the gate-major layout).
 - ``check_cuda_tensor``: the wrappers' argument checks.
 - ``counts_launches``: the wrappers' ``launches`` counters
@@ -149,7 +154,14 @@ def split_product(a: torch.Tensor, w: torch.Tensor, pieces: int = 3) -> torch.Te
     return out
 
 
-KERNEL_MAX_HIDDEN = 512  # K1-K4's and K7's widest layer: a row tile in one block's shared memory
+# K7's widest layer, and K1-K4's in f32: a row tile in one block's shared memory
+KERNEL_MAX_HIDDEN = 512
+# K1/K3's and K2/K4's widest layer in bf16 masters (the JAX kernels' VMEM
+# gates: ``inpaintnet_tpu/models/measure_vae.py`` ``Encoder._use_pallas``,
+# ``HierarchicalDecoder._use_pallas_decode`` at V <= 128), and the widest
+# their kernels run one at (on zero units)
+ENCODER_MAX_HIDDEN, ENCODER_MAX_WIDTH = 577, 640
+DECODE_MAX_HIDDEN, DECODE_MAX_WIDTH = 717, 768
 LAYER_MAX_HIDDEN = 1024  # K5, K6 and K8's: the LatentRNN's generation GRU (H * layers)
 
 
@@ -165,22 +177,61 @@ def padded_width(hidden: int, takes, most: int = LAYER_MAX_HIDDEN):
 
 @functools.lru_cache(maxsize=None)
 def kernel_width(hidden: int):
-    """The width K1-K4 (and K7, for H and C) run ``hidden`` units at
-    (:func:`padded_width`): whole 64-unit blocks (so every product depth is
-    a multiple of the int8 ``mma`` depth of 32, and the bf16 one of 16), up
-    to 512, a row tile that fits one block's shared memory; None above. A
-    wrapper runs a layer whose width this is not on zero units."""
+    """The width K7 (for H and C) and K1-K4 in f32 masters run ``hidden``
+    units at (:func:`padded_width`): whole 64-unit blocks (so every product
+    depth is a multiple of the int8 ``mma`` depth of 32, and the bf16 one of
+    16), up to 512, a row tile that fits one block's shared memory; None
+    above. A wrapper runs a layer whose width this is not on zero units."""
     return padded_width(hidden, lambda w: True, KERNEL_MAX_HIDDEN)
 
 
-def kernel_supports_hidden(hidden: int) -> bool:
-    """Hidden widths K1-K4 take, bf16/f32 (K1, K2) and int8 (K3, K4) alike:
-    every width up to 512, at :func:`kernel_width`, on zero units
-    (:func:`pad_units`), which computes the narrow layer's function exactly.
-    K5/K6, K7 and K8 have gates of their own
+@functools.lru_cache(maxsize=None)
+def encoder_width(hidden: int, dtype=None):
+    """The width K1 and K3 run ``hidden`` units at in masters of ``dtype``
+    (K3 quantizes from them; None: the widths every dtype takes): in f32,
+    :func:`kernel_width`; in bf16, whole 64-unit blocks up to 640 (two h
+    tiles of 64 x 640 bf16 leave the recurrence block room for two consumer
+    warpgroups' rings, ``encoder_kernel.encoder_consumers``), so 577 runs at
+    640; None above."""
+    if dtype != torch.bfloat16:
+        return kernel_width(hidden)
+    return padded_width(hidden, lambda w: True, ENCODER_MAX_WIDTH)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_width(hidden: int, dtype=None):
+    """The width K2 and K4 run ``hidden`` units at in masters of ``dtype``
+    (None: the widths every dtype takes): in f32, :func:`kernel_width`; in
+    bf16, the least multiple of 64 up to 768 at which both K2's bf16 route
+    and K4 have a plan (:func:`decode_cluster_sizes`, :func:`decode_stages`):
+    every one up to 640 (576 on 3 CTAs a tile) and 768 (704's 11 blocks
+    split over no portable cluster, so 641-704 run at 768); None above."""
+    if dtype != torch.bfloat16:
+        return kernel_width(hidden)
+    return padded_width(hidden, lambda w: bool(decode_cluster_sizes(w))
+                        and decode_stages(w, 2, 2) >= 2 and decode_stages(w, 4, 1) >= 2,
+                        DECODE_MAX_WIDTH)
+
+
+def encoder_supports_hidden(hidden: int, dtype=None) -> bool:
+    """K1's and K3's gate in masters of ``dtype`` (None: in either): every
+    width up to 512, and in bf16 up to 577 (the JAX kernel's; f32 and K3 on
+    f32 masters above 512 run the eager scan, as JAX's gate reads the
+    masters' itemsize), at :func:`encoder_width` on zero units
+    (:func:`pad_units`), which computes the narrow layer's function
+    exactly. K5/K6, K7 and K8 have gates of their own
     (``gru_train_kernel.trainfast_supports``,
     ``arnn_kernel.arnn_kernel_supports``, :func:`gru_layer_supports_hidden`)."""
-    return kernel_width(hidden) is not None
+    most = ENCODER_MAX_HIDDEN if dtype == torch.bfloat16 else KERNEL_MAX_HIDDEN
+    return hidden <= most and encoder_width(hidden, dtype) is not None
+
+
+def decode_supports_hidden(hidden: int, dtype=None) -> bool:
+    """K2's and K4's gate in masters of ``dtype`` (None: in either): every
+    width up to 512, and in bf16 up to 717 (the JAX kernel's at V <= 128),
+    at :func:`decode_width` on zero units."""
+    most = DECODE_MAX_HIDDEN if dtype == torch.bfloat16 else KERNEL_MAX_HIDDEN
+    return hidden <= most and decode_width(hidden, dtype) is not None
 
 
 @functools.lru_cache(maxsize=None)
@@ -316,6 +367,17 @@ def cluster_sizes(hidden: int) -> list:
             if hidden % 64 == 0 and blocks % c == 0 and hidden // c <= HOPPER_MAX_UNITS]
 
 
+def decode_cluster_sizes(hidden: int) -> list:
+    """K2's and K4's cluster sizes (``csrc/decode_hopper.cuh
+    decode_plan_fits``): :func:`cluster_sizes`, or where no power of two
+    splits the width, the odd portable sizes that do
+    (:func:`fitting_clusters`): 3 at H 576. The same as
+    :func:`cluster_sizes` up to 512 units (one CTA takes them all)."""
+    if hidden % 64 or hidden <= 0:
+        return []
+    return fitting_clusters(lambda c: (hidden // 64) % c == 0 and hidden // c <= HOPPER_MAX_UNITS)
+
+
 def box_slabs(hidden: int) -> int:
     """k-slabs a TMA box and a ring stage hold (``gru_layer_hopper.cuh
     box_slabs``): 2 where the 64-unit blocks pair up, else 1 (bf16 slabs of
@@ -332,6 +394,41 @@ def ring_stages(hidden: int, h_tiles: int, elem_bytes: int = 2) -> int:
     free = HOPPER_SMEM_BUDGET - 1024 - h_tiles * HOPPER_ROWS * hidden * elem_bytes
     stage = box_slabs(hidden) * HOPPER_SLAB_ROWS * 64 * elem_bytes
     return min(HOPPER_MAX_STAGES, free // (HOPPER_CONSUMERS * stage))
+
+
+def decode_box_halves(hidden: int, h_tiles: int, elem_bytes: int) -> int:
+    """Halves of a 64-value k-slab that a K2 / K4 TMA box and ring stage
+    hold beside ``h_tiles`` h tiles (``csrc/decode_hopper.cuh
+    decode_box_halves``): 2 :func:`box_slabs` where two stages of them fit,
+    else one slab (2), else in bf16 half of one (1; 32 values with the
+    64-byte swizzle); 0 where none fits. Up to H 512, 2 box_slabs: K2 at 640
+    takes one slab, at 768 half of one; K4 at 768 one."""
+    free = HOPPER_SMEM_BUDGET - 1024 - h_tiles * HOPPER_ROWS * hidden * elem_bytes
+    options = (2 * box_slabs(hidden), 2) + ((1,) if elem_bytes == 2 else ())
+    return next((kh for kh in options
+                 if free >= 2 * HOPPER_CONSUMERS * kh * HOPPER_SLAB_ROWS * 64 * elem_bytes // 2),
+                0)
+
+
+def decode_stages(hidden: int, h_tiles: int, elem_bytes: int) -> int:
+    """Ring stages of a K2 (2 bf16 tiles) or K4 (4 int8 tiles) consumer
+    warpgroup of :func:`decode_box_halves` boxes: :func:`ring_stages` up to
+    H 512; 3 for K2 at 576, 2 at 640 and 768; 6, 2 and 2 for K4. 0 where no
+    box fits."""
+    halves = decode_box_halves(hidden, h_tiles, elem_bytes)
+    if not halves:
+        return 0
+    free = HOPPER_SMEM_BUDGET - 1024 - h_tiles * HOPPER_ROWS * hidden * elem_bytes
+    stage = halves * HOPPER_SLAB_ROWS * 64 * elem_bytes // 2
+    return min(HOPPER_MAX_STAGES, free // (HOPPER_CONSUMERS * stage))
+
+
+def decode_smem_bytes(hidden: int, h_tiles: int, elem_bytes: int, stages: int) -> int:
+    """Dynamic shared memory of a K2 / K4 CTA (``csrc/decode_hopper.cuh
+    decode_smem_bytes``): its h tiles and the rings."""
+    halves = decode_box_halves(hidden, h_tiles, elem_bytes)
+    return (h_tiles * HOPPER_ROWS * hidden * elem_bytes
+            + HOPPER_CONSUMERS * stages * halves * HOPPER_SLAB_ROWS * 64 * elem_bytes // 2 + 1024)
 
 
 HOPPER_CTA_OVERHEAD = 0.02  # a CTA's fixed share of a wave, in tiles' work (see below)
@@ -369,13 +466,16 @@ def recurrence_plan(rows: int, hidden: int, sms: int, h_tiles: int, slots=None) 
 
 
 @functools.lru_cache(maxsize=None)
-def recurrence_slots(entry: str, hidden: int, stages: int, device_index: int) -> dict:
+def recurrence_slots(entry: str, hidden: int, stages: int, device_index: int,
+                     sizes: tuple = None) -> dict:
     """{C: clusters of C CTAs the card runs at once} for the Hopper
     recurrence whose kernel library entry point is ``entry``
-    (``inpaint_gru_layer_slots`` or ``inpaint_decode_slots``), asked once
-    per width and card."""
+    (``inpaint_gru_layer_slots`` or ``inpaint_decode_slots``), for each C of
+    ``sizes`` (default :func:`cluster_sizes`), asked once per width and
+    card."""
     with torch.cuda.device(device_index):
-        counts = {c: getattr(load_kernels(), entry)(hidden, c, stages) for c in cluster_sizes(hidden)}
+        counts = {c: getattr(load_kernels(), entry)(hidden, c, stages)
+                  for c in sizes or cluster_sizes(hidden)}
     bad = {c: n for c, n in counts.items() if n < 1}
     if bad:
         raise RuntimeError(f"{entry}: the card runs no cluster of sizes {sorted(bad)} "
@@ -394,18 +494,16 @@ def plan_blocks(rows: int, hidden: int, plan: LaunchPlan) -> list:
 
 
 def slab_map(packed: torch.Tensor):
-    """The tensor map (a 128-byte CUtensorMap, in a host buffer) of packed
-    (chunks, H / 64, 96, 64) gate blocks (``encoder_kernel.
-    pack_gate_blocks``) that the Hopper recurrences stream, ``box_slabs``
-    k-slabs a box: bf16 with the 128-byte swizzle, or int8 (K4's) with the
-    64-byte swizzle. Keep ``packed`` alive as long as the map."""
+    """The tensor map (a 128-byte CUtensorMap, in a host buffer) of K8's
+    packed (chunks, H / 64, 96, 64) bf16 gate blocks (``encoder_kernel.
+    pack_gate_blocks``), ``box_slabs`` k-slabs a box with the 128-byte
+    swizzle (K2's and K4's: ``decode_kernel.slab_map``). Keep ``packed``
+    alive as long as the map."""
     buf = ctypes.create_string_buffer(128 + 64)
     addr = (ctypes.addressof(buf) + 63) // 64 * 64
-    hidden = packed.shape[1] * 64
     blocks = packed.shape[0] * packed.shape[1]
-    lib = load_kernels()
-    entry = lib.inpaint_decode_int8_map if packed.dtype == torch.int8 else lib.inpaint_slab_map
-    check_launch(entry(packed.data_ptr(), blocks, hidden, addr), "slab_map")
+    check_launch(load_kernels().inpaint_slab_map(packed.data_ptr(), blocks, packed.shape[1] * 64,
+                                                 addr), "slab_map")
     return buf, addr
 
 
@@ -551,7 +649,7 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_encoder_w_map_f32.restype = i32
     lib.inpaint_encoder_gemm_f32.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]
     lib.inpaint_encoder_gemm_f32.restype = i32
-    lib.inpaint_encoder_rec_bf16.argtypes = [i32] + [ptr] * 9 + [i32] * 6 + [f32, ptr]
+    lib.inpaint_encoder_rec_bf16.argtypes = [i32] + [ptr] * 9 + [i32] * 7 + [f32, ptr]
     lib.inpaint_encoder_rec_bf16.restype = i32
     lib.inpaint_encoder_gemm_bf16.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]
     lib.inpaint_encoder_gemm_bf16.restype = i32
@@ -571,14 +669,14 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_gru_layer_slots.restype = i32
     lib.inpaint_decode_slots.argtypes = [i32] * 3
     lib.inpaint_decode_slots.restype = i32
-    lib.inpaint_encoder_rec_int8.argtypes = [i32] * 2 + [ptr] * 10 + [i32] * 6 + [ptr]
+    lib.inpaint_encoder_rec_int8.argtypes = [i32] * 2 + [ptr] * 10 + [i32] * 7 + [ptr]
     lib.inpaint_encoder_rec_int8.restype = i32
     lib.inpaint_encoder_gemm_int8.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
     lib.inpaint_encoder_gemm_int8.restype = i32
     lib.inpaint_decode_sampling_int8.argtypes = [i32] + [ptr] * 13 + [i32] * 6 + [ptr]
     lib.inpaint_decode_sampling_int8.restype = i32
-    lib.inpaint_decode_int8_map.argtypes = [ptr, i32, i32, ptr]
-    lib.inpaint_decode_int8_map.restype = i32
+    lib.inpaint_decode_map.argtypes = [ptr, i32, i32, i32, ptr]
+    lib.inpaint_decode_map.restype = i32
     lib.inpaint_gru_fwd_hopper.argtypes = [i32] + [ptr] * 6 + [i32] * 6 + [ptr]
     lib.inpaint_gru_fwd_hopper.restype = i32
     lib.inpaint_gru_fwd_w_map.argtypes = [ptr] + [i32] * 3 + [ptr]

@@ -562,9 +562,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         encoder_kernel.encoder_hn(gru, table, tokens)
     with pytest.raises(ValueError, match="contiguous"):
         encoder_kernel.encoder_hn(gru, table, tokens.int().t().contiguous().t())
-    with pytest.raises(ValueError, match="hidden size"):  # past the 512 ceiling
-        odd = _tree(gru_init(rng, 10, 576, 2, True), cuda, torch.bfloat16, rng)
+    with pytest.raises(ValueError, match="hidden size"):  # past bf16's 640 ceiling
+        odd = _tree(gru_init(rng, 10, 704, 2, True), cuda, torch.bfloat16, rng)
         encoder_kernel.encoder_hn(odd, table, tokens.int())
+    with pytest.raises(ValueError, match="hidden size"):  # past f32's 512
+        wide = _tree(gru_init(rng, 10, 576, 2, True), cuda, torch.float32, rng)
+        encoder_kernel.encoder_hn(wide, table.float(), tokens.int())
     with pytest.raises(ValueError, match="dtype"):
         encoder_kernel.encoder_hn_int8(gru, table, tokens)
     with pytest.raises(ValueError, match="hidden size"):
@@ -1351,7 +1354,7 @@ def test_gradient_through_k2_reaches_the_generation_gru(cuda, monkeypatch):
     before = decode_kernel.decode_sampling.launches
     got = grads()
     assert decode_kernel.decode_sampling.launches == before + 1
-    monkeypatch.setattr(vae.decoder, "use_kernel", lambda: False)
+    monkeypatch.setattr(vae.decoder, "use_kernel", lambda dtype=None: False)
     _same_grads(got, grads(), "generation_rnn")
 
 
@@ -1378,7 +1381,7 @@ def test_gradient_through_k1_matches_the_eager_scan(cuda, monkeypatch):
     before = encoder_kernel.encoder_hn.launches
     got = grads()
     assert encoder_kernel.encoder_hn.launches == before + 1
-    monkeypatch.setattr(vae.encoder, "use_kernel", lambda: False)
+    monkeypatch.setattr(vae.encoder, "use_kernel", lambda dtype=None: False)
     _same_grads(got, grads(), "gru")
 
 

@@ -101,7 +101,7 @@ def test_decode_gradient_is_the_eager_scans(open_jax_gates, monkeypatch, quant):
     got = _grads_of(loss, params, torch.from_numpy(z))
     assert (decode_kernel.decode_sampling.launches
             + decode_kernel.decode_sampling_int8.launches) == before
-    monkeypatch.setattr(dec, "use_kernel", lambda: False)
+    monkeypatch.setattr(dec, "use_kernel", lambda dtype=None: False)
     eager = _grads_of(loss, params, torch.from_numpy(z))
 
     jp = jax.tree_util.tree_map(jnp.asarray, jvae.params["decoder"])
@@ -134,7 +134,7 @@ def test_encoder_gradient_is_the_eager_scans(open_jax_gates, monkeypatch):
     before = encoder_kernel.encoder_hn.launches
     got = _grads_of(loss, params)
     assert encoder_kernel.encoder_hn.launches == before
-    monkeypatch.setattr(enc, "use_kernel", lambda: False)
+    monkeypatch.setattr(enc, "use_kernel", lambda dtype=None: False)
     eager = _grads_of(loss, params)
 
     def jloss(p):

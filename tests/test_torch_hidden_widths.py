@@ -135,14 +135,11 @@ class LeftForLater(NamedTuple):
     """The widths at which the JAX package's gates take a kernel and the
     port's do not yet (ROADMAP §2b): each needs a new shared-memory plan,
     not more 64-unit blocks."""
-    k1_k3_bf16: range  # H 513-577 (JAX: 15 H^2 x 2 bytes < 10e6)
-    k2_k4_bf16: range  # H 513-717 (JAX: at V <= 128)
     k7: range  # H or C above 512 (JAX: bf16 H = C <= 541; C <= 3,954 at H 256)
     k8: range  # above 1024 (JAX: no width gate)
 
 
-LEFT_FOR_LATER = LeftForLater(range(513, 578), range(513, 718), range(513, 3955),
-                              range(1025, 2 ** 31))
+LEFT_FOR_LATER = LeftForLater(range(513, 3955), range(1025, 2 ** 31))
 GATE_WIDTHS = range(8, 1025, 8)
 
 
@@ -182,17 +179,17 @@ def test_port_gates_take_what_the_jax_gates_take(on_tpu):
             port_self = SimpleNamespace(num_layers=2, rnn_hidden_size=hidden)
             jax_enc = SimpleNamespace(bidirectional=True, num_layers=2, rnn_hidden_size=hidden)
             taken["k1"] += _agree(JaxEncoder._use_pallas(jax_enc, {"gru": [None, [{"w_hh": w}]]}),
-                                  Encoder.use_kernel(port_self),
-                                  bf16 and hidden in left.k1_k3_bf16, ("K1/K3", hidden, dtype_t))
+                                  Encoder.use_kernel(port_self, dtype_t), False,
+                                  ("K1/K3", hidden, dtype_t))
             for vocab in (30, 60, 128, 256):
                 jax_dec = SimpleNamespace(num_layers=2, sampling="argmax", rnn_hidden_size=hidden,
                                           num_notes=vocab)
-                port_takes = (HierarchicalDecoder.use_kernel(port_self)
+                port_takes = (HierarchicalDecoder.use_kernel(port_self, dtype_t)
                               and decode_kernel.decode_supports(hidden, dtype_t)
-                              and decode_kernel.decode_supports(hidden, "int8"))
+                              and decode_kernel.decode_supports(hidden, "int8", dtype_t))
                 taken["k2"] += _agree(
                     JaxHD._use_pallas_decode(jax_dec, {"tick_gru": [[{"w_hh": w}]]}), port_takes,
-                    bf16 and hidden in left.k2_k4_bf16, ("K2/K4", hidden, vocab, dtype_t))
+                    False, ("K2/K4", hidden, vocab, dtype_t))
             # K5/K6 and K8: the JAX package's routes have no width gate
             taken["k5_k8"] += _agree(True, tk.trainfast_supports(hidden)
                                      and kc.gru_layer_supports_hidden(hidden, dtype_t),

@@ -477,12 +477,14 @@ def test_decode_int8_plan(rows, hidden, cluster, stages):
     """K4 takes the largest cluster size whatever the rows; its four int8 h
     tiles (each layer's double-buffered) are K2's two tiles' bytes, and its
     boxes of two 6 KB int8 k-slabs half K2's, so its rings get 4 stages at
-    H 512 against K2's 2."""
+    H 512 against K2's 2. Above 512 units: 576's nine blocks on an odd
+    cluster of 3, and 704's eleven on none (it runs at 768)."""
     plan = dk.int8_plan(hidden)
     assert plan == kc.LaunchPlan(cluster, stages)
     _assert_covers_once(rows, hidden, plan)
-    with pytest.raises(ValueError, match="hidden size 576"):
-        dk.int8_plan(576)
+    assert dk.int8_plan(576) == kc.LaunchPlan(3, 6)
+    with pytest.raises(ValueError, match="hidden size 704"):
+        dk.int8_plan(704)
 
 
 def test_int8_tiles_and_rings_fit_shared_memory():

@@ -246,7 +246,7 @@ def test_k2_k4_gates_cover_the_jax_gate(on_tpu):
     taken = 0
     for hidden in WIDTHS:
         port = PortHD.use_kernel(SimpleNamespace(num_layers=2, rnn_hidden_size=hidden))
-        assert port == kernel_common.kernel_supports_hidden(hidden)
+        assert port == kernel_common.decode_supports_hidden(hidden)
         for vocab in VOCABS:
             for dtype_j, dtype_t in DTYPES:
                 jax_self = SimpleNamespace(num_layers=2, sampling="argmax",
