@@ -270,24 +270,38 @@ Phases, each raising on failure:
    (launches counted from 0: K5 8 and K6 4 a target step, no eager step of
    that width), beside the same step on the eager loop, in turns, each
    route's ms and traced device launches;
-26. K1-K4 above 512 units in bf16 masters (K1/K3 to H 577, K2/K4 to H
-   717): the LatentRNN engine over a VAE whose encoder is 577 wide (K1 and
-   K3 at 640, on zero units) and whose decoder is 640 wide, bf16 and int8,
+26. K1-K4 above 512 units in bf16 masters (K1 to H 577, K3 to 527 where
+   the JAX package quantizes, K2/K4 to H 717): the LatentRNN engine over a
+   VAE whose encoder is 577 wide (K1 at 640, on zero units; int8 runs K1
+   there, unquantized as in the JAX package) and whose decoder is 640 wide,
+   bf16 and int8,
    each call on the eager route and the graph route, tokens and launches
    equal (launches counted from 0: K1-K4 must launch); the entry points
    (``Encoder.apply`` at H 576, the decode at H 704, run at 768), bf16
-   masters on the card against the CPU within ``BOUNDS``; K1 bf16 and K3
-   at H 576 and 577 at 2,048 and 65,536 rows, K1's training mode at 576,
+   masters on the card against the CPU within ``BOUNDS``; K1 bf16 at H 576
+   and 577 and K3 at 527 (run at 576) at 2,048 and 65,536 rows, K1's
+   training mode at 576,
    K2 bf16 and K4 at H 576, 640, 704 and 717 at 2,048 and 12,288 rows and
    V 60 and 128, each against its plain version (K3/K4 bit-equal) with one
    launch, the planted gate-major padding rejected where the width runs
    on zero units, and timed beside the same kernel at the padded width,
    its plain version, its bound and (K1) cuDNN.
+27. K7 at the JAX kernel gate's widest geometries: bf16 at (H, C) (576,
+   256), (600, 64) and (619, 16) (run at 576 and 640 on clusters of 9 and
+   10), at H 256 with C 1,024 and 3,954, f32 at H 256 with C 1,513; 512
+   rows and 1 row, V 60 and 90, each within ``ARNN_BOUNDS`` (V 90:
+   ``ARNN_HEAD_BOUNDS``) of its plain version, two CUDA launches a chunk,
+   the planted c carry and context projection faults rejected, a tie across
+   a head chunk at H 576 taken by its first index; the bf16 ARNN engine at
+   H 576 / C 256 on both routes, buckets 1 and 8; a gradient through K8's
+   ``"pallas"`` route equal to the eager loop's.
 
 Phase 26 runs after phase 4, before any engine holds a CUDA graph's
 memory pool; phase 17 after phase 7; phases 12-16 after phase 8, then
 phase 24 and phase 23, before the training phases; phases 18, 19, 20, 21,
-22 and 25 last. Prints one
+22, 25 and 27 last. ``--k7-sums`` runs only ``phase_k7_sums``: where K7's
+bf16 early-logit share comes from (its context GEMM's partials and its
+recurrence's sums, each against the plain version). Prints one
 JSON line of the eight kernels (each with its launches in phase 18,
 ``latent_train_launches``, in phase 19, ``arnn_train_launches``, and in
 phase 20's joint evaluation, ``eval_launches``, and in phase 23's graph
@@ -358,10 +372,17 @@ ENCODER_SHARE_BF16 = 0.15
 PLANTED_ROWS = 16384  # rows the plain version runs with the planted fault
 # The int8 main path on the card against the CPU (f32 masters): gate ulps of
 # the two devices' exp/tanh flip a few carry roundings, each of which moves
-# one row's z. Seen on an H100 (700 W): median 2.9e-5, max 9.6e-4; the
-# unquantized path on the card against the CPU's int8 (the control, which
-# must fail both bounds in every run): median 4.6e-4, max 3.8e-3.
+# one row's z. Seen on an H100 (700 W) at H 512: median 2.9e-5, max 9.6e-4;
+# the unquantized path on the card against the CPU's int8 (the control,
+# which must fail both bounds in every run): median 4.6e-4, max 3.8e-3. At
+# H 372 (INT8_REF_HIDDEN): median 4.8e-8, max 3.5e-7; the control median
+# 4.7e-4, max 4.0e-3 (NVIDIA H100 80GB HBM3, 700 W).
 Z_MEDIAN_INT8, Z_MAX_INT8 = 1e-4, 2e-3
+# The int8 check's model: f32 masters at the widest H whose encoder the JAX
+# package quantizes (18 H^2 x 4 bytes < 10e6; its decode to H 499 at V 60).
+# At the flagship's f32 H 512 the JAX package's kernel gates are closed and
+# int8 computes unquantized there, in both packages.
+INT8_REF_HIDDEN = 372
 # K5/K6 against their plain versions on the card, as the (max, mean) over
 # the outputs of |kernel - plain| / (1 + |plain|) (absolute below 1,
 # relative above: the products' sums grow with H). f32: both accumulate in
@@ -1931,13 +1952,15 @@ def phase_f32_engine(model, card: str) -> dict:
 def phase_reference(model, quantized: bool = True):
     """The main path on the card (kernels) against the same model on the
     CPU (plain versions) on a small input with shared noise, f32 masters:
-    unquantized (z and tokens), and with ``quantized`` int8 (z, by median
-    and max; the random weights' near-flat logits turn a flipped carry
-    rounding into other argmax tokens, so the token share is printed). The
+    unquantized (z and tokens), and with ``quantized`` int8 on a model of H
+    ``INT8_REF_HIDDEN``, where the JAX package quantizes (z, by median and
+    max; the random weights' near-flat logits turn a flipped carry rounding
+    into other argmax tokens, so the token share is printed). The
     unquantized path on the card against the int8 path on the CPU must fail
     both int8 bounds, or they could not tell the two apart. K3 and K4 at the
     engine's bf16 masters are held to their plain versions in phase 3."""
     from inpaintnet_tpu_torch.models.base import cast_params
+    from inpaintnet_tpu_torch.models.presets import build_flagship
 
     rng = np.random.default_rng(3)
     b = 4
@@ -1949,18 +1972,17 @@ def phase_reference(model, quantized: bool = True):
     tm = (np.arange(model.max_target) < N_TARGET)[None].repeat(b, 0).astype(np.float32)
     eps = rng.standard_normal((b * 2 * N_BARS, model.z_dim)).astype(np.float32)
 
-    def run(dev, quant):
-        params = cast_params(model.params(), dev, torch.float32)
-        vae_params = cast_params(model.vae_model.params(), dev, torch.float32)
+    def run(net, dev, quant):
+        params = cast_params(net.params(), dev, torch.float32)
+        vae_params = cast_params(net.vae_model.params(), dev, torch.float32)
         args = [torch.from_numpy(a).to(dev) for a in (past, future, pm, fm, tm, eps)]
         with torch.inference_mode():
-            lg, s, z = model.apply(params, vae_params, args[0], args[1], None,
-                                   past_mask=args[2], future_mask=args[3],
-                                   target_mask=args[4], eps=args[5], quant=quant)
+            lg, s, z = net.apply(params, vae_params, args[0], args[1], None,
+                                 past_mask=args[2], future_mask=args[3],
+                                 target_mask=args[4], eps=args[5], quant=quant)
         return lg.cpu(), s.cpu(), z.cpu()
 
-    quants = ("none", "int8") if quantized else ("none",)
-    outs = {(dev, quant): run(dev, quant) for quant in quants for dev in ("cuda", "cpu")}
+    outs = {(dev, "none"): run(model, dev, "none") for dev in ("cuda", "cpu")}
 
     def compare(card_quant, cpu_quant):
         (lg, s, z), (_, s_cpu, z_cpu) = outs["cuda", card_quant], outs["cpu", cpu_quant]
@@ -1977,9 +1999,17 @@ def phase_reference(model, quantized: bool = True):
         raise RuntimeError("the f32 main path on the card disagrees with the CPU")
     if not quantized:
         return
+    vocab = model.vae_model.decoder.num_notes
+    net = build_flagship(vocab_size=vocab, hidden=INT8_REF_HIDDEN, seed=0, device="cuda")[2]
+    vae = net.vae_model
+    if not (vae.encoder.quantizes(torch.float32) and vae.decoder.quantizes(torch.float32)):
+        raise RuntimeError(f"int8 does not quantize at f32 H {INT8_REF_HIDDEN}")
+    outs = {(dev, quant): run(net, dev, quant) for quant in ("none", "int8")
+            for dev in ("cuda", "cpu")}
     z_max, z_med, agree, ok = compare("int8", "int8")
     c_max, c_med, _, _ = compare("none", "int8")
-    print(f"[reference] int8 main path (f32 masters), card vs CPU plain: gen z max_abs_err "
+    print(f"[reference] int8 main path (f32 masters, H {INT8_REF_HIDDEN}), card vs CPU plain: "
+          f"gen z max_abs_err "
           f"{z_max:.3e} (bound {Z_MAX_INT8}), median {z_med:.3e} (bound {Z_MEDIAN_INT8}), "
           f"tokens equal {agree:.4f} (printed, no limit), finite {ok}; control, the "
           f"unquantized path on the card: max {c_max:.3e}, median {c_med:.3e}", flush=True)
@@ -2243,7 +2273,8 @@ def _k7_by_cluster(ak, hidden, linear, call, dtype=torch.bfloat16):
 
 # K7's Hopper routes as torch.profiler names their kernels: the context
 # projection GEMM and the recurrence, in bf16 and (split) in f32.
-K7_PARTS = {torch.bfloat16: (("GEMM", "encoder_xw_gemm_kernel"), ("recurrence", "arnn_kernel")),
+K7_PARTS = {torch.bfloat16: (("GEMM", "encoder_xw_gemm_split_kernel"),
+                             ("recurrence", "arnn_kernel")),
             torch.float32: (("GEMM", "encoder_xw_gemm_split_kernel"),
                             ("recurrence", "arnn_f32_kernel"))}
 
@@ -5522,6 +5553,7 @@ def _narrow_engines(card: str) -> dict:
 # H 717: the JAX kernels' VMEM gates)
 # ---------------------------------------------------------------------------
 WIDE_ENCODER = (576, 577)  # K1 at 576 on 2 consumer warpgroups; 577 at 640 on zero units
+WIDE_K3 = 527  # K3: the widest H the JAX package quantizes in bf16, run at 576
 WIDE_ENCODER_ROWS = (BATCH, 65536)  # the engine's batch, and the encoder's serving shape
 WIDE_DECODE = (576, 640, 704, 717)  # K2/K4 at 576 (3 CTAs), 640, and 768 (half-slab boxes)
 WIDE_DECODE_ROWS = (BATCH, BATCH * 6)
@@ -5580,7 +5612,7 @@ def _encoder_judge(name: str):
 
 
 def _wide_encoders(card: str) -> dict:
-    """K1 bf16 and K3 (bf16 masters) at ``WIDE_ENCODER`` x
+    """K1 bf16 at ``WIDE_ENCODER`` and K3 (bf16 masters) at ``WIDE_K3``, x
     ``WIDE_ENCODER_ROWS``, and K1's training mode at 576, on the layers'
     initialisation, 24 tokens a row, each against its plain version, the
     planted gate-major padding rejected where the width runs on zero units,
@@ -5591,7 +5623,7 @@ def _wide_encoders(card: str) -> dict:
     from inpaintnet_tpu_torch.ops.linear import embedding_init
 
     entries = {}
-    for hidden in WIDE_ENCODER:
+    for hidden in (*WIDE_ENCODER, WIDE_K3):
         rng = np.random.default_rng(hidden)
         init = gru_init(rng, 10, hidden, 2, True), embedding_init(rng, VOCAB, 10)["table"]
         gen = torch.Generator(device="cuda").manual_seed(hidden)
@@ -5600,9 +5632,9 @@ def _wide_encoders(card: str) -> dict:
         on_zero_units = padded[0][0]["w_hh"].shape[0] != hidden
         for rows in WIDE_ENCODER_ROWS:
             tokens = torch.from_numpy(rng.integers(0, VOCAB, (rows, 24)).astype(np.int32)).cuda()
-            cases = [("encoder_hn", ek.encoder_hn, ek.encoder_hn_reference, "bf16", None),
-                     ("encoder_hn_int8", ek.encoder_hn_int8, ek.encoder_hn_int8_reference,
-                      "int8", None)]
+            cases = ([("encoder_hn_int8", ek.encoder_hn_int8, ek.encoder_hn_int8_reference,
+                       "int8", None)] if hidden == WIDE_K3 else
+                     [("encoder_hn", ek.encoder_hn, ek.encoder_hn_reference, "bf16", None)])
             if hidden == 576 and rows == BATCH:  # the training mode, rate 0.5 (the VAE's)
                 keep = torch.rand((rows, 24, 2 * hidden), generator=gen, device="cuda") >= 0.5
                 cases.append(("encoder_hn", ek.encoder_hn, ek.encoder_hn_reference, "bf16",
@@ -5621,9 +5653,13 @@ def _wide_encoders(card: str) -> dict:
                         torch.cuda.empty_cache()
                         return cudnn_gru_ms(gru, table, tokens, h_n,
                                             f"bf16 H {hidden} rows {rows}", card)
+                # K3's wrapper takes only widths the JAX package quantizes:
+                # its time at the padded width is its launch's
+                at_width = ek._encoder_int8_launch if kind == "int8" else (
+                    lambda *a, k=kernel: k(*a[:3]))
                 entries.setdefault(name, {})[label] = _narrow_check(
                     kernel, label, lambda k=kernel, t=tokens, e=extra: k(gru, table, t, **e),
-                    (lambda k=kernel, t=tokens: k(padded, table, t))
+                    (lambda t=tokens: at_width(padded, table, t, None))
                     if on_zero_units and keep is None else None,
                     lambda p=plain, t=tokens, e=plain_extra: p(gru, table, t, *e),
                     _encoder_judge(name),
@@ -5724,33 +5760,392 @@ def _wide_entry_points(card: str) -> None:
 
 
 def _wide_engines(card: str) -> dict:
-    """``InpaintingEngine`` over a VAE of ``WIDE_ENGINE`` (K1/K3 at 640 on
-    zero units, K2/K4 at 640 on 2 CTAs a tile) in bf16 and int8, each call
-    on the eager route and on the graph route (capture, replay), tokens and
-    launches equal. -> {kernel: launches} of the graph route's replays
-    (each of K1-K4 must launch)"""
+    """``InpaintingEngine`` over a VAE of ``WIDE_ENGINE`` (K1 at 640 on zero
+    units, K2/K4 at 640 on 2 CTAs a tile) in bf16 and int8, each call on
+    the eager route and on the graph route (capture, replay), tokens and
+    launches equal. int8 quantizes only where the JAX package does: its
+    encoder gate is closed at 577 in bf16 (18 H^2 x 2 bytes: 11.99e6), so
+    the int8 engine runs K1 and K4 and never K3. -> {kernel: launches} of
+    the graph route's replays (K3's 0)"""
     from inpaintnet_tpu_torch.ops import decode_kernel as dk
     from inpaintnet_tpu_torch.ops import encoder_kernel as ek
     from inpaintnet_tpu_torch.serve import InpaintingEngine
 
     t0 = time.perf_counter()
     model, buckets, totals = _wide_model(*WIDE_ENGINE), NARROW_ENGINE_BUCKETS, {}
+    kernels = (ek.encoder_hn, dk.decode_sampling, ek.encoder_hn_int8, dk.decode_sampling_int8)
+    want = {"bfloat16": (True, True, False, False), "int8": (True, False, False, True)}
     for dtype in ("bfloat16", "int8"):
         engine = InpaintingEngine(model, batch_buckets=buckets, dtype=dtype, device="cuda")
         calls = _latent_graph_calls(engine, np.random.default_rng(26), buckets)[0]
+        own = {}
         _check_routes(engine, f"VAE encoder H {WIDE_ENGINE[0]} decoder H {WIDE_ENGINE[1]} "
-                      f"{dtype}", calls, totals)
+                      f"{dtype}", calls, own)
+        if tuple(own.get(k.__name__, 0) > 0 for k in kernels) != want[dtype]:
+            raise RuntimeError(f"the wide {dtype} engine launched {own}: K1, K2, K3, K4 "
+                               f"expected {want[dtype]}")
+        for k, n in own.items():
+            totals[k] = totals.get(k, 0) + n
         del engine
-    launches = {k.__name__: totals.get(k.__name__, 0)
-                for k in (ek.encoder_hn, dk.decode_sampling, ek.encoder_hn_int8,
-                          dk.decode_sampling_int8)}
-    if min(launches.values()) < 1:
-        raise RuntimeError(f"the wide engines did not launch every kernel: {launches}")
+    launches = {k.__name__: totals.get(k.__name__, 0) for k in kernels}
     print(f"[wide] engines over the VAE of H {WIDE_ENGINE}: the graph route's replays launched "
           f"{totals}; {time.perf_counter() - t0:.1f} s | {card}", flush=True)
     del model
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 27: K7 at every geometry the JAX package's kernel gate takes (a
+# context C above 512 in both dtypes, bf16 H from 513 to 640 on half-slab
+# boxes and clusters of 9 and 10 CTAs), and K8 under a gradient
+# ---------------------------------------------------------------------------
+# (H, C, dtype): JAX's widest bf16 H at C 256, 64 and 16 (582, 612, 619: run
+# at 576 on 9 CTAs and 640 on 10), bf16 C 1,024 and 3,954 (the widest at H
+# 256) at H 256, and f32's widest C at H 256, 1,513; each at 512 rows and
+# at 1 row
+ARNN_WIDTHS = ((576, 256, torch.bfloat16), (600, 64, torch.bfloat16),
+               (619, 16, torch.bfloat16), (256, 1024, torch.bfloat16),
+               (256, 3954, torch.bfloat16), (256, 1513, torch.float32))
+ARNN_WIDTHS_VOCABS = (VOCAB, 90)
+ARNN_WIDTHS_ENGINE = (576, 256)  # the bf16 ARNN engine's generation H and constraint C
+# K7 at these geometries against its plain version: ARNN_BOUNDS (V 90:
+# ARNN_HEAD_BOUNDS). Its early-logit share grew with the sums' lengths
+# while the tensor cores summed a whole product in one accumulator (0.28 at
+# C 3,954, `--k7-sums`); in partials of four k-slabs added in rounded f32
+# it stays within ARNN_BOUNDS' (PERF.md).
+
+
+def _arnn_width_case(hidden: int, ctx: int, dtype, vocab: int, rows: int):
+    """K7's inputs at (H, C), linear 256 (the flagship's), ``rows`` x 384
+    ticks with the middle third unforced: the layers' initialisation
+    (``_arnn_case``'s), the context and tokens drawn on the card (numpy
+    takes ~15 s for a C-3,954 context)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_cuda_kernels import _arnn_case
+
+    ticks = ARNN_BARS * 24
+    params, _, _, _, start = _arnn_case(np.random.default_rng(hidden + ctx + vocab), 1, hidden,
+                                        ctx, 1, vocab, 256, dtype, "cuda", noise=0.0)
+    gen = torch.Generator(device="cuda").manual_seed(hidden + ctx + vocab)
+    x = torch.tanh(torch.randn((rows, ticks, ctx), generator=gen, device="cuda")).to(dtype)
+    score = torch.randint(0, vocab, (rows, ticks), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    force = torch.ones((rows, ticks), dtype=torch.int32, device="cuda")
+    force[:, ticks // 3: 2 * ticks // 3] = 0
+    return params, x, score, force, start
+
+
+def _arnn_width_faults(ak, args, got, bound, label: str) -> None:
+    """The planted faults at a new width, each against the kernel's output
+    by the same bound: a c carry kept in f32 (bf16), the context projection
+    rounded to bf16 (the staged plain version); both must break it."""
+    force = args[3]
+    carry, projection = ak.carry_c, ak.ctx_projection
+    faults = {}
+    ak.carry_c = lambda c, dtype: c
+    try:
+        faults["c carry kept in f32"] = ak.arnn_sampled_decode_reference(*args)
+    finally:
+        ak.carry_c = carry
+    ak.ctx_projection = lambda ctx, w: projection(ctx, w).to(torch.bfloat16).float()
+    try:
+        faults["context projection rounded to bf16"] = \
+            ak.arnn_sampled_decode_staged_reference(*args)
+    finally:
+        ak.ctx_projection = projection
+    for name, planted in faults.items():
+        agree = ak.decode_agreement(got, planted, force)
+        print(f"[arnn-widths] planted fault {label}, {name}: {_agreement_line(agree)}",
+              flush=True)
+        if ak.within(agree, bound):
+            raise RuntimeError(f"a planted K7 fault passes at {label}: {name}")
+
+
+def _arnn_widths_kernel(card: str) -> dict:
+    """K7 at ``ARNN_WIDTHS`` x ``ARNN_WIDTHS_VOCABS`` at 512 rows against
+    its plain version, one wrapper launch each and, at V 60, two CUDA
+    launches in a trace; at 1 row (the 512-row inputs' first) bit-equal to
+    the 512-row call's first row and within the logits' bounds (a lone
+    row's token and early shares are all or nothing: one flip cascades over
+    its row, seen 0.9896 of one row's tokens); the planted faults at the widest
+    bf16 H and C; a tie across a head chunk at H 576 and its planted fault;
+    each 512-row case timed beside its bound and the plain version. ->
+    {case: entry}"""
+    from inpaintnet_tpu_torch.ops import arnn_kernel as ak
+
+    entries, ticks, rows = {}, ARNN_BARS * 24, ARNN_BATCH
+    for hidden, ctx, dtype in ARNN_WIDTHS:
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for vocab in ARNN_WIDTHS_VOCABS:
+            base = ARNN_BOUNDS[dtype] if vocab == VOCAB else ARNN_HEAD_BOUNDS[dtype]
+            label = f"{tag} H {hidden} C {ctx} V {vocab}"
+            args = _arnn_width_case(hidden, ctx, dtype, vocab, rows)
+            bound = base
+            before = ak.arnn_sampled_decode.launches
+            got = ak.arnn_sampled_decode(*args)
+            one_args = tuple(a[:1] if i in (1, 2, 3) else a for i, a in enumerate(args))
+            one = ak.arnn_sampled_decode(*one_args)
+            launched = ak.arnn_sampled_decode.launches - before
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            want = ak.arnn_sampled_decode_reference(*args)
+            end.record()
+            torch.cuda.synchronize()
+            agree = ak.decode_agreement(got, want, args[3])
+            agree_one = ak.decode_agreement(one, tuple(t[:1] for t in want), args[3][:1])
+            same_one = all(torch.equal(a, b[:1]) for a, b in zip(one, got))
+            expect = ak.arnn_cuda_launches(dtype, rows, ticks, hidden, 256, vocab)
+            traced = {}
+            if vocab == VOCAB:
+                traced = _own_kernels(lambda: ak.arnn_sampled_decode(*args), want=expect)
+            recurrence = "arnn_kernel" if dtype == torch.bfloat16 else "arnn_f32_kernel"
+            print(f"[arnn-widths] arnn_sampled_decode {label} rows {rows}: "
+                  f"{_agreement_line(agree)} (bounds {bound}); CUDA launches "
+                  f"{traced or 'not traced'}; 1 row: bit-equal to row 0 {same_one}, "
+                  f"{_agreement_line(agree_one)} | {card}", flush=True)
+            faults = [why for why, bad in (
+                ("not one wrapper launch a call", launched != 2),
+                ("outside its bounds", not ak.within(agree, bound)),
+                ("1 row: not row 0 of the batch", not same_one),
+                ("1 row: outside its bounds", not ak.within(agree_one, {**bound, "tokens": 0.0,
+                                                                         "early": 1.0})),
+                ("not finite", not bool(torch.isfinite(got[0].float()).all())),
+                (f"traced CUDA launches {traced}, {expect} expected",
+                 bool(traced) and (sum(traced.values()) != expect
+                                   or traced.get(recurrence, 0) != expect // 2))) if bad]
+            if faults:
+                raise RuntimeError(f"K7 {label}: " + "; ".join(faults))
+            if vocab == VOCAB and (hidden, ctx) in ((619, 16), (256, 3954)):
+                _arnn_width_faults(ak, args, got, bound, label)
+            ms = cuda_ms(lambda: ak.arnn_sampled_decode(*args), 3)
+            ops = arnn_ops(rows, ticks, hidden, ctx, 256, vocab)
+            moved = nbytes({k: args[0][k] for k in ("note_embedding", "lstm_generation",
+                                                    "linear_1", "linear_output_notes")},
+                           *args[1:], *got)
+            b = bound_of(ops if dtype == torch.bfloat16 else 6 * ops, "bf16", moved)
+            plan = (ak.arnn_card_plan if dtype == torch.bfloat16 else ak.arnn_f32_card_plan)(
+                rows, ak.arnn_width(hidden, dtype), 256, args[1].device)
+            entries[label] = {"max_abs_err": agree["logits_max"], "ms": ms,
+                              "plain_ms": start.elapsed_time(end), **b, "library_ms": None,
+                              "launches": launched, "cluster": plan.cluster}
+            print(f"[time] arnn_sampled_decode {label} rows {rows}: kernel {ms:.3f} ms (run at "
+                  f"H {ak.arnn_width(hidden, dtype)}, C {ak.arnn_ctx_width(ctx)}; cluster "
+                  f"{plan.cluster}, stages {plan.stages}), plain "
+                  f"{entries[label]['plain_ms']:.3f} ms, bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']}) | {card}", flush=True)
+    # the first index across the first output chunk border at H 576, and the
+    # planted fault (a later chunk wins ties)
+    params, ctx, score, force, _ = _arnn_width_case(576, 256, torch.bfloat16, 130, 64)
+    params = _tied(params, "linear_output_notes", ak.ARNN_OUT_COLS)
+    args = (params, ctx, score, force, params["note_embedding"]["table"][130:].contiguous())
+    want = ak.arnn_sampled_decode_reference(*args)[1]
+    got = ak.arnn_sampled_decode(*args)[1]
+    with _later_chunk_wins_ties():
+        fault = ak.arnn_sampled_decode(*args)[1]
+    torch.cuda.synchronize()
+    free = force == 0
+    print(f"[arnn-widths] bf16 H 576 tie across the chunk border: plain sampled tokens all 5 "
+          f"{bool((want[free] == 5).all())}, kernel equal {bool(torch.equal(got, want))}; "
+          f"planted fault (the later chunk wins ties) equal {bool(torch.equal(fault, want))}",
+          flush=True)
+    if not ((want[free] == 5).all() and torch.equal(got, want)) or torch.equal(fault, want):
+        raise RuntimeError("K7 at H 576: the chunk-border tie is not taken by the first index, "
+                           "or its planted fault passes")
+    return entries
+
+
+def _arnn_widths_engine(card: str) -> dict:
+    """The bf16 ``ARNNServingEngine`` over an ARNN of generation H 576 and
+    constraint C 256 (``ARNN_WIDTHS_ENGINE``; linear 256, the flagship's
+    other widths), buckets 1 and 8, argmax and sampled calls, each on the
+    eager route and on the graph route (capture, replay), tokens and
+    launches equal. -> {kernel: launches} of the replays (K7 must launch)"""
+    from inpaintnet_tpu_torch.models.anticipation_rnn import AnticipationRNNBaseline
+    from inpaintnet_tpu_torch.models.presets import ARNNDataset
+    from inpaintnet_tpu_torch.serve_arnn import ARNNServingEngine
+
+    t0 = time.perf_counter()
+    gen, ctx = ARNN_WIDTHS_ENGINE
+    arnn = AnticipationRNNBaseline(
+        ARNNDataset(), note_embedding_dim=10, metadata_embedding_dim=2,
+        num_lstm_constraints_units=ctx, num_lstm_generation_units=gen, linear_hidden_size=256,
+        num_layers=2, unary_constraint=True, device="cuda", seed=0)
+    engine = ARNNServingEngine(arnn, batch_buckets=NARROW_ENGINE_BUCKETS, dtype="bfloat16",
+                               device="cuda")
+    rng, calls, totals = np.random.default_rng(27), [], {}
+    for b in NARROW_ENGINE_BUCKETS:
+        tokens = _arnn_request(rng, b, ARNN_BARS)
+        calls += [(f"argmax batch {b}", lambda t=tokens: engine.inpaint(t, ARNN_START,
+                                                                        ARNN_SPAN)),
+                  (f"sampled batch {b}", lambda t=tokens: engine.inpaint(
+                      t, ARNN_START, ARNN_SPAN, seed=3, temperature=1.5))]
+    _check_routes(engine, f"arnn bf16 H {gen} C {ctx}", calls, totals)
+    if totals.get("arnn_sampled_decode", 0) < 1:
+        raise RuntimeError(f"the ARNN engine at H {gen} C {ctx} did not launch K7: {totals}")
+    print(f"[arnn-widths] engine at H {gen} C {ctx}: the graph route's replays launched "
+          f"{totals}; {time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    del engine, arnn
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _k8_gradient(card: str) -> dict:
+    """A gradient through K8: one GRU layer of H 512 (f32, the context GRU's
+    shape: 2,048 rows x 16 steps, masked) on ``"pallas"`` fed by an
+    upstream projection, a loss linear in its outputs: K8 launches once,
+    and every weight's gradient, the upstream one's included, equals the
+    ``"xla"`` route's bit for bit. -> {"launches": K8's}"""
+    from inpaintnet_tpu_torch.ops import gru as gru_mod
+    from inpaintnet_tpu_torch.ops import gru_kernel as lk
+    from inpaintnet_tpu_torch.ops.gru import gru_init
+
+    rng = np.random.default_rng(27)
+    layer = {k: torch.from_numpy(np.asarray(v, np.float32)).cuda()
+             for k, v in gru_init(rng, 256, 512, 1)[0][0].items()}
+    up = torch.from_numpy((rng.standard_normal((64, 256)) / 8).astype(np.float32)).cuda()
+    inp = torch.from_numpy(rng.standard_normal((BATCH, N_BARS, 64)).astype(np.float32)).cuda()
+    mask = (torch.arange(N_BARS, device="cuda")[None] < torch.from_numpy(
+        rng.integers(0, N_BARS + 1, BATCH)).cuda()[:, None]).float()
+    wy = torch.from_numpy(rng.standard_normal((BATCH, N_BARS, 512)).astype(np.float32)).cuda()
+
+    def grads(impl):
+        leaves = {**{k: v.clone().requires_grad_() for k, v in layer.items()},
+                  "w_up": up.clone().requires_grad_()}
+        ys, h_last = gru_mod.gru_layer_apply({k: leaves[k] for k in layer},
+                                             torch.tanh(inp @ leaves["w_up"]),
+                                             torch.zeros((BATCH, 512), device="cuda"),
+                                             mask=mask, impl=impl)
+        ((ys * wy).sum() + h_last.sum()).backward()
+        return {k: v.grad for k, v in leaves.items()}
+
+    before = lk.gru_layer_stream.launches
+    got = grads("pallas")
+    launched = lk.gru_layer_stream.launches - before
+    want = grads("xla")
+    torch.cuda.synchronize()
+    same = {k: bool(torch.equal(got[k], want[k])) for k in got}
+    print(f"[arnn-widths] gradient through K8 (f32 H 512, {BATCH} rows x {N_BARS} steps, "
+          f"masked): {launched} K8 launch; equal to the eager route's {same}; upstream "
+          f"|grad| max {got['w_up'].abs().max().item():.3e} | {card}", flush=True)
+    if launched != 1 or not all(same.values()) or not got["w_up"].abs().max() > 0:
+        raise RuntimeError("the gradient through K8 is not the eager route's")
+    return {"launches": launched}
+
+
+def phase_arnn_widths(card: str) -> tuple:
+    """Phase 27: K7 at every geometry the JAX kernel's gate takes, its ARNN
+    engine at H 576, and a gradient through K8. -> ({case: entry} of K7,
+    {kernel: launches} of the engine's replays, K8's gradient entry)"""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    entries = _arnn_widths_kernel(card)
+    launches = _arnn_widths_engine(card)
+    gradient = _k8_gradient(card)
+    torch.cuda.empty_cache()
+    print(f"[arnn-widths] phase 27 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return entries, launches, gradient
+
+
+# K7's bf16 sums, taken apart (``--k7-sums``): at these (H, C), 512 rows x
+# 384 ticks, V 60, the kernel at each context GEMM group
+# (``arnn_kernel.ARNN_CTX_GROUP``; 0: the whole of K in one accumulator)
+# against the plain version, and against the hybrid that feeds that GEMM's
+# own output into the plain recurrence; the GEMM's error against a float64
+# product beside cuBLAS f32's
+K7_SUMS_CASES = ((256, 256), (256, 1024), (256, 3954), (512, 512), (576, 256), (640, 16))
+K7_SUMS_GROUPS = (0, 1, 2, 4)
+K7_SUMS_ROWS = 16  # rows of the GEMMs' float64 comparison (x 384 ticks)
+
+
+def _k7_ctx_gemm(ctx: torch.Tensor, w_ctx: torch.Tensor, group: int):
+    """(a call of the bf16 route's context GEMM, its (B, T, 4H) f32 out) on
+    ``ctx`` (B, T, C) and ``w_ctx`` (C, 4H) bf16, C zero-padded to whole
+    64-column slabs as the wrapper pads it."""
+    from inpaintnet_tpu_torch.ops import arnn_kernel as ak
+    from inpaintnet_tpu_torch.ops.kernel_common import check_launch, load_kernels, stream_ptr
+
+    batch, ticks, width = ctx.shape
+    depth = ak.arnn_ctx_width(width)
+    a = torch.nn.functional.pad(ctx, (0, depth - width)).reshape(batch * ticks, depth)
+    w = torch.nn.functional.pad(w_ctx.t(), (0, depth - width)).contiguous()
+    out = torch.empty((batch * ticks, w.shape[0]), dtype=torch.float32, device=ctx.device)
+    lib = load_kernels()
+
+    def call():
+        check_launch(lib.inpaint_arnn_ctx_gemm(a.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                               batch * ticks, depth, w.shape[0], group,
+                                               stream_ptr()), "K7's context GEMM")
+    call()
+    return call, out.reshape(batch, ticks, -1)
+
+
+def _gemm_error(got: torch.Tensor, exact: torch.Tensor) -> str:
+    """A GEMM's f32 output against the float64 product: max and mean |err|,
+    the mean error toward zero (err x sign(exact): negative where the sums
+    lose magnitude), RMS error over RMS value, and the share of outputs not
+    equal to the float64 product rounded to f32."""
+    err = got.double() - exact
+    return (f"max {err.abs().max().item():.3e}, mean {err.abs().mean().item():.3e}, signed "
+            f"(x sign) {(err * exact.sign()).mean().item():+.3e}, rel rms "
+            f"{(err.square().mean().sqrt() / exact.square().mean().sqrt()).item():.3e}, "
+            f"not the rounded product {(got != exact.float()).float().mean().item():.4f}")
+
+
+def phase_k7_sums(card: str) -> None:
+    """Where K7's bf16 early-logit share comes from (``K7_SUMS_CASES``):
+    per case and context GEMM group, the kernel against the plain version
+    and against the hybrid (the plain recurrence on the kernel GEMM's own
+    projection), the hybrid against the plain version; the plain version
+    staged on cuBLAS's f32 projection and on the float64 projection
+    rounded to f32 against the plain one; the GEMMs' errors against the
+    float64 product and their times. Prints only."""
+    from inpaintnet_tpu_torch.ops import arnn_kernel as ak
+
+    t0 = time.perf_counter()
+    base_group = ak.ARNN_CTX_GROUP
+    for hidden, ctx in K7_SUMS_CASES:
+        label = f"bf16 H {hidden} C {ctx}"
+        params, x, score, force, start = args = _arnn_width_case(hidden, ctx, torch.bfloat16,
+                                                                 VOCAB, ARNN_BATCH)
+        w_ctx = params["lstm_generation"][0]["w_ih"][start.shape[1]:]
+        want = ak.arnn_sampled_decode_reference(*args)
+
+        def early(a, b):
+            return ak.decode_agreement(a, b, force)["early_changed"]
+        cublas = ak.ctx_projection(x, w_ctx)
+        exact = x.double() @ w_ctx.double()
+        for name, proj in (("cuBLAS f32", cublas), ("float64 rounded to f32", exact.float())):
+            mixed = ak._decode_loop(params, x, score, force, start, proj)
+            print(f"[k7-sums] {label}: plain on the {name} projection against plain, early "
+                  f"{early(mixed, want):.4f} | {card}", flush=True)
+        sub = exact[:K7_SUMS_ROWS]
+        print(f"[k7-sums] {label}: cuBLAS f32 GEMM against float64: "
+              f"{_gemm_error(cublas[:K7_SUMS_ROWS], sub)}", flush=True)
+        del exact, cublas
+        first = None
+        for group in K7_SUMS_GROUPS:
+            ak.ARNN_CTX_GROUP = group
+            try:
+                got = ak.arnn_sampled_decode(*args)
+            finally:
+                ak.ARNN_CTX_GROUP = base_group
+            call, xwc = _k7_ctx_gemm(x, w_ctx, group)
+            hybrid = ak._decode_loop(params, x, score, force, start, xwc)
+            ms = cuda_ms(call, 5)
+            first = xwc if first is None else first
+            print(f"[k7-sums] {label} group {group} (GEMM bit-equal to group "
+                  f"{K7_SUMS_GROUPS[0]}'s: {torch.equal(xwc, first)}): early kernel/plain "
+                  f"{early(got, want):.4f}, "
+                  f"kernel/hybrid {early(got, hybrid):.4f}, hybrid/plain "
+                  f"{early(hybrid, want):.4f}; tokens kernel/plain "
+                  f"{ak.decode_agreement(got, want, force)['tokens']:.5f}; GEMM {ms:.3f} ms, "
+                  f"against float64: {_gemm_error(xwc[:K7_SUMS_ROWS], sub)} | {card}",
+                  flush=True)
+            del hybrid
+        del first, xwc
+        torch.cuda.empty_cache()
+    print(f"[k7-sums] took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def phase_wide_widths(card: str) -> tuple:
@@ -5794,12 +6189,18 @@ def main() -> int:
     cli.add_argument("--kernel-times", metavar="DIR",
                      help="only print the V 60 decode kernels' times of the checkout at DIR "
                           "as one JSON line (what --parent runs in a process of its own)")
+    cli.add_argument("--k7-sums", action="store_true",
+                     help="only take K7's bf16 sums apart at wide contexts and units "
+                          "(phase_k7_sums), printing what each GEMM and recurrence changes")
     opts = cli.parse_args()
     card = phase_device()
     if opts.kernel_times:
         print(json.dumps(kernel_times(opts.kernel_times)))
         return 0
     phase_build()
+    if opts.k7_sums:
+        phase_k7_sums(card)
+        return 0
     if opts.parent:
         phase_parent_times(opts.parent, card)
     parent = None if opts.first_port is None else ParentKernels(opts.first_port)
@@ -5848,6 +6249,7 @@ def main() -> int:
     train_mode = phase_training_surface(model, card)
     launches_tp = phase_tensor_parallel(card)
     width_entries, launches_width = phase_hidden_widths(card)
+    arnn_width_entries, launches_arnn_widths, k8_gradient = phase_arnn_widths(card)
     sources = {
         "encoder_hn": ("encoder_gru.cu", "inpaintnet_tpu/ops/encoder_pallas.py:147", launches),
         "decode_sampling": ("decode_sampling.cu", "inpaintnet_tpu/ops/decode_pallas.py:216",
@@ -5889,6 +6291,11 @@ def main() -> int:
     # K8's kernel also serves the two TPU kernels of the same function (K9, K10)
     kernels[-1]["also_replaces"] = ["inpaintnet_tpu/ops/gru_pallas.py:296",
                                     "inpaintnet_tpu/ops/gru_pallas.py:363"]
+    # phase 27: K7 at C above 512 and bf16 H 513-640, its engine's replays;
+    # K8's launches under a gradient
+    kernels[6]["arnn_widths"] = arnn_width_entries
+    kernels[6]["arnn_widths_launches"] = launches_arnn_widths.get("arnn_sampled_decode", 0)
+    kernels[-1]["gradient"] = k8_gradient
     print(f"[launches] HTTP path: {launches_http}; ARNN HTTP path: {launches_arnn_http}; "
           f"autoregressive HTTP path: {launches_ar_http}", flush=True)
     print(f"[profile] lead kernels the traces lost: {LEADS_LOST[0]} of {LEADS_LOST[1]}",

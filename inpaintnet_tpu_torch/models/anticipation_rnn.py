@@ -325,8 +325,8 @@ class ConstraintModelGaussianReg(CheckpointedModel, nn.Module):
                                   temperature=temperature, gumbel_noise=gumbel_noise)
 
     def _use_kernel_decode(self, params) -> bool:
-        """K7 takes 2 generation layers, its dtypes, and H and C up to 512
-        (narrow ones on zero units, ``arnn_kernel_supports``)."""
+        """K7 takes 2 generation layers, its dtypes, H up to 512 (bf16: 640)
+        and any C (narrow ones on zero units, ``arnn_kernel_supports``)."""
         return self.num_layers == 2 and arnn_kernel_supports(
             self.num_lstm_generation_units, self.num_lstm_constraints_units,
             self.num_units_linear, self.num_notes,

@@ -63,7 +63,9 @@ from inpaintnet_tpu_torch.ops.gru import (
     gru_stack_cell_apply,
 )
 from inpaintnet_tpu_torch.ops.kernel_common import (
+    decode_quantizes,
     decode_supports_hidden,
+    encoder_quantizes,
     encoder_supports_hidden,
     kernel_with_eager_grad,
 )
@@ -153,16 +155,27 @@ class Encoder(nn.Module):
         hidden width up to 512, and in bf16 up to 577 (one that is not whole
         64-unit blocks on zero units, ``kernel_common.encoder_supports_hidden``);
         f32 and int8 on f32 masters above 512 run the eager scan, as the JAX
-        package's gate reads the masters' itemsize."""
+        package's gate reads the masters' itemsize. K3 runs only where the
+        JAX package also quantizes (:meth:`apply`)."""
         return self.num_layers == 2 and encoder_supports_hidden(self.rnn_hidden_size, dtype)
+
+    def quantizes(self, dtype) -> bool:
+        """Whether ``quant="int8"`` runs K3 in masters of ``dtype``: where
+        K3 takes the geometry (:meth:`use_kernel`) and the JAX package
+        quantizes (``kernel_common.encoder_quantizes``, its kernel gate's
+        bytes); elsewhere int8 computes what ``quant="none"`` does."""
+        return self.use_kernel(dtype) and encoder_quantizes(self.rnn_hidden_size, dtype)
 
     def apply(self, params, tokens: torch.Tensor, quant: str = "none", *, train: bool = False,
               generator: Optional[torch.Generator] = None,
               dropout_masks=None) -> DiagNormal:
         """:param tokens: (B, 24) int tokens -> DiagNormal over z.
-        :param quant: "int8" runs K3 where a kernel takes the geometry (and
-            the plain scan in the parameter dtype elsewhere, as the JAX
-            package does when its kernel gate is closed)
+        :param quant: "int8" runs K3 where K3 takes the geometry and the
+            JAX package quantizes (``kernel_common.encoder_quantizes``: its
+            kernel gate's bytes, 18 H^2 x the masters' itemsize < 10e6);
+            elsewhere it computes what "none" computes, K1 where K1 takes
+            the geometry and the plain scan in the parameter dtype beyond,
+            as the JAX package does when its kernel gate is closed
         :param train: the training route: the trainfast GRU layers with
             dropout between them (``generator`` draws the keep mask, or
             ``dropout_masks`` gives it), never K3; K1's training mode under
@@ -177,7 +190,8 @@ class Encoder(nn.Module):
         elif self.use_kernel(params["gru"][0][0]["w_hh"].dtype):
             # the kernel's forward; under a gradient, the eager scan's
             # backward at the same inputs (JAX's kernel_with_xla_grad)
-            kernel = kernel_with_eager_grad(encoder_hn_int8 if quant == "int8" else encoder_hn,
+            int8 = quant == "int8" and self.quantizes(params["gru"][0][0]["w_hh"].dtype)
+            kernel = kernel_with_eager_grad(encoder_hn_int8 if int8 else encoder_hn,
                                             _encoder_eager_hn)
             h_n = kernel(params["gru"], params["embedding"]["table"], tokens)
         else:
@@ -316,8 +330,18 @@ class HierarchicalDecoder(nn.Module):
         inference) and a hidden width up to 512, and in bf16 up to 717 (one
         no plan takes on zero units at the next one that does,
         ``kernel_common.decode_supports_hidden``); f32 and int8 on f32
-        masters above 512 run the eager loop."""
+        masters above 512 run the eager loop. K4 runs only where the JAX
+        package also quantizes (:meth:`decode_sampling`)."""
         return self.num_layers == 2 and decode_supports_hidden(self.rnn_hidden_size, dtype)
+
+    def quantizes(self, dtype) -> bool:
+        """Whether ``quant="int8"`` runs K4 in masters of ``dtype``: where
+        K4 takes the geometry (:meth:`use_kernel`) and the JAX package
+        quantizes (``kernel_common.decode_quantizes``, its kernel gate's
+        bytes at this vocabulary); elsewhere int8 computes what
+        ``quant="none"`` does."""
+        return self.use_kernel(dtype) and decode_quantizes(self.rnn_hidden_size, self.num_notes,
+                                                           dtype)
 
     def decode_teacher_forced(self, params, z: torch.Tensor, tokens: torch.Tensor, *,
                               train: bool = True, generator: Optional[torch.Generator] = None,
@@ -353,8 +377,11 @@ class HierarchicalDecoder(nn.Module):
         the argmax, or in training under ``sampling = "multinomial"`` a
         categorical draw.
 
-        :param quant: "int8" runs K4 where a kernel takes the geometry (the
-            plain scan elsewhere)
+        :param quant: "int8" runs K4 where K4 takes the geometry and the
+            JAX package quantizes (``kernel_common.decode_quantizes``: (9 H^2
+            + 4 H Vp) x the masters' itemsize < 10e6, Vp the vocabulary
+            padded to 128); elsewhere it computes what "none" computes, K2
+            where K2 takes the geometry and the plain scan beyond
         :param train: the training route: dropout in the beat GRU and on
             the tick GRU's layer-0 output at every tick, through the eager
             loop (autograd differentiates it), never K2 or K4
@@ -368,13 +395,15 @@ class HierarchicalDecoder(nn.Module):
         h_inits = self._tick_h0(
             params, beat_out.reshape(batch * NUM_BEATS_PER_MEASURE, -1)
         ).reshape(self.num_layers, batch, NUM_BEATS_PER_MEASURE, -1)
-        if not train and self.use_kernel(params["tick_gru"][0][0]["w_hh"].dtype):
+        dtype = params["tick_gru"][0][0]["w_hh"].dtype
+        if not train and self.use_kernel(dtype):
             # the kernel's forward; under a gradient (LatentRNN training
             # differentiates through this frozen-VAE decode) the backward of
             # the unquantized eager scan at the same inputs, as JAX's
             # kernel_with_xla_grad, for K4 too
+            int8 = quant == "int8" and self.quantizes(dtype)
             kernel = kernel_with_eager_grad(
-                decode_sampling_int8 if quant == "int8" else decode_sampling_kernel,
+                decode_sampling_int8 if int8 else decode_sampling_kernel,
                 lambda p, c, h: self._decode_scan(p, c, h, train=False))
             return kernel(params, tick_ctx.contiguous(), h_inits.contiguous())
         return self._decode_scan(params, tick_ctx, h_inits, train=train, generator=generator,

@@ -45,9 +45,14 @@ route: it is the yardstick of the Hopper routes' error at noisy weights.
 ``recurrent_product``, ``carry_c`` and ``ctx_projection`` are the plain
 versions' steps where a check plants a fault.
 
-Every H and C up to 512 runs (:func:`arnn_kernel_supports`): a width that
-is not whole 64-unit blocks runs at the next one that is, on zero units
-(:func:`arnn_padded_operands`); the logits and tokens need no slicing.
+Every H up to 512 runs, and in bf16 up to 640 (:func:`arnn_width`), at
+any context width C (:func:`arnn_ctx_width`; :func:`arnn_kernel_supports`):
+a width that is not whole 64-unit blocks runs at the next one that is, on
+zero units (:func:`arnn_padded_operands`); the logits and tokens need no
+slicing. C enters only the context projection GEMM, whose depth is any
+whole number of 64-column slabs. Above 512 units the bf16 route's CTAs
+stream half k-slabs (:func:`arnn_box_halves`) on clusters of 9 (H 576) and
+10 (H 640) CTAs, sizes past the portable 8.
 
 The wrapper runs the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel or raises.
@@ -81,6 +86,7 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     pack_mma_b,
     pad_units,
     padded_cache,
+    padded_width,
     round_up,
     split_bf16_pieces,
     split_blocks,
@@ -102,6 +108,32 @@ ARNN_SLAB_BYTES = 128 * 128  # one k-slab of a 4-gate chunk (32 units x i, f, g,
 ARNN_HID_COLS = 128  # hidden columns of a head chunk
 ARNN_OUT_COLS = 64  # vocabulary columns of an output chunk
 ARNN_MAX_UNITS = 256  # units a CTA computes: 2 consumer warpgroups x 4 chunks of 32
+ARNN_MAX_WIDTH = 640  # the bf16 route's widest layer: the JAX kernel's gate takes up to 638
+# k-slabs of 64 that the bf16 route's context projection GEMM sums on the
+# tensor cores into one partial before a rounded f32 add: their own sum
+# over a deep context (C 3,954 in one accumulator) flipped 0.28 of the
+# early logits' bf16 roundings against the plain version (PERF.md); 4
+# slabs, 256 values of K, is the flagship's whole sum
+ARNN_CTX_GROUP = 4
+
+
+@functools.lru_cache(maxsize=None)
+def arnn_width(hidden: int, dtype=torch.bfloat16):
+    """The width K7 runs a generation LSTM of ``hidden`` units at in
+    ``dtype``: whole 64-unit blocks (``kernel_common.padded_width``) up to
+    512 in f32 (``kernel_width``; the f32 route's widest), up to 640 in bf16
+    (and in the plain versions' float64), where every width has a plan
+    (:func:`arnn_cluster_sizes`: 576 on 9 CTAs, 640 on 10); None above."""
+    if dtype == torch.float32:
+        return kernel_width(hidden)
+    return padded_width(hidden, lambda w: True, ARNN_MAX_WIDTH)
+
+
+def arnn_ctx_width(ctx: int):
+    """The depth K7's context projection GEMM runs a context of ``ctx``
+    columns at: whole 64-column k-slabs, at any width (C enters no tile of
+    the recurrence); None for none."""
+    return round_up(ctx, 64) if ctx > 0 else None
 
 
 def arnn_head_width(linear: int) -> int:
@@ -116,36 +148,67 @@ def arnn_out_chunks(vocab: int) -> int:
     return -(-vocab // ARNN_OUT_COLS)
 
 
-def arnn_smem_bytes(hidden: int, cluster: int, ht: int, stages: int) -> int:
+def arnn_smem_bytes(hidden: int, cluster: int, ht: int, stages: int, halves=None) -> int:
     """Dynamic shared memory of a bf16 K7 CTA (``arnn_hopper.cuh
     arnn_smem_bytes``): both h tiles and the head's hidden tile of ``ht``
     columns (64 rows of bf16, 8 KB a 64-column block), the two rings of
-    ``stages`` 16 KB slabs, and the bf16 c carries of its ``hidden /
-    cluster`` units, both layers."""
+    ``stages`` boxes of ``halves`` 8 KB halves of a 16 KB k-slab (default
+    :func:`arnn_box_halves`), and the bf16 c carries of its ``hidden /
+    cluster`` units, both layers. H 640 on 10 CTAs with 2 stages of half
+    boxes: 160 KB of h tiles + 16 KB hidden + 32 KB rings + 16 KB c + 1 KB
+    = 230,400 bytes, the budget exactly; whole-slab boxes would need
+    263,168."""
+    halves = arnn_box_halves(hidden) if halves is None else halves
     return ((2 * (hidden // 64) + ht // 64) * HOPPER_ROWS * 128
-            + HOPPER_CONSUMERS * stages * ARNN_SLAB_BYTES
+            + HOPPER_CONSUMERS * stages * halves * ARNN_SLAB_BYTES // 2
             + 2 * HOPPER_ROWS * (hidden // cluster) * 2 + 1024)
 
 
-def arnn_ring_stages(hidden: int, cluster: int, ht: int) -> int:
+def arnn_ring_stages(hidden: int, cluster: int, ht: int, halves=None) -> int:
     """Ring stages a consumer warpgroup gets beside the tiles (a hidden tile
-    of ``ht`` columns): 2 at the flagship's H 256 with one CTA a tile, 3
-    with two or four."""
-    free = HOPPER_SMEM_BUDGET - arnn_smem_bytes(hidden, cluster, ht, 0)
-    return min(HOPPER_MAX_STAGES, free // (HOPPER_CONSUMERS * ARNN_SLAB_BYTES))
+    of ``ht`` columns; boxes of ``halves`` half k-slabs, default
+    :func:`arnn_box_halves`): 2 at the flagship's H 256 with one CTA a tile,
+    3 with two or four; 3 at H 576 on 9 CTAs, 2 at 640 on 10."""
+    halves = arnn_box_halves(hidden) if halves is None else halves
+    free = HOPPER_SMEM_BUDGET - arnn_smem_bytes(hidden, cluster, ht, 0, halves)
+    return min(HOPPER_MAX_STAGES, free // (HOPPER_CONSUMERS * halves * ARNN_SLAB_BYTES // 2))
 
 
-def arnn_hid_cols(hidden: int, cluster: int, lp: int) -> int:
+def arnn_hid_cols(hidden: int, cluster: int, lp: int, halves=None) -> int:
     """HT: the columns of the bf16 route's hidden tile, the widest whole
     number of 128-column chunks that divides the padded head width ``lp``
     and leaves a ring of two stages (0 if none does). It is ``lp`` wherever
     that fits (the flagship's 256); else the head's hidden runs in ``lp /
-    HT`` rounds (H 512 at a 256-wide head: 128, two rounds)."""
+    HT`` rounds (H 512 at a 256-wide head: 128, two rounds; above 512 always
+    128)."""
     chunks = lp // ARNN_HID_COLS
     for n in range(chunks, 0, -1):
-        if chunks % n == 0 and arnn_ring_stages(hidden, cluster, n * ARNN_HID_COLS) >= 2:
+        if chunks % n == 0 and arnn_ring_stages(hidden, cluster, n * ARNN_HID_COLS, halves) >= 2:
             return n * ARNN_HID_COLS
     return 0
+
+
+def _fitting_arnn_clusters(hidden: int, lp: int, halves: int) -> list:
+    """Cluster sizes of CTAs owning whole 64-unit blocks of at most 256
+    units, with a hidden tile and a ring of at least two stages of
+    ``halves`` boxes beside the h tiles."""
+    return fitting_clusters(lambda c: (hidden // 64) % c == 0 and hidden // c <= ARNN_MAX_UNITS
+                            and arnn_hid_cols(hidden, c, lp, halves) > 0, wide=True)
+
+
+@functools.lru_cache(maxsize=None)
+def arnn_box_halves(hidden: int) -> int:
+    """Halves of a 16 KB k-slab that a bf16 K7 TMA box and ring stage hold
+    (``arnn_hopper.cuh``, the kernel's ``kHalf``): 2, whole k-slabs, wherever
+    some cluster fits them (every width up to 512), else 1, boxes of 32
+    values of K with the 64-byte swizzle (H 576 and 640, where two h tiles
+    of 64 x H leave no room for whole-slab rings at any cluster size); 0
+    where neither fits. A plan that fits at the narrowest hidden tile fits
+    at every head width (the hidden runs in rounds), so the head does not
+    enter."""
+    if hidden % 64 or hidden <= 0:
+        return 0
+    return next((h for h in (2, 1) if _fitting_arnn_clusters(hidden, ARNN_HID_COLS, h)), 0)
 
 
 def arnn_out_kslabs(hidden: int, lp: int) -> int:
@@ -163,12 +226,15 @@ def arnn_out_kslabs(hidden: int, lp: int) -> int:
 def arnn_cluster_sizes(hidden: int, lp: int) -> list:
     """Cluster sizes the bf16 route takes: CTAs owning whole 64-unit blocks
     of at most 256 units, with a hidden tile and a ring of at least two
-    stages beside the h tiles (:func:`arnn_hid_cols`); 5 at H 320 and 7 at
-    H 448, where no power of two fits (``kernel_common.fitting_clusters``)."""
-    if hidden % 64 or hidden <= 0 or lp % ARNN_HID_COLS or lp <= 0:
+    stages of :func:`arnn_box_halves` boxes beside the h tiles
+    (:func:`arnn_hid_cols`); 5 at H 320 and 7 at H 448, where no power of
+    two fits, and the non-portable 9 at H 576 and 10 at H 640, where no
+    portable size does (``kernel_common.fitting_clusters``): 64 units a CTA,
+    one 32-unit chunk a consumer warpgroup."""
+    halves = arnn_box_halves(hidden)
+    if not halves or lp % ARNN_HID_COLS or lp <= 0:
         return []
-    return fitting_clusters(lambda c: (hidden // 64) % c == 0 and hidden // c <= ARNN_MAX_UNITS
-                            and arnn_hid_cols(hidden, c, lp) > 0)
+    return _fitting_arnn_clusters(hidden, lp, halves)
 
 
 def arnn_plan(rows: int, hidden: int, linear: int, sms: int, slots=None) -> LaunchPlan:
@@ -192,7 +258,8 @@ def arnn_slots(hidden: int, lp: int, device_index: int) -> dict:
     asked once per geometry and card."""
     def slots(c):
         ht = arnn_hid_cols(hidden, c, lp)
-        return load_kernels().inpaint_arnn_slots(hidden, c, ht, arnn_ring_stages(hidden, c, ht))
+        return load_kernels().inpaint_arnn_slots(hidden, c, ht, arnn_ring_stages(hidden, c, ht),
+                                                 arnn_box_halves(hidden))
 
     with torch.cuda.device(device_index):
         counts = {c: slots(c) for c in arnn_cluster_sizes(hidden, lp)}
@@ -301,14 +368,17 @@ def _route_supports(hidden: int, linear: int, vocab: int, dtype) -> bool:
 
 
 def arnn_kernel_supports(hidden: int, ctx: int, linear: int, vocab: int, dtype) -> bool:
-    """Whether K7 takes this geometry: H and C up to 512, each run at its
-    ``kernel_width`` on zero units (:func:`arnn_padded_operands`), and a
-    plan of the dtype's Hopper route at that H (:func:`arnn_hopper_supports`,
+    """Whether K7 takes this geometry: H up to 512 (in bf16 up to 640) at
+    its :func:`arnn_width` and any C at its :func:`arnn_ctx_width`, on zero
+    units (:func:`arnn_padded_operands`), and a plan of the dtype's Hopper
+    route at that H (:func:`arnn_hopper_supports`,
     :func:`arnn_f32_supports`), which every such width has at any head width
-    and vocabulary."""
-    if dtype not in DTYPE_CODES or kernel_width(hidden) is None or kernel_width(ctx) is None:
+    and vocabulary: every geometry the JAX kernel's gate takes
+    (``inpaintnet_tpu/models/anticipation_rnn.py _use_pallas_decode``)."""
+    if dtype not in DTYPE_CODES or arnn_ctx_width(ctx) is None:
         return False
-    return _route_supports(kernel_width(hidden), linear, vocab, dtype)
+    width = arnn_width(hidden, dtype)
+    return width is not None and _route_supports(width, linear, vocab, dtype)
 
 
 def _build_padded_arnn(*weights, hp: int, cp: int) -> dict:
@@ -335,23 +405,31 @@ padded_arnn = padded_cache(_build_padded_arnn)
 
 
 def arnn_padded_operands(params, ctx: torch.Tensor) -> tuple:
-    """K7's operands at ``kernel_width`` of H and of C: the generation
-    LSTM with zero units (``kernel_common.pad_cell`` with 4 gates; layer 0's
-    W_ih rows of the context and layer 1's, and linear_1's input rows) and
-    the context with zero columns. H and C pad independently (H 48 with C
-    100 runs at 64 and 128); the head's hidden L is padded by the packings
-    already. The token table, start embedding and head are unchanged, so
-    the logits and tokens are the narrow model's. -> (params, ctx)"""
+    """K7's operands at :func:`arnn_width` of H and :func:`arnn_ctx_width`
+    of C: the generation LSTM with zero units (``kernel_common.pad_cell``
+    with 4 gates; layer 0's W_ih rows of the context and layer 1's, and
+    linear_1's input rows) and the context with zero columns. H and C pad
+    independently (H 48 with C 100 runs at 64 and 128); the head's hidden L
+    is padded by the packings already. The token table, start embedding and
+    head are unchanged, so the logits and tokens are the narrow model's.
+
+    C's one sum of real values is the context projection: the GEMM walks
+    its k-slabs in order, and the zero columns meet W_ctx's zero rows after
+    every real one, adding exact zeros, so the sum is the one the real C
+    columns give (no other blocking, as cuBLAS may take at a padded depth:
+    ``decode_kernel.narrow_ctx_xw``). The context's pad is a copy per call:
+    at C 3,954 (run at 3,968) and 512 x 384 rows, 1.55 GB read and 1.56 GB
+    written. -> (params, ctx)"""
     p0, p1 = params["lstm_generation"]
     hidden, width = p0["w_hh"].shape[0], ctx.shape[2]
     narrow = padded_arnn(*(p[k] for p in (p0, p1) for k in CELL_KEYS),
                          params["note_embedding"]["table"], params["linear_1"]["w"],
-                         hp=kernel_width(hidden), cp=kernel_width(width))
+                         hp=arnn_width(hidden, p0["w_hh"].dtype), cp=arnn_ctx_width(width))
     return ({"note_embedding": params["note_embedding"],
              "lstm_generation": narrow["lstm_generation"],
              "linear_1": {"w": narrow["linear_1_w"], "b": params["linear_1"]["b"]},
              "linear_output_notes": params["linear_output_notes"]},
-            pad_units(ctx, width, kernel_width(width)))
+            pad_units(ctx, width, arnn_ctx_width(width)))
 
 
 def pack_lstm_blocks(w: torch.Tensor) -> torch.Tensor:
@@ -422,14 +500,16 @@ def pack_arnn_f32_weights(w_hh0, w_ih1, w_hh1, w_l1, w_out) -> torch.Tensor:
                       split_blocks(torch.stack(split_bf16_pieces(out)), 64)]).contiguous()
 
 
-def arnn_map(packed: torch.Tensor):
+def arnn_map(packed: torch.Tensor, halves: int = 2):
     """The tensor map (a 128-byte CUtensorMap, in a host buffer) of the
-    packed (blocks, 128, 64) bf16 weights, one block a box. -> (buffer,
-    its aligned address); keep ``packed`` alive as long as the map."""
+    packed (blocks, 128, 64) bf16 weights, one block a box (``halves`` 2,
+    the 128-byte swizzle) or half of one, 32 values of K (1, the 64-byte
+    swizzle). -> (buffer, its aligned address); keep ``packed`` alive as
+    long as the map."""
     buf = ctypes.create_string_buffer(128 + 64)
     addr = (ctypes.addressof(buf) + 63) // 64 * 64
-    check_launch(load_kernels().inpaint_arnn_map(packed.data_ptr(), packed.shape[0], addr),
-                 "arnn_map")
+    check_launch(load_kernels().inpaint_arnn_map(packed.data_ptr(), packed.shape[0], halves,
+                                                 addr), "arnn_map")
     return buf, addr
 
 
@@ -439,7 +519,7 @@ def _build_arnn_operands(table, w_ih0, b_ih0, w_hh0, b_hh0, w_ih1, b_ih1, w_hh1,
     lp = arnn_head_width(linear)
     w_tok = w_ih0[:E].float()
     packed = pack_arnn_weights(w_hh0, w_ih1, w_hh1, w_l1, w_out)
-    buf, addr = arnn_map(packed)
+    buf, addr = arnn_map(packed, arnn_box_halves(w_hh0.shape[0]))
     pad = torch.nn.functional.pad
     return {"w_tok": w_tok, "tok_tab": (table.float() @ w_tok).to(table.dtype),
             "w_ctx_t": w_ih0[E:].t().contiguous(),
@@ -498,9 +578,9 @@ def arnn_cuda_launches(dtype, batch: int, seq_len: int, hidden: int, linear: int
                        vocab: int) -> int:
     """CUDA kernel launches of one K7 call: two a chunk of rows (the context
     projection GEMM, then the recurrence) on either Hopper route, at every
-    geometry the gate takes (a narrow H runs at its ``kernel_width``). Raises
-    ValueError for one it does not."""
-    hidden = kernel_width(hidden) or hidden
+    geometry the gate takes (a narrow H runs at its :func:`arnn_width`).
+    Raises ValueError for one it does not."""
+    hidden = arnn_width(hidden, dtype) or hidden
     if not _route_supports(hidden, linear, vocab, dtype):
         raise ValueError(f"arnn_cuda_launches: no K7 route for dtype {dtype}, hidden size "
                          f"{hidden}, head {linear} x {vocab}")
@@ -621,7 +701,7 @@ def _check_arnn_args(params, ctx, score, force_mask, start_emb):
     batch, seq_len, C = ctx.shape
     hidden = p0["w_hh"].shape[0]
     linear, vocab = params["linear_output_notes"]["w"].shape
-    if not (kernel_width(hidden) == hidden and kernel_width(C) == C
+    if not (arnn_width(hidden, dtype) == hidden and arnn_ctx_width(C) == C
             and arnn_kernel_supports(hidden, C, linear, vocab, dtype)):
         raise ValueError(f"arnn_sampled_decode: no kernel for dtype {dtype}, hidden size "
                          f"{hidden}, context {C}, head {linear} x {vocab}")
@@ -672,14 +752,15 @@ def _decode_hopper(params, ctx, score, force_mask, start_emb, shape):
         xwc = torch.empty((rows, seq_len, 4 * hidden), dtype=torch.float32, device=device)
         check_launch(lib.inpaint_arnn_ctx_gemm(ctx[r0].data_ptr(), ops["w_ctx_t"].data_ptr(),
                                                xwc.data_ptr(), rows * seq_len, C, 4 * hidden,
-                                               stream_ptr()), "arnn_sampled_decode's GEMM")
+                                               ARNN_CTX_GROUP, stream_ptr()),
+                     "arnn_sampled_decode's GEMM")
         check_launch(lib.inpaint_arnn_decode_bf16(
             ops["map_addr"], xwc.data_ptr(), score[r0].data_ptr(), force_mask[r0].data_ptr(),
             ops["tok_tab"].data_ptr(), start_xw.data_ptr(), ops["bias"].data_ptr(),
             ops["b_l1"].data_ptr(), ops["b_out"].data_ptr(), logits[r0].data_ptr(),
             tokens[r0].data_ptr(), rows, seq_len, hidden, lp, ht, vocab, plan.cluster,
-            plan.stages, kernel_common.head_ties(), arnn_out_kslabs(hidden, lp), stream_ptr()),
-            "arnn_sampled_decode")
+            plan.stages, kernel_common.head_ties(), arnn_out_kslabs(hidden, lp),
+            arnn_box_halves(hidden), stream_ptr()), "arnn_sampled_decode")
     return logits, tokens
 
 
@@ -766,9 +847,9 @@ def arnn_sampled_decode(params, ctx: torch.Tensor, score: torch.Tensor,
     takes; the wrapper raises ValueError on any other."""
     if ctx.device.type == "cpu":
         return arnn_sampled_decode_reference(params, ctx, score, force_mask, start_emb)
-    hidden, width = params["lstm_generation"][0]["w_hh"].shape[0], ctx.shape[2]
-    padded = kernel_width(hidden), kernel_width(width)
-    if None not in padded and padded != (hidden, width):  # zero units up to 64-unit blocks
+    w_hh, width = params["lstm_generation"][0]["w_hh"], ctx.shape[2]
+    padded = arnn_width(w_hh.shape[0], w_hh.dtype), arnn_ctx_width(width)
+    if None not in padded and padded != (w_hh.shape[0], width):  # zero units, 64-unit blocks
         return arnn_sampled_decode(*arnn_padded_operands(params, ctx), score, force_mask,
                                    start_emb)
     shape = _check_arnn_args(params, ctx, score, force_mask, start_emb)

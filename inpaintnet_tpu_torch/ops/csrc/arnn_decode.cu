@@ -262,6 +262,77 @@ static cudaError_t arnn_decode(const ArnnArgs<T>& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+namespace rec90 {
+
+// the half-box instantiations arnn_kernel<1, kChunks, true>, built in a
+// source of their own (arnn_decode_half.cu), in parallel with this one
+cudaError_t launch_arnn_half(const CUtensorMap& map, const ArnnArgs& a, int C, int clusters,
+                             size_t smem, cudaStream_t stream);
+int arnn_half_slots(int C, size_t smem);
+
+inline int arnn_slots(int H, int C, int HT, int stages, int halves) {
+  if (!arnn_plan_fits(H, C, HT, HT, 1, stages, halves)) return -1;
+  const size_t smem = arnn_smem_bytes(H, C, HT, stages, halves);
+  if (halves == 1) return arnn_half_slots(C, smem);
+  switch (chunks_per_warpgroup(H, C)) {
+    case 1: return arnn_kernel_slots(arnn_kernel<1, false>, C, smem);
+    case 2: return arnn_kernel_slots(arnn_kernel<2, false>, C, smem);
+    default: return arnn_kernel_slots(arnn_kernel<4, false>, C, smem);
+  }
+}
+
+inline cudaError_t launch_arnn(const CUtensorMap& map, const ArnnArgs& a, int C, int halves,
+                               cudaStream_t stream) {
+  if (!arnn_plan_fits(a.H, C, a.LP, a.HT, a.V, a.stages, halves) || a.B < 1 || a.S < 1 ||
+      !(a.OK == 2 || (a.OK == 4 && (a.HT == a.LP || a.HT % 256 == 0))))
+    return cudaErrorInvalidValue;
+  const int clusters = (a.B + kRows - 1) / kRows;
+  const size_t smem = arnn_smem_bytes(a.H, C, a.HT, a.stages, halves);
+  if (halves == 1) return launch_arnn_half(map, a, C, clusters, smem, stream);
+  const bool one = out_chunks(a.V) == 1 && a.HT == a.LP && a.OK == 4;
+  return one ? launch_arnn_as<false>(map, a, C, clusters, smem, stream)
+             : launch_arnn_as<true>(map, a, C, clusters, smem, stream);
+}
+
+inline int arnn_f32_slots(int H, int C, int LP) {
+  if (!arnn_f32_plan_fits(H, C, LP, 1)) return -1;
+  return max_clusters(arnn_f32_kernel<false>, C, arnn_f32_smem_bytes(H, C), kF32Threads);
+}
+
+inline cudaError_t launch_arnn_f32(const CUtensorMap& w_map, const ArnnF32Args& a, int C,
+                                   cudaStream_t stream) {
+  if (!arnn_f32_plan_fits(a.H, C, a.LP, a.V) || a.B < 1 || a.S < 1 || a.scratch == nullptr)
+    return cudaErrorInvalidValue;
+  const int tiles = (a.B + kRows - 1) / kRows, wd = a.H > a.LP ? a.H : a.LP;
+  CUtensorMap a_map;  // the scratch's planes of (64 rows, wd), three pieces a box
+  const uint64_t dims[3] = {(uint64_t)wd, (uint64_t)kRows, (uint64_t)tiles * 18};
+  const uint64_t strides[2] = {(uint64_t)wd * 2, (uint64_t)kRows * wd * 2};
+  const uint32_t box[3] = {64, (uint32_t)kRows, 3};
+  cudaError_t err = make_map(&a_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, a.scratch, dims,
+                             strides, box);
+  if (err != cudaSuccess) return err;
+  const size_t smem = arnn_f32_smem_bytes(a.H, C);
+  const auto kernel = out_chunks(a.V) > 1 ? arnn_f32_kernel<true> : arnn_f32_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * C, 1, 1);
+  cfg.blockDim = dim3(kF32Threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, w_map, a_map, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace rec90
 }  // namespace inpaint
 
 // The first kernel (arnn_kernel.first_kernel_decode, a yardstick): dtype 0
@@ -301,8 +372,9 @@ extern "C" int inpaint_arnn_decode(int dtype, const void* ctx, const void* score
 // arnn_kernel.pack_arnn_weights; `xwc` (B, S, 4H) f32 is ctx @ W_ctx
 // (inpaint_arnn_ctx_gemm); `cluster` CTAs share each 64-row tile and
 // `stages` is the depth of each consumer warpgroup's ring, HT the hidden
-// tile's width and `out_kslabs` the k-slabs of a W_out^T block
-// (arnn_kernel.arnn_plan, arnn_hid_cols, arnn_out_kslabs). bias (4, 4H),
+// tile's width, `out_kslabs` the k-slabs of a W_out^T block and `halves`
+// the half k-slabs of a box, the map's (arnn_kernel.arnn_plan,
+// arnn_hid_cols, arnn_out_kslabs, arnn_box_halves). bias (4, 4H),
 // b_l1 (LP,), b_out (64 NOC,) bf16; score, force (B, S) int32; logits (B,
 // S, V) bf16; tokens (B, S) int32; `ties` 0 (1: the planted fault of
 // gru_layer_hopper.cuh head_beats).
@@ -311,7 +383,8 @@ extern "C" int inpaint_arnn_decode_bf16(const void* map, const void* xwc, const 
                                         const void* start_xw, const void* bias, const void* b_l1,
                                         const void* b_out, void* logits, void* tokens, int B,
                                         int S, int H, int LP, int HT, int V, int cluster,
-                                        int stages, int ties, int out_kslabs, void* stream) {
+                                        int stages, int ties, int out_kslabs, int halves,
+                                        void* stream) {
   if (map == nullptr) return (int)cudaErrorInvalidValue;
   using T = __nv_bfloat16;
   CUtensorMap m;
@@ -322,30 +395,41 @@ extern "C" int inpaint_arnn_decode_bf16(const void* map, const void* xwc, const 
                                    static_cast<const T*>(b_l1), static_cast<const T*>(b_out),
                                    static_cast<T*>(logits), static_cast<int*>(tokens),
                                    B, S, H, LP, HT, V, stages, ties, out_kslabs};
-  return (int)inpaint::rec90::launch_arnn(m, a, cluster, static_cast<cudaStream_t>(stream));
+  return (int)inpaint::rec90::launch_arnn(m, a, cluster, halves,
+                                          static_cast<cudaStream_t>(stream));
 }
 
 // Encode into `map_out` (128 bytes, 64-byte aligned) the tensor map of
-// `blocks` packed 128 x 64 bf16 blocks (arnn_kernel.pack_arnn_weights).
-extern "C" int inpaint_arnn_map(const void* packed, int blocks, void* map_out) {
+// `blocks` packed 128 x 64 bf16 blocks (arnn_kernel.pack_arnn_weights),
+// boxes of `halves` halves of a block (arnn_kernel.arnn_box_halves).
+extern "C" int inpaint_arnn_map(const void* packed, int blocks, int halves, void* map_out) {
   if (blocks < 1) return (int)cudaErrorInvalidValue;
-  return (int)inpaint::rec90::make_lstm_map(static_cast<CUtensorMap*>(map_out), packed, blocks);
+  return (int)inpaint::rec90::make_lstm_map(static_cast<CUtensorMap*>(map_out), packed, blocks,
+                                            halves);
 }
 
 // Clusters of `cluster` CTAs of the bf16 route at width H with a hidden
-// tile of HT columns and `stages` ring stages that the card runs at once;
-// -1 where the plan does not fit.
-extern "C" int inpaint_arnn_slots(int H, int cluster, int HT, int stages) {
-  return inpaint::rec90::arnn_slots(H, cluster, HT, stages);
+// tile of HT columns and `stages` ring stages of boxes of `halves` half
+// k-slabs that the card runs at once; -1 where the plan does not fit.
+extern "C" int inpaint_arnn_slots(int H, int cluster, int HT, int stages, int halves) {
+  return inpaint::rec90::arnn_slots(H, cluster, HT, stages, halves);
 }
 
 // The bf16 route's context projection: out (M, N) f32 = ctx (M, K) bf16 @
-// w_t (N, K)^T, w_t = W_ctx^T K-major; K a multiple of 64, N of 2.
+// w_t (N, K)^T, w_t = W_ctx^T K-major; K a multiple of 64, N of 2. The
+// tensor cores sum `group` k-slabs of 64 into a partial, and the partials
+// are added in rounded f32 (arnn_kernel.ARNN_CTX_GROUP); group 0 takes the
+// whole of K in one accumulator (encoder_xw_gemm_kernel), the checks'
+// yardstick of what that does on a deep context.
 extern "C" int inpaint_arnn_ctx_gemm(const void* ctx, const void* w_t, void* out, int M, int K,
-                                     int N, void* stream) {
-  if (K % 64 != 0 || N % 2 != 0 || M < 1) return (int)cudaErrorInvalidValue;
-  return (int)inpaint::enc90::launch_proj_gemm<__nv_bfloat16>(
-      ctx, w_t, nullptr, out, M, K, N, 1, static_cast<cudaStream_t>(stream));
+                                     int N, int group, void* stream) {
+  if (K % 64 != 0 || N % 2 != 0 || M < 1 || group < 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (group == 0)
+    return (int)inpaint::enc90::launch_proj_gemm<__nv_bfloat16>(ctx, w_t, nullptr, out, M, K,
+                                                                N, 1, s);
+  return (int)inpaint::enc90::launch_proj_gemm_grouped(ctx, w_t, static_cast<float*>(out), M, K,
+                                                       N, group, s);
 }
 
 // The f32 route (arnn_hopper.cuh arnn_f32_kernel): `map` is

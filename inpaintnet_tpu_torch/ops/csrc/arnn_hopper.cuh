@@ -49,14 +49,27 @@
 //   the lower index winning a tie (gru_layer_hopper.cuh): the first index
 //   among equal maxima over the V real columns; after the last chunk the
 //   force mask; CTA 0 writes the logits and the tokens.
-// - Numerics as the f32 route's kernel: products in f32, biases and gates
+// - Numerics as the f32 route's kernel: products in f32 (layer 0's and
+//   W_ih1's over more than 256 values of K as partials of kSumSlabs
+//   k-slabs added in rounded f32), biases and gates
 //   in f32, both layers' h and c rounded to bf16 every tick, the head's
 //   hidden rounded to bf16, unbounded f32 logits written in bf16. Rows past
 //   B run on the token table alone and are never stored.
+// - Above 512 units (H 576 and 640, arnn_kernel.arnn_box_halves) two h
+//   tiles of 64 x H leave no cluster size room for rings of whole 16 KB
+//   k-slabs beside the hidden tile and the c carries (H 640 on 10 CTAs:
+//   263,168 bytes against 230,400). There (kHalf) a box and a ring stage
+//   hold half a k-slab, 32 values of K with the 64-byte swizzle
+//   (gru_layer_hopper.cuh HalfFeedT, HalfRingT), a consumer issuing its two
+//   k16 steps a half (box_mma), and a cluster of 9 or 10 CTAs, past the
+//   portable 8, gives each CTA 64 units: one chunk a consumer warpgroup, c
+//   carries of 16 KB. H 640 then takes the budget exactly with two stages.
 #pragma once
 
 #include <limits.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "gru_layer_hopper.cuh"
 
@@ -79,6 +92,8 @@ namespace rec90 {
 
 constexpr int kLstmRows = 4 * kUnits;              // a chunk's i, f, g, o rows: the wgmma N
 constexpr int kLstmSlabBytes = kLstmRows * 128;    // one k-slab of a chunk: 16 KB
+constexpr int kLstmHalfBytes = kLstmSlabBytes / 2; // half of one, 32 values of K: 8 KB
+constexpr int kMaxArnnCluster = 16;                // the non-portable sizes an H100 takes
 constexpr int kHidCols = 128;                      // hidden columns of a head chunk
 constexpr int kOutCols = 64;                       // vocabulary columns of an output chunk
 // a whole producer warpgroup (two warps feed the rings, two idle), so that
@@ -118,6 +133,69 @@ struct ArnnCta {
   int* prev_tok;        // each row's fed-back token, -1: start_xw
   int H, KB, U, tile0, chunk0, nch, wg;
 };
+
+// A consumer warpgroup's ring and its producer's feed: boxes of a whole
+// k-slab, or (kHalf) of half of one
+template <bool kHalf>
+using LstmRing = std::conditional_t<kHalf, HalfRingT<kLstmHalfBytes>, RingT<kLstmSlabBytes>>;
+template <bool kHalf>
+using LstmFeed = std::conditional_t<kHalf, HalfFeedT<kLstmHalfBytes>, FeedT<kLstmSlabBytes>>;
+template <bool kHalf>
+constexpr int kLstmBoxBytes = kHalf ? kLstmHalfBytes : kLstmSlabBytes;
+
+// `products(k, h, box)` for the boxes of the ring's next nk k-slabs: box h
+// of k-slab k (h 0, the whole slab; with half boxes, h 0 and 1)
+template <typename Products>
+__device__ __forceinline__ void each_box(RingT<kLstmSlabBytes>& rg, int nk, int lane,
+                                         Products products) {
+  rg.consume(nk, lane, [&](int k, unsigned char* box) { products(k, 0, box); });
+}
+template <typename Products>
+__device__ __forceinline__ void each_box(HalfRingT<kLstmHalfBytes>& rg, int nk, int lane,
+                                         Products products) {
+  rg.consume(nk, lane, products);
+}
+
+// acc (+)= the 128-byte-swizzled k-block `a` (64 rows x 64 of K) @ the
+// box's rows from row0 on: the whole k-slab's four k16 steps, or (kHalf)
+// half h's two, 64-byte swizzled, in a whole slab's k16 order
+template <bool kHalf, int N>
+__device__ __forceinline__ void box_mma(float (&acc)[N], const unsigned char* a,
+                                        const unsigned char* box, int row0, int h,
+                                        bool accumulate) {
+  if constexpr (kHalf)
+    mma_half(acc, desc_sw128(a), desc_sw64(box + row0 * 64), h, accumulate || h > 0);
+  else
+    mma_slab(acc, desc_sw128(a), desc_sw128(box + row0 * 128), accumulate);
+}
+
+// k-slabs of an LSTM product that the tensor cores sum into one partial
+// (256 values of K, the flagship's whole sum); the partials are added in
+// rounded f32. Their own sum over 640 values of K in one accumulator
+// drifts from the plain version's IEEE f32 sums toward zero (PERF.md).
+constexpr int kSumSlabs = 4;
+
+// acc = the A tile `a` (64 rows x nk k-slabs of 64) @ the ring's next nk
+// k-slabs, in partials of kSumSlabs k-slabs summed in `part` (free
+// registers of the caller's)
+template <bool kHalf>
+__device__ __forceinline__ void lstm_product(LstmRing<kHalf>& rg, float (&acc)[64],
+                                             float (&part)[64], const unsigned char* a, int nk,
+                                             int lane) {
+  each_box(rg, nk < kSumSlabs ? nk : kSumSlabs, lane, [&](int kk, int h, unsigned char* box) {
+    box_mma<kHalf>(acc, a + kk * kBlockBytes, box, 0, h, kk > 0);
+  });
+  fence_operands(acc);
+  for (int k0 = kSumSlabs; k0 < nk; k0 += kSumSlabs) {
+    each_box(rg, nk - k0 < kSumSlabs ? nk - k0 : kSumSlabs, lane,
+             [&](int kk, int h, unsigned char* box) {
+               box_mma<kHalf>(part, a + (k0 + kk) * kBlockBytes, box, 0, h, kk > 0);
+             });
+    fence_operands(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+  }
+}
 
 // The LSTM cells of a chunk's 64 rows x 32 units: `pre(gi, n8, a, e)` is
 // gate gi's pre-activation of the thread's (row half, unit) a = 4 n8 + 2 half
@@ -162,10 +240,9 @@ __device__ __forceinline__ void lstm_epilogue(Pre pre, uint32_t* c, int U, int u
 }
 
 // layer 0: gates = ((prev_xw + ctx_t @ W_ctx) + b_ih0) + (h0 @ W_hh0 + b_hh0)
-template <int MAXC>
+template <int MAXC, bool kHalf>
 __device__ __forceinline__ void arnn_layer0(const ArnnArgs& p, const ArnnCta& k,
-                                            RingT<kLstmSlabBytes>& rg, const Exchange& ex,
-                                            int t) {
+                                            LstmRing<kHalf>& rg, const Exchange& ex, int t) {
   const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2,
             q = lane & 3;
   const int H = k.H, H4 = 4 * H;
@@ -197,11 +274,8 @@ __device__ __forceinline__ void arnn_layer0(const ArnnArgs& p, const ArnnCta& k,
             prefetch_l2(fb[half] + gi * H + j0);
           }
       }
-      float acc[64];
-      rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
-        mma_slab(acc, desc_sw128(k.h0t + kk * kBlockBytes), desc_sw128(slab), kk > 0);
-      });
-      fence_operands(acc);
+      float acc[64], part[64];
+      lstm_product<kHalf>(rg, acc, part, k.h0t, k.KB, lane);
       lstm_epilogue(
           [&](int gi, int n8, int a, int e) {
             // ((the fed-back row + the context projection) + b_ih0) + (acc + b_hh0)
@@ -221,10 +295,9 @@ __device__ __forceinline__ void arnn_layer0(const ArnnArgs& p, const ArnnCta& k,
 // layer 1: gates = (h0' @ W_ih1 + b_ih1) + (h1 @ W_hh1 + b_hh1), the two
 // products in accumulators of their own, summed in the plain version's
 // order
-template <int MAXC>
+template <int MAXC, bool kHalf>
 __device__ __forceinline__ void arnn_layer1(const ArnnArgs& p, const ArnnCta& k,
-                                            RingT<kLstmSlabBytes>& rg, const Exchange& ex,
-                                            int t) {
+                                            LstmRing<kHalf>& rg, const Exchange& ex, int t) {
   const int lane = threadIdx.x & 31, q = lane & 3;
   const int H = k.H, H4 = 4 * H;
   const __nv_bfloat16* bih = p.bias + 2 * H4;
@@ -235,14 +308,14 @@ __device__ __forceinline__ void arnn_layer1(const ArnnArgs& p, const ArnnCta& k,
     const int c = k.wg + ci * kConsumers;
     if (c < k.nch) {
       const int j0 = (k.chunk0 + c) * kUnits + opaque_zero();
+      // W_ih1's product in partials, their sums in ah's registers before
+      // W_hh1's product takes them in one accumulator: a third 64 x 128
+      // accumulator spilled (PERF.md)
       float ax[64], ah[64];
-      rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
-        mma_slab(ax, desc_sw128(k.h0t + kk * kBlockBytes), desc_sw128(slab), kk > 0);
+      lstm_product<kHalf>(rg, ax, ah, k.h0t, k.KB, lane);
+      each_box(rg, k.KB, lane, [&](int kk, int h, unsigned char* box) {
+        box_mma<kHalf>(ah, k.h1t + kk * kBlockBytes, box, 0, h, kk > 0);
       });
-      rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
-        mma_slab(ah, desc_sw128(k.h1t + kk * kBlockBytes), desc_sw128(slab), kk > 0);
-      });
-      fence_operands(ax);
       fence_operands(ah);
       lstm_epilogue(
           [&](int gi, int n8, int a, int e) {
@@ -262,9 +335,9 @@ __device__ __forceinline__ void arnn_layer1(const ArnnArgs& p, const ArnnCta& k,
 // (identical) h1. CTA 0 of the cluster writes the logits and the tokens.
 // kChunks: more than one output chunk or hidden round (else the one-chunk
 // path, in an instantiation of its own that keeps today's registers).
-template <bool kChunks>
+template <bool kChunks, bool kHalf>
 __device__ __forceinline__ void arnn_head(const ArnnArgs& p, const ArnnCta& k,
-                                          RingT<kLstmSlabBytes>& rg, uint32_t rank, int t,
+                                          LstmRing<kHalf>& rg, uint32_t rank, int t,
                                           float (&best_s)[kConsumers][kRows],
                                           int (&arg_s)[kConsumers][kRows]) {
   const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2,
@@ -279,8 +352,8 @@ __device__ __forceinline__ void arnn_head(const ArnnArgs& p, const ArnnCta& k,
     // relu(h1 @ W_l1 + b_l1), rounded to bf16, into the hidden tile
     for (int lc = k.wg; lc < LC; lc += kConsumers) {
       float acc[64];
-      rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
-        mma_slab(acc, desc_sw128(k.h1t + kk * kBlockBytes), desc_sw128(slab), kk > 0);
+      each_box(rg, k.KB, lane, [&](int kk, int h, unsigned char* box) {
+        box_mma<kHalf>(acc, k.h1t + kk * kBlockBytes, box, 0, h, kk > 0);
       });
       fence_operands(acc);
 #pragma unroll
@@ -299,13 +372,11 @@ __device__ __forceinline__ void arnn_head(const ArnnArgs& p, const ArnnCta& k,
     // of them a 128-row block (its own blocks of W_out^T)
     const int col0 = 32 * k.wg;
     float lg[16];
-    rg.consume((LB + 3) / 4, lane, [&](int b, unsigned char* slab) {
+    each_box(rg, (LB + 3) / 4, lane, [&](int b, int h, unsigned char* box) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const int ks = 4 * b + kk;
-        if (ks < LB)
-          mma_slab(lg, desc_sw128(k.hid + ks * kBlockBytes), desc_sw128(slab + kk * 32 * 128),
-                   ks > 0);
+        if (ks < LB) box_mma<kHalf>(lg, k.hid + ks * kBlockBytes, box, 32 * kk, h, ks > 0);
       }
     });
     fence_operands(lg);
@@ -374,8 +445,8 @@ __device__ __forceinline__ void arnn_head(const ArnnArgs& p, const ArnnCta& k,
         // relu(h1 @ W_l1 + b_l1) of round hr's hidden columns, rounded to bf16
         for (int lc = k.wg; lc < RC; lc += kConsumers) {
           float acc[64];
-          rg.consume(k.KB, lane, [&](int kk, unsigned char* slab) {
-            mma_slab(acc, desc_sw128(k.h1t + kk * kBlockBytes), desc_sw128(slab), kk > 0);
+          each_box(rg, k.KB, lane, [&](int kk, int h, unsigned char* box) {
+            box_mma<kHalf>(acc, k.h1t + kk * kBlockBytes, box, 0, h, kk > 0);
           });
           fence_operands(acc);
 #pragma unroll
@@ -395,22 +466,21 @@ __device__ __forceinline__ void arnn_head(const ArnnArgs& p, const ArnnCta& k,
       // block of its own four 32-row k-slabs, or rows 64 kk + 32 wg of a
       // block of two k-slabs of the chunk's 64 columns
       if (p.OK == 4)
-        rg.consume((HB + 3) / 4, lane, [&](int b, unsigned char* slab) {
+        each_box(rg, (HB + 3) / 4, lane, [&](int b, int h, unsigned char* box) {
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk) {
             const int ks = 4 * b + kk;
             if (ks < HB)
-              mma_slab(lg, desc_sw128(k.hid + ks * kBlockBytes), desc_sw128(slab + kk * 32 * 128),
-                       hr > 0 || ks > 0);
+              box_mma<kHalf>(lg, k.hid + ks * kBlockBytes, box, 32 * kk, h, hr > 0 || ks > 0);
           }
         });
       else
-        rg.consume(HB / 2, lane, [&](int b, unsigned char* slab) {
+        each_box(rg, HB / 2, lane, [&](int b, int h, unsigned char* box) {
 #pragma unroll
           for (int kk = 0; kk < 2; ++kk) {
             const int ks = 2 * b + kk;
-            mma_slab(lg, desc_sw128(k.hid + ks * kBlockBytes),
-                     desc_sw128(slab + (64 * kk + 32 * k.wg) * 128), hr > 0 || ks > 0);
+            box_mma<kHalf>(lg, k.hid + ks * kBlockBytes, box, 64 * kk + 32 * k.wg, h,
+                           hr > 0 || ks > 0);
           }
         });
       fence_operands(lg);
@@ -475,8 +545,9 @@ __device__ __forceinline__ void arnn_head(const ArnnArgs& p, const ArnnCta& k,
 // 32-63, each half in blocks of four 32-row k-slabs (LP padded to 256),
 // streamed by its warpgroup's ring; with OK 2 the chunk in LP / 128 blocks
 // of two 64-row k-slabs, which both rings stream (each warpgroup reads 32
-// rows of each).
-template <int MAXC, bool kChunks>
+// rows of each). kHalf: boxes of half a k-slab (the map's box is 32 values
+// of K with the 64-byte swizzle, make_lstm_map).
+template <int MAXC, bool kChunks, bool kHalf = false>
 __global__ void __launch_bounds__(kArnnThreads, 1)
     arnn_kernel(const __grid_constant__ CUtensorMap w_map, const __grid_constant__ ArnnArgs p) {
   extern __shared__ unsigned char smem_raw[];
@@ -494,7 +565,8 @@ __global__ void __launch_bounds__(kArnnThreads, 1)
   const int C = (int)cluster_nctarank();
   const uint32_t rank = cluster_ctarank();
   const int U = H / C, nch = U / kUnits, chunk0 = (int)rank * nch;
-  uint32_t* c0 = reinterpret_cast<uint32_t*>(ring + kConsumers * p.stages * kLstmSlabBytes);
+  constexpr int kBox = kLstmBoxBytes<kHalf>;
+  uint32_t* c0 = reinterpret_cast<uint32_t*>(ring + kConsumers * p.stages * kBox);
   uint32_t* c1 = c0 + kRows * U / 2;
   const int tile0 = (int)(blockIdx.x / C) * kRows;
   const int wg = threadIdx.x >> 7;
@@ -525,8 +597,11 @@ __global__ void __launch_bounds__(kArnnThreads, 1)
     setmaxnreg_dec<kProducerRegs>();
     const int w = (threadIdx.x >> 5) & 3;
     if (w < kConsumers && (threadIdx.x & 31) == 0) {
-      FeedT<kLstmSlabBytes> f{&w_map, ring + w * p.stages * kLstmSlabBytes, full_bar[w],
-                              empty_bar[w], p.stages, 1, 0, 0};
+      LstmFeed<kHalf> f;
+      if constexpr (kHalf)
+        f = {&w_map, ring + w * p.stages * kBox, full_bar[w], empty_bar[w], p.stages, 0, 0};
+      else
+        f = {&w_map, ring + w * p.stages * kBox, full_bar[w], empty_bar[w], p.stages, 1, 0, 0};
       const int chunks = H / kUnits;
       const int l1_base = chunks * KB, head_base = l1_base + chunks * 2 * KB;
       const int LC = p.LP / kHidCols, out_base = head_base + LC * KB;
@@ -552,8 +627,11 @@ __global__ void __launch_bounds__(kArnnThreads, 1)
   }
 
   setmaxnreg_inc<kConsumerRegs>();
-  RingT<kLstmSlabBytes> rg{ring + wg * p.stages * kLstmSlabBytes, full_bar[wg], empty_bar[wg],
-                           p.stages, 1, 0, 0};
+  LstmRing<kHalf> rg;
+  if constexpr (kHalf)
+    rg = {ring + wg * p.stages * kBox, full_bar[wg], empty_bar[wg], p.stages, 0, 0};
+  else
+    rg = {ring + wg * p.stages * kBox, full_bar[wg], empty_bar[wg], p.stages, 1, 0, 0};
   const Exchange ex0{C, rank, (int)rank * (U / 64), U / 64, &h_full[0], &h_done[0]};
   const Exchange ex1{C, rank, (int)rank * (U / 64), U / 64, &h_full[1], &h_done[1]};
   const ArnnCta cta{h0t, h1t, hid, c0, c1, prev_tok, H, KB, U, tile0, chunk0, nch, wg};
@@ -561,76 +639,80 @@ __global__ void __launch_bounds__(kArnnThreads, 1)
   for (int t = 0; t < S; ++t) {
     // the last tick's head is done: prev_tok is set, h1 and hid are read
     named_barrier(kBar, kConsumerThreads);
-    arnn_layer0<MAXC>(p, cta, rg, ex0, t);
-    arnn_layer1<MAXC>(p, cta, rg, ex1, t);
-    arnn_head<kChunks>(p, cta, rg, rank, t, head_best, head_arg);
+    arnn_layer0<MAXC, kHalf>(p, cta, rg, ex0, t);
+    arnn_layer1<MAXC, kHalf>(p, cta, rg, ex1, t);
+    arnn_head<kChunks, kHalf>(p, cta, rg, rank, t, head_best, head_arg);
   }
   cluster_sync();
 }
 
 // dynamic shared memory of a K7 block: both h tiles, the hidden tile of HT
-// columns, the rings and the two c arrays (and 1 KB of alignment)
-inline size_t arnn_smem_bytes(int H, int C, int HT, int stages) {
+// columns, the rings of boxes of `halves` half k-slabs and the two c arrays
+// (and 1 KB of alignment)
+inline size_t arnn_smem_bytes(int H, int C, int HT, int stages, int halves) {
   return (size_t)(2 * (H / 64) + HT / 64) * kBlockBytes +
-         (size_t)kConsumers * stages * kLstmSlabBytes + 2ull * kRows * (H / C) * 2 + 1024;
+         (size_t)kConsumers * stages * halves * kLstmHalfBytes + 2ull * kRows * (H / C) * 2 +
+         1024;
 }
 
-// the launch's checks: C in 1..8 owning whole 64-unit k-blocks, at most 4
-// chunks a warpgroup (more leave no ring beside the tiles and c carries), a
+// the launch's checks: C in 1..16 owning whole 64-unit k-blocks, at most 4
+// chunks a warpgroup (more leave no ring beside the tiles and c carries),
+// half boxes only at one chunk a warpgroup (their one instantiation), a
 // hidden tile of whole 128-column chunks that splits the head's LP into
 // rounds, a ring of 2..kMaxStages stages that fits
-inline bool arnn_plan_fits(int H, int C, int LP, int HT, int V, int stages) {
-  if (H % 64 != 0 || H <= 0 || C < 1 || C > kMaxCluster) return false;
+inline bool arnn_plan_fits(int H, int C, int LP, int HT, int V, int stages, int halves) {
+  if (H % 64 != 0 || H <= 0 || C < 1 || C > kMaxArnnCluster) return false;
   if ((H / 64) % C != 0 || H / C > 4 * kConsumers * kUnits) return false;
+  if (!(halves == 2 || (halves == 1 && chunks_per_warpgroup(H, C) == 1))) return false;
   if (HT < kHidCols || HT % kHidCols != 0 || LP % HT != 0 || V < 1) return false;
   if (stages < 2 || stages > kMaxStages) return false;
-  return arnn_smem_bytes(H, C, HT, stages) <= (size_t)kSmemBudget;
+  return arnn_smem_bytes(H, C, HT, stages, halves) <= (size_t)kSmemBudget;
 }
 
-inline int arnn_slots(int H, int C, int HT, int stages) {
-  if (!arnn_plan_fits(H, C, HT, HT, 1, stages)) return -1;
-  const size_t smem = arnn_smem_bytes(H, C, HT, stages);
-  switch (chunks_per_warpgroup(H, C)) {
-    case 1: return max_clusters(arnn_kernel<1, false>, C, smem, kArnnThreads);
-    case 2: return max_clusters(arnn_kernel<2, false>, C, smem, kArnnThreads);
-    default: return max_clusters(arnn_kernel<4, false>, C, smem, kArnnThreads);
-  }
+// `kernel` opted in to clusters past the portable 8 CTAs where C asks
+template <typename Kernel>
+inline cudaError_t allow_cluster(Kernel kernel, int C) {
+  return C > kMaxCluster
+             ? cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)
+             : cudaSuccess;
+}
+
+template <typename Kernel>
+inline int arnn_kernel_slots(Kernel kernel, int C, size_t smem) {
+  if (allow_cluster(kernel, C) != cudaSuccess) return -1;
+  return max_clusters(kernel, C, smem, kArnnThreads);
+}
+
+template <typename Kernel>
+inline cudaError_t launch_arnn_kernel(Kernel kernel, const CUtensorMap& map, const ArnnArgs& a,
+                                      int C, int clusters, size_t smem, cudaStream_t stream) {
+  const cudaError_t err = allow_cluster(kernel, C);
+  if (err != cudaSuccess) return err;
+  return launch_clusters(kernel, clusters, C, smem, stream, map, a, kArnnThreads);
 }
 
 template <bool kChunks>
 inline cudaError_t launch_arnn_as(const CUtensorMap& map, const ArnnArgs& a, int C, int clusters,
                                   size_t smem, cudaStream_t stream) {
   switch (chunks_per_warpgroup(a.H, C)) {
-    case 1: return launch_clusters(arnn_kernel<1, kChunks>, clusters, C, smem, stream, map, a,
-                                   kArnnThreads);
-    case 2: return launch_clusters(arnn_kernel<2, kChunks>, clusters, C, smem, stream, map, a,
-                                   kArnnThreads);
+    case 1: return launch_arnn_kernel(arnn_kernel<1, kChunks>, map, a, C, clusters, smem, stream);
+    case 2: return launch_arnn_kernel(arnn_kernel<2, kChunks>, map, a, C, clusters, smem, stream);
     case 3:
-    case 4: return launch_clusters(arnn_kernel<4, kChunks>, clusters, C, smem, stream, map, a,
-                                   kArnnThreads);
+    case 4: return launch_arnn_kernel(arnn_kernel<4, kChunks>, map, a, C, clusters, smem, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-inline cudaError_t launch_arnn(const CUtensorMap& map, const ArnnArgs& a, int C,
-                               cudaStream_t stream) {
-  if (!arnn_plan_fits(a.H, C, a.LP, a.HT, a.V, a.stages) || a.B < 1 || a.S < 1 ||
-      !(a.OK == 2 || (a.OK == 4 && (a.HT == a.LP || a.HT % 256 == 0))))
-    return cudaErrorInvalidValue;
-  const int clusters = (a.B + kRows - 1) / kRows;
-  const size_t smem = arnn_smem_bytes(a.H, C, a.HT, a.stages);
-  const bool one = out_chunks(a.V) == 1 && a.HT == a.LP && a.OK == 4;
-  return one ? launch_arnn_as<false>(map, a, C, clusters, smem, stream)
-             : launch_arnn_as<true>(map, a, C, clusters, smem, stream);
-}
-
 // A 3D tensor map over K7's packed 16 KB blocks (128 rows x 64 bf16 of K),
-// one block a box.
-inline cudaError_t make_lstm_map(CUtensorMap* map, const void* packed, int blocks) {
+// one block a box (`halves` 2, the 128-byte swizzle) or half of one, 32
+// values of K (1, the 64-byte swizzle).
+inline cudaError_t make_lstm_map(CUtensorMap* map, const void* packed, int blocks, int halves) {
+  if (halves != 1 && halves != 2) return cudaErrorInvalidValue;
   const uint64_t dims[3] = {64, (uint64_t)kLstmRows, (uint64_t)blocks};
   const uint64_t strides[2] = {128, (uint64_t)kLstmSlabBytes};
-  const uint32_t box[3] = {64, (uint32_t)kLstmRows, 1};
-  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, packed, dims, strides, box);
+  const uint32_t box[3] = {32u * (uint32_t)halves, (uint32_t)kLstmRows, 1};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, packed, dims, strides, box,
+                  halves == 2 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // ---------------------------------------------------------------------------
@@ -1009,50 +1091,12 @@ inline bool arnn_f32_plan_fits(int H, int C, int LP, int V) {
   return arnn_f32_smem_bytes(H, C) <= (size_t)kSmemBudget;
 }
 
-inline int arnn_f32_slots(int H, int C, int LP) {
-  if (!arnn_f32_plan_fits(H, C, LP, 1)) return -1;
-  return max_clusters(arnn_f32_kernel<false>, C, arnn_f32_smem_bytes(H, C), kF32Threads);
-}
-
 // A 3D tensor map over the f32 route's packed 8 KB blocks, six a box.
 inline cudaError_t make_arnn_f32_map(CUtensorMap* map, const void* packed, int blocks) {
   const uint64_t dims[3] = {64, (uint64_t)kRows, (uint64_t)blocks};
   const uint64_t strides[2] = {128, (uint64_t)kF32Block};
   const uint32_t box[3] = {64, (uint32_t)kRows, 6};
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, packed, dims, strides, box);
-}
-
-inline cudaError_t launch_arnn_f32(const CUtensorMap& w_map, const ArnnF32Args& a, int C,
-                                   cudaStream_t stream) {
-  if (!arnn_f32_plan_fits(a.H, C, a.LP, a.V) || a.B < 1 || a.S < 1 || a.scratch == nullptr)
-    return cudaErrorInvalidValue;
-  const int tiles = (a.B + kRows - 1) / kRows, wd = a.H > a.LP ? a.H : a.LP;
-  CUtensorMap a_map;  // the scratch's planes of (64 rows, wd), three pieces a box
-  const uint64_t dims[3] = {(uint64_t)wd, (uint64_t)kRows, (uint64_t)tiles * 18};
-  const uint64_t strides[2] = {(uint64_t)wd * 2, (uint64_t)kRows * wd * 2};
-  const uint32_t box[3] = {64, (uint32_t)kRows, 3};
-  cudaError_t err = make_map(&a_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, a.scratch, dims,
-                             strides, box);
-  if (err != cudaSuccess) return err;
-  const size_t smem = arnn_f32_smem_bytes(a.H, C);
-  const auto kernel = out_chunks(a.V) > 1 ? arnn_f32_kernel<true> : arnn_f32_kernel<false>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles * C, 1, 1);
-  cfg.blockDim = dim3(kF32Threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, w_map, a_map, a);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
 }
 
 }  // namespace rec90

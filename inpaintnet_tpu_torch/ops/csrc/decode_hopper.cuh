@@ -189,77 +189,10 @@ inline cudaError_t make_decode_map(CUtensorMap* map, const void* packed, int blo
 // K2's ring where a stage is half a k-slab (decode_box_halves 1): the
 // producer loads each k-slab as two boxes of 32 values of K, one a stage;
 // the consumer multiplies each half by its two k16 steps (a whole slab's
-// four, in the same order).
+// four, in the same order; gru_layer_hopper.cuh HalfFeedT, HalfRingT).
 constexpr int kHalfBytes = kSlabBytes / 2;  // 96 rows x 64 bytes: 6 KB
-
-struct HalfFeed {
-  const CUtensorMap* map;
-  unsigned char* ring;
-  uint64_t* full;
-  uint64_t* empty;
-  int stages, stage;
-  uint32_t phase;
-  // the k-slabs 0..nk-1 of the chunk whose slabs start at block `block0`
-  __device__ void slabs(int block0, int nk) {
-    for (int k = 0; k < nk; ++k)
-      for (int h = 0; h < 2; ++h) {
-        mbar_wait_bounded<false>(&empty[stage], phase ^ 1);
-        mbar_expect_tx(&full[stage], kHalfBytes);
-        tma_load_3d(ring + stage * kHalfBytes, map, &full[stage], 32 * h, 0, block0 + k);
-        if (++stage == stages) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-  }
-};
-
-struct HalfRing {
-  unsigned char* ring;
-  uint64_t* full;
-  uint64_t* empty;
-  int stages, stage;
-  uint32_t phase;
-  // `issue(k, h, half)` issues the wgmmas of half h of k-slab k on its
-  // stage; each stage is handed back once the next one's products are in
-  // flight, and the call returns with every product done
-  template <typename Products>
-  __device__ __forceinline__ void consume(int nk, int lane, Products issue) {
-    int prev = 0;
-    for (int i = 0; i < 2 * nk; ++i) {
-      mbar_wait_bounded<false>(&full[stage], phase);
-      wgmma_fence();
-      issue(i >> 1, i & 1, ring + stage * kHalfBytes);
-      wgmma_commit();
-      if (i > 0) {
-        wgmma_wait<1>();
-        if (lane == 0) mbar_arrive(&empty[prev]);
-      }
-      prev = stage;
-      if (++stage == stages) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-    wgmma_wait<0>();
-    if (lane == 0) mbar_arrive(&empty[prev]);
-  }
-};
-
-// Half h of a k-slab of a bf16 product: the 128-byte-swizzled A's k16
-// steps 2h and 2h + 1 by the 64-byte-swizzled half slab's two.
-__device__ __forceinline__ void mma_half(float (&d)[48], uint64_t da, uint64_t db, int h,
-                                         bool accumulate) {
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-    wgmma_bf16_n96(d, da + 4 * h + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
-}
-__device__ __forceinline__ void mma_half(float (&d)[24], uint64_t da, uint64_t db, int h,
-                                         bool accumulate) {
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-    wgmma_bf16_n48(d, da + 4 * h + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
-}
+using HalfFeed = HalfFeedT<kHalfBytes>;
+using HalfRing = HalfRingT<kHalfBytes>;
 
 // acc (+)= the bf16 h tile `tile` (its nk 64-unit k-blocks) @ the ring's
 // next nk k-slabs, each slab's rows from `row0` on (a head half: 48 of 96)

@@ -48,7 +48,13 @@
 // the tiles are 128 x 128 (two consumer warpgroups of 64 rows, 64 + 64
 // registers each), and a stage holds a k-slab of A's and of W's three
 // pieces (96 KB, two stages). What bounds it: the passes, six times the
-// bf16 GEMM's products at the bf16 peak.
+// bf16 GEMM's products at the bf16 peak. With one piece (kPieces 1) it is
+// K7's bf16 context projection (launch_proj_gemm_grouped): one pass a
+// k-slab, the partial taken over `group` k-slabs before its rounded add,
+// four stages of 32 KB. On a deep context (C 3,954) the tensor cores' sum
+// over all of K in one accumulator drifted from an IEEE f32 sum far enough
+// to flip 0.28 of the early logits' bf16 roundings (PERF.md); a partial of
+// 256 values of K (group 4) is the flagship's whole sum, unchanged.
 #pragma once
 
 #include "gru_common.cuh"
@@ -457,25 +463,34 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
 
 constexpr int kSplitM = 128;
 constexpr int kSplitN = 128;
-constexpr int kSplitStages = 2;
-constexpr int kSplitABytes = 3 * kSplitM * 128;                  // a k-slab of A's pieces: 48 KB
-constexpr int kSplitStageBytes = kSplitABytes + 3 * kSplitN * 128;  // + W's: 96 KB
+// a stage holds a k-slab of A's pieces (3: 48 KB, 1: 16 KB) and of W's
+template <int kPieces>
+constexpr int kSplitABytes = kPieces * kSplitM * 128;
+template <int kPieces>
+constexpr int kSplitStageBytes = kSplitABytes<kPieces> + kPieces * kSplitN * 128;
+template <int kPieces>
+constexpr int kSplitStages = kPieces == 3 ? 2 : 4;
 // two consumer warpgroups and a producer warpgroup that hands its registers
 // to them (setmaxnreg 40 / 232): at the launch's 168 the kernel spilled 84
 // bytes and took 3% longer (PERF.md)
 constexpr int kSplitThreads = 128 * kGemmConsumers + 128;
 
 // out (dirs, M, N3) f32 = A @ W[d]^T [+ bias[d]] from their bf16 pieces
-// (see the note at the top); a_map boxes a k-slab of the three pieces of
-// 128 rows of A, b_map one of the three pieces of 128 rows of W[d]^T
-// (static: this header is compiled into several sources)
+// (see the note at the top); a_map boxes a k-slab of the kPieces pieces of
+// 128 rows of A, b_map one of the pieces of 128 rows of W[d]^T; each
+// partial spans `group` k-slabs (static: this header is compiled into
+// several sources)
+template <int kPieces>
 static __global__ void __launch_bounds__(kSplitThreads, 1)
     encoder_xw_gemm_split_kernel(const __grid_constant__ CUtensorMap a_map,
                                  const __grid_constant__ CUtensorMap b_map, const float* bias,
-                                 float* out, int M, int N3, int K, int dirs) {
+                                 float* out, int M, int N3, int K, int dirs, int group) {
+  static_assert(kPieces == 1 || kPieces == 3, "three pieces (f32) or one (bf16)");
+  constexpr int kStages = kSplitStages<kPieces>, kStageBytes = kSplitStageBytes<kPieces>;
+  constexpr int kABytes = kSplitABytes<kPieces>;
   extern __shared__ unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t full_bar[kSplitStages];
-  __shared__ __align__(8) uint64_t empty_bar[kSplitStages];
+  __shared__ __align__(8) uint64_t full_bar[kStages];
+  __shared__ __align__(8) uint64_t empty_bar[kStages];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const int nslabs = K / 64;
@@ -485,7 +500,7 @@ static __global__ void __launch_bounds__(kSplitThreads, 1)
   const int wg = threadIdx.x >> 7;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kSplitStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full_bar[s], 1);
       mbar_init(&empty_bar[s], 4 * kGemmConsumers);
     }
@@ -502,12 +517,12 @@ static __global__ void __launch_bounds__(kSplitThreads, 1)
         const int m0 = tile / n_tiles * kSplitM, nt = tile % n_tiles;
         const int d = nt / n_per_dir, n0 = nt % n_per_dir * kSplitN;
         for (int k = 0; k < nslabs; ++k) {
-          unsigned char* st = smem + stage * kSplitStageBytes;
+          unsigned char* st = smem + stage * kStageBytes;
           mbar_wait(&empty_bar[stage], phase ^ 1);
-          mbar_expect_tx(&full_bar[stage], kSplitStageBytes);
+          mbar_expect_tx(&full_bar[stage], kStageBytes);
           tma_load_3d(st, &a_map, &full_bar[stage], k * 64, m0, 0);
-          tma_load_4d(st + kSplitABytes, &b_map, &full_bar[stage], k * 64, n0, 0, d);
-          if (++stage == kSplitStages) {
+          tma_load_4d(st + kABytes, &b_map, &full_bar[stage], k * 64, n0, 0, d);
+          if (++stage == kStages) {
             stage = 0;
             phase ^= 1;
           }
@@ -526,28 +541,41 @@ static __global__ void __launch_bounds__(kSplitThreads, 1)
     const int m0 = tile / n_tiles * kSplitM, nt = tile % n_tiles;
     const int d = nt / n_per_dir, n0 = nt % n_per_dir * kSplitN;
     float acc[64], part[64];
+    int held = -1;  // the stage of a k-slab whose wgmma may still run
     for (int k = 0; k < nslabs; ++k) {
-      unsigned char* st = smem + stage * kSplitStageBytes;
+      unsigned char* st = smem + stage * kStageBytes;
       mbar_wait(&full_bar[stage], phase);
       wgmma_fence();
+      const bool fresh = k % group == 0;  // a new partial starts at this k-slab
 #pragma unroll
-      for (int pass = 0; pass < 6; ++pass) {
+      for (int pass = kPieces == 3 ? 0 : 5; pass < 6; ++pass) {
         // (A piece, W piece), smallest terms first: lh, hl, mm, mh, hm, hh
         const int ap = (0x001102 >> (4 * pass)) & 0xF;
         const int bp = (0x010120 >> (4 * pass)) & 0xF;
         const uint64_t da = desc_sw128(st + ap * kSplitM * 128 + wg * kRows * 128);
-        const uint64_t db = desc_sw128(st + kSplitABytes + bp * kSplitN * 128);
+        const uint64_t db = desc_sw128(st + kABytes + bp * kSplitN * 128);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_bf16_n128(part, da + 2 * kk, db + 2 * kk, (pass > 0 || kk > 0) ? 1 : 0);
+          wgmma_bf16_n128(part, da + 2 * kk, db + 2 * kk,
+                          (!fresh || pass > (kPieces == 3 ? 0 : 5) || kk > 0) ? 1 : 0);
       }
       wgmma_commit();
-      wgmma_wait<0>();
-      fence_operands(part);
-      if (lane == 0) mbar_arrive(&empty_bar[stage]);
+      if ((k + 1) % group == 0 || k + 1 == nslabs) {  // the partial's rounded add
+        wgmma_wait<0>();
+        fence_operands(part);
+        if (lane == 0) {
+          if (held >= 0) mbar_arrive(&empty_bar[held]);
+          mbar_arrive(&empty_bar[stage]);
+        }
+        held = -1;
 #pragma unroll
-      for (int i = 0; i < 64; ++i) acc[i] = k == 0 ? part[i] : __fadd_rn(acc[i], part[i]);
-      if (++stage == kSplitStages) {
+        for (int i = 0; i < 64; ++i) acc[i] = k < group ? part[i] : __fadd_rn(acc[i], part[i]);
+      } else {  // the slab before is multiplied: hand its stage back
+        wgmma_wait<1>();
+        if (lane == 0 && held >= 0) mbar_arrive(&empty_bar[held]);
+        held = stage;
+      }
+      if (++stage == kStages) {
         stage = 0;
         phase ^= 1;
       }
@@ -639,27 +667,29 @@ static cudaError_t launch_proj_gemm(const void* a, const void* w, const float* b
 }
 
 // out (dirs, M, N3) f32 = a @ w[d]^T [+ bias (dirs, N3)] from their bf16
-// pieces: a (3, M, K), w (dirs, 3, N3, K) K-major; K a multiple of 64, N3
-// of 2
-static cudaError_t launch_proj_gemm_split(const void* a, const void* w, const float* bias,
-                                          float* out, int M, int K, int N3, int dirs,
-                                          cudaStream_t stream) {
-  if (M < 1 || K < 64 || K % 64 != 0 || N3 < 2 || N3 % 2 != 0 || dirs < 1)
+// pieces: a (kPieces, M, K), w (dirs, kPieces, N3, K) K-major; K a multiple
+// of 64, N3 of 2; partials of `group` k-slabs
+template <int kPieces>
+static cudaError_t launch_pieces_gemm(const void* a, const void* w, const float* bias,
+                                      float* out, int M, int K, int N3, int dirs, int group,
+                                      cudaStream_t stream) {
+  if (M < 1 || K < 64 || K % 64 != 0 || N3 < 2 || N3 % 2 != 0 || dirs < 1 || group < 1)
     return cudaErrorInvalidValue;
   CUtensorMap a_map, b_map;
-  const uint64_t a_dims[3] = {(uint64_t)K, (uint64_t)M, 3};
+  const uint64_t a_dims[3] = {(uint64_t)K, (uint64_t)M, kPieces};
   const uint64_t a_strides[2] = {(uint64_t)K * 2, (uint64_t)M * K * 2};
-  const uint32_t a_box[3] = {64, (uint32_t)kSplitM, 3};
+  const uint32_t a_box[3] = {64, (uint32_t)kSplitM, kPieces};
   cudaError_t err = make_map(&a_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, a, a_dims, a_strides,
                              a_box);
   if (err != cudaSuccess) return err;
-  const uint64_t b_dims[4] = {(uint64_t)K, (uint64_t)N3, 3, (uint64_t)dirs};
-  const uint64_t b_strides[3] = {(uint64_t)K * 2, (uint64_t)N3 * K * 2, 3ull * N3 * K * 2};
-  const uint32_t b_box[4] = {64, (uint32_t)kSplitN, 3, 1};
+  const uint64_t b_dims[4] = {(uint64_t)K, (uint64_t)N3, kPieces, (uint64_t)dirs};
+  const uint64_t b_strides[3] = {(uint64_t)K * 2, (uint64_t)N3 * K * 2,
+                                 (uint64_t)kPieces * N3 * K * 2};
+  const uint32_t b_box[4] = {64, (uint32_t)kSplitN, kPieces, 1};
   err = make_map(&b_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, w, b_dims, b_strides, b_box);
   if (err != cudaSuccess) return err;
-  const size_t smem = (size_t)kSplitStages * kSplitStageBytes + 1024;
-  err = cudaFuncSetAttribute(encoder_xw_gemm_split_kernel,
+  const size_t smem = (size_t)kSplitStages<kPieces> * kSplitStageBytes<kPieces> + 1024;
+  err = cudaFuncSetAttribute(encoder_xw_gemm_split_kernel<kPieces>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int device = 0, sms = 0;
@@ -668,9 +698,26 @@ static cudaError_t launch_proj_gemm_split(const void* a, const void* w, const fl
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   const int tiles = (M + kSplitM - 1) / kSplitM * dirs * ((N3 + kSplitN - 1) / kSplitN);
-  encoder_xw_gemm_split_kernel<<<tiles < sms ? tiles : sms, kSplitThreads, smem, stream>>>(
-      a_map, b_map, bias, out, M, N3, K, dirs);
+  encoder_xw_gemm_split_kernel<kPieces><<<tiles < sms ? tiles : sms, kSplitThreads, smem,
+                                           stream>>>(a_map, b_map, bias, out, M, N3, K, dirs,
+                                                     group);
   return cudaGetLastError();
+}
+
+// out (dirs, M, N3) f32 = a @ w[d]^T [+ bias (dirs, N3)] from their bf16
+// pieces: a (3, M, K), w (dirs, 3, N3, K) K-major; K a multiple of 64, N3
+// of 2
+static cudaError_t launch_proj_gemm_split(const void* a, const void* w, const float* bias,
+                                          float* out, int M, int K, int N3, int dirs,
+                                          cudaStream_t stream) {
+  return launch_pieces_gemm<3>(a, w, bias, out, M, K, N3, dirs, 1, stream);
+}
+
+// out (M, N) f32 = a (M, K) bf16 @ w (N, K)^T, K-major, in partials of
+// `group` k-slabs added in rounded f32; K a multiple of 64, N of 2
+static cudaError_t launch_proj_gemm_grouped(const void* a, const void* w, float* out, int M,
+                                            int K, int N, int group, cudaStream_t stream) {
+  return launch_pieces_gemm<1>(a, w, nullptr, out, M, K, N, 1, group, stream);
 }
 
 // out (2, M, 3H) = a (M, 2H) @ w[d]^T for w (2, 3H, 2H) K-major [+ bias (2, 3H)]

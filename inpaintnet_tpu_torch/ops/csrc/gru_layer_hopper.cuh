@@ -175,6 +175,94 @@ struct RingT {
 };
 using Ring = RingT<>;
 
+// A ring whose stage is half a k-slab (K2 at H 768, K7 above 512 units):
+// the producer loads each k-slab of a chunk as two boxes of 32 values of K
+// (the 64-byte swizzle; kHalf bytes each), one a stage, and the consumer
+// multiplies each half by its two k16 steps (mma_half).
+template <int kHalf>
+struct HalfFeedT {
+  const CUtensorMap* map;
+  unsigned char* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  int stages, stage;
+  uint32_t phase;
+  // the k-slabs 0..nk-1 of the chunk whose slabs start at block `block0`
+  __device__ void slabs(int block0, int nk) {
+    for (int k = 0; k < nk; ++k)
+      for (int h = 0; h < 2; ++h) {
+        mbar_wait_bounded<false>(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], kHalf);
+        tma_load_3d(ring + stage * kHalf, map, &full[stage], 32 * h, 0, block0 + k);
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+  }
+};
+
+template <int kHalf>
+struct HalfRingT {
+  unsigned char* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  int stages, stage;
+  uint32_t phase;
+  // `products(k, h, half)` starts the wgmmas of half h of k-slab k on its
+  // stage; each stage is handed back once the next one's products are in
+  // flight, and the call returns with every product done
+  template <typename Products>
+  __device__ __forceinline__ void consume(int nk, int lane, Products products) {
+    int prev = 0;
+    for (int i = 0; i < 2 * nk; ++i) {
+      mbar_wait_bounded<false>(&full[stage], phase);
+      wgmma_fence();
+      products(i >> 1, i & 1, ring + stage * kHalf);
+      wgmma_commit();
+      if (i > 0) {
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(&empty[prev]);
+      }
+      prev = stage;
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&empty[prev]);
+  }
+};
+
+// Half h of a k-slab of a bf16 product: the 128-byte-swizzled A's k16
+// steps 2h and 2h + 1 by the 64-byte-swizzled half slab's two (N 128, 96,
+// 48 and 32).
+__device__ __forceinline__ void mma_half(float (&d)[64], uint64_t da, uint64_t db, int h,
+                                         bool accumulate) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+    wgmma_bf16_n128(d, da + 4 * h + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
+}
+__device__ __forceinline__ void mma_half(float (&d)[48], uint64_t da, uint64_t db, int h,
+                                         bool accumulate) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+    wgmma_bf16_n96(d, da + 4 * h + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
+}
+__device__ __forceinline__ void mma_half(float (&d)[24], uint64_t da, uint64_t db, int h,
+                                         bool accumulate) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+    wgmma_bf16_n48(d, da + 4 * h + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
+}
+__device__ __forceinline__ void mma_half(float (&d)[16], uint64_t da, uint64_t db, int h,
+                                         bool accumulate) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+    wgmma_bf16_n32(d, da + 4 * h + 2 * s, db + 2 * s, (accumulate || s) ? 1 : 0);
+}
+
 // Byte offset of byte `kbyte` of row r in an h tile of T (bf16: 128-byte
 // rows, 128-byte swizzle; K4's int8: 64-byte rows, 64-byte swizzle).
 __device__ __forceinline__ int tile_offset(const __nv_bfloat16*, int r, int kbyte) {

@@ -68,6 +68,7 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     check_cuda_tensor,
     check_launch,
     counts_launches,
+    encoder_quantizes,
     encoder_width,
     gru_gates_f32,
     load_kernels,
@@ -708,16 +709,30 @@ def encoder_hn_int8(gru_params, emb_table: torch.Tensor, tokens: torch.Tensor,
     """K3: ``encoder_hn`` with int8 products (``csrc/encoder_gru_int8.cu``;
     it replaces ``inpaintnet_tpu/ops/encoder_pallas.py
     encoder_hn_pallas_int8``). Same arguments and result as
-    :func:`encoder_hn`; the numerics are :func:`encoder_hn_int8_reference`'s."""
+    :func:`encoder_hn`; the numerics are :func:`encoder_hn_int8_reference`'s.
+    On the card it takes the widths the JAX package quantizes
+    (``kernel_common.encoder_quantizes``: bf16 masters to H 527, run at 576
+    above 512; f32 to 372) and raises on any other."""
     if tokens.device.type == "cpu":
         return encoder_hn_int8_reference(gru_params, emb_table, tokens)
     if tokens.device.type != "cuda":
         raise ValueError(f"encoder_hn_int8: no kernel for device {tokens.device}")
     hidden = _encoder_hidden("encoder_hn_int8", gru_params)
-    padded = encoder_width(hidden, gru_params[0][0]["w_hh"].dtype)
+    masters = gru_params[0][0]["w_hh"].dtype
+    if masters in DTYPE_CODES and not encoder_quantizes(hidden, masters):
+        raise ValueError(f"encoder_hn_int8: no kernel for hidden size {hidden} in {masters}: "
+                         "the JAX package does not quantize it")
+    padded = encoder_width(hidden, masters)
     if padded not in (None, hidden):  # zero units: q = 0 at a floored scale, bit-equal at H
-        return unpad_units(encoder_hn_int8(encoder_padded_operands(gru_params)[0], emb_table,
-                                           tokens, max_chunk_rows), hidden, padded)
+        return unpad_units(_encoder_int8_launch(encoder_padded_operands(gru_params)[0],
+                                                emb_table, tokens, max_chunk_rows),
+                           hidden, padded)
+    return _encoder_int8_launch(gru_params, emb_table, tokens, max_chunk_rows)
+
+
+def _encoder_int8_launch(gru_params, emb_table, tokens, max_chunk_rows):
+    """K3's launches at a width its plans take (the wrapper's, or the padded
+    one it runs a narrower encoder at)."""
     hidden, dtype, device = _check_encoder_args("encoder_hn_int8", gru_params, emb_table,
                                                 tokens)
     batch, seq_len = tokens.shape

@@ -25,7 +25,11 @@ at import; ``set_gru_impl``, ``gru_impl_scope`` or ``impl=`` override it):
   otherwise than ``"xla"``, as the JAX package's two routes do. K8 takes
   every width up to 1024 (``kernel_common.gru_layer_supports_hidden``,
   narrow ones on zero units); a wider layer runs the eager loop, as the
-  models' other closed gates do, and never raises.
+  models' other closed gates do, and never raises. Under a gradient K8
+  computes the forward and the eager loop's backward runs on the same
+  inputs (``kernel_common.kernel_with_eager_grad``, as for every kernel
+  route), so a differentiated ``"pallas"`` call gets the ``"xla"`` route's
+  gradients.
 The JAX package's ``"trainfast"`` names select its training route, which
 the port takes with ``train=True``: they leave the inference route at
 ``"xla"``.
@@ -54,7 +58,10 @@ import torch
 from inpaintnet_tpu_torch.ops.distributions import apply_dropout, draw
 from inpaintnet_tpu_torch.ops.gru_kernel import gru_layer_stream
 from inpaintnet_tpu_torch.ops.gru_train_kernel import trainfast_supports
-from inpaintnet_tpu_torch.ops.kernel_common import gru_layer_supports_hidden
+from inpaintnet_tpu_torch.ops.kernel_common import (
+    gru_layer_supports_hidden,
+    kernel_with_eager_grad,
+)
 from inpaintnet_tpu_torch.ops.linear import xavier_normal
 
 _IMPLS = ("xla", "pallas")
@@ -154,9 +161,28 @@ def gru_layer_apply(params, x: torch.Tensor, h0: torch.Tensor, *, reverse: bool 
     xw = x @ params["w_ih"] + params["b_ih"]  # one product for all T
     if (not train and _checked(impl or _GRU_IMPL) == "pallas"
             and gru_layer_supports_hidden(params["w_hh"].shape[0], xw.dtype)):
-        return gru_layer_stream(xw, params["w_hh"], params["b_hh"], h0.contiguous(), mask,
-                                reverse=reverse, want_ys=want_ys)
-    seq_len = x.shape[1]
+        # K8's forward; under a gradient, the eager loop's backward at the
+        # same inputs (K8 builds no graph: kernel_with_eager_grad, as every
+        # other kernel route), so x, h0 and the weights get theirs
+        def outputs(layer):
+            def run(xw, w_hh, b_hh, h0, mask):
+                ys, h = layer(xw, w_hh, b_hh, h0, mask, reverse=reverse, want_ys=want_ys)
+                return (ys, h) if want_ys else h
+            return run
+        out = kernel_with_eager_grad(outputs(gru_layer_stream), outputs(_eager_layer))(
+            xw, params["w_hh"], params["b_hh"], h0.contiguous(), mask)
+        return out if want_ys else (None, out)
+    return _eager_layer(xw, params["w_hh"], params["b_hh"], h0, mask, reverse=reverse,
+                        want_ys=want_ys)
+
+
+def _eager_layer(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, h0: torch.Tensor,
+                 mask: Optional[torch.Tensor], *, reverse: bool, want_ys: bool):
+    """The ``"xla"`` route's loop over ``xw = x @ W_ih + b_ih``: the gates
+    in the tensors' own dtype, a step whose mask is 0 keeping h. -> (outputs
+    (B, T, H) or None, h_last (B, H))"""
+    params = {"w_hh": w_hh, "b_hh": b_hh}
+    seq_len = xw.shape[1]
     keep = None if mask is None else (mask > 0)[..., None]
     h = h0
     ys = [None] * seq_len

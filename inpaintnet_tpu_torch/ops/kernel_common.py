@@ -27,8 +27,10 @@
   which builds such per-weight operands once per weight tensor.
 - The widths: K1-K4 take every width up to 512 in both dtypes and, in
   bf16 masters, K1/K3 up to 577 and K2/K4 up to 717
-  (:func:`encoder_supports_hidden`, :func:`decode_supports_hidden`), K7 up
-  to 512 (:func:`kernel_width`), K8 up to 1024
+  (:func:`encoder_supports_hidden`, :func:`decode_supports_hidden`; K3 and
+  K4 only where the JAX package quantizes, :func:`encoder_quantizes`,
+  :func:`decode_quantizes`), K7 up to 512 (:func:`kernel_width`; bf16 up to
+  640 and any context width, ``arnn_kernel.arnn_width``), K8 up to 1024
   (:func:`gru_layer_supports_hidden`); each runs a layer at a width its
   plans take (:func:`encoder_width`, :func:`decode_width`,
   :func:`gru_layer_width`, all over :func:`padded_width`), the units past
@@ -215,11 +217,12 @@ def decode_width(hidden: int, dtype=None):
 
 def encoder_supports_hidden(hidden: int, dtype=None) -> bool:
     """K1's and K3's gate in masters of ``dtype`` (None: in either): every
-    width up to 512, and in bf16 up to 577 (the JAX kernel's; f32 and K3 on
-    f32 masters above 512 run the eager scan, as JAX's gate reads the
-    masters' itemsize), at :func:`encoder_width` on zero units
-    (:func:`pad_units`), which computes the narrow layer's function
-    exactly. K5/K6, K7 and K8 have gates of their own
+    width up to 512, and in bf16 up to 577 (f32 above 512 runs the eager
+    scan), at :func:`encoder_width` on zero units (:func:`pad_units`), which
+    computes the narrow layer's function exactly. It is wider than the JAX
+    kernel's, which is harmless for K1 (the same function) but not for K3:
+    ``quant="int8"`` quantizes only where :func:`encoder_quantizes` also
+    holds, and runs K1 elsewhere. K5/K6, K7 and K8 have gates of their own
     (``gru_train_kernel.trainfast_supports``,
     ``arnn_kernel.arnn_kernel_supports``, :func:`gru_layer_supports_hidden`)."""
     most = ENCODER_MAX_HIDDEN if dtype == torch.bfloat16 else KERNEL_MAX_HIDDEN
@@ -229,9 +232,36 @@ def encoder_supports_hidden(hidden: int, dtype=None) -> bool:
 def decode_supports_hidden(hidden: int, dtype=None) -> bool:
     """K2's and K4's gate in masters of ``dtype`` (None: in either): every
     width up to 512, and in bf16 up to 717 (the JAX kernel's at V <= 128),
-    at :func:`decode_width` on zero units."""
+    at :func:`decode_width` on zero units. It reads no vocabulary:
+    ``quant="int8"`` runs K4 only where :func:`decode_quantizes` also holds,
+    and K2 elsewhere."""
     most = DECODE_MAX_HIDDEN if dtype == torch.bfloat16 else KERNEL_MAX_HIDDEN
     return hidden <= most and decode_width(hidden, dtype) is not None
+
+
+# The JAX kernels' VMEM budget in bytes. The JAX package quantizes only
+# inside its kernel branches, which these byte formulas gate; where they
+# close, its int8 serving computes in the masters' dtype
+JAX_VMEM_BUDGET = 10e6
+
+
+def encoder_quantizes(hidden: int, dtype) -> bool:
+    """Whether ``quant="int8"`` quantizes an encoder of ``hidden`` units in
+    masters of ``dtype``, as the JAX package does: its kernel gate's bytes,
+    ``18 H^2 x itemsize < 10e6`` (``inpaintnet_tpu/models/measure_vae.py``
+    ``Encoder._use_pallas``: both layers' W_ih and W_hh): bf16 up to H 527,
+    f32 up to 372."""
+    return 18 * hidden * hidden * dtype.itemsize < JAX_VMEM_BUDGET
+
+
+def decode_quantizes(hidden: int, vocab: int, dtype) -> bool:
+    """Whether ``quant="int8"`` quantizes a decoder of ``hidden`` units over
+    ``vocab`` tokens in masters of ``dtype``, as the JAX package does: its
+    kernel gate's bytes, ``(9 H^2 + 4 H Vp) x itemsize < 10e6`` with Vp the
+    vocabulary padded to 128 (``HierarchicalDecoder._use_pallas_decode``):
+    at V <= 128 bf16 up to H 717 and f32 up to 499."""
+    vocab_pad = round_up(vocab, 128)
+    return (9 * hidden * hidden + 4 * hidden * vocab_pad) * dtype.itemsize < JAX_VMEM_BUDGET
 
 
 @functools.lru_cache(maxsize=None)
@@ -326,6 +356,10 @@ HOPPER_CLUSTERS = (1, 2, 4, 8)  # the cluster sizes the plans prefer
 # the other portable sizes (up to 8 CTAs), which a plan takes only where no
 # power of two fits: a width of 5 or 7 blocks of 64 splits evenly only so
 HOPPER_ODD_CLUSTERS = (3, 5, 6, 7)
+# the non-portable sizes an H100 takes (its launch sets
+# cudaFuncAttributeNonPortableClusterSizeAllowed), for a plan that asks for
+# them where no portable size fits (K7 bf16 at H 576 and 640)
+HOPPER_WIDE_CLUSTERS = tuple(range(9, 17))
 HOPPER_MAX_UNITS = 512  # units a CTA computes: 2 consumer warpgroups x 8 chunks of 32
 HOPPER_SLAB_ROWS = 96  # one k-slab of a chunk: its r, z, n rows x 64 of K
 HOPPER_CONSUMERS = 2
@@ -341,11 +375,14 @@ class LaunchPlan(NamedTuple):
     stages: int
 
 
-def fitting_clusters(fits) -> list:
+def fitting_clusters(fits, wide: bool = False) -> list:
     """The sizes of ``HOPPER_CLUSTERS`` for which ``fits(c)`` holds, or,
-    where none does, those of ``HOPPER_ODD_CLUSTERS``."""
+    where none does, those of ``HOPPER_ODD_CLUSTERS``, or, where none of
+    those does either and ``wide`` asks for them, those of
+    ``HOPPER_WIDE_CLUSTERS``."""
     return ([c for c in HOPPER_CLUSTERS if fits(c)]
-            or [c for c in HOPPER_ODD_CLUSTERS if fits(c)])
+            or [c for c in HOPPER_ODD_CLUSTERS if fits(c)]
+            or [c for c in HOPPER_WIDE_CLUSTERS if wide and fits(c)])
 
 
 def head_ties() -> int:
@@ -687,13 +724,13 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_gru_bwd_w_map.restype = i32
     lib.inpaint_arnn_decode.argtypes = [i32] + [ptr] * 16 + [i32] * 7 + [ptr]
     lib.inpaint_arnn_decode.restype = i32
-    lib.inpaint_arnn_decode_bf16.argtypes = [ptr] * 11 + [i32] * 10 + [ptr]
+    lib.inpaint_arnn_decode_bf16.argtypes = [ptr] * 11 + [i32] * 11 + [ptr]
     lib.inpaint_arnn_decode_bf16.restype = i32
-    lib.inpaint_arnn_map.argtypes = [ptr, i32, ptr]
+    lib.inpaint_arnn_map.argtypes = [ptr, i32, i32, ptr]
     lib.inpaint_arnn_map.restype = i32
-    lib.inpaint_arnn_slots.argtypes = [i32] * 4
+    lib.inpaint_arnn_slots.argtypes = [i32] * 5
     lib.inpaint_arnn_slots.restype = i32
-    lib.inpaint_arnn_ctx_gemm.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+    lib.inpaint_arnn_ctx_gemm.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
     lib.inpaint_arnn_ctx_gemm.restype = i32
     lib.inpaint_arnn_decode_f32.argtypes = [ptr] * 12 + [i32] * 7 + [ptr]
     lib.inpaint_arnn_decode_f32.restype = i32

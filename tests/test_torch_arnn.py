@@ -288,7 +288,11 @@ def test_kernel_gate():
     assert arnn_kernel_supports(64, 48, 12, 30, torch.float32)
     assert arnn_kernel_supports(512, 512, 512, 60, torch.bfloat16)  # the hidden in rounds
     assert arnn_kernel_supports(256, 256, 1024, 1280, torch.bfloat16)
-    assert not arnn_kernel_supports(576, 256, 256, 60, torch.bfloat16)  # past the hidden gate
+    # bf16 to H 640 on half-slab boxes, any context width; f32 to 512
+    assert arnn_kernel_supports(576, 256, 256, 60, torch.bfloat16)
+    assert arnn_kernel_supports(256, 3954, 256, 60, torch.bfloat16)
+    assert not arnn_kernel_supports(576, 256, 256, 60, torch.float32)  # past the f32 gate
+    assert not arnn_kernel_supports(641, 256, 256, 60, torch.bfloat16)  # past the bf16 gate
     assert not arnn_kernel_supports(64, 64, 12, 30, torch.float16)
 
 

@@ -7,8 +7,9 @@ take, on zero units (``kernel_common.pad_units``).
   the wrapper used to raise on the card: the route decision here, the
   kernel on the card;
 - the port's gates against the JAX package's (opened as on a TPU) at every
-  H from 8 to 1024 in steps of 8, both dtypes: wherever JAX's gate takes a
-  geometry, the port's does, but for ``LEFT_FOR_LATER`` (ROADMAP §2b);
+  H from 8 to 1024 in steps of 8, both dtypes, and K7's at contexts up to
+  19,083 and generation widths up to 640: wherever JAX's gate takes a
+  geometry, the port's does, but for ``LEFT_FOR_LATER``;
 - each plain version on the wrapper's padded operands, sliced back, against
   the plain version at H: float64 within 1e-12 (K3's int8 carries and K4
   bit-equal), and the gate-major layout (``kernel_common.gate_padding``)
@@ -133,14 +134,21 @@ def test_pallas_route_runs_k8_on_card(cuda, hidden, dtype, padded):
 # --------------------------------------------------------------------------- #
 class LeftForLater(NamedTuple):
     """The widths at which the JAX package's gates take a kernel and the
-    port's do not yet (ROADMAP §2b): each needs a new shared-memory plan,
-    not more 64-unit blocks."""
-    k7: range  # H or C above 512 (JAX: bf16 H = C <= 541; C <= 3,954 at H 256)
+    port's do not yet: each needs a new shared-memory plan, not more
+    64-unit blocks."""
+    k7: range  # none: every H (bf16 to 640) and every C (JAX: bf16 C <= 19,083 at H 64)
     k8: range  # above 1024 (JAX: no width gate)
 
 
-LEFT_FOR_LATER = LeftForLater(range(513, 3955), range(1025, 2 ** 31))
+LEFT_FOR_LATER = LeftForLater(range(0), range(1025, 2 ** 31))
 GATE_WIDTHS = range(8, 1025, 8)
+# K7's widest geometries of the JAX gate at V 60 and linear 256 (H, C): bf16
+# H = C 541, C 19,083 at H 64 and 3,954 at H 256, H 619 at C 16 and 612 at
+# C 64; f32 H = C 377, C 1,513 at H 256, H 430 at C 16
+K7_GATE_EDGES = ((541, 541), (64, 19083), (256, 3954), (619, 16), (612, 64), (582, 256),
+                 (545, 512), (377, 377), (256, 1513), (430, 16), (422, 64), (64, 9317))
+K7_CONTEXTS = range(8, 19084, 8)  # beside H 64 and 256
+K7_HIDDEN = range(8, 641, 8)  # beside C 16 and 64
 
 
 @pytest.fixture
@@ -194,8 +202,9 @@ def test_port_gates_take_what_the_jax_gates_take(on_tpu):
             taken["k5_k8"] += _agree(True, tk.trainfast_supports(hidden)
                                      and kc.gru_layer_supports_hidden(hidden, dtype_t),
                                      hidden in left.k8, ("K5/K6/K8", hidden, dtype_t))
-        pairs = ([(h, h) for h in GATE_WIDTHS] + [(256, c) for c in GATE_WIDTHS]
-                 + [(h, 256) for h in GATE_WIDTHS])
+        pairs = ([(h, h) for h in GATE_WIDTHS] + [(h, 256) for h in GATE_WIDTHS]
+                 + [(h, c) for h in (64, 256) for c in K7_CONTEXTS]
+                 + [(h, c) for c in (16, 64) for h in K7_HIDDEN] + list(K7_GATE_EDGES))
         for hidden, ctx in pairs:
             for linear, vocab in ((64, 60), (256, 60), (256, 256)):
                 dims = dict(num_layers=2, num_lstm_generation_units=hidden,

@@ -434,7 +434,7 @@ def test_pack_arnn_weights_layout(hidden, linear, vocab, kslabs):
 def test_arnn_operands_follow_in_place_updates(monkeypatch):
     """K7's token table, packed weights and padded biases are built once per
     set of weight tensors and rebuilt after an in-place update of any."""
-    monkeypatch.setattr(ak, "arnn_map", lambda packed: (None, 64))
+    monkeypatch.setattr(ak, "arnn_map", lambda packed, halves: (None, 64))
     monkeypatch.setattr(ak, "arnn_operands", kc.WeightCache(ak._build_arnn_operands))
     rng = np.random.default_rng(8)
     hidden, ctx, emb, linear, vocab = 64, 64, 10, 12, 30

@@ -13,8 +13,8 @@ the encoder's K1/K3 to H 577 (run at 576 or 640), the decode's K2/K4 to H
   (``kernel_common.gate_padding``) rejected;
 - the port's encoder and decode at H 576 against the JAX package's models
   on the CPU (its XLA scans there) at the existing bf16 bounds;
-- on the card (``-m cuda``): K1 (and its training mode) and K3 at 576 and
-  577, K2 and K4 at 576, 640, 704, 717 and 768 at every cluster size
+- on the card (``-m cuda``): K1 (and its training mode) at 576 and
+  577, K3 refusing both and at 527 (run at 576), K2 and K4 at 576, 640, 704, 717 and 768 at every cluster size
   against their plain versions, and an engine over a VAE whose encoder
   runs K1 at 640 and whose decoder is 640 wide, graph route against eager.
 
@@ -126,12 +126,15 @@ def test_decode_plans_up_to_512_are_k8s(hidden):
 
 
 def test_k7_and_k8_keep_their_widths():
-    """K7's gate stays at 512 (``kernel_width``) and K8's plans and widths
-    do not move: bf16 576 still has no cluster split of its own."""
+    """K1-K4's f32 width stays at 512 (``kernel_width``); K7 has its own
+    (``arnn_width``: bf16 to 640, f32 to 512; tests/test_torch_arnn_widths.py);
+    K8's plans and widths do not move: bf16 576 still has no cluster split
+    of its own."""
     from inpaintnet_tpu_torch.ops import arnn_kernel as ak
 
     assert kc.kernel_width(576) is None and kc.kernel_width(512) == 512
-    assert not ak.arnn_kernel_supports(576, 576, 256, 60, BF16)
+    assert ak.arnn_kernel_supports(576, 576, 256, 60, BF16)
+    assert not ak.arnn_kernel_supports(576, 576, 256, 60, torch.float32)
     assert kc.cluster_sizes(576) == [] and kc.gru_layer_width(576, BF16) == 640
     assert gk.launch_plan(2048, 1024, SMS) == kc.LaunchPlan(4, 2)
 
@@ -163,13 +166,13 @@ def test_bf16_widths_and_gates(hidden, enc_w, enc_gate, dec_w, dec_gate):
     assert dk.decode_supports(hidden, "int8") == (dec_w is not None)
 
 
-def _port_models(enc_hidden: int, dec_hidden: int, dtype, seed: int = 0):
+def _port_models(enc_hidden: int, dec_hidden: int, dtype, seed: int = 0, vocab: int = 30):
     """A port Encoder and HierarchicalDecoder on the CPU with seeded random
     weights in ``dtype``."""
     from inpaintnet_tpu_torch.models.measure_vae import Encoder, HierarchicalDecoder
 
-    enc = Encoder(8, enc_hidden, 2, 30, 12, device="cpu")
-    dec = HierarchicalDecoder(8, 30, 12, 2, dec_hidden, device="cpu")
+    enc = Encoder(8, enc_hidden, 2, vocab, 12, device="cpu")
+    dec = HierarchicalDecoder(8, vocab, 12, 2, dec_hidden, device="cpu")
     rng = np.random.default_rng(seed)
 
     def tree(t):
@@ -190,7 +193,8 @@ def test_gates_route_by_the_masters_dtype(monkeypatch, hidden, dtype, quant):
     f32 masters, and int8 on f32 masters, run the eager loops (a kernel
     wrapper would raise) and return finite values; bf16 masters call the
     wrappers where the gates take the width (the encoder to 577, the decode
-    to 717), the eager loops elsewhere."""
+    to 717), the eager loops elsewhere, and int8 the int8 wrappers only
+    where the JAX package quantizes (the encoder to 527)."""
     from inpaintnet_tpu_torch.models import measure_vae as mv
 
     enc, pe, dec, pd = _port_models(hidden, hidden, dtype)
@@ -216,8 +220,14 @@ def test_gates_route_by_the_masters_dtype(monkeypatch, hidden, dtype, quant):
     assert all(bool(torch.isfinite(t.float()).all()) for t in (z, logits, train.loc))
     assert samples.shape == (2, 24)
     enc_kernel = dtype == BF16 and hidden <= kc.ENCODER_MAX_HIDDEN
-    want = ((["encoder_hn_int8" if quant == "int8" else "encoder_hn"] if enc_kernel else [])
-            + (["decode_sampling_int8" if quant == "int8" else "decode_sampling_kernel"]
+    # int8 quantizes only where the JAX package does: its encoder gate
+    # closes above 527 in bf16 (K1 runs instead), its decode gate at V 30
+    # is open at both widths
+    enc_int8 = quant == "int8" and kc.encoder_quantizes(hidden, dtype)
+    dec_int8 = quant == "int8" and kc.decode_quantizes(hidden, 30, dtype)
+    assert not enc_int8 and dec_int8 == (quant == "int8" and dtype == BF16)
+    want = ((["encoder_hn_int8" if enc_int8 else "encoder_hn"] if enc_kernel else [])
+            + (["decode_sampling_int8" if dec_int8 else "decode_sampling_kernel"]
                if dtype == BF16 else [])
             + (["encoder_hn"] if enc_kernel else []))  # the training mode's forward
     assert calls == want
@@ -374,26 +384,31 @@ def test_wide_encoder_and_decode_match_jax_on_cpu():
 @pytest.mark.cuda
 @pytest.mark.parametrize("hidden", [576, 577])
 def test_k1_k3_wide_on_card(cuda, hidden):
-    """K1 bf16 (inference, and the training mode at rate 0.3) and K3 on bf16
-    masters at H 576 (two consumer warpgroups at 576) and 577 (at 640, on
-    zero units), 150 rows in chunks of 64 with a ragged last tile: within
-    the bf16 bound of the plain version (weights' noise 0.8 / sqrt(H), as
-    test_encoder_kernels_chunked_ragged_rows), K3 bit-equal; one launch
-    each."""
+    """K1 bf16 (inference, and the training mode at rate 0.3) at H 576 (two
+    consumer warpgroups at 576) and 577 (at 640, on zero units), 150 rows in
+    chunks of 64 with a ragged last tile: within the bf16 bound of the plain
+    version (weights' noise 0.8 / sqrt(H), as
+    test_encoder_kernels_chunked_ragged_rows); one launch each. K3 on bf16
+    masters refuses both (the JAX package does not quantize above 527) and
+    runs 527 at 576, on zero units, bit-equal to its plain version."""
     gru, table, tokens = _encoder_int8_case(np.random.default_rng(hidden), 150, hidden, BF16,
                                             cuda, noise=0.8 / hidden ** 0.5)
     keep = torch.from_numpy(np.random.default_rng(1).random((150, 24, 2 * hidden)) >= 0.3).to(cuda)
     before = (ek.encoder_hn.launches, ek.encoder_hn_int8.launches)
     h_k = ek.encoder_hn(gru, table, tokens, max_chunk_rows=64)
     h_t = ek.encoder_hn(gru, table, tokens, max_chunk_rows=64, keep=keep, rate=0.3)
-    q_k = ek.encoder_hn_int8(gru, table, tokens)
+    with pytest.raises(ValueError, match="hidden size"):
+        ek.encoder_hn_int8(gru, table, tokens)
+    q_args = _encoder_int8_case(np.random.default_rng(hidden), 150, 527, BF16, cuda,
+                                noise=0.8 / 527 ** 0.5)
+    q_k = ek.encoder_hn_int8(*q_args)
     h_p = ek.encoder_hn_reference(gru, table, tokens)
     h_tp = ek.encoder_hn_reference(gru, table, tokens, keep, 0.3)
-    q_p = ek.encoder_hn_int8_reference(gru, table, tokens)
+    q_p = ek.encoder_hn_int8_reference(*q_args)
     torch.cuda.synchronize()
     assert (ek.encoder_hn.launches, ek.encoder_hn_int8.launches) == (before[0] + 2,
                                                                      before[1] + 1)
-    assert h_k.shape == (4, 150, hidden)
+    assert h_k.shape == (4, 150, hidden) and q_k.shape == (4, 150, 527)
     torch.testing.assert_close(h_k.float(), h_p.float(), rtol=0, atol=ATOL[BF16])
     torch.testing.assert_close(h_t.float(), h_tp.float(), rtol=0, atol=ATOL[BF16])
     assert torch.equal(q_k, q_p)
@@ -482,15 +497,16 @@ def _wide_model(enc_hidden: int, dec_hidden: int, device, vocab: int = 30, seed:
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
 def test_wide_engine_graph_route_equals_eager_route(cuda, dtype):
-    """An engine over a VAE whose encoder is 577 wide (K1 / K3 at 640, on
-    zero units) and whose decoder is 640 wide (K2 / K4 on 2 CTAs a tile,
+    """An engine over a VAE whose encoder is 577 wide (K1 at 640, on zero
+    units) and whose decoder is 640 wide (K2 / K4 on 2 CTAs a tile,
     one-slab boxes): its graph route's tokens and launches equal its eager
-    route's, each of the two kernels launched."""
+    route's, each of the two kernels launched. In int8 the encoder runs K1,
+    as the JAX package's encoder gate (527 in bf16) serves it unquantized."""
     from inpaintnet_tpu_torch.serve import InpaintingEngine
 
     model = _wide_model(577, 640, cuda)
     engine = InpaintingEngine(model, batch_buckets=(1, 4), dtype=dtype, n_bars=8, device=cuda)
-    kernels = ([ek.encoder_hn_int8, dk.decode_sampling_int8] if dtype == "int8"
+    kernels = ([ek.encoder_hn, dk.decode_sampling_int8] if dtype == "int8"
                else [ek.encoder_hn, dk.decode_sampling])
     tokens = np.random.default_rng(0).integers(0, 30, (3, 8, 24)).astype(np.int32)
     _both_routes(engine, [lambda e: e.inpaint(tokens, 3, 2, seed=7),
