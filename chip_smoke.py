@@ -4,7 +4,7 @@ one), training (MeasureVAE and LatentRNN), AnticipationRNN, evaluation,
 command-line, data-parallel and tensor-parallel paths once on one NVIDIA
 GPU.
 
-    python3 chip_smoke.py [--parent DIR] [--first-port DIR]
+    python3 chip_smoke.py [--parent DIR [--parent-only]] [--first-port DIR]
 
 ``--parent DIR`` names an earlier checkout of this repository (for example
 ``git archive`` of the parent commit, unpacked into a git-ignored
@@ -175,8 +175,8 @@ Phases, each raising on failure:
    each entry point's ``main(argv)`` on the card: ``prepare_corpus synth``
    (16 tunes of 16 bars, the run's only cut) and ``stats``; the five
    trainers one epoch each at the shipped widths (the MeasureVAE, the
-   LatentRNN and its past and future ablations, both ARNNs), each test
-   loss finite; the joint evaluation ``test_reconstruction
+   LatentRNN and its past and future ablations, both ARNNs in batches of
+   128), each test loss finite; the joint evaluation ``test_reconstruction
    --include_ablations past,future`` (batches of 32 test windows, the last
    one short): every row printed, K1, K2 and K7 launched, windows/s,
    device time by kernel and idle share; the same evaluation on the CPU
@@ -295,11 +295,36 @@ Phases, each raising on failure:
    a head chunk at H 576 taken by its first index; the bf16 ARNN engine at
    H 576 / C 256 on both routes, buckets 1 and 8; a gradient through K8's
    ``"pallas"`` route equal to the eager loop's.
+28. K8, K5 and K6 above 1,024 units, on tile groups that span clusters,
+   and the LatentRNN of hidden 768 (over the flagship VAE, random weights
+   from seed 0) whose generation GRU is 1,536 wide: K8 at 1,536 at the
+   engine's generation call (2,048 rows x 6 steps), the autoregressive
+   step and a batch-1 call, K5 / K6 at the sampled training step's 32 rows
+   x 1 step and at 2,048 x 6, both dtypes, each against its plain version
+   with one launch on the group route, timed beside its bound, its plain
+   version, cuDNN's one-direction GRU and (K8) the eager loop's device
+   time; K8 bf16's generation call also on one launch a step, bit-equal,
+   timed; the exchange's two planted faults (the other parity buffer, one
+   arrival short) rejected in all three, and a group grid past what the
+   card holds at once refused by the cooperative launch; then, launch counts from 0, the 768 model's f32 main path on the
+   card against the CPU, its engines (bf16 and f32 masters, and the
+   autoregressive one in bf16) on ``"pallas"`` at batch 2,048 and 1 on
+   both routes (the generation GRU's K8 launches at 1,536 asserted, no
+   eager step of that width), and its autoregressive trainer at
+   ``train_inpaintnet.py``'s defaults in f32 and bf16 compute, both coins
+   (K5 / K6 launches a step asserted).
 
 Phase 26 runs after phase 4, before any engine holds a CUDA graph's
-memory pool; phase 17 after phase 7; phases 12-16 after phase 8, then
+memory pool, and phase 28 after it, its engines deleted at its end; phase
+17 after phase 7; phases 12-16 after phase 8, then
 phase 24 and phase 23, before the training phases; phases 18, 19, 20, 21,
-22, 25 and 27 last. ``--k7-sums`` runs only ``phase_k7_sums``: where K7's
+22, 25 and 27 last. ``--parent DIR`` also runs ``ROUTE_CASES`` (K1 f32,
+K5, K6 and K8 at H <= 1,024) through DIR's wrappers and this tree's, in
+processes of their own (``--route-outputs DIR OUT``), in turns: bit-equal
+outputs, times printed; and times the 768 LatentRNN's bf16 engine on
+``"pallas"``, graph route, at batch 2,048 and 1 through DIR and this tree
+(``--engine-times DIR``), in turns. ``--parent-only`` runs only those
+comparisons and exits. ``--k7-sums`` runs only ``phase_k7_sums``: where K7's
 bf16 early-logit share comes from (its context GEMM's partials and its
 recurrence's sums, each against the plain version). Prints one
 JSON line of the eight kernels (each with its launches in phase 18,
@@ -313,7 +338,9 @@ phase 21's numbers of its training mode; K1's, K2's, K5's and K7's with
 entries, and ``width_launches``, its main paths': K5's and K6's in its
 training step, the others' in its engines at narrow widths; K1-K4's
 ``wide_widths``, phase 26's entries, and ``wide_launches``, their launches
-in its engines' replays), the card's name and power limit, and as
+in its engines' replays; K5's, K6's and K8's ``wide_layers``, phase 28's
+entries, and ``wide_layer_launches``, their launches in its main paths),
+the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing no
 result, when there is no usable card or any phase fails.
 """
@@ -1091,9 +1118,9 @@ def _split_alternative(gru, table, tokens, card: str) -> None:
 ENCODER_PARTS = (("layer 0", "encoder_rec_kernel", ("true>", "Lb1E")),
                  ("GEMM", "encoder_xw_gemm_kernel", ()),
                  ("layer 1", "encoder_rec_kernel", ("false>", "Lb0E")))
-ENCODER_F32_PARTS = (("layer 0", "gru_fwd_kernel", (", 1, 1>", "Li1ELi1E")),
+ENCODER_F32_PARTS = (("layer 0", "gru_fwd_kernel", ("<float, 1, 1", "Li1ELi1E")),
                      ("GEMM", "encoder_xw_gemm_split_kernel", ()),
-                     ("layer 1", "gru_fwd_kernel", (", 1, 2>", "Li1ELi2E")))
+                     ("layer 1", "gru_fwd_kernel", ("<float, 1, 2", "Li1ELi2E")))
 
 
 def encoder_parts(call, want: int, kinds=ENCODER_PARTS) -> tuple:
@@ -1580,8 +1607,9 @@ def latent_train_launches(auto_reg: bool, coin, max_target: int) -> dict:
     """K2, K5 and K6 launches a LatentRNN training step: one decode and one
     encode (4 K5 layer-directions) a step, or on the autoregressive sampled
     branch ``max_target`` decodes, the context encode plus ``max_target -
-    1`` re-encodes, and the unmasked hidden-1024 generation GRU's 2 layers
-    x 2 directions a target step on K5 forward and K6 backward; K6 for
+    1`` re-encodes, and the unmasked generation GRU's (hidden 1024, or 1,536
+    in phase 28) 2 layers x 2 directions a target step on K5 forward and K6
+    backward; K6 for
     nothing else (nothing upstream of the frozen encoder needs a
     gradient)."""
     sampled = auto_reg and not coin
@@ -2981,6 +3009,15 @@ def kernel_times(root: str) -> dict:
     return times
 
 
+def _child_times(out, root: str) -> dict:
+    """The JSON line of a child process run on the checkout at ``root``,
+    checked to have imported that checkout's package (its ``source``)."""
+    times = json.loads(out.stdout.strip().splitlines()[-1])
+    if not Path(times["source"]).is_relative_to(Path(root).resolve()):
+        raise RuntimeError(f"the run on {root} imported {times['source']}")
+    return times
+
+
 def phase_parent_times(parent: str, card: str) -> None:
     """The V 60 kernel times of ``parent`` and of this tree, each in a
     process of its own, in turns (parent, this, this, parent)."""
@@ -2991,13 +3028,145 @@ def phase_parent_times(parent: str, card: str) -> None:
                              capture_output=True, text=True, timeout=900, cwd=root)
         if out.returncode != 0:
             raise RuntimeError(f"--kernel-times {root} failed:\n{out.stderr[-4000:]}")
-        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        runs.append(_child_times(out, root))
     for key in runs[0]:
         if key == "source":
             continue
         print(f"[parent] {key} rows, V 60: parent {runs[0][key]:.3f} / {runs[3][key]:.3f} ms, "
               f"this tree {runs[1][key]:.3f} / {runs[2][key]:.3f} ms | {card}", flush=True)
 
+
+
+def engine_times(root: str) -> dict:
+    """The 768 LatentRNN's bf16 engine (over the flagship VAE, random
+    weights from seed 0) on ``"pallas"``, graph route, through the checkout
+    at ``root`` (its package imported, its kernels built into its own
+    ``build/``): ms a batch-2,048 call (6/4/6, median of 5) and a batch-1
+    call (7/2/7, p50 and p90 of 20). ``presets._latent_rnn`` is handed hidden
+    768, so a checkout whose ``build_flagship`` has no ``latent_hidden``
+    builds the same model."""
+    sys.path[:0] = [root]
+    from inpaintnet_tpu_torch.models import presets
+    from inpaintnet_tpu_torch.ops.gru import gru_impl_scope
+    from inpaintnet_tpu_torch.ops.kernel_common import build_kernels
+    from inpaintnet_tpu_torch.serve import InpaintingEngine
+
+    build_kernels()
+    real = presets._latent_rnn
+    presets._latent_rnn = lambda vae, hidden, *rest: real(vae, WIDE_LATENT_H, *rest)
+    model = presets.build_flagship(seed=0, device="cuda")[2]
+    if model.gen_hidden_size != WIDE_GEN_H:
+        raise RuntimeError(f"the 768 LatentRNN's generation GRU is {model.gen_hidden_size}")
+    engine = InpaintingEngine(model, batch_buckets=WIDE_ENGINE_BUCKETS, dtype="bfloat16",
+                              device="cuda")
+    rng = np.random.default_rng(28)
+    big = _request(rng, BATCH, N_PAST, N_TARGET, N_FUTURE)
+    one = _request(rng, 1, 7, 2, 7)
+    times = {"source": str(Path(presets.__file__).resolve())}
+    with gru_impl_scope("pallas"), _route(engine, True):
+        times[f"batch {BATCH}"] = cuda_ms(lambda: engine.inpaint(*big, seed=11), 5)
+        lat = [cuda_ms(lambda: engine.inpaint(*one, seed=11), 1) for _ in range(20)]
+    times["batch 1 p50"] = float(np.median(lat))
+    times["batch 1 p90"] = float(np.percentile(lat, 90))
+    return times
+
+
+def phase_parent_engines(parent: str, card: str) -> None:
+    """``engine_times`` of ``parent`` and of this tree, each in a process of
+    its own, in turns (parent, this, this, parent)."""
+    here = str(Path(__file__).resolve().parent)
+    runs = []
+    for root in (parent, here, here, parent):
+        out = subprocess.run([sys.executable, __file__, "--engine-times", root],
+                             capture_output=True, text=True, timeout=900, cwd=root)
+        if out.returncode != 0:
+            raise RuntimeError(f"--engine-times {root} failed:\n{out.stderr[-4000:]}")
+        runs.append(_child_times(out, root))
+    for key in runs[0]:
+        if key != "source":
+            print(f"[parent] 768 LatentRNN bfloat16 engine, pallas, graphs, {key}: parent "
+                  f"{runs[0][key]:.3f} / {runs[3][key]:.3f} ms, this tree {runs[1][key]:.3f} / "
+                  f"{runs[2][key]:.3f} ms | {card}", flush=True)
+
+
+# The routes at H <= 1,024 that share csrc/gru_fwd_hopper.cuh and
+# gru_bwd_hopper.cuh with the tile groups (K1 f32's layers, K5, K6, K8 f32),
+# and K8 bf16, whose outputs must not move: (name, H, dtype)
+ROUTE_CASES = (("K1 f32", 512, torch.float32), ("K5", 512, torch.float32),
+               ("K5", 1024, torch.float32), ("K5", 512, torch.bfloat16),
+               ("K5", 1024, torch.bfloat16), ("K6", 1024, torch.float32),
+               ("K6", 1024, torch.bfloat16), ("K8", 512, torch.float32),
+               ("K8", 1024, torch.float32), ("K8", 1024, torch.bfloat16))
+ROUTE_ROWS = (4096, 2048)  # K1's rows x 24 tokens; K5 / K6 / K8's rows x 6 steps
+
+
+def route_outputs(root: str, out_path: str) -> dict:
+    """``ROUTE_CASES`` through the wrappers of the checkout at ``root`` (its
+    package imported, its kernels built into its own ``build/``) on inputs
+    made from seeds on the card: the outputs saved to ``out_path``
+    (``torch.save``), -> {case: median ms}."""
+    sys.path[:0] = [root]
+    from inpaintnet_tpu_torch.ops import encoder_kernel as ek
+    from inpaintnet_tpu_torch.ops import gru_kernel as lk
+    from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
+    from inpaintnet_tpu_torch.ops.kernel_common import build_kernels
+
+    build_kernels()
+    outputs, times = {}, {"source": str(Path(lk.__file__).resolve())}
+    for i, (name, hidden, dtype) in enumerate(ROUTE_CASES):
+        key = f"{name} H {hidden} {str(dtype)[6:]}"
+        if name == "K1 f32":
+            g = torch.Generator(device="cuda").manual_seed(i)
+            gru = [[{k: 0.1 * torch.randn(shape, generator=g, device="cuda")
+                     for k, shape in (("w_ih", (10 if layer == 0 else 2 * hidden, 3 * hidden)),
+                                      ("w_hh", (hidden, 3 * hidden)), ("b_ih", (3 * hidden,)),
+                                      ("b_hh", (3 * hidden,)))}
+                    for _ in range(2)] for layer in range(2)]
+            table = torch.randn((VOCAB, 10), generator=g, device="cuda")
+            tokens = torch.randint(0, VOCAB, (ROUTE_ROWS[0], 24), generator=g, device="cuda",
+                                   dtype=torch.int32)
+            call = lambda: (ek.encoder_hn(gru, table, tokens),)  # noqa: E731
+        elif name in ("K5", "K6"):
+            fwd, dys = _train_kernel_case(i, ROUTE_ROWS[1], 6, hidden, dtype, False)
+            out = gk.gru_fwd_seq(*fwd)
+            hprev = torch.cat([fwd[3][None], out[0][:-1]])
+            call = ((lambda: gk.gru_fwd_seq(*fwd)) if name == "K5" else
+                    (lambda: gk.gru_bwd_seq(fwd[0], dys, *out[1:], hprev)))
+        else:
+            args = _gru_layer_inputs(i, ROUTE_ROWS[1], 6, hidden, dtype, "target")
+            call = lambda: lk.gru_layer_stream(*args)  # noqa: E731
+        outputs[key] = [t.cpu() for t in call() if t is not None]
+        times[key] = cuda_ms(call, 10)
+    torch.save(outputs, out_path)
+    return times
+
+
+def phase_parent_routes(parent: str, card: str) -> None:
+    """``ROUTE_CASES`` through ``parent``'s wrappers and this tree's, each in
+    a process of its own, in turns (parent, this, this, parent): the
+    outputs bit-equal across all four, the times printed."""
+    import tempfile
+
+    here = str(Path(__file__).resolve().parent)
+    runs, outs = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, root in enumerate((parent, here, here, parent)):
+            path = str(Path(tmp) / f"route_outputs_{i}.pt")
+            out = subprocess.run([sys.executable, __file__, "--route-outputs", root, path],
+                                 capture_output=True, text=True, timeout=900, cwd=root)
+            if out.returncode != 0:
+                raise RuntimeError(f"--route-outputs {root} failed:\n{out.stderr[-4000:]}")
+            runs.append(_child_times(out, root))
+            outs.append(torch.load(path))
+    for key in outs[0]:
+        same = all(len(o[key]) == len(outs[0][key])
+                   and all(torch.equal(a, b) for a, b in zip(o[key], outs[0][key]))
+                   for o in outs[1:])
+        print(f"[parent] {key}: bit-equal to the parent's {same}; parent {runs[0][key]:.3f} / "
+              f"{runs[3][key]:.3f} ms, this tree {runs[1][key]:.3f} / {runs[2][key]:.3f} ms | "
+              f"{card}", flush=True)
+        if not same:
+            raise RuntimeError(f"{key}: this tree's outputs differ from the parent's")
 
 
 # ---------------------------------------------------------------------------
@@ -3756,9 +3925,9 @@ def _validate_on_k7(tr, batch, label: str, dtype):
 def phase_arnn_trainer(ds, card: str) -> dict:
     """Both ARNN trainers at the width of ``train_arnn_baseline.py`` /
     ``train_arnn_reg.py`` (random weights from seed 0) on the dataset's
-    first 32 windows, in f32 and in bf16 compute, 8 steps each (coins
-    alternating, teacher-forced first; steps 0-1 warm up, 2-7 are timed, ms
-    a step being the mean of the branches' medians), and the reg trainer's
+    first 32 windows, in f32 and in bf16 compute, 4 steps each (coins
+    alternating, teacher-forced first; steps 0-1 warm up, 2-3 are timed, ms
+    a step being the mean of the branches' times), and the reg trainer's
     K7 device time in a validation batch; then one profiled step of each
     branch of the reg trainer in f32 (``_arnn_profile``). Every train step
     launches K7 0 times and each validation batch (the next 32 windows)
@@ -3788,7 +3957,7 @@ def phase_arnn_trainer(ds, card: str) -> dict:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 times, targets = {}, []
-                for i, coin in enumerate((True, False) * 4):
+                for i, coin in enumerate((True, False) * 2):
                     batch = tr.process_batch_data(train_batch)
                     before = ak.arnn_sampled_decode.launches
                     t0 = time.perf_counter()
@@ -3924,6 +4093,7 @@ def phase_arnn_training(card: str) -> dict:
 # each trainer takes one epoch of a few steps at the shipped widths.
 CLI_TUNES = 16
 CLI_EVAL_BATCH = 32  # 79 test windows: batches of 32, 32 and 15
+CLI_ARNN_BATCH = 128  # the ARNN trainers' batch: 5 steps of their epoch
 # The joint evaluation on the card against the CPU (plain versions), the
 # same checkpoints, splits and rsample noise: per model, the relative error
 # of the mean loss and the share of scored ticks whose argmax agrees.
@@ -4064,8 +4234,10 @@ def phase_cli_train(data: list, card: str) -> None:
              train + ["--no_auto_reg", "--context_type", "past"]),
             ("ablation future", train_inpaintnet_ablation.main,
              train + ["--no_auto_reg", "--context_type", "future"]),
-            ("ARNN reg", train_arnn_reg.main, train),
-            ("ARNN baseline", train_arnn_baseline.main, train)):
+            # batches of 128: a quarter of the steps, each as host-bound as at 32
+            ("ARNN reg", train_arnn_reg.main, train + ["--batch_size", str(CLI_ARNN_BATCH)]),
+            ("ARNN baseline", train_arnn_baseline.main,
+             train + ["--batch_size", str(CLI_ARNN_BATCH)])):
         t0 = time.perf_counter()
         (loss, acc), launches = _counted(lambda: main(argv))
         if not np.isfinite(loss):
@@ -6178,7 +6350,414 @@ def phase_hidden_widths(card: str) -> tuple:
     return entries, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: K8, K5 and K6 above 1,024 units, on tile groups whose CTAs span
+# clusters (kernel_common.tile_plan), and the LatentRNN of hidden 768
+# (train_inpaintnet.py --latent_rnn_hidden_size 768), whose 2-layer
+# generation bi-GRU is 1,536 wide
+# ---------------------------------------------------------------------------
+WIDE_LATENT_H = 768
+WIDE_GEN_H = 2 * WIDE_LATENT_H  # the generation GRU: hidden x 2 layers
+# K8's shapes at H 1,536 (label, rows, steps, mask): the engine's batch-2048
+# generation call (6 target measures), the autoregressive step, a batch-1
+# call
+WIDE_K8_SHAPES = (("generation", BATCH, 6, "target"), ("step", BATCH, 1, None),
+                  ("batch 1", 1, 6, "target"))
+# K5 / K6 (rows, steps): the autoregressive sampled step's calls (32
+# windows, one target step) and the engine-sized batch over 6 steps
+WIDE_TRAIN_SHAPES = ((LATENT_WINDOWS, 1), (BATCH, 6))
+WIDE_FAULT_ROWS = 256  # rows of the planted exchange faults (6 steps, f32)
+WIDE_ENGINE_BUCKETS = (1, BATCH)
+WIDE_TRAIN_COINS = (True, False, True, False)  # a compute dtype's steps, heads first
+
+
+@contextlib.contextmanager
+def _tile_route(route):
+    """Every K5, K6 and K8 launch on ``route`` ("group", "step"; None: the
+    plan's) inside the block (``kernel_common.tile_route``)."""
+    from inpaintnet_tpu_torch.ops import kernel_common as kc
+
+    real = kc.tile_route
+    kc.tile_route = lambda: route
+    try:
+        yield
+    finally:
+        kc.tile_route = real
+
+
+@contextlib.contextmanager
+def _group_fault(fault: int):
+    """A planted fault in every tile-group launch inside the block
+    (``kernel_common.group_fault``: 1 the other parity buffer's pieces, 2
+    one arrival short with the last CTA paused)."""
+    from inpaintnet_tpu_torch.ops import gru_kernel, gru_train_kernel, kernel_common
+
+    modules = (kernel_common, gru_kernel, gru_train_kernel)
+    real = [m.group_fault for m in modules]
+    for m in modules:
+        m.group_fault = lambda: fault
+    try:
+        yield
+    finally:
+        for m, f in zip(modules, real):
+            m.group_fault = f
+
+
+def _same_outputs(a, b) -> bool:
+    return all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _wide_k8(card: str) -> dict:
+    """K8 at ``WIDE_K8_SHAPES`` x H 1,536, f32 and bf16, against its plain
+    version within ``gru_kernel.BOUNDS`` (one launch, the group route); its
+    time beside its bound, the plain version's, cuDNN's one-direction GRU
+    and the eager loop's device time on the same inputs; at the bf16
+    generation shape also the same layer on one launch a step, bit-equal
+    to the group route, timed. -> {case: entry}"""
+    from inpaintnet_tpu_torch.ops import gru as gru_mod
+    from inpaintnet_tpu_torch.ops import gru_kernel as lk
+
+    entries = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        for i, (label, rows, steps, mask_kind) in enumerate(WIDE_K8_SHAPES):
+            args = _gru_layer_inputs(280 + i, rows, steps, WIDE_GEN_H, dtype, mask_kind)
+            plan = lk.tile_plan_of(rows, WIDE_GEN_H, dtype, args[0].device)
+            before = lk.gru_layer_stream.launches
+            got = lk.gru_layer_stream(*args)
+            launched = lk.gru_layer_stream.launches - before
+            want = lk.gru_layer_reference(*args)
+            torch.cuda.synchronize()
+            agree = lk.agreement(got, want)
+            case = f"{kind} {label} rows {rows} steps {steps} H {WIDE_GEN_H}"
+            if not (lk.within(agree, lk.BOUNDS[dtype]) and launched == 1
+                    and plan.route == "group"):
+                raise RuntimeError(f"K8 {case}: {agree} (bounds {lk.BOUNDS[dtype]}), {launched} "
+                                   f"launches, plan {plan}")
+            ms = cuda_ms(lambda: lk.gru_layer_stream(*args), 5)
+            plain_ms = cuda_ms(lambda: lk.gru_layer_reference(*args), 1)
+            library_ms = cudnn_gru_layer_ms(args, dtype)
+            eager_ms = _profile_step(lambda: gru_mod._eager_layer(*args, reverse=False,
+                                                                  want_ys=True))[0]
+            moved = nbytes([a for a in args if a is not None], list(got))
+            ops = gru_layer_ops(rows, steps, WIDE_GEN_H)
+            b = bound_of(ops, kind, moved)
+            if dtype == torch.float32:  # the split passes' bound, beside the FMA units'
+                b = {**bound_of(6 * ops, "bf16", moved), "bound_f32_fma_ms": b["bound_ms"]}
+            extra = {}
+            if dtype == torch.bfloat16 and label == "generation":
+                with _tile_route("step"):
+                    if not _same_outputs(lk.gru_layer_stream(*args), got):
+                        raise RuntimeError(f"K8 {case}: the step route differs from the group "
+                                           "route")
+                    extra["step_ms"] = cuda_ms(lambda: lk.gru_layer_stream(*args), 5)
+            entries[case] = {"max_abs_err": agree["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+                             **b, "library_ms": library_ms, "eager_device_ms": eager_ms,
+                             "plan": list(plan), "launches": launched, **extra}
+            print(f"[wide] gru_layer_stream {case}: {agree} (bounds {lk.BOUNDS[dtype]}), plan "
+                  f"{plan}; kernel {ms:.3f} ms"
+                  + "".join(f", {k[:-3]} route {v:.3f} ms (bit-equal)" for k, v in extra.items())
+                  + f", plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+                  f"cuDNN torch.nn.GRU({GRU_YARDSTICK_IN}, {WIDE_GEN_H}) one direction, "
+                  f"unmasked, {library_ms:.3f} ms, the eager loop's device time {eager_ms:.3f} "
+                  f"ms | {card}", flush=True)
+    return entries
+
+
+def _wide_train(card: str) -> dict:
+    """K5 and K6 at ``WIDE_TRAIN_SHAPES`` x H 1,536, f32 and bf16, on tile
+    groups, K6 on K5's gates: against the plain versions (``TRAIN_BOUNDS``),
+    one launch each, timed beside their bounds and plain versions.
+    -> {kernel: {case: entry}}"""
+    from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
+
+    entries = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        for rows, steps in WIDE_TRAIN_SHAPES:
+            fwd, dys = _train_kernel_case(rows + steps, rows, steps, WIDE_GEN_H, dtype, False)
+            before = (gk.gru_fwd_seq.launches, gk.gru_bwd_seq.launches)
+            out, grads, hprev = _run_k5_k6(fwd, dys, False, gk)
+            launched = (gk.gru_fwd_seq.launches - before[0], gk.gru_bwd_seq.launches - before[1])
+            want_out = gk.gru_fwd_seq_reference(*fwd)
+            want_grads = gk.gru_bwd_seq_reference(fwd[0], dys, *out[1:], hprev)
+            torch.cuda.synchronize()
+            bounds = _k5_k6_bounds(steps, rows, WIDE_GEN_H, dtype, fwd, out, grads, dys, hprev)
+            case = f"{kind} rows {rows} steps {steps} H {WIDE_GEN_H}"
+            calls = ((gk.gru_fwd_seq, out, want_out, lambda: gk.gru_fwd_seq(*fwd),
+                      lambda: gk.gru_fwd_seq_reference(*fwd), bounds[0],
+                      gk.fwd_tile_plan(rows, WIDE_GEN_H, dtype, fwd[0].device)),
+                     (gk.gru_bwd_seq, grads, want_grads,
+                      lambda: gk.gru_bwd_seq(fwd[0], dys, *out[1:], hprev),
+                      lambda: gk.gru_bwd_seq_reference(fwd[0], dys, *out[1:], hprev), bounds[1],
+                      gk.bwd_tile_plan(rows, WIDE_GEN_H, dtype, fwd[0].device)))
+            for (kernel, got, want, call, plain, bound, plan), n in zip(calls, launched):
+                e_max, e_mean, e_abs = _train_kernel_errs(got, want)
+                ok = e_max <= TRAIN_BOUNDS[dtype][0] and e_mean <= TRAIN_BOUNDS[dtype][1]
+                if not ok or n != 1 or plan.route != "group":
+                    raise RuntimeError(f"{kernel.__name__} {case}: max {e_max:.3e} mean "
+                                       f"{e_mean:.3e} (bounds {TRAIN_BOUNDS[dtype]}), {n} "
+                                       f"launches, plan {plan}")
+                ms, plain_ms = cuda_ms(call, 5), cuda_ms(plain, 1)
+                entries.setdefault(kernel.__name__, {})[case] = {
+                    "max_abs_err": e_abs, "ms": ms, "plain_ms": plain_ms, **bound,
+                    "library_ms": None, "plan": list(plan), "launches": n}
+                print(f"[wide] {kernel.__name__} {case}: max {e_max:.3e} mean {e_mean:.3e} "
+                      f"(bounds {TRAIN_BOUNDS[dtype]}), plan {plan}; kernel {ms:.3f} ms, plain "
+                      f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}"
+                      f"), library none | {card}", flush=True)
+    return entries
+
+
+def _wide_faults(card: str) -> None:
+    """The group exchange's two planted faults (a consumer reading the
+    other parity buffer's pieces; one arrival short, the last CTA paused)
+    in K8, K5 and K6 at H 1,536, ``WIDE_FAULT_ROWS`` rows x 6 steps, f32:
+    each must leave its bounds; unplanted, each is within them."""
+    from inpaintnet_tpu_torch.ops import gru_kernel as lk
+    from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
+
+    args = _gru_layer_inputs(288, WIDE_FAULT_ROWS, 6, WIDE_GEN_H, torch.float32, "target")
+    fwd, dys = _train_kernel_case(289, WIDE_FAULT_ROWS, 6, WIDE_GEN_H, torch.float32, False)
+    want8 = lk.gru_layer_reference(*args)
+    want5 = gk.gru_fwd_seq_reference(*fwd)
+    hprev = torch.cat([fwd[3][None], want5[0][:-1]])
+    want6 = gk.gru_bwd_seq_reference(fwd[0], dys, *want5[1:], hprev)
+    bound = TRAIN_BOUNDS[torch.float32]
+    for fault in (0, 1, 2):
+        with _group_fault(fault):
+            k8 = lk.agreement(lk.gru_layer_stream(*args), want8)
+            k5 = _train_kernel_errs(gk.gru_fwd_seq(*fwd), want5)
+            k6 = _train_kernel_errs(gk.gru_bwd_seq(fwd[0], dys, *want5[1:], hprev), want6)
+            torch.cuda.synchronize()
+        inside = (lk.within(k8, lk.BOUNDS[torch.float32]),
+                  k5[0] <= bound[0] and k5[1] <= bound[1], k6[0] <= bound[0] and k6[1] <= bound[1])
+        name = ("none", "the other parity buffer", "one arrival short")[fault]
+        print(f"[wide] planted exchange fault {name}: K8 {k8}, K5 max/mean {k5[0]:.3e}/"
+              f"{k5[1]:.3e}, K6 {k6[0]:.3e}/{k6[1]:.3e}; within the bounds {inside} | {card}",
+              flush=True)
+        if inside != ((True,) * 3 if fault == 0 else (False,) * 3):
+            raise RuntimeError(f"the planted exchange fault {name}: within the bounds {inside}")
+
+
+def _wide_refused(card: str) -> None:
+    """K8 bf16 at H 1,536 on one tile group more than the card holds at
+    once (the plan forced): the cooperative launch must refuse the grid
+    (``cudaErrorCooperativeLaunchTooLarge``, 720) instead of leaving a group
+    to wait on a peer that never starts; the card then runs the plan's own
+    launch within the bounds."""
+    from inpaintnet_tpu_torch.ops import gru_kernel as lk
+    from inpaintnet_tpu_torch.ops.kernel_common import HOPPER_ROWS, TilePlan
+
+    dtype = torch.bfloat16
+    full = lk.tile_plan_of(64 * HOPPER_ROWS, WIDE_GEN_H, dtype, torch.device("cuda"))
+    args = _gru_layer_inputs(290, HOPPER_ROWS * (full.groups + 1), 2, WIDE_GEN_H, dtype,
+                             "target")
+    real = lk.tile_plan_of
+    lk.tile_plan_of = lambda *a: TilePlan("group", full.ctas, full.groups + 1)  # noqa: E731
+    try:
+        lk.gru_layer_stream(*args)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    finally:
+        lk.tile_plan_of = real
+    agree = lk.agreement(lk.gru_layer_stream(*args), lk.gru_layer_reference(*args))
+    torch.cuda.synchronize()
+    print(f"[wide] K8 bf16 H {WIDE_GEN_H} on {full.groups + 1} groups of {full.ctas} CTAs (the "
+          f"card holds {full.groups}): {refused or 'not refused'}; then the plan's launch "
+          f"{agree} | {card}", flush=True)
+    if refused is None or not refused.endswith("cudaError_t 720") \
+            or not lk.within(agree, lk.BOUNDS[dtype]):
+        raise RuntimeError(f"a group grid past the card: {refused}, then {agree}")
+
+
+def _wide_width_launches(call) -> tuple:
+    """-> (call(), {hidden size: K8 launches by ops/gru.py's "pallas" route
+    during it}, eager GRU steps of width ``WIDE_GEN_H``)"""
+    from inpaintnet_tpu_torch.ops import gru as gru_mod
+
+    real, widths = gru_mod.gru_layer_stream, {}
+
+    def counted(xw, w_hh, *rest, **kw):
+        widths[w_hh.shape[0]] = widths.get(w_hh.shape[0], 0) + 1
+        return real(xw, w_hh, *rest, **kw)
+
+    gru_mod.gru_layer_stream = counted
+    try:
+        out, steps = _eager_gru_steps(call, WIDE_GEN_H)
+    finally:
+        gru_mod.gru_layer_stream = real
+    return out, widths, steps
+
+
+def _wide_layer_engines(card: str) -> dict:
+    """The 768 LatentRNN (over the flagship VAE, random weights from seed
+    0) on ``"pallas"``: the f32 main path on the card against the CPU
+    (``phase_reference``); its engines in bf16 and f32 masters and the
+    autoregressive one in bf16, a batch-2048 call (6/4/6) and a batch-1
+    call (7/2/7) each, on the eager route (K8 launches a call by width: the
+    generation GRU's 2 layers x 2 directions at 1,536, once or once a
+    target step; no eager step of that width) and on the graph route
+    (capture, replay; tokens and launches equal to the eager route's); the
+    graphs' pool (``GraphSet.held_bytes``) and the replays' times.
+    -> {kernel: launches} of the replays"""
+    from inpaintnet_tpu_torch.models.presets import build_flagship
+    from inpaintnet_tpu_torch.ops.gru import gru_impl_scope
+    from inpaintnet_tpu_torch.serve import InpaintingEngine
+
+    totals = {}
+    for auto_reg, dtypes in ((False, ("bfloat16", "float32")), (True, ("bfloat16",))):
+        model = build_flagship(seed=0, device="cuda", auto_reg=auto_reg,
+                               latent_hidden=WIDE_LATENT_H)[2]
+        if model.gen_hidden_size != WIDE_GEN_H:
+            raise RuntimeError(f"the 768 LatentRNN's generation GRU is {model.gen_hidden_size}")
+        if not auto_reg:
+            with gru_impl_scope("pallas"):
+                phase_reference(model, quantized=False)
+        for dtype in dtypes:
+            engine = InpaintingEngine(model, batch_buckets=WIDE_ENGINE_BUCKETS, dtype=dtype,
+                                      device="cuda")
+            mt = engine.max_target
+            rng = np.random.default_rng(28)
+            big = _request(rng, BATCH, N_PAST, N_TARGET, N_FUTURE)
+            one = _request(rng, 1, 7, 2, 7)
+            calls = [(f"batch {BATCH}", lambda: engine.inpaint(*big, seed=11)),
+                     ("batch 1", lambda: engine.inpaint(*one, seed=11))]
+            label = f"768 LatentRNN{' autoregressive' if auto_reg else ''} {dtype}"
+            want = {WIDE_GEN_H: 4 * (mt if auto_reg else 1)}
+            with gru_impl_scope("pallas"):
+                with _route(engine, False):
+                    for name, call in calls:
+                        out, widths, steps = _wide_width_launches(call)
+                        _check_response(out, *(big if name != "batch 1" else one))
+                        total = k8_launches_per_call(mt, auto_reg)
+                        if widths.get(WIDE_GEN_H) != want[WIDE_GEN_H] or steps != 0 \
+                                or sum(widths.values()) != total:
+                            raise RuntimeError(f"{label} {name}: K8 launches by width {widths} "
+                                               f"(expected {want} of {total}), {steps} eager "
+                                               f"steps of width {WIDE_GEN_H}")
+                        print(f"[wide] {label} {name} (eager route): K8 launches by width "
+                              f"{widths}, eager steps of width {WIDE_GEN_H}: {steps}", flush=True)
+                _check_routes(engine, label, calls, totals)
+                pool = engine._graphs.held_bytes() / 2**30
+                t_big = cuda_ms(calls[0][1], 3)
+                lat = [cuda_ms(calls[1][1], 1) for _ in range(10)]
+            print(f"[time] {label} pallas (graphs) batch {BATCH} 6/4/6: {t_big:.2f} ms per "
+                  f"call, {BATCH * N_TARGET / (t_big / 1e3):.1f} measures/s; batch 1 p50 "
+                  f"{np.median(lat):.2f} ms (p90 {np.percentile(lat, 90):.2f}); the graphs' "
+                  f"pool holds {pool:.3f} GiB | {card}", flush=True)
+            del engine
+            torch.cuda.empty_cache()
+        del model
+    return totals
+
+
+def _wide_trainer(card: str) -> dict:
+    """The autoregressive 768 LatentRNN trainer at ``train_inpaintnet.py``'s
+    defaults (32 windows of 16 bars, dropout 0.5, lr 1e-4), f32 and bf16
+    compute, ``WIDE_TRAIN_COINS`` steps each: K2 / K5 / K6 launches a step
+    as ``latent_train_launches`` says (the sampled branch's unmasked
+    1,536-wide generation GRU on K5 / K6, no eager step of that width; the
+    teacher-forced branch's masked one on the eager loop), finite losses,
+    the parameters moved. -> {kernel: launches}"""
+    from inpaintnet_tpu_torch.models.base import iter_leaves
+    from inpaintnet_tpu_torch.models.presets import build_flagship
+    from inpaintnet_tpu_torch.ops import decode_kernel
+    from inpaintnet_tpu_torch.ops import gru_train_kernel as gk
+    from inpaintnet_tpu_torch.train import LatentRNNTrainer
+    from inpaintnet_tpu_torch.train.data import ArrayDataset
+
+    rng = np.random.default_rng(28)
+    windows = rng.integers(0, VOCAB, (LATENT_WINDOWS, 1, N_BARS * 24)).astype(np.int32)
+    _, _, model = build_flagship(seed=0, device="cuda", auto_reg=True,
+                                 latent_hidden=WIDE_LATENT_H)
+    mt = model.max_target
+    kernels = (decode_kernel.decode_sampling, gk.gru_fwd_seq, gk.gru_bwd_seq)
+    totals = dict.fromkeys((k.__name__ for k in kernels), 0)
+    for compute in (None, "bfloat16"):
+        tr = LatentRNNTrainer(ArrayDataset((windows,), N_BARS), model, lr=1e-4, device="cuda",
+                              compute_dtype=compute, seed=1)
+        start = [p.detach().clone() for _, p in iter_leaves(tr.params)]
+        walls = {}
+        for coin in WIDE_TRAIN_COINS:
+            batch = tr.process_batch_data((windows,))
+            before = [k.launches for k in kernels]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (loss, _), eager = _eager_gru_steps(lambda: tr.train_step(batch, coin=coin),
+                                                WIDE_GEN_H)
+            loss = loss.item()
+            walls.setdefault(coin, []).append((time.perf_counter() - t0) * 1e3)
+            got = {k.__name__: k.launches - n for k, n in zip(kernels, before)}
+            want = latent_train_launches(True, coin, mt)
+            want_eager = 0 if coin is False else 4 * mt
+            if got != want or eager != want_eager or not np.isfinite(loss):
+                raise RuntimeError(f"768 trainer {compute or 'float32'} coin {coin}: launches "
+                                   f"{got} (expected {want}), {eager} eager steps of width "
+                                   f"{WIDE_GEN_H} (expected {want_eager}), loss {loss}")
+            for k, n in got.items():
+                totals[k] += n
+        moved = sum((p.detach() - s).abs().sum().item()
+                    for (_, p), s in zip(iter_leaves(tr.params), start))
+        if not moved > 0:
+            raise RuntimeError("the 768 LatentRNN's parameters did not move")
+        print(f"[wide] 768 autoregressive trainer {compute or 'float32'}: ms a step (the first "
+              f"of each branch warms up) teacher-forced {[round(w, 1) for w in walls[True]]}, "
+              f"sampled {[round(w, 1) for w in walls[False]]}; launches a sampled step "
+              f"{latent_train_launches(True, False, mt)}, no eager step of width {WIDE_GEN_H} "
+              f"there; last loss {loss:.5f} | {card}", flush=True)
+        del tr, start
+        torch.cuda.empty_cache()
+    del model
+    return totals
+
+
+def phase_wide_layers(card: str) -> tuple:
+    """Phase 28: K8, K5 and K6 above 1,024 units and the 768 LatentRNN.
+    The kernels at H 1,536 against their plain versions and the planted
+    faults first; then the main paths (the engines and the trainer), every
+    launch count set to 0 before them and read after. -> ({kernel name:
+    {case: entry}} for the kernels line, {kernel: launches} of the main
+    paths)"""
+    t0 = time.perf_counter()
+    entries = {"gru_layer_stream": _wide_k8(card), **_wide_train(card)}
+    _wide_faults(card)
+    _wide_refused(card)
+    kernels = _all_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    launches = _wide_layer_engines(card)
+    train = _wide_trainer(card)
+    counted = {name: k.launches for name, k in kernels.items()}
+    if min(counted[n] for n in ("gru_layer_stream", "gru_fwd_seq", "gru_bwd_seq")) < 1:
+        raise RuntimeError(f"phase 28's main paths launched {counted}")
+    launches = {**launches, **{k: n for k, n in train.items() if k != "decode_sampling"}}
+    print(f"[wide] phase 28 launches: the engines' replays and the trainer's steps {launches}, "
+          f"all wrappers in the phase's main paths {counted}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return entries, launches
+
+
+def _clocked(phase):
+    """``phase`` printing its wall seconds when it returns (``[clock]``):
+    where the run's 1,200 s go."""
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return phase(*args, **kwargs)
+        finally:
+            print(f"[clock] {phase.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return run
+
+
+for _name, _phase in list(globals().items()):
+    if _name.startswith("phase_") and callable(_phase):
+        globals()[_name] = _clocked(_phase)
+
+
 def main() -> int:
+    t_run = time.perf_counter()
     cli = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     cli.add_argument("--parent", metavar="DIR",
                      help="an earlier checkout of this repository whose V 60 decode kernels "
@@ -6189,6 +6768,16 @@ def main() -> int:
     cli.add_argument("--kernel-times", metavar="DIR",
                      help="only print the V 60 decode kernels' times of the checkout at DIR "
                           "as one JSON line (what --parent runs in a process of its own)")
+    cli.add_argument("--route-outputs", nargs=2, metavar=("DIR", "OUT"),
+                     help="only save the outputs of ROUTE_CASES through the wrappers of the "
+                          "checkout at DIR to OUT and print their times as one JSON line (what "
+                          "--parent runs in a process of its own)")
+    cli.add_argument("--parent-only", action="store_true",
+                     help="with --parent, run only the comparisons with the parent and exit")
+    cli.add_argument("--engine-times", metavar="DIR",
+                     help="only print the 768 LatentRNN bf16 engine's times through the "
+                          "checkout at DIR as one JSON line (what --parent runs in a process "
+                          "of its own)")
     cli.add_argument("--k7-sums", action="store_true",
                      help="only take K7's bf16 sums apart at wide contexts and units "
                           "(phase_k7_sums), printing what each GEMM and recurrence changes")
@@ -6197,12 +6786,23 @@ def main() -> int:
     if opts.kernel_times:
         print(json.dumps(kernel_times(opts.kernel_times)))
         return 0
+    if opts.route_outputs:
+        print(json.dumps(route_outputs(*opts.route_outputs)))
+        return 0
+    if opts.engine_times:
+        print(json.dumps(engine_times(opts.engine_times)))
+        return 0
     phase_build()
     if opts.k7_sums:
         phase_k7_sums(card)
         return 0
     if opts.parent:
-        phase_parent_times(opts.parent, card)
+        parent = str(Path(opts.parent).resolve())  # each child runs from its own root
+        phase_parent_routes(parent, card)
+        phase_parent_times(parent, card)
+        phase_parent_engines(parent, card)
+        if opts.parent_only:
+            return 0
     parent = None if opts.first_port is None else ParentKernels(opts.first_port)
     from inpaintnet_tpu_torch.models.presets import build_flagship
 
@@ -6212,6 +6812,8 @@ def main() -> int:
     # before any engine holds a CUDA graph's memory pool, which the cache
     # cannot hand back to cuDNN's 22 GiB GRU at H 577 x 65,536 rows
     wide_entries, launches_wide = phase_wide_widths(card)
+    # its engines hold graph pools only until the phase ends
+    layer_entries, launches_layers = phase_wide_layers(card)
     phase_reference(model)
     engine16, launches, span_bf16 = phase_engine(model, "bfloat16", card)
     engine8, launches8, span_int8 = phase_engine(model, "int8", card)
@@ -6283,7 +6885,10 @@ def main() -> int:
                 **({"width_launches": launches_width[name]}
                    if name in launches_width else {}),
                 **({"wide_widths": wide_entries[name],
-                    "wide_launches": launches_wide[name]} if name in wide_entries else {})}
+                    "wide_launches": launches_wide[name]} if name in wide_entries else {}),
+                **({"wide_layers": layer_entries[name],
+                    "wide_layer_launches": launches_layers.get(name, 0)}
+                   if name in layer_entries else {})}
                for name, (src, replaces, runs) in sources.items()]
     # K1's training mode (phase 21): its launches in the VAE steps under the
     # switch, its time and bound at the VAE step's rows, cuDNN as library_ms
@@ -6300,6 +6905,7 @@ def main() -> int:
           f"autoregressive HTTP path: {launches_ar_http}", flush=True)
     print(f"[profile] lead kernels the traces lost: {LEADS_LOST[0]} of {LEADS_LOST[1]}",
           flush=True)
+    print(f"[clock] the run: {time.perf_counter() - t_run:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -50,12 +50,14 @@ def _latent_rnn(vae, hidden: int, auto_reg: bool, ablation, device, dropout: flo
 def build_latent_rnn(dataset, *, emb: int, hidden: int, z_dim: int, layers: int,
                      vae_params_np, latent_params_np, auto_reg: bool = False,
                      ablation=None, device="cuda", dtype: torch.dtype = torch.float32,
-                     dropout: float = 0.5):
+                     dropout: float = 0.5, latent_hidden=None):
     """A MeasureVAE + LatentRNN of the given geometry holding the given
     JAX-layout numpy parameters (random, or the JAX package's), on
     ``device`` in ``dtype``: autoregressive with ``auto_reg``, the past-only
     or future-only ablation with ``ablation="past"|"future"``; ``dropout``
-    is the LatentRNN's in training (``train_inpaintnet.py``'s default). The
+    is the LatentRNN's in training (``train_inpaintnet.py``'s default);
+    ``latent_hidden`` the LatentRNN's hidden size where it is not the VAE's
+    ``hidden`` (``train_inpaintnet.py --latent_rnn_hidden_size``). The
     modules are made on the meta device, so no throwaway initialisation
     runs. Loading is strict.
 
@@ -64,7 +66,7 @@ def build_latent_rnn(dataset, *, emb: int, hidden: int, z_dim: int, layers: int,
     vae = MeasureVAE(dataset, note_embedding_dim=emb, num_encoder_layers=layers,
                      encoder_hidden_size=hidden, latent_space_dim=z_dim,
                      num_decoder_layers=layers, decoder_hidden_size=hidden, device="meta")
-    model = _latent_rnn(vae, hidden, auto_reg, ablation, "meta", dropout)
+    model = _latent_rnn(vae, latent_hidden or hidden, auto_reg, ablation, "meta", dropout)
     model.to_empty(device=device)
     model.load_state_dict(from_jax_params(vae_params_np, latent_params_np), strict=True)
     model.to(dtype)
@@ -74,12 +76,15 @@ def build_latent_rnn(dataset, *, emb: int, hidden: int, z_dim: int, layers: int,
 def build_flagship(vocab_size: int = 60, hidden: int = 512, z_dim: int = 256, emb: int = 10,
                    layers: int = 2, seed: int = 0, device="cuda",
                    dtype: torch.dtype = torch.float32, dataset=None, auto_reg: bool = False,
-                   ablation=None, dropout: float = 0.5):
+                   ablation=None, dropout: float = 0.5, latent_hidden=None):
     """Full-size MeasureVAE + LatentRNN (the shipped reference config; with
     ``auto_reg`` its autoregressive mode, with ``ablation`` the past-only or
     future-only model) with random weights drawn from
     ``numpy.random.default_rng(seed)``; ``dropout`` is the LatentRNN's in
-    training. Every dropout of the VAE is its default, 0.5.
+    training; ``latent_hidden`` the LatentRNN's hidden size where it is not
+    the VAE's ``hidden`` (768: ``train_inpaintnet.py --latent_rnn_hidden_size
+    768``, whose generation GRU is 1,536 wide). Every dropout of the VAE is
+    its default, 0.5.
 
     :return: (dataset, vae_model, latent_rnn_model)
     """
@@ -90,12 +95,12 @@ def build_flagship(vocab_size: int = 60, hidden: int = 512, z_dim: int = 256, em
                           num_decoder_layers=layers, decoder_hidden_size=hidden,
                           device="meta")
     vae_np = template.init_params(rng)
-    latent_np = _latent_rnn(template, hidden, auto_reg, ablation, "meta",
+    latent_np = _latent_rnn(template, latent_hidden or hidden, auto_reg, ablation, "meta",
                             dropout).init_params(rng)
     vae, model = build_latent_rnn(ds, emb=emb, hidden=hidden, z_dim=z_dim, layers=layers,
                                   vae_params_np=vae_np, latent_params_np=latent_np,
                                   auto_reg=auto_reg, ablation=ablation, device=device,
-                                  dtype=dtype, dropout=dropout)
+                                  dtype=dtype, dropout=dropout, latent_hidden=latent_hidden)
     return ds, vae, model
 
 

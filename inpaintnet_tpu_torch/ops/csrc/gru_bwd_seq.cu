@@ -52,3 +52,47 @@ extern "C" int inpaint_gru_bwd_w_map(const void* packed, int H, int pieces, int 
   return (int)inpaint::bwd90::make_w_map(static_cast<CUtensorMap*>(map_out), packed, H, pieces,
                                          units);
 }
+
+// K6 above 1,024 units (or where a check forces it): `group` CTAs of 128
+// units a 64-row tile, beyond one cluster (gru_bwd_hopper.cuh
+// run_k6_tiles). w_map: inpaint_gru_bwd_w_map's for 128 units; the other
+// tensors as inpaint_gru_bwd_hopper's; `sync` 1 `groups` persistent tile
+// groups (counters: (tiles,) uint32 zeros), 2 one launch a step and one
+// more (carry: (B, H) f32); `fault` a planted GroupFault (0 none).
+extern "C" int inpaint_gru_bwd_tiles(int dtype, const void* w_map, const void* dys,
+                                     const void* r, const void* z, const void* n,
+                                     const void* hn, const void* hprev, void* da, void* dhw,
+                                     void* dh0, void* scratch, void* counters, void* carry, int B,
+                                     int steps, int H, int reverse, int group, int groups,
+                                     int stages, int sync, int fault, void* stream) {
+  using namespace inpaint::bwd90;
+  if (w_map == nullptr) return (int)cudaErrorInvalidValue;
+  CUtensorMap m;
+  memcpy(&m, w_map, sizeof(m));
+  BwdArgs a{dys, r, z, n, hn, hprev, da, dhw, dh0, static_cast<__nv_bfloat16*>(scratch),
+            B,   steps, H, reverse, stages};
+  a.counters = static_cast<unsigned int*>(counters);
+  a.carry = static_cast<float*>(carry);
+  a.group = group;
+  a.fault = fault;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)run_k6_tiles<float>(m, a, sync, groups, s);
+  if (dtype == 1) return (int)run_k6_tiles<__nv_bfloat16>(m, a, sync, groups, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// CTAs of K6's tile-group kernel (dtype 0 f32, 1 bf16; 128 units a CTA)
+// with `stages` ring stages that the card holds at once; -1 where the plan
+// does not fit.
+extern "C" int inpaint_gru_bwd_resident(int dtype, int stages) {
+  using namespace inpaint::bwd90;
+  using inpaint::sm90::kSyncGroup;
+  if (stages < 2 || stages > kMaxStages) return -1;
+  if (dtype == 0)
+    return inpaint::sm90::resident_ctas(gru_bwd_kernel<float, kMaxUnits / 2, kSyncGroup>,
+                                        smem_bytes(kMaxUnits, 3, stages), kThreads);
+  if (dtype == 1)
+    return inpaint::sm90::resident_ctas(gru_bwd_kernel<__nv_bfloat16, kMaxUnits / 2, kSyncGroup>,
+                                        smem_bytes(kMaxUnits, 1, stages), kThreads);
+  return -1;
+}

@@ -83,6 +83,33 @@
 // the same plan from H 576 to 1024 (9-16 CTAs); its bf16 route 8 CTAs of
 // 128 units at H 1024. Nothing here holds a whole h tile: T(h) streams in
 // 64-wide k-slabs at every width, so only the cluster grows.
+//
+// Above 1024 units (and wherever a check forces it) a tile's CTAs form a
+// tile group instead of a cluster (kSync, hopper_common.cuh TileSync): 64
+// units a CTA in f32, 128 in bf16, so G = H / 64 or H / 128 CTAs a tile,
+// more than a cluster holds. The cluster only moved data, so the group
+// replaces its `ready` arrival alone:
+// - kSyncGroup: after a CTA writes its pieces of step s it adds 1 to its
+//   tile's counter in global memory (red.release.gpu); the producer waits
+//   (ld.acquire.gpu, bounded: it traps) for G (s + 1) before step s's
+//   first A box. The count is monotonic, so nothing resets it. The two
+//   parity buffers keep the cluster route's rule: a CTA writes step s + 1's
+//   pieces after its product of step s, which waited for every peer's count
+//   of step s. Every CTA of a group must be resident at once: the launch is
+//   persistent, `groups` groups (at most the CTAs the card holds / G, from
+//   the occupancy API), each walking the tiles i, i + groups, ... with its
+//   counters and scratch planes indexed by tile. The launch is cooperative
+//   (set_tile_launch), so a grid the card cannot hold at once is refused
+//   rather than left waiting on a peer that never starts.
+// - kSyncStep, for a group the card cannot hold at once: one launch a
+//   step, the launch boundary the barrier; a prologue launch writes h0's
+//   pieces into parity 0 and h0 into the f32 `carry` (B, H), which each
+//   step's launch reads at its start and writes at its end (the kernel's own
+//   carry, so the result equals the one-launch routes bit for bit).
+// The outputs equal the cluster route's bit for bit at any G. K8's bf16
+// layer above 1024 runs here too (kLayer with P 1: its whole 64 x H h tile
+// no longer fits gru_layer_hopper.cuh's CTAs), its carry rounded to bf16
+// after every step as K8's function asks.
 #pragma once
 
 #include "gru_common.cuh"
@@ -145,20 +172,27 @@ struct FwdArgs {
   const void* bhh;  // (3H,) T; K1: (2, 3H) f32
   const void* h0;   // (B, H) T; K1: unused (zeros)
   void* out;        // (5, steps, B, H) T: ys, r, z, n, hn in original time order;
-                    // kLayer: ys (B, steps, H) f32, or null (h_n only)
+                    // kLayer: ys (B, steps, H) T, or null (h_n only)
   __nv_bfloat16* scratch;  // (dirs, tiles, 2, P, 64, H): T(h)'s pieces by step parity
   int B, steps, H, reverse, stages;
   // K1 (kEnc0, kEnc1), over the rows [row0, row0 + rows) of B
   const int* tokens;  // (B, steps) int32: kEnc0
   const float* tab;   // (2, V, 3H): kEnc0's input projection table, b_ih folded in
   __nv_bfloat16* ys;  // (3, steps * rows, 2H): kEnc0's outputs' pieces [fwd | bwd]
-  float* hn;          // (2, B, H): the layer's h_n [fwd, bwd]; kLayer: (B, H)
+  float* hn;          // (2, B, H): the layer's h_n [fwd, bwd]; kLayer: (B, H) T
   int row0, rows, V;
   const uint8_t* keep;  // kLayer: (B, steps), 0 holds h at that step; null: every step runs
                         // kEnc0 in training (K1's training mode), else null: the
                         // inter-layer dropout keep mask (B, steps, 2H) [fwd | bwd] of
                         // the GLOBAL rows; the outputs' pieces are keep ? y / keep_div : 0
   float keep_div;       // kEnc0: 1 - rate
+  // tile groups (kSyncGroup, kSyncStep; K5 and K8 only)
+  unsigned int* counters;  // kSyncGroup: (tiles,) zeros, each tile's arrivals
+  float* carry;            // kSyncStep: (B, H) f32, h between launches
+  int group;               // CTAs a tile (the cluster's size under kSyncCluster)
+  int s_begin, s_end;      // kSyncStep: the processed steps [s_begin, s_end) of this launch;
+                           // s_begin == s_end: the prologue (h0 into carry and pieces)
+  int fault;               // GroupFault: a planted fault of the group's exchange
 };
 
 // bytes of one ring stage: a k-slab of T(h)'s P pieces and of the CTA's
@@ -167,16 +201,21 @@ __host__ __device__ __forceinline__ int stage_bytes(int U, int P) {
   return P * kPieceBytes + P * (U / kUnits) * kSlabBytes;
 }
 
-// NCH: 32-unit chunks of a consumer warpgroup (U / 64): 1, or 2 in bf16
-template <typename T, int NCH, int kMode>
+// NCH: 32-unit chunks of a consumer warpgroup (U / 64): 1, or 2 in bf16.
+// kSync (TileSync): how the CTAs of a tile meet at each step. Under
+// kSyncCluster the grid is the tiles' clusters; under kSyncGroup it is
+// `gridDim.x / group` groups of `group` CTAs, each walking the tiles i, i +
+// groups, ...; under kSyncStep one CTA group a tile runs one step.
+template <typename T, int NCH, int kMode, int kSync = kSyncCluster>
 __global__ void __launch_bounds__(kThreads, 1)
     gru_fwd_kernel(const __grid_constant__ CUtensorMap w_map,
                    const __grid_constant__ CUtensorMap a_map, const __grid_constant__ FwdArgs p) {
   using F = Fwd<T>;
   constexpr int P = F::kPieces;
   constexpr bool kEnc = kMode == kEnc0 || kMode == kEnc1;
+  constexpr bool kClustered = kSync == kSyncCluster;
   static_assert(P == 1 || NCH == 1, "the f32 route's two accumulators fit one chunk");
-  static_assert((!kEnc && kMode != kLayer) || P == 3, "K1's and K8's layers run the f32 route");
+  static_assert(!kEnc || (P == 3 && kClustered), "K1's layers run the f32 cluster route");
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[kMaxStages];
   __shared__ __align__(8) uint64_t empty_bar[kMaxStages];
@@ -185,13 +224,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   // B: the rows this launch computes (K1: its chunk's)
   const int H = p.H, H3 = 3 * H, B = kEnc ? p.rows : p.B, steps = p.steps, KB = H / 64;
-  const int C = (int)cluster_nctarank();
-  const uint32_t rank = cluster_ctarank();
+  const int C = kClustered ? (int)cluster_nctarank() : p.group;
+  const uint32_t rank = kClustered ? cluster_ctarank() : blockIdx.x % (uint32_t)p.group;
   const int U = H / C, u0 = (int)rank * U, cpc = U / kUnits;
   const int d = kEnc ? (int)blockIdx.y : 0;  // K1's direction: 0 forward, 1 backward
   const bool reverse = kEnc ? d == 1 : p.reverse != 0;
-  const int tiles = (int)(gridDim.x / C), tile0 = (int)(blockIdx.x / C) * kRows;
-  const int tile = d * tiles + (int)(blockIdx.x / C);  // the scratch's tile index
+  const int tiles = kClustered ? (int)(gridDim.x / C) : (B + kRows - 1) / kRows;
+  const int tile_stride = (int)(gridDim.x / C);  // the tile groups of the launch
+  const int s_begin = kSync == kSyncStep ? p.s_begin : 0;
+  const int s_end = kSync == kSyncStep ? p.s_end : steps;
+  const int fault = kClustered ? kFaultNone : p.fault;
   const int sbytes = stage_bytes(U, P), a_bytes = P * kPieceBytes;
   const int wg = threadIdx.x >> 7;
   constexpr int kStageLd = kUnits * NCH + 8;  // bf16 row stride of an output buffer
@@ -205,32 +247,47 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_barrier_init();
   }
   __syncthreads();
-  cluster_sync();  // every CTA's barriers are set before any peer arrives
+  if constexpr (kClustered) cluster_sync();  // every CTA's barriers are set before any peer arrives
 
   if (wg == kConsumers) {  // the producer warp
     if ((threadIdx.x & 31) == 0) {
       int stage = 0;
       uint32_t phase = 0;
-      for (int s = 0; s < steps; ++s) {
-        const int plane = (tile * 2 + (s & 1)) * P;
-        for (int k = 0; k < KB; ++k) {
-          unsigned char* st = ring + stage * sbytes;
-          mbar_wait_bounded<false>(&empty_bar[stage], phase ^ 1);
-          mbar_expect_tx(&full_bar[stage], (uint32_t)sbytes);
-          tma_load_5d(st + a_bytes, &w_map, &full_bar[stage], 0, 0, k, (int)rank * cpc, d * P);
-          if (k == 0) {  // this step's pieces, from every CTA of the cluster
-            mbar_wait_bounded<true>(&ready, s & 1);
-            fence_proxy_async_global();
-          }
-          tma_load_3d(st, &a_map, &full_bar[stage], k * 64, 0, plane);
-          if (++stage == p.stages) {
-            stage = 0;
-            phase ^= 1;
+      const auto produce = [&](int ti) {
+        const int tile = d * tiles + ti;  // the scratch's tile index
+        for (int s = s_begin; s < s_end; ++s) {
+          const int plane = (tile * 2 + ((s + (fault == kFaultOtherParity)) & 1)) * P;
+          for (int k = 0; k < KB; ++k) {
+            unsigned char* st = ring + stage * sbytes;
+            mbar_wait_bounded<false>(&empty_bar[stage], phase ^ 1);
+            mbar_expect_tx(&full_bar[stage], (uint32_t)sbytes);
+            tma_load_5d(st + a_bytes, &w_map, &full_bar[stage], 0, 0, k, (int)rank * cpc,
+                        d * P);
+            if (k == 0) {  // this step's pieces, from every CTA of the tile (under
+                           // kSyncStep the launch before this one wrote them)
+              if constexpr (kClustered) {
+                mbar_wait_bounded<true>(&ready, s & 1);
+                fence_proxy_async_global();
+              } else if constexpr (kSync == kSyncGroup) {
+                group_wait_bounded(p.counters + ti,
+                                   (unsigned)(C * (s + 1) - (fault == kFaultCountShort)));
+                fence_proxy_async_global();
+              }
+            }
+            tma_load_3d(st, &a_map, &full_bar[stage], k * 64, 0, plane);
+            if (++stage == p.stages) {
+              stage = 0;
+              phase ^= 1;
+            }
           }
         }
-      }
+      };
+      if constexpr (kClustered)  // one tile: no loop, whose live values spilled
+        produce((int)(blockIdx.x / C));
+      else
+        for (int ti = (int)(blockIdx.x / C); ti < tiles; ti += tile_stride) produce(ti);
     }
-    cluster_sync();
+    if constexpr (kClustered) cluster_sync();
     return;
   }
 
@@ -246,29 +303,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   int stage = 0;
   uint32_t phase = 0;
 
-  // The thread's (row, unit) pairs, in every step: chunk wg NCH + ci of the
-  // CTA's, units jl = 32 (wg NCH + ci) + 8 n8 + 2q (+ e) among the CTA's,
-  // rows r = 16 warp + g + 8 half: the accumulator fragment's.
-  // T(h)'s pieces of a pair into the scratch plane of parity `par`
-  const auto put_pieces = [&](int par, int r, int jl, float v0, float v1) {
-    __nv_bfloat16 a[P], b[P];
-    F::pieces(v0, a);
-    F::pieces(v1, b);
-#pragma unroll
-    for (int pi = 0; pi < P; ++pi)
-      *reinterpret_cast<__nv_bfloat162*>(
-          p.scratch + ((size_t)((tile * 2 + par) * P + pi) * kRows + r) * H + u0 + jl) =
-          __halves2bfloat162(a[pi], b[pi]);
-  };
-  // the pieces are written: make them visible to the peers' TMA loads
-  // (async proxy), then tell every CTA of the cluster (thread c tells CTA c)
-  const auto publish = [&]() {
-    __threadfence();
-    fence_proxy_async_global();
-    named_barrier(kBar, kConsumerThreads);
-    if (tid < C) mbar_arrive_cluster(mapa(smem_u32(&ready), tid));
-  };
-
   // The row of step t's input projection of local row `row` (< B): xw's
   // (K5, K1 layer 1: the GEMM's f32 rows), or the table's row of the token
   // (K1 layer 0)
@@ -283,217 +317,281 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   };
 
-  // h0 into the carry and its pieces into the scratch of step 0
-#pragma unroll
-  for (int ci = 0; ci < NCH; ++ci)
-#pragma unroll
-    for (int n8 = 0; n8 < 4; ++n8)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = 16 * warp + g + 8 * half, row = tile0 + r;
-        const int jl = kUnits * (wg * NCH + ci) + 8 * n8 + 2 * q;
-        const float2 v = row < B && !kEnc
-                             ? F::load2(static_cast<const T*>(p.h0) + (size_t)row * H + u0 + jl)
-                             : make_float2(0.0f, 0.0f);
-        *reinterpret_cast<float2*>(carry + r * ld + jl) = v;
-        put_pieces(0, r, jl, v.x, v.y);
-      }
-  publish();
+  const auto consume = [&](int ti) {
+    const int tile0 = ti * kRows;
+    const int tile = d * tiles + ti;  // the scratch's tile index
 
-  for (int s = 0; s < steps; ++s) {
-    const int t = reverse ? steps - 1 - s : s;
-    const bool last = s == steps - 1;
-    // this step's xw rows of the thread's units into L2 while the products
-    // run (lanes of q 0: a quad's run of a gate's 32 units; K1's layer-0
-    // table stays in L2)
-    if (q == 0 && kMode != kEnc0)
+    // The thread's (row, unit) pairs, in every step: chunk wg NCH + ci of the
+    // CTA's, units jl = 32 (wg NCH + ci) + 8 n8 + 2q (+ e) among the CTA's,
+    // rows r = 16 warp + g + 8 half: the accumulator fragment's.
+    // T(h)'s pieces of a pair into the scratch plane of parity `par`
+    const auto put_pieces = [&](int par, int r, int jl, float v0, float v1) {
+      __nv_bfloat16 a[P], b[P];
+      F::pieces(v0, a);
+      F::pieces(v1, b);
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = tile0 + 16 * warp + g + 8 * half;
-        if (row < B)
-#pragma unroll
-          for (int ci = 0; ci < NCH; ++ci)
-#pragma unroll
-            for (int gate = 0; gate < 3; ++gate)
-              prefetch_l2(x_row(row, t) + gate * H + u0 + kUnits * (wg * NCH + ci));
+      for (int pi = 0; pi < P; ++pi)
+        *reinterpret_cast<__nv_bfloat162*>(
+            p.scratch + ((size_t)((tile * 2 + par) * P + pi) * kRows + r) * H + u0 + jl) =
+            __halves2bfloat162(a[pi], b[pi]);
+    };
+    // the pieces are written: make them visible to the peers' TMA loads
+    // (async proxy), then tell every CTA of the tile: under kSyncCluster
+    // thread c arrives on CTA c's `ready`, under kSyncGroup thread 0 adds 1
+    // to the tile's counter (under kSyncStep the launch ends first)
+    const auto publish = [&]() {
+      __threadfence();
+      fence_proxy_async_global();
+      named_barrier(kBar, kConsumerThreads);
+      if constexpr (kClustered) {
+        if (tid < C) mbar_arrive_cluster(mapa(smem_u32(&ready), tid));
+      } else if constexpr (kSync == kSyncGroup) {
+        if (tid == 0) group_arrive(p.counters + ti);
       }
+    };
 
-    // the product: acc[ci][a] is r, acc[ci][16 + a] z and acc[ci][32 + a]
-    // n of chunk ci's (row, unit) a = 4 n8 + 2 half + e
-    float acc[NCH][48];
-    if constexpr (P == 1) {
-      int prev = 0;
-      for (int k = 0; k < KB; ++k) {
-        unsigned char* st = ring + stage * sbytes;
-        mbar_wait_bounded<false>(&full_bar[stage], phase);
-        wgmma_fence();
+    // h0 into the carry and its pieces into the scratch of step 0 (kSyncStep:
+    // the prologue does that and keeps h in the f32 `carry` between launches)
+    const bool prologue = kSync == kSyncStep && s_begin == s_end;
 #pragma unroll
-        for (int ci = 0; ci < NCH; ++ci)
-          mma_slab(acc[ci], desc_sw128(st),
-                   desc_sw128(st + a_bytes + (wg * NCH + ci) * kSlabBytes), k > 0);
-        wgmma_commit();
-        if (k > 0) {
-          wgmma_wait<1>();
-          if (lane == 0) mbar_arrive(&empty_bar[prev]);
-        }
-        prev = stage;
-        if (++stage == p.stages) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-      wgmma_wait<0>();
-      if (lane == 0) mbar_arrive(&empty_bar[prev]);
+    for (int ci = 0; ci < NCH; ++ci)
 #pragma unroll
-      for (int ci = 0; ci < NCH; ++ci) fence_operands(acc[ci]);
-    } else {
-      // six passes a k-slab into the partial, added into acc with rounded
-      // f32 adds once they are done
-      float part[48];
-      const uint32_t wrow = (uint32_t)(wg * kSlabBytes);
-      const int wplane = cpc * kSlabBytes;
-      for (int k = 0; k < KB; ++k) {
-        unsigned char* st = ring + stage * sbytes;
-        mbar_wait_bounded<false>(&full_bar[stage], phase);
-        wgmma_fence();
-#pragma unroll
-        for (int pass = 0; pass < 6; ++pass) {
-          // (h piece, W piece), smallest terms first: lh, hl, mm, mh, hm, hh
-          const int ap = (0x001102 >> (4 * pass)) & 0xF;
-          const int wp = (0x010120 >> (4 * pass)) & 0xF;
-          const uint64_t da = desc_sw128(st + ap * kPieceBytes);
-          const uint64_t db = desc_sw128(st + a_bytes + wp * wplane + wrow);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_bf16_n96(part, da + 2 * kk, db + 2 * kk, (pass > 0 || kk > 0) ? 1 : 0);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_operands(part);
-        if (lane == 0) mbar_arrive(&empty_bar[stage]);
-#pragma unroll
-        for (int a = 0; a < 48; ++a) acc[0][a] = k == 0 ? part[a] : __fadd_rn(acc[0][a], part[a]);
-        if (++stage == p.stages) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-    }
-
-    // the gates, the carry, the five outputs and the next step's pieces
-    uint32_t staged[P == 1 ? 5 : 1][NCH][4][2];  // bf16: the outputs' pairs, to the buffer
-#pragma unroll
-    for (int ci = 0; ci < NCH; ++ci) {
-#pragma unroll
-      for (int n8 = 0; n8 < 4; ++n8) {
+      for (int n8 = 0; n8 < 4; ++n8)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int r = 16 * warp + g + 8 * half, row = tile0 + r;
-          const bool valid = row < B;
-          const int jl = kUnits * (wg * NCH + ci) + 8 * n8 + 2 * q, j = u0 + jl;
-          float2 x[3], b[3];
-          const T* xr = valid ? x_row(row, t) : nullptr;
-#pragma unroll
-          for (int gate = 0; gate < 3; ++gate) {
-            x[gate] = valid ? F::load2(xr + gate * H + j) : make_float2(0.0f, 0.0f);
-            b[gate] = F::load2(bhh + gate * H + j);
+          const int jl = kUnits * (wg * NCH + ci) + 8 * n8 + 2 * q;
+          float2 v = make_float2(0.0f, 0.0f);
+          if (kSync == kSyncStep && !prologue) {
+            if (row < B) v = *reinterpret_cast<const float2*>(p.carry + (size_t)row * H + u0 + jl);
+          } else if (row < B && !kEnc) {
+            v = F::load2(static_cast<const T*>(p.h0) + (size_t)row * H + u0 + jl);
           }
-          float2* cp = reinterpret_cast<float2*>(carry + r * ld + jl);
-          const float2 h2 = *cp;
-          float o[5][2];  // h', r, z, n, hn of the pair
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int a = 4 * n8 + 2 * half + e;
-            const auto pick = [e](float2 v) { return e ? v.y : v.x; };
-            const float hr = __fadd_rn(acc[ci][a], pick(b[0]));
-            const float hz = __fadd_rn(acc[ci][16 + a], pick(b[1]));
-            const float hn = __fadd_rn(acc[ci][32 + a], pick(b[2]));
-            const float rg = sigmoid_f(__fadd_rn(pick(x[0]), hr));
-            const float zg = sigmoid_f(__fadd_rn(pick(x[1]), hz));
-            const float ng = tanhf(__fadd_rn(pick(x[2]), __fmul_rn(rg, hn)));
-            o[0][e] = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, zg), ng), __fmul_rn(zg, pick(h2)));
-            o[1][e] = rg;
-            o[2][e] = zg;
-            o[3][e] = ng;
-            o[4][e] = hn;
-          }
-          if constexpr (kMode == kLayer) {  // a held step keeps h: its pieces go on below
-            if (valid && p.keep != nullptr && p.keep[(size_t)row * steps + t] == 0) {
-              o[0][0] = h2.x;
-              o[0][1] = h2.y;
-            }
-          }
-          *cp = make_float2(o[0][0], o[0][1]);
-          if constexpr (kEnc) {
-            if (valid && kMode == kEnc0) {  // the outputs' pieces, at row t * rows + row
-              float y0 = o[0][0], y1 = o[0][1];
-              if (p.keep != nullptr) {  // dropped (a true division) before the split;
-                // the carry keeps h. The mask's row is the global row0 + row
-                const uint8_t* kp =
-                    p.keep + ((size_t)(p.row0 + row) * steps + t) * 2 * H + d * H + j;
-                y0 = kp[0] ? __fdiv_rn(y0, p.keep_div) : 0.0f;
-                y1 = kp[1] ? __fdiv_rn(y1, p.keep_div) : 0.0f;
-              }
-              __nv_bfloat16 a[3], b2[3];
-              split3(y0, a);
-              split3(y1, b2);
-              const size_t plane = (size_t)steps * B * 2 * H;
-#pragma unroll
-              for (int pi = 0; pi < 3; ++pi)
-                *reinterpret_cast<__nv_bfloat162*>(
-                    p.ys + pi * plane + ((size_t)t * B + row) * 2 * H + d * H + j) =
-                    __halves2bfloat162(a[pi], b2[pi]);
-            }
-            if (valid && last)
-              *reinterpret_cast<float2*>(p.hn + ((size_t)d * p.B + p.row0 + row) * H + j) =
-                  make_float2(o[0][0], o[0][1]);
-          } else if constexpr (kMode == kLayer) {
-            if (valid && p.out != nullptr)
-              F::store2(out + ((size_t)row * steps + t) * H + j, o[0][0], o[0][1]);
-            if (valid && last) F::store2(p.hn + (size_t)row * H + j, o[0][0], o[0][1]);
-          } else if constexpr (P == 1) {
-#pragma unroll
-            for (int v = 0; v < 5; ++v) staged[v][ci][n8][half] = pack_bf16_pair(o[v][0], o[v][1]);
-          } else if (valid) {
-            T* dst = out + ((size_t)t * B + row) * H + j;
-#pragma unroll
-            for (int v = 0; v < 5; ++v) F::store2(dst + v * plane_out, o[v][0], o[v][1]);
-          }
-          if (!last) put_pieces((s + 1) & 1, r, jl, o[0][0], o[0][1]);
+          *reinterpret_cast<float2*>(carry + r * ld + jl) = v;
+          if (kSync != kSyncStep || prologue) put_pieces(s_begin & 1, r, jl, v.x, v.y);
         }
-      }
-    }
-    if constexpr (P == 1) {
-      // output v through the warpgroup's buffer v % 2, then out in 16-byte
-      // pieces, a row's NW units contiguous (a later write to the buffer
-      // comes after the next barrier, which every reader of it has passed)
-      __nv_bfloat16* stg = reinterpret_cast<__nv_bfloat16*>(carry + kRows * ld) +
-                           wg * 2 * kRows * kStageLd;
+    if constexpr (kSync != kSyncStep) publish();
+
+    for (int s = s_begin; s < s_end; ++s) {
+      const int t = reverse ? steps - 1 - s : s;
+      const bool last = s == steps - 1;
+      // this step's xw rows of the thread's units into L2 while the products
+      // run (lanes of q 0: a quad's run of a gate's 32 units; K1's layer-0
+      // table stays in L2)
+      if (q == 0 && kMode != kEnc0)
 #pragma unroll
-      for (int v = 0; v < 5; ++v) {
-        __nv_bfloat16* buf = stg + (v & 1) * kRows * kStageLd;
-#pragma unroll
-        for (int ci = 0; ci < NCH; ++ci)
-#pragma unroll
-          for (int n8 = 0; n8 < 4; ++n8)
-#pragma unroll
-            for (int half = 0; half < 2; ++half)
-              *reinterpret_cast<uint32_t*>(buf + (16 * warp + g + 8 * half) * kStageLd +
-                                           kUnits * ci + 8 * n8 + 2 * q) = staged[v][ci][n8][half];
-        named_barrier(2 + wg, 128);
-        constexpr int kPerRow = kUnits * NCH / 8;  // 16-byte pieces of a row
-        for (int i = tid & 127; i < kRows * kPerRow; i += 128) {
-          const int r = i / kPerRow, c = i % kPerRow, row = tile0 + r;
+        for (int half = 0; half < 2; ++half) {
+          const int row = tile0 + 16 * warp + g + 8 * half;
           if (row < B)
-            *reinterpret_cast<uint4*>(out + v * plane_out + ((size_t)t * B + row) * H + u0 +
-                                      wg * kUnits * NCH + 8 * c) =
-                *reinterpret_cast<const uint4*>(buf + r * kStageLd + 8 * c);
+#pragma unroll
+            for (int ci = 0; ci < NCH; ++ci)
+#pragma unroll
+              for (int gate = 0; gate < 3; ++gate)
+                prefetch_l2(x_row(row, t) + gate * H + u0 + kUnits * (wg * NCH + ci));
+        }
+
+      // the product: acc[ci][a] is r, acc[ci][16 + a] z and acc[ci][32 + a]
+      // n of chunk ci's (row, unit) a = 4 n8 + 2 half + e
+      float acc[NCH][48];
+      if constexpr (P == 1) {
+        int prev = 0;
+        for (int k = 0; k < KB; ++k) {
+          unsigned char* st = ring + stage * sbytes;
+          mbar_wait_bounded<false>(&full_bar[stage], phase);
+          wgmma_fence();
+#pragma unroll
+          for (int ci = 0; ci < NCH; ++ci)
+            mma_slab(acc[ci], desc_sw128(st),
+                     desc_sw128(st + a_bytes + (wg * NCH + ci) * kSlabBytes), k > 0);
+          wgmma_commit();
+          if (k > 0) {
+            wgmma_wait<1>();
+            if (lane == 0) mbar_arrive(&empty_bar[prev]);
+          }
+          prev = stage;
+          if (++stage == p.stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(&empty_bar[prev]);
+#pragma unroll
+        for (int ci = 0; ci < NCH; ++ci) fence_operands(acc[ci]);
+      } else {
+        // six passes a k-slab into the partial, added into acc with rounded
+        // f32 adds once they are done
+        float part[48];
+        const uint32_t wrow = (uint32_t)(wg * kSlabBytes);
+        const int wplane = cpc * kSlabBytes;
+        for (int k = 0; k < KB; ++k) {
+          unsigned char* st = ring + stage * sbytes;
+          mbar_wait_bounded<false>(&full_bar[stage], phase);
+          wgmma_fence();
+#pragma unroll
+          for (int pass = 0; pass < 6; ++pass) {
+            // (h piece, W piece), smallest terms first: lh, hl, mm, mh, hm, hh
+            const int ap = (0x001102 >> (4 * pass)) & 0xF;
+            const int wp = (0x010120 >> (4 * pass)) & 0xF;
+            const uint64_t da = desc_sw128(st + ap * kPieceBytes);
+            const uint64_t db = desc_sw128(st + a_bytes + wp * wplane + wrow);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_bf16_n96(part, da + 2 * kk, db + 2 * kk, (pass > 0 || kk > 0) ? 1 : 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operands(part);
+          if (lane == 0) mbar_arrive(&empty_bar[stage]);
+#pragma unroll
+          for (int a = 0; a < 48; ++a)
+            acc[0][a] = k == 0 ? part[a] : __fadd_rn(acc[0][a], part[a]);
+          if (++stage == p.stages) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
       }
+      if (fault == kFaultCountShort && rank == (uint32_t)(C - 1)) late_rank_pause();
+
+      // the gates, the carry, the five outputs and the next step's pieces
+      uint32_t staged[P == 1 ? 5 : 1][NCH][4][2];  // bf16: the outputs' pairs, to the buffer
+#pragma unroll
+      for (int ci = 0; ci < NCH; ++ci) {
+#pragma unroll
+        for (int n8 = 0; n8 < 4; ++n8) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = 16 * warp + g + 8 * half, row = tile0 + r;
+            const bool valid = row < B;
+            const int jl = kUnits * (wg * NCH + ci) + 8 * n8 + 2 * q, j = u0 + jl;
+            float2 x[3], b[3];
+            const T* xr = valid ? x_row(row, t) : nullptr;
+#pragma unroll
+            for (int gate = 0; gate < 3; ++gate) {
+              x[gate] = valid ? F::load2(xr + gate * H + j) : make_float2(0.0f, 0.0f);
+              b[gate] = F::load2(bhh + gate * H + j);
+            }
+            float2* cp = reinterpret_cast<float2*>(carry + r * ld + jl);
+            const float2 h2 = *cp;
+            float o[5][2];  // h', r, z, n, hn of the pair
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int a = 4 * n8 + 2 * half + e;
+              const auto pick = [e](float2 v) { return e ? v.y : v.x; };
+              const float hr = __fadd_rn(acc[ci][a], pick(b[0]));
+              const float hz = __fadd_rn(acc[ci][16 + a], pick(b[1]));
+              const float hn = __fadd_rn(acc[ci][32 + a], pick(b[2]));
+              const float rg = sigmoid_f(__fadd_rn(pick(x[0]), hr));
+              const float zg = sigmoid_f(__fadd_rn(pick(x[1]), hz));
+              const float ng = tanhf(__fadd_rn(pick(x[2]), __fmul_rn(rg, hn)));
+              o[0][e] = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, zg), ng), __fmul_rn(zg, pick(h2)));
+              if constexpr (kMode == kLayer && P == 1)  // K8's carry: the parameter dtype
+                o[0][e] = __bfloat162float(__float2bfloat16_rn(o[0][e]));
+              o[1][e] = rg;
+              o[2][e] = zg;
+              o[3][e] = ng;
+              o[4][e] = hn;
+            }
+            if constexpr (kMode == kLayer) {  // a held step keeps h: its pieces go on below
+              if (valid && p.keep != nullptr && p.keep[(size_t)row * steps + t] == 0) {
+                o[0][0] = h2.x;
+                o[0][1] = h2.y;
+              }
+            }
+            *cp = make_float2(o[0][0], o[0][1]);
+            if constexpr (kEnc) {
+              if (valid && kMode == kEnc0) {  // the outputs' pieces, at row t * rows + row
+                float y0 = o[0][0], y1 = o[0][1];
+                if (p.keep != nullptr) {  // dropped (a true division) before the split;
+                  // the carry keeps h. The mask's row is the global row0 + row
+                  const uint8_t* kp =
+                      p.keep + ((size_t)(p.row0 + row) * steps + t) * 2 * H + d * H + j;
+                  y0 = kp[0] ? __fdiv_rn(y0, p.keep_div) : 0.0f;
+                  y1 = kp[1] ? __fdiv_rn(y1, p.keep_div) : 0.0f;
+                }
+                __nv_bfloat16 a[3], b2[3];
+                split3(y0, a);
+                split3(y1, b2);
+                const size_t plane = (size_t)steps * B * 2 * H;
+#pragma unroll
+                for (int pi = 0; pi < 3; ++pi)
+                  *reinterpret_cast<__nv_bfloat162*>(
+                      p.ys + pi * plane + ((size_t)t * B + row) * 2 * H + d * H + j) =
+                      __halves2bfloat162(a[pi], b2[pi]);
+              }
+              if (valid && last)
+                *reinterpret_cast<float2*>(p.hn + ((size_t)d * p.B + p.row0 + row) * H + j) =
+                    make_float2(o[0][0], o[0][1]);
+            } else if constexpr (kMode == kLayer) {
+              if (valid && p.out != nullptr)
+                F::store2(out + ((size_t)row * steps + t) * H + j, o[0][0], o[0][1]);
+              if (valid && last)
+                F::store2(reinterpret_cast<T*>(p.hn) + (size_t)row * H + j, o[0][0], o[0][1]);
+            } else if constexpr (P == 1) {
+#pragma unroll
+              for (int v = 0; v < 5; ++v)
+                staged[v][ci][n8][half] = pack_bf16_pair(o[v][0], o[v][1]);
+            } else if (valid) {
+              T* dst = out + ((size_t)t * B + row) * H + j;
+#pragma unroll
+              for (int v = 0; v < 5; ++v) F::store2(dst + v * plane_out, o[v][0], o[v][1]);
+            }
+            if (!last) put_pieces((s + 1) & 1, r, jl, o[0][0], o[0][1]);
+          }
+        }
+      }
+      if constexpr (P == 1 && kMode != kLayer) {
+        // output v through the warpgroup's buffer v % 2, then out in 16-byte
+        // pieces, a row's NW units contiguous (a later write to the buffer
+        // comes after the next barrier, which every reader of it has passed)
+        __nv_bfloat16* stg = reinterpret_cast<__nv_bfloat16*>(carry + kRows * ld) +
+                             wg * 2 * kRows * kStageLd;
+#pragma unroll
+        for (int v = 0; v < 5; ++v) {
+          __nv_bfloat16* buf = stg + (v & 1) * kRows * kStageLd;
+#pragma unroll
+          for (int ci = 0; ci < NCH; ++ci)
+#pragma unroll
+            for (int n8 = 0; n8 < 4; ++n8)
+#pragma unroll
+              for (int half = 0; half < 2; ++half)
+                *reinterpret_cast<uint32_t*>(buf + (16 * warp + g + 8 * half) * kStageLd +
+                                             kUnits * ci + 8 * n8 + 2 * q) =
+                    staged[v][ci][n8][half];
+          named_barrier(2 + wg, 128);
+          constexpr int kPerRow = kUnits * NCH / 8;  // 16-byte pieces of a row
+          for (int i = tid & 127; i < kRows * kPerRow; i += 128) {
+            const int r = i / kPerRow, c = i % kPerRow, row = tile0 + r;
+            if (row < B)
+              *reinterpret_cast<uint4*>(out + v * plane_out + ((size_t)t * B + row) * H + u0 +
+                                        wg * kUnits * NCH + 8 * c) =
+                  *reinterpret_cast<const uint4*>(buf + r * kStageLd + 8 * c);
+          }
+        }
+      }
+      if (kSync != kSyncStep && !last) publish();
     }
-    if (!last) publish();
-  }
-  cluster_sync();
+    if constexpr (kSync == kSyncStep) {  // h for the next launch: the thread's own pairs
+#pragma unroll
+      for (int ci = 0; ci < NCH; ++ci)
+#pragma unroll
+        for (int n8 = 0; n8 < 4; ++n8)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = 16 * warp + g + 8 * half, row = tile0 + r;
+            const int jl = kUnits * (wg * NCH + ci) + 8 * n8 + 2 * q;
+            if (row < B)
+              *reinterpret_cast<float2*>(p.carry + (size_t)row * H + u0 + jl) =
+                  *reinterpret_cast<const float2*>(carry + r * ld + jl);
+          }
+    }
+  };
+  if constexpr (kClustered)  // one tile: no loop, whose live values spilled
+    consume((int)(blockIdx.x / C));
+  else
+    for (int ti = (int)(blockIdx.x / C); ti < tiles; ti += tile_stride) consume(ti);
+  if constexpr (kClustered) cluster_sync();
 }
 
 // dynamic shared memory of a K5 block: the ring, the carry (64 rows of U +
@@ -539,41 +637,68 @@ inline cudaError_t make_a_map(CUtensorMap* map, const void* scratch, int H, int 
 }
 
 // K5 or K8's f32 layer over a.B rows, or one of K1's layers over a.rows
-// rows in both directions (grid y)
-template <typename T, int NCH, int kMode>
-inline cudaError_t run_k5(const CUtensorMap& w_map, const FwdArgs& a, int C, cudaStream_t stream) {
+// rows in both directions (grid y). kSyncCluster: a cluster of C CTAs a
+// tile; otherwise C = a.group CTAs a tile and `groups` tile groups (the
+// persistent kSyncGroup launch; kSyncStep: one a tile)
+template <typename T, int NCH, int kMode, int kSync = kSyncCluster>
+inline cudaError_t run_k5(const CUtensorMap& w_map, const FwdArgs& a, int C, cudaStream_t stream,
+                          int groups = 0) {
   constexpr int P = Fwd<T>::kPieces;
   constexpr bool kEnc = kMode == kEnc0 || kMode == kEnc1;
   constexpr int dirs = kEnc ? 2 : 1;
+  const auto kernel = gru_fwd_kernel<T, NCH, kMode, kSync>;
   const int rows = kEnc ? a.rows : a.B;
   const int U = a.H / C, tiles = (rows + kRows - 1) / kRows;
   CUtensorMap a_map;
   cudaError_t err = make_a_map(&a_map, a.scratch, a.H, P, tiles * dirs);
   if (err != cudaSuccess) return err;
   const size_t smem = smem_bytes(U, P, a.stages);
-  err = cudaFuncSetAttribute(gru_fwd_kernel<T, NCH, kMode>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  if (C > kMaxCluster) {  // 16 CTAs: beyond the portable cluster sizes
-    err = cudaFuncSetAttribute(gru_fwd_kernel<T, NCH, kMode>,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (kSync == kSyncCluster && C > kMaxCluster) {  // beyond the portable cluster sizes
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
   }
+  if (kSync == kSyncGroup && (groups < 1 || groups > tiles)) return cudaErrorInvalidConfiguration;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles * C, dirs, 1);
+  cfg.gridDim = dim3((kSync == kSyncGroup ? groups : tiles) * C, dirs, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  set_tile_launch(attr[0], kSync, kSync == kSyncCluster ? C : 1);
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, gru_fwd_kernel<T, NCH, kMode>, w_map, a_map, a);
+  err = cudaLaunchKernelEx(&cfg, kernel, w_map, a_map, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The CTAs of a tile beyond one cluster (K5 and K8 above 1,024 units, or
+// any width a check forces there): `sync` kSyncGroup (`groups` persistent
+// tile groups) or kSyncStep (a prologue, then one launch a step).
+// a.counters: (tiles,) zeros for kSyncGroup; a.carry: (B, H) f32 for
+// kSyncStep.
+template <typename T, int NCH, int kMode>
+inline cudaError_t run_k5_tiles(const CUtensorMap& w_map, FwdArgs a, int sync, int groups,
+                                cudaStream_t stream) {
+  const int G = a.group;
+  if (G < 1 || a.H % G != 0 || a.H / G != 64 * NCH || a.B < 1 || a.steps < 1 ||
+      a.scratch == nullptr || a.stages < 2 || a.stages > kMaxStages ||
+      smem_bytes(a.H / G, Fwd<T>::kPieces, a.stages) > (size_t)kSmemBudget)
+    return cudaErrorInvalidValue;
+  if (sync == kSyncGroup) {
+    if (a.counters == nullptr) return cudaErrorInvalidValue;
+    return run_k5<T, NCH, kMode, kSyncGroup>(w_map, a, G, stream, groups);
+  }
+  if (sync != kSyncStep || a.carry == nullptr) return cudaErrorInvalidValue;
+  for (int s = -1; s < a.steps; ++s) {  // the prologue (s_begin == s_end == 0), then each step
+    a.s_begin = s < 0 ? 0 : s;
+    a.s_end = s + 1;
+    const cudaError_t err = run_k5<T, NCH, kMode, kSyncStep>(w_map, a, G, stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // K5's launch: bf16 CTAs of 64 or 128 units in clusters of up to 8; f32

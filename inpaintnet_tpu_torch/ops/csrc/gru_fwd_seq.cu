@@ -58,3 +58,46 @@ extern "C" int inpaint_gru_fwd_w_map(const void* packed, int H, int pieces, int 
   return (int)inpaint::fwd90::make_w_map(static_cast<CUtensorMap*>(map_out), packed, H, pieces,
                                          units);
 }
+
+// K5 above 1,024 units (or where a check forces it): the CTAs of a 64-row
+// tile beyond one cluster (gru_fwd_hopper.cuh run_k5_tiles). dtype, w_map
+// (for `group` CTAs a tile: 64 units each in f32, 128 in bf16), xw, bhh,
+// h0, out and scratch as inpaint_gru_fwd_hopper's; `sync` 1 `groups`
+// persistent tile groups of `group` CTAs (counters: (tiles,) uint32
+// zeros), 2 one launch a step (carry: (B, H) f32, h between launches);
+// `fault` a planted GroupFault (0 none).
+extern "C" int inpaint_gru_fwd_tiles(int dtype, const void* w_map, const void* xw,
+                                     const void* bhh, const void* h0, void* out, void* scratch,
+                                     void* counters, void* carry, int B, int steps, int H,
+                                     int reverse, int group, int groups, int stages, int sync,
+                                     int fault, void* stream) {
+  using namespace inpaint::fwd90;
+  if (w_map == nullptr) return (int)cudaErrorInvalidValue;
+  CUtensorMap m;
+  memcpy(&m, w_map, sizeof(m));
+  FwdArgs a{xw, bhh, h0, out, static_cast<__nv_bfloat16*>(scratch), B, steps, H, reverse, stages};
+  a.counters = static_cast<unsigned int*>(counters);
+  a.carry = static_cast<float*>(carry);
+  a.group = group;
+  a.fault = fault;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)run_k5_tiles<float, 1, kTrain>(m, a, sync, groups, s);
+  if (dtype == 1) return (int)run_k5_tiles<__nv_bfloat16, 2, kTrain>(m, a, sync, groups, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// CTAs of K5's tile-group kernel (dtype 0 f32 at 64 units a CTA, 1 bf16 at
+// 128) with `stages` ring stages that the card holds at once; -1 where the
+// plan does not fit.
+extern "C" int inpaint_gru_fwd_resident(int dtype, int stages) {
+  using namespace inpaint::fwd90;
+  if (stages < 2 || stages > kMaxStages) return -1;
+  if (dtype == 0)
+    return inpaint::sm90::resident_ctas(gru_fwd_kernel<float, 1, kTrain, inpaint::sm90::kSyncGroup>,
+                                        smem_bytes(64, 3, stages), kThreads);
+  if (dtype == 1)
+    return inpaint::sm90::resident_ctas(
+        gru_fwd_kernel<__nv_bfloat16, 2, kTrain, inpaint::sm90::kSyncGroup>,
+        smem_bytes(128, 1, stages), kThreads);
+  return -1;
+}

@@ -39,13 +39,21 @@
 // 64 units of all three gates and exchanging its units' pieces of the new h
 // through an L2 scratch (16 CTAs at H 1024: a non-portable cluster); a
 // held step keeps h and passes the held h's pieces on.
+//
+// Above 1024 units (kLayerMaxHidden, the bf16 route's widest h tile) both
+// dtypes run K5's recurrence in mode kLayer on tile groups that span
+// clusters (gru_fwd_hopper.cuh kSyncGroup / kSyncStep; inpaint_gru_layer_
+// tiles): 64 units a CTA in f32, 128 in bf16, the CTAs of a tile meeting
+// at a counter in global memory. At the 768 LatentRNN's generation GRU (H
+// 1,536 x 2,048 rows x 6 steps) the bf16 bound is 1.74e11 operations,
+// 0.176 ms at the dense peak.
 #include <string.h>
 
 #include "gru_fwd_hopper.cuh"
 #include "gru_layer_hopper.cuh"
 
 namespace inpaint {
-constexpr int kLayerMaxHidden = 1024;  // the LatentRNN's generation GRU (H * layers)
+constexpr int kLayerMaxHidden = 1024;  // the bf16 route's widest h tile; wider: tile groups
 
 // The launchers live here, not in the headers, so that the other sources
 // that include those headers do not compile these kernels again.
@@ -129,6 +137,65 @@ extern "C" int inpaint_gru_layer_f32(const void* w_map, const void* xw, const vo
   a.hn = static_cast<float*>(hn);
   a.keep = static_cast<const uint8_t*>(keep);
   return (int)launch_gru_layer_f32(m, a, cluster, static_cast<cudaStream_t>(stream));
+}
+
+// K8 above 1,024 units (or where a check forces it), both dtypes (0 f32, 1
+// bf16): K5's recurrence in mode kLayer on the CTAs of a tile beyond one
+// cluster (gru_fwd_hopper.cuh run_k5_tiles), 64 units a CTA in f32, 128 in
+// bf16 (whose h tile no longer fits gru_layer_hopper.cuh's CTAs). w_map:
+// inpaint_gru_fwd_w_map's for those units; xw, bhh, h0, keep, ys (or
+// null), hn in the parameter dtype as inpaint_gru_layer_f32's; scratch
+// (tiles, 2, P, 64, H) bf16 (P 3 in f32, 1 in bf16); `sync` 1 `groups`
+// persistent tile groups of `group` CTAs (counters: (tiles,) uint32 zeros),
+// 2 one launch a step (carry: (B, H) f32); `fault` a planted GroupFault (0
+// none).
+extern "C" int inpaint_gru_layer_tiles(int dtype, const void* w_map, const void* xw,
+                                       const void* bhh, const void* h0, const void* keep,
+                                       void* ys, void* hn, void* scratch, void* counters,
+                                       void* carry, int B, int steps, int H, int reverse,
+                                       int group, int groups, int stages, int sync, int fault,
+                                       void* stream) {
+  using namespace inpaint::fwd90;
+  if (w_map == nullptr || hn == nullptr) return (int)cudaErrorInvalidValue;
+  CUtensorMap m;
+  memcpy(&m, w_map, sizeof(m));
+  FwdArgs a{};
+  a.xw = xw;
+  a.bhh = bhh;
+  a.h0 = h0;
+  a.out = ys;
+  a.scratch = static_cast<__nv_bfloat16*>(scratch);
+  a.B = B;
+  a.steps = steps;
+  a.H = H;
+  a.reverse = reverse;
+  a.stages = stages;
+  a.hn = static_cast<float*>(hn);  // the kernel stores h_n in the parameter dtype
+  a.keep = static_cast<const uint8_t*>(keep);
+  a.counters = static_cast<unsigned int*>(counters);
+  a.carry = static_cast<float*>(carry);
+  a.group = group;
+  a.fault = fault;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)run_k5_tiles<float, 1, kLayer>(m, a, sync, groups, s);
+  if (dtype == 1) return (int)run_k5_tiles<__nv_bfloat16, 2, kLayer>(m, a, sync, groups, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// CTAs of K8's tile-group kernel (dtype 0 f32 at 64 units a CTA, 1 bf16 at
+// 128) with `stages` ring stages that the card holds at once; -1 where the
+// plan does not fit.
+extern "C" int inpaint_gru_layer_resident(int dtype, int stages) {
+  using namespace inpaint::fwd90;
+  using inpaint::sm90::kSyncGroup;
+  if (stages < 2 || stages > kMaxStages) return -1;
+  if (dtype == 0)
+    return inpaint::sm90::resident_ctas(gru_fwd_kernel<float, 1, kLayer, kSyncGroup>,
+                                        smem_bytes(64, 3, stages), kThreads);
+  if (dtype == 1)
+    return inpaint::sm90::resident_ctas(gru_fwd_kernel<__nv_bfloat16, 2, kLayer, kSyncGroup>,
+                                        smem_bytes(128, 1, stages), kThreads);
+  return -1;
 }
 
 // Clusters of `cluster` (H / 64) CTAs of the f32 route with `stages` ring

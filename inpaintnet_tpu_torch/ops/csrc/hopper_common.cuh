@@ -225,6 +225,97 @@ __device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar, uint32_t parity
   }
 }
 
+// ---------------------------------------------------------------------------
+// tile groups: the CTAs of a row tile beyond one cluster (K5, K6 and K8 above
+// 1,024 units, gru_fwd_hopper.cuh / gru_bwd_hopper.cuh kSyncGroup)
+// ---------------------------------------------------------------------------
+// How a recurrence's CTAs that share a 64-row tile meet at each step:
+// kSyncCluster, a cluster-scope mbarrier (the CTAs form one cluster);
+// kSyncGroup, a monotonic release/acquire counter a tile in global memory
+// (any CTAs that the card holds at once: the launch is persistent and never
+// asks for more); kSyncStep, no meeting inside a launch (one step a launch:
+// the launch boundary is the barrier, for groups the card cannot hold at
+// once).
+enum TileSync { kSyncCluster = 0, kSyncGroup = 1, kSyncStep = 2 };
+
+// add 1 to a tile's counter, releasing this thread's prior memory operations
+// (and, through the barrier before it, its CTA's) at GPU scope
+__device__ __forceinline__ void group_arrive(unsigned int* counter) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(counter) : "memory");
+}
+
+__device__ __forceinline__ unsigned int ld_acquire_gpu(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// wait (acquire) until a tile's counter reaches `target`; as
+// mbar_wait_bounded, a wait that has not ended after ~2^34 cycles traps
+__device__ __forceinline__ void group_wait_bounded(const unsigned int* counter,
+                                                   unsigned int target) {
+  long long start = 0;
+  for (int spins = 0;; ++spins) {
+    if (ld_acquire_gpu(counter) >= target) return;
+    if (spins == 0) {
+      start = clock64();
+    } else if ((spins & 1023) == 0 && clock64() - start > (1ll << 34)) {
+      __trap();
+    }
+  }
+}
+
+// the planted fault "the last CTA of a group is late" (kFaultCountShort):
+// ~80 us before that CTA writes a step's pieces, so that a consumer counting
+// one arrival short reads its pieces of two steps before
+__device__ __forceinline__ void late_rank_pause() {
+  for (int i = 0; i < 8; ++i) __nanosleep(10000);
+}
+
+// the planted faults of a tile group's exchange (the wrappers pass
+// kernel_common.group_fault()): the other parity buffer's pieces, or a wait
+// for one arrival fewer than the group's CTAs (the last CTA paused)
+enum GroupFault { kFaultNone = 0, kFaultOtherParity = 1, kFaultCountShort = 2 };
+
+// CTAs of `kernel` (`threads` threads, `smem` bytes of dynamic shared
+// memory) that the card holds at once when it has the whole card: the
+// planner's input for a tile group's persistent launch (the launch itself is
+// cooperative, set_tile_launch)
+template <typename Kernel>
+inline int resident_ctas(Kernel kernel, size_t smem, int threads) {
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+      cudaSuccess)
+    return -1;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) !=
+          cudaSuccess)
+    return -1;
+  return sms * per_sm;
+}
+
+// the launch attribute of a recurrence's launch under `sync`: kSyncCluster,
+// clusters of `cluster` CTAs; kSyncGroup, a cooperative launch. A group's
+// CTAs spin on each other's counters, so they must all be resident at once.
+// An occupancy count cannot promise that when the kernel shares the card
+// (under MPS, in a green context, beside another kernel on a second
+// stream): a cooperative launch makes the runtime promise it, or refuse the
+// grid (cudaErrorCooperativeLaunchTooLarge) instead of leaving a producer
+// to trap in group_wait_bounded. kSyncStep, neither (no CTA waits on
+// another inside a launch).
+inline void set_tile_launch(cudaLaunchAttribute& attr, int sync, int cluster) {
+  if (sync == kSyncGroup) {
+    attr.id = cudaLaunchAttributeCooperative;
+    attr.val.cooperative = 1;
+    return;
+  }
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = sync == kSyncCluster ? cluster : 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+}
+
 // copy `bytes` (a multiple of 16) of this CTA's shared memory at `src` to
 // shared::cluster address `dst` (a peer's), completing `bytes` transactions
 // on the mbarrier at shared::cluster address `bar` in the same CTA as `dst`.

@@ -23,9 +23,9 @@ at import; ``set_gru_impl``, ``gru_impl_scope`` or ``impl=`` override it):
   gru_layer_stream``: its plain version on the CPU). Its gates run in f32
   with the carry rounded to the parameter dtype, so in bf16 it rounds
   otherwise than ``"xla"``, as the JAX package's two routes do. K8 takes
-  every width up to 1024 (``kernel_common.gru_layer_supports_hidden``,
-  narrow ones on zero units); a wider layer runs the eager loop, as the
-  models' other closed gates do, and never raises. Under a gradient K8
+  every width, as the JAX package's route has no width gate
+  (``kernel_common.gru_layer_width``: narrow ones on zero units, wider than
+  1024 on tile groups that span clusters). Under a gradient K8
   computes the forward and the eager loop's backward runs on the same
   inputs (``kernel_common.kernel_with_eager_grad``, as for every kernel
   route), so a differentiated ``"pallas"`` call gets the ``"xla"`` route's
@@ -34,14 +34,13 @@ The JAX package's ``"trainfast"`` names select its training route, which
 the port takes with ``train=True``: they leave the inference route at
 ``"xla"``.
 
-Training (``train=True``, whatever the route): an unmasked layer of a
-width K5 and K6 take (``gru_train_kernel.trainfast_supports``) runs
-through the minimal-residual autograd Function of ``ops/gru_trainfast.py``
-(K5 and K6 on the card), as the JAX package's trainers scope every
-mask-free layer through ``gru_layer_trainfast``
-(``inpaintnet_tpu/ops/gru.py:151-160``); a masked layer, or one wider
-than 1024, keeps the eager loop, which autograd differentiates. The gate reads the width
-alone, so the CPU takes the card's route. Between layers, ``dropout`` drops each
+Training (``train=True``, whatever the route): an unmasked layer of any
+width (``gru_train_kernel.trainfast_supports``) runs through the
+minimal-residual autograd Function of ``ops/gru_trainfast.py`` (K5 and K6
+on the card), as the JAX package's trainers scope every mask-free layer
+through ``gru_layer_trainfast`` (``inpaintnet_tpu/ops/gru.py:151-160``); a
+masked layer keeps the eager loop, which autograd differentiates. The gate
+reads the width alone, so the CPU takes the card's route. Between layers, ``dropout`` drops each
 output of every non-last layer with a keep mask drawn from an explicit
 ``torch.Generator`` (or given as ``dropout_masks``), and scales the kept
 ones by ``1 / (1 - p)`` (``gru.py:411-421``).
@@ -58,10 +57,7 @@ import torch
 from inpaintnet_tpu_torch.ops.distributions import apply_dropout, draw
 from inpaintnet_tpu_torch.ops.gru_kernel import gru_layer_stream
 from inpaintnet_tpu_torch.ops.gru_train_kernel import trainfast_supports
-from inpaintnet_tpu_torch.ops.kernel_common import (
-    gru_layer_supports_hidden,
-    kernel_with_eager_grad,
-)
+from inpaintnet_tpu_torch.ops.kernel_common import kernel_with_eager_grad
 from inpaintnet_tpu_torch.ops.linear import xavier_normal
 
 _IMPLS = ("xla", "pallas")
@@ -159,8 +155,7 @@ def gru_layer_apply(params, x: torch.Tensor, h0: torch.Tensor, *, reverse: bool 
         ys, h_last = gru_layer_trainfast(params, x, h0, reverse=reverse)
         return (ys if want_ys else None), h_last
     xw = x @ params["w_ih"] + params["b_ih"]  # one product for all T
-    if (not train and _checked(impl or _GRU_IMPL) == "pallas"
-            and gru_layer_supports_hidden(params["w_hh"].shape[0], xw.dtype)):
+    if not train and _checked(impl or _GRU_IMPL) == "pallas":
         # K8's forward; under a gradient, the eager loop's backward at the
         # same inputs (K8 builds no graph: kernel_with_eager_grad, as every
         # other kernel route), so x, h0 and the weights get theirs

@@ -37,11 +37,17 @@ not bit-equal (a carry kept in f32 moves a fifth or more of the elements by
 an ulp; a legitimate rounding flip, from another summation order, moves
 few).
 
-K8 takes every width up to 1024 (``kernel_common.gru_layer_width``): a
-layer whose width the plans do not take (not whole 64-unit blocks; in
-bf16 above 512 an odd number of them) runs at the next width they do, on
-zero units (:func:`padded_operands`), and is sliced back. Wider layers
-never reach it: ``ops/gru.py`` runs them on the eager loop.
+Above 1024 units (the LatentRNN's generation GRU at ``--latent_rnn_hidden_size``
+above 512) both dtypes run K5's recurrence in mode ``kLayer`` on tile
+groups that span clusters (``kernel_common.tile_plan``, :func:`tile_plan_of`):
+64 units a CTA in f32, 128 in bf16 (``kernel_common.tile_units``; the bf16
+route's whole h tile no longer fits a CTA's shared memory), the CTAs of a
+tile meeting at a counter in global memory, or one launch a step for a
+group the card cannot hold at once. So K8 takes every width
+(``kernel_common.gru_layer_width``): a layer whose width the plans do not
+take (not whole 64-unit blocks; in bf16 above 512 an odd number of them,
+above 1024 of 128-unit blocks) runs at the next width they do, on zero
+units (:func:`padded_operands`), and is sliced back.
 
 The wrapper runs the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel or raises.
@@ -57,11 +63,15 @@ from inpaintnet_tpu_torch.ops.gru_train_kernel import fwd_operands, fwd_ring_sta
 from inpaintnet_tpu_torch.ops.kernel_common import (
     DTYPE_CODES,
     HOPPER_ROWS,
+    SYNC_CODES,
     LaunchPlan,
     WeightCache,
+    card_tile_plan,
     check_cuda_tensor,
     check_launch,
     counts_launches,
+    data_ptr,
+    group_fault,
     gru_gates_f32,
     gru_layer_width,
     load_kernels,
@@ -72,6 +82,8 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     ring_stages,
     slab_map,
     stream_ptr,
+    tile_scratch,
+    tile_units,
     unpad_units,
 )
 
@@ -172,6 +184,15 @@ def f32_plan(hidden: int) -> LaunchPlan:
     return LaunchPlan(hidden // F32_UNITS, fwd_ring_stages(F32_UNITS, 3))
 
 
+def tile_plan_of(rows: int, hidden: int, dtype, device):
+    """K8's tile-group plan on the card ``device`` names
+    (``kernel_common.card_tile_plan``: K5's ring depth for the CTA's
+    units), or None where the cluster routes run (up to 1024 units)."""
+    units = tile_units(dtype)
+    return card_tile_plan(rows, hidden, dtype, "K8", "inpaint_gru_layer_resident",
+                          fwd_ring_stages(units, 3 if dtype == torch.float32 else 1), device)
+
+
 def _build_layer_operands(w_hh: torch.Tensor):
     packed = pack_gate_blocks(w_hh)
     buf, addr = slab_map(packed)
@@ -234,7 +255,18 @@ def gru_layer_stream(xw: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
             None if keep is None else keep.data_ptr(), None if ys is None else ys.data_ptr(),
             hn.data_ptr())
     lib = load_kernels()
-    if dtype == torch.bfloat16:
+    tiles_plan = tile_plan_of(batch, hidden, dtype, device)
+    if tiles_plan is not None:
+        units, pieces = tile_units(dtype), 3 if dtype == torch.float32 else 1
+        counters, carry = tile_scratch(tiles_plan, batch, hidden, device)
+        scratch = torch.empty((-(-batch // HOPPER_ROWS), 2, pieces, HOPPER_ROWS, hidden),
+                              dtype=torch.bfloat16, device=device)
+        err = lib.inpaint_gru_layer_tiles(
+            DTYPE_CODES[dtype], fwd_w_map(fwd_operands(w_hh), hidden, units), *ptrs,
+            scratch.data_ptr(), data_ptr(counters), data_ptr(carry), batch, seq_len, hidden,
+            int(reverse), tiles_plan.ctas, tiles_plan.groups, fwd_ring_stages(units, pieces),
+            SYNC_CODES[tiles_plan.route], group_fault(), stream_ptr())
+    elif dtype == torch.bfloat16:
         plan = card_plan(batch, hidden, device)
         _, _, map_addr = layer_operands(w_hh)
         err = lib.inpaint_gru_layer_bf16(map_addr, *ptrs, batch, seq_len, hidden, int(reverse),

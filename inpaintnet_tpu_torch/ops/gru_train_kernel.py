@@ -28,11 +28,20 @@ product operand, K6's product operand precision and dh carry), so a check
 can plant a fault in the plain versions and show that its bound rejects
 it.
 
+Up to 1024 units a tile's CTAs form a cluster. Above it they form a tile
+group that spans clusters (``kernel_common.tile_plan``): the same kernels,
+whose CTAs meet at each step at a release/acquire counter in global memory
+instead of a cluster's mbarrier, in a persistent launch of as many groups
+as the card holds at once (:func:`fwd_tile_plan`, :func:`bwd_tile_plan`),
+or, for a group the card cannot hold at once, one launch a step. The data
+path does not change, so a tile group's outputs equal the cluster route's
+bit for bit.
+
 Both run a layer at a width their plans take. The trainfast Function
-(``ops/gru_trainfast.py``) takes every width up to 1024: it runs a layer
-at :func:`trainfast_width`, the next width both kernels take, on zero
-units (:func:`fwd_padded_operands`), keeps K5's residuals at that width
-for K6, and slices the outputs and gradients back to the layer's units.
+(``ops/gru_trainfast.py``) takes every width: it runs a layer at
+:func:`trainfast_width`, the next width both kernels take, on zero units
+(:func:`fwd_padded_operands`), keeps K5's residuals at that width for K6,
+and slices the outputs and gradients back to the layer's units.
 
 The wrappers run the plain versions for CPU tensors only; for CUDA tensors
 they launch the kernel or raise.
@@ -49,17 +58,24 @@ from inpaintnet_tpu_torch.ops.kernel_common import (
     DTYPE_CODES,
     HOPPER_ROWS,
     HOPPER_SMEM_BUDGET,
+    LAYER_MAX_HIDDEN,
+    SYNC_CODES,
     LaunchPlan,
     WeightCache,
+    card_tile_plan,
     check_cuda_tensor,
     check_launch,
     counts_launches,
+    data_ptr,
+    group_fault,
     load_kernels,
     pad_units,
     padded_gru_layer,
     padded_width,
     split_bf16_pieces,
     stream_ptr,
+    tile_scratch,
+    tile_units,
 )
 
 
@@ -152,27 +168,31 @@ def gru_bwd_seq_reference(w_hh: torch.Tensor, dys: torch.Tensor, r: torch.Tensor
 
 def trainfast_supports(hidden: int) -> bool:
     """Whether an unmasked training GRU layer of this width runs the
-    trainfast autograd Function (K5 forward, K6 backward): every width up
-    to 1024 in both dtypes (:func:`trainfast_width`), the autoregressive
-    LatentRNN's generation GRU, narrow ones on zero units. A wider layer
-    runs the eager loop that autograd differentiates, on every device, so
-    the CPU takes the route the card takes."""
+    trainfast autograd Function (K5 forward, K6 backward): every width in
+    both dtypes (:func:`trainfast_width`; the JAX package's
+    ``trainfast_pallas`` has no width gate), the LatentRNN's generation
+    GRUs, narrow ones on zero units. The gate reads the width alone, on
+    every device, so the CPU takes the route the card takes."""
     return all(trainfast_width(hidden, d) is not None for d in DTYPE_CODES)
 
 
 @functools.lru_cache(maxsize=None)
 def _trainfast_width(hidden: int, dtype):
-    return padded_width(hidden, lambda w: bool(fwd_cluster_sizes(w, dtype))
-                        and bool(bwd_cluster_sizes(w, dtype)))
+    def takes(w):
+        if w > LAYER_MAX_HIDDEN:  # tile groups: K5's and K6's units a CTA
+            return w % tile_units(dtype, "K5") == 0 and w % tile_units(dtype, "K6") == 0
+        return bool(fwd_cluster_sizes(w, dtype)) and bool(bwd_cluster_sizes(w, dtype))
+    return padded_width(hidden, takes)
 
 
 def trainfast_width(hidden: int, dtype):
     """The width the trainfast Function runs ``hidden`` units at
     (``kernel_common.padded_width``): the next width at which both K5 and
-    K6 have a plan, up to 1024. In bf16 above 512, and in f32 above 512
-    for K6 (8 CTAs of at most 128 units), an odd number of 64-unit blocks
-    runs one block wider: 576 at 640, 1024 as it is. Another dtype (the
-    tests' float64 on the CPU) takes f32's widths."""
+    K6 have a plan. In bf16 above 512, and in f32 above 512 for K6 (8 CTAs
+    of at most 128 units), an odd number of 64-unit blocks runs one block
+    wider: 576 at 640, 1024 as it is; above 1024 (tile groups of K6's
+    128-unit CTAs) every multiple of 128: 1088 at 1152, 1536 as it is.
+    Another dtype (the tests' float64 on the CPU) takes f32's widths."""
     return _trainfast_width(hidden, torch.bfloat16 if dtype == torch.bfloat16
                             else torch.float32)
 
@@ -212,23 +232,34 @@ def gru_fwd_seq(w_hh: torch.Tensor, b_hh: torch.Tensor, xw: torch.Tensor, h0: to
         return gru_fwd_seq_reference(w_hh, b_hh, xw, h0, reverse=reverse)
     dtype, device = xw.dtype, xw.device
     hidden = _check_common("gru_fwd_seq", w_hh, device, dtype)
-    if not fwd_cluster_sizes(hidden, dtype):
-        raise ValueError(f"gru_fwd_seq: no kernel for hidden size {hidden} in {dtype}")
     batch, seq_len = xw.shape[:2]
+    tiles_plan = fwd_tile_plan(batch, hidden, dtype, device)
+    if tiles_plan is None and not fwd_cluster_sizes(hidden, dtype):
+        raise ValueError(f"gru_fwd_seq: no kernel for hidden size {hidden} in {dtype}")
     check_cuda_tensor("xw", xw, (batch, seq_len, 3 * hidden), dtype, device)
     check_cuda_tensor("b_hh", b_hh, (3 * hidden,), dtype, device)
     check_cuda_tensor("h0", h0, (batch, hidden), dtype, device)
-    plan = fwd_plan(hidden, dtype)
-    map_addr = fwd_w_map(fwd_operands(w_hh), hidden, hidden // plan.cluster)
     pieces = bwd_weight_pieces(dtype)
     tiles = -(-batch // HOPPER_ROWS)
     scratch = torch.empty((tiles, 2, pieces, HOPPER_ROWS, hidden), dtype=torch.bfloat16,
                           device=device)
     out = torch.empty((5, seq_len, batch, hidden), dtype=dtype, device=device)
-    err = load_kernels().inpaint_gru_fwd_hopper(
-        DTYPE_CODES[dtype], map_addr, xw.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), batch, seq_len, hidden, int(reverse), plan.cluster,
-        plan.stages, stream_ptr())
+    ptrs = (xw.data_ptr(), b_hh.data_ptr(), h0.data_ptr(), out.data_ptr(), scratch.data_ptr())
+    lib = load_kernels()
+    if tiles_plan is None:
+        plan = fwd_plan(hidden, dtype)
+        map_addr = fwd_w_map(fwd_operands(w_hh), hidden, hidden // plan.cluster)
+        err = lib.inpaint_gru_fwd_hopper(DTYPE_CODES[dtype], map_addr, *ptrs, batch, seq_len,
+                                         hidden, int(reverse), plan.cluster, plan.stages,
+                                         stream_ptr())
+    else:
+        units = tile_units(dtype, "K5")
+        counters, carry = tile_scratch(tiles_plan, batch, hidden, device)
+        err = lib.inpaint_gru_fwd_tiles(
+            DTYPE_CODES[dtype], fwd_w_map(fwd_operands(w_hh), hidden, units), *ptrs,
+            data_ptr(counters), data_ptr(carry), batch, seq_len, hidden, int(reverse),
+            tiles_plan.ctas, tiles_plan.groups, fwd_ring_stages(units, pieces),
+            SYNC_CODES[tiles_plan.route], group_fault(), stream_ptr())
     check_launch(err, "gru_fwd_seq")
     gru_fwd_seq.launches += 1
     return tuple(out.unbind(0))
@@ -291,6 +322,16 @@ def fwd_plan(hidden: int, dtype) -> LaunchPlan:
         raise ValueError(f"no K5 plan for hidden size {hidden} in {dtype}")
     cluster = max(sizes)
     return LaunchPlan(cluster, fwd_ring_stages(hidden // cluster, bwd_weight_pieces(dtype)))
+
+
+def fwd_tile_plan(rows: int, hidden: int, dtype, device):
+    """K5's tile-group plan on the card ``device`` names
+    (``kernel_common.card_tile_plan``: :func:`fwd_ring_stages` of its
+    ``tile_units``), or None where its cluster route runs
+    (:func:`fwd_plan`)."""
+    return card_tile_plan(rows, hidden, dtype, "K5", "inpaint_gru_fwd_resident",
+                          fwd_ring_stages(tile_units(dtype, "K5"), bwd_weight_pieces(dtype)),
+                          device)
 
 
 def pack_fwd_weights(w_hh: torch.Tensor) -> torch.Tensor:
@@ -394,6 +435,15 @@ def bwd_plan(hidden: int, dtype) -> LaunchPlan:
     return LaunchPlan(cluster, bwd_ring_stages(hidden // cluster, bwd_weight_pieces(dtype)))
 
 
+def bwd_tile_plan(rows: int, hidden: int, dtype, device):
+    """K6's tile-group plan on the card ``device`` names (128 units a CTA,
+    ``kernel_common.card_tile_plan``), or None where its cluster route runs
+    (:func:`bwd_plan`)."""
+    return card_tile_plan(rows, hidden, dtype, "K6", "inpaint_gru_bwd_resident",
+                          bwd_ring_stages(tile_units(dtype, "K6"), bwd_weight_pieces(dtype)),
+                          device)
+
+
 def _build_bwd_operands(w_hh: torch.Tensor) -> dict:
     return {"packed": pack_bwd_weights(w_hh), "maps": {}}
 
@@ -426,24 +476,35 @@ def gru_bwd_seq(w_hh: torch.Tensor, dys: torch.Tensor, r: torch.Tensor, z: torch
         return gru_bwd_seq_reference(w_hh, dys, r, z, n, hn, hprev, reverse=reverse)
     dtype, device = dys.dtype, dys.device
     hidden = _check_common("gru_bwd_seq", w_hh, device, dtype)
-    if not bwd_cluster_sizes(hidden, dtype):
-        raise ValueError(f"gru_bwd_seq: no kernel for hidden size {hidden} in {dtype}")
     seq_len, batch = dys.shape[:2]
+    tiles_plan = bwd_tile_plan(batch, hidden, dtype, device)
+    if tiles_plan is None and not bwd_cluster_sizes(hidden, dtype):
+        raise ValueError(f"gru_bwd_seq: no kernel for hidden size {hidden} in {dtype}")
     for name, t in (("dys", dys), ("r", r), ("z", z), ("n", n), ("hn", hn), ("hprev", hprev)):
         check_cuda_tensor(name, t, (seq_len, batch, hidden), dtype, device)
-    plan = bwd_plan(hidden, dtype)
-    map_addr = bwd_w_map(bwd_operands(w_hh), hidden, hidden // plan.cluster)
     tiles = -(-batch // HOPPER_ROWS)
     scratch = torch.empty((tiles, 2, 3, HOPPER_ROWS, 3 * hidden), dtype=torch.bfloat16,
                           device=device)
     da = torch.empty((seq_len, batch, 3 * hidden), dtype=dtype, device=device)
     dhw = torch.empty_like(da)
     dh0 = torch.empty((batch, hidden), dtype=dtype, device=device)
-    err = load_kernels().inpaint_gru_bwd_hopper(
-        DTYPE_CODES[dtype], map_addr, dys.data_ptr(), r.data_ptr(), z.data_ptr(),
-        n.data_ptr(), hn.data_ptr(), hprev.data_ptr(), da.data_ptr(), dhw.data_ptr(),
-        dh0.data_ptr(), scratch.data_ptr(), batch, seq_len, hidden, int(reverse),
-        plan.cluster, plan.stages, stream_ptr())
+    ptrs = (dys.data_ptr(), r.data_ptr(), z.data_ptr(), n.data_ptr(), hn.data_ptr(),
+            hprev.data_ptr(), da.data_ptr(), dhw.data_ptr(), dh0.data_ptr(), scratch.data_ptr())
+    lib = load_kernels()
+    if tiles_plan is None:
+        plan = bwd_plan(hidden, dtype)
+        map_addr = bwd_w_map(bwd_operands(w_hh), hidden, hidden // plan.cluster)
+        err = lib.inpaint_gru_bwd_hopper(DTYPE_CODES[dtype], map_addr, *ptrs, batch, seq_len,
+                                         hidden, int(reverse), plan.cluster, plan.stages,
+                                         stream_ptr())
+    else:
+        units = tile_units(dtype, "K6")
+        counters, carry = tile_scratch(tiles_plan, batch, hidden, device)
+        err = lib.inpaint_gru_bwd_tiles(
+            DTYPE_CODES[dtype], bwd_w_map(bwd_operands(w_hh), hidden, units), *ptrs,
+            data_ptr(counters), data_ptr(carry), batch, seq_len, hidden, int(reverse),
+            tiles_plan.ctas, tiles_plan.groups, bwd_ring_stages(units, bwd_weight_pieces(dtype)),
+            SYNC_CODES[tiles_plan.route], group_fault(), stream_ptr())
     check_launch(err, "gru_bwd_seq")
     gru_bwd_seq.launches += 1
     return da, dhw, dh0

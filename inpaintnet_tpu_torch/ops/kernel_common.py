@@ -30,12 +30,17 @@
   (:func:`encoder_supports_hidden`, :func:`decode_supports_hidden`; K3 and
   K4 only where the JAX package quantizes, :func:`encoder_quantizes`,
   :func:`decode_quantizes`), K7 up to 512 (:func:`kernel_width`; bf16 up to
-  640 and any context width, ``arnn_kernel.arnn_width``), K8 up to 1024
-  (:func:`gru_layer_supports_hidden`); each runs a layer at a width its
-  plans take (:func:`encoder_width`, :func:`decode_width`,
+  640 and any context width, ``arnn_kernel.arnn_width``), K8 and K5 / K6
+  every width (:func:`gru_layer_supports_hidden`); each runs a layer at a
+  width its plans take (:func:`encoder_width`, :func:`decode_width`,
   :func:`gru_layer_width`, all over :func:`padded_width`), the units past
   its width zero (:func:`pad_units`, :func:`pad_cell`; ``gate_padding`` is
   the seam where a check plants the gate-major layout).
+- Tile groups (K5, K6, K8 above 1024 units): :func:`tile_plan` picks the
+  cluster route, a tile group of CTAs that span clusters (as many groups at
+  once as the card holds, :func:`card_resident`), or one launch a step;
+  ``tile_route`` and ``group_fault`` are the seams where a check forces a
+  route or plants a fault of the group's exchange.
 - ``check_cuda_tensor``: the wrappers' argument checks.
 - ``counts_launches``: the wrappers' ``launches`` counters
   (``LAUNCH_COUNTERS``), which ``graphs.py``'s replays add to as well.
@@ -164,17 +169,20 @@ KERNEL_MAX_HIDDEN = 512
 # their kernels run one at (on zero units)
 ENCODER_MAX_HIDDEN, ENCODER_MAX_WIDTH = 577, 640
 DECODE_MAX_HIDDEN, DECODE_MAX_WIDTH = 717, 768
-LAYER_MAX_HIDDEN = 1024  # K5, K6 and K8's: the LatentRNN's generation GRU (H * layers)
+# K5, K6 and K8's widest layer on a cluster of CTAs (16 of 64 units in f32):
+# wider layers run on tile groups that span clusters (:func:`tile_plan`)
+LAYER_MAX_HIDDEN = 1024
 
 
-def padded_width(hidden: int, takes, most: int = LAYER_MAX_HIDDEN):
+def padded_width(hidden: int, takes, most=None):
     """The width a kernel runs a layer of ``hidden`` units at: the least
-    multiple of 64 at or above it, up to ``most``, at which the kernel has
-    a plan (``takes(width)``), the units past ``hidden`` zero
-    (:func:`pad_units`); None where there is none."""
+    multiple of 64 at or above it, up to ``most`` (None: no ceiling), at
+    which the kernel has a plan (``takes(width)``), the units past
+    ``hidden`` zero (:func:`pad_units`); None where there is none."""
     if hidden <= 0:
         return None
-    return next((w for w in range(round_up(hidden, 64), most + 1, 64) if takes(w)), None)
+    top = round_up(hidden, 64) + 64 * 64 if most is None else most
+    return next((w for w in range(round_up(hidden, 64), top + 1, 64) if takes(w)), None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -267,18 +275,141 @@ def decode_quantizes(hidden: int, vocab: int, dtype) -> bool:
 @functools.lru_cache(maxsize=None)
 def gru_layer_width(hidden: int, dtype=torch.float32):
     """The width K8 (``csrc/gru_layer.cu``) runs ``hidden`` units at
-    (:func:`padded_width`), or None above 1024. Its f32 route takes H / 64
-    CTAs of 64 units, up to 16: every multiple of 64. Its bf16 route splits
-    the units across a cluster whose CTAs own whole 64-unit blocks, at most
-    512 units each (:func:`cluster_sizes`), so above 512 the number of
-    blocks must be even: 576 and 640 run at 640, 704 at 768."""
-    return padded_width(hidden, lambda w: dtype != torch.bfloat16 or bool(cluster_sizes(w)))
+    (:func:`padded_width`). Up to 1024 its f32 route takes H / 64 CTAs of
+    64 units, up to 16: every multiple of 64; its bf16 route splits the
+    units across a cluster whose CTAs own whole 64-unit blocks, at most 512
+    units each (:func:`cluster_sizes`), so above 512 the number of blocks
+    must be even: 576 and 640 run at 640, 704 at 768. Above 1024 it runs on
+    tile groups of :func:`tile_units` CTAs: every multiple of 64 in f32, of
+    128 in bf16 (1088 runs at 1152)."""
+    def takes(w):
+        if w > LAYER_MAX_HIDDEN:
+            return w % tile_units(dtype) == 0
+        return dtype != torch.bfloat16 or bool(cluster_sizes(w))
+    return padded_width(hidden, takes)
 
 
 def gru_layer_supports_hidden(hidden: int, dtype=torch.float32) -> bool:
-    """Hidden widths K8 takes: every width up to 1024, the LatentRNN's
-    generation GRU (H * layers), at :func:`gru_layer_width`."""
+    """Hidden widths K8 takes: every width, at :func:`gru_layer_width`
+    (the JAX package's K8 has no width gate)."""
     return gru_layer_width(hidden, dtype) is not None
+
+
+# --------------------------------------------------------------------------- #
+# Tile groups: the CTAs of a 64-row tile beyond one cluster (K5, K6, K8)
+# --------------------------------------------------------------------------- #
+class TilePlan(NamedTuple):
+    """How K5, K6 or K8 runs a layer: ``route`` "cluster" (the CTAs of a
+    tile form a cluster and meet at an mbarrier), "group" (``ctas`` CTAs a
+    tile meet at a counter in global memory, ``groups`` tile groups run at
+    once, each walking the tiles i, i + groups, ...) or "step" (one launch
+    a step, the launch boundary the barrier, for a group the card cannot
+    hold at once; ``groups``: every tile)."""
+    route: str
+    ctas: int
+    groups: int
+
+
+SYNC_CODES = {"group": 1, "step": 2}  # csrc/hopper_common.cuh TileSync
+
+
+def tile_units(dtype, kernel: str = "K8") -> int:
+    """Units a CTA owns on a tile group: K5's and K8's register budget, 64
+    in f32 (the sum and a k-slab's partial of a 32-unit chunk) and 128 in
+    bf16; K6's 128 in both dtypes."""
+    return 128 if kernel == "K6" or dtype == torch.bfloat16 else 64
+
+
+def tile_route():
+    """The route every K5, K6 and K8 launch takes: None, the plan's own
+    (the cluster route up to 1024 units, tile groups above); a check forces
+    "group" or "step" here at any width (one place, as
+    :func:`gate_padding`)."""
+    return None
+
+
+def group_fault() -> int:
+    """The planted fault of a tile group's exchange passed to every
+    tile-group launch (``csrc/hopper_common.cuh GroupFault``): 0, none. A
+    check plants 1 (a consumer reads the other parity buffer's pieces) or 2
+    (it waits for one arrival fewer than the group's CTAs, the last CTA
+    paused), which the kernels' bounds must reject."""
+    return 0
+
+
+def tile_plan(rows: int, hidden: int, dtype, sms: int = 132, resident=None,
+              kernel: str = "K8", route=None) -> TilePlan:
+    """The route of K5, K6 or K8 (``kernel``) at ``rows`` rows of
+    ``hidden`` units (a multiple of :func:`tile_units`) on a card of ``sms``
+    SMs holding ``resident`` of the kernel's CTAs at once (default one an
+    SM: each takes most of an SM's shared memory; the wrappers ask the
+    occupancy API): up to 1024 units the cluster route, above it a tile
+    group of ``hidden / units`` CTAs, with as many groups at once as the
+    card holds (at most the tiles), and where one group is more than the
+    card holds, one launch a step. ``route`` forces "group" or "step" (the
+    cluster route is the plan's own up to 1024 units and no further: a
+    cluster of 12 at 1536 units ran slower than the group route)."""
+    if route not in (None, "group", "step"):
+        raise ValueError(f"{kernel}: no forced route {route!r} (group or step)")
+    resident = sms if resident is None else resident
+    ctas, tiles = hidden // tile_units(dtype, kernel), -(-rows // HOPPER_ROWS)
+    route = route or ("cluster" if hidden <= LAYER_MAX_HIDDEN
+                      else "group" if ctas <= resident else "step")
+    if route == "group":
+        if ctas > resident:
+            raise ValueError(f"{kernel}: a group of {ctas} CTAs is more than the {resident} "
+                             "the card holds at once")
+        return TilePlan(route, ctas, min(tiles, resident // ctas))
+    return TilePlan(route, ctas, tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def card_resident(entry: str, dtype_code: int, stages: int, device_index: int) -> int:
+    """CTAs of a tile-group kernel the card holds at once, from its
+    library entry point (``inpaint_gru_fwd_resident``,
+    ``inpaint_gru_layer_resident``, ``inpaint_gru_bwd_resident``), asked
+    once per card."""
+    with torch.cuda.device(device_index):
+        n = getattr(load_kernels(), entry)(dtype_code, stages)
+    if n < 1:
+        raise RuntimeError(f"{entry}: the card holds no CTA of dtype {dtype_code} with "
+                           f"{stages} stages")
+    return n
+
+
+def card_tile_plan(rows: int, hidden: int, dtype, kernel: str, entry: str, stages: int,
+                   device):
+    """:func:`tile_plan` on the card ``device`` names, or None where the
+    cluster route runs unforced (up to 1024 units): the plan a wrapper of
+    K5 (``entry`` ``inpaint_gru_fwd_resident``), K6 or K8 launches on tile
+    groups. Raises ValueError for a width that is not whole CTAs."""
+    route = tile_route()
+    if route is None and hidden <= LAYER_MAX_HIDDEN:
+        return None
+    units = tile_units(dtype, kernel)
+    if hidden % units:
+        raise ValueError(f"{kernel}: no tile-group plan for hidden size {hidden} in {dtype} "
+                         f"({units} units a CTA)")
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    resident = card_resident(entry, DTYPE_CODES[dtype], stages, index)
+    return tile_plan(rows, hidden, dtype, torch.cuda.get_device_properties(index)
+                     .multi_processor_count, resident, kernel, route)
+
+
+def tile_scratch(plan: TilePlan, rows: int, hidden: int, device) -> tuple:
+    """(counters, carry) of a tile-group launch: the tiles' arrival
+    counters, zeros (route "group"), or h between launches, (rows, hidden)
+    f32 (route "step"); None where the route takes none."""
+    counters = (torch.zeros((-(-rows // HOPPER_ROWS),), dtype=torch.int32, device=device)
+                if plan.route == "group" else None)
+    carry = (torch.empty((rows, hidden), dtype=torch.float32, device=device)
+             if plan.route == "step" else None)
+    return counters, carry
+
+
+def data_ptr(t) -> int:
+    """A tensor's address, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 # --------------------------------------------------------------------------- #
@@ -744,6 +875,16 @@ def load_kernels() -> ctypes.CDLL:
     lib.inpaint_gru_layer_f32.restype = i32
     lib.inpaint_gru_layer_bf16.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
     lib.inpaint_gru_layer_bf16.restype = i32
+    lib.inpaint_gru_fwd_tiles.argtypes = [i32] + [ptr] * 8 + [i32] * 9 + [ptr]
+    lib.inpaint_gru_fwd_tiles.restype = i32
+    lib.inpaint_gru_layer_tiles.argtypes = [i32] + [ptr] * 10 + [i32] * 9 + [ptr]
+    lib.inpaint_gru_layer_tiles.restype = i32
+    lib.inpaint_gru_bwd_tiles.argtypes = [i32] + [ptr] * 13 + [i32] * 9 + [ptr]
+    lib.inpaint_gru_bwd_tiles.restype = i32
+    for entry in ("inpaint_gru_fwd_resident", "inpaint_gru_layer_resident",
+                  "inpaint_gru_bwd_resident"):
+        getattr(lib, entry).argtypes = [i32] * 2
+        getattr(lib, entry).restype = i32
     return lib
 
 

@@ -10,8 +10,11 @@ The loss is the cross-entropy of the target's ticks, masked to its valid
 measures, in f32; the frozen MeasureVAE's parameters are the trainer's
 ``extra`` (``train/trainer.py``). On the card a training step runs the
 frozen encoder on K5 (train mode, dropout on), the argmax decode on K2 with
-the eager scan's backward, and the masked context and generation GRUs as
-eager loops; the validation pass runs the serving routes (K1, K2).
+the eager scan's backward, the masked context and generation GRUs as
+eager loops, and on the autoregressive sampled branch the unmasked
+generation GRU on K5 / K6 at any width (1,536 units at
+``--latent_rnn_hidden_size 768``: tile groups that span clusters); the
+validation pass runs the serving routes (K1, K2).
 """
 from __future__ import annotations
 

@@ -7,9 +7,10 @@ take, on zero units (``kernel_common.pad_units``).
   the wrapper used to raise on the card: the route decision here, the
   kernel on the card;
 - the port's gates against the JAX package's (opened as on a TPU) at every
-  H from 8 to 1024 in steps of 8, both dtypes, and K7's at contexts up to
-  19,083 and generation widths up to 640: wherever JAX's gate takes a
-  geometry, the port's does, but for ``LEFT_FOR_LATER``;
+  H from 8 to 1024 in steps of 8, both dtypes, K5/K6 and K8 also from 1024
+  to 4096 in steps of 64 and around the tile groups' ceilings, and K7's at
+  contexts up to 19,083 and generation widths up to 640: wherever JAX's
+  gate takes a geometry, the port's does (``LEFT_FOR_LATER`` is empty);
 - each plain version on the wrapper's padded operands, sliced back, against
   the plain version at H: float64 within 1e-12 (K3's int8 carries and K4
   bit-equal), and the gate-major layout (``kernel_common.gate_padding``)
@@ -94,15 +95,23 @@ def test_pallas_route_takes_k8_at_every_width(monkeypatch, hidden, dtype, padded
 
 
 def test_pallas_route_past_1024_runs_the_eager_loop(monkeypatch):
-    """A layer wider than K8's 1024 runs the eager loop on ``"pallas"``, as
-    the models' closed gates do, and never raises."""
+    """A layer wider than 1024 no longer runs the eager loop on
+    ``"pallas"``: since K8 runs on tile groups it takes every width, so H
+    1030 calls K8's wrapper (at 1088, on zero units), whose plain version
+    here is the layer's function; the eager loop runs no step."""
     rng = np.random.default_rng(0)
     p = _tree(gru_init(rng, 4, 1030, 1)[0][0], "cpu", torch.float32, rng)
-    x, h0 = torch.ones((2, 2, 4)), torch.zeros((2, 1030))
-    assert not kc.gru_layer_supports_hidden(1030, torch.float32)
-    monkeypatch.setattr(gru_mod, "gru_layer_stream", None)  # any call would raise
+    x = torch.from_numpy(rng.standard_normal((2, 3, 4)).astype(np.float32))
+    h0 = torch.from_numpy(0.5 * rng.standard_normal((2, 1030)).astype(np.float32))
+    assert kc.gru_layer_supports_hidden(1030, torch.float32)
+    assert kc.gru_layer_width(1030, torch.float32) == 1088
+    calls, real = [], gru_mod.gru_layer_stream
+    monkeypatch.setattr(gru_mod, "gru_layer_stream",
+                        lambda *a, **k: calls.append(a[1].shape) or real(*a, **k))
+    monkeypatch.setattr(gru_mod, "_eager_layer", None)  # any eager step would raise
     got = gru_mod.gru_layer_apply(p, x, h0, impl="pallas")
-    want = gru_mod.gru_layer_apply(p, x, h0, impl="xla")
+    assert calls == [(1030, 3 * 1030)]
+    want = lk.gru_layer_reference(x @ p["w_ih"] + p["b_ih"], p["w_hh"], p["b_hh"], h0)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -134,14 +143,17 @@ def test_pallas_route_runs_k8_on_card(cuda, hidden, dtype, padded):
 # --------------------------------------------------------------------------- #
 class LeftForLater(NamedTuple):
     """The widths at which the JAX package's gates take a kernel and the
-    port's do not yet: each needs a new shared-memory plan, not more
-    64-unit blocks."""
+    port's do not yet: none is left."""
     k7: range  # none: every H (bf16 to 640) and every C (JAX: bf16 C <= 19,083 at H 64)
-    k8: range  # above 1024 (JAX: no width gate)
+    k8: range  # none: K5/K6 and K8 run above 1024 on tile groups (JAX: no width gate)
 
 
-LEFT_FOR_LATER = LeftForLater(range(0), range(1025, 2 ** 31))
+LEFT_FOR_LATER = LeftForLater(range(0), range(0))
 GATE_WIDTHS = range(8, 1025, 8)
+# K5/K6 and K8 above 1024: tile groups to 4096, and around the widest group
+# an H100 holds (132 CTAs of 64 units in f32: 8448; of 128: 16896), past
+# which one launch a step runs
+WIDE_GATE_WIDTHS = [*range(1088, 4097, 64), *(c + d for c in (8448, 16896) for d in (-64, 0, 64))]
 # K7's widest geometries of the JAX gate at V 60 and linear 256 (H, C): bf16
 # H = C 541, C 19,083 at H 64 and 3,954 at H 256, H 619 at C 16 and 612 at
 # C 64; f32 H = C 377, C 1,513 at H 256, H 430 at C 16
@@ -198,7 +210,8 @@ def test_port_gates_take_what_the_jax_gates_take(on_tpu):
                 taken["k2"] += _agree(
                     JaxHD._use_pallas_decode(jax_dec, {"tick_gru": [[{"w_hh": w}]]}), port_takes,
                     False, ("K2/K4", hidden, vocab, dtype_t))
-            # K5/K6 and K8: the JAX package's routes have no width gate
+        # K5/K6 and K8: the JAX package's routes have no width gate
+        for hidden in (*GATE_WIDTHS, *WIDE_GATE_WIDTHS):
             taken["k5_k8"] += _agree(True, tk.trainfast_supports(hidden)
                                      and kc.gru_layer_supports_hidden(hidden, dtype_t),
                                      hidden in left.k8, ("K5/K6/K8", hidden, dtype_t))

@@ -369,18 +369,18 @@ def test_repr_and_checkpoints_match_jax(tmp_path, ablation, auto_reg, tf):
 
 
 def test_training_route_gate(monkeypatch):
-    """The gate is a function of the width alone: every width up to 1024
-    (the H-1024 generation GRU, and H 16 on zero units) takes the trainfast
-    Function, a wider one the eager loop; an unmasked training layer
+    """The gate is a function of the width alone: every width (the H-1024
+    generation GRU, H 16 on zero units, and above 1024, since K5/K6 run on
+    tile groups) takes the trainfast Function; an unmasked training layer
     follows it."""
     assert gk.trainfast_supports(512) and gk.trainfast_supports(64)
     assert gk.trainfast_supports(1024) and gk.trainfast_supports(16)
-    assert not gk.trainfast_supports(1088) and not gk.trainfast_supports(0)
+    assert gk.trainfast_supports(1088) and not gk.trainfast_supports(0)
     calls = []
     real = gk.gru_fwd_seq_reference
     monkeypatch.setattr(gk, "gru_fwd_seq_reference",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
-    for hidden, want in ((64, 1), (16, 1), (1088, 0)):
+    for hidden, want in ((64, 1), (16, 1), (1088, 1)):
         calls.clear()
         p = {k: torch.from_numpy(v) for k, v in
              gru_mod.gru_init(np.random.default_rng(0), 3, hidden, 1)[0][0].items()}
