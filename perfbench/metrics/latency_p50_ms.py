@@ -1,0 +1,7 @@
+"""latency_p50_ms: the median, over every request of the window, of the
+milliseconds from submitting it to the engine to its returned tokens."""
+import numpy as np
+
+
+def read(ctx):
+    return float(np.percentile(np.asarray(ctx.latencies) * 1e3, 50))
