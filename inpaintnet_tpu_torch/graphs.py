@@ -10,9 +10,10 @@ bucket and whatever else fixes the call's launch sequence), each with
 - its static inputs, which every call rewrites whole before the replay;
 - the captured ``torch.cuda.CUDAGraph`` and its static outputs;
 - the kernel launches its capture counted (the wrappers of
-  ``ops.kernel_common.LAUNCH_COUNTERS``): every replay adds them to the
-  wrappers' ``launches`` counters, so a count means what it means on the
-  eager route;
+  ``ops.kernel_common.LAUNCH_COUNTERS``), and the counts of
+  ``utils.profiling``'s named counters (the encoder's and decoder's rows):
+  every replay adds them to the wrappers' ``launches`` and to those
+  counters, so a count means what it means on the eager route;
 - the CUDA generator its batch-seed draws come from, registered with the
   graph and seeded before each replay with the seed the eager route seeds
   its own generator with: a replay draws what the eager call draws.
@@ -39,6 +40,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 from inpaintnet_tpu_torch.ops.kernel_common import LAUNCH_COUNTERS
+from inpaintnet_tpu_torch.utils.profiling import count, counters, span
 
 
 class GraphCaptureError(RuntimeError):
@@ -52,16 +54,18 @@ def _launch_counts() -> list:
 
 class CapturedCall:
     """One key's graph, its static inputs and outputs, its generator (or
-    None), the launches its capture counted ({wrapper: launches}), and the
-    seconds of its eager run and of its capture."""
+    None), the launches its capture counted ({wrapper: launches}) and its
+    named counts ({counter: n}), and the seconds of its eager run and of
+    its capture."""
 
-    def __init__(self, graph, inputs, outputs, generator, launches: dict, warm_s: float,
-                 capture_s: float):
+    def __init__(self, graph, inputs, outputs, generator, launches: dict, counts: dict,
+                 warm_s: float, capture_s: float):
         self.graph = graph
         self.inputs = inputs
         self.outputs = outputs
         self.generator = generator
         self.launches = launches
+        self.counts = counts
         self.warm_s = warm_s
         self.capture_s = capture_s
 
@@ -90,22 +94,26 @@ class GraphSet:
              seed: Optional[int] = None):
         """``fn(*inputs, generator=g)`` on ``device`` through key's graph:
         ``inputs`` (tensors of the key's fixed shapes, on any device) are
-        copied into its static inputs and the graph replays, ``g`` seeded
-        with ``seed`` (None: ``g`` is None, the call draws no batch noise).
-        A key's first call runs ``fn`` eagerly and captures it. Returns the
-        outputs (the graph's static tensors after a replay): read them
-        while holding :attr:`lock`."""
+        copied into its static inputs (span ``engine.copy_in``) and the graph
+        replays (``engine.run``), ``g`` seeded with ``seed`` (None: ``g`` is
+        None, the call draws no batch noise). A key's first call runs ``fn``
+        eagerly and captures it. Returns the outputs (the graph's static
+        tensors after a replay): read them while holding :attr:`lock`."""
         with self.lock, torch.cuda.device(device):
             entry = self._calls.get(key)
             if entry is None:
                 return self._capture(key, device, fn, inputs, seed)
-            for static, x in zip(entry.inputs, inputs):
-                static.copy_(x)
-            if entry.generator is not None:
-                entry.generator.manual_seed(seed)
-            entry.graph.replay()
+            with span("engine.copy_in", device):
+                for static, x in zip(entry.inputs, inputs):
+                    static.copy_(x)
+            with span("engine.run", device):
+                if entry.generator is not None:
+                    entry.generator.manual_seed(seed)
+                entry.graph.replay()
             for wrapper, n in entry.launches.items():
                 wrapper.launches += n
+            for name, n in entry.counts.items():
+                count(name, n)
             return entry.outputs
 
     def _capture(self, key, device, fn, inputs, seed):
@@ -125,7 +133,7 @@ class GraphSet:
         torch.cuda.current_stream(device).wait_stream(stream)
         t1 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        before = _launch_counts()
+        before, named = _launch_counts(), counters()
         try:
             if generator is not None:
                 graph.register_generator_state(generator)
@@ -141,12 +149,16 @@ class GraphSet:
             raise GraphCaptureError(f"capturing the CUDA graph of {key!r} failed: "
                                     f"{type(e).__name__}: {e}") from e
         finally:
-            # the capture launched nothing: its counts go to the replays
+            # the capture launched and computed nothing: its counts go to the
+            # replays
             counted = {w: w.launches - b for w, b in zip(LAUNCH_COUNTERS, before)}
             for w, b in zip(LAUNCH_COUNTERS, before):
                 w.launches = b
+            counts = {k: n - named[k] for k, n in counters().items() if n != named[k]}
+            for k, n in counts.items():
+                count(k, -n)
         self._calls[key] = CapturedCall(graph, statics, outputs, generator,
-                                        {w: n for w, n in counted.items() if n},
+                                        {w: n for w, n in counted.items() if n}, counts,
                                         t1 - t0, time.perf_counter() - t1)
         return first
 
@@ -186,10 +198,12 @@ class GraphRouted:
         """``fn(*inputs, generator=g)`` on ``device`` (call it holding
         ``self._graphs.lock`` and read the outputs before releasing it):
         through ``key``'s graph on the graph route, else eagerly on the
-        inputs moved there. ``g`` draws the batch noise from ``seed``
-        (None: no generator)."""
+        inputs moved there (spans ``engine.copy_in``, ``engine.run``). ``g``
+        draws the batch noise from ``seed`` (None: no generator)."""
         if self.graphs:
             return self._graphs.call(key, device, fn, inputs, seed)
         generator = None if seed is None else torch.Generator(device=device).manual_seed(seed)
-        with torch.inference_mode():
-            return fn(*(x.to(device) for x in inputs), generator=generator)
+        with span("engine.copy_in", device):
+            inputs = [x.to(device) for x in inputs]
+        with span("engine.run", device), torch.inference_mode():
+            return fn(*inputs, generator=generator)

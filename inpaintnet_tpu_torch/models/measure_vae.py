@@ -80,6 +80,7 @@ from inpaintnet_tpu_torch.ops.linear import (
 from inpaintnet_tpu_torch.ops.quantize import check_quant
 from inpaintnet_tpu_torch.ops.sampling import gumbel as gumbel_noise
 from inpaintnet_tpu_torch.ops.sampling import sample_argmax, sample_categorical
+from inpaintnet_tpu_torch.utils.profiling import count
 
 NUM_BEATS_PER_MEASURE = 4
 NUM_TICKS_PER_MEASURE = 24
@@ -179,8 +180,12 @@ class Encoder(nn.Module):
         :param train: the training route: the trainfast GRU layers with
             dropout between them (``generator`` draws the keep mask, or
             ``dropout_masks`` gives it), never K3; K1's training mode under
-            ``INPAINTNET_TRAIN_ENCODER_IMPL=pallas`` (:meth:`use_train_kernel`)"""
+            ``INPAINTNET_TRAIN_ENCODER_IMPL=pallas`` (:meth:`use_train_kernel`)
+
+        Counts the measures it encodes as ``encoder.rows``
+        (``utils.profiling``), on every route."""
         check_quant(quant)
+        count("encoder.rows", tokens.shape[0])
         if train and self.use_train_kernel(params["gru"][0][0]["w_hh"].dtype):
             return self._apply_train_kernel(params, tokens, generator, dropout_masks)
         if train:
@@ -387,9 +392,13 @@ class HierarchicalDecoder(nn.Module):
             loop (autograd differentiates it), never K2 or K4
         :param gumbel: optional (B, 24, V) noise of the multinomial samples
         :return: (logits (B, 24, V), samples (B, 24) int32)
+
+        Counts the measures it decodes as ``decoder.rows``
+        (``utils.profiling``), on every route.
         """
         check_quant(quant)
         batch = z.shape[0]
+        count("decoder.rows", batch)
         beat_out = self._beat_outputs(params, z, train=train, generator=generator)
         tick_ctx = torch.selu(linear_apply(params["beat_to_tick_input"], beat_out))
         h_inits = self._tick_h0(

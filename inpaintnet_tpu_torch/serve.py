@@ -57,6 +57,7 @@ from inpaintnet_tpu_torch.graphs import GraphRouted
 from inpaintnet_tpu_torch.models.base import cast_params
 from inpaintnet_tpu_torch.ops.gru import get_gru_impl
 from inpaintnet_tpu_torch.parallel.mesh import Mesh, batch_sharding, fold_seed, replicate
+from inpaintnet_tpu_torch.utils.profiling import count, span
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 SERVE_DTYPES = (*DTYPES, "int8")
@@ -231,6 +232,16 @@ class InpaintingEngine(GraphRouted):
         fm[rows, :n_future] = 1
         tm[rows, :num_measures] = 1
 
+    @staticmethod
+    def _count_needed(arrays) -> None:
+        """Count the encoder rows and decoder rows a batch's requests need
+        (``encoder.rows_needed``, ``decoder.rows_needed``) from its host
+        masks: the present context measures and the target measures. Pad
+        rows' masks are zero."""
+        _, pm, _, fm, tm = arrays
+        count("encoder.rows_needed", int(pm.sum() + fm.sum()))
+        count("decoder.rows_needed", int(tm.sum()))
+
     def _shards(self, arrays):
         """(shard index, its rows of the host ``arrays`` as tensors, the
         device, its weights) of a batch: one shard on the engine's device
@@ -271,7 +282,8 @@ class InpaintingEngine(GraphRouted):
                 samples = self._call((method, bucket, route, i), device,
                                      self._sample_fn(params, vae_params), shard,
                                      None if row_keys is not None else self._shard_seed(seed, i))
-                outs.append(samples.cpu().numpy())
+                with span("engine.copy_out", device):
+                    outs.append(samples.cpu().numpy())
         return np.concatenate(outs)
 
     @staticmethod
@@ -308,13 +320,21 @@ class InpaintingEngine(GraphRouted):
                              seed=chunk_seed(seed, i))
                 for i, lo in enumerate(range(0, b, largest))
             ])
-        bucket = pick_bucket(self.batch_buckets, b)
-        arrays = self._pack_request(tokens, start_measure, num_measures, bucket)
-        samples = self._run(arrays, bucket, seed=seed)
-        self._compiled[bucket] = True
-        out = tokens.copy()
-        out[:, start_measure:start_measure + num_measures] = samples[:b, :num_measures]
-        return out
+        with span("engine.call"):
+            with span("engine.validate"):
+                _, m, n_past, n_future = self._validate_request(tokens, start_measure,
+                                                                num_measures)
+                bucket = pick_bucket(self.batch_buckets, b)
+            with span("engine.pack"):
+                arrays = self._empty_batch(bucket)
+                self._fill_rows(arrays, slice(0, b), tokens, num_measures, m, n_past, n_future)
+                self._count_needed(arrays)
+            samples = self._run(arrays, bucket, seed=seed)
+            self._compiled[bucket] = True
+            with span("engine.scatter"):
+                out = tokens.copy()
+                out[:, start_measure:start_measure + num_measures] = samples[:b, :num_measures]
+            return out
 
     def inpaint_hetero(self, requests: Sequence[dict], bucket: Optional[int] = None) -> list:
         """One device batch serving several independent requests with
@@ -337,38 +357,43 @@ class InpaintingEngine(GraphRouted):
         """
         if not requests:
             return []
-        norm, rows = [], 0
-        for r in requests:
-            tokens = np.asarray(r["tokens"])
-            start, num = r["start_measure"], r["num_measures"]
-            b, m, n_past, n_future = self._validate_request(tokens, start, num)
-            seed = self.seed if r.get("seed") is None else r["seed"]
-            norm.append((tokens, start, num, seed, b, m, n_past, n_future))
-            rows += b
-        cap = self.batch_buckets[-1] if bucket is None else bucket
-        if rows > cap:
-            raise ValueError(
-                f"{rows} total rows exceed the "
-                f"{'largest bucket' if bucket is None else 'pinned bucket'} ({cap}); "
-                "split the request set")
-        if bucket is None:
-            bucket = pick_bucket(self.batch_buckets, rows)
-        arrays = self._empty_batch(bucket)
-        row_keys = np.zeros((bucket, 2), np.int64)
-        lo = 0
-        for tokens, start, num, seed, b, m, n_past, n_future in norm:
-            self._fill_rows(arrays, slice(lo, lo + b), tokens, num, m, n_past, n_future)
-            row_keys[lo:lo + b] = derive_row_keys(seed, b)
-            lo += b
-        samples = self._run(arrays, bucket, row_keys=row_keys)
-        self._compiled[("hetero", bucket)] = True
-        outs, lo = [], 0
-        for tokens, start, num, seed, b, m, n_past, n_future in norm:
-            out = tokens.copy()
-            out[:, start:start + num] = samples[lo:lo + b, :num]
-            outs.append(out)
-            lo += b
-        return outs
+        with span("engine.call"):
+            with span("engine.validate"):
+                norm, rows = [], 0
+                for r in requests:
+                    tokens = np.asarray(r["tokens"])
+                    start, num = r["start_measure"], r["num_measures"]
+                    b, m, n_past, n_future = self._validate_request(tokens, start, num)
+                    seed = self.seed if r.get("seed") is None else r["seed"]
+                    norm.append((tokens, start, num, seed, b, m, n_past, n_future))
+                    rows += b
+                cap = self.batch_buckets[-1] if bucket is None else bucket
+                if rows > cap:
+                    raise ValueError(
+                        f"{rows} total rows exceed the "
+                        f"{'largest bucket' if bucket is None else 'pinned bucket'} ({cap}); "
+                        "split the request set")
+                if bucket is None:
+                    bucket = pick_bucket(self.batch_buckets, rows)
+            with span("engine.pack"):
+                arrays = self._empty_batch(bucket)
+                row_keys = np.zeros((bucket, 2), np.int64)
+                lo = 0
+                for tokens, start, num, seed, b, m, n_past, n_future in norm:
+                    self._fill_rows(arrays, slice(lo, lo + b), tokens, num, m, n_past, n_future)
+                    row_keys[lo:lo + b] = derive_row_keys(seed, b)
+                    lo += b
+                self._count_needed(arrays)
+            samples = self._run(arrays, bucket, row_keys=row_keys)
+            self._compiled[("hetero", bucket)] = True
+            with span("engine.scatter"):
+                outs, lo = [], 0
+                for tokens, start, num, seed, b, m, n_past, n_future in norm:
+                    out = tokens.copy()
+                    out[:, start:start + num] = samples[lo:lo + b, :num]
+                    outs.append(out)
+                    lo += b
+            return outs
 
     def inpaint_variations(self, tokens: np.ndarray, start_measure: int, num_measures: int,
                            num_variations: int, seed: Optional[int] = None) -> np.ndarray:

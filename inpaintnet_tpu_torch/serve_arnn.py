@@ -51,6 +51,7 @@ import torch
 from inpaintnet_tpu_torch.graphs import GraphRouted
 from inpaintnet_tpu_torch.models.base import cast_params
 from inpaintnet_tpu_torch.serve import DTYPES, derive_row_keys, pick_bucket
+from inpaintnet_tpu_torch.utils.profiling import span
 
 __all__ = ["ARNNServingEngine"]
 
@@ -159,8 +160,9 @@ class ARNNServingEngine(GraphRouted):
         if sampled:
             inputs += (torch.from_numpy(temps), torch.from_numpy(row_keys.astype(np.int64)))
         with self._graphs.lock:
-            return self._call((b, total // msl, sampled, masked), dev, decode,
-                              inputs).cpu().numpy()
+            gen = self._call((b, total // msl, sampled, masked), dev, decode, inputs)
+            with span("engine.copy_out", dev):
+                return gen.cpu().numpy()
 
     def inpaint_hetero(self, requests: Sequence[dict], bucket: Optional[int] = None) -> list:
         """Several independent requests in ONE batch (the dynamic-batching
@@ -179,43 +181,49 @@ class ARNNServingEngine(GraphRouted):
         """
         if not requests:
             return []
-        ms = [np.asarray(r["tokens"]).shape[1] for r in requests]
-        mbs = {self.length_bucket(m) for m in ms}
-        if len(mbs) != 1:
-            raise ValueError(
-                f"coalesced ARNN requests must share a measure bucket ({self.measure_buckets}); "
-                f"got lengths {sorted(set(ms))} spanning buckets {sorted(mbs)}")
-        mb = mbs.pop()
-        kinds = {r.get("temperature") is None for r in requests}
-        if len(kinds) != 1:
-            raise ValueError("coalesced ARNN requests must share a decode kind "
-                             "(all argmax or all sampled)")
-        toks = [np.asarray(r["tokens"]) for r in requests]
-        toks = [t if t.shape[1] == mb else np.concatenate(
-            [t, np.zeros((t.shape[0], mb - t.shape[1], t.shape[2]), t.dtype)], axis=1)
-            for t in toks]
-        sizes = [t.shape[0] for t in toks]
+        with span("engine.call"):
+            with span("engine.validate"):
+                ms = [np.asarray(r["tokens"]).shape[1] for r in requests]
+                mbs = {self.length_bucket(m) for m in ms}
+                if len(mbs) != 1:
+                    raise ValueError(
+                        f"coalesced ARNN requests must share a measure bucket "
+                        f"({self.measure_buckets}); got lengths {sorted(set(ms))} spanning "
+                        f"buckets {sorted(mbs)}")
+                mb = mbs.pop()
+                kinds = {r.get("temperature") is None for r in requests}
+                if len(kinds) != 1:
+                    raise ValueError("coalesced ARNN requests must share a decode kind "
+                                     "(all argmax or all sampled)")
+            with span("engine.pack"):
+                toks = [np.asarray(r["tokens"]) for r in requests]
+                toks = [t if t.shape[1] == mb else np.concatenate(
+                    [t, np.zeros((t.shape[0], mb - t.shape[1], t.shape[2]), t.dtype)], axis=1)
+                    for t in toks]
+                sizes = [t.shape[0] for t in toks]
 
-        def per_row(values, dtype):
-            return np.concatenate([np.full((n,), v, dtype) for n, v in zip(sizes, values)])
+                def per_row(values, dtype):
+                    return np.concatenate([np.full((n,), v, dtype)
+                                           for n, v in zip(sizes, values)])
 
-        sampled = not kinds.pop()
-        temperature = row_keys = None
-        if sampled:
-            temperature = per_row([r["temperature"] for r in requests], np.float32)
-            row_keys = np.concatenate([
-                derive_row_keys(self.seed if r.get("seed") is None else r["seed"], n)
-                for n, r in zip(sizes, requests)])
-        out = self.inpaint(np.concatenate(toks),
-                           per_row([r["start_measure"] for r in requests], np.int64),
-                           per_row([r["num_measures"] for r in requests], np.int64),
-                           temperature=temperature, bucket=bucket, row_keys=row_keys,
-                           lengths=per_row(ms, np.int64))
-        outs, lo = [], 0
-        for n, m in zip(sizes, ms):
-            outs.append(out[lo:lo + n, :m])
-            lo += n
-        return outs
+                sampled = not kinds.pop()
+                temperature = row_keys = None
+                if sampled:
+                    temperature = per_row([r["temperature"] for r in requests], np.float32)
+                    row_keys = np.concatenate([
+                        derive_row_keys(self.seed if r.get("seed") is None else r["seed"], n)
+                        for n, r in zip(sizes, requests)])
+                starts = per_row([r["start_measure"] for r in requests], np.int64)
+                nums = per_row([r["num_measures"] for r in requests], np.int64)
+                tokens, lengths = np.concatenate(toks), per_row(ms, np.int64)
+            out = self._inpaint(tokens, starts, nums, temperature=temperature, bucket=bucket,
+                                row_keys=row_keys, lengths=lengths)
+            with span("engine.scatter"):
+                outs, lo = [], 0
+                for n, m in zip(sizes, ms):
+                    outs.append(out[lo:lo + n, :m])
+                    lo += n
+            return outs
 
     def inpaint(self, tokens: np.ndarray, start_measure, num_measures,
                 seed: Optional[int] = None, temperature=None, bucket: Optional[int] = None,
@@ -239,62 +247,74 @@ class ARNNServingEngine(GraphRouted):
             the hetero path already suffix-padded to M (spans inside them)
         :return: (B, M, msl) tokens with each row's span replaced
         """
-        tokens = np.asarray(tokens)
-        if tokens.ndim != 3 or tokens.shape[2] != self.msl:
-            raise ValueError(f"tokens must be (B, M, {self.msl}), got {tokens.shape}")
-        b, m, msl = tokens.shape
-        if m > self.max_measures:
-            raise ValueError(f"{m} measures exceed max_measures={self.max_measures} (the cap "
-                             "bounds the decode a request can ask for)")
-        vocab = self.model.num_notes
-        if not np.issubdtype(tokens.dtype, np.integer) or (
-                tokens.size and (tokens.min() < 0 or tokens.max() >= vocab)):
-            raise ValueError(f"token values must be integers in [0, {vocab})")
-        lens = np.broadcast_to(np.asarray(m if lengths is None else lengths, np.int64), (b,))
-        starts = np.broadcast_to(np.asarray(start_measure, np.int64), (b,))
-        nums = np.broadcast_to(np.asarray(num_measures, np.int64), (b,))
-        if not ((lens <= m) & (lens >= 1) & (nums >= 1) & (starts >= 1)
-                & (starts + nums <= lens)).all():
-            raise ValueError("need >= 1 past measure, >= 1 span measure, and the span "
-                             "inside the row's length")
-        sampled = temperature is not None
-        if sampled and row_keys is None:
-            # the keys a lone request gets in inpaint_hetero: solo == coalesced
-            row_keys = derive_row_keys(self.seed if seed is None else seed, b)
-        temps = None
-        if sampled:
-            temps = np.broadcast_to(np.asarray(temperature, np.float32), (b,))
+        with span("engine.call"):
+            return self._inpaint(tokens, start_measure, num_measures, seed, temperature,
+                                 bucket, row_keys, lengths)
+
+    def _inpaint(self, tokens, start_measure, num_measures, seed=None, temperature=None,
+                 bucket=None, row_keys=None, lengths=None) -> np.ndarray:
+        """:meth:`inpaint` inside its ``engine.call`` span (a batch above
+        the bucket runs its chunks in the same call)."""
+        with span("engine.validate"):
+            tokens = np.asarray(tokens)
+            if tokens.ndim != 3 or tokens.shape[2] != self.msl:
+                raise ValueError(f"tokens must be (B, M, {self.msl}), got {tokens.shape}")
+            b, m, msl = tokens.shape
+            if m > self.max_measures:
+                raise ValueError(f"{m} measures exceed max_measures={self.max_measures} (the "
+                                 "cap bounds the decode a request can ask for)")
+            vocab = self.model.num_notes
+            if not np.issubdtype(tokens.dtype, np.integer) or (
+                    tokens.size and (tokens.min() < 0 or tokens.max() >= vocab)):
+                raise ValueError(f"token values must be integers in [0, {vocab})")
+            lens = np.broadcast_to(np.asarray(m if lengths is None else lengths, np.int64), (b,))
+            starts = np.broadcast_to(np.asarray(start_measure, np.int64), (b,))
+            nums = np.broadcast_to(np.asarray(num_measures, np.int64), (b,))
+            if not ((lens <= m) & (lens >= 1) & (nums >= 1) & (starts >= 1)
+                    & (starts + nums <= lens)).all():
+                raise ValueError("need >= 1 past measure, >= 1 span measure, and the span "
+                                 "inside the row's length")
+            sampled = temperature is not None
+            if sampled and row_keys is None:
+                # the keys a lone request gets in inpaint_hetero: solo == coalesced
+                row_keys = derive_row_keys(self.seed if seed is None else seed, b)
+            temps = None
+            if sampled:
+                temps = np.broadcast_to(np.asarray(temperature, np.float32), (b,))
         cap = self.batch_buckets[-1] if bucket is None else bucket
         if b > cap:
             return np.concatenate([
-                self.inpaint(tokens[lo:lo + cap], starts[lo:lo + cap], nums[lo:lo + cap],
-                             temperature=None if temps is None else temps[lo:lo + cap],
-                             bucket=bucket,
-                             row_keys=None if row_keys is None else row_keys[lo:lo + cap],
-                             lengths=lens[lo:lo + cap])
+                self._inpaint(tokens[lo:lo + cap], starts[lo:lo + cap], nums[lo:lo + cap],
+                              temperature=None if temps is None else temps[lo:lo + cap],
+                              bucket=bucket,
+                              row_keys=None if row_keys is None else row_keys[lo:lo + cap],
+                              lengths=lens[lo:lo + cap])
                 for lo in range(0, b, cap)])
-        mb = self.length_bucket(m)
-        if bucket is None:
-            bucket = pick_bucket(self.batch_buckets, b)
-        total = mb * msl
-        # pad rows run full length with a 1-measure span; their tokens are dropped
-        score = np.zeros((bucket, total), np.int32)
-        score[:b, :m * msl] = tokens.reshape(b, m * msl)
-        starts_w, nums_w, lens_w = (np.ones((bucket,), np.int64), np.ones((bucket,), np.int64),
-                                    np.full((bucket,), mb, np.int64))
-        starts_w[:b], nums_w[:b], lens_w[:b] = starts, nums, lens
-        keys_w = temps_w = None
-        if sampled:
-            keys_w = np.zeros((bucket, 2), np.int64)
-            keys_w[:b] = row_keys
-            temps_w = np.ones((bucket,), np.float32)
-            temps_w[:b] = temps
+        with span("engine.pack"):
+            mb = self.length_bucket(m)
+            if bucket is None:
+                bucket = pick_bucket(self.batch_buckets, b)
+            total = mb * msl
+            # pad rows run full length with a 1-measure span; their tokens are dropped
+            score = np.zeros((bucket, total), np.int32)
+            score[:b, :m * msl] = tokens.reshape(b, m * msl)
+            starts_w, nums_w, lens_w = (np.ones((bucket,), np.int64),
+                                        np.ones((bucket,), np.int64),
+                                        np.full((bucket,), mb, np.int64))
+            starts_w[:b], nums_w[:b], lens_w[:b] = starts, nums, lens
+            keys_w = temps_w = None
+            if sampled:
+                keys_w = np.zeros((bucket, 2), np.int64)
+                keys_w[:b] = row_keys
+                temps_w = np.ones((bucket,), np.float32)
+                temps_w[:b] = temps
         gen = self._run(score, starts_w, nums_w, lens_w, keys_w, temps_w)
         self._compiled[(bucket, mb, sampled)] = True
-        # the span scatter on the host, from the host's copy of the spans
-        tick = np.arange(m * msl)
-        span = ((tick[None, :] >= (starts * msl)[:, None])
-                & (tick[None, :] < ((starts + nums) * msl)[:, None]))
-        out = tokens.reshape(b, m * msl).copy()
-        out[span] = gen[:b, :m * msl][span]
-        return out.reshape(b, m, msl)
+        with span("engine.scatter"):
+            # the span scatter on the host, from the host's copy of the spans
+            tick = np.arange(m * msl)
+            in_span = ((tick[None, :] >= (starts * msl)[:, None])
+                       & (tick[None, :] < ((starts + nums) * msl)[:, None]))
+            out = tokens.reshape(b, m * msl).copy()
+            out[in_span] = gen[:b, :m * msl][in_span]
+            return out.reshape(b, m, msl)

@@ -43,7 +43,7 @@ Endpoints (JSON in/out):
 - ``POST /v1/interpolate`` — latent interpolation between two measures
   (``measure_a``/``measure_b`` + ``num_points``; deterministic).
 - ``GET  /metrics`` — Prometheus text format (request/status counters,
-  latency histograms, coalesced-batch-size histogram).
+  latency histograms, coalesced-batch-size and batch-wait histograms).
 
 Bulk transport: POSTs also accept ``Content-Type: application/x-npy``
 with the raw ``.npy`` bytes of the tokens array as the body and the
@@ -189,12 +189,14 @@ def _get_int(payload, name, lo=None, hi=None):
 
 
 class _Metrics:
-    """Lock-guarded request counters + latency/batch-size histograms,
-    rendered in the Prometheus text exposition format at ``GET /metrics``
-    (no client-library dependency — the format is plain text)."""
+    """Lock-guarded request counters + latency/batch-size/batch-wait
+    histograms, rendered in the Prometheus text exposition format at
+    ``GET /metrics`` (no client-library dependency — the format is plain
+    text)."""
 
     LAT_BUCKETS = (5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 1000.0, 5000.0)
     BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+    WAIT_BUCKETS = (0.5, 1.0, 2.0, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 1000.0)
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -204,6 +206,8 @@ class _Metrics:
         self.batch_hist = [0] * (len(self.BATCH_BUCKETS) + 1)
         self.batch_sum = 0
         self.batch_count = 0
+        self.wait_hist = [0] * (len(self.WAIT_BUCKETS) + 1)
+        self.wait_sum = 0.0
 
     def observe(self, route: str, status: int, ms: float):
         with self.lock:
@@ -227,6 +231,16 @@ class _Metrics:
             self.batch_hist[i] += 1
             self.batch_sum += size
             self.batch_count += 1
+
+    def observe_wait(self, ms: float):
+        """One coalesced request's wait in the batcher's queue, from its
+        enqueue to its batch's dispatch."""
+        with self.lock:
+            i = 0
+            while i < len(self.WAIT_BUCKETS) and ms > self.WAIT_BUCKETS[i]:
+                i += 1
+            self.wait_hist[i] += 1
+            self.wait_sum += ms
 
     def render(self) -> str:
         out = [
@@ -289,17 +303,33 @@ class _Metrics:
                     f"inpaintnet_coalesced_batch_size_count "
                     f"{self.batch_count}"
                 )
+                out += [
+                    "# HELP inpaintnet_batch_wait_ms Time a coalesced request "
+                    "waited in the batcher's queue, from enqueue to its "
+                    "batch's dispatch.",
+                    "# TYPE inpaintnet_batch_wait_ms histogram",
+                ]
+                cum = 0
+                for le, n in zip(self.WAIT_BUCKETS, self.wait_hist):
+                    cum += n
+                    out.append(f'inpaintnet_batch_wait_ms_bucket{{le="{le}"}} {cum}')
+                cum += self.wait_hist[-1]
+                out.append(f'inpaintnet_batch_wait_ms_bucket{{le="+Inf"}} {cum}')
+                out.append(f"inpaintnet_batch_wait_ms_sum {self.wait_sum:.3f}")
+                out.append(f"inpaintnet_batch_wait_ms_count {cum}")
         return "\n".join(out) + "\n"
 
 
 class _Slot:
-    """One waiting request in the batcher's queue."""
-    __slots__ = ("event", "result", "error")
+    """One waiting request in the batcher's queue, stamped at its enqueue
+    (``time.monotonic``)."""
+    __slots__ = ("event", "result", "error", "enqueued")
 
     def __init__(self):
         self.event = threading.Event()
         self.result = None
         self.error: Optional[BaseException] = None
+        self.enqueued = 0.0
 
 
 class _Batcher:
@@ -360,6 +390,7 @@ class _Batcher:
         with self._submit_lock:
             if self._stopped or not self._thread.is_alive():
                 raise RuntimeError("batcher is not running")
+            slot.enqueued = time.monotonic()
             self.queue.put((request, slot))
         slot.event.wait()
         if slot.error is not None:
@@ -447,6 +478,9 @@ class _Batcher:
             self.requests += len(batch)
             if self.metrics is not None:
                 self.metrics.observe_batch(len(batch))
+                dispatched = time.monotonic()
+                for _, slot in batch:
+                    self.metrics.observe_wait(1e3 * (dispatched - slot.enqueued))
             with self.lock:
                 outs = self.dispatch([req for req, _ in batch])
         except Exception as exc:  # noqa: BLE001 — fan the error out

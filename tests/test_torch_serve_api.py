@@ -7,6 +7,7 @@ numpy-only ``InpaintingClient`` in front of the port's engine on localhost.
 hidden 64 puts every dtype on the kernel route (the plain versions on the
 CPU), so int8 runs K3's and K4's numerics."""
 import threading
+import urllib.request
 
 import numpy as np
 import pytest
@@ -198,3 +199,40 @@ def test_server_endpoints(served):
         with pytest.raises(ServerError) as bad:
             c.interpolate(tokens[0, 0], tokens[0, 1], engine.MAX_INTERP + 1)
         assert bad.value.status == 400
+
+
+def test_server_metrics_time_the_batch_wait(model):
+    """Two requests coalesced into one batch: ``GET /metrics`` counts one
+    batch of two and each request's wait in the batcher's queue."""
+    engine = InpaintingEngine(model, batch_buckets=(2,), dtype="float32")
+    # a batch of two rows dispatches as soon as the second arrives
+    server = InpaintingServer(engine, port=0, batching=True, max_wait_ms=10_000)
+    port = server.start()
+    errors = []
+
+    def worker(i):
+        try:
+            with InpaintingClient("127.0.0.1", port) as c:
+                c.inpaint(_toks(1, 16, 30 + i), 4, 2, seed=i)
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    try:
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not errors and not any(t.is_alive() for t in threads)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=60) as r:
+            lines = r.read().decode().splitlines()
+    finally:
+        server.stop()
+    values = {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1]) for ln in lines
+              if ln.startswith("inpaintnet_")}
+    assert values["inpaintnet_coalesced_batch_size_count"] == 1
+    assert values["inpaintnet_coalesced_batch_size_sum"] == 2
+    assert values["inpaintnet_batch_wait_ms_count"] == 2
+    assert values['inpaintnet_batch_wait_ms_bucket{le="+Inf"}'] == 2
+    assert 0 < values["inpaintnet_batch_wait_ms_sum"] < 10_000
+    assert "# TYPE inpaintnet_batch_wait_ms histogram" in lines

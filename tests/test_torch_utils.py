@@ -1,7 +1,6 @@
 """The port's utils (``inpaintnet_tpu_torch/utils``: rng, debug, timing,
 profiling) and the trainer's ``debug=`` sweep, on the CPU; the twins of
 the JAX package's ``inpaintnet_tpu/utils``."""
-import json
 import time
 
 import numpy as np
@@ -13,7 +12,7 @@ from inpaintnet_tpu_torch.models.presets import VocabOnlyDataset
 from inpaintnet_tpu_torch.train.data import ArrayDataset
 from inpaintnet_tpu_torch.train.vae_trainer import VAETrainer
 from inpaintnet_tpu_torch.utils.debug import assert_finite, checkify_wrap, nan_check
-from inpaintnet_tpu_torch.utils.profiling import StepTimer, device_event_durations, trace
+from inpaintnet_tpu_torch.utils.profiling import StepTimer
 from inpaintnet_tpu_torch.utils.rng import RngStream
 from inpaintnet_tpu_torch.utils.timing import device_timeit, fetch
 
@@ -73,14 +72,6 @@ def test_step_timer_and_device_timeit_on_the_cpu():
     seconds = device_timeit(lambda a: a @ a, x, iters=3, warmup=1, reps=2)
     assert 0 < seconds < 1.0
     assert fetch([x, {"y": torch.ones(2)}]) == 64 * 64 + 2
-
-
-def test_trace_on_the_cpu_has_no_device_events(tmp_path):
-    with trace(str(tmp_path)):
-        torch.ones(8, 8) @ torch.ones(8, 8)
-    with open(tmp_path / "trace.json") as f:
-        assert any("mm" in e.get("name", "") for e in json.load(f)["traceEvents"])
-    assert device_event_durations(str(tmp_path), "mm") == []
 
 
 def test_trainer_debug_stops_on_a_planted_nan():
